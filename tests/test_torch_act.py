@@ -1,0 +1,159 @@
+"""K2, the act phase (warehouse_tpu_torch/kernels/act.py), on the CPU.
+
+The flax model's weights go to the torch model through
+``params_from_flax``; ``ppo_rollout_pallas`` runs in interpret mode. On
+CPU tensors the port runs its plain twin. With the JAX gumbel stream fed
+in, obs, actions, rewards, deliveries and the final state are
+bit-equal, values within 1e-5 and log-probs within 1e-4 (f32 sums in
+another order, and torch's exp/log/tanh against XLA's). The wrapper's
+own keys are bit-exact. The CUDA kernel is checked on the card by
+test_torch_kernels_gpu.py and chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from warehouse_tpu import rng as jrng
+from warehouse_tpu.config import small_config
+from warehouse_tpu.env import batch as jbatch
+from warehouse_tpu.models import make_model as j_make_model
+from warehouse_tpu.pallas.act import ppo_rollout_pallas
+from warehouse_tpu_torch import rng
+from warehouse_tpu_torch.env import batch
+from warehouse_tpu_torch.env.state import STATE_FIELDS
+from warehouse_tpu_torch.kernels.act import (act_steps, ppo_rollout,
+                                             ppo_rollout_reference)
+from warehouse_tpu_torch.models import make_model, params_from_flax
+
+from test_torch_env import assert_state, env_keys
+from test_torch_rng import assert_bits, to_torch
+
+B, T, HIDDEN = 64, 4, 32
+CFG = small_config(max_steps=T)  # the chunk ends with the episode
+
+
+def port_model(params):
+    m = make_model(CFG, hidden_dim=HIDDEN)
+    m.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
+    return m
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jm = j_make_model(CFG, hidden_dim=HIDDEN)
+    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, CFG.obs_dim)))
+    jk, tk = env_keys(0, n=B)
+    js, jobs = jbatch.reset_batch(CFG, jk)
+    ts, tobs = batch.reset_batch(CFG, tk)
+    out = ppo_rollout_pallas(CFG, params, js, T, jax.random.PRNGKey(7),
+                             block=B, interpret=True)
+    return jm, params, port_model(params), js, ts, out
+
+
+def test_with_jax_gumbel_bit_exact(setup):
+    jm, params, m, js, ts, (j_new, j_roll, _, _) = setup
+    _, u, pick, drop, _ = rng.batched_step_draws(ts.key, CFG, T)
+    _, g = jrng.batched_gumbel_stream(jax.random.PRNGKey(7), T,
+                                      (5, B * CFG.num_agents))
+    new, obs, action, lp, value, reward, delivered = act_steps(
+        CFG, m, ts, u, pick, drop, to_torch(g))
+    assert_bits(j_roll.obs, obs, "obs")
+    assert_bits(j_roll.action, action, "action")
+    assert_bits(j_roll.reward, reward, "reward")
+    assert_bits(j_roll.delivered, delivered, "delivered")
+    for f in STATE_FIELDS[:-2]:  # t and key are the wrapper's
+        assert_bits(getattr(j_new, f), getattr(new, f), f)
+    np.testing.assert_allclose(value.numpy(), np.asarray(j_roll.value),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(j_roll.log_prob),
+                               rtol=0, atol=1e-4)
+
+
+def test_wrapper_outputs_and_keys(setup):
+    jm, params, m, js, ts, (j_new, j_roll, j_rk, j_nk) = setup
+    new, roll, rk, nk = ppo_rollout(CFG, m, ts, T, rng.prng_key(7))
+    assert_bits(j_rk, rk, "reset_key_last")
+    assert_bits(j_nk, nk, "next key")
+    assert_bits(j_new.t, new.t, "t")
+    assert_bits(j_new.key, new.key, "key")
+    for f in ("truncated", "mask"):
+        assert_bits(getattr(j_roll, f), getattr(roll, f), f)
+    assert torch.equal(roll.raw_reward, roll.reward)
+    # Own gumbel stream: the sampled action is JAX's wherever the top-two
+    # gap of logits + gumbel is wider than the gumbel's tolerance.
+    logits, _ = jm.apply(params, j_roll.obs)
+    _, g = jrng.batched_gumbel_stream(jax.random.PRNGKey(7), T,
+                                      (5, B * CFG.num_agents))
+    z = np.asarray(logits).reshape(T, -1, 5) + np.asarray(g).transpose(0, 2, 1)
+    top2 = np.sort(z, -1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0] > 1e-4).reshape(T, B, -1)
+    same = np.asarray(j_roll.action) == roll.action.numpy()
+    assert (same | ~clear).all()
+
+
+def test_twin_is_the_cpu_path(setup):
+    _, _, m, _, ts, _ = setup
+    a = ppo_rollout(CFG, m, ts, T, rng.prng_key(3))
+    b = ppo_rollout_reference(CFG, m, ts, T, rng.prng_key(3))
+    assert_state(a[0], b[0])
+    for x, y in zip(a[1], b[1]):
+        assert torch.equal(x, y)
+
+
+def test_boundary_reset_matches_autoreset_path(setup):
+    """reset_truncated_batch on the rollout's output == stepping the last
+    tick with step_autoreset_batch, and == the JAX boundary reset."""
+    _, _, m, js, ts, (j_new, _, j_rk, _) = setup
+    new, roll, rk, _ = ppo_rollout(CFG, m, ts, T, rng.prng_key(7))
+    reset_state, reset_obs, done = batch.reset_truncated_batch(CFG, new, rk)
+    assert bool(done.all())
+
+    s = ts
+    for t in range(T - 1):
+        s, _ = batch.step_batch(CFG, s, roll.action[t])
+    s2, tstep = batch.step_autoreset_batch(CFG, s, roll.action[T - 1])
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(s2, f), getattr(reset_state, f)), f
+    assert torch.equal(tstep.obs, reset_obs)
+
+    j_state, j_obs, _ = jbatch.reset_truncated_batch(CFG, j_new, j_rk)
+    assert_state(j_state, reset_state, "vs JAX")
+    assert_bits(j_obs, reset_obs, "obs vs JAX")
+
+
+@pytest.mark.parametrize("option", [
+    {"mask_actions": True}, {"shaping_coef": 0.1},
+    {"policy_groups": (0, 1)}, {"arch": "cnn"}])
+def test_unsupported_options_raise(setup, option):
+    _, _, m, _, ts, _ = setup
+    with pytest.raises(NotImplementedError):
+        ppo_rollout(CFG, m, ts, T, rng.prng_key(0), **option)
+
+
+def test_global_obs_and_auto_reset_raise(setup):
+    _, _, m, _, ts, _ = setup
+    with pytest.raises(NotImplementedError, match="global_obs"):
+        ppo_rollout(CFG.replace(global_obs=True), m, ts, T, rng.prng_key(0))
+    with pytest.raises(ValueError, match="auto_reset"):
+        ppo_rollout(CFG.replace(auto_reset=True), m, ts, T, rng.prng_key(0))
+
+
+def test_params_from_flax_checks_shapes(setup):
+    _, params, _, _, _, _ = setup
+    p = jax.tree.map(np.asarray, params)
+    sd = params_from_flax(p)
+    assert sd["hidden.0.weight"].shape == (HIDDEN, CFG.obs_dim)
+    assert sd["value.weight"].shape == (1, HIDDEN)
+    bad = jax.tree.map(lambda x: x, p)
+    bad["params"]["Dense_1"]["kernel"] = np.zeros((HIDDEN + 1, HIDDEN),
+                                                  np.float32)
+    with pytest.raises(ValueError, match="input width"):
+        params_from_flax(bad)
+    bad = jax.tree.map(lambda x: x, p)
+    bad["params"]["Dense_3"]["bias"] = np.zeros(2, np.float32)
+    with pytest.raises(ValueError, match="Dense_3"):
+        params_from_flax(bad)
+

@@ -1,0 +1,67 @@
+"""Batched env API (counterpart of ``warehouse_tpu/env/batch.py``).
+
+The engine is batched already, so ``reset_batch``/``step_batch`` are the
+engine functions; this module adds the two auto-reset schedules the
+rollouts use. Both consume ``StepDraws.reset_key`` of the truncating
+tick, so either is draw-for-draw identical to the per-env reset of
+``engine.step`` with ``auto_reset=True``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from warehouse_tpu.config import EnvConfig
+
+from .. import rng as _rng
+from . import engine
+from .state import EnvState, TimeStep
+
+
+def reset_batch(cfg: EnvConfig, keys: torch.Tensor):
+    """Reset a batch of envs from keys ``[B, 2]``: ``(state, obs)``."""
+    return engine.reset(cfg, keys)
+
+
+def step_batch(cfg: EnvConfig, state: EnvState, actions: torch.Tensor):
+    """Step a batch: actions int32[B, A] -> ``(state, TimeStep)``."""
+    return engine.step(cfg, state, actions)
+
+
+def observe_batch(cfg: EnvConfig, state: EnvState) -> torch.Tensor:
+    """Observations of a batched state, float32[B, A, obs_dim]."""
+    return engine.observe_state(cfg, state)
+
+
+def reset_truncated_batch(cfg: EnvConfig, state: EnvState,
+                          reset_keys: torch.Tensor):
+    """Boundary auto-reset after a chunked rollout.
+
+    Where ``state.t >= max_steps``, the env is replaced by
+    ``reset(reset_keys[b])``; ``reset_keys`` are the reset keys of the
+    truncating tick (``ppo_rollout``'s ``reset_key_last``). Returns
+    ``(state, obs, truncated)`` with the post-reset obs where reset.
+    """
+    done = state.t >= cfg.max_steps
+    obs = observe_batch(cfg, state)
+    if bool(done.any()):
+        reset_state, reset_obs = engine.reset(cfg, reset_keys)
+        state = reset_state.where(done, state)
+        obs = torch.where(done[:, None, None], reset_obs, obs)
+    return state, obs, done
+
+
+def step_autoreset_batch(cfg: EnvConfig, state: EnvState,
+                         actions: torch.Tensor) -> tuple[EnvState, TimeStep]:
+    """``step_batch`` with ``auto_reset=True``, the reset run only on ticks
+    where some env truncates (bit-exact twin of the per-env reset)."""
+    cfg_step = cfg.replace(auto_reset=False)
+    new, ts = engine.step(cfg_step, state, actions)
+    done = ts.truncated
+    if bool(done.any()):
+        reset_key = _rng.step_draws(state.key, cfg_step).reset_key
+        reset_state, reset_obs = engine.reset(cfg_step, reset_key)
+        new = reset_state.where(done, new)
+        ts = ts.replace(obs=torch.where(done[:, None, None], reset_obs,
+                                        ts.obs))
+    return new, ts

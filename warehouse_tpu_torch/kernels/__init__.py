@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain twins.
+
+Each wrapper launches its kernel on a CUDA tensor and runs its plain
+PyTorch twin on a CPU tensor; ``<wrapper>.launches`` counts the kernel
+launches. The sources in ``csrc/`` are compiled at first use
+(``build.library``).
+"""
+
+from .act import ActRollout, ppo_rollout, ppo_rollout_reference
+from .rollout import greedy_rollout, greedy_rollout_reference
+
+__all__ = ["ActRollout", "greedy_rollout", "greedy_rollout_reference",
+           "ppo_rollout", "ppo_rollout_reference"]

@@ -1,0 +1,106 @@
+"""Builds the CUDA kernels of ``csrc/`` and loads them with ctypes.
+
+The sources expose a plain C interface (no PyTorch headers), so one
+``nvcc`` call compiles them in seconds; a binding that includes PyTorch's
+headers takes minutes per build. The library goes to ``_build/`` under a
+name that hashes the sources, so an edited source is rebuilt and a
+process builds at most once. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
+
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+IP = ctypes.POINTER(ctypes.c_int)
+
+# argtypes of the C entry points: device pointers and the stream are
+# c_void_p, so ctypes passes them as 64-bit values.
+SIGNATURES = {
+    "wh_error_string": [I],
+    "wh_greedy_rollout": [I, I, L, I, I, I, F, F, F, F, F] + [P] * 21,
+    "wh_act_smem_bytes": [I, I, I, I, IP, I],
+    "wh_act_rollout": [I, I, L, I, I, I, F, I, I, I, F, F, F, F, F, F, I, IP,
+                       P, P, I] + [P] * 26,
+}
+RESTYPES = {"wh_act_smem_bytes": L, "wh_error_string": ctypes.c_char_p}
+
+
+def nvcc_path() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        candidates.insert(0, os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources_digest() -> str:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.iterdir()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Compile ``csrc/*.cu`` (once per source digest) and load it."""
+    digest = _sources_digest()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / f"libwarehouse_kernels-{digest}.so"
+    if not lib_path.exists():
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", str(tmp),
+               *map(str, sorted(CSRC.glob("*.cu")))]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        (BUILD_DIR / f"build-{digest}.log").write_text(
+            " ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = RESTYPES.get(name, I)
+    return lib
+
+
+def build_log() -> str:
+    """The compiler's output for the current sources (``-Xptxas=-v``)."""
+    path = BUILD_DIR / f"build-{_sources_digest()}.log"
+    return path.read_text() if path.exists() else ""
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err:
+        name = library().wh_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({name})")
+
+
+def int_array(values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*values)
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,425 @@
+// K2: the PPO acting phase of the MLP policy, T steps in one launch.
+//
+// Replaces warehouse_tpu/pallas/act.py ppo_rollout_pallas (:1028; body
+// _act_kernel :299 with _obs_rows :138, _sample_logprob :491 and the env
+// tick of rollout.py:57), MLP arm without masking, shaping, global obs or
+// policy groups. Each step, for every env of the CTA: build the ego-window
+// observation of each agent, run the MLP (tanh hidden layers, fused
+// logits + value head), sample argmax(logits + gumbel) with the first-max
+// tie rule, take the log-softmax of the chosen action, tick the env.
+//
+// Layout: a CTA owns NE envs (NE * A <= 64 rows of (env, agent)). The
+// packed weights (~124 KB for 106 -> 128 -> 128 -> 6 in f32) are staged in
+// shared memory once per launch and reused for all T steps and rows; the
+// activations of the CTA's rows ping-pong between two shared buffers and
+// the env states sit in shared memory too, so device memory sees only the
+// draws, the gumbel noise and the outputs. The dense layers are FMA loops
+// on the CUDA cores: a thread owns one output column for a tile of RT
+// rows, reading its weight column with consecutive-address loads and the
+// rows as shared-memory broadcasts. The bound is those shared-memory
+// loads and FMAs (about 61 kFLOP per row and step at hidden 128 x 2).
+//
+// Exactness: the observation features (int -> float times the f32
+// reciprocal) and the per-agent rewards use __fmul_rn/__fadd_rn in the
+// order of ops/obs.py:54-59 and engine.py:130-135, so they match the
+// plain path bit for bit. The MLP may use FMA and is held to a tolerance.
+
+#include <cuda_runtime.h>
+
+#include "env_tick.cuh"
+
+namespace {
+
+constexpr int NT = 256;    // threads per CTA
+constexpr int RT = 16;     // rows per register tile in the dense layers
+constexpr int NHEAD = 6;   // 5 logits + value
+constexpr int HSTRIDE = 8; // row stride of the head outputs
+constexpr int MAXL = 4;    // hidden layers
+
+// Envs per CTA: NE * A rows, a multiple of RT, at most 64.
+template <int A>
+__host__ __device__ constexpr int envs_per_cta() { return A == 6 ? 8 : 64 / A; }
+
+struct ActArgs {
+  long B;
+  int T;
+  wh::Geometry geo;
+  int S, k, D;         // window side, radius, obs dim
+  float inv_h, inv_w;  // float32 reciprocals of H and W
+  float step_penalty, pickup_reward, delivery_reward, collision_penalty;
+  int n_hidden;
+  int dims[MAXL + 1];  // dims[0] = D, then the hidden widths
+  int dmax;            // row stride of the activation buffers
+  const float* weights;  // per hidden layer W [in, out] then b [out];
+  int n_weights;         // then heads W [H, 6] and b [6]
+  const int *pos, *areq, *carry, *rpick, *rdrop, *rstat, *ragent;
+  const float* u;
+  const int *pick, *drop;
+  const float* gumbel;  // [T, 5, B * A]
+  int *o_pos, *o_areq, *o_carry, *o_rpick, *o_rdrop, *o_rstat, *o_ragent;
+  float* obs;       // [T, B, A, D]
+  int* action;      // [T, B, A]
+  float *log_prob, *value, *reward;  // [T, B, A]
+  int* delivered;   // [T, B]
+  float* logits;    // [T, B, A, 5], or null: not written
+};
+
+template <int A, int R>
+struct EnvSmem {
+  static constexpr int SIZE = 4 * A + 6 * R;
+  static __device__ void put(const wh::Env<A, R>& e, int* s) {
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+      s[i] = e.pr[i];
+      s[A + i] = e.pc[i];
+      s[2 * A + i] = e.aq[i];
+      s[3 * A + i] = e.cy[i];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      s[4 * A + r] = e.qpr[r];
+      s[4 * A + R + r] = e.qpc[r];
+      s[4 * A + 2 * R + r] = e.qdr[r];
+      s[4 * A + 3 * R + r] = e.qdc[r];
+      s[4 * A + 4 * R + r] = e.qst[r];
+      s[4 * A + 5 * R + r] = e.qag[r];
+    }
+  }
+  static __device__ void get(const int* s, wh::Env<A, R>& e) {
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+      e.pr[i] = s[i];
+      e.pc[i] = s[A + i];
+      e.aq[i] = s[2 * A + i];
+      e.cy[i] = s[3 * A + i];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      e.qpr[r] = s[4 * A + r];
+      e.qpc[r] = s[4 * A + R + r];
+      e.qdr[r] = s[4 * A + 2 * R + r];
+      e.qdc[r] = s[4 * A + 3 * R + r];
+      e.qst[r] = s[4 * A + 4 * R + r];
+      e.qag[r] = s[4 * A + 5 * R + r];
+    }
+  }
+};
+
+// Feature f of agent a's ego-window observation (ops/obs.py): S*S cells
+// x 4 channels, channel-last, then the 6 self features.
+template <int A, int R>
+__device__ float obs_value(const int* s, int a, int f, const ActArgs& p) {
+  const int *pr = s, *pc = s + A, *aq = s + 2 * A, *cy = s + 3 * A;
+  const int *qpr = s + 4 * A, *qpc = qpr + R, *qdr = qpc + R,
+            *qdc = qdr + R, *qst = qdc + R;
+  const int my = aq[a];
+  const bool has = my >= 0;
+  int tr = pr[a], tc = pc[a];
+  if (has) {
+    tr = cy[a] ? qdr[my] : qpr[my];
+    tc = cy[a] ? qdc[my] : qpc[my];
+  }
+  const int grid = p.S * p.S * 4;
+  if (f < grid) {
+    const int w = f >> 2, ch = f & 3;
+    const int wr = pr[a] + w / p.S - p.k, wc = pc[a] + w % p.S - p.k;
+    bool v = false;
+    if (ch == 0) {
+#pragma unroll
+      for (int j = 0; j < A; ++j) v |= pr[j] == wr && pc[j] == wc;
+    } else if (ch == 1) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        v |= qst[r] == wh::PENDING && qpr[r] == wr && qpc[r] == wc;
+    } else if (ch == 2) {
+      v = has && tr == wr && tc == wc;
+    } else {
+      v = wr >= 0 && wr < p.geo.H && wc >= 0 && wc < p.geo.W &&
+          !p.geo.walls[wr * p.geo.W + wc];
+    }
+    return v ? 1.f : 0.f;
+  }
+  switch (f - grid) {
+    case 0: return __fmul_rn((float)pr[a], p.inv_h);
+    case 1: return __fmul_rn((float)pc[a], p.inv_w);
+    case 2: return cy[a] ? 1.f : 0.f;
+    case 3: return has ? 1.f : 0.f;
+    case 4: return __fmul_rn((float)(has ? tr - pr[a] : 0), p.inv_h);
+    default: return __fmul_rn((float)(has ? tc - pc[a] : 0), p.inv_w);
+  }
+}
+
+// y[n][j] = act(sum_k x[n][k] * W[k][j] + b[j]) for the CTA's ROWS rows.
+template <int ROWS>
+__device__ void dense(const float* W, const float* bias, const float* x,
+                      int xs, float* y, int ys, int in, int out,
+                      bool use_tanh) {
+  constexpr int G = ROWS / RT;
+  for (int item = threadIdx.x; item < out * G; item += NT) {
+    const int j = item % out, g = item / out;
+    const float* xg = x + g * RT * xs;
+    float acc[RT];
+#pragma unroll
+    for (int rr = 0; rr < RT; ++rr) acc[rr] = 0.f;
+    for (int kk = 0; kk < in; ++kk) {
+      const float wk = W[kk * out + j];
+#pragma unroll
+      for (int rr = 0; rr < RT; ++rr) acc[rr] = fmaf(wk, xg[rr * xs + kk], acc[rr]);
+    }
+    const float bj = bias[j];
+#pragma unroll
+    for (int rr = 0; rr < RT; ++rr) {
+      const float z = acc[rr] + bj;
+      y[(g * RT + rr) * ys + j] = use_tanh ? tanhf(z) : z;
+    }
+  }
+}
+
+template <int A, int R>
+__global__ void __launch_bounds__(NT) act_kernel(ActArgs p) {
+  constexpr int NE = envs_per_cta<A>();
+  constexpr int ROWS = NE * A;
+  using ES = EnvSmem<A, R>;
+  extern __shared__ float smem[];
+  float* w_s = smem;
+  float* xa = w_s + p.n_weights;
+  float* xb = xa + ROWS * p.dmax;
+  float* head = xb + ROWS * p.dmax;
+  int* env_s = reinterpret_cast<int*>(head + ROWS * HSTRIDE);
+  int* act_s = env_s + NE * ES::SIZE;
+
+  const int tid = threadIdx.x;
+  const long b0 = (long)blockIdx.x * NE;
+  const int ne = (int)min((long)NE, p.B - b0);
+  const long BA = p.B * A;
+
+  for (int i = tid; i < p.n_weights; i += NT) w_s[i] = p.weights[i];
+  if (tid < NE) {
+    wh::Env<A, R> e = {};  // rows past the batch end compute on zeros
+    if (tid < ne)
+      wh::load_env(e, b0 + tid, p.pos, p.areq, p.carry, p.rpick, p.rdrop,
+                   p.rstat, p.ragent);
+    ES::put(e, env_s + tid * ES::SIZE);
+  }
+  __syncthreads();
+
+  for (int t = 0; t < p.T; ++t) {
+    const long tb = (long)t * p.B + b0;  // first (t, b) of the CTA
+    // 1. Observations of the CTA's rows, row n = (env n / A, agent n % A).
+    for (int idx = tid; idx < ROWS * p.D; idx += NT) {
+      const int n = idx / p.D, f = idx % p.D;
+      const float v = obs_value<A, R>(env_s + (n / A) * ES::SIZE, n % A, f, p);
+      xa[n * p.dmax + f] = v;
+      if (n / A < ne) p.obs[tb * A * p.D + idx] = v;
+    }
+    __syncthreads();
+
+    // 2. MLP: tanh hidden layers, then the fused logits + value head.
+    float *x = xa, *y = xb;
+    const float* w = w_s;
+    for (int l = 0; l < p.n_hidden; ++l) {
+      const int in = p.dims[l], out = p.dims[l + 1];
+      dense<ROWS>(w, w + in * out, x, p.dmax, y, p.dmax, in, out, true);
+      w += in * out + out;
+      __syncthreads();
+      float* tmp = x;
+      x = y;
+      y = tmp;
+    }
+    const int hid = p.dims[p.n_hidden];
+    dense<ROWS>(w, w + hid * NHEAD, x, p.dmax, head, HSTRIDE, hid, NHEAD,
+                false);
+    __syncthreads();
+
+    // 3. Sample argmax(logits + gumbel), first max; stable log-softmax.
+    if (tid < ROWS) {
+      const int n = tid;
+      const bool live = n / A < ne;
+      const float* h = head + n * HSTRIDE;
+      float best = 0.f;
+      int best_a = 0;
+#pragma unroll
+      for (int r = 0; r < 5; ++r) {
+        const float g =
+            live ? p.gumbel[((long)t * 5 + r) * BA + b0 * A + n] : 0.f;
+        const float z = h[r] + g;
+        if (r == 0 || z > best) {
+          best = z;
+          best_a = r;
+        }
+      }
+      float mx = h[0];
+#pragma unroll
+      for (int r = 1; r < 5; ++r) mx = fmaxf(mx, h[r]);
+      float ssum = 0.f;
+#pragma unroll
+      for (int r = 0; r < 5; ++r) ssum += expf(h[r] - mx);
+      const float lp = (h[best_a] - mx) - logf(ssum);
+      act_s[n] = best_a;
+      if (live) {
+        const long o = tb * A + n;
+        p.action[o] = best_a;
+        p.log_prob[o] = lp;
+        p.value[o] = h[5];
+        if (p.logits)
+          for (int r = 0; r < 5; ++r) p.logits[o * 5 + r] = h[r];
+      }
+    }
+    __syncthreads();
+
+    // 4. Env tick and rewards, one thread per env.
+    if (tid < ne) {
+      wh::Env<A, R> e;
+      ES::get(env_s + tid * ES::SIZE, e);
+      int act[A];
+#pragma unroll
+      for (int i = 0; i < A; ++i) act[i] = act_s[tid * A + i];
+      const long kt = tb + tid;
+      bool pk[A], dl[A], cl[A];
+      wh::env_tick(e, act, p.u[kt], p.pick[kt], p.drop[kt], p.geo, pk, dl,
+                   cl);
+      int nd = 0;
+#pragma unroll
+      for (int i = 0; i < A; ++i) {
+        float rew = __fadd_rn(p.step_penalty,
+                              __fmul_rn(p.pickup_reward, pk[i] ? 1.f : 0.f));
+        rew = __fadd_rn(rew, __fmul_rn(p.delivery_reward, dl[i] ? 1.f : 0.f));
+        rew = __fadd_rn(rew, __fmul_rn(p.collision_penalty, cl[i] ? 1.f : 0.f));
+        p.reward[kt * A + i] = rew;
+        nd += dl[i];
+      }
+      p.delivered[kt] = nd;
+      ES::put(e, env_s + tid * ES::SIZE);
+    }
+    __syncthreads();
+  }
+
+  if (tid < ne) {
+    wh::Env<A, R> e;
+    ES::get(env_s + tid * ES::SIZE, e);
+    wh::store_env(e, b0 + tid, p.o_pos, p.o_areq, p.o_carry, p.o_rpick,
+                  p.o_rdrop, p.o_rstat, p.o_ragent);
+  }
+}
+
+template <int A, int R>
+size_t smem_bytes(const ActArgs& p) {
+  constexpr int NE = envs_per_cta<A>();
+  constexpr int ROWS = NE * A;
+  return sizeof(float) * ((size_t)p.n_weights + 2 * ROWS * p.dmax +
+                          ROWS * HSTRIDE) +
+         sizeof(int) * (NE * EnvSmem<A, R>::SIZE + ROWS);
+}
+
+template <int A, int R>
+struct SmemBytes {
+  static void run(const ActArgs& p, size_t* out) { *out = smem_bytes<A, R>(p); }
+};
+
+template <int A, int R>
+struct LaunchAct {
+  static void run(const ActArgs& p, cudaStream_t stream, int* err) {
+    constexpr int NE = envs_per_cta<A>();
+    const size_t smem = smem_bytes<A, R>(p);
+    cudaError_t e = cudaFuncSetAttribute(
+        act_kernel<A, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) {
+      *err = (int)e;
+      return;
+    }
+    const unsigned blocks = (unsigned)((p.B + NE - 1) / NE);
+    act_kernel<A, R><<<blocks, NT, smem, stream>>>(p);
+    *err = (int)cudaGetLastError();
+  }
+};
+
+ActArgs make_args(long B, int T, int H, int W, float spawn_prob, int S,
+                  int k, int D, float inv_h, float inv_w, int n_hidden,
+                  const int* dims, int n_weights) {
+  ActArgs p = {};
+  p.B = B;
+  p.T = T;
+  p.geo.H = H;
+  p.geo.W = W;
+  p.geo.spawn_prob = spawn_prob;
+  p.S = S;
+  p.k = k;
+  p.D = D;
+  p.inv_h = inv_h;
+  p.inv_w = inv_w;
+  p.n_hidden = n_hidden;
+  p.dmax = D;
+  for (int l = 0; l <= n_hidden && l <= MAXL; ++l) {
+    p.dims[l] = dims[l];
+    if (dims[l] > p.dmax) p.dmax = dims[l];
+  }
+  p.n_weights = n_weights;
+  return p;
+}
+
+}  // namespace
+
+// Shared memory one CTA needs, in bytes, or 0 for an unsupported shape.
+extern "C" long wh_act_smem_bytes(int A, int R, int D, int n_hidden,
+                                  const int* dims, int n_weights) {
+  if (n_hidden < 0 || n_hidden > MAXL) return 0;
+  ActArgs p = make_args(0, 0, 0, 0, 0.f, 0, 0, D, 0.f, 0.f, n_hidden, dims,
+                        n_weights);
+  size_t out = 0;
+  if (!wh::dispatch_shape<SmemBytes>(A, R, p, &out)) return 0;
+  return (long)out;
+}
+
+extern "C" int wh_act_rollout(
+    int A, int R, long B, int T, int H, int W, float spawn_prob, int S,
+    int k, int D, float inv_h, float inv_w, float step_penalty,
+    float pickup_reward, float delivery_reward, float collision_penalty,
+    int n_hidden, const int* dims, const unsigned char* walls,
+    const float* weights, int n_weights, const int* pos, const int* areq,
+    const int* carry, const int* rpick, const int* rdrop, const int* rstat,
+    const int* ragent, const float* u, const int* pick, const int* drop,
+    const float* gumbel, int* o_pos, int* o_areq, int* o_carry,
+    int* o_rpick, int* o_rdrop, int* o_rstat, int* o_ragent, float* obs,
+    int* action, float* log_prob, float* value, float* reward,
+    int* delivered, float* logits, void* stream) {
+  if (n_hidden < 0 || n_hidden > MAXL) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return (int)cudaSuccess;
+  ActArgs p = make_args(B, T, H, W, spawn_prob, S, k, D, inv_h, inv_w,
+                        n_hidden, dims, n_weights);
+  p.step_penalty = step_penalty;
+  p.pickup_reward = pickup_reward;
+  p.delivery_reward = delivery_reward;
+  p.collision_penalty = collision_penalty;
+  p.geo.walls = walls;
+  p.weights = weights;
+  p.pos = pos;
+  p.areq = areq;
+  p.carry = carry;
+  p.rpick = rpick;
+  p.rdrop = rdrop;
+  p.rstat = rstat;
+  p.ragent = ragent;
+  p.u = u;
+  p.pick = pick;
+  p.drop = drop;
+  p.gumbel = gumbel;
+  p.o_pos = o_pos;
+  p.o_areq = o_areq;
+  p.o_carry = o_carry;
+  p.o_rpick = o_rpick;
+  p.o_rdrop = o_rdrop;
+  p.o_rstat = o_rstat;
+  p.o_ragent = o_ragent;
+  p.obs = obs;
+  p.action = action;
+  p.log_prob = log_prob;
+  p.value = value;
+  p.reward = reward;
+  p.delivered = delivered;
+  p.logits = logits;
+  int err = (int)cudaSuccess;
+  if (!wh::dispatch_shape<LaunchAct>(A, R, p, (cudaStream_t)stream, &err))
+    return (int)cudaErrorInvalidValue;
+  return err;
+}
