@@ -12,13 +12,26 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    replaying its actions (obs, rewards, deliveries, final state bit-equal)
    and against the plain MLP (logits, values, log-probs within 1e-4), at
    B = 4096, T = 16, hidden 128 x 2, and times it beside its twin;
-3. ``k1_episodes`` (main path): 8 greedy episodes through
+3. ``k3_check``: one config-4 trajectory (a K2 chunk from a reset, then
+   GAE); the SGD-phase kernel (K3: E = 4 epochs x M = 4 minibatches of
+   65536 samples, K4's gradient kernels then clip + Adam per step)
+   against its plain twin (autograd + ``optim.py``) on per-step losses,
+   params and Adam moments, a second K3 run bit-equal to the first, both
+   timed;
+4. ``k4_check``: the per-minibatch gradient kernels (K4) against autograd
+   on the same trajectory, all 4 minibatches, timed;
+5. ``k1_episodes`` (main path): 8 greedy episodes through
    ``greedy_rollout`` (draw stream + K1) at B = 131072, T = max_steps =
    128, each from a batched reset, with env-steps/s beside one episode of
    the plain path;
-4. ``slice`` (main path): one episode of the acting phase at BASELINE
+6. ``slice`` (main path): one episode of the acting phase at BASELINE
    config 4 — 8 chunks of K2 with the boundary reset after each — timed
-   against the plain path, then ``serve.Policy.compute_actions``.
+   against the plain path, then ``serve.Policy.compute_actions``;
+7. ``train`` (main path): ``train.make_train`` at BASELINE config 4 from
+   ``PRNGKey(0)``, 80 updates through ``train_step`` (K2 + K3/K4), with
+   the update time split into acting, GAE and SGD by CUDA events, a
+   learning check on deliveries per env-step, 3 updates of the plain path
+   from the same state for their time, then the trained policy served.
 
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit. The kernels' launch counts are zeroed just before the main
@@ -36,15 +49,19 @@ import time
 
 import torch
 
-from warehouse_tpu_torch import medium_config, rng, shelves_config
-from warehouse_tpu_torch.env.batch import (reset_batch,
+from warehouse_tpu_torch import (TrainConfig, medium_config, rng,
+                                 shelves_config)
+from warehouse_tpu_torch.env.batch import (observe_batch, reset_batch,
                                            reset_truncated_batch,
                                            step_batch)
 from warehouse_tpu_torch.env.state import STATE_FIELDS
-from warehouse_tpu_torch.kernels import act, build, rollout
+from warehouse_tpu_torch.kernels import act, build, rollout, sgd
 from warehouse_tpu_torch.models import make_model
-from warehouse_tpu_torch.ops.ppo_update import first_argmax
+from warehouse_tpu_torch.models.policy import apply
+from warehouse_tpu_torch.ops.gae import gae
+from warehouse_tpu_torch.ops.ppo_update import entropy_coef_at, first_argmax
 from warehouse_tpu_torch.serve import Policy
+from warehouse_tpu_torch.train import Transition, make_train
 
 SEED = 0
 TOL = 1e-4  # MLP outputs: f32 sums in another order, tanh/exp/log ulps
@@ -53,6 +70,14 @@ EPISODE_B = 131072  # envs per greedy episode (bench.py:70)
 EPISODES = 8        # greedy episodes timed (bench.py:93)
 SLICE_B, SLICE_T = 4096, 16  # BASELINE config 4: num_envs, unroll_length
 HIDDEN = (128, 2)   # BASELINE config 4: hidden_dim, num_layers
+TRAIN_UPDATES = 80  # updates of the train phase
+LEARN_MIN = 0.15    # mean deliveries/env-step over updates 71-80
+# K3/K4 against the plain twin at config 4: (rtol, atol) per quantity.
+# The JAX suite's bounds (tests/test_grad_kernel.py:151-166, 185-190,
+# set at 16 samples per minibatch); both sides sum 65536 samples per step
+# in f32, in another order.
+SGD_TOL = {"losses": (1e-5, 2e-6), "params": (1e-5, 1e-6),
+           "mu": (1e-5, 1e-7), "nu": (1e-5, 1e-10), "grads": (1e-4, 1e-7)}
 
 
 def nvidia_smi() -> str:
@@ -215,6 +240,110 @@ def k2_check(dev, cfg, model):
     return max(err.values()), k_ms, p_ms
 
 
+def tol_ratio(a, b, rtol, atol) -> float:
+    """max |a - b| / (atol + rtol |b|): at most 1 within tolerance."""
+    return float(((a.double() - b.double()).abs()
+                  / (atol + rtol * b.double().abs())).max())
+
+
+def tree_err(a, b, rtol, atol):
+    """(max abs error, max tolerance ratio) over a dict or tuple."""
+    pairs = ([(a[k], b[k]) for k in b] if isinstance(b, dict)
+             else zip(a, b))
+    errs = [(float((x.double() - y.double()).abs().max()),
+             tol_ratio(x, y, rtol, atol)) for x, y in pairs]
+    return max(e for e, _ in errs), max(r for _, r in errs)
+
+
+def sgd_inputs(dev, cfg):
+    """One config-4 trajectory for the SGD checks: a K2 chunk from the
+    trainer's reset, then GAE and the per-minibatch normalization."""
+    tcfg = TrainConfig(num_updates=TRAIN_UPDATES)
+    tr = make_train(cfg, tcfg, device=dev)
+    rs = tr.init(rng.prng_key(SEED + 5, dev))
+    tr.model.load_state_dict(rs.params)
+    new, roll, _, _ = act.ppo_rollout(cfg, tr.model, rs.env_state, SLICE_T,
+                                      rng.prng_key(SEED + 6, dev))
+    done = roll.truncated[:, :, None].expand_as(roll.reward)
+    traj = Transition(roll.obs, roll.action, roll.log_prob, roll.value,
+                      roll.reward, done, roll.mask,
+                      torch.zeros_like(roll.value))
+    _, last_value = apply(rs.params, observe_batch(cfg, new))
+    adv, targets = gae(roll.reward, roll.value, done, last_value,
+                       tcfg.gamma, tcfg.gae_lambda)
+    adv_n = sgd.normalize_adv_env_minibatch(adv, tcfg.num_minibatches)
+    ent = entropy_coef_at(tcfg, rs.update_idx)
+    return tcfg, tr, rs, traj, adv_n, targets, ent
+
+
+def k3_check(dev, cfg):
+    tcfg, tr, rs, traj, adv_n, targets, ent = sgd_inputs(dev, cfg)
+    E, M = tcfg.ppo_epochs, tcfg.num_minibatches
+    rows = tr.optimizer.step_rows(rs.opt_state.count, E * M, dev)
+    args = (rs.params, rs.opt_state, traj, adv_n, targets, *rows, ent,
+            rs.kl_coeff)
+    kw = dict(num_epochs=E, num_minibatches=M, clip_eps=tcfg.clip_eps,
+              value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
+              mask_actions=False)
+    pk, ok, lk = sgd.ppo_sgd_phase(*args, **kw)
+    pr, orf, lr_ = sgd.ppo_sgd_phase_reference(*args, **kw)
+    p2, o2, l2 = sgd.ppo_sgd_phase(*args, **kw)
+    torch.cuda.synchronize()
+    err = {"losses": tree_err(lk, lr_, *SGD_TOL["losses"]),
+           "params": tree_err(pk, pr, *SGD_TOL["params"]),
+           "mu": tree_err(ok.mu, orf.mu, *SGD_TOL["mu"]),
+           "nu": tree_err(ok.nu, orf.nu, *SGD_TOL["nu"])}
+    bit_equal = (all(bits_equal(pk[k], p2[k]) and bits_equal(ok.mu[k],
+                                                             o2.mu[k])
+                     and bits_equal(ok.nu[k], o2.nu[k]) for k in pk)
+                 and all(bits_equal(a, b) for a, b in zip(lk, l2)))
+    moved = max(float((pk[k] - rs.params[k]).abs().max()) for k in pk)
+    k_ms = timed(lambda: sgd.ppo_sgd_phase(*args, **kw), 5)
+    p_ms = timed(lambda: sgd.ppo_sgd_phase_reference(*args, **kw), 3)
+    emit({"phase": "k3_check", "B": traj.obs.shape[1], "T": SLICE_T,
+          "epochs": E, "minibatches": M,
+          "samples_per_minibatch": traj.obs.shape[0] * traj.obs.shape[1]
+          * cfg.num_agents // M,
+          "max_abs_err": {k: e for k, (e, _) in err.items()},
+          "tol_ratio": {k: r for k, (_, r) in err.items()}, "tol": SGD_TOL,
+          "bit_equal_rerun": bit_equal, "max_param_step": moved,
+          "kernel_ms": k_ms, "plain_ms": p_ms})
+    require(all(r <= 1.0 for _, r in err.values()),
+            f"K3 differs from its twin: {err}")
+    require(bit_equal, "K3: a second run gave other bits")
+    require(moved > 0.0, "K3 did not move the params")
+    return err["params"][0], k_ms, p_ms
+
+
+def k4_check(dev, cfg):
+    tcfg, tr, rs, traj, adv_n, targets, ent = sgd_inputs(dev, cfg)
+    M = tcfg.num_minibatches
+    kw = dict(num_minibatches=M, clip_eps=tcfg.clip_eps,
+              value_coef=tcfg.value_coef, mask_actions=False)
+    worst = {"losses": (0.0, 0.0), "grads": (0.0, 0.0)}
+    for mb in range(M):
+        (lk, auxk), gk = sgd.ppo_minibatch_grads(
+            rs.params, traj, adv_n, targets, mb, ent, rs.kl_coeff, **kw)
+        (lr_, auxr), gr = sgd.ppo_minibatch_grads_reference(
+            rs.params, traj, adv_n, targets, mb, ent, rs.kl_coeff, **kw)
+        torch.cuda.synchronize()
+        for name, e in (("losses", tree_err((lk, *auxk), (lr_, *auxr),
+                                            *SGD_TOL["losses"])),
+                        ("grads", tree_err(gk, gr, *SGD_TOL["grads"]))):
+            worst[name] = tuple(map(max, worst[name], e))
+    args = (rs.params, traj, adv_n, targets, 0, ent, rs.kl_coeff)
+    k_ms = timed(lambda: sgd.ppo_minibatch_grads(*args, **kw), 5)
+    p_ms = timed(lambda: sgd.ppo_minibatch_grads_reference(*args, **kw), 3)
+    emit({"phase": "k4_check", "minibatches": M,
+          "max_abs_err": {k: e for k, (e, _) in worst.items()},
+          "tol_ratio": {k: r for k, (_, r) in worst.items()},
+          "tol": {k: SGD_TOL[k] for k in worst},
+          "kernel_ms": k_ms, "plain_ms": p_ms})
+    require(all(r <= 1.0 for _, r in worst.values()),
+            f"K4 differs from autograd: {worst}")
+    return worst["grads"][0], k_ms, p_ms
+
+
 def k1_episodes(dev):
     """Greedy episodes through ``greedy_rollout`` (draw stream + K1), each
     from a batched reset; the first episode also through the plain path."""
@@ -294,6 +423,87 @@ def slice_phase(dev, cfg, model):
           "serve_batch": [B, cfg.num_agents, cfg.obs_dim]})
 
 
+class Marks:
+    """CUDA events at the phase boundaries of one update (``mark``)."""
+
+    def __init__(self):
+        self.events = [("start", torch.cuda.Event(enable_timing=True))]
+        self.events[0][1].record()
+
+    def __call__(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((name, ev))
+
+    def split(self):
+        """ms per phase, and the rest of the update as "glue"."""
+        self("end")
+        self.events[-1][1].synchronize()
+        out = {name: a.elapsed_time(b) for (_, a), (name, b)
+               in zip(self.events, self.events[1:])}
+        out["glue"] = out.pop("end")
+        out["total"] = sum(out.values())
+        return out
+
+
+def median_split(splits):
+    return {k: median([s[k] for s in splits]) for k in splits[0]}
+
+
+def train_phase(dev, cfg):
+    """80 config-4 updates through the kernels, then 3 of the plain path
+    from the same initial state, then the trained policy served."""
+    tr = make_train(cfg, TrainConfig(num_updates=TRAIN_UPDATES), device=dev)
+    B, T = tr.tcfg.num_envs, tr.tcfg.unroll_length
+    rs0 = tr.init(rng.prng_key(0, dev))
+    rs, splits, deliveries = rs0, [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_UPDATES):
+        marks = Marks()
+        rs, m = tr.train_step(rs, mark=marks)
+        splits.append(marks.split())
+        require(all(bool(torch.isfinite(v)) for v in m.values()),
+                f"train: non-finite metrics {m}")
+        deliveries.append(float(m["deliveries_per_env_step"]))
+    wall = time.perf_counter() - t0
+    require(int(rs.update_idx) == TRAIN_UPDATES, "train: update count")
+    moved = max(float((rs.params[k] - rs0.params[k]).abs().max())
+                for k in rs.params)
+    require(moved > 0.0, "train: params did not move")
+    late = sum(deliveries[70:80]) / 10
+
+    plain, rp = [], rs0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        marks = Marks()
+        rp, _ = tr.plain_step(rp, mark=marks)
+        plain.append(marks.split())
+    plain_wall = time.perf_counter() - t1
+
+    tr.model.load_state_dict(rs.params)
+    acts, _ = Policy(cfg, tr.model).compute_actions(rs.obs)
+    with torch.no_grad():
+        logits, _ = apply(rs.params, rs.obs)
+    require(acts.shape == (B, cfg.num_agents) and torch.equal(
+        acts, first_argmax(logits, -1).to(torch.int32)),
+        "serve: actions differ from the argmax of the trained policy")
+    emit({"phase": "train", "B": B, "T": T, "updates": TRAIN_UPDATES,
+          "update_ms_median": median([s["total"] for s in splits]),
+          "split_ms_median": median_split(splits),
+          "env_steps_per_sec": B * T * TRAIN_UPDATES / wall,
+          "plain_update_ms_median": median([s["total"] for s in plain]),
+          "plain_split_ms_median": median_split(plain),
+          "plain_env_steps_per_sec": B * T * 3 / plain_wall,
+          "deliveries_per_env_step": deliveries,
+          "deliveries_71_80": late, "learn_min": LEARN_MIN,
+          "max_param_change": moved})
+    require(late >= LEARN_MIN,
+            f"train: deliveries/env-step {late} over updates 71-80 is "
+            f"below {LEARN_MIN}")
+
+
 def main() -> int:
     print(nvidia_smi(), flush=True)
     if not torch.cuda.is_available():
@@ -315,14 +525,21 @@ def main() -> int:
                        generator=torch.Generator().manual_seed(SEED),
                        device=dev)
     k2_err, k2_ms, k2_plain_ms = k2_check(dev, cfg, model)
+    k3_err, k3_ms, k3_plain_ms = k3_check(dev, cfg)
+    k4_err, k4_ms, k4_plain_ms = k4_check(dev, cfg)
 
     # ---- the main path: counts from here on only ----------------------
     rollout.greedy_steps.launches = 0
     act.act_steps.launches = 0
+    sgd.ppo_sgd_phase.launches = 0
+    sgd.ppo_minibatch_grads.launches = 0
     k1_episodes(dev)
     slice_phase(dev, cfg, model)
+    train_phase(dev, cfg)
     launches = {"greedy_rollout": rollout.greedy_steps.launches,
-                "ppo_rollout": act.act_steps.launches}
+                "ppo_rollout": act.act_steps.launches,
+                "ppo_sgd_phase": sgd.ppo_sgd_phase.launches,
+                "ppo_minibatch_grads": sgd.ppo_minibatch_grads.launches}
     require(all(n > 0 for n in launches.values()),
             f"a kernel of the main path never launched: {launches}")
 
@@ -337,6 +554,15 @@ def main() -> int:
          "replaces": "warehouse_tpu/pallas/act.py:1028",
          "launches": launches["ppo_rollout"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "ppo_sgd_phase", "route": "cuda", "source": csrc + "sgd.cu",
+         "replaces": "warehouse_tpu/pallas/sgd.py:691",
+         "launches": launches["ppo_sgd_phase"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "ppo_minibatch_grads", "route": "cuda",
+         "source": csrc + "sgd.cu",
+         "replaces": "warehouse_tpu/pallas/sgd.py:818",
+         "launches": launches["ppo_minibatch_grads"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms},
     ]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

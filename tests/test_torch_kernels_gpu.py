@@ -81,3 +81,103 @@ def test_act_kernel_matches_plain_path(name, dev):
         -1, action.long()[..., None])[..., 0]
     assert float((v - value).abs().max()) < 1e-4
     assert float((lp_plain - lp).abs().max()) < 1e-4
+
+
+# ---- K3 / K4: the SGD phase and per-minibatch gradients ---------------------
+
+SGD_T, SGD_B, SGD_M, SGD_E = 5, 100, 4, 2  # N = 500 per minibatch: ragged
+SGD_KW = dict(clip_eps=0.2, value_coef=0.5)
+
+
+def sgd_batch(cfg, hidden, dev, seed=0):
+    """A seeded synthetic trajectory, params and Adam state on ``dev``."""
+    from warehouse_tpu_torch.kernels.sgd import normalize_adv_env_minibatch
+    from warehouse_tpu_torch.optim import AdamState
+    from warehouse_tpu_torch.train.ppo import Transition
+
+    g = torch.Generator().manual_seed(seed)
+    T, B, A, D = SGD_T, SGD_B, cfg.num_agents, cfg.obs_dim
+    action = torch.randint(0, 5, (T, B, A), generator=g, dtype=torch.int32)
+    mask = torch.rand(T, B, A, 5, generator=g) > 0.3
+    mask[..., 0] = True
+    mask.scatter_(-1, action.long()[..., None], True)
+    traj = Transition(
+        obs=torch.randn(T, B, A, D, generator=g), action=action,
+        log_prob=-1.6 + 0.1 * torch.randn(T, B, A, generator=g),
+        value=torch.randn(T, B, A, generator=g),
+        reward=torch.zeros(T, B, A), done=torch.zeros(T, B, A, dtype=bool),
+        mask=mask, boot_value=torch.zeros(T, B, A))
+    adv_n = normalize_adv_env_minibatch(torch.randn(T, B, A, generator=g),
+                                        SGD_M)
+    targets = torch.randn(T, B, A, generator=g)
+    model = make_model(cfg, hidden_dim=hidden, generator=g)
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    opt = AdamState(3, {k: 1e-3 * torch.randn(v.shape, generator=g)
+                        for k, v in params.items()},
+                    {k: 1e-6 * torch.rand(v.shape, generator=g)
+                     for k, v in params.items()})
+    to = (lambda x: x.to(dev))
+    traj = Transition(*(to(x) for x in traj))
+    opt = AdamState(opt.count, *({k: to(v) for k, v in d.items()}
+                                 for d in (opt.mu, opt.nu)))
+    return ({k: to(v) for k, v in params.items()}, opt, traj, to(adv_n),
+            to(targets))
+
+
+def assert_close_tree(a, b, rtol, atol, what):
+    for k in b:
+        torch.testing.assert_close(a[k], b[k], rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{what} {k}: {m}")
+
+
+@pytest.mark.parametrize("mask_on", [False, True])
+@pytest.mark.parametrize("hidden", [16, 128])
+def test_sgd_phase_kernel_matches_twin(hidden, mask_on, dev):
+    """K3 against autograd + optim.py on the same inputs (E = 2, M = 4,
+    500 samples per minibatch), and bit-equal to itself on a rerun."""
+    from warehouse_tpu_torch.kernels.sgd import (ppo_sgd_phase,
+                                                 ppo_sgd_phase_reference)
+    from warehouse_tpu_torch.optim import make_optimizer
+    from warehouse_tpu_torch import TrainConfig
+
+    cfg = medium_config()
+    params, opt, traj, adv_n, targets = sgd_batch(cfg, hidden, dev)
+    rows = make_optimizer(TrainConfig(num_updates=4)).step_rows(
+        opt.count, SGD_E * SGD_M, dev)
+    args = (params, opt, traj, adv_n, targets, *rows, 0.01, 0.05)
+    kw = dict(num_epochs=SGD_E, num_minibatches=SGD_M, max_grad_norm=0.5,
+              mask_actions=mask_on, **SGD_KW)
+    p_k, o_k, l_k = ppo_sgd_phase(*args, **kw)
+    p_r, o_r, l_r = ppo_sgd_phase_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert o_k.count == o_r.count == opt.count + SGD_E * SGD_M
+    # f32 sums in another order (split-K over samples vs cuBLAS), 8 steps.
+    for a, b in zip(l_k, l_r):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-6)
+    assert_close_tree(p_k, p_r, 1e-5, 1e-6, "params")
+    assert_close_tree(o_k.mu, o_r.mu, 1e-5, 1e-7, "mu")
+    assert_close_tree(o_k.nu, o_r.nu, 1e-5, 1e-10, "nu")
+    p_2, o_2, l_2 = ppo_sgd_phase(*args, **kw)
+    for k in p_k:
+        assert torch.equal(p_k[k], p_2[k]) and torch.equal(o_k.nu[k],
+                                                           o_2.nu[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(l_k, l_2))
+
+
+@pytest.mark.parametrize("mask_on", [False, True])
+def test_minibatch_grads_kernel_matches_autograd(mask_on, dev):
+    from warehouse_tpu_torch.kernels.sgd import (
+        ppo_minibatch_grads, ppo_minibatch_grads_reference)
+
+    cfg = medium_config()
+    params, _, traj, adv_n, targets = sgd_batch(cfg, 128, dev, seed=3)
+    kw = dict(num_minibatches=SGD_M, mask_actions=mask_on, **SGD_KW)
+    for mb in range(SGD_M):
+        (l_k, aux_k), g_k = ppo_minibatch_grads(params, traj, adv_n,
+                                                targets, mb, 0.01, 0.05, **kw)
+        (l_r, aux_r), g_r = ppo_minibatch_grads_reference(
+            params, traj, adv_n, targets, mb, 0.01, 0.05, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip((l_k, *aux_k), (l_r, *aux_r)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        assert_close_tree(g_k, g_r, 1e-4, 1e-7, f"grads mb={mb}")

@@ -8,6 +8,10 @@ launches. The sources in ``csrc/`` are compiled at first use
 
 from .act import ActRollout, ppo_rollout, ppo_rollout_reference
 from .rollout import greedy_rollout, greedy_rollout_reference
+from .sgd import (ppo_minibatch_grads, ppo_minibatch_grads_reference,
+                  ppo_sgd_phase, ppo_sgd_phase_reference)
 
 __all__ = ["ActRollout", "greedy_rollout", "greedy_rollout_reference",
-           "ppo_rollout", "ppo_rollout_reference"]
+           "ppo_rollout", "ppo_rollout_reference", "ppo_sgd_phase",
+           "ppo_sgd_phase_reference", "ppo_minibatch_grads",
+           "ppo_minibatch_grads_reference"]

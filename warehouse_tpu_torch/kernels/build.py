@@ -1,10 +1,11 @@
 """Builds the CUDA kernels of ``csrc/`` and loads them with ctypes.
 
-The sources expose a plain C interface (no PyTorch headers), so one
-``nvcc`` call compiles them in seconds; a binding that includes PyTorch's
-headers takes minutes per build. The library goes to ``_build/`` under a
-name that hashes the sources, so an edited source is rebuilt and a
-process builds at most once. Nothing here runs at import time.
+The sources expose a plain C interface (no PyTorch headers), so each
+compiles in seconds; a binding that includes PyTorch's headers takes
+minutes per build. One ``nvcc -c`` per source runs in parallel, then one
+link. The library goes to ``_build/`` under a name that hashes the
+sources, so an edited source is rebuilt and a process builds at most
+once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -32,8 +33,13 @@ SIGNATURES = {
     "wh_act_smem_bytes": [I, I, I, I, IP, I],
     "wh_act_rollout": [I, I, L, I, I, I, F, I, I, I, F, F, F, F, F, F, I, IP,
                        P, P, I] + [P] * 26,
+    "wh_sgd_smem_bytes": [I, IP],
+    "wh_sgd_workspace_floats": [I, IP, I, L, I, I],
+    "wh_sgd_grads": [I, IP, I, L, I, I, I] + [P] * 9 + [F] * 5 + [P] * 4,
+    "wh_sgd_clip_adam": [I, IP, I, L, I, I, I] + [P] * 7 + [F] * 6 + [P] * 2,
 }
-RESTYPES = {"wh_act_smem_bytes": L, "wh_error_string": ctypes.c_char_p}
+RESTYPES = {"wh_act_smem_bytes": L, "wh_error_string": ctypes.c_char_p,
+            "wh_sgd_smem_bytes": L, "wh_sgd_workspace_floats": L}
 
 
 def nvcc_path() -> str:
@@ -57,6 +63,36 @@ def _sources_digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(digest: str, tmp: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link."""
+    nvcc, log = nvcc_path(), []
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}-{digest}.{os.getpid()}.o"
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas=-v", "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-4000:]}")
+    objs = [str(obj) for _, obj, _ in jobs]
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    (BUILD_DIR / f"build-{digest}.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Compile ``csrc/*.cu`` (once per source digest) and load it."""
@@ -65,15 +101,7 @@ def library() -> ctypes.CDLL:
     lib_path = BUILD_DIR / f"libwarehouse_kernels-{digest}.so"
     if not lib_path.exists():
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / f"build-{digest}.log").write_text(
-            " ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        _compile(digest, tmp)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():

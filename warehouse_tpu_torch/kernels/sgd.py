@@ -1,0 +1,309 @@
+"""K3/K4: the PPO SGD phase and per-minibatch gradients (MLP), and their
+plain twins.
+
+Counterparts of ``warehouse_tpu/pallas/sgd.py`` ``ppo_sgd_phase_pallas``
+(:691) and ``ppo_minibatch_grads_pallas`` (:818). ``ppo_sgd_phase`` runs
+the whole SGD phase of one update — ``num_epochs x num_minibatches``
+optimizer steps, each the clipped-PPO loss of one minibatch, its
+gradient and the optax clip + Adam step — and ``ppo_minibatch_grads``
+one minibatch's loss and gradient. Minibatch ``m`` is env columns
+``[m B/M, (m+1) B/M)`` of the trajectory; the trainer randomizes the
+composition by permuting the env state before the rollout. On a CUDA
+tensor the kernels of ``csrc/sgd.cu`` run, reading the act phase's
+``obs [T, B, A, D]`` in place; on a CPU tensor the plain twins run:
+autograd through ``ops.ppo_update.ppo_losses`` and ``optim.py``.
+
+Inputs: ``params`` a dict keyed like ``ActorCriticMLP.state_dict``;
+``traj`` anything with the trajectory fields ``obs``, ``action``,
+``log_prob``, ``value`` (``[T, B, A]``) and ``mask`` (``bool[T, B, A,
+5]``; read only with ``mask_actions``); ``adv_n`` advantages normalized
+per minibatch (``normalize_adv_env_minibatch``); ``targets``; for the
+phase, the per-step rows ``lr_row``, ``bc1_row``, ``bc2_row`` (float32
+``[E*M]``, ``optim.ClipAdam.step_rows``). ``ent_coef`` and ``kl_coeff``
+are floats or 0-d tensors. The TPU's 16-row field pack, 8-row head
+padding and block knobs have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from warehouse_tpu.config import ADAM_B1, ADAM_B2, ADAM_EPS
+
+from ..models.policy import apply, num_hidden
+from ..ops.ppo_update import NEG_INF, minibatch_epochs, ppo_losses
+from ..optim import AdamState, clip_adam_step
+from . import build
+
+N_ACT = 5
+
+
+def normalize_adv_env_minibatch(advantages: torch.Tensor,
+                                num_minibatches: int) -> torch.Tensor:
+    """Advantages ``[T, B, A]`` normalized per contiguous-env minibatch
+    (mean and population std over its ``T x B/M x A`` samples)."""
+    T, B, A = advantages.shape
+    g = advantages.reshape(T, num_minibatches, B // num_minibatches, A)
+    mean = g.mean(dim=(0, 2, 3), keepdim=True)
+    std = g.std(dim=(0, 2, 3), correction=0, keepdim=True)
+    return ((g - mean) / (std + 1e-8)).reshape(T, B, A)
+
+
+def env_minibatches(traj, adv_n, targets, num_minibatches: int):
+    """The M minibatches ``(obs, action, old_lp, old_v, adv, target,
+    mask)`` as env-column slices of the ``[T, B, A, ...]`` fields."""
+    B = traj.obs.shape[1]
+    if B % num_minibatches:
+        raise ValueError(f"B={B} not divisible by {num_minibatches} "
+                         "minibatches")
+    w = B // num_minibatches
+    fields = (traj.obs, traj.action, traj.log_prob, traj.value, adv_n,
+              targets, traj.mask)
+    return [tuple(x[:, m * w:(m + 1) * w] for x in fields)
+            for m in range(num_minibatches)]
+
+
+def _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff, mask_actions):
+    def loss_fn(params, mb):
+        obs, action, old_lp, old_v, adv, tgt, mask = mb
+        logits, value = apply(params, obs)
+        if mask_actions:
+            logits = torch.where(mask, logits, NEG_INF)
+        return ppo_losses(logits, value, action, old_lp, old_v, adv, tgt,
+                          clip_eps=clip_eps, value_coef=value_coef,
+                          ent_coef=ent_coef, kl_coeff=kl_coeff,
+                          normalize_adv=False)
+    return loss_fn
+
+
+def ppo_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
+                            targets, lr_row, bc1_row, bc2_row, ent_coef,
+                            kl_coeff, *, num_epochs: int,
+                            num_minibatches: int, clip_eps: float,
+                            value_coef: float, max_grad_norm: float,
+                            mask_actions: bool):
+    """The plain twin of ``ppo_sgd_phase``, on any device."""
+    count0 = opt_state.count
+
+    def update_fn(grads, state):
+        s = state.count - count0
+        return clip_adam_step(grads, state, lr_row[s], bc1_row[s],
+                              bc2_row[s], max_grad_norm)
+
+    return minibatch_epochs(
+        params, opt_state,
+        loss_fn=_loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
+                         mask_actions),
+        minibatches=env_minibatches(traj, adv_n, targets, num_minibatches),
+        num_epochs=num_epochs, update_fn=update_fn)
+
+
+def ppo_minibatch_grads_reference(params, traj, adv_n, targets, mb_idx: int,
+                                  ent_coef, kl_coeff, *,
+                                  num_minibatches: int, clip_eps: float,
+                                  value_coef: float, mask_actions: bool):
+    """The plain twin of ``ppo_minibatch_grads``: autograd on one
+    minibatch."""
+    mb = env_minibatches(traj, adv_n, targets, num_minibatches)[mb_idx]
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    total, aux = _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
+                          mask_actions)(leaves, mb)
+    grads = torch.autograd.grad(total, list(leaves.values()))
+    return ((total.detach(), tuple(a.detach() for a in aux)),
+            dict(zip(leaves, grads)))
+
+
+# ---- the kernels ------------------------------------------------------------
+
+def _layer_keys(params) -> list[tuple[list[str], list[str]]]:
+    """Per dense layer of the packed vector: (weight keys, bias keys);
+    the head fuses logits and value."""
+    keys = [([f"hidden.{i}.weight"], [f"hidden.{i}.bias"])
+            for i in range(num_hidden(params))]
+    return keys + [(["logits.weight", "value.weight"],
+                    ["logits.bias", "value.bias"])]
+
+
+def pack(tree) -> torch.Tensor:
+    """A params-shaped dict as the kernels' flat float32 vector: per layer
+    ``W [out, in]`` then ``b [out]`` (torch's layout), the head as the
+    6 x H stack of the logits and value rows."""
+    parts = []
+    for wk, bk in _layer_keys(tree):
+        parts += [tree[k].reshape(-1) for k in wk + bk]
+    return torch.cat(parts).to(torch.float32).contiguous()
+
+
+def unpack(flat: torch.Tensor, like) -> dict:
+    """Inverse of ``pack``: views of ``flat`` with ``like``'s keys and
+    shapes."""
+    out, off = {}, 0
+    for wk, bk in _layer_keys(like):
+        for k in wk + bk:
+            n = like[k].numel()
+            out[k] = flat[off:off + n].view(like[k].shape)
+            off += n
+    return {k: out[k] for k in like}
+
+
+def _dims(params, D: int) -> list[int]:
+    dims = [D] + [params[f"hidden.{i}.weight"].shape[0]
+                  for i in range(num_hidden(params))]
+    if params["logits.weight"].shape != (N_ACT, dims[-1]):
+        raise ValueError("the SGD kernels take a 5-action MLP head")
+    for i, (fan_in, fan_out) in enumerate(zip(dims, dims[1:])):
+        if params[f"hidden.{i}.weight"].shape != (fan_out, fan_in):
+            raise ValueError(f"hidden.{i}: shape does not fit widths {dims}")
+    return dims
+
+
+def _f32(x, dev) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
+
+
+class _Launch:
+    """One trajectory's inputs checked and laid out for the C entry points
+    (``csrc/sgd.cu``), with the scratch both share."""
+
+    def __init__(self, params, traj, adv_n, targets, ent_coef, kl_coeff,
+                 num_minibatches, clip_eps, value_coef, mask_actions):
+        dev = traj.obs.device
+        T, B, A, D = traj.obs.shape
+        M = num_minibatches
+        if B % M:
+            raise ValueError(f"B={B} not divisible by {M} minibatches")
+        dims = _dims(params, D)
+        self.obs = traj.obs.to(torch.float32).contiguous()
+        self.fields = [traj.action.to(torch.int32).contiguous()] + [
+            x.to(torch.float32).contiguous()
+            for x in (traj.log_prob, traj.value, adv_n, targets)]
+        if any(f.shape != (T, B, A) for f in self.fields):
+            raise ValueError("trajectory fields must be [T, B, A]")
+        self.mask = None
+        if mask_actions:
+            self.mask = traj.mask.to(torch.uint8).contiguous()
+            if self.mask.shape != (T, B, A, N_ACT):
+                raise ValueError("mask must be [T, B, A, 5]")
+        self.lib = lib = build.library()
+        self.shape = (len(dims) - 1, build.int_array(dims), T, B, A, M)
+        smem = lib.wh_sgd_smem_bytes(*self.shape[:2])
+        limit = getattr(torch.cuda.get_device_properties(dev),
+                        "shared_memory_per_block_optin", smem)
+        if not 0 < smem <= limit:
+            raise ValueError(f"SGD kernel needs {smem} bytes of shared "
+                             f"memory per block for widths {dims}; the card "
+                             f"allows {limit}")
+        self.work = torch.empty(lib.wh_sgd_workspace_floats(*self.shape),
+                                dtype=torch.float32, device=dev)
+        self.scal = torch.stack([_f32(ent_coef, dev), _f32(kl_coeff, dev)])
+        self.mb_n = T * (B // M) * A
+        self.coefs = (clip_eps, 1.0 - clip_eps, 1.0 + clip_eps, value_coef,
+                      1.0 / self.mb_n)
+        self.stream = build.stream_handle(dev)
+
+    def grads(self, p_flat, mb: int, grads, sums) -> None:
+        """K4's kernels: minibatch ``mb``'s gradient into ``grads``, its
+        metric sums into ``sums [4]``."""
+        err = self.lib.wh_sgd_grads(
+            *self.shape, mb, self.obs.data_ptr(),
+            *(f.data_ptr() for f in self.fields),
+            None if self.mask is None else self.mask.data_ptr(),
+            p_flat.data_ptr(), self.scal.data_ptr(), *self.coefs,
+            self.work.data_ptr(), grads.data_ptr(), sums.data_ptr(),
+            self.stream)
+        build.check(err, "ppo_minibatch_grads kernel launch")
+        ppo_minibatch_grads.launches += 1
+
+    def clip_adam(self, p_flat, m_flat, v_flat, grads, rows, step: int,
+                  max_grad_norm: float) -> None:
+        """K3's optimizer kernel after ``grads``: clip + Adam in place."""
+        err = self.lib.wh_sgd_clip_adam(
+            *self.shape, step, p_flat.data_ptr(), m_flat.data_ptr(),
+            v_flat.data_ptr(), grads.data_ptr(),
+            *(r.data_ptr() for r in rows), max_grad_norm, ADAM_B1,
+            1.0 - ADAM_B1, ADAM_B2, 1.0 - ADAM_B2, ADAM_EPS,
+            self.work.data_ptr(), self.stream)
+        build.check(err, "ppo_sgd_phase kernel launch")
+        ppo_sgd_phase.launches += 1
+
+
+def _losses(sums, mb_n, value_coef, ent_coef, kl_coeff):
+    """``(total, pg, v, ent, kl)`` from the per-step metric sums."""
+    pg = -sums[..., 0] / mb_n
+    v = 0.5 * sums[..., 1] / mb_n
+    ent = sums[..., 2] / mb_n
+    kl = sums[..., 3] / mb_n
+    return pg + value_coef * v - ent_coef * ent + kl_coeff * kl, pg, v, ent, kl
+
+
+def _device_of(traj) -> torch.device:
+    dev = traj.obs.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"SGD kernels: unsupported device {dev}")
+    return dev
+
+
+def ppo_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
+                  lr_row, bc1_row, bc2_row, ent_coef, kl_coeff, *,
+                  num_epochs: int, num_minibatches: int, clip_eps: float,
+                  value_coef: float, max_grad_norm: float,
+                  mask_actions: bool):
+    """The whole SGD phase: ``(params, opt_state, losses)`` with
+    ``losses`` the ``(total, pg, v, ent, kl)`` tuple of ``[E, M]``
+    tensors. On CUDA tensors each step is K4's gradient kernels, then K3's
+    clip + Adam kernel on the packed params and moments; on CPU tensors
+    the plain twin runs. ``launches`` counts the optimizer kernel."""
+    kw = dict(num_epochs=num_epochs, num_minibatches=num_minibatches,
+              clip_eps=clip_eps, value_coef=value_coef,
+              max_grad_norm=max_grad_norm, mask_actions=mask_actions)
+    if _device_of(traj).type == "cpu":
+        return ppo_sgd_phase_reference(params, opt_state, traj, adv_n,
+                                       targets, lr_row, bc1_row, bc2_row,
+                                       ent_coef, kl_coeff, **kw)
+    M, n_steps = num_minibatches, num_epochs * num_minibatches
+    run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff, M,
+                  clip_eps, value_coef, mask_actions)
+    p_flat, m_flat, v_flat = (pack(t) for t in (params, opt_state.mu,
+                                                opt_state.nu))
+    rows = [r.to(device=p_flat.device, dtype=torch.float32).contiguous()
+            for r in (lr_row, bc1_row, bc2_row)]
+    grads = torch.empty_like(p_flat)
+    sums = torch.empty(n_steps, 4, dtype=torch.float32, device=p_flat.device)
+    for s in range(n_steps):
+        run.grads(p_flat, s % M, grads, sums[s])
+        run.clip_adam(p_flat, m_flat, v_flat, grads, rows, s, max_grad_norm)
+    losses = _losses(sums.reshape(num_epochs, M, 4), run.mb_n, value_coef,
+                     ent_coef, kl_coeff)
+    new_opt = AdamState(opt_state.count + n_steps, unpack(m_flat, params),
+                        unpack(v_flat, params))
+    return unpack(p_flat, params), new_opt, losses
+
+
+ppo_sgd_phase.launches = 0
+
+
+def ppo_minibatch_grads(params, traj, adv_n, targets, mb_idx: int, ent_coef,
+                        kl_coeff, *, num_minibatches: int, clip_eps: float,
+                        value_coef: float, mask_actions: bool):
+    """One minibatch's loss and gradient: ``((total, (pg, v, ent, kl)),
+    grads)``, the ``value_and_grad`` contract. The kernels on CUDA
+    tensors, the plain twin on CPU ones. ``launches`` counts their
+    launches, inside ``ppo_sgd_phase`` too."""
+    if _device_of(traj).type == "cpu":
+        return ppo_minibatch_grads_reference(
+            params, traj, adv_n, targets, mb_idx, ent_coef, kl_coeff,
+            num_minibatches=num_minibatches, clip_eps=clip_eps,
+            value_coef=value_coef, mask_actions=mask_actions)
+    if not 0 <= mb_idx < num_minibatches:
+        raise ValueError(f"mb_idx={mb_idx} out of range")
+    run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff,
+                  num_minibatches, clip_eps, value_coef, mask_actions)
+    p_flat = pack(params)
+    grads = torch.empty_like(p_flat)
+    sums = torch.empty(4, dtype=torch.float32, device=p_flat.device)
+    run.grads(p_flat, mb_idx, grads, sums)
+    total, *aux = _losses(sums, run.mb_n, value_coef, ent_coef, kl_coeff)
+    return (total, tuple(aux)), unpack(grads, params)
+
+
+ppo_minibatch_grads.launches = 0

@@ -16,6 +16,7 @@ from typing import Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from warehouse_tpu.config import EnvConfig
 
@@ -42,10 +43,23 @@ class ActorCriticMLP(nn.Module):
 
     def forward(self, obs: torch.Tensor):
         """obs float32[..., obs_dim] -> (logits [..., 5], value [...])."""
-        x = obs
-        for layer in self.hidden:
-            x = torch.tanh(layer(x))
-        return self.logits(x), self.value(x).squeeze(-1)
+        return apply(dict(self.named_parameters()), obs)
+
+
+def num_hidden(params: dict) -> int:
+    return sum(1 for k in params if k.endswith(".weight")) - 2
+
+
+def apply(params: dict, obs: torch.Tensor):
+    """The MLP on a params dict keyed like ``ActorCriticMLP.state_dict``
+    (the functional form the trainer and the SGD twins use)."""
+    x = obs
+    for i in range(num_hidden(params)):
+        x = torch.tanh(F.linear(x, params[f"hidden.{i}.weight"],
+                                params[f"hidden.{i}.bias"]))
+    value = F.linear(x, params["value.weight"], params["value.bias"])
+    return (F.linear(x, params["logits.weight"], params["logits.bias"]),
+            value.squeeze(-1))
 
 
 def make_model(cfg: EnvConfig, arch: str = "mlp", hidden_dim: int = 128,

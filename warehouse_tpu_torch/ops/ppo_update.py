@@ -1,14 +1,24 @@
-"""PPO acting-side ops (counterpart of ``warehouse_tpu/ops/ppo_update.py``).
+"""PPO update machinery (counterpart of ``warehouse_tpu/ops/ppo_update.py``).
 
-Only ``sample_action`` is ported so far; the loss and the epoch scan come
-with the PPO trainer.
+The sampler of the acting phase, the clipped-surrogate loss, the entropy
+and KL schedules, and the epoch/minibatch scaffold of the SGD phase. The
+scaffold covers the trainer's default cadence only: one partition of
+contiguous env minibatches per update, revisited every epoch
+(``minibatch_mode="env"``, ``epoch_shuffle="once"``), one gradient per
+minibatch. It is the plain twin of the SGD-phase kernel
+(``kernels/sgd.py``).
 """
 
 from __future__ import annotations
 
+from typing import Callable, Sequence
+
 import torch
 
 from .. import rng as _rng
+from ..optim import apply_updates
+
+NEG_INF = -1e9  # logits floor for masked (invalid) actions
 
 
 def first_argmax(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -42,3 +52,96 @@ def sample_action(key: torch.Tensor, logits: torch.Tensor):
     n_act = logits.shape[-1]
     g = _rng.gumbel(key, (n_act, logits.numel() // n_act))
     return sample_action_with_gumbel(logits, g)
+
+
+def action_log_prob_entropy(logits: torch.Tensor, action: torch.Tensor):
+    """``(log π(a|s)`` with the action's shape, mean entropy) from logits
+    ``[..., n_act]``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    lp = torch.gather(logp, -1, action.long()[..., None])[..., 0]
+    entropy = -(torch.exp(logp) * logp).sum(-1).mean()
+    return lp, entropy
+
+
+def ppo_losses(logits, value, action, old_log_prob, old_value, advantages,
+               targets, *, clip_eps: float, value_coef: float, ent_coef,
+               kl_coeff, normalize_adv: bool = True):
+    """Clipped-surrogate PPO loss with the clipped value loss, the entropy
+    bonus and the RLlib-style KL penalty; ``logits`` are post-mask.
+
+    Returns ``(total, (pg_loss, v_loss, entropy, kl))``. With
+    ``normalize_adv`` the advantages are normalized over the given batch
+    (population std, as ``jnp.std``); without, they arrive normalized.
+    ``torch.minimum``/``maximum`` split the gradient of a tie 0.5/0.5 and
+    ``clamp`` passes it at the bounds, as ``jax.grad`` does.
+    """
+    lp, entropy = action_log_prob_entropy(logits, action)
+    ratio = torch.exp(lp - old_log_prob)
+    if normalize_adv:
+        adv_n = (advantages - advantages.mean()) / (
+            advantages.std(correction=0) + 1e-8)
+    else:
+        adv_n = advantages
+    pg1 = ratio * adv_n
+    pg2 = torch.clamp(ratio, 1 - clip_eps, 1 + clip_eps) * adv_n
+    pg_loss = -torch.minimum(pg1, pg2).mean()
+    v_clip = old_value + torch.clamp(value - old_value, -clip_eps, clip_eps)
+    v_loss = 0.5 * torch.maximum((value - targets) ** 2,
+                                 (v_clip - targets) ** 2).mean()
+    kl = (old_log_prob - lp).mean()
+    total = pg_loss + value_coef * v_loss - ent_coef * entropy + kl_coeff * kl
+    return total, (pg_loss, v_loss, entropy, kl)
+
+
+def entropy_coef_at(tcfg, update_idx: torch.Tensor) -> torch.Tensor:
+    """Linear entropy-coefficient anneal (``entropy_coef_final`` < 0:
+    constant)."""
+    if tcfg.entropy_coef_final >= 0.0:
+        frac = update_idx.to(torch.float32) / max(tcfg.num_updates, 1)
+        return tcfg.entropy_coef + frac * (tcfg.entropy_coef_final
+                                           - tcfg.entropy_coef)
+    return torch.tensor(tcfg.entropy_coef, dtype=torch.float32,
+                        device=update_idx.device)
+
+
+def adaptive_kl_coeff(tcfg, kl_coeff: torch.Tensor,
+                      mean_kl: torch.Tensor) -> torch.Tensor:
+    """RLlib's adaptive KL rule: x1.5 above 2x target, x0.5 below 0.5x;
+    the identity when the penalty is off."""
+    if tcfg.kl_coeff > 0.0 and tcfg.adaptive_kl:
+        return torch.where(
+            mean_kl > 2.0 * tcfg.kl_target, kl_coeff * 1.5,
+            torch.where(mean_kl < 0.5 * tcfg.kl_target, kl_coeff * 0.5,
+                        kl_coeff))
+    return kl_coeff
+
+
+def minibatch_epochs(params, opt_state, *, loss_fn: Callable,
+                     minibatches: Sequence, num_epochs: int,
+                     update_fn: Callable):
+    """The PPO epoch/minibatch SGD loop over a fixed partition.
+
+    ``loss_fn(params, minibatch) -> (total, aux)``; ``update_fn(grads,
+    opt_state) -> (updates, opt_state)`` (a step of
+    ``optim.clip_adam_step``). Every epoch visits ``minibatches`` in order with one optimizer step
+    each. Returns ``(params, opt_state, losses)``, ``losses`` the tuple
+    ``(total, pg, v, ent, kl)`` of ``[num_epochs, M]`` tensors. The JAX
+    scaffold's key split for its partition is the caller's to mirror. The
+    per-epoch reshuffle and micro-batches are not ported (``make_train``
+    refuses them, ROADMAP §B item 9).
+    """
+    rows = []
+    for _ in range(num_epochs):
+        for mb in minibatches:
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items()}
+            total, aux = loss_fn(leaves, mb)
+            grads = dict(zip(leaves, torch.autograd.grad(
+                total, list(leaves.values()))))
+            with torch.no_grad():
+                updates, opt_state = update_fn(grads, opt_state)
+                params = apply_updates(params, updates)
+            rows.append([total.detach(), *(a.detach() for a in aux)])
+    losses = tuple(torch.stack([r[i] for r in rows]).reshape(num_epochs, -1)
+                   for i in range(5))
+    return params, opt_state, losses

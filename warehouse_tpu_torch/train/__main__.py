@@ -1,0 +1,182 @@
+"""Train CLI: ``python -m warehouse_tpu_torch.train``.
+
+The PPO/MLP subset of ``python -m warehouse_tpu.train`` with the same
+flag names, plus ``--device``. A flag for a feature the port does not
+have yet exits with a message naming its ROADMAP item. Metrics go to a
+JSONL file, ``env_steps_per_sec`` included; ``--eval-every`` runs the
+argmax policy through ``evaluate.evaluate_policy``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+
+import torch
+
+from warehouse_tpu.config import TrainConfig
+from warehouse_tpu.configs_cli import add_env_args, env_config_from_args
+
+from .. import rng
+from ..evaluate import evaluate_policy
+from ..models.policy import apply
+from ..ops.ppo_update import first_argmax
+from .metrics import MetricsLogger
+from .ppo import make_train
+
+
+def _unported(args) -> list[str]:
+    out = []
+    if args.algo != "ppo":
+        out.append("--algo impala (ROADMAP §B item 4)")
+    if args.arch != "mlp":
+        out.append(f"--arch {args.arch} (ROADMAP §B items 5-6)")
+    for flag, on, item in (
+            ("--policy-groups", args.policy_groups is not None, 1),
+            ("--mask-actions", args.mask_actions, 1),
+            ("--shaping-coef", args.shaping_coef != 0.0, 1),
+            ("--resume", args.resume, 3),
+            ("--checkpoint-every", args.checkpoint_every != 0, 3),
+            ("--profile-dir", args.profile_dir is not None, 8),
+            ("--tensorboard-dir", args.tensorboard_dir is not None, 8)):
+        if on:
+            out.append(f"{flag} (ROADMAP §B item {item})")
+    return out
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser("warehouse_tpu_torch.train")
+    add_env_args(p)
+    p.add_argument("--algo", choices=["ppo", "impala"], default="ppo")
+    p.add_argument("--num-envs", type=int, default=4096)
+    p.add_argument("--unroll-length", type=int, default=16)
+    p.add_argument("--num-updates", type=int, default=200)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--ppo-epochs", type=int, default=4)
+    p.add_argument("--num-minibatches", type=int, default=4)
+    p.add_argument("--entropy-coef", type=float, default=0.01)
+    p.add_argument("--entropy-coef-final", type=float, default=-1.0,
+                   help="linear entropy anneal target over num_updates "
+                        "(negative = constant --entropy-coef)")
+    p.add_argument("--shaping-coef", type=float, default=0.0)
+    p.add_argument("--mask-actions", action="store_true")
+    p.add_argument("--minibatch-mode", choices=["flat", "env"],
+                   default="env")
+    p.add_argument("--epoch-shuffle", choices=["each", "once"],
+                   default="once")
+    p.add_argument("--rllib-cadence", action="store_true",
+                   help="--minibatch-mode flat --epoch-shuffle each")
+    p.add_argument("--bootstrap-truncated", action="store_true",
+                   help="bootstrap value targets through time-limit "
+                        "truncations instead of treating them as terminals")
+    p.add_argument("--kl-coeff", type=float, default=0.0,
+                   help="initial adaptive-KL penalty coefficient (0 = off)")
+    p.add_argument("--kl-target", type=float, default=0.01)
+    p.add_argument("--hidden-dim", type=int, default=128)
+    p.add_argument("--model-dtype", choices=["float32", "bfloat16"],
+                   default="float32")
+    p.add_argument("--arch", choices=["mlp", "cnn", "attn", "gru", "lstm"],
+                   default="mlp")
+    p.add_argument("--policy-groups", default=None)
+    p.add_argument("--rollout-backend", choices=["auto", "xla", "pallas"],
+                   default="auto",
+                   help="the device picks kernel or plain twin; 'xla' is "
+                        "refused")
+    p.add_argument("--grad-backend", choices=["auto", "xla", "pallas"],
+                   default="auto",
+                   help="the device picks kernel or plain twin; 'xla' is "
+                        "refused")
+    p.add_argument("--pallas-block", type=int, default=512,
+                   help="TPU block size; ignored by the port")
+    p.add_argument("--micro-batches", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="checkpoints are not ported yet: must stay 0")
+    p.add_argument("--checkpoint-dir", default="checkpoints",
+                   help="unused until checkpoints are ported")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--metrics-path", default="metrics.jsonl")
+    p.add_argument("--tensorboard-dir", default=None)
+    p.add_argument("--single-device", action="store_true",
+                   help="the port always runs on one device")
+    p.add_argument("--profile-dir", default=None)
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="run a greedy-argmax evaluation every N updates "
+                        "(0 = off)")
+    p.add_argument("--eval-episodes", type=int, default=128)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda if available, else "
+                        "cpu; --cpu forces cpu)")
+    args = p.parse_args(argv)
+    if args.rllib_cadence:
+        args.minibatch_mode = "flat"
+        args.epoch_shuffle = "each"
+    unported = _unported(args)
+    if unported:
+        raise SystemExit("not ported yet: " + ", ".join(unported))
+
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    log = logging.getLogger("warehouse_tpu_torch")
+    device = torch.device(
+        "cpu" if args.cpu else args.device
+        or ("cuda" if torch.cuda.is_available() else "cpu"))
+    env_cfg = env_config_from_args(args)
+    tcfg = TrainConfig(
+        num_envs=args.num_envs, unroll_length=args.unroll_length,
+        num_updates=args.num_updates, learning_rate=args.lr,
+        ppo_epochs=args.ppo_epochs, num_minibatches=args.num_minibatches,
+        entropy_coef=args.entropy_coef,
+        entropy_coef_final=args.entropy_coef_final,
+        minibatch_mode=args.minibatch_mode, epoch_shuffle=args.epoch_shuffle,
+        bootstrap_truncated=args.bootstrap_truncated,
+        kl_coeff=args.kl_coeff, kl_target=args.kl_target,
+        hidden_dim=args.hidden_dim, model_dtype=args.model_dtype,
+        rollout_backend=args.rollout_backend,
+        grad_backend=args.grad_backend, pallas_block=args.pallas_block,
+        micro_batches=args.micro_batches, seed=args.seed,
+        metrics_path=args.metrics_path)
+    try:
+        trainer = make_train(env_cfg, tcfg, arch=args.arch, device=device)
+    except (NotImplementedError, ValueError) as e:
+        raise SystemExit(str(e)) from e
+    log.info("device: %s  env: %s", device, env_cfg.to_json())
+
+    rs = trainer.init(rng.prng_key(args.seed, device))
+    metrics = MetricsLogger(args.metrics_path)
+    metrics.log_meta({"algo": "ppo", "arch": args.arch,
+                      "device": str(device),
+                      "kernels": device.type == "cuda"})
+    steps_per_update = tcfg.num_envs * tcfg.unroll_length
+    t_last = time.time()
+    try:
+        for u in range(0, tcfg.num_updates, args.log_every):
+            n = min(args.log_every, tcfg.num_updates - u)
+            rs, ms = trainer.train_many(rs, n)
+            scalars = {k: float(v[-1]) for k, v in ms.items()}
+            dt = time.time() - t_last
+            t_last = time.time()
+            scalars["env_steps_per_sec"] = steps_per_update * n / dt
+            metrics.log(u + n, scalars)
+            if args.eval_every and (u + n) % args.eval_every == 0:
+                params = rs.params
+
+                def policy_fn(state, obs, key):
+                    return first_argmax(apply(params, obs)[0],
+                                        -1).to(torch.int32)
+
+                ev = evaluate_policy(env_cfg, policy_fn, args.eval_episodes,
+                                     seed=args.seed + u, device=device)
+                metrics.log(u + n, {f"eval_{k}": v for k, v in ev.items()
+                                    if k != "episodes"})
+                t_last = time.time()
+    finally:
+        metrics.close()
+    log.info("done: %d updates, %d env steps", tcfg.num_updates,
+             tcfg.num_updates * steps_per_update)
+
+
+if __name__ == "__main__":
+    main()
