@@ -11,7 +11,11 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
 2. ``k2_check``: holds the act-phase kernel (K2) against the plain engine
    replaying its actions (obs, rewards, deliveries, final state bit-equal)
    and against the plain MLP (logits, values, log-probs within 1e-4), at
-   B = 4096, T = 16, hidden 128 x 2, and times it beside its twin;
+   B = 4096, T = 16, hidden 128 x 2, and times it beside its twin; then
+   its action-masking option on the walled shelves config (6 agents): the
+   same checks on the masked logits, the returned mask equal to
+   ``valid_action_mask`` of the replayed positions, no masked move
+   sampled;
 3. ``k3_check``: one config-4 trajectory (a K2 chunk from a reset, then
    GAE); the SGD-phase kernel (K3: E = 4 epochs x M = 4 minibatches of
    65536 samples, K4's gradient kernels then clip + Adam per step)
@@ -20,22 +24,38 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    timed;
 4. ``k4_check``: the per-minibatch gradient kernels (K4) against autograd
    on the same trajectory, all 4 minibatches, timed;
-5. ``k1_episodes`` (main path): 8 greedy episodes through
+5. ``k5_check``: one config-4 IMPALA trajectory (a K2 chunk from the
+   trainer's reset, then the boundary reset); the IMPALA learner phase
+   (K5: passes x M = 4 minibatches, K6's gradient kernels then clip +
+   RMSProp or Adam per step) against its plain twin for passes 1 and 2
+   and both optimizers, a second K5 run bit-equal to the first, the
+   main path's case (Adam, 1 pass) timed;
+6. ``k6_check``: the per-minibatch V-trace gradient kernels (K6) against
+   autograd on the same trajectory, all 4 minibatches, timed;
+7. ``k1_episodes`` (main path): 8 greedy episodes through
    ``greedy_rollout`` (draw stream + K1) at B = 131072, T = max_steps =
    128, each from a batched reset, with env-steps/s beside one episode of
    the plain path;
-6. ``slice`` (main path): one episode of the acting phase at BASELINE
+8. ``slice`` (main path): one episode of the acting phase at BASELINE
    config 4 — 8 chunks of K2 with the boundary reset after each — timed
    against the plain path, then ``serve.Policy.compute_actions``;
-7. ``train`` (main path): ``train.make_train`` at BASELINE config 4 from
-   ``PRNGKey(0)``, 80 updates through ``train_step`` (K2 + K3/K4), with
+9. ``train`` (main path): ``train.make_train`` at BASELINE config 4 from
+   ``PRNGKey(0)``, the first 50 updates of an 80-update run (its lr
+   schedule) through ``train_step`` (K2 + K3/K4), with
    the update time split into acting, GAE and SGD by CUDA events, a
    learning check on deliveries per env-step, 3 updates of the plain path
-   from the same state for their time, then the trained policy served.
+   from the same state for their time, then the trained policy served;
+10. ``impala_train`` (main path): ``train.make_train_impala`` at BASELINE
+   config 4 with Adam (``--impala-adam``) over 300 updates, as the JAX
+   curve ``runs/r4_curves/config4_impala_fused_adam.jsonl`` was run, from
+   ``PRNGKey(0)``: 300 updates through ``train_step`` (K2 + K5/K6) with
+   the acting/learner split by CUDA events, a learning check on
+   deliveries per env-step over updates 291-300, 3 plain-path updates
+   from the same state, then the trained policy served.
 
 Each phase prints one JSON line; any failure ends the run with a
-non-zero exit. The kernels' launch counts are zeroed just before the main
-path and read just after it. The last lines are the kernels' JSON line,
+non-zero exit. The kernels' launch counts are zeroed just before each
+main path and read just after it. The last lines are the kernels' JSON line,
 the card's name and power limit from ``nvidia-smi``, and the device line.
 There is no CPU path: without a CUDA device the script exits non-zero.
 """
@@ -55,13 +75,16 @@ from warehouse_tpu_torch.env.batch import (observe_batch, reset_batch,
                                            reset_truncated_batch,
                                            step_batch)
 from warehouse_tpu_torch.env.state import STATE_FIELDS
-from warehouse_tpu_torch.kernels import act, build, rollout, sgd
+from warehouse_tpu_torch.kernels import act, build, rollout, sgd, vtrace_sgd
 from warehouse_tpu_torch.models import make_model
 from warehouse_tpu_torch.models.policy import apply
 from warehouse_tpu_torch.ops.gae import gae
+from warehouse_tpu_torch.ops.move import valid_action_mask
 from warehouse_tpu_torch.ops.ppo_update import entropy_coef_at, first_argmax
+from warehouse_tpu_torch.optim import make_impala_optimizer
 from warehouse_tpu_torch.serve import Policy
-from warehouse_tpu_torch.train import Transition, make_train
+from warehouse_tpu_torch.train import (ImpalaTransition, Transition,
+                                       make_train, make_train_impala)
 
 SEED = 0
 TOL = 1e-4  # MLP outputs: f32 sums in another order, tanh/exp/log ulps
@@ -70,14 +93,22 @@ EPISODE_B = 131072  # envs per greedy episode (bench.py:70)
 EPISODES = 8        # greedy episodes timed (bench.py:93)
 SLICE_B, SLICE_T = 4096, 16  # BASELINE config 4: num_envs, unroll_length
 HIDDEN = (128, 2)   # BASELINE config 4: hidden_dim, num_layers
-TRAIN_UPDATES = 80  # updates of the train phase
-LEARN_MIN = 0.15    # mean deliveries/env-step over updates 71-80
+TRAIN_SCHEDULE = 80  # the train phase's run length (its lr schedule)
+TRAIN_UPDATES = 50  # updates of it that the train phase runs
+LEARN_MIN = 0.15    # mean deliveries/env-step over updates 41-50
+IMPALA_UPDATES = 300  # updates of the impala_train phase (the JAX curve's)
+IMPALA_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 291-300
 # K3/K4 against the plain twin at config 4: (rtol, atol) per quantity.
 # The JAX suite's bounds (tests/test_grad_kernel.py:151-166, 185-190,
 # set at 16 samples per minibatch); both sides sum 65536 samples per step
 # in f32, in another order.
 SGD_TOL = {"losses": (1e-5, 2e-6), "params": (1e-5, 1e-6),
            "mu": (1e-5, 1e-7), "nu": (1e-5, 1e-10), "grads": (1e-4, 1e-7)}
+# K5/K6 against the plain twin at config 4: the JAX suite's bounds
+# (tests/test_impala_kernel.py:159-177, 198-203).
+VT_TOL = {"losses": (1e-5, 2e-6), "params": (1e-5, 1e-6),
+          "mu": (1e-5, 1e-7), "nu": (1e-5, 1e-10), "grads": (1e-4, 1e-6),
+          "mb_losses": (0.0, 1e-6)}
 
 
 def nvidia_smi() -> str:
@@ -188,21 +219,31 @@ def k1_check(dev):
     return err, k_ms, p_ms
 
 
-def k2_check(dev, cfg, model):
+def k2_check(dev, name, cfg, model, mask_actions=False):
+    """K2 against the plain engine replaying its actions and the plain
+    MLP on its observations, then timed beside its twin; with
+    ``mask_actions`` also its mask against ``valid_action_mask``."""
     B, T, A = CHECK_B, SLICE_T, cfg.num_agents
     state, obs0 = reset_envs(cfg, B, SEED + 1, dev)
     _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, T)
     _, g = rng.batched_gumbel_stream(rng.prng_key(SEED + 2, dev), T,
                                      (5, B * A))
     logits_k = torch.empty(T, B, A, 5, device=dev)
+    mask = (torch.empty(T, B, A, 5, dtype=torch.bool, device=dev)
+            if mask_actions else None)
     ks, obs, action, lp, value, reward, delivered = act.act_steps(
-        cfg, model, state, u, pick, drop, g, logits=logits_k)
+        cfg, model, state, u, pick, drop, g, logits=logits_k, mask=mask)
     torch.cuda.synchronize()
 
     # Dynamics: the plain engine replays the kernel's actions.
     s = state
     require(bits_equal(obs[0], obs0), "K2: first obs differs")
     for t in range(T):
+        if mask_actions:
+            require(torch.equal(mask[t], valid_action_mask(cfg, s.agent_pos)),
+                    f"K2: mask differs from valid_action_mask t={t}")
+            require(bool(mask[t].gather(-1, action[t].long()[..., None])
+                         .all()), f"K2: a masked move was sampled t={t}")
         s, ts = step_batch(cfg, s, action[t])
         require(bits_equal(ts.reward, reward[t]), f"K2: reward t={t}")
         require(torch.equal(ts.delivered.sum(-1, dtype=torch.int32),
@@ -215,12 +256,13 @@ def k2_check(dev, cfg, model):
     # Policy head: the plain MLP on the kernel's observations.
     with torch.no_grad():
         logits, val = model(obs)
-    lp_plain = torch.log_softmax(logits, -1).gather(
+    sampled = torch.where(mask, logits, -1e9) if mask_actions else logits
+    lp_plain = torch.log_softmax(sampled, -1).gather(
         -1, action.long()[..., None])[..., 0]
     err = {"logits": float((logits - logits_k).abs().max()),
            "value": float((val - value).abs().max()),
            "log_prob": float((lp_plain - lp).abs().max())}
-    z = logits.reshape(T, B * A, 5).transpose(1, 2) + g       # [T, 5, N]
+    z = sampled.reshape(T, B * A, 5).transpose(1, 2) + g      # [T, 5, N]
     top2 = z.topk(2, dim=1).values
     clear = (top2[:, 0] - top2[:, 1]).reshape(T, B, A) > TOL
     agree = bool(((first_argmax(z, 1).reshape(T, B, A) == action)
@@ -229,14 +271,21 @@ def k2_check(dev, cfg, model):
     require(agree, "K2: actions differ where the top-two gap is clear")
 
     # The kernel alone and its twin on the same inputs, main-path shapes.
-    k_ms = timed(lambda: act.act_steps(cfg, model, state, u, pick, drop, g),
-                 5)
+    k_ms = timed(lambda: act.act_steps(cfg, model, state, u, pick, drop, g,
+                                       mask=mask), 5)
     p_ms = timed(lambda: act.act_steps_reference(cfg, model, state, u, pick,
-                                                 drop, g), 3)
-    emit({"phase": "k2_check", "B": B, "T": T, "max_abs_err": err,
-          "tol": TOL, "actions_agree_where_gap_gt_tol": agree,
-          "clear_share": float(clear.float().mean()),
-          "kernel_ms": k_ms, "plain_ms": p_ms})
+                                                 drop, g, mask=mask), 3)
+    out = {"phase": "k2_check", "config": name, "mask_actions": mask_actions,
+           "B": B, "T": T, "max_abs_err": err, "tol": TOL,
+           "actions_agree_where_gap_gt_tol": agree,
+           "clear_share": float(clear.float().mean()),
+           "kernel_ms": k_ms, "plain_ms": p_ms}
+    if mask_actions:
+        out["masked_share"] = float(1.0 - mask.float().mean())
+        # The option's cost: the kernel without it on the same inputs.
+        out["unmasked_kernel_ms"] = timed(
+            lambda: act.act_steps(cfg, model, state, u, pick, drop, g), 5)
+    emit(out)
     return max(err.values()), k_ms, p_ms
 
 
@@ -258,7 +307,7 @@ def tree_err(a, b, rtol, atol):
 def sgd_inputs(dev, cfg):
     """One config-4 trajectory for the SGD checks: a K2 chunk from the
     trainer's reset, then GAE and the per-minibatch normalization."""
-    tcfg = TrainConfig(num_updates=TRAIN_UPDATES)
+    tcfg = TrainConfig(num_updates=TRAIN_SCHEDULE)
     tr = make_train(cfg, tcfg, device=dev)
     rs = tr.init(rng.prng_key(SEED + 5, dev))
     tr.model.load_state_dict(rs.params)
@@ -341,6 +390,113 @@ def k4_check(dev, cfg):
           "kernel_ms": k_ms, "plain_ms": p_ms})
     require(all(r <= 1.0 for _, r in worst.values()),
             f"K4 differs from autograd: {worst}")
+    return worst["grads"][0], k_ms, p_ms
+
+
+def impala_inputs(dev, cfg):
+    """One config-4 IMPALA trajectory: a K2 chunk from the trainer's reset
+    and the boundary reset after it (``last_obs``)."""
+    tcfg = TrainConfig(num_updates=IMPALA_UPDATES, impala_rmsprop=False)
+    tr = make_train_impala(cfg, tcfg, device=dev)
+    rs = tr.init(rng.prng_key(SEED + 7, dev))
+    tr.model.load_state_dict(rs.params)
+    new, roll, reset_key, _ = act.ppo_rollout(cfg, tr.model, rs.env_state,
+                                              SLICE_T,
+                                              rng.prng_key(SEED + 8, dev))
+    _, last_obs, _ = reset_truncated_batch(cfg, new, reset_key)
+    traj = ImpalaTransition(
+        roll.obs, roll.action, roll.log_prob, roll.reward,
+        roll.truncated[:, :, None].expand_as(roll.reward), roll.mask,
+        torch.zeros_like(roll.reward))
+    kw = dict(gamma=tcfg.gamma, rho_clip=tcfg.rho_clip, c_clip=tcfg.c_clip,
+              value_coef=tcfg.value_coef, mask_actions=False,
+              bootstrap_truncated=False)
+    return tcfg, rs.params, traj, last_obs, kw
+
+
+def k5_check(dev, cfg):
+    """K5 against its twin for passes 1 and 2, RMSProp and Adam; a rerun
+    bit-equal; the main path's case (Adam, 1 pass) timed."""
+    tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg)
+    M = tcfg.num_minibatches
+    results, worst = [], {k: (0.0, 0.0) for k in ("losses", "params", "mu",
+                                                  "nu")}
+    for use_rms in (True, False):
+        for passes in (1, 2):
+            tc = tcfg.replace(impala_rmsprop=use_rms, impala_passes=passes)
+            optimizer = make_impala_optimizer(tc)
+            opt = optimizer.init(params)
+            rows = optimizer.step_rows(opt.count, passes * M, dev)
+            args = (params, opt, traj, last_obs, rows, tc.entropy_coef)
+            pkw = dict(num_passes=passes, num_minibatches=M,
+                       max_grad_norm=tc.max_grad_norm, **kw)
+            pk, ok, lk = vtrace_sgd.impala_sgd_phase(*args, **pkw)
+            pr, orf, lr_ = vtrace_sgd.impala_sgd_phase_reference(*args, **pkw)
+            p2, o2, l2 = vtrace_sgd.impala_sgd_phase(*args, **pkw)
+            torch.cuda.synchronize()
+            err = {"losses": tree_err(lk, lr_, *VT_TOL["losses"]),
+                   "params": tree_err(pk, pr, *VT_TOL["params"]),
+                   "nu": tree_err(ok.nu, orf.nu, *VT_TOL["nu"])}
+            if not use_rms:
+                err["mu"] = tree_err(ok.mu, orf.mu, *VT_TOL["mu"])
+            for k, e in err.items():
+                worst[k] = tuple(map(max, worst[k], e))
+            bit_equal = (all(bits_equal(pk[k], p2[k])
+                             and bits_equal(ok.nu[k], o2.nu[k]) for k in pk)
+                         and all(bits_equal(a, b) for a, b in zip(lk, l2)))
+            moved = max(float((pk[k] - params[k]).abs().max()) for k in pk)
+            results.append({"optimizer": "rmsprop" if use_rms else "adam",
+                            "passes": passes,
+                            "tol_ratio": {k: r for k, (_, r) in err.items()},
+                            "bit_equal_rerun": bit_equal,
+                            "max_param_step": moved})
+            require(all(r <= 1.0 for _, r in err.values()),
+                    f"K5 ({results[-1]['optimizer']}, {passes} passes) "
+                    f"differs from its twin: {err}")
+            require(bit_equal, "K5: a second run gave other bits")
+            require(moved > 0.0, "K5 did not move the params")
+            if not use_rms and passes == 1:
+                k_ms = timed(lambda: vtrace_sgd.impala_sgd_phase(*args, **pkw),
+                             5)
+                p_ms = timed(lambda: vtrace_sgd.impala_sgd_phase_reference(
+                    *args, **pkw), 3)
+    emit({"phase": "k5_check", "B": traj.obs.shape[1], "T": SLICE_T,
+          "minibatches": M, "samples_per_minibatch":
+          traj.obs.shape[0] * traj.obs.shape[1] * cfg.num_agents // M,
+          "cases": results,
+          "max_abs_err": {k: e for k, (e, _) in worst.items()},
+          "tol_ratio": {k: r for k, (_, r) in worst.items()}, "tol": VT_TOL,
+          "timed": "adam, 1 pass (the main path's)",
+          "kernel_ms": k_ms, "plain_ms": p_ms})
+    return worst["params"][0], k_ms, p_ms
+
+
+def k6_check(dev, cfg):
+    tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg)
+    M, ent = tcfg.num_minibatches, tcfg.entropy_coef
+    worst = {"mb_losses": (0.0, 0.0), "grads": (0.0, 0.0)}
+    for mb in range(M):
+        (lk, auxk), gk = vtrace_sgd.impala_minibatch_grads(
+            params, traj, last_obs, mb, ent, num_minibatches=M, **kw)
+        (lr_, auxr), gr = vtrace_sgd.impala_minibatch_grads_reference(
+            params, traj, last_obs, mb, ent, num_minibatches=M, **kw)
+        torch.cuda.synchronize()
+        for name, e in (("mb_losses", tree_err((lk, *auxk), (lr_, *auxr),
+                                               *VT_TOL["mb_losses"])),
+                        ("grads", tree_err(gk, gr, *VT_TOL["grads"]))):
+            worst[name] = tuple(map(max, worst[name], e))
+    args = (params, traj, last_obs, 0, ent)
+    k_ms = timed(lambda: vtrace_sgd.impala_minibatch_grads(
+        *args, num_minibatches=M, **kw), 5)
+    p_ms = timed(lambda: vtrace_sgd.impala_minibatch_grads_reference(
+        *args, num_minibatches=M, **kw), 3)
+    emit({"phase": "k6_check", "minibatches": M,
+          "max_abs_err": {k: e for k, (e, _) in worst.items()},
+          "tol_ratio": {k: r for k, (_, r) in worst.items()},
+          "tol": {k: VT_TOL[k] for k in worst},
+          "kernel_ms": k_ms, "plain_ms": p_ms})
+    require(all(r <= 1.0 for _, r in worst.values()),
+            f"K6 differs from autograd: {worst}")
     return worst["grads"][0], k_ms, p_ms
 
 
@@ -451,9 +607,9 @@ def median_split(splits):
 
 
 def train_phase(dev, cfg):
-    """80 config-4 updates through the kernels, then 3 of the plain path
+    """50 config-4 updates through the kernels, then 3 of the plain path
     from the same initial state, then the trained policy served."""
-    tr = make_train(cfg, TrainConfig(num_updates=TRAIN_UPDATES), device=dev)
+    tr = make_train(cfg, TrainConfig(num_updates=TRAIN_SCHEDULE), device=dev)
     B, T = tr.tcfg.num_envs, tr.tcfg.unroll_length
     rs0 = tr.init(rng.prng_key(0, dev))
     rs, splits, deliveries = rs0, [], []
@@ -471,7 +627,7 @@ def train_phase(dev, cfg):
     moved = max(float((rs.params[k] - rs0.params[k]).abs().max())
                 for k in rs.params)
     require(moved > 0.0, "train: params did not move")
-    late = sum(deliveries[70:80]) / 10
+    late = sum(deliveries[-10:]) / 10
 
     plain, rp = [], rs0
     torch.cuda.synchronize()
@@ -497,11 +653,92 @@ def train_phase(dev, cfg):
           "plain_split_ms_median": median_split(plain),
           "plain_env_steps_per_sec": B * T * 3 / plain_wall,
           "deliveries_per_env_step": deliveries,
-          "deliveries_71_80": late, "learn_min": LEARN_MIN,
+          "deliveries_41_50": late, "learn_min": LEARN_MIN,
           "max_param_change": moved})
     require(late >= LEARN_MIN,
-            f"train: deliveries/env-step {late} over updates 71-80 is "
+            f"train: deliveries/env-step {late} over updates 41-50 is "
             f"below {LEARN_MIN}")
+
+
+def impala_train_phase(dev, cfg):
+    """300 config-4 IMPALA updates (Adam) through the kernels, then 3 of
+    the plain path from the same initial state, then the trained policy
+    served."""
+    tcfg = TrainConfig(num_updates=IMPALA_UPDATES, impala_rmsprop=False)
+    tr = make_train_impala(cfg, tcfg, device=dev)
+    B, T = tcfg.num_envs, tcfg.unroll_length
+    rs0 = tr.init(rng.prng_key(0, dev))
+    rs, splits, deliveries = rs0, [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(IMPALA_UPDATES):
+        marks = Marks()
+        rs, m = tr.train_step(rs, mark=marks)
+        splits.append(marks.split())
+        require(all(bool(torch.isfinite(v)) for v in m.values()),
+                f"impala_train: non-finite metrics {m}")
+        deliveries.append(float(m["deliveries_per_env_step"]))
+    wall = time.perf_counter() - t0
+    require(int(rs.update_idx) == IMPALA_UPDATES, "impala_train: count")
+    moved = max(float((rs.params[k] - rs0.params[k]).abs().max())
+                for k in rs.params)
+    require(moved > 0.0, "impala_train: params did not move")
+    late = sum(deliveries[-10:]) / 10
+
+    plain, rp = [], rs0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        marks = Marks()
+        rp, _ = tr.plain_step(rp, mark=marks)
+        plain.append(marks.split())
+    plain_wall = time.perf_counter() - t1
+
+    tr.model.load_state_dict(rs.params)
+    acts, _ = Policy(cfg, tr.model).compute_actions(rs.obs)
+    with torch.no_grad():
+        logits, _ = apply(rs.params, rs.obs)
+    require(acts.shape == (B, cfg.num_agents) and torch.equal(
+        acts, first_argmax(logits, -1).to(torch.int32)),
+        "serve: actions differ from the argmax of the trained policy")
+    emit({"phase": "impala_train", "B": B, "T": T,
+          "updates": IMPALA_UPDATES, "optimizer": "adam",
+          "update_ms_median": median([s["total"] for s in splits]),
+          "split_ms_median": median_split(splits),
+          "env_steps_per_sec": B * T * IMPALA_UPDATES / wall,
+          "plain_update_ms_median": median([s["total"] for s in plain]),
+          "plain_split_ms_median": median_split(plain),
+          "plain_env_steps_per_sec": B * T * 3 / plain_wall,
+          "deliveries_at": {u: deliveries[u - 1]
+                            for u in range(50, IMPALA_UPDATES + 1, 50)},
+          "deliveries_per_env_step": deliveries,
+          "deliveries_291_300": late, "learn_min": IMPALA_LEARN_MIN,
+          "max_param_change": moved})
+    require(late >= IMPALA_LEARN_MIN,
+            f"impala_train: deliveries/env-step {late} over updates "
+            f"291-300 is below {IMPALA_LEARN_MIN}")
+
+
+# Each kernel's wrapper, where its launch count lives.
+COUNTED = {"greedy_rollout": rollout.greedy_steps,
+           "ppo_rollout": act.act_steps,
+           "ppo_sgd_phase": sgd.ppo_sgd_phase,
+           "ppo_minibatch_grads": sgd.ppo_minibatch_grads,
+           "impala_sgd_phase": vtrace_sgd.impala_sgd_phase,
+           "impala_minibatch_grads": vtrace_sgd.impala_minibatch_grads}
+
+
+def main_path(name, fn, kernels):
+    """Runs one main path with every launch count zeroed just before it;
+    reads the counts just after and requires each of ``kernels``."""
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
+    fn()
+    counts = {k: w.launches for k, w in COUNTED.items()}
+    emit({"phase": "launches", "path": name, "launches": counts})
+    require(all(counts[k] > 0 for k in kernels),
+            f"{name}: a kernel of the path never launched: {counts}")
+    return counts
 
 
 def main() -> int:
@@ -524,24 +761,29 @@ def main() -> int:
     model = make_model(cfg, hidden_dim=HIDDEN[0], num_layers=HIDDEN[1],
                        generator=torch.Generator().manual_seed(SEED),
                        device=dev)
-    k2_err, k2_ms, k2_plain_ms = k2_check(dev, cfg, model)
+    k2_err, k2_ms, k2_plain_ms = k2_check(dev, "medium", cfg, model)
+    shelves = shelves_config()
+    k2_check(dev, "shelves", shelves,
+             make_model(shelves, hidden_dim=HIDDEN[0], num_layers=HIDDEN[1],
+                        generator=torch.Generator().manual_seed(SEED),
+                        device=dev), mask_actions=True)
     k3_err, k3_ms, k3_plain_ms = k3_check(dev, cfg)
     k4_err, k4_ms, k4_plain_ms = k4_check(dev, cfg)
+    k5_err, k5_ms, k5_plain_ms = k5_check(dev, cfg)
+    k6_err, k6_ms, k6_plain_ms = k6_check(dev, cfg)
 
-    # ---- the main path: counts from here on only ----------------------
-    rollout.greedy_steps.launches = 0
-    act.act_steps.launches = 0
-    sgd.ppo_sgd_phase.launches = 0
-    sgd.ppo_minibatch_grads.launches = 0
-    k1_episodes(dev)
-    slice_phase(dev, cfg, model)
-    train_phase(dev, cfg)
-    launches = {"greedy_rollout": rollout.greedy_steps.launches,
-                "ppo_rollout": act.act_steps.launches,
-                "ppo_sgd_phase": sgd.ppo_sgd_phase.launches,
-                "ppo_minibatch_grads": sgd.ppo_minibatch_grads.launches}
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel of the main path never launched: {launches}")
+    # ---- the main paths: each counted from just before it -------------
+    paths = [
+        main_path("k1_episodes", lambda: k1_episodes(dev),
+                  ["greedy_rollout"]),
+        main_path("slice", lambda: slice_phase(dev, cfg, model),
+                  ["ppo_rollout"]),
+        main_path("train", lambda: train_phase(dev, cfg),
+                  ["ppo_rollout", "ppo_sgd_phase", "ppo_minibatch_grads"]),
+        main_path("impala_train", lambda: impala_train_phase(dev, cfg),
+                  ["ppo_rollout", "impala_sgd_phase",
+                   "impala_minibatch_grads"])]
+    launches = {k: sum(p[k] for p in paths) for k in COUNTED}
 
     csrc = "warehouse_tpu_torch/kernels/csrc/"
     emit({"kernels": [
@@ -563,6 +805,16 @@ def main() -> int:
          "replaces": "warehouse_tpu/pallas/sgd.py:818",
          "launches": launches["ppo_minibatch_grads"], "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms},
+        {"name": "impala_sgd_phase", "route": "cuda",
+         "source": csrc + "vtrace_sgd.cu",
+         "replaces": "warehouse_tpu/pallas/vtrace_sgd.py:445",
+         "launches": launches["impala_sgd_phase"], "max_abs_err": k5_err,
+         "ms": k5_ms, "plain_ms": k5_plain_ms},
+        {"name": "impala_minibatch_grads", "route": "cuda",
+         "source": csrc + "vtrace_sgd.cu",
+         "replaces": "warehouse_tpu/pallas/vtrace_sgd.py:553",
+         "launches": launches["impala_minibatch_grads"],
+         "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms},
     ]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from warehouse_tpu import rng as jrng
-from warehouse_tpu.config import small_config
+from warehouse_tpu.config import shelves_config, small_config
 from warehouse_tpu.env import batch as jbatch
 from warehouse_tpu.models import make_model as j_make_model
 from warehouse_tpu.pallas.act import ppo_rollout_pallas
@@ -27,6 +27,7 @@ from warehouse_tpu_torch.env.state import STATE_FIELDS
 from warehouse_tpu_torch.kernels.act import (act_steps, ppo_rollout,
                                              ppo_rollout_reference)
 from warehouse_tpu_torch.models import make_model, params_from_flax
+from warehouse_tpu_torch.ops.move import valid_action_mask
 
 from test_torch_env import assert_state, env_keys
 from test_torch_rng import assert_bits, to_torch
@@ -125,7 +126,7 @@ def test_boundary_reset_matches_autoreset_path(setup):
 
 
 @pytest.mark.parametrize("option", [
-    {"mask_actions": True}, {"shaping_coef": 0.1},
+    {"mask_actions": True, "shaping_coef": 0.1}, {"shaping_coef": 0.1},
     {"policy_groups": (0, 1)}, {"arch": "cnn"}])
 def test_unsupported_options_raise(setup, option):
     _, _, m, _, ts, _ = setup
@@ -157,3 +158,69 @@ def test_params_from_flax_checks_shapes(setup):
     with pytest.raises(ValueError, match="Dense_3"):
         params_from_flax(bad)
 
+
+
+# ---- the action-masking option ---------------------------------------------
+
+WALLED = shelves_config(max_steps=T, num_agents=3, queue_capacity=6,
+                        init_requests=3)
+
+
+@pytest.fixture(scope="module")
+def masked_setup():
+    """A walled layout, masking on, through ``ppo_rollout_pallas``."""
+    jm = j_make_model(WALLED, hidden_dim=HIDDEN)
+    params = jm.init(jax.random.PRNGKey(1), jnp.zeros((1, WALLED.obs_dim)))
+    m = make_model(WALLED, hidden_dim=HIDDEN)
+    m.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
+    jk, tk = env_keys(2, n=B)
+    js, _ = jbatch.reset_batch(WALLED, jk)
+    ts, _ = batch.reset_batch(WALLED, tk)
+    out = ppo_rollout_pallas(WALLED, params, js, T, jax.random.PRNGKey(9),
+                             block=B, interpret=True, mask_actions=True)
+    return m, ts, out
+
+
+def test_masked_twin_with_jax_gumbel_bit_exact(masked_setup):
+    """The twin with masking against the Pallas kernel's mask option
+    (``pallas/act.py:415-428``): obs, actions, rewards, deliveries, final
+    state and mask bit-equal; values and log-probs as above."""
+    m, ts, (j_new, j_roll, _, _) = masked_setup
+    _, u, pick, drop, _ = rng.batched_step_draws(ts.key, WALLED, T)
+    _, g = jrng.batched_gumbel_stream(jax.random.PRNGKey(9), T,
+                                      (5, B * WALLED.num_agents))
+    mask = torch.zeros(T, B, WALLED.num_agents, 5, dtype=torch.bool)
+    new, obs, action, lp, value, reward, delivered = act_steps(
+        WALLED, m, ts, u, pick, drop, to_torch(g), mask=mask)
+    assert_bits(j_roll.mask, mask, "mask")
+    assert not bool(mask.all())  # the walls and edges masked some moves
+    assert_bits(j_roll.obs, obs, "obs")
+    assert_bits(j_roll.action, action, "action")
+    assert_bits(j_roll.reward, reward, "reward")
+    assert_bits(j_roll.delivered, delivered, "delivered")
+    for f in STATE_FIELDS[:-2]:
+        assert_bits(getattr(j_new, f), getattr(new, f), f)
+    np.testing.assert_allclose(value.numpy(), np.asarray(j_roll.value),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(j_roll.log_prob),
+                               rtol=0, atol=1e-4)
+
+
+def test_masked_wrapper_samples_only_valid_moves(masked_setup):
+    """``ppo_rollout(mask_actions=True)``: the mask is valid_action_mask
+    of the pre-tick positions, no sampled action is masked, and the
+    log-probs are the masked log-softmax's (finite)."""
+    m, ts, (_, j_roll, _, _) = masked_setup
+    new, roll, _, _ = ppo_rollout(WALLED, m, ts, T, rng.prng_key(9),
+                                  mask_actions=True)
+    assert_bits(j_roll.mask, roll.mask, "mask")
+    s = ts
+    for t in range(T):
+        assert torch.equal(roll.mask[t], valid_action_mask(WALLED,
+                                                           s.agent_pos))
+        assert bool(roll.mask[t].gather(
+            -1, roll.action[t].long()[..., None]).all())
+        s, _ = batch.step_batch(WALLED, s, roll.action[t])
+    assert bool(torch.isfinite(roll.log_prob).all())
+    plain = ppo_rollout(WALLED, m, ts, T, rng.prng_key(9))[1]
+    assert bool(plain.mask.all())

@@ -19,6 +19,7 @@ from warehouse_tpu_torch.kernels.act import act_steps
 from warehouse_tpu_torch.kernels.rollout import (greedy_rollout,
                                                  greedy_rollout_reference)
 from warehouse_tpu_torch.models import make_model
+from warehouse_tpu_torch.ops.move import valid_action_mask
 
 pytestmark = pytest.mark.gpu
 N = 1000  # not a multiple of the envs per block: the last block is ragged
@@ -78,6 +79,43 @@ def test_act_kernel_matches_plain_path(name, dev):
     with torch.no_grad():
         logits, v = m(obs)
     lp_plain = torch.log_softmax(logits, -1).gather(
+        -1, action.long()[..., None])[..., 0]
+    assert float((v - value).abs().max()) < 1e-4
+    assert float((lp_plain - lp).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("name", ["small", "shelves"])
+def test_masked_act_kernel_matches_plain_path(name, dev):
+    """K2's masking option: the returned mask is valid_action_mask of the
+    replayed positions, no sampled move is masked, the dynamics bit-equal
+    to the plain engine replaying the actions, log-probs within 1e-4 of
+    the masked log-softmax of the plain MLP."""
+    cfg, steps = PRESETS[name], 8
+    m = make_model(cfg, generator=torch.Generator().manual_seed(0),
+                   device=dev)
+    state, _ = reset(cfg, 5, dev)
+    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, steps)
+    _, g = rng.batched_gumbel_stream(rng.prng_key(2, dev), steps,
+                                     (5, N * cfg.num_agents))
+    mask = torch.zeros(steps, N, cfg.num_agents, 5, dtype=torch.bool,
+                       device=dev)
+    new, obs, action, lp, value, reward, delivered = act_steps(
+        cfg, m, state, u, pick, drop, g, mask=mask)
+    s = state
+    for t in range(steps):
+        assert torch.equal(mask[t], valid_action_mask(cfg, s.agent_pos))
+        assert bool(mask[t].gather(-1, action[t].long()[..., None]).all())
+        assert torch.equal(batch.observe_batch(cfg, s), obs[t])
+        s, ts = batch.step_batch(cfg, s, action[t])
+        assert torch.equal(ts.reward, reward[t])
+        assert torch.equal(ts.delivered.sum(-1, dtype=torch.int32),
+                           delivered[t])
+    for f in STATE_FIELDS[:-2]:
+        assert torch.equal(getattr(s, f), getattr(new, f)), f
+    assert not bool(mask.all())
+    with torch.no_grad():
+        logits, v = m(obs)
+    lp_plain = torch.log_softmax(torch.where(mask, logits, -1e9), -1).gather(
         -1, action.long()[..., None])[..., 0]
     assert float((v - value).abs().max()) < 1e-4
     assert float((lp_plain - lp).abs().max()) < 1e-4
@@ -181,3 +219,98 @@ def test_minibatch_grads_kernel_matches_autograd(mask_on, dev):
         for a, b in zip((l_k, *aux_k), (l_r, *aux_r)):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
         assert_close_tree(g_k, g_r, 1e-4, 1e-7, f"grads mb={mb}")
+
+
+# ---- K5 / K6: the IMPALA learner phase and per-minibatch gradients ----------
+
+VT_T, VT_B, VT_M, VT_P = 5, 100, 4, 2  # N = 500 per minibatch: ragged
+VT_KW = dict(gamma=0.99, rho_clip=1.0, c_clip=0.9, value_coef=0.5)
+
+
+def vtrace_batch(cfg, hidden, dev, seed=0):
+    """A seeded synthetic IMPALA trajectory, last obs and params on
+    ``dev``; done on random steps, so the traces cross boundaries."""
+    from warehouse_tpu_torch.train.impala import ImpalaTransition
+
+    g = torch.Generator().manual_seed(seed)
+    T, B, A, D = VT_T, VT_B, cfg.num_agents, cfg.obs_dim
+    action = torch.randint(0, 5, (T, B, A), generator=g, dtype=torch.int32)
+    mask = torch.rand(T, B, A, 5, generator=g) > 0.3
+    mask[..., 0] = True
+    mask.scatter_(-1, action.long()[..., None], True)
+    traj = ImpalaTransition(
+        obs=torch.randn(T, B, A, D, generator=g), action=action,
+        behavior_log_prob=-1.6 + 0.1 * torch.randn(T, B, A, generator=g),
+        reward=torch.randn(T, B, A, generator=g),
+        done=torch.rand(T, B, A, generator=g) < 0.2, mask=mask,
+        boot_value=torch.randn(T, B, A, generator=g))
+    last_obs = torch.randn(B, A, D, generator=g)
+    model = make_model(cfg, hidden_dim=hidden, generator=g)
+    params = {k: v.detach().to(dev) for k, v in model.state_dict().items()}
+    return (params, ImpalaTransition(*(x.to(dev) for x in traj)),
+            last_obs.to(dev), g)
+
+
+@pytest.mark.parametrize("use_rms", [True, False])
+@pytest.mark.parametrize("mask_on", [False, True])
+@pytest.mark.parametrize("hidden", [16, 128])
+def test_impala_phase_kernel_matches_twin(hidden, mask_on, use_rms, dev):
+    """K5 against autograd + optim.py on the same inputs (2 passes x M = 4,
+    500 samples per minibatch, truncation bootstrap on), and bit-equal to
+    itself on a rerun."""
+    from warehouse_tpu_torch.kernels.vtrace_sgd import (
+        impala_sgd_phase, impala_sgd_phase_reference)
+    from warehouse_tpu_torch.optim import (AdamState, ClipAdam, ClipRMSProp,
+                                           RMSState, linear_schedule)
+
+    cfg = medium_config()
+    params, traj, last_obs, g = vtrace_batch(cfg, hidden, dev)
+    nu = {k: (1e-6 * torch.rand(v.shape, generator=g)).to(dev)
+          for k, v in params.items()}
+    if use_rms:
+        opt, optimizer = RMSState(3, nu), ClipRMSProp
+    else:
+        mu = {k: (1e-3 * torch.randn(v.shape, generator=g)).to(dev)
+              for k, v in params.items()}
+        opt, optimizer = AdamState(3, mu, nu), ClipAdam
+    rows = optimizer(linear_schedule(3e-4, 0.0, 100), 0.5).step_rows(
+        opt.count, VT_P * VT_M, dev)
+    args = (params, opt, traj, last_obs, rows, 0.01)
+    kw = dict(num_passes=VT_P, num_minibatches=VT_M, max_grad_norm=0.5,
+              mask_actions=mask_on, bootstrap_truncated=True, **VT_KW)
+    p_k, o_k, l_k = impala_sgd_phase(*args, **kw)
+    p_r, o_r, l_r = impala_sgd_phase_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert type(o_k) is type(o_r) and o_k.count == o_r.count == 3 + 8
+    for a, b in zip(l_k, l_r):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-6)
+    assert_close_tree(p_k, p_r, 1e-5, 1e-6, "params")
+    assert_close_tree(o_k.nu, o_r.nu, 1e-5, 1e-10, "nu")
+    if not use_rms:
+        assert_close_tree(o_k.mu, o_r.mu, 1e-5, 1e-7, "mu")
+    p_2, o_2, l_2 = impala_sgd_phase(*args, **kw)
+    for k in p_k:
+        assert torch.equal(p_k[k], p_2[k]) and torch.equal(o_k.nu[k],
+                                                           o_2.nu[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(l_k, l_2))
+
+
+@pytest.mark.parametrize("bootstrap", [False, True])
+@pytest.mark.parametrize("mask_on", [False, True])
+def test_impala_grads_kernel_matches_autograd(mask_on, bootstrap, dev):
+    from warehouse_tpu_torch.kernels.vtrace_sgd import (
+        impala_minibatch_grads, impala_minibatch_grads_reference)
+
+    cfg = medium_config()
+    params, traj, last_obs, _ = vtrace_batch(cfg, 128, dev, seed=3)
+    kw = dict(num_minibatches=VT_M, mask_actions=mask_on,
+              bootstrap_truncated=bootstrap, **VT_KW)
+    for mb in range(VT_M):
+        (l_k, aux_k), g_k = impala_minibatch_grads(params, traj, last_obs,
+                                                   mb, 0.01, **kw)
+        (l_r, aux_r), g_r = impala_minibatch_grads_reference(
+            params, traj, last_obs, mb, 0.01, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip((l_k, *aux_k), (l_r, *aux_r)):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+        assert_close_tree(g_k, g_r, 1e-4, 1e-6, f"grads mb={mb}")

@@ -76,6 +76,27 @@ def test_train_steps_match_jax_trainer(bootstrap):
     assert_params(rs.opt_state.mu, mu, 2e-4, 5e-6, "mu")
 
 
+def test_masked_train_steps_match_jax_trainer():
+    """``mask_actions=True``: K2's twin floors the invalid moves, the SGD
+    phase re-applies the mask; held to the JAX trainer as above."""
+    tcfg = BASE.replace(mask_actions=True)
+    jtr = j_make_train(CFG, tcfg)
+    tr = make_train(CFG, tcfg)
+    jrs = jtr.init(jax.random.PRNGKey(0))
+    rs = runner_state_from_jax(jax.tree.map(np.asarray, jrs))
+    for u in range(3):
+        jrs, jm = jtr.train_step(jrs)
+        rs, m = tr.train_step(rs)
+        for f in STATE_FIELDS:
+            assert_bits(getattr(jrs.env_state, f), getattr(rs.env_state, f),
+                        f"update {u} {f}")
+        assert_bits(np.asarray(jrs.key).reshape(2), rs.key, f"update {u} key")
+        for k in jm:
+            a, b = float(m[k]), float(jm[k])
+            assert abs(a - b) < 2e-4 + 1e-3 * abs(b), (u, k, a, b)
+    assert_params(rs.params, jrs.params, 2e-4, 5e-5, "params")
+
+
 def test_init_matches_jax_init():
     """Env resets from fold_in(ekey, i) and the shard key fold_in(skey, 0)
     bit-equal; the params come from a torch.Generator (not flax's bits)."""
@@ -111,7 +132,7 @@ def test_train_many_runs_and_learns_something():
     (dict(arch="cnn"), NotImplementedError),
     (dict(policy_groups=(0, 1)), NotImplementedError),
     (dict(mesh=object()), NotImplementedError),
-    (dict(mask_actions=True), NotImplementedError),
+    (dict(mask_actions=True, shaping_coef=0.05), NotImplementedError),
     (dict(shaping_coef=0.1), NotImplementedError),
     (dict(model_dtype="bfloat16"), NotImplementedError),
     (dict(minibatch_mode="flat"), NotImplementedError),
@@ -149,9 +170,10 @@ def test_cli_runs_two_updates(tmp_path):
     assert any("eval_mean_episode_return" in r for r in recs)
 
 
-@pytest.mark.parametrize("flags", [["--algo", "impala"], ["--arch", "gru"],
+@pytest.mark.parametrize("flags", [["--algo", "impala", "--micro-batches",
+                                    "2"], ["--arch", "gru"],
                                    ["--policy-groups", "0,1"],
-                                   ["--mask-actions"],
+                                   ["--tensorboard-dir", "tb"],
                                    ["--shaping-coef", "0.1"], ["--resume"],
                                    ["--checkpoint-every", "5"],
                                    ["--profile-dir", "p"],

@@ -10,8 +10,13 @@ from .act import ActRollout, ppo_rollout, ppo_rollout_reference
 from .rollout import greedy_rollout, greedy_rollout_reference
 from .sgd import (ppo_minibatch_grads, ppo_minibatch_grads_reference,
                   ppo_sgd_phase, ppo_sgd_phase_reference)
+from .vtrace_sgd import (impala_minibatch_grads,
+                         impala_minibatch_grads_reference, impala_sgd_phase,
+                         impala_sgd_phase_reference)
 
 __all__ = ["ActRollout", "greedy_rollout", "greedy_rollout_reference",
            "ppo_rollout", "ppo_rollout_reference", "ppo_sgd_phase",
            "ppo_sgd_phase_reference", "ppo_minibatch_grads",
-           "ppo_minibatch_grads_reference"]
+           "ppo_minibatch_grads_reference", "impala_sgd_phase",
+           "impala_sgd_phase_reference", "impala_minibatch_grads",
+           "impala_minibatch_grads_reference"]

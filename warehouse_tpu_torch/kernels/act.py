@@ -11,9 +11,12 @@ env draws come from ``rng.batched_step_draws`` and the gumbel noise from
 wrapper feeds its kernel. On a CUDA tensor the CUDA kernel
 (``csrc/act.cu``) runs; on a CPU tensor the plain twin does.
 
-Action masking, reward shaping, global observations inside the kernel,
-policy groups and other torsos are not ported yet; ``ppo_rollout``
-raises ``NotImplementedError`` for them.
+With ``mask_actions`` the logits of moves off the grid or into a wall
+(``ops.move.valid_action_mask`` of the pre-tick positions) are floored to
+-1e9 before the sample and the log-softmax (``pallas/act.py:415-428``),
+and the mask is returned in ``ActRollout.mask``. Reward shaping, global
+observations inside the kernel, policy groups and other torsos are not
+ported yet; ``ppo_rollout`` raises ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ from .. import rng as _rng
 from ..env import engine
 from ..env.state import EnvState
 from ..models.policy import ActorCriticMLP
+from ..ops.move import valid_action_mask
 from ..ops.obs import inv_side
-from ..ops.ppo_update import sample_action_with_gumbel
+from ..ops.ppo_update import NEG_INF, sample_action_with_gumbel
 from . import build
 from .rollout import (check_kernel_shape, f32, kernel_state,
                       state_from_kernel, wall_mask)
@@ -44,17 +48,21 @@ class ActRollout(NamedTuple):
     reward: torch.Tensor      # float32[T, B, A]
     delivered: torch.Tensor   # int32[T, B] per-env delivery counts
     truncated: torch.Tensor   # bool[T, B]
-    mask: torch.Tensor        # bool[T, B, A, 5], all True (no masking)
+    mask: torch.Tensor        # bool[T, B, A, 5] valid moves (all True
+    #                           without masking)
     raw_reward: torch.Tensor  # float32[T, B, A], == reward (no shaping)
 
 
 def act_steps_reference(cfg: EnvConfig, model: ActorCriticMLP,
-                        state: EnvState, u, pick, drop, g, logits=None):
+                        state: EnvState, u, pick, drop, g, logits=None,
+                        mask=None):
     """Plain PyTorch twin of the kernel: T = ``u.shape[0]`` steps of
     observe -> MLP -> sample -> ``engine.tick`` on the given draws and
     gumbel noise ``g [T, 5, B*A]``. Returns ``(state, obs, action,
     log_prob, value, reward, delivered)``, each stacked over T. A
-    ``logits [T, B, A, 5]`` tensor, if given, receives the logits."""
+    ``logits [T, B, A, 5]`` tensor, if given, receives the MLP's logits; a
+    bool ``mask [T, B, A, 5]``, if given, turns action masking on and
+    receives the valid-action mask."""
     outs = []
     with torch.no_grad():
         for t in range(u.shape[0]):
@@ -62,6 +70,9 @@ def act_steps_reference(cfg: EnvConfig, model: ActorCriticMLP,
             lg, value = model(obs)
             if logits is not None:
                 logits[t] = lg
+            if mask is not None:
+                mask[t] = valid_action_mask(cfg, state.agent_pos)
+                lg = torch.where(mask[t], lg, NEG_INF)
             action, lp = sample_action_with_gumbel(lg, g[t])
             state, picked, delivered, collided = engine.tick(
                 cfg, state, action, u[t], pick[t], drop[t])
@@ -90,14 +101,14 @@ def packed_weights(model: ActorCriticMLP, device) -> tuple[torch.Tensor,
 
 
 def act_steps(cfg: EnvConfig, model: ActorCriticMLP, state: EnvState, u,
-              pick, drop, g, logits=None):
+              pick, drop, g, logits=None, mask=None):
     """T acting steps on precomputed draws and gumbel noise: the CUDA
     kernel for CUDA tensors, the plain twin for CPU tensors. Same
     arguments and returns as ``act_steps_reference``."""
     dev = state.agent_pos.device
     if dev.type == "cpu":
         return act_steps_reference(cfg, model, state, u, pick, drop, g,
-                                   logits)
+                                   logits, mask)
     if dev.type != "cuda":
         raise ValueError(f"act_steps: unsupported device {dev}")
     check_kernel_shape(cfg)
@@ -122,11 +133,13 @@ def act_steps(cfg: EnvConfig, model: ActorCriticMLP, state: EnvState, u,
              g.to(torch.float32).contiguous()]
     if any(x.shape != (T, B) for x in draws[:3]) or g.shape != (T, 5, B * A):
         raise ValueError("draws must be [T, B] and gumbel [T, 5, B*A]")
-    if logits is not None and (
-            logits.shape != (T, B, A, 5) or logits.dtype != torch.float32
-            or logits.device != dev or not logits.is_contiguous()):
-        raise ValueError("logits must be a contiguous float32 [T, B, A, 5] "
-                         f"tensor on {dev}")
+    for name, out, dtype in (("logits", logits, torch.float32),
+                             ("mask", mask, torch.bool)):
+        if out is not None and (
+                out.shape != (T, B, A, 5) or out.dtype != dtype
+                or out.device != dev or not out.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype} "
+                             f"[T, B, A, 5] tensor on {dev}")
     outs = [torch.empty_like(x) for x in ins]
     obs = torch.empty(T, B, A, D, dtype=torch.float32, device=dev)
     action = torch.empty(T, B, A, dtype=torch.int32, device=dev)
@@ -146,6 +159,7 @@ def act_steps(cfg: EnvConfig, model: ActorCriticMLP, state: EnvState, u,
         log_prob.data_ptr(), value.data_ptr(), reward.data_ptr(),
         delivered.data_ptr(),
         None if logits is None else logits.data_ptr(),
+        None if mask is None else mask.data_ptr(),
         build.stream_handle(dev))
     build.check(err, "ppo_rollout kernel launch")
     act_steps.launches += 1
@@ -156,11 +170,10 @@ def act_steps(cfg: EnvConfig, model: ActorCriticMLP, state: EnvState, u,
 act_steps.launches = 0
 
 
-def _check_options(cfg, mask_actions, shaping_coef, policy_groups, arch):
+def _check_options(cfg, shaping_coef, policy_groups, arch):
     if cfg.auto_reset:
         raise ValueError("ppo_rollout: auto_reset is handled by the caller")
-    for name, unsupported in (("mask_actions", mask_actions),
-                              ("shaping_coef", shaping_coef > 0.0),
+    for name, unsupported in (("shaping_coef", shaping_coef > 0.0),
                               ("global_obs", cfg.global_obs),
                               ("policy_groups", policy_groups is not None),
                               (f"arch={arch!r}", arch != "mlp")):
@@ -173,21 +186,23 @@ def _rollout(steps, cfg: EnvConfig, model: ActorCriticMLP, state: EnvState,
              T: int, key: torch.Tensor, mask_actions: bool = False,
              shaping_coef: float = 0.0, policy_groups=None,
              arch: str = "mlp"):
-    _check_options(cfg, mask_actions, shaping_coef, policy_groups, arch)
+    _check_options(cfg, shaping_coef, policy_groups, arch)
     B, A = state.agent_pos.shape[:2]
+    dev = state.agent_pos.device
     final_keys, u, pick, drop, reset_keys = _rng.batched_step_draws(
         state.key, cfg, T)
     next_key, g = _rng.batched_gumbel_stream(key, T, (5, B * A))
+    mask = torch.ones(T, B, A, 5, dtype=torch.bool, device=dev)
     new, obs, action, lp, value, reward, delivered = steps(
-        cfg, model, state, u, pick, drop, g)
+        cfg, model, state, u, pick, drop, g,
+        mask=mask if mask_actions else None)
     steps_ahead = (state.t[None, :] + 1
                    + torch.arange(T, dtype=state.t.dtype,
                                   device=state.t.device)[:, None])
     roll = ActRollout(
         obs=obs, action=action, log_prob=lp, value=value, reward=reward,
         delivered=delivered, truncated=steps_ahead >= cfg.max_steps,
-        mask=torch.ones(T, B, A, 5, dtype=torch.bool, device=obs.device),
-        raw_reward=reward)
+        mask=mask, raw_reward=reward)
     new = new.replace(t=state.t + T, key=final_keys)
     return new, roll, reset_keys[-1], next_key
 
@@ -197,8 +212,8 @@ def ppo_rollout(cfg: EnvConfig, model: ActorCriticMLP, state: EnvState,
     """T acting steps of the MLP policy, through the kernel on a CUDA
     state: ``(EnvState, ActRollout, reset_key_last, next_key)``.
     ``options`` (``mask_actions``, ``shaping_coef``, ``policy_groups``,
-    ``arch``) take the JAX wrapper's names; only their defaults are
-    ported."""
+    ``arch``) take the JAX wrapper's names; ``mask_actions`` is ported,
+    the others only at their defaults."""
     return _rollout(act_steps, cfg, model, state, T, key, **options)
 
 

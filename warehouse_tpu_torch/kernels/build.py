@@ -2,10 +2,11 @@
 
 The sources expose a plain C interface (no PyTorch headers), so each
 compiles in seconds; a binding that includes PyTorch's headers takes
-minutes per build. One ``nvcc -c`` per source runs in parallel, then one
-link. The library goes to ``_build/`` under a name that hashes the
-sources, so an edited source is rebuilt and a process builds at most
-once. Nothing here runs at import time.
+minutes per build. One ``nvcc -c`` per ``.cu`` source runs in parallel
+(the ``.cuh`` headers are included by them), then one link. The library
+goes to ``_build/`` under a name that hashes every file of ``csrc/``, so
+an edited source or header is rebuilt and a process builds at most once.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -32,14 +33,21 @@ SIGNATURES = {
     "wh_greedy_rollout": [I, I, L, I, I, I, F, F, F, F, F] + [P] * 21,
     "wh_act_smem_bytes": [I, I, I, I, IP, I],
     "wh_act_rollout": [I, I, L, I, I, I, F, I, I, I, F, F, F, F, F, F, I, IP,
-                       P, P, I] + [P] * 26,
+                       P, P, I] + [P] * 27,
     "wh_sgd_smem_bytes": [I, IP],
     "wh_sgd_workspace_floats": [I, IP, I, L, I, I],
     "wh_sgd_grads": [I, IP, I, L, I, I, I] + [P] * 9 + [F] * 5 + [P] * 4,
     "wh_sgd_clip_adam": [I, IP, I, L, I, I, I] + [P] * 7 + [F] * 6 + [P] * 2,
+    "wh_vtrace_workspace_floats": [I, IP, I, L, I, I],
+    "wh_vtrace_grads": [I, IP, I, L, I, I, I] + [P] * 10 + [F] * 5 + [P] * 4,
+    "wh_vtrace_clip_rms": [I, IP, I, L, I, I, I] + [P] * 4 + [F] * 4
+                          + [P] * 2,
+    "wh_vtrace_clip_adam": [I, IP, I, L, I, I, I] + [P] * 7 + [F] * 6
+                           + [P] * 2,
 }
 RESTYPES = {"wh_act_smem_bytes": L, "wh_error_string": ctypes.c_char_p,
-            "wh_sgd_smem_bytes": L, "wh_sgd_workspace_floats": L}
+            "wh_sgd_smem_bytes": L, "wh_sgd_workspace_floats": L,
+            "wh_vtrace_workspace_floats": L}
 
 
 def nvcc_path() -> str:

@@ -2,11 +2,15 @@
 //
 // Replaces warehouse_tpu/pallas/act.py ppo_rollout_pallas (:1028; body
 // _act_kernel :299 with _obs_rows :138, _sample_logprob :491 and the env
-// tick of rollout.py:57), MLP arm without masking, shaping, global obs or
-// policy groups. Each step, for every env of the CTA: build the ego-window
-// observation of each agent, run the MLP (tanh hidden layers, fused
-// logits + value head), sample argmax(logits + gumbel) with the first-max
-// tie rule, take the log-softmax of the chosen action, tick the env.
+// tick of rollout.py:57), MLP arm with its action-masking option, without
+// shaping, global obs or policy groups. Each step, for every env of the
+// CTA: build the ego-window observation of each agent, run the MLP (tanh
+// hidden layers, fused logits + value head), with masking floor the
+// logits of moves off the grid or into a wall to -1e9 (pallas/act.py:
+// 415-428; the mask, ops/move.py valid_action_mask of the pre-tick
+// positions, is written out), sample argmax(logits + gumbel) with the
+// first-max tie rule, take the log-softmax of the chosen action, tick the
+// env.
 //
 // Layout: a CTA owns NE envs (NE * A <= 64 rows of (env, agent)). The
 // packed weights (~124 KB for 106 -> 128 -> 128 -> 6 in f32) are staged in
@@ -35,6 +39,7 @@ constexpr int RT = 16;     // rows per register tile in the dense layers
 constexpr int NHEAD = 6;   // 5 logits + value
 constexpr int HSTRIDE = 8; // row stride of the head outputs
 constexpr int MAXL = 4;    // hidden layers
+constexpr float NEG_INF = -1e9f;  // logits floor of masked actions
 
 // Envs per CTA: NE * A rows, a multiple of RT, at most 64.
 template <int A>
@@ -61,8 +66,17 @@ struct ActArgs {
   int* action;      // [T, B, A]
   float *log_prob, *value, *reward;  // [T, B, A]
   int* delivered;   // [T, B]
-  float* logits;    // [T, B, A, 5], or null: not written
+  float* logits;    // [T, B, A, 5] pre-mask logits, or null: not written
+  unsigned char* mask;  // [T, B, A, 5] valid moves, or null: no masking
 };
+
+// Whether action a keeps an agent at (r, c) on the grid and off the walls
+// (the static part of docs/SEMANTICS.md §4.1 rule 1).
+__device__ bool valid_move(int r, int c, int a, const wh::Geometry& g) {
+  r += a == wh::UP ? -1 : (a == wh::DOWN ? 1 : 0);
+  c += a == wh::LEFT ? -1 : (a == wh::RIGHT ? 1 : 0);
+  return r >= 0 && r < g.H && c >= 0 && c < g.W && !g.walls[r * g.W + c];
+}
 
 template <int A, int R>
 struct EnvSmem {
@@ -231,33 +245,46 @@ __global__ void __launch_bounds__(NT) act_kernel(ActArgs p) {
                 false);
     __syncthreads();
 
-    // 3. Sample argmax(logits + gumbel), first max; stable log-softmax.
+    // 3. With masking, floor the invalid moves' logits; then sample
+    // argmax(logits + gumbel), first max; stable log-softmax.
     if (tid < ROWS) {
       const int n = tid;
       const bool live = n / A < ne;
+      const long o = tb * A + n;
       const float* h = head + n * HSTRIDE;
+      float lg[5];
+#pragma unroll
+      for (int r = 0; r < 5; ++r) lg[r] = h[r];
+      if (p.mask) {
+        const int* s = env_s + (n / A) * ES::SIZE;
+#pragma unroll
+        for (int r = 0; r < 5; ++r) {
+          const bool ok = valid_move(s[n % A], s[A + n % A], r, p.geo);
+          if (!ok) lg[r] = NEG_INF;
+          if (live) p.mask[o * 5 + r] = ok;
+        }
+      }
       float best = 0.f;
       int best_a = 0;
 #pragma unroll
       for (int r = 0; r < 5; ++r) {
         const float g =
             live ? p.gumbel[((long)t * 5 + r) * BA + b0 * A + n] : 0.f;
-        const float z = h[r] + g;
+        const float z = lg[r] + g;
         if (r == 0 || z > best) {
           best = z;
           best_a = r;
         }
       }
-      float mx = h[0];
+      float mx = lg[0];
 #pragma unroll
-      for (int r = 1; r < 5; ++r) mx = fmaxf(mx, h[r]);
+      for (int r = 1; r < 5; ++r) mx = fmaxf(mx, lg[r]);
       float ssum = 0.f;
 #pragma unroll
-      for (int r = 0; r < 5; ++r) ssum += expf(h[r] - mx);
-      const float lp = (h[best_a] - mx) - logf(ssum);
+      for (int r = 0; r < 5; ++r) ssum += expf(lg[r] - mx);
+      const float lp = (lg[best_a] - mx) - logf(ssum);
       act_s[n] = best_a;
       if (live) {
-        const long o = tb * A + n;
         p.action[o] = best_a;
         p.log_prob[o] = lp;
         p.value[o] = h[5];
@@ -382,7 +409,7 @@ extern "C" int wh_act_rollout(
     const float* gumbel, int* o_pos, int* o_areq, int* o_carry,
     int* o_rpick, int* o_rdrop, int* o_rstat, int* o_ragent, float* obs,
     int* action, float* log_prob, float* value, float* reward,
-    int* delivered, float* logits, void* stream) {
+    int* delivered, float* logits, unsigned char* mask, void* stream) {
   if (n_hidden < 0 || n_hidden > MAXL) return (int)cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
   ActArgs p = make_args(B, T, H, W, spawn_prob, S, k, D, inv_h, inv_w,
@@ -418,6 +445,7 @@ extern "C" int wh_act_rollout(
   p.reward = reward;
   p.delivered = delivered;
   p.logits = logits;
+  p.mask = mask;
   int err = (int)cudaSuccess;
   if (!wh::dispatch_shape<LaunchAct>(A, R, p, (cudaStream_t)stream, &err))
     return (int)cudaErrorInvalidValue;

@@ -1,0 +1,506 @@
+// The MLP learner's building blocks, shared by the PPO learner kernels
+// (K3/K4, sgd.cu) and the IMPALA learner kernels (K5/K6, vtrace_sgd.cu).
+//
+// - The packed parameter layout: per dense layer W [out, in] then b [out]
+//   (torch's layout), the head as the 6 x H stack of 5 logits and the
+//   value. Staged in opted-in shared memory with an odd row stride, so the
+//   forward (a thread per output row of W) and the backward (a thread per
+//   input column) both read it without bank conflicts.
+// - fwd_layer / bwd_layer: one dense layer over a tile of R sample rows in
+//   shared memory, a thread owning one column for RT rows.
+// - Kernels that read activations and deltas only: wgrad_kernel (dW =
+//   delta^T prev and db = sum(delta) as split-K products, one partial per
+//   sample range, no atomics), reduce_kernel (the partials summed in split
+//   order, sums of squares per 256 gradients), metrics_kernel (per-tile
+//   metric rows summed in a fixed order), and adam_kernel (the optax clip
+//   + Adam step, one CTA).
+//
+// Every sum runs in an order fixed by the shapes alone, so two runs on the
+// same inputs give the same bits.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int MAXL = 4;       // hidden layers
+constexpr int NACT = 5;
+constexpr int NHEAD = 6;      // 5 logits + value
+constexpr int OST = 8;        // row stride of head outputs and deltas
+constexpr int NT = 256;       // threads of the tile kernels
+constexpr int R = 64;         // samples per tile
+constexpr int RT = 16;        // rows per register tile
+constexpr int G = R / RT;
+constexpr int WT = 64;        // output tile side of wgrad_kernel
+constexpr int NC = 32;        // samples per shared-memory stage of wgrad
+constexpr int WNT = 256;      // threads of wgrad_kernel
+constexpr int MAXS = 64;      // sample splits of wgrad_kernel
+constexpr int RED = 256;      // threads of reduce_kernel
+constexpr int FNT = 1024;     // threads of the optimizer kernels
+constexpr float NEG_INF = -1e9f;
+
+struct Layer {
+  int in, out;
+  long w_off, b_off;  // packed vector: W [out, in] then b [out]
+  int ws;             // shared-memory row stride of W (odd)
+  int s_off;          // shared-memory offset of W; the bias follows
+};
+
+struct Net {
+  int n_hidden, D;
+  Layer L[MAXL + 1];  // the hidden layers, then the head
+  long n_params;
+  int smem_w;         // floats of the staged weights
+  int act_floats;     // floats of the per-tile row buffers
+};
+
+bool make_net(int n_hidden, const int* dims, Net* net) {
+  if (n_hidden < 1 || n_hidden > MAXL) return false;
+  net->n_hidden = n_hidden;
+  net->D = dims[0];
+  long off = 0;
+  int soff = 0, act = R * (dims[0] + OST + 4);
+  for (int l = 0; l <= n_hidden; ++l) {
+    Layer& y = net->L[l];
+    y.in = dims[l];
+    y.out = l < n_hidden ? dims[l + 1] : NHEAD;
+    if (y.in <= 0 || y.out <= 0) return false;
+    y.w_off = off;
+    y.b_off = off + (long)y.out * y.in;
+    off = y.b_off + y.out;
+    y.ws = y.in | 1;
+    y.s_off = soff;
+    soff += y.out * y.ws + y.out;
+    if (l < n_hidden) act += R * y.out;
+  }
+  net->n_params = off;
+  net->smem_w = soff;
+  net->act_floats = act;
+  return true;
+}
+
+size_t smem_bytes(const Net& net) {
+  return sizeof(float) * ((size_t)net.smem_w + net.act_floats);
+}
+
+// The samples of one minibatch: env columns [m B/M, (m+1) B/M) of a
+// [T, B, A] trajectory, N = T * B/M * A samples in time-major order.
+struct Rows {
+  long N;       // samples
+  long nb;      // samples per time step: B/M * A
+  long BA;      // B * A
+  long mb_off;  // m * nb
+  int D;
+  const float* obs;  // [T, B, A, D]
+  // Row of sample q in the [T, B, A] arrays: time step q / nb, then the
+  // minibatch's env columns.
+  __device__ long row(long q) const {
+    return (q / nb) * BA + mb_off + q % nb;
+  }
+};
+
+bool make_rows(int n_hidden, const int* dims, int T, long B, int A, int M,
+               int mb, const float* obs, Net* net, Rows* rows) {
+  if (!make_net(n_hidden, dims, net) || T <= 0 || B <= 0 || A <= 0 ||
+      M <= 0 || B % M || mb < 0 || mb >= M)
+    return false;
+  rows->nb = (B / M) * A;
+  rows->N = (long)T * rows->nb;
+  rows->BA = B * A;
+  rows->mb_off = mb * rows->nb;
+  rows->D = net->D;
+  rows->obs = obs;
+  return true;
+}
+
+struct Scratch {
+  float* act[MAXL];  // [N, H_l] hidden activations
+  float* dz[MAXL];   // [N, H_l] their deltas
+  float* dout;       // [N + extra, OST] head outputs / deltas
+  float* part;       // [S, n_params] gradient partials
+  float* sq;         // [n_params / RED] sums of squares
+  float* met;        // [n_tiles, 4] metric sums per tile
+  int S;
+  long n_tiles, n_sq;
+};
+
+long n_splits(long N) {
+  long s = (N + 1023) / 1024;
+  return s < 1 ? 1 : (s > MAXS ? MAXS : s);
+}
+
+// Lays the scratch out from `base` (or only sizes it when base is null);
+// `extra` head rows follow the N samples'. Returns its floats.
+long carve(const Net& net, long N, long extra, float* base, Scratch* sc) {
+  long off = 0;
+  auto take = [&](long n) {
+    float* p = base ? base + off : nullptr;
+    off += (n + 31) / 32 * 32;
+    return p;
+  };
+  for (int l = 0; l < net.n_hidden; ++l) {
+    sc->act[l] = take(N * net.L[l].out);
+    sc->dz[l] = take(N * net.L[l].out);
+  }
+  sc->dout = take((N + extra) * OST);
+  sc->S = (int)n_splits(N);
+  sc->part = take(sc->S * net.n_params);
+  sc->n_sq = (net.n_params + RED - 1) / RED;
+  sc->sq = take(sc->n_sq);
+  sc->n_tiles = (N + R - 1) / R;
+  sc->met = take(sc->n_tiles * 4);
+  return off;
+}
+
+// ---- tile kernels' pieces ----------------------------------------------------
+
+// The packed params into shared memory, each W row at its odd stride.
+__device__ void stage_weights(const Net& net, const float* params,
+                              float* smem) {
+  for (int l = 0; l <= net.n_hidden; ++l) {
+    const Layer& y = net.L[l];
+    for (int k = threadIdx.x; k < y.out * y.in; k += NT)
+      smem[y.s_off + (k / y.in) * y.ws + k % y.in] = params[y.w_off + k];
+    for (int k = threadIdx.x; k < y.out; k += NT)
+      smem[y.s_off + y.out * y.ws + k] = params[y.b_off + k];
+  }
+}
+
+// The per-tile row buffers after the staged weights: the input rows xs
+// [R, D], each hidden layer's rows hs[l] [R, H_l], the head rows outs
+// [R, OST], then R x 4 floats of metric terms.
+struct TileBufs {
+  float* xs;
+  float* hs[MAXL];
+  float* outs;
+  float* met;
+};
+
+__device__ TileBufs tile_bufs(const Net& net, float* smem) {
+  TileBufs b;
+  b.xs = smem + net.smem_w;
+  float* next = b.xs + R * net.D;
+  for (int l = 0; l < net.n_hidden; ++l) {
+    b.hs[l] = next;
+    next += R * net.L[l].out;
+  }
+  b.outs = next;
+  b.met = b.outs + R * OST;
+  return b;
+}
+
+// y[n][o] = act(x[n] . W[o] + b[o]) for the tile's R rows; rows < nvalid
+// also go to g[(n0 + n) * out + o].
+__device__ void fwd_layer(const float* W, int ws, const float* bias,
+                          const float* x, int in, float* y, int ys, int out,
+                          bool use_tanh, float* g, long n0, int nvalid) {
+  for (int item = threadIdx.x; item < out * G; item += NT) {
+    const int o = item % out, grp = item / out;
+    const float* xg = x + grp * RT * in;
+    const float* w = W + o * ws;
+    float acc[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) acc[r] = 0.f;
+    for (int i = 0; i < in; ++i) {
+      const float wi = w[i];
+#pragma unroll
+      for (int r = 0; r < RT; ++r) acc[r] = fmaf(xg[r * in + i], wi, acc[r]);
+    }
+    const float bo = bias[o];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const int n = grp * RT + r;
+      const float z = acc[r] + bo;
+      const float v = use_tanh ? tanhf(z) : z;
+      y[n * ys + o] = v;
+      if (g && n < nvalid) g[(n0 + n) * out + o] = v;
+    }
+  }
+}
+
+// The tile's forward through the hidden layers (activations of rows <
+// nvalid to sc.act) and the head into b.outs.
+__device__ void fwd_tile(const Net& net, const float* smem,
+                         const TileBufs& b, const Scratch& sc, long n0,
+                         int nvalid) {
+  const float* x = b.xs;
+  for (int l = 0; l < net.n_hidden; ++l) {
+    const Layer& y = net.L[l];
+    fwd_layer(smem + y.s_off, y.ws, smem + y.s_off + y.out * y.ws, x, y.in,
+              b.hs[l], y.out, y.out, true, sc.act[l], n0, nvalid);
+    __syncthreads();
+    x = b.hs[l];
+  }
+  const Layer& hd = net.L[net.n_hidden];
+  fwd_layer(smem + hd.s_off, hd.ws, smem + hd.s_off + hd.out * hd.ws, x,
+            hd.in, b.outs, OST, NHEAD, false, nullptr, n0, nvalid);
+  __syncthreads();
+}
+
+// dz[n][i] = (sum_o d[n][o] W[o][i]) * (1 - h[n][i]^2), written over h and,
+// for rows < nvalid, to g[(n0 + n) * in + i].
+__device__ void bwd_layer(const float* W, int ws, const float* d, int ds,
+                          int out, float* h, int in, float* g, long n0,
+                          int nvalid) {
+  for (int item = threadIdx.x; item < in * G; item += NT) {
+    const int i = item % in, grp = item / in;
+    const float* dg = d + grp * RT * ds;
+    float acc[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) acc[r] = 0.f;
+    for (int o = 0; o < out; ++o) {
+      const float w = W[o * ws + i];
+#pragma unroll
+      for (int r = 0; r < RT; ++r) acc[r] = fmaf(dg[r * ds + o], w, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const int n = grp * RT + r;
+      const float hv = h[n * in + i];
+      const float dz = acc[r] * (1.f - hv * hv);
+      h[n * in + i] = dz;
+      if (n < nvalid) g[(n0 + n) * in + i] = dz;
+    }
+  }
+}
+
+// The head deltas in b.outs back through the head and the hidden layers
+// (over b.hs, which hold the activations); the deltas of rows < nvalid go
+// to sc.dz.
+__device__ void bwd_tile(const Net& net, const float* smem,
+                         const TileBufs& b, const Scratch& sc, long n0,
+                         int nvalid) {
+  const int L = net.n_hidden;
+  const Layer& hd = net.L[L];
+  bwd_layer(smem + hd.s_off, hd.ws, b.outs, OST, NHEAD, b.hs[L - 1], hd.in,
+            sc.dz[L - 1], n0, nvalid);
+  __syncthreads();
+  for (int l = L - 2; l >= 0; --l) {
+    const Layer& y = net.L[l + 1];
+    bwd_layer(smem + y.s_off, y.ws, b.hs[l + 1], y.out, y.out, b.hs[l], y.in,
+              sc.dz[l], n0, nvalid);
+    __syncthreads();
+  }
+}
+
+// ---- weight gradients as split-K products -----------------------------------
+
+struct WTask {
+  const float* prev;   // [N, in] activations, or null: the obs rows
+  const float* delta;  // [N, ds]
+  int ds, in, out;
+  long w_off, b_off;
+  int i_tiles, tile0;
+};
+
+struct WArgs {
+  WTask t[MAXL + 1];
+  int n_layers;
+  Rows bt;
+  long chunk, n_params;
+  float* part;
+};
+
+__global__ void __launch_bounds__(WNT) wgrad_kernel(WArgs p) {
+  __shared__ __align__(16) float Ds[NC][WT];
+  __shared__ __align__(16) float Ps[NC][WT];
+  int l = 0;
+  while (l + 1 < p.n_layers && (int)blockIdx.x >= p.t[l + 1].tile0) ++l;
+  const WTask& w = p.t[l];
+  const int tile = blockIdx.x - w.tile0;
+  const int o0 = tile / w.i_tiles * WT, i0 = tile % w.i_tiles * WT;
+  const bool bias = i0 == 0;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const long q0 = blockIdx.y * p.chunk;
+  const long q1 = q0 + p.chunk < p.bt.N ? q0 + p.chunk : p.bt.N;
+
+  float acc[4][4] = {}, bsum[4] = {};
+  for (long qc = q0; qc < q1; qc += NC) {
+    for (int k = tid; k < NC * WT; k += WNT) {
+      const int nn = k / WT, col = k % WT;
+      const long q = qc + nn;
+      const bool ok = q < q1;
+      Ds[nn][col] = ok && o0 + col < w.out ? w.delta[q * w.ds + o0 + col] : 0.f;
+      float pv = 0.f;
+      if (ok && i0 + col < w.in)
+        pv = w.prev ? w.prev[q * w.in + i0 + col]
+                    : p.bt.obs[p.bt.row(q) * p.bt.D + i0 + col];
+      Ps[nn][col] = pv;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int nn = 0; nn < NC; ++nn) {
+      const float4 d = *reinterpret_cast<const float4*>(&Ds[nn][ty * 4]);
+      const float4 x = *reinterpret_cast<const float4*>(&Ps[nn][tx * 4]);
+      const float dv[4] = {d.x, d.y, d.z, d.w}, xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(dv[a], xv[b], acc[a][b]);
+      if (bias && tx == 0)
+#pragma unroll
+        for (int a = 0; a < 4; ++a) bsum[a] += dv[a];
+    }
+    __syncthreads();
+  }
+  float* out = p.part + blockIdx.y * p.n_params;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int o = o0 + ty * 4 + a;
+    if (o >= w.out) continue;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int i = i0 + tx * 4 + b;
+      if (i < w.in) out[w.w_off + (long)o * w.in + i] = acc[a][b];
+    }
+    if (bias && tx == 0) out[w.b_off + o] = bsum[a];
+  }
+}
+
+// ---- partials -> gradient, sums of squares ----------------------------------
+
+__global__ void __launch_bounds__(RED) reduce_kernel(const float* part, int S,
+                                                     long n, float* grads,
+                                                     float* sq) {
+  __shared__ float sh[RED];
+  const long k = (long)blockIdx.x * RED + threadIdx.x;
+  float g = 0.f;
+  if (k < n) {
+    for (int s = 0; s < S; ++s) g += part[s * n + k];
+    grads[k] = g;
+  }
+  sh[threadIdx.x] = g * g;
+  __syncthreads();
+  for (int w = RED / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) sq[blockIdx.x] = sh[0];
+}
+
+// ---- metric sums; global norm, clip + Adam ----------------------------------
+
+__device__ float warp_sum(float s) {
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_down_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// sums[k] = the tiles' metric k in a fixed order, one warp per metric.
+__global__ void metrics_kernel(const float* met, long n_tiles, float* sums) {
+  const int k = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float s = 0.f;
+  for (long t = lane; t < n_tiles; t += 32) s += met[t * 4 + k];
+  s = warp_sum(s);
+  if (lane == 0) sums[k] = s;
+}
+
+// The global norm of the gradient from its sums of squares, in a fixed
+// order, by the first warp into *norm_s.
+__device__ void global_norm(const float* sq, long n_sq, float* norm_s) {
+  if (threadIdx.x < 32) {
+    float s = 0.f;
+    for (long b = threadIdx.x; b < n_sq; b += 32) s += sq[b];
+    s = warp_sum(s);
+    if (threadIdx.x == 0) *norm_s = __fsqrt_rn(s);
+  }
+  __syncthreads();
+}
+
+struct AdamArgs {
+  long n, n_sq;
+  const float *grads, *sq;
+  float *params, *m, *v;
+  const float *lr_row, *bc1_row, *bc2_row;
+  int step;
+  float max_grad_norm, b1, one_m_b1, b2, one_m_b2, eps;
+};
+
+// optax.chain(clip_by_global_norm, adam) in its op order (_clip_adam_step,
+// sgd.py:226-248): scale = norm < max ? 1 : (g / norm) * max, the moment
+// updates, update = lr * (m / bc1) / (sqrt(v / bc2) + eps).
+__global__ void __launch_bounds__(FNT) adam_kernel(AdamArgs p) {
+  __shared__ float norm_s;
+  global_norm(p.sq, p.n_sq, &norm_s);
+  const float norm = norm_s, maxn = p.max_grad_norm;
+  const bool keep = norm < maxn;
+  const float lr = p.lr_row[p.step], bc1 = p.bc1_row[p.step];
+  const float bc2 = p.bc2_row[p.step];
+  for (long k = threadIdx.x; k < p.n; k += FNT) {
+    float g = p.grads[k];
+    if (!keep) g = __fmul_rn(__fdiv_rn(g, norm), maxn);
+    const float m = __fadd_rn(__fmul_rn(p.one_m_b1, g),
+                              __fmul_rn(p.b1, p.m[k]));
+    const float v = __fadd_rn(__fmul_rn(p.one_m_b2, __fmul_rn(g, g)),
+                              __fmul_rn(p.b2, p.v[k]));
+    p.m[k] = m;
+    p.v[k] = v;
+    const float upd = __fdiv_rn(
+        __fdiv_rn(m, bc1), __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), p.eps));
+    p.params[k] = __fsub_rn(p.params[k], __fmul_rn(lr, upd));
+  }
+}
+
+// ---- host side ----------------------------------------------------------------
+
+// Opts `kernel` in to `smem` bytes of dynamic shared memory and sizes its
+// persistent grid: one CTA per resident slot, at most n_tiles.
+template <class Kernel>
+cudaError_t persistent_grid(Kernel kernel, size_t smem, long n_tiles,
+                            long* grid) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, n_sm = 1, per_sm = 1;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                      smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long resident = (long)n_sm * per_sm;
+  *grid = n_tiles < resident ? n_tiles : resident;
+  return cudaSuccess;
+}
+
+// After the tile kernels: the weight gradients of every layer from the
+// activations and deltas in `sc` (the head's deltas are sc.dout's first N
+// rows), reduced into `grads` with its sums of squares into sc.sq, and the
+// n_met metric rows of sc.met summed into sums[0..3].
+cudaError_t launch_grads_tail(const Net& net, const Rows& rows,
+                              const Scratch& sc, long n_met, float* grads,
+                              float* sums, cudaStream_t stream) {
+  WArgs wa;
+  wa.n_layers = net.n_hidden + 1;
+  wa.bt = rows;
+  wa.n_params = net.n_params;
+  wa.part = sc.part;
+  wa.chunk = ((rows.N + sc.S - 1) / sc.S + NC - 1) / NC * NC;
+  int tiles = 0;
+  for (int l = 0; l <= net.n_hidden; ++l) {
+    WTask& t = wa.t[l];
+    const Layer& y = net.L[l];
+    t.prev = l == 0 ? nullptr : sc.act[l - 1];
+    t.delta = l < net.n_hidden ? sc.dz[l] : sc.dout;
+    t.ds = l < net.n_hidden ? y.out : OST;
+    t.in = y.in;
+    t.out = y.out;
+    t.w_off = y.w_off;
+    t.b_off = y.b_off;
+    t.i_tiles = (y.in + WT - 1) / WT;
+    t.tile0 = tiles;
+    tiles += t.i_tiles * ((y.out + WT - 1) / WT);
+  }
+  cudaError_t e;
+  wgrad_kernel<<<dim3(tiles, sc.S), WNT, 0, stream>>>(wa);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  reduce_kernel<<<(unsigned)sc.n_sq, RED, 0, stream>>>(sc.part, sc.S,
+                                                       net.n_params, grads,
+                                                       sc.sq);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  metrics_kernel<<<1, 128, 0, stream>>>(sc.met, n_met, sums);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -161,6 +161,17 @@ def _f32(x, dev) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
 
 
+def check_tile_smem(lib, n_hidden: int, dims_arr, dims, dev, what: str):
+    """Raise unless the tile kernels' shared memory for these widths
+    (``wh_sgd_smem_bytes``; K3-K6 share the layout) fits the card."""
+    smem = lib.wh_sgd_smem_bytes(n_hidden, dims_arr)
+    limit = getattr(torch.cuda.get_device_properties(dev),
+                    "shared_memory_per_block_optin", smem)
+    if not 0 < smem <= limit:
+        raise ValueError(f"{what} needs {smem} bytes of shared memory per "
+                         f"block for widths {dims}; the card allows {limit}")
+
+
 class _Launch:
     """One trajectory's inputs checked and laid out for the C entry points
     (``csrc/sgd.cu``), with the scratch both share."""
@@ -186,13 +197,7 @@ class _Launch:
                 raise ValueError("mask must be [T, B, A, 5]")
         self.lib = lib = build.library()
         self.shape = (len(dims) - 1, build.int_array(dims), T, B, A, M)
-        smem = lib.wh_sgd_smem_bytes(*self.shape[:2])
-        limit = getattr(torch.cuda.get_device_properties(dev),
-                        "shared_memory_per_block_optin", smem)
-        if not 0 < smem <= limit:
-            raise ValueError(f"SGD kernel needs {smem} bytes of shared "
-                             f"memory per block for widths {dims}; the card "
-                             f"allows {limit}")
+        check_tile_smem(lib, *self.shape[:2], dims, dev, "SGD kernel")
         self.work = torch.empty(lib.wh_sgd_workspace_floats(*self.shape),
                                 dtype=torch.float32, device=dev)
         self.scal = torch.stack([_f32(ent_coef, dev), _f32(kl_coeff, dev)])

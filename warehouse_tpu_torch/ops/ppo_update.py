@@ -125,7 +125,8 @@ def minibatch_epochs(params, opt_state, *, loss_fn: Callable,
     opt_state) -> (updates, opt_state)`` (a step of
     ``optim.clip_adam_step``). Every epoch visits ``minibatches`` in order with one optimizer step
     each. Returns ``(params, opt_state, losses)``, ``losses`` the tuple
-    ``(total, pg, v, ent, kl)`` of ``[num_epochs, M]`` tensors. The JAX
+    ``(total, *aux)`` of ``[num_epochs, M]`` tensors. IMPALA's passes
+    over its fixed env minibatches run through it too. The JAX
     scaffold's key split for its partition is the caller's to mirror. The
     per-epoch reshuffle and micro-batches are not ported (``make_train``
     refuses them, ROADMAP §B item 9).
@@ -143,5 +144,5 @@ def minibatch_epochs(params, opt_state, *, loss_fn: Callable,
                 params = apply_updates(params, updates)
             rows.append([total.detach(), *(a.detach() for a in aux)])
     losses = tuple(torch.stack([r[i] for r in rows]).reshape(num_epochs, -1)
-                   for i in range(5))
+                   for i in range(len(rows[0])))
     return params, opt_state, losses

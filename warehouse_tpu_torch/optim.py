@@ -1,10 +1,12 @@
-"""The PPO trainer's optimizer, written out as optax computes it.
+"""The trainers' optimizers, written out as optax computes them.
 
-Counterpart of the chain at ``warehouse_tpu/train/ppo.py:323-335``:
+Counterparts of the chains at ``warehouse_tpu/train/ppo.py:323-335`` and
+``warehouse_tpu/train/impala.py:192-221``:
 ``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr, ADAM_B1,
-ADAM_B2, ADAM_EPS))`` with ``lr`` a ``linear_schedule`` over
-``num_updates * ppo_epochs * num_minibatches`` steps or a constant. Each
-formula is optax's, in its op order:
+ADAM_B2, ADAM_EPS))`` and IMPALA's default ``optax.chain(
+clip_by_global_norm(max_grad_norm), rmsprop(lr, decay=0.99, eps=0.1))``,
+with ``lr`` a ``linear_schedule`` over the run's optimizer steps or a
+constant. Each formula is optax's, in its op order:
 
 - clip: ``where(norm < max, g, (g / norm) * max)``, no epsilon (torch's
   ``clip_grad_norm_`` adds 1e-6 and scales by a clamped ratio instead);
@@ -12,17 +14,22 @@ formula is optax's, in its op order:
   ``update = -lr * (mu / (1 - b1^k)) / (sqrt(nu / (1 - b2^k)) + eps)``
   with ``k`` the incremented count and ``lr`` the schedule at the count
   before it; eps outside the sqrt (``torch.optim.Adam`` rounds the bias
-  corrections differently).
+  corrections differently);
+- RMSProp (``scale_by_rms``): ``nu = (1-decay) g² + decay nu``, then
+  ``update = -lr * (rsqrt(nu + eps) * g)``: eps inside the sqrt, no bias
+  correction, no momentum (``torch.optim.RMSprop`` adds eps outside).
 
 Params, moments and grads are dicts of tensors keyed like the model's
-``state_dict``. ``ClipAdam.step_rows`` gives each step's learning rate
-and bias corrections; ``clip_adam_step`` applies one step with them, and
-the SGD-phase kernel (``kernels/sgd.py``) the same step on the card.
+``state_dict``. ``step_rows`` gives each step's learning rate (and Adam's
+bias corrections); ``clip_adam_step``/``clip_rms_step`` apply one step
+with them, and the learner kernels (``kernels/sgd.py``,
+``kernels/vtrace_sgd.py``) the same step on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -34,10 +41,18 @@ from .models.policy import params_from_flax
 
 Params = dict[str, torch.Tensor]
 
+RMS_DECAY = 0.99  # IMPALA's rmsprop(decay=0.99, eps=0.1), impala.py:216
+RMS_EPS = 0.1
+
 
 class AdamState(NamedTuple):
     count: int   # optimizer steps taken (optax's Adam and schedule counts)
     mu: Params
+    nu: Params
+
+
+class RMSState(NamedTuple):
+    count: int   # optimizer steps taken (the lr schedule's count)
     nu: Params
 
 
@@ -85,10 +100,30 @@ def clip_adam_step(grads: Params, state: AdamState, lr, bc1, bc2,
     return updates, AdamState(state.count + 1, mu, nu)
 
 
+def clip_rms_step(grads: Params, state: RMSState, lr, max_grad_norm: float,
+                  decay: float = RMS_DECAY, eps: float = RMS_EPS):
+    """One clip + RMSProp step given this step's learning rate
+    (``ClipRMSProp.step_rows``): ``(updates, new_state)``."""
+    grads = clip_by_global_norm(grads, max_grad_norm)
+    nu = {k: (1 - decay) * (g * g) + decay * state.nu[k]
+          for k, g in grads.items()}
+    updates = {k: -lr * (torch.rsqrt(nu[k] + eps) * g)
+               for k, g in grads.items()}
+    return updates, RMSState(state.count + 1, nu)
+
+
+def _lr_row(learning_rate, count: torch.Tensor) -> torch.Tensor:
+    if callable(learning_rate):
+        return learning_rate(count)
+    return torch.full(count.shape, learning_rate, dtype=torch.float32,
+                      device=count.device)
+
+
 @dataclasses.dataclass(frozen=True)
 class ClipAdam:
     """``optax.chain(clip_by_global_norm, adam)``: its state and the
-    per-step scalars that ``clip_adam_step`` and the SGD kernel take."""
+    per-step scalars that ``clip_adam_step`` and the learner kernels
+    take."""
     learning_rate: float | Callable
     max_grad_norm: float
 
@@ -101,37 +136,77 @@ class ClipAdam:
         from count ``count0``: the schedule at each pre-increment count,
         the bias corrections at the incremented one (``ppo.py:678-686``)."""
         count = count0 + torch.arange(n, device=device)
-        if callable(self.learning_rate):
-            lr = self.learning_rate(count)
-        else:
-            lr = torch.full((n,), self.learning_rate, dtype=torch.float32,
-                            device=device)
         k = (count + 1).to(torch.float32)
         one = torch.ones((), dtype=torch.float32, device=device)
-        return lr, 1 - (one * ADAM_B1) ** k, 1 - (one * ADAM_B2) ** k
+        return (_lr_row(self.learning_rate, count),
+                1 - (one * ADAM_B1) ** k, 1 - (one * ADAM_B2) ** k)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipRMSProp:
+    """``optax.chain(clip_by_global_norm, rmsprop(lr, decay, eps))``: its
+    state and the per-step learning rates that ``clip_rms_step`` and the
+    IMPALA learner kernel take."""
+    learning_rate: float | Callable
+    max_grad_norm: float
+
+    def init(self, params: Params) -> RMSState:
+        return RMSState(0, {k: torch.zeros_like(p) for k, p in params.items()})
+
+    def step_rows(self, count0: int, n: int, device=None):
+        """``(lr,)``: float32 ``[n]``, the schedule at each pre-increment
+        count from ``count0`` (``impala.py:499-506``)."""
+        return (_lr_row(self.learning_rate,
+                        count0 + torch.arange(n, device=device)),)
+
+
+def _learning_rate(tcfg, steps_per_update: int):
+    if tcfg.anneal_lr:
+        return linear_schedule(tcfg.learning_rate, 0.0,
+                               tcfg.num_updates * steps_per_update)
+    return tcfg.learning_rate
 
 
 def make_optimizer(tcfg) -> ClipAdam:
-    """The trainer's optimizer for a ``TrainConfig`` (``ppo.py:323-335``)."""
-    if tcfg.anneal_lr:
-        total = tcfg.num_updates * tcfg.ppo_epochs * tcfg.num_minibatches
-        lr = linear_schedule(tcfg.learning_rate, 0.0, total)
-    else:
-        lr = tcfg.learning_rate
-    return ClipAdam(lr, tcfg.max_grad_norm)
+    """The PPO trainer's optimizer for a ``TrainConfig``
+    (``ppo.py:323-335``)."""
+    return ClipAdam(_learning_rate(
+        tcfg, tcfg.ppo_epochs * tcfg.num_minibatches), tcfg.max_grad_norm)
 
 
-def opt_state_from_optax(opt_state_np, device=None) -> AdamState:
-    """A JAX ``optax.chain(clip_by_global_norm, adam(...))`` state, its
-    leaves as numpy, as an ``AdamState``: the count from the
-    ``ScaleByAdamState`` (checked against the schedule's count where there
-    is one), ``mu``/``nu`` through ``params_from_flax``."""
-    adam, counts = [], []
+def make_impala_optimizer(tcfg) -> ClipRMSProp | ClipAdam:
+    """The IMPALA trainer's optimizer (``impala.py:192-221``): RMSProp, or
+    Adam with ``impala_rmsprop=False``; lr annealed over ``num_updates *
+    impala_passes * num_minibatches`` steps. RMSProp logs the JAX
+    trainer's build-time warning."""
+    lr = _learning_rate(tcfg, tcfg.impala_passes * tcfg.num_minibatches)
+    if not tcfg.impala_rmsprop:
+        return ClipAdam(lr, tcfg.max_grad_norm)
+    logging.getLogger("warehouse_tpu_torch").warning(
+        "IMPALA is using its canonical RMSProp (eps=0.1): measured flat at "
+        "few-hundred-update horizons on this env "
+        "(runs/r4_curves/config4_impala_fused.jsonl) — pass --impala-adam / "
+        "impala_rmsprop=False unless you are running the paper's "
+        "long-horizon budget")
+    return ClipRMSProp(lr, tcfg.max_grad_norm)
+
+
+def opt_state_from_optax(opt_state_np, device=None,
+                         default_count: int = 0) -> AdamState | RMSState:
+    """A JAX ``optax.chain(clip_by_global_norm, adam(...) | rmsprop(...))``
+    state, its leaves as numpy, as an ``AdamState`` or ``RMSState``: the
+    count from the ``ScaleByAdamState`` or the lr schedule's state
+    (checked against each other where both exist; ``default_count`` for a
+    constant-lr RMSProp, which keeps none), the moments through
+    ``params_from_flax``."""
+    adam, rms, counts = [], [], []
 
     def walk(node):
         fields = getattr(node, "_fields", None)
         if fields is not None and {"count", "mu", "nu"} <= set(fields):
             adam.append(node)
+        elif fields == ("nu",):
+            rms.append(node)
         elif fields == ("count",):
             counts.append(int(np.asarray(node.count)))
         elif isinstance(node, tuple):
@@ -139,15 +214,21 @@ def opt_state_from_optax(opt_state_np, device=None) -> AdamState:
                 walk(child)
 
     walk(opt_state_np)
-    if len(adam) != 1:
-        raise ValueError(f"expected one Adam state, found {len(adam)}: the "
-                         "port carries clip_by_global_norm + adam only")
-    count = int(np.asarray(adam[0].count))
+    if len(adam) + len(rms) != 1:
+        raise ValueError(f"expected one Adam or RMSProp state, found "
+                         f"{len(adam)} and {len(rms)}: the port carries "
+                         "clip_by_global_norm + adam or rmsprop only")
+    if adam:
+        count = int(np.asarray(adam[0].count))
+    else:
+        count = counts[0] if counts else default_count
     if any(c != count for c in counts):
-        raise ValueError(f"schedule counts {counts} differ from the Adam "
-                         f"count {count}")
+        raise ValueError(f"schedule counts {counts} differ from the "
+                         f"optimizer count {count}")
 
     def moments(tree):
         return {k: v.to(device) for k, v in params_from_flax(tree).items()}
 
+    if rms:
+        return RMSState(count, moments(rms[0].nu))
     return AdamState(count, moments(adam[0].mu), moments(adam[0].nu))

@@ -1,10 +1,11 @@
 """Train CLI: ``python -m warehouse_tpu_torch.train``.
 
-The PPO/MLP subset of ``python -m warehouse_tpu.train`` with the same
-flag names, plus ``--device``. A flag for a feature the port does not
-have yet exits with a message naming its ROADMAP item. Metrics go to a
-JSONL file, ``env_steps_per_sec`` included; ``--eval-every`` runs the
-argmax policy through ``evaluate.evaluate_policy``.
+The PPO and IMPALA (``--algo impala``) MLP subset of ``python -m
+warehouse_tpu.train`` with the same flag names, plus ``--device``. A flag
+for a feature the port does not have yet exits with a message naming its
+ROADMAP item. Metrics go to a JSONL file, ``env_steps_per_sec`` included;
+``--eval-every`` runs the argmax policy through
+``evaluate.evaluate_policy``.
 """
 
 from __future__ import annotations
@@ -22,19 +23,17 @@ from .. import rng
 from ..evaluate import evaluate_policy
 from ..models.policy import apply
 from ..ops.ppo_update import first_argmax
+from .impala import make_train_impala
 from .metrics import MetricsLogger
 from .ppo import make_train
 
 
 def _unported(args) -> list[str]:
     out = []
-    if args.algo != "ppo":
-        out.append("--algo impala (ROADMAP §B item 4)")
     if args.arch != "mlp":
         out.append(f"--arch {args.arch} (ROADMAP §B items 5-6)")
     for flag, on, item in (
             ("--policy-groups", args.policy_groups is not None, 1),
-            ("--mask-actions", args.mask_actions, 1),
             ("--shaping-coef", args.shaping_coef != 0.0, 1),
             ("--resume", args.resume, 3),
             ("--checkpoint-every", args.checkpoint_every != 0, 3),
@@ -48,7 +47,18 @@ def _unported(args) -> list[str]:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser("warehouse_tpu_torch.train")
     add_env_args(p)
-    p.add_argument("--algo", choices=["ppo", "impala"], default="ppo")
+    p.add_argument("--algo", choices=["ppo", "impala"], default="ppo",
+                   help="impala = the V-trace actor-learner")
+    p.add_argument("--rho-clip", type=float, default=1.0,
+                   help="V-trace rho-bar importance clip (impala only)")
+    p.add_argument("--c-clip", type=float, default=1.0,
+                   help="V-trace c-bar trace clip (impala only)")
+    p.add_argument("--impala-passes", type=int, default=1,
+                   help="replays of each rollout per update (impala only)")
+    p.add_argument("--impala-adam", action="store_true",
+                   help="Adam instead of IMPALA's canonical RMSProp "
+                        "(impala only); RMSProp's eps=0.1 damps this "
+                        "env's small gradients")
     p.add_argument("--num-envs", type=int, default=4096)
     p.add_argument("--unroll-length", type=int, default=16)
     p.add_argument("--num-updates", type=int, default=200)
@@ -60,7 +70,8 @@ def main(argv=None) -> None:
                    help="linear entropy anneal target over num_updates "
                         "(negative = constant --entropy-coef)")
     p.add_argument("--shaping-coef", type=float, default=0.0)
-    p.add_argument("--mask-actions", action="store_true")
+    p.add_argument("--mask-actions", action="store_true",
+                   help="mask wall/out-of-grid moves at the policy logits")
     p.add_argument("--minibatch-mode", choices=["flat", "env"],
                    default="env")
     p.add_argument("--epoch-shuffle", choices=["each", "once"],
@@ -130,6 +141,7 @@ def main(argv=None) -> None:
         ppo_epochs=args.ppo_epochs, num_minibatches=args.num_minibatches,
         entropy_coef=args.entropy_coef,
         entropy_coef_final=args.entropy_coef_final,
+        mask_actions=args.mask_actions,
         minibatch_mode=args.minibatch_mode, epoch_shuffle=args.epoch_shuffle,
         bootstrap_truncated=args.bootstrap_truncated,
         kl_coeff=args.kl_coeff, kl_target=args.kl_target,
@@ -137,16 +149,19 @@ def main(argv=None) -> None:
         rollout_backend=args.rollout_backend,
         grad_backend=args.grad_backend, pallas_block=args.pallas_block,
         micro_batches=args.micro_batches, seed=args.seed,
-        metrics_path=args.metrics_path)
+        metrics_path=args.metrics_path, rho_clip=args.rho_clip,
+        c_clip=args.c_clip, impala_passes=args.impala_passes,
+        impala_rmsprop=not args.impala_adam)
+    build = make_train_impala if args.algo == "impala" else make_train
     try:
-        trainer = make_train(env_cfg, tcfg, arch=args.arch, device=device)
+        trainer = build(env_cfg, tcfg, arch=args.arch, device=device)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from e
     log.info("device: %s  env: %s", device, env_cfg.to_json())
 
     rs = trainer.init(rng.prng_key(args.seed, device))
     metrics = MetricsLogger(args.metrics_path)
-    metrics.log_meta({"algo": "ppo", "arch": args.arch,
+    metrics.log_meta({"algo": args.algo, "arch": args.arch,
                       "device": str(device),
                       "kernels": device.type == "cuda"})
     steps_per_update = tcfg.num_envs * tcfg.unroll_length

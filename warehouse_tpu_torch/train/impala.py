@@ -1,0 +1,206 @@
+"""The IMPALA (V-trace) actor-learner on one device (counterpart of
+``warehouse_tpu/train/impala.py``, single-device fused path).
+
+One update, draw for draw as the JAX trainer's fused path
+(``rollout_backend``/``grad_backend="pallas"``, :250-323), which its XLA
+path reproduces:
+
+1. act T steps through ``kernels.ppo_rollout`` (K2) from ``rs.key``, with
+   no env permutation (IMPALA's minibatches are fixed env slices), then
+   the boundary reset ``reset_truncated_batch`` and, with
+   ``bootstrap_truncated``, V of the pre-reset states (:256-272);
+2. the learner phase through ``kernels.impala_sgd_phase`` (K5):
+   ``impala_passes x num_minibatches`` steps of the V-trace loss, clip
+   and RMSProp or Adam, with the per-step lr rows (:490-516);
+3. the metrics of ``_metrics_tail`` (:429-454). The key K2 returns is the
+   next update's; there is no trailing split.
+
+On a CUDA device the kernels run and a build or launch failure raises;
+on the CPU their plain twins run. ``ImpalaTrainer.plain_step`` is the
+same update through the plain twins on any device.
+
+Ported: the MLP policy, one shared policy, float32, RMSProp or Adam
+(``impala_rmsprop``), lr anneal, passes, truncation bootstrap, action
+masking. The TPU block knobs have no counterpart and are ignored;
+``rollout_backend``/``grad_backend="xla"`` raises. Everything else
+raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from warehouse_tpu.config import EnvConfig, TrainConfig
+
+from ..env.batch import observe_batch, reset_truncated_batch
+from ..env.state import STATE_FIELDS, EnvState
+from ..kernels.act import ppo_rollout, ppo_rollout_reference
+from ..kernels.vtrace_sgd import impala_sgd_phase, impala_sgd_phase_reference
+from ..models.policy import ActorCriticMLP, apply, make_model, params_from_flax
+from ..optim import (AdamState, ClipAdam, ClipRMSProp, RMSState,
+                     make_impala_optimizer, opt_state_from_optax)
+from .ppo import _not_ported, _tensor, init_parts, run_many
+
+
+class ImpalaRunnerState(NamedTuple):
+    params: dict               # ActorCriticMLP.state_dict-keyed tensors
+    opt_state: RMSState | AdamState
+    env_state: EnvState        # [B] envs
+    obs: torch.Tensor          # float32[B, A, obs_dim]
+    key: torch.Tensor          # int64[2] threefry key words
+    update_idx: torch.Tensor   # int32[]
+
+
+class ImpalaTransition(NamedTuple):
+    obs: torch.Tensor                # float32[T, B, A, obs_dim]
+    action: torch.Tensor             # int32[T, B, A]
+    behavior_log_prob: torch.Tensor  # float32[T, B, A]
+    reward: torch.Tensor
+    done: torch.Tensor               # bool[T, B, A]
+    mask: torch.Tensor               # bool[T, B, A, 5] (all True: off)
+    boot_value: torch.Tensor         # V(pre-reset successor) (0 if off)
+
+
+class ImpalaTrainer(NamedTuple):
+    init: Callable        # key int64[2] -> ImpalaRunnerState
+    train_step: Callable  # (rs, mark=None) -> (rs, metrics)
+    train_many: Callable  # (rs, n) -> (rs, metrics stacked [n])
+    plain_step: Callable  # train_step through the plain twins
+    model: ActorCriticMLP  # holds the params the act phase reads
+    optimizer: ClipRMSProp | ClipAdam
+    env_cfg: EnvConfig
+    tcfg: TrainConfig
+    device: torch.device
+
+
+def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
+    if arch != "mlp":
+        _not_ported(f"arch={arch!r}", "§B items 5-6")
+    for what, off, item in (
+            ("a mesh", mesh is None, "§B item 8"),
+            ("global_obs", not env_cfg.global_obs, "§B item 1"),
+            ("model_dtype='bfloat16'", tcfg.model_dtype == "float32",
+             "§B item 9"),
+            ("micro_batches > 1", tcfg.micro_batches == 1, "§B item 9"),
+            ("flat_optimizer", not tcfg.flat_optimizer, "§B item 9")):
+        if not off:
+            _not_ported(what, item)
+    for name in ("rollout_backend", "grad_backend"):
+        if getattr(tcfg, name) == "xla":
+            raise ValueError(f"{name}='xla': the port has no backend switch;"
+                             " the device picks kernel (CUDA) or plain twin"
+                             " (CPU)")
+    if tcfg.num_envs % tcfg.num_minibatches:
+        raise ValueError(f"num_envs={tcfg.num_envs} must divide into "
+                         f"num_minibatches={tcfg.num_minibatches} (IMPALA "
+                         "minibatches split the env axis, keeping T intact)")
+    if env_cfg.max_steps % tcfg.unroll_length:
+        raise ValueError("max_steps % unroll_length != 0: the boundary "
+                         "reset runs after the chunk")
+
+
+def impala_runner_state_from_jax(rs_np, tcfg: TrainConfig,
+                                 device=None) -> ImpalaRunnerState:
+    """A JAX ``ImpalaRunnerState`` of the single-device trainer, its leaves
+    as numpy, as the port's: params through ``params_from_flax``, the
+    optimizer through ``opt_state_from_optax`` (a constant-lr RMSProp
+    keeps no count; it takes ``update_idx`` x steps per update, as the
+    JAX fused path does), uint32 keys as int64."""
+    update_idx = int(rs_np.update_idx)
+    steps = tcfg.impala_passes * tcfg.num_minibatches
+    params = {k: v.to(device)
+              for k, v in params_from_flax(rs_np.params).items()}
+    env = EnvState(**{f: _tensor(getattr(rs_np.env_state, f), device)
+                      for f in STATE_FIELDS})
+    return ImpalaRunnerState(
+        params=params,
+        opt_state=opt_state_from_optax(rs_np.opt_state, device,
+                                       default_count=update_idx * steps),
+        env_state=env, obs=_tensor(rs_np.obs, device),
+        key=_tensor(rs_np.key, device).reshape(2),
+        update_idx=_tensor(rs_np.update_idx, device).to(torch.int32))
+
+
+def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
+                      arch: str = "mlp", device=None,
+                      mesh=None) -> ImpalaTrainer:
+    """Build the IMPALA trainer for ``tcfg`` on ``device`` (default CPU)."""
+    _check_config(env_cfg, tcfg, arch, mesh)
+    device = torch.device(device or "cpu")
+    cfg = env_cfg.replace(auto_reset=False)
+    B, T, M = tcfg.num_envs, tcfg.unroll_length, tcfg.num_minibatches
+    n_steps = tcfg.impala_passes * M
+    optimizer = make_impala_optimizer(tcfg)
+    model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
+                       device=device)
+
+    def init(key: torch.Tensor) -> ImpalaRunnerState:
+        params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key)
+        return ImpalaRunnerState(
+            params=params, opt_state=optimizer.init(params),
+            env_state=env_state, obs=obs, key=key,
+            update_idx=torch.zeros((), dtype=torch.int32, device=device))
+
+    def step(rs: ImpalaRunnerState, act_fn, learn_fn, mark=None):
+        mark = mark or (lambda name: None)
+        model.load_state_dict(rs.params)
+        new_env, roll, reset_key, key = act_fn(
+            cfg, model, rs.env_state, T, rs.key,
+            mask_actions=tcfg.mask_actions)
+        env_state, last_obs, _ = reset_truncated_batch(cfg, new_env,
+                                                       reset_key)
+        boot = torch.zeros_like(roll.reward)
+        if tcfg.bootstrap_truncated:
+            # done is only ever set on the chunk's last step.
+            boot[-1] = apply(rs.params, observe_batch(cfg, new_env))[1]
+        traj = ImpalaTransition(
+            roll.obs, roll.action, roll.log_prob, roll.reward,
+            roll.truncated[:, :, None].expand_as(roll.reward), roll.mask,
+            boot)
+        rows = optimizer.step_rows(rs.opt_state.count, n_steps, device)
+        mark("acting")
+
+        params, opt_state, losses = learn_fn(
+            rs.params, rs.opt_state, traj, last_obs, rows,
+            tcfg.entropy_coef, num_passes=tcfg.impala_passes,
+            num_minibatches=M, max_grad_norm=tcfg.max_grad_norm,
+            gamma=tcfg.gamma, rho_clip=tcfg.rho_clip, c_clip=tcfg.c_clip,
+            value_coef=tcfg.value_coef, mask_actions=tcfg.mask_actions,
+            bootstrap_truncated=tcfg.bootstrap_truncated)
+        mark("learner")
+
+        metrics = {
+            "loss": losses[0].mean(),
+            "pg_loss": losses[1].mean(),
+            "v_loss": losses[2].mean(),
+            "entropy": losses[3].mean(),
+            "reward_per_step": roll.raw_reward.mean(dim=(1, 2)).mean(),
+            "deliveries_per_env_step":
+                roll.delivered.sum(dtype=torch.float32) / (T * B),
+        }
+        new = ImpalaRunnerState(params=params, opt_state=opt_state,
+                                env_state=env_state, obs=last_obs, key=key,
+                                update_idx=rs.update_idx + 1)
+        return new, metrics
+
+    def train_step(rs: ImpalaRunnerState, mark=None):
+        """One update through the kernels (plain twins on the CPU).
+        ``mark(name)``, if given, is called after the acting and learner
+        phases (for timing)."""
+        return step(rs, ppo_rollout, impala_sgd_phase, mark)
+
+    def plain_step(rs: ImpalaRunnerState, mark=None):
+        """The same update through the plain PyTorch twins."""
+        return step(rs, ppo_rollout_reference, impala_sgd_phase_reference,
+                    mark)
+
+    def train_many(rs: ImpalaRunnerState, n: int):
+        """n updates; metrics stacked ``[n]``."""
+        return run_many(train_step, rs, n)
+
+    return ImpalaTrainer(init=init, train_step=train_step,
+                         train_many=train_many, plain_step=plain_step,
+                         model=model, optimizer=optimizer, env_cfg=cfg,
+                         tcfg=tcfg, device=device)

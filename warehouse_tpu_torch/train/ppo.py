@@ -22,7 +22,8 @@ update through the plain twins on any device, for measurement and tests.
 
 Ported: the MLP policy, one shared policy, float32, ``minibatch_mode=
 "env"`` with ``epoch_shuffle="once"``, one gradient per minibatch,
-entropy anneal, adaptive KL, truncation bootstrap, lr anneal. The TPU
+entropy anneal, adaptive KL, truncation bootstrap, lr anneal, action
+masking (K2 floors invalid moves, the loss re-applies the mask). The TPU
 block knobs (``pallas_block``, ``pallas_interpret``, ``sgd_block_envs``,
 ``sgd_rows_per_block``) have no counterpart and are ignored; the device
 picks kernel or twin, so ``rollout_backend``/``grad_backend="xla"``
@@ -99,7 +100,6 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh,
     for what, off, item in (
             ("policy_groups", policy_groups is None, "§B items 1, 9"),
             ("a mesh", mesh is None, "§B item 8"),
-            ("mask_actions", not tcfg.mask_actions, "§B item 1"),
             ("shaping_coef > 0", tcfg.shaping_coef == 0.0, "§B item 1"),
             ("global_obs", not env_cfg.global_obs, "§B item 1"),
             ("model_dtype='bfloat16'", tcfg.model_dtype == "float32",
@@ -151,6 +151,33 @@ def runner_state_from_jax(rs_np, device=None) -> RunnerState:
         kl_coeff=_tensor(rs_np.kl_coeff, device).to(torch.float32))
 
 
+def init_parts(cfg: EnvConfig, tcfg: TrainConfig, arch: str, device,
+               key: torch.Tensor):
+    """The start of a run from ``key``, as the JAX trainers' ``init``:
+    ``split(key, 3)``; the params from a ``torch.Generator`` seeded by the
+    first key (flax's bits are not reproduced); env b reset from
+    ``fold_in(ekey, b)``; the shard key ``fold_in(skey, 0)``. Returns
+    ``(params, env_state, obs, key)``."""
+    pkey, ekey, skey = rng.split(key.to(device), 3)
+    seed = int(pkey[0]) << 32 | int(pkey[1])
+    init_model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
+                            torch.Generator().manual_seed(seed), device)
+    params = {k: v.detach().clone()
+              for k, v in init_model.state_dict().items()}
+    env_state, obs = engine.reset(
+        cfg, rng.fold_in(ekey, torch.arange(tcfg.num_envs, device=device)))
+    return params, env_state, obs, rng.fold_in(skey, 0)
+
+
+def run_many(train_step: Callable, rs, n: int):
+    """n updates of ``train_step``; metrics stacked ``[n]``."""
+    rows: list[dict[str, Any]] = []
+    for _ in range(n):
+        rs, m = train_step(rs)
+        rows.append(m)
+    return rs, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
 def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
                device=None, mesh=None,
                policy_groups: tuple | None = None) -> PPOTrainer:
@@ -165,17 +192,10 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
                        device=device)
 
     def init(key: torch.Tensor) -> RunnerState:
-        pkey, ekey, skey = rng.split(key.to(device), 3)
-        seed = int(pkey[0]) << 32 | int(pkey[1])
-        init_model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
-                                torch.Generator().manual_seed(seed), device)
-        params = {k: v.detach().clone()
-                  for k, v in init_model.state_dict().items()}
-        env_state, obs = engine.reset(
-            cfg, rng.fold_in(ekey, torch.arange(B, device=device)))
+        params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key)
         return RunnerState(
             params=params, opt_state=optimizer.init(params),
-            env_state=env_state, obs=obs, key=rng.fold_in(skey, 0),
+            env_state=env_state, obs=obs, key=key,
             update_idx=torch.zeros((), dtype=torch.int32, device=device),
             kl_coeff=torch.tensor(tcfg.kl_coeff, dtype=torch.float32,
                                   device=device))
@@ -187,7 +207,8 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
         env_in = EnvState(**{f: getattr(rs.env_state, f)[perm]
                              for f in STATE_FIELDS})
         model.load_state_dict(rs.params)
-        new_env, roll, reset_key, key = act_fn(cfg, model, env_in, T, key)
+        new_env, roll, reset_key, key = act_fn(
+            cfg, model, env_in, T, key, mask_actions=tcfg.mask_actions)
         env_state, last_obs, _ = reset_truncated_batch(cfg, new_env,
                                                        reset_key)
         boot = torch.zeros_like(roll.value)
@@ -213,7 +234,8 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
             rs.params, rs.opt_state, traj, adv_n, targets, *rows, ent_coef,
             rs.kl_coeff, num_epochs=tcfg.ppo_epochs, num_minibatches=M,
             clip_eps=tcfg.clip_eps, value_coef=tcfg.value_coef,
-            max_grad_norm=tcfg.max_grad_norm, mask_actions=False)
+            max_grad_norm=tcfg.max_grad_norm,
+            mask_actions=tcfg.mask_actions)
         mark("sgd")
 
         # The key split the JAX XLA scaffold spends on its partition.
@@ -248,11 +270,7 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
 
     def train_many(rs: RunnerState, n: int):
         """n updates; metrics stacked ``[n]``."""
-        rows: list[dict[str, Any]] = []
-        for _ in range(n):
-            rs, m = train_step(rs)
-            rows.append(m)
-        return rs, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        return run_many(train_step, rs, n)
 
     return PPOTrainer(init=init, train_step=train_step,
                       train_many=train_many, plain_step=plain_step,
