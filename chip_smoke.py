@@ -46,18 +46,45 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    learning check on deliveries per env-step, 3 updates of the plain path
    from the same state for their time, then the trained policy served;
 10. ``impala_train`` (main path): ``train.make_train_impala`` at BASELINE
-   config 4 with Adam (``--impala-adam``) over 300 updates, as the JAX
-   curve ``runs/r4_curves/config4_impala_fused_adam.jsonl`` was run, from
-   ``PRNGKey(0)``: 300 updates through ``train_step`` (K2 + K5/K6) with
-   the acting/learner split by CUDA events, a learning check on
-   deliveries per env-step over updates 291-300, 3 plain-path updates
-   from the same state, then the trained policy served.
+   config 4 with Adam (``--impala-adam``) on the 300-update schedule of
+   the JAX curve ``runs/r4_curves/config4_impala_fused_adam.jsonl``, from
+   ``PRNGKey(0)``: its first 220 updates through ``train_step`` (K2 +
+   K5/K6) with the acting/learner split by CUDA events, a learning check
+   on deliveries per env-step over updates 211-220, 3 plain-path updates
+   from the same state, then the trained policy served;
+11. ``k7_check``: the recurrent acting kernel (K7) at B = 4096, T = 16,
+   hidden 128, for the GRU, the LSTM and the GRU with action masking on
+   shelves: obs, rewards, deliveries and final state bit-equal to the
+   plain engine replaying its actions, values, log-probs, logits and the
+   carry within 1e-4 of the plain recurrent policy stepped over its
+   observations, timed beside its twin;
+12. ``k8_check`` / ``k9_check``: one config-4 recurrent trajectory per
+   cell (a K7 chunk from the trainer's reset, then GAE); the recurrent
+   SGD phase (K8: 16 steps of 4096 sequences x 16 steps, K9's gradient
+   kernels then clip + Adam per step) against its plain twin (autograd
+   through the T-step replay + ``optim.py``) on per-step losses, params
+   and Adam moments, a second K8 run bit-equal to the first; K9 against
+   autograd on all 4 minibatches; both timed;
+13. ``rnn_train`` (main path): ``train.make_train_rnn`` at BASELINE config
+   4 from ``PRNGKey(0)`` on a 300-update schedule, the first 40 updates,
+   for ``gru`` then ``lstm``, through ``train_step`` (K7 + K8/K9) with the
+   update split into acting, GAE and SGD by CUDA events, a learning check
+   on deliveries per env-step over updates 31-40, 3 plain-path updates
+   from the same state, then the trained policy served with its carry.
 
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit. The kernels' launch counts are zeroed just before each
-main path and read just after it. The last lines are the kernels' JSON line,
-the card's name and power limit from ``nvidia-smi``, and the device line.
+main path and read just after it. The last lines are the kernels' JSON line
+(each kernel's launches on the main paths, its error against its twin, its
+time beside the twin's and beside its bound: the larger of its inputs and
+outputs' bytes over 3.35 TB/s and its float operations over 67 TFLOP/s,
+the card's published float32 rates), the card's name and power limit from
+``nvidia-smi``, and the device line.
 There is no CPU path: without a CUDA device the script exits non-zero.
+
+``python3 chip_smoke.py --profile-rnn`` runs, instead of all this, a
+``torch.profiler`` trace of 3 recurrent updates per cell and prints the
+device time per update by kernel name.
 """
 
 from __future__ import annotations
@@ -75,16 +102,18 @@ from warehouse_tpu_torch.env.batch import (observe_batch, reset_batch,
                                            reset_truncated_batch,
                                            step_batch)
 from warehouse_tpu_torch.env.state import STATE_FIELDS
-from warehouse_tpu_torch.kernels import act, build, rollout, sgd, vtrace_sgd
+from warehouse_tpu_torch.kernels import (act, act_rnn, build, rollout, sgd,
+                                         sgd_rnn, vtrace_sgd)
 from warehouse_tpu_torch.models import make_model
-from warehouse_tpu_torch.models.policy import apply
+from warehouse_tpu_torch.models.policy import apply, apply_rnn
 from warehouse_tpu_torch.ops.gae import gae
 from warehouse_tpu_torch.ops.move import valid_action_mask
 from warehouse_tpu_torch.ops.ppo_update import entropy_coef_at, first_argmax
 from warehouse_tpu_torch.optim import make_impala_optimizer
 from warehouse_tpu_torch.serve import Policy
 from warehouse_tpu_torch.train import (ImpalaTransition, Transition,
-                                       make_train, make_train_impala)
+                                       make_train, make_train_impala,
+                                       make_train_rnn)
 
 SEED = 0
 TOL = 1e-4  # MLP outputs: f32 sums in another order, tanh/exp/log ulps
@@ -96,8 +125,14 @@ HIDDEN = (128, 2)   # BASELINE config 4: hidden_dim, num_layers
 TRAIN_SCHEDULE = 80  # the train phase's run length (its lr schedule)
 TRAIN_UPDATES = 50  # updates of it that the train phase runs
 LEARN_MIN = 0.15    # mean deliveries/env-step over updates 41-50
-IMPALA_UPDATES = 300  # updates of the impala_train phase (the JAX curve's)
-IMPALA_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 291-300
+IMPALA_SCHEDULE = 300  # the impala_train phase's run length (the JAX curve's)
+IMPALA_UPDATES = 220  # updates of it that the impala_train phase runs
+IMPALA_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 211-220
+RNN_SCHEDULE = 300  # the rnn_train phase's run length (its lr schedule)
+RNN_UPDATES = 40    # updates of it that the rnn_train phase runs, per cell
+RNN_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 31-40
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (published)
+PEAK_F32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # K3/K4 against the plain twin at config 4: (rtol, atol) per quantity.
 # The JAX suite's bounds (tests/test_grad_kernel.py:151-166, 185-190,
 # set at 16 samples per minibatch); both sides sum 65536 samples per step
@@ -109,6 +144,10 @@ SGD_TOL = {"losses": (1e-5, 2e-6), "params": (1e-5, 1e-6),
 VT_TOL = {"losses": (1e-5, 2e-6), "params": (1e-5, 1e-6),
           "mu": (1e-5, 1e-7), "nu": (1e-5, 1e-10), "grads": (1e-4, 1e-6),
           "mb_losses": (0.0, 1e-6)}
+# K9's gradients and losses against autograd: the JAX suite's bounds
+# (tests/test_sgd_rnn_kernel.py:237-244).
+RNN_GRAD_TOL = (1e-4, 1e-6)
+RNN_MB_LOSS_TOL = (0.0, 1e-6)
 
 
 def nvidia_smi() -> str:
@@ -176,6 +215,52 @@ def max_abs_diff(a, b) -> float:
                      .abs().max()) for f in STATE_FIELDS)
 
 
+def nbytes(*xs) -> int:
+    """Bytes of the tensors in ``xs`` (dicts, tuples, states and None
+    allowed)."""
+    total = 0
+    for x in xs:
+        if x is None:
+            continue
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            total += nbytes(*x.values())
+        elif hasattr(x, "_fields") or isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+        else:
+            total += nbytes(*(getattr(x, f) for f in STATE_FIELDS))
+    return total
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or the float operations at the
+    float32 rate, whichever is larger. Integer env work is not counted."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_F32_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": n_bytes, "flops": flops}
+
+
+def mlp_macs(params) -> tuple[int, int]:
+    """(multiply-adds per sample of the MLP forward, of its backward to the
+    layers' inputs: every layer but the first)."""
+    ws = [v for k, v in params.items() if k.endswith(".weight")]
+    fwd = sum(w.numel() for w in ws)
+    return fwd, fwd - params["hidden.0.weight"].numel()
+
+
+def rnn_macs(params) -> tuple[int, int]:
+    """(multiply-adds per sample of the recurrent policy's forward, of its
+    backward to the layers' inputs: every matrix but the first encoder
+    layer's)."""
+    ws = [v for k, v in params.items() if k.endswith(".weight")]
+    fwd = sum(w.numel() for w in ws)
+    return fwd, fwd - params["encoder.0.weight"].numel()
+
+
 def reset_envs(cfg, B, seed, dev):
     """Env b resets from fold_in(PRNGKey(seed), b), as bench.py does."""
     keys = rng.fold_in(rng.prng_key(seed, dev), torch.arange(B, device=dev))
@@ -216,7 +301,9 @@ def k1_check(dev):
           "bit_equal": True, "kernel_ms": k_ms, "plain_ms": p_ms,
           "kernel_env_steps_per_s": B * T / (k_ms / 1e3),
           "plain_env_steps_per_s": B * T / (p_ms / 1e3)})
-    return err, k_ms, p_ms
+    # 8 float operations per env-step: the reward sum's products and adds.
+    bnd = bound(nbytes(state, ks, u, pick, drop, kd, kr), 8.0 * B * T)
+    return err, k_ms, p_ms, bnd
 
 
 def k2_check(dev, name, cfg, model, mask_actions=False):
@@ -286,7 +373,12 @@ def k2_check(dev, name, cfg, model, mask_actions=False):
         out["unmasked_kernel_ms"] = timed(
             lambda: act.act_steps(cfg, model, state, u, pick, drop, g), 5)
     emit(out)
-    return max(err.values()), k_ms, p_ms
+    fwd, _ = mlp_macs(dict(model.named_parameters()))
+    bnd = bound(nbytes(state, ks, u, pick, drop, g, obs, action, lp, value,
+                       reward, delivered, mask,
+                       dict(model.named_parameters())),
+                2.0 * fwd * T * B * A)
+    return max(err.values()), k_ms, p_ms, bnd
 
 
 def tol_ratio(a, b, rtol, atol) -> float:
@@ -361,7 +453,13 @@ def k3_check(dev, cfg):
             f"K3 differs from its twin: {err}")
     require(bit_equal, "K3: a second run gave other bits")
     require(moved > 0.0, "K3 did not move the params")
-    return err["params"][0], k_ms, p_ms
+    fwd, dx = mlp_macs(rs.params)
+    n = traj.obs.shape[0] * traj.obs.shape[1] * cfg.num_agents  # per epoch
+    bnd = bound(nbytes(traj.obs, traj.action, traj.log_prob, traj.value,
+                       adv_n, targets, rows, lk)
+                + 2 * nbytes(rs.params, rs.opt_state.mu, rs.opt_state.nu),
+                2.0 * (2 * fwd + dx) * n * E)
+    return err["params"][0], k_ms, p_ms, bnd
 
 
 def k4_check(dev, cfg):
@@ -390,13 +488,17 @@ def k4_check(dev, cfg):
           "kernel_ms": k_ms, "plain_ms": p_ms})
     require(all(r <= 1.0 for _, r in worst.values()),
             f"K4 differs from autograd: {worst}")
-    return worst["grads"][0], k_ms, p_ms
+    fwd, dx = mlp_macs(rs.params)
+    bnd = bound(nbytes(traj.obs, traj.action, traj.log_prob, traj.value,
+                       adv_n, targets) / M + 2 * nbytes(rs.params),
+                2.0 * (2 * fwd + dx) * traj.action.numel() / M)
+    return worst["grads"][0], k_ms, p_ms, bnd
 
 
 def impala_inputs(dev, cfg):
     """One config-4 IMPALA trajectory: a K2 chunk from the trainer's reset
     and the boundary reset after it (``last_obs``)."""
-    tcfg = TrainConfig(num_updates=IMPALA_UPDATES, impala_rmsprop=False)
+    tcfg = TrainConfig(num_updates=IMPALA_SCHEDULE, impala_rmsprop=False)
     tr = make_train_impala(cfg, tcfg, device=dev)
     rs = tr.init(rng.prng_key(SEED + 7, dev))
     tr.model.load_state_dict(rs.params)
@@ -468,7 +570,13 @@ def k5_check(dev, cfg):
           "tol_ratio": {k: r for k, (_, r) in worst.items()}, "tol": VT_TOL,
           "timed": "adam, 1 pass (the main path's)",
           "kernel_ms": k_ms, "plain_ms": p_ms})
-    return worst["params"][0], k_ms, p_ms
+    # The timed case: Adam, 1 pass; the last-obs rows are forward only.
+    fwd, dx = mlp_macs(params)
+    bnd = bound(nbytes(traj.obs, traj.action, traj.behavior_log_prob,
+                       traj.reward, last_obs) + 6 * nbytes(params),
+                2.0 * ((2 * fwd + dx) * traj.action.numel()
+                       + fwd * last_obs[..., 0].numel()))
+    return worst["params"][0], k_ms, p_ms, bnd
 
 
 def k6_check(dev, cfg):
@@ -497,7 +605,203 @@ def k6_check(dev, cfg):
           "kernel_ms": k_ms, "plain_ms": p_ms})
     require(all(r <= 1.0 for _, r in worst.values()),
             f"K6 differs from autograd: {worst}")
-    return worst["grads"][0], k_ms, p_ms
+    fwd, dx = mlp_macs(params)
+    bnd = bound(nbytes(traj.obs, traj.action, traj.behavior_log_prob,
+                       traj.reward, last_obs) / M + 2 * nbytes(params),
+                2.0 * ((2 * fwd + dx) * traj.action.numel()
+                       + fwd * last_obs[..., 0].numel()) / M)
+    return worst["grads"][0], k_ms, p_ms, bnd
+
+
+def carry_leaves(carry):
+    return carry if isinstance(carry, tuple) else (carry,)
+
+
+def k7_check(dev, name, cfg, arch, mask_actions=False):
+    """K7 against the plain engine replaying its actions and the plain
+    recurrent policy stepped over its observations from the same carry,
+    then timed beside its twin."""
+    B, T, A = CHECK_B, SLICE_T, cfg.num_agents
+    model = make_model(cfg, arch, HIDDEN[0], HIDDEN[1],
+                       torch.Generator().manual_seed(SEED), dev)
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    state, obs0 = reset_envs(cfg, B, SEED + 1, dev)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    carry = tuple((0.5 * torch.randn(B, A, HIDDEN[0], generator=gen)).to(dev)
+                  for _ in range(2 if arch == "lstm" else 1))
+    carry = carry if arch == "lstm" else carry[0]
+    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, T)
+    _, g = rng.batched_gumbel_stream(rng.prng_key(SEED + 2, dev), T,
+                                     (5, B * A))
+    logits_k = torch.empty(T, B, A, 5, device=dev)
+    mask = (torch.empty(T, B, A, 5, dtype=torch.bool, device=dev)
+            if mask_actions else None)
+    ks, kc, obs, action, lp, value, reward, delivered = act_rnn.act_rnn_steps(
+        cfg, params, state, carry, u, pick, drop, g, logits=logits_k,
+        mask=mask)
+    torch.cuda.synchronize()
+
+    s, c = state, carry
+    err = {"logits": 0.0, "value": 0.0, "log_prob": 0.0}
+    agree, clear_n = True, 0.0
+    require(bits_equal(obs[0], obs0), "K7: first obs differs")
+    for t in range(T):
+        if mask_actions:
+            require(torch.equal(mask[t], valid_action_mask(cfg, s.agent_pos)),
+                    f"K7: mask differs from valid_action_mask t={t}")
+            require(bool(mask[t].gather(-1, action[t].long()[..., None])
+                         .all()), f"K7: a masked move was sampled t={t}")
+        with torch.no_grad():
+            logits, val, c = apply_rnn(params, obs[t], c)
+        sampled = (torch.where(mask[t], logits, -1e9) if mask_actions
+                   else logits)
+        lp_plain = torch.log_softmax(sampled, -1).gather(
+            -1, action[t].long()[..., None])[..., 0]
+        for k, d in (("logits", logits - logits_k[t]),
+                     ("value", val - value[t]),
+                     ("log_prob", lp_plain - lp[t])):
+            err[k] = max(err[k], float(d.abs().max()))
+        z = sampled.reshape(B * A, 5).t() + g[t]                  # [5, N]
+        top2 = z.topk(2, dim=0).values
+        clear = (top2[0] - top2[1]).reshape(B, A) > TOL
+        agree &= bool(((first_argmax(z, 0).reshape(B, A) == action[t])
+                       | ~clear).all())
+        clear_n += float(clear.float().mean()) / T
+        s, ts = step_batch(cfg, s, action[t])
+        require(bits_equal(ts.reward, reward[t]), f"K7: reward t={t}")
+        require(torch.equal(ts.delivered.sum(-1, dtype=torch.int32),
+                            delivered[t]), f"K7: deliveries t={t}")
+        if t + 1 < T:
+            require(bits_equal(ts.obs, obs[t + 1]), f"K7: obs t={t + 1}")
+    require(state_equal(s.replace(t=state.t, key=state.key), ks),
+            "K7: final state differs")
+    err["carry"] = max(float((a - b).abs().max())
+                       for a, b in zip(carry_leaves(kc), carry_leaves(c)))
+    require(max(err.values()) <= TOL, f"K7: policy outputs off by {err}")
+    require(agree, "K7: actions differ where the top-two gap is clear")
+
+    k_ms = timed(lambda: act_rnn.act_rnn_steps(cfg, params, state, carry, u,
+                                               pick, drop, g, mask=mask), 5)
+    p_ms = timed(lambda: act_rnn.act_rnn_steps_reference(
+        cfg, params, state, carry, u, pick, drop, g, mask=mask), 3)
+    out = {"phase": "k7_check", "config": name, "arch": arch,
+           "mask_actions": mask_actions, "B": B, "T": T, "max_abs_err": err,
+           "tol": TOL, "actions_agree_where_gap_gt_tol": agree,
+           "clear_share": clear_n, "kernel_ms": k_ms, "plain_ms": p_ms}
+    if mask_actions:
+        out["masked_share"] = float(1.0 - mask.float().mean())
+    emit(out)
+    fwd, _ = rnn_macs(params)
+    bnd = bound(nbytes(state, ks, carry, kc, u, pick, drop, g, obs, action,
+                       lp, value, reward, delivered, mask, params),
+                2.0 * fwd * T * B * A)
+    return max(err.values()), k_ms, p_ms, bnd
+
+
+def rnn_inputs(dev, cfg, arch):
+    """One config-4 recurrent trajectory for the K8/K9 checks: a K7 chunk
+    from the trainer's reset and a random carry, then GAE and the
+    per-minibatch normalization."""
+    tcfg = TrainConfig(num_updates=RNN_SCHEDULE)
+    tr = make_train_rnn(cfg, tcfg, arch, device=dev)
+    rs = tr.init(rng.prng_key(SEED + 5, dev))
+    gen = torch.Generator().manual_seed(SEED + 10)
+    h0 = tuple((0.5 * torch.randn(x.shape, generator=gen)).to(dev)
+               for x in carry_leaves(rs.carry))
+    h0 = h0 if arch == "lstm" else h0[0]
+    new, roll, _, _, last_h = act_rnn.ppo_rnn_rollout(
+        cfg, rs.params, rs.env_state, h0, SLICE_T,
+        rng.prng_key(SEED + 6, dev))
+    done = roll.truncated[:, :, None].expand_as(roll.reward)
+    traj = Transition(roll.obs, roll.action, roll.log_prob, roll.value,
+                      roll.reward, done, roll.mask,
+                      torch.zeros_like(roll.value))
+    with torch.no_grad():
+        _, last_value, _ = apply_rnn(rs.params, observe_batch(cfg, new),
+                                     last_h)
+    adv, targets = gae(roll.reward, roll.value, done, last_value,
+                       tcfg.gamma, tcfg.gae_lambda)
+    adv_n = sgd.normalize_adv_env_minibatch(adv, tcfg.num_minibatches)
+    ent = entropy_coef_at(tcfg, rs.update_idx)
+    return tcfg, tr, rs, traj, adv_n, targets, h0, ent
+
+
+def k8_check(dev, cfg, arch):
+    tcfg, tr, rs, traj, adv_n, targets, h0, ent = rnn_inputs(dev, cfg, arch)
+    E, M = tcfg.ppo_epochs, tcfg.num_minibatches
+    rows = tr.optimizer.step_rows(rs.opt_state.count, E * M, dev)
+    args = (rs.params, rs.opt_state, traj, adv_n, targets, h0, *rows, ent,
+            rs.kl_coeff)
+    kw = dict(num_epochs=E, num_minibatches=M, clip_eps=tcfg.clip_eps,
+              value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
+              mask_actions=False)
+    pk, ok, lk = sgd_rnn.ppo_rnn_sgd_phase(*args, **kw)
+    pr, orf, lr_ = sgd_rnn.ppo_rnn_sgd_phase_reference(*args, **kw)
+    p2, o2, l2 = sgd_rnn.ppo_rnn_sgd_phase(*args, **kw)
+    torch.cuda.synchronize()
+    err = {"losses": tree_err(lk, lr_, *SGD_TOL["losses"]),
+           "params": tree_err(pk, pr, *SGD_TOL["params"]),
+           "mu": tree_err(ok.mu, orf.mu, *SGD_TOL["mu"]),
+           "nu": tree_err(ok.nu, orf.nu, *SGD_TOL["nu"])}
+    bit_equal = (all(bits_equal(pk[k], p2[k]) and bits_equal(ok.mu[k],
+                                                             o2.mu[k])
+                     and bits_equal(ok.nu[k], o2.nu[k]) for k in pk)
+                 and all(bits_equal(a, b) for a, b in zip(lk, l2)))
+    moved = max(float((pk[k] - rs.params[k]).abs().max()) for k in pk)
+    k_ms = timed(lambda: sgd_rnn.ppo_rnn_sgd_phase(*args, **kw), 3)
+    p_ms = timed(lambda: sgd_rnn.ppo_rnn_sgd_phase_reference(*args, **kw), 3)
+    emit({"phase": "k8_check", "arch": arch, "B": traj.obs.shape[1],
+          "T": SLICE_T, "epochs": E, "minibatches": M,
+          "sequences_per_minibatch":
+          traj.obs.shape[1] * cfg.num_agents // M,
+          "max_abs_err": {k: e for k, (e, _) in err.items()},
+          "tol_ratio": {k: r for k, (_, r) in err.items()}, "tol": SGD_TOL,
+          "bit_equal_rerun": bit_equal, "max_param_step": moved,
+          "kernel_ms": k_ms, "plain_ms": p_ms})
+    require(all(r <= 1.0 for _, r in err.values()),
+            f"K8 ({arch}) differs from its twin: {err}")
+    require(bit_equal, f"K8 ({arch}): a second run gave other bits")
+    require(moved > 0.0, f"K8 ({arch}) did not move the params")
+    fwd, dx = rnn_macs(rs.params)
+    bnd = bound(nbytes(traj.obs, traj.action, traj.log_prob, traj.value,
+                       adv_n, targets, h0, rows, lk)
+                + 2 * nbytes(rs.params, rs.opt_state.mu, rs.opt_state.nu),
+                2.0 * (2 * fwd + dx) * traj.action.numel() * E)
+    return err["params"][0], k_ms, p_ms, bnd
+
+
+def k9_check(dev, cfg, arch):
+    tcfg, tr, rs, traj, adv_n, targets, h0, ent = rnn_inputs(dev, cfg, arch)
+    M = tcfg.num_minibatches
+    kw = dict(num_minibatches=M, clip_eps=tcfg.clip_eps,
+              value_coef=tcfg.value_coef, mask_actions=False)
+    worst = {"losses": (0.0, 0.0), "grads": (0.0, 0.0)}
+    for mb in range(M):
+        (lk, auxk), gk = sgd_rnn.ppo_rnn_minibatch_grads(
+            rs.params, traj, adv_n, targets, h0, mb, ent, rs.kl_coeff, **kw)
+        (lr_, auxr), gr = sgd_rnn.ppo_rnn_minibatch_grads_reference(
+            rs.params, traj, adv_n, targets, h0, mb, ent, rs.kl_coeff, **kw)
+        torch.cuda.synchronize()
+        for name, e in (("losses", tree_err((lk, *auxk), (lr_, *auxr),
+                                            *RNN_MB_LOSS_TOL)),
+                        ("grads", tree_err(gk, gr, *RNN_GRAD_TOL))):
+            worst[name] = tuple(map(max, worst[name], e))
+    args = (rs.params, traj, adv_n, targets, h0, 0, ent, rs.kl_coeff)
+    k_ms = timed(lambda: sgd_rnn.ppo_rnn_minibatch_grads(*args, **kw), 5)
+    p_ms = timed(lambda: sgd_rnn.ppo_rnn_minibatch_grads_reference(
+        *args, **kw), 3)
+    emit({"phase": "k9_check", "arch": arch, "minibatches": M,
+          "max_abs_err": {k: e for k, (e, _) in worst.items()},
+          "tol_ratio": {k: r for k, (_, r) in worst.items()},
+          "tol": {"losses": RNN_MB_LOSS_TOL, "grads": RNN_GRAD_TOL},
+          "kernel_ms": k_ms, "plain_ms": p_ms})
+    require(all(r <= 1.0 for _, r in worst.values()),
+            f"K9 ({arch}) differs from autograd: {worst}")
+    fwd, dx = rnn_macs(rs.params)
+    bnd = bound(nbytes(traj.obs, traj.action, traj.log_prob, traj.value,
+                       adv_n, targets, h0) / M + 2 * nbytes(rs.params),
+                2.0 * (2 * fwd + dx) * traj.action.numel() / M)
+    return worst["grads"][0], k_ms, p_ms, bnd
 
 
 def k1_episodes(dev):
@@ -606,28 +910,28 @@ def median_split(splits):
     return {k: median([s[k] for s in splits]) for k in splits[0]}
 
 
-def train_phase(dev, cfg):
-    """50 config-4 updates through the kernels, then 3 of the plain path
-    from the same initial state, then the trained policy served."""
-    tr = make_train(cfg, TrainConfig(num_updates=TRAIN_SCHEDULE), device=dev)
+def run_updates(tr, n, what, dev):
+    """n updates of ``tr.train_step`` from ``PRNGKey(0)`` with the phase
+    split of each by CUDA events, then 3 of ``tr.plain_step`` from the same
+    initial state: the final state and a dict of the timings, the
+    per-update deliveries and the largest parameter change."""
     B, T = tr.tcfg.num_envs, tr.tcfg.unroll_length
     rs0 = tr.init(rng.prng_key(0, dev))
     rs, splits, deliveries = rs0, [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TRAIN_UPDATES):
+    for _ in range(n):
         marks = Marks()
         rs, m = tr.train_step(rs, mark=marks)
         splits.append(marks.split())
         require(all(bool(torch.isfinite(v)) for v in m.values()),
-                f"train: non-finite metrics {m}")
+                f"{what}: non-finite metrics {m}")
         deliveries.append(float(m["deliveries_per_env_step"]))
     wall = time.perf_counter() - t0
-    require(int(rs.update_idx) == TRAIN_UPDATES, "train: update count")
+    require(int(rs.update_idx) == n, f"{what}: update count")
     moved = max(float((rs.params[k] - rs0.params[k]).abs().max())
                 for k in rs.params)
-    require(moved > 0.0, "train: params did not move")
-    late = sum(deliveries[-10:]) / 10
+    require(moved > 0.0, f"{what}: params did not move")
 
     plain, rp = [], rs0
     torch.cuda.synchronize()
@@ -637,86 +941,92 @@ def train_phase(dev, cfg):
         rp, _ = tr.plain_step(rp, mark=marks)
         plain.append(marks.split())
     plain_wall = time.perf_counter() - t1
+    return rs, {
+        "B": B, "T": T, "updates": n,
+        "update_ms_median": median([s["total"] for s in splits]),
+        "split_ms_median": median_split(splits),
+        "env_steps_per_sec": B * T * n / wall,
+        "plain_update_ms_median": median([s["total"] for s in plain]),
+        "plain_split_ms_median": median_split(plain),
+        "plain_env_steps_per_sec": B * T * 3 / plain_wall,
+        "deliveries_per_env_step": deliveries, "max_param_change": moved}
 
+
+def serve_mlp(cfg, tr, rs):
+    """The trained MLP policy served on the run's last observations."""
     tr.model.load_state_dict(rs.params)
     acts, _ = Policy(cfg, tr.model).compute_actions(rs.obs)
     with torch.no_grad():
         logits, _ = apply(rs.params, rs.obs)
-    require(acts.shape == (B, cfg.num_agents) and torch.equal(
+    require(acts.shape == rs.obs.shape[:2] and torch.equal(
         acts, first_argmax(logits, -1).to(torch.int32)),
         "serve: actions differ from the argmax of the trained policy")
-    emit({"phase": "train", "B": B, "T": T, "updates": TRAIN_UPDATES,
-          "update_ms_median": median([s["total"] for s in splits]),
-          "split_ms_median": median_split(splits),
-          "env_steps_per_sec": B * T * TRAIN_UPDATES / wall,
-          "plain_update_ms_median": median([s["total"] for s in plain]),
-          "plain_split_ms_median": median_split(plain),
-          "plain_env_steps_per_sec": B * T * 3 / plain_wall,
-          "deliveries_per_env_step": deliveries,
-          "deliveries_41_50": late, "learn_min": LEARN_MIN,
-          "max_param_change": moved})
+
+
+def train_phase(dev, cfg):
+    """50 config-4 updates through the kernels, then 3 of the plain path
+    from the same initial state, then the trained policy served."""
+    tr = make_train(cfg, TrainConfig(num_updates=TRAIN_SCHEDULE), device=dev)
+    rs, out = run_updates(tr, TRAIN_UPDATES, "train", dev)
+    serve_mlp(cfg, tr, rs)
+    late = sum(out["deliveries_per_env_step"][-10:]) / 10
+    emit({"phase": "train", **out, "deliveries_41_50": late,
+          "learn_min": LEARN_MIN})
     require(late >= LEARN_MIN,
             f"train: deliveries/env-step {late} over updates 41-50 is "
             f"below {LEARN_MIN}")
 
 
 def impala_train_phase(dev, cfg):
-    """300 config-4 IMPALA updates (Adam) through the kernels, then 3 of
-    the plain path from the same initial state, then the trained policy
-    served."""
-    tcfg = TrainConfig(num_updates=IMPALA_UPDATES, impala_rmsprop=False)
+    """The first 220 config-4 IMPALA updates (Adam) of a 300-update run
+    through the kernels, then 3 of the plain path from the same initial
+    state, then the trained policy served."""
+    tcfg = TrainConfig(num_updates=IMPALA_SCHEDULE, impala_rmsprop=False)
     tr = make_train_impala(cfg, tcfg, device=dev)
-    B, T = tcfg.num_envs, tcfg.unroll_length
-    rs0 = tr.init(rng.prng_key(0, dev))
-    rs, splits, deliveries = rs0, [], []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(IMPALA_UPDATES):
-        marks = Marks()
-        rs, m = tr.train_step(rs, mark=marks)
-        splits.append(marks.split())
-        require(all(bool(torch.isfinite(v)) for v in m.values()),
-                f"impala_train: non-finite metrics {m}")
-        deliveries.append(float(m["deliveries_per_env_step"]))
-    wall = time.perf_counter() - t0
-    require(int(rs.update_idx) == IMPALA_UPDATES, "impala_train: count")
-    moved = max(float((rs.params[k] - rs0.params[k]).abs().max())
-                for k in rs.params)
-    require(moved > 0.0, "impala_train: params did not move")
+    rs, out = run_updates(tr, IMPALA_UPDATES, "impala_train", dev)
+    serve_mlp(cfg, tr, rs)
+    deliveries = out["deliveries_per_env_step"]
     late = sum(deliveries[-10:]) / 10
-
-    plain, rp = [], rs0
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(3):
-        marks = Marks()
-        rp, _ = tr.plain_step(rp, mark=marks)
-        plain.append(marks.split())
-    plain_wall = time.perf_counter() - t1
-
-    tr.model.load_state_dict(rs.params)
-    acts, _ = Policy(cfg, tr.model).compute_actions(rs.obs)
-    with torch.no_grad():
-        logits, _ = apply(rs.params, rs.obs)
-    require(acts.shape == (B, cfg.num_agents) and torch.equal(
-        acts, first_argmax(logits, -1).to(torch.int32)),
-        "serve: actions differ from the argmax of the trained policy")
-    emit({"phase": "impala_train", "B": B, "T": T,
-          "updates": IMPALA_UPDATES, "optimizer": "adam",
-          "update_ms_median": median([s["total"] for s in splits]),
-          "split_ms_median": median_split(splits),
-          "env_steps_per_sec": B * T * IMPALA_UPDATES / wall,
-          "plain_update_ms_median": median([s["total"] for s in plain]),
-          "plain_split_ms_median": median_split(plain),
-          "plain_env_steps_per_sec": B * T * 3 / plain_wall,
+    emit({"phase": "impala_train", "optimizer": "adam", **out,
           "deliveries_at": {u: deliveries[u - 1]
                             for u in range(50, IMPALA_UPDATES + 1, 50)},
-          "deliveries_per_env_step": deliveries,
-          "deliveries_291_300": late, "learn_min": IMPALA_LEARN_MIN,
-          "max_param_change": moved})
+          "deliveries_211_220": late, "learn_min": IMPALA_LEARN_MIN})
     require(late >= IMPALA_LEARN_MIN,
             f"impala_train: deliveries/env-step {late} over updates "
-            f"291-300 is below {IMPALA_LEARN_MIN}")
+            f"211-220 is below {IMPALA_LEARN_MIN}")
+
+
+def rnn_train_phase(dev, cfg, arch):
+    """The first 40 config-4 recurrent PPO updates of a 300-update run
+    through the kernels, then 3 of the plain path from the same initial
+    state, then the trained policy served with its carry."""
+    tr = make_train_rnn(cfg, TrainConfig(num_updates=RNN_SCHEDULE), arch,
+                        device=dev)
+    rs, out = run_updates(tr, RNN_UPDATES, f"rnn_train ({arch})", dev)
+    late = sum(out["deliveries_per_env_step"][-10:]) / 10
+
+    # Serving: two chained calls that thread the carry.
+    tr.model.load_state_dict(rs.params)
+    policy = Policy(cfg, tr.model)
+    acts, carry = policy.compute_actions(rs.obs, rs.carry)
+    with torch.no_grad():
+        logits, _, want = apply_rnn(rs.params, rs.obs, rs.carry)
+    require(acts.shape == rs.obs.shape[:2] and torch.equal(
+        acts, first_argmax(logits, -1).to(torch.int32)),
+        "serve: actions differ from the argmax of the trained policy")
+    require(all(torch.equal(a, b) for a, b in zip(carry_leaves(carry),
+                                                  carry_leaves(want))),
+            "serve: the carry differs from the policy's")
+    acts2, carry2 = policy.compute_actions(rs.obs, carry)
+    require(acts2.shape == acts.shape and all(
+        bool(torch.isfinite(x).all()) and x.shape == y.shape
+        for x, y in zip(carry_leaves(carry2), carry_leaves(carry))),
+        "serve: bad second call")
+    emit({"phase": "rnn_train", "arch": arch, **out,
+          "deliveries_31_40": late, "learn_min": RNN_LEARN_MIN})
+    require(late >= RNN_LEARN_MIN,
+            f"rnn_train ({arch}): deliveries/env-step {late} over updates "
+            f"31-40 is below {RNN_LEARN_MIN}")
 
 
 # Each kernel's wrapper, where its launch count lives.
@@ -725,7 +1035,10 @@ COUNTED = {"greedy_rollout": rollout.greedy_steps,
            "ppo_sgd_phase": sgd.ppo_sgd_phase,
            "ppo_minibatch_grads": sgd.ppo_minibatch_grads,
            "impala_sgd_phase": vtrace_sgd.impala_sgd_phase,
-           "impala_minibatch_grads": vtrace_sgd.impala_minibatch_grads}
+           "impala_minibatch_grads": vtrace_sgd.impala_minibatch_grads,
+           "ppo_rnn_rollout": act_rnn.act_rnn_steps,
+           "ppo_rnn_sgd_phase": sgd_rnn.ppo_rnn_sgd_phase,
+           "ppo_rnn_minibatch_grads": sgd_rnn.ppo_rnn_minibatch_grads}
 
 
 def main_path(name, fn, kernels):
@@ -741,7 +1054,40 @@ def main_path(name, fn, kernels):
     return counts
 
 
-def main() -> int:
+def rnn_profile(dev, cfg, arch):
+    """``torch.profiler`` over 3 config-4 recurrent updates (after 2 of
+    warm-up): device milliseconds per update by kernel name, the device's
+    busy share of the profiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = make_train_rnn(cfg, TrainConfig(num_updates=RNN_SCHEDULE), arch,
+                        device=dev)
+    rs = tr.init(rng.prng_key(0, dev))
+    for _ in range(2):
+        rs, _ = tr.train_step(rs)
+    torch.cuda.synchronize()
+    n, t0 = 3, time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            rs, _ = tr.train_step(rs)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((getattr(e, "device_time_total", 0.0) / 1e3 / n, e.key,
+                    e.count // n) for e in prof.key_averages()
+                   if getattr(e, "device_time_total", 0.0) > 0
+                   and e.device_type.name != "CPU"), reverse=True)
+    busy = sum(ms for ms, _, _ in rows)
+    emit({"phase": "rnn_profile", "arch": arch, "updates": n,
+          "profiled_wall_ms_per_update": wall_ms / n,
+          "device_ms_per_update": busy,
+          "device_busy_share": busy * n / wall_ms,
+          "kernels": len(rows),
+          "top": [{"name": k[:60], "ms_per_update": ms, "launches": c}
+                  for ms, k, c in rows[:12]]})
+
+
+def main(argv=()) -> int:
     print(nvidia_smi(), flush=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path",
@@ -755,24 +1101,40 @@ def main() -> int:
     build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
     print(build.build_log(), file=sys.stderr)
+    if "--profile-rnn" in argv:  # a profile instead of the smoke run
+        for arch in ("gru", "lstm"):
+            rnn_profile(dev, medium_config(), arch)
+        print(nvidia_smi(), flush=True)
+        return 0
 
-    k1_err, k1_ms, k1_plain_ms = k1_check(dev)
+    checks = {"greedy_rollout": k1_check(dev)}
     cfg = medium_config()
     model = make_model(cfg, hidden_dim=HIDDEN[0], num_layers=HIDDEN[1],
                        generator=torch.Generator().manual_seed(SEED),
                        device=dev)
-    k2_err, k2_ms, k2_plain_ms = k2_check(dev, "medium", cfg, model)
+    checks["ppo_rollout"] = k2_check(dev, "medium", cfg, model)
     shelves = shelves_config()
     k2_check(dev, "shelves", shelves,
              make_model(shelves, hidden_dim=HIDDEN[0], num_layers=HIDDEN[1],
                         generator=torch.Generator().manual_seed(SEED),
                         device=dev), mask_actions=True)
-    k3_err, k3_ms, k3_plain_ms = k3_check(dev, cfg)
-    k4_err, k4_ms, k4_plain_ms = k4_check(dev, cfg)
-    k5_err, k5_ms, k5_plain_ms = k5_check(dev, cfg)
-    k6_err, k6_ms, k6_plain_ms = k6_check(dev, cfg)
+    checks["ppo_sgd_phase"] = k3_check(dev, cfg)
+    checks["ppo_minibatch_grads"] = k4_check(dev, cfg)
+    checks["impala_sgd_phase"] = k5_check(dev, cfg)
+    checks["impala_minibatch_grads"] = k6_check(dev, cfg)
+    # The recurrent kernels: the LSTM's checks run too; the GRU's numbers
+    # (the CLI's first recurrent cell) go into the kernels line.
+    k7_check(dev, "medium", cfg, "lstm")
+    k7_check(dev, "shelves", shelves, "gru", mask_actions=True)
+    checks["ppo_rnn_rollout"] = k7_check(dev, "medium", cfg, "gru")
+    k8_check(dev, cfg, "lstm")
+    k9_check(dev, cfg, "lstm")
+    checks["ppo_rnn_sgd_phase"] = k8_check(dev, cfg, "gru")
+    checks["ppo_rnn_minibatch_grads"] = k9_check(dev, cfg, "gru")
 
     # ---- the main paths: each counted from just before it -------------
+    rnn_kernels = ["ppo_rnn_rollout", "ppo_rnn_sgd_phase",
+                   "ppo_rnn_minibatch_grads"]
     paths = [
         main_path("k1_episodes", lambda: k1_episodes(dev),
                   ["greedy_rollout"]),
@@ -782,40 +1144,36 @@ def main() -> int:
                   ["ppo_rollout", "ppo_sgd_phase", "ppo_minibatch_grads"]),
         main_path("impala_train", lambda: impala_train_phase(dev, cfg),
                   ["ppo_rollout", "impala_sgd_phase",
-                   "impala_minibatch_grads"])]
+                   "impala_minibatch_grads"]),
+        main_path("rnn_train_gru", lambda: rnn_train_phase(dev, cfg, "gru"),
+                  rnn_kernels),
+        main_path("rnn_train_lstm", lambda: rnn_train_phase(dev, cfg, "lstm"),
+                  rnn_kernels)]
     launches = {k: sum(p[k] for p in paths) for k in COUNTED}
 
     csrc = "warehouse_tpu_torch/kernels/csrc/"
+    sources = {
+        "greedy_rollout": ("rollout.cu", "pallas/rollout.py:516"),
+        "ppo_rollout": ("act.cu", "pallas/act.py:1028"),
+        "ppo_sgd_phase": ("sgd.cu", "pallas/sgd.py:691"),
+        "ppo_minibatch_grads": ("sgd.cu", "pallas/sgd.py:818"),
+        "impala_sgd_phase": ("vtrace_sgd.cu", "pallas/vtrace_sgd.py:445"),
+        "impala_minibatch_grads": ("vtrace_sgd.cu",
+                                   "pallas/vtrace_sgd.py:553"),
+        "ppo_rnn_rollout": ("act_rnn.cu", "pallas/act.py:747"),
+        "ppo_rnn_sgd_phase": ("sgd_rnn.cu", "pallas/sgd_rnn.py:551"),
+        "ppo_rnn_minibatch_grads": ("sgd_rnn.cu", "pallas/sgd_rnn.py:665")}
+    # library_ms: no single PyTorch call computes a whole rollout or a
+    # whole learner phase, so it is null for every kernel here.
     emit({"kernels": [
-        {"name": "greedy_rollout", "route": "cuda",
-         "source": csrc + "rollout.cu",
-         "replaces": "warehouse_tpu/pallas/rollout.py:516",
-         "launches": launches["greedy_rollout"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "ppo_rollout", "route": "cuda", "source": csrc + "act.cu",
-         "replaces": "warehouse_tpu/pallas/act.py:1028",
-         "launches": launches["ppo_rollout"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "ppo_sgd_phase", "route": "cuda", "source": csrc + "sgd.cu",
-         "replaces": "warehouse_tpu/pallas/sgd.py:691",
-         "launches": launches["ppo_sgd_phase"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "ppo_minibatch_grads", "route": "cuda",
-         "source": csrc + "sgd.cu",
-         "replaces": "warehouse_tpu/pallas/sgd.py:818",
-         "launches": launches["ppo_minibatch_grads"], "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain_ms},
-        {"name": "impala_sgd_phase", "route": "cuda",
-         "source": csrc + "vtrace_sgd.cu",
-         "replaces": "warehouse_tpu/pallas/vtrace_sgd.py:445",
-         "launches": launches["impala_sgd_phase"], "max_abs_err": k5_err,
-         "ms": k5_ms, "plain_ms": k5_plain_ms},
-        {"name": "impala_minibatch_grads", "route": "cuda",
-         "source": csrc + "vtrace_sgd.cu",
-         "replaces": "warehouse_tpu/pallas/vtrace_sgd.py:553",
-         "launches": launches["impala_minibatch_grads"],
-         "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms},
-    ]})
+        {"name": name, "route": "cuda", "source": csrc + src,
+         "replaces": "warehouse_tpu/" + replaces,
+         "launches": launches[name], "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+         "bound_by": bnd["bound_by"], "library_ms": None,
+         "bound_bytes": bnd["bytes"], "bound_flops": bnd["flops"]}
+        for name, (src, replaces) in sources.items()
+        for err, ms, plain_ms, bnd in [checks[name]]]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -824,4 +1182,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -37,7 +37,7 @@ CFG = small_config(max_steps=T)  # the chunk ends with the episode
 
 
 def port_model(params):
-    m = make_model(CFG, hidden_dim=HIDDEN)
+    m = make_model(CFG, hidden_dim=HIDDEN, device="cpu")
     m.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
     return m
 
@@ -171,7 +171,7 @@ def masked_setup():
     """A walled layout, masking on, through ``ppo_rollout_pallas``."""
     jm = j_make_model(WALLED, hidden_dim=HIDDEN)
     params = jm.init(jax.random.PRNGKey(1), jnp.zeros((1, WALLED.obs_dim)))
-    m = make_model(WALLED, hidden_dim=HIDDEN)
+    m = make_model(WALLED, hidden_dim=HIDDEN, device="cpu")
     m.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
     jk, tk = env_keys(2, n=B)
     js, _ = jbatch.reset_batch(WALLED, jk)

@@ -277,7 +277,7 @@ def test_impala_grads_twin_matches_pallas_and_jax_grad(mask_on):
 def test_train_steps_match_jax_trainer(change):
     tcfg = BASE.replace(**change)
     jtr = j_make_train(CFG, tcfg)
-    tr = make_train_impala(CFG, tcfg)
+    tr = make_train_impala(CFG, tcfg, device="cpu")
     jrs = jtr.init(jax.random.PRNGKey(0))
     rs = impala_runner_state_from_jax(jax.tree.map(np.asarray, jrs), tcfg)
     assert rs.key.shape == (2,) and rs.opt_state.count == 0
@@ -311,7 +311,7 @@ def test_init_matches_jax_init():
     """Env resets from fold_in(ekey, i) and the shard key fold_in(skey, 0)
     bit-equal; the params come from a torch.Generator."""
     jrs = j_make_train(CFG, BASE).init(jax.random.PRNGKey(3))
-    tr = make_train_impala(CFG, BASE)
+    tr = make_train_impala(CFG, BASE, device="cpu")
     rs = tr.init(rng.prng_key(3))
     for f in STATE_FIELDS:
         assert_bits(getattr(jrs.env_state, f), getattr(rs.env_state, f), f)
@@ -322,7 +322,8 @@ def test_init_matches_jax_init():
 
 
 def test_train_many_runs_and_plain_step_is_the_cpu_path():
-    tr = make_train_impala(CFG, BASE.replace(impala_rmsprop=False))
+    tr = make_train_impala(CFG, BASE.replace(impala_rmsprop=False),
+                          device="cpu")
     rs0 = tr.init(rng.prng_key(1))
     rs, ms = tr.train_many(rs0, 2)
     assert int(rs.update_idx) == 2
@@ -355,7 +356,7 @@ def test_gates_raise(change, error):
     cfg = CFG.replace(global_obs=change.pop("global_obs", False))
     match = "ROADMAP" if error is NotImplementedError else None
     with pytest.raises(error, match=match):
-        make_train_impala(cfg, BASE.replace(**change), **kw)
+        make_train_impala(cfg, BASE.replace(**change), device="cpu", **kw)
 
 
 def test_rmsprop_warns_at_build(caplog):
@@ -363,12 +364,13 @@ def test_rmsprop_warns_at_build(caplog):
     canonical RMSProp warns and points at --impala-adam; Adam is
     silent."""
     with caplog.at_level(logging.WARNING, logger="warehouse_tpu_torch"):
-        make_train_impala(CFG, BASE)
+        make_train_impala(CFG, BASE, device="cpu")
     assert any("impala-adam" in r.message for r in caplog.records
                if r.levelno == logging.WARNING)
     caplog.clear()
     with caplog.at_level(logging.WARNING, logger="warehouse_tpu_torch"):
-        make_train_impala(CFG, BASE.replace(impala_rmsprop=False))
+        make_train_impala(CFG, BASE.replace(impala_rmsprop=False),
+                          device="cpu")
     assert not any("impala-adam" in r.message for r in caplog.records)
 
 

@@ -127,7 +127,7 @@ SGD_T, SGD_B, SGD_M, SGD_E = 5, 100, 4, 2  # N = 500 per minibatch: ragged
 SGD_KW = dict(clip_eps=0.2, value_coef=0.5)
 
 
-def sgd_batch(cfg, hidden, dev, seed=0):
+def sgd_batch(cfg, hidden, dev, seed=0, arch="mlp"):
     """A seeded synthetic trajectory, params and Adam state on ``dev``."""
     from warehouse_tpu_torch.kernels.sgd import normalize_adv_env_minibatch
     from warehouse_tpu_torch.optim import AdamState
@@ -148,7 +148,8 @@ def sgd_batch(cfg, hidden, dev, seed=0):
     adv_n = normalize_adv_env_minibatch(torch.randn(T, B, A, generator=g),
                                         SGD_M)
     targets = torch.randn(T, B, A, generator=g)
-    model = make_model(cfg, hidden_dim=hidden, generator=g)
+    model = make_model(cfg, arch, hidden_dim=hidden, generator=g,
+                       device="cpu")
     params = {k: v.detach() for k, v in model.state_dict().items()}
     opt = AdamState(3, {k: 1e-3 * torch.randn(v.shape, generator=g)
                         for k, v in params.items()},
@@ -313,4 +314,135 @@ def test_impala_grads_kernel_matches_autograd(mask_on, bootstrap, dev):
         torch.cuda.synchronize()
         for a, b in zip((l_k, *aux_k), (l_r, *aux_r)):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+        assert_close_tree(g_k, g_r, 1e-4, 1e-6, f"grads mb={mb}")
+
+
+# ---- K7: the recurrent acting kernel ----------------------------------------
+
+def rnn_carry(arch, hidden, A, dev, seed, n=N):
+    g = torch.Generator().manual_seed(seed)
+    h = (0.5 * torch.randn(n, A, hidden, generator=g)).to(dev)
+    if arch == "lstm":
+        return ((0.5 * torch.randn(n, A, hidden, generator=g)).to(dev), h)
+    return h
+
+
+@pytest.mark.parametrize("mask_on", [False, True])
+@pytest.mark.parametrize("arch", ["gru", "lstm"])
+@pytest.mark.parametrize("name,hidden", [("small", 16), ("medium", 128),
+                                         ("shelves", 32), ("large", 16)])
+def test_rnn_act_kernel_matches_plain_path(name, hidden, arch, mask_on, dev):
+    """K7: its actions replayed through the plain engine give bit-equal
+    obs, rewards, deliveries and final state (and, masked, the mask of
+    ``valid_action_mask`` with no masked move sampled); values, log-probs
+    and the final carry within 1e-4 of ``apply_rnn`` stepped over the
+    kernel's observations from the same carry (f32 sums in another
+    order). N = 1000 envs: the last block is ragged."""
+    from warehouse_tpu_torch.kernels.act_rnn import act_rnn_steps
+    from warehouse_tpu_torch.models.policy import apply_rnn
+
+    cfg, steps, A = PRESETS[name], 8, PRESETS[name].num_agents
+    m = make_model(cfg, arch, hidden_dim=hidden,
+                   generator=torch.Generator().manual_seed(0), device=dev)
+    params = {k: v.detach() for k, v in m.state_dict().items()}
+    state, _ = reset(cfg, 6, dev)
+    carry = rnn_carry(arch, hidden, A, dev, 7)
+    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, steps)
+    _, g = rng.batched_gumbel_stream(rng.prng_key(3, dev), steps, (5, N * A))
+    mask = (torch.zeros(steps, N, A, 5, dtype=torch.bool, device=dev)
+            if mask_on else None)
+    new, new_carry, obs, action, lp, value, reward, delivered = act_rnn_steps(
+        cfg, params, state, carry, u, pick, drop, g, mask=mask)
+    torch.cuda.synchronize()
+    s, c = state, carry
+    for t in range(steps):
+        if mask_on:
+            assert torch.equal(mask[t], valid_action_mask(cfg, s.agent_pos))
+            assert bool(mask[t].gather(-1, action[t].long()[..., None]).all())
+        assert torch.equal(batch.observe_batch(cfg, s), obs[t])
+        with torch.no_grad():
+            logits, v, c = apply_rnn(params, obs[t], c)
+        if mask_on:
+            logits = torch.where(mask[t], logits, -1e9)
+        lp_plain = torch.log_softmax(logits, -1).gather(
+            -1, action[t].long()[..., None])[..., 0]
+        assert float((v - value[t]).abs().max()) < 1e-4, t
+        assert float((lp_plain - lp[t]).abs().max()) < 1e-4, t
+        s, ts = batch.step_batch(cfg, s, action[t])
+        assert torch.equal(ts.reward, reward[t])
+        assert torch.equal(ts.delivered.sum(-1, dtype=torch.int32),
+                           delivered[t])
+    for f in STATE_FIELDS[:-2]:  # t and key are the wrapper's
+        assert torch.equal(getattr(s, f), getattr(new, f)), f
+    pairs = zip(new_carry, c) if arch == "lstm" else [(new_carry, c)]
+    for a, b in pairs:
+        assert float((a - b).abs().max()) < 1e-4
+
+
+# ---- K8 / K9: the recurrent SGD phase and per-minibatch gradients -----------
+
+@pytest.mark.parametrize("mask_on", [False, True])
+@pytest.mark.parametrize("arch", ["gru", "lstm"])
+@pytest.mark.parametrize("hidden", [16, 128])
+def test_rnn_sgd_phase_kernel_matches_twin(hidden, arch, mask_on, dev):
+    """K8 against autograd through the T-step replay + optim.py on the
+    same inputs (E = 2, M = 4, 100 sequences of 5 steps per minibatch: a
+    ragged tile), at K3's tolerances, and bit-equal to itself on a
+    rerun."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.kernels.sgd_rnn import (
+        ppo_rnn_sgd_phase, ppo_rnn_sgd_phase_reference)
+    from warehouse_tpu_torch.optim import make_optimizer
+
+    cfg = medium_config()
+    params, opt, traj, adv_n, targets = sgd_batch(cfg, hidden, dev, arch=arch)
+    h0 = rnn_carry(arch, hidden, cfg.num_agents, dev, 11, SGD_B)
+    rows = make_optimizer(TrainConfig(num_updates=4)).step_rows(
+        opt.count, SGD_E * SGD_M, dev)
+    args = (params, opt, traj, adv_n, targets, h0, *rows, 0.01, 0.05)
+    kw = dict(num_epochs=SGD_E, num_minibatches=SGD_M, max_grad_norm=0.5,
+              mask_actions=mask_on, **SGD_KW)
+    p_k, o_k, l_k = ppo_rnn_sgd_phase(*args, **kw)
+    p_r, o_r, l_r = ppo_rnn_sgd_phase_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert o_k.count == o_r.count == opt.count + SGD_E * SGD_M
+    # f32 sums in another order (split-K over samples vs cuBLAS), 8 steps.
+    for a, b in zip(l_k, l_r):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-6)
+    assert_close_tree(p_k, p_r, 1e-5, 1e-6, "params")
+    assert_close_tree(o_k.mu, o_r.mu, 1e-5, 1e-7, "mu")
+    assert_close_tree(o_k.nu, o_r.nu, 1e-5, 1e-10, "nu")
+    p_2, o_2, l_2 = ppo_rnn_sgd_phase(*args, **kw)
+    for k in p_k:
+        assert torch.equal(p_k[k], p_2[k]) and torch.equal(o_k.nu[k],
+                                                           o_2.nu[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(l_k, l_2))
+
+
+@pytest.mark.parametrize("mask_on", [False, True])
+@pytest.mark.parametrize("arch", ["gru", "lstm"])
+@pytest.mark.parametrize("layers", [2, 3])
+def test_rnn_minibatch_grads_kernel_matches_autograd(layers, arch, mask_on,
+                                                     dev):
+    """K9 against autograd through the T-step replay, every minibatch, 1
+    and 2 encoder layers, hidden 32 (f32 sums in another order: grads rtol
+    1e-4 / atol 1e-6, losses atol 2e-6)."""
+    from warehouse_tpu_torch.kernels.sgd_rnn import (
+        ppo_rnn_minibatch_grads, ppo_rnn_minibatch_grads_reference)
+
+    cfg, hidden = medium_config(), 32
+    _, _, traj, adv_n, targets = sgd_batch(cfg, hidden, dev, arch=arch)
+    m = make_model(cfg, arch, hidden_dim=hidden, num_layers=layers,
+                   generator=torch.Generator().manual_seed(5), device=dev)
+    params = {k: v.detach() for k, v in m.state_dict().items()}
+    h0 = rnn_carry(arch, hidden, cfg.num_agents, dev, 12, SGD_B)
+    kw = dict(num_minibatches=SGD_M, mask_actions=mask_on, **SGD_KW)
+    for mb in range(SGD_M):
+        (l_k, aux_k), g_k = ppo_rnn_minibatch_grads(
+            params, traj, adv_n, targets, h0, mb, 0.01, 0.05, **kw)
+        (l_r, aux_r), g_r = ppo_rnn_minibatch_grads_reference(
+            params, traj, adv_n, targets, h0, mb, 0.01, 0.05, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip((l_k, *aux_k), (l_r, *aux_r)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-6)
         assert_close_tree(g_k, g_r, 1e-4, 1e-6, f"grads mb={mb}")

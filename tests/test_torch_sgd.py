@@ -293,7 +293,7 @@ def test_pack_round_trip_and_layout():
     from warehouse_tpu_torch.models import make_model
 
     m = make_model(small_config(), hidden_dim=8,
-                   generator=torch.Generator().manual_seed(0))
+                   generator=torch.Generator().manual_seed(0), device="cpu")
     params = dict(m.state_dict())
     flat = sgd.pack(params)
     assert flat.numel() == sum(v.numel() for v in params.values())

@@ -35,7 +35,7 @@ HIDDEN = 32
 def flax_and_port(cfg, seed=0, hidden=HIDDEN):
     jm = j_make_model(cfg, hidden_dim=hidden)
     params = jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, cfg.obs_dim)))
-    m = make_model(cfg, hidden_dim=hidden)
+    m = make_model(cfg, hidden_dim=hidden, device="cpu")
     m.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
     return jm, params, m
 
@@ -57,9 +57,9 @@ def test_mlp_forward_matches_flax():
 def test_init_is_orthogonal_and_seeded():
     cfg = medium_config()
     a = make_model(cfg, hidden_dim=HIDDEN,
-                   generator=torch.Generator().manual_seed(1))
+                   generator=torch.Generator().manual_seed(1), device="cpu")
     b = make_model(cfg, hidden_dim=HIDDEN,
-                   generator=torch.Generator().manual_seed(1))
+                   generator=torch.Generator().manual_seed(1), device="cpu")
     for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(pa, pb), name
     for layer, gain in zip(a.layers(), [2 ** 0.5] * 2 + [0.01, 1.0]):
@@ -129,23 +129,30 @@ def test_evaluate_policy_matches_jax(policy):
         def j_fn(state, obs, key):
             return random_actions(cfg, key, (obs.shape[0],)).astype("int32")
     want = j_evaluate(cfg, j_fn, 24, seed=3)
-    got = evaluate_policy(cfg, policy_fn_for(policy, cfg), 24, seed=3)
+    got = evaluate_policy(cfg, policy_fn_for(policy, cfg), 24, seed=3,
+                          device="cpu")
     assert got.keys() == want.keys()
     for k in want:
         assert got[k] == pytest.approx(want[k], rel=1e-6, abs=1e-6), k
 
 
 def test_port_imports_without_jax():
+    """Every module of the port (the package walked, not listed by hand),
+    chip_smoke.py and the card-only test file import with nothing of jax
+    and nothing of the JAX package ``warehouse_tpu`` in ``sys.modules``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import warehouse_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "import warehouse_tpu_torch.train, warehouse_tpu_torch.train.ppo\n"
+        "    if not m.name.endswith('.__main__'):\n"
+        "        importlib.import_module(m.name)\n"
+        "import warehouse_tpu_torch.train.__main__\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import test_torch_kernels_gpu\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
-        "                              'orbax')]\n"
+        "                              'orbax', 'warehouse_tpu')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules\n"
         "           if m.startswith('warehouse_tpu_torch')]))\n")
@@ -153,4 +160,17 @@ def test_port_imports_without_jax():
                          text=True, timeout=300,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 28
+    assert int(out.stdout.strip()) >= 36
+
+
+def test_import_check_sees_the_jax_package():
+    """The check above is not blind: the same scan after importing the JAX
+    package's config finds it."""
+    code = ("import sys, warehouse_tpu.config\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('warehouse_tpu',)]\n"
+            "assert bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stderr

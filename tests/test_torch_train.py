@@ -51,7 +51,7 @@ def assert_params(port, jax_params, rtol, atol, what=""):
 def test_train_steps_match_jax_trainer(bootstrap):
     tcfg = BASE.replace(bootstrap_truncated=bootstrap)
     jtr = j_make_train(CFG, tcfg)
-    tr = make_train(CFG, tcfg)
+    tr = make_train(CFG, tcfg, device="cpu")
     jrs = jtr.init(jax.random.PRNGKey(0))
     rs = runner_state_from_jax(jax.tree.map(np.asarray, jrs))
     assert rs.key.shape == (2,) and rs.opt_state.count == 0
@@ -81,7 +81,7 @@ def test_masked_train_steps_match_jax_trainer():
     phase re-applies the mask; held to the JAX trainer as above."""
     tcfg = BASE.replace(mask_actions=True)
     jtr = j_make_train(CFG, tcfg)
-    tr = make_train(CFG, tcfg)
+    tr = make_train(CFG, tcfg, device="cpu")
     jrs = jtr.init(jax.random.PRNGKey(0))
     rs = runner_state_from_jax(jax.tree.map(np.asarray, jrs))
     for u in range(3):
@@ -101,7 +101,7 @@ def test_init_matches_jax_init():
     """Env resets from fold_in(ekey, i) and the shard key fold_in(skey, 0)
     bit-equal; the params come from a torch.Generator (not flax's bits)."""
     jrs = j_make_train(CFG, BASE).init(jax.random.PRNGKey(3))
-    tr = make_train(CFG, BASE)
+    tr = make_train(CFG, BASE, device="cpu")
     rs = tr.init(rng.prng_key(3))
     for f in STATE_FIELDS:
         assert_bits(getattr(jrs.env_state, f), getattr(rs.env_state, f), f)
@@ -113,7 +113,7 @@ def test_init_matches_jax_init():
 
 
 def test_train_many_runs_and_learns_something():
-    tr = make_train(CFG, BASE)
+    tr = make_train(CFG, BASE, device="cpu")
     rs0 = tr.init(rng.prng_key(1))
     rs, ms = tr.train_many(rs0, 2)
     assert int(rs.update_idx) == 2
@@ -151,7 +151,7 @@ def test_gates_raise(change, error):
           if k in change}
     cfg = CFG.replace(global_obs=change.pop("global_obs", False))
     with pytest.raises(error):
-        make_train(cfg, BASE.replace(**change), **kw)
+        make_train(cfg, BASE.replace(**change), device="cpu", **kw)
 
 
 def test_cli_runs_two_updates(tmp_path):
@@ -171,7 +171,7 @@ def test_cli_runs_two_updates(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--algo", "impala", "--micro-batches",
-                                    "2"], ["--arch", "gru"],
+                                    "2"], ["--arch", "cnn"],
                                    ["--policy-groups", "0,1"],
                                    ["--tensorboard-dir", "tb"],
                                    ["--shaping-coef", "0.1"], ["--resume"],

@@ -3,13 +3,15 @@
 A second package beside the JAX reference ``warehouse_tpu``: the same
 batched multi-agent env (docs/SEMANTICS.md), bit-exact against the JAX
 engine, with the TPU's Pallas kernels rewritten as CUDA kernels for
-Hopper (``kernels/``). It imports ``torch`` and never ``jax``; the shape
-spec is shared: ``warehouse_tpu.config`` is pure Python.
+Hopper (``kernels/``). It imports ``torch`` and never ``jax``, and nothing
+of the JAX package: ``config.py`` is its own copy of the shape spec. Its
+entry points run on the card unless the caller passes ``device="cpu"``
+(``device.py``).
 """
 
-from warehouse_tpu.config import (EnvConfig, TrainConfig, large_config,
-                                  medium_config, shelves_config,
-                                  small_config)
+from .config import (EnvConfig, TrainConfig, large_config, medium_config,
+                     shelves_config, small_config)
+from .device import default_device, resolve_device
 
-__all__ = ["EnvConfig", "TrainConfig", "small_config", "medium_config",
-           "large_config", "shelves_config"]
+__all__ = ["default_device", "resolve_device", "EnvConfig", "TrainConfig",
+           "small_config", "medium_config", "large_config", "shelves_config"]

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from warehouse_tpu.config import EnvConfig
+from ..config import EnvConfig
 
 from ..env.state import EnvState
 from ..ops.obs import targets

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from warehouse_tpu.config import EnvConfig
+from ..config import EnvConfig
 
 from .. import rng as _rng
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from warehouse_tpu.config import EnvConfig
+from ..config import EnvConfig
 
 from .. import rng as _rng
 from ..ops.assign import assign_requests

@@ -9,18 +9,14 @@ checkpoint port.
 from __future__ import annotations
 
 import argparse
-import json
 
 import torch
 
-from warehouse_tpu.config import (large_config, medium_config,
-                                  shelves_config, small_config)
-
 from . import rng as _rng
+from .configs_cli import (add_device_args, add_env_args, device_from_args,
+                          env_config_from_args)
+from .device import resolve_device
 from .env import engine
-
-PRESETS = {"small": small_config, "medium": medium_config,
-           "large": large_config, "shelves": shelves_config}
 
 
 def evaluate_policy(cfg, policy_fn, num_episodes: int, seed: int = 0,
@@ -29,7 +25,9 @@ def evaluate_policy(cfg, policy_fn, num_episodes: int, seed: int = 0,
 
     Env b resets from ``fold_in(PRNGKey(seed), b)`` and the policy keys
     split off ``PRNGKey(seed + 1)`` once per step, as in the JAX package.
+    Runs on the card unless ``device="cpu"``.
     """
+    device = resolve_device(device)
     cfg = cfg.replace(auto_reset=False)
     B = num_episodes
     base = _rng.prng_key(seed, device)
@@ -74,21 +72,17 @@ def policy_fn_for(name: str, cfg):
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser("warehouse_tpu_torch.evaluate")
-    p.add_argument("--env", choices=sorted(PRESETS), default="medium")
-    p.add_argument("--env-config", default=None,
-                   help="JSON dict of EnvConfig overrides")
+    add_env_args(p)
+    add_device_args(p)
     p.add_argument("--policy", choices=["greedy", "random"],
                    default="greedy")
     p.add_argument("--episodes", type=int, default=256)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available()
-                   else "cpu")
     args = p.parse_args(argv)
-    overrides = json.loads(args.env_config) if args.env_config else {}
-    cfg = PRESETS[args.env](**overrides)
+    cfg = env_config_from_args(args)
     metrics = evaluate_policy(cfg, policy_fn_for(args.policy, cfg),
                               args.episodes, args.seed,
-                              torch.device(args.device))
+                              device_from_args(args))
     for k, v in metrics.items():
         print(f"{k}: {v}")
 

@@ -7,9 +7,13 @@ launches. The sources in ``csrc/`` are compiled at first use
 """
 
 from .act import ActRollout, ppo_rollout, ppo_rollout_reference
+from .act_rnn import ppo_rnn_rollout, ppo_rnn_rollout_reference
 from .rollout import greedy_rollout, greedy_rollout_reference
 from .sgd import (ppo_minibatch_grads, ppo_minibatch_grads_reference,
                   ppo_sgd_phase, ppo_sgd_phase_reference)
+from .sgd_rnn import (ppo_rnn_minibatch_grads,
+                      ppo_rnn_minibatch_grads_reference, ppo_rnn_sgd_phase,
+                      ppo_rnn_sgd_phase_reference)
 from .vtrace_sgd import (impala_minibatch_grads,
                          impala_minibatch_grads_reference, impala_sgd_phase,
                          impala_sgd_phase_reference)
@@ -19,4 +23,7 @@ __all__ = ["ActRollout", "greedy_rollout", "greedy_rollout_reference",
            "ppo_sgd_phase_reference", "ppo_minibatch_grads",
            "ppo_minibatch_grads_reference", "impala_sgd_phase",
            "impala_sgd_phase_reference", "impala_minibatch_grads",
-           "impala_minibatch_grads_reference"]
+           "impala_minibatch_grads_reference", "ppo_rnn_rollout",
+           "ppo_rnn_rollout_reference", "ppo_rnn_sgd_phase",
+           "ppo_rnn_sgd_phase_reference", "ppo_rnn_minibatch_grads",
+           "ppo_rnn_minibatch_grads_reference"]

@@ -15,8 +15,9 @@ With ``mask_actions`` the logits of moves off the grid or into a wall
 (``ops.move.valid_action_mask`` of the pre-tick positions) are floored to
 -1e9 before the sample and the log-softmax (``pallas/act.py:415-428``),
 and the mask is returned in ``ActRollout.mask``. Reward shaping, global
-observations inside the kernel, policy groups and other torsos are not
-ported yet; ``ppo_rollout`` raises ``NotImplementedError`` for them.
+observations inside the kernel, policy groups and the CNN torso are not
+ported yet; ``ppo_rollout`` raises ``NotImplementedError`` for them. The
+recurrent policies act through ``kernels.act_rnn.ppo_rnn_rollout``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from warehouse_tpu.config import EnvConfig
+from ..config import EnvConfig
 
 from .. import rng as _rng
 from ..env import engine
@@ -173,6 +174,9 @@ act_steps.launches = 0
 def _check_options(cfg, shaping_coef, policy_groups, arch):
     if cfg.auto_reset:
         raise ValueError("ppo_rollout: auto_reset is handled by the caller")
+    if arch in ("gru", "lstm"):
+        raise ValueError(f"ppo_rollout: arch={arch!r} acts through "
+                         "kernels.act_rnn.ppo_rnn_rollout")
     for name, unsupported in (("shaping_coef", shaping_coef > 0.0),
                               ("global_obs", cfg.global_obs),
                               ("policy_groups", policy_groups is not None),
@@ -182,20 +186,22 @@ def _check_options(cfg, shaping_coef, policy_groups, arch):
                 f"ppo_rollout: {name} is not ported yet")
 
 
-def _rollout(steps, cfg: EnvConfig, model: ActorCriticMLP, state: EnvState,
-             T: int, key: torch.Tensor, mask_actions: bool = False,
-             shaping_coef: float = 0.0, policy_groups=None,
-             arch: str = "mlp"):
-    _check_options(cfg, shaping_coef, policy_groups, arch)
+def chunk_rollout(run_steps, cfg: EnvConfig, state: EnvState, T: int,
+                  key: torch.Tensor, mask_actions: bool):
+    """The wrapper shared by the acting kernels: draws the chunk's env
+    stream and gumbel noise, calls ``run_steps(u, pick, drop, g, mask)``
+    -> ``(state, obs, action, log_prob, value, reward, delivered, *rest)``
+    and returns ``(EnvState, ActRollout, reset_key_last, next_key,
+    *rest)`` with the step counter, the env keys and the truncation flags
+    filled in."""
     B, A = state.agent_pos.shape[:2]
     dev = state.agent_pos.device
     final_keys, u, pick, drop, reset_keys = _rng.batched_step_draws(
         state.key, cfg, T)
     next_key, g = _rng.batched_gumbel_stream(key, T, (5, B * A))
     mask = torch.ones(T, B, A, 5, dtype=torch.bool, device=dev)
-    new, obs, action, lp, value, reward, delivered = steps(
-        cfg, model, state, u, pick, drop, g,
-        mask=mask if mask_actions else None)
+    new, obs, action, lp, value, reward, delivered, *rest = run_steps(
+        u, pick, drop, g, mask if mask_actions else None)
     steps_ahead = (state.t[None, :] + 1
                    + torch.arange(T, dtype=state.t.dtype,
                                   device=state.t.device)[:, None])
@@ -204,7 +210,18 @@ def _rollout(steps, cfg: EnvConfig, model: ActorCriticMLP, state: EnvState,
         delivered=delivered, truncated=steps_ahead >= cfg.max_steps,
         mask=mask, raw_reward=reward)
     new = new.replace(t=state.t + T, key=final_keys)
-    return new, roll, reset_keys[-1], next_key
+    return (new, roll, reset_keys[-1], next_key, *rest)
+
+
+def _rollout(steps, cfg: EnvConfig, model: ActorCriticMLP, state: EnvState,
+             T: int, key: torch.Tensor, mask_actions: bool = False,
+             shaping_coef: float = 0.0, policy_groups=None,
+             arch: str = "mlp"):
+    _check_options(cfg, shaping_coef, policy_groups, arch)
+    return chunk_rollout(
+        lambda u, pick, drop, g, mask: steps(cfg, model, state, u, pick,
+                                             drop, g, mask=mask),
+        cfg, state, T, key, mask_actions)
 
 
 def ppo_rollout(cfg: EnvConfig, model: ActorCriticMLP, state: EnvState,

@@ -44,10 +44,22 @@ SIGNATURES = {
                           + [P] * 2,
     "wh_vtrace_clip_adam": [I, IP, I, L, I, I, I] + [P] * 7 + [F] * 6
                            + [P] * 2,
+    "wh_rnn_param_floats": [I, IP, I, I],
+    "wh_act_rnn_smem_bytes": [I, I, I, IP, I, I],
+    "wh_act_rnn_rollout": [I, I, L, I, I, I, F, I, I, I, F, F, F, F, F, F, I,
+                           IP, I, I] + [P] * 34,
+    "wh_rnn_sgd_smem_bytes": [I, IP, I, I],
+    "wh_rnn_sgd_workspace_floats": [I, IP, I, I, I, L, I, I],
+    "wh_rnn_sgd_grads": [I, IP, I, I, I, L, I, I, I] + [P] * 11 + [F] * 5
+                        + [P] * 4,
+    "wh_rnn_sgd_clip_adam": [I, IP, I, I, I, L, I, I, I] + [P] * 7 + [F] * 6
+                            + [P] * 2,
 }
 RESTYPES = {"wh_act_smem_bytes": L, "wh_error_string": ctypes.c_char_p,
             "wh_sgd_smem_bytes": L, "wh_sgd_workspace_floats": L,
-            "wh_vtrace_workspace_floats": L}
+            "wh_vtrace_workspace_floats": L, "wh_rnn_param_floats": L,
+            "wh_act_rnn_smem_bytes": L, "wh_rnn_sgd_smem_bytes": L,
+            "wh_rnn_sgd_workspace_floats": L}
 
 
 def nvcc_path() -> str:

@@ -30,16 +30,14 @@
 
 #include <cuda_runtime.h>
 
+#include "act_common.cuh"
 #include "env_tick.cuh"
 
 namespace {
 
 constexpr int NT = 256;    // threads per CTA
 constexpr int RT = 16;     // rows per register tile in the dense layers
-constexpr int NHEAD = 6;   // 5 logits + value
-constexpr int HSTRIDE = 8; // row stride of the head outputs
 constexpr int MAXL = 4;    // hidden layers
-constexpr float NEG_INF = -1e9f;  // logits floor of masked actions
 
 // Envs per CTA: NE * A rows, a multiple of RT, at most 64.
 template <int A>
@@ -69,99 +67,6 @@ struct ActArgs {
   float* logits;    // [T, B, A, 5] pre-mask logits, or null: not written
   unsigned char* mask;  // [T, B, A, 5] valid moves, or null: no masking
 };
-
-// Whether action a keeps an agent at (r, c) on the grid and off the walls
-// (the static part of docs/SEMANTICS.md §4.1 rule 1).
-__device__ bool valid_move(int r, int c, int a, const wh::Geometry& g) {
-  r += a == wh::UP ? -1 : (a == wh::DOWN ? 1 : 0);
-  c += a == wh::LEFT ? -1 : (a == wh::RIGHT ? 1 : 0);
-  return r >= 0 && r < g.H && c >= 0 && c < g.W && !g.walls[r * g.W + c];
-}
-
-template <int A, int R>
-struct EnvSmem {
-  static constexpr int SIZE = 4 * A + 6 * R;
-  static __device__ void put(const wh::Env<A, R>& e, int* s) {
-#pragma unroll
-    for (int i = 0; i < A; ++i) {
-      s[i] = e.pr[i];
-      s[A + i] = e.pc[i];
-      s[2 * A + i] = e.aq[i];
-      s[3 * A + i] = e.cy[i];
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      s[4 * A + r] = e.qpr[r];
-      s[4 * A + R + r] = e.qpc[r];
-      s[4 * A + 2 * R + r] = e.qdr[r];
-      s[4 * A + 3 * R + r] = e.qdc[r];
-      s[4 * A + 4 * R + r] = e.qst[r];
-      s[4 * A + 5 * R + r] = e.qag[r];
-    }
-  }
-  static __device__ void get(const int* s, wh::Env<A, R>& e) {
-#pragma unroll
-    for (int i = 0; i < A; ++i) {
-      e.pr[i] = s[i];
-      e.pc[i] = s[A + i];
-      e.aq[i] = s[2 * A + i];
-      e.cy[i] = s[3 * A + i];
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      e.qpr[r] = s[4 * A + r];
-      e.qpc[r] = s[4 * A + R + r];
-      e.qdr[r] = s[4 * A + 2 * R + r];
-      e.qdc[r] = s[4 * A + 3 * R + r];
-      e.qst[r] = s[4 * A + 4 * R + r];
-      e.qag[r] = s[4 * A + 5 * R + r];
-    }
-  }
-};
-
-// Feature f of agent a's ego-window observation (ops/obs.py): S*S cells
-// x 4 channels, channel-last, then the 6 self features.
-template <int A, int R>
-__device__ float obs_value(const int* s, int a, int f, const ActArgs& p) {
-  const int *pr = s, *pc = s + A, *aq = s + 2 * A, *cy = s + 3 * A;
-  const int *qpr = s + 4 * A, *qpc = qpr + R, *qdr = qpc + R,
-            *qdc = qdr + R, *qst = qdc + R;
-  const int my = aq[a];
-  const bool has = my >= 0;
-  int tr = pr[a], tc = pc[a];
-  if (has) {
-    tr = cy[a] ? qdr[my] : qpr[my];
-    tc = cy[a] ? qdc[my] : qpc[my];
-  }
-  const int grid = p.S * p.S * 4;
-  if (f < grid) {
-    const int w = f >> 2, ch = f & 3;
-    const int wr = pr[a] + w / p.S - p.k, wc = pc[a] + w % p.S - p.k;
-    bool v = false;
-    if (ch == 0) {
-#pragma unroll
-      for (int j = 0; j < A; ++j) v |= pr[j] == wr && pc[j] == wc;
-    } else if (ch == 1) {
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        v |= qst[r] == wh::PENDING && qpr[r] == wr && qpc[r] == wc;
-    } else if (ch == 2) {
-      v = has && tr == wr && tc == wc;
-    } else {
-      v = wr >= 0 && wr < p.geo.H && wc >= 0 && wc < p.geo.W &&
-          !p.geo.walls[wr * p.geo.W + wc];
-    }
-    return v ? 1.f : 0.f;
-  }
-  switch (f - grid) {
-    case 0: return __fmul_rn((float)pr[a], p.inv_h);
-    case 1: return __fmul_rn((float)pc[a], p.inv_w);
-    case 2: return cy[a] ? 1.f : 0.f;
-    case 3: return has ? 1.f : 0.f;
-    case 4: return __fmul_rn((float)(has ? tr - pr[a] : 0), p.inv_h);
-    default: return __fmul_rn((float)(has ? tc - pc[a] : 0), p.inv_w);
-  }
-}
 
 // y[n][j] = act(sum_k x[n][k] * W[k][j] + b[j]) for the CTA's ROWS rows.
 template <int ROWS>
@@ -247,77 +152,15 @@ __global__ void __launch_bounds__(NT) act_kernel(ActArgs p) {
 
     // 3. With masking, floor the invalid moves' logits; then sample
     // argmax(logits + gumbel), first max; stable log-softmax.
-    if (tid < ROWS) {
-      const int n = tid;
-      const bool live = n / A < ne;
-      const long o = tb * A + n;
-      const float* h = head + n * HSTRIDE;
-      float lg[5];
-#pragma unroll
-      for (int r = 0; r < 5; ++r) lg[r] = h[r];
-      if (p.mask) {
-        const int* s = env_s + (n / A) * ES::SIZE;
-#pragma unroll
-        for (int r = 0; r < 5; ++r) {
-          const bool ok = valid_move(s[n % A], s[A + n % A], r, p.geo);
-          if (!ok) lg[r] = NEG_INF;
-          if (live) p.mask[o * 5 + r] = ok;
-        }
-      }
-      float best = 0.f;
-      int best_a = 0;
-#pragma unroll
-      for (int r = 0; r < 5; ++r) {
-        const float g =
-            live ? p.gumbel[((long)t * 5 + r) * BA + b0 * A + n] : 0.f;
-        const float z = lg[r] + g;
-        if (r == 0 || z > best) {
-          best = z;
-          best_a = r;
-        }
-      }
-      float mx = lg[0];
-#pragma unroll
-      for (int r = 1; r < 5; ++r) mx = fmaxf(mx, lg[r]);
-      float ssum = 0.f;
-#pragma unroll
-      for (int r = 0; r < 5; ++r) ssum += expf(lg[r] - mx);
-      const float lp = (lg[best_a] - mx) - logf(ssum);
-      act_s[n] = best_a;
-      if (live) {
-        p.action[o] = best_a;
-        p.log_prob[o] = lp;
-        p.value[o] = h[5];
-        if (p.logits)
-          for (int r = 0; r < 5; ++r) p.logits[o * 5 + r] = h[r];
-      }
-    }
+    if (tid < ROWS)
+      act_s[tid] = sample_row<A>(p, head + tid * HSTRIDE,
+                                 env_s + (tid / A) * ES::SIZE, tid,
+                                 tid / A < ne, t, b0);
     __syncthreads();
 
     // 4. Env tick and rewards, one thread per env.
-    if (tid < ne) {
-      wh::Env<A, R> e;
-      ES::get(env_s + tid * ES::SIZE, e);
-      int act[A];
-#pragma unroll
-      for (int i = 0; i < A; ++i) act[i] = act_s[tid * A + i];
-      const long kt = tb + tid;
-      bool pk[A], dl[A], cl[A];
-      wh::env_tick(e, act, p.u[kt], p.pick[kt], p.drop[kt], p.geo, pk, dl,
-                   cl);
-      int nd = 0;
-#pragma unroll
-      for (int i = 0; i < A; ++i) {
-        float rew = __fadd_rn(p.step_penalty,
-                              __fmul_rn(p.pickup_reward, pk[i] ? 1.f : 0.f));
-        rew = __fadd_rn(rew, __fmul_rn(p.delivery_reward, dl[i] ? 1.f : 0.f));
-        rew = __fadd_rn(rew, __fmul_rn(p.collision_penalty, cl[i] ? 1.f : 0.f));
-        p.reward[kt * A + i] = rew;
-        nd += dl[i];
-      }
-      p.delivered[kt] = nd;
-      ES::put(e, env_s + tid * ES::SIZE);
-    }
+    if (tid < ne)
+      tick_env<A, R>(p, env_s + tid * ES::SIZE, act_s + tid * A, tb + tid);
     __syncthreads();
   }
 

@@ -1,0 +1,196 @@
+// Device code shared by the acting kernels: K2 (act.cu, the MLP policy) and
+// K7 (act_rnn.cu, the recurrent policy). Each is templated on the kernel's
+// argument struct P, which provides the fields it reads:
+//
+// - obs_value: geo, S, k, inv_h, inv_w (the ego-window observation);
+// - sample_row: B, geo, gumbel, mask, action, log_prob, value, logits (the
+//   optional logits floor of masked moves, the gumbel-argmax sample with the
+//   first-max tie rule and the stable log-softmax, pallas/act.py
+//   _sample_logprob :491 and :415-428);
+// - tick_env: geo, u, pick, drop, the four reward coefficients, reward,
+//   delivered (the env tick and the per-agent rewards).
+//
+// EnvSmem keeps one env's state as 4 A + 6 R ints of shared memory.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "env_tick.cuh"
+
+namespace {
+
+constexpr int NHEAD = 6;    // 5 logits + value
+constexpr int HSTRIDE = 8;  // row stride of the head outputs
+constexpr float NEG_INF = -1e9f;  // logits floor of masked actions
+
+// Whether action a keeps an agent at (r, c) on the grid and off the walls
+// (the static part of docs/SEMANTICS.md §4.1 rule 1).
+__device__ inline bool valid_move(int r, int c, int a,
+                                  const wh::Geometry& g) {
+  r += a == wh::UP ? -1 : (a == wh::DOWN ? 1 : 0);
+  c += a == wh::LEFT ? -1 : (a == wh::RIGHT ? 1 : 0);
+  return r >= 0 && r < g.H && c >= 0 && c < g.W && !g.walls[r * g.W + c];
+}
+
+template <int A, int R>
+struct EnvSmem {
+  static constexpr int SIZE = 4 * A + 6 * R;
+  static __device__ void put(const wh::Env<A, R>& e, int* s) {
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+      s[i] = e.pr[i];
+      s[A + i] = e.pc[i];
+      s[2 * A + i] = e.aq[i];
+      s[3 * A + i] = e.cy[i];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      s[4 * A + r] = e.qpr[r];
+      s[4 * A + R + r] = e.qpc[r];
+      s[4 * A + 2 * R + r] = e.qdr[r];
+      s[4 * A + 3 * R + r] = e.qdc[r];
+      s[4 * A + 4 * R + r] = e.qst[r];
+      s[4 * A + 5 * R + r] = e.qag[r];
+    }
+  }
+  static __device__ void get(const int* s, wh::Env<A, R>& e) {
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+      e.pr[i] = s[i];
+      e.pc[i] = s[A + i];
+      e.aq[i] = s[2 * A + i];
+      e.cy[i] = s[3 * A + i];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      e.qpr[r] = s[4 * A + r];
+      e.qpc[r] = s[4 * A + R + r];
+      e.qdr[r] = s[4 * A + 2 * R + r];
+      e.qdc[r] = s[4 * A + 3 * R + r];
+      e.qst[r] = s[4 * A + 4 * R + r];
+      e.qag[r] = s[4 * A + 5 * R + r];
+    }
+  }
+};
+
+// Feature f of agent a's ego-window observation (ops/obs.py): S*S cells
+// x 4 channels, channel-last, then the 6 self features.
+template <int A, int R, class P>
+__device__ float obs_value(const int* s, int a, int f, const P& p) {
+  const int *pr = s, *pc = s + A, *aq = s + 2 * A, *cy = s + 3 * A;
+  const int *qpr = s + 4 * A, *qpc = qpr + R, *qdr = qpc + R,
+            *qdc = qdr + R, *qst = qdc + R;
+  const int my = aq[a];
+  const bool has = my >= 0;
+  int tr = pr[a], tc = pc[a];
+  if (has) {
+    tr = cy[a] ? qdr[my] : qpr[my];
+    tc = cy[a] ? qdc[my] : qpc[my];
+  }
+  const int grid = p.S * p.S * 4;
+  if (f < grid) {
+    const int w = f >> 2, ch = f & 3;
+    const int wr = pr[a] + w / p.S - p.k, wc = pc[a] + w % p.S - p.k;
+    bool v = false;
+    if (ch == 0) {
+#pragma unroll
+      for (int j = 0; j < A; ++j) v |= pr[j] == wr && pc[j] == wc;
+    } else if (ch == 1) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        v |= qst[r] == wh::PENDING && qpr[r] == wr && qpc[r] == wc;
+    } else if (ch == 2) {
+      v = has && tr == wr && tc == wc;
+    } else {
+      v = wr >= 0 && wr < p.geo.H && wc >= 0 && wc < p.geo.W &&
+          !p.geo.walls[wr * p.geo.W + wc];
+    }
+    return v ? 1.f : 0.f;
+  }
+  switch (f - grid) {
+    case 0: return __fmul_rn((float)pr[a], p.inv_h);
+    case 1: return __fmul_rn((float)pc[a], p.inv_w);
+    case 2: return cy[a] ? 1.f : 0.f;
+    case 3: return has ? 1.f : 0.f;
+    case 4: return __fmul_rn((float)(has ? tr - pr[a] : 0), p.inv_h);
+    default: return __fmul_rn((float)(has ? tc - pc[a] : 0), p.inv_w);
+  }
+}
+
+// Row n = (env n / A, agent n % A) of the CTA whose first env is b0, at
+// step t: with masking floors the invalid moves' logits (and writes the
+// mask); samples argmax(logits + gumbel), first max; takes the stable
+// log-softmax of the chosen action. `h` holds the row's 6 head outputs,
+// `s` its env's EnvSmem. Rows past the batch end (`live` false) compute
+// on zero noise and store nothing. Returns the action.
+template <int A, class P>
+__device__ int sample_row(const P& p, const float* h, const int* s, int n,
+                          bool live, int t, long b0) {
+  const long BA = p.B * A;
+  const long o = ((long)t * p.B + b0) * A + n;
+  float lg[5];
+#pragma unroll
+  for (int r = 0; r < 5; ++r) lg[r] = h[r];
+  if (p.mask) {
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      const bool ok = valid_move(s[n % A], s[A + n % A], r, p.geo);
+      if (!ok) lg[r] = NEG_INF;
+      if (live) p.mask[o * 5 + r] = ok;
+    }
+  }
+  float best = 0.f;
+  int best_a = 0;
+#pragma unroll
+  for (int r = 0; r < 5; ++r) {
+    const float g =
+        live ? p.gumbel[((long)t * 5 + r) * BA + b0 * A + n] : 0.f;
+    const float z = lg[r] + g;
+    if (r == 0 || z > best) {
+      best = z;
+      best_a = r;
+    }
+  }
+  float mx = lg[0];
+#pragma unroll
+  for (int r = 1; r < 5; ++r) mx = fmaxf(mx, lg[r]);
+  float ssum = 0.f;
+#pragma unroll
+  for (int r = 0; r < 5; ++r) ssum += expf(lg[r] - mx);
+  const float lp = (lg[best_a] - mx) - logf(ssum);
+  if (live) {
+    p.action[o] = best_a;
+    p.log_prob[o] = lp;
+    p.value[o] = h[5];
+    if (p.logits)
+      for (int r = 0; r < 5; ++r) p.logits[o * 5 + r] = h[r];
+  }
+  return best_a;
+}
+
+// One env's tick on the actions act[0..A) and the draws of (t, b) = kt,
+// then its per-agent rewards and delivery count; `s` is its EnvSmem.
+template <int A, int R, class P>
+__device__ void tick_env(const P& p, int* s, const int* act_s, long kt) {
+  wh::Env<A, R> e;
+  EnvSmem<A, R>::get(s, e);
+  int act[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i) act[i] = act_s[i];
+  bool pk[A], dl[A], cl[A];
+  wh::env_tick(e, act, p.u[kt], p.pick[kt], p.drop[kt], p.geo, pk, dl, cl);
+  int nd = 0;
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    float rew = __fadd_rn(p.step_penalty,
+                          __fmul_rn(p.pickup_reward, pk[i] ? 1.f : 0.f));
+    rew = __fadd_rn(rew, __fmul_rn(p.delivery_reward, dl[i] ? 1.f : 0.f));
+    rew = __fadd_rn(rew, __fmul_rn(p.collision_penalty, cl[i] ? 1.f : 0.f));
+    p.reward[kt * A + i] = rew;
+    nd += dl[i];
+  }
+  p.delivered[kt] = nd;
+  EnvSmem<A, R>::put(e, s);
+}
+
+}  // namespace

@@ -1,5 +1,7 @@
 // The MLP learner's building blocks, shared by the PPO learner kernels
-// (K3/K4, sgd.cu) and the IMPALA learner kernels (K5/K6, vtrace_sgd.cu).
+// (K3/K4, sgd.cu), the IMPALA learner kernels (K5/K6, vtrace_sgd.cu) and,
+// for the loss and the gradient tail, the recurrent PPO learner (K8/K9,
+// sgd_rnn.cu).
 //
 // - The packed parameter layout: per dense layer W [out, in] then b [out]
 //   (torch's layout), the head as the 6 x H stack of 5 logits and the
@@ -8,6 +10,9 @@
 //   input column) both read it without bank conflicts.
 // - fwd_layer / bwd_layer: one dense layer over a tile of R sample rows in
 //   shared memory, a thread owning one column for RT rows.
+// - loss_row: the clipped-PPO loss chain of one sample and its derivative
+//   with respect to the head outputs, shared by the PPO learner (sgd.cu)
+//   and the recurrent PPO learner (sgd_rnn.cu).
 // - Kernels that read activations and deltas only: wgrad_kernel (dW =
 //   delta^T prev and db = sum(delta) as split-K products, one partial per
 //   sample range, no atomics), reduce_kernel (the partials summed in split
@@ -35,6 +40,7 @@ constexpr int WT = 64;        // output tile side of wgrad_kernel
 constexpr int NC = 32;        // samples per shared-memory stage of wgrad
 constexpr int WNT = 256;      // threads of wgrad_kernel
 constexpr int MAXS = 64;      // sample splits of wgrad_kernel
+constexpr int MAXW = 8;       // weight-gradient products per launch
 constexpr int RED = 256;      // threads of reduce_kernel
 constexpr int FNT = 1024;     // threads of the optimizer kernels
 constexpr float NEG_INF = -1e9f;
@@ -112,6 +118,16 @@ bool make_rows(int n_hidden, const int* dims, int T, long B, int A, int M,
   rows->obs = obs;
   return true;
 }
+
+struct Batch : Rows {  // one minibatch of the trajectory
+  const int* action;
+  const float *old_lp, *old_v, *adv, *target;  // [T, B, A]
+  const unsigned char* mask;                   // [T, B, A, 5] or null
+};
+
+struct Coefs {
+  float clip_eps, clip_lo, clip_hi, value_coef, inv_n;
+};
 
 struct Scratch {
   float* act[MAXL];  // [N, H_l] hidden activations
@@ -283,18 +299,78 @@ __device__ void bwd_tile(const Net& net, const float* smem,
   }
 }
 
+// ---- the PPO loss of one sample ------------------------------------------------
+
+// The clipped-PPO loss chain of one sample and d(mean loss)/d(head
+// output), in the order of _loss_and_dout (pallas/sgd.py:68-155). `o` holds the
+// head outputs and receives the deltas; `met` the four metric terms.
+__device__ void loss_row(float* o, long gi, const Batch& bt, const Coefs& c,
+                         float ent_coef, float kl_coeff, float* met) {
+  bool valid[NACT];
+  float logit[NACT];
+#pragma unroll
+  for (int r = 0; r < NACT; ++r) {
+    valid[r] = !bt.mask || bt.mask[gi * NACT + r];
+    logit[r] = valid[r] ? o[r] : NEG_INF;
+  }
+  const float v = o[NACT];
+  float mx = logit[0];
+#pragma unroll
+  for (int r = 1; r < NACT; ++r) mx = fmaxf(mx, logit[r]);
+  float ssum = 0.f;
+#pragma unroll
+  for (int r = 0; r < NACT; ++r) ssum += expf(logit[r] - mx);
+  const float lse = mx + logf(ssum);
+  const int a = bt.action[gi];
+  float logp[NACT], p[NACT], lp = 0.f, ent = 0.f;
+#pragma unroll
+  for (int r = 0; r < NACT; ++r) {
+    logp[r] = logit[r] - lse;
+    p[r] = expf(logp[r]);
+    if (a == r) lp = logp[r];
+    ent = ent - p[r] * logp[r];
+  }
+  const float old_lp = bt.old_lp[gi], old_v = bt.old_v[gi];
+  const float adv = bt.adv[gi], tgt = bt.target[gi];
+
+  const float ratio = expf(lp - old_lp);
+  const float r_clip = fminf(fmaxf(ratio, c.clip_lo), c.clip_hi);
+  const float pg1 = ratio * adv, pg2 = r_clip * adv;
+  const float v_err = v - tgt, dv = v - old_v;
+  const float vc_err = (old_v + fminf(fmaxf(dv, -c.clip_eps), c.clip_eps)) - tgt;
+  const float sq1 = v_err * v_err, sq2 = vc_err * vc_err;
+  met[0] = fminf(pg1, pg2);
+  met[1] = fmaxf(sq1, sq2);
+  met[2] = ent;
+  met[3] = old_lp - lp;
+
+  const bool inclip = ratio >= c.clip_lo && ratio <= c.clip_hi;
+  const float sel = (pg1 <= pg2 || inclip) ? 1.f : 0.f;
+  const float d_lp = -(adv * ratio * sel + kl_coeff) * c.inv_n;
+  const float ent_scale = ent_coef * c.inv_n;
+#pragma unroll
+  for (int r = 0; r < NACT; ++r) {
+    const float d = d_lp * ((a == r ? 1.f : 0.f) - p[r]) +
+                    ent_scale * p[r] * (logp[r] + ent);
+    o[r] = valid[r] ? d : 0.f;
+  }
+  const bool invc = dv >= -c.clip_eps && dv <= c.clip_eps;
+  const float err = sq1 >= sq2 ? v_err : (invc ? vc_err : 0.f);
+  o[NACT] = c.value_coef * c.inv_n * err;
+}
+
 // ---- weight gradients as split-K products -----------------------------------
 
 struct WTask {
   const float* prev;   // [N, in] activations, or null: the obs rows
   const float* delta;  // [N, ds]
   int ds, in, out;
-  long w_off, b_off;
+  long w_off, b_off;  // b_off < 0: the layer has no bias
   int i_tiles, tile0;
 };
 
 struct WArgs {
-  WTask t[MAXL + 1];
+  WTask t[MAXW];
   int n_layers;
   Rows bt;
   long chunk, n_params;
@@ -309,7 +385,7 @@ __global__ void __launch_bounds__(WNT) wgrad_kernel(WArgs p) {
   const WTask& w = p.t[l];
   const int tile = blockIdx.x - w.tile0;
   const int o0 = tile / w.i_tiles * WT, i0 = tile % w.i_tiles * WT;
-  const bool bias = i0 == 0;
+  const bool bias = i0 == 0 && w.b_off >= 0;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const long q0 = blockIdx.y * p.chunk;
   const long q1 = q0 + p.chunk < p.bt.N ? q0 + p.chunk : p.bt.N;

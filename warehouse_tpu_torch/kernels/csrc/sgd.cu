@@ -30,8 +30,9 @@
 // in an order fixed by the shapes alone, so two runs on the same inputs
 // give the same bits. The weights and one CTA's gradient partials do not
 // fit one SM's shared memory together, hence the split into (a) and (b).
-// (b)-(d), the dense layers of (a) and adam_kernel are in mlp_learner.cuh,
-// which the IMPALA learner (vtrace_sgd.cu) shares.
+// (b)-(d), the dense layers of (a), the loss chain (loss_row) and
+// adam_kernel are in mlp_learner.cuh, which the IMPALA learner
+// (vtrace_sgd.cu) and the recurrent PPO learner (sgd_rnn.cu) share.
 //
 // The bound: at config 4 a step is ~6.3 GFLOP in (a) and ~4 GFLOP in (b)
 // on the CUDA cores in f32. (a) is limited by shared-memory loads: a
@@ -53,16 +54,6 @@
 
 namespace {
 
-struct Batch : Rows {  // one minibatch of the trajectory
-  const int* action;
-  const float *old_lp, *old_v, *adv, *target;  // [T, B, A]
-  const unsigned char* mask;                   // [T, B, A, 5] or null
-};
-
-struct Coefs {
-  float clip_eps, clip_lo, clip_hi, value_coef, inv_n;
-};
-
 // ---- (a) forward, loss, backward -------------------------------------------
 
 struct FwdArgs {
@@ -73,64 +64,6 @@ struct FwdArgs {
   const float* params;
   const float* scal;  // ent_coef, kl_coeff
 };
-
-// The clipped-PPO loss chain of one sample and d(mean loss)/d(head
-// output), in the order of _loss_and_dout (sgd.py:68-155). `o` holds the
-// head outputs and receives the deltas; `met` the four metric terms.
-__device__ void loss_row(float* o, long gi, const Batch& bt, const Coefs& c,
-                         float ent_coef, float kl_coeff, float* met) {
-  bool valid[NACT];
-  float logit[NACT];
-#pragma unroll
-  for (int r = 0; r < NACT; ++r) {
-    valid[r] = !bt.mask || bt.mask[gi * NACT + r];
-    logit[r] = valid[r] ? o[r] : NEG_INF;
-  }
-  const float v = o[NACT];
-  float mx = logit[0];
-#pragma unroll
-  for (int r = 1; r < NACT; ++r) mx = fmaxf(mx, logit[r]);
-  float ssum = 0.f;
-#pragma unroll
-  for (int r = 0; r < NACT; ++r) ssum += expf(logit[r] - mx);
-  const float lse = mx + logf(ssum);
-  const int a = bt.action[gi];
-  float logp[NACT], p[NACT], lp = 0.f, ent = 0.f;
-#pragma unroll
-  for (int r = 0; r < NACT; ++r) {
-    logp[r] = logit[r] - lse;
-    p[r] = expf(logp[r]);
-    if (a == r) lp = logp[r];
-    ent = ent - p[r] * logp[r];
-  }
-  const float old_lp = bt.old_lp[gi], old_v = bt.old_v[gi];
-  const float adv = bt.adv[gi], tgt = bt.target[gi];
-
-  const float ratio = expf(lp - old_lp);
-  const float r_clip = fminf(fmaxf(ratio, c.clip_lo), c.clip_hi);
-  const float pg1 = ratio * adv, pg2 = r_clip * adv;
-  const float v_err = v - tgt, dv = v - old_v;
-  const float vc_err = (old_v + fminf(fmaxf(dv, -c.clip_eps), c.clip_eps)) - tgt;
-  const float sq1 = v_err * v_err, sq2 = vc_err * vc_err;
-  met[0] = fminf(pg1, pg2);
-  met[1] = fmaxf(sq1, sq2);
-  met[2] = ent;
-  met[3] = old_lp - lp;
-
-  const bool inclip = ratio >= c.clip_lo && ratio <= c.clip_hi;
-  const float sel = (pg1 <= pg2 || inclip) ? 1.f : 0.f;
-  const float d_lp = -(adv * ratio * sel + kl_coeff) * c.inv_n;
-  const float ent_scale = ent_coef * c.inv_n;
-#pragma unroll
-  for (int r = 0; r < NACT; ++r) {
-    const float d = d_lp * ((a == r ? 1.f : 0.f) - p[r]) +
-                    ent_scale * p[r] * (logp[r] + ent);
-    o[r] = valid[r] ? d : 0.f;
-  }
-  const bool invc = dv >= -c.clip_eps && dv <= c.clip_eps;
-  const float err = sq1 >= sq2 ? v_err : (invc ? vc_err : 0.f);
-  o[NACT] = c.value_coef * c.inv_n * err;
-}
 
 __global__ void __launch_bounds__(NT) fwd_bwd_kernel(FwdArgs p) {
   extern __shared__ float smem[];

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from warehouse_tpu.config import EnvConfig
+from ..config import EnvConfig
 
 from .. import rng as _rng
 from ..baselines.greedy import greedy_actions
@@ -23,7 +23,7 @@ from ..env.state import EnvState
 from . import build
 
 # (num_agents, queue_capacity) the CUDA kernels are instantiated for: the
-# four presets of warehouse_tpu.config.
+# four presets of config.py.
 KERNEL_SHAPES = ((2, 4), (4, 8), (6, 12), (8, 16))
 STATE_INT_FIELDS = ("agent_pos", "agent_req", "carrying", "req_pickup",
                     "req_drop", "req_status", "req_agent")

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from warehouse_tpu.config import ADAM_B1, ADAM_B2, ADAM_EPS
+from ..config import ADAM_B1, ADAM_B2, ADAM_EPS
 
 from ..models.policy import apply, num_hidden
 from ..ops.ppo_update import NEG_INF, minibatch_epochs, ppo_losses

@@ -1,0 +1,251 @@
+"""K8/K9: the recurrent PPO learner's SGD phase and per-minibatch
+sequence-replay gradients, and their plain twins.
+
+Counterparts of ``warehouse_tpu/pallas/sgd_rnn.py``
+``ppo_rnn_sgd_phase_pallas`` (:551) and ``ppo_rnn_minibatch_grads_pallas``
+(:665). A minibatch is env columns ``[m B/M, (m+1) B/M)`` of the
+trajectory: ``B/M * A`` sequences of T steps, replayed through the
+recurrent policy from the rollout-start carry ``h0`` with no carry reset
+inside the chunk (the trainer only lets an episode end on a chunk's last
+step), then the clipped-PPO loss over all their samples.
+``ppo_rnn_sgd_phase`` runs ``num_epochs x num_minibatches`` optimizer
+steps (loss, truncated-BPTT gradient, optax clip + Adam);
+``ppo_rnn_minibatch_grads`` one minibatch's loss and gradient. On a CUDA
+tensor the kernels of ``csrc/sgd_rnn.cu`` run; on a CPU tensor the plain
+twins: autograd through a Python loop over T of ``models.policy.apply_rnn``,
+``ops.ppo_update.ppo_losses`` and ``optim.py``.
+
+Inputs as ``kernels/sgd.py``'s, with ``params`` keyed like
+``ActorCriticRNN.state_dict`` and ``h0`` the carry the rollout started from
+(already env-permuted): ``float32[B, A, H]``, or the LSTM's ``(c, h)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import ADAM_B1, ADAM_B2, ADAM_EPS
+from ..models.policy import apply_rnn
+from ..ops.ppo_update import NEG_INF, minibatch_epochs, ppo_losses
+from ..optim import AdamState, clip_adam_step
+from . import build
+from .act_rnn import pack_rnn, rnn_dims, split_carry, unpack_rnn
+from .sgd import N_ACT, _device_of, _f32, _losses, env_minibatches
+
+
+def _carry_slice(h0, lo: int, hi: int):
+    if isinstance(h0, tuple):
+        return tuple(x[lo:hi] for x in h0)
+    return h0[lo:hi]
+
+
+def seq_minibatches(traj, adv_n, targets, h0, num_minibatches: int):
+    """The M sequence minibatches ``((obs, action, old_lp, old_v, adv,
+    target, mask), h_init)``: env-column slices of the ``[T, B, A, ...]``
+    fields and of the carry."""
+    w = traj.obs.shape[1] // num_minibatches
+    return [(mb, _carry_slice(h0, m * w, (m + 1) * w))
+            for m, mb in enumerate(env_minibatches(traj, adv_n, targets,
+                                                   num_minibatches))]
+
+
+def _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff, mask_actions):
+    def loss_fn(params, mb):
+        (obs, action, old_lp, old_v, adv, tgt, mask), carry = mb
+        logits, values = [], []
+        for t in range(obs.shape[0]):
+            lg, v, carry = apply_rnn(params, obs[t], carry)
+            logits.append(lg)
+            values.append(v)
+        logits, value = torch.stack(logits), torch.stack(values)
+        if mask_actions:
+            logits = torch.where(mask, logits, NEG_INF)
+        return ppo_losses(logits, value, action, old_lp, old_v, adv, tgt,
+                          clip_eps=clip_eps, value_coef=value_coef,
+                          ent_coef=ent_coef, kl_coeff=kl_coeff,
+                          normalize_adv=False)
+    return loss_fn
+
+
+def ppo_rnn_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
+                                targets, h0, lr_row, bc1_row, bc2_row,
+                                ent_coef, kl_coeff, *, num_epochs: int,
+                                num_minibatches: int, clip_eps: float,
+                                value_coef: float, max_grad_norm: float,
+                                mask_actions: bool):
+    """The plain twin of ``ppo_rnn_sgd_phase``, on any device."""
+    count0 = opt_state.count
+
+    def update_fn(grads, state):
+        s = state.count - count0
+        return clip_adam_step(grads, state, lr_row[s], bc1_row[s],
+                              bc2_row[s], max_grad_norm)
+
+    return minibatch_epochs(
+        params, opt_state,
+        loss_fn=_loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
+                         mask_actions),
+        minibatches=seq_minibatches(traj, adv_n, targets, h0,
+                                    num_minibatches),
+        num_epochs=num_epochs, update_fn=update_fn)
+
+
+def ppo_rnn_minibatch_grads_reference(params, traj, adv_n, targets, h0,
+                                      mb_idx: int, ent_coef, kl_coeff, *,
+                                      num_minibatches: int, clip_eps: float,
+                                      value_coef: float, mask_actions: bool):
+    """The plain twin of ``ppo_rnn_minibatch_grads``: autograd through the
+    T-step replay of one minibatch."""
+    mb = seq_minibatches(traj, adv_n, targets, h0, num_minibatches)[mb_idx]
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    total, aux = _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
+                          mask_actions)(leaves, mb)
+    grads = torch.autograd.grad(total, list(leaves.values()))
+    return ((total.detach(), tuple(a.detach() for a in aux)),
+            dict(zip(leaves, grads)))
+
+
+# ---- the kernels ------------------------------------------------------------
+
+class _Launch:
+    """One trajectory's inputs checked and laid out for the C entry points
+    (``csrc/sgd_rnn.cu``), with the scratch both share."""
+
+    def __init__(self, params, traj, adv_n, targets, h0, ent_coef, kl_coeff,
+                 num_minibatches, clip_eps, value_coef, mask_actions):
+        dev = traj.obs.device
+        T, B, A, D = traj.obs.shape
+        M = num_minibatches
+        if B % M:
+            raise ValueError(f"B={B} not divisible by {M} minibatches")
+        dims, H, lstm = rnn_dims(params, D)
+        self.obs = traj.obs.to(torch.float32).contiguous()
+        self.fields = [traj.action.to(torch.int32).contiguous()] + [
+            x.to(torch.float32).contiguous()
+            for x in (traj.log_prob, traj.value, adv_n, targets)]
+        if any(f.shape != (T, B, A) for f in self.fields):
+            raise ValueError("trajectory fields must be [T, B, A]")
+        self.mask = None
+        if mask_actions:
+            self.mask = traj.mask.to(torch.uint8).contiguous()
+            if self.mask.shape != (T, B, A, N_ACT):
+                raise ValueError("mask must be [T, B, A, 5]")
+        self.h0, self.c0 = split_carry(h0, lstm)
+        if any(x is not None and (x.shape != (B, A, H) or x.device != dev)
+               for x in (self.h0, self.c0)):
+            raise ValueError(f"h0 must be [B, A, H] = {(B, A, H)} on {dev}")
+        self.lib = lib = build.library()
+        dims_arr = build.int_array(dims)
+        net = (len(dims) - 1, dims_arr, H, int(lstm))
+        self.shape = (*net, T, B, A, M)
+        smem = lib.wh_rnn_sgd_smem_bytes(*net)
+        limit = getattr(torch.cuda.get_device_properties(dev),
+                        "shared_memory_per_block_optin", smem)
+        if not 0 < smem <= limit:
+            raise ValueError(
+                f"recurrent SGD kernels need {smem} bytes of shared memory "
+                f"per block for widths {dims}, {H}; the card allows {limit}")
+        self.n_params = lib.wh_rnn_param_floats(*net)
+        self.work = torch.empty(lib.wh_rnn_sgd_workspace_floats(*self.shape),
+                                dtype=torch.float32, device=dev)
+        self.scal = torch.stack([_f32(ent_coef, dev), _f32(kl_coeff, dev)])
+        self.mb_n = T * (B // M) * A
+        self.coefs = (clip_eps, 1.0 - clip_eps, 1.0 + clip_eps, value_coef,
+                      1.0 / self.mb_n)
+        self.stream = build.stream_handle(dev)
+
+    def grads(self, p_flat, mb: int, grads, sums) -> None:
+        """K9's kernels: minibatch ``mb``'s gradient into ``grads``, its
+        metric sums into ``sums [4]``."""
+        if p_flat.numel() != self.n_params:
+            raise ValueError("packed params do not fit the kernel's layout")
+        err = self.lib.wh_rnn_sgd_grads(
+            *self.shape, mb, self.obs.data_ptr(),
+            *(f.data_ptr() for f in self.fields),
+            None if self.mask is None else self.mask.data_ptr(),
+            self.h0.data_ptr(),
+            None if self.c0 is None else self.c0.data_ptr(),
+            p_flat.data_ptr(), self.scal.data_ptr(), *self.coefs,
+            self.work.data_ptr(), grads.data_ptr(), sums.data_ptr(),
+            self.stream)
+        build.check(err, "ppo_rnn_minibatch_grads kernel launch")
+        ppo_rnn_minibatch_grads.launches += 1
+
+    def clip_adam(self, p_flat, m_flat, v_flat, grads, rows, step: int,
+                  max_grad_norm: float) -> None:
+        """K8's optimizer kernel after ``grads``: clip + Adam in place."""
+        err = self.lib.wh_rnn_sgd_clip_adam(
+            *self.shape, step, p_flat.data_ptr(), m_flat.data_ptr(),
+            v_flat.data_ptr(), grads.data_ptr(),
+            *(r.data_ptr() for r in rows), max_grad_norm, ADAM_B1,
+            1.0 - ADAM_B1, ADAM_B2, 1.0 - ADAM_B2, ADAM_EPS,
+            self.work.data_ptr(), self.stream)
+        build.check(err, "ppo_rnn_sgd_phase kernel launch")
+        ppo_rnn_sgd_phase.launches += 1
+
+
+def ppo_rnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets, h0,
+                      lr_row, bc1_row, bc2_row, ent_coef, kl_coeff, *,
+                      num_epochs: int, num_minibatches: int, clip_eps: float,
+                      value_coef: float, max_grad_norm: float,
+                      mask_actions: bool):
+    """The whole recurrent SGD phase: ``(params, opt_state, losses)`` with
+    ``losses`` the ``(total, pg, v, ent, kl)`` tuple of ``[E, M]`` tensors.
+    On CUDA tensors each step is K9's gradient kernels, then K8's clip +
+    Adam kernel on the packed params and moments; on CPU tensors the plain
+    twin runs. ``launches`` counts the optimizer kernel."""
+    kw = dict(num_epochs=num_epochs, num_minibatches=num_minibatches,
+              clip_eps=clip_eps, value_coef=value_coef,
+              max_grad_norm=max_grad_norm, mask_actions=mask_actions)
+    if _device_of(traj).type == "cpu":
+        return ppo_rnn_sgd_phase_reference(
+            params, opt_state, traj, adv_n, targets, h0, lr_row, bc1_row,
+            bc2_row, ent_coef, kl_coeff, **kw)
+    M, n_steps = num_minibatches, num_epochs * num_minibatches
+    run = _Launch(params, traj, adv_n, targets, h0, ent_coef, kl_coeff, M,
+                  clip_eps, value_coef, mask_actions)
+    p_flat, m_flat, v_flat = (pack_rnn(t) for t in (params, opt_state.mu,
+                                                    opt_state.nu))
+    rows = [r.to(device=p_flat.device, dtype=torch.float32).contiguous()
+            for r in (lr_row, bc1_row, bc2_row)]
+    grads = torch.empty_like(p_flat)
+    sums = torch.empty(n_steps, 4, dtype=torch.float32, device=p_flat.device)
+    for s in range(n_steps):
+        run.grads(p_flat, s % M, grads, sums[s])
+        run.clip_adam(p_flat, m_flat, v_flat, grads, rows, s, max_grad_norm)
+    losses = _losses(sums.reshape(num_epochs, M, 4), run.mb_n, value_coef,
+                     ent_coef, kl_coeff)
+    new_opt = AdamState(opt_state.count + n_steps, unpack_rnn(m_flat, params),
+                        unpack_rnn(v_flat, params))
+    return unpack_rnn(p_flat, params), new_opt, losses
+
+
+ppo_rnn_sgd_phase.launches = 0
+
+
+def ppo_rnn_minibatch_grads(params, traj, adv_n, targets, h0, mb_idx: int,
+                            ent_coef, kl_coeff, *, num_minibatches: int,
+                            clip_eps: float, value_coef: float,
+                            mask_actions: bool):
+    """One minibatch's sequence-replay loss and gradient: ``((total, (pg,
+    v, ent, kl)), grads)``. The kernels on CUDA tensors, the plain twin on
+    CPU ones. ``launches`` counts their launches, inside
+    ``ppo_rnn_sgd_phase`` too."""
+    if _device_of(traj).type == "cpu":
+        return ppo_rnn_minibatch_grads_reference(
+            params, traj, adv_n, targets, h0, mb_idx, ent_coef, kl_coeff,
+            num_minibatches=num_minibatches, clip_eps=clip_eps,
+            value_coef=value_coef, mask_actions=mask_actions)
+    if not 0 <= mb_idx < num_minibatches:
+        raise ValueError(f"mb_idx={mb_idx} out of range")
+    run = _Launch(params, traj, adv_n, targets, h0, ent_coef, kl_coeff,
+                  num_minibatches, clip_eps, value_coef, mask_actions)
+    p_flat = pack_rnn(params)
+    grads = torch.empty_like(p_flat)
+    sums = torch.empty(4, dtype=torch.float32, device=p_flat.device)
+    run.grads(p_flat, mb_idx, grads, sums)
+    total, *aux = _losses(sums, run.mb_n, value_coef, ent_coef, kl_coeff)
+    return (total, tuple(aux)), unpack_rnn(grads, params)
+
+
+ppo_rnn_minibatch_grads.launches = 0

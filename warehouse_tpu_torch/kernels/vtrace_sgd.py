@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from warehouse_tpu.config import ADAM_B1, ADAM_B2, ADAM_EPS
+from ..config import ADAM_B1, ADAM_B2, ADAM_EPS
 
 from ..models.policy import apply
 from ..ops.ppo_update import (NEG_INF, action_log_prob_entropy,

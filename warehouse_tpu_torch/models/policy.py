@@ -1,11 +1,24 @@
-"""Actor-critic MLP policy (counterpart of ``warehouse_tpu/models/policy.py``).
+"""Actor-critic policies (counterpart of ``warehouse_tpu/models/policy.py``).
 
-Only the feed-forward MLP arm is ported: a shared-parameter per-agent
-actor-critic applied to ``[..., obs_dim]`` observations. Initialisation
-follows the flax model — orthogonal kernels with gain √2 on the hidden
-layers, 0.01 on the logits head and 1.0 on the value head, zero biases —
-drawn from an explicit ``torch.Generator`` (the numbers differ from
-flax's; ``params_from_flax`` carries a flax model's weights over).
+Ported: the feed-forward MLP and the recurrent (GRU / LSTM) policy, each
+a shared-parameter per-agent actor-critic applied to ``[..., obs_dim]``
+observations. Initialisation follows the flax models — orthogonal kernels
+with gain √2 on the hidden (encoder) layers, 0.01 on the logits head and
+1.0 on the value head, lecun-normal input kernels and orthogonal recurrent
+kernels in the cell, zero biases — drawn from an explicit
+``torch.Generator`` (the numbers differ from flax's; ``params_from_flax``
+carries a flax model's weights over).
+
+The recurrent cells are flax 0.12's, written out as explicit ``Linear``
+layers named like flax's sub-modules (``torch.nn.GRUCell``/``LSTMCell``
+order their gates and place their biases differently):
+
+- GRU: ``r = σ(W_ir x + b_ir + W_hr h)``, ``z = σ(W_iz x + b_iz + W_hz h)``,
+  ``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))``, ``h' = (1 - z) n + z h``
+  (biases on ``ir``, ``iz``, ``in``, ``hn`` only); carry ``h``.
+- LSTM (``OptimizedLSTMCell``): ``i, f, o = σ(W_i* x + W_h* h + b_h*)``,
+  ``g = tanh(W_ig x + W_hg h + b_hg)``, ``c' = f c + i g``,
+  ``h' = o tanh(c')`` (biases on the ``h*`` side only); carry ``(c, h)``.
 """
 
 from __future__ import annotations
@@ -18,7 +31,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from warehouse_tpu.config import EnvConfig
+from ..config import EnvConfig
+from ..device import resolve_device
 
 
 class ActorCriticMLP(nn.Module):
@@ -62,24 +76,207 @@ def apply(params: dict, obs: torch.Tensor):
             value.squeeze(-1))
 
 
+GRU_GATES = ("ir", "iz", "in", "hr", "hz", "hn")   # flax GRUCell sub-modules
+GRU_BIASED = ("ir", "iz", "in", "hn")
+LSTM_GATES = ("ii", "if", "ig", "io", "hi", "hf", "hg", "ho")
+LSTM_BIASED = ("hi", "hf", "hg", "ho")
+
+
+def cell_gates(cell_type: str) -> tuple[tuple[str, ...], tuple[str, ...]]:
+    """(gate names, the biased ones) of a cell type."""
+    if cell_type == "gru":
+        return GRU_GATES, GRU_BIASED
+    if cell_type == "lstm":
+        return LSTM_GATES, LSTM_BIASED
+    raise ValueError(f"unknown cell_type {cell_type!r}")
+
+
+class ActorCriticRNN(nn.Module):
+    """Encoder (tanh ``Linear`` layers) -> GRU/LSTM cell -> logits and value
+    heads. ``forward(obs, carry) -> (logits, value, new_carry)``, one
+    step; the carry is ``h [..., H]`` (GRU) or ``(c, h)`` (LSTM)."""
+
+    def __init__(self, obs_dim: int, num_actions: int,
+                 cell_type: str = "gru", hidden_dims: Sequence[int] = (128,),
+                 rnn_hidden: int = 128,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        gates, biased = cell_gates(cell_type)
+        self.cell_type, self.rnn_hidden = cell_type, rnn_hidden
+        dims = (obs_dim, *hidden_dims)
+        self.encoder = nn.ModuleList(
+            nn.Linear(i, o) for i, o in zip(dims[:-1], dims[1:]))
+        self.cell = nn.ModuleDict({
+            g: nn.Linear(dims[-1] if g[0] == "i" else rnn_hidden, rnn_hidden,
+                         bias=g in biased) for g in gates})
+        self.logits = nn.Linear(rnn_hidden, num_actions)
+        self.value = nn.Linear(rnn_hidden, 1)
+        with torch.no_grad():
+            for layer in self.encoder:
+                nn.init.orthogonal_(layer.weight, math.sqrt(2.0),
+                                    generator=generator)
+            for g in gates:
+                w = self.cell[g].weight
+                if g[0] == "i":   # lecun_normal: std = sqrt(1 / fan_in)
+                    nn.init.normal_(w, 0.0, 1.0 / math.sqrt(w.shape[1]),
+                                    generator=generator)
+                else:
+                    nn.init.orthogonal_(w, generator=generator)
+            nn.init.orthogonal_(self.logits.weight, 0.01, generator=generator)
+            nn.init.orthogonal_(self.value.weight, 1.0, generator=generator)
+            for name, p in self.named_parameters():
+                if name.endswith(".bias"):
+                    p.zero_()
+
+    def forward(self, obs: torch.Tensor, carry):
+        return apply_rnn(dict(self.named_parameters()), obs, carry)
+
+    def initial_carry(self, batch_shape: tuple, device=None):
+        """Zero carry for a batch (the episode-start state), on the
+        model's device unless told otherwise."""
+        device = device or self.logits.weight.device
+        return initial_carry(self.cell_type, batch_shape, self.rnn_hidden,
+                             device)
+
+
+def initial_carry(cell_type: str, batch_shape: tuple, rnn_hidden: int,
+                  device=None):
+    h = torch.zeros(*batch_shape, rnn_hidden, dtype=torch.float32,
+                    device=device)
+    return (h, h.clone()) if cell_type == "lstm" else h
+
+
+def cell_type_of(params: dict) -> str:
+    """"gru" or "lstm", from a recurrent policy's params dict."""
+    if "cell.hr.weight" in params:
+        return "gru"
+    if "cell.hi.weight" in params:
+        return "lstm"
+    raise ValueError("not a recurrent policy's params: no cell.* entries")
+
+
+def num_encoder(params: dict) -> int:
+    return sum(1 for k in params
+               if k.startswith("encoder.") and k.endswith(".weight"))
+
+
+def apply_rnn(params: dict, obs: torch.Tensor, carry):
+    """One step of the recurrent policy on a params dict keyed like
+    ``ActorCriticRNN.state_dict``: ``(logits, value, new_carry)``."""
+    def lin(name, x):
+        return F.linear(x, params[f"{name}.weight"],
+                        params.get(f"{name}.bias"))
+
+    x = obs
+    for i in range(num_encoder(params)):
+        x = torch.tanh(lin(f"encoder.{i}", x))
+    if cell_type_of(params) == "gru":
+        h = carry
+        r = torch.sigmoid(lin("cell.ir", x) + lin("cell.hr", h))
+        z = torch.sigmoid(lin("cell.iz", x) + lin("cell.hz", h))
+        n = torch.tanh(lin("cell.in", x) + r * lin("cell.hn", h))
+        h = (1.0 - z) * n + z * h
+        carry = h
+    else:
+        c, h = carry
+        i = torch.sigmoid(lin("cell.ii", x) + lin("cell.hi", h))
+        f = torch.sigmoid(lin("cell.if", x) + lin("cell.hf", h))
+        g = torch.tanh(lin("cell.ig", x) + lin("cell.hg", h))
+        o = torch.sigmoid(lin("cell.io", x) + lin("cell.ho", h))
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        carry = (c, h)
+    return lin("logits", h), lin("value", h).squeeze(-1), carry
+
+
 def make_model(cfg: EnvConfig, arch: str = "mlp", hidden_dim: int = 128,
                num_layers: int = 2, generator: torch.Generator | None = None,
-               device=None) -> ActorCriticMLP:
-    if arch != "mlp":
+               device=None) -> nn.Module:
+    """The policy for ``arch`` ("mlp", "gru" or "lstm") on ``device``: the
+    card by default, the CPU with ``device="cpu"``."""
+    if arch == "mlp":
+        model = ActorCriticMLP(cfg.obs_dim, cfg.num_actions,
+                               (hidden_dim,) * num_layers, generator)
+    elif arch in ("gru", "lstm"):
+        model = ActorCriticRNN(cfg.obs_dim, cfg.num_actions, arch,
+                               (hidden_dim,) * max(num_layers - 1, 1),
+                               hidden_dim, generator)
+    else:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet; only 'mlp' is")
-    model = ActorCriticMLP(cfg.obs_dim, cfg.num_actions,
-                           (hidden_dim,) * num_layers, generator)
-    return model.to(device)
+            f"arch {arch!r} is not ported yet; 'mlp', 'gru' and 'lstm' are")
+    return model.to(resolve_device(device))
+
+
+def _dense_np(sub, name: str, fan_in, bias: bool = True):
+    """A flax Dense's ``kernel [in, out]`` (and bias) as ``Linear`` weight
+    ``[out, in]`` (and bias), shapes checked."""
+    kernel = np.asarray(sub["kernel"], np.float32)
+    if kernel.ndim != 2 or (fan_in is not None and kernel.shape[0] != fan_in):
+        raise ValueError(f"{name}: kernel {kernel.shape}, expected input "
+                         f"width {fan_in}")
+    if ("bias" in sub) != bias:
+        raise ValueError(f"{name}: bias {'missing' if bias else 'unexpected'}")
+    out = {"weight": torch.from_numpy(kernel.T.copy())}
+    if bias:
+        b = np.asarray(sub["bias"], np.float32)
+        if b.shape != (kernel.shape[1],):
+            raise ValueError(f"{name}: kernel {kernel.shape}, bias {b.shape}")
+        out["bias"] = torch.from_numpy(b.copy())
+    return out
+
+
+def _rnn_params_from_flax(dense: dict) -> dict:
+    """The ``ActorCriticRNN`` tree: ``Dense_*`` in index order are the
+    encoder layers, then the logits and value heads (the heads come after
+    the cell in call order); ``GRUCell_0`` / ``OptimizedLSTMCell_0`` hold
+    one sub-module per gate."""
+    cell_name = "GRUCell_0" if "GRUCell_0" in dense else "OptimizedLSTMCell_0"
+    cell_type = "gru" if cell_name == "GRUCell_0" else "lstm"
+    gates, biased = cell_gates(cell_type)
+    names = sorted((n for n in dense if n.startswith("Dense_")),
+                   key=lambda s: int(s.split("_")[1]))
+    extra = set(dense) - set(names) - {cell_name}
+    if len(names) < 3 or extra:
+        raise ValueError(f"not a recurrent actor-critic: layers "
+                         f"{sorted(dense)}")
+    *enc_n, logit_n, value_n = names
+    out, fan_in = {}, None
+    for i, name in enumerate(enc_n):
+        layer = _dense_np(dense[name], name, fan_in)
+        fan_in = layer["weight"].shape[0]
+        out.update({f"encoder.{i}.{k}": v for k, v in layer.items()})
+    cell = dense[cell_name]
+    if set(cell) != set(gates):
+        raise ValueError(f"{cell_name}: gates {sorted(cell)}, expected "
+                         f"{sorted(gates)}")
+    H = np.asarray(cell[gates[-1]]["kernel"]).shape[1]
+    for g in gates:
+        layer = _dense_np(cell[g], f"{cell_name}/{g}",
+                          fan_in if g[0] == "i" else H, bias=g in biased)
+        if layer["weight"].shape[0] != H:
+            raise ValueError(f"{cell_name}/{g}: {layer['weight'].shape[0]} "
+                             f"outputs, expected {H}")
+        out.update({f"cell.{g}.{k}": v for k, v in layer.items()})
+    for key, name in (("logits", logit_n), ("value", value_n)):
+        layer = _dense_np(dense[name], name, H)
+        out.update({f"{key}.{k}": v for k, v in layer.items()})
+    if out["value.weight"].shape[0] != 1:
+        raise ValueError(f"{value_n}: value head has "
+                         f"{out['value.weight'].shape[0]} outputs, expected 1")
+    return out
 
 
 def params_from_flax(params_np) -> dict:
-    """A flax ``ActorCriticMLP``'s params (nested dict of numpy arrays,
-    with or without the top ``"params"`` level) as this module's
-    ``state_dict``. ``Dense_i`` are taken in index order — hidden layers,
-    logits head, value head — and each kernel ``[in, out]`` becomes a
-    ``Linear.weight [out, in]``. Every shape is checked."""
+    """A flax ``ActorCriticMLP``'s or ``ActorCriticRNN``'s params (nested
+    dict of numpy arrays, with or without the top ``"params"`` level) as
+    the ``state_dict`` of this module's counterpart. ``Dense_i`` are taken
+    in index order — hidden (encoder) layers, logits head, value head —
+    and each kernel ``[in, out]`` becomes a ``Linear.weight [out, in]``; a
+    recurrent tree's cell gates become ``cell.<gate>.*``. Every shape is
+    checked."""
     dense = params_np.get("params", params_np)
+    if "GRUCell_0" in dense or "OptimizedLSTMCell_0" in dense:
+        return _rnn_params_from_flax(dense)
     names = sorted(dense, key=lambda s: int(s.split("_")[1]))
     if len(names) < 3 or any(not n.startswith("Dense_") for n in names):
         raise ValueError(f"not an MLP actor-critic: layers {names}")
@@ -87,19 +284,11 @@ def params_from_flax(params_np) -> dict:
                                                              "value"]
     out, fan_in = {}, None
     for key, name in zip(keys, names):
-        kernel = np.asarray(dense[name]["kernel"], np.float32)
-        bias = np.asarray(dense[name]["bias"], np.float32)
-        if kernel.ndim != 2 or bias.shape != (kernel.shape[1],):
-            raise ValueError(f"{name}: kernel {kernel.shape}, bias "
-                             f"{bias.shape}")
-        if key == "value" and kernel.shape[1] != 1:
-            raise ValueError(f"{name}: value head has {kernel.shape[1]} "
-                             "outputs, expected 1")
-        if fan_in is not None and kernel.shape[0] != fan_in:
-            raise ValueError(f"{name}: input width {kernel.shape[0]}, "
-                             f"expected {fan_in}")
+        layer = _dense_np(dense[name], name, fan_in)
         if key != "logits":
-            fan_in = kernel.shape[1]
-        out[f"{key}.weight"] = torch.from_numpy(kernel.T.copy())
-        out[f"{key}.bias"] = torch.from_numpy(bias.copy())
+            fan_in = layer["weight"].shape[0]
+        out.update({f"{key}.{k}": v for k, v in layer.items()})
+    if out["value.weight"].shape[0] != 1:
+        raise ValueError(f"{names[-1]}: value head has "
+                         f"{out['value.weight'].shape[0]} outputs, expected 1")
     return out

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from warehouse_tpu.config import EnvConfig
+from ..config import EnvConfig
 
 # STAY, UP, DOWN, LEFT, RIGHT (docs/SEMANTICS.md §3).
 ACTION_DELTAS = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))

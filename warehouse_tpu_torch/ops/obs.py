@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from warehouse_tpu.config import EnvConfig
+from ..config import EnvConfig
 
 PENDING = 1
 

@@ -35,7 +35,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from warehouse_tpu.config import ADAM_B1, ADAM_B2, ADAM_EPS
+from .config import ADAM_B1, ADAM_B2, ADAM_EPS
 
 from .models.policy import params_from_flax
 

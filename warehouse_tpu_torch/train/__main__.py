@@ -1,7 +1,9 @@
 """Train CLI: ``python -m warehouse_tpu_torch.train``.
 
-The PPO and IMPALA (``--algo impala``) MLP subset of ``python -m
-warehouse_tpu.train`` with the same flag names, plus ``--device``. A flag
+The PPO (``--arch mlp|gru|lstm``) and IMPALA (``--algo impala``) subset of
+``python -m warehouse_tpu.train`` with the same flag names, plus
+``--device``: the run is on the card unless ``--cpu`` / ``--device cpu``
+asks for the CPU, and exits when it finds no card. A flag
 for a feature the port does not have yet exits with a message naming its
 ROADMAP item. Metrics go to a JSONL file, ``env_steps_per_sec`` included;
 ``--eval-every`` runs the argmax policy through
@@ -16,22 +18,27 @@ import time
 
 import torch
 
-from warehouse_tpu.config import TrainConfig
-from warehouse_tpu.configs_cli import add_env_args, env_config_from_args
+from ..config import TrainConfig
+from ..configs_cli import (add_device_args, add_env_args, device_from_args,
+                           env_config_from_args)
 
 from .. import rng
 from ..evaluate import evaluate_policy
-from ..models.policy import apply
+from ..models.policy import apply, apply_rnn, initial_carry
 from ..ops.ppo_update import first_argmax
 from .impala import make_train_impala
 from .metrics import MetricsLogger
 from .ppo import make_train
+from .ppo_rnn import make_train_rnn
 
 
 def _unported(args) -> list[str]:
     out = []
-    if args.arch != "mlp":
-        out.append(f"--arch {args.arch} (ROADMAP §B items 5-6)")
+    if args.arch in ("cnn", "attn"):
+        out.append(f"--arch {args.arch} (ROADMAP §B item 6)")
+    if args.arch != "mlp" and args.algo == "impala":
+        out.append(f"--algo impala --arch {args.arch} (the IMPALA learner "
+                   "takes the MLP policy)")
     for flag, on, item in (
             ("--policy-groups", args.policy_groups is not None, 1),
             ("--shaping-coef", args.shaping_coef != 0.0, 1),
@@ -47,6 +54,7 @@ def _unported(args) -> list[str]:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser("warehouse_tpu_torch.train")
     add_env_args(p)
+    add_device_args(p)
     p.add_argument("--algo", choices=["ppo", "impala"], default="ppo",
                    help="impala = the V-trace actor-learner")
     p.add_argument("--rho-clip", type=float, default=1.0,
@@ -88,7 +96,9 @@ def main(argv=None) -> None:
     p.add_argument("--model-dtype", choices=["float32", "bfloat16"],
                    default="float32")
     p.add_argument("--arch", choices=["mlp", "cnn", "attn", "gru", "lstm"],
-                   default="mlp")
+                   default="mlp",
+                   help="mlp, or the recurrent gru / lstm policy (PPO only);"
+                        " cnn and attn are not ported yet")
     p.add_argument("--policy-groups", default=None)
     p.add_argument("--rollout-backend", choices=["auto", "xla", "pallas"],
                    default="auto",
@@ -117,9 +127,6 @@ def main(argv=None) -> None:
                    help="run a greedy-argmax evaluation every N updates "
                         "(0 = off)")
     p.add_argument("--eval-episodes", type=int, default=128)
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda if available, else "
-                        "cpu; --cpu forces cpu)")
     args = p.parse_args(argv)
     if args.rllib_cadence:
         args.minibatch_mode = "flat"
@@ -131,9 +138,7 @@ def main(argv=None) -> None:
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     log = logging.getLogger("warehouse_tpu_torch")
-    device = torch.device(
-        "cpu" if args.cpu else args.device
-        or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = device_from_args(args)
     env_cfg = env_config_from_args(args)
     tcfg = TrainConfig(
         num_envs=args.num_envs, unroll_length=args.unroll_length,
@@ -152,7 +157,9 @@ def main(argv=None) -> None:
         metrics_path=args.metrics_path, rho_clip=args.rho_clip,
         c_clip=args.c_clip, impala_passes=args.impala_passes,
         impala_rmsprop=not args.impala_adam)
-    build = make_train_impala if args.algo == "impala" else make_train
+    recurrent = args.arch in ("gru", "lstm")
+    build = (make_train_impala if args.algo == "impala"
+             else make_train_rnn if recurrent else make_train)
     try:
         trainer = build(env_cfg, tcfg, arch=args.arch, device=device)
     except (NotImplementedError, ValueError) as e:
@@ -177,10 +184,18 @@ def main(argv=None) -> None:
             metrics.log(u + n, scalars)
             if args.eval_every and (u + n) % args.eval_every == 0:
                 params = rs.params
+                # A recurrent policy's carry restarts with each episode.
+                carry = [initial_carry(args.arch, (args.eval_episodes,
+                                                   env_cfg.num_agents),
+                                       tcfg.hidden_dim, device)
+                         if recurrent else None]
 
                 def policy_fn(state, obs, key):
-                    return first_argmax(apply(params, obs)[0],
-                                        -1).to(torch.int32)
+                    if recurrent:
+                        logits, _, carry[0] = apply_rnn(params, obs, carry[0])
+                    else:
+                        logits = apply(params, obs)[0]
+                    return first_argmax(logits, -1).to(torch.int32)
 
                 ev = evaluate_policy(env_cfg, policy_fn, args.eval_episodes,
                                      seed=args.seed + u, device=device)

@@ -32,7 +32,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from warehouse_tpu.config import EnvConfig, TrainConfig
+from ..config import EnvConfig, TrainConfig
+from ..device import resolve_device
 
 from ..env.batch import observe_batch, reset_truncated_batch
 from ..env.state import STATE_FIELDS, EnvState
@@ -77,7 +78,7 @@ class ImpalaTrainer(NamedTuple):
 
 def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
     if arch != "mlp":
-        _not_ported(f"arch={arch!r}", "§B items 5-6")
+        _not_ported(f"IMPALA with arch={arch!r}", "§B item 6")
     for what, off, item in (
             ("a mesh", mesh is None, "§B item 8"),
             ("global_obs", not env_cfg.global_obs, "§B item 1"),
@@ -126,9 +127,10 @@ def impala_runner_state_from_jax(rs_np, tcfg: TrainConfig,
 def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
                       arch: str = "mlp", device=None,
                       mesh=None) -> ImpalaTrainer:
-    """Build the IMPALA trainer for ``tcfg`` on ``device`` (default CPU)."""
+    """Build the IMPALA trainer for ``tcfg`` on ``device``: the card by
+    default, the CPU (plain twins) with ``device="cpu"``."""
     _check_config(env_cfg, tcfg, arch, mesh)
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     cfg = env_cfg.replace(auto_reset=False)
     B, T, M = tcfg.num_envs, tcfg.unroll_length, tcfg.num_minibatches
     n_steps = tcfg.impala_passes * M

@@ -38,7 +38,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from warehouse_tpu.config import EnvConfig, TrainConfig
+from ..config import EnvConfig, TrainConfig
+from ..device import resolve_device
 
 from .. import rng
 from ..env import engine
@@ -95,8 +96,11 @@ def _not_ported(what: str, item: str):
 
 def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh,
                   policy_groups) -> None:
+    if arch in ("gru", "lstm"):
+        raise ValueError(f"arch={arch!r}: the recurrent policies train "
+                         "through train.ppo_rnn.make_train_rnn")
     if arch != "mlp":
-        _not_ported(f"arch={arch!r}", "§B items 5-6")
+        _not_ported(f"arch={arch!r}", "§B item 6")
     for what, off, item in (
             ("policy_groups", policy_groups is None, "§B items 1, 9"),
             ("a mesh", mesh is None, "§B item 8"),
@@ -178,12 +182,33 @@ def run_many(train_step: Callable, rs, n: int):
     return rs, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 
+def update_metrics(tcfg: TrainConfig, losses, kl_coeff, roll):
+    """The metrics of one PPO update and the adapted KL coefficient, from
+    the SGD phase's ``losses`` and the chunk's rollout
+    (``warehouse_tpu/train/ppo.py:713-746``)."""
+    T, B = roll.delivered.shape
+    mean_kl = losses[4].mean()
+    kl_coeff = adaptive_kl_coeff(tcfg, kl_coeff, mean_kl)
+    return {
+        "loss": losses[0].mean(),
+        "pg_loss": losses[1].mean(),
+        "v_loss": losses[2].mean(),
+        "entropy": losses[3].mean(),
+        "kl": mean_kl,
+        "kl_coeff": kl_coeff,
+        "reward_per_step": roll.raw_reward.mean(dim=(1, 2)).mean(),
+        "deliveries_per_env_step":
+            roll.delivered.sum(dtype=torch.float32) / (T * B),
+    }, kl_coeff
+
+
 def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
                device=None, mesh=None,
                policy_groups: tuple | None = None) -> PPOTrainer:
-    """Build the trainer for ``tcfg`` on ``device`` (default CPU)."""
+    """Build the trainer for ``tcfg`` on ``device``: the card by default,
+    the CPU (plain twins) with ``device="cpu"``."""
     _check_config(env_cfg, tcfg, arch, mesh, policy_groups)
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     cfg = env_cfg.replace(auto_reset=False)
     B, T, M = tcfg.num_envs, tcfg.unroll_length, tcfg.num_minibatches
     n_steps = tcfg.ppo_epochs * M
@@ -240,19 +265,7 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
 
         # The key split the JAX XLA scaffold spends on its partition.
         key = rng.split(key, 2)[0]
-        mean_kl = losses[4].mean()
-        kl_coeff = adaptive_kl_coeff(tcfg, rs.kl_coeff, mean_kl)
-        metrics = {
-            "loss": losses[0].mean(),
-            "pg_loss": losses[1].mean(),
-            "v_loss": losses[2].mean(),
-            "entropy": losses[3].mean(),
-            "kl": mean_kl,
-            "kl_coeff": kl_coeff,
-            "reward_per_step": roll.raw_reward.mean(dim=(1, 2)).mean(),
-            "deliveries_per_env_step":
-                roll.delivered.sum(dtype=torch.float32) / (T * B),
-        }
+        metrics, kl_coeff = update_metrics(tcfg, losses, rs.kl_coeff, roll)
         new = RunnerState(params=params, opt_state=opt_state,
                           env_state=env_state, obs=last_obs, key=key,
                           update_idx=rs.update_idx + 1, kl_coeff=kl_coeff)
