@@ -70,7 +70,23 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    for ``gru`` then ``lstm``, through ``train_step`` (K7 + K8/K9) with the
    update split into acting, GAE and SGD by CUDA events, a learning check
    on deliveries per env-step over updates 31-40, 3 plain-path updates
-   from the same state, then the trained policy served with its carry.
+   from the same state, then the trained policy served with its carry;
+14. ``k10_check``: the CNN acting kernel (K10) at B = 4096, T = 16, convs
+   4 -> 16 -> 32 on the 5x5 window, trunk 806 -> 128, on medium and, with
+   action masking, on shelves: the checks of ``k2_check`` against the plain
+   ``ActorCriticCNN`` (true convolutions), timed beside its twin;
+15. ``k11_check`` / ``k12_check``: one config-4 CNN trajectory (a K10 chunk
+   from the trainer's reset, then GAE); the CNN SGD phase (K11: 16 steps of
+   65536 samples, K12's gradient kernels then clip + Adam per step) against
+   its plain twin (autograd through the true convolutions + ``optim.py``)
+   on per-step losses, params and Adam moments, a second K11 run bit-equal
+   to the first; K12 against autograd on all 4 minibatches; both timed;
+16. ``cnn_train`` (main path): ``train.make_train(arch="cnn")`` at BASELINE
+   config 4 from ``PRNGKey(0)`` on a 300-update schedule, the first 50
+   updates through ``train_step`` (K10 + K11/K12) with the update split
+   into acting, GAE and SGD by CUDA events, a learning check on deliveries
+   per env-step over updates 41-50, 3 plain-path updates from the same
+   state, then the trained policy served.
 
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit. The kernels' launch counts are zeroed just before each
@@ -82,9 +98,9 @@ the card's published float32 rates), the card's name and power limit from
 ``nvidia-smi``, and the device line.
 There is no CPU path: without a CUDA device the script exits non-zero.
 
-``python3 chip_smoke.py --profile-rnn`` runs, instead of all this, a
-``torch.profiler`` trace of 3 recurrent updates per cell and prints the
-device time per update by kernel name.
+``python3 chip_smoke.py --profile-rnn`` (``--profile-cnn``) runs, instead
+of all this, a ``torch.profiler`` trace of 3 recurrent updates per cell (3
+CNN updates) and prints the device time per update by kernel name.
 """
 
 from __future__ import annotations
@@ -103,9 +119,9 @@ from warehouse_tpu_torch.env.batch import (observe_batch, reset_batch,
                                            step_batch)
 from warehouse_tpu_torch.env.state import STATE_FIELDS
 from warehouse_tpu_torch.kernels import (act, act_rnn, build, rollout, sgd,
-                                         sgd_rnn, vtrace_sgd)
-from warehouse_tpu_torch.models import make_model
-from warehouse_tpu_torch.models.policy import apply, apply_rnn
+                                         sgd_cnn, sgd_rnn, vtrace_sgd)
+from warehouse_tpu_torch.models import ActorCriticCNN, make_model
+from warehouse_tpu_torch.models.policy import apply, apply_rnn, cnn_dims
 from warehouse_tpu_torch.ops.gae import gae
 from warehouse_tpu_torch.ops.move import valid_action_mask
 from warehouse_tpu_torch.ops.ppo_update import entropy_coef_at, first_argmax
@@ -131,6 +147,9 @@ IMPALA_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 211-220
 RNN_SCHEDULE = 300  # the rnn_train phase's run length (its lr schedule)
 RNN_UPDATES = 40    # updates of it that the rnn_train phase runs, per cell
 RNN_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 31-40
+CNN_SCHEDULE = 300  # the cnn_train phase's run length (the JAX curve's)
+CNN_UPDATES = 50    # updates of it that the cnn_train phase runs
+CNN_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 41-50
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (published)
 PEAK_F32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # K3/K4 against the plain twin at config 4: (rtol, atol) per quantity.
@@ -148,6 +167,12 @@ VT_TOL = {"losses": (1e-5, 2e-6), "params": (1e-5, 1e-6),
 # (tests/test_sgd_rnn_kernel.py:237-244).
 RNN_GRAD_TOL = (1e-4, 1e-6)
 RNN_MB_LOSS_TOL = (0.0, 1e-6)
+# K11/K12 against the plain twin at config 4: the JAX suite's bounds
+# (tests/test_sgd_cnn_kernel.py:154-159, 188-203), set at 16 samples per
+# minibatch.
+CNN_TOL = {"losses": (1e-5, 2e-6), "params": (1e-5, 1e-6),
+           "mu": (1e-5, 1e-7), "nu": (1e-5, 1e-10), "grads": (1e-4, 1e-6),
+           "mb_losses": (0.0, 1e-6)}
 
 
 def nvidia_smi() -> str:
@@ -252,6 +277,24 @@ def mlp_macs(params) -> tuple[int, int]:
     return fwd, fwd - params["hidden.0.weight"].numel()
 
 
+def cnn_macs(params) -> tuple[int, int]:
+    """(multiply-adds per sample of the CNN's forward as true convolutions,
+    of its backward to the layers' inputs: every layer but the first conv,
+    the trunk without its self-feature columns). A 3x3 SAME conv on an
+    S x S grid has (3S - 2)^2 valid (position, tap) pairs."""
+    S, chans, hidden = cnn_dims(params)
+    pairs = (3 * S - 2) ** 2
+    convs = [pairs * i * o for i, o in zip(chans, chans[1:])]
+    heads = 6 * hidden
+    fwd = sum(convs) + params["trunk.weight"].numel() + heads
+    return fwd, sum(convs[1:]) + hidden * S * S * chans[-1] + heads
+
+
+def ff_macs(params) -> tuple[int, int]:
+    """``cnn_macs`` or ``mlp_macs``, by the params' keys."""
+    return (cnn_macs if "conv.0.weight" in params else mlp_macs)(params)
+
+
 def rnn_macs(params) -> tuple[int, int]:
     """(multiply-adds per sample of the recurrent policy's forward, of its
     backward to the layers' inputs: every matrix but the first encoder
@@ -306,10 +349,20 @@ def k1_check(dev):
     return err, k_ms, p_ms, bnd
 
 
+def cnn_model(cfg, dev):
+    """A seeded ``ActorCriticCNN`` at config 4's hidden width."""
+    return make_model(cfg, "cnn", hidden_dim=HIDDEN[0],
+                      generator=torch.Generator().manual_seed(SEED),
+                      device=dev)
+
+
 def k2_check(dev, name, cfg, model, mask_actions=False):
-    """K2 against the plain engine replaying its actions and the plain
-    MLP on its observations, then timed beside its twin; with
-    ``mask_actions`` also its mask against ``valid_action_mask``."""
+    """K2 (or, for a CNN model, K10) against the plain engine replaying
+    its actions and the plain model on its observations, then timed beside
+    its twin; with ``mask_actions`` also its mask against
+    ``valid_action_mask``."""
+    K, steps = (("K10", act.act_cnn_steps) if isinstance(model, ActorCriticCNN)
+                else ("K2", act.act_steps))
     B, T, A = CHECK_B, SLICE_T, cfg.num_agents
     state, obs0 = reset_envs(cfg, B, SEED + 1, dev)
     _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, T)
@@ -318,29 +371,29 @@ def k2_check(dev, name, cfg, model, mask_actions=False):
     logits_k = torch.empty(T, B, A, 5, device=dev)
     mask = (torch.empty(T, B, A, 5, dtype=torch.bool, device=dev)
             if mask_actions else None)
-    ks, obs, action, lp, value, reward, delivered = act.act_steps(
+    ks, obs, action, lp, value, reward, delivered = steps(
         cfg, model, state, u, pick, drop, g, logits=logits_k, mask=mask)
     torch.cuda.synchronize()
 
     # Dynamics: the plain engine replays the kernel's actions.
     s = state
-    require(bits_equal(obs[0], obs0), "K2: first obs differs")
+    require(bits_equal(obs[0], obs0), f"{K}: first obs differs")
     for t in range(T):
         if mask_actions:
             require(torch.equal(mask[t], valid_action_mask(cfg, s.agent_pos)),
-                    f"K2: mask differs from valid_action_mask t={t}")
+                    f"{K}: mask differs from valid_action_mask t={t}")
             require(bool(mask[t].gather(-1, action[t].long()[..., None])
-                         .all()), f"K2: a masked move was sampled t={t}")
+                         .all()), f"{K}: a masked move was sampled t={t}")
         s, ts = step_batch(cfg, s, action[t])
-        require(bits_equal(ts.reward, reward[t]), f"K2: reward t={t}")
+        require(bits_equal(ts.reward, reward[t]), f"{K}: reward t={t}")
         require(torch.equal(ts.delivered.sum(-1, dtype=torch.int32),
-                            delivered[t]), f"K2: deliveries t={t}")
+                            delivered[t]), f"{K}: deliveries t={t}")
         if t + 1 < T:
-            require(bits_equal(ts.obs, obs[t + 1]), f"K2: obs t={t + 1}")
+            require(bits_equal(ts.obs, obs[t + 1]), f"{K}: obs t={t + 1}")
     require(state_equal(s.replace(t=state.t, key=state.key), ks),
-            "K2: final state differs")
+            f"{K}: final state differs")
 
-    # Policy head: the plain MLP on the kernel's observations.
+    # Policy head: the plain model on the kernel's observations.
     with torch.no_grad():
         logits, val = model(obs)
     sampled = torch.where(mask, logits, -1e9) if mask_actions else logits
@@ -354,15 +407,16 @@ def k2_check(dev, name, cfg, model, mask_actions=False):
     clear = (top2[:, 0] - top2[:, 1]).reshape(T, B, A) > TOL
     agree = bool(((first_argmax(z, 1).reshape(T, B, A) == action)
                   | ~clear).all())
-    require(max(err.values()) <= TOL, f"K2: MLP outputs off by {err}")
-    require(agree, "K2: actions differ where the top-two gap is clear")
+    require(max(err.values()) <= TOL, f"{K}: policy outputs off by {err}")
+    require(agree, f"{K}: actions differ where the top-two gap is clear")
 
     # The kernel alone and its twin on the same inputs, main-path shapes.
-    k_ms = timed(lambda: act.act_steps(cfg, model, state, u, pick, drop, g,
-                                       mask=mask), 5)
+    k_ms = timed(lambda: steps(cfg, model, state, u, pick, drop, g,
+                               mask=mask), 5)
     p_ms = timed(lambda: act.act_steps_reference(cfg, model, state, u, pick,
                                                  drop, g, mask=mask), 3)
-    out = {"phase": "k2_check", "config": name, "mask_actions": mask_actions,
+    out = {"phase": f"{K.lower()}_check", "config": name,
+           "mask_actions": mask_actions,
            "B": B, "T": T, "max_abs_err": err, "tol": TOL,
            "actions_agree_where_gap_gt_tol": agree,
            "clear_share": float(clear.float().mean()),
@@ -371,9 +425,9 @@ def k2_check(dev, name, cfg, model, mask_actions=False):
         out["masked_share"] = float(1.0 - mask.float().mean())
         # The option's cost: the kernel without it on the same inputs.
         out["unmasked_kernel_ms"] = timed(
-            lambda: act.act_steps(cfg, model, state, u, pick, drop, g), 5)
+            lambda: steps(cfg, model, state, u, pick, drop, g), 5)
     emit(out)
-    fwd, _ = mlp_macs(dict(model.named_parameters()))
+    fwd, _ = ff_macs(dict(model.named_parameters()))
     bnd = bound(nbytes(state, ks, u, pick, drop, g, obs, action, lp, value,
                        reward, delivered, mask,
                        dict(model.named_parameters())),
@@ -396,15 +450,16 @@ def tree_err(a, b, rtol, atol):
     return max(e for e, _ in errs), max(r for _, r in errs)
 
 
-def sgd_inputs(dev, cfg):
-    """One config-4 trajectory for the SGD checks: a K2 chunk from the
-    trainer's reset, then GAE and the per-minibatch normalization."""
-    tcfg = TrainConfig(num_updates=TRAIN_SCHEDULE)
-    tr = make_train(cfg, tcfg, device=dev)
+def sgd_inputs(dev, cfg, arch="mlp", schedule=TRAIN_SCHEDULE):
+    """One config-4 trajectory for the SGD checks: a K2 (``arch="cnn"``:
+    K10) chunk from the trainer's reset, then GAE and the per-minibatch
+    normalization."""
+    tcfg = TrainConfig(num_updates=schedule)
+    tr = make_train(cfg, tcfg, arch=arch, device=dev)
     rs = tr.init(rng.prng_key(SEED + 5, dev))
     tr.model.load_state_dict(rs.params)
     new, roll, _, _ = act.ppo_rollout(cfg, tr.model, rs.env_state, SLICE_T,
-                                      rng.prng_key(SEED + 6, dev))
+                                      rng.prng_key(SEED + 6, dev), arch=arch)
     done = roll.truncated[:, :, None].expand_as(roll.reward)
     traj = Transition(roll.obs, roll.action, roll.log_prob, roll.value,
                       roll.reward, done, roll.mask,
@@ -417,8 +472,15 @@ def sgd_inputs(dev, cfg):
     return tcfg, tr, rs, traj, adv_n, targets, ent
 
 
-def k3_check(dev, cfg):
-    tcfg, tr, rs, traj, adv_n, targets, ent = sgd_inputs(dev, cfg)
+def k3_check(dev, cfg, cnn=False):
+    """K3 or, with ``cnn``, K11 against its plain twin, a rerun, timed."""
+    K, phase, phase_ref, tol = (
+        ("K11", sgd_cnn.ppo_cnn_sgd_phase,
+         sgd_cnn.ppo_cnn_sgd_phase_reference, CNN_TOL) if cnn else
+        ("K3", sgd.ppo_sgd_phase, sgd.ppo_sgd_phase_reference, SGD_TOL))
+    tcfg, tr, rs, traj, adv_n, targets, ent = (
+        sgd_inputs(dev, cfg, "cnn", CNN_SCHEDULE) if cnn
+        else sgd_inputs(dev, cfg))
     E, M = tcfg.ppo_epochs, tcfg.num_minibatches
     rows = tr.optimizer.step_rows(rs.opt_state.count, E * M, dev)
     args = (rs.params, rs.opt_state, traj, adv_n, targets, *rows, ent,
@@ -426,34 +488,35 @@ def k3_check(dev, cfg):
     kw = dict(num_epochs=E, num_minibatches=M, clip_eps=tcfg.clip_eps,
               value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
               mask_actions=False)
-    pk, ok, lk = sgd.ppo_sgd_phase(*args, **kw)
-    pr, orf, lr_ = sgd.ppo_sgd_phase_reference(*args, **kw)
-    p2, o2, l2 = sgd.ppo_sgd_phase(*args, **kw)
+    pk, ok, lk = phase(*args, **kw)
+    pr, orf, lr_ = phase_ref(*args, **kw)
+    p2, o2, l2 = phase(*args, **kw)
     torch.cuda.synchronize()
-    err = {"losses": tree_err(lk, lr_, *SGD_TOL["losses"]),
-           "params": tree_err(pk, pr, *SGD_TOL["params"]),
-           "mu": tree_err(ok.mu, orf.mu, *SGD_TOL["mu"]),
-           "nu": tree_err(ok.nu, orf.nu, *SGD_TOL["nu"])}
+    err = {"losses": tree_err(lk, lr_, *tol["losses"]),
+           "params": tree_err(pk, pr, *tol["params"]),
+           "mu": tree_err(ok.mu, orf.mu, *tol["mu"]),
+           "nu": tree_err(ok.nu, orf.nu, *tol["nu"])}
     bit_equal = (all(bits_equal(pk[k], p2[k]) and bits_equal(ok.mu[k],
                                                              o2.mu[k])
                      and bits_equal(ok.nu[k], o2.nu[k]) for k in pk)
                  and all(bits_equal(a, b) for a, b in zip(lk, l2)))
     moved = max(float((pk[k] - rs.params[k]).abs().max()) for k in pk)
-    k_ms = timed(lambda: sgd.ppo_sgd_phase(*args, **kw), 5)
-    p_ms = timed(lambda: sgd.ppo_sgd_phase_reference(*args, **kw), 3)
-    emit({"phase": "k3_check", "B": traj.obs.shape[1], "T": SLICE_T,
+    k_ms = timed(lambda: phase(*args, **kw), 5)
+    p_ms = timed(lambda: phase_ref(*args, **kw), 3)
+    emit({"phase": f"{K.lower()}_check", "B": traj.obs.shape[1], "T": SLICE_T,
           "epochs": E, "minibatches": M,
           "samples_per_minibatch": traj.obs.shape[0] * traj.obs.shape[1]
           * cfg.num_agents // M,
           "max_abs_err": {k: e for k, (e, _) in err.items()},
-          "tol_ratio": {k: r for k, (_, r) in err.items()}, "tol": SGD_TOL,
+          "tol_ratio": {k: r for k, (_, r) in err.items()},
+          "tol": {k: tol[k] for k in err},
           "bit_equal_rerun": bit_equal, "max_param_step": moved,
           "kernel_ms": k_ms, "plain_ms": p_ms})
     require(all(r <= 1.0 for _, r in err.values()),
-            f"K3 differs from its twin: {err}")
-    require(bit_equal, "K3: a second run gave other bits")
-    require(moved > 0.0, "K3 did not move the params")
-    fwd, dx = mlp_macs(rs.params)
+            f"{K} differs from its twin: {err}")
+    require(bit_equal, f"{K}: a second run gave other bits")
+    require(moved > 0.0, f"{K} did not move the params")
+    fwd, dx = ff_macs(rs.params)
     n = traj.obs.shape[0] * traj.obs.shape[1] * cfg.num_agents  # per epoch
     bnd = bound(nbytes(traj.obs, traj.action, traj.log_prob, traj.value,
                        adv_n, targets, rows, lk)
@@ -462,33 +525,42 @@ def k3_check(dev, cfg):
     return err["params"][0], k_ms, p_ms, bnd
 
 
-def k4_check(dev, cfg):
-    tcfg, tr, rs, traj, adv_n, targets, ent = sgd_inputs(dev, cfg)
+def k4_check(dev, cfg, cnn=False):
+    """K4 or, with ``cnn``, K12 against autograd on every minibatch."""
+    K, grads_fn, grads_ref, tol, loss_key = (
+        ("K12", sgd_cnn.ppo_cnn_minibatch_grads,
+         sgd_cnn.ppo_cnn_minibatch_grads_reference, CNN_TOL, "mb_losses")
+        if cnn else
+        ("K4", sgd.ppo_minibatch_grads, sgd.ppo_minibatch_grads_reference,
+         SGD_TOL, "losses"))
+    tcfg, tr, rs, traj, adv_n, targets, ent = (
+        sgd_inputs(dev, cfg, "cnn", CNN_SCHEDULE) if cnn
+        else sgd_inputs(dev, cfg))
     M = tcfg.num_minibatches
     kw = dict(num_minibatches=M, clip_eps=tcfg.clip_eps,
               value_coef=tcfg.value_coef, mask_actions=False)
     worst = {"losses": (0.0, 0.0), "grads": (0.0, 0.0)}
     for mb in range(M):
-        (lk, auxk), gk = sgd.ppo_minibatch_grads(
+        (lk, auxk), gk = grads_fn(
             rs.params, traj, adv_n, targets, mb, ent, rs.kl_coeff, **kw)
-        (lr_, auxr), gr = sgd.ppo_minibatch_grads_reference(
+        (lr_, auxr), gr = grads_ref(
             rs.params, traj, adv_n, targets, mb, ent, rs.kl_coeff, **kw)
         torch.cuda.synchronize()
         for name, e in (("losses", tree_err((lk, *auxk), (lr_, *auxr),
-                                            *SGD_TOL["losses"])),
-                        ("grads", tree_err(gk, gr, *SGD_TOL["grads"]))):
+                                            *tol[loss_key])),
+                        ("grads", tree_err(gk, gr, *tol["grads"]))):
             worst[name] = tuple(map(max, worst[name], e))
     args = (rs.params, traj, adv_n, targets, 0, ent, rs.kl_coeff)
-    k_ms = timed(lambda: sgd.ppo_minibatch_grads(*args, **kw), 5)
-    p_ms = timed(lambda: sgd.ppo_minibatch_grads_reference(*args, **kw), 3)
-    emit({"phase": "k4_check", "minibatches": M,
+    k_ms = timed(lambda: grads_fn(*args, **kw), 5)
+    p_ms = timed(lambda: grads_ref(*args, **kw), 3)
+    emit({"phase": f"{K.lower()}_check", "minibatches": M,
           "max_abs_err": {k: e for k, (e, _) in worst.items()},
           "tol_ratio": {k: r for k, (_, r) in worst.items()},
-          "tol": {k: SGD_TOL[k] for k in worst},
+          "tol": {"losses": tol[loss_key], "grads": tol["grads"]},
           "kernel_ms": k_ms, "plain_ms": p_ms})
     require(all(r <= 1.0 for _, r in worst.values()),
-            f"K4 differs from autograd: {worst}")
-    fwd, dx = mlp_macs(rs.params)
+            f"{K} differs from autograd: {worst}")
+    fwd, dx = ff_macs(rs.params)
     bnd = bound(nbytes(traj.obs, traj.action, traj.log_prob, traj.value,
                        adv_n, targets) / M + 2 * nbytes(rs.params),
                 2.0 * (2 * fwd + dx) * traj.action.numel() / M)
@@ -953,7 +1025,8 @@ def run_updates(tr, n, what, dev):
 
 
 def serve_mlp(cfg, tr, rs):
-    """The trained MLP policy served on the run's last observations."""
+    """The trained feed-forward (MLP or CNN) policy served on the run's
+    last observations."""
     tr.model.load_state_dict(rs.params)
     acts, _ = Policy(cfg, tr.model).compute_actions(rs.obs)
     with torch.no_grad():
@@ -1029,6 +1102,25 @@ def rnn_train_phase(dev, cfg, arch):
             f"31-40 is below {RNN_LEARN_MIN}")
 
 
+def cnn_train_phase(dev, cfg):
+    """The first 50 config-4 CNN PPO updates of a 300-update run through
+    the kernels, then 3 of the plain path from the same initial state, then
+    the trained policy served."""
+    tr = make_train(cfg, TrainConfig(num_updates=CNN_SCHEDULE), arch="cnn",
+                    device=dev)
+    rs, out = run_updates(tr, CNN_UPDATES, "cnn_train", dev)
+    serve_mlp(cfg, tr, rs)
+    deliveries = out["deliveries_per_env_step"]
+    late = sum(deliveries[-10:]) / 10
+    emit({"phase": "cnn_train", **out,
+          "deliveries_at": {u: deliveries[u - 1]
+                            for u in range(10, CNN_UPDATES + 1, 10)},
+          "deliveries_41_50": late, "learn_min": CNN_LEARN_MIN})
+    require(late >= CNN_LEARN_MIN,
+            f"cnn_train: deliveries/env-step {late} over updates 41-50 is "
+            f"below {CNN_LEARN_MIN}")
+
+
 # Each kernel's wrapper, where its launch count lives.
 COUNTED = {"greedy_rollout": rollout.greedy_steps,
            "ppo_rollout": act.act_steps,
@@ -1038,7 +1130,10 @@ COUNTED = {"greedy_rollout": rollout.greedy_steps,
            "impala_minibatch_grads": vtrace_sgd.impala_minibatch_grads,
            "ppo_rnn_rollout": act_rnn.act_rnn_steps,
            "ppo_rnn_sgd_phase": sgd_rnn.ppo_rnn_sgd_phase,
-           "ppo_rnn_minibatch_grads": sgd_rnn.ppo_rnn_minibatch_grads}
+           "ppo_rnn_minibatch_grads": sgd_rnn.ppo_rnn_minibatch_grads,
+           "ppo_rollout_cnn": act.act_cnn_steps,
+           "ppo_cnn_sgd_phase": sgd_cnn.ppo_cnn_sgd_phase,
+           "ppo_cnn_minibatch_grads": sgd_cnn.ppo_cnn_minibatch_grads}
 
 
 def main_path(name, fn, kernels):
@@ -1054,14 +1149,19 @@ def main_path(name, fn, kernels):
     return counts
 
 
-def rnn_profile(dev, cfg, arch):
-    """``torch.profiler`` over 3 config-4 recurrent updates (after 2 of
-    warm-up): device milliseconds per update by kernel name, the device's
-    busy share of the profiled wall."""
+def update_profile(dev, cfg, arch):
+    """``torch.profiler`` over 3 config-4 updates of the recurrent
+    (``arch`` "gru" / "lstm") or the CNN trainer (after 2 of warm-up):
+    device milliseconds per update by kernel name, the device's busy share
+    of the profiled wall."""
     from torch.profiler import ProfilerActivity, profile
 
-    tr = make_train_rnn(cfg, TrainConfig(num_updates=RNN_SCHEDULE), arch,
-                        device=dev)
+    if arch == "cnn":
+        tr = make_train(cfg, TrainConfig(num_updates=CNN_SCHEDULE),
+                        arch="cnn", device=dev)
+    else:
+        tr = make_train_rnn(cfg, TrainConfig(num_updates=RNN_SCHEDULE), arch,
+                            device=dev)
     rs = tr.init(rng.prng_key(0, dev))
     for _ in range(2):
         rs, _ = tr.train_step(rs)
@@ -1078,7 +1178,7 @@ def rnn_profile(dev, cfg, arch):
                    if getattr(e, "device_time_total", 0.0) > 0
                    and e.device_type.name != "CPU"), reverse=True)
     busy = sum(ms for ms, _, _ in rows)
-    emit({"phase": "rnn_profile", "arch": arch, "updates": n,
+    emit({"phase": "update_profile", "arch": arch, "updates": n,
           "profiled_wall_ms_per_update": wall_ms / n,
           "device_ms_per_update": busy,
           "device_busy_share": busy * n / wall_ms,
@@ -1101,9 +1201,12 @@ def main(argv=()) -> int:
     build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
     print(build.build_log(), file=sys.stderr)
-    if "--profile-rnn" in argv:  # a profile instead of the smoke run
-        for arch in ("gru", "lstm"):
-            rnn_profile(dev, medium_config(), arch)
+    profiled = [a for flag, archs in (("--profile-rnn", ("gru", "lstm")),
+                                      ("--profile-cnn", ("cnn",)))
+                if flag in argv for a in archs]
+    if profiled:  # a profile instead of the smoke run
+        for arch in profiled:
+            update_profile(dev, medium_config(), arch)
         print(nvidia_smi(), flush=True)
         return 0
 
@@ -1131,6 +1234,13 @@ def main(argv=()) -> int:
     k9_check(dev, cfg, "lstm")
     checks["ppo_rnn_sgd_phase"] = k8_check(dev, cfg, "gru")
     checks["ppo_rnn_minibatch_grads"] = k9_check(dev, cfg, "gru")
+    # The CNN kernels, against true convolutions (cuDNN, TF32 off above).
+    checks["ppo_rollout_cnn"] = k2_check(dev, "medium", cfg,
+                                         cnn_model(cfg, dev))
+    k2_check(dev, "shelves", shelves, cnn_model(shelves, dev),
+             mask_actions=True)
+    checks["ppo_cnn_sgd_phase"] = k3_check(dev, cfg, cnn=True)
+    checks["ppo_cnn_minibatch_grads"] = k4_check(dev, cfg, cnn=True)
 
     # ---- the main paths: each counted from just before it -------------
     rnn_kernels = ["ppo_rnn_rollout", "ppo_rnn_sgd_phase",
@@ -1148,7 +1258,10 @@ def main(argv=()) -> int:
         main_path("rnn_train_gru", lambda: rnn_train_phase(dev, cfg, "gru"),
                   rnn_kernels),
         main_path("rnn_train_lstm", lambda: rnn_train_phase(dev, cfg, "lstm"),
-                  rnn_kernels)]
+                  rnn_kernels),
+        main_path("cnn_train", lambda: cnn_train_phase(dev, cfg),
+                  ["ppo_rollout_cnn", "ppo_cnn_sgd_phase",
+                   "ppo_cnn_minibatch_grads"])]
     launches = {k: sum(p[k] for p in paths) for k in COUNTED}
 
     csrc = "warehouse_tpu_torch/kernels/csrc/"
@@ -1162,7 +1275,10 @@ def main(argv=()) -> int:
                                    "pallas/vtrace_sgd.py:553"),
         "ppo_rnn_rollout": ("act_rnn.cu", "pallas/act.py:747"),
         "ppo_rnn_sgd_phase": ("sgd_rnn.cu", "pallas/sgd_rnn.py:551"),
-        "ppo_rnn_minibatch_grads": ("sgd_rnn.cu", "pallas/sgd_rnn.py:665")}
+        "ppo_rnn_minibatch_grads": ("sgd_rnn.cu", "pallas/sgd_rnn.py:665"),
+        "ppo_rollout_cnn": ("act_cnn.cu", "pallas/act.py:1073"),
+        "ppo_cnn_sgd_phase": ("sgd_cnn.cu", "pallas/sgd_cnn.py:482"),
+        "ppo_cnn_minibatch_grads": ("sgd_cnn.cu", "pallas/sgd_cnn.py:595")}
     # library_ms: no single PyTorch call computes a whole rollout or a
     # whole learner phase, so it is null for every kernel here.
     emit({"kernels": [

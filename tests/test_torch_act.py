@@ -127,7 +127,7 @@ def test_boundary_reset_matches_autoreset_path(setup):
 
 @pytest.mark.parametrize("option", [
     {"mask_actions": True, "shaping_coef": 0.1}, {"shaping_coef": 0.1},
-    {"policy_groups": (0, 1)}, {"arch": "cnn"}])
+    {"policy_groups": (0, 1)}, {"arch": "attn"}])
 def test_unsupported_options_raise(setup, option):
     _, _, m, _, ts, _ = setup
     with pytest.raises(NotImplementedError):

@@ -32,6 +32,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # the CNN twins' convolutions
     return torch.device("cuda")
 
 
@@ -445,4 +446,119 @@ def test_rnn_minibatch_grads_kernel_matches_autograd(layers, arch, mask_on,
         torch.cuda.synchronize()
         for a, b in zip((l_k, *aux_k), (l_r, *aux_r)):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-6)
+        assert_close_tree(g_k, g_r, 1e-4, 1e-6, f"grads mb={mb}")
+
+
+# ---- K10: the CNN acting kernel ----------------------------------------------
+
+@pytest.mark.parametrize("mask_on", [False, True])
+@pytest.mark.parametrize("name,hidden", [("small", 16), ("medium", 128),
+                                         ("shelves", 32), ("large", 16)])
+def test_cnn_act_kernel_matches_plain_path(name, hidden, mask_on, dev):
+    """K10: its actions replayed through the plain engine give bit-equal
+    obs, rewards, deliveries and final state (and, masked, the mask of
+    ``valid_action_mask`` with no masked move sampled); logits, values and
+    log-probs within 1e-4 of the plain ``ActorCriticCNN`` on the kernel's
+    observations (f32 sums in another order). N = 1000 envs: the last
+    block is ragged."""
+    from warehouse_tpu_torch.kernels.act import act_cnn_steps
+
+    cfg, steps, A = PRESETS[name], 8, PRESETS[name].num_agents
+    m = make_model(cfg, "cnn", hidden_dim=hidden,
+                   generator=torch.Generator().manual_seed(0), device=dev)
+    state, _ = reset(cfg, 8, dev)
+    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, steps)
+    _, g = rng.batched_gumbel_stream(rng.prng_key(4, dev), steps, (5, N * A))
+    logits_k = torch.empty(steps, N, A, 5, device=dev)
+    mask = (torch.zeros(steps, N, A, 5, dtype=torch.bool, device=dev)
+            if mask_on else None)
+    before = act_cnn_steps.launches
+    new, obs, action, lp, value, reward, delivered = act_cnn_steps(
+        cfg, m, state, u, pick, drop, g, logits=logits_k, mask=mask)
+    torch.cuda.synchronize()
+    assert act_cnn_steps.launches == before + 1
+    s = state
+    for t in range(steps):
+        if mask_on:
+            assert torch.equal(mask[t], valid_action_mask(cfg, s.agent_pos))
+            assert bool(mask[t].gather(-1, action[t].long()[..., None]).all())
+        assert torch.equal(batch.observe_batch(cfg, s), obs[t])
+        s, ts = batch.step_batch(cfg, s, action[t])
+        assert torch.equal(ts.reward, reward[t])
+        assert torch.equal(ts.delivered.sum(-1, dtype=torch.int32),
+                           delivered[t])
+    for f in STATE_FIELDS[:-2]:  # t and key are the wrapper's
+        assert torch.equal(getattr(s, f), getattr(new, f)), f
+    with torch.no_grad():
+        logits, v = m(obs)
+    assert float((logits - logits_k).abs().max()) < 1e-4
+    if mask_on:
+        logits = torch.where(mask, logits, -1e9)
+    lp_plain = torch.log_softmax(logits, -1).gather(
+        -1, action.long()[..., None])[..., 0]
+    assert float((v - value).abs().max()) < 1e-4
+    assert float((lp_plain - lp).abs().max()) < 1e-4
+
+
+# ---- K11 / K12: the CNN SGD phase and per-minibatch gradients ----------------
+
+@pytest.mark.parametrize("mask_on", [False, True])
+@pytest.mark.parametrize("name,hidden", [("medium", 16), ("medium", 128),
+                                         ("small", 32), ("shelves", 32)])
+def test_cnn_sgd_phase_kernel_matches_twin(name, hidden, mask_on, dev):
+    """K11 against autograd through the true convolutions + optim.py on
+    the same inputs (E = 2, M = 4, 5 x 25 x A samples per minibatch: a
+    ragged tile), at K3's tolerances, and bit-equal to itself on a
+    rerun."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.kernels.sgd_cnn import (
+        ppo_cnn_sgd_phase, ppo_cnn_sgd_phase_reference)
+    from warehouse_tpu_torch.optim import make_optimizer
+
+    cfg = PRESETS[name]
+    params, opt, traj, adv_n, targets = sgd_batch(cfg, hidden, dev, arch="cnn")
+    rows = make_optimizer(TrainConfig(num_updates=4)).step_rows(
+        opt.count, SGD_E * SGD_M, dev)
+    args = (params, opt, traj, adv_n, targets, *rows, 0.01, 0.05)
+    kw = dict(num_epochs=SGD_E, num_minibatches=SGD_M, max_grad_norm=0.5,
+              mask_actions=mask_on, **SGD_KW)
+    p_k, o_k, l_k = ppo_cnn_sgd_phase(*args, **kw)
+    p_r, o_r, l_r = ppo_cnn_sgd_phase_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert o_k.count == o_r.count == opt.count + SGD_E * SGD_M
+    # f32 sums in another order (per-CTA and split-K partials vs cuDNN and
+    # cuBLAS), 8 steps.
+    for a, b in zip(l_k, l_r):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-6)
+    assert_close_tree(p_k, p_r, 1e-5, 1e-6, "params")
+    assert_close_tree(o_k.mu, o_r.mu, 1e-5, 1e-7, "mu")
+    assert_close_tree(o_k.nu, o_r.nu, 1e-5, 1e-10, "nu")
+    p_2, o_2, l_2 = ppo_cnn_sgd_phase(*args, **kw)
+    for k in p_k:
+        assert torch.equal(p_k[k], p_2[k]) and torch.equal(o_k.nu[k],
+                                                           o_2.nu[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(l_k, l_2))
+
+
+@pytest.mark.parametrize("mask_on", [False, True])
+@pytest.mark.parametrize("hidden", [16, 32, 128])
+def test_cnn_minibatch_grads_kernel_matches_autograd(hidden, mask_on, dev):
+    """K12 against autograd through the true convolutions, every
+    minibatch (grads rtol 1e-4 / atol 1e-6, losses atol 1e-6: the JAX
+    suite's bounds for the TPU kernel)."""
+    from warehouse_tpu_torch.kernels.sgd_cnn import (
+        ppo_cnn_minibatch_grads, ppo_cnn_minibatch_grads_reference)
+
+    cfg = medium_config()
+    params, _, traj, adv_n, targets = sgd_batch(cfg, hidden, dev, seed=3,
+                                                arch="cnn")
+    kw = dict(num_minibatches=SGD_M, mask_actions=mask_on, **SGD_KW)
+    for mb in range(SGD_M):
+        (l_k, aux_k), g_k = ppo_cnn_minibatch_grads(
+            params, traj, adv_n, targets, mb, 0.01, 0.05, **kw)
+        (l_r, aux_r), g_r = ppo_cnn_minibatch_grads_reference(
+            params, traj, adv_n, targets, mb, 0.01, 0.05, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip((l_k, *aux_k), (l_r, *aux_r)):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
         assert_close_tree(g_k, g_r, 1e-4, 1e-6, f"grads mb={mb}")

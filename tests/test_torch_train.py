@@ -129,7 +129,7 @@ def test_train_many_runs_and_learns_something():
 
 
 @pytest.mark.parametrize("change, error", [
-    (dict(arch="cnn"), NotImplementedError),
+    (dict(arch="attn"), NotImplementedError),
     (dict(policy_groups=(0, 1)), NotImplementedError),
     (dict(mesh=object()), NotImplementedError),
     (dict(mask_actions=True, shaping_coef=0.05), NotImplementedError),
@@ -171,7 +171,7 @@ def test_cli_runs_two_updates(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--algo", "impala", "--micro-batches",
-                                    "2"], ["--arch", "cnn"],
+                                    "2"], ["--arch", "attn"],
                                    ["--policy-groups", "0,1"],
                                    ["--tensorboard-dir", "tb"],
                                    ["--shaping-coef", "0.1"], ["--resume"],

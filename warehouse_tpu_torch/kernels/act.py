@@ -1,23 +1,34 @@
-"""K2: the PPO acting-phase kernel (MLP policy) and its plain twin.
+"""K2 and K10: the PPO acting-phase kernels (MLP and CNN policy) and
+their plain twin.
 
 Counterpart of ``warehouse_tpu/pallas/act.py`` ``ppo_rollout_pallas``,
-MLP arm. ``ppo_rollout`` runs T acting steps — observe, MLP forward,
-gumbel-argmax sample, env tick — and returns ``(EnvState, ActRollout,
-reset_key_last, next_key)`` like the JAX wrapper: ``reset_key_last`` is
-the reset key of the chunk's last tick, which the caller hands to
+its MLP arm (K2) and its CNN arm (K10, ``arch="cnn"``). ``ppo_rollout``
+runs T acting steps — observe, policy forward, gumbel-argmax sample, env
+tick — and returns ``(EnvState, ActRollout, reset_key_last, next_key)``
+like the JAX wrapper: ``reset_key_last`` is the reset key of the chunk's
+last tick, which the caller hands to
 ``env.batch.reset_truncated_batch`` for the episode-boundary reset. The
 env draws come from ``rng.batched_step_draws`` and the gumbel noise from
 ``rng.batched_gumbel_stream(key, T, (5, B*A))``, the streams the JAX
-wrapper feeds its kernel. On a CUDA tensor the CUDA kernel
-(``csrc/act.cu``) runs; on a CPU tensor the plain twin does.
+wrapper feeds its kernel. On a CUDA tensor the CUDA kernel runs
+(``csrc/act.cu`` for the MLP, ``csrc/act_cnn.cu`` for the CNN); on a CPU
+tensor the plain twin does, which calls the model and so serves both.
 
 With ``mask_actions`` the logits of moves off the grid or into a wall
 (``ops.move.valid_action_mask`` of the pre-tick positions) are floored to
 -1e9 before the sample and the log-softmax (``pallas/act.py:415-428``),
 and the mask is returned in ``ActRollout.mask``. Reward shaping, global
-observations inside the kernel, policy groups and the CNN torso are not
-ported yet; ``ppo_rollout`` raises ``NotImplementedError`` for them. The
-recurrent policies act through ``kernels.act_rnn.ppo_rnn_rollout``.
+observations inside the kernel and policy groups are not ported yet;
+``ppo_rollout`` raises ``NotImplementedError`` for them, and for the
+attention torso. The recurrent policies act through
+``kernels.act_rnn.ppo_rnn_rollout``.
+
+``pack_cnn`` / ``unpack_cnn`` give the CNN kernels' flat parameter vector
+(K10-K12; the layout of ``csrc/cnn_net.cuh``): each conv kernel as ``[9
+OC, IC]`` (row ``k OC + oc``, the packed layout of
+``pallas/sgd_cnn.py`` ``flat_cnn_tensors``), its bias, the trunk ``[H,
+in]`` and bias, the head as the 6 x H stack of the logits and value rows
+and its 6 biases.
 """
 
 from __future__ import annotations
@@ -31,7 +42,8 @@ from ..config import EnvConfig
 from .. import rng as _rng
 from ..env import engine
 from ..env.state import EnvState
-from ..models.policy import ActorCriticMLP
+from ..models.policy import (ActorCriticCNN, ActorCriticMLP, cnn_dims,
+                             num_conv)
 from ..ops.move import valid_action_mask
 from ..ops.obs import inv_side
 from ..ops.ppo_update import NEG_INF, sample_action_with_gumbel
@@ -54,16 +66,15 @@ class ActRollout(NamedTuple):
     raw_reward: torch.Tensor  # float32[T, B, A], == reward (no shaping)
 
 
-def act_steps_reference(cfg: EnvConfig, model: ActorCriticMLP,
-                        state: EnvState, u, pick, drop, g, logits=None,
-                        mask=None):
-    """Plain PyTorch twin of the kernel: T = ``u.shape[0]`` steps of
-    observe -> MLP -> sample -> ``engine.tick`` on the given draws and
-    gumbel noise ``g [T, 5, B*A]``. Returns ``(state, obs, action,
-    log_prob, value, reward, delivered)``, each stacked over T. A
-    ``logits [T, B, A, 5]`` tensor, if given, receives the MLP's logits; a
-    bool ``mask [T, B, A, 5]``, if given, turns action masking on and
-    receives the valid-action mask."""
+def act_steps_reference(cfg: EnvConfig, model, state: EnvState, u, pick,
+                        drop, g, logits=None, mask=None):
+    """Plain PyTorch twin of both kernels: T = ``u.shape[0]`` steps of
+    observe -> model (MLP or CNN) -> sample -> ``engine.tick`` on the
+    given draws and gumbel noise ``g [T, 5, B*A]``. Returns ``(state, obs,
+    action, log_prob, value, reward, delivered)``, each stacked over T. A
+    ``logits [T, B, A, 5]`` tensor, if given, receives the model's
+    logits; a bool ``mask [T, B, A, 5]``, if given, turns action masking
+    on and receives the valid-action mask."""
     outs = []
     with torch.no_grad():
         for t in range(u.shape[0]):
@@ -101,17 +112,21 @@ def packed_weights(model: ActorCriticMLP, device) -> tuple[torch.Tensor,
     return flat.to(device).contiguous(), dims
 
 
-def act_steps(cfg: EnvConfig, model: ActorCriticMLP, state: EnvState, u,
-              pick, drop, g, logits=None, mask=None):
+def act_steps(cfg: EnvConfig, model, state: EnvState, u, pick, drop, g,
+              logits=None, mask=None):
     """T acting steps on precomputed draws and gumbel noise: the CUDA
-    kernel for CUDA tensors, the plain twin for CPU tensors. Same
-    arguments and returns as ``act_steps_reference``."""
+    kernel for CUDA tensors (K2 for an MLP, K10 through ``act_cnn_steps``
+    for a CNN), the plain twin for CPU tensors. Same arguments and returns
+    as ``act_steps_reference``."""
     dev = state.agent_pos.device
     if dev.type == "cpu":
         return act_steps_reference(cfg, model, state, u, pick, drop, g,
                                    logits, mask)
     if dev.type != "cuda":
         raise ValueError(f"act_steps: unsupported device {dev}")
+    if isinstance(model, ActorCriticCNN):
+        return act_cnn_steps(cfg, model, state, u, pick, drop, g, logits,
+                             mask)
     check_kernel_shape(cfg)
     A, D = cfg.num_agents, cfg.obs_dim
     B, T = state.agent_pos.shape[0], u.shape[0]
@@ -127,63 +142,188 @@ def act_steps(cfg: EnvConfig, model: ActorCriticMLP, state: EnvState, u,
         raise ValueError(
             f"act kernel needs {smem} bytes of shared memory per block for "
             f"layer widths {dims}; the card allows {limit}")
-    ins = kernel_state(state)
-    draws = [u.to(torch.float32).contiguous(),
-             pick.to(torch.int32).contiguous(),
-             drop.to(torch.int32).contiguous(),
-             g.to(torch.float32).contiguous()]
-    if any(x.shape != (T, B) for x in draws[:3]) or g.shape != (T, 5, B * A):
-        raise ValueError("draws must be [T, B] and gumbel [T, 5, B*A]")
-    for name, out, dtype in (("logits", logits, torch.float32),
-                             ("mask", mask, torch.bool)):
-        if out is not None and (
-                out.shape != (T, B, A, 5) or out.dtype != dtype
-                or out.device != dev or not out.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {dtype} "
-                             f"[T, B, A, 5] tensor on {dev}")
-    outs = [torch.empty_like(x) for x in ins]
-    obs = torch.empty(T, B, A, D, dtype=torch.float32, device=dev)
-    action = torch.empty(T, B, A, dtype=torch.int32, device=dev)
-    log_prob, value, reward = (torch.empty(T, B, A, device=dev)
-                               for _ in range(3))
-    delivered = torch.empty(T, B, dtype=torch.int32, device=dev)
-    walls = wall_mask(cfg, dev)
+    io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask)
     err = lib.wh_act_rollout(
-        A, cfg.queue_capacity, B, T, cfg.height, cfg.width,
-        f32(cfg.spawn_prob), cfg.window_size, cfg.obs_radius, D,
-        inv_side(cfg.height), inv_side(cfg.width), f32(cfg.step_penalty),
-        f32(cfg.pickup_reward), f32(cfg.delivery_reward),
-        f32(cfg.collision_penalty), len(dims) - 1, build.int_array(dims),
-        walls.data_ptr(), weights.data_ptr(), weights.numel(),
-        *(x.data_ptr() for x in ins), *(x.data_ptr() for x in draws),
-        *(x.data_ptr() for x in outs), obs.data_ptr(), action.data_ptr(),
-        log_prob.data_ptr(), value.data_ptr(), reward.data_ptr(),
-        delivered.data_ptr(),
-        None if logits is None else logits.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        build.stream_handle(dev))
+        *io.env_args(cfg), len(dims) - 1, build.int_array(dims),
+        io.walls.data_ptr(), weights.data_ptr(), weights.numel(),
+        *io.tensor_ptrs(), build.stream_handle(dev))
     build.check(err, "ppo_rollout kernel launch")
     act_steps.launches += 1
-    new = state_from_kernel(outs, state.t, state.key)
-    return new, obs, action, log_prob, value, reward, delivered
+    return io.results(state)
 
 
 act_steps.launches = 0
 
 
-def _check_options(cfg, shaping_coef, policy_groups, arch):
+class _KernelIO:
+    """The tensors the acting kernels K2 and K10 share, checked: the env
+    state in the kernels' layout, the draws, and the outputs allocated."""
+
+    def __init__(self, cfg, state, u, pick, drop, g, logits, mask):
+        dev = state.agent_pos.device
+        A, D = cfg.num_agents, cfg.obs_dim
+        B, T = state.agent_pos.shape[0], u.shape[0]
+        self.B, self.T = B, T
+        self.ins = kernel_state(state)
+        self.draws = [u.to(torch.float32).contiguous(),
+                      pick.to(torch.int32).contiguous(),
+                      drop.to(torch.int32).contiguous(),
+                      g.to(torch.float32).contiguous()]
+        if (any(x.shape != (T, B) for x in self.draws[:3])
+                or g.shape != (T, 5, B * A)):
+            raise ValueError("draws must be [T, B] and gumbel [T, 5, B*A]")
+        for name, out, dtype in (("logits", logits, torch.float32),
+                                 ("mask", mask, torch.bool)):
+            if out is not None and (
+                    out.shape != (T, B, A, 5) or out.dtype != dtype
+                    or out.device != dev or not out.is_contiguous()):
+                raise ValueError(f"{name} must be a contiguous {dtype} "
+                                 f"[T, B, A, 5] tensor on {dev}")
+        self.logits, self.mask = logits, mask
+        self.outs = [torch.empty_like(x) for x in self.ins]
+        self.obs = torch.empty(T, B, A, D, dtype=torch.float32, device=dev)
+        self.action = torch.empty(T, B, A, dtype=torch.int32, device=dev)
+        self.log_prob, self.value, self.reward = (
+            torch.empty(T, B, A, device=dev) for _ in range(3))
+        self.delivered = torch.empty(T, B, dtype=torch.int32, device=dev)
+        self.walls = wall_mask(cfg, dev)
+
+    def env_args(self, cfg) -> tuple:
+        """The leading scalar arguments of both C entry points."""
+        return (cfg.num_agents, cfg.queue_capacity, self.B, self.T,
+                cfg.height, cfg.width, f32(cfg.spawn_prob), cfg.window_size,
+                cfg.obs_radius, cfg.obs_dim, inv_side(cfg.height),
+                inv_side(cfg.width), f32(cfg.step_penalty),
+                f32(cfg.pickup_reward), f32(cfg.delivery_reward),
+                f32(cfg.collision_penalty))
+
+    def tensor_ptrs(self) -> list:
+        """State in, draws, state out, trajectory out, logits and mask."""
+        return [*(x.data_ptr() for x in self.ins),
+                *(x.data_ptr() for x in self.draws),
+                *(x.data_ptr() for x in self.outs), self.obs.data_ptr(),
+                self.action.data_ptr(), self.log_prob.data_ptr(),
+                self.value.data_ptr(), self.reward.data_ptr(),
+                self.delivered.data_ptr(),
+                None if self.logits is None else self.logits.data_ptr(),
+                None if self.mask is None else self.mask.data_ptr()]
+
+    def results(self, state):
+        new = state_from_kernel(self.outs, state.t, state.key)
+        return (new, self.obs, self.action, self.log_prob, self.value,
+                self.reward, self.delivered)
+
+
+# ---- K10: the CNN arm ---------------------------------------------------------
+
+def cnn_layout(params) -> list[str]:
+    """The keys of a CNN params dict in the packed vector's order."""
+    keys = [f"conv.{i}.{x}" for i in range(num_conv(params))
+            for x in ("weight", "bias")]
+    return keys + ["trunk.weight", "trunk.bias", "logits.weight",
+                   "value.weight", "logits.bias", "value.bias"]
+
+
+def pack_cnn(tree) -> torch.Tensor:
+    """A CNN params-shaped dict as the kernels' flat float32 vector; a
+    conv kernel ``[OC, IC, 3, 3]`` goes in as ``[3, 3, OC, IC]``."""
+    parts = [tree[k].detach().permute(2, 3, 0, 1) if tree[k].dim() == 4
+             else tree[k].detach() for k in cnn_layout(tree)]
+    return torch.cat([x.reshape(-1) for x in parts]
+                     ).to(torch.float32).contiguous()
+
+
+def unpack_cnn(flat: torch.Tensor, like) -> dict:
+    """Inverse of ``pack_cnn``: tensors with ``like``'s keys and shapes
+    (views of ``flat``, but for the conv kernels, which are relaid)."""
+    out, off = {}, 0
+    for k in cnn_layout(like):
+        n, shape = like[k].numel(), like[k].shape
+        seg = flat[off:off + n]
+        if len(shape) == 4:
+            oc, ic = shape[:2]
+            out[k] = seg.view(3, 3, oc, ic).permute(2, 3, 0, 1).contiguous()
+        else:
+            out[k] = seg.view(shape)
+        off += n
+    return {k: out[k] for k in like}
+
+
+def cnn_kernel_dims(params, D: int) -> tuple[int, int, int, int, int]:
+    """``(S, C0, C1, C2, H)`` of a CNN params dict for the kernels, which
+    take two convs on the observation's grid and a 5-action head."""
+    S, chans, H = cnn_dims(params)
+    if len(chans) != 3 or D != S * S * chans[0] + 6:
+        raise ValueError(f"the CNN kernels take two convs on a {D}-wide "
+                         f"observation, got channels {chans} on a {S}x{S} "
+                         "grid")
+    if params["logits.weight"].shape != (5, H) or (
+            params["value.weight"].shape != (1, H)):
+        raise ValueError("the CNN kernels take a 5-action head and a value "
+                         "head on the trunk's output")
+    return (S, *chans, H)
+
+
+def act_cnn_steps(cfg: EnvConfig, model: ActorCriticCNN, state: EnvState, u,
+                  pick, drop, g, logits=None, mask=None):
+    """T acting steps of the CNN policy on precomputed draws and gumbel
+    noise: the CUDA kernel (K10) for CUDA tensors, the plain twin for CPU
+    tensors. Same arguments and returns as ``act_steps_reference``."""
+    dev = state.agent_pos.device
+    if dev.type == "cpu":
+        return act_steps_reference(cfg, model, state, u, pick, drop, g,
+                                   logits, mask)
+    if dev.type != "cuda":
+        raise ValueError(f"act_cnn_steps: unsupported device {dev}")
+    check_kernel_shape(cfg)
+    params = dict(model.named_parameters())
+    net = cnn_kernel_dims(params, cfg.obs_dim)
+    if net[0] != cfg.window_size:
+        raise ValueError(f"the model's {net[0]}x{net[0]} grid is not the "
+                         f"env's {cfg.window_size}-wide ego window")
+    lib = build.library()
+    smem = lib.wh_act_cnn_smem_bytes(cfg.num_agents, cfg.queue_capacity, *net)
+    limit = getattr(torch.cuda.get_device_properties(dev),
+                    "shared_memory_per_block_optin", smem)
+    if not 0 < smem <= limit:
+        raise ValueError(
+            f"CNN act kernel needs {smem} bytes of shared memory per block "
+            f"for (S, channels, hidden) = {net}; the card allows {limit}")
+    weights = pack_cnn(params).to(dev)
+    if weights.numel() != lib.wh_cnn_param_floats(*net):
+        raise ValueError("packed params do not fit the kernel's layout")
+    trunk_t = torch.empty(params["trunk.weight"].numel(),
+                          dtype=torch.float32, device=dev)
+    io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask)
+    err = lib.wh_act_cnn_rollout(
+        *io.env_args(cfg), *net[1:], io.walls.data_ptr(), weights.data_ptr(),
+        trunk_t.data_ptr(), *io.tensor_ptrs(), build.stream_handle(dev))
+    build.check(err, "ppo_rollout (cnn) kernel launch")
+    act_cnn_steps.launches += 1
+    return io.results(state)
+
+
+act_cnn_steps.launches = 0
+
+
+def _check_options(cfg, model, shaping_coef, policy_groups, arch):
     if cfg.auto_reset:
         raise ValueError("ppo_rollout: auto_reset is handled by the caller")
     if arch in ("gru", "lstm"):
         raise ValueError(f"ppo_rollout: arch={arch!r} acts through "
                          "kernels.act_rnn.ppo_rnn_rollout")
-    for name, unsupported in (("shaping_coef", shaping_coef > 0.0),
-                              ("global_obs", cfg.global_obs),
-                              ("policy_groups", policy_groups is not None),
-                              (f"arch={arch!r}", arch != "mlp")):
+    for name, unsupported, item in (
+            ("shaping_coef", shaping_coef > 0.0, 1),
+            ("global_obs", cfg.global_obs, 1),
+            ("policy_groups", policy_groups is not None, 1),
+            (f"arch={arch!r}", arch not in ("mlp", "cnn"), 10)):
         if unsupported:
             raise NotImplementedError(
-                f"ppo_rollout: {name} is not ported yet")
+                f"ppo_rollout: {name} is not ported yet (ROADMAP §B item "
+                f"{item})")
+    if isinstance(model, ActorCriticCNN) != (arch == "cnn"):
+        raise ValueError(f"ppo_rollout: arch={arch!r} does not fit a "
+                         f"{type(model).__name__}")
 
 
 def chunk_rollout(run_steps, cfg: EnvConfig, state: EnvState, T: int,
@@ -213,30 +353,30 @@ def chunk_rollout(run_steps, cfg: EnvConfig, state: EnvState, T: int,
     return (new, roll, reset_keys[-1], next_key, *rest)
 
 
-def _rollout(steps, cfg: EnvConfig, model: ActorCriticMLP, state: EnvState,
+def _rollout(steps, cfg: EnvConfig, model, state: EnvState,
              T: int, key: torch.Tensor, mask_actions: bool = False,
              shaping_coef: float = 0.0, policy_groups=None,
              arch: str = "mlp"):
-    _check_options(cfg, shaping_coef, policy_groups, arch)
+    _check_options(cfg, model, shaping_coef, policy_groups, arch)
     return chunk_rollout(
         lambda u, pick, drop, g, mask: steps(cfg, model, state, u, pick,
                                              drop, g, mask=mask),
         cfg, state, T, key, mask_actions)
 
 
-def ppo_rollout(cfg: EnvConfig, model: ActorCriticMLP, state: EnvState,
-                T: int, key: torch.Tensor, **options):
-    """T acting steps of the MLP policy, through the kernel on a CUDA
-    state: ``(EnvState, ActRollout, reset_key_last, next_key)``.
-    ``options`` (``mask_actions``, ``shaping_coef``, ``policy_groups``,
-    ``arch``) take the JAX wrapper's names; ``mask_actions`` is ported,
-    the others only at their defaults."""
+def ppo_rollout(cfg: EnvConfig, model, state: EnvState, T: int,
+                key: torch.Tensor, **options):
+    """T acting steps of the MLP policy or, with ``arch="cnn"``, of the
+    CNN policy, through its kernel on a CUDA state: ``(EnvState,
+    ActRollout, reset_key_last, next_key)``. ``options``
+    (``mask_actions``, ``shaping_coef``, ``policy_groups``, ``arch``) take
+    the JAX wrapper's names; ``mask_actions`` and ``arch`` "mlp" / "cnn"
+    are ported, the others only at their defaults."""
     return _rollout(act_steps, cfg, model, state, T, key, **options)
 
 
-def ppo_rollout_reference(cfg: EnvConfig, model: ActorCriticMLP,
-                          state: EnvState, T: int, key: torch.Tensor,
-                          **options):
+def ppo_rollout_reference(cfg: EnvConfig, model, state: EnvState, T: int,
+                          key: torch.Tensor, **options):
     """The plain PyTorch twin of ``ppo_rollout`` on any device."""
     return _rollout(act_steps_reference, cfg, model, state, T, key,
                     **options)

@@ -54,12 +54,23 @@ SIGNATURES = {
                         + [P] * 4,
     "wh_rnn_sgd_clip_adam": [I, IP, I, I, I, L, I, I, I] + [P] * 7 + [F] * 6
                             + [P] * 2,
+    "wh_cnn_param_floats": [I] * 5,
+    "wh_act_cnn_smem_bytes": [I] * 7,
+    "wh_act_cnn_rollout": [I, I, L, I, I, I, F, I, I, I, F, F, F, F, F, F, I,
+                           I, I, I] + [P] * 30,
+    "wh_cnn_sgd_smem_bytes": [I] * 5,
+    "wh_cnn_sgd_workspace_floats": [I] * 6 + [L, I, I],
+    "wh_cnn_sgd_grads": [I] * 6 + [L, I, I, I] + [P] * 9 + [F] * 5 + [P] * 4,
+    "wh_cnn_sgd_clip_adam": [I] * 6 + [L, I, I, I] + [P] * 7 + [F] * 6
+                            + [P] * 2,
 }
 RESTYPES = {"wh_act_smem_bytes": L, "wh_error_string": ctypes.c_char_p,
             "wh_sgd_smem_bytes": L, "wh_sgd_workspace_floats": L,
             "wh_vtrace_workspace_floats": L, "wh_rnn_param_floats": L,
             "wh_act_rnn_smem_bytes": L, "wh_rnn_sgd_smem_bytes": L,
-            "wh_rnn_sgd_workspace_floats": L}
+            "wh_rnn_sgd_workspace_floats": L, "wh_cnn_param_floats": L,
+            "wh_act_cnn_smem_bytes": L, "wh_cnn_sgd_smem_bytes": L,
+            "wh_cnn_sgd_workspace_floats": L}
 
 
 def nvcc_path() -> str:

@@ -1,0 +1,255 @@
+// K10: the PPO acting phase of the CNN policy, T steps in one launch.
+//
+// Replaces the CNN arm of warehouse_tpu/pallas/act.py ppo_rollout_pallas
+// (:1028 with arch="cnn": extract_cnn_weights :942, the layer loop of
+// _act_kernel :365-389 with n_relu / cnn_split, _obs_rows :138,
+// _sample_logprob :491 and the env tick of rollout.py:57), with its
+// action-masking option, without shaping, global obs or policy groups. Each
+// step, for every env of the CTA: build the ego-window observation of each
+// agent, run the two 3x3 SAME convolutions (relu) over its grid, join the
+// self features, run the tanh trunk and the fused logits + value head, with
+// masking floor the logits of invalid moves, sample argmax(logits + gumbel)
+// with the first-max tie rule, take the log-softmax of the chosen action,
+// tick the env.
+//
+// Layout: a CTA owns NE whole envs (the tick needs all A agents of an env),
+// NE * A <= 32 rows of (env, agent). Its rows' observations, both conv
+// outputs, the trunk's output and the env states stay in shared memory (~186
+// KB at S = 5, hidden 128) beside the two conv kernels (~25 KB); the trunk's
+// kernel does not fit with them (413 KB) and is read from device memory
+// through L2 each step, transposed once per launch (cnn_net.cuh). Device
+// memory sees the draws, the gumbel noise and the outputs. The convolution
+// is computed over its valid taps, not as the TPU kernel's unrolled dense
+// product. The bound is the FMA loops on the CUDA cores (about 403 kFLOP
+// per row and step at S = 5, channels 4 -> 16 -> 32, hidden 128).
+//
+// Exactness: observations, rewards and the env dynamics are bit-exact
+// against the plain engine (act_common.cuh, env_tick.cuh, shared with K2 and
+// K7); the policy outputs are held to a float32 tolerance.
+
+#include <cuda_runtime.h>
+
+#include "act_common.cuh"
+#include "cnn_net.cuh"
+#include "env_tick.cuh"
+
+namespace {
+
+// Envs per CTA: NE * A rows, a multiple of RRT, at most CROWS.
+template <int A>
+__host__ __device__ constexpr int cnn_envs_per_cta() {
+  return A == 6 ? 4 : CROWS / A;
+}
+
+struct ActCnnArgs {
+  long B;
+  int T;
+  wh::Geometry geo;
+  int S, k, D;         // window side, radius, obs dim
+  float inv_h, inv_w;  // float32 reciprocals of H and W
+  float step_penalty, pickup_reward, delivery_reward, collision_penalty;
+  CnnNet net;
+  const float* params;   // the packed vector (cnn_net.cuh)
+  const float* trunk_t;  // its trunk kernel transposed
+  const int *pos, *areq, *carry, *rpick, *rdrop, *rstat, *ragent;
+  const float* u;
+  const int *pick, *drop;
+  const float* gumbel;   // [T, 5, B * A]
+  int *o_pos, *o_areq, *o_carry, *o_rpick, *o_rdrop, *o_rstat, *o_ragent;
+  float* obs;            // [T, B, A, D]
+  int* action;           // [T, B, A]
+  float *log_prob, *value, *reward;  // [T, B, A]
+  int* delivered;        // [T, B]
+  float* logits;         // [T, B, A, 5] pre-mask logits, or null
+  unsigned char* mask;   // [T, B, A, 5] valid moves, or null: no masking
+};
+
+template <int A, int R>
+__global__ void __launch_bounds__(RNT) act_cnn_kernel(ActCnnArgs p) {
+  constexpr int NE = cnn_envs_per_cta<A>();
+  constexpr int ROWS = NE * A;
+  using ES = EnvSmem<A, R>;
+  extern __shared__ __align__(16) float smem[];
+  const CnnNet& net = p.net;
+  const ConvW cw = stage_conv(net, p.params, smem);
+  float* xa = smem + conv_smem_floats(net);
+  float* a0 = xa + ROWS * net.xs;
+  float* a1 = a0 + ROWS * net.a0s;
+  float* hs = a1 + ROWS * net.a1s;
+  float* head = hs + ROWS * net.H;
+  int* env_s = reinterpret_cast<int*>(head + ROWS * ROST);
+  int* act_s = env_s + NE * ES::SIZE;
+
+  const int tid = threadIdx.x;
+  const long b0 = (long)blockIdx.x * NE;
+  const int ne = (int)min((long)NE, p.B - b0);
+
+  if (tid < NE) {
+    wh::Env<A, R> e = {};  // rows past the batch end compute on zeros
+    if (tid < ne)
+      wh::load_env(e, b0 + tid, p.pos, p.areq, p.carry, p.rpick, p.rdrop,
+                   p.rstat, p.ragent);
+    ES::put(e, env_s + tid * ES::SIZE);
+  }
+  for (int idx = tid; idx < ROWS * net.xs; idx += RNT) xa[idx] = 0.f;
+  __syncthreads();
+
+  for (int t = 0; t < p.T; ++t) {
+    const long tb = (long)t * p.B + b0;  // first (t, b) of the CTA
+    // 1. Observations of the CTA's rows, row n = (env n / A, agent n % A).
+    for (int idx = tid; idx < ROWS * p.D; idx += RNT) {
+      const int n = idx / p.D, f = idx % p.D;
+      const float v = obs_value<A, R>(env_s + (n / A) * ES::SIZE, n % A, f, p);
+      xa[n * net.xs + f] = v;
+      if (n / A < ne) p.obs[tb * A * p.D + idx] = v;
+    }
+    __syncthreads();
+
+    // 2. Convolutions, trunk, fused head.
+    conv_forward(net, cw, xa, a0, a1, ROWS);
+    trunk_forward(net, p.trunk_t, p.params + net.bt, a1, hs, ROWS, nullptr, 0,
+                  0);
+    __syncthreads();
+    cnn_head(net, p.params, hs, head, ROWS);
+    __syncthreads();
+
+    // 3. Mask, sample, log-softmax (as K2).
+    if (tid < ROWS)
+      act_s[tid] = sample_row<A>(p, head + tid * ROST,
+                                 env_s + (tid / A) * ES::SIZE, tid,
+                                 tid / A < ne, t, b0);
+    __syncthreads();
+
+    // 4. Env tick and rewards, one thread per env.
+    if (tid < ne)
+      tick_env<A, R>(p, env_s + tid * ES::SIZE, act_s + tid * A, tb + tid);
+    __syncthreads();
+  }
+
+  if (tid < ne) {
+    wh::Env<A, R> e;
+    ES::get(env_s + tid * ES::SIZE, e);
+    wh::store_env(e, b0 + tid, p.o_pos, p.o_areq, p.o_carry, p.o_rpick,
+                  p.o_rdrop, p.o_rstat, p.o_ragent);
+  }
+}
+
+template <int A, int R>
+size_t act_cnn_smem(const CnnNet& net) {
+  constexpr int NE = cnn_envs_per_cta<A>();
+  return sizeof(float) * ((size_t)conv_smem_floats(net) +
+                          (size_t)NE * A * cnn_row_floats(net)) +
+         sizeof(int) * (NE * EnvSmem<A, R>::SIZE + NE * A);
+}
+
+template <int A, int R>
+struct CnnSmemBytes {
+  static void run(const CnnNet& net, size_t* out) {
+    *out = act_cnn_smem<A, R>(net);
+  }
+};
+
+template <int A, int R>
+struct LaunchActCnn {
+  static void run(const ActCnnArgs& p, cudaStream_t stream, int* err) {
+    constexpr int NE = cnn_envs_per_cta<A>();
+    const size_t smem = act_cnn_smem<A, R>(p.net);
+    cudaError_t e = cudaFuncSetAttribute(
+        act_cnn_kernel<A, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) {
+      *err = (int)e;
+      return;
+    }
+    const unsigned blocks = (unsigned)((p.B + NE - 1) / NE);
+    act_cnn_kernel<A, R><<<blocks, RNT, smem, stream>>>(p);
+    *err = (int)cudaGetLastError();
+  }
+};
+
+}  // namespace
+
+// Floats of the packed parameter vector, or 0 for unsupported widths.
+extern "C" long wh_cnn_param_floats(int S, int C0, int C1, int C2, int H) {
+  CnnNet net;
+  return make_cnn_net(S, C0, C1, C2, H, &net) ? net.n_params : 0;
+}
+
+// Shared memory one CTA needs, in bytes, or 0 for an unsupported shape.
+extern "C" long wh_act_cnn_smem_bytes(int A, int R, int S, int C0, int C1,
+                                      int C2, int H) {
+  CnnNet net;
+  if (!make_cnn_net(S, C0, C1, C2, H, &net)) return 0;
+  size_t out = 0;
+  if (!wh::dispatch_shape<CnnSmemBytes>(A, R, net, &out)) return 0;
+  return (long)out;
+}
+
+// `trunk_t` is scratch of the trunk kernel's size, H * (S * S * C2 + 6).
+extern "C" int wh_act_cnn_rollout(
+    int A, int R, long B, int T, int H, int W, float spawn_prob, int S,
+    int k, int D, float inv_h, float inv_w, float step_penalty,
+    float pickup_reward, float delivery_reward, float collision_penalty,
+    int C0, int C1, int C2, int hidden, const unsigned char* walls,
+    const float* params, float* trunk_t, const int* pos, const int* areq,
+    const int* carry, const int* rpick, const int* rdrop, const int* rstat,
+    const int* ragent, const float* u, const int* pick, const int* drop,
+    const float* gumbel, int* o_pos, int* o_areq, int* o_carry,
+    int* o_rpick, int* o_rdrop, int* o_rstat, int* o_ragent, float* obs,
+    int* action, float* log_prob, float* value, float* reward,
+    int* delivered, float* logits, unsigned char* mask, void* stream_) {
+  ActCnnArgs p = {};
+  if (!make_cnn_net(S, C0, C1, C2, hidden, &p.net) || p.net.D != D)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return (int)cudaSuccess;
+  cudaStream_t stream = (cudaStream_t)stream_;
+  p.B = B;
+  p.T = T;
+  p.geo.H = H;
+  p.geo.W = W;
+  p.geo.spawn_prob = spawn_prob;
+  p.geo.walls = walls;
+  p.S = S;
+  p.k = k;
+  p.D = D;
+  p.inv_h = inv_h;
+  p.inv_w = inv_w;
+  p.step_penalty = step_penalty;
+  p.pickup_reward = pickup_reward;
+  p.delivery_reward = delivery_reward;
+  p.collision_penalty = collision_penalty;
+  p.params = params;
+  p.trunk_t = trunk_t;
+  p.pos = pos;
+  p.areq = areq;
+  p.carry = carry;
+  p.rpick = rpick;
+  p.rdrop = rdrop;
+  p.rstat = rstat;
+  p.ragent = ragent;
+  p.u = u;
+  p.pick = pick;
+  p.drop = drop;
+  p.gumbel = gumbel;
+  p.o_pos = o_pos;
+  p.o_areq = o_areq;
+  p.o_carry = o_carry;
+  p.o_rpick = o_rpick;
+  p.o_rdrop = o_rdrop;
+  p.o_rstat = o_rstat;
+  p.o_ragent = o_ragent;
+  p.obs = obs;
+  p.action = action;
+  p.log_prob = log_prob;
+  p.value = value;
+  p.reward = reward;
+  p.delivered = delivered;
+  p.logits = logits;
+  p.mask = mask;
+  cudaError_t e = launch_trunk_transpose(p.net, params, trunk_t, stream);
+  if (e != cudaSuccess) return (int)e;
+  int err = (int)cudaSuccess;
+  if (!wh::dispatch_shape<LaunchActCnn>(A, R, p, stream, &err))
+    return (int)cudaErrorInvalidValue;
+  return err;
+}

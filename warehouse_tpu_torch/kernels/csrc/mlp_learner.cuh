@@ -105,18 +105,24 @@ struct Rows {
   }
 };
 
-bool make_rows(int n_hidden, const int* dims, int T, long B, int A, int M,
-               int mb, const float* obs, Net* net, Rows* rows) {
-  if (!make_net(n_hidden, dims, net) || T <= 0 || B <= 0 || A <= 0 ||
-      M <= 0 || B % M || mb < 0 || mb >= M)
+// Minibatch mb of M of a [T, B, A] trajectory with D-wide observations.
+bool batch_rows(int T, long B, int A, int M, int mb, int D, const float* obs,
+                Rows* rows) {
+  if (T <= 0 || B <= 0 || A <= 0 || M <= 0 || B % M || mb < 0 || mb >= M)
     return false;
   rows->nb = (B / M) * A;
   rows->N = (long)T * rows->nb;
   rows->BA = B * A;
   rows->mb_off = mb * rows->nb;
-  rows->D = net->D;
+  rows->D = D;
   rows->obs = obs;
   return true;
+}
+
+bool make_rows(int n_hidden, const int* dims, int T, long B, int A, int M,
+               int mb, const float* obs, Net* net, Rows* rows) {
+  return make_net(n_hidden, dims, net) &&
+         batch_rows(T, B, A, M, mb, net->D, obs, rows);
 }
 
 struct Batch : Rows {  // one minibatch of the trajectory
@@ -377,6 +383,24 @@ struct WArgs {
   float* part;
 };
 
+// One product dW [out, in] = delta^T prev (and db, unless b_off < 0) of a
+// wgrad_kernel launch; `tiles` counts the launch's output tiles.
+WTask wtask(const float* prev, const float* delta, int ds, int in, int out,
+            long w_off, long b_off, int* tiles) {
+  WTask t;
+  t.prev = prev;
+  t.delta = delta;
+  t.ds = ds;
+  t.in = in;
+  t.out = out;
+  t.w_off = w_off;
+  t.b_off = b_off;
+  t.i_tiles = (in + WT - 1) / WT;
+  t.tile0 = *tiles;
+  *tiles += t.i_tiles * ((out + WT - 1) / WT);
+  return t;
+}
+
 __global__ void __launch_bounds__(WNT) wgrad_kernel(WArgs p) {
   __shared__ __align__(16) float Ds[NC][WT];
   __shared__ __align__(16) float Ps[NC][WT];
@@ -520,10 +544,11 @@ __global__ void __launch_bounds__(FNT) adam_kernel(AdamArgs p) {
 // ---- host side ----------------------------------------------------------------
 
 // Opts `kernel` in to `smem` bytes of dynamic shared memory and sizes its
-// persistent grid: one CTA per resident slot, at most n_tiles.
+// persistent grid of `threads`-wide CTAs: one per resident slot, at most
+// n_tiles.
 template <class Kernel>
 cudaError_t persistent_grid(Kernel kernel, size_t smem, long n_tiles,
-                            long* grid) {
+                            long* grid, int threads = NT) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int dev = 0, n_sm = 1, per_sm = 1;
@@ -531,8 +556,8 @@ cudaError_t persistent_grid(Kernel kernel, size_t smem, long n_tiles,
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
-                                                      smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long resident = (long)n_sm * per_sm;
@@ -555,18 +580,11 @@ cudaError_t launch_grads_tail(const Net& net, const Rows& rows,
   wa.chunk = ((rows.N + sc.S - 1) / sc.S + NC - 1) / NC * NC;
   int tiles = 0;
   for (int l = 0; l <= net.n_hidden; ++l) {
-    WTask& t = wa.t[l];
     const Layer& y = net.L[l];
-    t.prev = l == 0 ? nullptr : sc.act[l - 1];
-    t.delta = l < net.n_hidden ? sc.dz[l] : sc.dout;
-    t.ds = l < net.n_hidden ? y.out : OST;
-    t.in = y.in;
-    t.out = y.out;
-    t.w_off = y.w_off;
-    t.b_off = y.b_off;
-    t.i_tiles = (y.in + WT - 1) / WT;
-    t.tile0 = tiles;
-    tiles += t.i_tiles * ((y.out + WT - 1) / WT);
+    const bool head = l == net.n_hidden;
+    wa.t[l] = wtask(l == 0 ? nullptr : sc.act[l - 1],
+                    head ? sc.dout : sc.dz[l], head ? OST : y.out, y.in, y.out,
+                    y.w_off, y.b_off, &tiles);
   }
   cudaError_t e;
   wgrad_kernel<<<dim3(tiles, sc.S), WNT, 0, stream>>>(wa);

@@ -365,34 +365,11 @@ __global__ void __launch_bounds__(RNT) rnn_bwd_kernel(SeqArgs p) {
 
 bool make_seq(int n_enc, const int* dims, int H, int lstm, int T, long B,
               int A, int M, int mb, const float* obs, SeqArgs* sa) {
-  if (!make_rnn_net(n_enc, dims, H, lstm, &sa->net) || T <= 0 || B <= 0 ||
-      A <= 0 || M <= 0 || B % M || mb < 0 || mb >= M)
+  if (!make_rnn_net(n_enc, dims, H, lstm, &sa->net) ||
+      !batch_rows(T, B, A, M, mb, sa->net.D, obs, &sa->bt))
     return false;
-  Batch& bt = sa->bt;
-  bt.nb = (B / M) * A;
-  bt.N = (long)T * bt.nb;
-  bt.BA = B * A;
-  bt.mb_off = mb * bt.nb;
-  bt.D = sa->net.D;
-  bt.obs = obs;
   sa->T = T;
   return true;
-}
-
-WTask wtask(const float* prev, const float* delta, int ds, int in, int out,
-            long w_off, long b_off, int* tiles) {
-  WTask t;
-  t.prev = prev;
-  t.delta = delta;
-  t.ds = ds;
-  t.in = in;
-  t.out = out;
-  t.w_off = w_off;
-  t.b_off = b_off;
-  t.i_tiles = (in + WT - 1) / WT;
-  t.tile0 = *tiles;
-  *tiles += t.i_tiles * ((out + WT - 1) / WT);
-  return t;
 }
 
 // Every weight gradient from the stored activations and deltas, reduced

@@ -172,18 +172,18 @@ def check_tile_smem(lib, n_hidden: int, dims_arr, dims, dev, what: str):
                          f"block for widths {dims}; the card allows {limit}")
 
 
-class _Launch:
-    """One trajectory's inputs checked and laid out for the C entry points
-    (``csrc/sgd.cu``), with the scratch both share."""
+class TrajLaunch:
+    """One trajectory's inputs checked and laid out for a PPO learner's C
+    entry points. A subclass adds its net's shape, the scratch its two
+    entry points share, and the launches ``grads`` and ``clip_adam``."""
 
-    def __init__(self, params, traj, adv_n, targets, ent_coef, kl_coeff,
+    def __init__(self, traj, adv_n, targets, ent_coef, kl_coeff,
                  num_minibatches, clip_eps, value_coef, mask_actions):
         dev = traj.obs.device
-        T, B, A, D = traj.obs.shape
+        T, B, A, _ = traj.obs.shape
         M = num_minibatches
         if B % M:
             raise ValueError(f"B={B} not divisible by {M} minibatches")
-        dims = _dims(params, D)
         self.obs = traj.obs.to(torch.float32).contiguous()
         self.fields = [traj.action.to(torch.int32).contiguous()] + [
             x.to(torch.float32).contiguous()
@@ -195,27 +195,40 @@ class _Launch:
             self.mask = traj.mask.to(torch.uint8).contiguous()
             if self.mask.shape != (T, B, A, N_ACT):
                 raise ValueError("mask must be [T, B, A, 5]")
-        self.lib = lib = build.library()
-        self.shape = (len(dims) - 1, build.int_array(dims), T, B, A, M)
-        check_tile_smem(lib, *self.shape[:2], dims, dev, "SGD kernel")
-        self.work = torch.empty(lib.wh_sgd_workspace_floats(*self.shape),
-                                dtype=torch.float32, device=dev)
+        self.lib = build.library()
         self.scal = torch.stack([_f32(ent_coef, dev), _f32(kl_coeff, dev)])
+        self.tbam = (T, B, A, M)
         self.mb_n = T * (B // M) * A
         self.coefs = (clip_eps, 1.0 - clip_eps, 1.0 + clip_eps, value_coef,
                       1.0 / self.mb_n)
         self.stream = build.stream_handle(dev)
 
+    def batch_ptrs(self) -> list:
+        """obs, the five fields and the mask, as the C entry points take
+        them."""
+        return [self.obs.data_ptr(), *(f.data_ptr() for f in self.fields),
+                None if self.mask is None else self.mask.data_ptr()]
+
+
+class _Launch(TrajLaunch):
+    """``TrajLaunch`` for the MLP's entry points (``csrc/sgd.cu``)."""
+
+    def __init__(self, params, traj, *args):
+        super().__init__(traj, *args)
+        dev = traj.obs.device
+        dims = _dims(params, traj.obs.shape[-1])
+        self.shape = (len(dims) - 1, build.int_array(dims), *self.tbam)
+        check_tile_smem(self.lib, *self.shape[:2], dims, dev, "SGD kernel")
+        self.work = torch.empty(self.lib.wh_sgd_workspace_floats(*self.shape),
+                                dtype=torch.float32, device=dev)
+
     def grads(self, p_flat, mb: int, grads, sums) -> None:
         """K4's kernels: minibatch ``mb``'s gradient into ``grads``, its
         metric sums into ``sums [4]``."""
         err = self.lib.wh_sgd_grads(
-            *self.shape, mb, self.obs.data_ptr(),
-            *(f.data_ptr() for f in self.fields),
-            None if self.mask is None else self.mask.data_ptr(),
-            p_flat.data_ptr(), self.scal.data_ptr(), *self.coefs,
-            self.work.data_ptr(), grads.data_ptr(), sums.data_ptr(),
-            self.stream)
+            *self.shape, mb, *self.batch_ptrs(), p_flat.data_ptr(),
+            self.scal.data_ptr(), *self.coefs, self.work.data_ptr(),
+            grads.data_ptr(), sums.data_ptr(), self.stream)
         build.check(err, "ppo_minibatch_grads kernel launch")
         ppo_minibatch_grads.launches += 1
 
@@ -248,6 +261,44 @@ def _device_of(traj) -> torch.device:
     return dev
 
 
+def sgd_phase_on_card(run: TrajLaunch, pack_fn, unpack_fn, params,
+                      opt_state: AdamState, rows, ent_coef, kl_coeff, *,
+                      num_epochs: int, num_minibatches: int,
+                      value_coef: float, max_grad_norm: float):
+    """``num_epochs x num_minibatches`` steps of ``run.grads`` then
+    ``run.clip_adam`` on the packed params and moments, with no host
+    synchronisation between them: ``(params, opt_state, losses)``."""
+    M, n_steps = num_minibatches, num_epochs * num_minibatches
+    p_flat, m_flat, v_flat = (pack_fn(t) for t in (params, opt_state.mu,
+                                                   opt_state.nu))
+    rows = [r.to(device=p_flat.device, dtype=torch.float32).contiguous()
+            for r in rows]
+    grads = torch.empty_like(p_flat)
+    sums = torch.empty(n_steps, 4, dtype=torch.float32, device=p_flat.device)
+    for s in range(n_steps):
+        run.grads(p_flat, s % M, grads, sums[s])
+        run.clip_adam(p_flat, m_flat, v_flat, grads, rows, s, max_grad_norm)
+    losses = _losses(sums.reshape(num_epochs, M, 4), run.mb_n, value_coef,
+                     ent_coef, kl_coeff)
+    new_opt = AdamState(opt_state.count + n_steps, unpack_fn(m_flat, params),
+                        unpack_fn(v_flat, params))
+    return unpack_fn(p_flat, params), new_opt, losses
+
+
+def minibatch_grads_on_card(run: TrajLaunch, pack_fn, unpack_fn, params,
+                            mb_idx: int, ent_coef, kl_coeff, *,
+                            num_minibatches: int, value_coef: float):
+    """One ``run.grads`` launch: ``((total, (pg, v, ent, kl)), grads)``."""
+    if not 0 <= mb_idx < num_minibatches:
+        raise ValueError(f"mb_idx={mb_idx} out of range")
+    p_flat = pack_fn(params)
+    grads = torch.empty_like(p_flat)
+    sums = torch.empty(4, dtype=torch.float32, device=p_flat.device)
+    run.grads(p_flat, mb_idx, grads, sums)
+    total, *aux = _losses(sums, run.mb_n, value_coef, ent_coef, kl_coeff)
+    return (total, tuple(aux)), unpack_fn(grads, params)
+
+
 def ppo_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
                   lr_row, bc1_row, bc2_row, ent_coef, kl_coeff, *,
                   num_epochs: int, num_minibatches: int, clip_eps: float,
@@ -258,30 +309,20 @@ def ppo_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
     tensors. On CUDA tensors each step is K4's gradient kernels, then K3's
     clip + Adam kernel on the packed params and moments; on CPU tensors
     the plain twin runs. ``launches`` counts the optimizer kernel."""
-    kw = dict(num_epochs=num_epochs, num_minibatches=num_minibatches,
-              clip_eps=clip_eps, value_coef=value_coef,
-              max_grad_norm=max_grad_norm, mask_actions=mask_actions)
     if _device_of(traj).type == "cpu":
-        return ppo_sgd_phase_reference(params, opt_state, traj, adv_n,
-                                       targets, lr_row, bc1_row, bc2_row,
-                                       ent_coef, kl_coeff, **kw)
-    M, n_steps = num_minibatches, num_epochs * num_minibatches
-    run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff, M,
-                  clip_eps, value_coef, mask_actions)
-    p_flat, m_flat, v_flat = (pack(t) for t in (params, opt_state.mu,
-                                                opt_state.nu))
-    rows = [r.to(device=p_flat.device, dtype=torch.float32).contiguous()
-            for r in (lr_row, bc1_row, bc2_row)]
-    grads = torch.empty_like(p_flat)
-    sums = torch.empty(n_steps, 4, dtype=torch.float32, device=p_flat.device)
-    for s in range(n_steps):
-        run.grads(p_flat, s % M, grads, sums[s])
-        run.clip_adam(p_flat, m_flat, v_flat, grads, rows, s, max_grad_norm)
-    losses = _losses(sums.reshape(num_epochs, M, 4), run.mb_n, value_coef,
-                     ent_coef, kl_coeff)
-    new_opt = AdamState(opt_state.count + n_steps, unpack(m_flat, params),
-                        unpack(v_flat, params))
-    return unpack(p_flat, params), new_opt, losses
+        return ppo_sgd_phase_reference(
+            params, opt_state, traj, adv_n, targets, lr_row, bc1_row,
+            bc2_row, ent_coef, kl_coeff, num_epochs=num_epochs,
+            num_minibatches=num_minibatches, clip_eps=clip_eps,
+            value_coef=value_coef, max_grad_norm=max_grad_norm,
+            mask_actions=mask_actions)
+    run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff,
+                  num_minibatches, clip_eps, value_coef, mask_actions)
+    return sgd_phase_on_card(
+        run, pack, unpack, params, opt_state, (lr_row, bc1_row, bc2_row),
+        ent_coef, kl_coeff, num_epochs=num_epochs,
+        num_minibatches=num_minibatches, value_coef=value_coef,
+        max_grad_norm=max_grad_norm)
 
 
 ppo_sgd_phase.launches = 0
@@ -299,16 +340,11 @@ def ppo_minibatch_grads(params, traj, adv_n, targets, mb_idx: int, ent_coef,
             params, traj, adv_n, targets, mb_idx, ent_coef, kl_coeff,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
             value_coef=value_coef, mask_actions=mask_actions)
-    if not 0 <= mb_idx < num_minibatches:
-        raise ValueError(f"mb_idx={mb_idx} out of range")
     run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff,
                   num_minibatches, clip_eps, value_coef, mask_actions)
-    p_flat = pack(params)
-    grads = torch.empty_like(p_flat)
-    sums = torch.empty(4, dtype=torch.float32, device=p_flat.device)
-    run.grads(p_flat, mb_idx, grads, sums)
-    total, *aux = _losses(sums, run.mb_n, value_coef, ent_coef, kl_coeff)
-    return (total, tuple(aux)), unpack(grads, params)
+    return minibatch_grads_on_card(
+        run, pack, unpack, params, mb_idx, ent_coef, kl_coeff,
+        num_minibatches=num_minibatches, value_coef=value_coef)
 
 
 ppo_minibatch_grads.launches = 0

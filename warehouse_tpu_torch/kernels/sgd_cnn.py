@@ -1,0 +1,160 @@
+"""K11/K12: the PPO SGD phase and per-minibatch gradients of the CNN
+policy, and their plain twins.
+
+Counterparts of ``warehouse_tpu/pallas/sgd_cnn.py``
+``ppo_cnn_sgd_phase_pallas`` (:482) and ``ppo_cnn_minibatch_grads_pallas``
+(:595), with the contracts of ``kernels.sgd.ppo_sgd_phase`` and
+``ppo_minibatch_grads``: ``params`` is a dict keyed like
+``ActorCriticCNN.state_dict``, everything else as there. On a CUDA tensor
+the kernels of ``csrc/sgd_cnn.cu`` run on the packed vector of
+``kernels.act.pack_cnn``, reading the act phase's ``obs [T, B, A, D]`` in
+place; on a CPU tensor the plain twins run, which are the MLP's: autograd
+through ``models.policy.apply`` (true convolutions for a CNN params dict),
+``ops.ppo_update.ppo_losses`` and ``optim.py``.
+
+The kernels compute the convolutions and their gradients in the 3x3 basis
+(``csrc/cnn_net.cuh``), so the TPU kernel's unrolled matrices, their
+rebuild and the gradient fold have no counterpart, nor have its VMEM
+estimate and block knobs. They take two convs on the ego-window grid
+(global observations wait with the acting kernels') and float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import ADAM_B1, ADAM_B2, ADAM_EPS
+from ..models.policy import is_cnn
+from ..optim import AdamState
+from . import build
+from .act import cnn_kernel_dims, pack_cnn, unpack_cnn
+from .sgd import (TrajLaunch, _device_of, minibatch_grads_on_card,
+                  ppo_minibatch_grads_reference, ppo_sgd_phase_reference,
+                  sgd_phase_on_card)
+
+
+def _check_cnn(params) -> None:
+    if not is_cnn(params):
+        raise ValueError("the CNN learner takes an ActorCriticCNN's params "
+                         f"(conv.*, trunk.*), got {sorted(params)}")
+
+
+def ppo_cnn_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
+                                targets, lr_row, bc1_row, bc2_row, ent_coef,
+                                kl_coeff, **kw):
+    """The plain twin of ``ppo_cnn_sgd_phase``, on any device: the MLP
+    learner's twin on the CNN's params."""
+    _check_cnn(params)
+    return ppo_sgd_phase_reference(params, opt_state, traj, adv_n, targets,
+                                   lr_row, bc1_row, bc2_row, ent_coef,
+                                   kl_coeff, **kw)
+
+
+def ppo_cnn_minibatch_grads_reference(params, traj, adv_n, targets,
+                                      mb_idx: int, ent_coef, kl_coeff, **kw):
+    """The plain twin of ``ppo_cnn_minibatch_grads``: autograd on one
+    minibatch through the true convolutions."""
+    _check_cnn(params)
+    return ppo_minibatch_grads_reference(params, traj, adv_n, targets,
+                                         mb_idx, ent_coef, kl_coeff, **kw)
+
+
+class _Launch(TrajLaunch):
+    """``TrajLaunch`` for the CNN's entry points (``csrc/sgd_cnn.cu``)."""
+
+    def __init__(self, params, traj, *args):
+        _check_cnn(params)
+        super().__init__(traj, *args)
+        dev = traj.obs.device
+        net = cnn_kernel_dims(params, traj.obs.shape[-1])
+        smem = self.lib.wh_cnn_sgd_smem_bytes(*net)
+        limit = getattr(torch.cuda.get_device_properties(dev),
+                        "shared_memory_per_block_optin", smem)
+        if not 0 < smem <= limit:
+            raise ValueError(
+                f"CNN SGD kernels need {smem} bytes of shared memory per "
+                f"block for (S, channels, hidden) = {net}; the card allows "
+                f"{limit}")
+        self.n_params = self.lib.wh_cnn_param_floats(*net)
+        T, B, A, M = self.tbam
+        self.shape = (*net, T, B, A, M)
+        self.work = torch.empty(
+            self.lib.wh_cnn_sgd_workspace_floats(*self.shape),
+            dtype=torch.float32, device=dev)
+
+    def grads(self, p_flat, mb: int, grads, sums) -> None:
+        """K12's kernels: minibatch ``mb``'s gradient into ``grads``, its
+        metric sums into ``sums [4]``."""
+        if p_flat.numel() != self.n_params:
+            raise ValueError("packed params do not fit the kernel's layout")
+        err = self.lib.wh_cnn_sgd_grads(
+            *self.shape, mb, *self.batch_ptrs(), p_flat.data_ptr(),
+            self.scal.data_ptr(), *self.coefs, self.work.data_ptr(),
+            grads.data_ptr(), sums.data_ptr(), self.stream)
+        build.check(err, "ppo_cnn_minibatch_grads kernel launch")
+        ppo_cnn_minibatch_grads.launches += 1
+
+    def clip_adam(self, p_flat, m_flat, v_flat, grads, rows, step: int,
+                  max_grad_norm: float) -> None:
+        """K11's optimizer kernel after ``grads``: clip + Adam in place."""
+        err = self.lib.wh_cnn_sgd_clip_adam(
+            *self.shape, step, p_flat.data_ptr(), m_flat.data_ptr(),
+            v_flat.data_ptr(), grads.data_ptr(),
+            *(r.data_ptr() for r in rows), max_grad_norm, ADAM_B1,
+            1.0 - ADAM_B1, ADAM_B2, 1.0 - ADAM_B2, ADAM_EPS,
+            self.work.data_ptr(), self.stream)
+        build.check(err, "ppo_cnn_sgd_phase kernel launch")
+        ppo_cnn_sgd_phase.launches += 1
+
+
+def ppo_cnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
+                      lr_row, bc1_row, bc2_row, ent_coef, kl_coeff, *,
+                      num_epochs: int, num_minibatches: int, clip_eps: float,
+                      value_coef: float, max_grad_norm: float,
+                      mask_actions: bool):
+    """The whole CNN SGD phase: ``(params, opt_state, losses)`` with
+    ``losses`` the ``(total, pg, v, ent, kl)`` tuple of ``[E, M]``
+    tensors. On CUDA tensors each step is K12's gradient kernels, then
+    K11's clip + Adam kernel on the packed params and moments; on CPU
+    tensors the plain twin runs. ``launches`` counts the optimizer
+    kernel."""
+    if _device_of(traj).type == "cpu":
+        return ppo_cnn_sgd_phase_reference(
+            params, opt_state, traj, adv_n, targets, lr_row, bc1_row,
+            bc2_row, ent_coef, kl_coeff, num_epochs=num_epochs,
+            num_minibatches=num_minibatches, clip_eps=clip_eps,
+            value_coef=value_coef, max_grad_norm=max_grad_norm,
+            mask_actions=mask_actions)
+    run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff,
+                  num_minibatches, clip_eps, value_coef, mask_actions)
+    return sgd_phase_on_card(
+        run, pack_cnn, unpack_cnn, params, opt_state,
+        (lr_row, bc1_row, bc2_row), ent_coef, kl_coeff,
+        num_epochs=num_epochs, num_minibatches=num_minibatches,
+        value_coef=value_coef, max_grad_norm=max_grad_norm)
+
+
+ppo_cnn_sgd_phase.launches = 0
+
+
+def ppo_cnn_minibatch_grads(params, traj, adv_n, targets, mb_idx: int,
+                            ent_coef, kl_coeff, *, num_minibatches: int,
+                            clip_eps: float, value_coef: float,
+                            mask_actions: bool):
+    """One minibatch's loss and gradient of the CNN policy: ``((total,
+    (pg, v, ent, kl)), grads)``. The kernels on CUDA tensors, the plain
+    twin on CPU ones. ``launches`` counts their launches, inside
+    ``ppo_cnn_sgd_phase`` too."""
+    if _device_of(traj).type == "cpu":
+        return ppo_cnn_minibatch_grads_reference(
+            params, traj, adv_n, targets, mb_idx, ent_coef, kl_coeff,
+            num_minibatches=num_minibatches, clip_eps=clip_eps,
+            value_coef=value_coef, mask_actions=mask_actions)
+    run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff,
+                  num_minibatches, clip_eps, value_coef, mask_actions)
+    return minibatch_grads_on_card(
+        run, pack_cnn, unpack_cnn, params, mb_idx, ent_coef, kl_coeff,
+        num_minibatches=num_minibatches, value_coef=value_coef)
+
+
+ppo_cnn_minibatch_grads.launches = 0

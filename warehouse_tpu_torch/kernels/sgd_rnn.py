@@ -30,7 +30,8 @@ from ..ops.ppo_update import NEG_INF, minibatch_epochs, ppo_losses
 from ..optim import AdamState, clip_adam_step
 from . import build
 from .act_rnn import pack_rnn, rnn_dims, split_carry, unpack_rnn
-from .sgd import N_ACT, _device_of, _f32, _losses, env_minibatches
+from .sgd import (TrajLaunch, _device_of, env_minibatches,
+                  minibatch_grads_on_card, sgd_phase_on_card)
 
 
 def _carry_slice(h0, lo: int, hi: int):
@@ -107,37 +108,23 @@ def ppo_rnn_minibatch_grads_reference(params, traj, adv_n, targets, h0,
 
 # ---- the kernels ------------------------------------------------------------
 
-class _Launch:
-    """One trajectory's inputs checked and laid out for the C entry points
-    (``csrc/sgd_rnn.cu``), with the scratch both share."""
+class _Launch(TrajLaunch):
+    """``TrajLaunch`` for the recurrent entry points (``csrc/sgd_rnn.cu``),
+    with the rollout-start carry."""
 
-    def __init__(self, params, traj, adv_n, targets, h0, ent_coef, kl_coeff,
-                 num_minibatches, clip_eps, value_coef, mask_actions):
+    def __init__(self, params, traj, adv_n, targets, h0, *args):
+        super().__init__(traj, adv_n, targets, *args)
         dev = traj.obs.device
-        T, B, A, D = traj.obs.shape
-        M = num_minibatches
-        if B % M:
-            raise ValueError(f"B={B} not divisible by {M} minibatches")
+        _, B, A, D = traj.obs.shape
         dims, H, lstm = rnn_dims(params, D)
-        self.obs = traj.obs.to(torch.float32).contiguous()
-        self.fields = [traj.action.to(torch.int32).contiguous()] + [
-            x.to(torch.float32).contiguous()
-            for x in (traj.log_prob, traj.value, adv_n, targets)]
-        if any(f.shape != (T, B, A) for f in self.fields):
-            raise ValueError("trajectory fields must be [T, B, A]")
-        self.mask = None
-        if mask_actions:
-            self.mask = traj.mask.to(torch.uint8).contiguous()
-            if self.mask.shape != (T, B, A, N_ACT):
-                raise ValueError("mask must be [T, B, A, 5]")
         self.h0, self.c0 = split_carry(h0, lstm)
         if any(x is not None and (x.shape != (B, A, H) or x.device != dev)
                for x in (self.h0, self.c0)):
             raise ValueError(f"h0 must be [B, A, H] = {(B, A, H)} on {dev}")
-        self.lib = lib = build.library()
+        lib = self.lib
         dims_arr = build.int_array(dims)
         net = (len(dims) - 1, dims_arr, H, int(lstm))
-        self.shape = (*net, T, B, A, M)
+        self.shape = (*net, *self.tbam)
         smem = lib.wh_rnn_sgd_smem_bytes(*net)
         limit = getattr(torch.cuda.get_device_properties(dev),
                         "shared_memory_per_block_optin", smem)
@@ -148,11 +135,6 @@ class _Launch:
         self.n_params = lib.wh_rnn_param_floats(*net)
         self.work = torch.empty(lib.wh_rnn_sgd_workspace_floats(*self.shape),
                                 dtype=torch.float32, device=dev)
-        self.scal = torch.stack([_f32(ent_coef, dev), _f32(kl_coeff, dev)])
-        self.mb_n = T * (B // M) * A
-        self.coefs = (clip_eps, 1.0 - clip_eps, 1.0 + clip_eps, value_coef,
-                      1.0 / self.mb_n)
-        self.stream = build.stream_handle(dev)
 
     def grads(self, p_flat, mb: int, grads, sums) -> None:
         """K9's kernels: minibatch ``mb``'s gradient into ``grads``, its
@@ -160,10 +142,7 @@ class _Launch:
         if p_flat.numel() != self.n_params:
             raise ValueError("packed params do not fit the kernel's layout")
         err = self.lib.wh_rnn_sgd_grads(
-            *self.shape, mb, self.obs.data_ptr(),
-            *(f.data_ptr() for f in self.fields),
-            None if self.mask is None else self.mask.data_ptr(),
-            self.h0.data_ptr(),
+            *self.shape, mb, *self.batch_ptrs(), self.h0.data_ptr(),
             None if self.c0 is None else self.c0.data_ptr(),
             p_flat.data_ptr(), self.scal.data_ptr(), *self.coefs,
             self.work.data_ptr(), grads.data_ptr(), sums.data_ptr(),
@@ -194,30 +173,20 @@ def ppo_rnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets, h0,
     On CUDA tensors each step is K9's gradient kernels, then K8's clip +
     Adam kernel on the packed params and moments; on CPU tensors the plain
     twin runs. ``launches`` counts the optimizer kernel."""
-    kw = dict(num_epochs=num_epochs, num_minibatches=num_minibatches,
-              clip_eps=clip_eps, value_coef=value_coef,
-              max_grad_norm=max_grad_norm, mask_actions=mask_actions)
     if _device_of(traj).type == "cpu":
         return ppo_rnn_sgd_phase_reference(
             params, opt_state, traj, adv_n, targets, h0, lr_row, bc1_row,
-            bc2_row, ent_coef, kl_coeff, **kw)
-    M, n_steps = num_minibatches, num_epochs * num_minibatches
-    run = _Launch(params, traj, adv_n, targets, h0, ent_coef, kl_coeff, M,
-                  clip_eps, value_coef, mask_actions)
-    p_flat, m_flat, v_flat = (pack_rnn(t) for t in (params, opt_state.mu,
-                                                    opt_state.nu))
-    rows = [r.to(device=p_flat.device, dtype=torch.float32).contiguous()
-            for r in (lr_row, bc1_row, bc2_row)]
-    grads = torch.empty_like(p_flat)
-    sums = torch.empty(n_steps, 4, dtype=torch.float32, device=p_flat.device)
-    for s in range(n_steps):
-        run.grads(p_flat, s % M, grads, sums[s])
-        run.clip_adam(p_flat, m_flat, v_flat, grads, rows, s, max_grad_norm)
-    losses = _losses(sums.reshape(num_epochs, M, 4), run.mb_n, value_coef,
-                     ent_coef, kl_coeff)
-    new_opt = AdamState(opt_state.count + n_steps, unpack_rnn(m_flat, params),
-                        unpack_rnn(v_flat, params))
-    return unpack_rnn(p_flat, params), new_opt, losses
+            bc2_row, ent_coef, kl_coeff, num_epochs=num_epochs,
+            num_minibatches=num_minibatches, clip_eps=clip_eps,
+            value_coef=value_coef, max_grad_norm=max_grad_norm,
+            mask_actions=mask_actions)
+    run = _Launch(params, traj, adv_n, targets, h0, ent_coef, kl_coeff,
+                  num_minibatches, clip_eps, value_coef, mask_actions)
+    return sgd_phase_on_card(
+        run, pack_rnn, unpack_rnn, params, opt_state,
+        (lr_row, bc1_row, bc2_row), ent_coef, kl_coeff,
+        num_epochs=num_epochs, num_minibatches=num_minibatches,
+        value_coef=value_coef, max_grad_norm=max_grad_norm)
 
 
 ppo_rnn_sgd_phase.launches = 0
@@ -236,16 +205,11 @@ def ppo_rnn_minibatch_grads(params, traj, adv_n, targets, h0, mb_idx: int,
             params, traj, adv_n, targets, h0, mb_idx, ent_coef, kl_coeff,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
             value_coef=value_coef, mask_actions=mask_actions)
-    if not 0 <= mb_idx < num_minibatches:
-        raise ValueError(f"mb_idx={mb_idx} out of range")
     run = _Launch(params, traj, adv_n, targets, h0, ent_coef, kl_coeff,
                   num_minibatches, clip_eps, value_coef, mask_actions)
-    p_flat = pack_rnn(params)
-    grads = torch.empty_like(p_flat)
-    sums = torch.empty(4, dtype=torch.float32, device=p_flat.device)
-    run.grads(p_flat, mb_idx, grads, sums)
-    total, *aux = _losses(sums, run.mb_n, value_coef, ent_coef, kl_coeff)
-    return (total, tuple(aux)), unpack_rnn(grads, params)
+    return minibatch_grads_on_card(
+        run, pack_rnn, unpack_rnn, params, mb_idx, ent_coef, kl_coeff,
+        num_minibatches=num_minibatches, value_coef=value_coef)
 
 
 ppo_rnn_minibatch_grads.launches = 0

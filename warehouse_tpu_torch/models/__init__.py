@@ -1,7 +1,7 @@
 """Actor-critic policy models (PyTorch)."""
 
-from .policy import (ActorCriticMLP, ActorCriticRNN, apply_rnn, initial_carry,
-                     make_model, params_from_flax)
+from .policy import (ActorCriticCNN, ActorCriticMLP, ActorCriticRNN,
+                     apply_rnn, initial_carry, make_model, params_from_flax)
 
-__all__ = ["ActorCriticMLP", "ActorCriticRNN", "apply_rnn", "initial_carry",
-           "make_model", "params_from_flax"]
+__all__ = ["ActorCriticCNN", "ActorCriticMLP", "ActorCriticRNN", "apply_rnn",
+           "initial_carry", "make_model", "params_from_flax"]

@@ -1,13 +1,21 @@
 """Actor-critic policies (counterpart of ``warehouse_tpu/models/policy.py``).
 
-Ported: the feed-forward MLP and the recurrent (GRU / LSTM) policy, each
-a shared-parameter per-agent actor-critic applied to ``[..., obs_dim]``
-observations. Initialisation follows the flax models — orthogonal kernels
-with gain √2 on the hidden (encoder) layers, 0.01 on the logits head and
-1.0 on the value head, lecun-normal input kernels and orthogonal recurrent
-kernels in the cell, zero biases — drawn from an explicit
-``torch.Generator`` (the numbers differ from flax's; ``params_from_flax``
-carries a flax model's weights over).
+Ported: the feed-forward MLP, the conv-torso CNN and the recurrent (GRU /
+LSTM) policy, each a shared-parameter per-agent actor-critic applied to
+``[..., obs_dim]`` observations; the attention torso (``arch="attn"``) is
+not. Initialisation follows the flax models — orthogonal kernels with gain
+√2 on the hidden (encoder) layers, 0.01 on the logits head and 1.0 on the
+value head, lecun-normal input kernels and orthogonal recurrent kernels in
+the cell, lecun-normal convs and trunk in the CNN (flax's defaults), zero
+biases — drawn from an explicit ``torch.Generator`` (the numbers differ
+from flax's; ``params_from_flax`` carries a flax model's weights over).
+
+The CNN (``ActorCriticCNN``) splits the flat observation into the grid
+``[S, S, C]`` (channel-last, as ``ops/obs.py`` lays it out) and the 6 self
+features; 3x3 ``SAME`` convs with relu; the result is flattened
+channel-last (``(r * S + c) * OC + oc``, flax's NHWC order, so the trunk's
+columns are flax's) and the features are joined after it; a tanh trunk;
+the two heads.
 
 The recurrent cells are flax 0.12's, written out as explicit ``Linear``
 layers named like flax's sub-modules (``torch.nn.GRUCell``/``LSTMCell``
@@ -65,12 +73,108 @@ def num_hidden(params: dict) -> int:
 
 
 def apply(params: dict, obs: torch.Tensor):
-    """The MLP on a params dict keyed like ``ActorCriticMLP.state_dict``
-    (the functional form the trainer and the SGD twins use)."""
+    """The feed-forward policy on a params dict keyed like
+    ``ActorCriticMLP.state_dict`` or ``ActorCriticCNN.state_dict`` (the
+    functional form the trainer and the SGD twins use)."""
+    if is_cnn(params):
+        return apply_cnn(params, obs)
     x = obs
     for i in range(num_hidden(params)):
         x = torch.tanh(F.linear(x, params[f"hidden.{i}.weight"],
                                 params[f"hidden.{i}.bias"]))
+    value = F.linear(x, params["value.weight"], params["value.bias"])
+    return (F.linear(x, params["logits.weight"], params["logits.bias"]),
+            value.squeeze(-1))
+
+
+CNN_CHANNELS = (16, 32)  # ActorCriticCNN's conv widths (fixed, as flax's)
+N_SELF = 6               # self features after the grid in an observation
+
+
+def lecun_normal_(w: torch.Tensor, generator=None) -> torch.Tensor:
+    """flax's default kernel init: a normal of variance ``1 / fan_in``
+    truncated at two standard deviations (and rescaled to keep that
+    variance). ``w`` is ``[out, in, ...]``."""
+    fan_in = w[0].numel()
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
+class ActorCriticCNN(nn.Module):
+    """3x3 ``SAME`` convs (relu) over the ``[S, S, C]`` grid of the
+    observation, the self features joined after the channel-last flatten,
+    a tanh trunk, logits and value heads."""
+
+    def __init__(self, num_actions: int, window_size: int,
+                 in_channels: int = 4,
+                 channels: Sequence[int] = CNN_CHANNELS, hidden: int = 128,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        chans = (in_channels, *channels)
+        self.conv = nn.ModuleList(
+            nn.Conv2d(i, o, 3, padding=1) for i, o in zip(chans, chans[1:]))
+        self.trunk = nn.Linear(window_size ** 2 * chans[-1] + N_SELF, hidden)
+        self.logits = nn.Linear(hidden, num_actions)
+        self.value = nn.Linear(hidden, 1)
+        with torch.no_grad():
+            for layer in (*self.conv, self.trunk):
+                lecun_normal_(layer.weight, generator)
+            nn.init.orthogonal_(self.logits.weight, 0.01, generator=generator)
+            nn.init.orthogonal_(self.value.weight, 1.0, generator=generator)
+            for name, p in self.named_parameters():
+                if name.endswith(".bias"):
+                    p.zero_()
+
+    def forward(self, obs: torch.Tensor):
+        """obs float32[..., obs_dim] -> (logits [..., 5], value [...])."""
+        return apply_cnn(dict(self.named_parameters()), obs)
+
+
+def is_cnn(params: dict) -> bool:
+    return "conv.0.weight" in params
+
+
+def num_conv(params: dict) -> int:
+    return sum(1 for k in params
+               if k.startswith("conv.") and k.endswith(".weight"))
+
+
+def cnn_dims(params: dict) -> tuple[int, tuple[int, ...], int]:
+    """``(S, chans, hidden)``: the grid side, the channel chain ``(C_in,
+    c1, ...)`` and the trunk width of a CNN params dict, shapes checked."""
+    chans = [params["conv.0.weight"].shape[1]]
+    for i in range(num_conv(params)):
+        w = params[f"conv.{i}.weight"]
+        if w.shape[1:] != (chans[-1], 3, 3) or (
+                params[f"conv.{i}.bias"].shape != (w.shape[0],)):
+            raise ValueError(f"conv.{i}: weight {tuple(w.shape)} does not "
+                             f"continue the channels {chans}")
+        chans.append(w.shape[0])
+    hidden, trunk_in = params["trunk.weight"].shape
+    side = math.isqrt(max(trunk_in - N_SELF, 0) // chans[-1])
+    if side < 1 or side * side * chans[-1] + N_SELF != trunk_in:
+        raise ValueError(f"trunk.weight {tuple(params['trunk.weight'].shape)}"
+                         f" does not take a square grid of {chans[-1]} "
+                         f"channels and {N_SELF} features")
+    return side, tuple(chans), hidden
+
+
+def apply_cnn(params: dict, obs: torch.Tensor):
+    """The CNN on a params dict keyed like ``ActorCriticCNN.state_dict``."""
+    S, chans, _ = cnn_dims(params)
+    grid_len = S * S * chans[0]
+    if obs.shape[-1] != grid_len + N_SELF:
+        raise ValueError(f"obs width {obs.shape[-1]} is not the {S}x{S}x"
+                         f"{chans[0]} grid plus {N_SELF} features")
+    lead = obs.shape[:-1]
+    x = obs[..., :grid_len].reshape(-1, S, S, chans[0]).permute(0, 3, 1, 2)
+    for i in range(len(chans) - 1):
+        x = F.relu(F.conv2d(x, params[f"conv.{i}.weight"],
+                            params[f"conv.{i}.bias"], padding=1))
+    x = x.permute(0, 2, 3, 1).reshape(*lead, -1)  # channel-last, as flax
+    x = torch.cat([x, obs[..., grid_len:]], dim=-1)
+    x = torch.tanh(F.linear(x, params["trunk.weight"], params["trunk.bias"]))
     value = F.linear(x, params["value.weight"], params["value.bias"])
     return (F.linear(x, params["logits.weight"], params["logits.bias"]),
             value.squeeze(-1))
@@ -192,18 +296,27 @@ def apply_rnn(params: dict, obs: torch.Tensor, carry):
 def make_model(cfg: EnvConfig, arch: str = "mlp", hidden_dim: int = 128,
                num_layers: int = 2, generator: torch.Generator | None = None,
                device=None) -> nn.Module:
-    """The policy for ``arch`` ("mlp", "gru" or "lstm") on ``device``: the
-    card by default, the CPU with ``device="cpu"``."""
+    """The policy for ``arch`` ("mlp", "cnn", "gru" or "lstm") on
+    ``device``: the card by default, the CPU with ``device="cpu"``. The
+    CNN ignores ``num_layers``; its grid is the ego window, or the whole
+    (square) grid with ``cfg.global_obs``."""
     if arch == "mlp":
         model = ActorCriticMLP(cfg.obs_dim, cfg.num_actions,
                                (hidden_dim,) * num_layers, generator)
+    elif arch == "cnn":
+        if cfg.global_obs and cfg.height != cfg.width:
+            raise ValueError("cnn+global_obs requires a square grid")
+        model = ActorCriticCNN(
+            cfg.num_actions, cfg.height if cfg.global_obs else cfg.window_size,
+            cfg.num_obs_channels, hidden=hidden_dim, generator=generator)
     elif arch in ("gru", "lstm"):
         model = ActorCriticRNN(cfg.obs_dim, cfg.num_actions, arch,
                                (hidden_dim,) * max(num_layers - 1, 1),
                                hidden_dim, generator)
     else:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet; 'mlp', 'gru' and 'lstm' are")
+            f"arch {arch!r} is not ported yet (ROADMAP §B item 10); 'mlp', "
+            "'cnn', 'gru' and 'lstm' are")
     return model.to(resolve_device(device))
 
 
@@ -266,17 +379,56 @@ def _rnn_params_from_flax(dense: dict) -> dict:
     return out
 
 
+def _cnn_params_from_flax(dense: dict) -> dict:
+    """The ``ActorCriticCNN`` tree: ``Conv_i`` kernels ``[3, 3, IC, OC]``
+    become ``conv.i.weight [OC, IC, 3, 3]``; ``Dense_0`` is the trunk,
+    ``Dense_1`` the logits head and ``Dense_2`` the value head."""
+    convs = sorted((n for n in dense if n.startswith("Conv_")),
+                   key=lambda s: int(s.split("_")[1]))
+    if set(dense) - set(convs) != {"Dense_0", "Dense_1", "Dense_2"}:
+        raise ValueError(f"not a CNN actor-critic: layers {sorted(dense)}")
+    out, chan = {}, None
+    for i, name in enumerate(convs):
+        kernel = np.asarray(dense[name]["kernel"], np.float32)
+        bias = np.asarray(dense[name]["bias"], np.float32)
+        if (kernel.ndim != 4 or kernel.shape[:2] != (3, 3)
+                or chan not in (None, kernel.shape[2])
+                or bias.shape != (kernel.shape[3],)):
+            raise ValueError(f"{name}: kernel {kernel.shape}, bias "
+                             f"{bias.shape}, expected [3, 3, "
+                             f"{chan or 'IC'}, OC] and [OC]")
+        chan = kernel.shape[3]
+        out[f"conv.{i}.weight"] = torch.from_numpy(
+            kernel.transpose(3, 2, 0, 1).copy())
+        out[f"conv.{i}.bias"] = torch.from_numpy(bias.copy())
+    fan_in = None
+    for key, name in (("trunk", "Dense_0"), ("logits", "Dense_1"),
+                      ("value", "Dense_2")):
+        layer = _dense_np(dense[name], name, fan_in)
+        if key == "trunk":
+            fan_in = layer["weight"].shape[0]
+        out.update({f"{key}.{k}": v for k, v in layer.items()})
+    if out["value.weight"].shape[0] != 1:
+        raise ValueError(f"Dense_2: value head has "
+                         f"{out['value.weight'].shape[0]} outputs, expected 1")
+    cnn_dims(out)  # the trunk takes the last conv's square grid + features
+    return out
+
+
 def params_from_flax(params_np) -> dict:
-    """A flax ``ActorCriticMLP``'s or ``ActorCriticRNN``'s params (nested
-    dict of numpy arrays, with or without the top ``"params"`` level) as
-    the ``state_dict`` of this module's counterpart. ``Dense_i`` are taken
-    in index order — hidden (encoder) layers, logits head, value head —
-    and each kernel ``[in, out]`` becomes a ``Linear.weight [out, in]``; a
-    recurrent tree's cell gates become ``cell.<gate>.*``. Every shape is
-    checked."""
+    """A flax ``ActorCriticMLP``'s, ``ActorCriticCNN``'s or
+    ``ActorCriticRNN``'s params (nested dict of numpy arrays, with or
+    without the top ``"params"`` level) as the ``state_dict`` of this
+    module's counterpart. ``Dense_i`` are taken in index order — hidden
+    (encoder) layers or the CNN's trunk, logits head, value head — and
+    each kernel ``[in, out]`` becomes a ``Linear.weight [out, in]``; a
+    recurrent tree's cell gates become ``cell.<gate>.*``, a CNN tree's
+    ``Conv_i`` become ``conv.i.*``. Every shape is checked."""
     dense = params_np.get("params", params_np)
     if "GRUCell_0" in dense or "OptimizedLSTMCell_0" in dense:
         return _rnn_params_from_flax(dense)
+    if any(n.startswith("Conv_") for n in dense):
+        return _cnn_params_from_flax(dense)
     names = sorted(dense, key=lambda s: int(s.split("_")[1]))
     if len(names) < 3 or any(not n.startswith("Dense_") for n in names):
         raise ValueError(f"not an MLP actor-critic: layers {names}")

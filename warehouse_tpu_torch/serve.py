@@ -1,7 +1,8 @@
 """Policy serving (counterpart of ``warehouse_tpu/serve.py`` ``Policy``).
 
 ``compute_actions`` maps observations ``[B, A, obs_dim]`` to int32
-actions ``[B, A]`` through the MLP or the recurrent (GRU / LSTM) policy:
+actions ``[B, A]`` through the MLP, the CNN or the recurrent (GRU / LSTM)
+policy:
 argmax by default, or a categorical sample (``explore=True``) on the same
 key chain as the JAX ``Policy``. A recurrent policy threads its carry:
 ``initial_state`` (alias ``get_initial_state``) gives the zero carry and
@@ -18,7 +19,7 @@ import torch
 from .config import EnvConfig
 
 from . import rng as _rng
-from .models.policy import ActorCriticMLP, ActorCriticRNN
+from .models.policy import ActorCriticCNN, ActorCriticMLP, ActorCriticRNN
 from .ops.move import valid_action_mask
 from .ops.ppo_update import first_argmax
 
@@ -29,16 +30,19 @@ class Policy:
     """A policy ready for inference on its model's device."""
 
     def __init__(self, env_cfg: EnvConfig,
-                 model: ActorCriticMLP | ActorCriticRNN,
+                 model: ActorCriticMLP | ActorCriticCNN | ActorCriticRNN,
                  arch: str | None = None, mask_actions: bool = False,
                  policy_groups: tuple | None = None):
         recurrent = isinstance(model, ActorCriticRNN)
-        arch = arch or (model.cell_type if recurrent else "mlp")
-        if arch not in ("mlp", "gru", "lstm") or policy_groups is not None:
+        own = (model.cell_type if recurrent
+               else "cnn" if isinstance(model, ActorCriticCNN) else "mlp")
+        arch = arch or own
+        if arch not in ("mlp", "cnn", "gru", "lstm") or (
+                policy_groups is not None):
             raise NotImplementedError(
-                "only a shared MLP, GRU or LSTM policy is ported for serving")
-        if recurrent != (arch in ("gru", "lstm")) or (
-                recurrent and model.cell_type != arch):
+                "only a shared MLP, CNN, GRU or LSTM policy is ported for "
+                "serving")
+        if arch != own:
             raise ValueError(f"arch={arch!r} does not fit the model")
         self.env_cfg = env_cfg
         self.model = model
@@ -54,7 +58,8 @@ class Policy:
 
     def initial_state(self, batch_size: int = 1):
         """The zero carry of a recurrent policy for ``batch_size`` envs
-        (``[B, A, H]``, the LSTM's ``(c, h)``); None for the MLP."""
+        (``[B, A, H]``, the LSTM's ``(c, h)``); None for the MLP and the
+        CNN."""
         if not self.recurrent:
             return None
         return self.model.initial_carry((batch_size,
@@ -65,8 +70,9 @@ class Policy:
     def compute_actions(self, obs, state=None, explore: bool = False,
                         seed: int | None = None, agent_pos=None):
         """obs float32[B, A, obs_dim] (or [A, obs_dim]) -> (int32[B, A]
-        actions, next carry); the carry is None for the MLP, and a
-        recurrent policy starts from ``initial_state`` when given none."""
+        actions, next carry); the carry is None for the MLP and the CNN,
+        and a recurrent policy starts from ``initial_state`` when given
+        none."""
         obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
         if obs.dim() == 2:
             pos = None if agent_pos is None else (

@@ -1,6 +1,6 @@
 """Train CLI: ``python -m warehouse_tpu_torch.train``.
 
-The PPO (``--arch mlp|gru|lstm``) and IMPALA (``--algo impala``) subset of
+The PPO (``--arch mlp|cnn|gru|lstm``) and IMPALA (``--algo impala``) subset of
 ``python -m warehouse_tpu.train`` with the same flag names, plus
 ``--device``: the run is on the card unless ``--cpu`` / ``--device cpu``
 asks for the CPU, and exits when it finds no card. A flag
@@ -34,11 +34,11 @@ from .ppo_rnn import make_train_rnn
 
 def _unported(args) -> list[str]:
     out = []
-    if args.arch in ("cnn", "attn"):
-        out.append(f"--arch {args.arch} (ROADMAP §B item 6)")
+    if args.arch == "attn":
+        out.append("--arch attn (ROADMAP §B item 10)")
     if args.arch != "mlp" and args.algo == "impala":
         out.append(f"--algo impala --arch {args.arch} (the IMPALA learner "
-                   "takes the MLP policy)")
+                   "takes the MLP policy; ROADMAP §B item 10)")
     for flag, on, item in (
             ("--policy-groups", args.policy_groups is not None, 1),
             ("--shaping-coef", args.shaping_coef != 0.0, 1),
@@ -97,8 +97,9 @@ def main(argv=None) -> None:
                    default="float32")
     p.add_argument("--arch", choices=["mlp", "cnn", "attn", "gru", "lstm"],
                    default="mlp",
-                   help="mlp, or the recurrent gru / lstm policy (PPO only);"
-                        " cnn and attn are not ported yet")
+                   help="mlp, the conv-torso cnn or the recurrent gru / "
+                        "lstm policy (cnn, gru, lstm: PPO only); attn is "
+                        "not ported yet")
     p.add_argument("--policy-groups", default=None)
     p.add_argument("--rollout-backend", choices=["auto", "xla", "pallas"],
                    default="auto",

@@ -78,7 +78,7 @@ class ImpalaTrainer(NamedTuple):
 
 def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
     if arch != "mlp":
-        _not_ported(f"IMPALA with arch={arch!r}", "§B item 6")
+        _not_ported(f"IMPALA with arch={arch!r}", "§B item 10")
     for what, off, item in (
             ("a mesh", mesh is None, "§B item 8"),
             ("global_obs", not env_cfg.global_obs, "§B item 1"),

@@ -7,12 +7,14 @@ One update, draw for draw as the JAX trainer's fused path
 1. permute the env axis of the state with ``permutation(fold_in(key,
    0x5EED), B)`` ("shuffle the envs, not the data": minibatches are then
    contiguous env ranges, :383-386);
-2. act T steps through ``kernels.ppo_rollout`` (K2), then the boundary
-   reset ``reset_truncated_batch`` (:399-410), and with
-   ``bootstrap_truncated`` V of the pre-reset states (:412-422);
+2. act T steps through ``kernels.ppo_rollout`` (K2; K10 with
+   ``arch="cnn"``), then the boundary reset ``reset_truncated_batch``
+   (:399-410), and with ``bootstrap_truncated`` V of the pre-reset states
+   (:412-422);
 3. GAE from ``last_value``, advantages normalized per env minibatch;
-4. the SGD phase through ``kernels.ppo_sgd_phase`` (K3) with the
-   per-step lr and bias-correction rows (:678-686);
+4. the SGD phase through ``kernels.ppo_sgd_phase`` (K3) or, for the CNN,
+   ``kernels.ppo_cnn_sgd_phase`` (K11), with the per-step lr and
+   bias-correction rows (:678-686);
 5. the mirrored ``key, _ = split(key)`` (:503), the metrics and the
    adaptive KL coefficient (:713-746).
 
@@ -20,7 +22,9 @@ On a CUDA device the kernels run and a build or launch failure raises;
 on the CPU their plain twins run. ``PPOTrainer.plain_step`` is the same
 update through the plain twins on any device, for measurement and tests.
 
-Ported: the MLP policy, one shared policy, float32, ``minibatch_mode=
+Ported: the MLP and the CNN policy (``arch="cnn"``; its
+``policy_groups`` gate raises ``ValueError`` as the JAX trainer's does,
+:244-247), one shared policy, float32, ``minibatch_mode=
 "env"`` with ``epoch_shuffle="once"``, one gradient per minibatch,
 entropy anneal, adaptive KL, truncation bootstrap, lr anneal, action
 masking (K2 floors invalid moves, the loss re-applies the mask). The TPU
@@ -48,8 +52,8 @@ from ..env.state import STATE_FIELDS, EnvState
 from ..kernels.act import ppo_rollout, ppo_rollout_reference
 from ..kernels.sgd import (normalize_adv_env_minibatch, ppo_sgd_phase,
                            ppo_sgd_phase_reference)
-from ..models.policy import (ActorCriticMLP, apply, make_model,
-                             params_from_flax)
+from ..kernels.sgd_cnn import ppo_cnn_sgd_phase, ppo_cnn_sgd_phase_reference
+from ..models.policy import apply, make_model, params_from_flax
 from ..ops.gae import gae
 from ..ops.ppo_update import adaptive_kl_coeff, entropy_coef_at
 from ..optim import AdamState, ClipAdam, make_optimizer, opt_state_from_optax
@@ -58,7 +62,7 @@ PERM_SALT = 0x5EED  # fold_in salt of the env-state permutation key
 
 
 class RunnerState(NamedTuple):
-    params: dict             # ActorCriticMLP.state_dict-keyed tensors
+    params: dict             # the model's state_dict-keyed tensors
     opt_state: AdamState
     env_state: EnvState      # [B] envs
     obs: torch.Tensor        # float32[B, A, obs_dim]
@@ -83,7 +87,7 @@ class PPOTrainer(NamedTuple):
     train_step: Callable  # (rs, mark=None) -> (rs, metrics)
     train_many: Callable  # (rs, n) -> (rs, metrics stacked [n])
     plain_step: Callable  # train_step through the plain twins
-    model: ActorCriticMLP  # holds the params the act phase reads
+    model: torch.nn.Module  # holds the params the act phase reads
     optimizer: ClipAdam
     env_cfg: EnvConfig
     tcfg: TrainConfig
@@ -99,8 +103,11 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh,
     if arch in ("gru", "lstm"):
         raise ValueError(f"arch={arch!r}: the recurrent policies train "
                          "through train.ppo_rnn.make_train_rnn")
-    if arch != "mlp":
-        _not_ported(f"arch={arch!r}", "§B item 6")
+    if arch not in ("mlp", "cnn"):
+        _not_ported(f"arch={arch!r}", "§B item 10")
+    if arch == "cnn" and policy_groups is not None:
+        raise ValueError("policy_groups with arch='cnn': the CNN learner is "
+                         "single-policy")
     for what, off, item in (
             ("policy_groups", policy_groups is None, "§B items 1, 9"),
             ("a mesh", mesh is None, "§B item 8"),
@@ -215,6 +222,9 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
     optimizer = make_optimizer(tcfg)
     model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
                        device=device)
+    sgd_fn, sgd_reference = (
+        (ppo_cnn_sgd_phase, ppo_cnn_sgd_phase_reference) if arch == "cnn"
+        else (ppo_sgd_phase, ppo_sgd_phase_reference))
 
     def init(key: torch.Tensor) -> RunnerState:
         params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key)
@@ -233,7 +243,8 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
                              for f in STATE_FIELDS})
         model.load_state_dict(rs.params)
         new_env, roll, reset_key, key = act_fn(
-            cfg, model, env_in, T, key, mask_actions=tcfg.mask_actions)
+            cfg, model, env_in, T, key, mask_actions=tcfg.mask_actions,
+            arch=arch)
         env_state, last_obs, _ = reset_truncated_batch(cfg, new_env,
                                                        reset_key)
         boot = torch.zeros_like(roll.value)
@@ -275,11 +286,11 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
         """One update through the kernels (plain twins on the CPU).
         ``mark(name)``, if given, is called after the acting, GAE and
         SGD phases (for timing)."""
-        return step(rs, ppo_rollout, ppo_sgd_phase, mark)
+        return step(rs, ppo_rollout, sgd_fn, mark)
 
     def plain_step(rs: RunnerState, mark=None):
         """The same update through the plain PyTorch twins."""
-        return step(rs, ppo_rollout_reference, ppo_sgd_phase_reference, mark)
+        return step(rs, ppo_rollout_reference, sgd_reference, mark)
 
     def train_many(rs: RunnerState, n: int):
         """n updates; metrics stacked ``[n]``."""
