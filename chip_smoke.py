@@ -86,7 +86,30 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    updates through ``train_step`` (K10 + K11/K12) with the update split
    into acting, GAE and SGD by CUDA events, a learning check on deliveries
    per env-step over updates 41-50, 3 plain-path updates from the same
-   state, then the trained policy served.
+   state, then the trained policy served;
+17. ``t1_check``: the potential-shaping option of K2 and K10
+   (``shaping_coef=0.02``, with action masking) on medium and shelves at
+   B = 4096, T = 16, on a chunk from a mid-episode state and on one that
+   truncates: the checks of ``k2_check``, with the shaped reward bit-equal
+   to the formula evaluated by the plain engine and ``ops.pathing.potential``
+   on the kernel's actions, the raw reward bit-equal to the engine's, and
+   every output bit-equal to the plain twin on the same draws wherever the
+   twin samples the same actions; the launch counts show that the kernel
+   ran; timed beside its twin and beside the kernel without the option;
+18. ``shelves_train`` (main path): the walled-layout recipe as the train CLI
+   builds it (``--env shelves --mask-actions --shaping-coef 0.02
+   --entropy-coef 0.02 --entropy-coef-final 0.002``, 4096 envs, T = 16, the
+   300-update schedule of the JAX run ``runs/shelves3``), its first 100
+   updates through ``train_step`` (shaped K2 + K3/K4) with the split by CUDA
+   events and a learning check on deliveries per env-step over updates
+   91-100; a checkpoint saved at update 50 and at the end; the one of update
+   50 restored and run to the end, params bit-equal to the uninterrupted
+   run's; then ``evaluate``'s ``greedy``, ``greedy_bfs`` and ``checkpoint``
+   policies on 256 shelves episodes (``greedy_bfs`` must beat ``greedy``, the
+   checkpoint ``greedy_bfs``); the metrics of every update go to
+   ``runs/torch_shelves/metrics.jsonl`` (the same bits on every run);
+19. ``shelves_cnn_train`` (main path): 10 updates of the same recipe with
+   ``--arch cnn`` (shaped K10 + K11/K12), finite metrics and moved params.
 
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit. The kernels' launch counts are zeroed just before each
@@ -106,8 +129,10 @@ CNN updates) and prints the device time per update by kernel name.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -118,18 +143,22 @@ from warehouse_tpu_torch.env.batch import (observe_batch, reset_batch,
                                            reset_truncated_batch,
                                            step_batch)
 from warehouse_tpu_torch.env.state import STATE_FIELDS
+from warehouse_tpu_torch.evaluate import (checkpoint_policy_fn,
+                                          evaluate_policy, policy_fn_for)
 from warehouse_tpu_torch.kernels import (act, act_rnn, build, rollout, sgd,
                                          sgd_cnn, sgd_rnn, vtrace_sgd)
 from warehouse_tpu_torch.models import ActorCriticCNN, make_model
 from warehouse_tpu_torch.models.policy import apply, apply_rnn, cnn_dims
 from warehouse_tpu_torch.ops.gae import gae
 from warehouse_tpu_torch.ops.move import valid_action_mask
+from warehouse_tpu_torch.ops.pathing import potential
 from warehouse_tpu_torch.ops.ppo_update import entropy_coef_at, first_argmax
 from warehouse_tpu_torch.optim import make_impala_optimizer
-from warehouse_tpu_torch.serve import Policy
+from warehouse_tpu_torch.serve import Policy, write_policy_meta
 from warehouse_tpu_torch.train import (ImpalaTransition, Transition,
                                        make_train, make_train_impala,
                                        make_train_rnn)
+from warehouse_tpu_torch.train import checkpoint
 
 SEED = 0
 TOL = 1e-4  # MLP outputs: f32 sums in another order, tanh/exp/log ulps
@@ -150,6 +179,13 @@ RNN_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 31-40
 CNN_SCHEDULE = 300  # the cnn_train phase's run length (the JAX curve's)
 CNN_UPDATES = 50    # updates of it that the cnn_train phase runs
 CNN_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 41-50
+SHAPING = (0.02, 0.99)  # the walled recipe's shaping_coef, and gamma
+SHELVES_SCHEDULE = 300  # the shelves_train run length (the JAX run's)
+SHELVES_UPDATES = 100   # updates of it that the shelves_train phase runs
+SHELVES_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 91-100
+SHELVES_CNN_UPDATES = 10  # updates of the shelves_cnn_train phase
+EVAL_EPISODES = 256     # episodes of each evaluated policy (the CLI's)
+METRICS_OUT = "runs/torch_shelves/metrics.jsonl"  # the port's curve
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (published)
 PEAK_F32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # K3/K4 against the plain twin at config 4: (rtol, atol) per quantity.
@@ -356,24 +392,57 @@ def cnn_model(cfg, dev):
                       device=dev)
 
 
-def k2_check(dev, name, cfg, model, mask_actions=False):
+def shaped_start(cfg, model, state, truncating, dev):
+    """A start state for the shaping checks: ``state`` after one unshaped
+    chunk (mid-episode: agents on their way, requests in transit), with
+    the step counter moved so that the next chunk ends with the episode
+    when ``truncating``."""
+    new, _, _, _ = act.ppo_rollout(
+        cfg, model, state, SLICE_T, rng.prng_key(SEED + 11, dev),
+        arch="cnn" if isinstance(model, ActorCriticCNN) else "mlp")
+    if truncating:
+        new = new.replace(t=torch.full_like(new.t, cfg.max_steps - SLICE_T))
+    return new, observe_batch(cfg, new)
+
+
+def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
+             truncating=False):
     """K2 (or, for a CNN model, K10) against the plain engine replaying
     its actions and the plain model on its observations, then timed beside
     its twin; with ``mask_actions`` also its mask against
-    ``valid_action_mask``."""
-    K, steps = (("K10", act.act_cnn_steps) if isinstance(model, ActorCriticCNN)
-                else ("K2", act.act_steps))
+    ``valid_action_mask``; with ``shaped`` its potential-shaping option
+    from a mid-episode state (``truncating``: the chunk ends with the
+    episode): the shaped reward against the formula on the replayed
+    states' potentials, the raw reward against the engine's, everything
+    against the twin where it samples the same actions, and the launch
+    counts."""
+    cnn = isinstance(model, ActorCriticCNN)
+    K, steps = ("K10", act.act_cnn_steps) if cnn else ("K2", act.act_steps)
     B, T, A = CHECK_B, SLICE_T, cfg.num_agents
     state, obs0 = reset_envs(cfg, B, SEED + 1, dev)
+    if shaped:
+        state, obs0 = shaped_start(cfg, model, state, truncating, dev)
     _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, T)
     _, g = rng.batched_gumbel_stream(rng.prng_key(SEED + 2, dev), T,
                                      (5, B * A))
     logits_k = torch.empty(T, B, A, 5, device=dev)
     mask = (torch.empty(T, B, A, 5, dtype=torch.bool, device=dev)
             if mask_actions else None)
+    shaping = done = None
+    if shaped:
+        done = ((state.t[None] + 1 + torch.arange(T, device=dev)[:, None])
+                >= cfg.max_steps).to(torch.float32)
+        require(bool(done[-1].all()) == truncating and not bool(
+            done[:-1].any()), f"{K}: truncation flags of the chunk")
+        shaping = act.Shaping(*SHAPING, done, torch.empty(T, B, A, device=dev))
+    counts = (steps.launches, steps.shaped_launches)
     ks, obs, action, lp, value, reward, delivered = steps(
-        cfg, model, state, u, pick, drop, g, logits=logits_k, mask=mask)
+        cfg, model, state, u, pick, drop, g, logits=logits_k, mask=mask,
+        shaping=shaping)
     torch.cuda.synchronize()
+    require((steps.launches, steps.shaped_launches)
+            == (counts[0] + 1, counts[1] + int(shaped)),
+            f"{K}: the launch counts did not show the kernel's launch")
 
     # Dynamics: the plain engine replays the kernel's actions.
     s = state
@@ -384,14 +453,46 @@ def k2_check(dev, name, cfg, model, mask_actions=False):
                     f"{K}: mask differs from valid_action_mask t={t}")
             require(bool(mask[t].gather(-1, action[t].long()[..., None])
                          .all()), f"{K}: a masked move was sampled t={t}")
+        phi_pre = potential(cfg, s) if shaped else None
         s, ts = step_batch(cfg, s, action[t])
-        require(bits_equal(ts.reward, reward[t]), f"{K}: reward t={t}")
+        want = ts.reward
+        if shaped:  # the formula, one rounded float32 operation at a time
+            require(bits_equal(ts.reward, shaping.raw_reward[t]),
+                    f"{K}: raw reward t={t}")
+            term = rollout.f32(SHAPING[1]) * potential(cfg, s)
+            term = term * (1.0 - done[t])[:, None] - phi_pre
+            want = ts.reward + rollout.f32(SHAPING[0]) * term
+        require(bits_equal(want, reward[t]), f"{K}: reward t={t}")
         require(torch.equal(ts.delivered.sum(-1, dtype=torch.int32),
                             delivered[t]), f"{K}: deliveries t={t}")
         if t + 1 < T:
             require(bits_equal(ts.obs, obs[t + 1]), f"{K}: obs t={t + 1}")
     require(state_equal(s.replace(t=state.t, key=state.key), ks),
             f"{K}: final state differs")
+    twin_equal = None
+    if shaped:
+        # The twin on the same draws: bit-equal wherever it samples the
+        # kernel's actions (its logits differ from the kernel's by ulps, so
+        # a sample on a near-tie may flip and the envs part ways).
+        require(not torch.equal(reward, shaping.raw_reward),
+                f"{K}: the shaping changed no reward")
+        raw_p = torch.empty_like(shaping.raw_reward)
+        mask_p = torch.empty_like(mask) if mask_actions else None
+        ps, obs_p, action_p, _, _, reward_p, deliv_p = (
+            act.act_steps_reference(cfg, model, state, u, pick, drop, g,
+                                    mask=mask_p,
+                                    shaping=shaping._replace(raw_reward=raw_p)))
+        twin_equal = torch.equal(action_p, action)
+        if twin_equal:
+            require(state_equal(ps, ks) and bits_equal(obs_p, obs)
+                    and bits_equal(reward_p, reward)
+                    and bits_equal(raw_p, shaping.raw_reward)
+                    and torch.equal(deliv_p, delivered)
+                    and (mask_p is None or torch.equal(mask_p, mask)),
+                    f"{K}: shaped kernel differs from its twin")
+        require((steps.launches, steps.shaped_launches)
+                == (counts[0] + 1, counts[1] + 1),
+                f"{K}: the twin's run moved a launch count")
 
     # Policy head: the plain model on the kernel's observations.
     with torch.no_grad():
@@ -412,11 +513,11 @@ def k2_check(dev, name, cfg, model, mask_actions=False):
 
     # The kernel alone and its twin on the same inputs, main-path shapes.
     k_ms = timed(lambda: steps(cfg, model, state, u, pick, drop, g,
-                               mask=mask), 5)
-    p_ms = timed(lambda: act.act_steps_reference(cfg, model, state, u, pick,
-                                                 drop, g, mask=mask), 3)
-    out = {"phase": f"{K.lower()}_check", "config": name,
-           "mask_actions": mask_actions,
+                               mask=mask, shaping=shaping), 5)
+    p_ms = timed(lambda: act.act_steps_reference(
+        cfg, model, state, u, pick, drop, g, mask=mask, shaping=shaping), 3)
+    out = {"phase": "t1_check" if shaped else f"{K.lower()}_check",
+           "kernel": K, "config": name, "mask_actions": mask_actions,
            "B": B, "T": T, "max_abs_err": err, "tol": TOL,
            "actions_agree_where_gap_gt_tol": agree,
            "clear_share": float(clear.float().mean()),
@@ -426,12 +527,27 @@ def k2_check(dev, name, cfg, model, mask_actions=False):
         # The option's cost: the kernel without it on the same inputs.
         out["unmasked_kernel_ms"] = timed(
             lambda: steps(cfg, model, state, u, pick, drop, g), 5)
+    n_table = 0
+    if shaped:
+        out.update({"shaping_coef": SHAPING[0], "gamma": SHAPING[1],
+                    "truncating": truncating, "bit_equal": True,
+                    "twin_samples_the_same_actions": twin_equal,
+                    "shaped_share": float((reward != shaping.raw_reward)
+                                          .float().mean()),
+                    # The option's cost: the kernel without it.
+                    "unshaped_kernel_ms": timed(
+                        lambda: steps(cfg, model, state, u, pick, drop, g,
+                                      mask=mask), 5)})
+        n_table = 4 * cfg.num_cells ** 2  # the int32 table, read once
     emit(out)
     fwd, _ = ff_macs(dict(model.named_parameters()))
+    # With shaping: the table, the flags and the raw reward beside K2's
+    # tensors, and 6 float operations per agent and step.
     bnd = bound(nbytes(state, ks, u, pick, drop, g, obs, action, lp, value,
-                       reward, delivered, mask,
-                       dict(model.named_parameters())),
-                2.0 * fwd * T * B * A)
+                       reward, delivered, mask, shaping and shaping.done,
+                       shaping and shaping.raw_reward,
+                       dict(model.named_parameters())) + n_table,
+                (2.0 * fwd + (6.0 if shaped else 0.0)) * T * B * A)
     return max(err.values()), k_ms, p_ms, bnd
 
 
@@ -982,11 +1098,12 @@ def median_split(splits):
     return {k: median([s[k] for s in splits]) for k in splits[0]}
 
 
-def run_updates(tr, n, what, dev):
+def run_updates(tr, n, what, dev, hook=None):
     """n updates of ``tr.train_step`` from ``PRNGKey(0)`` with the phase
     split of each by CUDA events, then 3 of ``tr.plain_step`` from the same
     initial state: the final state and a dict of the timings, the
-    per-update deliveries and the largest parameter change."""
+    per-update deliveries and the largest parameter change. ``hook(u, rs,
+    metrics)``, if given, is called after update ``u`` (from 1)."""
     B, T = tr.tcfg.num_envs, tr.tcfg.unroll_length
     rs0 = tr.init(rng.prng_key(0, dev))
     rs, splits, deliveries = rs0, [], []
@@ -999,6 +1116,8 @@ def run_updates(tr, n, what, dev):
         require(all(bool(torch.isfinite(v)) for v in m.values()),
                 f"{what}: non-finite metrics {m}")
         deliveries.append(float(m["deliveries_per_env_step"]))
+        if hook is not None:
+            hook(len(deliveries), rs, m)
     wall = time.perf_counter() - t0
     require(int(rs.update_idx) == n, f"{what}: update count")
     moved = max(float((rs.params[k] - rs0.params[k]).abs().max())
@@ -1121,6 +1240,111 @@ def cnn_train_phase(dev, cfg):
             f"below {CNN_LEARN_MIN}")
 
 
+def shelves_tcfg():
+    """The walled-layout recipe's TrainConfig, as the train CLI builds it
+    from ``--mask-actions --shaping-coef 0.02 --entropy-coef 0.02
+    --entropy-coef-final 0.002`` on the JAX run's 300-update schedule."""
+    return TrainConfig(num_updates=SHELVES_SCHEDULE, entropy_coef=0.02,
+                       entropy_coef_final=0.002, mask_actions=True,
+                       shaping_coef=SHAPING[0])
+
+
+def shelves_train_phase(dev, cfg):
+    """The first 100 updates of the walled-layout recipe through the
+    kernels, checkpointed at update 50 and at the end; the checkpoint of
+    update 50 restored and run to the end; then the three evaluations."""
+    tcfg = shelves_tcfg()
+    tr = make_train(cfg, tcfg, device=dev)
+    n, mid = SHELVES_UPDATES, SHELVES_UPDATES // 2
+    rows = []
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        write_policy_meta(ckpt_dir, cfg, tcfg, arch="mlp")
+
+        def hook(u, rs, m):
+            rows.append({"step": u, **{k: float(v) for k, v in m.items()}})
+            if u in (mid, n):
+                checkpoint.save(ckpt_dir, u, rs)
+
+        rs, out = run_updates(tr, n, "shelves_train", dev, hook)
+        require(checkpoint.latest_step(ckpt_dir) == n,
+                "shelves_train: the last checkpoint is not the latest")
+
+        # Resume: the mid-run checkpoint into a fresh state, to the end.
+        resumed = checkpoint.restore(ckpt_dir, mid,
+                                     tr.init(rng.prng_key(SEED + 12, dev)))
+        require(int(resumed.update_idx) == mid
+                and resumed.opt_state.count == mid * tcfg.ppo_epochs
+                * tcfg.num_minibatches, "shelves_train: restored counters")
+        for _ in range(n - mid):
+            resumed, _ = tr.train_step(resumed)
+        resume_equal = (
+            all(bits_equal(resumed.params[k], rs.params[k])
+                and bits_equal(resumed.opt_state.nu[k], rs.opt_state.nu[k])
+                for k in rs.params)
+            and state_equal(resumed.env_state, rs.env_state)
+            and torch.equal(resumed.key, rs.key))
+        saved = checkpoint.restore_params(ckpt_dir, device=dev)
+        require(all(bits_equal(saved[k], rs.params[k]) for k in saved),
+                "shelves_train: the last checkpoint's params differ")
+
+        # The other two commands, and the checkpoint's evaluation.
+        evals = {}
+        for policy in ("greedy", "greedy_bfs"):
+            evals[policy] = evaluate_policy(
+                cfg, policy_fn_for(policy, cfg), EVAL_EPISODES, SEED,
+                device=dev)
+        fn, init_carry, mask_on = checkpoint_policy_fn(cfg, ckpt_dir,
+                                                       device=dev)
+        require(mask_on, "evaluate: the meta file did not turn the mask on")
+        evals["checkpoint"] = evaluate_policy(
+            cfg, fn, EVAL_EPISODES, SEED, init_carry=init_carry, device=dev)
+    serve_mlp(cfg, tr, rs)
+    os.makedirs(os.path.dirname(METRICS_OUT), exist_ok=True)
+    with open(METRICS_OUT, "w") as f:
+        f.write(json.dumps({"meta": True, "algo": "ppo", "arch": "mlp",
+                            "env": "shelves", "device":
+                            torch.cuda.get_device_name(0),
+                            "train_config": json.loads(tcfg.to_json())})
+                + "\n")
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+
+    deliveries = out["deliveries_per_env_step"]
+    late = sum(deliveries[-10:]) / 10
+    per_episode = {k: v["mean_deliveries_per_episode"]
+                   for k, v in evals.items()}
+    emit({"phase": "shelves_train", **out,
+          "deliveries_at": {u: deliveries[u - 1]
+                            for u in range(20, n + 1, 20)},
+          "deliveries_91_100": late, "learn_min": SHELVES_LEARN_MIN,
+          "resume_from": mid, "resume_bit_equal": resume_equal,
+          "eval_episodes": EVAL_EPISODES,
+          "eval_deliveries_per_episode": per_episode,
+          "eval_mean_episode_return": {k: v["mean_episode_return"]
+                                       for k, v in evals.items()},
+          "metrics_file": METRICS_OUT})
+    require(late >= SHELVES_LEARN_MIN,
+            f"shelves_train: deliveries/env-step {late} over updates 91-100 "
+            f"is below {SHELVES_LEARN_MIN}")
+    require(resume_equal, "shelves_train: the resumed run differs from the "
+            "uninterrupted one")
+    require(per_episode["greedy_bfs"] > per_episode["greedy"],
+            f"evaluate: greedy_bfs does not beat greedy: {per_episode}")
+    require(per_episode["checkpoint"] >= per_episode["greedy_bfs"],
+            f"evaluate: the checkpoint is below greedy_bfs: {per_episode}")
+
+
+def shelves_cnn_train_phase(dev, cfg):
+    """10 updates of the walled-layout recipe with the CNN policy: the
+    shaped K10 on a trained path."""
+    tr = make_train(cfg, shelves_tcfg(), arch="cnn", device=dev)
+    seen = []
+    rs, out = run_updates(
+        tr, SHELVES_CNN_UPDATES, "shelves_cnn_train", dev,
+        lambda u, rs, m: seen.append(float(m["reward_per_step"])))
+    serve_mlp(cfg, tr, rs)
+    emit({"phase": "shelves_cnn_train", **out, "raw_reward_per_step": seen})
+
+
 # Each kernel's wrapper, where its launch count lives.
 COUNTED = {"greedy_rollout": rollout.greedy_steps,
            "ppo_rollout": act.act_steps,
@@ -1134,6 +1358,9 @@ COUNTED = {"greedy_rollout": rollout.greedy_steps,
            "ppo_rollout_cnn": act.act_cnn_steps,
            "ppo_cnn_sgd_phase": sgd_cnn.ppo_cnn_sgd_phase,
            "ppo_cnn_minibatch_grads": sgd_cnn.ppo_cnn_minibatch_grads}
+# The shaping option's launches are counted beside each wrapper's own.
+SHAPED_COUNTED = {"ppo_rollout_shaped": act.act_steps,
+                  "ppo_rollout_cnn_shaped": act.act_cnn_steps}
 
 
 def main_path(name, fn, kernels):
@@ -1141,8 +1368,11 @@ def main_path(name, fn, kernels):
     reads the counts just after and requires each of ``kernels``."""
     for wrapper in COUNTED.values():
         wrapper.launches = 0
+    for wrapper in SHAPED_COUNTED.values():
+        wrapper.shaped_launches = 0
     fn()
     counts = {k: w.launches for k, w in COUNTED.items()}
+    counts.update({k: w.shaped_launches for k, w in SHAPED_COUNTED.items()})
     emit({"phase": "launches", "path": name, "launches": counts})
     require(all(counts[k] > 0 for k in kernels),
             f"{name}: a kernel of the path never launched: {counts}")
@@ -1241,6 +1471,18 @@ def main(argv=()) -> int:
              mask_actions=True)
     checks["ppo_cnn_sgd_phase"] = k3_check(dev, cfg, cnn=True)
     checks["ppo_cnn_minibatch_grads"] = k4_check(dev, cfg, cnn=True)
+    # The shaping option of K2 and K10: medium and shelves, a mid-episode
+    # chunk and a truncating one; the shelves mid-episode numbers (the
+    # trained path's shapes) go into the kernels line.
+    for key, models in (("ppo_rollout_shaped", None),
+                        ("ppo_rollout_cnn_shaped", cnn_model)):
+        for name, c in (("medium", cfg), ("shelves", shelves)):
+            m = (models(c, dev) if models else make_model(
+                c, hidden_dim=HIDDEN[0], num_layers=HIDDEN[1],
+                generator=torch.Generator().manual_seed(SEED), device=dev))
+            k2_check(dev, name, c, m, True, shaped=True, truncating=True)
+            res = k2_check(dev, name, c, m, True, shaped=True)
+        checks[key] = res
 
     # ---- the main paths: each counted from just before it -------------
     rnn_kernels = ["ppo_rnn_rollout", "ppo_rnn_sgd_phase",
@@ -1261,8 +1503,15 @@ def main(argv=()) -> int:
                   rnn_kernels),
         main_path("cnn_train", lambda: cnn_train_phase(dev, cfg),
                   ["ppo_rollout_cnn", "ppo_cnn_sgd_phase",
-                   "ppo_cnn_minibatch_grads"])]
-    launches = {k: sum(p[k] for p in paths) for k in COUNTED}
+                   "ppo_cnn_minibatch_grads"]),
+        main_path("shelves_train", lambda: shelves_train_phase(dev, shelves),
+                  ["ppo_rollout", "ppo_rollout_shaped", "ppo_sgd_phase",
+                   "ppo_minibatch_grads"]),
+        main_path("shelves_cnn_train",
+                  lambda: shelves_cnn_train_phase(dev, shelves),
+                  ["ppo_rollout_cnn", "ppo_rollout_cnn_shaped",
+                   "ppo_cnn_sgd_phase", "ppo_cnn_minibatch_grads"])]
+    launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     csrc = "warehouse_tpu_torch/kernels/csrc/"
     sources = {
@@ -1278,7 +1527,11 @@ def main(argv=()) -> int:
         "ppo_rnn_minibatch_grads": ("sgd_rnn.cu", "pallas/sgd_rnn.py:665"),
         "ppo_rollout_cnn": ("act_cnn.cu", "pallas/act.py:1073"),
         "ppo_cnn_sgd_phase": ("sgd_cnn.cu", "pallas/sgd_cnn.py:482"),
-        "ppo_cnn_minibatch_grads": ("sgd_cnn.cu", "pallas/sgd_cnn.py:595")}
+        "ppo_cnn_minibatch_grads": ("sgd_cnn.cu", "pallas/sgd_cnn.py:595"),
+        # The shaping option of the two acting kernels (_phi_row and the
+        # shaped reward of _act_kernel), at the shelves recipe's shapes.
+        "ppo_rollout_shaped": ("act_common.cuh", "pallas/act.py:266"),
+        "ppo_rollout_cnn_shaped": ("act_common.cuh", "pallas/act.py:457")}
     # library_ms: no single PyTorch call computes a whole rollout or a
     # whole learner phase, so it is null for every kernel here.
     emit({"kernels": [

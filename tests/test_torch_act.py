@@ -6,8 +6,11 @@ CPU tensors the port runs its plain twin. With the JAX gumbel stream fed
 in, obs, actions, rewards, deliveries and the final state are
 bit-equal, values within 1e-5 and log-probs within 1e-4 (f32 sums in
 another order, and torch's exp/log/tanh against XLA's). The wrapper's
-own keys are bit-exact. The CUDA kernel is checked on the card by
-test_torch_kernels_gpu.py and chip_smoke.py.
+own keys are bit-exact. With ``shaping_coef`` the shaped reward is
+bit-equal to the formula's float32 operation order evaluated in numpy and
+to the Pallas kernel in interpret mode, the raw reward rides beside it.
+The CUDA kernel is checked on the card by test_torch_kernels_gpu.py and
+chip_smoke.py.
 """
 
 import jax
@@ -17,20 +20,23 @@ import pytest
 import torch
 
 from warehouse_tpu import rng as jrng
-from warehouse_tpu.config import shelves_config, small_config
+from warehouse_tpu.config import (medium_config, shelves_config,
+                                  small_config)
 from warehouse_tpu.env import batch as jbatch
 from warehouse_tpu.models import make_model as j_make_model
 from warehouse_tpu.pallas.act import ppo_rollout_pallas
 from warehouse_tpu_torch import rng
 from warehouse_tpu_torch.env import batch
 from warehouse_tpu_torch.env.state import STATE_FIELDS
-from warehouse_tpu_torch.kernels.act import (act_steps, ppo_rollout,
+from warehouse_tpu_torch.kernels.act import (Shaping, act_steps,
+                                             ppo_rollout,
                                              ppo_rollout_reference)
 from warehouse_tpu_torch.models import make_model, params_from_flax
 from warehouse_tpu_torch.ops.move import valid_action_mask
+from warehouse_tpu_torch.ops.pathing import potential
 
 from test_torch_env import assert_state, env_keys
-from test_torch_rng import assert_bits, to_torch
+from test_torch_rng import assert_bits, to_torch, ulps
 
 B, T, HIDDEN = 64, 4, 32
 CFG = small_config(max_steps=T)  # the chunk ends with the episode
@@ -126,7 +132,6 @@ def test_boundary_reset_matches_autoreset_path(setup):
 
 
 @pytest.mark.parametrize("option", [
-    {"mask_actions": True, "shaping_coef": 0.1}, {"shaping_coef": 0.1},
     {"policy_groups": (0, 1)}, {"arch": "attn"}])
 def test_unsupported_options_raise(setup, option):
     _, _, m, _, ts, _ = setup
@@ -224,3 +229,137 @@ def test_masked_wrapper_samples_only_valid_moves(masked_setup):
     assert bool(torch.isfinite(roll.log_prob).all())
     plain = ppo_rollout(WALLED, m, ts, T, rng.prng_key(9))[1]
     assert bool(plain.mask.all())
+
+
+# ---- the potential-shaping option -------------------------------------------
+
+COEF, GAMMA = 0.02, 0.99
+SB = 32
+# Interpret mode runs the Pallas kernel through XLA:CPU, which contracts the
+# shaping's products and sums into FMAs: 12-20% of the shaped rewards are off
+# the unfused spec order, by at most 3 ulp on medium and 2 on the walled
+# layout (the sum cancels, so half an ulp of a product is ulps of the
+# result). The port keeps the spec order, as it does for the greedy reward
+# sum.
+SHAPED_ULP = 4
+# (config, the step counter the chunk starts from): a chunk that ends with
+# the episode on the walled layout, one in the middle of an episode, and
+# the open medium floor (the table is the Manhattan distance there).
+SHAPED_CASES = {
+    "walled_truncating": (WALLED, 0),
+    "walled_mid_episode": (WALLED.replace(max_steps=3 * T), T),
+    "medium_truncating": (medium_config(max_steps=2 * T), T),
+}
+
+
+def shaped_spec(cfg, ts, roll_action, raw, done):
+    """The shaped reward in the formula's order, each operation rounded to
+    float32 by numpy: the plain engine replays the actions and
+    ``ops.pathing.potential`` reads each state."""
+    f = np.float32
+    s, out = ts, []
+    for t in range(roll_action.shape[0]):
+        phi_pre = potential(cfg, s).numpy()
+        s, _ = batch.step_batch(cfg, s, roll_action[t])
+        term = f(GAMMA) * potential(cfg, s).numpy()
+        term = term * (f(1.0) - done[t].numpy().astype(f))[:, None]
+        term = term - phi_pre
+        out.append(raw[t].numpy() + f(COEF) * term)
+    return np.stack(out)
+
+
+@pytest.fixture(scope="module", params=sorted(SHAPED_CASES))
+def shaped_setup(request):
+    """``ppo_rollout_pallas(mask_actions=True, shaping_coef=0.02)`` in
+    interpret mode and the port's wrapper on the same start state."""
+    cfg, t0 = SHAPED_CASES[request.param]
+    jm = j_make_model(cfg, hidden_dim=HIDDEN)
+    params = jm.init(jax.random.PRNGKey(1), jnp.zeros((1, cfg.obs_dim)))
+    m = make_model(cfg, hidden_dim=HIDDEN, device="cpu")
+    m.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
+    jk, tk = env_keys(5, n=SB)
+    js, _ = jbatch.reset_batch(cfg, jk)
+    ts, _ = batch.reset_batch(cfg, tk)
+    js = js.replace(t=js.t + t0)
+    ts = ts.replace(t=ts.t + t0)
+    out = ppo_rollout_pallas(cfg, params, js, T, jax.random.PRNGKey(9),
+                             block=SB, interpret=True, mask_actions=True,
+                             shaping_coef=COEF, gamma=GAMMA)
+    return request.param, cfg, m, ts, out
+
+
+def test_shaped_twin_with_jax_gumbel(shaped_setup):
+    """The shaped twin on the JAX gumbel stream: dynamics, obs, actions,
+    mask and raw reward bit-equal to the Pallas kernel; the shaped reward
+    bit-equal to the numpy float32 spec order and within ``SHAPED_ULP`` of
+    the kernel in interpret mode."""
+    name, cfg, m, ts, (j_new, j_roll, _, _) = shaped_setup
+    A = cfg.num_agents
+    _, u, pick, drop, _ = rng.batched_step_draws(ts.key, cfg, T)
+    _, g = jrng.batched_gumbel_stream(jax.random.PRNGKey(9), T, (5, SB * A))
+    mask = torch.zeros(T, SB, A, 5, dtype=torch.bool)
+    done = to_torch(j_roll.truncated).to(torch.float32)
+    shaping = Shaping(COEF, GAMMA, done, torch.zeros(T, SB, A))
+    new, obs, action, lp, value, reward, delivered = act_steps(
+        cfg, m, ts, u, pick, drop, to_torch(g), mask=mask, shaping=shaping)
+    assert_bits(j_roll.obs, obs, "obs")
+    assert_bits(j_roll.action, action, "action")
+    assert_bits(j_roll.mask, mask, "mask")
+    assert_bits(j_roll.delivered, delivered, "delivered")
+    assert_bits(j_roll.raw_reward, shaping.raw_reward, "raw reward")
+    for f in STATE_FIELDS[:-2]:
+        assert_bits(getattr(j_new, f), getattr(new, f), f)
+    spec = shaped_spec(cfg, ts, action, shaping.raw_reward, done)
+    np.testing.assert_array_equal(spec.view(np.int32),
+                                  reward.numpy().view(np.int32))
+    off = ulps(j_roll.reward, reward.numpy())
+    assert int(off.max()) <= SHAPED_ULP, int(off.max())
+    assert not torch.equal(reward, shaping.raw_reward)
+    assert bool(done[-1].all()) == name.endswith("truncating")
+    assert not bool(done[:-1].any())
+
+
+def test_shaped_wrapper_returns_shaped_and_raw_reward(shaped_setup):
+    """``ppo_rollout(shaping_coef=, gamma=)``: the truncation flags it
+    computes are the JAX wrapper's, the raw reward is the unshaped
+    rollout's reward on the same key, and without the option ``raw_reward``
+    is ``reward`` itself."""
+    _, cfg, m, ts, (_, j_roll, _, _) = shaped_setup
+    _, roll, _, _ = ppo_rollout(cfg, m, ts, T, rng.prng_key(9),
+                                mask_actions=True, shaping_coef=COEF,
+                                gamma=GAMMA)
+    assert_bits(j_roll.truncated, roll.truncated, "truncated")
+    plain = ppo_rollout(cfg, m, ts, T, rng.prng_key(9), mask_actions=True)[1]
+    assert plain.raw_reward is plain.reward
+    assert torch.equal(roll.action, plain.action)
+    assert torch.equal(roll.raw_reward, plain.reward)
+    done = roll.truncated.to(torch.float32)
+    spec = shaped_spec(cfg, ts, roll.action, roll.raw_reward, done)
+    np.testing.assert_array_equal(spec.view(np.int32),
+                                  roll.reward.numpy().view(np.int32))
+    ref = ppo_rollout_reference(cfg, m, ts, T, rng.prng_key(9),
+                                mask_actions=True, shaping_coef=COEF,
+                                gamma=GAMMA)[1]
+    assert torch.equal(ref.reward, roll.reward)
+    assert torch.equal(ref.raw_reward, roll.raw_reward)
+
+
+def test_shaping_cuts_the_next_potential_at_a_truncation():
+    """At a truncating step the ``gamma * phi_post`` term is cut: the
+    shaped reward there is ``raw + coef * (-phi_pre)``; the zero it is cut
+    to may be negative (``-0.0``), and leaves no trace in the sum."""
+    cfg = WALLED
+    m = make_model(cfg, hidden_dim=HIDDEN, device="cpu",
+                   generator=torch.Generator().manual_seed(2))
+    _, tk = env_keys(6, n=SB)
+    ts, _ = batch.reset_batch(cfg, tk)
+    _, roll, _, _ = ppo_rollout(cfg, m, ts, T, rng.prng_key(4),
+                                shaping_coef=COEF, gamma=GAMMA)
+    assert bool(roll.truncated[-1].all())
+    s = ts
+    for t in range(T - 1):
+        s, _ = batch.step_batch(cfg, s, roll.action[t])
+    phi_pre = potential(cfg, s)
+    want = roll.raw_reward[-1] + np.float32(COEF) * (0.0 - phi_pre)
+    assert torch.equal(roll.reward[-1], want)
+    assert bool((phi_pre < 0).any())

@@ -55,7 +55,7 @@ from test_sgd_cnn_kernel import (CFG as J_CFG, CLIP, ENT, KL, MAXNORM, TCFG,
                                  VCOEF, D, E, H, M, _envmajor_minibatches,
                                  _kernel_inputs, _loss_fn_for, _setup)
 from test_torch_env import env_keys
-from test_torch_rng import assert_bits, to_torch
+from test_torch_rng import assert_bits, to_torch, ulps
 from test_torch_sgd import assert_tree, port_inputs, tree_np
 
 
@@ -275,6 +275,70 @@ def test_act_wrapper_keys_and_reference(act_setup):
 
 # ---- the learner twins against the Pallas kernels --------------------------------
 
+@pytest.mark.parametrize("t0", [0, ACT_T], ids=["truncating", "mid_episode"])
+def test_shaped_act_twin_with_jax_gumbel(t0):
+    """The CNN arm with ``mask_actions`` and ``shaping_coef=0.02`` on the
+    walled layout, a chunk that ends with the episode and one in its
+    middle: env state, obs, actions, mask, deliveries and the raw reward
+    bit-equal to the Pallas kernel in interpret mode; the shaped reward
+    bit-equal to the twin's formula on the raw reward and potentials, and
+    within 4 ulp of the kernel (XLA:CPU contracts the shaping into FMAs;
+    ``tests/test_torch_act.py`` measured at most 3)."""
+    from warehouse_tpu_torch.ops.pathing import potential
+
+    coef, gamma = 0.02, 0.99
+    jcfg, cfg = (c.replace(max_steps=ACT_T + t0) for c in ACT_CONFIGS[True])
+    A = cfg.num_agents
+    _, params = flax_cnn(jcfg, ACT_H, seed=1)
+    m = port_cnn(cfg, ACT_H, params)
+    jk, tk = env_keys(8, n=ACT_B)
+    js, _ = jbatch.reset_batch(jcfg, jk)
+    ts, _ = batch.reset_batch(cfg, tk)
+    js, ts = js.replace(t=js.t + t0), ts.replace(t=ts.t + t0)
+    j_new, j_roll, _, _ = ppo_rollout_pallas(
+        jcfg, params, js, ACT_T, jax.random.PRNGKey(7), block=ACT_B,
+        interpret=True, mask_actions=True, shaping_coef=coef, gamma=gamma,
+        arch="cnn")
+    _, u, pick, drop, _ = rng.batched_step_draws(ts.key, cfg, ACT_T)
+    _, g = jrng.batched_gumbel_stream(jax.random.PRNGKey(7), ACT_T,
+                                      (5, ACT_B * A))
+    mask = torch.zeros(ACT_T, ACT_B, A, 5, dtype=torch.bool)
+    done = to_torch(j_roll.truncated).to(torch.float32)
+    assert bool(done[-1].all()) and not bool(done[:-1].any())
+    shaping = act.Shaping(coef, gamma, done,
+                          torch.zeros(ACT_T, ACT_B, A))
+    new, obs, action, lp, value, reward, delivered = act.act_cnn_steps(
+        cfg, m, ts, u, pick, drop, to_torch(g), mask=mask, shaping=shaping)
+    for name, want, got in (("obs", j_roll.obs, obs),
+                            ("action", j_roll.action, action),
+                            ("mask", j_roll.mask, mask),
+                            ("delivered", j_roll.delivered, delivered),
+                            ("raw reward", j_roll.raw_reward,
+                             shaping.raw_reward)):
+        assert_bits(want, got, name)
+    for f in STATE_FIELDS[:-2]:
+        assert_bits(getattr(j_new, f), getattr(new, f), f)
+    s, f32 = ts, np.float32
+    for t in range(ACT_T):
+        phi_pre = potential(cfg, s).numpy()
+        s, _ = batch.step_batch(cfg, s, action[t])
+        term = f32(gamma) * potential(cfg, s).numpy()
+        term = term * (f32(1.0) - done[t].numpy())[:, None] - phi_pre
+        want = shaping.raw_reward[t].numpy() + f32(coef) * term
+        np.testing.assert_array_equal(want.view(np.int32),
+                                      reward[t].numpy().view(np.int32))
+    assert int(ulps(j_roll.reward, reward.numpy()).max()) <= 4
+    # The wrapper: the same chunk from its own draws, twin == CPU path.
+    a = act.ppo_rollout(cfg, m, ts, ACT_T, rng.prng_key(7), arch="cnn",
+                        mask_actions=True, shaping_coef=coef, gamma=gamma)[1]
+    assert_bits(j_roll.truncated, a.truncated, "truncated")
+    assert not torch.equal(a.reward, a.raw_reward)
+    plain = act.ppo_rollout(cfg, m, ts, ACT_T, rng.prng_key(7), arch="cnn",
+                            mask_actions=True)[1]
+    assert plain.raw_reward is plain.reward
+    assert torch.equal(a.raw_reward, plain.reward)
+
+
 def cnn_port_inputs(params, opt_state, data):
     p0, traj, adv_n, tgt = port_inputs(params, opt_state, data)
     return p0, opt_state_from_optax(jax.tree.map(np.asarray, opt_state)), \
@@ -436,6 +500,46 @@ def test_cnn_train_steps_match_jax_trainer():
     assert_tree(rs.opt_state.mu, mu, 2e-4, 5e-6, "mu")
 
 
+def test_shaped_cnn_train_steps_match_jax_trainer():
+    """``mask_actions=True, shaping_coef=0.02`` on a walled layout with
+    ``max_steps = 2 * unroll_length``, so the 3 updates cross an episode
+    boundary: the JAX trainer on its XLA route (which shapes on the
+    auto-reset state and cuts the next potential by ``1 - done``) against
+    the port's CNN trainer on the CPU (which shapes on the pre-reset state
+    inside the acting twin). Env state and keys bit-equal, metrics and
+    params at the tolerances of the test above."""
+    walls = dict(height=5, width=5, num_agents=2, queue_capacity=4,
+                 init_requests=2, spawn_prob=0.5, walls=(10, 11, 13, 14),
+                 max_steps=8)
+    fields = dict(num_envs=16, unroll_length=4, num_updates=3,
+                  num_minibatches=2, ppo_epochs=2, hidden_dim=16,
+                  mask_actions=True, kl_coeff=0.1, shaping_coef=0.02)
+    from warehouse_tpu.config import EnvConfig as JEnvConfig
+
+    jtr = j_make_train(JEnvConfig(**walls), TrainConfig(
+        **fields, rollout_backend="xla", grad_backend="xla"), arch="cnn")
+    tr = make_train(wt.EnvConfig(**walls), wt.TrainConfig(**fields),
+                    arch="cnn", device="cpu")
+    jrs = jtr.init(jax.random.PRNGKey(0))
+    rs = runner_state_from_jax(jax.tree.map(np.asarray, jrs))
+    for u in range(3):
+        jrs, jm = jtr.train_step(jrs)
+        rs, m = tr.train_step(rs)
+        for f in STATE_FIELDS:
+            assert_bits(getattr(jrs.env_state, f), getattr(rs.env_state, f),
+                        f"update {u} {f}")
+        assert_bits(np.asarray(jrs.key).reshape(2), rs.key, f"update {u} key")
+        assert m.keys() == jm.keys()
+        for k in jm:
+            a, b = float(m[k]), float(jm[k])
+            assert abs(a - b) < 2e-4 + 1e-3 * abs(b), (u, k, a, b)
+    assert int(rs.env_state.t[0]) == 4  # 12 steps: one boundary crossed
+    want = tree_np(jrs.params)
+    for k, v in want.items():
+        np.testing.assert_allclose(rs.params[k].numpy(), v, rtol=2e-4,
+                                   atol=5e-5, err_msg=k)
+
+
 def test_cnn_trainer_gates_and_plain_step():
     cfg = wt.small_config(max_steps=8)
     tcfg = wt.TrainConfig(num_envs=16, unroll_length=4, num_updates=3,
@@ -444,9 +548,6 @@ def test_cnn_trainer_gates_and_plain_step():
         make_train(cfg, tcfg, arch="cnn", policy_groups=(0, 1), device="cpu")
     with pytest.raises(NotImplementedError, match="global_obs"):
         make_train(cfg.replace(global_obs=True), tcfg, arch="cnn",
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="shaping"):
-        make_train(cfg, tcfg.replace(shaping_coef=0.1), arch="cnn",
                    device="cpu")
     tr = make_train(cfg, tcfg, arch="cnn", device="cpu")
     assert isinstance(tr.model, ActorCriticCNN)

@@ -562,3 +562,107 @@ def test_cnn_minibatch_grads_kernel_matches_autograd(hidden, mask_on, dev):
         for a, b in zip((l_k, *aux_k), (l_r, *aux_r)):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
         assert_close_tree(g_k, g_r, 1e-4, 1e-6, f"grads mb={mb}")
+
+
+# ---- the potential-shaping option of K2 and K10 ------------------------------
+
+@pytest.mark.parametrize("truncating", [False, True])
+@pytest.mark.parametrize("mask_on", [False, True])
+@pytest.mark.parametrize("arch", ["mlp", "cnn"])
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_shaped_act_kernel_bit_equal_to_formula(name, arch, mask_on,
+                                                truncating, dev):
+    """``shaping_coef=0.02`` in K2 (``arch="mlp"``) and K10 (``"cnn"``) from
+    a mid-episode state, on a chunk inside the episode or one that ends
+    it: the kernel's actions replayed through the plain engine give its
+    raw reward, and ``ops.pathing.potential`` of the replayed states gives
+    its shaped reward through the formula's float32 operation order, bit
+    for bit; the twin on the same draws gives the same bits wherever it
+    samples the same actions; without the option the kernel returns the
+    raw reward's bits."""
+    from warehouse_tpu_torch.kernels.act import (Shaping, act_cnn_steps,
+                                                 act_steps_reference)
+    from warehouse_tpu_torch.kernels.rollout import f32
+    from warehouse_tpu_torch.ops.pathing import potential
+
+    cfg, steps, coef, gamma = PRESETS[name], 8, 0.02, 0.99
+    A = cfg.num_agents
+    m = make_model(cfg, arch, 32, generator=torch.Generator().manual_seed(0),
+                   device=dev)
+    run = act_cnn_steps if arch == "cnn" else act_steps
+    state, _ = reset(cfg, 6, dev)
+    keys, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, steps)
+    _, g = rng.batched_gumbel_stream(rng.prng_key(3, dev), 2 * steps,
+                                     (5, N * A))
+    # Mid-episode: agents under way, the env keys moved past the chunk.
+    t0 = cfg.max_steps - steps if truncating else steps
+    state = run(cfg, m, state, u, pick, drop, g[:steps])[0].replace(
+        t=torch.full_like(state.t, t0), key=keys)
+    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, steps)
+    g = g[steps:].contiguous()
+    done = ((t0 + 1 + torch.arange(steps, device=dev))[:, None]
+            >= cfg.max_steps).expand(steps, N).to(torch.float32).contiguous()
+    assert bool(done[-1].all()) == truncating
+    mask = (torch.zeros(steps, N, A, 5, dtype=torch.bool, device=dev)
+            if mask_on else None)
+    shaping = Shaping(coef, gamma, done, torch.zeros(steps, N, A, device=dev))
+    before = (run.launches, run.shaped_launches)
+    new, obs, action, lp, value, reward, delivered = run(
+        cfg, m, state, u, pick, drop, g, mask=mask, shaping=shaping)
+    assert (run.launches, run.shaped_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    bits = lambda x: x.view(torch.int32)
+    s = state
+    for t in range(steps):
+        phi_pre = potential(cfg, s)
+        assert torch.equal(batch.observe_batch(cfg, s), obs[t])
+        s, ts = batch.step_batch(cfg, s, action[t])
+        assert torch.equal(bits(ts.reward), bits(shaping.raw_reward[t]))
+        term = f32(gamma) * potential(cfg, s)
+        term = term * (1.0 - done[t])[:, None] - phi_pre
+        want = ts.reward + f32(coef) * term
+        assert torch.equal(bits(want), bits(reward[t])), t
+    for f in STATE_FIELDS[:-2]:
+        assert torch.equal(getattr(s, f), getattr(new, f)), f
+    assert not torch.equal(reward, shaping.raw_reward)
+
+    raw_p = torch.zeros_like(shaping.raw_reward)
+    mask_p = None if mask is None else torch.zeros_like(mask)
+    twin = act_steps_reference(cfg, m, state, u, pick, drop, g, mask=mask_p,
+                               shaping=shaping._replace(raw_reward=raw_p))
+    if torch.equal(twin[2], action):
+        assert torch.equal(bits(twin[5]), bits(reward))
+        assert torch.equal(bits(raw_p), bits(shaping.raw_reward))
+        assert torch.equal(twin[1], obs)
+
+    plain = run(cfg, m, state, u, pick, drop, g, mask=mask)
+    assert torch.equal(plain[2], action)
+    assert torch.equal(bits(plain[5]), bits(shaping.raw_reward))
+    assert run.shaped_launches == before[1] + 1
+
+
+def test_shaped_rollout_wrapper_launches_the_kernel(dev):
+    """``ppo_rollout(shaping_coef > 0)`` on a CUDA state goes through the
+    kernel (the counts move) and returns the shaped reward beside the raw
+    one; the reference wrapper launches nothing."""
+    from warehouse_tpu_torch.kernels.act import (ppo_rollout,
+                                                 ppo_rollout_reference)
+
+    cfg = shelves_config()
+    m = make_model(cfg, generator=torch.Generator().manual_seed(0),
+                   device=dev)
+    state, _ = reset(cfg, 7, dev)
+    before = (act_steps.launches, act_steps.shaped_launches)
+    _, roll, _, _ = ppo_rollout(cfg, m, state, 8, rng.prng_key(5, dev),
+                                mask_actions=True, shaping_coef=0.02,
+                                gamma=0.99)
+    assert (act_steps.launches, act_steps.shaped_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert not torch.equal(roll.reward, roll.raw_reward)
+    _, ref, _, _ = ppo_rollout_reference(
+        cfg, m, state, 8, rng.prng_key(5, dev), mask_actions=True,
+        shaping_coef=0.02, gamma=0.99)
+    assert act_steps.launches == before[0] + 1
+    if torch.equal(ref.action, roll.action):
+        assert torch.equal(ref.reward.view(torch.int32),
+                           roll.reward.view(torch.int32))

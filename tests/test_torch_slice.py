@@ -111,8 +111,8 @@ def test_serve_compute_actions_matches_jax():
     s1, _ = pol.compute_actions(obs, explore=True, seed=7)
     s2, _ = pol.compute_actions(obs, explore=True, seed=7)
     assert torch.equal(s1, s2)
-    with pytest.raises(NotImplementedError):
-        Policy.from_checkpoint("checkpoints")
+    with pytest.raises(FileNotFoundError, match="policy_meta.json"):
+        Policy.from_checkpoint("no_such_checkpoints", device="cpu")
 
 
 @pytest.mark.parametrize("policy", ["greedy", "random"])

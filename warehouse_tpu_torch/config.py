@@ -206,7 +206,9 @@ class TrainConfig:
     # truncation boundary GAE/V-trace use V of the true final state as the
     # next-state value instead of 0. Off = truncation as termination.
     bootstrap_truncated: bool = False
-    # Potential-based reward shaping coefficient. 0 = off; not ported.
+    # Potential-based reward shaping coefficient (0 = off): the PPO MLP
+    # and CNN trainers add coef * (gamma * phi(s') * (1 - done) - phi(s))
+    # with phi = -BFS distance to the agent's target (ops/pathing.py).
     shaping_coef: float = 0.0
     # Mask actions that walk into walls / off the grid at the policy
     # logits (ops/move.py valid_action_mask). The mask is stored with the

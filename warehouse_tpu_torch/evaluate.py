@@ -1,14 +1,16 @@
 """Evaluation CLI: ``python -m warehouse_tpu_torch.evaluate``.
 
-Counterpart of ``warehouse_tpu/evaluate.py`` for the greedy and random
-baselines: B envs run one full episode each (auto-reset off) and the same
-metrics dict is reported. Evaluating a checkpoint waits for the
-checkpoint port.
+Counterpart of ``warehouse_tpu/evaluate.py``: B envs run one full episode
+each (auto-reset off) under the greedy baseline, the obstacle-aware
+``greedy_bfs`` baseline, a random policy or a trained checkpoint, and the
+same metrics dict is reported.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 
 import torch
 
@@ -20,12 +22,15 @@ from .env import engine
 
 
 def evaluate_policy(cfg, policy_fn, num_episodes: int, seed: int = 0,
-                    device=None) -> dict:
+                    init_carry=None, device=None) -> dict:
     """``policy_fn(state, obs, key) -> int32[B, A]``; returns the metrics.
 
     Env b resets from ``fold_in(PRNGKey(seed), b)`` and the policy keys
     split off ``PRNGKey(seed + 1)`` once per step, as in the JAX package.
-    Runs on the card unless ``device="cpu"``.
+    A recurrent policy passes ``init_carry(B) -> carry`` and a
+    ``policy_fn(state, obs, key, carry) -> (actions, carry)``; the carry
+    is threaded through the episode. Runs on the card unless
+    ``device="cpu"``.
     """
     device = resolve_device(device)
     cfg = cfg.replace(auto_reset=False)
@@ -34,6 +39,7 @@ def evaluate_policy(cfg, policy_fn, num_episodes: int, seed: int = 0,
     keys = _rng.fold_in(base, torch.arange(B, device=base.device))
     state, obs = engine.reset(cfg, keys)
     key = _rng.prng_key(seed + 1, device)
+    carry = init_carry(B) if init_carry is not None else None
     ret = torch.zeros(B, cfg.num_agents, dtype=torch.float32,
                       device=base.device)
     deliv = torch.zeros(B, cfg.num_agents, dtype=torch.int64,
@@ -42,7 +48,11 @@ def evaluate_policy(cfg, policy_fn, num_episodes: int, seed: int = 0,
         for _ in range(cfg.max_steps):
             k = _rng.split(key, 2)
             key, ak = k[0], k[1]
-            state, ts = engine.step(cfg, state, policy_fn(state, obs, ak))
+            if init_carry is not None:
+                actions, carry = policy_fn(state, obs, ak, carry)
+            else:
+                actions = policy_fn(state, obs, ak)
+            state, ts = engine.step(cfg, state, actions)
             obs = ts.obs
             ret = ret + ts.reward
             deliv = deliv + ts.delivered
@@ -58,31 +68,125 @@ def evaluate_policy(cfg, policy_fn, num_episodes: int, seed: int = 0,
 
 
 def policy_fn_for(name: str, cfg):
-    if name == "greedy":
-        from .baselines.greedy import greedy_actions
+    """The ``policy_fn`` of a baseline: "greedy", "greedy_bfs", "random"."""
+    if name in ("greedy", "greedy_bfs"):
+        from .baselines.greedy import greedy_actions, greedy_bfs_actions
 
-        return lambda state, obs, key: greedy_actions(cfg, state)
+        fn = greedy_bfs_actions if name == "greedy_bfs" else greedy_actions
+        return lambda state, obs, key: fn(cfg, state)
     if name == "random":
         from .baselines.random import random_actions
 
         return lambda state, obs, key: random_actions(
             cfg, key, (obs.shape[0],))
-    raise NotImplementedError(f"policy {name!r} is not ported yet")
+    raise ValueError(f"policy {name!r} is not a baseline")
+
+
+def params_policy_fn(cfg, params: dict, arch: str, mask_actions: bool = False,
+                     sample: bool = False):
+    """``(policy_fn, init_carry)`` for ``evaluate_policy`` from a params
+    dict of the MLP, CNN, GRU or LSTM policy: the argmax action (first on a
+    tie) or, with ``sample``, a categorical sample; with ``mask_actions``
+    the logits of moves off the grid or into a wall are floored to -1e9
+    first. ``init_carry`` is None for the feed-forward policies."""
+    from .models.policy import apply, apply_rnn, initial_carry
+    from .ops.move import valid_action_mask
+    from .ops.ppo_update import NEG_INF, first_argmax, sample_action
+
+    def pick(state, logits, key):
+        if mask_actions:
+            logits = torch.where(valid_action_mask(cfg, state.agent_pos),
+                                 logits, NEG_INF)
+        if sample:
+            return sample_action(key, logits)[0].to(torch.int32)
+        return first_argmax(logits, -1).to(torch.int32)
+
+    if arch in ("gru", "lstm"):
+        hidden = params["logits.weight"].shape[1]
+        device = params["logits.weight"].device
+
+        def policy_fn(state, obs, key, carry):
+            logits, _, carry = apply_rnn(params, obs, carry)
+            return pick(state, logits, key), carry
+
+        def init_carry(B):
+            return initial_carry(arch, (B, cfg.num_agents), hidden, device)
+
+        return policy_fn, init_carry
+
+    def policy_fn(state, obs, key):
+        return pick(state, apply(params, obs)[0], key)
+
+    return policy_fn, None
+
+
+def checkpoint_policy_fn(cfg, checkpoint_dir: str, arch=None, hidden_dim=None,
+                         mask_actions: bool = False, sample: bool = False,
+                         device=None):
+    """``(policy_fn, init_carry, mask_actions)`` from the latest checkpoint
+    under ``checkpoint_dir``. ``arch``, ``hidden_dim`` and the mask default
+    to the directory's ``policy_meta.json`` (then "mlp", 128, off): a
+    mask-trained checkpoint turns the mask on, since evaluating it
+    unmasked scores near zero. The checkpoint's params must fit the model
+    those settings build."""
+    from .models import make_model
+    from .serve import META_NAME
+    from .train.checkpoint import restore_params
+
+    device = resolve_device(device)
+    meta = {}
+    meta_path = os.path.join(checkpoint_dir, META_NAME)
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    arch = arch or meta.get("arch", "mlp")
+    hidden_dim = hidden_dim or meta.get("hidden_dim", 128)
+    mask_actions = bool(mask_actions or meta.get("mask_actions"))
+    try:
+        params = restore_params(checkpoint_dir, device=device)
+    except FileNotFoundError as e:
+        raise SystemExit(str(e)) from e
+    model = make_model(cfg, arch=arch, hidden_dim=hidden_dim,
+                       num_layers=meta.get("num_layers", 2), device=device)
+    model.load_state_dict(params)  # raises where the settings do not fit
+    fn, init_carry = params_policy_fn(cfg, params, arch, mask_actions, sample)
+    return fn, init_carry, mask_actions
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser("warehouse_tpu_torch.evaluate")
     add_env_args(p)
     add_device_args(p)
-    p.add_argument("--policy", choices=["greedy", "random"],
+    p.add_argument("--policy",
+                   choices=["greedy", "greedy_bfs", "random", "checkpoint"],
                    default="greedy")
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--arch", choices=["mlp", "cnn", "gru", "lstm"],
+                   default=None,
+                   help="default: the checkpoint's policy_meta.json "
+                        "(falls back to mlp)")
+    p.add_argument("--hidden-dim", type=int, default=None)
     p.add_argument("--episodes", type=int, default=256)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--sample", action="store_true",
+                   help="sample checkpoint-policy actions from the "
+                        "categorical instead of argmax")
+    p.add_argument("--mask-actions", action="store_true",
+                   help="mask wall/out-of-grid moves at the logits (on by "
+                        "itself when the checkpoint's meta says it was "
+                        "trained with --mask-actions)")
     args = p.parse_args(argv)
     cfg = env_config_from_args(args)
-    metrics = evaluate_policy(cfg, policy_fn_for(args.policy, cfg),
-                              args.episodes, args.seed,
-                              device_from_args(args))
+    device = device_from_args(args)
+    init_carry = None
+    if args.policy == "checkpoint":
+        policy_fn, init_carry, _ = checkpoint_policy_fn(
+            cfg, args.checkpoint_dir, args.arch, args.hidden_dim,
+            args.mask_actions, args.sample, device)
+    else:
+        policy_fn = policy_fn_for(args.policy, cfg)
+    metrics = evaluate_policy(cfg, policy_fn, args.episodes, args.seed,
+                              init_carry=init_carry, device=device)
     for k, v in metrics.items():
         print(f"{k}: {v}")
 

@@ -17,9 +17,20 @@ tensor the plain twin does, which calls the model and so serves both.
 With ``mask_actions`` the logits of moves off the grid or into a wall
 (``ops.move.valid_action_mask`` of the pre-tick positions) are floored to
 -1e9 before the sample and the log-softmax (``pallas/act.py:415-428``),
-and the mask is returned in ``ActRollout.mask``. Reward shaping, global
-observations inside the kernel and policy groups are not ported yet;
-``ppo_rollout`` raises ``NotImplementedError`` for them, and for the
+and the mask is returned in ``ActRollout.mask``.
+
+With ``shaping_coef > 0`` the kernels add the potential-based shaping
+term (``pallas/act.py`` ``_phi_row`` :266-296, ``_act_kernel`` :356-363,
+:457-468): per agent and step ``phi = -(BFS distance from its cell to its
+target's cell)`` read from the ``[C, C]`` table of ``ops/pathing.py`` (0
+without a task or when unreachable), before the tick and after it on the
+pre-reset state, and ``reward = rew + coef * (gamma * phi_post * (1 -
+done_t) - phi_pre)`` in exactly that float32 operation order, with
+``done_t`` the chunk's truncation flags. The unshaped reward is returned
+in ``ActRollout.raw_reward``.
+
+Global observations inside the kernel and policy groups are not ported
+yet; ``ppo_rollout`` raises ``NotImplementedError`` for them, and for the
 attention torso. The recurrent policies act through
 ``kernels.act_rnn.ppo_rnn_rollout``.
 
@@ -46,6 +57,7 @@ from ..models.policy import (ActorCriticCNN, ActorCriticMLP, cnn_dims,
                              num_conv)
 from ..ops.move import valid_action_mask
 from ..ops.obs import inv_side
+from ..ops.pathing import device_table, potential
 from ..ops.ppo_update import NEG_INF, sample_action_with_gumbel
 from . import build
 from .rollout import (check_kernel_shape, f32, kernel_state,
@@ -63,18 +75,31 @@ class ActRollout(NamedTuple):
     truncated: torch.Tensor   # bool[T, B]
     mask: torch.Tensor        # bool[T, B, A, 5] valid moves (all True
     #                           without masking)
-    raw_reward: torch.Tensor  # float32[T, B, A], == reward (no shaping)
+    raw_reward: torch.Tensor  # float32[T, B, A] before shaping (the same
+    #                           tensor as ``reward`` without shaping)
+
+
+class Shaping(NamedTuple):
+    """The potential-shaping option of one chunk."""
+    coef: float               # shaping coefficient, > 0
+    gamma: float              # discount of the next state's potential
+    done: torch.Tensor        # float32[T, B], 1.0 where the step truncates
+    raw_reward: torch.Tensor  # float32[T, B, A]: receives the unshaped reward
 
 
 def act_steps_reference(cfg: EnvConfig, model, state: EnvState, u, pick,
-                        drop, g, logits=None, mask=None):
+                        drop, g, logits=None, mask=None, shaping=None):
     """Plain PyTorch twin of both kernels: T = ``u.shape[0]`` steps of
     observe -> model (MLP or CNN) -> sample -> ``engine.tick`` on the
     given draws and gumbel noise ``g [T, 5, B*A]``. Returns ``(state, obs,
     action, log_prob, value, reward, delivered)``, each stacked over T. A
     ``logits [T, B, A, 5]`` tensor, if given, receives the model's
     logits; a bool ``mask [T, B, A, 5]``, if given, turns action masking
-    on and receives the valid-action mask."""
+    on and receives the valid-action mask; a ``Shaping``, if given, turns
+    the potential shaping on: ``reward`` is then the shaped reward and
+    ``shaping.raw_reward`` receives the unshaped one. The shaping term is
+    three rounded float32 operations in the JAX kernel's order, then one
+    product and one sum."""
     outs = []
     with torch.no_grad():
         for t in range(u.shape[0]):
@@ -86,9 +111,17 @@ def act_steps_reference(cfg: EnvConfig, model, state: EnvState, u, pick,
                 mask[t] = valid_action_mask(cfg, state.agent_pos)
                 lg = torch.where(mask[t], lg, NEG_INF)
             action, lp = sample_action_with_gumbel(lg, g[t])
+            if shaping is not None:
+                phi_pre = potential(cfg, state)
             state, picked, delivered, collided = engine.tick(
                 cfg, state, action, u[t], pick[t], drop[t])
             reward = engine.rewards(cfg, picked, delivered, collided)
+            if shaping is not None:
+                shaping.raw_reward[t] = reward
+                term = f32(shaping.gamma) * potential(cfg, state)
+                term = term * (1.0 - shaping.done[t])[:, None]
+                term = term - phi_pre
+                reward = reward + f32(shaping.coef) * term
             outs.append((obs, action, lp, value, reward,
                          delivered.sum(-1, dtype=torch.int32)))
     return (state, *(torch.stack(x) for x in zip(*outs)))
@@ -113,7 +146,7 @@ def packed_weights(model: ActorCriticMLP, device) -> tuple[torch.Tensor,
 
 
 def act_steps(cfg: EnvConfig, model, state: EnvState, u, pick, drop, g,
-              logits=None, mask=None):
+              logits=None, mask=None, shaping=None):
     """T acting steps on precomputed draws and gumbel noise: the CUDA
     kernel for CUDA tensors (K2 for an MLP, K10 through ``act_cnn_steps``
     for a CNN), the plain twin for CPU tensors. Same arguments and returns
@@ -121,12 +154,12 @@ def act_steps(cfg: EnvConfig, model, state: EnvState, u, pick, drop, g,
     dev = state.agent_pos.device
     if dev.type == "cpu":
         return act_steps_reference(cfg, model, state, u, pick, drop, g,
-                                   logits, mask)
+                                   logits, mask, shaping)
     if dev.type != "cuda":
         raise ValueError(f"act_steps: unsupported device {dev}")
     if isinstance(model, ActorCriticCNN):
         return act_cnn_steps(cfg, model, state, u, pick, drop, g, logits,
-                             mask)
+                             mask, shaping)
     check_kernel_shape(cfg)
     A, D = cfg.num_agents, cfg.obs_dim
     B, T = state.agent_pos.shape[0], u.shape[0]
@@ -142,24 +175,27 @@ def act_steps(cfg: EnvConfig, model, state: EnvState, u, pick, drop, g,
         raise ValueError(
             f"act kernel needs {smem} bytes of shared memory per block for "
             f"layer widths {dims}; the card allows {limit}")
-    io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask)
+    io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask, shaping)
     err = lib.wh_act_rollout(
         *io.env_args(cfg), len(dims) - 1, build.int_array(dims),
         io.walls.data_ptr(), weights.data_ptr(), weights.numel(),
         *io.tensor_ptrs(), build.stream_handle(dev))
     build.check(err, "ppo_rollout kernel launch")
     act_steps.launches += 1
+    act_steps.shaped_launches += shaping is not None
     return io.results(state)
 
 
 act_steps.launches = 0
+act_steps.shaped_launches = 0  # the launches that had the shaping option on
 
 
 class _KernelIO:
     """The tensors the acting kernels K2 and K10 share, checked: the env
     state in the kernels' layout, the draws, and the outputs allocated."""
 
-    def __init__(self, cfg, state, u, pick, drop, g, logits, mask):
+    def __init__(self, cfg, state, u, pick, drop, g, logits, mask,
+                 shaping=None):
         dev = state.agent_pos.device
         A, D = cfg.num_agents, cfg.obs_dim
         B, T = state.agent_pos.shape[0], u.shape[0]
@@ -180,6 +216,17 @@ class _KernelIO:
                 raise ValueError(f"{name} must be a contiguous {dtype} "
                                  f"[T, B, A, 5] tensor on {dev}")
         self.logits, self.mask = logits, mask
+        # The shaping option: the int32 BFS table and the chunk's flags.
+        self.shaping, self.table = shaping, None
+        if shaping is not None:
+            for name, x, shape in (("done", shaping.done, (T, B)),
+                                   ("raw_reward", shaping.raw_reward,
+                                    (T, B, A))):
+                if (x.shape != shape or x.dtype != torch.float32
+                        or x.device != dev or not x.is_contiguous()):
+                    raise ValueError(f"shaping.{name} must be a contiguous "
+                                     f"float32 {list(shape)} tensor on {dev}")
+            self.table = device_table(cfg, dev)
         self.outs = [torch.empty_like(x) for x in self.ins]
         self.obs = torch.empty(T, B, A, D, dtype=torch.float32, device=dev)
         self.action = torch.empty(T, B, A, dtype=torch.int32, device=dev)
@@ -198,7 +245,9 @@ class _KernelIO:
                 f32(cfg.collision_penalty))
 
     def tensor_ptrs(self) -> list:
-        """State in, draws, state out, trajectory out, logits and mask."""
+        """State in, draws, state out, trajectory out, logits and mask,
+        then the shaping option (null pointers and zeros when off)."""
+        sh = self.shaping
         return [*(x.data_ptr() for x in self.ins),
                 *(x.data_ptr() for x in self.draws),
                 *(x.data_ptr() for x in self.outs), self.obs.data_ptr(),
@@ -206,7 +255,12 @@ class _KernelIO:
                 self.value.data_ptr(), self.reward.data_ptr(),
                 self.delivered.data_ptr(),
                 None if self.logits is None else self.logits.data_ptr(),
-                None if self.mask is None else self.mask.data_ptr()]
+                None if self.mask is None else self.mask.data_ptr(),
+                None if sh is None else self.table.data_ptr(),
+                None if sh is None else sh.done.data_ptr(),
+                None if sh is None else sh.raw_reward.data_ptr(),
+                0.0 if sh is None else f32(sh.coef),
+                0.0 if sh is None else f32(sh.gamma)]
 
     def results(self, state):
         new = state_from_kernel(self.outs, state.t, state.key)
@@ -265,14 +319,14 @@ def cnn_kernel_dims(params, D: int) -> tuple[int, int, int, int, int]:
 
 
 def act_cnn_steps(cfg: EnvConfig, model: ActorCriticCNN, state: EnvState, u,
-                  pick, drop, g, logits=None, mask=None):
+                  pick, drop, g, logits=None, mask=None, shaping=None):
     """T acting steps of the CNN policy on precomputed draws and gumbel
     noise: the CUDA kernel (K10) for CUDA tensors, the plain twin for CPU
     tensors. Same arguments and returns as ``act_steps_reference``."""
     dev = state.agent_pos.device
     if dev.type == "cpu":
         return act_steps_reference(cfg, model, state, u, pick, drop, g,
-                                   logits, mask)
+                                   logits, mask, shaping)
     if dev.type != "cuda":
         raise ValueError(f"act_cnn_steps: unsupported device {dev}")
     check_kernel_shape(cfg)
@@ -294,74 +348,83 @@ def act_cnn_steps(cfg: EnvConfig, model: ActorCriticCNN, state: EnvState, u,
         raise ValueError("packed params do not fit the kernel's layout")
     trunk_t = torch.empty(params["trunk.weight"].numel(),
                           dtype=torch.float32, device=dev)
-    io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask)
+    io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask, shaping)
     err = lib.wh_act_cnn_rollout(
         *io.env_args(cfg), *net[1:], io.walls.data_ptr(), weights.data_ptr(),
         trunk_t.data_ptr(), *io.tensor_ptrs(), build.stream_handle(dev))
     build.check(err, "ppo_rollout (cnn) kernel launch")
     act_cnn_steps.launches += 1
+    act_cnn_steps.shaped_launches += shaping is not None
     return io.results(state)
 
 
 act_cnn_steps.launches = 0
+act_cnn_steps.shaped_launches = 0
 
 
-def _check_options(cfg, model, shaping_coef, policy_groups, arch):
+def _check_options(cfg, model, policy_groups, arch):
     if cfg.auto_reset:
         raise ValueError("ppo_rollout: auto_reset is handled by the caller")
     if arch in ("gru", "lstm"):
         raise ValueError(f"ppo_rollout: arch={arch!r} acts through "
                          "kernels.act_rnn.ppo_rnn_rollout")
     for name, unsupported, item in (
-            ("shaping_coef", shaping_coef > 0.0, 1),
-            ("global_obs", cfg.global_obs, 1),
-            ("policy_groups", policy_groups is not None, 1),
-            (f"arch={arch!r}", arch not in ("mlp", "cnn"), 10)):
+            ("global_obs", cfg.global_obs, "T-2"),
+            ("policy_groups", policy_groups is not None, "T-3"),
+            (f"arch={arch!r}", arch not in ("mlp", "cnn"), "M-7")):
         if unsupported:
             raise NotImplementedError(
-                f"ppo_rollout: {name} is not ported yet (ROADMAP §B item "
-                f"{item})")
+                f"ppo_rollout: {name} is not ported yet (ROADMAP {item})")
     if isinstance(model, ActorCriticCNN) != (arch == "cnn"):
         raise ValueError(f"ppo_rollout: arch={arch!r} does not fit a "
                          f"{type(model).__name__}")
 
 
 def chunk_rollout(run_steps, cfg: EnvConfig, state: EnvState, T: int,
-                  key: torch.Tensor, mask_actions: bool):
+                  key: torch.Tensor, mask_actions: bool,
+                  shaping_coef: float = 0.0, gamma: float = 0.99):
     """The wrapper shared by the acting kernels: draws the chunk's env
-    stream and gumbel noise, calls ``run_steps(u, pick, drop, g, mask)``
-    -> ``(state, obs, action, log_prob, value, reward, delivered, *rest)``
-    and returns ``(EnvState, ActRollout, reset_key_last, next_key,
-    *rest)`` with the step counter, the env keys and the truncation flags
-    filled in."""
+    stream and gumbel noise, calls ``run_steps(u, pick, drop, g, mask,
+    shaping)`` -> ``(state, obs, action, log_prob, value, reward,
+    delivered, *rest)`` and returns ``(EnvState, ActRollout,
+    reset_key_last, next_key, *rest)`` with the step counter, the env keys
+    and the truncation flags filled in. ``shaping`` is a ``Shaping`` when
+    ``shaping_coef > 0`` (its flags computed for every step of the chunk,
+    not only the last), else None."""
     B, A = state.agent_pos.shape[:2]
     dev = state.agent_pos.device
     final_keys, u, pick, drop, reset_keys = _rng.batched_step_draws(
         state.key, cfg, T)
     next_key, g = _rng.batched_gumbel_stream(key, T, (5, B * A))
     mask = torch.ones(T, B, A, 5, dtype=torch.bool, device=dev)
-    new, obs, action, lp, value, reward, delivered, *rest = run_steps(
-        u, pick, drop, g, mask if mask_actions else None)
     steps_ahead = (state.t[None, :] + 1
                    + torch.arange(T, dtype=state.t.dtype,
                                   device=state.t.device)[:, None])
+    truncated = steps_ahead >= cfg.max_steps
+    shaping = None
+    if shaping_coef > 0.0:
+        shaping = Shaping(shaping_coef, gamma, truncated.to(torch.float32),
+                          torch.empty(T, B, A, dtype=torch.float32,
+                                      device=dev))
+    new, obs, action, lp, value, reward, delivered, *rest = run_steps(
+        u, pick, drop, g, mask if mask_actions else None, shaping)
     roll = ActRollout(
         obs=obs, action=action, log_prob=lp, value=value, reward=reward,
-        delivered=delivered, truncated=steps_ahead >= cfg.max_steps,
-        mask=mask, raw_reward=reward)
+        delivered=delivered, truncated=truncated, mask=mask,
+        raw_reward=reward if shaping is None else shaping.raw_reward)
     new = new.replace(t=state.t + T, key=final_keys)
     return (new, roll, reset_keys[-1], next_key, *rest)
 
 
 def _rollout(steps, cfg: EnvConfig, model, state: EnvState,
              T: int, key: torch.Tensor, mask_actions: bool = False,
-             shaping_coef: float = 0.0, policy_groups=None,
-             arch: str = "mlp"):
-    _check_options(cfg, model, shaping_coef, policy_groups, arch)
+             shaping_coef: float = 0.0, gamma: float = 0.99,
+             policy_groups=None, arch: str = "mlp"):
+    _check_options(cfg, model, policy_groups, arch)
     return chunk_rollout(
-        lambda u, pick, drop, g, mask: steps(cfg, model, state, u, pick,
-                                             drop, g, mask=mask),
-        cfg, state, T, key, mask_actions)
+        lambda u, pick, drop, g, mask, shaping: steps(
+            cfg, model, state, u, pick, drop, g, mask=mask, shaping=shaping),
+        cfg, state, T, key, mask_actions, shaping_coef, gamma)
 
 
 def ppo_rollout(cfg: EnvConfig, model, state: EnvState, T: int,
@@ -369,9 +432,10 @@ def ppo_rollout(cfg: EnvConfig, model, state: EnvState, T: int,
     """T acting steps of the MLP policy or, with ``arch="cnn"``, of the
     CNN policy, through its kernel on a CUDA state: ``(EnvState,
     ActRollout, reset_key_last, next_key)``. ``options``
-    (``mask_actions``, ``shaping_coef``, ``policy_groups``, ``arch``) take
-    the JAX wrapper's names; ``mask_actions`` and ``arch`` "mlp" / "cnn"
-    are ported, the others only at their defaults."""
+    (``mask_actions``, ``shaping_coef``, ``gamma``, ``policy_groups``,
+    ``arch``) take the JAX wrapper's names; ``mask_actions``,
+    ``shaping_coef`` with its ``gamma`` and ``arch`` "mlp" / "cnn" are
+    ported, ``policy_groups`` only at its default."""
     return _rollout(act_steps, cfg, model, state, T, key, **options)
 
 

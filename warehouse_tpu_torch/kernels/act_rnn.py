@@ -243,13 +243,12 @@ def _rollout(steps, cfg: EnvConfig, params, state: EnvState, carry, T: int,
                          "caller")
     for name, unsupported in (("shaping_coef", shaping_coef > 0.0),
                               ("global_obs", cfg.global_obs)):
-        if unsupported:
+        if unsupported:  # the TPU kernel has neither: the trainer's option
             raise NotImplementedError(
-                f"ppo_rnn_rollout: {name} is not ported yet (ROADMAP §B "
-                "item 1)")
+                f"ppo_rnn_rollout: {name} is not ported yet (ROADMAP M-4)")
     params = _params_of(params)
 
-    def run_steps(u, pick, drop, g, mask):
+    def run_steps(u, pick, drop, g, mask, shaping):
         new, new_carry, *outs = steps(cfg, params, state, carry, u, pick,
                                       drop, g, mask=mask)
         return (new, *outs, new_carry)

@@ -33,7 +33,7 @@ SIGNATURES = {
     "wh_greedy_rollout": [I, I, L, I, I, I, F, F, F, F, F] + [P] * 21,
     "wh_act_smem_bytes": [I, I, I, I, IP, I],
     "wh_act_rollout": [I, I, L, I, I, I, F, I, I, I, F, F, F, F, F, F, I, IP,
-                       P, P, I] + [P] * 27,
+                       P, P, I] + [P] * 29 + [F, F, P],
     "wh_sgd_smem_bytes": [I, IP],
     "wh_sgd_workspace_floats": [I, IP, I, L, I, I],
     "wh_sgd_grads": [I, IP, I, L, I, I, I] + [P] * 9 + [F] * 5 + [P] * 4,
@@ -57,7 +57,7 @@ SIGNATURES = {
     "wh_cnn_param_floats": [I] * 5,
     "wh_act_cnn_smem_bytes": [I] * 7,
     "wh_act_cnn_rollout": [I, I, L, I, I, I, F, I, I, I, F, F, F, F, F, F, I,
-                           I, I, I] + [P] * 30,
+                           I, I, I] + [P] * 32 + [F, F, P],
     "wh_cnn_sgd_smem_bytes": [I] * 5,
     "wh_cnn_sgd_workspace_floats": [I] * 6 + [L, I, I],
     "wh_cnn_sgd_grads": [I] * 6 + [L, I, I, I] + [P] * 9 + [F] * 5 + [P] * 4,

@@ -2,8 +2,9 @@
 //
 // Replaces warehouse_tpu/pallas/act.py ppo_rollout_pallas (:1028; body
 // _act_kernel :299 with _obs_rows :138, _sample_logprob :491 and the env
-// tick of rollout.py:57), MLP arm with its action-masking option, without
-// shaping, global obs or policy groups. Each step, for every env of the
+// tick of rollout.py:57), MLP arm with its action-masking and its
+// potential-shaping option (act_common.cuh tick_env), without global obs or
+// policy groups. Each step, for every env of the
 // CTA: build the ego-window observation of each agent, run the MLP (tanh
 // hidden layers, fused logits + value head), with masking floor the
 // logits of moves off the grid or into a wall to -1e9 (pallas/act.py:
@@ -66,6 +67,7 @@ struct ActArgs {
   int* delivered;   // [T, B]
   float* logits;    // [T, B, A, 5] pre-mask logits, or null: not written
   unsigned char* mask;  // [T, B, A, 5] valid moves, or null: no masking
+  Shaping shp;  // the potential-shaping option; off when its table is null
 };
 
 // y[n][j] = act(sum_k x[n][k] * W[k][j] + b[j]) for the CTA's ROWS rows.
@@ -252,7 +254,9 @@ extern "C" int wh_act_rollout(
     const float* gumbel, int* o_pos, int* o_areq, int* o_carry,
     int* o_rpick, int* o_rdrop, int* o_rstat, int* o_ragent, float* obs,
     int* action, float* log_prob, float* value, float* reward,
-    int* delivered, float* logits, unsigned char* mask, void* stream) {
+    int* delivered, float* logits, unsigned char* mask, const int* table,
+    const float* done, float* raw_reward, float shaping_coef, float gamma,
+    void* stream) {
   if (n_hidden < 0 || n_hidden > MAXL) return (int)cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
   ActArgs p = make_args(B, T, H, W, spawn_prob, S, k, D, inv_h, inv_w,
@@ -289,6 +293,12 @@ extern "C" int wh_act_rollout(
   p.delivered = delivered;
   p.logits = logits;
   p.mask = mask;
+  p.shp.table = table;
+  p.shp.done = done;
+  p.shp.raw_reward = raw_reward;
+  p.shp.coef = shaping_coef;
+  p.shp.gamma = gamma;
+  p.shp.C = H * W;
   int err = (int)cudaSuccess;
   if (!wh::dispatch_shape<LaunchAct>(A, R, p, (cudaStream_t)stream, &err))
     return (int)cudaErrorInvalidValue;

@@ -4,7 +4,8 @@
 // (:1028 with arch="cnn": extract_cnn_weights :942, the layer loop of
 // _act_kernel :365-389 with n_relu / cnn_split, _obs_rows :138,
 // _sample_logprob :491 and the env tick of rollout.py:57), with its
-// action-masking option, without shaping, global obs or policy groups. Each
+// action-masking and its potential-shaping option (act_common.cuh tick_env),
+// without global obs or policy groups. Each
 // step, for every env of the CTA: build the ego-window observation of each
 // agent, run the two 3x3 SAME convolutions (relu) over its grid, join the
 // self features, run the tanh trunk and the fused logits + value head, with
@@ -62,6 +63,7 @@ struct ActCnnArgs {
   int* delivered;        // [T, B]
   float* logits;         // [T, B, A, 5] pre-mask logits, or null
   unsigned char* mask;   // [T, B, A, 5] valid moves, or null: no masking
+  Shaping shp;  // the potential-shaping option; off when its table is null
 };
 
 template <int A, int R>
@@ -197,7 +199,9 @@ extern "C" int wh_act_cnn_rollout(
     const float* gumbel, int* o_pos, int* o_areq, int* o_carry,
     int* o_rpick, int* o_rdrop, int* o_rstat, int* o_ragent, float* obs,
     int* action, float* log_prob, float* value, float* reward,
-    int* delivered, float* logits, unsigned char* mask, void* stream_) {
+    int* delivered, float* logits, unsigned char* mask, const int* table,
+    const float* done, float* raw_reward, float shaping_coef, float gamma,
+    void* stream_) {
   ActCnnArgs p = {};
   if (!make_cnn_net(S, C0, C1, C2, hidden, &p.net) || p.net.D != D)
     return (int)cudaErrorInvalidValue;
@@ -246,6 +250,12 @@ extern "C" int wh_act_cnn_rollout(
   p.delivered = delivered;
   p.logits = logits;
   p.mask = mask;
+  p.shp.table = table;
+  p.shp.done = done;
+  p.shp.raw_reward = raw_reward;
+  p.shp.coef = shaping_coef;
+  p.shp.gamma = gamma;
+  p.shp.C = H * W;
   cudaError_t e = launch_trunk_transpose(p.net, params, trunk_t, stream);
   if (e != cudaSuccess) return (int)e;
   int err = (int)cudaSuccess;

@@ -1,6 +1,7 @@
-// Device code shared by the acting kernels: K2 (act.cu, the MLP policy) and
-// K7 (act_rnn.cu, the recurrent policy). Each is templated on the kernel's
-// argument struct P, which provides the fields it reads:
+// Device code shared by the acting kernels: K2 (act.cu, the MLP policy), K7
+// (act_rnn.cu, the recurrent policy) and K10 (act_cnn.cu, the CNN policy).
+// Each is templated on the kernel's argument struct P, which provides the
+// fields it reads:
 //
 // - obs_value: geo, S, k, inv_h, inv_w (the ego-window observation);
 // - sample_row: B, geo, gumbel, mask, action, log_prob, value, logits (the
@@ -8,7 +9,8 @@
 //   first-max tie rule and the stable log-softmax, pallas/act.py
 //   _sample_logprob :491 and :415-428);
 // - tick_env: geo, u, pick, drop, the four reward coefficients, reward,
-//   delivered (the env tick and the per-agent rewards).
+//   delivered (the env tick and the per-agent rewards), shp (the potential
+//   shaping option of K2 and K10, off when its table is null).
 //
 // EnvSmem keeps one env's state as 4 A + 6 R ints of shared memory.
 #pragma once
@@ -22,6 +24,21 @@ namespace {
 constexpr int NHEAD = 6;    // 5 logits + value
 constexpr int HSTRIDE = 8;  // row stride of the head outputs
 constexpr float NEG_INF = -1e9f;  // logits floor of masked actions
+constexpr int UNREACHABLE = 1 << 14;  // the BFS table's sentinel
+
+// The potential-shaping option (pallas/act.py _phi_row :266-296, _act_kernel
+// :356-363, :457-468). The BFS table stays in device memory and is read
+// through the read-only path: K2 fills its shared memory with the weights
+// and K10 with activations, the table is 58.6 KB at 121 cells and 202 KB at
+// 225, and it is read 2 A times per env-step at addresses that L1 and L2
+// serve.
+struct Shaping {
+  const int* table;   // [C, C] BFS distances, or null: shaping off
+  const float* done;  // [T, B], 1 where the step truncates the episode
+  float* raw_reward;  // [T, B, A] the reward before shaping
+  float coef, gamma;  // float32 roundings of the trainer's doubles
+  int C;              // cells, H * W
+};
 
 // Whether action a keeps an agent at (r, c) on the grid and off the walls
 // (the static part of docs/SEMANTICS.md §4.1 rule 1).
@@ -168,8 +185,37 @@ __device__ int sample_row(const P& p, const float* h, const int* s, int n,
   return best_a;
 }
 
+// Agent i's shaping potential: minus the BFS distance from its cell to its
+// target's cell (the pickup cell, the drop cell once carrying), 0 without a
+// task or when the target is unreachable (ops/pathing.py potential). One
+// table read; none without a task.
+// Inlined by force into loops unrolled over i: a call would take the env's
+// address and move all of it from registers to local memory, for the tick
+// too.
+template <int A, int R>
+__device__ __forceinline__ float potential(const wh::Env<A, R>& e, int i,
+                                           const Shaping& sh, int W) {
+  const int aq = e.aq[i];
+  if (aq < 0) return 0.f;
+  int tr = 0, tc = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (aq == r) {
+      tr = e.cy[i] ? e.qdr[r] : e.qpr[r];
+      tc = e.cy[i] ? e.qdc[r] : e.qpc[r];
+    }
+  }
+  const int d =
+      __ldg(sh.table + (long)(e.pr[i] * W + e.pc[i]) * sh.C + tr * W + tc);
+  return d < UNREACHABLE ? -(float)d : 0.f;
+}
+
 // One env's tick on the actions act[0..A) and the draws of (t, b) = kt,
-// then its per-agent rewards and delivery count; `s` is its EnvSmem.
+// then its per-agent rewards and delivery count; `s` is its EnvSmem. With
+// shaping the reward becomes rew + coef * (gamma * phi_post * (1 - done) -
+// phi_pre), phi_post on the ticked (pre-reset) state, in that order with
+// every operation rounded by itself (no FMA contraction), and the unshaped
+// reward is written beside it.
 template <int A, int R, class P>
 __device__ void tick_env(const P& p, int* s, const int* act_s, long kt) {
   wh::Env<A, R> e;
@@ -177,8 +223,14 @@ __device__ void tick_env(const P& p, int* s, const int* act_s, long kt) {
   int act[A];
 #pragma unroll
   for (int i = 0; i < A; ++i) act[i] = act_s[i];
+  const bool shaped = p.shp.table != nullptr;
+  float phi_pre[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i)
+    phi_pre[i] = shaped ? potential(e, i, p.shp, p.geo.W) : 0.f;
   bool pk[A], dl[A], cl[A];
   wh::env_tick(e, act, p.u[kt], p.pick[kt], p.drop[kt], p.geo, pk, dl, cl);
+  const float live = shaped ? __fsub_rn(1.f, p.shp.done[kt]) : 0.f;
   int nd = 0;
 #pragma unroll
   for (int i = 0; i < A; ++i) {
@@ -186,6 +238,12 @@ __device__ void tick_env(const P& p, int* s, const int* act_s, long kt) {
                           __fmul_rn(p.pickup_reward, pk[i] ? 1.f : 0.f));
     rew = __fadd_rn(rew, __fmul_rn(p.delivery_reward, dl[i] ? 1.f : 0.f));
     rew = __fadd_rn(rew, __fmul_rn(p.collision_penalty, cl[i] ? 1.f : 0.f));
+    if (shaped) {
+      p.shp.raw_reward[kt * A + i] = rew;
+      float term = __fmul_rn(p.shp.gamma, potential(e, i, p.shp, p.geo.W));
+      term = __fsub_rn(__fmul_rn(term, live), phi_pre[i]);
+      rew = __fadd_rn(rew, __fmul_rn(p.shp.coef, term));
+    }
     p.reward[kt * A + i] = rew;
     nd += dl[i];
   }

@@ -63,6 +63,7 @@ struct ActRnnArgs {
   int* delivered;         // [T, B]
   float* logits;          // [T, B, A, 5] pre-mask logits, or null
   unsigned char* mask;    // [T, B, A, 5] valid moves, or null: no masking
+  Shaping shp;            // always off: the recurrent kernel has no shaping
 };
 
 // Floats of the activation buffers of a CTA of `rows` rows.

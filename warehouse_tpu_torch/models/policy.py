@@ -315,7 +315,7 @@ def make_model(cfg: EnvConfig, arch: str = "mlp", hidden_dim: int = 128,
                                hidden_dim, generator)
     else:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP §B item 10); 'mlp', "
+            f"arch {arch!r} is not ported yet (ROADMAP M-7); 'mlp', "
             "'cnn', 'gru' and 'lstm' are")
     return model.to(resolve_device(device))
 

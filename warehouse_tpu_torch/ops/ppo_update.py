@@ -129,7 +129,7 @@ def minibatch_epochs(params, opt_state, *, loss_fn: Callable,
     over its fixed env minibatches run through it too. The JAX
     scaffold's key split for its partition is the caller's to mirror. The
     per-epoch reshuffle and micro-batches are not ported (``make_train``
-    refuses them, ROADMAP §B item 9).
+    refuses them, ROADMAP M-4).
     """
     rows = []
     for _ in range(num_epochs):

@@ -1,4 +1,9 @@
-"""Policy serving (counterpart of ``warehouse_tpu/serve.py`` ``Policy``).
+"""Policy serving (counterpart of ``warehouse_tpu/serve.py``):
+self-describing checkpoints and the inference API.
+
+The train CLI drops a ``policy_meta.json`` next to the checkpoint files
+(``write_policy_meta``), so ``Policy.from_checkpoint(dir)`` rebuilds the
+env config and the model without any flag given again.
 
 ``compute_actions`` maps observations ``[B, A, obs_dim]`` to int32
 actions ``[B, A]`` through the MLP, the CNN or the recurrent (GRU / LSTM)
@@ -7,16 +12,18 @@ argmax by default, or a categorical sample (``explore=True``) on the same
 key chain as the JAX ``Policy``. A recurrent policy threads its carry:
 ``initial_state`` (alias ``get_initial_state``) gives the zero carry and
 ``compute_actions(obs, carry)`` returns ``(actions, new_carry)``. The
-policy runs on its model's device. Loading from a checkpoint waits for
-the checkpoint port.
+policy runs on its model's device.
 """
 
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 import torch
 
-from .config import EnvConfig
+from .config import EnvConfig, TrainConfig
 
 from . import rng as _rng
 from .models.policy import ActorCriticCNN, ActorCriticMLP, ActorCriticRNN
@@ -24,6 +31,29 @@ from .ops.move import valid_action_mask
 from .ops.ppo_update import first_argmax
 
 NEG_INF = -1e9  # logits floor for masked actions
+META_NAME = "policy_meta.json"
+
+
+def write_policy_meta(checkpoint_dir: str, env_cfg: EnvConfig,
+                      tcfg: TrainConfig, arch: str = "mlp",
+                      policy_groups: tuple | None = None) -> str:
+    """Write the serving metadata the train CLI knows at save time, with
+    the JAX package's keys; returns the file's path."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    meta = {
+        "env_config": json.loads(env_cfg.to_json()),
+        "arch": arch,
+        "hidden_dim": tcfg.hidden_dim,
+        "num_layers": tcfg.num_layers,
+        "model_dtype": tcfg.model_dtype,
+        "mask_actions": tcfg.mask_actions,
+        "policy_groups": (
+            list(policy_groups) if policy_groups is not None else None),
+    }
+    path = os.path.join(checkpoint_dir, META_NAME)
+    with open(path, "w") as f:
+        json.dump(meta, f, indent=2)
+    return path
 
 
 class Policy:
@@ -53,8 +83,39 @@ class Policy:
         self._key = _rng.prng_key(0, self.device)
 
     @classmethod
-    def from_checkpoint(cls, checkpoint_dir: str, step: int | None = None):
-        raise NotImplementedError("checkpoints are not ported yet")
+    def from_checkpoint(cls, checkpoint_dir: str, step: int | None = None,
+                        device=None) -> "Policy":
+        """Rebuild the model and load the params of ``step`` (the latest
+        without it) from a self-describing checkpoint directory, on the
+        card unless ``device="cpu"``."""
+        from .device import resolve_device
+        from .models import make_model
+        from .train.checkpoint import restore_params
+
+        device = resolve_device(device)
+        meta_path = os.path.join(checkpoint_dir, META_NAME)
+        if not os.path.exists(meta_path):
+            raise FileNotFoundError(
+                f"{meta_path} not found: the checkpoint has no serving "
+                "metadata; rebuild the model and use Policy(...)")
+        with open(meta_path) as f:
+            meta = json.load(f)
+        if meta.get("policy_groups") is not None:
+            raise NotImplementedError(
+                "a checkpoint with policy_groups: the multi-policy model is "
+                "not ported yet (ROADMAP M-3)")
+        if meta.get("model_dtype", "float32") != "float32":
+            raise NotImplementedError(
+                f"model_dtype={meta['model_dtype']!r} is not ported yet "
+                "(ROADMAP T-4)")
+        env_cfg = EnvConfig.from_dict(meta["env_config"])
+        model = make_model(env_cfg, arch=meta["arch"],
+                           hidden_dim=meta["hidden_dim"],
+                           num_layers=meta["num_layers"], device=device)
+        model.load_state_dict(restore_params(checkpoint_dir, step,
+                                             device=device))
+        return cls(env_cfg, model, arch=meta["arch"],
+                   mask_actions=meta.get("mask_actions", False))
 
     def initial_state(self, batch_size: int = 1):
         """The zero carry of a recurrent policy for ``batch_size`` envs

@@ -5,9 +5,12 @@ The PPO (``--arch mlp|cnn|gru|lstm``) and IMPALA (``--algo impala``) subset of
 ``--device``: the run is on the card unless ``--cpu`` / ``--device cpu``
 asks for the CPU, and exits when it finds no card. A flag
 for a feature the port does not have yet exits with a message naming its
-ROADMAP item. Metrics go to a JSONL file, ``env_steps_per_sec`` included;
+ROADMAP id. Metrics go to a JSONL file, ``env_steps_per_sec`` included;
 ``--eval-every`` runs the argmax policy through
-``evaluate.evaluate_policy``.
+``evaluate.evaluate_policy``. ``--checkpoint-every N`` saves the whole
+runner state every N updates under ``--checkpoint-dir`` beside a
+``policy_meta.json`` that makes the directory self-describing, and
+``--resume`` continues from the latest checkpoint there, bit for bit.
 """
 
 from __future__ import annotations
@@ -16,16 +19,14 @@ import argparse
 import logging
 import time
 
-import torch
-
 from ..config import TrainConfig
 from ..configs_cli import (add_device_args, add_env_args, device_from_args,
                            env_config_from_args)
 
 from .. import rng
-from ..evaluate import evaluate_policy
-from ..models.policy import apply, apply_rnn, initial_carry
-from ..ops.ppo_update import first_argmax
+from ..evaluate import evaluate_policy, params_policy_fn
+from ..serve import write_policy_meta
+from .checkpoint import restore_latest, save
 from .impala import make_train_impala
 from .metrics import MetricsLogger
 from .ppo import make_train
@@ -35,19 +36,16 @@ from .ppo_rnn import make_train_rnn
 def _unported(args) -> list[str]:
     out = []
     if args.arch == "attn":
-        out.append("--arch attn (ROADMAP §B item 10)")
+        out.append("--arch attn (ROADMAP M-7)")
     if args.arch != "mlp" and args.algo == "impala":
         out.append(f"--algo impala --arch {args.arch} (the IMPALA learner "
-                   "takes the MLP policy; ROADMAP §B item 10)")
+                   "takes the MLP policy; ROADMAP M-7)")
     for flag, on, item in (
-            ("--policy-groups", args.policy_groups is not None, 1),
-            ("--shaping-coef", args.shaping_coef != 0.0, 1),
-            ("--resume", args.resume, 3),
-            ("--checkpoint-every", args.checkpoint_every != 0, 3),
-            ("--profile-dir", args.profile_dir is not None, 8),
-            ("--tensorboard-dir", args.tensorboard_dir is not None, 8)):
+            ("--policy-groups", args.policy_groups is not None, "M-3"),
+            ("--profile-dir", args.profile_dir is not None, "M-6"),
+            ("--tensorboard-dir", args.tensorboard_dir is not None, "M-6")):
         if on:
-            out.append(f"{flag} (ROADMAP §B item {item})")
+            out.append(f"{flag} (ROADMAP {item})")
     return out
 
 
@@ -77,7 +75,10 @@ def main(argv=None) -> None:
     p.add_argument("--entropy-coef-final", type=float, default=-1.0,
                    help="linear entropy anneal target over num_updates "
                         "(negative = constant --entropy-coef)")
-    p.add_argument("--shaping-coef", type=float, default=0.0)
+    p.add_argument("--shaping-coef", type=float, default=0.0,
+                   help="potential-based reward shaping on the BFS "
+                        "distance to the agent's target (0 = off; PPO "
+                        "with --arch mlp or cnn)")
     p.add_argument("--mask-actions", action="store_true",
                    help="mask wall/out-of-grid moves at the policy logits")
     p.add_argument("--minibatch-mode", choices=["flat", "env"],
@@ -115,10 +116,11 @@ def main(argv=None) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--checkpoint-every", type=int, default=0,
-                   help="checkpoints are not ported yet: must stay 0")
-    p.add_argument("--checkpoint-dir", default="checkpoints",
-                   help="unused until checkpoints are ported")
-    p.add_argument("--resume", action="store_true")
+                   help="save the runner state every N updates (0 = off)")
+    p.add_argument("--checkpoint-dir", default="checkpoints")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint under "
+                        "--checkpoint-dir")
     p.add_argument("--metrics-path", default="metrics.jsonl")
     p.add_argument("--tensorboard-dir", default=None)
     p.add_argument("--single-device", action="store_true",
@@ -147,7 +149,7 @@ def main(argv=None) -> None:
         ppo_epochs=args.ppo_epochs, num_minibatches=args.num_minibatches,
         entropy_coef=args.entropy_coef,
         entropy_coef_final=args.entropy_coef_final,
-        mask_actions=args.mask_actions,
+        shaping_coef=args.shaping_coef, mask_actions=args.mask_actions,
         minibatch_mode=args.minibatch_mode, epoch_shuffle=args.epoch_shuffle,
         bootstrap_truncated=args.bootstrap_truncated,
         kl_coeff=args.kl_coeff, kl_target=args.kl_target,
@@ -155,6 +157,8 @@ def main(argv=None) -> None:
         rollout_backend=args.rollout_backend,
         grad_backend=args.grad_backend, pallas_block=args.pallas_block,
         micro_batches=args.micro_batches, seed=args.seed,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_dir=args.checkpoint_dir,
         metrics_path=args.metrics_path, rho_clip=args.rho_clip,
         c_clip=args.c_clip, impala_passes=args.impala_passes,
         impala_rmsprop=not args.impala_adam)
@@ -166,8 +170,17 @@ def main(argv=None) -> None:
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from e
     log.info("device: %s  env: %s", device, env_cfg.to_json())
+    if args.checkpoint_every:
+        # Serving and evaluation rebuild the model from this file alone.
+        write_policy_meta(args.checkpoint_dir, env_cfg, tcfg, arch=args.arch)
 
     rs = trainer.init(rng.prng_key(args.seed, device))
+    start_update = 0
+    if args.resume:
+        restored = restore_latest(args.checkpoint_dir, rs)
+        if restored is not None:
+            start_update, rs = restored
+            log.info("resumed from update %d", start_update)
     metrics = MetricsLogger(args.metrics_path)
     metrics.log_meta({"algo": args.algo, "arch": args.arch,
                       "device": str(device),
@@ -175,7 +188,7 @@ def main(argv=None) -> None:
     steps_per_update = tcfg.num_envs * tcfg.unroll_length
     t_last = time.time()
     try:
-        for u in range(0, tcfg.num_updates, args.log_every):
+        for u in range(start_update, tcfg.num_updates, args.log_every):
             n = min(args.log_every, tcfg.num_updates - u)
             rs, ms = trainer.train_many(rs, n)
             scalars = {k: float(v[-1]) for k, v in ms.items()}
@@ -183,23 +196,16 @@ def main(argv=None) -> None:
             t_last = time.time()
             scalars["env_steps_per_sec"] = steps_per_update * n / dt
             metrics.log(u + n, scalars)
+            if args.checkpoint_every and (
+                    (u + n) % args.checkpoint_every == 0):
+                log.info("checkpoint: %s",
+                         save(args.checkpoint_dir, u + n, rs))
             if args.eval_every and (u + n) % args.eval_every == 0:
-                params = rs.params
-                # A recurrent policy's carry restarts with each episode.
-                carry = [initial_carry(args.arch, (args.eval_episodes,
-                                                   env_cfg.num_agents),
-                                       tcfg.hidden_dim, device)
-                         if recurrent else None]
-
-                def policy_fn(state, obs, key):
-                    if recurrent:
-                        logits, _, carry[0] = apply_rnn(params, obs, carry[0])
-                    else:
-                        logits = apply(params, obs)[0]
-                    return first_argmax(logits, -1).to(torch.int32)
-
+                policy_fn, init_carry = params_policy_fn(env_cfg, rs.params,
+                                                         args.arch)
                 ev = evaluate_policy(env_cfg, policy_fn, args.eval_episodes,
-                                     seed=args.seed + u, device=device)
+                                     seed=args.seed + u,
+                                     init_carry=init_carry, device=device)
                 metrics.log(u + n, {f"eval_{k}": v for k, v in ev.items()
                                     if k != "episodes"})
                 t_last = time.time()

@@ -23,7 +23,7 @@ Ported: the MLP policy, one shared policy, float32, RMSProp or Adam
 (``impala_rmsprop``), lr anneal, passes, truncation bootstrap, action
 masking. The TPU block knobs have no counterpart and are ignored;
 ``rollout_backend``/``grad_backend="xla"`` raises. Everything else
-raises ``NotImplementedError`` naming its ROADMAP item.
+raises ``NotImplementedError`` naming its ROADMAP id.
 """
 
 from __future__ import annotations
@@ -78,14 +78,16 @@ class ImpalaTrainer(NamedTuple):
 
 def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
     if arch != "mlp":
-        _not_ported(f"IMPALA with arch={arch!r}", "§B item 10")
+        _not_ported(f"IMPALA with arch={arch!r}", "M-7")
     for what, off, item in (
-            ("a mesh", mesh is None, "§B item 8"),
-            ("global_obs", not env_cfg.global_obs, "§B item 1"),
-            ("model_dtype='bfloat16'", tcfg.model_dtype == "float32",
-             "§B item 9"),
-            ("micro_batches > 1", tcfg.micro_batches == 1, "§B item 9"),
-            ("flat_optimizer", not tcfg.flat_optimizer, "§B item 9")):
+            ("a mesh", mesh is None, "M-8"),
+            # The JAX IMPALA trainer never reads shaping_coef.
+            ("shaping_coef > 0", tcfg.shaping_coef == 0.0, "M-4"),
+            ("global_obs", not env_cfg.global_obs, "M-4"),
+            # The JAX trainer sends bf16 to its XLA route (no kernel takes it).
+            ("model_dtype='bfloat16'", tcfg.model_dtype == "float32", "M-4"),
+            ("micro_batches > 1", tcfg.micro_batches == 1, "M-4"),
+            ("flat_optimizer", not tcfg.flat_optimizer, "M-4")):
         if not off:
             _not_ported(what, item)
     for name in ("rollout_backend", "grad_backend"):

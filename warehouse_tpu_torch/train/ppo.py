@@ -8,9 +8,10 @@ One update, draw for draw as the JAX trainer's fused path
    0x5EED), B)`` ("shuffle the envs, not the data": minibatches are then
    contiguous env ranges, :383-386);
 2. act T steps through ``kernels.ppo_rollout`` (K2; K10 with
-   ``arch="cnn"``), then the boundary reset ``reset_truncated_batch``
-   (:399-410), and with ``bootstrap_truncated`` V of the pre-reset states
-   (:412-422);
+   ``arch="cnn"``), which with ``shaping_coef > 0`` adds the potential
+   shaping to the reward it returns, then the boundary reset
+   ``reset_truncated_batch`` (:399-410), and with ``bootstrap_truncated``
+   V of the pre-reset states (:412-422);
 3. GAE from ``last_value``, advantages normalized per env minibatch;
 4. the SGD phase through ``kernels.ppo_sgd_phase`` (K3) or, for the CNN,
    ``kernels.ppo_cnn_sgd_phase`` (K11), with the per-step lr and
@@ -27,12 +28,14 @@ Ported: the MLP and the CNN policy (``arch="cnn"``; its
 :244-247), one shared policy, float32, ``minibatch_mode=
 "env"`` with ``epoch_shuffle="once"``, one gradient per minibatch,
 entropy anneal, adaptive KL, truncation bootstrap, lr anneal, action
-masking (K2 floors invalid moves, the loss re-applies the mask). The TPU
+masking (K2 floors invalid moves, the loss re-applies the mask),
+potential shaping (GAE reads the shaped reward, the ``reward_per_step``
+metric the raw one). The TPU
 block knobs (``pallas_block``, ``pallas_interpret``, ``sgd_block_envs``,
 ``sgd_rows_per_block``) have no counterpart and are ignored; the device
 picks kernel or twin, so ``rollout_backend``/``grad_backend="xla"``
 raises. Everything else raises ``NotImplementedError`` naming its
-ROADMAP item.
+ROADMAP id.
 """
 
 from __future__ import annotations
@@ -104,23 +107,19 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh,
         raise ValueError(f"arch={arch!r}: the recurrent policies train "
                          "through train.ppo_rnn.make_train_rnn")
     if arch not in ("mlp", "cnn"):
-        _not_ported(f"arch={arch!r}", "§B item 10")
+        _not_ported(f"arch={arch!r}", "M-7")
     if arch == "cnn" and policy_groups is not None:
         raise ValueError("policy_groups with arch='cnn': the CNN learner is "
                          "single-policy")
     for what, off, item in (
-            ("policy_groups", policy_groups is None, "§B items 1, 9"),
-            ("a mesh", mesh is None, "§B item 8"),
-            ("shaping_coef > 0", tcfg.shaping_coef == 0.0, "§B item 1"),
-            ("global_obs", not env_cfg.global_obs, "§B item 1"),
-            ("model_dtype='bfloat16'", tcfg.model_dtype == "float32",
-             "§B item 9"),
-            ("minibatch_mode='flat'", tcfg.minibatch_mode == "env",
-             "§B item 9"),
-            ("epoch_shuffle='each'", tcfg.epoch_shuffle == "once",
-             "§B item 9"),
-            ("micro_batches > 1", tcfg.micro_batches == 1, "§B item 9"),
-            ("flat_optimizer", not tcfg.flat_optimizer, "§B item 9")):
+            ("policy_groups", policy_groups is None, "M-3, T-3"),
+            ("a mesh", mesh is None, "M-8"),
+            ("global_obs", not env_cfg.global_obs, "T-2"),
+            ("model_dtype='bfloat16'", tcfg.model_dtype == "float32", "T-4"),
+            ("minibatch_mode='flat'", tcfg.minibatch_mode == "env", "M-4"),
+            ("epoch_shuffle='each'", tcfg.epoch_shuffle == "once", "M-4"),
+            ("micro_batches > 1", tcfg.micro_batches == 1, "M-4"),
+            ("flat_optimizer", not tcfg.flat_optimizer, "M-4")):
         if not off:
             _not_ported(what, item)
     for name in ("rollout_backend", "grad_backend"):
@@ -244,7 +243,7 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
         model.load_state_dict(rs.params)
         new_env, roll, reset_key, key = act_fn(
             cfg, model, env_in, T, key, mask_actions=tcfg.mask_actions,
-            arch=arch)
+            shaping_coef=tcfg.shaping_coef, gamma=tcfg.gamma, arch=arch)
         env_state, last_obs, _ = reset_truncated_batch(cfg, new_env,
                                                        reset_key)
         boot = torch.zeros_like(roll.value)

@@ -26,7 +26,7 @@ or launch failure raises; on the CPU their plain twins run.
 The envelope of the JAX kernels path is the port's only path. Ported:
 float32, one shared policy, ``epoch_shuffle="once"``, entropy anneal,
 adaptive KL, lr anneal, action masking. ``NotImplementedError``, naming
-the ROADMAP item: ``global_obs``, ``shaping_coef``,
+the ROADMAP id: ``global_obs``, ``shaping_coef``,
 ``bootstrap_truncated``, ``epoch_shuffle="each"``, ``flat_optimizer``,
 ``micro_batches > 1``, ``model_dtype="bfloat16"``, a mesh.
 """
@@ -83,17 +83,14 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
         raise ValueError(f"make_train_rnn: arch={arch!r}; the recurrent "
                          "trainer takes 'gru' or 'lstm'")
     for what, off, item in (
-            ("a mesh", mesh is None, "§B item 8"),
-            ("shaping_coef > 0", tcfg.shaping_coef == 0.0, "§B item 1"),
-            ("global_obs", not env_cfg.global_obs, "§B item 1"),
-            ("bootstrap_truncated", not tcfg.bootstrap_truncated,
-             "§B item 9"),
-            ("model_dtype='bfloat16'", tcfg.model_dtype == "float32",
-             "§B item 9"),
-            ("epoch_shuffle='each'", tcfg.epoch_shuffle == "once",
-             "§B item 9"),
-            ("micro_batches > 1", tcfg.micro_batches == 1, "§B item 9"),
-            ("flat_optimizer", not tcfg.flat_optimizer, "§B item 9")):
+            ("a mesh", mesh is None, "M-8"),
+            ("shaping_coef > 0", tcfg.shaping_coef == 0.0, "M-4"),
+            ("global_obs", not env_cfg.global_obs, "M-4"),
+            ("bootstrap_truncated", not tcfg.bootstrap_truncated, "M-4"),
+            ("model_dtype='bfloat16'", tcfg.model_dtype == "float32", "T-4"),
+            ("epoch_shuffle='each'", tcfg.epoch_shuffle == "once", "M-4"),
+            ("micro_batches > 1", tcfg.micro_batches == 1, "M-4"),
+            ("flat_optimizer", not tcfg.flat_optimizer, "M-4")):
         if not off:
             _not_ported(f"recurrent PPO with {what}", item)
     for name in ("rollout_backend", "grad_backend"):
