@@ -109,7 +109,32 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    checkpoint ``greedy_bfs``); the metrics of every update go to
    ``runs/torch_shelves/metrics.jsonl`` (the same bits on every run);
 19. ``shelves_cnn_train`` (main path): 10 updates of the same recipe with
-   ``--arch cnn`` (shaped K10 + K11/K12), finite metrics and moved params.
+   ``--arch cnn`` (shaped K10 + K11/K12), finite metrics and moved params;
+20. ``global_check``: the global-observation option of K2 and K10 and the
+   widths it brings, with the checks of ``k2_check`` / ``k3_check`` /
+   ``k4_check`` / ``k5_check``: K2 on shelves with the global view (D = 611,
+   masked and shaped, B = 2048, the recipe's shapes) and on medium (D =
+   411, B = 4096), each counted on K2's wide route; K10 on medium (the 9x9
+   map as the CNN's grid, 5 channels); K3 / K4 at D = 611 on a trajectory
+   of the recipe; K11 / K12 at S = 9; and, at config 4 with hidden 256 (the
+   ``hidden256_train`` path's shapes): K2 on its wide route
+   (``wide_check``), K3 / K4 and K5;
+21. ``shelves_global_train`` (main path): the full shelves recipe with
+   ``--global-obs`` as the train CLI builds it (2048 envs, T = 16, MLP 611
+   -> 128 -> 128 -> 6, the 300-update schedule of the JAX run
+   ``runs/r3_curves/shelves_global_fused.jsonl``), its first 100 updates
+   through ``train_step`` (global, masked, shaped K2 on its wide route +
+   K3/K4 with the first layer in chunks), a learning check on deliveries per env-step over updates 91-100,
+   a checkpoint at 100; ``evaluate``'s ``checkpoint`` policy on 256
+   episodes (masked argmax, and sampled) against ``greedy_bfs``, and
+   ``serve.Policy.from_checkpoint``; the curve goes to
+   ``runs/torch_shelves_global/metrics.jsonl``;
+22. ``cnn_global_train`` (main path): 10 config-4 updates of ``--arch cnn
+   --global-obs`` (K10 on the 9x9 map + K11/K12), finite metrics, moved
+   params, the first update's metrics beside the plain path's;
+23. ``hidden256_train`` (main path): 3 config-4 updates at ``--hidden-dim
+   256`` (K2 on its wide route, K3/K4), the first update's metrics beside
+   the plain path's.
 
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit. The kernels' launch counts are zeroed just before each
@@ -186,6 +211,16 @@ SHELVES_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 91-100
 SHELVES_CNN_UPDATES = 10  # updates of the shelves_cnn_train phase
 EVAL_EPISODES = 256     # episodes of each evaluated policy (the CLI's)
 METRICS_OUT = "runs/torch_shelves/metrics.jsonl"  # the port's curve
+GLOBAL_B = 2048         # envs of the global-obs shelves recipe (the JAX run's)
+GLOBAL_UPDATES = 100    # updates of its 300-update schedule that run here
+GLOBAL_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 91-100
+GLOBAL_METRICS_OUT = "runs/torch_shelves_global/metrics.jsonl"
+CNN_GLOBAL_UPDATES = 10  # updates of the cnn_global_train phase
+WIDE_HIDDEN = 256       # a hidden width whose weights are not staged
+WIDE_UPDATES = 3        # updates of the hidden256_train phase
+# A kernel update's metrics against the plain path's from the same state
+# (tests/test_torch_train.py's bound on the JAX trainer's metrics).
+STEP_METRIC_TOL = (1e-3, 5e-5)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (published)
 PEAK_F32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # K3/K4 against the plain twin at config 4: (rtol, atol) per quantity.
@@ -406,7 +441,7 @@ def shaped_start(cfg, model, state, truncating, dev):
 
 
 def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
-             truncating=False):
+             truncating=False, B=CHECK_B, phase=None, wide=False):
     """K2 (or, for a CNN model, K10) against the plain engine replaying
     its actions and the plain model on its observations, then timed beside
     its twin; with ``mask_actions`` also its mask against
@@ -415,10 +450,14 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
     episode): the shaped reward against the formula on the replayed
     states' potentials, the raw reward against the engine's, everything
     against the twin where it samples the same actions, and the launch
-    counts."""
+    counts. With ``cfg.global_obs`` the same checks hold the kernel's
+    global view to the plain engine's, and the count of global launches
+    must move; with ``wide`` (an MLP whose shape K2's staged route cannot
+    hold) so must the count of launches on the wide route, else it must
+    not."""
     cnn = isinstance(model, ActorCriticCNN)
     K, steps = ("K10", act.act_cnn_steps) if cnn else ("K2", act.act_steps)
-    B, T, A = CHECK_B, SLICE_T, cfg.num_agents
+    T, A = SLICE_T, cfg.num_agents
     state, obs0 = reset_envs(cfg, B, SEED + 1, dev)
     if shaped:
         state, obs0 = shaped_start(cfg, model, state, truncating, dev)
@@ -435,14 +474,20 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
         require(bool(done[-1].all()) == truncating and not bool(
             done[:-1].any()), f"{K}: truncation flags of the chunk")
         shaping = act.Shaping(*SHAPING, done, torch.empty(T, B, A, device=dev))
-    counts = (steps.launches, steps.shaped_launches)
+    def launch_counts():
+        return (steps.launches, steps.shaped_launches, steps.global_launches,
+                getattr(steps, "wide_launches", 0))
+
+    counts = launch_counts()
     ks, obs, action, lp, value, reward, delivered = steps(
         cfg, model, state, u, pick, drop, g, logits=logits_k, mask=mask,
         shaping=shaping)
     torch.cuda.synchronize()
-    require((steps.launches, steps.shaped_launches)
-            == (counts[0] + 1, counts[1] + int(shaped)),
-            f"{K}: the launch counts did not show the kernel's launch")
+    require(launch_counts()
+            == (counts[0] + 1, counts[1] + int(shaped),
+                counts[2] + int(cfg.global_obs), counts[3] + int(wide)),
+            f"{K}: the launch counts did not show the kernel's launch and "
+            f"its route: {counts} -> {launch_counts()}")
 
     # Dynamics: the plain engine replays the kernel's actions.
     s = state
@@ -516,9 +561,10 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
                                mask=mask, shaping=shaping), 5)
     p_ms = timed(lambda: act.act_steps_reference(
         cfg, model, state, u, pick, drop, g, mask=mask, shaping=shaping), 3)
-    out = {"phase": "t1_check" if shaped else f"{K.lower()}_check",
-           "kernel": K, "config": name, "mask_actions": mask_actions,
-           "B": B, "T": T, "max_abs_err": err, "tol": TOL,
+    out = {"phase": phase or ("t1_check" if shaped else f"{K.lower()}_check"),
+           "kernel": K, "config": name, "global_obs": cfg.global_obs,
+           "obs_dim": cfg.obs_dim, "mask_actions": mask_actions,
+           "wide_route": wide, "B": B, "T": T, "max_abs_err": err, "tol": TOL,
            "actions_agree_where_gap_gt_tol": agree,
            "clear_share": float(clear.float().mean()),
            "kernel_ms": k_ms, "plain_ms": p_ms}
@@ -566,16 +612,18 @@ def tree_err(a, b, rtol, atol):
     return max(e for e, _ in errs), max(r for _, r in errs)
 
 
-def sgd_inputs(dev, cfg, arch="mlp", schedule=TRAIN_SCHEDULE):
-    """One config-4 trajectory for the SGD checks: a K2 (``arch="cnn"``:
-    K10) chunk from the trainer's reset, then GAE and the per-minibatch
-    normalization."""
-    tcfg = TrainConfig(num_updates=schedule)
+def sgd_inputs(dev, cfg, arch="mlp", schedule=TRAIN_SCHEDULE, tcfg=None):
+    """One trajectory for the SGD checks, config 4's or ``tcfg``'s: a K2
+    (``arch="cnn"``: K10) chunk from the trainer's reset with the
+    trainer's options, then GAE and the per-minibatch normalization."""
+    tcfg = tcfg or TrainConfig(num_updates=schedule)
     tr = make_train(cfg, tcfg, arch=arch, device=dev)
     rs = tr.init(rng.prng_key(SEED + 5, dev))
     tr.model.load_state_dict(rs.params)
-    new, roll, _, _ = act.ppo_rollout(cfg, tr.model, rs.env_state, SLICE_T,
-                                      rng.prng_key(SEED + 6, dev), arch=arch)
+    new, roll, _, _ = act.ppo_rollout(
+        cfg, tr.model, rs.env_state, SLICE_T, rng.prng_key(SEED + 6, dev),
+        arch=arch, mask_actions=tcfg.mask_actions,
+        shaping_coef=tcfg.shaping_coef, gamma=tcfg.gamma)
     done = roll.truncated[:, :, None].expand_as(roll.reward)
     traj = Transition(roll.obs, roll.action, roll.log_prob, roll.value,
                       roll.reward, done, roll.mask,
@@ -588,22 +636,23 @@ def sgd_inputs(dev, cfg, arch="mlp", schedule=TRAIN_SCHEDULE):
     return tcfg, tr, rs, traj, adv_n, targets, ent
 
 
-def k3_check(dev, cfg, cnn=False):
-    """K3 or, with ``cnn``, K11 against its plain twin, a rerun, timed."""
+def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4"):
+    """K3 or, with ``cnn``, K11 against its plain twin, a rerun, timed;
+    on config 4's trajectory or one of ``tcfg`` on ``cfg``."""
     K, phase, phase_ref, tol = (
         ("K11", sgd_cnn.ppo_cnn_sgd_phase,
          sgd_cnn.ppo_cnn_sgd_phase_reference, CNN_TOL) if cnn else
         ("K3", sgd.ppo_sgd_phase, sgd.ppo_sgd_phase_reference, SGD_TOL))
-    tcfg, tr, rs, traj, adv_n, targets, ent = (
-        sgd_inputs(dev, cfg, "cnn", CNN_SCHEDULE) if cnn
-        else sgd_inputs(dev, cfg))
+    tcfg, tr, rs, traj, adv_n, targets, ent = sgd_inputs(
+        dev, cfg, "cnn" if cnn else "mlp",
+        CNN_SCHEDULE if cnn else TRAIN_SCHEDULE, tcfg)
     E, M = tcfg.ppo_epochs, tcfg.num_minibatches
     rows = tr.optimizer.step_rows(rs.opt_state.count, E * M, dev)
     args = (rs.params, rs.opt_state, traj, adv_n, targets, *rows, ent,
             rs.kl_coeff)
     kw = dict(num_epochs=E, num_minibatches=M, clip_eps=tcfg.clip_eps,
               value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
-              mask_actions=False)
+              mask_actions=tcfg.mask_actions)
     pk, ok, lk = phase(*args, **kw)
     pr, orf, lr_ = phase_ref(*args, **kw)
     p2, o2, l2 = phase(*args, **kw)
@@ -619,7 +668,8 @@ def k3_check(dev, cfg, cnn=False):
     moved = max(float((pk[k] - rs.params[k]).abs().max()) for k in pk)
     k_ms = timed(lambda: phase(*args, **kw), 5)
     p_ms = timed(lambda: phase_ref(*args, **kw), 3)
-    emit({"phase": f"{K.lower()}_check", "B": traj.obs.shape[1], "T": SLICE_T,
+    emit({"phase": f"{K.lower()}_check", "config": name,
+          "obs_dim": cfg.obs_dim, "B": traj.obs.shape[1], "T": SLICE_T,
           "epochs": E, "minibatches": M,
           "samples_per_minibatch": traj.obs.shape[0] * traj.obs.shape[1]
           * cfg.num_agents // M,
@@ -641,7 +691,7 @@ def k3_check(dev, cfg, cnn=False):
     return err["params"][0], k_ms, p_ms, bnd
 
 
-def k4_check(dev, cfg, cnn=False):
+def k4_check(dev, cfg, cnn=False, tcfg=None, name="config4"):
     """K4 or, with ``cnn``, K12 against autograd on every minibatch."""
     K, grads_fn, grads_ref, tol, loss_key = (
         ("K12", sgd_cnn.ppo_cnn_minibatch_grads,
@@ -649,12 +699,12 @@ def k4_check(dev, cfg, cnn=False):
         if cnn else
         ("K4", sgd.ppo_minibatch_grads, sgd.ppo_minibatch_grads_reference,
          SGD_TOL, "losses"))
-    tcfg, tr, rs, traj, adv_n, targets, ent = (
-        sgd_inputs(dev, cfg, "cnn", CNN_SCHEDULE) if cnn
-        else sgd_inputs(dev, cfg))
+    tcfg, tr, rs, traj, adv_n, targets, ent = sgd_inputs(
+        dev, cfg, "cnn" if cnn else "mlp",
+        CNN_SCHEDULE if cnn else TRAIN_SCHEDULE, tcfg)
     M = tcfg.num_minibatches
     kw = dict(num_minibatches=M, clip_eps=tcfg.clip_eps,
-              value_coef=tcfg.value_coef, mask_actions=False)
+              value_coef=tcfg.value_coef, mask_actions=tcfg.mask_actions)
     worst = {"losses": (0.0, 0.0), "grads": (0.0, 0.0)}
     for mb in range(M):
         (lk, auxk), gk = grads_fn(
@@ -662,14 +712,15 @@ def k4_check(dev, cfg, cnn=False):
         (lr_, auxr), gr = grads_ref(
             rs.params, traj, adv_n, targets, mb, ent, rs.kl_coeff, **kw)
         torch.cuda.synchronize()
-        for name, e in (("losses", tree_err((lk, *auxk), (lr_, *auxr),
-                                            *tol[loss_key])),
-                        ("grads", tree_err(gk, gr, *tol["grads"]))):
-            worst[name] = tuple(map(max, worst[name], e))
+        for key, e in (("losses", tree_err((lk, *auxk), (lr_, *auxr),
+                                           *tol[loss_key])),
+                       ("grads", tree_err(gk, gr, *tol["grads"]))):
+            worst[key] = tuple(map(max, worst[key], e))
     args = (rs.params, traj, adv_n, targets, 0, ent, rs.kl_coeff)
     k_ms = timed(lambda: grads_fn(*args, **kw), 5)
     p_ms = timed(lambda: grads_ref(*args, **kw), 3)
-    emit({"phase": f"{K.lower()}_check", "minibatches": M,
+    emit({"phase": f"{K.lower()}_check", "config": name,
+          "obs_dim": cfg.obs_dim, "minibatches": M,
           "max_abs_err": {k: e for k, (e, _) in worst.items()},
           "tol_ratio": {k: r for k, (_, r) in worst.items()},
           "tol": {"losses": tol[loss_key], "grads": tol["grads"]},
@@ -683,10 +734,11 @@ def k4_check(dev, cfg, cnn=False):
     return worst["grads"][0], k_ms, p_ms, bnd
 
 
-def impala_inputs(dev, cfg):
+def impala_inputs(dev, cfg, hidden=HIDDEN[0]):
     """One config-4 IMPALA trajectory: a K2 chunk from the trainer's reset
     and the boundary reset after it (``last_obs``)."""
-    tcfg = TrainConfig(num_updates=IMPALA_SCHEDULE, impala_rmsprop=False)
+    tcfg = TrainConfig(num_updates=IMPALA_SCHEDULE, impala_rmsprop=False,
+                       hidden_dim=hidden)
     tr = make_train_impala(cfg, tcfg, device=dev)
     rs = tr.init(rng.prng_key(SEED + 7, dev))
     tr.model.load_state_dict(rs.params)
@@ -704,15 +756,16 @@ def impala_inputs(dev, cfg):
     return tcfg, rs.params, traj, last_obs, kw
 
 
-def k5_check(dev, cfg):
+def k5_check(dev, cfg, hidden=HIDDEN[0]):
     """K5 against its twin for passes 1 and 2, RMSProp and Adam; a rerun
-    bit-equal; the main path's case (Adam, 1 pass) timed."""
-    tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg)
+    bit-equal; the main path's case (Adam, 1 pass) timed. At another
+    ``hidden`` width only that case runs."""
+    tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg, hidden)
     M = tcfg.num_minibatches
     results, worst = [], {k: (0.0, 0.0) for k in ("losses", "params", "mu",
                                                   "nu")}
-    for use_rms in (True, False):
-        for passes in (1, 2):
+    for use_rms in ((True, False) if hidden == HIDDEN[0] else (False,)):
+        for passes in ((1, 2) if hidden == HIDDEN[0] else (1,)):
             tc = tcfg.replace(impala_rmsprop=use_rms, impala_passes=passes)
             optimizer = make_impala_optimizer(tc)
             opt = optimizer.init(params)
@@ -750,8 +803,8 @@ def k5_check(dev, cfg):
                              5)
                 p_ms = timed(lambda: vtrace_sgd.impala_sgd_phase_reference(
                     *args, **pkw), 3)
-    emit({"phase": "k5_check", "B": traj.obs.shape[1], "T": SLICE_T,
-          "minibatches": M, "samples_per_minibatch":
+    emit({"phase": "k5_check", "hidden": hidden, "B": traj.obs.shape[1],
+          "T": SLICE_T, "minibatches": M, "samples_per_minibatch":
           traj.obs.shape[0] * traj.obs.shape[1] * cfg.num_agents // M,
           "cases": results,
           "max_abs_err": {k: e for k, (e, _) in worst.items()},
@@ -1345,6 +1398,125 @@ def shelves_cnn_train_phase(dev, cfg):
     emit({"phase": "shelves_cnn_train", **out, "raw_reward_per_step": seen})
 
 
+def global_tcfg():
+    """The full shelves recipe's TrainConfig with global observations: the
+    walled recipe at the JAX record's 2048 envs (docs/RESULTS.md:554)."""
+    return shelves_tcfg().replace(num_envs=GLOBAL_B)
+
+
+def shelves_global_train_phase(dev, cfg):
+    """The first 100 updates of the full shelves recipe with
+    ``--global-obs`` through the kernels, a checkpoint at the end, then
+    its evaluation (masked argmax and sampled) against ``greedy_bfs`` and
+    the policy served from the checkpoint directory."""
+    tcfg, n = global_tcfg(), GLOBAL_UPDATES
+    tr = make_train(cfg, tcfg, device=dev)
+    rows = []
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        write_policy_meta(ckpt_dir, cfg, tcfg, arch="mlp")
+
+        def hook(u, rs, m):
+            rows.append({"step": u, **{k: float(v) for k, v in m.items()}})
+            if u == n:
+                checkpoint.save(ckpt_dir, u, rs)
+
+        rs, out = run_updates(tr, n, "shelves_global_train", dev, hook)
+        evals = {"greedy_bfs": evaluate_policy(
+            cfg, policy_fn_for("greedy_bfs", cfg), EVAL_EPISODES, SEED,
+            device=dev)}
+        for label, sample in (("checkpoint_argmax", False),
+                              ("checkpoint_sampled", True)):
+            fn, init_carry, mask_on = checkpoint_policy_fn(
+                cfg, ckpt_dir, sample=sample, device=dev)
+            require(mask_on, "evaluate: the meta file did not turn the mask "
+                    "on")
+            evals[label] = evaluate_policy(cfg, fn, EVAL_EPISODES, SEED,
+                                           init_carry=init_carry, device=dev)
+        # The directory describes itself: the env with its global view, the
+        # model's widths and the mask come from the meta file.
+        served = Policy.from_checkpoint(ckpt_dir, device=dev)
+        require(served.env_cfg.global_obs and served.mask_actions
+                and served.env_cfg.obs_dim == cfg.obs_dim,
+                "serve: the checkpoint's meta lost the global view")
+        acts, _ = served.compute_actions(rs.obs)
+        with torch.no_grad():
+            logits, _ = apply(rs.params, rs.obs)
+        require(torch.equal(acts, first_argmax(logits, -1).to(torch.int32)),
+                "serve: the checkpoint's policy differs from the trained one")
+    os.makedirs(os.path.dirname(GLOBAL_METRICS_OUT), exist_ok=True)
+    with open(GLOBAL_METRICS_OUT, "w") as f:
+        f.write(json.dumps({"meta": True, "algo": "ppo", "arch": "mlp",
+                            "env": "shelves", "global_obs": True, "device":
+                            torch.cuda.get_device_name(0),
+                            "train_config": json.loads(tcfg.to_json())})
+                + "\n")
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+
+    deliveries = out["deliveries_per_env_step"]
+    late = sum(deliveries[-10:]) / 10
+    per_episode = {k: v["mean_deliveries_per_episode"]
+                   for k, v in evals.items()}
+    used = ("argmax" if per_episode["checkpoint_argmax"]
+            > per_episode["greedy_bfs"] else "sampled")
+    emit({"phase": "shelves_global_train", "obs_dim": cfg.obs_dim, **out,
+          "deliveries_at": {u: deliveries[u - 1]
+                            for u in range(20, n + 1, 20)},
+          "deliveries_91_100": late, "learn_min": GLOBAL_LEARN_MIN,
+          "eval_episodes": EVAL_EPISODES,
+          "eval_deliveries_per_episode": per_episode,
+          "eval_gate_used": used, "metrics_file": GLOBAL_METRICS_OUT})
+    require(late >= GLOBAL_LEARN_MIN,
+            f"shelves_global_train: deliveries/env-step {late} over updates "
+            f"91-100 is below {GLOBAL_LEARN_MIN}")
+    require(per_episode[f"checkpoint_{used}"] > per_episode["greedy_bfs"],
+            f"evaluate: the global-obs checkpoint is below greedy_bfs: "
+            f"{per_episode}")
+
+
+def cnn_global_train_phase(dev, cfg):
+    """10 config-4 updates of the CNN policy on global observations (K10 on
+    the whole map + K11/K12), after one update through the kernels and one
+    through the plain path from the same state, whose metrics must
+    agree."""
+    tr = make_train(cfg, TrainConfig(num_updates=CNN_SCHEDULE), arch="cnn",
+                    device=dev)
+    first = first_update_vs_plain(tr, dev, "cnn_global_train")
+    rs, out = run_updates(tr, CNN_GLOBAL_UPDATES, "cnn_global_train", dev)
+    serve_mlp(cfg, tr, rs)
+    emit({"phase": "cnn_global_train", "obs_dim": cfg.obs_dim, **out,
+          "first_update_kernel_vs_plain": first, "tol": STEP_METRIC_TOL})
+
+
+def first_update_vs_plain(tr, dev, what):
+    """One update through the kernels and one through the plain path from
+    the same state: their metrics, which must agree."""
+    rs0 = tr.init(rng.prng_key(0, dev))
+    _, mk = tr.train_step(rs0)
+    _, mp = tr.plain_step(rs0)
+    rtol, atol = STEP_METRIC_TOL
+    first = {k: (float(mk[k]), float(mp[k])) for k in mk}
+    require(all(abs(a - b) <= atol + rtol * abs(b) for a, b in first.values()),
+            f"{what}: the first update differs from the plain path's: {first}")
+    return first
+
+
+def hidden256_tcfg():
+    return TrainConfig(num_updates=TRAIN_SCHEDULE, hidden_dim=WIDE_HIDDEN)
+
+
+def hidden256_train_phase(dev, cfg):
+    """3 config-4 PPO updates at hidden 256: weights that one block's
+    shared memory does not hold, so K2 takes its wide route; K3/K4 at that
+    width. First one update through the kernels and one through the plain
+    path from the same state, whose metrics must agree."""
+    tr = make_train(cfg, hidden256_tcfg(), device=dev)
+    first = first_update_vs_plain(tr, dev, "hidden256_train")
+    rs, out = run_updates(tr, WIDE_UPDATES, "hidden256_train", dev)
+    serve_mlp(cfg, tr, rs)
+    emit({"phase": "hidden256_train", "hidden_dim": WIDE_HIDDEN, **out,
+          "first_update_kernel_vs_plain": first, "tol": STEP_METRIC_TOL})
+
+
 # Each kernel's wrapper, where its launch count lives.
 COUNTED = {"greedy_rollout": rollout.greedy_steps,
            "ppo_rollout": act.act_steps,
@@ -1358,9 +1530,21 @@ COUNTED = {"greedy_rollout": rollout.greedy_steps,
            "ppo_rollout_cnn": act.act_cnn_steps,
            "ppo_cnn_sgd_phase": sgd_cnn.ppo_cnn_sgd_phase,
            "ppo_cnn_minibatch_grads": sgd_cnn.ppo_cnn_minibatch_grads}
-# The shaping option's launches are counted beside each wrapper's own.
-SHAPED_COUNTED = {"ppo_rollout_shaped": act.act_steps,
-                  "ppo_rollout_cnn_shaped": act.act_cnn_steps}
+# An option's or a route's launches are counted beside each wrapper's own:
+# (wrapper, the counter's name).
+OPTION_COUNTED = {
+    "ppo_rollout_shaped": (act.act_steps, "shaped_launches"),
+    "ppo_rollout_cnn_shaped": (act.act_cnn_steps, "shaped_launches"),
+    "ppo_rollout_global": (act.act_steps, "global_launches"),
+    "ppo_rollout_wide": (act.act_steps, "wide_launches"),
+    "ppo_rollout_cnn_global": (act.act_cnn_steps, "global_launches"),
+    "ppo_sgd_phase_global": (sgd.ppo_sgd_phase, "chunked_launches"),
+    "ppo_minibatch_grads_global": (sgd.ppo_minibatch_grads,
+                                   "chunked_launches"),
+    "ppo_cnn_sgd_phase_global": (sgd_cnn.ppo_cnn_sgd_phase,
+                                 "small_tile_launches"),
+    "ppo_cnn_minibatch_grads_global": (sgd_cnn.ppo_cnn_minibatch_grads,
+                                       "small_tile_launches")}
 
 
 def main_path(name, fn, kernels):
@@ -1368,11 +1552,11 @@ def main_path(name, fn, kernels):
     reads the counts just after and requires each of ``kernels``."""
     for wrapper in COUNTED.values():
         wrapper.launches = 0
-    for wrapper in SHAPED_COUNTED.values():
-        wrapper.shaped_launches = 0
+    for wrapper, counter in OPTION_COUNTED.values():
+        setattr(wrapper, counter, 0)
     fn()
     counts = {k: w.launches for k, w in COUNTED.items()}
-    counts.update({k: w.shaped_launches for k, w in SHAPED_COUNTED.items()})
+    counts.update({k: getattr(w, c) for k, (w, c) in OPTION_COUNTED.items()})
     emit({"phase": "launches", "path": name, "launches": counts})
     require(all(counts[k] > 0 for k in kernels),
             f"{name}: a kernel of the path never launched: {counts}")
@@ -1483,6 +1667,40 @@ def main(argv=()) -> int:
             k2_check(dev, name, c, m, True, shaped=True, truncating=True)
             res = k2_check(dev, name, c, m, True, shaped=True)
         checks[key] = res
+    # Global observations and K2's wide route: the recipe's shapes (shelves,
+    # D = 611, 2048 envs, masked and shaped) go into the kernels line for
+    # K2 / K3 / K4, medium's 9x9 map for the CNN kernels, config 4 at hidden
+    # 256 (the hidden256_train path's shapes) for K2's wide route without
+    # the global view; K3 / K4 are held at that width too.
+    shelves_g, medium_g = (c.replace(global_obs=True) for c in (shelves, cfg))
+
+    def mlp_for(c, hidden=HIDDEN[0]):
+        return make_model(c, hidden_dim=hidden, num_layers=HIDDEN[1],
+                          generator=torch.Generator().manual_seed(SEED),
+                          device=dev)
+
+    k2_check(dev, "medium_global", medium_g, mlp_for(medium_g),
+             phase="global_check", wide=True)
+    checks["ppo_rollout_global"] = k2_check(
+        dev, "shelves_global", shelves_g, mlp_for(shelves_g), True,
+        shaped=True, B=GLOBAL_B, phase="global_check", wide=True)
+    checks["ppo_rollout_wide"] = k2_check(
+        dev, "medium_hidden256", cfg, mlp_for(cfg, WIDE_HIDDEN),
+        phase="wide_check", wide=True)
+    checks["ppo_rollout_cnn_global"] = k2_check(
+        dev, "medium_global", medium_g, cnn_model(medium_g, dev),
+        phase="global_check")
+    checks["ppo_sgd_phase_global"] = k3_check(
+        dev, shelves_g, tcfg=global_tcfg(), name="shelves_global")
+    checks["ppo_minibatch_grads_global"] = k4_check(
+        dev, shelves_g, tcfg=global_tcfg(), name="shelves_global")
+    k3_check(dev, cfg, tcfg=hidden256_tcfg(), name="config4_hidden256")
+    k4_check(dev, cfg, tcfg=hidden256_tcfg(), name="config4_hidden256")
+    checks["ppo_cnn_sgd_phase_global"] = k3_check(
+        dev, medium_g, cnn=True, name="medium_global")
+    checks["ppo_cnn_minibatch_grads_global"] = k4_check(
+        dev, medium_g, cnn=True, name="medium_global")
+    k5_check(dev, cfg, hidden=WIDE_HIDDEN)
 
     # ---- the main paths: each counted from just before it -------------
     rnn_kernels = ["ppo_rnn_rollout", "ppo_rnn_sgd_phase",
@@ -1510,7 +1728,20 @@ def main(argv=()) -> int:
         main_path("shelves_cnn_train",
                   lambda: shelves_cnn_train_phase(dev, shelves),
                   ["ppo_rollout_cnn", "ppo_rollout_cnn_shaped",
-                   "ppo_cnn_sgd_phase", "ppo_cnn_minibatch_grads"])]
+                   "ppo_cnn_sgd_phase", "ppo_cnn_minibatch_grads"]),
+        main_path("shelves_global_train",
+                  lambda: shelves_global_train_phase(dev, shelves_g),
+                  ["ppo_rollout_global", "ppo_rollout_wide",
+                   "ppo_rollout_shaped", "ppo_sgd_phase_global",
+                   "ppo_minibatch_grads_global"]),
+        main_path("cnn_global_train",
+                  lambda: cnn_global_train_phase(dev, medium_g),
+                  ["ppo_rollout_cnn_global", "ppo_cnn_sgd_phase_global",
+                   "ppo_cnn_minibatch_grads_global"]),
+        main_path("hidden256_train",
+                  lambda: hidden256_train_phase(dev, cfg),
+                  ["ppo_rollout_wide", "ppo_sgd_phase",
+                   "ppo_minibatch_grads"])]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     csrc = "warehouse_tpu_torch/kernels/csrc/"
@@ -1531,7 +1762,21 @@ def main(argv=()) -> int:
         # The shaping option of the two acting kernels (_phi_row and the
         # shaped reward of _act_kernel), at the shelves recipe's shapes.
         "ppo_rollout_shaped": ("act_common.cuh", "pallas/act.py:266"),
-        "ppo_rollout_cnn_shaped": ("act_common.cuh", "pallas/act.py:457")}
+        "ppo_rollout_cnn_shaped": ("act_common.cuh", "pallas/act.py:457"),
+        # The global-observation option of the two acting kernels
+        # (_obs_rows_global), and the learners at the widths it brings: the
+        # MLP learner's chunked first layer at D = 611, the CNN learner on
+        # the 9x9 map with 5 input channels; K2's wide route without the
+        # global view (hidden 256).
+        "ppo_rollout_global": ("act.cu", "pallas/act.py:193"),
+        "ppo_rollout_wide": ("act.cu", "pallas/act.py:1028"),
+        "ppo_rollout_cnn_global": ("act_cnn.cu", "pallas/act.py:339"),
+        "ppo_sgd_phase_global": ("mlp_learner.cuh", "pallas/sgd.py:691"),
+        "ppo_minibatch_grads_global": ("mlp_learner.cuh",
+                                       "pallas/sgd.py:818"),
+        "ppo_cnn_sgd_phase_global": ("sgd_cnn.cu", "pallas/sgd_cnn.py:482"),
+        "ppo_cnn_minibatch_grads_global": ("sgd_cnn.cu",
+                                           "pallas/sgd_cnn.py:595")}
     # library_ms: no single PyTorch call computes a whole rollout or a
     # whole learner phase, so it is null for every kernel here.
     emit({"kernels": [

@@ -140,9 +140,19 @@ def test_unsupported_options_raise(setup, option):
 
 
 def test_global_obs_and_auto_reset_raise(setup):
+    """``global_obs`` is ported (held against the Pallas kernel's global
+    view in test_torch_global_obs.py): the rollout returns the engine's
+    global observations; a model of the ego width does not fit them;
+    ``auto_reset`` still raises."""
     _, _, m, _, ts, _ = setup
-    with pytest.raises(NotImplementedError, match="global_obs"):
-        ppo_rollout(CFG.replace(global_obs=True), m, ts, T, rng.prng_key(0))
+    cfg = CFG.replace(global_obs=True)
+    wide = make_model(cfg, hidden_dim=HIDDEN, device="cpu",
+                      generator=torch.Generator().manual_seed(1))
+    _, roll, _, _ = ppo_rollout(cfg, wide, ts, T, rng.prng_key(0))
+    assert roll.obs.shape[-1] == cfg.obs_dim == 5 * 25 + 6
+    assert torch.equal(roll.obs[0], batch.observe_batch(cfg, ts))
+    with pytest.raises(RuntimeError, match="shapes cannot be multiplied"):
+        ppo_rollout(cfg, m, ts, T, rng.prng_key(0))
     with pytest.raises(ValueError, match="auto_reset"):
         ppo_rollout(CFG.replace(auto_reset=True), m, ts, T, rng.prng_key(0))
 

@@ -546,8 +546,13 @@ def test_cnn_trainer_gates_and_plain_step():
                           num_minibatches=2, ppo_epochs=2, hidden_dim=16)
     with pytest.raises(ValueError, match="policy_groups"):
         make_train(cfg, tcfg, arch="cnn", policy_groups=(0, 1), device="cpu")
-    with pytest.raises(NotImplementedError, match="global_obs"):
-        make_train(cfg.replace(global_obs=True), tcfg, arch="cnn",
+    # global_obs is ported: the CNN's grid becomes the whole 5 x 5 map with
+    # 5 channels (held against the JAX trainer in test_torch_global_obs.py).
+    wide = make_train(cfg.replace(global_obs=True), tcfg, arch="cnn",
+                      device="cpu")
+    assert wide.model.state_dict()["conv.0.weight"].shape == (16, 5, 3, 3)
+    with pytest.raises(ValueError, match="square grid"):
+        make_train(cfg.replace(global_obs=True, width=6), tcfg, arch="cnn",
                    device="cpu")
     tr = make_train(cfg, tcfg, arch="cnn", device="cpu")
     assert isinstance(tr.model, ActorCriticCNN)

@@ -666,3 +666,260 @@ def test_shaped_rollout_wrapper_launches_the_kernel(dev):
     if torch.equal(ref.action, roll.action):
         assert torch.equal(ref.reward.view(torch.int32),
                            roll.reward.view(torch.int32))
+
+
+# ---- global observations (K2, K10), K2's wide route, wide learners (K3-K6) ---
+
+GLOBAL = {name: cfg.replace(global_obs=True) for name, cfg in PRESETS.items()}
+
+
+def replay_check(cfg, m, run, dev, mask_on, shaped, steps=8):
+    """One chunk of ``run`` (K2 or K10) with the logits, and optionally the
+    mask and the shaping option: the plain engine replaying its actions
+    gives its obs, raw and shaped rewards, deliveries and final state bit
+    for bit; logits, values and log-probs within 1e-4 of the plain model on
+    the kernel's observations (f32 sums in another order)."""
+    from warehouse_tpu_torch.kernels.act import Shaping
+    from warehouse_tpu_torch.kernels.rollout import f32
+    from warehouse_tpu_torch.ops.pathing import potential
+
+    A, coef, gamma = cfg.num_agents, 0.02, 0.99
+    state, _ = reset(cfg, 9, dev)
+    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, steps)
+    _, g = rng.batched_gumbel_stream(rng.prng_key(6, dev), steps, (5, N * A))
+    logits_k = torch.empty(steps, N, A, 5, device=dev)
+    mask = (torch.zeros(steps, N, A, 5, dtype=torch.bool, device=dev)
+            if mask_on else None)
+    done = torch.zeros(steps, N, device=dev)
+    shaping = (Shaping(coef, gamma, done, torch.zeros(steps, N, A, device=dev))
+               if shaped else None)
+    before = run.launches
+    new, obs, action, lp, value, reward, delivered = run(
+        cfg, m, state, u, pick, drop, g, logits=logits_k, mask=mask,
+        shaping=shaping)
+    torch.cuda.synchronize()
+    assert run.launches == before + 1
+    bits = lambda x: x.view(torch.int32)
+    s = state
+    for t in range(steps):
+        if mask_on:
+            assert torch.equal(mask[t], valid_action_mask(cfg, s.agent_pos))
+            assert bool(mask[t].gather(-1, action[t].long()[..., None]).all())
+        assert torch.equal(bits(batch.observe_batch(cfg, s)), bits(obs[t])), t
+        phi_pre = potential(cfg, s) if shaped else None
+        s, ts = batch.step_batch(cfg, s, action[t])
+        want = ts.reward
+        if shaped:
+            assert torch.equal(bits(ts.reward), bits(shaping.raw_reward[t]))
+            term = f32(gamma) * potential(cfg, s)
+            term = term * (1.0 - done[t])[:, None] - phi_pre
+            want = ts.reward + f32(coef) * term
+        assert torch.equal(bits(want), bits(reward[t])), t
+        assert torch.equal(ts.delivered.sum(-1, dtype=torch.int32),
+                           delivered[t])
+    for f in STATE_FIELDS[:-2]:  # t and key are the wrapper's
+        assert torch.equal(getattr(s, f), getattr(new, f)), f
+    with torch.no_grad():
+        logits, v = m(obs)
+    assert float((logits - logits_k).abs().max()) < 1e-4
+    if mask_on:
+        logits = torch.where(mask, logits, -1e9)
+    lp_plain = torch.log_softmax(logits, -1).gather(
+        -1, action.long()[..., None])[..., 0]
+    assert float((v - value).abs().max()) < 1e-4
+    assert float((lp_plain - lp).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("mask_on,shaped", [(False, False), (True, False),
+                                            (True, True)])
+@pytest.mark.parametrize("name,hidden", [("small", 16), ("medium", 128),
+                                         ("shelves", 128), ("large", 32)])
+def test_global_obs_act_kernel_matches_plain_path(name, hidden, mask_on,
+                                                  shaped, dev):
+    """K2 with the global view (D = 131 / 411 / 611 / 1131: the small one
+    staged, the others on the wide route, which the route's launch count
+    shows), plain, masked, masked and shaped."""
+    cfg = GLOBAL[name]
+    m = make_model(cfg, hidden_dim=hidden,
+                   generator=torch.Generator().manual_seed(0), device=dev)
+    wide = act_steps.wide_launches
+    replay_check(cfg, m, act_steps, dev, mask_on, shaped)
+    assert act_steps.wide_launches == wide + (name != "small")
+
+
+@pytest.mark.parametrize("name,hidden,layers", [("medium", 256, 2),
+                                                ("shelves", 128, 3)])
+def test_wide_route_act_kernel_matches_plain_path(name, hidden, layers, dev):
+    """K2 on the ego window at widths whose weights do not fit one block's
+    shared memory (hidden 256; a third 128-wide layer): the wide route."""
+    cfg = PRESETS[name]
+    m = make_model(cfg, hidden_dim=hidden, num_layers=layers,
+                   generator=torch.Generator().manual_seed(0), device=dev)
+    wide = act_steps.wide_launches
+    replay_check(cfg, m, act_steps, dev, True, False)
+    assert act_steps.wide_launches == wide + 1
+
+
+@pytest.mark.parametrize("mask_on,shaped", [(False, False), (True, True)])
+@pytest.mark.parametrize("name,hidden", [("small", 16), ("medium", 128)])
+def test_global_obs_cnn_act_kernel_matches_plain_path(name, hidden, mask_on,
+                                                      shaped, dev):
+    """K10 with the global view: the grid is the whole map (S = 5 / 9), 5
+    channels padded to 8 in shared memory, fewer envs per block."""
+    from warehouse_tpu_torch.kernels.act import act_cnn_steps
+
+    cfg = GLOBAL[name]
+    m = make_model(cfg, "cnn", hidden_dim=hidden,
+                   generator=torch.Generator().manual_seed(0), device=dev)
+    replay_check(cfg, m, act_cnn_steps, dev, mask_on, shaped)
+
+
+def test_global_obs_cnn_refuses_what_it_cannot_hold(dev):
+    """The 11 x 11 map's rows do not fit a block (8 rows of 27.7 KB beside
+    the conv kernels): the trainer refuses it by name when it is built, and
+    an (agents, queue) shape outside the presets too."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.train import make_train
+
+    tcfg = TrainConfig(num_envs=64, num_updates=2)
+    with pytest.raises(ValueError, match="shared memory"):
+        make_train(GLOBAL["shelves"], tcfg, arch="cnn", device=dev)
+    with pytest.raises(ValueError, match="queue_capacity"):
+        make_train(medium_config(num_agents=3, queue_capacity=6,
+                                 init_requests=3), tcfg, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        make_train(medium_config(), tcfg.replace(hidden_dim=1024),
+                   device=dev)
+
+
+@pytest.mark.parametrize("name,glob,hidden", [("medium", True, 128),
+                                              ("shelves", True, 128),
+                                              ("medium", False, 256),
+                                              ("medium", True, 16)])
+def test_wide_sgd_phase_kernel_matches_twin(name, glob, hidden, dev):
+    """K3 (and K4 inside it) at wide shapes: D = 411 and 611 at hidden 128
+    (the first layer over several chunks of the observation, which the
+    chunked launch count shows), the ego window at hidden 256, and D = 411
+    at hidden 16, against autograd + optim.py at K3's tolerances with
+    masking on, and bit-equal to itself on a rerun."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.kernels.sgd import (
+        ppo_minibatch_grads, ppo_minibatch_grads_reference, ppo_sgd_phase,
+        ppo_sgd_phase_reference)
+    from warehouse_tpu_torch.optim import make_optimizer
+
+    cfg = (GLOBAL if glob else PRESETS)[name]
+    params, opt, traj, adv_n, targets = sgd_batch(cfg, hidden, dev)
+    rows = make_optimizer(TrainConfig(num_updates=4)).step_rows(
+        opt.count, SGD_E * SGD_M, dev)
+    args = (params, opt, traj, adv_n, targets, *rows, 0.01, 0.05)
+    kw = dict(num_epochs=SGD_E, num_minibatches=SGD_M, max_grad_norm=0.5,
+              mask_actions=True, **SGD_KW)
+    chunked = ppo_sgd_phase.chunked_launches
+    p_k, o_k, l_k = ppo_sgd_phase(*args, **kw)
+    assert ppo_sgd_phase.chunked_launches == chunked + glob * SGD_E * SGD_M
+    p_r, o_r, l_r = ppo_sgd_phase_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(l_k, l_r):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-6)
+    assert_close_tree(p_k, p_r, 1e-5, 1e-6, "params")
+    assert_close_tree(o_k.mu, o_r.mu, 1e-5, 1e-7, "mu")
+    assert_close_tree(o_k.nu, o_r.nu, 1e-5, 1e-10, "nu")
+    p_2, o_2, l_2 = ppo_sgd_phase(*args, **kw)
+    for k in p_k:
+        assert torch.equal(p_k[k], p_2[k]) and torch.equal(o_k.nu[k],
+                                                           o_2.nu[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(l_k, l_2))
+    gkw = dict(num_minibatches=SGD_M, mask_actions=True, **SGD_KW)
+    (l_k, aux_k), g_k = ppo_minibatch_grads(params, traj, adv_n, targets, 1,
+                                            0.01, 0.05, **gkw)
+    (l_r, aux_r), g_r = ppo_minibatch_grads_reference(
+        params, traj, adv_n, targets, 1, 0.01, 0.05, **gkw)
+    for a, b in zip((l_k, *aux_k), (l_r, *aux_r)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert_close_tree(g_k, g_r, 1e-4, 1e-7, "grads")
+
+
+@pytest.mark.parametrize("use_rms", [True, False])
+def test_wide_impala_phase_kernel_matches_twin(use_rms, dev):
+    """K5 (and K6 inside it) at hidden 256, on the tile kernels it shares
+    with K3, masked with the truncation bootstrap, at K5's tolerances."""
+    from warehouse_tpu_torch.kernels.vtrace_sgd import (
+        impala_sgd_phase, impala_sgd_phase_reference)
+    from warehouse_tpu_torch.optim import (AdamState, ClipAdam, ClipRMSProp,
+                                           RMSState, linear_schedule)
+
+    params, traj, last_obs, g = vtrace_batch(medium_config(), 256, dev)
+    nu = {k: (1e-6 * torch.rand(v.shape, generator=g)).to(dev)
+          for k, v in params.items()}
+    if use_rms:
+        opt, optimizer = RMSState(3, nu), ClipRMSProp
+    else:
+        mu = {k: (1e-3 * torch.randn(v.shape, generator=g)).to(dev)
+              for k, v in params.items()}
+        opt, optimizer = AdamState(3, mu, nu), ClipAdam
+    rows = optimizer(linear_schedule(3e-4, 0.0, 100), 0.5).step_rows(
+        opt.count, VT_P * VT_M, dev)
+    args = (params, opt, traj, last_obs, rows, 0.01)
+    kw = dict(num_passes=VT_P, num_minibatches=VT_M, max_grad_norm=0.5,
+              mask_actions=True, bootstrap_truncated=True, **VT_KW)
+    p_k, o_k, l_k = impala_sgd_phase(*args, **kw)
+    p_r, o_r, l_r = impala_sgd_phase_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(l_k, l_r):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-6)
+    assert_close_tree(p_k, p_r, 1e-5, 1e-6, "params")
+    assert_close_tree(o_k.nu, o_r.nu, 1e-5, 1e-10, "nu")
+    p_2, _, l_2 = impala_sgd_phase(*args, **kw)
+    assert all(torch.equal(p_k[k], p_2[k]) for k in p_k)
+    assert all(torch.equal(a, b) for a, b in zip(l_k, l_2))
+
+
+@pytest.mark.parametrize("name,hidden", [("small", 32), ("medium", 128)])
+def test_global_obs_cnn_sgd_kernels_match_twin(name, hidden, dev):
+    """K11 and K12 on the global view (S = 5 / 9, conv 0 of 5 channels, a
+    tile of 32 / 8 samples), masked, at the ego tests' tolerances; K11
+    bit-equal to itself on a rerun; the conv-0 gradient has the true [16,
+    5, 3, 3] shape."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.kernels.sgd_cnn import (
+        ppo_cnn_minibatch_grads, ppo_cnn_minibatch_grads_reference,
+        ppo_cnn_sgd_phase, ppo_cnn_sgd_phase_reference)
+    from warehouse_tpu_torch.optim import make_optimizer
+
+    cfg = GLOBAL[name]
+    params, opt, traj, adv_n, targets = sgd_batch(cfg, hidden, dev, arch="cnn")
+    assert params["conv.0.weight"].shape == (16, 5, 3, 3)
+    rows = make_optimizer(TrainConfig(num_updates=4)).step_rows(
+        opt.count, SGD_E * SGD_M, dev)
+    args = (params, opt, traj, adv_n, targets, *rows, 0.01, 0.05)
+    kw = dict(num_epochs=SGD_E, num_minibatches=SGD_M, max_grad_norm=0.5,
+              mask_actions=True, **SGD_KW)
+    small = ppo_cnn_sgd_phase.small_tile_launches
+    p_k, o_k, l_k = ppo_cnn_sgd_phase(*args, **kw)
+    # The 9 x 9 map's rows leave room for 8 samples a tile, not 32.
+    assert (ppo_cnn_sgd_phase.small_tile_launches
+            == small + (name == "medium") * SGD_E * SGD_M)
+    p_r, o_r, l_r = ppo_cnn_sgd_phase_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(l_k, l_r):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-6)
+    assert_close_tree(p_k, p_r, 1e-5, 1e-6, "params")
+    assert_close_tree(o_k.mu, o_r.mu, 1e-5, 1e-7, "mu")
+    assert_close_tree(o_k.nu, o_r.nu, 1e-5, 1e-10, "nu")
+    p_2, o_2, l_2 = ppo_cnn_sgd_phase(*args, **kw)
+    for k in p_k:
+        assert torch.equal(p_k[k], p_2[k]) and torch.equal(o_k.nu[k],
+                                                           o_2.nu[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(l_k, l_2))
+    gkw = dict(num_minibatches=SGD_M, mask_actions=True, **SGD_KW)
+    for mb in range(SGD_M):
+        (l_k, aux_k), g_k = ppo_cnn_minibatch_grads(
+            params, traj, adv_n, targets, mb, 0.01, 0.05, **gkw)
+        (l_r, aux_r), g_r = ppo_cnn_minibatch_grads_reference(
+            params, traj, adv_n, targets, mb, 0.01, 0.05, **gkw)
+        torch.cuda.synchronize()
+        for a, b in zip((l_k, *aux_k), (l_r, *aux_r)):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+        assert g_k["conv.0.weight"].shape == (16, 5, 3, 3)
+        assert_close_tree(g_k, g_r, 1e-4, 1e-6, f"grads mb={mb}")

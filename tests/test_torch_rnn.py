@@ -231,7 +231,8 @@ def test_rnn_rollout_gates():
     ts, _ = batch.reset_batch(cfg, env_keys(1, n=4)[1])
     carry = m.initial_carry((4, cfg.num_agents))
     key = rng.prng_key(0)
-    with pytest.raises(NotImplementedError):
+    # Like the JAX function, it has no shaping parameter at all.
+    with pytest.raises(TypeError, match="shaping_coef"):
         ppo_rnn_rollout(cfg, m, ts, carry, T, key, shaping_coef=0.1)
     with pytest.raises(NotImplementedError):
         ppo_rnn_rollout(cfg.replace(global_obs=True), m, ts, carry, T, key)

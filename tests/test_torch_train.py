@@ -186,7 +186,7 @@ def test_train_many_runs_and_learns_something():
     (dict(epoch_shuffle="each"), NotImplementedError),
     (dict(micro_batches=2), NotImplementedError),
     (dict(flat_optimizer=True), NotImplementedError),
-    (dict(global_obs=True), NotImplementedError),
+    (dict(global_obs=True), None),  # ported: the trainer is built
     (dict(rollout_backend="xla"), ValueError),
     (dict(grad_backend="xla"), ValueError),
     (dict(num_envs=15), ValueError),
@@ -197,6 +197,10 @@ def test_gates_raise(change, error):
     kw = {k: change.pop(k) for k in ("arch", "policy_groups", "mesh")
           if k in change}
     cfg = CFG.replace(global_obs=change.pop("global_obs", False))
+    if error is None:
+        tr = make_train(cfg, BASE.replace(**change), device="cpu", **kw)
+        assert tr.model.hidden[0].in_features == cfg.obs_dim == 131
+        return
     with pytest.raises(error):
         make_train(cfg, BASE.replace(**change), device="cpu", **kw)
 

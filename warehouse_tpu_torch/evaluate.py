@@ -120,6 +120,34 @@ def params_policy_fn(cfg, params: dict, arch: str, mask_actions: bool = False,
     return policy_fn, None
 
 
+def _read_meta(checkpoint_dir: str) -> dict:
+    """The directory's ``policy_meta.json``, or ``{}`` without one."""
+    from .serve import META_NAME
+
+    meta_path = os.path.join(checkpoint_dir, META_NAME)
+    if not os.path.exists(meta_path):
+        return {}
+    with open(meta_path) as f:
+        return json.load(f)
+
+
+def _meta_view(meta: dict):
+    """Whether the meta's env had global observations; None if unsaid."""
+    view = meta.get("env_config", {}).get("global_obs")
+    return None if view is None else bool(view)
+
+
+def checkpoint_env_config(cfg, checkpoint_dir: str):
+    """``cfg`` with the observation view (``global_obs``) of the env the
+    checkpoint under ``checkpoint_dir`` was trained on, from its
+    ``policy_meta.json``: the view decides the model's input width, so it
+    belongs to the policy like the mask does."""
+    view = _meta_view(_read_meta(checkpoint_dir))
+    if view is None or view == cfg.global_obs:
+        return cfg
+    return cfg.replace(global_obs=view)
+
+
 def checkpoint_policy_fn(cfg, checkpoint_dir: str, arch=None, hidden_dim=None,
                          mask_actions: bool = False, sample: bool = False,
                          device=None):
@@ -128,17 +156,20 @@ def checkpoint_policy_fn(cfg, checkpoint_dir: str, arch=None, hidden_dim=None,
     to the directory's ``policy_meta.json`` (then "mlp", 128, off): a
     mask-trained checkpoint turns the mask on, since evaluating it
     unmasked scores near zero. The checkpoint's params must fit the model
-    those settings build."""
+    those settings build; a ``cfg`` whose observation view is not the
+    meta's raises ``ValueError`` (``checkpoint_env_config`` gives the
+    fitting one)."""
     from .models import make_model
-    from .serve import META_NAME
     from .train.checkpoint import restore_params
 
     device = resolve_device(device)
-    meta = {}
-    meta_path = os.path.join(checkpoint_dir, META_NAME)
-    if os.path.exists(meta_path):
-        with open(meta_path) as f:
-            meta = json.load(f)
+    meta = _read_meta(checkpoint_dir)
+    view = _meta_view(meta)
+    if view is not None and view != cfg.global_obs:
+        raise ValueError(
+            f"the checkpoint under {checkpoint_dir} was trained "
+            f"{'with' if view else 'without'} --global-obs (its "
+            f"policy_meta.json), the env has global_obs={cfg.global_obs}")
     arch = arch or meta.get("arch", "mlp")
     hidden_dim = hidden_dim or meta.get("hidden_dim", 128)
     mask_actions = bool(mask_actions or meta.get("mask_actions"))
@@ -180,6 +211,12 @@ def main(argv=None) -> None:
     device = device_from_args(args)
     init_carry = None
     if args.policy == "checkpoint":
+        # The observation view is the checkpoint's, whatever the flag says.
+        flag = cfg.global_obs
+        cfg = checkpoint_env_config(cfg, args.checkpoint_dir)
+        if cfg.global_obs != flag:
+            print(f"global_obs={cfg.global_obs}: the checkpoint's "
+                  "policy_meta.json")
         policy_fn, init_carry, _ = checkpoint_policy_fn(
             cfg, args.checkpoint_dir, args.arch, args.hidden_dim,
             args.mask_actions, args.sample, device)

@@ -29,10 +29,19 @@ done_t) - phi_pre)`` in exactly that float32 operation order, with
 ``done_t`` the chunk's truncation flags. The unshaped reward is returned
 in ``ActRollout.raw_reward``.
 
-Global observations inside the kernel and policy groups are not ported
-yet; ``ppo_rollout`` raises ``NotImplementedError`` for them, and for the
-attention torso. The recurrent policies act through
-``kernels.act_rnn.ppo_rnn_rollout``.
+With ``cfg.global_obs`` the kernels build the global view themselves
+(``pallas/act.py`` ``_obs_rows_global`` :193-242): the whole ``H x W`` grid
+with 5 channels per cell (self, other agents, pending pickups, own target,
+traversable), then the 6 self features, ``D = 5 H W + 6``. The MLP kernel
+then reads its weights from device memory and runs the first layer over
+chunks of the observation (the wide route of ``csrc/act.cu``, taken by any
+shape whose weights and rows outgrow one block's shared memory; the shapes
+alone decide); the CNN's grid becomes the whole map and its block holds
+fewer envs. ``check_act_fits`` raises for a shape no route holds.
+
+Policy groups are not ported yet; ``ppo_rollout`` raises
+``NotImplementedError`` for them, and for the attention torso. The
+recurrent policies act through ``kernels.act_rnn.ppo_rnn_rollout``.
 
 ``pack_cnn`` / ``unpack_cnn`` give the CNN kernels' flat parameter vector
 (K10-K12; the layout of ``csrc/cnn_net.cuh``): each conv kernel as ``[9
@@ -160,21 +169,8 @@ def act_steps(cfg: EnvConfig, model, state: EnvState, u, pick, drop, g,
     if isinstance(model, ActorCriticCNN):
         return act_cnn_steps(cfg, model, state, u, pick, drop, g, logits,
                              mask, shaping)
-    check_kernel_shape(cfg)
-    A, D = cfg.num_agents, cfg.obs_dim
-    B, T = state.agent_pos.shape[0], u.shape[0]
-    weights, dims = packed_weights(model, dev)
-    if dims[0] != D or model.logits.out_features != cfg.num_actions:
-        raise ValueError(f"model widths {dims} do not fit obs_dim {D}")
+    weights, dims, wide = _mlp_fits(cfg, model, dev)
     lib = build.library()
-    smem = lib.wh_act_smem_bytes(A, cfg.queue_capacity, D, len(dims) - 1,
-                                 build.int_array(dims), weights.numel())
-    limit = getattr(torch.cuda.get_device_properties(dev),
-                    "shared_memory_per_block_optin", smem)
-    if not 0 < smem <= limit:
-        raise ValueError(
-            f"act kernel needs {smem} bytes of shared memory per block for "
-            f"layer widths {dims}; the card allows {limit}")
     io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask, shaping)
     err = lib.wh_act_rollout(
         *io.env_args(cfg), len(dims) - 1, build.int_array(dims),
@@ -183,11 +179,71 @@ def act_steps(cfg: EnvConfig, model, state: EnvState, u, pick, drop, g,
     build.check(err, "ppo_rollout kernel launch")
     act_steps.launches += 1
     act_steps.shaped_launches += shaping is not None
+    act_steps.global_launches += cfg.global_obs
+    act_steps.wide_launches += wide
     return io.results(state)
 
 
 act_steps.launches = 0
 act_steps.shaped_launches = 0  # the launches that had the shaping option on
+act_steps.global_launches = 0  # those that built the global view
+act_steps.wide_launches = 0    # those on the wide route (``wh_act_wide``)
+
+
+def _mlp_fits(cfg: EnvConfig, model: ActorCriticMLP, dev):
+    """K2's ``(weights, dims, wide)`` for ``model`` on ``cfg``, ``wide``
+    whether the shape takes the kernel's wide route; raises ``ValueError``
+    for a shape the kernel cannot take."""
+    check_kernel_shape(cfg)
+    weights, dims = packed_weights(model, dev)
+    if dims[0] != cfg.obs_dim or (
+            model.logits.out_features != cfg.num_actions):
+        raise ValueError(f"model widths {dims} do not fit obs_dim "
+                         f"{cfg.obs_dim}")
+    shape = (cfg.num_agents, cfg.queue_capacity, cfg.obs_dim, len(dims) - 1,
+             build.int_array(dims), weights.numel())
+    smem = build.library().wh_act_smem_bytes(*shape)
+    limit = build.smem_limit(dev, smem)
+    if not 0 < smem <= limit:
+        raise ValueError(
+            f"act kernel needs {smem} bytes of shared memory per block for "
+            f"layer widths {dims} (a block's rows of the widest hidden "
+            f"layer, twice; up to 4 hidden layers); the card allows {limit}")
+    return weights, dims, build.library().wh_act_wide(*shape) == 1
+
+
+def _cnn_fits(cfg: EnvConfig, model: ActorCriticCNN, dev):
+    """K10's ``(S, C0, C1, C2, H)`` for ``model`` on ``cfg``; raises
+    ``ValueError`` for a shape the kernel cannot take."""
+    check_kernel_shape(cfg)
+    net = cnn_kernel_dims(dict(model.named_parameters()), cfg.obs_dim)
+    side = cfg.height if cfg.global_obs else cfg.window_size
+    if net[0] != side or net[1] != cfg.num_obs_channels:
+        raise ValueError(
+            f"the model's {net[0]}x{net[0]} grid of {net[1]} channels is not "
+            f"the env's {side}x{side} observation grid of "
+            f"{cfg.num_obs_channels}")
+    smem = build.library().wh_act_cnn_smem_bytes(
+        cfg.num_agents, cfg.queue_capacity, *net)
+    limit = build.smem_limit(dev, smem)
+    if not 0 < smem <= limit:
+        raise ValueError(
+            f"CNN act kernel needs {smem} bytes of shared memory per block "
+            f"for (S, channels, hidden) = {net} with {cfg.num_agents} agents "
+            f"(whole envs making a multiple of 8 rows); the card allows "
+            f"{limit}")
+    return net
+
+
+def check_act_fits(cfg: EnvConfig, model, dev) -> None:
+    """Raise ``ValueError`` unless the acting kernel (K2 for an MLP, K10
+    for a CNN) takes ``cfg`` and ``model`` on the CUDA device ``dev``: the
+    env's (agents, queue) shape, the model's widths and the shared memory
+    they need. A trainer calls it when it is built."""
+    if isinstance(model, ActorCriticCNN):
+        _cnn_fits(cfg, model, dev)
+    else:
+        _mlp_fits(cfg, model, dev)
 
 
 class _KernelIO:
@@ -236,11 +292,15 @@ class _KernelIO:
         self.walls = wall_mask(cfg, dev)
 
     def env_args(self, cfg) -> tuple:
-        """The leading scalar arguments of both C entry points."""
+        """The leading scalar arguments of both C entry points; the
+        grid's side is the ego window's or, with global observations, the
+        (square, for the CNN) map's."""
+        side = cfg.height if cfg.global_obs else cfg.window_size
         return (cfg.num_agents, cfg.queue_capacity, self.B, self.T,
-                cfg.height, cfg.width, f32(cfg.spawn_prob), cfg.window_size,
-                cfg.obs_radius, cfg.obs_dim, inv_side(cfg.height),
-                inv_side(cfg.width), f32(cfg.step_penalty),
+                cfg.height, cfg.width, f32(cfg.spawn_prob), side,
+                cfg.obs_radius, cfg.obs_dim, int(cfg.global_obs),
+                inv_side(cfg.height), inv_side(cfg.width),
+                f32(cfg.step_penalty),
                 f32(cfg.pickup_reward), f32(cfg.delivery_reward),
                 f32(cfg.collision_penalty))
 
@@ -329,20 +389,9 @@ def act_cnn_steps(cfg: EnvConfig, model: ActorCriticCNN, state: EnvState, u,
                                    logits, mask, shaping)
     if dev.type != "cuda":
         raise ValueError(f"act_cnn_steps: unsupported device {dev}")
-    check_kernel_shape(cfg)
+    net = _cnn_fits(cfg, model, dev)
     params = dict(model.named_parameters())
-    net = cnn_kernel_dims(params, cfg.obs_dim)
-    if net[0] != cfg.window_size:
-        raise ValueError(f"the model's {net[0]}x{net[0]} grid is not the "
-                         f"env's {cfg.window_size}-wide ego window")
     lib = build.library()
-    smem = lib.wh_act_cnn_smem_bytes(cfg.num_agents, cfg.queue_capacity, *net)
-    limit = getattr(torch.cuda.get_device_properties(dev),
-                    "shared_memory_per_block_optin", smem)
-    if not 0 < smem <= limit:
-        raise ValueError(
-            f"CNN act kernel needs {smem} bytes of shared memory per block "
-            f"for (S, channels, hidden) = {net}; the card allows {limit}")
     weights = pack_cnn(params).to(dev)
     if weights.numel() != lib.wh_cnn_param_floats(*net):
         raise ValueError("packed params do not fit the kernel's layout")
@@ -355,11 +404,13 @@ def act_cnn_steps(cfg: EnvConfig, model: ActorCriticCNN, state: EnvState, u,
     build.check(err, "ppo_rollout (cnn) kernel launch")
     act_cnn_steps.launches += 1
     act_cnn_steps.shaped_launches += shaping is not None
+    act_cnn_steps.global_launches += cfg.global_obs
     return io.results(state)
 
 
 act_cnn_steps.launches = 0
 act_cnn_steps.shaped_launches = 0
+act_cnn_steps.global_launches = 0
 
 
 def _check_options(cfg, model, policy_groups, arch):
@@ -369,7 +420,6 @@ def _check_options(cfg, model, policy_groups, arch):
         raise ValueError(f"ppo_rollout: arch={arch!r} acts through "
                          "kernels.act_rnn.ppo_rnn_rollout")
     for name, unsupported, item in (
-            ("global_obs", cfg.global_obs, "T-2"),
             ("policy_groups", policy_groups is not None, "T-3"),
             (f"arch={arch!r}", arch not in ("mlp", "cnn"), "M-7")):
         if unsupported:
@@ -435,7 +485,8 @@ def ppo_rollout(cfg: EnvConfig, model, state: EnvState, T: int,
     (``mask_actions``, ``shaping_coef``, ``gamma``, ``policy_groups``,
     ``arch``) take the JAX wrapper's names; ``mask_actions``,
     ``shaping_coef`` with its ``gamma`` and ``arch`` "mlp" / "cnn" are
-    ported, ``policy_groups`` only at its default."""
+    ported, ``policy_groups`` only at its default. ``cfg.global_obs``
+    picks the global view."""
     return _rollout(act_steps, cfg, model, state, T, key, **options)
 
 

@@ -14,8 +14,9 @@ CUDA kernel (``csrc/act_rnn.cu``) runs; on a CPU tensor the plain twin
 does.
 
 The carry is ``h float32[B, A, H]`` for the GRU, the tuple ``(c, h)`` of two
-such tensors for the LSTM. ``mask_actions`` works as in K2; reward shaping
-and global observations are not ported (``NotImplementedError``).
+such tensors for the LSTM. ``mask_actions`` works as in K2; like the JAX
+function, it has no reward shaping and raises on global observations
+(``NotImplementedError``: the trainer's option, ROADMAP M-4).
 
 ``pack_rnn`` / ``unpack_rnn`` lay a recurrent policy's params dict out as
 the flat vector the recurrent kernels read (``csrc/rnn_cell.cuh``): the
@@ -164,8 +165,7 @@ def act_rnn_steps(cfg: EnvConfig, params: dict, state: EnvState, carry, u,
     lib = build.library()
     smem = lib.wh_act_rnn_smem_bytes(A, cfg.queue_capacity, len(dims) - 1,
                                      dims_arr, H, int(lstm))
-    limit = getattr(torch.cuda.get_device_properties(dev),
-                    "shared_memory_per_block_optin", smem)
+    limit = build.smem_limit(dev, smem)
     if not 0 < smem <= limit:
         raise ValueError(
             f"recurrent act kernel needs {smem} bytes of shared memory per "
@@ -236,16 +236,13 @@ def _params_of(model_or_params) -> dict:
 
 
 def _rollout(steps, cfg: EnvConfig, params, state: EnvState, carry, T: int,
-             key: torch.Tensor, mask_actions: bool = False,
-             shaping_coef: float = 0.0):
+             key: torch.Tensor, mask_actions: bool = False):
     if cfg.auto_reset:
         raise ValueError("ppo_rnn_rollout: auto_reset is handled by the "
                          "caller")
-    for name, unsupported in (("shaping_coef", shaping_coef > 0.0),
-                              ("global_obs", cfg.global_obs)):
-        if unsupported:  # the TPU kernel has neither: the trainer's option
-            raise NotImplementedError(
-                f"ppo_rnn_rollout: {name} is not ported yet (ROADMAP M-4)")
+    if cfg.global_obs:  # the TPU kernel has none: the trainer's option
+        raise NotImplementedError(
+            "ppo_rnn_rollout: global_obs is not ported yet (ROADMAP M-4)")
     params = _params_of(params)
 
     def run_steps(u, pick, drop, g, mask, shaping):
@@ -261,7 +258,7 @@ def ppo_rnn_rollout(cfg: EnvConfig, params, state: EnvState, carry, T: int,
     """T acting steps of the recurrent policy (an ``ActorCriticRNN`` or its
     params dict), through the kernel on a CUDA state: ``(EnvState,
     ActRollout, reset_key_last, next_key, new_carry)``. ``options``:
-    ``mask_actions``; ``shaping_coef`` only at 0."""
+    ``mask_actions``."""
     return _rollout(act_rnn_steps, cfg, params, state, carry, T, key,
                     **options)
 

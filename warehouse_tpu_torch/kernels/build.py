@@ -32,9 +32,11 @@ SIGNATURES = {
     "wh_error_string": [I],
     "wh_greedy_rollout": [I, I, L, I, I, I, F, F, F, F, F] + [P] * 21,
     "wh_act_smem_bytes": [I, I, I, I, IP, I],
-    "wh_act_rollout": [I, I, L, I, I, I, F, I, I, I, F, F, F, F, F, F, I, IP,
-                       P, P, I] + [P] * 29 + [F, F, P],
+    "wh_act_wide": [I, I, I, I, IP, I],
+    "wh_act_rollout": [I, I, L, I, I, I, F, I, I, I, I, F, F, F, F, F, F, I,
+                       IP, P, P, I] + [P] * 29 + [F, F, P],
     "wh_sgd_smem_bytes": [I, IP],
+    "wh_sgd_obs_chunks": [I, IP],
     "wh_sgd_workspace_floats": [I, IP, I, L, I, I],
     "wh_sgd_grads": [I, IP, I, L, I, I, I] + [P] * 9 + [F] * 5 + [P] * 4,
     "wh_sgd_clip_adam": [I, IP, I, L, I, I, I] + [P] * 7 + [F] * 6 + [P] * 2,
@@ -56,9 +58,10 @@ SIGNATURES = {
                             + [P] * 2,
     "wh_cnn_param_floats": [I] * 5,
     "wh_act_cnn_smem_bytes": [I] * 7,
-    "wh_act_cnn_rollout": [I, I, L, I, I, I, F, I, I, I, F, F, F, F, F, F, I,
-                           I, I, I] + [P] * 32 + [F, F, P],
+    "wh_act_cnn_rollout": [I, I, L, I, I, I, F, I, I, I, I, F, F, F, F, F, F,
+                           I, I, I, I] + [P] * 32 + [F, F, P],
     "wh_cnn_sgd_smem_bytes": [I] * 5,
+    "wh_cnn_sgd_small_tile": [I] * 5,
     "wh_cnn_sgd_workspace_floats": [I] * 6 + [L, I, I],
     "wh_cnn_sgd_grads": [I] * 6 + [L, I, I, I] + [P] * 9 + [F] * 5 + [P] * 4,
     "wh_cnn_sgd_clip_adam": [I] * 6 + [L, I, I, I] + [P] * 7 + [F] * 6
@@ -153,6 +156,15 @@ def check(err: int, what: str) -> None:
     if err:
         name = library().wh_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({name})")
+
+
+def smem_limit(device, default: int) -> int:
+    """Bytes of shared memory a block may opt in to on ``device``
+    (``default`` where torch does not report it)."""
+    import torch
+
+    return getattr(torch.cuda.get_device_properties(device),
+                   "shared_memory_per_block_optin", default)
 
 
 def int_array(values) -> ctypes.Array:

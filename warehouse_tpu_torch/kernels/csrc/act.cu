@@ -2,10 +2,11 @@
 //
 // Replaces warehouse_tpu/pallas/act.py ppo_rollout_pallas (:1028; body
 // _act_kernel :299 with _obs_rows :138, _sample_logprob :491 and the env
-// tick of rollout.py:57), MLP arm with its action-masking and its
-// potential-shaping option (act_common.cuh tick_env), without global obs or
-// policy groups. Each step, for every env of the
-// CTA: build the ego-window observation of each agent, run the MLP (tanh
+// tick of rollout.py:57), MLP arm with its action-masking, its
+// potential-shaping (act_common.cuh tick_env) and its global-observation
+// option (_obs_rows_global :193; act_common.cuh obs_value), without policy
+// groups. Each step, for every env of the
+// CTA: build the observation of each agent, run the MLP (tanh
 // hidden layers, fused logits + value head), with masking floor the
 // logits of moves off the grid or into a wall to -1e9 (pallas/act.py:
 // 415-428; the mask, ops/move.py valid_action_mask of the pre-tick
@@ -24,6 +25,21 @@
 // rows as shared-memory broadcasts. The bound is those shared-memory
 // loads and FMAs (about 61 kFLOP per row and step at hidden 128 x 2).
 //
+// That staged route holds every weight and two [rows, widest layer] buffers
+// in one CTA's shared memory, which a wide first layer outgrows: the global
+// observation is 5 H W + 6 wide (611 on the 11 x 11 grid: 313 KB of first
+// layer alone), and so does a 256-wide hidden layer. When the staged route
+// does not fit the card's shared memory the wide route runs (same template,
+// WIDE): no weight is staged, every layer reads its W [in, out] from device
+// memory (dense_l2.cuh, shared with the MLP learners), and the first layer
+// runs over chunks of XCH observation features. obs_value is a
+// pure function of the env state and the feature index, so only [rows, XCH]
+// of the observation is ever staged and no observation is too wide; each
+// chunk is written to the obs output as it is made. The partial sums sit in
+// the first hidden buffer between chunks, so the sum runs over the features
+// in their order, as on the staged route. The route is picked from the
+// shapes and the device's limit alone (route_for).
+//
 // Exactness: the observation features (int -> float times the f32
 // reciprocal) and the per-agent rewards use __fmul_rn/__fadd_rn in the
 // order of ops/obs.py:54-59 and engine.py:130-135, so they match the
@@ -32,6 +48,8 @@
 #include <cuda_runtime.h>
 
 #include "act_common.cuh"
+#include "dense_l2.cuh"
+#include "device_limits.cuh"
 #include "env_tick.cuh"
 
 namespace {
@@ -49,11 +67,13 @@ struct ActArgs {
   int T;
   wh::Geometry geo;
   int S, k, D;         // window side, radius, obs dim
+  int gobs;            // the global observation instead of the ego window
   float inv_h, inv_w;  // float32 reciprocals of H and W
   float step_penalty, pickup_reward, delivery_reward, collision_penalty;
   int n_hidden;
   int dims[MAXL + 1];  // dims[0] = D, then the hidden widths
-  int dmax;            // row stride of the activation buffers
+  int dmax;            // row stride of the staged route's buffers
+  int hmax;            // the widest hidden layer: the wide route's stride
   const float* weights;  // per hidden layer W [in, out] then b [out];
   int n_weights;         // then heads W [H, 6] and b [6]
   const int *pos, *areq, *carry, *rpick, *rdrop, *rstat, *ragent;
@@ -96,16 +116,20 @@ __device__ void dense(const float* W, const float* bias, const float* x,
   }
 }
 
-template <int A, int R>
+template <int A, int R, bool WIDE>
 __global__ void __launch_bounds__(NT) act_kernel(ActArgs p) {
   constexpr int NE = envs_per_cta<A>();
   constexpr int ROWS = NE * A;
+  constexpr int G = ROWS / RT;
   using ES = EnvSmem<A, R>;
   extern __shared__ float smem[];
+  // Staged: the weights, then two [ROWS, dmax] buffers. Wide: one chunk of
+  // the observation [ROWS, XCH], then two [ROWS, hmax] buffers.
+  const int stride = WIDE ? p.hmax : p.dmax;
   float* w_s = smem;
-  float* xa = w_s + p.n_weights;
-  float* xb = xa + ROWS * p.dmax;
-  float* head = xb + ROWS * p.dmax;
+  float* xa = smem + (WIDE ? ROWS * XCH : p.n_weights);
+  float* xb = xa + ROWS * stride;
+  float* head = xb + ROWS * stride;
   int* env_s = reinterpret_cast<int*>(head + ROWS * HSTRIDE);
   int* act_s = env_s + NE * ES::SIZE;
 
@@ -114,7 +138,8 @@ __global__ void __launch_bounds__(NT) act_kernel(ActArgs p) {
   const int ne = (int)min((long)NE, p.B - b0);
   const long BA = p.B * A;
 
-  for (int i = tid; i < p.n_weights; i += NT) w_s[i] = p.weights[i];
+  if (!WIDE)
+    for (int i = tid; i < p.n_weights; i += NT) w_s[i] = p.weights[i];
   if (tid < NE) {
     wh::Env<A, R> e = {};  // rows past the batch end compute on zeros
     if (tid < ne)
@@ -126,30 +151,71 @@ __global__ void __launch_bounds__(NT) act_kernel(ActArgs p) {
 
   for (int t = 0; t < p.T; ++t) {
     const long tb = (long)t * p.B + b0;  // first (t, b) of the CTA
-    // 1. Observations of the CTA's rows, row n = (env n / A, agent n % A).
-    for (int idx = tid; idx < ROWS * p.D; idx += NT) {
-      const int n = idx / p.D, f = idx % p.D;
-      const float v = obs_value<A, R>(env_s + (n / A) * ES::SIZE, n % A, f, p);
-      xa[n * p.dmax + f] = v;
-      if (n / A < ne) p.obs[tb * A * p.D + idx] = v;
-    }
-    __syncthreads();
-
-    // 2. MLP: tanh hidden layers, then the fused logits + value head.
     float *x = xa, *y = xb;
-    const float* w = w_s;
-    for (int l = 0; l < p.n_hidden; ++l) {
-      const int in = p.dims[l], out = p.dims[l + 1];
-      dense<ROWS>(w, w + in * out, x, p.dmax, y, p.dmax, in, out, true);
-      w += in * out + out;
+    const float* w = WIDE ? p.weights : w_s;
+    if (WIDE) {
+      // 1 + 2a. The observations of the CTA's rows, row n = (env n / A,
+      // agent n % A), a chunk of features at a time, each chunk through
+      // its rows of the first layer's matrix; the sums build up in xb.
+      float* xc = smem;
+      const int out = p.dims[1];
+      for (int c0 = 0; c0 < p.D; c0 += XCH) {
+        const int cw = min(XCH, p.D - c0);
+        for (int idx = tid; idx < ROWS * cw; idx += NT) {
+          const int n = idx / cw, c = idx % cw;
+          const float v =
+              obs_value<A, R>(env_s + (n / A) * ES::SIZE, n % A, c0 + c, p);
+          xc[n * XCH + c] = v;
+          if (n / A < ne) p.obs[(tb * A + n) * p.D + c0 + c] = v;
+        }
+        __syncthreads();
+        dense_l2<NT, RT, G>(w + (long)c0 * out, w + (long)p.D * out, xc, XCH,
+                            cw, y, stride, out, true, c0 == 0,
+                            c0 + XCH >= p.D, nullptr, 0, 0);
+        __syncthreads();
+      }
+      w += (long)p.D * out + out;
+      x = xb;
+      y = xa;
+      // 2b. The other hidden layers, then the fused logits + value head.
+      for (int l = 1; l < p.n_hidden; ++l) {
+        const int in = p.dims[l], out_l = p.dims[l + 1];
+        dense_l2<NT, RT, G>(w, w + in * out_l, x, stride, in, y, stride,
+                            out_l, true, true, true, nullptr, 0, 0);
+        w += in * out_l + out_l;
+        __syncthreads();
+        float* tmp = x;
+        x = y;
+        y = tmp;
+      }
+      const int hid = p.dims[p.n_hidden];
+      dense_l2<NT, RT, G>(w, w + hid * NHEAD, x, stride, hid, head, HSTRIDE,
+                          NHEAD, false, true, true, nullptr, 0, 0);
+    } else {
+      // 1. Observations of the CTA's rows, row n = (env n / A, agent n % A).
+      for (int idx = tid; idx < ROWS * p.D; idx += NT) {
+        const int n = idx / p.D, f = idx % p.D;
+        const float v =
+            obs_value<A, R>(env_s + (n / A) * ES::SIZE, n % A, f, p);
+        xa[n * p.dmax + f] = v;
+        if (n / A < ne) p.obs[tb * A * p.D + idx] = v;
+      }
       __syncthreads();
-      float* tmp = x;
-      x = y;
-      y = tmp;
+
+      // 2. MLP: tanh hidden layers, then the fused logits + value head.
+      for (int l = 0; l < p.n_hidden; ++l) {
+        const int in = p.dims[l], out = p.dims[l + 1];
+        dense<ROWS>(w, w + in * out, x, p.dmax, y, p.dmax, in, out, true);
+        w += in * out + out;
+        __syncthreads();
+        float* tmp = x;
+        x = y;
+        y = tmp;
+      }
+      const int hid = p.dims[p.n_hidden];
+      dense<ROWS>(w, w + hid * NHEAD, x, p.dmax, head, HSTRIDE, hid, NHEAD,
+                  false);
     }
-    const int hid = p.dims[p.n_hidden];
-    dense<ROWS>(w, w + hid * NHEAD, x, p.dmax, head, HSTRIDE, hid, NHEAD,
-                false);
     __syncthreads();
 
     // 3. With masking, floor the invalid moves' logits; then sample
@@ -174,41 +240,74 @@ __global__ void __launch_bounds__(NT) act_kernel(ActArgs p) {
   }
 }
 
+// Shared memory of one CTA on the staged route (wide false) or the wide one.
 template <int A, int R>
-size_t smem_bytes(const ActArgs& p) {
+size_t smem_bytes(const ActArgs& p, bool wide) {
   constexpr int NE = envs_per_cta<A>();
   constexpr int ROWS = NE * A;
-  return sizeof(float) * ((size_t)p.n_weights + 2 * ROWS * p.dmax +
-                          ROWS * HSTRIDE) +
+  const size_t floats =
+      wide ? (size_t)ROWS * XCH + 2 * (size_t)ROWS * p.hmax
+           : (size_t)p.n_weights + 2 * (size_t)ROWS * p.dmax;
+  return sizeof(float) * (floats + ROWS * HSTRIDE) +
          sizeof(int) * (NE * EnvSmem<A, R>::SIZE + ROWS);
+}
+
+// The route of a shape: staged where that fits the device's shared memory,
+// else wide, which needs a hidden layer to hold the first layer's sums.
+// Returns whether the route's shared memory fits.
+template <int A, int R>
+bool route_for(const ActArgs& p, bool* wide) {
+  const size_t limit = smem_optin_limit();
+  *wide = p.n_hidden >= 1 && smem_bytes<A, R>(p, false) > limit;
+  return smem_bytes<A, R>(p, *wide) <= limit;
 }
 
 template <int A, int R>
 struct SmemBytes {
-  static void run(const ActArgs& p, size_t* out) { *out = smem_bytes<A, R>(p); }
+  static void run(const ActArgs& p, size_t* out) {
+    bool wide = false;
+    route_for<A, R>(p, &wide);
+    *out = smem_bytes<A, R>(p, wide);
+  }
+};
+
+template <int A, int R>
+struct IsWide {
+  static void run(const ActArgs& p, int* out) {
+    bool wide = false;
+    route_for<A, R>(p, &wide);
+    *out = wide;
+  }
 };
 
 template <int A, int R>
 struct LaunchAct {
-  static void run(const ActArgs& p, cudaStream_t stream, int* err) {
+  template <bool WIDE>
+  static int launch(const ActArgs& p, size_t smem, cudaStream_t stream) {
     constexpr int NE = envs_per_cta<A>();
-    const size_t smem = smem_bytes<A, R>(p);
     cudaError_t e = cudaFuncSetAttribute(
-        act_kernel<A, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        act_kernel<A, R, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
-    if (e != cudaSuccess) {
-      *err = (int)e;
+    if (e != cudaSuccess) return (int)e;
+    const unsigned blocks = (unsigned)((p.B + NE - 1) / NE);
+    act_kernel<A, R, WIDE><<<blocks, NT, smem, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
+  static void run(const ActArgs& p, cudaStream_t stream, int* err) {
+    bool wide = false;
+    if (!route_for<A, R>(p, &wide)) {
+      *err = (int)cudaErrorInvalidValue;
       return;
     }
-    const unsigned blocks = (unsigned)((p.B + NE - 1) / NE);
-    act_kernel<A, R><<<blocks, NT, smem, stream>>>(p);
-    *err = (int)cudaGetLastError();
+    const size_t smem = smem_bytes<A, R>(p, wide);
+    *err = wide ? launch<true>(p, smem, stream)
+                : launch<false>(p, smem, stream);
   }
 };
 
 ActArgs make_args(long B, int T, int H, int W, float spawn_prob, int S,
-                  int k, int D, float inv_h, float inv_w, int n_hidden,
-                  const int* dims, int n_weights) {
+                  int k, int D, int gobs, float inv_h, float inv_w,
+                  int n_hidden, const int* dims, int n_weights) {
   ActArgs p = {};
   p.B = B;
   p.T = T;
@@ -218,6 +317,7 @@ ActArgs make_args(long B, int T, int H, int W, float spawn_prob, int S,
   p.S = S;
   p.k = k;
   p.D = D;
+  p.gobs = gobs;
   p.inv_h = inv_h;
   p.inv_w = inv_w;
   p.n_hidden = n_hidden;
@@ -225,6 +325,7 @@ ActArgs make_args(long B, int T, int H, int W, float spawn_prob, int S,
   for (int l = 0; l <= n_hidden && l <= MAXL; ++l) {
     p.dims[l] = dims[l];
     if (dims[l] > p.dmax) p.dmax = dims[l];
+    if (l > 0 && dims[l] > p.hmax) p.hmax = dims[l];
   }
   p.n_weights = n_weights;
   return p;
@@ -232,22 +333,36 @@ ActArgs make_args(long B, int T, int H, int W, float spawn_prob, int S,
 
 }  // namespace
 
-// Shared memory one CTA needs, in bytes, or 0 for an unsupported shape.
+// Shared memory one CTA needs on the route the shape takes, in bytes (more
+// than the device allows when no route holds the shape), or 0 for an
+// unsupported shape.
 extern "C" long wh_act_smem_bytes(int A, int R, int D, int n_hidden,
                                   const int* dims, int n_weights) {
   if (n_hidden < 0 || n_hidden > MAXL) return 0;
-  ActArgs p = make_args(0, 0, 0, 0, 0.f, 0, 0, D, 0.f, 0.f, n_hidden, dims,
-                        n_weights);
+  ActArgs p = make_args(0, 0, 0, 0, 0.f, 0, 0, D, 0, 0.f, 0.f, n_hidden,
+                        dims, n_weights);
   size_t out = 0;
   if (!wh::dispatch_shape<SmemBytes>(A, R, p, &out)) return 0;
   return (long)out;
 }
 
+// Whether the shape takes the wide route (1) or the staged one (0) on the
+// current device; -1 for an unsupported shape.
+extern "C" int wh_act_wide(int A, int R, int D, int n_hidden,
+                           const int* dims, int n_weights) {
+  if (n_hidden < 0 || n_hidden > MAXL) return -1;
+  ActArgs p = make_args(0, 0, 0, 0, 0.f, 0, 0, D, 0, 0.f, 0.f, n_hidden,
+                        dims, n_weights);
+  int out = 0;
+  return wh::dispatch_shape<IsWide>(A, R, p, &out) ? out : -1;
+}
+
 extern "C" int wh_act_rollout(
     int A, int R, long B, int T, int H, int W, float spawn_prob, int S,
-    int k, int D, float inv_h, float inv_w, float step_penalty,
-    float pickup_reward, float delivery_reward, float collision_penalty,
-    int n_hidden, const int* dims, const unsigned char* walls,
+    int k, int D, int global_obs, float inv_h, float inv_w,
+    float step_penalty, float pickup_reward, float delivery_reward,
+    float collision_penalty, int n_hidden, const int* dims,
+    const unsigned char* walls,
     const float* weights, int n_weights, const int* pos, const int* areq,
     const int* carry, const int* rpick, const int* rdrop, const int* rstat,
     const int* ragent, const float* u, const int* pick, const int* drop,
@@ -259,8 +374,8 @@ extern "C" int wh_act_rollout(
     void* stream) {
   if (n_hidden < 0 || n_hidden > MAXL) return (int)cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
-  ActArgs p = make_args(B, T, H, W, spawn_prob, S, k, D, inv_h, inv_w,
-                        n_hidden, dims, n_weights);
+  ActArgs p = make_args(B, T, H, W, spawn_prob, S, k, D, global_obs, inv_h,
+                        inv_w, n_hidden, dims, n_weights);
   p.step_penalty = step_penalty;
   p.pickup_reward = pickup_reward;
   p.delivery_reward = delivery_reward;

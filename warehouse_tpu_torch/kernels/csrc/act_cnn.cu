@@ -4,9 +4,10 @@
 // (:1028 with arch="cnn": extract_cnn_weights :942, the layer loop of
 // _act_kernel :365-389 with n_relu / cnn_split, _obs_rows :138,
 // _sample_logprob :491 and the env tick of rollout.py:57), with its
-// action-masking and its potential-shaping option (act_common.cuh tick_env),
-// without global obs or policy groups. Each
-// step, for every env of the CTA: build the ego-window observation of each
+// action-masking, its potential-shaping (act_common.cuh tick_env) and its
+// global-observation option (act_common.cuh obs_value: the grid is then the
+// whole map, S = the grid's side, 5 channels), without policy groups. Each
+// step, for every env of the CTA: build the observation of each
 // agent, run the two 3x3 SAME convolutions (relu) over its grid, join the
 // self features, run the tanh trunk and the fused logits + value head, with
 // masking floor the logits of invalid moves, sample argmax(logits + gumbel)
@@ -14,7 +15,9 @@
 // tick the env.
 //
 // Layout: a CTA owns NE whole envs (the tick needs all A agents of an env),
-// NE * A <= 32 rows of (env, agent). Its rows' observations, both conv
+// NE * A <= 32 rows of (env, agent), as many as fit its shared memory (8
+// envs of 4 agents on the 5 x 5 window, 2 on the 9 x 9 global view:
+// cnn_act_envs). Its rows' observations, both conv
 // outputs, the trunk's output and the env states stay in shared memory (~186
 // KB at S = 5, hidden 128) beside the two conv kernels (~25 KB); the trunk's
 // kernel does not fit with them (413 KB) and is read from device memory
@@ -36,10 +39,25 @@
 
 namespace {
 
-// Envs per CTA: NE * A rows, a multiple of RRT, at most CROWS.
-template <int A>
-__host__ __device__ constexpr int cnn_envs_per_cta() {
-  return A == 6 ? 4 : CROWS / A;
+// Bytes of one env's state and its agents' sampled actions in shared memory.
+template <int A, int R>
+constexpr size_t env_smem_bytes() {
+  return sizeof(int) * (EnvSmem<A, R>::SIZE + A);
+}
+
+// Envs per CTA: the most whose NE * A rows are a multiple of RRT, at most
+// CROWS, and fit the device's shared memory; 0 when none does.
+template <int A, int R>
+int cnn_act_envs(const CnnNet& net) {
+  const size_t limit = smem_optin_limit();
+  for (int ne = CROWS / A; ne > 0; --ne) {
+    const size_t bytes =
+        sizeof(float) * ((size_t)conv_smem_floats(net) +
+                         (size_t)ne * A * cnn_row_floats(net)) +
+        ne * env_smem_bytes<A, R>();
+    if (ne * A % RRT == 0 && bytes <= limit) return ne;
+  }
+  return 0;
 }
 
 struct ActCnnArgs {
@@ -47,6 +65,8 @@ struct ActCnnArgs {
   int T;
   wh::Geometry geo;
   int S, k, D;         // window side, radius, obs dim
+  int gobs;            // the global observation instead of the ego window
+  int ne;              // envs per CTA
   float inv_h, inv_w;  // float32 reciprocals of H and W
   float step_penalty, pickup_reward, delivery_reward, collision_penalty;
   CnnNet net;
@@ -68,8 +88,7 @@ struct ActCnnArgs {
 
 template <int A, int R>
 __global__ void __launch_bounds__(RNT) act_cnn_kernel(ActCnnArgs p) {
-  constexpr int NE = cnn_envs_per_cta<A>();
-  constexpr int ROWS = NE * A;
+  const int NE = p.ne, ROWS = NE * A;
   using ES = EnvSmem<A, R>;
   extern __shared__ __align__(16) float smem[];
   const CnnNet& net = p.net;
@@ -102,7 +121,7 @@ __global__ void __launch_bounds__(RNT) act_cnn_kernel(ActCnnArgs p) {
     for (int idx = tid; idx < ROWS * p.D; idx += RNT) {
       const int n = idx / p.D, f = idx % p.D;
       const float v = obs_value<A, R>(env_s + (n / A) * ES::SIZE, n % A, f, p);
-      xa[n * net.xs + f] = v;
+      xa[n * net.xs + obs_slot(net, f)] = v;
       if (n / A < ne) p.obs[tb * A * p.D + idx] = v;
     }
     __syncthreads();
@@ -136,26 +155,32 @@ __global__ void __launch_bounds__(RNT) act_cnn_kernel(ActCnnArgs p) {
   }
 }
 
+// Shared memory of a CTA of `ne` envs; of one env when not even one fits
+// (ne = 0), so that the caller's comparison with the limit fails.
 template <int A, int R>
-size_t act_cnn_smem(const CnnNet& net) {
-  constexpr int NE = cnn_envs_per_cta<A>();
+size_t act_cnn_smem(const CnnNet& net, int ne) {
+  if (ne < 1) ne = 1;
   return sizeof(float) * ((size_t)conv_smem_floats(net) +
-                          (size_t)NE * A * cnn_row_floats(net)) +
-         sizeof(int) * (NE * EnvSmem<A, R>::SIZE + NE * A);
+                          (size_t)ne * A * cnn_row_floats(net)) +
+         ne * env_smem_bytes<A, R>();
 }
 
 template <int A, int R>
 struct CnnSmemBytes {
   static void run(const CnnNet& net, size_t* out) {
-    *out = act_cnn_smem<A, R>(net);
+    *out = act_cnn_smem<A, R>(net, cnn_act_envs<A, R>(net));
   }
 };
 
 template <int A, int R>
 struct LaunchActCnn {
-  static void run(const ActCnnArgs& p, cudaStream_t stream, int* err) {
-    constexpr int NE = cnn_envs_per_cta<A>();
-    const size_t smem = act_cnn_smem<A, R>(p.net);
+  static void run(ActCnnArgs& p, cudaStream_t stream, int* err) {
+    const int NE = p.ne = cnn_act_envs<A, R>(p.net);
+    if (NE < 1) {
+      *err = (int)cudaErrorInvalidValue;
+      return;
+    }
+    const size_t smem = act_cnn_smem<A, R>(p.net, NE);
     cudaError_t e = cudaFuncSetAttribute(
         act_cnn_kernel<A, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
@@ -177,7 +202,9 @@ extern "C" long wh_cnn_param_floats(int S, int C0, int C1, int C2, int H) {
   return make_cnn_net(S, C0, C1, C2, H, &net) ? net.n_params : 0;
 }
 
-// Shared memory one CTA needs, in bytes, or 0 for an unsupported shape.
+// Shared memory one CTA needs, in bytes (more than the device allows when
+// not one env's rows fit, or no whole number of envs makes a multiple of 8
+// rows), or 0 for an unsupported shape.
 extern "C" long wh_act_cnn_smem_bytes(int A, int R, int S, int C0, int C1,
                                       int C2, int H) {
   CnnNet net;
@@ -190,9 +217,10 @@ extern "C" long wh_act_cnn_smem_bytes(int A, int R, int S, int C0, int C1,
 // `trunk_t` is scratch of the trunk kernel's size, H * (S * S * C2 + 6).
 extern "C" int wh_act_cnn_rollout(
     int A, int R, long B, int T, int H, int W, float spawn_prob, int S,
-    int k, int D, float inv_h, float inv_w, float step_penalty,
-    float pickup_reward, float delivery_reward, float collision_penalty,
-    int C0, int C1, int C2, int hidden, const unsigned char* walls,
+    int k, int D, int global_obs, float inv_h, float inv_w,
+    float step_penalty, float pickup_reward, float delivery_reward,
+    float collision_penalty, int C0, int C1, int C2, int hidden,
+    const unsigned char* walls,
     const float* params, float* trunk_t, const int* pos, const int* areq,
     const int* carry, const int* rpick, const int* rdrop, const int* rstat,
     const int* ragent, const float* u, const int* pick, const int* drop,
@@ -216,6 +244,7 @@ extern "C" int wh_act_cnn_rollout(
   p.S = S;
   p.k = k;
   p.D = D;
+  p.gobs = global_obs;
   p.inv_h = inv_h;
   p.inv_w = inv_w;
   p.step_penalty = step_penalty;

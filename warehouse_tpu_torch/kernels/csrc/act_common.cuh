@@ -3,7 +3,8 @@
 // Each is templated on the kernel's argument struct P, which provides the
 // fields it reads:
 //
-// - obs_value: geo, S, k, inv_h, inv_w (the ego-window observation);
+// - obs_value: geo, S, k, gobs, inv_h, inv_w (the ego-window observation, or
+//   with gobs the global one);
 // - sample_row: B, geo, gumbel, mask, action, log_prob, value, logits (the
 //   optional logits floor of masked moves, the gumbel-argmax sample with the
 //   first-max tie rule and the stable log-softmax, pallas/act.py
@@ -90,8 +91,43 @@ struct EnvSmem {
   }
 };
 
-// Feature f of agent a's ego-window observation (ops/obs.py): S*S cells
-// x 4 channels, channel-last, then the 6 self features.
+// Feature f < 5 H W of agent a's global observation (ops/obs.py with
+// global_obs; pallas/act.py _obs_rows_global :193-242): cell f / 5 of the
+// whole grid, channel f % 5, channel-last: 0 the agent itself, 1 any other
+// agent, 2 a pending pickup, 3 the agent's own target, 4 traversable (no
+// wall; every cell is on the grid, so no bounds test). `tr`, `tc` is the
+// target's cell.
+template <int A, int R, class P>
+__device__ float global_grid_value(const int* s, int a, int f, bool has,
+                                   int tr, int tc, const P& p) {
+  const int *pr = s, *pc = s + A;
+  const int *qpr = s + 4 * A, *qpc = qpr + R, *qst = qpc + 3 * R;
+  const int cell = f / 5, ch = f % 5;
+  const int wr = cell / p.geo.W, wc = cell % p.geo.W;
+  const bool self = pr[a] == wr && pc[a] == wc;
+  bool v = false;
+  if (ch == 0) {
+    v = self;
+  } else if (ch == 1) {
+#pragma unroll
+    for (int j = 0; j < A; ++j) v |= pr[j] == wr && pc[j] == wc;
+    v = v && !self;
+  } else if (ch == 2) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      v |= qst[r] == wh::PENDING && qpr[r] == wr && qpc[r] == wc;
+  } else if (ch == 3) {
+    v = has && tr == wr && tc == wc;
+  } else {
+    v = !p.geo.walls[cell];
+  }
+  return v ? 1.f : 0.f;
+}
+
+// Feature f of agent a's observation (ops/obs.py): the grid part, channel-
+// last, then the 6 self features. The grid is the S x S ego window with 4
+// channels or, with p.gobs, the whole H x W grid with 5
+// (global_grid_value). A pure function of the env's shared-memory ints.
 template <int A, int R, class P>
 __device__ float obs_value(const int* s, int a, int f, const P& p) {
   const int *pr = s, *pc = s + A, *aq = s + 2 * A, *cy = s + 3 * A;
@@ -104,8 +140,9 @@ __device__ float obs_value(const int* s, int a, int f, const P& p) {
     tr = cy[a] ? qdr[my] : qpr[my];
     tc = cy[a] ? qdc[my] : qpc[my];
   }
-  const int grid = p.S * p.S * 4;
+  const int grid = p.gobs ? p.geo.H * p.geo.W * 5 : p.S * p.S * 4;
   if (f < grid) {
+    if (p.gobs) return global_grid_value<A, R>(s, a, f, has, tr, tc, p);
     const int w = f >> 2, ch = f & 3;
     const int wr = pr[a] + w / p.S - p.k, wc = pc[a] + w % p.S - p.k;
     bool v = false;

@@ -45,6 +45,7 @@ struct ActRnnArgs {
   int T;
   wh::Geometry geo;
   int S, k, D;         // window side, radius, obs dim
+  int gobs;            // always 0: the recurrent kernel has no global view
   float inv_h, inv_w;  // float32 reciprocals of H and W
   float step_penalty, pickup_reward, delivery_reward, collision_penalty;
   RnnNet net;

@@ -26,21 +26,33 @@
 // one SM's shared memory: it stays in device memory (L2-resident, every CTA
 // reads the same matrix) and the forward reads a transposed copy [in, out]
 // with rnn_cell.cuh's fma_cols, neighbouring threads on neighbouring
-// columns. A tile is CROWS = 32 rows whose activations (obs, both conv
-// outputs, trunk, head: ~186 KB) stay in shared memory.
+// columns. A tile's rows keep their activations (obs, both conv outputs,
+// trunk, head) in shared memory: CROWS = 32 rows on the 5 x 5 ego window
+// (~186 KB), fewer where a row is larger (act_cnn.cu cnn_act_envs,
+// sgd_cnn.cu sgd_tile_rows): 8 on the 9 x 9 global view, whose row is 18.8
+// KB.
+//
+// The global observation has 5 channels per cell. The conv loops read 4
+// input channels per load, so in shared memory only, the observation's grid
+// and conv 0's kernel rows are padded to C0p = 8 channels, the pad zero in
+// both: it adds exact zeros to the sums. The packed vector, the obs rows in
+// device memory and the gradients keep the true 5 (obs_slot maps a feature
+// to its padded place; sgd_cnn.cu drops the pad channels' gradients).
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "device_limits.cuh"
 #include "rnn_cell.cuh"
 
 namespace {
 
-constexpr int CROWS = 32;  // rows per tile
+constexpr int CROWS = 32;  // rows per tile at most
 constexpr int NSELF = 6;   // self features after the grid
 
 struct CnnNet {
   int S, P2, C0, C1, C2, H, D;
+  int C0p;            // C0 rounded up to a multiple of 4: shared memory's
   int trunk_in;       // P2 C2 + 6
   int xs, a0s, a1s;   // shared-memory row strides: obs, conv 0 out, trunk in
   int ws0, ws1;       // shared-memory row strides of the conv kernels
@@ -49,26 +61,28 @@ struct CnnNet {
 };
 
 inline bool make_cnn_net(int S, int C0, int C1, int C2, int H, CnnNet* net) {
-  if (S < 1 || C0 < 4 || C1 < 4 || C2 < 4 || H < 4 || C0 % 4 || C1 % 4 ||
-      C2 % 4 || H % 4)
+  if (S < 1 || C0 < 1 || C1 < 4 || C2 < 4 || H < 4 || C1 % 4 || C2 % 4 ||
+      H % 4)
     return false;
+  const int C0p = round4(C0);
   // One thread per 4 x 4 block of each conv kernel's gradient and per bias.
-  if (9 * (C1 / 4) * (C0 / 4) + 9 * (C2 / 4) * (C1 / 4) + C1 + C2 > RNT)
+  if (9 * (C1 / 4) * (C0p / 4) + 9 * (C2 / 4) * (C1 / 4) + C1 + C2 > RNT)
     return false;
   net->S = S;
   net->P2 = S * S;
   net->C0 = C0;
+  net->C0p = C0p;
   net->C1 = C1;
   net->C2 = C2;
   net->H = H;
   net->D = net->P2 * C0 + NSELF;
   net->trunk_in = net->P2 * C2 + NSELF;
-  net->xs = round4(net->D);
+  net->xs = round4(net->P2 * C0p + NSELF);
   net->a0s = net->P2 * C1;
   net->a1s = round4(net->trunk_in);
   // A row of 16 or 32 floats would put every fourth lane's float4 in the
   // same banks; 4 floats of padding spread a quarter-warp over all 32.
-  net->ws0 = C0 % 16 ? C0 : C0 + 4;
+  net->ws0 = C0p % 16 ? C0p : C0p + 4;
   net->ws1 = C1 % 16 ? C1 : C1 + 4;
   long off = 0;
   net->w0 = off, off += 9L * C1 * C0;
@@ -94,6 +108,15 @@ __host__ __device__ inline int cnn_row_floats(const CnnNet& net) {
   return net.xs + net.a0s + net.a1s + net.H + ROST;
 }
 
+// Where feature f of an observation row [P2 C0 + 6] lies in its shared-
+// memory row: the grid's cells at C0p channels, then the self features.
+__device__ __forceinline__ int obs_slot(const CnnNet& net, int f) {
+  if (net.C0 == net.C0p) return f;
+  const int grid = net.P2 * net.C0;
+  return f < grid ? f / net.C0 * net.C0p + f % net.C0
+                  : net.P2 * net.C0p + f - grid;
+}
+
 struct ConvW {  // the staged conv kernels
   const float *w0, *b0, *w1, *b1;
 };
@@ -105,8 +128,10 @@ __device__ inline ConvW stage_conv(const CnnNet& net, const float* p,
   float* b0 = w0 + 9 * net.C1 * net.ws0;
   float* w1 = b0 + net.C1;
   float* b1 = w1 + 9 * net.C2 * net.ws1;
-  for (int i = threadIdx.x; i < 9 * net.C1 * net.C0; i += RNT)
-    w0[i / net.C0 * net.ws0 + i % net.C0] = p[net.w0 + i];
+  for (int i = threadIdx.x; i < 9 * net.C1 * net.C0p; i += RNT) {
+    const int row = i / net.C0p, ic = i % net.C0p;  // the pad channels: 0
+    w0[row * net.ws0 + ic] = ic < net.C0 ? p[net.w0 + row * net.C0 + ic] : 0.f;
+  }
   for (int i = threadIdx.x; i < net.C1; i += RNT) b0[i] = p[net.b0 + i];
   for (int i = threadIdx.x; i < 9 * net.C2 * net.C1; i += RNT)
     w1[i / net.C1 * net.ws1 + i % net.C1] = p[net.w1 + i];
@@ -157,14 +182,14 @@ __device__ inline void conv_relu(const float* W, int ws, const float* b,
 __device__ inline void conv_forward(const CnnNet& net, const ConvW& cw,
                                     const float* x, float* a0, float* a1,
                                     int rows) {
-  conv_relu(cw.w0, net.ws0, cw.b0, x, net.xs, net.C0, a0, net.a0s, net.C1,
+  conv_relu(cw.w0, net.ws0, cw.b0, x, net.xs, net.C0p, a0, net.a0s, net.C1,
             net.S, rows);
   __syncthreads();
   conv_relu(cw.w1, net.ws1, cw.b1, a0, net.a0s, net.C1, a1, net.a1s, net.C2,
             net.S, rows);
   for (int idx = threadIdx.x; idx < rows * NSELF; idx += RNT) {
     const int n = idx / NSELF, f = idx % NSELF;
-    a1[n * net.a1s + net.P2 * net.C2 + f] = x[n * net.xs + net.P2 * net.C0 + f];
+    a1[n * net.a1s + net.P2 * net.C2 + f] = x[n * net.xs + net.P2 * net.C0p + f];
   }
   __syncthreads();
 }

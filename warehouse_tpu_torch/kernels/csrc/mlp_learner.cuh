@@ -5,10 +5,20 @@
 //
 // - The packed parameter layout: per dense layer W [out, in] then b [out]
 //   (torch's layout), the head as the 6 x H stack of 5 logits and the
-//   value. Staged in opted-in shared memory with an odd row stride, so the
-//   forward (a thread per output row of W) and the backward (a thread per
-//   input column) both read it without bank conflicts.
-// - fwd_layer / bwd_layer: one dense layer over a tile of R sample rows in
+//   value. No weight is staged in shared memory: the forward reads a
+//   transposed copy Wt [in, out] (mlp_transpose_kernel, rebuilt before each
+//   gradient since Adam rewrites the params) with dense_l2.cuh's layer, the
+//   backward the packed W [out, in] itself, both from device memory
+//   (L2-resident), neighbouring threads on neighbouring addresses. The
+//   first layer runs over chunks of XCH input columns, its sums kept in the
+//   first hidden buffer between chunks, so only [R, XCH] of the input rows
+//   is staged and no observation is too wide; it needs no input gradient and
+//   wgrad_kernel reads the observations from device memory. A tile's rows
+//   take ~100 KB at hidden 128 x 2, so two CTAs share an SM. Staging every
+//   weight in shared memory instead leaves room for one CTA per SM and is
+//   slower (config 4's PPO phase on an H100: 29.1 ms against 23.4), and no
+//   611-wide observation or 256-wide layer fits beside 64 full input rows.
+// - fwd_tile / bwd_tile: the dense layers over a tile of R sample rows in
 //   shared memory, a thread owning one column for RT rows.
 // - loss_row: the clipped-PPO loss chain of one sample and its derivative
 //   with respect to the head outputs, shared by the PPO learner (sgd.cu)
@@ -25,6 +35,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "dense_l2.cuh"
 
 namespace {
 
@@ -48,24 +60,28 @@ constexpr float NEG_INF = -1e9f;
 struct Layer {
   int in, out;
   long w_off, b_off;  // packed vector: W [out, in] then b [out]
-  int ws;             // shared-memory row stride of W (odd)
-  int s_off;          // shared-memory offset of W; the bias follows
 };
 
 struct Net {
   int n_hidden, D;
   Layer L[MAXL + 1];  // the hidden layers, then the head
   long n_params;
-  int smem_w;         // floats of the staged weights
   int act_floats;     // floats of the per-tile row buffers
 };
 
+size_t smem_bytes(const Net& net) {
+  return sizeof(float) * (size_t)net.act_floats;
+}
+
+// The layout of an MLP of these widths. A tile's row buffers: one input
+// chunk [R, XCH], every hidden layer's rows, the head rows [R, OST], R x 4
+// metric terms and the tile's R row pointers (2 floats each).
 bool make_net(int n_hidden, const int* dims, Net* net) {
   if (n_hidden < 1 || n_hidden > MAXL) return false;
   net->n_hidden = n_hidden;
   net->D = dims[0];
   long off = 0;
-  int soff = 0, act = R * (dims[0] + OST + 4);
+  int act = R * (XCH + OST + 4 + 2);
   for (int l = 0; l <= n_hidden; ++l) {
     Layer& y = net->L[l];
     y.in = dims[l];
@@ -74,19 +90,11 @@ bool make_net(int n_hidden, const int* dims, Net* net) {
     y.w_off = off;
     y.b_off = off + (long)y.out * y.in;
     off = y.b_off + y.out;
-    y.ws = y.in | 1;
-    y.s_off = soff;
-    soff += y.out * y.ws + y.out;
     if (l < n_hidden) act += R * y.out;
   }
   net->n_params = off;
-  net->smem_w = soff;
   net->act_floats = act;
   return true;
-}
-
-size_t smem_bytes(const Net& net) {
-  return sizeof(float) * ((size_t)net.smem_w + net.act_floats);
 }
 
 // The samples of one minibatch: env columns [m B/M, (m+1) B/M) of a
@@ -142,6 +150,7 @@ struct Scratch {
   float* part;       // [S, n_params] gradient partials
   float* sq;         // [n_params / RED] sums of squares
   float* met;        // [n_tiles, 4] metric sums per tile
+  float* wt;         // [n_params] every W as [in, out]
   int S;
   long n_tiles, n_sq;
 };
@@ -171,99 +180,94 @@ long carve(const Net& net, long N, long extra, float* base, Scratch* sc) {
   sc->sq = take(sc->n_sq);
   sc->n_tiles = (N + R - 1) / R;
   sc->met = take(sc->n_tiles * 4);
+  sc->wt = take(net.n_params);
   return off;
 }
 
 // ---- tile kernels' pieces ----------------------------------------------------
 
-// The packed params into shared memory, each W row at its odd stride.
-__device__ void stage_weights(const Net& net, const float* params,
-                              float* smem) {
-  for (int l = 0; l <= net.n_hidden; ++l) {
-    const Layer& y = net.L[l];
-    for (int k = threadIdx.x; k < y.out * y.in; k += NT)
-      smem[y.s_off + (k / y.in) * y.ws + k % y.in] = params[y.w_off + k];
-    for (int k = threadIdx.x; k < y.out; k += NT)
-      smem[y.s_off + y.out * y.ws + k] = params[y.b_off + k];
-  }
-}
-
-// The per-tile row buffers after the staged weights: the input rows xs
-// [R, D], each hidden layer's rows hs[l] [R, H_l], the head rows outs
-// [R, OST], then R x 4 floats of metric terms.
+// The per-tile row buffers: one chunk xs [R, XCH] of the input rows, each
+// hidden layer's rows hs[l] [R, H_l], the head rows outs [R, OST], R x 4
+// floats of metric terms, then `rows`: the address of each of the tile's
+// input rows in device memory (null past the last sample).
 struct TileBufs {
   float* xs;
   float* hs[MAXL];
   float* outs;
   float* met;
+  const float** rows;
 };
 
 __device__ TileBufs tile_bufs(const Net& net, float* smem) {
   TileBufs b;
-  b.xs = smem + net.smem_w;
-  float* next = b.xs + R * net.D;
+  b.xs = smem;
+  float* next = b.xs + R * XCH;
   for (int l = 0; l < net.n_hidden; ++l) {
     b.hs[l] = next;
     next += R * net.L[l].out;
   }
   b.outs = next;
   b.met = b.outs + R * OST;
+  b.rows = reinterpret_cast<const float**>(b.met + R * 4);
   return b;
 }
 
-// y[n][o] = act(x[n] . W[o] + b[o]) for the tile's R rows; rows < nvalid
-// also go to g[(n0 + n) * out + o].
-__device__ void fwd_layer(const float* W, int ws, const float* bias,
-                          const float* x, int in, float* y, int ys, int out,
-                          bool use_tanh, float* g, long n0, int nvalid) {
-  for (int item = threadIdx.x; item < out * G; item += NT) {
-    const int o = item % out, grp = item / out;
-    const float* xg = x + grp * RT * in;
-    const float* w = W + o * ws;
-    float acc[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) acc[r] = 0.f;
-    for (int i = 0; i < in; ++i) {
-      const float wi = w[i];
-#pragma unroll
-      for (int r = 0; r < RT; ++r) acc[r] = fmaf(xg[r * in + i], wi, acc[r]);
+// The tile's forward from its row pointers b.rows: the first layer over
+// chunks of XCH input columns staged in b.xs, then the other hidden layers
+// (activations of rows < nvalid to sc.act) and the head into b.outs, every
+// matrix from the transposed copy `wt`.
+__device__ void fwd_tile(const Net& net, const float* params, const float* wt,
+                         const TileBufs& b, const Scratch& sc, long n0,
+                         int nvalid) {
+  const Layer& y0 = net.L[0];
+  for (int c0 = 0; c0 < net.D; c0 += XCH) {
+    const int cw = net.D - c0 < XCH ? net.D - c0 : XCH;
+    for (int k = threadIdx.x; k < R * cw; k += NT) {
+      const int n = k / cw, c = k % cw;
+      const float* row = b.rows[n];
+      b.xs[n * XCH + c] = row ? row[c0 + c] : 0.f;
     }
-    const float bo = bias[o];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      const int n = grp * RT + r;
-      const float z = acc[r] + bo;
-      const float v = use_tanh ? tanhf(z) : z;
-      y[n * ys + o] = v;
-      if (g && n < nvalid) g[(n0 + n) * out + o] = v;
-    }
+    __syncthreads();
+    dense_l2<NT, RT, G>(wt + y0.w_off + (long)c0 * y0.out, params + y0.b_off,
+                        b.xs, XCH, cw, b.hs[0], y0.out, y0.out, true, c0 == 0,
+                        c0 + XCH >= net.D, sc.act[0], n0, nvalid);
+    __syncthreads();
+  }
+  for (int l = 1; l <= net.n_hidden; ++l) {
+    const Layer& y = net.L[l];
+    const bool head = l == net.n_hidden;
+    dense_l2<NT, RT, G>(wt + y.w_off, params + y.b_off, b.hs[l - 1], y.in,
+                        y.in, head ? b.outs : b.hs[l], head ? OST : y.out,
+                        y.out, !head, true, true,
+                        head ? nullptr : sc.act[l], n0, nvalid);
+    __syncthreads();
   }
 }
 
-// The tile's forward through the hidden layers (activations of rows <
-// nvalid to sc.act) and the head into b.outs.
-__device__ void fwd_tile(const Net& net, const float* smem,
-                         const TileBufs& b, const Scratch& sc, long n0,
-                         int nvalid) {
-  const float* x = b.xs;
-  for (int l = 0; l < net.n_hidden; ++l) {
+// wt = every W [out, in] of the packed vector as [in, out], at its offset.
+__global__ void mlp_transpose_kernel(Net net, const float* p, float* wt) {
+  const long stride = (long)gridDim.x * blockDim.x;
+  const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int l = 0; l <= net.n_hidden; ++l) {
     const Layer& y = net.L[l];
-    fwd_layer(smem + y.s_off, y.ws, smem + y.s_off + y.out * y.ws, x, y.in,
-              b.hs[l], y.out, y.out, true, sc.act[l], n0, nvalid);
-    __syncthreads();
-    x = b.hs[l];
+    for (long k = tid; k < (long)y.out * y.in; k += stride)
+      wt[y.w_off + (k % y.in) * y.out + k / y.in] = p[y.w_off + k];
   }
-  const Layer& hd = net.L[net.n_hidden];
-  fwd_layer(smem + hd.s_off, hd.ws, smem + hd.s_off + hd.out * hd.ws, x,
-            hd.in, b.outs, OST, NHEAD, false, nullptr, n0, nvalid);
-  __syncthreads();
+}
+
+// Before the tile kernels: the transposed copy of the params.
+inline cudaError_t launch_mlp_transpose(const Net& net, const float* params,
+                                        const Scratch& sc,
+                                        cudaStream_t stream) {
+  mlp_transpose_kernel<<<128, 256, 0, stream>>>(net, params, sc.wt);
+  return cudaGetLastError();
 }
 
 // dz[n][i] = (sum_o d[n][o] W[o][i]) * (1 - h[n][i]^2), written over h and,
-// for rows < nvalid, to g[(n0 + n) * in + i].
-__device__ void bwd_layer(const float* W, int ws, const float* d, int ds,
-                          int out, float* h, int in, float* g, long n0,
-                          int nvalid) {
+// for rows < nvalid, to g[(n0 + n) * in + i]. W [out, in] is the packed
+// matrix in device memory, read through the read-only path.
+__device__ void bwd_layer(const float* W, const float* d, int ds, int out,
+                          float* h, int in, float* g, long n0, int nvalid) {
   for (int item = threadIdx.x; item < in * G; item += NT) {
     const int i = item % in, grp = item / in;
     const float* dg = d + grp * RT * ds;
@@ -271,7 +275,7 @@ __device__ void bwd_layer(const float* W, int ws, const float* d, int ds,
 #pragma unroll
     for (int r = 0; r < RT; ++r) acc[r] = 0.f;
     for (int o = 0; o < out; ++o) {
-      const float w = W[o * ws + i];
+      const float w = __ldg(W + (long)o * in + i);
 #pragma unroll
       for (int r = 0; r < RT; ++r) acc[r] = fmaf(dg[r * ds + o], w, acc[r]);
     }
@@ -289,17 +293,17 @@ __device__ void bwd_layer(const float* W, int ws, const float* d, int ds,
 // The head deltas in b.outs back through the head and the hidden layers
 // (over b.hs, which hold the activations); the deltas of rows < nvalid go
 // to sc.dz.
-__device__ void bwd_tile(const Net& net, const float* smem,
+__device__ void bwd_tile(const Net& net, const float* params,
                          const TileBufs& b, const Scratch& sc, long n0,
                          int nvalid) {
   const int L = net.n_hidden;
   const Layer& hd = net.L[L];
-  bwd_layer(smem + hd.s_off, hd.ws, b.outs, OST, NHEAD, b.hs[L - 1], hd.in,
+  bwd_layer(params + hd.w_off, b.outs, OST, NHEAD, b.hs[L - 1], hd.in,
             sc.dz[L - 1], n0, nvalid);
   __syncthreads();
   for (int l = L - 2; l >= 0; --l) {
     const Layer& y = net.L[l + 1];
-    bwd_layer(smem + y.s_off, y.ws, b.hs[l + 1], y.out, y.out, b.hs[l], y.in,
+    bwd_layer(params + y.w_off, b.hs[l + 1], y.out, y.out, b.hs[l], y.in,
               sc.dz[l], n0, nvalid);
     __syncthreads();
   }

@@ -9,9 +9,10 @@
 // launches on the caller's stream, with no host synchronisation between
 // steps, four for the gradient:
 //
-//   (a) fwd_bwd_kernel: sample tiles of R rows. The weights (~122 KB in
-//       f32 at 106 -> 128 -> 128 -> 6) sit in opted-in shared memory for
-//       the CTA's life; the CTA loops over tiles. Per tile: MLP forward,
+//   (a) mlp_transpose_kernel, then fwd_bwd_kernel: sample tiles of R rows
+//       in shared memory, the weights read from device memory (L2), the
+//       first layer over chunks of the observation (mlp_learner.cuh); the
+//       CTA loops over tiles. Per tile: MLP forward,
 //       the clipped-PPO loss chain and its derivative per row, then the
 //       deltas back through the head and the hidden layers. It writes each
 //       hidden layer's activation and delta and the head delta to device
@@ -28,17 +29,17 @@
 // optax clip + Adam step on params and moments in place, with lr and the
 // bias corrections of this step read from device rows. Every sum runs
 // in an order fixed by the shapes alone, so two runs on the same inputs
-// give the same bits. The weights and one CTA's gradient partials do not
+// give the same bits. A tile's rows and one CTA's gradient partials do not
 // fit one SM's shared memory together, hence the split into (a) and (b).
 // (b)-(d), the dense layers of (a), the loss chain (loss_row) and
 // adam_kernel are in mlp_learner.cuh, which the IMPALA learner
 // (vtrace_sgd.cu) and the recurrent PPO learner (sgd_rnn.cu) share.
 //
 // The bound: at config 4 a step is ~6.3 GFLOP in (a) and ~4 GFLOP in (b)
-// on the CUDA cores in f32. (a) is limited by shared-memory loads: a
-// thread owns one output column for RT rows, reading its weight row with
-// conflict-free strided loads (odd row stride in shared memory) and the
-// rows as broadcasts. (b) keeps a 4 x 4 register tile per thread.
+// on the CUDA cores in f32. (a) is limited by its loads: a thread owns one
+// output column for RT rows, reading its weights through L2 (a warp on
+// neighbouring addresses) and the rows as shared-memory broadcasts. (b)
+// keeps a 4 x 4 register tile per thread.
 //
 // Tie rules, as the TPU kernel writes them (_block_grads, sgd.py:170-179):
 // a tie of the surrogate min routes the whole gradient to the unclipped
@@ -69,22 +70,18 @@ __global__ void __launch_bounds__(NT) fwd_bwd_kernel(FwdArgs p) {
   extern __shared__ float smem[];
   const Net& net = p.net;
   const int tid = threadIdx.x;
-  stage_weights(net, p.params, smem);
   const TileBufs b = tile_bufs(net, smem);
   const float ent_coef = p.scal[0], kl_coeff = p.scal[1];
   const Batch& bt = p.bt;
   const int D = net.D;
-  __syncthreads();
 
   for (long tile = blockIdx.x; tile < p.sc.n_tiles; tile += gridDim.x) {
     const long n0 = tile * R;
     const int nvalid = bt.N - n0 < R ? (int)(bt.N - n0) : R;
-    for (int k = tid; k < R * D; k += NT) {
-      const int n = k / D;
-      b.xs[k] = n < nvalid ? bt.obs[bt.row(n0 + n) * D + k % D] : 0.f;
-    }
+    if (tid < R)
+      b.rows[tid] = tid < nvalid ? bt.obs + bt.row(n0 + tid) * D : nullptr;
     __syncthreads();
-    fwd_tile(net, smem, b, p.sc, n0, nvalid);
+    fwd_tile(net, p.params, p.sc.wt, b, p.sc, n0, nvalid);
 
     if (tid < R) {
       float* o = b.outs + tid * OST;
@@ -104,17 +101,36 @@ __global__ void __launch_bounds__(NT) fwd_bwd_kernel(FwdArgs p) {
       for (int n = 0; n < R; ++n) s += b.met[n * 4 + tid];
       p.sc.met[tile * 4 + tid] = s;
     }
-    bwd_tile(net, smem, b, p.sc, n0, nvalid);
+    bwd_tile(net, p.params, b, p.sc, n0, nvalid);
   }
+}
+
+cudaError_t launch_fwd_bwd(const FwdArgs& fa, cudaStream_t stream) {
+  const size_t smem = smem_bytes(fa.net);
+  long grid = 0;
+  cudaError_t e = persistent_grid(fwd_bwd_kernel, smem, fa.sc.n_tiles, &grid);
+  if (e != cudaSuccess) return e;
+  fwd_bwd_kernel<<<(unsigned)grid, NT, smem, stream>>>(fa);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory of one (a) CTA in bytes, or 0 for an unsupported shape.
-// The IMPALA learner's tile kernels (vtrace_sgd.cu) use the same layout.
+// Shared memory of one (a) CTA in bytes (more than the device allows for
+// hidden layers too wide to keep a tile's rows), or 0 for an unsupported
+// shape. The IMPALA learner's tile kernels (vtrace_sgd.cu) use the same
+// layout.
 extern "C" long wh_sgd_smem_bytes(int n_hidden, const int* dims) {
   Net net;
   return make_net(n_hidden, dims, &net) ? (long)smem_bytes(net) : 0;
+}
+
+// The chunks of XCH columns the first layer runs over for these widths
+// (more than 1: an observation wider than one chunk), or -1 for an
+// unsupported shape. K5/K6 take the same.
+extern "C" int wh_sgd_obs_chunks(int n_hidden, const int* dims) {
+  Net net;
+  return make_net(n_hidden, dims, &net) ? (net.D + XCH - 1) / XCH : -1;
 }
 
 // Floats of scratch the two entry points below share, or 0 for an
@@ -156,12 +172,10 @@ extern "C" int wh_sgd_grads(
   fa.params = params;
   fa.scal = scal;
 
-  const size_t smem = smem_bytes(fa.net);
-  long grid = 0;
-  cudaError_t e = persistent_grid(fwd_bwd_kernel, smem, fa.sc.n_tiles, &grid);
+  cudaError_t e = launch_mlp_transpose(fa.net, params, fa.sc, stream);
   if (e != cudaSuccess) return (int)e;
-  fwd_bwd_kernel<<<(unsigned)grid, NT, smem, stream>>>(fa);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  e = launch_fwd_bwd(fa, stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)launch_grads_tail(fa.net, fa.bt, fa.sc, fa.sc.n_tiles, grads,
                                 sums, stream);
 }

@@ -10,7 +10,9 @@
 // stream, six for the gradient (K12, wh_cnn_sgd_grads):
 //
 //   (a) trunk_transpose_kernel: the trunk's kernel as [in, out] (cnn_net.cuh).
-//   (b) cnn_fwd_bwd_kernel: persistent CTAs loop over tiles of 32 samples.
+//   (b) cnn_fwd_bwd_kernel: persistent CTAs loop over tiles of 32 samples,
+//       or of as many as fit its shared memory (sgd_tile_rows: 8 on the
+//       9 x 9 global view).
 //       Per tile: both convolutions, the trunk, the head, the clipped-PPO
 //       loss chain per row (loss_row, shared with the MLP learner), then
 //       backward in place over the tile's shared memory: the trunk's delta,
@@ -41,8 +43,10 @@
 // rebuilds the unrolled matrices; here the convolution and its gradient are
 // computed in the 3x3 basis, so neither step exists. The trunk's kernel
 // (413 KB at hidden 128) does not fit one SM's shared memory and is read
-// through L2; a CTA's shared memory holds the conv kernels and its 32 rows'
-// activations (~212 KB at S = 5, hidden 128). The bound is the FMA loops on
+// through L2; a CTA's shared memory holds the conv kernels and its tile's
+// activations (~212 KB for 32 rows at S = 5, hidden 128). With the global
+// observation's 5 channels the obs grid is padded to 8 in shared memory
+// (cnn_net.cuh); the pad channels' gradient blocks are computed and dropped. The bound is the FMA loops on
 // the CUDA cores: per sample ~0.4 MFLOP forward, ~0.38 backward to the
 // layers' inputs and ~0.4 in the weight gradients.
 //
@@ -70,8 +74,25 @@ struct CnnScratch {
   float* sq;      // [n_sq] sums of squares: the conv blocks, then the dense
   float* met;     // [n_tiles, 4] metric sums per tile
   int S;
+  int rows;       // samples per tile
   long n_tiles, n_sq_conv, n_sq;
 };
+
+// Bytes of a CTA's shared memory with `rows` samples per tile: the conv
+// kernels, then each row's buffers and its 4 metric terms.
+size_t tile_smem(const CnnNet& net, int rows) {
+  return sizeof(float) * ((size_t)conv_smem_floats(net) +
+                          (size_t)rows * (cnn_row_floats(net) + 4));
+}
+
+// Samples per tile: the most of CROWS, in steps of RRT, that fit the
+// device's shared memory; 0 when not even RRT do.
+int sgd_tile_rows(const CnnNet& net) {
+  const size_t limit = smem_optin_limit();
+  int rows = CROWS;
+  while (rows > 0 && tile_smem(net, rows) > limit) rows -= RRT;
+  return rows;
+}
 
 long carve_cnn(const CnnNet& net, long N, float* base, CnnScratch* sc) {
   long off = 0;
@@ -88,7 +109,9 @@ long carve_cnn(const CnnNet& net, long N, float* base, CnnScratch* sc) {
   sc->dout = take(N * OST);
   sc->S = (int)n_splits(N);
   sc->part = take(sc->S * n_dense);
-  sc->n_tiles = (N + CROWS - 1) / CROWS;
+  sc->rows = sgd_tile_rows(net);
+  if (sc->rows < 1) return 0;
+  sc->n_tiles = (N + sc->rows - 1) / sc->rows;
   sc->cpart = take((sc->n_tiles < MAXG ? sc->n_tiles : MAXG) * net.n_conv);
   sc->n_sq_conv = (net.n_conv + RED - 1) / RED;
   sc->n_sq = sc->n_sq_conv + (n_dense + RED - 1) / RED;
@@ -106,9 +129,11 @@ struct CnnArgs {
   const float* scal;  // ent_coef, kl_coeff
 };
 
+// Shared memory of a CTA; of the smallest tile when not even that fits, so
+// that the caller's comparison with the limit fails.
 size_t cnn_sgd_smem(const CnnNet& net) {
-  return sizeof(float) * ((size_t)conv_smem_floats(net) +
-                          (size_t)CROWS * (cnn_row_floats(net) + 4));
+  const int rows = sgd_tile_rows(net);
+  return tile_smem(net, rows ? rows : RRT);
 }
 
 // acc[a][b] += sum over the tile's rows and the valid output positions of
@@ -116,11 +141,11 @@ size_t cnn_sgd_smem(const CnnNet& net) {
 // one tap of a conv kernel's gradient.
 __device__ __forceinline__ void conv_wgrad_block(
     float (&acc)[4][4], const float* d, int ds, int OC, const float* x,
-    int xs, int IC, int S, int k, int oc0, int ic0) {
+    int xs, int IC, int S, int k, int oc0, int ic0, int rows) {
   const int kr = k / 3 - 1, kc = k % 3 - 1;
   const int ro_lo = kr < 0 ? -kr : 0, ro_hi = kr > 0 ? S - kr : S;
   const int co_lo = kc < 0 ? -kc : 0, co_hi = kc > 0 ? S - kc : S;
-  for (int n = 0; n < CROWS; ++n) {
+  for (int n = 0; n < rows; ++n) {
     for (int ro = ro_lo; ro < ro_hi; ++ro) {
       for (int co = co_lo; co < co_hi; ++co) {
         const int po = ro * S + co, pi = (ro + kr) * S + co + kc;
@@ -142,9 +167,9 @@ __device__ __forceinline__ void conv_wgrad_block(
 // The sum over the tile's rows and positions of d[n][po OC + oc]: a conv
 // bias's gradient.
 __device__ __forceinline__ float conv_bgrad(const float* d, int ds, int OC,
-                                            int P2, int oc) {
+                                            int P2, int oc, int rows) {
   float s = 0.f;
-  for (int n = 0; n < CROWS; ++n)
+  for (int n = 0; n < rows; ++n)
     for (int po = 0; po < P2; ++po) s += d[n * ds + po * OC + oc];
   return s;
 }
@@ -156,14 +181,15 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
   const CnnNet& net = p.net;
   const Batch& bt = p.bt;
   const int H = net.H, D = net.D, S = net.S, P2 = net.P2;
-  const int C0 = net.C0, C1 = net.C1, C2 = net.C2;
+  const int C0 = net.C0, C0p = net.C0p, C1 = net.C1, C2 = net.C2;
+  const int rows = p.sc.rows;  // the tile's samples, at most CROWS
   const ConvW cw = stage_conv(net, p.params, smem);
   float* xa = smem + conv_smem_floats(net);
-  float* a0 = xa + CROWS * net.xs;
-  float* a1 = a0 + CROWS * net.a0s;
-  float* hs = a1 + CROWS * net.a1s;
-  float* outs = hs + CROWS * H;
-  float* met = outs + CROWS * ROST;
+  float* a0 = xa + rows * net.xs;
+  float* a1 = a0 + rows * net.a0s;
+  float* hs = a1 + rows * net.a1s;
+  float* outs = hs + rows * H;
+  float* met = outs + rows * ROST;
   const int tid = threadIdx.x;
   const float ent_coef = p.scal[0], kl_coeff = p.scal[1];
   const float* Wt = p.params + net.wt;
@@ -171,7 +197,7 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
 
   // The thread's share of the conv gradients: a 4 x 4 block of conv 1
   // (role 1) or of conv 0 (role 0), a bias of conv 1 (2) or of conv 0 (3).
-  const int per1 = (C2 / 4) * (C1 / 4), per0 = (C1 / 4) * (C0 / 4);
+  const int per1 = (C2 / 4) * (C1 / 4), per0 = (C1 / 4) * (C0p / 4);
   const int n1 = 9 * per1, n0 = 9 * per0;
   int role = -1, wk = 0, woc = 0, wic = 0;
   if (tid < n1) {
@@ -179,39 +205,40 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
     wic = tid % per1 % (C1 / 4) * 4;
   } else if (tid < n1 + n0) {
     const int t = tid - n1;
-    role = 0, wk = t / per0, woc = t % per0 / (C0 / 4) * 4,
-    wic = t % per0 % (C0 / 4) * 4;
+    role = 0, wk = t / per0, woc = t % per0 / (C0p / 4) * 4,
+    wic = t % per0 % (C0p / 4) * 4;
   } else if (tid < n1 + n0 + C2) {
     role = 2, woc = tid - n1 - n0;
   } else if (tid < n1 + n0 + C2 + C1) {
     role = 3, woc = tid - n1 - n0 - C2;
   }
   float wacc[4][4] = {}, bacc = 0.f;
-  for (int idx = tid; idx < CROWS * net.xs; idx += RNT) xa[idx] = 0.f;
+  for (int idx = tid; idx < rows * net.xs; idx += RNT) xa[idx] = 0.f;
   __syncthreads();
 
   for (long tile = blockIdx.x; tile < p.sc.n_tiles; tile += gridDim.x) {
-    const long q0 = tile * CROWS;
-    const int nvalid = bt.N - q0 < CROWS ? (int)(bt.N - q0) : CROWS;
-    for (int idx = tid; idx < CROWS * D; idx += RNT) {
+    const long q0 = tile * rows;
+    const int nvalid = bt.N - q0 < rows ? (int)(bt.N - q0) : rows;
+    for (int idx = tid; idx < rows * D; idx += RNT) {
       const int n = idx / D, f = idx % D;
-      xa[n * net.xs + f] = n < nvalid ? bt.obs[bt.row(q0 + n) * D + f] : 0.f;
+      xa[n * net.xs + obs_slot(net, f)] =
+          n < nvalid ? bt.obs[bt.row(q0 + n) * D + f] : 0.f;
     }
     __syncthreads();
 
     // Forward; the trunk's input and output rows go to device memory.
-    conv_forward(net, cw, xa, a0, a1, CROWS);
+    conv_forward(net, cw, xa, a0, a1, rows);
     for (int idx = tid; idx < nvalid * net.trunk_in; idx += RNT) {
       const int n = idx / net.trunk_in, i = idx % net.trunk_in;
       p.sc.a1[(q0 + n) * net.trunk_in + i] = a1[n * net.a1s + i];
     }
-    trunk_forward(net, p.sc.wt_t, p.params + net.bt, a1, hs, CROWS, p.sc.h, q0,
+    trunk_forward(net, p.sc.wt_t, p.params + net.bt, a1, hs, rows, p.sc.h, q0,
                   nvalid);
     __syncthreads();
-    cnn_head(net, p.params, hs, outs, CROWS);
+    cnn_head(net, p.params, hs, outs, rows);
     __syncthreads();
 
-    if (tid < CROWS) {
+    if (tid < rows) {
       float* o = outs + tid * OST;
       float* m = met + tid * 4;
       if (tid < nvalid) {
@@ -225,12 +252,12 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
     __syncthreads();
     if (tid < 4) {  // fixed-order sum over the tile's rows
       float s = 0.f;
-      for (int n = 0; n < CROWS; ++n) s += met[n * 4 + tid];
+      for (int n = 0; n < rows; ++n) s += met[n * 4 + tid];
       p.sc.met[tile * 4 + tid] = s;
     }
 
     // The trunk's delta, over its output in shared memory.
-    for (int idx = tid; idx < CROWS * H; idx += RNT) {
+    for (int idx = tid; idx < rows * H; idx += RNT) {
       const int n = idx / H, j = idx % H;
       float d = 0.f;
 #pragma unroll
@@ -245,7 +272,7 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
 
     // Conv 1's delta = (trunk delta . Wt) where its output is positive, over
     // that output; the self-feature columns are inputs and get none.
-    for (int item = tid; item < P2 * C2 * (CROWS / RRT); item += RNT) {
+    for (int item = tid; item < P2 * C2 * (rows / RRT); item += RNT) {
       const int i = item % (P2 * C2), r0 = item / (P2 * C2) * RRT;
       float acc[1][RRT];
       zero_acc(acc);
@@ -261,14 +288,14 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
     // Conv 1's kernel and bias gradients from its delta and its input.
     if (role == 1)
       conv_wgrad_block(wacc, a1, net.a1s, C2, a0, net.a0s, C1, S, wk, woc,
-                       wic);
+                       wic, rows);
     else if (role == 2)
-      bacc += conv_bgrad(a1, net.a1s, C2, P2, woc);
+      bacc += conv_bgrad(a1, net.a1s, C2, P2, woc, rows);
     __syncthreads();
 
     // Conv 0's delta = conv 1's transposed convolution of its delta where
     // conv 0's output is positive, over that output.
-    for (int item = tid; item < P2 * C1 * (CROWS / RRT); item += RNT) {
+    for (int item = tid; item < P2 * C1 * (rows / RRT); item += RNT) {
       const int col = item % (P2 * C1), r0 = item / (P2 * C1) * RRT;
       const int pi = col / C1, ic = col % C1, ri = pi / S, ci = pi % S;
       float acc[RRT];
@@ -303,9 +330,10 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
 
     // Conv 0's kernel and bias gradients from its delta and the obs grid.
     if (role == 0)
-      conv_wgrad_block(wacc, a0, net.a0s, C1, xa, net.xs, C0, S, wk, woc, wic);
+      conv_wgrad_block(wacc, a0, net.a0s, C1, xa, net.xs, C0p, S, wk, woc, wic,
+                       rows);
     else if (role == 3)
-      bacc += conv_bgrad(a0, net.a0s, C1, P2, woc);
+      bacc += conv_bgrad(a0, net.a0s, C1, P2, woc, rows);
     __syncthreads();
   }
 
@@ -318,7 +346,8 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b)
-        out[base + ((long)wk * OC + woc + a) * IC + wic + b] = wacc[a][b];
+        if (wic + b < IC)  // conv 0's pad channels have no parameter
+          out[base + ((long)wk * OC + woc + a) * IC + wic + b] = wacc[a][b];
   } else if (role == 2) {
     out[net.b1 + woc] = bacc;
   } else if (role == 3) {
@@ -375,6 +404,14 @@ extern "C" long wh_cnn_sgd_smem_bytes(int S, int C0, int C1, int C2, int H) {
   return make_cnn_net(S, C0, C1, C2, H, &net) ? (long)cnn_sgd_smem(net) : 0;
 }
 
+// Whether a tile holds fewer than the full CROWS samples on the current
+// device (1: a grid larger than the ego window, as the global view's whole
+// map; 0: full tiles); -1 for unsupported widths.
+extern "C" int wh_cnn_sgd_small_tile(int S, int C0, int C1, int C2, int H) {
+  CnnNet net;
+  return make_cnn_net(S, C0, C1, C2, H, &net) ? sgd_tile_rows(net) < CROWS : -1;
+}
+
 // Floats of scratch the two entry points below share, or 0 for an
 // unsupported shape.
 extern "C" long wh_cnn_sgd_workspace_floats(int S, int C0, int C1, int C2,
@@ -406,7 +443,8 @@ extern "C" int wh_cnn_sgd_grads(
   ca.bt.adv = adv;
   ca.bt.target = target;
   ca.bt.mask = mask;
-  carve_cnn(ca.net, ca.bt.N, work, &ca.sc);
+  if (carve_cnn(ca.net, ca.bt.N, work, &ca.sc) == 0)
+    return (int)cudaErrorInvalidValue;  // not one tile fits shared memory
   ca.c = Coefs{clip_eps, clip_lo, clip_hi, value_coef, inv_n};
   ca.params = params;
   ca.scal = scal;
@@ -435,7 +473,8 @@ extern "C" int wh_cnn_sgd_clip_adam(
   CnnArgs ca;
   if (!make_cnn(S, C0, C1, C2, H, T, B, A, M, 0, nullptr, &ca) || step < 0)
     return (int)cudaErrorInvalidValue;
-  carve_cnn(ca.net, ca.bt.N, work, &ca.sc);
+  if (carve_cnn(ca.net, ca.bt.N, work, &ca.sc) == 0)
+    return (int)cudaErrorInvalidValue;
   const AdamArgs p = {ca.net.n_params, ca.sc.n_sq, grads, ca.sc.sq, params, m,
                       v, lr_row, bc1_row, bc2_row, step, max_grad_norm, b1,
                       one_m_b1, b2, one_m_b2, eps};

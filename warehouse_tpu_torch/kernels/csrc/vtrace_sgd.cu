@@ -11,8 +11,10 @@
 //
 //   (a) vt_fwd_kernel: tiles of R rows over the N samples, then the
 //       nb = B/M * A last-obs rows of the minibatch (the bootstrap states
-//       V(s_T)). The weights sit in opted-in shared memory for the CTA's
-//       life. MLP forward; it writes the samples' hidden activations and
+//       V(s_T)), after mlp_transpose_kernel. The weights are read from
+//       device memory (L2), the first layer over chunks of the observation
+//       (mlp_learner.cuh). MLP forward; it writes the samples' hidden
+//       activations and
 //       every row's head outputs (5 logits + value).
 //   (b) vt_trace_kernel: one thread per (env, agent) trace runs the
 //       reverse-T loop of ops/vtrace.py in its op order (rho, the clipped
@@ -37,17 +39,17 @@
 // Why the trace is a kernel of its own, where the TPU's _learner_block
 // runs forward, V-trace and backward in one grid step per env block: a
 // trace needs all T values of an (env, agent) before any of its deltas,
-// so a fused tile would hold all T x A slots of its envs next to the
-// ~125 KB of weights. At A = 6 (shelves) and T = 16 that is 96 rows of
-// activations, over the 227 KB a CTA may hold. Cutting at the trace costs
+// so a fused tile would hold all T x A slots of its envs: at A = 6
+// (shelves) and T = 16 that is 96 rows of activations, half again the
+// tile of (a) and (c). Cutting at the trace costs
 // the activations' round trip through device memory (~67 MB per step at
 // config 4, tens of microseconds against milliseconds of FMAs) and takes
 // any T and A.
 //
 // The bound is that of K4: (a) and (c) together are the FMAs of fwd_bwd in
-// sgd.cu (~6.3 GFLOP per step at config 4, on the CUDA cores in f32,
-// limited by shared-memory loads), (d) ~4 GFLOP; (b) is T dependent steps
-// of ~100 flops and a few transcendentals per trace, ~nb threads.
+// sgd.cu (~6.3 GFLOP per step at config 4, on the CUDA cores in f32),
+// (d) ~4 GFLOP; (b) is T dependent steps of ~100 flops and a few
+// transcendentals per trace, ~nb threads.
 
 #include <cuda_runtime.h>
 
@@ -86,9 +88,7 @@ __global__ void __launch_bounds__(NT) vt_fwd_kernel(VtArgs p) {
   const Net& net = p.net;
   const Traj& tj = p.tj;
   const int D = net.D, tid = threadIdx.x;
-  stage_weights(net, p.params, smem);
   const TileBufs b = tile_bufs(net, smem);
-  __syncthreads();
 
   const long n_rows = tj.N + tj.nb;
   const long n_tiles = (n_rows + R - 1) / R;
@@ -97,17 +97,16 @@ __global__ void __launch_bounds__(NT) vt_fwd_kernel(VtArgs p) {
     const int nrow = n_rows - n0 < R ? (int)(n_rows - n0) : R;
     const long ns = tj.N - n0;  // sample rows of the tile (activations)
     const int nact = ns <= 0 ? 0 : (ns < R ? (int)ns : R);
-    for (int k = tid; k < R * D; k += NT) {
-      const int n = k / D;
-      const long q = n0 + n;
-      float x = 0.f;
-      if (n < nrow)
-        x = q < tj.N ? tj.obs[tj.row(q) * D + k % D]
-                     : tj.last_obs[(tj.mb_off + q - tj.N) * D + k % D];
-      b.xs[k] = x;
+    if (tid < R) {
+      const long q = n0 + tid;
+      const float* row = nullptr;
+      if (tid < nrow)
+        row = q < tj.N ? tj.obs + tj.row(q) * D
+                       : tj.last_obs + (tj.mb_off + q - tj.N) * D;
+      b.rows[tid] = row;
     }
     __syncthreads();
-    fwd_tile(net, smem, b, p.sc, n0, nact);
+    fwd_tile(net, p.params, p.sc.wt, b, p.sc, n0, nact);
     for (int k = tid; k < nrow * NHEAD; k += NT) {
       const int n = k / NHEAD, r = k % NHEAD;
       p.sc.dout[(n0 + n) * OST + r] = b.outs[n * OST + r];
@@ -204,9 +203,7 @@ __global__ void __launch_bounds__(NT) vt_bwd_kernel(VtArgs p) {
   extern __shared__ float smem[];
   const Net& net = p.net;
   const int tid = threadIdx.x;
-  stage_weights(net, p.params, smem);
   const TileBufs b = tile_bufs(net, smem);
-  __syncthreads();
 
   for (long tile = blockIdx.x; tile < p.sc.n_tiles; tile += gridDim.x) {
     const long n0 = tile * R;
@@ -224,8 +221,26 @@ __global__ void __launch_bounds__(NT) vt_bwd_kernel(VtArgs p) {
       }
     }
     __syncthreads();
-    bwd_tile(net, smem, b, p.sc, n0, nvalid);
+    bwd_tile(net, p.params, b, p.sc, n0, nvalid);
   }
+}
+
+// (a), (b) and (c).
+cudaError_t launch_tiles(const VtArgs& va, cudaStream_t stream) {
+  const size_t smem = smem_bytes(va.net);
+  long grid_f = 0, grid_b = 0;
+  const long n_vblocks = (va.tj.nb + VNT - 1) / VNT;
+  cudaError_t e = persistent_grid(vt_fwd_kernel, smem,
+                                  (va.tj.N + va.tj.nb + R - 1) / R, &grid_f);
+  if (e == cudaSuccess)
+    e = persistent_grid(vt_bwd_kernel, smem, va.sc.n_tiles, &grid_b);
+  if (e != cudaSuccess) return e;
+  vt_fwd_kernel<<<(unsigned)grid_f, NT, smem, stream>>>(va);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  vt_trace_kernel<<<(unsigned)n_vblocks, VNT, 0, stream>>>(va);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  vt_bwd_kernel<<<(unsigned)grid_b, NT, smem, stream>>>(va);
+  return cudaGetLastError();
 }
 
 // ---- the RMSProp step ----------------------------------------------------
@@ -313,21 +328,12 @@ extern "C" int wh_vtrace_grads(
   va.params = params;
   va.scal = scal;
 
-  const size_t smem = smem_bytes(va.net);
-  long grid_f = 0, grid_b = 0;
-  const long n_vblocks = (va.tj.nb + VNT - 1) / VNT;
-  cudaError_t e = persistent_grid(vt_fwd_kernel, smem,
-                                  (va.tj.N + va.tj.nb + R - 1) / R, &grid_f);
-  if (e == cudaSuccess)
-    e = persistent_grid(vt_bwd_kernel, smem, va.sc.n_tiles, &grid_b);
+  cudaError_t e = launch_mlp_transpose(va.net, params, va.sc, stream);
   if (e != cudaSuccess) return (int)e;
-  vt_fwd_kernel<<<(unsigned)grid_f, NT, smem, stream>>>(va);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  vt_trace_kernel<<<(unsigned)n_vblocks, VNT, 0, stream>>>(va);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  vt_bwd_kernel<<<(unsigned)grid_b, NT, smem, stream>>>(va);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return (int)launch_grads_tail(va.net, va.tj, va.sc, n_vblocks, grads, sums,
+  e = launch_tiles(va, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_grads_tail(va.net, va.tj, va.sc,
+                                (va.tj.nb + VNT - 1) / VNT, grads, sums,
                                 stream);
 }
 

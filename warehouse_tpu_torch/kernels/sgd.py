@@ -13,6 +13,12 @@ tensor the kernels of ``csrc/sgd.cu`` run, reading the act phase's
 ``obs [T, B, A, D]`` in place; on a CPU tensor the plain twins run:
 autograd through ``ops.ppo_update.ppo_losses`` and ``optim.py``.
 
+The kernels keep a tile of 64 samples' activations in shared memory and
+read every matrix from device memory, the first layer over chunks of 128
+observation features (``csrc/mlp_learner.cuh``), so any observation width
+runs (a global view's 611); ``check_learner_fits`` raises for hidden layers
+too wide for a tile's rows to fit the card's shared memory.
+
 Inputs: ``params`` a dict keyed like ``ActorCriticMLP.state_dict``;
 ``traj`` anything with the trajectory fields ``obs``, ``action``,
 ``log_prob``, ``value`` (``[T, B, A]``) and ``mask`` (``bool[T, B, A,
@@ -165,11 +171,23 @@ def check_tile_smem(lib, n_hidden: int, dims_arr, dims, dev, what: str):
     """Raise unless the tile kernels' shared memory for these widths
     (``wh_sgd_smem_bytes``; K3-K6 share the layout) fits the card."""
     smem = lib.wh_sgd_smem_bytes(n_hidden, dims_arr)
-    limit = getattr(torch.cuda.get_device_properties(dev),
-                    "shared_memory_per_block_optin", smem)
+    limit = build.smem_limit(dev, smem)
     if not 0 < smem <= limit:
-        raise ValueError(f"{what} needs {smem} bytes of shared memory per "
-                         f"block for widths {dims}; the card allows {limit}")
+        raise ValueError(
+            f"{what} needs {smem} bytes of shared memory per block for "
+            f"widths {dims} (64 rows of every hidden layer and of a "
+            f"128-column input chunk; 1 to 4 hidden layers); the card "
+            f"allows {limit}")
+
+
+def check_learner_fits(params, obs_dim: int, dev,
+                       what: str = "SGD kernel") -> None:
+    """Raise ``ValueError`` unless the MLP learner kernels (K3-K6) take
+    these params on observations ``obs_dim`` wide on the CUDA device
+    ``dev``. A trainer calls it when it is built."""
+    dims = _dims(params, obs_dim)
+    check_tile_smem(build.library(), len(dims) - 1, build.int_array(dims),
+                    dims, dev, what)
 
 
 class TrajLaunch:
@@ -219,6 +237,7 @@ class _Launch(TrajLaunch):
         dims = _dims(params, traj.obs.shape[-1])
         self.shape = (len(dims) - 1, build.int_array(dims), *self.tbam)
         check_tile_smem(self.lib, *self.shape[:2], dims, dev, "SGD kernel")
+        self.chunked = self.lib.wh_sgd_obs_chunks(*self.shape[:2]) > 1
         self.work = torch.empty(self.lib.wh_sgd_workspace_floats(*self.shape),
                                 dtype=torch.float32, device=dev)
 
@@ -231,6 +250,7 @@ class _Launch(TrajLaunch):
             grads.data_ptr(), sums.data_ptr(), self.stream)
         build.check(err, "ppo_minibatch_grads kernel launch")
         ppo_minibatch_grads.launches += 1
+        ppo_minibatch_grads.chunked_launches += self.chunked
 
     def clip_adam(self, p_flat, m_flat, v_flat, grads, rows, step: int,
                   max_grad_norm: float) -> None:
@@ -243,6 +263,7 @@ class _Launch(TrajLaunch):
             self.work.data_ptr(), self.stream)
         build.check(err, "ppo_sgd_phase kernel launch")
         ppo_sgd_phase.launches += 1
+        ppo_sgd_phase.chunked_launches += self.chunked
 
 
 def _losses(sums, mb_n, value_coef, ent_coef, kl_coeff):
@@ -326,6 +347,9 @@ def ppo_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
 
 
 ppo_sgd_phase.launches = 0
+# The launches whose first layer ran over more than one chunk of the
+# observation (a global view's width).
+ppo_sgd_phase.chunked_launches = 0
 
 
 def ppo_minibatch_grads(params, traj, adv_n, targets, mb_idx: int, ent_coef,
@@ -348,3 +372,4 @@ def ppo_minibatch_grads(params, traj, adv_n, targets, mb_idx: int, ent_coef,
 
 
 ppo_minibatch_grads.launches = 0
+ppo_minibatch_grads.chunked_launches = 0

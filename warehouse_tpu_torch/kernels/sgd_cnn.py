@@ -15,8 +15,12 @@ through ``models.policy.apply`` (true convolutions for a CNN params dict),
 The kernels compute the convolutions and their gradients in the 3x3 basis
 (``csrc/cnn_net.cuh``), so the TPU kernel's unrolled matrices, their
 rebuild and the gradient fold have no counterpart, nor have its VMEM
-estimate and block knobs. They take two convs on the ego-window grid
-(global observations wait with the acting kernels') and float32.
+estimate and block knobs. They take two convs on the observation's grid,
+the ego window or with global observations the whole (square) map, whose
+5 channels are padded to 8 in shared memory only, and float32. A tile is
+as many samples as fit one block's shared memory (32 on the 5 x 5 window,
+8 on a 9 x 9 map); ``check_cnn_learner_fits`` raises for a grid of which
+not 8 fit (the 11 x 11 map).
 """
 
 from __future__ import annotations
@@ -59,6 +63,23 @@ def ppo_cnn_minibatch_grads_reference(params, traj, adv_n, targets,
                                          mb_idx, ent_coef, kl_coeff, **kw)
 
 
+def check_cnn_learner_fits(params, obs_dim: int, dev) -> tuple:
+    """The kernels' ``(S, C0, C1, C2, H)`` for these params on
+    observations ``obs_dim`` wide; raises ``ValueError`` unless the CNN
+    learner kernels (K11/K12) take them on the CUDA device ``dev``. A
+    trainer calls it when it is built."""
+    _check_cnn(params)
+    net = cnn_kernel_dims(params, obs_dim)
+    smem = build.library().wh_cnn_sgd_smem_bytes(*net)
+    limit = build.smem_limit(dev, smem)
+    if not 0 < smem <= limit:
+        raise ValueError(
+            f"CNN SGD kernels need {smem} bytes of shared memory per block "
+            f"for a tile of 8 samples at (S, channels, hidden) = {net}; the "
+            f"card allows {limit}")
+    return net
+
+
 class _Launch(TrajLaunch):
     """``TrajLaunch`` for the CNN's entry points (``csrc/sgd_cnn.cu``)."""
 
@@ -66,16 +87,11 @@ class _Launch(TrajLaunch):
         _check_cnn(params)
         super().__init__(traj, *args)
         dev = traj.obs.device
-        net = cnn_kernel_dims(params, traj.obs.shape[-1])
-        smem = self.lib.wh_cnn_sgd_smem_bytes(*net)
-        limit = getattr(torch.cuda.get_device_properties(dev),
-                        "shared_memory_per_block_optin", smem)
-        if not 0 < smem <= limit:
-            raise ValueError(
-                f"CNN SGD kernels need {smem} bytes of shared memory per "
-                f"block for (S, channels, hidden) = {net}; the card allows "
-                f"{limit}")
+        net = check_cnn_learner_fits(params, traj.obs.shape[-1], dev)
         self.n_params = self.lib.wh_cnn_param_floats(*net)
+        # A grid larger than the ego window (the whole map of a global
+        # view) leaves room for fewer samples a tile than the full 32.
+        self.small_tile = self.lib.wh_cnn_sgd_small_tile(*net) == 1
         T, B, A, M = self.tbam
         self.shape = (*net, T, B, A, M)
         self.work = torch.empty(
@@ -93,6 +109,7 @@ class _Launch(TrajLaunch):
             grads.data_ptr(), sums.data_ptr(), self.stream)
         build.check(err, "ppo_cnn_minibatch_grads kernel launch")
         ppo_cnn_minibatch_grads.launches += 1
+        ppo_cnn_minibatch_grads.small_tile_launches += self.small_tile
 
     def clip_adam(self, p_flat, m_flat, v_flat, grads, rows, step: int,
                   max_grad_norm: float) -> None:
@@ -105,6 +122,7 @@ class _Launch(TrajLaunch):
             self.work.data_ptr(), self.stream)
         build.check(err, "ppo_cnn_sgd_phase kernel launch")
         ppo_cnn_sgd_phase.launches += 1
+        ppo_cnn_sgd_phase.small_tile_launches += self.small_tile
 
 
 def ppo_cnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
@@ -135,6 +153,9 @@ def ppo_cnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
 
 
 ppo_cnn_sgd_phase.launches = 0
+# The launches whose tiles held fewer samples than the full 32: a grid the
+# size of the map (global observations), not the ego window.
+ppo_cnn_sgd_phase.small_tile_launches = 0
 
 
 def ppo_cnn_minibatch_grads(params, traj, adv_n, targets, mb_idx: int,
@@ -158,3 +179,4 @@ def ppo_cnn_minibatch_grads(params, traj, adv_n, targets, mb_idx: int,
 
 
 ppo_cnn_minibatch_grads.launches = 0
+ppo_cnn_minibatch_grads.small_tile_launches = 0

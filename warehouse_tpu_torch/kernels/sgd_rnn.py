@@ -126,8 +126,7 @@ class _Launch(TrajLaunch):
         net = (len(dims) - 1, dims_arr, H, int(lstm))
         self.shape = (*net, *self.tbam)
         smem = lib.wh_rnn_sgd_smem_bytes(*net)
-        limit = getattr(torch.cuda.get_device_properties(dev),
-                        "shared_memory_per_block_optin", smem)
+        limit = build.smem_limit(dev, smem)
         if not 0 < smem <= limit:
             raise ValueError(
                 f"recurrent SGD kernels need {smem} bytes of shared memory "

@@ -37,7 +37,8 @@ from ..device import resolve_device
 
 from ..env.batch import observe_batch, reset_truncated_batch
 from ..env.state import STATE_FIELDS, EnvState
-from ..kernels.act import ppo_rollout, ppo_rollout_reference
+from ..kernels.act import check_act_fits, ppo_rollout, ppo_rollout_reference
+from ..kernels.sgd import check_learner_fits
 from ..kernels.vtrace_sgd import impala_sgd_phase, impala_sgd_phase_reference
 from ..models.policy import ActorCriticMLP, apply, make_model, params_from_flax
 from ..optim import (AdamState, ClipAdam, ClipRMSProp, RMSState,
@@ -139,6 +140,10 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
     optimizer = make_impala_optimizer(tcfg)
     model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
                        device=device)
+    if device.type == "cuda":  # refuse by name what no kernel route holds
+        check_act_fits(cfg, model, device)
+        check_learner_fits(model.state_dict(), cfg.obs_dim, device,
+                           "IMPALA learner kernel")
 
     def init(key: torch.Tensor) -> ImpalaRunnerState:
         params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key)

@@ -30,7 +30,10 @@ Ported: the MLP and the CNN policy (``arch="cnn"``; its
 entropy anneal, adaptive KL, truncation bootstrap, lr anneal, action
 masking (K2 floors invalid moves, the loss re-applies the mask),
 potential shaping (GAE reads the shaped reward, the ``reward_per_step``
-metric the raw one). The TPU
+metric the raw one), global observations (the acting kernels build the
+global view, the learners read the wider observation; on the card
+``make_train`` raises ``ValueError`` for an env shape or model widths the
+kernels cannot hold, before any launch). The TPU
 block knobs (``pallas_block``, ``pallas_interpret``, ``sgd_block_envs``,
 ``sgd_rows_per_block``) have no counterpart and are ignored; the device
 picks kernel or twin, so ``rollout_backend``/``grad_backend="xla"``
@@ -52,10 +55,11 @@ from .. import rng
 from ..env import engine
 from ..env.batch import observe_batch, reset_truncated_batch
 from ..env.state import STATE_FIELDS, EnvState
-from ..kernels.act import ppo_rollout, ppo_rollout_reference
-from ..kernels.sgd import (normalize_adv_env_minibatch, ppo_sgd_phase,
-                           ppo_sgd_phase_reference)
-from ..kernels.sgd_cnn import ppo_cnn_sgd_phase, ppo_cnn_sgd_phase_reference
+from ..kernels.act import check_act_fits, ppo_rollout, ppo_rollout_reference
+from ..kernels.sgd import (check_learner_fits, normalize_adv_env_minibatch,
+                           ppo_sgd_phase, ppo_sgd_phase_reference)
+from ..kernels.sgd_cnn import (check_cnn_learner_fits, ppo_cnn_sgd_phase,
+                               ppo_cnn_sgd_phase_reference)
 from ..models.policy import apply, make_model, params_from_flax
 from ..ops.gae import gae
 from ..ops.ppo_update import adaptive_kl_coeff, entropy_coef_at
@@ -114,7 +118,6 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh,
     for what, off, item in (
             ("policy_groups", policy_groups is None, "M-3, T-3"),
             ("a mesh", mesh is None, "M-8"),
-            ("global_obs", not env_cfg.global_obs, "T-2"),
             ("model_dtype='bfloat16'", tcfg.model_dtype == "float32", "T-4"),
             ("minibatch_mode='flat'", tcfg.minibatch_mode == "env", "M-4"),
             ("epoch_shuffle='each'", tcfg.epoch_shuffle == "once", "M-4"),
@@ -221,6 +224,10 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
     optimizer = make_optimizer(tcfg)
     model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
                        device=device)
+    if device.type == "cuda":  # refuse by name what no kernel route holds
+        check_act_fits(cfg, model, device)
+        (check_cnn_learner_fits if arch == "cnn" else check_learner_fits)(
+            model.state_dict(), cfg.obs_dim, device)
     sgd_fn, sgd_reference = (
         (ppo_cnn_sgd_phase, ppo_cnn_sgd_phase_reference) if arch == "cnn"
         else (ppo_sgd_phase, ppo_sgd_phase_reference))

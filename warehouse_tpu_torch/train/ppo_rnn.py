@@ -43,6 +43,7 @@ from ..device import resolve_device
 from ..env.batch import reset_truncated_batch
 from ..env.state import STATE_FIELDS, EnvState
 from ..kernels.act_rnn import ppo_rnn_rollout, ppo_rnn_rollout_reference
+from ..kernels.rollout import check_kernel_shape
 from ..kernels.sgd import normalize_adv_env_minibatch
 from ..kernels.sgd_rnn import ppo_rnn_sgd_phase, ppo_rnn_sgd_phase_reference
 from ..models.policy import (apply_rnn, initial_carry, make_model,
@@ -153,6 +154,8 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
     optimizer = make_optimizer(tcfg)
     model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
                        device=device)
+    if device.type == "cuda":  # the env kernels' (agents, queue) shapes
+        check_kernel_shape(cfg)
 
     def init(key: torch.Tensor) -> RunnerStateRNN:
         params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key)
