@@ -134,7 +134,23 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    params, the first update's metrics beside the plain path's;
 23. ``hidden256_train`` (main path): 3 config-4 updates at ``--hidden-dim
    256`` (K2 on its wide route, K3/K4), the first update's metrics beside
-   the plain path's.
+   the plain path's;
+24. ``groups_check``: the policy-groups option of K2 and K3/K4, with the
+   checks of ``k2_check`` / ``k3_check`` / ``k4_check`` against the plain
+   multi-policy model: K2 at config 4 with the interleaved groups ``(0, 1,
+   0, 1)`` and on shelves with ``(0, 0, 0, 1, 1, 1)``, masked and shaped,
+   at B = 2048 (the recipe's shapes), each counted on the group route; K3 /
+   K4 on a trajectory of that recipe;
+25. ``shelves_groups_train`` (main path): the walled recipe with
+   ``--policy-groups 0,0,0,1,1,1`` as the train CLI builds it (2048 envs,
+   T = 16, two MLPs 106 -> 128 -> 128 -> 6, the 300-update schedule of the
+   JAX run ``runs/r5_curves/shelves_groups_fused.jsonl``), the first update
+   held against the plain path's, then its first 100 updates through
+   ``train_step`` (grouped, masked, shaped K2 on its wide route + grouped
+   K3/K4), a learning check on deliveries per env-step over updates 91-100,
+   a checkpoint at 100 whose ``serve.Policy.from_checkpoint`` gives the
+   trained model's argmax actions; the curve goes to
+   ``runs/torch_shelves_groups/metrics.jsonl``.
 
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit. The kernels' launch counts are zeroed just before each
@@ -172,8 +188,10 @@ from warehouse_tpu_torch.evaluate import (checkpoint_policy_fn,
                                           evaluate_policy, policy_fn_for)
 from warehouse_tpu_torch.kernels import (act, act_rnn, build, rollout, sgd,
                                          sgd_cnn, sgd_rnn, vtrace_sgd)
-from warehouse_tpu_torch.models import ActorCriticCNN, make_model
-from warehouse_tpu_torch.models.policy import apply, apply_rnn, cnn_dims
+from warehouse_tpu_torch.models import (ActorCriticCNN, make_model,
+                                        make_multi_policy_model)
+from warehouse_tpu_torch.models.policy import (apply, apply_rnn, cnn_dims,
+                                               group_params, is_multi)
 from warehouse_tpu_torch.ops.gae import gae
 from warehouse_tpu_torch.ops.move import valid_action_mask
 from warehouse_tpu_torch.ops.pathing import potential
@@ -218,6 +236,12 @@ GLOBAL_METRICS_OUT = "runs/torch_shelves_global/metrics.jsonl"
 CNN_GLOBAL_UPDATES = 10  # updates of the cnn_global_train phase
 WIDE_HIDDEN = 256       # a hidden width whose weights are not staged
 WIDE_UPDATES = 3        # updates of the hidden256_train phase
+CONFIG4_GROUPS = (0, 1, 0, 1)  # interleaved groups on config 4's 4 agents
+GROUPS = (0, 0, 0, 1, 1, 1)    # the shelves agents' two policy groups
+GROUPS_B = 2048         # envs of the groups recipe (the JAX record's size)
+GROUPS_UPDATES = 100    # updates of its 300-update schedule that run here
+GROUPS_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 91-100
+GROUPS_METRICS_OUT = "runs/torch_shelves_groups/metrics.jsonl"
 # A kernel update's metrics against the plain path's from the same state
 # (tests/test_torch_train.py's bound on the JAX trainer's metrics).
 STEP_METRIC_TOL = (1e-3, 5e-5)
@@ -362,7 +386,10 @@ def cnn_macs(params) -> tuple[int, int]:
 
 
 def ff_macs(params) -> tuple[int, int]:
-    """``cnn_macs`` or ``mlp_macs``, by the params' keys."""
+    """``cnn_macs`` or ``mlp_macs``, by the params' keys; of one group's
+    sub-model for a multi-policy dict (a sample runs its group's only)."""
+    if is_multi(params):
+        params = group_params(params, 0)
     return (cnn_macs if "conv.0.weight" in params else mlp_macs)(params)
 
 
@@ -427,21 +454,23 @@ def cnn_model(cfg, dev):
                       device=dev)
 
 
-def shaped_start(cfg, model, state, truncating, dev):
+def shaped_start(cfg, model, state, truncating, dev, groups=None):
     """A start state for the shaping checks: ``state`` after one unshaped
     chunk (mid-episode: agents on their way, requests in transit), with
     the step counter moved so that the next chunk ends with the episode
     when ``truncating``."""
     new, _, _, _ = act.ppo_rollout(
         cfg, model, state, SLICE_T, rng.prng_key(SEED + 11, dev),
-        arch="cnn" if isinstance(model, ActorCriticCNN) else "mlp")
+        arch="cnn" if isinstance(model, ActorCriticCNN) else "mlp",
+        policy_groups=groups)
     if truncating:
         new = new.replace(t=torch.full_like(new.t, cfg.max_steps - SLICE_T))
     return new, observe_batch(cfg, new)
 
 
 def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
-             truncating=False, B=CHECK_B, phase=None, wide=False):
+             truncating=False, B=CHECK_B, phase=None, wide=False,
+             groups=None):
     """K2 (or, for a CNN model, K10) against the plain engine replaying
     its actions and the plain model on its observations, then timed beside
     its twin; with ``mask_actions`` also its mask against
@@ -454,13 +483,15 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
     global view to the plain engine's, and the count of global launches
     must move; with ``wide`` (an MLP whose shape K2's staged route cannot
     hold) so must the count of launches on the wide route, else it must
-    not."""
+    not. With ``groups`` the model is a ``MultiPolicyActorCritic`` held to
+    the plain multi-policy model, and the count of grouped launches must
+    move."""
     cnn = isinstance(model, ActorCriticCNN)
     K, steps = ("K10", act.act_cnn_steps) if cnn else ("K2", act.act_steps)
     T, A = SLICE_T, cfg.num_agents
     state, obs0 = reset_envs(cfg, B, SEED + 1, dev)
     if shaped:
-        state, obs0 = shaped_start(cfg, model, state, truncating, dev)
+        state, obs0 = shaped_start(cfg, model, state, truncating, dev, groups)
     _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, T)
     _, g = rng.batched_gumbel_stream(rng.prng_key(SEED + 2, dev), T,
                                      (5, B * A))
@@ -474,18 +505,22 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
         require(bool(done[-1].all()) == truncating and not bool(
             done[:-1].any()), f"{K}: truncation flags of the chunk")
         shaping = act.Shaping(*SHAPING, done, torch.empty(T, B, A, device=dev))
+    gkw = {} if groups is None else {"groups": groups}
+
     def launch_counts():
         return (steps.launches, steps.shaped_launches, steps.global_launches,
-                getattr(steps, "wide_launches", 0))
+                getattr(steps, "wide_launches", 0),
+                getattr(steps, "group_launches", 0))
 
     counts = launch_counts()
     ks, obs, action, lp, value, reward, delivered = steps(
         cfg, model, state, u, pick, drop, g, logits=logits_k, mask=mask,
-        shaping=shaping)
+        shaping=shaping, **gkw)
     torch.cuda.synchronize()
     require(launch_counts()
             == (counts[0] + 1, counts[1] + int(shaped),
-                counts[2] + int(cfg.global_obs), counts[3] + int(wide)),
+                counts[2] + int(cfg.global_obs), counts[3] + int(wide),
+                counts[4] + int(groups is not None)),
             f"{K}: the launch counts did not show the kernel's launch and "
             f"its route: {counts} -> {launch_counts()}")
 
@@ -526,7 +561,8 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
         ps, obs_p, action_p, _, _, reward_p, deliv_p = (
             act.act_steps_reference(cfg, model, state, u, pick, drop, g,
                                     mask=mask_p,
-                                    shaping=shaping._replace(raw_reward=raw_p)))
+                                    shaping=shaping._replace(raw_reward=raw_p),
+                                    **gkw))
         twin_equal = torch.equal(action_p, action)
         if twin_equal:
             require(state_equal(ps, ks) and bits_equal(obs_p, obs)
@@ -541,7 +577,8 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
 
     # Policy head: the plain model on the kernel's observations.
     with torch.no_grad():
-        logits, val = model(obs)
+        logits, val = (model(obs) if groups is None else
+                       model(obs, torch.tensor(groups, device=dev)))
     sampled = torch.where(mask, logits, -1e9) if mask_actions else logits
     lp_plain = torch.log_softmax(sampled, -1).gather(
         -1, action.long()[..., None])[..., 0]
@@ -558,13 +595,15 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
 
     # The kernel alone and its twin on the same inputs, main-path shapes.
     k_ms = timed(lambda: steps(cfg, model, state, u, pick, drop, g,
-                               mask=mask, shaping=shaping), 5)
+                               mask=mask, shaping=shaping, **gkw), 5)
     p_ms = timed(lambda: act.act_steps_reference(
-        cfg, model, state, u, pick, drop, g, mask=mask, shaping=shaping), 3)
+        cfg, model, state, u, pick, drop, g, mask=mask, shaping=shaping,
+        **gkw), 3)
     out = {"phase": phase or ("t1_check" if shaped else f"{K.lower()}_check"),
            "kernel": K, "config": name, "global_obs": cfg.global_obs,
            "obs_dim": cfg.obs_dim, "mask_actions": mask_actions,
-           "wide_route": wide, "B": B, "T": T, "max_abs_err": err, "tol": TOL,
+           "wide_route": wide, "policy_groups": groups,
+           "B": B, "T": T, "max_abs_err": err, "tol": TOL,
            "actions_agree_where_gap_gt_tol": agree,
            "clear_share": float(clear.float().mean()),
            "kernel_ms": k_ms, "plain_ms": p_ms}
@@ -572,7 +611,7 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
         out["masked_share"] = float(1.0 - mask.float().mean())
         # The option's cost: the kernel without it on the same inputs.
         out["unmasked_kernel_ms"] = timed(
-            lambda: steps(cfg, model, state, u, pick, drop, g), 5)
+            lambda: steps(cfg, model, state, u, pick, drop, g, **gkw), 5)
     n_table = 0
     if shaped:
         out.update({"shaping_coef": SHAPING[0], "gamma": SHAPING[1],
@@ -583,12 +622,13 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
                     # The option's cost: the kernel without it.
                     "unshaped_kernel_ms": timed(
                         lambda: steps(cfg, model, state, u, pick, drop, g,
-                                      mask=mask), 5)})
+                                      mask=mask, **gkw), 5)})
         n_table = 4 * cfg.num_cells ** 2  # the int32 table, read once
     emit(out)
     fwd, _ = ff_macs(dict(model.named_parameters()))
     # With shaping: the table, the flags and the raw reward beside K2's
-    # tensors, and 6 float operations per agent and step.
+    # tensors, and 6 float operations per agent and step. With groups every
+    # group's weights are read, and each row runs one group's forward.
     bnd = bound(nbytes(state, ks, u, pick, drop, g, obs, action, lp, value,
                        reward, delivered, mask, shaping and shaping.done,
                        shaping and shaping.raw_reward,
@@ -612,23 +652,28 @@ def tree_err(a, b, rtol, atol):
     return max(e for e, _ in errs), max(r for _, r in errs)
 
 
-def sgd_inputs(dev, cfg, arch="mlp", schedule=TRAIN_SCHEDULE, tcfg=None):
+def sgd_inputs(dev, cfg, arch="mlp", schedule=TRAIN_SCHEDULE, tcfg=None,
+               groups=None):
     """One trajectory for the SGD checks, config 4's or ``tcfg``'s: a K2
     (``arch="cnn"``: K10) chunk from the trainer's reset with the
-    trainer's options, then GAE and the per-minibatch normalization."""
+    trainer's options (and its policy ``groups``), then GAE and the
+    per-minibatch normalization."""
     tcfg = tcfg or TrainConfig(num_updates=schedule)
-    tr = make_train(cfg, tcfg, arch=arch, device=dev)
+    tr = make_train(cfg, tcfg, arch=arch, device=dev, policy_groups=groups)
     rs = tr.init(rng.prng_key(SEED + 5, dev))
     tr.model.load_state_dict(rs.params)
     new, roll, _, _ = act.ppo_rollout(
         cfg, tr.model, rs.env_state, SLICE_T, rng.prng_key(SEED + 6, dev),
         arch=arch, mask_actions=tcfg.mask_actions,
-        shaping_coef=tcfg.shaping_coef, gamma=tcfg.gamma)
+        shaping_coef=tcfg.shaping_coef, gamma=tcfg.gamma,
+        policy_groups=groups)
     done = roll.truncated[:, :, None].expand_as(roll.reward)
     traj = Transition(roll.obs, roll.action, roll.log_prob, roll.value,
                       roll.reward, done, roll.mask,
                       torch.zeros_like(roll.value))
-    _, last_value = apply(rs.params, observe_batch(cfg, new))
+    _, last_value = apply(rs.params, observe_batch(cfg, new),
+                          None if groups is None
+                          else torch.tensor(groups, device=dev))
     adv, targets = gae(roll.reward, roll.value, done, last_value,
                        tcfg.gamma, tcfg.gae_lambda)
     adv_n = sgd.normalize_adv_env_minibatch(adv, tcfg.num_minibatches)
@@ -636,24 +681,31 @@ def sgd_inputs(dev, cfg, arch="mlp", schedule=TRAIN_SCHEDULE, tcfg=None):
     return tcfg, tr, rs, traj, adv_n, targets, ent
 
 
-def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4"):
+def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None):
     """K3 or, with ``cnn``, K11 against its plain twin, a rerun, timed;
-    on config 4's trajectory or one of ``tcfg`` on ``cfg``."""
+    on config 4's trajectory or one of ``tcfg`` on ``cfg``; with
+    ``groups``, K3 on the multi-policy params, its group count moving by a
+    launch per step."""
     K, phase, phase_ref, tol = (
         ("K11", sgd_cnn.ppo_cnn_sgd_phase,
          sgd_cnn.ppo_cnn_sgd_phase_reference, CNN_TOL) if cnn else
         ("K3", sgd.ppo_sgd_phase, sgd.ppo_sgd_phase_reference, SGD_TOL))
     tcfg, tr, rs, traj, adv_n, targets, ent = sgd_inputs(
         dev, cfg, "cnn" if cnn else "mlp",
-        CNN_SCHEDULE if cnn else TRAIN_SCHEDULE, tcfg)
+        CNN_SCHEDULE if cnn else TRAIN_SCHEDULE, tcfg, groups)
     E, M = tcfg.ppo_epochs, tcfg.num_minibatches
     rows = tr.optimizer.step_rows(rs.opt_state.count, E * M, dev)
     args = (rs.params, rs.opt_state, traj, adv_n, targets, *rows, ent,
             rs.kl_coeff)
     kw = dict(num_epochs=E, num_minibatches=M, clip_eps=tcfg.clip_eps,
               value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
-              mask_actions=tcfg.mask_actions)
+              mask_actions=tcfg.mask_actions,
+              **({} if groups is None else {"policy_groups": groups}))
+    grouped = getattr(phase, "group_launches", 0)
     pk, ok, lk = phase(*args, **kw)
+    require(getattr(phase, "group_launches", 0)
+            == grouped + (E * M if groups else 0),
+            f"{K}: the group count did not show the group route")
     pr, orf, lr_ = phase_ref(*args, **kw)
     p2, o2, l2 = phase(*args, **kw)
     torch.cuda.synchronize()
@@ -670,7 +722,7 @@ def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4"):
     p_ms = timed(lambda: phase_ref(*args, **kw), 3)
     emit({"phase": f"{K.lower()}_check", "config": name,
           "obs_dim": cfg.obs_dim, "B": traj.obs.shape[1], "T": SLICE_T,
-          "epochs": E, "minibatches": M,
+          "policy_groups": groups, "epochs": E, "minibatches": M,
           "samples_per_minibatch": traj.obs.shape[0] * traj.obs.shape[1]
           * cfg.num_agents // M,
           "max_abs_err": {k: e for k, (e, _) in err.items()},
@@ -691,8 +743,9 @@ def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4"):
     return err["params"][0], k_ms, p_ms, bnd
 
 
-def k4_check(dev, cfg, cnn=False, tcfg=None, name="config4"):
-    """K4 or, with ``cnn``, K12 against autograd on every minibatch."""
+def k4_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None):
+    """K4 or, with ``cnn``, K12 against autograd on every minibatch (with
+    ``groups``: of the multi-policy loss)."""
     K, grads_fn, grads_ref, tol, loss_key = (
         ("K12", sgd_cnn.ppo_cnn_minibatch_grads,
          sgd_cnn.ppo_cnn_minibatch_grads_reference, CNN_TOL, "mb_losses")
@@ -701,10 +754,11 @@ def k4_check(dev, cfg, cnn=False, tcfg=None, name="config4"):
          SGD_TOL, "losses"))
     tcfg, tr, rs, traj, adv_n, targets, ent = sgd_inputs(
         dev, cfg, "cnn" if cnn else "mlp",
-        CNN_SCHEDULE if cnn else TRAIN_SCHEDULE, tcfg)
+        CNN_SCHEDULE if cnn else TRAIN_SCHEDULE, tcfg, groups)
     M = tcfg.num_minibatches
     kw = dict(num_minibatches=M, clip_eps=tcfg.clip_eps,
-              value_coef=tcfg.value_coef, mask_actions=tcfg.mask_actions)
+              value_coef=tcfg.value_coef, mask_actions=tcfg.mask_actions,
+              **({} if groups is None else {"policy_groups": groups}))
     worst = {"losses": (0.0, 0.0), "grads": (0.0, 0.0)}
     for mb in range(M):
         (lk, auxk), gk = grads_fn(
@@ -720,7 +774,7 @@ def k4_check(dev, cfg, cnn=False, tcfg=None, name="config4"):
     k_ms = timed(lambda: grads_fn(*args, **kw), 5)
     p_ms = timed(lambda: grads_ref(*args, **kw), 3)
     emit({"phase": f"{K.lower()}_check", "config": name,
-          "obs_dim": cfg.obs_dim, "minibatches": M,
+          "obs_dim": cfg.obs_dim, "policy_groups": groups, "minibatches": M,
           "max_abs_err": {k: e for k, (e, _) in worst.items()},
           "tol_ratio": {k: r for k, (_, r) in worst.items()},
           "tol": {"losses": tol[loss_key], "grads": tol["grads"]},
@@ -1517,6 +1571,93 @@ def hidden256_train_phase(dev, cfg):
           "first_update_kernel_vs_plain": first, "tol": STEP_METRIC_TOL})
 
 
+def groups_tcfg():
+    """The walled recipe with policy groups, as the train CLI builds it from
+    ``--policy-groups 0,0,0,1,1,1`` at the JAX record's 2048 envs (2048 x
+    16 env-steps per update in ``runs/r5_curves/shelves_groups_fused.jsonl``,
+    docs/RESULTS.md:260-266)."""
+    return shelves_tcfg().replace(num_envs=GROUPS_B)
+
+
+def groups_model(cfg, groups, dev):
+    """A seeded ``MultiPolicyActorCritic`` of config 4's MLPs."""
+    return make_multi_policy_model(
+        cfg, groups, hidden_dim=HIDDEN[0], num_layers=HIDDEN[1],
+        generator=torch.Generator().manual_seed(SEED), device=dev)
+
+
+def groups_check(dev, cfg, shelves):
+    """K2 with policy groups at config 4 (interleaved) and on the shelves
+    recipe's shapes (masked, shaped, 2048 envs), each on its wide route:
+    two 128-wide groups' weights do not fit one block; K3 / K4 with groups
+    on a trajectory of the recipe. Returns the (K2, K3, K4) results at the
+    recipe's shapes for the kernels line."""
+    k2_check(dev, "medium_groups", cfg, groups_model(cfg, CONFIG4_GROUPS, dev),
+             phase="groups_check", wide=True, groups=CONFIG4_GROUPS)
+    k2 = k2_check(dev, "shelves_groups", shelves,
+                  groups_model(shelves, GROUPS, dev), True, shaped=True,
+                  B=GROUPS_B, phase="groups_check", wide=True, groups=GROUPS)
+    k3 = k3_check(dev, shelves, tcfg=groups_tcfg(), name="shelves_groups",
+                  groups=GROUPS)
+    k4 = k4_check(dev, shelves, tcfg=groups_tcfg(), name="shelves_groups",
+                  groups=GROUPS)
+    return k2, k3, k4
+
+
+def shelves_groups_train_phase(dev, cfg):
+    """The first update of the walled recipe with policy groups against the
+    plain path's, then its first 100 updates through the kernels, a
+    checkpoint at the end served by ``Policy.from_checkpoint``."""
+    tcfg, n = groups_tcfg(), GROUPS_UPDATES
+    tr = make_train(cfg, tcfg, device=dev, policy_groups=GROUPS)
+    first = first_update_vs_plain(tr, dev, "shelves_groups_train")
+    rows = []
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        write_policy_meta(ckpt_dir, cfg, tcfg, arch="mlp",
+                          policy_groups=GROUPS)
+
+        def hook(u, rs, m):
+            rows.append({"step": u, **{k: float(v) for k, v in m.items()}})
+            if u == n:
+                checkpoint.save(ckpt_dir, u, rs)
+
+        rs, out = run_updates(tr, n, "shelves_groups_train", dev, hook)
+        # The trained model served, and the directory served by itself.
+        tr.model.load_state_dict(rs.params)
+        gids = torch.tensor(GROUPS, device=dev)
+        with torch.no_grad():
+            logits, _ = apply(rs.params, rs.obs, gids)
+        want = first_argmax(logits, -1).to(torch.int32)
+        acts, _ = Policy(cfg, tr.model, policy_groups=GROUPS).compute_actions(
+            rs.obs)
+        served = Policy.from_checkpoint(ckpt_dir, device=dev)
+        acts_ckpt, _ = served.compute_actions(rs.obs)
+        require(served.policy_groups == GROUPS and served.mask_actions,
+                "serve: the checkpoint's meta lost the groups or the mask")
+        require(torch.equal(acts, want) and torch.equal(acts_ckpt, want),
+                "serve: the checkpoint's policy differs from the trained one")
+    os.makedirs(os.path.dirname(GROUPS_METRICS_OUT), exist_ok=True)
+    with open(GROUPS_METRICS_OUT, "w") as f:
+        f.write(json.dumps({"meta": True, "algo": "ppo", "arch": "mlp",
+                            "env": "shelves", "policy_groups": list(GROUPS),
+                            "device": torch.cuda.get_device_name(0),
+                            "train_config": json.loads(tcfg.to_json())})
+                + "\n")
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+
+    deliveries = out["deliveries_per_env_step"]
+    late = sum(deliveries[-10:]) / 10
+    emit({"phase": "shelves_groups_train", "policy_groups": GROUPS, **out,
+          "deliveries_at": {u: deliveries[u - 1]
+                            for u in range(20, n + 1, 20)},
+          "deliveries_91_100": late, "learn_min": GROUPS_LEARN_MIN,
+          "first_update_kernel_vs_plain": first, "tol": STEP_METRIC_TOL,
+          "served_actions_equal": True, "metrics_file": GROUPS_METRICS_OUT})
+    require(late >= GROUPS_LEARN_MIN,
+            f"shelves_groups_train: deliveries/env-step {late} over updates "
+            f"91-100 is below {GROUPS_LEARN_MIN}")
+
+
 # Each kernel's wrapper, where its launch count lives.
 COUNTED = {"greedy_rollout": rollout.greedy_steps,
            "ppo_rollout": act.act_steps,
@@ -1544,7 +1685,11 @@ OPTION_COUNTED = {
     "ppo_cnn_sgd_phase_global": (sgd_cnn.ppo_cnn_sgd_phase,
                                  "small_tile_launches"),
     "ppo_cnn_minibatch_grads_global": (sgd_cnn.ppo_cnn_minibatch_grads,
-                                       "small_tile_launches")}
+                                       "small_tile_launches"),
+    "ppo_rollout_groups": (act.act_steps, "group_launches"),
+    "ppo_sgd_phase_groups": (sgd.ppo_sgd_phase, "group_launches"),
+    "ppo_minibatch_grads_groups": (sgd.ppo_minibatch_grads,
+                                   "group_launches")}
 
 
 def main_path(name, fn, kernels):
@@ -1701,6 +1846,9 @@ def main(argv=()) -> int:
     checks["ppo_cnn_minibatch_grads_global"] = k4_check(
         dev, medium_g, cnn=True, name="medium_global")
     k5_check(dev, cfg, hidden=WIDE_HIDDEN)
+    # Policy groups: the recipe's shapes go into the kernels line.
+    (checks["ppo_rollout_groups"], checks["ppo_sgd_phase_groups"],
+     checks["ppo_minibatch_grads_groups"]) = groups_check(dev, cfg, shelves)
 
     # ---- the main paths: each counted from just before it -------------
     rnn_kernels = ["ppo_rnn_rollout", "ppo_rnn_sgd_phase",
@@ -1741,7 +1889,12 @@ def main(argv=()) -> int:
         main_path("hidden256_train",
                   lambda: hidden256_train_phase(dev, cfg),
                   ["ppo_rollout_wide", "ppo_sgd_phase",
-                   "ppo_minibatch_grads"])]
+                   "ppo_minibatch_grads"]),
+        main_path("shelves_groups_train",
+                  lambda: shelves_groups_train_phase(dev, shelves),
+                  ["ppo_rollout_groups", "ppo_rollout_wide",
+                   "ppo_rollout_shaped", "ppo_sgd_phase_groups",
+                   "ppo_minibatch_grads_groups"])]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     csrc = "warehouse_tpu_torch/kernels/csrc/"
@@ -1776,7 +1929,14 @@ def main(argv=()) -> int:
                                        "pallas/sgd.py:818"),
         "ppo_cnn_sgd_phase_global": ("sgd_cnn.cu", "pallas/sgd_cnn.py:482"),
         "ppo_cnn_minibatch_grads_global": ("sgd_cnn.cu",
-                                           "pallas/sgd_cnn.py:595")}
+                                           "pallas/sgd_cnn.py:595"),
+        # The policy-groups option: K2 selecting each agent's group's
+        # weights, the fused SGD phase and the per-minibatch gradient
+        # routing each sample to its group's params (one clip and one Adam
+        # over all groups), at the shelves groups recipe's shapes.
+        "ppo_rollout_groups": ("act.cu", "pallas/act.py:1062"),
+        "ppo_sgd_phase_groups": ("sgd.cu", "pallas/sgd.py:293"),
+        "ppo_minibatch_grads_groups": ("sgd.cu", "pallas/sgd.py:454")}
     # library_ms: no single PyTorch call computes a whole rollout or a
     # whole learner phase, so it is null for every kernel here.
     emit({"kernels": [

@@ -132,8 +132,10 @@ def test_boundary_reset_matches_autoreset_path(setup):
 
 
 @pytest.mark.parametrize("option", [
-    {"policy_groups": (0, 1)}, {"arch": "attn"}])
+    {"policy_groups": (0, 1), "arch": "cnn"}, {"arch": "attn"}])
 def test_unsupported_options_raise(setup, option):
+    """Policy groups are ported for the MLP (test_torch_groups.py); the CNN
+    with groups (ROADMAP T-3b) and the attention torso raise."""
     _, _, m, _, ts, _ = setup
     with pytest.raises(NotImplementedError):
         ppo_rollout(CFG, m, ts, T, rng.prng_key(0), **option)

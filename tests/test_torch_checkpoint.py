@@ -238,9 +238,18 @@ def test_policy_from_checkpoint_refusals(tmp_path):
     d = str(tmp_path)
     with pytest.raises(FileNotFoundError, match=META_NAME):
         Policy.from_checkpoint(d, device="cpu")
-    write_policy_meta(d, CFG, TCFG, policy_groups=(0, 1))
-    with pytest.raises(NotImplementedError, match="M-3"):
-        Policy.from_checkpoint(d, device="cpu")
+    # A policy-groups checkpoint loads: the multi-policy model rebuilt from
+    # the meta's groups holds the saved params.
+    g = str(tmp_path / "groups")
+    write_policy_meta(g, CFG, TCFG, policy_groups=(0, 1))
+    rs = make_train(CFG, TCFG, policy_groups=(0, 1),
+                    device="cpu").init(rng.prng_key(1))
+    checkpoint.save(g, 1, rs)
+    grouped = Policy.from_checkpoint(g, device="cpu")
+    assert grouped.policy_groups == (0, 1)
+    loaded = grouped.model.state_dict()
+    assert loaded.keys() == rs.params.keys()
+    assert all(torch.equal(loaded[k], rs.params[k]) for k in rs.params)
     write_policy_meta(d, CFG, TCFG.replace(model_dtype="bfloat16"))
     with pytest.raises(NotImplementedError, match="T-4"):
         Policy.from_checkpoint(d, device="cpu")

@@ -619,8 +619,8 @@ def test_serve_and_evaluate_take_a_cnn_model():
     assert torch.equal(sampled, again)
     with pytest.raises(ValueError, match="does not fit"):
         Policy(cfg, m, arch="mlp")
-    with pytest.raises(NotImplementedError):
-        Policy(cfg, m, policy_groups=(0, 1))
+    with pytest.raises(ValueError, match="policy_groups"):
+        Policy(cfg, m, policy_groups=(0, 1))  # one CNN, not a group's
 
     params = dict(m.state_dict())
     ev = evaluate_policy(

@@ -128,8 +128,10 @@ SGD_T, SGD_B, SGD_M, SGD_E = 5, 100, 4, 2  # N = 500 per minibatch: ragged
 SGD_KW = dict(clip_eps=0.2, value_coef=0.5)
 
 
-def sgd_batch(cfg, hidden, dev, seed=0, arch="mlp"):
-    """A seeded synthetic trajectory, params and Adam state on ``dev``."""
+def sgd_batch(cfg, hidden, dev, seed=0, arch="mlp", groups=None):
+    """A seeded synthetic trajectory, params and Adam state on ``dev``;
+    with ``groups`` the params of a ``MultiPolicyActorCritic``."""
+    from warehouse_tpu_torch.models import make_multi_policy_model
     from warehouse_tpu_torch.kernels.sgd import normalize_adv_env_minibatch
     from warehouse_tpu_torch.optim import AdamState
     from warehouse_tpu_torch.train.ppo import Transition
@@ -149,8 +151,10 @@ def sgd_batch(cfg, hidden, dev, seed=0, arch="mlp"):
     adv_n = normalize_adv_env_minibatch(torch.randn(T, B, A, generator=g),
                                         SGD_M)
     targets = torch.randn(T, B, A, generator=g)
-    model = make_model(cfg, arch, hidden_dim=hidden, generator=g,
-                       device="cpu")
+    model = (make_model(cfg, arch, hidden_dim=hidden, generator=g,
+                        device="cpu") if groups is None else
+             make_multi_policy_model(cfg, groups, arch, hidden_dim=hidden,
+                                     generator=g, device="cpu"))
     params = {k: v.detach() for k, v in model.state_dict().items()}
     opt = AdamState(3, {k: 1e-3 * torch.randn(v.shape, generator=g)
                         for k, v in params.items()},
@@ -673,12 +677,13 @@ def test_shaped_rollout_wrapper_launches_the_kernel(dev):
 GLOBAL = {name: cfg.replace(global_obs=True) for name, cfg in PRESETS.items()}
 
 
-def replay_check(cfg, m, run, dev, mask_on, shaped, steps=8):
+def replay_check(cfg, m, run, dev, mask_on, shaped, steps=8, groups=None):
     """One chunk of ``run`` (K2 or K10) with the logits, and optionally the
-    mask and the shaping option: the plain engine replaying its actions
-    gives its obs, raw and shaped rewards, deliveries and final state bit
-    for bit; logits, values and log-probs within 1e-4 of the plain model on
-    the kernel's observations (f32 sums in another order)."""
+    mask and the shaping option (and, for K2, policy groups): the plain
+    engine replaying its actions gives its obs, raw and shaped rewards,
+    deliveries and final state bit for bit; logits, values and log-probs
+    within 1e-4 of the plain model on the kernel's observations (f32 sums
+    in another order)."""
     from warehouse_tpu_torch.kernels.act import Shaping
     from warehouse_tpu_torch.kernels.rollout import f32
     from warehouse_tpu_torch.ops.pathing import potential
@@ -696,7 +701,7 @@ def replay_check(cfg, m, run, dev, mask_on, shaped, steps=8):
     before = run.launches
     new, obs, action, lp, value, reward, delivered = run(
         cfg, m, state, u, pick, drop, g, logits=logits_k, mask=mask,
-        shaping=shaping)
+        shaping=shaping, **({} if groups is None else {"groups": groups}))
     torch.cuda.synchronize()
     assert run.launches == before + 1
     bits = lambda x: x.view(torch.int32)
@@ -720,7 +725,8 @@ def replay_check(cfg, m, run, dev, mask_on, shaped, steps=8):
     for f in STATE_FIELDS[:-2]:  # t and key are the wrapper's
         assert torch.equal(getattr(s, f), getattr(new, f)), f
     with torch.no_grad():
-        logits, v = m(obs)
+        logits, v = (m(obs) if groups is None
+                     else m(obs, torch.tensor(groups, device=dev)))
     assert float((logits - logits_k).abs().max()) < 1e-4
     if mask_on:
         logits = torch.where(mask, logits, -1e9)
@@ -923,3 +929,113 @@ def test_global_obs_cnn_sgd_kernels_match_twin(name, hidden, dev):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
         assert g_k["conv.0.weight"].shape == (16, 5, 3, 3)
         assert_close_tree(g_k, g_r, 1e-4, 1e-6, f"grads mb={mb}")
+
+
+# ---- policy groups (K2, K3 / K4) -----------------------------------------------
+
+GROUP_ACT_CASES = [  # (preset, hidden, groups, mask, shaped, global view)
+    ("medium", 128, (0, 1, 0, 1), False, False, False),
+    ("shelves", 128, (0, 0, 0, 1, 1, 1), True, True, False),
+    ("shelves", 128, (1, 0, 0, 1, 1, 0), True, False, False),
+    ("medium", 128, (0, 1, 0, 1), True, False, True),
+    ("medium", 16, (0, 1, 2, 3), True, True, False),
+    ("shelves", 16, (0, 1, 2, 3, 4, 5), False, False, False),
+    ("small", 16, (1, 0), True, False, False)]
+
+
+@pytest.mark.parametrize("name,hidden,groups,mask_on,shaped,glob",
+                         GROUP_ACT_CASES)
+def test_grouped_act_kernel_matches_plain_path(name, hidden, groups, mask_on,
+                                               shaped, glob, dev):
+    """K2 with policy groups: each agent's rows through its group's MLP,
+    held to the plain multi-policy model on the kernel's observations and
+    the plain engine replaying its actions (interleaved groups, groups of
+    neighbours, every agent its own policy), masked, shaped, with the
+    global view; every grouped launch takes the wide route (16-wide groups
+    too), and the group count moves."""
+    from warehouse_tpu_torch.models import make_multi_policy_model
+
+    cfg = (GLOBAL if glob else PRESETS)[name]
+    m = make_multi_policy_model(cfg, groups, hidden_dim=hidden,
+                                generator=torch.Generator().manual_seed(0),
+                                device=dev)
+    wide, grouped = act_steps.wide_launches, act_steps.group_launches
+    replay_check(cfg, m, act_steps, dev, mask_on, shaped, groups=groups)
+    assert act_steps.group_launches == grouped + 1
+    assert act_steps.wide_launches == wide + 1
+
+
+GROUP_SGD_CASES = [("medium", 128, (0, 1, 0, 1)),
+                   ("shelves", 128, (0, 0, 0, 1, 1, 1)),
+                   ("shelves", 16, (1, 0, 0, 1, 1, 0)),
+                   ("medium", 16, (0, 1, 2, 3))]
+
+
+@pytest.mark.parametrize("name,hidden,groups", GROUP_SGD_CASES)
+def test_grouped_sgd_kernels_match_twin(name, hidden, groups, dev):
+    """K3 and K4 with policy groups against autograd + optim.py through
+    the multi-policy model, at K3's tolerances, masked; K3 bit-equal to
+    itself on a rerun; the group counts move by a launch per step."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.kernels.sgd import (
+        ppo_minibatch_grads, ppo_minibatch_grads_reference, ppo_sgd_phase,
+        ppo_sgd_phase_reference)
+    from warehouse_tpu_torch.optim import make_optimizer
+
+    cfg = PRESETS[name]
+    params, opt, traj, adv_n, targets = sgd_batch(cfg, hidden, dev,
+                                                  groups=groups)
+    rows = make_optimizer(TrainConfig(num_updates=4)).step_rows(
+        opt.count, SGD_E * SGD_M, dev)
+    args = (params, opt, traj, adv_n, targets, *rows, 0.01, 0.05)
+    kw = dict(num_epochs=SGD_E, num_minibatches=SGD_M, max_grad_norm=0.5,
+              mask_actions=True, policy_groups=groups, **SGD_KW)
+    grouped = ppo_sgd_phase.group_launches
+    p_k, o_k, l_k = ppo_sgd_phase(*args, **kw)
+    assert ppo_sgd_phase.group_launches == grouped + SGD_E * SGD_M
+    p_r, o_r, l_r = ppo_sgd_phase_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(l_k, l_r):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-6)
+    assert_close_tree(p_k, p_r, 1e-5, 1e-6, "params")
+    assert_close_tree(o_k.mu, o_r.mu, 1e-5, 1e-7, "mu")
+    assert_close_tree(o_k.nu, o_r.nu, 1e-5, 1e-10, "nu")
+    p_2, o_2, l_2 = ppo_sgd_phase(*args, **kw)
+    for k in p_k:
+        assert torch.equal(p_k[k], p_2[k]) and torch.equal(o_k.nu[k],
+                                                           o_2.nu[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(l_k, l_2))
+    gkw = dict(num_minibatches=SGD_M, mask_actions=True,
+               policy_groups=groups, **SGD_KW)
+    grouped = ppo_minibatch_grads.group_launches
+    for mb in range(SGD_M):
+        (l_k, aux_k), g_k = ppo_minibatch_grads(params, traj, adv_n, targets,
+                                                mb, 0.01, 0.05, **gkw)
+        (l_r, aux_r), g_r = ppo_minibatch_grads_reference(
+            params, traj, adv_n, targets, mb, 0.01, 0.05, **gkw)
+        for a, b in zip((l_k, *aux_k), (l_r, *aux_r)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        assert_close_tree(g_k, g_r, 1e-4, 1e-7, f"grads mb={mb}")
+    assert ppo_minibatch_grads.group_launches == grouped + SGD_M
+
+
+def test_grouped_trainer_matches_plain_step(dev):
+    """make_train with policy groups on the card: one update through K2
+    and K3 / K4 and one through the plain twins from the same state agree
+    (chip_smoke.py's STEP_METRIC_TOL); the CNN with groups is refused by
+    name (ROADMAP T-3b)."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.train import make_train
+
+    tcfg = TrainConfig(num_envs=256, num_updates=4, mask_actions=True)
+    tr = make_train(shelves_config(), tcfg, policy_groups=(0, 0, 0, 1, 1, 1),
+                    device=dev)
+    rs0 = tr.init(rng.prng_key(0, dev))
+    _, mk = tr.train_step(rs0)
+    _, mp = tr.plain_step(rs0)
+    for k in mk:
+        a, b = float(mk[k]), float(mp[k])
+        assert abs(a - b) <= 5e-5 + 1e-3 * abs(b), (k, a, b)
+    with pytest.raises(ValueError, match="T-3b"):
+        make_train(medium_config(), tcfg, arch="cnn",
+                   policy_groups=(0, 1, 0, 1), device=dev)

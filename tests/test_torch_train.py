@@ -179,7 +179,7 @@ def test_train_many_runs_and_learns_something():
 
 @pytest.mark.parametrize("change, error", [
     (dict(arch="attn"), NotImplementedError),
-    (dict(policy_groups=(0, 1)), NotImplementedError),
+    (dict(policy_groups=(0, 1)), None),  # ported: the trainer is built
     (dict(mesh=object()), NotImplementedError),
     (dict(model_dtype="bfloat16"), NotImplementedError),
     (dict(minibatch_mode="flat"), NotImplementedError),
@@ -199,7 +199,10 @@ def test_gates_raise(change, error):
     cfg = CFG.replace(global_obs=change.pop("global_obs", False))
     if error is None:
         tr = make_train(cfg, BASE.replace(**change), device="cpu", **kw)
-        assert tr.model.hidden[0].in_features == cfg.obs_dim == 131
+        assert tr.policy_groups == kw.get("policy_groups")
+        model = tr.model.policies[1] if tr.policy_groups else tr.model
+        assert model.hidden[0].in_features == cfg.obs_dim == (
+            131 if cfg.global_obs else 106)
         return
     with pytest.raises(error):
         make_train(cfg, BASE.replace(**change), device="cpu", **kw)
@@ -223,7 +226,8 @@ def test_cli_runs_two_updates(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--algo", "impala", "--micro-batches",
                                     "2"], ["--arch", "attn"],
-                                   ["--policy-groups", "0,1"],
+                                   ["--algo", "impala", "--policy-groups",
+                                    "0,1"],
                                    ["--tensorboard-dir", "tb"],
                                    ["--algo", "impala", "--shaping-coef",
                                     "0.1"],

@@ -170,6 +170,12 @@ def checkpoint_policy_fn(cfg, checkpoint_dir: str, arch=None, hidden_dim=None,
             f"the checkpoint under {checkpoint_dir} was trained "
             f"{'with' if view else 'without'} --global-obs (its "
             f"policy_meta.json), the env has global_obs={cfg.global_obs}")
+    if meta.get("policy_groups") is not None:
+        raise ValueError(
+            f"the checkpoint under {checkpoint_dir} holds policy_groups="
+            f"{meta['policy_groups']} (its policy_meta.json): evaluate takes "
+            "a shared policy, as the JAX package's does; serve it with "
+            "serve.Policy.from_checkpoint")
     arch = arch or meta.get("arch", "mlp")
     hidden_dim = hidden_dim or meta.get("hidden_dim", 128)
     mask_actions = bool(mask_actions or meta.get("mask_actions"))

@@ -39,9 +39,15 @@ shape whose weights and rows outgrow one block's shared memory; the shapes
 alone decide); the CNN's grid becomes the whole map and its block holds
 fewer envs. ``check_act_fits`` raises for a shape no route holds.
 
-Policy groups are not ported yet; ``ppo_rollout`` raises
-``NotImplementedError`` for them, and for the attention torso. The
-recurrent policies act through ``kernels.act_rnn.ppo_rnn_rollout``.
+With ``policy_groups`` (a tuple of one group id per agent) the model is a
+``MultiPolicyActorCritic`` of MLPs and each agent's rows run through its
+group's weights only (``pallas/act.py:1062-1072``, the trace-time selection
+of ``_act_kernel`` :325, :336-338, :409): the kernel packs the groups'
+weights one after another in group order and orders a block's rows agent
+by agent, so that every register tile of its dense layers is one agent's,
+and so one group's. The CNN with groups (ROADMAP T-3b) and the attention
+torso raise ``NotImplementedError``. The recurrent policies act through
+``kernels.act_rnn.ppo_rnn_rollout``.
 
 ``pack_cnn`` / ``unpack_cnn`` give the CNN kernels' flat parameter vector
 (K10-K12; the layout of ``csrc/cnn_net.cuh``): each conv kernel as ``[9
@@ -62,8 +68,8 @@ from ..config import EnvConfig
 from .. import rng as _rng
 from ..env import engine
 from ..env.state import EnvState
-from ..models.policy import (ActorCriticCNN, ActorCriticMLP, cnn_dims,
-                             num_conv)
+from ..models.policy import (ActorCriticCNN, ActorCriticMLP,
+                             MultiPolicyActorCritic, cnn_dims, num_conv)
 from ..ops.move import valid_action_mask
 from ..ops.obs import inv_side
 from ..ops.pathing import device_table, potential
@@ -97,7 +103,8 @@ class Shaping(NamedTuple):
 
 
 def act_steps_reference(cfg: EnvConfig, model, state: EnvState, u, pick,
-                        drop, g, logits=None, mask=None, shaping=None):
+                        drop, g, logits=None, mask=None, shaping=None,
+                        groups=None):
     """Plain PyTorch twin of both kernels: T = ``u.shape[0]`` steps of
     observe -> model (MLP or CNN) -> sample -> ``engine.tick`` on the
     given draws and gumbel noise ``g [T, 5, B*A]``. Returns ``(state, obs,
@@ -108,12 +115,15 @@ def act_steps_reference(cfg: EnvConfig, model, state: EnvState, u, pick,
     the potential shaping on: ``reward`` is then the shaped reward and
     ``shaping.raw_reward`` receives the unshaped one. The shaping term is
     three rounded float32 operations in the JAX kernel's order, then one
-    product and one sum."""
+    product and one sum. With ``groups`` (one group id per agent) the
+    model is a ``MultiPolicyActorCritic`` and agent a takes group
+    ``groups[a]``'s outputs."""
     outs = []
     with torch.no_grad():
         for t in range(u.shape[0]):
             obs = engine.observe_state(cfg, state)
-            lg, value = model(obs)
+            lg, value = (model(obs) if groups is None
+                         else model(obs, torch.tensor(groups)))
             if logits is not None:
                 logits[t] = lg
             if mask is not None:
@@ -136,12 +146,19 @@ def act_steps_reference(cfg: EnvConfig, model, state: EnvState, u, pick,
     return (state, *(torch.stack(x) for x in zip(*outs)))
 
 
-def packed_weights(model: ActorCriticMLP, device) -> tuple[torch.Tensor,
-                                                          list[int]]:
+def packed_weights(model, device) -> tuple[torch.Tensor, list[int]]:
     """The kernel's weight layout: per hidden layer ``W [in, out]`` then
     ``b [out]``, then the fused head ``W [H, 6]`` (5 logits + value) and
-    ``b [6]``, flat float32. Returns ``(weights, dims)`` with ``dims`` =
+    ``b [6]``, flat float32; for a ``MultiPolicyActorCritic`` each group's
+    in group order (``pallas/sgd.py`` ``_flat_tensors``' order), every
+    group of the same widths. Returns ``(weights, dims)`` with ``dims`` =
     input width then the hidden widths."""
+    if isinstance(model, MultiPolicyActorCritic):
+        packed = [packed_weights(sub, device) for sub in model.policies]
+        if any(d != packed[0][1] for _, d in packed):
+            raise ValueError(f"the policy groups' layer widths differ: "
+                             f"{[d for _, d in packed]}")
+        return torch.cat([w for w, _ in packed]), packed[0][1]
     parts, dims = [], [model.hidden[0].in_features if model.hidden
                        else model.logits.in_features]
     for layer in model.hidden:
@@ -155,32 +172,35 @@ def packed_weights(model: ActorCriticMLP, device) -> tuple[torch.Tensor,
 
 
 def act_steps(cfg: EnvConfig, model, state: EnvState, u, pick, drop, g,
-              logits=None, mask=None, shaping=None):
+              logits=None, mask=None, shaping=None, groups=None):
     """T acting steps on precomputed draws and gumbel noise: the CUDA
-    kernel for CUDA tensors (K2 for an MLP, K10 through ``act_cnn_steps``
-    for a CNN), the plain twin for CPU tensors. Same arguments and returns
-    as ``act_steps_reference``."""
+    kernel for CUDA tensors (K2 for an MLP or, with ``groups``, a
+    ``MultiPolicyActorCritic`` of MLPs; K10 through ``act_cnn_steps`` for
+    a CNN), the plain twin for CPU tensors. Same arguments and returns as
+    ``act_steps_reference``."""
     dev = state.agent_pos.device
     if dev.type == "cpu":
         return act_steps_reference(cfg, model, state, u, pick, drop, g,
-                                   logits, mask, shaping)
+                                   logits, mask, shaping, groups)
     if dev.type != "cuda":
         raise ValueError(f"act_steps: unsupported device {dev}")
     if isinstance(model, ActorCriticCNN):
         return act_cnn_steps(cfg, model, state, u, pick, drop, g, logits,
                              mask, shaping)
-    weights, dims, wide = _mlp_fits(cfg, model, dev)
+    weights, dims, wide = _mlp_fits(cfg, model, dev, groups)
     lib = build.library()
     io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask, shaping)
+    k, gmap = _group_args(cfg, groups)
     err = lib.wh_act_rollout(
         *io.env_args(cfg), len(dims) - 1, build.int_array(dims),
-        io.walls.data_ptr(), weights.data_ptr(), weights.numel(),
-        *io.tensor_ptrs(), build.stream_handle(dev))
+        io.walls.data_ptr(), weights.data_ptr(), weights.numel() // k, k,
+        gmap, *io.tensor_ptrs(), build.stream_handle(dev))
     build.check(err, "ppo_rollout kernel launch")
     act_steps.launches += 1
     act_steps.shaped_launches += shaping is not None
     act_steps.global_launches += cfg.global_obs
     act_steps.wide_launches += wide
+    act_steps.group_launches += groups is not None
     return io.results(state)
 
 
@@ -188,20 +208,41 @@ act_steps.launches = 0
 act_steps.shaped_launches = 0  # the launches that had the shaping option on
 act_steps.global_launches = 0  # those that built the global view
 act_steps.wide_launches = 0    # those on the wide route (``wh_act_wide``)
+act_steps.group_launches = 0   # those that routed rows by policy group
 
 
-def _mlp_fits(cfg: EnvConfig, model: ActorCriticMLP, dev):
-    """K2's ``(weights, dims, wide)`` for ``model`` on ``cfg``, ``wide``
+def _group_args(cfg: EnvConfig, groups):
+    """``(K, the agent -> group map as a C int array or None)`` of the
+    kernel's group option: ``(1, None)`` without groups."""
+    if groups is None:
+        return 1, None
+    if len(groups) != cfg.num_agents:
+        raise ValueError("policy_groups must have one entry per agent")
+    return max(groups) + 1, build.int_array([int(x) for x in groups])
+
+
+def _mlp_fits(cfg: EnvConfig, model, dev, groups=None):
+    """K2's ``(weights, dims, wide)`` for ``model`` (an MLP, or with
+    ``groups`` a ``MultiPolicyActorCritic`` of MLPs) on ``cfg``, ``wide``
     whether the shape takes the kernel's wide route; raises ``ValueError``
     for a shape the kernel cannot take."""
     check_kernel_shape(cfg)
+    multi = isinstance(model, MultiPolicyActorCritic)
+    if multi != (groups is not None) or (
+            multi and len(model.policies) != max(groups) + 1):
+        raise ValueError(
+            f"a {type(model).__name__} does not fit policy_groups={groups}")
+    subs = model.policies if multi else [model]
+    if not all(isinstance(m, ActorCriticMLP) for m in subs):
+        raise ValueError("the act kernel takes MLP policies")
     weights, dims = packed_weights(model, dev)
     if dims[0] != cfg.obs_dim or (
-            model.logits.out_features != cfg.num_actions):
+            subs[0].logits.out_features != cfg.num_actions):
         raise ValueError(f"model widths {dims} do not fit obs_dim "
                          f"{cfg.obs_dim}")
+    k, _ = _group_args(cfg, groups)
     shape = (cfg.num_agents, cfg.queue_capacity, cfg.obs_dim, len(dims) - 1,
-             build.int_array(dims), weights.numel())
+             build.int_array(dims), weights.numel() // k, k)
     smem = build.library().wh_act_smem_bytes(*shape)
     limit = build.smem_limit(dev, smem)
     if not 0 < smem <= limit:
@@ -235,15 +276,16 @@ def _cnn_fits(cfg: EnvConfig, model: ActorCriticCNN, dev):
     return net
 
 
-def check_act_fits(cfg: EnvConfig, model, dev) -> None:
-    """Raise ``ValueError`` unless the acting kernel (K2 for an MLP, K10
-    for a CNN) takes ``cfg`` and ``model`` on the CUDA device ``dev``: the
-    env's (agents, queue) shape, the model's widths and the shared memory
-    they need. A trainer calls it when it is built."""
+def check_act_fits(cfg: EnvConfig, model, dev, groups=None) -> None:
+    """Raise ``ValueError`` unless the acting kernel (K2 for an MLP or,
+    with ``groups``, a ``MultiPolicyActorCritic`` of MLPs; K10 for a CNN)
+    takes ``cfg`` and ``model`` on the CUDA device ``dev``: the env's
+    (agents, queue) shape, the model's widths and the shared memory they
+    need. A trainer calls it when it is built."""
     if isinstance(model, ActorCriticCNN):
         _cnn_fits(cfg, model, dev)
     else:
-        _mlp_fits(cfg, model, dev)
+        _mlp_fits(cfg, model, dev, groups)
 
 
 class _KernelIO:
@@ -420,11 +462,23 @@ def _check_options(cfg, model, policy_groups, arch):
         raise ValueError(f"ppo_rollout: arch={arch!r} acts through "
                          "kernels.act_rnn.ppo_rnn_rollout")
     for name, unsupported, item in (
-            ("policy_groups", policy_groups is not None, "T-3"),
+            ("policy_groups with arch='cnn'",
+             policy_groups is not None and arch == "cnn", "T-3b"),
             (f"arch={arch!r}", arch not in ("mlp", "cnn"), "M-7")):
         if unsupported:
             raise NotImplementedError(
                 f"ppo_rollout: {name} is not ported yet (ROADMAP {item})")
+    multi = isinstance(model, MultiPolicyActorCritic)
+    if multi != (policy_groups is not None):
+        raise ValueError(f"ppo_rollout: a {type(model).__name__} does not "
+                         f"fit policy_groups={policy_groups}")
+    if multi:
+        if len(policy_groups) != cfg.num_agents or (
+                len(model.policies) != max(policy_groups) + 1):
+            raise ValueError(f"ppo_rollout: policy_groups={policy_groups} "
+                             f"does not fit {cfg.num_agents} agents and "
+                             f"{len(model.policies)} policies")
+        model = model.policies[0]
     if isinstance(model, ActorCriticCNN) != (arch == "cnn"):
         raise ValueError(f"ppo_rollout: arch={arch!r} does not fit a "
                          f"{type(model).__name__}")
@@ -471,9 +525,12 @@ def _rollout(steps, cfg: EnvConfig, model, state: EnvState,
              shaping_coef: float = 0.0, gamma: float = 0.99,
              policy_groups=None, arch: str = "mlp"):
     _check_options(cfg, model, policy_groups, arch)
+    groups = None if policy_groups is None else tuple(
+        int(x) for x in policy_groups)
     return chunk_rollout(
         lambda u, pick, drop, g, mask, shaping: steps(
-            cfg, model, state, u, pick, drop, g, mask=mask, shaping=shaping),
+            cfg, model, state, u, pick, drop, g, mask=mask, shaping=shaping,
+            groups=groups),
         cfg, state, T, key, mask_actions, shaping_coef, gamma)
 
 
@@ -484,9 +541,9 @@ def ppo_rollout(cfg: EnvConfig, model, state: EnvState, T: int,
     ActRollout, reset_key_last, next_key)``. ``options``
     (``mask_actions``, ``shaping_coef``, ``gamma``, ``policy_groups``,
     ``arch``) take the JAX wrapper's names; ``mask_actions``,
-    ``shaping_coef`` with its ``gamma`` and ``arch`` "mlp" / "cnn" are
-    ported, ``policy_groups`` only at its default. ``cfg.global_obs``
-    picks the global view."""
+    ``shaping_coef`` with its ``gamma``, ``arch`` "mlp" / "cnn" and, for
+    the MLP, ``policy_groups`` (the model a ``MultiPolicyActorCritic``) are
+    ported. ``cfg.global_obs`` picks the global view."""
     return _rollout(act_steps, cfg, model, state, T, key, **options)
 
 

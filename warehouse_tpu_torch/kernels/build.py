@@ -31,15 +31,17 @@ IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "wh_error_string": [I],
     "wh_greedy_rollout": [I, I, L, I, I, I, F, F, F, F, F] + [P] * 21,
-    "wh_act_smem_bytes": [I, I, I, I, IP, I],
-    "wh_act_wide": [I, I, I, I, IP, I],
+    "wh_act_smem_bytes": [I, I, I, I, IP, I, I],
+    "wh_act_wide": [I, I, I, I, IP, I, I],
     "wh_act_rollout": [I, I, L, I, I, I, F, I, I, I, I, F, F, F, F, F, F, I,
-                       IP, P, P, I] + [P] * 29 + [F, F, P],
+                       IP, P, P, I, I, IP] + [P] * 29 + [F, F, P],
     "wh_sgd_smem_bytes": [I, IP],
     "wh_sgd_obs_chunks": [I, IP],
-    "wh_sgd_workspace_floats": [I, IP, I, L, I, I],
-    "wh_sgd_grads": [I, IP, I, L, I, I, I] + [P] * 9 + [F] * 5 + [P] * 4,
-    "wh_sgd_clip_adam": [I, IP, I, L, I, I, I] + [P] * 7 + [F] * 6 + [P] * 2,
+    "wh_sgd_workspace_floats": [I, IP, I, L, I, I, I, IP],
+    "wh_sgd_grads": [I, IP, I, L, I, I, I, IP, I] + [P] * 9 + [F] * 5
+                    + [P] * 4,
+    "wh_sgd_clip_adam": [I, IP, I, L, I, I, I, IP, I] + [P] * 7 + [F] * 6
+                        + [P] * 2,
     "wh_vtrace_workspace_floats": [I, IP, I, L, I, I],
     "wh_vtrace_grads": [I, IP, I, L, I, I, I] + [P] * 10 + [F] * 5 + [P] * 4,
     "wh_vtrace_clip_rms": [I, IP, I, L, I, I, I] + [P] * 4 + [F] * 4

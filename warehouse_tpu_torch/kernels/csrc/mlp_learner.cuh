@@ -30,6 +30,14 @@
 //   metric rows summed in a fixed order), and adam_kernel (the optax clip
 //   + Adam step, one CTA).
 //
+// Policy groups (K3/K4, pallas/sgd.py:293-306): K MLPs of the same widths,
+// their params one after another in group order, and a static agent ->
+// group map. Each group's samples form their own Rows (only its agents); the
+// tile kernel runs every group's tiles, group by group, through that group's
+// params, and the weight gradients, their sums of squares and the metric
+// sums follow group by group, each in its order without groups. One global
+// norm spans every group's gradient (GroupSplit).
+//
 // Every sum runs in an order fixed by the shapes alone, so two runs on the
 // same inputs give the same bits.
 #pragma once
@@ -55,6 +63,7 @@ constexpr int MAXS = 64;      // sample splits of wgrad_kernel
 constexpr int MAXW = 8;       // weight-gradient products per launch
 constexpr int RED = 256;      // threads of reduce_kernel
 constexpr int FNT = 1024;     // threads of the optimizer kernels
+constexpr int MAXK = 8;       // policy groups, and agents of a grouped batch
 constexpr float NEG_INF = -1e9f;
 
 struct Layer {
@@ -98,18 +107,24 @@ bool make_net(int n_hidden, const int* dims, Net* net) {
 }
 
 // The samples of one minibatch: env columns [m B/M, (m+1) B/M) of a
-// [T, B, A] trajectory, N = T * B/M * A samples in time-major order.
+// [T, B, A] trajectory, N = T * B/M * A samples in time-major order; or,
+// for one policy group, only its na agents' (na < A), N = T * B/M * na.
 struct Rows {
   long N;       // samples
-  long nb;      // samples per time step: B/M * A
+  long nb;      // samples per time step: B/M * na
   long BA;      // B * A
-  long mb_off;  // m * nb
+  long mb_off;  // m * B/M * A
   int D;
+  int A, na;    // agents, and the agents enumerated
+  int code;     // the enumerated agents, 3 bits each, when na < A
   const float* obs;  // [T, B, A, D]
   // Row of sample q in the [T, B, A] arrays: time step q / nb, then the
-  // minibatch's env columns.
+  // minibatch's env columns (with na < A, each env's enumerated agents).
   __device__ long row(long q) const {
-    return (q / nb) * BA + mb_off + q % nb;
+    if (na == A) return (q / nb) * BA + mb_off + q % nb;
+    const long r = q % nb;
+    return (q / nb) * BA + mb_off + (r / na) * A +
+           ((code >> (3 * (int)(r % na))) & 7);
   }
 };
 
@@ -123,7 +138,47 @@ bool batch_rows(int T, long B, int A, int M, int mb, int D, const float* obs,
   rows->BA = B * A;
   rows->mb_off = mb * rows->nb;
   rows->D = D;
+  rows->A = rows->na = A;
+  rows->code = 0;
   rows->obs = obs;
+  return true;
+}
+
+// A minibatch's samples split by policy group: group g's Rows, its first
+// row in the scratch's activations (noff) and its first tile (toff).
+// Without groups K = 1 and the one group is the whole minibatch.
+struct GroupSplit {
+  int K;
+  Rows rows[MAXK];
+  long noff[MAXK + 1], toff[MAXK + 1];
+};
+
+// The split of `all` (batch_rows' minibatch of T * B/M * A samples) by the
+// agent -> group map `groups` of K groups (null: one group). Returns false
+// for a map that is not K non-empty groups of at most MAXK agents.
+bool split_groups(const Rows& all, long bm, int K, const int* groups,
+                  GroupSplit* gs) {
+  const long T = all.N / all.nb;
+  if (K < 1 || K > MAXK || (K > 1 && (!groups || all.A > MAXK))) return false;
+  gs->K = K;
+  gs->noff[0] = gs->toff[0] = 0;
+  for (int g = 0; g < K; ++g) {
+    Rows r = all;
+    r.na = 0;
+    r.code = 0;
+    for (int a = 0; a < all.A; ++a) {
+      const int ga = groups ? groups[a] : 0;
+      if (ga < 0 || ga >= K) return false;
+      if (ga == g) r.code |= a << (3 * r.na++);
+    }
+    if (r.na == 0) return false;
+    r.nb = bm * r.na;
+    r.N = T * r.nb;
+    if (r.na == r.A) r.code = 0;
+    gs->rows[g] = r;
+    gs->noff[g + 1] = gs->noff[g] + r.N;
+    gs->toff[g + 1] = gs->toff[g] + (r.N + R - 1) / R;
+  }
   return true;
 }
 
@@ -152,7 +207,7 @@ struct Scratch {
   float* met;        // [n_tiles, 4] metric sums per tile
   float* wt;         // [n_params] every W as [in, out]
   int S;
-  long n_tiles, n_sq;
+  long n_tiles, n_sq;  // with K groups: tiles room, K x the sums of squares
 };
 
 long n_splits(long N) {
@@ -161,8 +216,12 @@ long n_splits(long N) {
 }
 
 // Lays the scratch out from `base` (or only sizes it when base is null);
-// `extra` head rows follow the N samples'. Returns its floats.
-long carve(const Net& net, long N, long extra, float* base, Scratch* sc) {
+// `extra` head rows follow the N samples'. With K policy groups the params,
+// the transposed copy and the sums of squares are K groups' (net is one
+// group's), and the metric rows have room for each group's last tile.
+// Returns its floats.
+long carve(const Net& net, long N, long extra, float* base, Scratch* sc,
+           int K = 1) {
   long off = 0;
   auto take = [&](long n) {
     float* p = base ? base + off : nullptr;
@@ -176,11 +235,11 @@ long carve(const Net& net, long N, long extra, float* base, Scratch* sc) {
   sc->dout = take((N + extra) * OST);
   sc->S = (int)n_splits(N);
   sc->part = take(sc->S * net.n_params);
-  sc->n_sq = (net.n_params + RED - 1) / RED;
+  sc->n_sq = K * ((net.n_params + RED - 1) / RED);
   sc->sq = take(sc->n_sq);
-  sc->n_tiles = (N + R - 1) / R;
+  sc->n_tiles = (N + R - 1) / R + K - 1;
   sc->met = take(sc->n_tiles * 4);
-  sc->wt = take(net.n_params);
+  sc->wt = take(K * net.n_params);
   return off;
 }
 
@@ -244,22 +303,28 @@ __device__ void fwd_tile(const Net& net, const float* params, const float* wt,
   }
 }
 
-// wt = every W [out, in] of the packed vector as [in, out], at its offset.
-__global__ void mlp_transpose_kernel(Net net, const float* p, float* wt) {
+// wt = every W [out, in] of the packed vector as [in, out], at its offset,
+// for each of K groups' params.
+__global__ void mlp_transpose_kernel(Net net, const float* p, float* wt,
+                                     int K) {
   const long stride = (long)gridDim.x * blockDim.x;
   const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (int l = 0; l <= net.n_hidden; ++l) {
-    const Layer& y = net.L[l];
-    for (long k = tid; k < (long)y.out * y.in; k += stride)
-      wt[y.w_off + (k % y.in) * y.out + k / y.in] = p[y.w_off + k];
+  for (int g = 0; g < K; ++g) {
+    const long go = g * net.n_params;
+    for (int l = 0; l <= net.n_hidden; ++l) {
+      const Layer& y = net.L[l];
+      for (long k = tid; k < (long)y.out * y.in; k += stride)
+        wt[go + y.w_off + (k % y.in) * y.out + k / y.in] =
+            p[go + y.w_off + k];
+    }
   }
 }
 
-// Before the tile kernels: the transposed copy of the params.
+// Before the tile kernels: the transposed copy of the params (K groups').
 inline cudaError_t launch_mlp_transpose(const Net& net, const float* params,
-                                        const Scratch& sc,
-                                        cudaStream_t stream) {
-  mlp_transpose_kernel<<<128, 256, 0, stream>>>(net, params, sc.wt);
+                                        const Scratch& sc, cudaStream_t stream,
+                                        int K = 1) {
+  mlp_transpose_kernel<<<128, 256, 0, stream>>>(net, params, sc.wt, K);
   return cudaGetLastError();
 }
 
@@ -569,19 +634,18 @@ cudaError_t persistent_grid(Kernel kernel, size_t smem, long n_tiles,
   return cudaSuccess;
 }
 
-// After the tile kernels: the weight gradients of every layer from the
-// activations and deltas in `sc` (the head's deltas are sc.dout's first N
-// rows), reduced into `grads` with its sums of squares into sc.sq, and the
-// n_met metric rows of sc.met summed into sums[0..3].
-cudaError_t launch_grads_tail(const Net& net, const Rows& rows,
-                              const Scratch& sc, long n_met, float* grads,
-                              float* sums, cudaStream_t stream) {
+// The weight gradients of every layer from the activations and deltas of
+// `rows`' N samples (sc's act / dz / dout from its first row on; the head's
+// deltas are dout's), over `S` sample ranges, reduced into `grads` with
+// its sums of squares into `sq`.
+cudaError_t launch_wgrad(const Net& net, const Rows& rows, const Scratch& sc,
+                         int S, float* grads, float* sq, cudaStream_t stream) {
   WArgs wa;
   wa.n_layers = net.n_hidden + 1;
   wa.bt = rows;
   wa.n_params = net.n_params;
   wa.part = sc.part;
-  wa.chunk = ((rows.N + sc.S - 1) / sc.S + NC - 1) / NC * NC;
+  wa.chunk = ((rows.N + S - 1) / S + NC - 1) / NC * NC;
   int tiles = 0;
   for (int l = 0; l <= net.n_hidden; ++l) {
     const Layer& y = net.L[l];
@@ -591,13 +655,49 @@ cudaError_t launch_grads_tail(const Net& net, const Rows& rows,
                     y.w_off, y.b_off, &tiles);
   }
   cudaError_t e;
-  wgrad_kernel<<<dim3(tiles, sc.S), WNT, 0, stream>>>(wa);
+  wgrad_kernel<<<dim3(tiles, S), WNT, 0, stream>>>(wa);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  reduce_kernel<<<(unsigned)sc.n_sq, RED, 0, stream>>>(sc.part, sc.S,
-                                                       net.n_params, grads,
-                                                       sc.sq);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  reduce_kernel<<<(unsigned)((net.n_params + RED - 1) / RED), RED, 0,
+                  stream>>>(sc.part, S, net.n_params, grads, sq);
+  return cudaGetLastError();
+}
+
+// After the tile kernels: the weight gradients of every layer from the
+// activations and deltas in `sc` (the head's deltas are sc.dout's first N
+// rows), reduced into `grads` with its sums of squares into sc.sq, and the
+// n_met metric rows of sc.met summed into sums[0..3].
+cudaError_t launch_grads_tail(const Net& net, const Rows& rows,
+                              const Scratch& sc, long n_met, float* grads,
+                              float* sums, cudaStream_t stream) {
+  cudaError_t e = launch_wgrad(net, rows, sc, sc.S, grads, sc.sq, stream);
+  if (e != cudaSuccess) return e;
   metrics_kernel<<<1, 128, 0, stream>>>(sc.met, n_met, sums);
+  return cudaGetLastError();
+}
+
+// launch_grads_tail for policy groups: each group's weight gradients into
+// its slice of `grads` (group g at g * n_params) from its own rows of the
+// scratch, its sums of squares after the previous group's, then the metric
+// rows of every group's tiles.
+cudaError_t launch_group_grads_tail(const Net& net, const GroupSplit& gs,
+                                    const Scratch& sc, float* grads,
+                                    float* sums, cudaStream_t stream) {
+  const long n_sq = (net.n_params + RED - 1) / RED;
+  for (int g = 0; g < gs.K; ++g) {
+    const long n0 = gs.noff[g];
+    Scratch sg = sc;
+    for (int l = 0; l < net.n_hidden; ++l) {
+      sg.act[l] += n0 * net.L[l].out;
+      sg.dz[l] += n0 * net.L[l].out;
+    }
+    sg.dout += n0 * OST;
+    cudaError_t e = launch_wgrad(net, gs.rows[g], sg,
+                                 (int)n_splits(gs.rows[g].N),
+                                 grads + g * net.n_params, sc.sq + g * n_sq,
+                                 stream);
+    if (e != cudaSuccess) return e;
+  }
+  metrics_kernel<<<1, 128, 0, stream>>>(sc.met, gs.toff[gs.K], sums);
   return cudaGetLastError();
 }
 

@@ -35,6 +35,14 @@
 // adam_kernel are in mlp_learner.cuh, which the IMPALA learner
 // (vtrace_sgd.cu) and the recurrent PPO learner (sgd_rnn.cu) share.
 //
+// Policy groups (pallas/sgd.py:293-306, _sgd_kernel :309, _grads_kernel
+// :404): the params are K MLPs' in group order; sample (t, b, a) goes
+// forward and backward through group groups[a]'s params and its weight
+// gradients go to that group's slice of the gradient. fwd_bwd_kernel runs
+// the groups' tiles one group after another (GroupSplit), the loss still
+// averages over all N samples of the minibatch, the metric sums run over
+// every sample, and one global-norm clip and Adam span all K groups.
+//
 // The bound: at config 4 a step is ~6.3 GFLOP in (a) and ~4 GFLOP in (b)
 // on the CUDA cores in f32. (a) is limited by its loads: a thread owns one
 // output column for RT rows, reading its weights through L2 (a warp on
@@ -60,6 +68,7 @@ namespace {
 struct FwdArgs {
   Net net;
   Batch bt;
+  GroupSplit gs;  // the minibatch's samples by policy group
   Scratch sc;
   Coefs c;
   const float* params;
@@ -75,19 +84,25 @@ __global__ void __launch_bounds__(NT) fwd_bwd_kernel(FwdArgs p) {
   const Batch& bt = p.bt;
   const int D = net.D;
 
-  for (long tile = blockIdx.x; tile < p.sc.n_tiles; tile += gridDim.x) {
-    const long n0 = tile * R;
-    const int nvalid = bt.N - n0 < R ? (int)(bt.N - n0) : R;
+  for (long tile = blockIdx.x; tile < p.gs.toff[p.gs.K]; tile += gridDim.x) {
+    // The tile's group; its samples are that group's [q0, q0 + nvalid),
+    // its rows in the scratch from n0 on.
+    int g = 0;
+    while (g + 1 < p.gs.K && tile >= p.gs.toff[g + 1]) ++g;
+    const Rows rows = p.gs.rows[g];
+    const long q0 = (tile - p.gs.toff[g]) * R, n0 = p.gs.noff[g] + q0;
+    const int nvalid = rows.N - q0 < R ? (int)(rows.N - q0) : R;
+    const float* params = p.params + g * net.n_params;
     if (tid < R)
-      b.rows[tid] = tid < nvalid ? bt.obs + bt.row(n0 + tid) * D : nullptr;
+      b.rows[tid] = tid < nvalid ? bt.obs + rows.row(q0 + tid) * D : nullptr;
     __syncthreads();
-    fwd_tile(net, p.params, p.sc.wt, b, p.sc, n0, nvalid);
+    fwd_tile(net, params, p.sc.wt + g * net.n_params, b, p.sc, n0, nvalid);
 
     if (tid < R) {
       float* o = b.outs + tid * OST;
       float* m = b.met + tid * 4;
       if (tid < nvalid) {
-        loss_row(o, bt.row(n0 + tid), bt, p.c, ent_coef, kl_coeff, m);
+        loss_row(o, rows.row(q0 + tid), bt, p.c, ent_coef, kl_coeff, m);
         for (int r = 0; r < NHEAD; ++r)
           p.sc.dout[(n0 + tid) * OST + r] = o[r];
       } else {
@@ -101,14 +116,15 @@ __global__ void __launch_bounds__(NT) fwd_bwd_kernel(FwdArgs p) {
       for (int n = 0; n < R; ++n) s += b.met[n * 4 + tid];
       p.sc.met[tile * 4 + tid] = s;
     }
-    bwd_tile(net, p.params, b, p.sc, n0, nvalid);
+    bwd_tile(net, params, b, p.sc, n0, nvalid);
   }
 }
 
 cudaError_t launch_fwd_bwd(const FwdArgs& fa, cudaStream_t stream) {
   const size_t smem = smem_bytes(fa.net);
   long grid = 0;
-  cudaError_t e = persistent_grid(fwd_bwd_kernel, smem, fa.sc.n_tiles, &grid);
+  cudaError_t e = persistent_grid(fwd_bwd_kernel, smem, fa.gs.toff[fa.gs.K],
+                                  &grid);
   if (e != cudaSuccess) return e;
   fwd_bwd_kernel<<<(unsigned)grid, NT, smem, stream>>>(fa);
   return cudaGetLastError();
@@ -133,32 +149,51 @@ extern "C" int wh_sgd_obs_chunks(int n_hidden, const int* dims) {
   return make_net(n_hidden, dims, &net) ? (net.D + XCH - 1) / XCH : -1;
 }
 
+namespace {
+
+// The net, the minibatch mb's rows and their split by the K groups of
+// `groups` (null: one group).
+bool make_groups(int n_hidden, const int* dims, int T, long B, int A, int M,
+                 int K, const int* groups, int mb, const float* obs, Net* net,
+                 Rows* rows, GroupSplit* gs) {
+  return make_rows(n_hidden, dims, T, B, A, M, mb, obs, net, rows) &&
+         split_groups(*rows, B / M, K, groups, gs);
+}
+
+}  // namespace
+
 // Floats of scratch the two entry points below share, or 0 for an
-// unsupported shape.
+// unsupported shape. With K policy groups (`groups`: agent -> group, null
+// for K = 1) `dims` are one group's widths and the params K groups'.
 extern "C" long wh_sgd_workspace_floats(int n_hidden, const int* dims, int T,
-                                        long B, int A, int M) {
+                                        long B, int A, int M, int K,
+                                        const int* groups) {
   Net net;
   Rows rows;
-  if (!make_rows(n_hidden, dims, T, B, A, M, 0, nullptr, &net, &rows))
+  GroupSplit gs;
+  if (!make_groups(n_hidden, dims, T, B, A, M, K, groups, 0, nullptr, &net,
+                   &rows, &gs))
     return 0;
   Scratch sc;
-  return carve(net, rows.N, 0, nullptr, &sc);
+  return carve(net, rows.N, 0, nullptr, &sc, K);
 }
 
 // K4: the loss and gradient of minibatch mb (kernels a-c and the metric
-// sums). `grads` gets the gradient in the packed layout, sums[0..3] the
-// metric sums (min surrogate, max squared value error, entropy,
-// old_lp - lp); the workspace keeps the gradient's sums of squares for
-// wh_sgd_clip_adam.
+// sums). `grads` gets the gradient in the packed layout (K groups' in
+// group order), sums[0..3] the metric sums (min surrogate, max squared
+// value error, entropy, old_lp - lp); the workspace keeps the gradient's
+// sums of squares for wh_sgd_clip_adam.
 extern "C" int wh_sgd_grads(
-    int n_hidden, const int* dims, int T, long B, int A, int M, int mb,
-    const float* obs, const int* action, const float* old_lp,
-    const float* old_v, const float* adv, const float* target,
-    const unsigned char* mask, const float* params, const float* scal,
-    float clip_eps, float clip_lo, float clip_hi, float value_coef,
-    float inv_n, float* work, float* grads, float* sums, void* stream_) {
+    int n_hidden, const int* dims, int T, long B, int A, int M, int K,
+    const int* groups, int mb, const float* obs, const int* action,
+    const float* old_lp, const float* old_v, const float* adv,
+    const float* target, const unsigned char* mask, const float* params,
+    const float* scal, float clip_eps, float clip_lo, float clip_hi,
+    float value_coef, float inv_n, float* work, float* grads, float* sums,
+    void* stream_) {
   FwdArgs fa;
-  if (!make_rows(n_hidden, dims, T, B, A, M, mb, obs, &fa.net, &fa.bt))
+  if (!make_groups(n_hidden, dims, T, B, A, M, K, groups, mb, obs, &fa.net,
+                   &fa.bt, &fa.gs))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_;
   fa.bt.action = action;
@@ -167,36 +202,38 @@ extern "C" int wh_sgd_grads(
   fa.bt.adv = adv;
   fa.bt.target = target;
   fa.bt.mask = mask;
-  carve(fa.net, fa.bt.N, 0, work, &fa.sc);
+  carve(fa.net, fa.bt.N, 0, work, &fa.sc, K);
   fa.c = Coefs{clip_eps, clip_lo, clip_hi, value_coef, inv_n};
   fa.params = params;
   fa.scal = scal;
 
-  cudaError_t e = launch_mlp_transpose(fa.net, params, fa.sc, stream);
+  cudaError_t e = launch_mlp_transpose(fa.net, params, fa.sc, stream, K);
   if (e != cudaSuccess) return (int)e;
   e = launch_fwd_bwd(fa, stream);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_grads_tail(fa.net, fa.bt, fa.sc, fa.sc.n_tiles, grads,
-                                sums, stream);
+  return (int)launch_group_grads_tail(fa.net, fa.gs, fa.sc, grads, sums,
+                                      stream);
 }
 
 // K3's optimizer step `step` after wh_sgd_grads on the same workspace:
-// clip by the global norm of `grads`, then Adam on params / m / v in
-// place with lr_row[step], bc1_row[step], bc2_row[step].
+// clip by the global norm of `grads` (all K groups'), then Adam on params /
+// m / v in place with lr_row[step], bc1_row[step], bc2_row[step].
 extern "C" int wh_sgd_clip_adam(
-    int n_hidden, const int* dims, int T, long B, int A, int M, int step,
-    float* params, float* m, float* v, const float* grads,
-    const float* lr_row, const float* bc1_row, const float* bc2_row,
-    float max_grad_norm, float b1, float one_m_b1, float b2, float one_m_b2,
-    float eps, float* work, void* stream_) {
+    int n_hidden, const int* dims, int T, long B, int A, int M, int K,
+    const int* groups, int step, float* params, float* m, float* v,
+    const float* grads, const float* lr_row, const float* bc1_row,
+    const float* bc2_row, float max_grad_norm, float b1, float one_m_b1,
+    float b2, float one_m_b2, float eps, float* work, void* stream_) {
   Net net;
   Rows rows;
-  if (!make_rows(n_hidden, dims, T, B, A, M, 0, nullptr, &net, &rows) ||
+  GroupSplit gs;
+  if (!make_groups(n_hidden, dims, T, B, A, M, K, groups, 0, nullptr, &net,
+                   &rows, &gs) ||
       step < 0)
     return (int)cudaErrorInvalidValue;
   Scratch sc;
-  carve(net, rows.N, 0, work, &sc);
-  const AdamArgs p = {net.n_params, sc.n_sq, grads, sc.sq, params, m, v,
+  carve(net, rows.N, 0, work, &sc, K);
+  const AdamArgs p = {K * net.n_params, sc.n_sq, grads, sc.sq, params, m, v,
                       lr_row, bc1_row, bc2_row, step, max_grad_norm, b1,
                       one_m_b1, b2, one_m_b2, eps};
   adam_kernel<<<1, FNT, 0, (cudaStream_t)stream_>>>(p);

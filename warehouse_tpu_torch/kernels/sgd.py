@@ -19,7 +19,15 @@ observation features (``csrc/mlp_learner.cuh``), so any observation width
 runs (a global view's 611); ``check_learner_fits`` raises for hidden layers
 too wide for a tile's rows to fit the card's shared memory.
 
-Inputs: ``params`` a dict keyed like ``ActorCriticMLP.state_dict``;
+With ``policy_groups`` (one group id per agent, the JAX wrappers' name)
+``params`` is a ``MultiPolicyActorCritic``'s dict: sample ``(t, b, a)``
+goes through group ``policy_groups[a]``'s MLP, its gradient to that group's
+params; the loss still averages over every sample of the minibatch, and one
+global-norm clip and one Adam step span all groups (``pallas/sgd.py:293-306``).
+The kernels' flat vector holds the groups' packed params in group order.
+
+Inputs: ``params`` a dict keyed like ``ActorCriticMLP.state_dict`` (or a
+``MultiPolicyActorCritic``'s, with ``policy_groups``);
 ``traj`` anything with the trajectory fields ``obs``, ``action``,
 ``log_prob``, ``value`` (``[T, B, A]``) and ``mask`` (``bool[T, B, A,
 5]``; read only with ``mask_actions``); ``adv_n`` advantages normalized
@@ -36,7 +44,8 @@ import torch
 
 from ..config import ADAM_B1, ADAM_B2, ADAM_EPS
 
-from ..models.policy import apply, num_hidden
+from ..models.policy import (apply, group_params, is_multi, num_groups,
+                             num_hidden)
 from ..ops.ppo_update import NEG_INF, minibatch_epochs, ppo_losses
 from ..optim import AdamState, clip_adam_step
 from . import build
@@ -69,10 +78,14 @@ def env_minibatches(traj, adv_n, targets, num_minibatches: int):
             for m in range(num_minibatches)]
 
 
-def _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff, mask_actions):
+def _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff, mask_actions,
+             policy_groups=None):
+    gids = None if policy_groups is None else torch.tensor(
+        [int(g) for g in policy_groups])
+
     def loss_fn(params, mb):
         obs, action, old_lp, old_v, adv, tgt, mask = mb
-        logits, value = apply(params, obs)
+        logits, value = apply(params, obs, gids)
         if mask_actions:
             logits = torch.where(mask, logits, NEG_INF)
         return ppo_losses(logits, value, action, old_lp, old_v, adv, tgt,
@@ -87,7 +100,7 @@ def ppo_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
                             kl_coeff, *, num_epochs: int,
                             num_minibatches: int, clip_eps: float,
                             value_coef: float, max_grad_norm: float,
-                            mask_actions: bool):
+                            mask_actions: bool, policy_groups=None):
     """The plain twin of ``ppo_sgd_phase``, on any device."""
     count0 = opt_state.count
 
@@ -99,7 +112,7 @@ def ppo_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
     return minibatch_epochs(
         params, opt_state,
         loss_fn=_loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
-                         mask_actions),
+                         mask_actions, policy_groups),
         minibatches=env_minibatches(traj, adv_n, targets, num_minibatches),
         num_epochs=num_epochs, update_fn=update_fn)
 
@@ -107,13 +120,14 @@ def ppo_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
 def ppo_minibatch_grads_reference(params, traj, adv_n, targets, mb_idx: int,
                                   ent_coef, kl_coeff, *,
                                   num_minibatches: int, clip_eps: float,
-                                  value_coef: float, mask_actions: bool):
+                                  value_coef: float, mask_actions: bool,
+                                  policy_groups=None):
     """The plain twin of ``ppo_minibatch_grads``: autograd on one
     minibatch."""
     mb = env_minibatches(traj, adv_n, targets, num_minibatches)[mb_idx]
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     total, aux = _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
-                          mask_actions)(leaves, mb)
+                          mask_actions, policy_groups)(leaves, mb)
     grads = torch.autograd.grad(total, list(leaves.values()))
     return ((total.detach(), tuple(a.detach() for a in aux)),
             dict(zip(leaves, grads)))
@@ -123,7 +137,13 @@ def ppo_minibatch_grads_reference(params, traj, adv_n, targets, mb_idx: int,
 
 def _layer_keys(params) -> list[tuple[list[str], list[str]]]:
     """Per dense layer of the packed vector: (weight keys, bias keys);
-    the head fuses logits and value."""
+    the head fuses logits and value. A multi-policy dict's layers come
+    group after group."""
+    if is_multi(params):
+        return [([f"policies.{g}.{k}" for k in wk],
+                 [f"policies.{g}.{k}" for k in bk])
+                for g in range(num_groups(params))
+                for wk, bk in _layer_keys(group_params(params, g))]
     keys = [([f"hidden.{i}.weight"], [f"hidden.{i}.bias"])
             for i in range(num_hidden(params))]
     return keys + [(["logits.weight", "value.weight"],
@@ -153,6 +173,14 @@ def unpack(flat: torch.Tensor, like) -> dict:
 
 
 def _dims(params, D: int) -> list[int]:
+    """The input width then the hidden widths of an MLP params dict or, for
+    a multi-policy dict, of every group (which must agree)."""
+    if is_multi(params):
+        dims = [_dims(group_params(params, g), D)
+                for g in range(num_groups(params))]
+        if any(d != dims[0] for d in dims):
+            raise ValueError(f"the policy groups' widths differ: {dims}")
+        return dims[0]
     dims = [D] + [params[f"hidden.{i}.weight"].shape[0]
                   for i in range(num_hidden(params))]
     if params["logits.weight"].shape != (N_ACT, dims[-1]):
@@ -183,8 +211,9 @@ def check_tile_smem(lib, n_hidden: int, dims_arr, dims, dev, what: str):
 def check_learner_fits(params, obs_dim: int, dev,
                        what: str = "SGD kernel") -> None:
     """Raise ``ValueError`` unless the MLP learner kernels (K3-K6) take
-    these params on observations ``obs_dim`` wide on the CUDA device
-    ``dev``. A trainer calls it when it is built."""
+    these params (a multi-policy dict's groups: K3/K4) on observations
+    ``obs_dim`` wide on the CUDA device ``dev``. A trainer calls it when it
+    is built."""
     dims = _dims(params, obs_dim)
     check_tile_smem(build.library(), len(dims) - 1, build.int_array(dims),
                     dims, dev, what)
@@ -229,13 +258,25 @@ class TrajLaunch:
 
 
 class _Launch(TrajLaunch):
-    """``TrajLaunch`` for the MLP's entry points (``csrc/sgd.cu``)."""
+    """``TrajLaunch`` for the MLP's entry points (``csrc/sgd.cu``); with
+    ``policy_groups`` the params are a multi-policy dict's."""
 
-    def __init__(self, params, traj, *args):
+    def __init__(self, params, traj, *args, policy_groups=None):
         super().__init__(traj, *args)
         dev = traj.obs.device
         dims = _dims(params, traj.obs.shape[-1])
-        self.shape = (len(dims) - 1, build.int_array(dims), *self.tbam)
+        multi = is_multi(params)
+        k = num_groups(params) if multi else 1
+        if multi != (policy_groups is not None) or multi and (
+                len(policy_groups) != self.tbam[2]
+                or max(policy_groups) + 1 != k):
+            raise ValueError(f"params of {k} policies do not fit "
+                             f"policy_groups={policy_groups}")
+        gmap = None if policy_groups is None else build.int_array(
+            [int(g) for g in policy_groups])
+        self.grouped = policy_groups is not None
+        self.shape = (len(dims) - 1, build.int_array(dims), *self.tbam, k,
+                      gmap)
         check_tile_smem(self.lib, *self.shape[:2], dims, dev, "SGD kernel")
         self.chunked = self.lib.wh_sgd_obs_chunks(*self.shape[:2]) > 1
         self.work = torch.empty(self.lib.wh_sgd_workspace_floats(*self.shape),
@@ -251,6 +292,7 @@ class _Launch(TrajLaunch):
         build.check(err, "ppo_minibatch_grads kernel launch")
         ppo_minibatch_grads.launches += 1
         ppo_minibatch_grads.chunked_launches += self.chunked
+        ppo_minibatch_grads.group_launches += self.grouped
 
     def clip_adam(self, p_flat, m_flat, v_flat, grads, rows, step: int,
                   max_grad_norm: float) -> None:
@@ -264,6 +306,7 @@ class _Launch(TrajLaunch):
         build.check(err, "ppo_sgd_phase kernel launch")
         ppo_sgd_phase.launches += 1
         ppo_sgd_phase.chunked_launches += self.chunked
+        ppo_sgd_phase.group_launches += self.grouped
 
 
 def _losses(sums, mb_n, value_coef, ent_coef, kl_coeff):
@@ -324,7 +367,7 @@ def ppo_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
                   lr_row, bc1_row, bc2_row, ent_coef, kl_coeff, *,
                   num_epochs: int, num_minibatches: int, clip_eps: float,
                   value_coef: float, max_grad_norm: float,
-                  mask_actions: bool):
+                  mask_actions: bool, policy_groups=None):
     """The whole SGD phase: ``(params, opt_state, losses)`` with
     ``losses`` the ``(total, pg, v, ent, kl)`` tuple of ``[E, M]``
     tensors. On CUDA tensors each step is K4's gradient kernels, then K3's
@@ -336,9 +379,10 @@ def ppo_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
             bc2_row, ent_coef, kl_coeff, num_epochs=num_epochs,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
             value_coef=value_coef, max_grad_norm=max_grad_norm,
-            mask_actions=mask_actions)
+            mask_actions=mask_actions, policy_groups=policy_groups)
     run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff,
-                  num_minibatches, clip_eps, value_coef, mask_actions)
+                  num_minibatches, clip_eps, value_coef, mask_actions,
+                  policy_groups=policy_groups)
     return sgd_phase_on_card(
         run, pack, unpack, params, opt_state, (lr_row, bc1_row, bc2_row),
         ent_coef, kl_coeff, num_epochs=num_epochs,
@@ -350,11 +394,13 @@ ppo_sgd_phase.launches = 0
 # The launches whose first layer ran over more than one chunk of the
 # observation (a global view's width).
 ppo_sgd_phase.chunked_launches = 0
+ppo_sgd_phase.group_launches = 0  # those that routed samples by group
 
 
 def ppo_minibatch_grads(params, traj, adv_n, targets, mb_idx: int, ent_coef,
                         kl_coeff, *, num_minibatches: int, clip_eps: float,
-                        value_coef: float, mask_actions: bool):
+                        value_coef: float, mask_actions: bool,
+                        policy_groups=None):
     """One minibatch's loss and gradient: ``((total, (pg, v, ent, kl)),
     grads)``, the ``value_and_grad`` contract. The kernels on CUDA
     tensors, the plain twin on CPU ones. ``launches`` counts their
@@ -363,9 +409,11 @@ def ppo_minibatch_grads(params, traj, adv_n, targets, mb_idx: int, ent_coef,
         return ppo_minibatch_grads_reference(
             params, traj, adv_n, targets, mb_idx, ent_coef, kl_coeff,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
-            value_coef=value_coef, mask_actions=mask_actions)
+            value_coef=value_coef, mask_actions=mask_actions,
+            policy_groups=policy_groups)
     run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff,
-                  num_minibatches, clip_eps, value_coef, mask_actions)
+                  num_minibatches, clip_eps, value_coef, mask_actions,
+                  policy_groups=policy_groups)
     return minibatch_grads_on_card(
         run, pack, unpack, params, mb_idx, ent_coef, kl_coeff,
         num_minibatches=num_minibatches, value_coef=value_coef)
@@ -373,3 +421,4 @@ def ppo_minibatch_grads(params, traj, adv_n, targets, mb_idx: int, ent_coef,
 
 ppo_minibatch_grads.launches = 0
 ppo_minibatch_grads.chunked_launches = 0
+ppo_minibatch_grads.group_launches = 0

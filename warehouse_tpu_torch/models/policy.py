@@ -2,7 +2,9 @@
 
 Ported: the feed-forward MLP, the conv-torso CNN and the recurrent (GRU /
 LSTM) policy, each a shared-parameter per-agent actor-critic applied to
-``[..., obs_dim]`` observations; the attention torso (``arch="attn"``) is
+``[..., obs_dim]`` observations, and ``MultiPolicyActorCritic``: K
+independent MLP or CNN policies selected per sample by a group id
+(``make_multi_policy_model``); the attention torso (``arch="attn"``) is
 not. Initialisation follows the flax models — orthogonal kernels with gain
 √2 on the hidden (encoder) layers, 0.01 on the logits head and 1.0 on the
 value head, lecun-normal input kernels and orthogonal recurrent kernels in
@@ -72,10 +74,18 @@ def num_hidden(params: dict) -> int:
     return sum(1 for k in params if k.endswith(".weight")) - 2
 
 
-def apply(params: dict, obs: torch.Tensor):
+def apply(params: dict, obs: torch.Tensor, group_ids=None):
     """The feed-forward policy on a params dict keyed like
     ``ActorCriticMLP.state_dict`` or ``ActorCriticCNN.state_dict`` (the
-    functional form the trainer and the SGD twins use)."""
+    functional form the trainer and the SGD twins use); for a
+    ``MultiPolicyActorCritic``'s dict, each sample's group's outputs, its
+    group from ``group_ids`` (ints broadcastable to ``obs.shape[:-1]``,
+    e.g. the ``[A]`` agent -> group map)."""
+    if is_multi(params):
+        if group_ids is None:
+            raise ValueError("multi-policy params need the samples' "
+                             "policy_groups")
+        return apply_multi(params, obs, group_ids)
     if is_cnn(params):
         return apply_cnn(params, obs)
     x = obs
@@ -320,6 +330,75 @@ def make_model(cfg: EnvConfig, arch: str = "mlp", hidden_dim: int = 128,
     return model.to(resolve_device(device))
 
 
+class MultiPolicyActorCritic(nn.Module):
+    """K independent feed-forward policies (``policies``, MLP or CNN) with
+    a static agent -> policy map (RLlib's ``policy_mapping_fn``):
+    ``forward(obs, group_ids)`` returns each sample's group's ``(logits,
+    value)``. All K sub-models run on every sample and each sample takes
+    its group's outputs by index (``torch.where``); flax's one-hot sum
+    gives the same values wherever the outputs are finite."""
+
+    def __init__(self, policies: Sequence[nn.Module]):
+        super().__init__()
+        self.policies = nn.ModuleList(policies)
+
+    def forward(self, obs: torch.Tensor, group_ids):
+        return apply_multi(dict(self.named_parameters()), obs, group_ids)
+
+
+def is_multi(params: dict) -> bool:
+    return any(k.startswith("policies.") for k in params)
+
+
+def num_groups(params: dict) -> int:
+    return len({k.split(".")[1] for k in params if k.startswith("policies.")})
+
+
+def group_params(params: dict, g: int) -> dict:
+    """Group ``g``'s sub-model params of a multi-policy dict, keyed like
+    the sub-model's own ``state_dict``."""
+    prefix = f"policies.{g}."
+    return {k[len(prefix):]: v for k, v in params.items()
+            if k.startswith(prefix)}
+
+
+def apply_multi(params: dict, obs: torch.Tensor, group_ids):
+    """``MultiPolicyActorCritic`` on its params dict: every group's
+    sub-model on all of ``obs``, then each sample's group's outputs."""
+    gids = torch.as_tensor(group_ids, device=obs.device)
+    logits = value = None
+    for g in range(num_groups(params)):
+        lg, v = apply(group_params(params, g), obs)
+        if logits is None:
+            logits, value = lg, v
+        else:
+            sel = gids == g
+            logits = torch.where(sel[..., None], lg, logits)
+            value = torch.where(sel, v, value)
+    return logits, value
+
+
+def make_multi_policy_model(cfg: EnvConfig, policy_groups, arch: str = "mlp",
+                            hidden_dim: int = 128, num_layers: int = 2,
+                            generator: torch.Generator | None = None,
+                            device=None) -> MultiPolicyActorCritic:
+    """K sub-models of ``arch`` ("mlp" or "cnn", drawn from ``generator``
+    in group order) for ``policy_groups``, a tuple of one group id
+    ``0..K-1`` per agent, on ``device`` (the card by default); raises the
+    JAX package's two ``ValueError``s for another map."""
+    if len(policy_groups) != cfg.num_agents:
+        raise ValueError("policy_groups must have one entry per agent")
+    k = max(policy_groups) + 1
+    if sorted(set(policy_groups)) != list(range(k)):
+        raise ValueError("group ids must be 0..K-1 with no gaps")
+    if arch not in ("mlp", "cnn"):
+        raise ValueError(f"policy_groups with arch={arch!r}: the groups "
+                         "take feed-forward policies")
+    return MultiPolicyActorCritic(
+        [make_model(cfg, arch, hidden_dim, num_layers, generator, device)
+         for _ in range(k)]).to(resolve_device(device))
+
+
 def _dense_np(sub, name: str, fan_in, bias: bool = True):
     """A flax Dense's ``kernel [in, out]`` (and bias) as ``Linear`` weight
     ``[out, in]`` (and bias), shapes checked."""
@@ -423,8 +502,17 @@ def params_from_flax(params_np) -> dict:
     (encoder) layers or the CNN's trunk, logits head, value head — and
     each kernel ``[in, out]`` becomes a ``Linear.weight [out, in]``; a
     recurrent tree's cell gates become ``cell.<gate>.*``, a CNN tree's
-    ``Conv_i`` become ``conv.i.*``. Every shape is checked."""
+    ``Conv_i`` become ``conv.i.*``. A ``MultiPolicyActorCritic`` tree
+    (``policies_g`` sub-trees, g = 0..K-1) becomes ``policies.g.*`` keys,
+    each sub-tree converted as above. Every shape is checked."""
     dense = params_np.get("params", params_np)
+    if any(n.startswith("policies_") for n in dense):
+        names = {f"policies_{g}" for g in range(len(dense))}
+        if set(dense) != names:
+            raise ValueError(f"not a multi-policy tree with groups 0..K-1: "
+                             f"{sorted(dense)}")
+        return {f"policies.{g}.{k}": v for g in range(len(dense))
+                for k, v in params_from_flax(dense[f"policies_{g}"]).items()}
     if "GRUCell_0" in dense or "OptimizedLSTMCell_0" in dense:
         return _rnn_params_from_flax(dense)
     if any(n.startswith("Conv_") for n in dense):

@@ -11,7 +11,9 @@ policy:
 argmax by default, or a categorical sample (``explore=True``) on the same
 key chain as the JAX ``Policy``. A recurrent policy threads its carry:
 ``initial_state`` (alias ``get_initial_state``) gives the zero carry and
-``compute_actions(obs, carry)`` returns ``(actions, new_carry)``. The
+``compute_actions(obs, carry)`` returns ``(actions, new_carry)``. With
+``policy_groups`` the model is a ``MultiPolicyActorCritic`` of MLP or CNN
+policies and agent a acts through group ``policy_groups[a]``'s. The
 policy runs on its model's device.
 """
 
@@ -26,7 +28,8 @@ import torch
 from .config import EnvConfig, TrainConfig
 
 from . import rng as _rng
-from .models.policy import ActorCriticCNN, ActorCriticMLP, ActorCriticRNN
+from .models.policy import (ActorCriticCNN, ActorCriticMLP, ActorCriticRNN,
+                            MultiPolicyActorCritic)
 from .ops.move import valid_action_mask
 from .ops.ppo_update import first_argmax
 
@@ -60,25 +63,38 @@ class Policy:
     """A policy ready for inference on its model's device."""
 
     def __init__(self, env_cfg: EnvConfig,
-                 model: ActorCriticMLP | ActorCriticCNN | ActorCriticRNN,
+                 model: ActorCriticMLP | ActorCriticCNN | ActorCriticRNN
+                 | MultiPolicyActorCritic,
                  arch: str | None = None, mask_actions: bool = False,
                  policy_groups: tuple | None = None):
-        recurrent = isinstance(model, ActorCriticRNN)
-        own = (model.cell_type if recurrent
-               else "cnn" if isinstance(model, ActorCriticCNN) else "mlp")
+        multi = isinstance(model, MultiPolicyActorCritic)
+        if multi != (policy_groups is not None) or multi and (
+                len(policy_groups) != env_cfg.num_agents
+                or sorted(set(policy_groups)) != list(
+                    range(len(model.policies)))):
+            raise ValueError(
+                f"a {type(model).__name__} does not fit policy_groups="
+                f"{policy_groups} on {env_cfg.num_agents} agents")
+        sub = model.policies[0] if multi else model
+        recurrent = isinstance(sub, ActorCriticRNN)
+        own = (sub.cell_type if recurrent
+               else "cnn" if isinstance(sub, ActorCriticCNN) else "mlp")
         arch = arch or own
         if arch not in ("mlp", "cnn", "gru", "lstm") or (
-                policy_groups is not None):
+                multi and arch not in ("mlp", "cnn")):
             raise NotImplementedError(
-                "only a shared MLP, CNN, GRU or LSTM policy is ported for "
-                "serving")
-        if arch != own:
+                "only an MLP, CNN, GRU or LSTM policy, or policy groups of "
+                "MLPs or CNNs, is ported for serving")
+        if arch != own or multi and any(
+                type(m) is not type(sub) for m in model.policies):
             raise ValueError(f"arch={arch!r} does not fit the model")
         self.env_cfg = env_cfg
         self.model = model
         self.arch = arch
         self.recurrent = recurrent
         self.mask_actions = mask_actions
+        self.policy_groups = (None if policy_groups is None
+                              else tuple(int(g) for g in policy_groups))
         self.device = next(model.parameters()).device
         self._key = _rng.prng_key(0, self.device)
 
@@ -89,7 +105,7 @@ class Policy:
         without it) from a self-describing checkpoint directory, on the
         card unless ``device="cpu"``."""
         from .device import resolve_device
-        from .models import make_model
+        from .models import make_model, make_multi_policy_model
         from .train.checkpoint import restore_params
 
         device = resolve_device(device)
@@ -100,22 +116,24 @@ class Policy:
                 "metadata; rebuild the model and use Policy(...)")
         with open(meta_path) as f:
             meta = json.load(f)
-        if meta.get("policy_groups") is not None:
-            raise NotImplementedError(
-                "a checkpoint with policy_groups: the multi-policy model is "
-                "not ported yet (ROADMAP M-3)")
         if meta.get("model_dtype", "float32") != "float32":
             raise NotImplementedError(
                 f"model_dtype={meta['model_dtype']!r} is not ported yet "
                 "(ROADMAP T-4)")
         env_cfg = EnvConfig.from_dict(meta["env_config"])
-        model = make_model(env_cfg, arch=meta["arch"],
-                           hidden_dim=meta["hidden_dim"],
-                           num_layers=meta["num_layers"], device=device)
+        groups = meta.get("policy_groups")
+        widths = dict(arch=meta["arch"], hidden_dim=meta["hidden_dim"],
+                      num_layers=meta["num_layers"], device=device)
+        if groups is not None:
+            groups = tuple(int(g) for g in groups)
+            model = make_multi_policy_model(env_cfg, groups, **widths)
+        else:
+            model = make_model(env_cfg, **widths)
         model.load_state_dict(restore_params(checkpoint_dir, step,
                                              device=device))
         return cls(env_cfg, model, arch=meta["arch"],
-                   mask_actions=meta.get("mask_actions", False))
+                   mask_actions=meta.get("mask_actions", False),
+                   policy_groups=groups)
 
     def initial_state(self, batch_size: int = 1):
         """The zero carry of a recurrent policy for ``batch_size`` envs
@@ -150,6 +168,8 @@ class Policy:
         with torch.no_grad():
             if self.recurrent:
                 logits, _, state = self.model(obs, state)
+            elif self.policy_groups is not None:
+                logits, _ = self.model(obs, torch.tensor(self.policy_groups))
             else:
                 logits, _ = self.model(obs)
         if self.mask_actions and agent_pos is not None:

@@ -41,7 +41,6 @@ def _unported(args) -> list[str]:
         out.append(f"--algo impala --arch {args.arch} (the IMPALA learner "
                    "takes the MLP policy; ROADMAP M-7)")
     for flag, on, item in (
-            ("--policy-groups", args.policy_groups is not None, "M-3"),
             ("--profile-dir", args.profile_dir is not None, "M-6"),
             ("--tensorboard-dir", args.tensorboard_dir is not None, "M-6")):
         if on:
@@ -137,6 +136,19 @@ def main(argv=None) -> None:
     unported = _unported(args)
     if unported:
         raise SystemExit("not ported yet: " + ", ".join(unported))
+    policy_groups = None
+    if args.policy_groups:
+        policy_groups = tuple(int(x) for x in args.policy_groups.split(","))
+        # The JAX CLI's gates (warehouse_tpu/train/__main__.py:199-210).
+        if args.algo == "impala":
+            raise SystemExit("--algo impala supports feed-forward archs "
+                             "with a shared policy")
+        if args.arch in ("gru", "lstm"):
+            raise SystemExit("--policy-groups is not supported with "
+                             "recurrent archs")
+        if args.eval_every:
+            raise SystemExit("--eval-every with --policy-groups: the "
+                             "evaluation takes a shared policy")
 
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
@@ -165,14 +177,18 @@ def main(argv=None) -> None:
     recurrent = args.arch in ("gru", "lstm")
     build = (make_train_impala if args.algo == "impala"
              else make_train_rnn if recurrent else make_train)
+    groups_kw = {} if policy_groups is None else {
+        "policy_groups": policy_groups}
     try:
-        trainer = build(env_cfg, tcfg, arch=args.arch, device=device)
+        trainer = build(env_cfg, tcfg, arch=args.arch, device=device,
+                        **groups_kw)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from e
     log.info("device: %s  env: %s", device, env_cfg.to_json())
     if args.checkpoint_every:
         # Serving and evaluation rebuild the model from this file alone.
-        write_policy_meta(args.checkpoint_dir, env_cfg, tcfg, arch=args.arch)
+        write_policy_meta(args.checkpoint_dir, env_cfg, tcfg, arch=args.arch,
+                          policy_groups=policy_groups)
 
     rs = trainer.init(rng.prng_key(args.seed, device))
     start_update = 0

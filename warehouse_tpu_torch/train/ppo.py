@@ -24,8 +24,12 @@ on the CPU their plain twins run. ``PPOTrainer.plain_step`` is the same
 update through the plain twins on any device, for measurement and tests.
 
 Ported: the MLP and the CNN policy (``arch="cnn"``; its
-``policy_groups`` gate raises ``ValueError`` as the JAX trainer's does,
-:244-247), one shared policy, float32, ``minibatch_mode=
+``policy_groups`` gate raises ``ValueError`` as the JAX trainer's fused
+learner does, :244-247, ROADMAP T-3b), one shared policy or, for the MLP,
+``policy_groups`` (:94-113: K independent policies, a
+``MultiPolicyActorCritic``, each agent acting and learning through its
+group's; K2 and K3/K4 route each row by its agent's group, the bootstrap
+and last values take each agent's group's), float32, ``minibatch_mode=
 "env"`` with ``epoch_shuffle="once"``, one gradient per minibatch,
 entropy anneal, adaptive KL, truncation bootstrap, lr anneal, action
 masking (K2 floors invalid moves, the loss re-applies the mask),
@@ -60,7 +64,8 @@ from ..kernels.sgd import (check_learner_fits, normalize_adv_env_minibatch,
                            ppo_sgd_phase, ppo_sgd_phase_reference)
 from ..kernels.sgd_cnn import (check_cnn_learner_fits, ppo_cnn_sgd_phase,
                                ppo_cnn_sgd_phase_reference)
-from ..models.policy import apply, make_model, params_from_flax
+from ..models.policy import (apply, make_model, make_multi_policy_model,
+                             params_from_flax)
 from ..ops.gae import gae
 from ..ops.ppo_update import adaptive_kl_coeff, entropy_coef_at
 from ..optim import AdamState, ClipAdam, make_optimizer, opt_state_from_optax
@@ -99,6 +104,7 @@ class PPOTrainer(NamedTuple):
     env_cfg: EnvConfig
     tcfg: TrainConfig
     device: torch.device
+    policy_groups: tuple | None = None  # agent -> policy group, or None
 
 
 def _not_ported(what: str, item: str):
@@ -114,9 +120,8 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh,
         _not_ported(f"arch={arch!r}", "M-7")
     if arch == "cnn" and policy_groups is not None:
         raise ValueError("policy_groups with arch='cnn': the CNN learner is "
-                         "single-policy")
+                         "single-policy (ROADMAP T-3b)")
     for what, off, item in (
-            ("policy_groups", policy_groups is None, "M-3, T-3"),
             ("a mesh", mesh is None, "M-8"),
             ("model_dtype='bfloat16'", tcfg.model_dtype == "float32", "T-4"),
             ("minibatch_mode='flat'", tcfg.minibatch_mode == "env", "M-4"),
@@ -164,17 +169,29 @@ def runner_state_from_jax(rs_np, device=None) -> RunnerState:
         kl_coeff=_tensor(rs_np.kl_coeff, device).to(torch.float32))
 
 
+def build_model(cfg: EnvConfig, tcfg: TrainConfig, arch: str, device,
+                policy_groups=None, generator=None) -> torch.nn.Module:
+    """The policy of ``arch`` at ``tcfg``'s widths or, with
+    ``policy_groups``, the ``MultiPolicyActorCritic`` of one per group."""
+    if policy_groups is None:
+        return make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
+                          generator, device)
+    return make_multi_policy_model(cfg, policy_groups, arch, tcfg.hidden_dim,
+                                   tcfg.num_layers, generator, device)
+
+
 def init_parts(cfg: EnvConfig, tcfg: TrainConfig, arch: str, device,
-               key: torch.Tensor):
+               key: torch.Tensor, policy_groups=None):
     """The start of a run from ``key``, as the JAX trainers' ``init``:
     ``split(key, 3)``; the params from a ``torch.Generator`` seeded by the
-    first key (flax's bits are not reproduced); env b reset from
-    ``fold_in(ekey, b)``; the shard key ``fold_in(skey, 0)``. Returns
-    ``(params, env_state, obs, key)``."""
+    first key (flax's bits are not reproduced; with ``policy_groups`` the
+    groups' sub-models in group order); env b reset from ``fold_in(ekey,
+    b)``; the shard key ``fold_in(skey, 0)``. Returns ``(params,
+    env_state, obs, key)``."""
     pkey, ekey, skey = rng.split(key.to(device), 3)
     seed = int(pkey[0]) << 32 | int(pkey[1])
-    init_model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
-                            torch.Generator().manual_seed(seed), device)
+    init_model = build_model(cfg, tcfg, arch, device, policy_groups,
+                             torch.Generator().manual_seed(seed))
     params = {k: v.detach().clone()
               for k, v in init_model.state_dict().items()}
     env_state, obs = engine.reset(
@@ -215,25 +232,33 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
                device=None, mesh=None,
                policy_groups: tuple | None = None) -> PPOTrainer:
     """Build the trainer for ``tcfg`` on ``device``: the card by default,
-    the CPU (plain twins) with ``device="cpu"``."""
+    the CPU (plain twins) with ``device="cpu"``. ``policy_groups``: a tuple
+    of one group id ``0..K-1`` per agent, K independent MLP policies."""
     _check_config(env_cfg, tcfg, arch, mesh, policy_groups)
     device = resolve_device(device)
     cfg = env_cfg.replace(auto_reset=False)
     B, T, M = tcfg.num_envs, tcfg.unroll_length, tcfg.num_minibatches
     n_steps = tcfg.ppo_epochs * M
     optimizer = make_optimizer(tcfg)
-    model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
-                       device=device)
+    if policy_groups is not None:
+        policy_groups = tuple(int(g) for g in policy_groups)
+    model = build_model(cfg, tcfg, arch, device, policy_groups)
     if device.type == "cuda":  # refuse by name what no kernel route holds
-        check_act_fits(cfg, model, device)
+        check_act_fits(cfg, model, device, policy_groups)
         (check_cnn_learner_fits if arch == "cnn" else check_learner_fits)(
             model.state_dict(), cfg.obs_dim, device)
     sgd_fn, sgd_reference = (
         (ppo_cnn_sgd_phase, ppo_cnn_sgd_phase_reference) if arch == "cnn"
         else (ppo_sgd_phase, ppo_sgd_phase_reference))
+    # Each sample's group by its agent (broadcast over [..., B, A]).
+    gids = None if policy_groups is None else torch.tensor(policy_groups,
+                                                           device=device)
+    group_kw = {} if policy_groups is None else {
+        "policy_groups": policy_groups}
 
     def init(key: torch.Tensor) -> RunnerState:
-        params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key)
+        params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key,
+                                                 policy_groups)
         return RunnerState(
             params=params, opt_state=optimizer.init(params),
             env_state=env_state, obs=obs, key=key,
@@ -250,20 +275,21 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
         model.load_state_dict(rs.params)
         new_env, roll, reset_key, key = act_fn(
             cfg, model, env_in, T, key, mask_actions=tcfg.mask_actions,
-            shaping_coef=tcfg.shaping_coef, gamma=tcfg.gamma, arch=arch)
+            shaping_coef=tcfg.shaping_coef, gamma=tcfg.gamma, arch=arch,
+            policy_groups=policy_groups)
         env_state, last_obs, _ = reset_truncated_batch(cfg, new_env,
                                                        reset_key)
         boot = torch.zeros_like(roll.value)
         if tcfg.bootstrap_truncated:
             # done is only ever set on the chunk's last step.
-            boot[-1] = apply(rs.params, observe_batch(cfg, new_env))[1]
+            boot[-1] = apply(rs.params, observe_batch(cfg, new_env), gids)[1]
         traj = Transition(roll.obs, roll.action, roll.log_prob, roll.value,
                           roll.reward,
                           roll.truncated[:, :, None].expand_as(roll.reward),
                           roll.mask, boot)
         mark("acting")
 
-        _, last_value = apply(rs.params, last_obs)
+        _, last_value = apply(rs.params, last_obs, gids)
         adv, targets = gae(traj.reward, traj.value, traj.done, last_value,
                            tcfg.gamma, tcfg.gae_lambda,
                            boot if tcfg.bootstrap_truncated else None)
@@ -277,7 +303,7 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
             rs.kl_coeff, num_epochs=tcfg.ppo_epochs, num_minibatches=M,
             clip_eps=tcfg.clip_eps, value_coef=tcfg.value_coef,
             max_grad_norm=tcfg.max_grad_norm,
-            mask_actions=tcfg.mask_actions)
+            mask_actions=tcfg.mask_actions, **group_kw)
         mark("sgd")
 
         # The key split the JAX XLA scaffold spends on its partition.
@@ -305,4 +331,4 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
     return PPOTrainer(init=init, train_step=train_step,
                       train_many=train_many, plain_step=plain_step,
                       model=model, optimizer=optimizer, env_cfg=cfg,
-                      tcfg=tcfg, device=device)
+                      tcfg=tcfg, device=device, policy_groups=policy_groups)
