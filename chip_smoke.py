@@ -150,7 +150,29 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    K3/K4), a learning check on deliveries per env-step over updates 91-100,
    a checkpoint at 100 whose ``serve.Policy.from_checkpoint`` gives the
    trained model's argmax actions; the curve goes to
-   ``runs/torch_shelves_groups/metrics.jsonl``.
+   ``runs/torch_shelves_groups/metrics.jsonl``;
+26. ``bf16_check``: the learners on bf16 operands (``--model-dtype
+   bfloat16``, ``matmul_dtype="bfloat16"``) against their bf16 twins
+   (``Bf16Linear`` / ``Bf16Conv``), with the checks of ``k3_check`` /
+   ``k4_check`` / ``k8_check`` / ``k9_check``: K3 / K4 at config 4, at D =
+   611 (the shelves global recipe) and with the groups ``(0, 0, 0, 1, 1,
+   1)``; K8 / K9 for the LSTM and the GRU from a carry of bf16 values; K11 /
+   K12 on the 5x5 window and the 9x9 map: every tensor held in norm,
+   ||kernel - twin|| <= 2e-4 ||twin|| for a gradient and 3e-3 ||twin|| +
+   the f32 atol x sqrt(n) for a phase's params, moments and losses, the
+   f32 twin beyond each bound; K3, K8 and K11 reruns bit-equal;
+27. ``gru_bf16_train`` (main path): ``--arch gru --model-dtype bfloat16`` at
+   config 4 (the JAX package's recurrent fast config,
+   ``runs/r3_curves/config4_gru_fast.jsonl``), the first update held against
+   the plain path's, then the first 40 updates of a 300-update run (K7 in
+   float32 + K8/K9 on bf16 operands, a bf16 carry), a learning check on
+   deliveries per env-step over updates 31-40, the trained policy served
+   with its bf16 carry; the curve goes to ``runs/torch_gru_bf16/
+   metrics.jsonl``;
+28. ``ppo_bf16_train`` / ``cnn_bf16_train`` (main paths): 10 config-4
+   updates of the MLP (K2 + K3/K4 on bf16 operands) and of the CNN (K10 +
+   K11/K12 on bf16 operands) at ``--model-dtype bfloat16``, the first
+   update held against the plain path's, the trained policy served.
 
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit. The kernels' launch counts are zeroed just before each
@@ -158,8 +180,10 @@ main path and read just after it. The last lines are the kernels' JSON line
 (each kernel's launches on the main paths, its error against its twin, its
 time beside the twin's and beside its bound: the larger of its inputs and
 outputs' bytes over 3.35 TB/s and its float operations over 67 TFLOP/s,
-the card's published float32 rates), the card's name and power limit from
-``nvidia-smi``, and the device line.
+the card's published float32 rates, or for a bf16 entry over the tensor
+cores' 989 TFLOP/s, with ``cuda_core_bound_ms`` at 67 TFLOP/s beside it),
+the card's name and power limit from ``nvidia-smi``, and the device
+line.
 There is no CPU path: without a CUDA device the script exits non-zero.
 
 ``python3 chip_smoke.py --profile-rnn`` (``--profile-cnn``) runs, instead
@@ -190,8 +214,9 @@ from warehouse_tpu_torch.kernels import (act, act_rnn, build, rollout, sgd,
                                          sgd_cnn, sgd_rnn, vtrace_sgd)
 from warehouse_tpu_torch.models import (ActorCriticCNN, make_model,
                                         make_multi_policy_model)
-from warehouse_tpu_torch.models.policy import (apply, apply_rnn, cnn_dims,
-                                               group_params, is_multi)
+from warehouse_tpu_torch.models.policy import (apply, apply_rnn, bf16_round,
+                                               cnn_dims, group_params,
+                                               is_multi, model_precision)
 from warehouse_tpu_torch.ops.gae import gae
 from warehouse_tpu_torch.ops.move import valid_action_mask
 from warehouse_tpu_torch.ops.pathing import potential
@@ -247,6 +272,7 @@ GROUPS_METRICS_OUT = "runs/torch_shelves_groups/metrics.jsonl"
 STEP_METRIC_TOL = (1e-3, 5e-5)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (published)
 PEAK_F32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+PEAK_BF16_PER_S = 989e12    # H100 SXM bf16 x bf16 -> f32, tensor cores, dense
 # K3/K4 against the plain twin at config 4: (rtol, atol) per quantity.
 # The JAX suite's bounds (tests/test_grad_kernel.py:151-166, 185-190,
 # set at 16 samples per minibatch); both sides sum 65536 samples per step
@@ -268,6 +294,25 @@ RNN_MB_LOSS_TOL = (0.0, 1e-6)
 CNN_TOL = {"losses": (1e-5, 2e-6), "params": (1e-5, 1e-6),
            "mu": (1e-5, 1e-7), "nu": (1e-5, 1e-10), "grads": (1e-4, 1e-6),
            "mb_losses": (0.0, 1e-6)}
+# bf16 operands (matmul_dtype="bfloat16"): a learner kernel against its bf16
+# twin. Where a float32 value is one ulp off between the two (another
+# summation order, another expf) it can round to the neighbouring bf16
+# operand, which moves that product by up to 2^-8, and Adam carries such a
+# change into every later step: the f32 bounds above do not hold
+# elementwise. Each tensor is held in norm instead, ||kernel - twin|| <=
+# rel ||twin|| + atol sqrt(n) (``norm_ratio`` at most 1): a minibatch's
+# gradient at BF16_GRAD_REL with atol 0, a phase's params, moments and
+# losses at BF16_PHASE_REL with the f32 table's atol (a bias that Adam moves
+# from zero has a small norm). Measured on the H100 at config 4, D = 611,
+# groups and S = 9: gradients at most 2.2e-5 apart in relative norm, the
+# f32 twin 4.3e-3 to 0.038 away; phases at most 0.28 of their bound, the
+# f32 twin 3.4 to 56 times it. The f32 twin, which rounds nothing, must lie
+# beyond both bounds (``f32_twin_ratio``), so that each bound tells a
+# kernel that skips the rounding of an operand from one that does not.
+BF16 = "bfloat16"
+BF16_GRAD_REL, BF16_PHASE_REL = 2e-4, 3e-3
+BF16_FF_UPDATES = 10  # updates of the ppo_bf16_train and cnn_bf16_train paths
+BF16_METRICS_OUT = "runs/torch_gru_bf16/metrics.jsonl"
 
 
 def nvidia_smi() -> str:
@@ -353,15 +398,21 @@ def nbytes(*xs) -> int:
     return total
 
 
-def bound(n_bytes: float, flops: float) -> dict:
+def bound(n_bytes: float, flops: float, bf16: bool = False) -> dict:
     """The least time the card could take: each input read once and each
     output written once at the memory rate, or the float operations at the
-    float32 rate, whichever is larger. Integer env work is not counted."""
+    card's peak for their operands, whichever is larger: float32's or, with
+    ``bf16`` (products of bf16 operands summed in float32), the tensor
+    cores' bf16 rate. A bf16 bound also gives ``cuda_core_bound_ms``, the
+    same work at the float32 rate (the rate the kernels multiply at today).
+    Integer env work is not counted."""
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_F32_PER_S * 1e3
+    by_ops = flops / (PEAK_BF16_PER_S if bf16 else PEAK_F32_PER_S) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bytes": n_bytes, "flops": flops}
+            "bytes": n_bytes, "flops": flops,
+            **({"cuda_core_bound_ms": max(
+                by_bytes, flops / PEAK_F32_PER_S * 1e3)} if bf16 else {})}
 
 
 def mlp_macs(params) -> tuple[int, int]:
@@ -652,6 +703,58 @@ def tree_err(a, b, rtol, atol):
     return max(e for e, _ in errs), max(r for _, r in errs)
 
 
+def norm_ratio(a, b, rel, atol=0.0, stack=False) -> float:
+    """The largest ||a - b|| / (rel ||b|| + atol sqrt(n)) over a dict's or a
+    tuple's tensors: at most 1 within the bf16 bound. With ``stack`` the
+    tuple's tensors count as one (the loss terms, whose KL term is near
+    zero on a first epoch)."""
+    if stack:
+        a, b = (torch.stack(tuple(a)),), (torch.stack(tuple(b)),)
+    pairs = ([(a[k], b[k]) for k in b] if isinstance(b, dict)
+             else zip(a, b))
+    return max(float((x.double() - y.double()).norm()
+                     / (rel * y.double().norm()
+                        + atol * y.numel() ** 0.5).clamp_min(1e-30))
+               for x, y in pairs)
+
+
+def phase_norm_ratios(a, b, tol) -> dict:
+    """{quantity: ``norm_ratio``} of a phase's ``(params, optimizer state,
+    losses)`` ``a`` against ``b`` at BF16_PHASE_REL with ``tol``'s atol."""
+    (pa, oa, la), (pb, ob, lb) = a, b
+    pairs = {"losses": (la, lb), "params": (pa, pb), "mu": (oa.mu, ob.mu),
+             "nu": (oa.nu, ob.nu)}
+    return {k: norm_ratio(*v, BF16_PHASE_REL, tol[k][1], stack=k == "losses")
+            for k, v in pairs.items()}
+
+
+def f32_twin_ratio(ref, args, kw, want, tol=None) -> float:
+    """How far the f32 twin (``ref`` without ``matmul_dtype``) lies from the
+    bf16 twin's result ``want``, in units of the bf16 bound: with ``tol``,
+    a phase's largest ``phase_norm_ratios``; without, a minibatch's
+    gradient at BF16_GRAD_REL. The check requires it above 1."""
+    got = ref(*args, **{k: v for k, v in kw.items() if k != "matmul_dtype"})
+    if tol is not None:
+        return max(phase_norm_ratios(got, want, tol).values())
+    return norm_ratio(got[1], want[1], BF16_GRAD_REL)
+
+
+def within(err, ratios) -> bool:
+    """``err`` ({key: (max abs error, max ratio)}) in bounds: every ratio at
+    most 1 or, with ``ratios`` (a bf16 check's ``norm_ratio``s), every one
+    of those at most 1."""
+    return all(r <= 1.0 for r in (
+        ratios.values() if ratios is not None else (r for _, r in
+                                                     err.values())))
+
+
+def check_line(K, bf16, phase):
+    """The JSON line's head: the f32 check's phase, or ``bf16_check`` with
+    the kernel named."""
+    return ({"phase": "bf16_check", "kernel": K.lower(),
+             "matmul_dtype": BF16} if bf16 else {"phase": phase})
+
+
 def sgd_inputs(dev, cfg, arch="mlp", schedule=TRAIN_SCHEDULE, tcfg=None,
                groups=None):
     """One trajectory for the SGD checks, config 4's or ``tcfg``'s: a K2
@@ -681,11 +784,12 @@ def sgd_inputs(dev, cfg, arch="mlp", schedule=TRAIN_SCHEDULE, tcfg=None,
     return tcfg, tr, rs, traj, adv_n, targets, ent
 
 
-def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None):
+def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None,
+             bf16=False):
     """K3 or, with ``cnn``, K11 against its plain twin, a rerun, timed;
     on config 4's trajectory or one of ``tcfg`` on ``cfg``; with
     ``groups``, K3 on the multi-policy params, its group count moving by a
-    launch per step."""
+    launch per step; with ``bf16``, both on bf16 operands."""
     K, phase, phase_ref, tol = (
         ("K11", sgd_cnn.ppo_cnn_sgd_phase,
          sgd_cnn.ppo_cnn_sgd_phase_reference, CNN_TOL) if cnn else
@@ -700,19 +804,28 @@ def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None):
     kw = dict(num_epochs=E, num_minibatches=M, clip_eps=tcfg.clip_eps,
               value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
               mask_actions=tcfg.mask_actions,
-              **({} if groups is None else {"policy_groups": groups}))
+              **({} if groups is None else {"policy_groups": groups}),
+              **({"matmul_dtype": BF16} if bf16 else {}))
+    what = K + (" bf16" if bf16 else "")
     grouped = getattr(phase, "group_launches", 0)
+    n_bf16 = phase.bf16_launches
     pk, ok, lk = phase(*args, **kw)
     require(getattr(phase, "group_launches", 0)
             == grouped + (E * M if groups else 0),
-            f"{K}: the group count did not show the group route")
+            f"{what}: the group count did not show the group route")
+    require(phase.bf16_launches == n_bf16 + (E * M if bf16 else 0),
+            f"{what}: the bf16 count did not show the bf16 route")
     pr, orf, lr_ = phase_ref(*args, **kw)
     p2, o2, l2 = phase(*args, **kw)
     torch.cuda.synchronize()
-    err = {"losses": tree_err(lk, lr_, *tol["losses"]),
-           "params": tree_err(pk, pr, *tol["params"]),
-           "mu": tree_err(ok.mu, orf.mu, *tol["mu"]),
-           "nu": tree_err(ok.nu, orf.nu, *tol["nu"])}
+    pairs = {"losses": (lk, lr_), "params": (pk, pr), "mu": (ok.mu, orf.mu),
+             "nu": (ok.nu, orf.nu)}
+    err = {k: tree_err(*v, *tol[k]) for k, v in pairs.items()}
+    if bf16:
+        ratios = phase_norm_ratios((pk, ok, lk), (pr, orf, lr_), tol)
+        f32_ratio = f32_twin_ratio(phase_ref, args, kw, (pr, orf, lr_), tol)
+    else:
+        ratios = None
     bit_equal = (all(bits_equal(pk[k], p2[k]) and bits_equal(ok.mu[k],
                                                              o2.mu[k])
                      and bits_equal(ok.nu[k], o2.nu[k]) for k in pk)
@@ -720,7 +833,7 @@ def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None):
     moved = max(float((pk[k] - rs.params[k]).abs().max()) for k in pk)
     k_ms = timed(lambda: phase(*args, **kw), 5)
     p_ms = timed(lambda: phase_ref(*args, **kw), 3)
-    emit({"phase": f"{K.lower()}_check", "config": name,
+    emit({**check_line(K, bf16, f"{K.lower()}_check"), "config": name,
           "obs_dim": cfg.obs_dim, "B": traj.obs.shape[1], "T": SLICE_T,
           "policy_groups": groups, "epochs": E, "minibatches": M,
           "samples_per_minibatch": traj.obs.shape[0] * traj.obs.shape[1]
@@ -728,24 +841,30 @@ def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None):
           "max_abs_err": {k: e for k, (e, _) in err.items()},
           "tol_ratio": {k: r for k, (_, r) in err.items()},
           "tol": {k: tol[k] for k in err},
+          **({"norm_ratio": ratios, "rel_bound": BF16_PHASE_REL,
+              "f32_twin_norm_ratio": f32_ratio} if bf16 else {}),
           "bit_equal_rerun": bit_equal, "max_param_step": moved,
           "kernel_ms": k_ms, "plain_ms": p_ms})
-    require(all(r <= 1.0 for _, r in err.values()),
-            f"{K} differs from its twin: {err}")
-    require(bit_equal, f"{K}: a second run gave other bits")
-    require(moved > 0.0, f"{K} did not move the params")
+    require(within(err, ratios),
+            f"{what} differs from its twin: {err} {ratios}")
+    require(not bf16 or f32_ratio > 1.0,
+            f"{what}: the f32 twin lies within the bf16 bound")
+    require(bit_equal, f"{what}: a second run gave other bits")
+    require(moved > 0.0, f"{what} did not move the params")
     fwd, dx = ff_macs(rs.params)
     n = traj.obs.shape[0] * traj.obs.shape[1] * cfg.num_agents  # per epoch
     bnd = bound(nbytes(traj.obs, traj.action, traj.log_prob, traj.value,
                        adv_n, targets, rows, lk)
                 + 2 * nbytes(rs.params, rs.opt_state.mu, rs.opt_state.nu),
-                2.0 * (2 * fwd + dx) * n * E)
+                2.0 * (2 * fwd + dx) * n * E, bf16)
     return err["params"][0], k_ms, p_ms, bnd
 
 
-def k4_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None):
+def k4_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None,
+             bf16=False):
     """K4 or, with ``cnn``, K12 against autograd on every minibatch (with
-    ``groups``: of the multi-policy loss)."""
+    ``groups``: of the multi-policy loss; with ``bf16``: both on bf16
+    operands)."""
     K, grads_fn, grads_ref, tol, loss_key = (
         ("K12", sgd_cnn.ppo_cnn_minibatch_grads,
          sgd_cnn.ppo_cnn_minibatch_grads_reference, CNN_TOL, "mb_losses")
@@ -758,33 +877,48 @@ def k4_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None):
     M = tcfg.num_minibatches
     kw = dict(num_minibatches=M, clip_eps=tcfg.clip_eps,
               value_coef=tcfg.value_coef, mask_actions=tcfg.mask_actions,
-              **({} if groups is None else {"policy_groups": groups}))
+              **({} if groups is None else {"policy_groups": groups}),
+              **({"matmul_dtype": BF16} if bf16 else {}))
+    what = K + (" bf16" if bf16 else "")
     worst = {"losses": (0.0, 0.0), "grads": (0.0, 0.0)}
+    ratios = {"losses": 0.0, "grads": 0.0} if bf16 else None
     for mb in range(M):
         (lk, auxk), gk = grads_fn(
             rs.params, traj, adv_n, targets, mb, ent, rs.kl_coeff, **kw)
         (lr_, auxr), gr = grads_ref(
             rs.params, traj, adv_n, targets, mb, ent, rs.kl_coeff, **kw)
         torch.cuda.synchronize()
-        for key, e in (("losses", tree_err((lk, *auxk), (lr_, *auxr),
-                                           *tol[loss_key])),
-                       ("grads", tree_err(gk, gr, *tol["grads"]))):
-            worst[key] = tuple(map(max, worst[key], e))
+        for key, a, b, t in (("losses", (lk, *auxk), (lr_, *auxr),
+                              tol[loss_key]),
+                             ("grads", gk, gr, tol["grads"])):
+            worst[key] = tuple(map(max, worst[key], tree_err(a, b, *t)))
+            if bf16:
+                ratios[key] = max(ratios[key], norm_ratio(
+                    a, b, BF16_GRAD_REL, t[1] if key == "losses" else 0.0,
+                    stack=key == "losses"))
+    if bf16:  # the f32 twin beyond the bound, on the last minibatch
+        f32_ratio = f32_twin_ratio(grads_ref, (rs.params, traj, adv_n,
+                                               targets, M - 1, ent,
+                                               rs.kl_coeff), kw, (None, gr))
     args = (rs.params, traj, adv_n, targets, 0, ent, rs.kl_coeff)
     k_ms = timed(lambda: grads_fn(*args, **kw), 5)
     p_ms = timed(lambda: grads_ref(*args, **kw), 3)
-    emit({"phase": f"{K.lower()}_check", "config": name,
+    emit({**check_line(K, bf16, f"{K.lower()}_check"), "config": name,
           "obs_dim": cfg.obs_dim, "policy_groups": groups, "minibatches": M,
           "max_abs_err": {k: e for k, (e, _) in worst.items()},
           "tol_ratio": {k: r for k, (_, r) in worst.items()},
           "tol": {"losses": tol[loss_key], "grads": tol["grads"]},
+          **({"norm_ratio": ratios, "rel_bound": BF16_GRAD_REL,
+              "f32_twin_norm_ratio": f32_ratio} if bf16 else {}),
           "kernel_ms": k_ms, "plain_ms": p_ms})
-    require(all(r <= 1.0 for _, r in worst.values()),
-            f"{K} differs from autograd: {worst}")
+    require(within(worst, ratios),
+            f"{what} differs from autograd: {worst} {ratios}")
+    require(not bf16 or f32_ratio > 1.0,
+            f"{what}: the f32 twin's gradient lies within the bf16 bound")
     fwd, dx = ff_macs(rs.params)
     bnd = bound(nbytes(traj.obs, traj.action, traj.log_prob, traj.value,
                        adv_n, targets) / M + 2 * nbytes(rs.params),
-                2.0 * (2 * fwd + dx) * traj.action.numel() / M)
+                2.0 * (2 * fwd + dx) * traj.action.numel() / M, bf16)
     return worst["grads"][0], k_ms, p_ms, bnd
 
 
@@ -993,9 +1127,10 @@ def k7_check(dev, name, cfg, arch, mask_actions=False):
     return max(err.values()), k_ms, p_ms, bnd
 
 
-def rnn_inputs(dev, cfg, arch):
+def rnn_inputs(dev, cfg, arch, bf16=False):
     """One config-4 recurrent trajectory for the K8/K9 checks: a K7 chunk
-    from the trainer's reset and a random carry, then GAE and the
+    from the trainer's reset and a random carry (of bf16 values with
+    ``bf16``, as a bf16 run's carry cast up), then GAE and the
     per-minibatch normalization."""
     tcfg = TrainConfig(num_updates=RNN_SCHEDULE)
     tr = make_train_rnn(cfg, tcfg, arch, device=dev)
@@ -1003,6 +1138,7 @@ def rnn_inputs(dev, cfg, arch):
     gen = torch.Generator().manual_seed(SEED + 10)
     h0 = tuple((0.5 * torch.randn(x.shape, generator=gen)).to(dev)
                for x in carry_leaves(rs.carry))
+    h0 = tuple(map(bf16_round, h0)) if bf16 else h0
     h0 = h0 if arch == "lstm" else h0[0]
     new, roll, _, _, last_h = act_rnn.ppo_rnn_rollout(
         cfg, rs.params, rs.env_state, h0, SLICE_T,
@@ -1021,23 +1157,34 @@ def rnn_inputs(dev, cfg, arch):
     return tcfg, tr, rs, traj, adv_n, targets, h0, ent
 
 
-def k8_check(dev, cfg, arch):
-    tcfg, tr, rs, traj, adv_n, targets, h0, ent = rnn_inputs(dev, cfg, arch)
+def k8_check(dev, cfg, arch, bf16=False):
+    tcfg, tr, rs, traj, adv_n, targets, h0, ent = rnn_inputs(dev, cfg, arch,
+                                                             bf16)
     E, M = tcfg.ppo_epochs, tcfg.num_minibatches
     rows = tr.optimizer.step_rows(rs.opt_state.count, E * M, dev)
     args = (rs.params, rs.opt_state, traj, adv_n, targets, h0, *rows, ent,
             rs.kl_coeff)
     kw = dict(num_epochs=E, num_minibatches=M, clip_eps=tcfg.clip_eps,
               value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
-              mask_actions=False)
+              mask_actions=False, **({"matmul_dtype": BF16} if bf16 else {}))
+    K = "K8 bf16" if bf16 else "K8"
+    n_bf16 = sgd_rnn.ppo_rnn_sgd_phase.bf16_launches
     pk, ok, lk = sgd_rnn.ppo_rnn_sgd_phase(*args, **kw)
+    require(sgd_rnn.ppo_rnn_sgd_phase.bf16_launches
+            == n_bf16 + (E * M if bf16 else 0),
+            f"{K}: the bf16 count did not show the bf16 route")
     pr, orf, lr_ = sgd_rnn.ppo_rnn_sgd_phase_reference(*args, **kw)
     p2, o2, l2 = sgd_rnn.ppo_rnn_sgd_phase(*args, **kw)
     torch.cuda.synchronize()
-    err = {"losses": tree_err(lk, lr_, *SGD_TOL["losses"]),
-           "params": tree_err(pk, pr, *SGD_TOL["params"]),
-           "mu": tree_err(ok.mu, orf.mu, *SGD_TOL["mu"]),
-           "nu": tree_err(ok.nu, orf.nu, *SGD_TOL["nu"])}
+    pairs = {"losses": (lk, lr_), "params": (pk, pr), "mu": (ok.mu, orf.mu),
+             "nu": (ok.nu, orf.nu)}
+    err = {k: tree_err(*v, *SGD_TOL[k]) for k, v in pairs.items()}
+    if bf16:
+        ratios = phase_norm_ratios((pk, ok, lk), (pr, orf, lr_), SGD_TOL)
+        f32_ratio = f32_twin_ratio(sgd_rnn.ppo_rnn_sgd_phase_reference, args,
+                                   kw, (pr, orf, lr_), SGD_TOL)
+    else:
+        ratios = None
     bit_equal = (all(bits_equal(pk[k], p2[k]) and bits_equal(ok.mu[k],
                                                              o2.mu[k])
                      and bits_equal(ok.nu[k], o2.nu[k]) for k in pk)
@@ -1045,57 +1192,81 @@ def k8_check(dev, cfg, arch):
     moved = max(float((pk[k] - rs.params[k]).abs().max()) for k in pk)
     k_ms = timed(lambda: sgd_rnn.ppo_rnn_sgd_phase(*args, **kw), 3)
     p_ms = timed(lambda: sgd_rnn.ppo_rnn_sgd_phase_reference(*args, **kw), 3)
-    emit({"phase": "k8_check", "arch": arch, "B": traj.obs.shape[1],
+    emit({**check_line("K8", bf16, "k8_check"), "arch": arch,
+          "B": traj.obs.shape[1],
           "T": SLICE_T, "epochs": E, "minibatches": M,
           "sequences_per_minibatch":
           traj.obs.shape[1] * cfg.num_agents // M,
           "max_abs_err": {k: e for k, (e, _) in err.items()},
           "tol_ratio": {k: r for k, (_, r) in err.items()}, "tol": SGD_TOL,
+          **({"norm_ratio": ratios, "rel_bound": BF16_PHASE_REL,
+              "f32_twin_norm_ratio": f32_ratio} if bf16 else {}),
           "bit_equal_rerun": bit_equal, "max_param_step": moved,
           "kernel_ms": k_ms, "plain_ms": p_ms})
-    require(all(r <= 1.0 for _, r in err.values()),
-            f"K8 ({arch}) differs from its twin: {err}")
-    require(bit_equal, f"K8 ({arch}): a second run gave other bits")
-    require(moved > 0.0, f"K8 ({arch}) did not move the params")
+    require(within(err, ratios),
+            f"{K} ({arch}) differs from its twin: {err} {ratios}")
+    require(not bf16 or f32_ratio > 1.0,
+            f"{K} ({arch}): the f32 twin lies within the bf16 bound")
+    require(bit_equal, f"{K} ({arch}): a second run gave other bits")
+    require(moved > 0.0, f"{K} ({arch}) did not move the params")
     fwd, dx = rnn_macs(rs.params)
     bnd = bound(nbytes(traj.obs, traj.action, traj.log_prob, traj.value,
                        adv_n, targets, h0, rows, lk)
                 + 2 * nbytes(rs.params, rs.opt_state.mu, rs.opt_state.nu),
-                2.0 * (2 * fwd + dx) * traj.action.numel() * E)
+                2.0 * (2 * fwd + dx) * traj.action.numel() * E, bf16)
     return err["params"][0], k_ms, p_ms, bnd
 
 
-def k9_check(dev, cfg, arch):
-    tcfg, tr, rs, traj, adv_n, targets, h0, ent = rnn_inputs(dev, cfg, arch)
+def k9_check(dev, cfg, arch, bf16=False):
+    tcfg, tr, rs, traj, adv_n, targets, h0, ent = rnn_inputs(dev, cfg, arch,
+                                                             bf16)
     M = tcfg.num_minibatches
     kw = dict(num_minibatches=M, clip_eps=tcfg.clip_eps,
-              value_coef=tcfg.value_coef, mask_actions=False)
+              value_coef=tcfg.value_coef, mask_actions=False,
+              **({"matmul_dtype": BF16} if bf16 else {}))
     worst = {"losses": (0.0, 0.0), "grads": (0.0, 0.0)}
+    ratios = {"losses": 0.0, "grads": 0.0} if bf16 else None
     for mb in range(M):
         (lk, auxk), gk = sgd_rnn.ppo_rnn_minibatch_grads(
             rs.params, traj, adv_n, targets, h0, mb, ent, rs.kl_coeff, **kw)
         (lr_, auxr), gr = sgd_rnn.ppo_rnn_minibatch_grads_reference(
             rs.params, traj, adv_n, targets, h0, mb, ent, rs.kl_coeff, **kw)
         torch.cuda.synchronize()
-        for name, e in (("losses", tree_err((lk, *auxk), (lr_, *auxr),
-                                            *RNN_MB_LOSS_TOL)),
-                        ("grads", tree_err(gk, gr, *RNN_GRAD_TOL))):
-            worst[name] = tuple(map(max, worst[name], e))
+        for name, a, b, t in (("losses", (lk, *auxk), (lr_, *auxr),
+                               RNN_MB_LOSS_TOL),
+                              ("grads", gk, gr, RNN_GRAD_TOL)):
+            worst[name] = tuple(map(max, worst[name], tree_err(a, b, *t)))
+            if bf16:
+                ratios[name] = max(ratios[name], norm_ratio(
+                    a, b, BF16_GRAD_REL, t[1] if name == "losses" else 0.0,
+                    stack=name == "losses"))
+    if bf16:  # the f32 twin beyond the bound, on the last minibatch
+        f32_ratio = f32_twin_ratio(
+            sgd_rnn.ppo_rnn_minibatch_grads_reference,
+            (rs.params, traj, adv_n, targets, h0, M - 1, ent, rs.kl_coeff),
+            kw, (None, gr))
     args = (rs.params, traj, adv_n, targets, h0, 0, ent, rs.kl_coeff)
     k_ms = timed(lambda: sgd_rnn.ppo_rnn_minibatch_grads(*args, **kw), 5)
     p_ms = timed(lambda: sgd_rnn.ppo_rnn_minibatch_grads_reference(
         *args, **kw), 3)
-    emit({"phase": "k9_check", "arch": arch, "minibatches": M,
+    emit({**check_line("K9", bf16, "k9_check"), "arch": arch,
+          "minibatches": M,
           "max_abs_err": {k: e for k, (e, _) in worst.items()},
           "tol_ratio": {k: r for k, (_, r) in worst.items()},
           "tol": {"losses": RNN_MB_LOSS_TOL, "grads": RNN_GRAD_TOL},
+          **({"norm_ratio": ratios, "rel_bound": BF16_GRAD_REL,
+              "f32_twin_norm_ratio": f32_ratio} if bf16 else {}),
           "kernel_ms": k_ms, "plain_ms": p_ms})
-    require(all(r <= 1.0 for _, r in worst.values()),
-            f"K9 ({arch}) differs from autograd: {worst}")
+    K = "K9 bf16" if bf16 else "K9"
+    require(within(worst, ratios),
+            f"{K} ({arch}) differs from autograd: {worst} {ratios}")
+    require(not bf16 or f32_ratio > 1.0,
+            f"{K} ({arch}): the f32 twin's gradient lies within the bf16 "
+            "bound")
     fwd, dx = rnn_macs(rs.params)
     bnd = bound(nbytes(traj.obs, traj.action, traj.log_prob, traj.value,
                        adv_n, targets, h0) / M + 2 * nbytes(rs.params),
-                2.0 * (2 * fwd + dx) * traj.action.numel() / M)
+                2.0 * (2 * fwd + dx) * traj.action.numel() / M, bf16)
     return worst["grads"][0], k_ms, p_ms, bnd
 
 
@@ -1256,7 +1427,8 @@ def serve_mlp(cfg, tr, rs):
     tr.model.load_state_dict(rs.params)
     acts, _ = Policy(cfg, tr.model).compute_actions(rs.obs)
     with torch.no_grad():
-        logits, _ = apply(rs.params, rs.obs)
+        logits, _ = apply(rs.params, rs.obs,
+                          precision=model_precision(tr.model.dtype))
     require(acts.shape == rs.obs.shape[:2] and torch.equal(
         acts, first_argmax(logits, -1).to(torch.int32)),
         "serve: actions differ from the argmax of the trained policy")
@@ -1303,29 +1475,36 @@ def rnn_train_phase(dev, cfg, arch):
                         device=dev)
     rs, out = run_updates(tr, RNN_UPDATES, f"rnn_train ({arch})", dev)
     late = sum(out["deliveries_per_env_step"][-10:]) / 10
-
-    # Serving: two chained calls that thread the carry.
-    tr.model.load_state_dict(rs.params)
-    policy = Policy(cfg, tr.model)
-    acts, carry = policy.compute_actions(rs.obs, rs.carry)
-    with torch.no_grad():
-        logits, _, want = apply_rnn(rs.params, rs.obs, rs.carry)
-    require(acts.shape == rs.obs.shape[:2] and torch.equal(
-        acts, first_argmax(logits, -1).to(torch.int32)),
-        "serve: actions differ from the argmax of the trained policy")
-    require(all(torch.equal(a, b) for a, b in zip(carry_leaves(carry),
-                                                  carry_leaves(want))),
-            "serve: the carry differs from the policy's")
-    acts2, carry2 = policy.compute_actions(rs.obs, carry)
-    require(acts2.shape == acts.shape and all(
-        bool(torch.isfinite(x).all()) and x.shape == y.shape
-        for x, y in zip(carry_leaves(carry2), carry_leaves(carry))),
-        "serve: bad second call")
+    serve_rnn(cfg, tr, rs)
     emit({"phase": "rnn_train", "arch": arch, **out,
           "deliveries_31_40": late, "learn_min": RNN_LEARN_MIN})
     require(late >= RNN_LEARN_MIN,
             f"rnn_train ({arch}): deliveries/env-step {late} over updates "
             f"31-40 is below {RNN_LEARN_MIN}")
+
+
+def serve_rnn(cfg, tr, rs):
+    """The trained recurrent policy served at its compute dtype: two
+    chained calls that thread the carry (bf16 in a bf16 model)."""
+    tr.model.load_state_dict(rs.params)
+    policy = Policy(cfg, tr.model)
+    acts, carry = policy.compute_actions(rs.obs, rs.carry)
+    with torch.no_grad():
+        logits, _, want = apply_rnn(
+            rs.params, rs.obs, rs.carry,
+            precision=model_precision(tr.model.dtype))
+    require(acts.shape == rs.obs.shape[:2] and torch.equal(
+        acts, first_argmax(logits, -1).to(torch.int32)),
+        "serve: actions differ from the argmax of the trained policy")
+    require(all(torch.equal(a, b) and a.dtype == tr.model.dtype
+                for a, b in zip(carry_leaves(carry), carry_leaves(want))),
+            "serve: the carry differs from the policy's")
+    acts2, carry2 = policy.compute_actions(rs.obs, carry)
+    require(acts2.shape == acts.shape and all(
+        bool(torch.isfinite(x).all()) and x.shape == y.shape
+        and x.dtype == y.dtype
+        for x, y in zip(carry_leaves(carry2), carry_leaves(carry))),
+        "serve: bad second call")
 
 
 def cnn_train_phase(dev, cfg):
@@ -1658,6 +1837,87 @@ def shelves_groups_train_phase(dev, cfg):
             f"91-100 is below {GROUPS_LEARN_MIN}")
 
 
+def bf16_check(dev, cfg, shelves, shelves_g, medium_g):
+    """The learners on bf16 operands against their bf16 twins: K3 / K4 at
+    config 4, D = 611 and with groups; K8 / K9 for the LSTM and the GRU;
+    K11 / K12 on the 5x5 window and the 9x9 map. Returns config 4's
+    results (the GRU's for K8 / K9) for the kernels line."""
+    out = {"ppo_sgd_phase_bf16": k3_check(dev, cfg, bf16=True),
+           "ppo_minibatch_grads_bf16": k4_check(dev, cfg, bf16=True)}
+    for c, kw in ((shelves_g, dict(tcfg=global_tcfg(),
+                                   name="shelves_global")),
+                  (shelves, dict(tcfg=groups_tcfg(), name="shelves_groups",
+                                 groups=GROUPS))):
+        k3_check(dev, c, bf16=True, **kw)
+        k4_check(dev, c, bf16=True, **kw)
+    k8_check(dev, cfg, "lstm", bf16=True)
+    k9_check(dev, cfg, "lstm", bf16=True)
+    out["ppo_rnn_sgd_phase_bf16"] = k8_check(dev, cfg, "gru", bf16=True)
+    out["ppo_rnn_minibatch_grads_bf16"] = k9_check(dev, cfg, "gru", bf16=True)
+    out["ppo_cnn_sgd_phase_bf16"] = k3_check(dev, cfg, cnn=True, bf16=True)
+    out["ppo_cnn_minibatch_grads_bf16"] = k4_check(dev, cfg, cnn=True,
+                                                   bf16=True)
+    k3_check(dev, medium_g, cnn=True, name="medium_global", bf16=True)
+    k4_check(dev, medium_g, cnn=True, name="medium_global", bf16=True)
+    return out
+
+
+def gru_bf16_train_phase(dev, cfg):
+    """``--arch gru --model-dtype bfloat16`` at config 4: the first update
+    against the plain path's, then the first 40 updates of a 300-update run
+    (the schedule of ``runs/r3_curves/config4_gru_fast.jsonl``) through K7
+    and K8/K9 on bf16 operands, the carry bf16 after every update, the
+    trained policy served with its bf16 carry; the curve to
+    ``runs/torch_gru_bf16/metrics.jsonl``."""
+    tcfg = TrainConfig(num_updates=RNN_SCHEDULE, model_dtype=BF16)
+    tr = make_train_rnn(cfg, tcfg, "gru", device=dev)
+    first = first_update_vs_plain(tr, dev, "gru_bf16_train")
+    rows = []
+
+    def hook(u, rs, m):
+        require(rs.carry.dtype == torch.bfloat16,
+                f"gru_bf16_train: the carry left bf16 at update {u}")
+        rows.append({"step": u, **{k: float(v) for k, v in m.items()}})
+
+    rs, out = run_updates(tr, RNN_UPDATES, "gru_bf16_train", dev, hook)
+    serve_rnn(cfg, tr, rs)
+    os.makedirs(os.path.dirname(BF16_METRICS_OUT), exist_ok=True)
+    with open(BF16_METRICS_OUT, "w") as f:
+        f.write(json.dumps({"meta": True, "algo": "ppo", "arch": "gru",
+                            "env": "medium", "model_dtype": BF16,
+                            "device": torch.cuda.get_device_name(0),
+                            "train_config": json.loads(tcfg.to_json())})
+                + "\n")
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    deliveries = out["deliveries_per_env_step"]
+    late = sum(deliveries[-10:]) / 10
+    emit({"phase": "gru_bf16_train", **out,
+          "deliveries_at": {u: deliveries[u - 1]
+                            for u in range(10, RNN_UPDATES + 1, 10)},
+          "deliveries_31_40": late, "learn_min": RNN_LEARN_MIN,
+          "first_update_kernel_vs_plain": first, "tol": STEP_METRIC_TOL,
+          "metrics_file": BF16_METRICS_OUT})
+    require(late >= RNN_LEARN_MIN,
+            f"gru_bf16_train: deliveries/env-step {late} over updates "
+            f"31-40 is below {RNN_LEARN_MIN}")
+
+
+def ff_bf16_train_phase(dev, cfg, arch):
+    """10 config-4 updates of the MLP (``arch="mlp"``: K2 + K3/K4) or the
+    CNN (K10 + K11/K12) at ``--model-dtype bfloat16``, after one update
+    through the kernels and one through the plain path from the same
+    state, whose metrics must agree; the trained policy served."""
+    what = "ppo_bf16_train" if arch == "mlp" else "cnn_bf16_train"
+    schedule = CNN_SCHEDULE if arch == "cnn" else TRAIN_SCHEDULE
+    tr = make_train(cfg, TrainConfig(num_updates=schedule, model_dtype=BF16),
+                    arch=arch, device=dev)
+    first = first_update_vs_plain(tr, dev, what)
+    rs, out = run_updates(tr, BF16_FF_UPDATES, what, dev)
+    serve_mlp(cfg, tr, rs)
+    emit({"phase": what, **out, "first_update_kernel_vs_plain": first,
+          "tol": STEP_METRIC_TOL})
+
+
 # Each kernel's wrapper, where its launch count lives.
 COUNTED = {"greedy_rollout": rollout.greedy_steps,
            "ppo_rollout": act.act_steps,
@@ -1689,7 +1949,15 @@ OPTION_COUNTED = {
     "ppo_rollout_groups": (act.act_steps, "group_launches"),
     "ppo_sgd_phase_groups": (sgd.ppo_sgd_phase, "group_launches"),
     "ppo_minibatch_grads_groups": (sgd.ppo_minibatch_grads,
-                                   "group_launches")}
+                                   "group_launches"),
+    "ppo_sgd_phase_bf16": (sgd.ppo_sgd_phase, "bf16_launches"),
+    "ppo_minibatch_grads_bf16": (sgd.ppo_minibatch_grads, "bf16_launches"),
+    "ppo_rnn_sgd_phase_bf16": (sgd_rnn.ppo_rnn_sgd_phase, "bf16_launches"),
+    "ppo_rnn_minibatch_grads_bf16": (sgd_rnn.ppo_rnn_minibatch_grads,
+                                     "bf16_launches"),
+    "ppo_cnn_sgd_phase_bf16": (sgd_cnn.ppo_cnn_sgd_phase, "bf16_launches"),
+    "ppo_cnn_minibatch_grads_bf16": (sgd_cnn.ppo_cnn_minibatch_grads,
+                                     "bf16_launches")}
 
 
 def main_path(name, fn, kernels):
@@ -1849,6 +2117,9 @@ def main(argv=()) -> int:
     # Policy groups: the recipe's shapes go into the kernels line.
     (checks["ppo_rollout_groups"], checks["ppo_sgd_phase_groups"],
      checks["ppo_minibatch_grads_groups"]) = groups_check(dev, cfg, shelves)
+    # bf16 operands in the learners: config 4's numbers (the GRU's for K8 /
+    # K9) go into the kernels line.
+    checks.update(bf16_check(dev, cfg, shelves, shelves_g, medium_g))
 
     # ---- the main paths: each counted from just before it -------------
     rnn_kernels = ["ppo_rnn_rollout", "ppo_rnn_sgd_phase",
@@ -1894,7 +2165,18 @@ def main(argv=()) -> int:
                   lambda: shelves_groups_train_phase(dev, shelves),
                   ["ppo_rollout_groups", "ppo_rollout_wide",
                    "ppo_rollout_shaped", "ppo_sgd_phase_groups",
-                   "ppo_minibatch_grads_groups"])]
+                   "ppo_minibatch_grads_groups"]),
+        main_path("gru_bf16_train", lambda: gru_bf16_train_phase(dev, cfg),
+                  ["ppo_rnn_rollout", "ppo_rnn_sgd_phase_bf16",
+                   "ppo_rnn_minibatch_grads_bf16"]),
+        main_path("ppo_bf16_train",
+                  lambda: ff_bf16_train_phase(dev, cfg, "mlp"),
+                  ["ppo_rollout", "ppo_sgd_phase_bf16",
+                   "ppo_minibatch_grads_bf16"]),
+        main_path("cnn_bf16_train",
+                  lambda: ff_bf16_train_phase(dev, cfg, "cnn"),
+                  ["ppo_rollout_cnn", "ppo_cnn_sgd_phase_bf16",
+                   "ppo_cnn_minibatch_grads_bf16"])]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     csrc = "warehouse_tpu_torch/kernels/csrc/"
@@ -1936,7 +2218,18 @@ def main(argv=()) -> int:
         # over all groups), at the shelves groups recipe's shapes.
         "ppo_rollout_groups": ("act.cu", "pallas/act.py:1062"),
         "ppo_sgd_phase_groups": ("sgd.cu", "pallas/sgd.py:293"),
-        "ppo_minibatch_grads_groups": ("sgd.cu", "pallas/sgd.py:454")}
+        "ppo_minibatch_grads_groups": ("sgd.cu", "pallas/sgd.py:454"),
+        # bf16 operands with float32 sums in the learners (matmul_dtype=
+        # "bfloat16"): the flag BF of bf16_round.cuh through each learner's
+        # tile kernels, transposed copies and weight gradients, at config 4.
+        "ppo_sgd_phase_bf16": ("sgd.cu", "pallas/sgd.py:691"),
+        "ppo_minibatch_grads_bf16": ("sgd.cu", "pallas/sgd.py:818"),
+        "ppo_rnn_sgd_phase_bf16": ("sgd_rnn.cu", "pallas/sgd_rnn.py:551"),
+        "ppo_rnn_minibatch_grads_bf16": ("sgd_rnn.cu",
+                                         "pallas/sgd_rnn.py:665"),
+        "ppo_cnn_sgd_phase_bf16": ("sgd_cnn.cu", "pallas/sgd_cnn.py:482"),
+        "ppo_cnn_minibatch_grads_bf16": ("sgd_cnn.cu",
+                                         "pallas/sgd_cnn.py:595")}
     # library_ms: no single PyTorch call computes a whole rollout or a
     # whole learner phase, so it is null for every kernel here.
     emit({"kernels": [
@@ -1945,7 +2238,9 @@ def main(argv=()) -> int:
          "launches": launches[name], "max_abs_err": err, "ms": ms,
          "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
          "bound_by": bnd["bound_by"], "library_ms": None,
-         "bound_bytes": bnd["bytes"], "bound_flops": bnd["flops"]}
+         "bound_bytes": bnd["bytes"], "bound_flops": bnd["flops"],
+         **({"cuda_core_bound_ms": bnd["cuda_core_bound_ms"]}
+            if "cuda_core_bound_ms" in bnd else {})}
         for name, (src, replaces) in sources.items()
         for err, ms, plain_ms, bnd in [checks[name]]]})
     print(nvidia_smi(), flush=True)

@@ -8,6 +8,10 @@ tests/test_torch_kernels_gpu.py``. chip_smoke.py makes the same checks
 at the main path's full sizes.
 """
 
+import functools
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -1039,3 +1043,185 @@ def test_grouped_trainer_matches_plain_step(dev):
     with pytest.raises(ValueError, match="T-3b"):
         make_train(medium_config(), tcfg, arch="cnn",
                    policy_groups=(0, 1, 0, 1), device=dev)
+
+
+# ---- bf16 operands in the learners (K3 / K4, K8 / K9, K11 / K12) ---------------
+
+# A bf16-operand kernel against its bf16 twin, held in norm with
+# chip_smoke.py's helpers: where a float32 value is one ulp off between the
+# two (another summation order, another expf) it can round to the
+# neighbouring bf16 operand, which moves that product by up to 2^-8, and
+# Adam carries that into every later step, so the f32 suite's elementwise
+# bounds do not hold. ||kernel - twin|| <= rel ||twin|| + atol sqrt(n): a
+# phase's params, moments and losses at chip_smoke.py's BF16_PHASE_REL with
+# the f32 table's atol; a gradient at GRAD_REL, with the f32 twin beyond it.
+# chip_smoke.py holds gradients at 2e-4, on config-4 trajectories whose
+# gradients are coherent sums over 65536 samples; the minibatches here are
+# 500 random samples, whose gradients are incoherent, and the kernel-twin
+# distance read here on an H100 80GB HBM3 (700 W) is up to 8.4e-4 (K9, the
+# GRU at hidden 128; K4 at D = 611 3.8e-4, the rest under 2e-4), the f32
+# twin's at least 5.9e-3. GRAD_REL lies between the two.
+GRAD_REL = 2e-3
+
+
+@functools.cache
+def smoke():
+    """The repository root's chip_smoke.py as a module (it runs nothing
+    on import)."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def phase_and_grads_check(phase, phase_ref, grads, grads_ref, args, gargs,
+                          kw, gkw):
+    """The kernel phase and each minibatch's gradient against their twins
+    with ``matmul_dtype="bfloat16"`` in norm; the phase bit-equal to itself
+    on a rerun, every launch counted as bf16; the f32 twin's gradient
+    beyond ``GRAD_REL``."""
+    cs = smoke()
+    kw, gkw = (dict(d, matmul_dtype="bfloat16") for d in (kw, gkw))
+    n_bf = phase.bf16_launches, grads.bf16_launches
+    p_k, o_k, l_k = phase(*args, **kw)
+    want = phase_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert phase.bf16_launches == n_bf[0] + SGD_E * SGD_M
+    ratios = cs.phase_norm_ratios((p_k, o_k, l_k), want, cs.SGD_TOL)
+    assert max(ratios.values()) <= 1.0, ratios
+    p_2, o_2, l_2 = phase(*args, **kw)
+    for k in p_k:
+        assert torch.equal(p_k[k], p_2[k]) and torch.equal(o_k.nu[k],
+                                                           o_2.nu[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(l_k, l_2))
+    for mb in range(SGD_M):
+        (l_k, aux_k), g_k = grads(*gargs(mb), **gkw)
+        (l_r, aux_r), g_r = grads_ref(*gargs(mb), **gkw)
+        torch.cuda.synchronize()
+        r = cs.norm_ratio((l_k, *aux_k), (l_r, *aux_r), GRAD_REL,
+                          cs.RNN_MB_LOSS_TOL[1], stack=True)
+        assert r <= 1.0, f"losses mb={mb}: {r:.3g} of the bound"
+        r = cs.norm_ratio(g_k, g_r, GRAD_REL)
+        assert r <= 1.0, f"grads mb={mb}: {r:.3g} of the bound"
+    assert grads.bf16_launches == n_bf[1] + 2 * SGD_E * SGD_M + SGD_M
+    _, g_f = grads_ref(*gargs(SGD_M - 1),
+                       **{k: v for k, v in gkw.items() if k != "matmul_dtype"})
+    r = cs.norm_ratio(g_f, g_r, GRAD_REL)
+    assert r > 1.0, f"the f32 twin's gradient at {r:.3g} of the bound"
+
+
+BF16_SGD_CASES = [("medium", False, 128, None), ("medium", False, 16, None),
+                  ("shelves", True, 128, None),
+                  ("shelves", False, 128, (0, 0, 0, 1, 1, 1))]
+
+
+@pytest.mark.parametrize("name,glob,hidden,groups", BF16_SGD_CASES)
+def test_bf16_sgd_kernels_match_twin(name, glob, hidden, groups, dev):
+    """K3 and K4 on bf16 operands against the bf16 twin (``Bf16Linear``):
+    config 4's widths, hidden 16, the global view's D = 611 (the chunked
+    first layer) and policy groups, masked."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.kernels.sgd import (
+        ppo_minibatch_grads, ppo_minibatch_grads_reference, ppo_sgd_phase,
+        ppo_sgd_phase_reference)
+    from warehouse_tpu_torch.optim import make_optimizer
+
+    cfg = (GLOBAL if glob else PRESETS)[name]
+    params, opt, traj, adv_n, targets = sgd_batch(cfg, hidden, dev,
+                                                  groups=groups)
+    rows = make_optimizer(TrainConfig(num_updates=4)).step_rows(
+        opt.count, SGD_E * SGD_M, dev)
+    gkw = dict(num_minibatches=SGD_M, mask_actions=True, **SGD_KW)
+    if groups is not None:
+        gkw["policy_groups"] = groups
+    kw = dict(num_epochs=SGD_E, max_grad_norm=0.5, **gkw)
+    phase_and_grads_check(
+        ppo_sgd_phase, ppo_sgd_phase_reference, ppo_minibatch_grads,
+        ppo_minibatch_grads_reference,
+        (params, opt, traj, adv_n, targets, *rows, 0.01, 0.05),
+        lambda mb: (params, traj, adv_n, targets, mb, 0.01, 0.05), kw, gkw)
+
+
+@pytest.mark.parametrize("arch", ["gru", "lstm"])
+@pytest.mark.parametrize("hidden", [32, 128])
+def test_bf16_rnn_sgd_kernels_match_twin(hidden, arch, dev):
+    """K8 and K9 on bf16 operands against the bf16 twin, GRU and LSTM,
+    masked, from a carry of bf16 values (the trainer's, cast up)."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.kernels.sgd_rnn import (
+        ppo_rnn_minibatch_grads, ppo_rnn_minibatch_grads_reference,
+        ppo_rnn_sgd_phase, ppo_rnn_sgd_phase_reference)
+    from warehouse_tpu_torch.models.policy import bf16_round
+    from warehouse_tpu_torch.optim import make_optimizer
+
+    cfg = medium_config()
+    params, opt, traj, adv_n, targets = sgd_batch(cfg, hidden, dev, arch=arch)
+    h0 = rnn_carry(arch, hidden, cfg.num_agents, dev, 11, SGD_B)
+    h0 = tuple(map(bf16_round, h0)) if arch == "lstm" else bf16_round(h0)
+    rows = make_optimizer(TrainConfig(num_updates=4)).step_rows(
+        opt.count, SGD_E * SGD_M, dev)
+    gkw = dict(num_minibatches=SGD_M, mask_actions=True, **SGD_KW)
+    kw = dict(num_epochs=SGD_E, max_grad_norm=0.5, **gkw)
+    phase_and_grads_check(
+        ppo_rnn_sgd_phase, ppo_rnn_sgd_phase_reference,
+        ppo_rnn_minibatch_grads, ppo_rnn_minibatch_grads_reference,
+        (params, opt, traj, adv_n, targets, h0, *rows, 0.01, 0.05),
+        lambda mb: (params, traj, adv_n, targets, h0, mb, 0.01, 0.05), kw,
+        gkw)
+
+
+@pytest.mark.parametrize("name,glob,hidden", [("medium", False, 128),
+                                              ("medium", True, 128),
+                                              ("small", False, 32)])
+def test_bf16_cnn_sgd_kernels_match_twin(name, glob, hidden, dev):
+    """K11 and K12 on bf16 operands against the bf16 twin (``Bf16Conv``,
+    ``Bf16Linear``) on the ego window (S = 5) and the 9 x 9 global view,
+    masked."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.kernels.sgd_cnn import (
+        ppo_cnn_minibatch_grads, ppo_cnn_minibatch_grads_reference,
+        ppo_cnn_sgd_phase, ppo_cnn_sgd_phase_reference)
+    from warehouse_tpu_torch.optim import make_optimizer
+
+    cfg = (GLOBAL if glob else PRESETS)[name]
+    params, opt, traj, adv_n, targets = sgd_batch(cfg, hidden, dev, arch="cnn")
+    rows = make_optimizer(TrainConfig(num_updates=4)).step_rows(
+        opt.count, SGD_E * SGD_M, dev)
+    gkw = dict(num_minibatches=SGD_M, mask_actions=True, **SGD_KW)
+    kw = dict(num_epochs=SGD_E, max_grad_norm=0.5, **gkw)
+    phase_and_grads_check(
+        ppo_cnn_sgd_phase, ppo_cnn_sgd_phase_reference,
+        ppo_cnn_minibatch_grads, ppo_cnn_minibatch_grads_reference,
+        (params, opt, traj, adv_n, targets, *rows, 0.01, 0.05),
+        lambda mb: (params, traj, adv_n, targets, mb, 0.01, 0.05), kw, gkw)
+
+
+@pytest.mark.parametrize("arch", ["mlp", "gru", "cnn"])
+def test_bf16_launch_leaves_the_f32_route_bit_equal(arch, dev):
+    """An f32 phase, a bf16 phase, the f32 phase again: the second f32
+    result is bit-equal to the first (the flag is per launch), and the bf16
+    one differs from both."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.kernels import sgd, sgd_cnn, sgd_rnn
+    from warehouse_tpu_torch.optim import make_optimizer
+
+    cfg = medium_config()
+    params, opt, traj, adv_n, targets = sgd_batch(cfg, 128, dev, arch=arch)
+    rows = make_optimizer(TrainConfig(num_updates=4)).step_rows(
+        opt.count, SGD_E * SGD_M, dev)
+    lead = (params, opt, traj, adv_n, targets)
+    if arch == "gru":
+        lead += (rnn_carry(arch, 128, cfg.num_agents, dev, 11, SGD_B),)
+    phase = {"mlp": sgd.ppo_sgd_phase, "gru": sgd_rnn.ppo_rnn_sgd_phase,
+             "cnn": sgd_cnn.ppo_cnn_sgd_phase}[arch]
+    kw = dict(num_epochs=SGD_E, num_minibatches=SGD_M, max_grad_norm=0.5,
+              mask_actions=True, **SGD_KW)
+    p_a, _, l_a = phase(*lead, *rows, 0.01, 0.05, **kw)
+    p_b, _, _ = phase(*lead, *rows, 0.01, 0.05, matmul_dtype="bfloat16", **kw)
+    p_c, _, l_c = phase(*lead, *rows, 0.01, 0.05, **kw)
+    assert all(torch.equal(p_a[k], p_c[k]) for k in p_a)
+    assert all(torch.equal(a, b) for a, b in zip(l_a, l_c))
+    assert any(not torch.equal(p_a[k], p_b[k]) for k in p_a)
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        phase(*lead, *rows, 0.01, 0.05, matmul_dtype="float16", **kw)

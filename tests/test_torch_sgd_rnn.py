@@ -234,7 +234,7 @@ def test_rnn_train_many_runs_and_plain_step_is_the_cpu_path():
     (dict(epoch_shuffle="each"), NotImplementedError),
     (dict(flat_optimizer=True), NotImplementedError),
     (dict(micro_batches=2), NotImplementedError),
-    (dict(model_dtype="bfloat16"), NotImplementedError),
+    (dict(model_dtype="bfloat16"), None),  # ported: the trainer is built
     (dict(rollout_backend="xla"), ValueError),
     (dict(grad_backend="xla"), ValueError),
     (dict(num_envs=9), ValueError),
@@ -245,6 +245,10 @@ def test_rnn_gates_raise(change, error):
     change = dict(change)
     kw = {k: change.pop(k) for k in ("arch", "mesh") if k in change}
     cfg = CFG.replace(global_obs=change.pop("global_obs", False))
+    if error is None:
+        tr = make_train_rnn(cfg, BASE.replace(**change), device="cpu", **kw)
+        assert tr.init(rng.prng_key(0)).carry.dtype == torch.bfloat16
+        return
     with pytest.raises(error) as e:
         make_train_rnn(cfg, BASE.replace(**change), device="cpu", **kw)
     if error is NotImplementedError:

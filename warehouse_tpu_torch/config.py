@@ -222,8 +222,9 @@ class TrainConfig:
     # Model
     hidden_dim: int = 128
     num_layers: int = 2
-    # Compute dtype of the policy torso ("float32" | "bfloat16"); only
-    # float32 is ported.
+    # Compute dtype of the policy torso ("float32" | "bfloat16"): bf16
+    # operands in PPO's learner kernels, the bf16 model for last values and
+    # serving (train/ppo.py, train/ppo_rnn.py); IMPALA refuses it.
     model_dtype: str = "float32"
     # Backend switches and block knobs of the TPU kernels. The port has no
     # backend switch (the device picks kernel or plain twin; "xla" is

@@ -83,15 +83,19 @@ def policy_fn_for(name: str, cfg):
 
 
 def params_policy_fn(cfg, params: dict, arch: str, mask_actions: bool = False,
-                     sample: bool = False):
+                     sample: bool = False, dtype="float32"):
     """``(policy_fn, init_carry)`` for ``evaluate_policy`` from a params
-    dict of the MLP, CNN, GRU or LSTM policy: the argmax action (first on a
-    tie) or, with ``sample``, a categorical sample; with ``mask_actions``
-    the logits of moves off the grid or into a wall are floored to -1e9
-    first. ``init_carry`` is None for the feed-forward policies."""
-    from .models.policy import apply, apply_rnn, initial_carry
+    dict of the MLP, CNN, GRU or LSTM policy at compute ``dtype``: the
+    argmax action (first on a tie) or, with ``sample``, a categorical
+    sample; with ``mask_actions`` the logits of moves off the grid or into
+    a wall are floored to -1e9 first. ``init_carry`` is None for the
+    feed-forward policies."""
+    from .models.policy import (apply, apply_rnn, initial_carry,
+                                model_precision)
     from .ops.move import valid_action_mask
     from .ops.ppo_update import NEG_INF, first_argmax, sample_action
+
+    precision = model_precision(dtype)
 
     def pick(state, logits, key):
         if mask_actions:
@@ -106,16 +110,18 @@ def params_policy_fn(cfg, params: dict, arch: str, mask_actions: bool = False,
         device = params["logits.weight"].device
 
         def policy_fn(state, obs, key, carry):
-            logits, _, carry = apply_rnn(params, obs, carry)
+            logits, _, carry = apply_rnn(params, obs, carry,
+                                         precision=precision)
             return pick(state, logits, key), carry
 
         def init_carry(B):
-            return initial_carry(arch, (B, cfg.num_agents), hidden, device)
+            return initial_carry(arch, (B, cfg.num_agents), hidden, device,
+                                 dtype)
 
         return policy_fn, init_carry
 
     def policy_fn(state, obs, key):
-        return pick(state, apply(params, obs)[0], key)
+        return pick(state, apply(params, obs, precision=precision)[0], key)
 
     return policy_fn, None
 
@@ -158,7 +164,8 @@ def checkpoint_policy_fn(cfg, checkpoint_dir: str, arch=None, hidden_dim=None,
     unmasked scores near zero. The checkpoint's params must fit the model
     those settings build; a ``cfg`` whose observation view is not the
     meta's raises ``ValueError`` (``checkpoint_env_config`` gives the
-    fitting one)."""
+    fitting one). The policy runs in float32 whatever the meta's
+    ``model_dtype``, as the JAX package's evaluate builds it."""
     from .models import make_model
     from .train.checkpoint import restore_params
 

@@ -69,7 +69,8 @@ from .. import rng as _rng
 from ..env import engine
 from ..env.state import EnvState
 from ..models.policy import (ActorCriticCNN, ActorCriticMLP,
-                             MultiPolicyActorCritic, cnn_dims, num_conv)
+                             MultiPolicyActorCritic, apply, cnn_dims,
+                             num_conv)
 from ..ops.move import valid_action_mask
 from ..ops.obs import inv_side
 from ..ops.pathing import device_table, potential
@@ -117,13 +118,16 @@ def act_steps_reference(cfg: EnvConfig, model, state: EnvState, u, pick,
     three rounded float32 operations in the JAX kernel's order, then one
     product and one sum. With ``groups`` (one group id per agent) the
     model is a ``MultiPolicyActorCritic`` and agent a takes group
-    ``groups[a]``'s outputs."""
+    ``groups[a]``'s outputs. The model runs in float32 whatever its
+    compute dtype, as the kernels do (a bf16 model's acting is float32 in
+    the JAX package's acting kernels too)."""
     outs = []
+    params = dict(model.named_parameters())
+    gids = None if groups is None else torch.tensor(groups)
     with torch.no_grad():
         for t in range(u.shape[0]):
             obs = engine.observe_state(cfg, state)
-            lg, value = (model(obs) if groups is None
-                         else model(obs, torch.tensor(groups)))
+            lg, value = apply(params, obs, gids)
             if logits is not None:
                 logits[t] = lg
             if mask is not None:

@@ -39,7 +39,7 @@ SIGNATURES = {
     "wh_sgd_obs_chunks": [I, IP],
     "wh_sgd_workspace_floats": [I, IP, I, L, I, I, I, IP],
     "wh_sgd_grads": [I, IP, I, L, I, I, I, IP, I] + [P] * 9 + [F] * 5
-                    + [P] * 4,
+                    + [P] * 3 + [I, P],
     "wh_sgd_clip_adam": [I, IP, I, L, I, I, I, IP, I] + [P] * 7 + [F] * 6
                         + [P] * 2,
     "wh_vtrace_workspace_floats": [I, IP, I, L, I, I],
@@ -55,7 +55,7 @@ SIGNATURES = {
     "wh_rnn_sgd_smem_bytes": [I, IP, I, I],
     "wh_rnn_sgd_workspace_floats": [I, IP, I, I, I, L, I, I],
     "wh_rnn_sgd_grads": [I, IP, I, I, I, L, I, I, I] + [P] * 11 + [F] * 5
-                        + [P] * 4,
+                        + [P] * 3 + [I, P],
     "wh_rnn_sgd_clip_adam": [I, IP, I, I, I, L, I, I, I] + [P] * 7 + [F] * 6
                             + [P] * 2,
     "wh_cnn_param_floats": [I] * 5,
@@ -65,7 +65,8 @@ SIGNATURES = {
     "wh_cnn_sgd_smem_bytes": [I] * 5,
     "wh_cnn_sgd_small_tile": [I] * 5,
     "wh_cnn_sgd_workspace_floats": [I] * 6 + [L, I, I],
-    "wh_cnn_sgd_grads": [I] * 6 + [L, I, I, I] + [P] * 9 + [F] * 5 + [P] * 4,
+    "wh_cnn_sgd_grads": [I] * 6 + [L, I, I, I] + [P] * 9 + [F] * 5
+                        + [P] * 3 + [I, P],
     "wh_cnn_sgd_clip_adam": [I] * 6 + [L, I, I, I] + [P] * 7 + [F] * 6
                             + [P] * 2,
 }

@@ -38,6 +38,15 @@
 // both: it adds exact zeros to the sums. The packed vector, the obs rows in
 // device memory and the gradients keep the true 5 (obs_slot maps a feature
 // to its padded place; sgd_cnn.cu drops the pad channels' gradients).
+//
+// The learner (K11/K12) instantiates the pieces with a flag BF for bf16
+// operands (matmul_dtype="bfloat16", sgd_cnn.py:213-216): the staged conv
+// kernels and the trunk's transposed copy are rounded to bf16 once, conv 1
+// and the trunk round their inputs where they read them (the float32 values
+// stay for the relu masks and the weight gradients' rows), and the head
+// rounds both operands. The TPU kernel's unrolled conv matrices hold copies
+// of the 3x3 weights and zeros, so rounding those is rounding the 3x3
+// kernels. The acting kernel (K10) takes the float32 instances.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -121,7 +130,9 @@ struct ConvW {  // the staged conv kernels
   const float *w0, *b0, *w1, *b1;
 };
 
-// The packed conv kernels into shared memory at their padded row strides.
+// The packed conv kernels into shared memory at their padded row strides,
+// rounded to bf16 with BF (the biases are not).
+template <bool BF = false>
 __device__ inline ConvW stage_conv(const CnnNet& net, const float* p,
                                    float* smem) {
   float* w0 = smem;
@@ -130,11 +141,12 @@ __device__ inline ConvW stage_conv(const CnnNet& net, const float* p,
   float* b1 = w1 + 9 * net.C2 * net.ws1;
   for (int i = threadIdx.x; i < 9 * net.C1 * net.C0p; i += RNT) {
     const int row = i / net.C0p, ic = i % net.C0p;  // the pad channels: 0
-    w0[row * net.ws0 + ic] = ic < net.C0 ? p[net.w0 + row * net.C0 + ic] : 0.f;
+    w0[row * net.ws0 + ic] =
+        ic < net.C0 ? rbf<BF>(p[net.w0 + row * net.C0 + ic]) : 0.f;
   }
   for (int i = threadIdx.x; i < net.C1; i += RNT) b0[i] = p[net.b0 + i];
   for (int i = threadIdx.x; i < 9 * net.C2 * net.C1; i += RNT)
-    w1[i / net.C1 * net.ws1 + i % net.C1] = p[net.w1 + i];
+    w1[i / net.C1 * net.ws1 + i % net.C1] = rbf<BF>(p[net.w1 + i]);
   for (int i = threadIdx.x; i < net.C2; i += RNT) b1[i] = p[net.b1 + i];
   return ConvW{w0, b0, w1, b1};
 }
@@ -142,7 +154,9 @@ __device__ inline ConvW stage_conv(const CnnNet& net, const float* p,
 // y[n][po OC + oc] = relu(b[oc] + sum over the valid taps k of po and over ic
 // of x[n][pi IC + ic] W[(k OC + oc) ws + ic]) for `rows` rows (a multiple of
 // RRT) of shared memory; pi is po moved by tap k. A thread owns one output
-// (po, oc) for RRT rows and reads 4 input channels per load.
+// (po, oc) for RRT rows and reads 4 input channels per load. BX rounds x to
+// bf16 where it is read.
+template <bool BX = false>
 __device__ inline void conv_relu(const float* W, int ws, const float* b,
                                  const float* x, int xs, int IC, float* y,
                                  int ys, int OC, int S, int rows) {
@@ -162,7 +176,8 @@ __device__ inline void conv_relu(const float* W, int ws, const float* b,
         const float4 wv = *reinterpret_cast<const float4*>(w + ic);
 #pragma unroll
         for (int r = 0; r < RRT; ++r) {
-          const float4 xv = *reinterpret_cast<const float4*>(xp + r * xs + ic);
+          const float4 xv =
+              rbf4<BX>(*reinterpret_cast<const float4*>(xp + r * xs + ic));
           acc[r] = fmaf(xv.x, wv.x, acc[r]);
           acc[r] = fmaf(xv.y, wv.y, acc[r]);
           acc[r] = fmaf(xv.z, wv.z, acc[r]);
@@ -179,14 +194,16 @@ __device__ inline void conv_relu(const float* W, int ws, const float* b,
 
 // Both convolutions of the tile: obs rows x -> a0 -> the first P2 C2 columns
 // of a1, whose next 6 columns get the rows' self features. Ends synchronised.
+// With BF the obs rows x are rounded already and conv 1 rounds a0.
+template <bool BF = false>
 __device__ inline void conv_forward(const CnnNet& net, const ConvW& cw,
                                     const float* x, float* a0, float* a1,
                                     int rows) {
   conv_relu(cw.w0, net.ws0, cw.b0, x, net.xs, net.C0p, a0, net.a0s, net.C1,
             net.S, rows);
   __syncthreads();
-  conv_relu(cw.w1, net.ws1, cw.b1, a0, net.a0s, net.C1, a1, net.a1s, net.C2,
-            net.S, rows);
+  conv_relu<BF>(cw.w1, net.ws1, cw.b1, a0, net.a0s, net.C1, a1, net.a1s,
+                net.C2, net.S, rows);
   for (int idx = threadIdx.x; idx < rows * NSELF; idx += RNT) {
     const int n = idx / NSELF, f = idx % NSELF;
     a1[n * net.a1s + net.P2 * net.C2 + f] = x[n * net.xs + net.P2 * net.C0p + f];
@@ -196,7 +213,9 @@ __device__ inline void conv_forward(const CnnNet& net, const ConvW& cw,
 
 // h[n][j] = tanh(a1[n] . Wt[j] + bt[j]) for the tile's rows; Wt_t is the
 // trunk's kernel transposed to [trunk_in, H]. Rows < nvalid also go to
-// g[(n0 + n) * H + j] when g is set.
+// g[(n0 + n) * H + j] when g is set. With BF the product reads a1 rounded
+// to bf16 (Wt_t is rounded already).
+template <bool BF = false>
 __device__ inline void trunk_forward(const CnnNet& net, const float* Wt_t,
                                      const float* bt, const float* a1,
                                      float* h, int rows, float* g, long n0,
@@ -206,7 +225,8 @@ __device__ inline void trunk_forward(const CnnNet& net, const float* Wt_t,
     const int j = item % H, r0 = item / H * RRT;
     float acc[1][RRT];
     zero_acc(acc);
-    fma_cols<1>(acc, a1 + r0 * net.a1s, net.a1s, Wt_t + j, H, 0, net.trunk_in);
+    fma_cols<1, BF>(acc, a1 + r0 * net.a1s, net.a1s, Wt_t + j, H, 0,
+                    net.trunk_in);
     const float bj = bt[j];
 #pragma unroll
     for (int r = 0; r < RRT; ++r) {
@@ -217,7 +237,9 @@ __device__ inline void trunk_forward(const CnnNet& net, const float* Wt_t,
   }
 }
 
-// out[n][o] = h[n] . Whead[o] + b[o], o < 6, one thread per (row, output).
+// out[n][o] = h[n] . Whead[o] + b[o], o < 6, one thread per (row, output);
+// with BF on bf16-rounded operands.
+template <bool BF = false>
 __device__ inline void cnn_head(const CnnNet& net, const float* p,
                                 const float* h, float* out, int rows) {
   for (int item = threadIdx.x; item < rows * RHEAD; item += RNT) {
@@ -225,24 +247,29 @@ __device__ inline void cnn_head(const CnnNet& net, const float* p,
     const float* w = p + net.head_w + (long)o * net.H;
     float acc = 0.f;
     for (int k = 0; k < net.H; ++k)
-      acc = fmaf(h[n * net.H + k], __ldg(w + k), acc);
+      acc = fmaf(rbf<BF>(h[n * net.H + k]), rbf<BF>(__ldg(w + k)), acc);
     out[n * ROST + o] = acc + p[net.head_b + o];
   }
 }
 
 // wt_t = the trunk's kernel [H, trunk_in] of the packed vector as
-// [trunk_in, H].
+// [trunk_in, H]; rounded to bf16 with BF.
+template <bool BF>
 __global__ void trunk_transpose_kernel(CnnNet net, const float* p,
                                        float* wt_t) {
   const long n = (long)net.H * net.trunk_in;
   for (long k = (long)blockIdx.x * blockDim.x + threadIdx.x; k < n;
        k += (long)gridDim.x * blockDim.x)
-    wt_t[(k % net.trunk_in) * net.H + k / net.trunk_in] = p[net.wt + k];
+    wt_t[(k % net.trunk_in) * net.H + k / net.trunk_in] = rbf<BF>(p[net.wt + k]);
 }
 
 inline cudaError_t launch_trunk_transpose(const CnnNet& net, const float* p,
-                                          float* wt_t, cudaStream_t stream) {
-  trunk_transpose_kernel<<<64, 256, 0, stream>>>(net, p, wt_t);
+                                          float* wt_t, cudaStream_t stream,
+                                          bool bf16 = false) {
+  if (bf16)
+    trunk_transpose_kernel<true><<<64, 256, 0, stream>>>(net, p, wt_t);
+  else
+    trunk_transpose_kernel<false><<<64, 256, 0, stream>>>(net, p, wt_t);
   return cudaGetLastError();
 }
 

@@ -8,10 +8,13 @@
 // column for a register tile of TILE rows and reads the rows as shared-memory
 // broadcasts. A layer too wide to stage its input runs over chunks of XCH
 // input columns: each chunk's call adds its part to the sums kept in y, in
-// the order of the columns.
+// the order of the columns. With BX each x is rounded to bf16 where it is
+// read (a learner's bf16-operand product; W is then a rounded copy).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "bf16_round.cuh"
 
 namespace {
 
@@ -23,7 +26,7 @@ constexpr int XCH = 128;  // input columns per chunk of a chunked first layer
 // On `last`, rows < nvalid also go to g[(n0 + n) * out + o] unless g is
 // null. Unless tile_off is null, tile grp's W and bias sit tile_off[grp]
 // floats further on (K2's policy groups).
-template <int THREADS, int TILE, int GROUPS>
+template <int THREADS, int TILE, int GROUPS, bool BX = false>
 __device__ void dense_l2(
     const float* W, const float* bias, const float* x, int xs, int in,
     float* y, int ys, int out, bool use_tanh, bool first, bool last,
@@ -40,7 +43,8 @@ __device__ void dense_l2(
     for (int i = 0; i < in; ++i) {
       const float wi = __ldg(W + off + (long)i * out + o);
 #pragma unroll
-      for (int r = 0; r < TILE; ++r) acc[r] = fmaf(xg[r * xs + i], wi, acc[r]);
+      for (int r = 0; r < TILE; ++r)
+        acc[r] = fmaf(rbf<BX>(xg[r * xs + i]), wi, acc[r]);
     }
     const float bo = last ? __ldg(bias + off + o) : 0.f;
 #pragma unroll

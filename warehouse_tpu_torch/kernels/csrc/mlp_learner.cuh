@@ -38,12 +38,23 @@
 // sums follow group by group, each in its order without groups. One global
 // norm spans every group's gradient (GroupSplit).
 //
+// bf16 operands (matmul_dtype="bfloat16", pallas/sgd.py:181-191): the
+// tile kernels and wgrad_kernel take a template flag BF. With it every
+// product rounds its two operands to bf16 and sums in float32; the loss
+// chain, 1 - h^2, the bias gradients (sums of the float32 deltas), the
+// reductions and Adam stay float32. A value that is only ever an operand is
+// rounded once where it is staged: the transposed weight copy and the
+// observation chunk b.xs. Activations (which also feed 1 - h^2) and deltas
+// (which also feed the bias sums) are rounded where the product reads them,
+// and the float32 value is kept.
+//
 // Every sum runs in an order fixed by the shapes alone, so two runs on the
 // same inputs give the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "bf16_round.cuh"
 #include "dense_l2.cuh"
 
 namespace {
@@ -274,7 +285,8 @@ __device__ TileBufs tile_bufs(const Net& net, float* smem) {
 // The tile's forward from its row pointers b.rows: the first layer over
 // chunks of XCH input columns staged in b.xs, then the other hidden layers
 // (activations of rows < nvalid to sc.act) and the head into b.outs, every
-// matrix from the transposed copy `wt`.
+// matrix from the transposed copy `wt` (rounded to bf16 with BF).
+template <bool BF = false>
 __device__ void fwd_tile(const Net& net, const float* params, const float* wt,
                          const TileBufs& b, const Scratch& sc, long n0,
                          int nvalid) {
@@ -284,7 +296,7 @@ __device__ void fwd_tile(const Net& net, const float* params, const float* wt,
     for (int k = threadIdx.x; k < R * cw; k += NT) {
       const int n = k / cw, c = k % cw;
       const float* row = b.rows[n];
-      b.xs[n * XCH + c] = row ? row[c0 + c] : 0.f;
+      b.xs[n * XCH + c] = rbf<BF>(row ? row[c0 + c] : 0.f);
     }
     __syncthreads();
     dense_l2<NT, RT, G>(wt + y0.w_off + (long)c0 * y0.out, params + y0.b_off,
@@ -295,7 +307,7 @@ __device__ void fwd_tile(const Net& net, const float* params, const float* wt,
   for (int l = 1; l <= net.n_hidden; ++l) {
     const Layer& y = net.L[l];
     const bool head = l == net.n_hidden;
-    dense_l2<NT, RT, G>(wt + y.w_off, params + y.b_off, b.hs[l - 1], y.in,
+    dense_l2<NT, RT, G, BF>(wt + y.w_off, params + y.b_off, b.hs[l - 1], y.in,
                         y.in, head ? b.outs : b.hs[l], head ? OST : y.out,
                         y.out, !head, true, true,
                         head ? nullptr : sc.act[l], n0, nvalid);
@@ -304,7 +316,8 @@ __device__ void fwd_tile(const Net& net, const float* params, const float* wt,
 }
 
 // wt = every W [out, in] of the packed vector as [in, out], at its offset,
-// for each of K groups' params.
+// for each of K groups' params; rounded to bf16 with BF.
+template <bool BF>
 __global__ void mlp_transpose_kernel(Net net, const float* p, float* wt,
                                      int K) {
   const long stride = (long)gridDim.x * blockDim.x;
@@ -315,22 +328,28 @@ __global__ void mlp_transpose_kernel(Net net, const float* p, float* wt,
       const Layer& y = net.L[l];
       for (long k = tid; k < (long)y.out * y.in; k += stride)
         wt[go + y.w_off + (k % y.in) * y.out + k / y.in] =
-            p[go + y.w_off + k];
+            rbf<BF>(p[go + y.w_off + k]);
     }
   }
 }
 
-// Before the tile kernels: the transposed copy of the params (K groups').
+// Before the tile kernels: the transposed copy of the params (K groups'),
+// rounded to bf16 with `bf16`.
 inline cudaError_t launch_mlp_transpose(const Net& net, const float* params,
                                         const Scratch& sc, cudaStream_t stream,
-                                        int K = 1) {
-  mlp_transpose_kernel<<<128, 256, 0, stream>>>(net, params, sc.wt, K);
+                                        int K = 1, bool bf16 = false) {
+  if (bf16)
+    mlp_transpose_kernel<true><<<128, 256, 0, stream>>>(net, params, sc.wt, K);
+  else
+    mlp_transpose_kernel<false><<<128, 256, 0, stream>>>(net, params, sc.wt, K);
   return cudaGetLastError();
 }
 
 // dz[n][i] = (sum_o d[n][o] W[o][i]) * (1 - h[n][i]^2), written over h and,
 // for rows < nvalid, to g[(n0 + n) * in + i]. W [out, in] is the packed
-// matrix in device memory, read through the read-only path.
+// matrix in device memory, read through the read-only path. With BF the
+// product's d and W are rounded to bf16 where they are read.
+template <bool BF>
 __device__ void bwd_layer(const float* W, const float* d, int ds, int out,
                           float* h, int in, float* g, long n0, int nvalid) {
   for (int item = threadIdx.x; item < in * G; item += NT) {
@@ -340,9 +359,10 @@ __device__ void bwd_layer(const float* W, const float* d, int ds, int out,
 #pragma unroll
     for (int r = 0; r < RT; ++r) acc[r] = 0.f;
     for (int o = 0; o < out; ++o) {
-      const float w = __ldg(W + (long)o * in + i);
+      const float w = rbf<BF>(__ldg(W + (long)o * in + i));
 #pragma unroll
-      for (int r = 0; r < RT; ++r) acc[r] = fmaf(dg[r * ds + o], w, acc[r]);
+      for (int r = 0; r < RT; ++r)
+        acc[r] = fmaf(rbf<BF>(dg[r * ds + o]), w, acc[r]);
     }
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
@@ -358,17 +378,18 @@ __device__ void bwd_layer(const float* W, const float* d, int ds, int out,
 // The head deltas in b.outs back through the head and the hidden layers
 // (over b.hs, which hold the activations); the deltas of rows < nvalid go
 // to sc.dz.
+template <bool BF = false>
 __device__ void bwd_tile(const Net& net, const float* params,
                          const TileBufs& b, const Scratch& sc, long n0,
                          int nvalid) {
   const int L = net.n_hidden;
   const Layer& hd = net.L[L];
-  bwd_layer(params + hd.w_off, b.outs, OST, NHEAD, b.hs[L - 1], hd.in,
+  bwd_layer<BF>(params + hd.w_off, b.outs, OST, NHEAD, b.hs[L - 1], hd.in,
             sc.dz[L - 1], n0, nvalid);
   __syncthreads();
   for (int l = L - 2; l >= 0; --l) {
     const Layer& y = net.L[l + 1];
-    bwd_layer(params + y.w_off, b.hs[l + 1], y.out, y.out, b.hs[l], y.in,
+    bwd_layer<BF>(params + y.w_off, b.hs[l + 1], y.out, y.out, b.hs[l], y.in,
               sc.dz[l], n0, nvalid);
     __syncthreads();
   }
@@ -470,6 +491,9 @@ WTask wtask(const float* prev, const float* delta, int ds, int in, int out,
   return t;
 }
 
+// With BF each product's operands are rounded to bf16: prev where it is
+// staged, delta where the product reads it (db sums the float32 delta).
+template <bool BF>
 __global__ void __launch_bounds__(WNT) wgrad_kernel(WArgs p) {
   __shared__ __align__(16) float Ds[NC][WT];
   __shared__ __align__(16) float Ps[NC][WT];
@@ -494,7 +518,7 @@ __global__ void __launch_bounds__(WNT) wgrad_kernel(WArgs p) {
       if (ok && i0 + col < w.in)
         pv = w.prev ? w.prev[q * w.in + i0 + col]
                     : p.bt.obs[p.bt.row(q) * p.bt.D + i0 + col];
-      Ps[nn][col] = pv;
+      Ps[nn][col] = rbf<BF>(pv);
     }
     __syncthreads();
 #pragma unroll 4
@@ -503,9 +527,11 @@ __global__ void __launch_bounds__(WNT) wgrad_kernel(WArgs p) {
       const float4 x = *reinterpret_cast<const float4*>(&Ps[nn][tx * 4]);
       const float dv[4] = {d.x, d.y, d.z, d.w}, xv[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < 4; ++a) {
+        const float da = rbf<BF>(dv[a]);
 #pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(dv[a], xv[b], acc[a][b]);
+        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(da, xv[b], acc[a][b]);
+      }
       if (bias && tx == 0)
 #pragma unroll
         for (int a = 0; a < 4; ++a) bsum[a] += dv[a];
@@ -634,12 +660,24 @@ cudaError_t persistent_grid(Kernel kernel, size_t smem, long n_tiles,
   return cudaSuccess;
 }
 
+// wgrad_kernel over a grid of `tiles` output tiles x S sample ranges, with
+// bf16 operands when `bf16`.
+inline cudaError_t launch_wgrad_kernel(const WArgs& wa, int tiles, int S,
+                                       bool bf16, cudaStream_t stream) {
+  if (bf16)
+    wgrad_kernel<true><<<dim3(tiles, S), WNT, 0, stream>>>(wa);
+  else
+    wgrad_kernel<false><<<dim3(tiles, S), WNT, 0, stream>>>(wa);
+  return cudaGetLastError();
+}
+
 // The weight gradients of every layer from the activations and deltas of
 // `rows`' N samples (sc's act / dz / dout from its first row on; the head's
 // deltas are dout's), over `S` sample ranges, reduced into `grads` with
 // its sums of squares into `sq`.
 cudaError_t launch_wgrad(const Net& net, const Rows& rows, const Scratch& sc,
-                         int S, float* grads, float* sq, cudaStream_t stream) {
+                         int S, float* grads, float* sq, cudaStream_t stream,
+                         bool bf16 = false) {
   WArgs wa;
   wa.n_layers = net.n_hidden + 1;
   wa.bt = rows;
@@ -654,9 +692,8 @@ cudaError_t launch_wgrad(const Net& net, const Rows& rows, const Scratch& sc,
                     head ? sc.dout : sc.dz[l], head ? OST : y.out, y.in, y.out,
                     y.w_off, y.b_off, &tiles);
   }
-  cudaError_t e;
-  wgrad_kernel<<<dim3(tiles, S), WNT, 0, stream>>>(wa);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  cudaError_t e = launch_wgrad_kernel(wa, tiles, S, bf16, stream);
+  if (e != cudaSuccess) return e;
   reduce_kernel<<<(unsigned)((net.n_params + RED - 1) / RED), RED, 0,
                   stream>>>(sc.part, S, net.n_params, grads, sq);
   return cudaGetLastError();
@@ -681,7 +718,8 @@ cudaError_t launch_grads_tail(const Net& net, const Rows& rows,
 // rows of every group's tiles.
 cudaError_t launch_group_grads_tail(const Net& net, const GroupSplit& gs,
                                     const Scratch& sc, float* grads,
-                                    float* sums, cudaStream_t stream) {
+                                    float* sums, cudaStream_t stream,
+                                    bool bf16 = false) {
   const long n_sq = (net.n_params + RED - 1) / RED;
   for (int g = 0; g < gs.K; ++g) {
     const long n0 = gs.noff[g];
@@ -694,7 +732,7 @@ cudaError_t launch_group_grads_tail(const Net& net, const GroupSplit& gs,
     cudaError_t e = launch_wgrad(net, gs.rows[g], sg,
                                  (int)n_splits(gs.rows[g].N),
                                  grads + g * net.n_params, sc.sq + g * n_sq,
-                                 stream);
+                                 stream, bf16);
     if (e != cudaSuccess) return e;
   }
   metrics_kernel<<<1, 128, 0, stream>>>(sc.met, gs.toff[gs.K], sums);

@@ -49,6 +49,14 @@
 // neighbouring addresses) and the rows as shared-memory broadcasts. (b)
 // keeps a 4 x 4 register tile per thread.
 //
+// bf16 operands (matmul_dtype="bfloat16", _block_grads' dot at
+// sgd.py:188-191): fwd_bwd_kernel, the transposed copy and wgrad_kernel are
+// instantiated with mlp_learner.cuh's flag BF, chosen per call of
+// wh_sgd_grads (groups and the chunked first layer alike); the float32
+// instances are the code the route had before. Each product rounds its
+// operands to bf16 and sums in float32 on the CUDA cores, as the f32 route
+// does (no tensor-core path yet).
+//
 // Tie rules, as the TPU kernel writes them (_block_grads, sgd.py:170-179):
 // a tie of the surrogate min routes the whole gradient to the unclipped
 // branch (pg1 <= pg2), a tie of the value max to the unclipped error
@@ -75,6 +83,7 @@ struct FwdArgs {
   const float* scal;  // ent_coef, kl_coeff
 };
 
+template <bool BF>
 __global__ void __launch_bounds__(NT) fwd_bwd_kernel(FwdArgs p) {
   extern __shared__ float smem[];
   const Net& net = p.net;
@@ -96,7 +105,8 @@ __global__ void __launch_bounds__(NT) fwd_bwd_kernel(FwdArgs p) {
     if (tid < R)
       b.rows[tid] = tid < nvalid ? bt.obs + rows.row(q0 + tid) * D : nullptr;
     __syncthreads();
-    fwd_tile(net, params, p.sc.wt + g * net.n_params, b, p.sc, n0, nvalid);
+    fwd_tile<BF>(net, params, p.sc.wt + g * net.n_params, b, p.sc, n0,
+                 nvalid);
 
     if (tid < R) {
       float* o = b.outs + tid * OST;
@@ -116,17 +126,18 @@ __global__ void __launch_bounds__(NT) fwd_bwd_kernel(FwdArgs p) {
       for (int n = 0; n < R; ++n) s += b.met[n * 4 + tid];
       p.sc.met[tile * 4 + tid] = s;
     }
-    bwd_tile(net, params, b, p.sc, n0, nvalid);
+    bwd_tile<BF>(net, params, b, p.sc, n0, nvalid);
   }
 }
 
+template <bool BF>
 cudaError_t launch_fwd_bwd(const FwdArgs& fa, cudaStream_t stream) {
   const size_t smem = smem_bytes(fa.net);
   long grid = 0;
-  cudaError_t e = persistent_grid(fwd_bwd_kernel, smem, fa.gs.toff[fa.gs.K],
-                                  &grid);
+  cudaError_t e = persistent_grid(fwd_bwd_kernel<BF>, smem,
+                                  fa.gs.toff[fa.gs.K], &grid);
   if (e != cudaSuccess) return e;
-  fwd_bwd_kernel<<<(unsigned)grid, NT, smem, stream>>>(fa);
+  fwd_bwd_kernel<BF><<<(unsigned)grid, NT, smem, stream>>>(fa);
   return cudaGetLastError();
 }
 
@@ -182,7 +193,8 @@ extern "C" long wh_sgd_workspace_floats(int n_hidden, const int* dims, int T,
 // sums). `grads` gets the gradient in the packed layout (K groups' in
 // group order), sums[0..3] the metric sums (min surrogate, max squared
 // value error, entropy, old_lp - lp); the workspace keeps the gradient's
-// sums of squares for wh_sgd_clip_adam.
+// sums of squares for wh_sgd_clip_adam. bf16 != 0: every product on bf16
+// operands (matmul_dtype="bfloat16").
 extern "C" int wh_sgd_grads(
     int n_hidden, const int* dims, int T, long B, int A, int M, int K,
     const int* groups, int mb, const float* obs, const int* action,
@@ -190,7 +202,7 @@ extern "C" int wh_sgd_grads(
     const float* target, const unsigned char* mask, const float* params,
     const float* scal, float clip_eps, float clip_lo, float clip_hi,
     float value_coef, float inv_n, float* work, float* grads, float* sums,
-    void* stream_) {
+    int bf16, void* stream_) {
   FwdArgs fa;
   if (!make_groups(n_hidden, dims, T, B, A, M, K, groups, mb, obs, &fa.net,
                    &fa.bt, &fa.gs))
@@ -207,12 +219,13 @@ extern "C" int wh_sgd_grads(
   fa.params = params;
   fa.scal = scal;
 
-  cudaError_t e = launch_mlp_transpose(fa.net, params, fa.sc, stream, K);
+  cudaError_t e =
+      launch_mlp_transpose(fa.net, params, fa.sc, stream, K, bf16 != 0);
   if (e != cudaSuccess) return (int)e;
-  e = launch_fwd_bwd(fa, stream);
+  e = bf16 ? launch_fwd_bwd<true>(fa, stream) : launch_fwd_bwd<false>(fa, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_group_grads_tail(fa.net, fa.gs, fa.sc, grads, sums,
-                                      stream);
+                                      stream, bf16 != 0);
 }
 
 // K3's optimizer step `step` after wh_sgd_grads on the same workspace:

@@ -50,6 +50,16 @@
 // the CUDA cores: per sample ~0.4 MFLOP forward, ~0.38 backward to the
 // layers' inputs and ~0.4 in the weight gradients.
 //
+// bf16 operands (matmul_dtype="bfloat16", _cnn_block_grads' dot at
+// sgd_cnn.py:213-216): cnn_fwd_bwd_kernel, the trunk's transposed copy and
+// wgrad_kernel take the flag BF (cnn_net.cuh, mlp_learner.cuh), chosen per
+// call of wh_cnn_sgd_grads, at S = 5 and the global view's S = 9 alike. The
+// obs rows are rounded where they are staged; the backward products (the
+// head's adjoint, the trunk delta times the trunk kernel, conv 1's
+// transposed convolution, the conv weight gradients) round both operands
+// where they read them. The relu masks, tanh', the bias sums and the conv
+// partials stay float32.
+//
 // Tie rules: the relu passes gradient where its output is positive (z > 0),
 // which is also torch's; the surrogate-min and value-max ties follow
 // loss_row (sgd.cu's note).
@@ -138,7 +148,8 @@ size_t cnn_sgd_smem(const CnnNet& net) {
 
 // acc[a][b] += sum over the tile's rows and the valid output positions of
 // tap k of d[n][po OC + oc0 + a] x[n][pi IC + ic0 + b]: one 4 x 4 block of
-// one tap of a conv kernel's gradient.
+// one tap of a conv kernel's gradient; with BF on bf16-rounded operands.
+template <bool BF>
 __device__ __forceinline__ void conv_wgrad_block(
     float (&acc)[4][4], const float* d, int ds, int OC, const float* x,
     int xs, int IC, int S, int k, int oc0, int ic0, int rows) {
@@ -149,10 +160,10 @@ __device__ __forceinline__ void conv_wgrad_block(
     for (int ro = ro_lo; ro < ro_hi; ++ro) {
       for (int co = co_lo; co < co_hi; ++co) {
         const int po = ro * S + co, pi = (ro + kr) * S + co + kc;
-        const float4 dv =
-            *reinterpret_cast<const float4*>(d + n * ds + po * OC + oc0);
-        const float4 xv =
-            *reinterpret_cast<const float4*>(x + n * xs + pi * IC + ic0);
+        const float4 dv = rbf4<BF>(
+            *reinterpret_cast<const float4*>(d + n * ds + po * OC + oc0));
+        const float4 xv = rbf4<BF>(
+            *reinterpret_cast<const float4*>(x + n * xs + pi * IC + ic0));
         const float da[4] = {dv.x, dv.y, dv.z, dv.w};
         const float xb[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
@@ -176,6 +187,7 @@ __device__ __forceinline__ float conv_bgrad(const float* d, int ds, int OC,
 
 // ---- (b) forward, loss, backward, conv weight gradients ----------------------
 
+template <bool BF>
 __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
   extern __shared__ __align__(16) float smem[];
   const CnnNet& net = p.net;
@@ -183,7 +195,7 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
   const int H = net.H, D = net.D, S = net.S, P2 = net.P2;
   const int C0 = net.C0, C0p = net.C0p, C1 = net.C1, C2 = net.C2;
   const int rows = p.sc.rows;  // the tile's samples, at most CROWS
-  const ConvW cw = stage_conv(net, p.params, smem);
+  const ConvW cw = stage_conv<BF>(net, p.params, smem);
   float* xa = smem + conv_smem_floats(net);
   float* a0 = xa + rows * net.xs;
   float* a1 = a0 + rows * net.a0s;
@@ -222,20 +234,20 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
     for (int idx = tid; idx < rows * D; idx += RNT) {
       const int n = idx / D, f = idx % D;
       xa[n * net.xs + obs_slot(net, f)] =
-          n < nvalid ? bt.obs[bt.row(q0 + n) * D + f] : 0.f;
+          rbf<BF>(n < nvalid ? bt.obs[bt.row(q0 + n) * D + f] : 0.f);
     }
     __syncthreads();
 
     // Forward; the trunk's input and output rows go to device memory.
-    conv_forward(net, cw, xa, a0, a1, rows);
+    conv_forward<BF>(net, cw, xa, a0, a1, rows);
     for (int idx = tid; idx < nvalid * net.trunk_in; idx += RNT) {
       const int n = idx / net.trunk_in, i = idx % net.trunk_in;
       p.sc.a1[(q0 + n) * net.trunk_in + i] = a1[n * net.a1s + i];
     }
-    trunk_forward(net, p.sc.wt_t, p.params + net.bt, a1, hs, rows, p.sc.h, q0,
-                  nvalid);
+    trunk_forward<BF>(net, p.sc.wt_t, p.params + net.bt, a1, hs, rows, p.sc.h,
+                      q0, nvalid);
     __syncthreads();
-    cnn_head(net, p.params, hs, outs, rows);
+    cnn_head<BF>(net, p.params, hs, outs, rows);
     __syncthreads();
 
     if (tid < rows) {
@@ -262,7 +274,8 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
       float d = 0.f;
 #pragma unroll
       for (int o = 0; o < NHEAD; ++o)
-        d = fmaf(outs[n * OST + o], __ldg(Whead + o * H + j), d);
+        d = fmaf(rbf<BF>(outs[n * OST + o]), rbf<BF>(__ldg(Whead + o * H + j)),
+                 d);
       const float hv = hs[idx];
       const float dz = d * (1.f - hv * hv);
       hs[idx] = dz;
@@ -276,7 +289,7 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
       const int i = item % (P2 * C2), r0 = item / (P2 * C2) * RRT;
       float acc[1][RRT];
       zero_acc(acc);
-      fma_cols<1>(acc, hs + r0 * H, H, Wt + i, net.trunk_in, 0, H);
+      fma_cols<1, BF, BF>(acc, hs + r0 * H, H, Wt + i, net.trunk_in, 0, H);
 #pragma unroll
       for (int r = 0; r < RRT; ++r) {
         float* a = a1 + (r0 + r) * net.a1s + i;
@@ -287,8 +300,8 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
 
     // Conv 1's kernel and bias gradients from its delta and its input.
     if (role == 1)
-      conv_wgrad_block(wacc, a1, net.a1s, C2, a0, net.a0s, C1, S, wk, woc,
-                       wic, rows);
+      conv_wgrad_block<BF>(wacc, a1, net.a1s, C2, a0, net.a0s, C1, S, wk, woc,
+                           wic, rows);
     else if (role == 2)
       bacc += conv_bgrad(a1, net.a1s, C2, P2, woc, rows);
     __syncthreads();
@@ -311,8 +324,8 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
           const float w2 = w[(oc + 2) * net.ws1], w3 = w[(oc + 3) * net.ws1];
 #pragma unroll
           for (int r = 0; r < RRT; ++r) {
-            const float4 dv =
-                *reinterpret_cast<const float4*>(dp + r * net.a1s + oc);
+            const float4 dv = rbf4<BF>(
+                *reinterpret_cast<const float4*>(dp + r * net.a1s + oc));
             acc[r] = fmaf(dv.x, w0, acc[r]);
             acc[r] = fmaf(dv.y, w1, acc[r]);
             acc[r] = fmaf(dv.z, w2, acc[r]);
@@ -330,8 +343,8 @@ __global__ void __launch_bounds__(RNT) cnn_fwd_bwd_kernel(CnnArgs p) {
 
     // Conv 0's kernel and bias gradients from its delta and the obs grid.
     if (role == 0)
-      conv_wgrad_block(wacc, a0, net.a0s, C1, xa, net.xs, C0p, S, wk, woc, wic,
-                       rows);
+      conv_wgrad_block<BF>(wacc, a0, net.a0s, C1, xa, net.xs, C0p, S, wk, woc,
+                           wic, rows);
     else if (role == 3)
       bacc += conv_bgrad(a0, net.a0s, C1, P2, woc, rows);
     __syncthreads();
@@ -367,7 +380,7 @@ bool make_cnn(int S, int C0, int C1, int C2, int H, int T, long B, int A,
 // partial reduced into `grads` (its sums of squares into sc.sq), and the
 // metric sums. `grid` is the CTA count of cnn_fwd_bwd_kernel.
 cudaError_t launch_cnn_tail(const CnnArgs& ca, long grid, float* grads,
-                            float* sums, cudaStream_t stream) {
+                            float* sums, bool bf16, cudaStream_t stream) {
   const CnnNet& net = ca.net;
   const CnnScratch& sc = ca.sc;
   const long n_dense = net.n_params - net.n_conv;
@@ -382,9 +395,8 @@ cudaError_t launch_cnn_tail(const CnnArgs& ca, long grid, float* grads,
   wa.t[1] = wtask(sc.h, sc.dout, OST, net.H, NHEAD, net.head_w - net.n_conv,
                   net.head_b - net.n_conv, &tiles);
   wa.n_layers = 2;
-  cudaError_t e;
-  wgrad_kernel<<<dim3(tiles, sc.S), WNT, 0, stream>>>(wa);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  cudaError_t e = launch_wgrad_kernel(wa, tiles, sc.S, bf16, stream);
+  if (e != cudaSuccess) return e;
   reduce_kernel<<<(unsigned)sc.n_sq_conv, RED, 0, stream>>>(
       sc.cpart, (int)grid, net.n_conv, grads, sc.sq);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -422,17 +434,36 @@ extern "C" long wh_cnn_sgd_workspace_floats(int S, int C0, int C1, int C2,
   return carve_cnn(ca.net, ca.bt.N, nullptr, &ca.sc);
 }
 
+namespace {
+
+// (b) on a persistent grid of at most MAXG CTAs; its size into *grid.
+template <bool BF>
+cudaError_t launch_cnn_fwd_bwd(const CnnArgs& ca, long* grid,
+                               cudaStream_t stream) {
+  const size_t smem = cnn_sgd_smem(ca.net);
+  cudaError_t e = persistent_grid(cnn_fwd_bwd_kernel<BF>, smem,
+                                  ca.sc.n_tiles < MAXG ? ca.sc.n_tiles : MAXG,
+                                  grid, RNT);
+  if (e != cudaSuccess) return e;
+  cnn_fwd_bwd_kernel<BF><<<(unsigned)*grid, RNT, smem, stream>>>(ca);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // K12: the loss and gradient of minibatch mb. `grads` gets the gradient in
 // the packed layout, sums[0..3] the metric sums (min surrogate, max squared
 // value error, entropy, old_lp - lp); the workspace keeps the gradient's
-// sums of squares for wh_cnn_sgd_clip_adam.
+// sums of squares for wh_cnn_sgd_clip_adam. bf16 != 0: every product on
+// bf16 operands (matmul_dtype="bfloat16").
 extern "C" int wh_cnn_sgd_grads(
     int S, int C0, int C1, int C2, int H, int T, long B, int A, int M, int mb,
     const float* obs, const int* action, const float* old_lp,
     const float* old_v, const float* adv, const float* target,
     const unsigned char* mask, const float* params, const float* scal,
     float clip_eps, float clip_lo, float clip_hi, float value_coef,
-    float inv_n, float* work, float* grads, float* sums, void* stream_) {
+    float inv_n, float* work, float* grads, float* sums, int bf16,
+    void* stream_) {
   CnnArgs ca;
   if (!make_cnn(S, C0, C1, C2, H, T, B, A, M, mb, obs, &ca))
     return (int)cudaErrorInvalidValue;
@@ -449,16 +480,14 @@ extern "C" int wh_cnn_sgd_grads(
   ca.params = params;
   ca.scal = scal;
 
-  cudaError_t e = launch_trunk_transpose(ca.net, params, ca.sc.wt_t, stream);
+  cudaError_t e =
+      launch_trunk_transpose(ca.net, params, ca.sc.wt_t, stream, bf16 != 0);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = cnn_sgd_smem(ca.net);
   long grid = 0;
-  e = persistent_grid(cnn_fwd_bwd_kernel, smem,
-                      ca.sc.n_tiles < MAXG ? ca.sc.n_tiles : MAXG, &grid, RNT);
+  e = bf16 ? launch_cnn_fwd_bwd<true>(ca, &grid, stream)
+           : launch_cnn_fwd_bwd<false>(ca, &grid, stream);
   if (e != cudaSuccess) return (int)e;
-  cnn_fwd_bwd_kernel<<<(unsigned)grid, RNT, smem, stream>>>(ca);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return (int)launch_cnn_tail(ca, grid, grads, sums, stream);
+  return (int)launch_cnn_tail(ca, grid, grads, sums, bf16 != 0, stream);
 }
 
 // K11's optimizer step `step` after wh_cnn_sgd_grads on the same workspace:

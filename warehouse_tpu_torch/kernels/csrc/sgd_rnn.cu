@@ -42,6 +42,17 @@
 // LSTM at hidden 128).
 // The bound is the FMA loops on the CUDA cores: per step ~15 GFLOP forward,
 // ~13 backward and ~15 in the weight gradients at config 4.
+//
+// bf16 operands (matmul_dtype="bfloat16", _seq_fwd_bwd's dot at
+// sgd_rnn.py:116-119), GRU and LSTM alike: the two tile kernels, the
+// transposed copy and wgrad_kernel take the flag BF of rnn_cell.cuh and
+// mlp_learner.cuh, chosen per call of wh_rnn_sgd_grads. The observation
+// tile is rounded where it is staged; in the backward every product (the
+// head's adjoint, dp / dq times Wh and Wi, the encoder's deltas times W)
+// rounds both operands where it reads them, and the gate adjoints, tanh',
+// the carries and the bias sums stay float32. The TPU kernel recomputes the
+// forward in its backward sweep from the same rounded operands, so the
+// stored activations are the values it recomputes.
 
 #include <cuda_runtime.h>
 
@@ -120,6 +131,7 @@ size_t bwd_smem(const RnnNet& net) {
 
 // ---- (b) forward over T, loss -------------------------------------------------
 
+template <bool BF>
 __global__ void __launch_bounds__(RNT) rnn_fwd_kernel(SeqArgs p) {
   extern __shared__ __align__(16) float smem[];
   const RnnNet& net = p.net;
@@ -165,14 +177,15 @@ __global__ void __launch_bounds__(RNT) rnn_fwd_kernel(SeqArgs p) {
       const long q0 = (long)t * N + n0;  // the tile's first sample row
       for (int idx = tid; idx < RTILE * D; idx += RNT) {
         const int n = idx / D, f = idx % D;
-        xa[n * xs + f] = n < nvalid ? bt.obs[bt.row(q0 + n) * D + f] : 0.f;
+        xa[n * xs + f] =
+            rbf<BF>(n < nvalid ? bt.obs[bt.row(q0 + n) * D + f] : 0.f);
       }
       __syncthreads();
       const float* x = xa;
       int xw = xs, in = D;
       float *y = ea, *spare = eb;
       for (int l = 0; l < net.n_enc; ++l) {
-        enc_layer(p.sc.pt + net.enc_w[l], p.params + net.enc_b[l], x, xw, in,
+        enc_layer<BF>(p.sc.pt + net.enc_w[l], p.params + net.enc_b[l], x, xw, in,
                   y, net.enc_out[l], net.enc_out[l], RTILE, p.sc.act[l], q0,
                   nvalid);
         __syncthreads();
@@ -182,13 +195,13 @@ __global__ void __launch_bounds__(RNT) rnn_fwd_kernel(SeqArgs p) {
         y = spare;
         spare = tmp;
       }
-      cell_forward(net, p.params, p.sc.pt, x, xw, h, h_next, cs, H, RTILE,
-                   p.sc.gates, h_out, c_out, q0, nvalid);
+      cell_forward<BF>(net, p.params, p.sc.pt, x, xw, h, h_next, cs, H, RTILE,
+                       p.sc.gates, h_out, c_out, q0, nvalid);
       __syncthreads();
       float* tmp = h;
       h = h_next;
       h_next = tmp;
-      head_forward(net, p.params, h, H, outs, RTILE);
+      head_forward<BF>(net, p.params, h, H, outs, RTILE);
       __syncthreads();
 
       if (tid < RTILE) {
@@ -216,6 +229,7 @@ __global__ void __launch_bounds__(RNT) rnn_fwd_kernel(SeqArgs p) {
 
 // ---- (c) backward over T ------------------------------------------------------
 
+template <bool BF>
 __global__ void __launch_bounds__(RNT) rnn_bwd_kernel(SeqArgs p) {
   extern __shared__ __align__(16) float smem[];
   const RnnNet& net = p.net;
@@ -253,7 +267,8 @@ __global__ void __launch_bounds__(RNT) rnn_bwd_kernel(SeqArgs p) {
         float d = dh[idx];
 #pragma unroll
         for (int o = 0; o < NHEAD; ++o)
-          d = fmaf(outs[n * OST + o], __ldg(Whead + o * H + j), d);
+          d = fmaf(rbf<BF>(outs[n * OST + o]), rbf<BF>(__ldg(Whead + o * H + j)),
+                   d);
         float g0 = 0.f, g1 = 0.f, g2 = 0.f, g3 = 0.f, hp = 0.f;
         if (live) {
           const float* gr = p.sc.gates + (q0 + n) * 4 * H + j;
@@ -304,16 +319,16 @@ __global__ void __launch_bounds__(RNT) rnn_bwd_kernel(SeqArgs p) {
         float acc[1][RRT];
         zero_acc(acc);
         if (col < H) {
-          fma_cols<1>(acc, dps + r0 * GH, GH, Wh + col, H, 0,
-                      lstm ? GH : 2 * H);
+          fma_cols<1, BF, BF>(acc, dps + r0 * GH, GH, Wh + col, H, 0,
+                              lstm ? GH : 2 * H);
           if (!lstm)
-            fma_cols<1>(acc, dqs + r0 * H, H, Wh + (long)2 * H * H + col, H, 0,
-                        H);
+            fma_cols<1, BF, BF>(acc, dqs + r0 * H, H,
+                                Wh + (long)2 * H * H + col, H, 0, H);
 #pragma unroll
           for (int r = 0; r < RRT; ++r) dh[(r0 + r) * H + col] += acc[0][r];
         } else {
           const int i = col - H;
-          fma_cols<1>(acc, dps + r0 * GH, GH, Wi + i, E, 0, GH);
+          fma_cols<1, BF, BF>(acc, dps + r0 * GH, GH, Wi + i, E, 0, GH);
 #pragma unroll
           for (int r = 0; r < RRT; ++r) {
             const int n = r0 + r;
@@ -338,7 +353,7 @@ __global__ void __launch_bounds__(RNT) rnn_bwd_kernel(SeqArgs p) {
           const int i = item % in, r0 = item / in * RRT;
           float acc[1][RRT];
           zero_acc(acc);
-          fma_cols<1>(acc, d_cur + r0 * out, out, W + i, in, 0, out);
+          fma_cols<1, BF, BF>(acc, d_cur + r0 * out, out, W + i, in, 0, out);
 #pragma unroll
           for (int r = 0; r < RRT; ++r) {
             const int n = r0 + r;
@@ -375,7 +390,7 @@ bool make_seq(int n_enc, const int* dims, int H, int lstm, int T, long B,
 // Every weight gradient from the stored activations and deltas, reduced
 // into `grads` (its sums of squares into sc.sq), and the metric sums.
 cudaError_t launch_rnn_tail(const SeqArgs& sa, float* grads, float* sums,
-                            cudaStream_t stream) {
+                            bool bf16, cudaStream_t stream) {
   const RnnNet& net = sa.net;
   const RnnScratch& sc = sa.sc;
   const int H = net.H, E = net.E, GH = net.G * net.H;
@@ -402,9 +417,8 @@ cudaError_t launch_rnn_tail(const SeqArgs& sa, float* grads, float* sums,
   wa.t[k++] = wtask(sc.hs + N * H, sc.dout, OST, H, NHEAD, net.head_w,
                     net.head_b, &tiles);
   wa.n_layers = k;
-  cudaError_t e;
-  wgrad_kernel<<<dim3(tiles, sc.S), WNT, 0, stream>>>(wa);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  cudaError_t e = launch_wgrad_kernel(wa, tiles, sc.S, bf16, stream);
+  if (e != cudaSuccess) return e;
   reduce_kernel<<<(unsigned)sc.n_sq, RED, 0, stream>>>(sc.part, sc.S,
                                                        net.n_params, grads,
                                                        sc.sq);
@@ -435,11 +449,33 @@ extern "C" long wh_rnn_sgd_workspace_floats(int n_enc, const int* dims, int H,
   return carve_rnn(sa.net, T, sa.bt.nb, nullptr, &sa.sc);
 }
 
+namespace {
+
+// (b) and (c) of one gradient, their shared memory opted in.
+template <bool BF>
+cudaError_t launch_seq(const SeqArgs& sa, cudaStream_t stream) {
+  const size_t fs = fwd_smem(sa.net), bs = bwd_smem(sa.net);
+  cudaError_t e = cudaFuncSetAttribute(
+      rnn_fwd_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fs);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(rnn_bwd_kernel<BF>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bs);
+  if (e != cudaSuccess) return e;
+  const unsigned grid = (unsigned)sa.sc.n_tiles;
+  rnn_fwd_kernel<BF><<<grid, RNT, fs, stream>>>(sa);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  rnn_bwd_kernel<BF><<<grid, RNT, bs, stream>>>(sa);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // K9: the sequence-replay loss and gradient of minibatch mb from the
 // rollout-start carry h0 (and c0 for the LSTM), [B, A, H]. `grads` gets the
 // gradient in the packed layout, sums[0..3] the metric sums (min surrogate,
 // max squared value error, entropy, old_lp - lp); the workspace keeps the
-// gradient's sums of squares for wh_rnn_sgd_clip_adam.
+// gradient's sums of squares for wh_rnn_sgd_clip_adam. bf16 != 0: every
+// product on bf16 operands (matmul_dtype="bfloat16").
 extern "C" int wh_rnn_sgd_grads(
     int n_enc, const int* dims, int H, int lstm, int T, long B, int A, int M,
     int mb, const float* obs, const int* action, const float* old_lp,
@@ -447,7 +483,7 @@ extern "C" int wh_rnn_sgd_grads(
     const unsigned char* mask, const float* h0, const float* c0,
     const float* params, const float* scal, float clip_eps, float clip_lo,
     float clip_hi, float value_coef, float inv_n, float* work, float* grads,
-    float* sums, void* stream_) {
+    float* sums, int bf16, void* stream_) {
   SeqArgs sa;
   if (!make_seq(n_enc, dims, H, lstm, T, B, A, M, mb, obs, &sa) ||
       (lstm && !c0))
@@ -466,21 +502,11 @@ extern "C" int wh_rnn_sgd_grads(
   sa.h0 = h0;
   sa.c0 = c0;
 
-  cudaError_t e = launch_transpose(sa.net, params, sa.sc.pt, stream);
+  cudaError_t e = launch_transpose(sa.net, params, sa.sc.pt, stream, bf16);
   if (e != cudaSuccess) return (int)e;
-  const size_t fs = fwd_smem(sa.net), bs = bwd_smem(sa.net);
-  e = cudaFuncSetAttribute(rnn_fwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fs);
+  e = bf16 ? launch_seq<true>(sa, stream) : launch_seq<false>(sa, stream);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(rnn_bwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bs);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)sa.sc.n_tiles;
-  rnn_fwd_kernel<<<grid, RNT, fs, stream>>>(sa);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  rnn_bwd_kernel<<<grid, RNT, bs, stream>>>(sa);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return (int)launch_rnn_tail(sa, grads, sums, stream);
+  return (int)launch_rnn_tail(sa, grads, sums, bf16 != 0, stream);
 }
 
 // K8's optimizer step `step` after wh_rnn_sgd_grads on the same workspace:

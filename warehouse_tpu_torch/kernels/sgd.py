@@ -26,6 +26,14 @@ params; the loss still averages over every sample of the minibatch, and one
 global-norm clip and one Adam step span all groups (``pallas/sgd.py:293-306``).
 The kernels' flat vector holds the groups' packed params in group order.
 
+``matmul_dtype="bfloat16"`` (the JAX wrappers' parameter) runs every
+product of the forward and the backward on bf16-rounded operands with
+float32 accumulation, as the TPU kernel's ``dot`` does (``pallas/sgd.py:
+181-191``); the loss chain, the bias gradients, the clip and Adam stay
+float32. The kernels take it as a compile-time flag; the twins use
+``models.policy.Bf16Linear``. Any other value than ``"float32"`` or
+``"bfloat16"`` raises ``ValueError``.
+
 Inputs: ``params`` a dict keyed like ``ActorCriticMLP.state_dict`` (or a
 ``MultiPolicyActorCritic``'s, with ``policy_groups``);
 ``traj`` anything with the trajectory fields ``obs``, ``action``,
@@ -78,14 +86,30 @@ def env_minibatches(traj, adv_n, targets, num_minibatches: int):
             for m in range(num_minibatches)]
 
 
+def check_matmul_dtype(matmul_dtype) -> bool:
+    """Whether ``matmul_dtype`` asks for bf16 operands; ``ValueError`` for
+    anything but ``"float32"`` and ``"bfloat16"``."""
+    if matmul_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"matmul_dtype must be 'float32' or 'bfloat16', "
+                         f"got {matmul_dtype!r}")
+    return matmul_dtype == "bfloat16"
+
+
+def operand_precision(matmul_dtype) -> str:
+    """The twins' ``models.policy`` precision for ``matmul_dtype``:
+    ``"bf16_operands"`` for ``"bfloat16"``, else ``"float32"``."""
+    return "bf16_operands" if check_matmul_dtype(matmul_dtype) else "float32"
+
+
 def _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff, mask_actions,
-             policy_groups=None):
+             policy_groups=None, matmul_dtype="float32"):
+    precision = operand_precision(matmul_dtype)
     gids = None if policy_groups is None else torch.tensor(
         [int(g) for g in policy_groups])
 
     def loss_fn(params, mb):
         obs, action, old_lp, old_v, adv, tgt, mask = mb
-        logits, value = apply(params, obs, gids)
+        logits, value = apply(params, obs, gids, precision=precision)
         if mask_actions:
             logits = torch.where(mask, logits, NEG_INF)
         return ppo_losses(logits, value, action, old_lp, old_v, adv, tgt,
@@ -100,7 +124,8 @@ def ppo_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
                             kl_coeff, *, num_epochs: int,
                             num_minibatches: int, clip_eps: float,
                             value_coef: float, max_grad_norm: float,
-                            mask_actions: bool, policy_groups=None):
+                            mask_actions: bool, policy_groups=None,
+                            matmul_dtype: str = "float32"):
     """The plain twin of ``ppo_sgd_phase``, on any device."""
     count0 = opt_state.count
 
@@ -112,7 +137,7 @@ def ppo_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
     return minibatch_epochs(
         params, opt_state,
         loss_fn=_loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
-                         mask_actions, policy_groups),
+                         mask_actions, policy_groups, matmul_dtype),
         minibatches=env_minibatches(traj, adv_n, targets, num_minibatches),
         num_epochs=num_epochs, update_fn=update_fn)
 
@@ -121,13 +146,15 @@ def ppo_minibatch_grads_reference(params, traj, adv_n, targets, mb_idx: int,
                                   ent_coef, kl_coeff, *,
                                   num_minibatches: int, clip_eps: float,
                                   value_coef: float, mask_actions: bool,
-                                  policy_groups=None):
+                                  policy_groups=None,
+                                  matmul_dtype: str = "float32"):
     """The plain twin of ``ppo_minibatch_grads``: autograd on one
     minibatch."""
     mb = env_minibatches(traj, adv_n, targets, num_minibatches)[mb_idx]
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     total, aux = _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
-                          mask_actions, policy_groups)(leaves, mb)
+                          mask_actions, policy_groups,
+                          matmul_dtype)(leaves, mb)
     grads = torch.autograd.grad(total, list(leaves.values()))
     return ((total.detach(), tuple(a.detach() for a in aux)),
             dict(zip(leaves, grads)))
@@ -222,10 +249,13 @@ def check_learner_fits(params, obs_dim: int, dev,
 class TrajLaunch:
     """One trajectory's inputs checked and laid out for a PPO learner's C
     entry points. A subclass adds its net's shape, the scratch its two
-    entry points share, and the launches ``grads`` and ``clip_adam``."""
+    entry points share, and the launches ``grads`` and ``clip_adam``;
+    ``bf16`` is the gradient entry point's flag for bf16 operands."""
 
     def __init__(self, traj, adv_n, targets, ent_coef, kl_coeff,
-                 num_minibatches, clip_eps, value_coef, mask_actions):
+                 num_minibatches, clip_eps, value_coef, mask_actions,
+                 matmul_dtype="float32"):
+        self.bf16 = check_matmul_dtype(matmul_dtype)
         dev = traj.obs.device
         T, B, A, _ = traj.obs.shape
         M = num_minibatches
@@ -261,8 +291,9 @@ class _Launch(TrajLaunch):
     """``TrajLaunch`` for the MLP's entry points (``csrc/sgd.cu``); with
     ``policy_groups`` the params are a multi-policy dict's."""
 
-    def __init__(self, params, traj, *args, policy_groups=None):
-        super().__init__(traj, *args)
+    def __init__(self, params, traj, *args, policy_groups=None,
+                 matmul_dtype="float32"):
+        super().__init__(traj, *args, matmul_dtype=matmul_dtype)
         dev = traj.obs.device
         dims = _dims(params, traj.obs.shape[-1])
         multi = is_multi(params)
@@ -288,11 +319,12 @@ class _Launch(TrajLaunch):
         err = self.lib.wh_sgd_grads(
             *self.shape, mb, *self.batch_ptrs(), p_flat.data_ptr(),
             self.scal.data_ptr(), *self.coefs, self.work.data_ptr(),
-            grads.data_ptr(), sums.data_ptr(), self.stream)
+            grads.data_ptr(), sums.data_ptr(), int(self.bf16), self.stream)
         build.check(err, "ppo_minibatch_grads kernel launch")
         ppo_minibatch_grads.launches += 1
         ppo_minibatch_grads.chunked_launches += self.chunked
         ppo_minibatch_grads.group_launches += self.grouped
+        ppo_minibatch_grads.bf16_launches += self.bf16
 
     def clip_adam(self, p_flat, m_flat, v_flat, grads, rows, step: int,
                   max_grad_norm: float) -> None:
@@ -307,6 +339,7 @@ class _Launch(TrajLaunch):
         ppo_sgd_phase.launches += 1
         ppo_sgd_phase.chunked_launches += self.chunked
         ppo_sgd_phase.group_launches += self.grouped
+        ppo_sgd_phase.bf16_launches += self.bf16
 
 
 def _losses(sums, mb_n, value_coef, ent_coef, kl_coeff):
@@ -367,7 +400,8 @@ def ppo_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
                   lr_row, bc1_row, bc2_row, ent_coef, kl_coeff, *,
                   num_epochs: int, num_minibatches: int, clip_eps: float,
                   value_coef: float, max_grad_norm: float,
-                  mask_actions: bool, policy_groups=None):
+                  mask_actions: bool, policy_groups=None,
+                  matmul_dtype: str = "float32"):
     """The whole SGD phase: ``(params, opt_state, losses)`` with
     ``losses`` the ``(total, pg, v, ent, kl)`` tuple of ``[E, M]``
     tensors. On CUDA tensors each step is K4's gradient kernels, then K3's
@@ -379,10 +413,11 @@ def ppo_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
             bc2_row, ent_coef, kl_coeff, num_epochs=num_epochs,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
             value_coef=value_coef, max_grad_norm=max_grad_norm,
-            mask_actions=mask_actions, policy_groups=policy_groups)
+            mask_actions=mask_actions, policy_groups=policy_groups,
+            matmul_dtype=matmul_dtype)
     run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff,
                   num_minibatches, clip_eps, value_coef, mask_actions,
-                  policy_groups=policy_groups)
+                  policy_groups=policy_groups, matmul_dtype=matmul_dtype)
     return sgd_phase_on_card(
         run, pack, unpack, params, opt_state, (lr_row, bc1_row, bc2_row),
         ent_coef, kl_coeff, num_epochs=num_epochs,
@@ -395,12 +430,13 @@ ppo_sgd_phase.launches = 0
 # observation (a global view's width).
 ppo_sgd_phase.chunked_launches = 0
 ppo_sgd_phase.group_launches = 0  # those that routed samples by group
+ppo_sgd_phase.bf16_launches = 0   # those on bf16 operands
 
 
 def ppo_minibatch_grads(params, traj, adv_n, targets, mb_idx: int, ent_coef,
                         kl_coeff, *, num_minibatches: int, clip_eps: float,
                         value_coef: float, mask_actions: bool,
-                        policy_groups=None):
+                        policy_groups=None, matmul_dtype: str = "float32"):
     """One minibatch's loss and gradient: ``((total, (pg, v, ent, kl)),
     grads)``, the ``value_and_grad`` contract. The kernels on CUDA
     tensors, the plain twin on CPU ones. ``launches`` counts their
@@ -410,10 +446,10 @@ def ppo_minibatch_grads(params, traj, adv_n, targets, mb_idx: int, ent_coef,
             params, traj, adv_n, targets, mb_idx, ent_coef, kl_coeff,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
             value_coef=value_coef, mask_actions=mask_actions,
-            policy_groups=policy_groups)
+            policy_groups=policy_groups, matmul_dtype=matmul_dtype)
     run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff,
                   num_minibatches, clip_eps, value_coef, mask_actions,
-                  policy_groups=policy_groups)
+                  policy_groups=policy_groups, matmul_dtype=matmul_dtype)
     return minibatch_grads_on_card(
         run, pack, unpack, params, mb_idx, ent_coef, kl_coeff,
         num_minibatches=num_minibatches, value_coef=value_coef)
@@ -422,3 +458,4 @@ def ppo_minibatch_grads(params, traj, adv_n, targets, mb_idx: int, ent_coef,
 ppo_minibatch_grads.launches = 0
 ppo_minibatch_grads.chunked_launches = 0
 ppo_minibatch_grads.group_launches = 0
+ppo_minibatch_grads.bf16_launches = 0

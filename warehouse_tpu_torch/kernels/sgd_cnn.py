@@ -20,7 +20,10 @@ the ego window or with global observations the whole (square) map, whose
 5 channels are padded to 8 in shared memory only, and float32. A tile is
 as many samples as fit one block's shared memory (32 on the 5 x 5 window,
 8 on a 9 x 9 map); ``check_cnn_learner_fits`` raises for a grid of which
-not 8 fit (the 11 x 11 map).
+not 8 fit (the 11 x 11 map). ``matmul_dtype="bfloat16"`` runs every
+product on bf16-rounded operands with float32 accumulation, the
+convolutions and their gradients too (``pallas/sgd_cnn.py:213-216``); the
+twins use ``models.policy.Bf16Conv`` and ``Bf16Linear``.
 """
 
 from __future__ import annotations
@@ -83,9 +86,9 @@ def check_cnn_learner_fits(params, obs_dim: int, dev) -> tuple:
 class _Launch(TrajLaunch):
     """``TrajLaunch`` for the CNN's entry points (``csrc/sgd_cnn.cu``)."""
 
-    def __init__(self, params, traj, *args):
+    def __init__(self, params, traj, *args, matmul_dtype="float32"):
         _check_cnn(params)
-        super().__init__(traj, *args)
+        super().__init__(traj, *args, matmul_dtype=matmul_dtype)
         dev = traj.obs.device
         net = check_cnn_learner_fits(params, traj.obs.shape[-1], dev)
         self.n_params = self.lib.wh_cnn_param_floats(*net)
@@ -106,10 +109,11 @@ class _Launch(TrajLaunch):
         err = self.lib.wh_cnn_sgd_grads(
             *self.shape, mb, *self.batch_ptrs(), p_flat.data_ptr(),
             self.scal.data_ptr(), *self.coefs, self.work.data_ptr(),
-            grads.data_ptr(), sums.data_ptr(), self.stream)
+            grads.data_ptr(), sums.data_ptr(), int(self.bf16), self.stream)
         build.check(err, "ppo_cnn_minibatch_grads kernel launch")
         ppo_cnn_minibatch_grads.launches += 1
         ppo_cnn_minibatch_grads.small_tile_launches += self.small_tile
+        ppo_cnn_minibatch_grads.bf16_launches += self.bf16
 
     def clip_adam(self, p_flat, m_flat, v_flat, grads, rows, step: int,
                   max_grad_norm: float) -> None:
@@ -123,13 +127,14 @@ class _Launch(TrajLaunch):
         build.check(err, "ppo_cnn_sgd_phase kernel launch")
         ppo_cnn_sgd_phase.launches += 1
         ppo_cnn_sgd_phase.small_tile_launches += self.small_tile
+        ppo_cnn_sgd_phase.bf16_launches += self.bf16
 
 
 def ppo_cnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
                       lr_row, bc1_row, bc2_row, ent_coef, kl_coeff, *,
                       num_epochs: int, num_minibatches: int, clip_eps: float,
                       value_coef: float, max_grad_norm: float,
-                      mask_actions: bool):
+                      mask_actions: bool, matmul_dtype: str = "float32"):
     """The whole CNN SGD phase: ``(params, opt_state, losses)`` with
     ``losses`` the ``(total, pg, v, ent, kl)`` tuple of ``[E, M]``
     tensors. On CUDA tensors each step is K12's gradient kernels, then
@@ -142,9 +147,10 @@ def ppo_cnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
             bc2_row, ent_coef, kl_coeff, num_epochs=num_epochs,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
             value_coef=value_coef, max_grad_norm=max_grad_norm,
-            mask_actions=mask_actions)
+            mask_actions=mask_actions, matmul_dtype=matmul_dtype)
     run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff,
-                  num_minibatches, clip_eps, value_coef, mask_actions)
+                  num_minibatches, clip_eps, value_coef, mask_actions,
+                  matmul_dtype=matmul_dtype)
     return sgd_phase_on_card(
         run, pack_cnn, unpack_cnn, params, opt_state,
         (lr_row, bc1_row, bc2_row), ent_coef, kl_coeff,
@@ -156,12 +162,13 @@ ppo_cnn_sgd_phase.launches = 0
 # The launches whose tiles held fewer samples than the full 32: a grid the
 # size of the map (global observations), not the ego window.
 ppo_cnn_sgd_phase.small_tile_launches = 0
+ppo_cnn_sgd_phase.bf16_launches = 0  # those on bf16 operands
 
 
 def ppo_cnn_minibatch_grads(params, traj, adv_n, targets, mb_idx: int,
                             ent_coef, kl_coeff, *, num_minibatches: int,
                             clip_eps: float, value_coef: float,
-                            mask_actions: bool):
+                            mask_actions: bool, matmul_dtype: str = "float32"):
     """One minibatch's loss and gradient of the CNN policy: ``((total,
     (pg, v, ent, kl)), grads)``. The kernels on CUDA tensors, the plain
     twin on CPU ones. ``launches`` counts their launches, inside
@@ -170,9 +177,11 @@ def ppo_cnn_minibatch_grads(params, traj, adv_n, targets, mb_idx: int,
         return ppo_cnn_minibatch_grads_reference(
             params, traj, adv_n, targets, mb_idx, ent_coef, kl_coeff,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
-            value_coef=value_coef, mask_actions=mask_actions)
+            value_coef=value_coef, mask_actions=mask_actions,
+            matmul_dtype=matmul_dtype)
     run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff,
-                  num_minibatches, clip_eps, value_coef, mask_actions)
+                  num_minibatches, clip_eps, value_coef, mask_actions,
+                  matmul_dtype=matmul_dtype)
     return minibatch_grads_on_card(
         run, pack_cnn, unpack_cnn, params, mb_idx, ent_coef, kl_coeff,
         num_minibatches=num_minibatches, value_coef=value_coef)
@@ -180,3 +189,4 @@ def ppo_cnn_minibatch_grads(params, traj, adv_n, targets, mb_idx: int,
 
 ppo_cnn_minibatch_grads.launches = 0
 ppo_cnn_minibatch_grads.small_tile_launches = 0
+ppo_cnn_minibatch_grads.bf16_launches = 0

@@ -18,6 +18,10 @@ twins: autograd through a Python loop over T of ``models.policy.apply_rnn``,
 Inputs as ``kernels/sgd.py``'s, with ``params`` keyed like
 ``ActorCriticRNN.state_dict`` and ``h0`` the carry the rollout started from
 (already env-permuted): ``float32[B, A, H]``, or the LSTM's ``(c, h)``.
+``matmul_dtype="bfloat16"`` runs every product of the replay and its
+backward on bf16-rounded operands with float32 accumulation
+(``pallas/sgd_rnn.py:116-119``), GRU and LSTM alike; the gate arithmetic
+stays float32. The trainer hands a bf16 carry in cast up to float32.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from ..optim import AdamState, clip_adam_step
 from . import build
 from .act_rnn import pack_rnn, rnn_dims, split_carry, unpack_rnn
 from .sgd import (TrajLaunch, _device_of, env_minibatches,
-                  minibatch_grads_on_card, sgd_phase_on_card)
+                  minibatch_grads_on_card, operand_precision,
+                  sgd_phase_on_card)
 
 
 def _carry_slice(h0, lo: int, hi: int):
@@ -50,12 +55,16 @@ def seq_minibatches(traj, adv_n, targets, h0, num_minibatches: int):
                                                    num_minibatches))]
 
 
-def _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff, mask_actions):
+def _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff, mask_actions,
+             matmul_dtype="float32"):
+    precision = operand_precision(matmul_dtype)
+
     def loss_fn(params, mb):
         (obs, action, old_lp, old_v, adv, tgt, mask), carry = mb
         logits, values = [], []
         for t in range(obs.shape[0]):
-            lg, v, carry = apply_rnn(params, obs[t], carry)
+            lg, v, carry = apply_rnn(params, obs[t], carry,
+                                     precision=precision)
             logits.append(lg)
             values.append(v)
         logits, value = torch.stack(logits), torch.stack(values)
@@ -73,7 +82,8 @@ def ppo_rnn_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
                                 ent_coef, kl_coeff, *, num_epochs: int,
                                 num_minibatches: int, clip_eps: float,
                                 value_coef: float, max_grad_norm: float,
-                                mask_actions: bool):
+                                mask_actions: bool,
+                                matmul_dtype: str = "float32"):
     """The plain twin of ``ppo_rnn_sgd_phase``, on any device."""
     count0 = opt_state.count
 
@@ -85,7 +95,7 @@ def ppo_rnn_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
     return minibatch_epochs(
         params, opt_state,
         loss_fn=_loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
-                         mask_actions),
+                         mask_actions, matmul_dtype),
         minibatches=seq_minibatches(traj, adv_n, targets, h0,
                                     num_minibatches),
         num_epochs=num_epochs, update_fn=update_fn)
@@ -94,13 +104,14 @@ def ppo_rnn_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
 def ppo_rnn_minibatch_grads_reference(params, traj, adv_n, targets, h0,
                                       mb_idx: int, ent_coef, kl_coeff, *,
                                       num_minibatches: int, clip_eps: float,
-                                      value_coef: float, mask_actions: bool):
+                                      value_coef: float, mask_actions: bool,
+                                      matmul_dtype: str = "float32"):
     """The plain twin of ``ppo_rnn_minibatch_grads``: autograd through the
     T-step replay of one minibatch."""
     mb = seq_minibatches(traj, adv_n, targets, h0, num_minibatches)[mb_idx]
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     total, aux = _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
-                          mask_actions)(leaves, mb)
+                          mask_actions, matmul_dtype)(leaves, mb)
     grads = torch.autograd.grad(total, list(leaves.values()))
     return ((total.detach(), tuple(a.detach() for a in aux)),
             dict(zip(leaves, grads)))
@@ -112,8 +123,10 @@ class _Launch(TrajLaunch):
     """``TrajLaunch`` for the recurrent entry points (``csrc/sgd_rnn.cu``),
     with the rollout-start carry."""
 
-    def __init__(self, params, traj, adv_n, targets, h0, *args):
-        super().__init__(traj, adv_n, targets, *args)
+    def __init__(self, params, traj, adv_n, targets, h0, *args,
+                 matmul_dtype="float32"):
+        super().__init__(traj, adv_n, targets, *args,
+                         matmul_dtype=matmul_dtype)
         dev = traj.obs.device
         _, B, A, D = traj.obs.shape
         dims, H, lstm = rnn_dims(params, D)
@@ -145,9 +158,10 @@ class _Launch(TrajLaunch):
             None if self.c0 is None else self.c0.data_ptr(),
             p_flat.data_ptr(), self.scal.data_ptr(), *self.coefs,
             self.work.data_ptr(), grads.data_ptr(), sums.data_ptr(),
-            self.stream)
+            int(self.bf16), self.stream)
         build.check(err, "ppo_rnn_minibatch_grads kernel launch")
         ppo_rnn_minibatch_grads.launches += 1
+        ppo_rnn_minibatch_grads.bf16_launches += self.bf16
 
     def clip_adam(self, p_flat, m_flat, v_flat, grads, rows, step: int,
                   max_grad_norm: float) -> None:
@@ -160,13 +174,14 @@ class _Launch(TrajLaunch):
             self.work.data_ptr(), self.stream)
         build.check(err, "ppo_rnn_sgd_phase kernel launch")
         ppo_rnn_sgd_phase.launches += 1
+        ppo_rnn_sgd_phase.bf16_launches += self.bf16
 
 
 def ppo_rnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets, h0,
                       lr_row, bc1_row, bc2_row, ent_coef, kl_coeff, *,
                       num_epochs: int, num_minibatches: int, clip_eps: float,
                       value_coef: float, max_grad_norm: float,
-                      mask_actions: bool):
+                      mask_actions: bool, matmul_dtype: str = "float32"):
     """The whole recurrent SGD phase: ``(params, opt_state, losses)`` with
     ``losses`` the ``(total, pg, v, ent, kl)`` tuple of ``[E, M]`` tensors.
     On CUDA tensors each step is K9's gradient kernels, then K8's clip +
@@ -178,9 +193,10 @@ def ppo_rnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets, h0,
             bc2_row, ent_coef, kl_coeff, num_epochs=num_epochs,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
             value_coef=value_coef, max_grad_norm=max_grad_norm,
-            mask_actions=mask_actions)
+            mask_actions=mask_actions, matmul_dtype=matmul_dtype)
     run = _Launch(params, traj, adv_n, targets, h0, ent_coef, kl_coeff,
-                  num_minibatches, clip_eps, value_coef, mask_actions)
+                  num_minibatches, clip_eps, value_coef, mask_actions,
+                  matmul_dtype=matmul_dtype)
     return sgd_phase_on_card(
         run, pack_rnn, unpack_rnn, params, opt_state,
         (lr_row, bc1_row, bc2_row), ent_coef, kl_coeff,
@@ -189,12 +205,13 @@ def ppo_rnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets, h0,
 
 
 ppo_rnn_sgd_phase.launches = 0
+ppo_rnn_sgd_phase.bf16_launches = 0  # those on bf16 operands
 
 
 def ppo_rnn_minibatch_grads(params, traj, adv_n, targets, h0, mb_idx: int,
                             ent_coef, kl_coeff, *, num_minibatches: int,
                             clip_eps: float, value_coef: float,
-                            mask_actions: bool):
+                            mask_actions: bool, matmul_dtype: str = "float32"):
     """One minibatch's sequence-replay loss and gradient: ``((total, (pg,
     v, ent, kl)), grads)``. The kernels on CUDA tensors, the plain twin on
     CPU ones. ``launches`` counts their launches, inside
@@ -203,12 +220,15 @@ def ppo_rnn_minibatch_grads(params, traj, adv_n, targets, h0, mb_idx: int,
         return ppo_rnn_minibatch_grads_reference(
             params, traj, adv_n, targets, h0, mb_idx, ent_coef, kl_coeff,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
-            value_coef=value_coef, mask_actions=mask_actions)
+            value_coef=value_coef, mask_actions=mask_actions,
+            matmul_dtype=matmul_dtype)
     run = _Launch(params, traj, adv_n, targets, h0, ent_coef, kl_coeff,
-                  num_minibatches, clip_eps, value_coef, mask_actions)
+                  num_minibatches, clip_eps, value_coef, mask_actions,
+                  matmul_dtype=matmul_dtype)
     return minibatch_grads_on_card(
         run, pack_rnn, unpack_rnn, params, mb_idx, ent_coef, kl_coeff,
         num_minibatches=num_minibatches, value_coef=value_coef)
 
 
 ppo_rnn_minibatch_grads.launches = 0
+ppo_rnn_minibatch_grads.bf16_launches = 0

@@ -29,6 +29,23 @@ order their gates and place their biases differently):
 - LSTM (``OptimizedLSTMCell``): ``i, f, o = σ(W_i* x + W_h* h + b_h*)``,
   ``g = tanh(W_ig x + W_hg h + b_hg)``, ``c' = f c + i g``,
   ``h' = o tanh(c')`` (biases on the ``h*`` side only); carry ``(c, h)``.
+
+The apply functions take one ``precision`` of three (``PRECISIONS``),
+each on float32 params: ``"float32"``, and two bfloat16 modes:
+
+- ``"flax_bf16"`` is the flax model built with ``dtype=bfloat16`` (a
+  model made with ``dtype="bfloat16"``; the trainers' last value and
+  bootstrap, serving): the observation is
+  cast to bf16; each Dense or Conv is the float32 product of the rounded
+  operands, rounded, then its bias added in bf16; every activation and
+  gate op runs on bf16 values, rounding its result (torch's bf16
+  elementwise ops, as XLA lowers flax's: a sigmoid is ``1 / (1 +
+  exp(-x))``, each op rounded); logits and value come out float32. The
+  recurrent carry is bf16.
+- ``"bf16_operands"`` is the learner kernels' ``matmul_dtype="bfloat16"``
+  (``pallas/sgd.py:181-191``): each product rounds both of its operands to
+  bf16 and accumulates in float32, its backward too (``Bf16Linear``,
+  ``Bf16Conv``), and everything else stays float32. The SGD twins use it.
 """
 
 from __future__ import annotations
@@ -44,12 +61,133 @@ from torch.nn import functional as F
 from ..config import EnvConfig
 from ..device import resolve_device
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """``"float32"`` / ``"bfloat16"`` (``TrainConfig.model_dtype``'s names)
+    or the torch dtype itself, as the torch dtype."""
+    if dtype in DTYPES.values():
+        return dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
+                         f"{dtype!r}")
+    return DTYPES[dtype]
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bfloat16 (ties to even, as XLA's
+    convert and ``__float2bfloat16_rn``), kept in ``x``'s dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+class Bf16Linear(torch.autograd.Function):
+    """``x @ w.T`` on bf16-rounded operands with float32 accumulation, and
+    its backward written out as the TPU kernel's products: ``r(g) @ r(w)``
+    and ``r(g).T @ r(x)``, each rounding its operands. (Autograd through
+    ``.bfloat16().float()`` casts would instead round each gradient after
+    its product.)"""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xr, wr = bf16_round(x), bf16_round(w)
+        ctx.save_for_backward(xr, wr)
+        return F.linear(xr, wr)
+
+    @staticmethod
+    def backward(ctx, g):
+        xr, wr = ctx.saved_tensors
+        gr = bf16_round(g)
+        gx = gr @ wr if ctx.needs_input_grad[0] else None
+        gw = (gr.reshape(-1, gr.shape[-1]).T @ xr.reshape(-1, xr.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return gx, gw
+
+
+class Bf16Conv(torch.autograd.Function):
+    """The 3x3 ``SAME`` convolution of ``x [N, IC, S, S]`` with ``w [OC,
+    IC, 3, 3]`` on bf16-rounded operands with float32 accumulation; its
+    backward convolves the rounded gradient with the rounded other
+    operand."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xr, wr = bf16_round(x), bf16_round(w)
+        ctx.save_for_backward(xr, wr)
+        return F.conv2d(xr, wr, padding=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        xr, wr = ctx.saved_tensors
+        gr = bf16_round(g)
+        gx = (torch.nn.grad.conv2d_input(xr.shape, wr, gr, padding=1)
+              if ctx.needs_input_grad[0] else None)
+        gw = (torch.nn.grad.conv2d_weight(xr, wr.shape, gr, padding=1)
+              if ctx.needs_input_grad[1] else None)
+        return gx, gw
+
+
+PRECISIONS = ("float32", "bf16_operands", "flax_bf16")
+
+
+def model_precision(dtype) -> str:
+    """The precision of a model at compute ``dtype``: ``"flax_bf16"`` for
+    bfloat16, else ``"float32"``."""
+    return "flax_bf16" if torch_dtype(dtype) == torch.bfloat16 else "float32"
+
+
+class Precision:
+    """The products and casts of one apply at ``precision`` (one of
+    ``PRECISIONS``): float32 (``F.linear`` / ``F.conv2d`` as they were),
+    the kernels' bf16 operands or the flax-bf16 forward."""
+
+    def __init__(self, precision="float32"):
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                             f"{precision!r}")
+        self.operands = precision == "bf16_operands"
+        self.flax = precision == "flax_bf16"
+
+    def input(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(torch.bfloat16) if self.flax else x
+
+    def output(self, x: torch.Tensor) -> torch.Tensor:
+        return x.float() if self.flax else x
+
+    def sigmoid(self, x: torch.Tensor) -> torch.Tensor:
+        """``jax.nn.sigmoid``: on bf16 values XLA computes ``1 / (1 +
+        exp(-x))`` one op at a time, each result rounded to bf16."""
+        if self.flax:
+            return 1.0 / (1.0 + torch.exp(-x))
+        return torch.sigmoid(x)
+
+    def linear(self, x, w, b=None):
+        if self.operands:
+            y = Bf16Linear.apply(x, w)
+        elif self.flax:
+            y = F.linear(bf16_round(x.float()), bf16_round(w)).bfloat16()
+        else:
+            return F.linear(x, w, b)
+        return y if b is None else y + b.to(y.dtype)
+
+    def conv(self, x, w, b):
+        if self.operands:
+            y = Bf16Conv.apply(x, w)
+        elif self.flax:
+            y = F.conv2d(bf16_round(x.float()), bf16_round(w),
+                         padding=1).bfloat16()
+        else:
+            return F.conv2d(x, w, b, padding=1)
+        return y + b.to(y.dtype)[:, None, None]
+
 
 class ActorCriticMLP(nn.Module):
     def __init__(self, obs_dim: int, num_actions: int,
                  hidden_dims: Sequence[int] = (128, 128),
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype="float32"):
         super().__init__()
+        self.dtype = torch_dtype(dtype)  # the compute dtype, as flax's
         dims = (obs_dim, *hidden_dims)
         self.hidden = nn.ModuleList(
             nn.Linear(i, o) for i, o in zip(dims[:-1], dims[1:]))
@@ -67,34 +205,39 @@ class ActorCriticMLP(nn.Module):
 
     def forward(self, obs: torch.Tensor):
         """obs float32[..., obs_dim] -> (logits [..., 5], value [...])."""
-        return apply(dict(self.named_parameters()), obs)
+        return apply(dict(self.named_parameters()), obs,
+                     precision=model_precision(self.dtype))
 
 
 def num_hidden(params: dict) -> int:
     return sum(1 for k in params if k.endswith(".weight")) - 2
 
 
-def apply(params: dict, obs: torch.Tensor, group_ids=None):
+def apply(params: dict, obs: torch.Tensor, group_ids=None, *,
+          precision="float32"):
     """The feed-forward policy on a params dict keyed like
     ``ActorCriticMLP.state_dict`` or ``ActorCriticCNN.state_dict`` (the
     functional form the trainer and the SGD twins use); for a
     ``MultiPolicyActorCritic``'s dict, each sample's group's outputs, its
     group from ``group_ids`` (ints broadcastable to ``obs.shape[:-1]``,
-    e.g. the ``[A]`` agent -> group map)."""
+    e.g. the ``[A]`` agent -> group map). ``precision``: one of
+    ``PRECISIONS`` (the module docstring)."""
     if is_multi(params):
         if group_ids is None:
             raise ValueError("multi-policy params need the samples' "
                              "policy_groups")
-        return apply_multi(params, obs, group_ids)
+        return apply_multi(params, obs, group_ids, precision=precision)
     if is_cnn(params):
-        return apply_cnn(params, obs)
-    x = obs
+        return apply_cnn(params, obs, precision=precision)
+    pr = Precision(precision)
+    x = pr.input(obs)
     for i in range(num_hidden(params)):
-        x = torch.tanh(F.linear(x, params[f"hidden.{i}.weight"],
-                                params[f"hidden.{i}.bias"]))
-    value = F.linear(x, params["value.weight"], params["value.bias"])
-    return (F.linear(x, params["logits.weight"], params["logits.bias"]),
-            value.squeeze(-1))
+        x = torch.tanh(pr.linear(x, params[f"hidden.{i}.weight"],
+                                 params[f"hidden.{i}.bias"]))
+    value = pr.linear(x, params["value.weight"], params["value.bias"])
+    return (pr.output(pr.linear(x, params["logits.weight"],
+                                params["logits.bias"])),
+            pr.output(value.squeeze(-1)))
 
 
 CNN_CHANNELS = (16, 32)  # ActorCriticCNN's conv widths (fixed, as flax's)
@@ -119,8 +262,10 @@ class ActorCriticCNN(nn.Module):
     def __init__(self, num_actions: int, window_size: int,
                  in_channels: int = 4,
                  channels: Sequence[int] = CNN_CHANNELS, hidden: int = 128,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype="float32"):
         super().__init__()
+        self.dtype = torch_dtype(dtype)
         chans = (in_channels, *channels)
         self.conv = nn.ModuleList(
             nn.Conv2d(i, o, 3, padding=1) for i, o in zip(chans, chans[1:]))
@@ -138,7 +283,8 @@ class ActorCriticCNN(nn.Module):
 
     def forward(self, obs: torch.Tensor):
         """obs float32[..., obs_dim] -> (logits [..., 5], value [...])."""
-        return apply_cnn(dict(self.named_parameters()), obs)
+        return apply_cnn(dict(self.named_parameters()), obs,
+                         precision=model_precision(self.dtype))
 
 
 def is_cnn(params: dict) -> bool:
@@ -170,24 +316,27 @@ def cnn_dims(params: dict) -> tuple[int, tuple[int, ...], int]:
     return side, tuple(chans), hidden
 
 
-def apply_cnn(params: dict, obs: torch.Tensor):
+def apply_cnn(params: dict, obs: torch.Tensor, *, precision="float32"):
     """The CNN on a params dict keyed like ``ActorCriticCNN.state_dict``."""
+    pr = Precision(precision)
     S, chans, _ = cnn_dims(params)
     grid_len = S * S * chans[0]
     if obs.shape[-1] != grid_len + N_SELF:
         raise ValueError(f"obs width {obs.shape[-1]} is not the {S}x{S}x"
                          f"{chans[0]} grid plus {N_SELF} features")
     lead = obs.shape[:-1]
+    obs = pr.input(obs)
     x = obs[..., :grid_len].reshape(-1, S, S, chans[0]).permute(0, 3, 1, 2)
     for i in range(len(chans) - 1):
-        x = F.relu(F.conv2d(x, params[f"conv.{i}.weight"],
-                            params[f"conv.{i}.bias"], padding=1))
+        x = F.relu(pr.conv(x, params[f"conv.{i}.weight"],
+                           params[f"conv.{i}.bias"]))
     x = x.permute(0, 2, 3, 1).reshape(*lead, -1)  # channel-last, as flax
     x = torch.cat([x, obs[..., grid_len:]], dim=-1)
-    x = torch.tanh(F.linear(x, params["trunk.weight"], params["trunk.bias"]))
-    value = F.linear(x, params["value.weight"], params["value.bias"])
-    return (F.linear(x, params["logits.weight"], params["logits.bias"]),
-            value.squeeze(-1))
+    x = torch.tanh(pr.linear(x, params["trunk.weight"], params["trunk.bias"]))
+    value = pr.linear(x, params["value.weight"], params["value.bias"])
+    return (pr.output(pr.linear(x, params["logits.weight"],
+                                params["logits.bias"])),
+            pr.output(value.squeeze(-1)))
 
 
 GRU_GATES = ("ir", "iz", "in", "hr", "hz", "hn")   # flax GRUCell sub-modules
@@ -213,8 +362,10 @@ class ActorCriticRNN(nn.Module):
     def __init__(self, obs_dim: int, num_actions: int,
                  cell_type: str = "gru", hidden_dims: Sequence[int] = (128,),
                  rnn_hidden: int = 128,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype="float32"):
         super().__init__()
+        self.dtype = torch_dtype(dtype)
         gates, biased = cell_gates(cell_type)
         self.cell_type, self.rnn_hidden = cell_type, rnn_hidden
         dims = (obs_dim, *hidden_dims)
@@ -243,19 +394,20 @@ class ActorCriticRNN(nn.Module):
                     p.zero_()
 
     def forward(self, obs: torch.Tensor, carry):
-        return apply_rnn(dict(self.named_parameters()), obs, carry)
+        return apply_rnn(dict(self.named_parameters()), obs, carry,
+                         precision=model_precision(self.dtype))
 
     def initial_carry(self, batch_shape: tuple, device=None):
         """Zero carry for a batch (the episode-start state), on the
-        model's device unless told otherwise."""
+        model's device unless told otherwise; bf16 in a bf16 model."""
         device = device or self.logits.weight.device
         return initial_carry(self.cell_type, batch_shape, self.rnn_hidden,
-                             device)
+                             device, self.dtype)
 
 
 def initial_carry(cell_type: str, batch_shape: tuple, rnn_hidden: int,
-                  device=None):
-    h = torch.zeros(*batch_shape, rnn_hidden, dtype=torch.float32,
+                  device=None, dtype="float32"):
+    h = torch.zeros(*batch_shape, rnn_hidden, dtype=torch_dtype(dtype),
                     device=device)
     return (h, h.clone()) if cell_type == "lstm" else h
 
@@ -274,55 +426,65 @@ def num_encoder(params: dict) -> int:
                if k.startswith("encoder.") and k.endswith(".weight"))
 
 
-def apply_rnn(params: dict, obs: torch.Tensor, carry):
+def apply_rnn(params: dict, obs: torch.Tensor, carry, *,
+              precision="float32"):
     """One step of the recurrent policy on a params dict keyed like
-    ``ActorCriticRNN.state_dict``: ``(logits, value, new_carry)``."""
-    def lin(name, x):
-        return F.linear(x, params[f"{name}.weight"],
-                        params.get(f"{name}.bias"))
+    ``ActorCriticRNN.state_dict``: ``(logits, value, new_carry)``. At
+    ``precision="flax_bf16"`` the carry is bf16 (flax's cell with
+    ``dtype=bfloat16``: each inner Dense rounds, the gate arithmetic runs
+    in bf16)."""
+    pr = Precision(precision)
 
-    x = obs
+    def lin(name, x):
+        return pr.linear(x, params[f"{name}.weight"],
+                         params.get(f"{name}.bias"))
+
+    x = pr.input(obs)
     for i in range(num_encoder(params)):
         x = torch.tanh(lin(f"encoder.{i}", x))
+    sigmoid = pr.sigmoid
     if cell_type_of(params) == "gru":
         h = carry
-        r = torch.sigmoid(lin("cell.ir", x) + lin("cell.hr", h))
-        z = torch.sigmoid(lin("cell.iz", x) + lin("cell.hz", h))
+        r = sigmoid(lin("cell.ir", x) + lin("cell.hr", h))
+        z = sigmoid(lin("cell.iz", x) + lin("cell.hz", h))
         n = torch.tanh(lin("cell.in", x) + r * lin("cell.hn", h))
         h = (1.0 - z) * n + z * h
         carry = h
     else:
         c, h = carry
-        i = torch.sigmoid(lin("cell.ii", x) + lin("cell.hi", h))
-        f = torch.sigmoid(lin("cell.if", x) + lin("cell.hf", h))
+        i = sigmoid(lin("cell.ii", x) + lin("cell.hi", h))
+        f = sigmoid(lin("cell.if", x) + lin("cell.hf", h))
         g = torch.tanh(lin("cell.ig", x) + lin("cell.hg", h))
-        o = torch.sigmoid(lin("cell.io", x) + lin("cell.ho", h))
+        o = sigmoid(lin("cell.io", x) + lin("cell.ho", h))
         c = f * c + i * g
         h = o * torch.tanh(c)
         carry = (c, h)
-    return lin("logits", h), lin("value", h).squeeze(-1), carry
+    return (pr.output(lin("logits", h)), pr.output(lin("value", h).squeeze(-1)),
+            carry)
 
 
 def make_model(cfg: EnvConfig, arch: str = "mlp", hidden_dim: int = 128,
                num_layers: int = 2, generator: torch.Generator | None = None,
-               device=None) -> nn.Module:
+               device=None, dtype="float32") -> nn.Module:
     """The policy for ``arch`` ("mlp", "cnn", "gru" or "lstm") on
-    ``device``: the card by default, the CPU with ``device="cpu"``. The
-    CNN ignores ``num_layers``; its grid is the ego window, or the whole
+    ``device``: the card by default, the CPU with ``device="cpu"``;
+    ``dtype`` its compute dtype (float32 params either way). The CNN
+    ignores ``num_layers``; its grid is the ego window, or the whole
     (square) grid with ``cfg.global_obs``."""
     if arch == "mlp":
         model = ActorCriticMLP(cfg.obs_dim, cfg.num_actions,
-                               (hidden_dim,) * num_layers, generator)
+                               (hidden_dim,) * num_layers, generator, dtype)
     elif arch == "cnn":
         if cfg.global_obs and cfg.height != cfg.width:
             raise ValueError("cnn+global_obs requires a square grid")
         model = ActorCriticCNN(
             cfg.num_actions, cfg.height if cfg.global_obs else cfg.window_size,
-            cfg.num_obs_channels, hidden=hidden_dim, generator=generator)
+            cfg.num_obs_channels, hidden=hidden_dim, generator=generator,
+            dtype=dtype)
     elif arch in ("gru", "lstm"):
         model = ActorCriticRNN(cfg.obs_dim, cfg.num_actions, arch,
                                (hidden_dim,) * max(num_layers - 1, 1),
-                               hidden_dim, generator)
+                               hidden_dim, generator, dtype)
     else:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (ROADMAP M-7); 'mlp', "
@@ -343,7 +505,8 @@ class MultiPolicyActorCritic(nn.Module):
         self.policies = nn.ModuleList(policies)
 
     def forward(self, obs: torch.Tensor, group_ids):
-        return apply_multi(dict(self.named_parameters()), obs, group_ids)
+        return apply_multi(dict(self.named_parameters()), obs, group_ids,
+                           precision=model_precision(self.policies[0].dtype))
 
 
 def is_multi(params: dict) -> bool:
@@ -362,13 +525,15 @@ def group_params(params: dict, g: int) -> dict:
             if k.startswith(prefix)}
 
 
-def apply_multi(params: dict, obs: torch.Tensor, group_ids):
+def apply_multi(params: dict, obs: torch.Tensor, group_ids, *,
+                precision="float32"):
     """``MultiPolicyActorCritic`` on its params dict: every group's
-    sub-model on all of ``obs``, then each sample's group's outputs."""
+    sub-model on all of ``obs``, then each sample's group's outputs;
+    ``precision`` as ``apply``'s."""
     gids = torch.as_tensor(group_ids, device=obs.device)
     logits = value = None
     for g in range(num_groups(params)):
-        lg, v = apply(group_params(params, g), obs)
+        lg, v = apply(group_params(params, g), obs, precision=precision)
         if logits is None:
             logits, value = lg, v
         else:
@@ -381,11 +546,13 @@ def apply_multi(params: dict, obs: torch.Tensor, group_ids):
 def make_multi_policy_model(cfg: EnvConfig, policy_groups, arch: str = "mlp",
                             hidden_dim: int = 128, num_layers: int = 2,
                             generator: torch.Generator | None = None,
-                            device=None) -> MultiPolicyActorCritic:
+                            device=None,
+                            dtype="float32") -> MultiPolicyActorCritic:
     """K sub-models of ``arch`` ("mlp" or "cnn", drawn from ``generator``
-    in group order) for ``policy_groups``, a tuple of one group id
-    ``0..K-1`` per agent, on ``device`` (the card by default); raises the
-    JAX package's two ``ValueError``s for another map."""
+    in group order, at compute ``dtype``) for ``policy_groups``, a tuple of
+    one group id ``0..K-1`` per agent, on ``device`` (the card by
+    default); raises the JAX package's two ``ValueError``s for another
+    map."""
     if len(policy_groups) != cfg.num_agents:
         raise ValueError("policy_groups must have one entry per agent")
     k = max(policy_groups) + 1
@@ -395,8 +562,8 @@ def make_multi_policy_model(cfg: EnvConfig, policy_groups, arch: str = "mlp",
         raise ValueError(f"policy_groups with arch={arch!r}: the groups "
                          "take feed-forward policies")
     return MultiPolicyActorCritic(
-        [make_model(cfg, arch, hidden_dim, num_layers, generator, device)
-         for _ in range(k)]).to(resolve_device(device))
+        [make_model(cfg, arch, hidden_dim, num_layers, generator, device,
+                    dtype) for _ in range(k)]).to(resolve_device(device))
 
 
 def _dense_np(sub, name: str, fan_in, bias: bool = True):

@@ -14,7 +14,9 @@ key chain as the JAX ``Policy``. A recurrent policy threads its carry:
 ``compute_actions(obs, carry)`` returns ``(actions, new_carry)``. With
 ``policy_groups`` the model is a ``MultiPolicyActorCritic`` of MLP or CNN
 policies and agent a acts through group ``policy_groups[a]``'s. The
-policy runs on its model's device.
+policy runs on its model's device and at its compute dtype: a checkpoint of
+a ``--model-dtype bfloat16`` run serves the bf16 model, whose recurrent
+carry is bf16.
 """
 
 from __future__ import annotations
@@ -116,14 +118,12 @@ class Policy:
                 "metadata; rebuild the model and use Policy(...)")
         with open(meta_path) as f:
             meta = json.load(f)
-        if meta.get("model_dtype", "float32") != "float32":
-            raise NotImplementedError(
-                f"model_dtype={meta['model_dtype']!r} is not ported yet "
-                "(ROADMAP T-4)")
         env_cfg = EnvConfig.from_dict(meta["env_config"])
         groups = meta.get("policy_groups")
+        # A bf16 run's meta builds the bf16 model (JAX serve.py:144-147).
         widths = dict(arch=meta["arch"], hidden_dim=meta["hidden_dim"],
-                      num_layers=meta["num_layers"], device=device)
+                      num_layers=meta["num_layers"], device=device,
+                      dtype=meta.get("model_dtype", "float32"))
         if groups is not None:
             groups = tuple(int(g) for g in groups)
             model = make_multi_policy_model(env_cfg, groups, **widths)

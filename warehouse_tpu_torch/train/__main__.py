@@ -94,7 +94,11 @@ def main(argv=None) -> None:
     p.add_argument("--kl-target", type=float, default=0.01)
     p.add_argument("--hidden-dim", type=int, default=128)
     p.add_argument("--model-dtype", choices=["float32", "bfloat16"],
-                   default="float32")
+                   default="float32",
+                   help="bfloat16: PPO's learner kernels multiply bf16 "
+                        "operands with float32 sums, the last values and "
+                        "serving use the bf16 model, acting stays float32 "
+                        "(IMPALA exits: ROADMAP M-4)")
     p.add_argument("--arch", choices=["mlp", "cnn", "attn", "gru", "lstm"],
                    default="mlp",
                    help="mlp, the conv-torso cnn or the recurrent gru / "
@@ -217,8 +221,10 @@ def main(argv=None) -> None:
                 log.info("checkpoint: %s",
                          save(args.checkpoint_dir, u + n, rs))
             if args.eval_every and (u + n) % args.eval_every == 0:
-                policy_fn, init_carry = params_policy_fn(env_cfg, rs.params,
-                                                         args.arch)
+                # The trainer's model, at its compute dtype (the JAX CLI's
+                # trainer.model.apply).
+                policy_fn, init_carry = params_policy_fn(
+                    env_cfg, rs.params, args.arch, dtype=tcfg.model_dtype)
                 ev = evaluate_policy(env_cfg, policy_fn, args.eval_episodes,
                                      seed=args.seed + u,
                                      init_carry=init_carry, device=device)

@@ -29,7 +29,11 @@ learner does, :244-247, ROADMAP T-3b), one shared policy or, for the MLP,
 ``policy_groups`` (:94-113: K independent policies, a
 ``MultiPolicyActorCritic``, each agent acting and learning through its
 group's; K2 and K3/K4 route each row by its agent's group, the bootstrap
-and last values take each agent's group's), float32, ``minibatch_mode=
+and last values take each agent's group's), ``model_dtype`` float32 or
+bfloat16 (the JAX trainer's, :91-110: the model is built at that compute
+dtype, so the bootstrap and last values take the flax-bf16 forward; the
+learner kernels K3/K4 and K11/K12 take ``matmul_dtype="bfloat16"``; acting
+in K2/K10 stays float32), ``minibatch_mode=
 "env"`` with ``epoch_shuffle="once"``, one gradient per minibatch,
 entropy anneal, adaptive KL, truncation bootstrap, lr anneal, action
 masking (K2 floors invalid moves, the loss re-applies the mask),
@@ -65,7 +69,7 @@ from ..kernels.sgd import (check_learner_fits, normalize_adv_env_minibatch,
 from ..kernels.sgd_cnn import (check_cnn_learner_fits, ppo_cnn_sgd_phase,
                                ppo_cnn_sgd_phase_reference)
 from ..models.policy import (apply, make_model, make_multi_policy_model,
-                             params_from_flax)
+                             model_precision, params_from_flax)
 from ..ops.gae import gae
 from ..ops.ppo_update import adaptive_kl_coeff, entropy_coef_at
 from ..optim import AdamState, ClipAdam, make_optimizer, opt_state_from_optax
@@ -123,7 +127,6 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh,
                          "single-policy (ROADMAP T-3b)")
     for what, off, item in (
             ("a mesh", mesh is None, "M-8"),
-            ("model_dtype='bfloat16'", tcfg.model_dtype == "float32", "T-4"),
             ("minibatch_mode='flat'", tcfg.minibatch_mode == "env", "M-4"),
             ("epoch_shuffle='each'", tcfg.epoch_shuffle == "once", "M-4"),
             ("micro_batches > 1", tcfg.micro_batches == 1, "M-4"),
@@ -147,6 +150,9 @@ def _tensor(x, device=None) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype == np.uint32:
         a = a.astype(np.int64)
+    if a.dtype.name == "bfloat16":  # a bf16 carry: the same bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
     return torch.from_numpy(a.copy()).to(device)
 
 
@@ -171,13 +177,15 @@ def runner_state_from_jax(rs_np, device=None) -> RunnerState:
 
 def build_model(cfg: EnvConfig, tcfg: TrainConfig, arch: str, device,
                 policy_groups=None, generator=None) -> torch.nn.Module:
-    """The policy of ``arch`` at ``tcfg``'s widths or, with
-    ``policy_groups``, the ``MultiPolicyActorCritic`` of one per group."""
+    """The policy of ``arch`` at ``tcfg``'s widths and compute dtype or,
+    with ``policy_groups``, the ``MultiPolicyActorCritic`` of one per
+    group."""
     if policy_groups is None:
         return make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
-                          generator, device)
+                          generator, device, tcfg.model_dtype)
     return make_multi_policy_model(cfg, policy_groups, arch, tcfg.hidden_dim,
-                                   tcfg.num_layers, generator, device)
+                                   tcfg.num_layers, generator, device,
+                                   tcfg.model_dtype)
 
 
 def init_parts(cfg: EnvConfig, tcfg: TrainConfig, arch: str, device,
@@ -253,8 +261,11 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
     # Each sample's group by its agent (broadcast over [..., B, A]).
     gids = None if policy_groups is None else torch.tensor(policy_groups,
                                                            device=device)
-    group_kw = {} if policy_groups is None else {
-        "policy_groups": policy_groups}
+    sgd_kw = {"matmul_dtype": tcfg.model_dtype}
+    if policy_groups is not None:
+        sgd_kw["policy_groups"] = policy_groups
+    # The bootstrap and last values' forward: the model's.
+    precision = model_precision(tcfg.model_dtype)
 
     def init(key: torch.Tensor) -> RunnerState:
         params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key,
@@ -282,14 +293,15 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
         boot = torch.zeros_like(roll.value)
         if tcfg.bootstrap_truncated:
             # done is only ever set on the chunk's last step.
-            boot[-1] = apply(rs.params, observe_batch(cfg, new_env), gids)[1]
+            boot[-1] = apply(rs.params, observe_batch(cfg, new_env), gids,
+                             precision=precision)[1]
         traj = Transition(roll.obs, roll.action, roll.log_prob, roll.value,
                           roll.reward,
                           roll.truncated[:, :, None].expand_as(roll.reward),
                           roll.mask, boot)
         mark("acting")
 
-        _, last_value = apply(rs.params, last_obs, gids)
+        _, last_value = apply(rs.params, last_obs, gids, precision=precision)
         adv, targets = gae(traj.reward, traj.value, traj.done, last_value,
                            tcfg.gamma, tcfg.gae_lambda,
                            boot if tcfg.bootstrap_truncated else None)
@@ -303,7 +315,7 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
             rs.kl_coeff, num_epochs=tcfg.ppo_epochs, num_minibatches=M,
             clip_eps=tcfg.clip_eps, value_coef=tcfg.value_coef,
             max_grad_norm=tcfg.max_grad_norm,
-            mask_actions=tcfg.mask_actions, **group_kw)
+            mask_actions=tcfg.mask_actions, **sgd_kw)
         mark("sgd")
 
         # The key split the JAX XLA scaffold spends on its partition.

@@ -24,11 +24,17 @@ or launch failure raises; on the CPU their plain twins run.
 ``plain_step`` is the same update through the plain twins on any device.
 
 The envelope of the JAX kernels path is the port's only path. Ported:
-float32, one shared policy, ``epoch_shuffle="once"``, entropy anneal,
-adaptive KL, lr anneal, action masking. ``NotImplementedError``, naming
-the ROADMAP id: ``global_obs``, ``shaping_coef``,
-``bootstrap_truncated``, ``epoch_shuffle="each"``, ``flat_optimizer``,
-``micro_batches > 1``, ``model_dtype="bfloat16"``, a mesh.
+one shared policy, ``epoch_shuffle="once"``, entropy anneal, adaptive KL,
+lr anneal, action masking, ``model_dtype`` float32 or bfloat16. With
+bfloat16 (:66-70, :106-110, :271-274, :504-508) the model is built at that
+compute dtype and the runner state's carry is bf16: the rollout's carry is
+rounded back to bf16 after the boundary reset of every chunk, K7 and the
+learner read it cast up to float32, the last value is the flax-bf16
+forward from it, and the learner kernels K8/K9 take
+``matmul_dtype="bfloat16"``; acting in K7 stays float32.
+``NotImplementedError``, naming the ROADMAP id: ``global_obs``,
+``shaping_coef``, ``bootstrap_truncated``, ``epoch_shuffle="each"``,
+``flat_optimizer``, ``micro_batches > 1``, a mesh.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ from ..kernels.rollout import check_kernel_shape
 from ..kernels.sgd import normalize_adv_env_minibatch
 from ..kernels.sgd_rnn import ppo_rnn_sgd_phase, ppo_rnn_sgd_phase_reference
 from ..models.policy import (apply_rnn, initial_carry, make_model,
-                             params_from_flax)
+                             model_precision, params_from_flax, torch_dtype)
 from ..ops.gae import gae
 from ..ops.ppo_update import entropy_coef_at
 from ..optim import AdamState, ClipAdam, make_optimizer, opt_state_from_optax
@@ -60,7 +66,7 @@ class RunnerStateRNN(NamedTuple):
     opt_state: AdamState
     env_state: EnvState      # [B] envs
     obs: torch.Tensor        # float32[B, A, obs_dim]
-    carry: Any               # float32[B, A, H], or the LSTM's (c, h)
+    carry: Any               # [B, A, H] at the model's dtype, or (c, h)
     key: torch.Tensor        # int64[2] threefry key words
     update_idx: torch.Tensor  # int32[]
     kl_coeff: torch.Tensor   # float32[] adaptive KL penalty
@@ -88,7 +94,6 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
             ("shaping_coef > 0", tcfg.shaping_coef == 0.0, "M-4"),
             ("global_obs", not env_cfg.global_obs, "M-4"),
             ("bootstrap_truncated", not tcfg.bootstrap_truncated, "M-4"),
-            ("model_dtype='bfloat16'", tcfg.model_dtype == "float32", "T-4"),
             ("epoch_shuffle='each'", tcfg.epoch_shuffle == "once", "M-4"),
             ("micro_batches > 1", tcfg.micro_batches == 1, "M-4"),
             ("flat_optimizer", not tcfg.flat_optimizer, "M-4")):
@@ -152,8 +157,9 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
     A, H = cfg.num_agents, tcfg.hidden_dim
     n_steps = tcfg.ppo_epochs * M
     optimizer = make_optimizer(tcfg)
+    dtype = tcfg.model_dtype
     model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
-                       device=device)
+                       device=device, dtype=dtype)
     if device.type == "cuda":  # the env kernels' (agents, queue) shapes
         check_kernel_shape(cfg)
 
@@ -162,7 +168,7 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
         return RunnerStateRNN(
             params=params, opt_state=optimizer.init(params),
             env_state=env_state, obs=obs,
-            carry=initial_carry(arch, (B, A), H, device), key=key,
+            carry=initial_carry(arch, (B, A), H, device, dtype), key=key,
             update_idx=torch.zeros((), dtype=torch.int32, device=device),
             kl_coeff=torch.tensor(tcfg.kl_coeff, dtype=torch.float32,
                                   device=device))
@@ -174,16 +180,20 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
         env_in = EnvState(**{f: getattr(rs.env_state, f)[perm]
                              for f in STATE_FIELDS})
         h0 = _carry_map(lambda x: x[perm], rs.carry)
+        # K7 and the learner read the carry in float32 (a bf16 one cast up).
+        h0_f32 = _carry_map(lambda x: x.float(), h0)
         new_env, roll, reset_key, key, new_carry = act_fn(
-            cfg, rs.params, env_in, h0, T, key,
+            cfg, rs.params, env_in, h0_f32, T, key,
             mask_actions=tcfg.mask_actions)
         env_state, last_obs, done_b = reset_truncated_batch(cfg, new_env,
                                                             reset_key)
-        # The carry restarts with the episode.
+        # The carry restarts with the episode, and goes back to the runner
+        # state's dtype (rounded to bf16 at bfloat16).
         last_h = _carry_map(
             lambda x: torch.where(done_b[:, None, None],
                                   torch.zeros((), dtype=x.dtype,
-                                              device=x.device), x),
+                                              device=x.device), x).to(
+                                      torch_dtype(dtype)),
             new_carry)
         traj = Transition(roll.obs, roll.action, roll.log_prob, roll.value,
                           roll.reward,
@@ -192,7 +202,8 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
         mark("acting")
 
         with torch.no_grad():
-            _, last_value, _ = apply_rnn(rs.params, last_obs, last_h)
+            _, last_value, _ = apply_rnn(rs.params, last_obs, last_h,
+                                         precision=model_precision(dtype))
         adv, targets = gae(traj.reward, traj.value, traj.done, last_value,
                            tcfg.gamma, tcfg.gae_lambda, None)
         adv_n = normalize_adv_env_minibatch(adv, M)
@@ -201,11 +212,11 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
         mark("gae")
 
         params, opt_state, losses = sgd_fn(
-            rs.params, rs.opt_state, traj, adv_n, targets, h0, *rows,
+            rs.params, rs.opt_state, traj, adv_n, targets, h0_f32, *rows,
             ent_coef, rs.kl_coeff, num_epochs=tcfg.ppo_epochs,
             num_minibatches=M, clip_eps=tcfg.clip_eps,
             value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
-            mask_actions=tcfg.mask_actions)
+            mask_actions=tcfg.mask_actions, matmul_dtype=dtype)
         mark("sgd")
 
         # The key split the JAX XLA scaffold spends on its partition.
