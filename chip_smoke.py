@@ -172,7 +172,35 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
 28. ``ppo_bf16_train`` / ``cnn_bf16_train`` (main paths): 10 config-4
    updates of the MLP (K2 + K3/K4 on bf16 operands) and of the CNN (K10 +
    K11/K12 on bf16 operands) at ``--model-dtype bfloat16``, the first
-   update held against the plain path's, the trained policy served.
+   update held against the plain path's, the trained policy served;
+29. ``k10_groups_check``: K10 with policy groups (each row through its
+   agent's group's convolutions, trunk and head) with the checks of
+   ``k2_check`` against the plain multi-policy CNN: at config 4 with ``(0,
+   1, 0, 1)`` (B = 4096, T = 16) and on shelves with ``(0, 0, 0, 1, 1, 1)``,
+   masked and shaped, at B = 2048 (the recipe's shapes), each counted on
+   the group route; an ungrouped K10 launch after them bit-equal to one
+   before them;
+30. ``shelves_cnn_groups_train`` (main path): the walled recipe with
+   ``--arch cnn --policy-groups 0,0,0,1,1,1`` at 2048 envs, its
+   ``backends`` ``{"rollout": "cuda", "grad": "plain"}`` (the JAX trainer's
+   fused CNN learner is single-policy, so its SGD phase is XLA there and
+   plain PyTorch here), the first update held against the plain path's,
+   then its first 100 updates of a 300-update run (grouped, masked, shaped
+   K10 + the plain learner), a learning check on deliveries per env-step
+   over updates 91-100, a checkpoint at 100 served by
+   ``Policy.from_checkpoint``; the curve goes to
+   ``runs/torch_shelves_cnn_groups/metrics.jsonl``;
+31. ``rllib_cadence_train`` (main path): config 4 with ``--rllib-cadence``
+   (flat minibatches reshuffled every epoch), the first 50 of 80 updates
+   (K2 + the plain flat SGD phase), a learning check over updates 41-50;
+32. ``m4_check``: 3 config-4 updates of PPO with ``--micro-batches 2``, PPO
+   with the flat optimizer, the GRU with ``--epoch-shuffle each``, IMPALA
+   (Adam) with ``--micro-batches 2`` and with the flat optimizer, each
+   update held against ``plain_step`` from the same state, the acting
+   kernel and the plain learner's split timed, ``backends`` printed.
+
+Every main path but the last three reports ``backends`` ``{"rollout":
+"cuda", "grad": "cuda"}``.
 
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit. The kernels' launch counts are zeroed just before each
@@ -267,6 +295,13 @@ GROUPS_B = 2048         # envs of the groups recipe (the JAX record's size)
 GROUPS_UPDATES = 100    # updates of its 300-update schedule that run here
 GROUPS_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 91-100
 GROUPS_METRICS_OUT = "runs/torch_shelves_groups/metrics.jsonl"
+CNN_GROUPS_UPDATES = 100  # updates of the shelves_cnn_groups_train phase
+CNN_GROUPS_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 91-100
+CNN_GROUPS_METRICS_OUT = "runs/torch_shelves_cnn_groups/metrics.jsonl"
+RLLIB_LEARN_MIN = 0.15  # rllib_cadence_train: over updates 41-50
+M4_UPDATES = 3          # m4_check: updates per case
+KERNELS = {"rollout": "cuda", "grad": "cuda"}  # a path's routes: kernels
+PLAIN_GRAD = {"rollout": "cuda", "grad": "plain"}  # acting kernel, plain SGD
 # A kernel update's metrics against the plain path's from the same state
 # (tests/test_torch_train.py's bound on the JAX trainer's metrics).
 STEP_METRIC_TOL = (1e-3, 5e-5)
@@ -512,7 +547,7 @@ def shaped_start(cfg, model, state, truncating, dev, groups=None):
     when ``truncating``."""
     new, _, _, _ = act.ppo_rollout(
         cfg, model, state, SLICE_T, rng.prng_key(SEED + 11, dev),
-        arch="cnn" if isinstance(model, ActorCriticCNN) else "mlp",
+        arch="cnn" if act.is_cnn_model(model) else "mlp",
         policy_groups=groups)
     if truncating:
         new = new.replace(t=torch.full_like(new.t, cfg.max_steps - SLICE_T))
@@ -535,9 +570,9 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
     must move; with ``wide`` (an MLP whose shape K2's staged route cannot
     hold) so must the count of launches on the wide route, else it must
     not. With ``groups`` the model is a ``MultiPolicyActorCritic`` held to
-    the plain multi-policy model, and the count of grouped launches must
-    move."""
-    cnn = isinstance(model, ActorCriticCNN)
+    the plain multi-policy model (of MLPs: K2; of CNNs: K10), and the count
+    of grouped launches must move."""
+    cnn = act.is_cnn_model(model)
     K, steps = ("K10", act.act_cnn_steps) if cnn else ("K2", act.act_steps)
     T, A = SLICE_T, cfg.num_agents
     state, obs0 = reset_envs(cfg, B, SEED + 1, dev)
@@ -1376,12 +1411,15 @@ def median_split(splits):
     return {k: median([s[k] for s in splits]) for k in splits[0]}
 
 
-def run_updates(tr, n, what, dev, hook=None):
+def run_updates(tr, n, what, dev, hook=None, backends=KERNELS):
     """n updates of ``tr.train_step`` from ``PRNGKey(0)`` with the phase
     split of each by CUDA events, then 3 of ``tr.plain_step`` from the same
     initial state: the final state and a dict of the timings, the
     per-update deliveries and the largest parameter change. ``hook(u, rs,
-    metrics)``, if given, is called after update ``u`` (from 1)."""
+    metrics)``, if given, is called after update ``u`` (from 1). The
+    trainer's routes must be ``backends``."""
+    require(tr.backends == backends,
+            f"{what}: backends {tr.backends}, expected {backends}")
     B, T = tr.tcfg.num_envs, tr.tcfg.unroll_length
     rs0 = tr.init(rng.prng_key(0, dev))
     rs, splits, deliveries = rs0, [], []
@@ -1411,7 +1449,7 @@ def run_updates(tr, n, what, dev, hook=None):
         plain.append(marks.split())
     plain_wall = time.perf_counter() - t1
     return rs, {
-        "B": B, "T": T, "updates": n,
+        "B": B, "T": T, "updates": n, "backends": tr.backends,
         "update_ms_median": median([s["total"] for s in splits]),
         "split_ms_median": median_split(splits),
         "env_steps_per_sec": B * T * n / wall,
@@ -1918,6 +1956,157 @@ def ff_bf16_train_phase(dev, cfg, arch):
           "tol": STEP_METRIC_TOL})
 
 
+def cnn_groups_model(cfg, groups, dev):
+    """A seeded ``MultiPolicyActorCritic`` of config 4's CNNs."""
+    return make_multi_policy_model(
+        cfg, groups, "cnn", hidden_dim=HIDDEN[0],
+        generator=torch.Generator().manual_seed(SEED), device=dev)
+
+
+def k10_groups_check(dev, cfg, shelves):
+    """K10 with policy groups against the plain multi-policy CNN at config
+    4 ``(0, 1, 0, 1)`` and on the shelves recipe's shapes (``(0, 0, 0, 1,
+    1, 1)``, masked, shaped, 2048 envs); an ungrouped K10 launch after them
+    bit-equal to one before them. Returns the shelves results for the
+    kernels line."""
+    model = cnn_model(cfg, dev)
+    state, _ = reset_envs(cfg, CHECK_B, SEED + 1, dev)
+    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, SLICE_T)
+    _, g = rng.batched_gumbel_stream(rng.prng_key(SEED + 2, dev), SLICE_T,
+                                     (5, CHECK_B * cfg.num_agents))
+    before = act.act_cnn_steps(cfg, model, state, u, pick, drop, g)
+    k2_check(dev, "medium_cnn_groups", cfg,
+             cnn_groups_model(cfg, CONFIG4_GROUPS, dev),
+             phase="k10_groups_check", groups=CONFIG4_GROUPS)
+    out = k2_check(dev, "shelves_cnn_groups", shelves,
+                   cnn_groups_model(shelves, GROUPS, dev), True, shaped=True,
+                   B=GROUPS_B, phase="k10_groups_check", groups=GROUPS)
+    after = act.act_cnn_steps(cfg, model, state, u, pick, drop, g)
+    torch.cuda.synchronize()
+    require(state_equal(before[0], after[0]) and all(
+        bits_equal(a, b) for a, b in zip(before[1:], after[1:])),
+        "K10: an ungrouped launch after the grouped ones gave other bits")
+    emit({"phase": "k10_groups_check", "config": "medium",
+          "ungrouped_bits_equal_after_grouped": True})
+    return out
+
+
+def shelves_cnn_groups_train_phase(dev, cfg):
+    """The walled recipe with ``--arch cnn --policy-groups 0,0,0,1,1,1`` at
+    2048 envs: grouped K10 acting and the plain learner; the first update
+    against the plain path's, then its first 100 updates, a checkpoint at
+    the end served by ``Policy.from_checkpoint``, the curve to
+    ``runs/torch_shelves_cnn_groups/metrics.jsonl``."""
+    tcfg, n = groups_tcfg(), CNN_GROUPS_UPDATES
+    tr = make_train(cfg, tcfg, arch="cnn", device=dev, policy_groups=GROUPS)
+    first = first_update_vs_plain(tr, dev, "shelves_cnn_groups_train")
+    rows = []
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        write_policy_meta(ckpt_dir, cfg, tcfg, arch="cnn",
+                          policy_groups=GROUPS)
+
+        def hook(u, rs, m):
+            rows.append({"step": u, **{k: float(v) for k, v in m.items()}})
+            if u == n:
+                checkpoint.save(ckpt_dir, u, rs)
+
+        rs, out = run_updates(tr, n, "shelves_cnn_groups_train", dev, hook,
+                              backends=PLAIN_GRAD)
+        gids = torch.tensor(GROUPS, device=dev)
+        with torch.no_grad():
+            logits, _ = apply(rs.params, rs.obs, gids)
+        want = first_argmax(logits, -1).to(torch.int32)
+        served = Policy.from_checkpoint(ckpt_dir, device=dev)
+        acts, _ = served.compute_actions(rs.obs)
+        require(served.policy_groups == GROUPS and served.arch == "cnn"
+                 and served.mask_actions,
+                 "serve: the checkpoint's meta lost the CNN, groups or mask")
+        require(torch.equal(acts, want),
+                "serve: the checkpoint's policy differs from the trained one")
+    os.makedirs(os.path.dirname(CNN_GROUPS_METRICS_OUT), exist_ok=True)
+    with open(CNN_GROUPS_METRICS_OUT, "w") as f:
+        f.write(json.dumps({"meta": True, "algo": "ppo", "arch": "cnn",
+                            "env": "shelves", "policy_groups": list(GROUPS),
+                            "backends": tr.backends,
+                            "device": torch.cuda.get_device_name(0),
+                            "train_config": json.loads(tcfg.to_json())})
+                + "\n")
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    deliveries = out["deliveries_per_env_step"]
+    late = sum(deliveries[-10:]) / 10
+    emit({"phase": "shelves_cnn_groups_train", "policy_groups": GROUPS,
+          **out, "deliveries_at": {u: deliveries[u - 1]
+                                   for u in range(20, n + 1, 20)},
+          "deliveries_91_100": late, "learn_min": CNN_GROUPS_LEARN_MIN,
+          "first_update_kernel_vs_plain": first, "tol": STEP_METRIC_TOL,
+          "served_actions_equal": True,
+          "metrics_file": CNN_GROUPS_METRICS_OUT})
+    require(late >= CNN_GROUPS_LEARN_MIN,
+            f"shelves_cnn_groups_train: deliveries/env-step {late} over "
+            f"updates 91-100 is below {CNN_GROUPS_LEARN_MIN}")
+
+
+def rllib_cadence_train_phase(dev, cfg):
+    """Config 4 with ``--rllib-cadence`` (flat minibatches, a fresh
+    partition every epoch): the first 50 updates of an 80-update run through
+    K2 and the plain flat SGD phase, then the trained policy served."""
+    tcfg = TrainConfig(num_updates=TRAIN_SCHEDULE, minibatch_mode="flat",
+                       epoch_shuffle="each")
+    tr = make_train(cfg, tcfg, device=dev)
+    rs, out = run_updates(tr, TRAIN_UPDATES, "rllib_cadence_train", dev,
+                          backends=PLAIN_GRAD)
+    serve_mlp(cfg, tr, rs)
+    deliveries = out["deliveries_per_env_step"]
+    late = sum(deliveries[-10:]) / 10
+    emit({"phase": "rllib_cadence_train", **out,
+          "deliveries_at": {u: deliveries[u - 1]
+                            for u in range(10, TRAIN_UPDATES + 1, 10)},
+          "deliveries_41_50": late, "learn_min": RLLIB_LEARN_MIN})
+    require(late >= RLLIB_LEARN_MIN,
+            f"rllib_cadence_train: deliveries/env-step {late} over updates "
+            f"41-50 is below {RLLIB_LEARN_MIN}")
+
+
+def m4_check(dev, cfg):
+    """3 config-4 updates of each learner option that no kernel computes
+    (ROADMAP M-4): the acting kernel and the plain learner, each update held
+    against ``plain_step`` from the same state (its metrics within
+    ``STEP_METRIC_TOL``), the phases timed by CUDA events."""
+    adam = dict(num_updates=IMPALA_SCHEDULE, impala_rmsprop=False)
+    cases = [
+        ("ppo_micro_batches_2", make_train, "mlp",
+         TrainConfig(num_updates=TRAIN_SCHEDULE, micro_batches=2)),
+        ("ppo_flat_optimizer", make_train, "mlp",
+         TrainConfig(num_updates=TRAIN_SCHEDULE, flat_optimizer=True)),
+        ("gru_epoch_shuffle_each", make_train_rnn, "gru",
+         TrainConfig(num_updates=RNN_SCHEDULE, epoch_shuffle="each")),
+        ("impala_micro_batches_2", make_train_impala, "mlp",
+         TrainConfig(micro_batches=2, **adam)),
+        ("impala_flat_optimizer", make_train_impala, "mlp",
+         TrainConfig(flat_optimizer=True, **adam))]
+    rtol, atol = STEP_METRIC_TOL
+    for name, build_fn, arch, tcfg in cases:
+        tr = build_fn(cfg, tcfg, arch=arch, device=dev)
+        require(tr.backends == PLAIN_GRAD,
+                f"m4_check {name}: backends {tr.backends}")
+        rs, splits, worst = tr.init(rng.prng_key(0, dev)), [], 0.0
+        for u in range(M4_UPDATES):
+            marks = Marks()
+            nxt, mk = tr.train_step(rs, mark=marks)
+            splits.append(marks.split())
+            _, mp = tr.plain_step(rs)
+            for k in mk:
+                a, b = float(mk[k]), float(mp[k])
+                worst = max(worst, abs(a - b) / (atol + rtol * abs(b)))
+            rs = nxt
+        require(worst <= 1.0, f"m4_check {name}: an update differs from the "
+                f"plain path's ({worst} of the tolerance)")
+        emit({"phase": "m4_check", "case": name, "backends": tr.backends,
+              "updates": M4_UPDATES, "B": tcfg.num_envs,
+              "split_ms_median": median_split(splits),
+              "worst_metric_vs_plain_in_tol": worst, "tol": STEP_METRIC_TOL})
+
+
 # Each kernel's wrapper, where its launch count lives.
 COUNTED = {"greedy_rollout": rollout.greedy_steps,
            "ppo_rollout": act.act_steps,
@@ -1947,6 +2136,7 @@ OPTION_COUNTED = {
     "ppo_cnn_minibatch_grads_global": (sgd_cnn.ppo_cnn_minibatch_grads,
                                        "small_tile_launches"),
     "ppo_rollout_groups": (act.act_steps, "group_launches"),
+    "ppo_rollout_cnn_groups": (act.act_cnn_steps, "group_launches"),
     "ppo_sgd_phase_groups": (sgd.ppo_sgd_phase, "group_launches"),
     "ppo_minibatch_grads_groups": (sgd.ppo_minibatch_grads,
                                    "group_launches"),
@@ -2120,6 +2310,10 @@ def main(argv=()) -> int:
     # bf16 operands in the learners: config 4's numbers (the GRU's for K8 /
     # K9) go into the kernels line.
     checks.update(bf16_check(dev, cfg, shelves, shelves_g, medium_g))
+    # K10 with groups: the shelves recipe's shapes go into the kernels line.
+    checks["ppo_rollout_cnn_groups"] = k10_groups_check(dev, cfg, shelves)
+    # The learner options no kernel computes, on the card.
+    m4_check(dev, cfg)
 
     # ---- the main paths: each counted from just before it -------------
     rnn_kernels = ["ppo_rnn_rollout", "ppo_rnn_sgd_phase",
@@ -2176,7 +2370,14 @@ def main(argv=()) -> int:
         main_path("cnn_bf16_train",
                   lambda: ff_bf16_train_phase(dev, cfg, "cnn"),
                   ["ppo_rollout_cnn", "ppo_cnn_sgd_phase_bf16",
-                   "ppo_cnn_minibatch_grads_bf16"])]
+                   "ppo_cnn_minibatch_grads_bf16"]),
+        main_path("shelves_cnn_groups_train",
+                  lambda: shelves_cnn_groups_train_phase(dev, shelves),
+                  ["ppo_rollout_cnn", "ppo_rollout_cnn_groups",
+                   "ppo_rollout_cnn_shaped"]),
+        main_path("rllib_cadence_train",
+                  lambda: rllib_cadence_train_phase(dev, cfg),
+                  ["ppo_rollout"])]
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     csrc = "warehouse_tpu_torch/kernels/csrc/"
@@ -2229,7 +2430,12 @@ def main(argv=()) -> int:
                                          "pallas/sgd_rnn.py:665"),
         "ppo_cnn_sgd_phase_bf16": ("sgd_cnn.cu", "pallas/sgd_cnn.py:482"),
         "ppo_cnn_minibatch_grads_bf16": ("sgd_cnn.cu",
-                                         "pallas/sgd_cnn.py:595")}
+                                         "pallas/sgd_cnn.py:595"),
+        # The policy-groups option of the CNN arm: each row through its
+        # agent's group's convolutions, trunk and head (rows group-major,
+        # every group's conv kernels staged), at the shelves CNN groups
+        # recipe's shapes.
+        "ppo_rollout_cnn_groups": ("act_cnn.cu", "pallas/act.py:1062")}
     # library_ms: no single PyTorch call computes a whole rollout or a
     # whole learner phase, so it is null for every kernel here.
     emit({"kernels": [

@@ -132,10 +132,11 @@ def test_boundary_reset_matches_autoreset_path(setup):
 
 
 @pytest.mark.parametrize("option", [
-    {"policy_groups": (0, 1), "arch": "cnn"}, {"arch": "attn"}])
+    {"policy_groups": (0, 1), "arch": "attn"}, {"arch": "attn"}])
 def test_unsupported_options_raise(setup, option):
-    """Policy groups are ported for the MLP (test_torch_groups.py); the CNN
-    with groups (ROADMAP T-3b) and the attention torso raise."""
+    """Policy groups are ported for the MLP (test_torch_groups.py) and the
+    CNN (test_torch_cnn_groups.py); the attention torso raises, with groups
+    or without."""
     _, _, m, _, ts, _ = setup
     with pytest.raises(NotImplementedError):
         ppo_rollout(CFG, m, ts, T, rng.prng_key(0), **option)

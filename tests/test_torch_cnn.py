@@ -268,7 +268,8 @@ def test_act_wrapper_keys_and_reference(act_setup):
     mlp = make_model(cfg, hidden_dim=ACT_H, device="cpu")
     with pytest.raises(ValueError, match="does not fit"):
         act.ppo_rollout(cfg, mlp, ts, ACT_T, rng.prng_key(7), arch="cnn")
-    with pytest.raises(NotImplementedError, match="policy_groups"):
+    # Groups take a MultiPolicyActorCritic (test_torch_cnn_groups.py).
+    with pytest.raises(ValueError, match="policy_groups"):
         act.ppo_rollout(cfg, m, ts, ACT_T, rng.prng_key(7), arch="cnn",
                         policy_groups=(0,) * cfg.num_agents)
 
@@ -544,8 +545,12 @@ def test_cnn_trainer_gates_and_plain_step():
     cfg = wt.small_config(max_steps=8)
     tcfg = wt.TrainConfig(num_envs=16, unroll_length=4, num_updates=3,
                           num_minibatches=2, ppo_epochs=2, hidden_dim=16)
-    with pytest.raises(ValueError, match="policy_groups"):
-        make_train(cfg, tcfg, arch="cnn", policy_groups=(0, 1), device="cpu")
+    # Policy groups are ported (test_torch_cnn_groups.py): K10 acts, the
+    # learner is plain, as the JAX trainer's fused CNN learner refuses them.
+    grouped = make_train(cfg, tcfg, arch="cnn", policy_groups=(0, 1),
+                         device="cpu")
+    assert all(isinstance(m, ActorCriticCNN) for m in grouped.model.policies)
+    assert grouped.backends == {"rollout": "plain", "grad": "plain"}
     # global_obs is ported: the CNN's grid becomes the whole 5 x 5 map with
     # 5 channels (held against the JAX trainer in test_torch_global_obs.py).
     wide = make_train(cfg.replace(global_obs=True), tcfg, arch="cnn",
@@ -591,7 +596,7 @@ def test_cli_trains_cnn_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--algo", "impala", "--arch", "cnn"],
                                    ["--arch", "cnn", "--policy-groups",
-                                    "0,1"]])
+                                    "0,1", "--eval-every", "1"]])
 def test_cli_cnn_exits_on_unported_combinations(flags, tmp_path):
     with pytest.raises(SystemExit) as e:
         cli_main(["--num-envs", "16", "--cpu", "--metrics-path",

@@ -218,7 +218,8 @@ def test_grouped_twin_matches_pallas_kernel(act_setup):
 
 def test_groups_gates():
     """A multi-policy model needs its groups and the groups their model;
-    the CNN with groups is refused by name (ROADMAP T-3b)."""
+    a multi-policy model of CNNs acts with ``arch="cnn"`` only (its twin
+    against the Pallas kernel: test_torch_cnn_groups.py)."""
     cfg = small_config(max_steps=T)
     _, params = j_params(cfg, (0, 1))
     m = port_model(cfg, (0, 1), params)
@@ -229,9 +230,11 @@ def test_groups_gates():
         ppo_rollout(cfg, m, ts, T, rng.prng_key(0), policy_groups=(0, 0))
     cnn = make_multi_policy_model(cfg, (0, 1), "cnn", hidden_dim=HIDDEN,
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="T-3b"):
-        ppo_rollout(cfg, cnn, ts, T, rng.prng_key(0), policy_groups=(0, 1),
-                    arch="cnn")
+    _, roll, _, _ = ppo_rollout(cfg, cnn, ts, T, rng.prng_key(0),
+                                policy_groups=(0, 1), arch="cnn")
+    assert roll.value.shape == (T, 4, cfg.num_agents)
+    with pytest.raises(ValueError, match="arch"):
+        ppo_rollout(cfg, cnn, ts, T, rng.prng_key(0), policy_groups=(0, 1))
 
 
 # ---- (K3 / K4) the learner twins against the Pallas kernels' groups ---------

@@ -342,8 +342,8 @@ def test_train_many_runs_and_plain_step_is_the_cpu_path():
     (dict(arch="cnn"), NotImplementedError),
     (dict(mesh=object()), NotImplementedError),
     (dict(model_dtype="bfloat16"), NotImplementedError),
-    (dict(micro_batches=2), NotImplementedError),
-    (dict(flat_optimizer=True), NotImplementedError),
+    (dict(micro_batches=2), None),  # ported: the learner runs plain
+    (dict(flat_optimizer=True), None),  # ported: the learner runs plain
     (dict(global_obs=True), NotImplementedError),
     (dict(rollout_backend="xla"), ValueError),
     (dict(grad_backend="xla"), ValueError),
@@ -354,6 +354,11 @@ def test_gates_raise(change, error):
     change = dict(change)
     kw = {k: change.pop(k) for k in ("arch", "mesh") if k in change}
     cfg = CFG.replace(global_obs=change.pop("global_obs", False))
+    if error is None:
+        tr = make_train_impala(cfg, BASE.replace(**change), device="cpu",
+                               **kw)
+        assert tr.backends == {"rollout": "plain", "grad": "plain"}
+        return
     match = "ROADMAP" if error is NotImplementedError else None
     with pytest.raises(error, match=match):
         make_train_impala(cfg, BASE.replace(**change), device="cpu", **kw)

@@ -1023,11 +1023,81 @@ def test_grouped_sgd_kernels_match_twin(name, hidden, groups, dev):
     assert ppo_minibatch_grads.group_launches == grouped + SGD_M
 
 
+CNN_GROUP_ACT_CASES = [  # (preset, hidden, groups, mask, shaped)
+    ("medium", 128, (0, 1, 0, 1), False, False),
+    ("shelves", 128, (0, 0, 0, 1, 1, 1), True, True),
+    ("shelves", 16, (1, 0, 0, 1, 1, 0), True, False),
+    ("small", 16, (1, 0), False, True),
+    ("large", 16, (0, 0, 1, 1, 0, 0, 1, 1), True, False)]
+
+
+@pytest.mark.parametrize("name,hidden,groups,mask_on,shaped",
+                         CNN_GROUP_ACT_CASES)
+def test_grouped_cnn_act_kernel_matches_plain_path(name, hidden, groups,
+                                                   mask_on, shaped, dev):
+    """K10 with policy groups: each agent's rows through its group's
+    convolutions, trunk and head (rows group-major, each group padded to 8),
+    held to the plain multi-policy CNN on the kernel's observations and the
+    plain engine replaying its actions, masked and shaped, on a ragged last
+    block; the group count moves."""
+    from warehouse_tpu_torch.kernels.act import act_cnn_steps
+    from warehouse_tpu_torch.models import make_multi_policy_model
+
+    cfg = PRESETS[name]
+    m = make_multi_policy_model(cfg, groups, "cnn", hidden_dim=hidden,
+                                generator=torch.Generator().manual_seed(0),
+                                device=dev)
+    grouped = act_cnn_steps.group_launches
+    replay_check(cfg, m, act_cnn_steps, dev, mask_on, shaped, groups=groups)
+    assert act_cnn_steps.group_launches == grouped + 1
+
+
+def test_grouped_cnn_refuses_what_it_cannot_hold(dev):
+    """Every group's rows are padded to a multiple of 8 beside its staged
+    conv kernels: one policy per agent on config 4 (4 x 8 rows) and the 9 x
+    9 global map with two groups (2 x 8 rows of 18.8 KB) do not fit a block,
+    and the trainer refuses them by name when it is built."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.train import make_train
+
+    tcfg = TrainConfig(num_envs=64, num_updates=2)
+    for cfg, groups in ((medium_config(), (0, 1, 2, 3)),
+                        (GLOBAL["medium"], (0, 1, 0, 1))):
+        with pytest.raises(ValueError, match="policy_groups"):
+            make_train(cfg, tcfg, arch="cnn", policy_groups=groups,
+                       device=dev)
+
+
+def test_grouped_cnn_trainer_matches_plain_step(dev):
+    """make_train(arch="cnn") with policy groups on the card: K10 acts with
+    groups and the learner is plain (the JAX trainer's is XLA there); one
+    update and one through the plain path from the same state agree
+    (chip_smoke.py's STEP_METRIC_TOL)."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.kernels.act import act_cnn_steps
+    from warehouse_tpu_torch.train import make_train
+
+    tcfg = TrainConfig(num_envs=256, num_updates=4, mask_actions=True,
+                       shaping_coef=0.02)
+    tr = make_train(shelves_config(), tcfg, arch="cnn",
+                    policy_groups=(0, 0, 0, 1, 1, 1), device=dev)
+    assert tr.backends == {"rollout": "cuda", "grad": "plain"}
+    rs0 = tr.init(rng.prng_key(0, dev))
+    grouped = act_cnn_steps.group_launches
+    _, mk = tr.train_step(rs0)
+    assert act_cnn_steps.group_launches == grouped + 1
+    _, mp = tr.plain_step(rs0)
+    for k in mk:
+        a, b = float(mk[k]), float(mp[k])
+        assert abs(a - b) <= 5e-5 + 1e-3 * abs(b), (k, a, b)
+
+
 def test_grouped_trainer_matches_plain_step(dev):
     """make_train with policy groups on the card: one update through K2
     and K3 / K4 and one through the plain twins from the same state agree
-    (chip_smoke.py's STEP_METRIC_TOL); the CNN with groups is refused by
-    name (ROADMAP T-3b)."""
+    (chip_smoke.py's STEP_METRIC_TOL); the CNN with groups builds with
+    K10 acting and the learner plain (test_grouped_cnn_trainer_matches_plain_step
+    runs it)."""
     from warehouse_tpu_torch import TrainConfig
     from warehouse_tpu_torch.train import make_train
 
@@ -1040,9 +1110,9 @@ def test_grouped_trainer_matches_plain_step(dev):
     for k in mk:
         a, b = float(mk[k]), float(mp[k])
         assert abs(a - b) <= 5e-5 + 1e-3 * abs(b), (k, a, b)
-    with pytest.raises(ValueError, match="T-3b"):
-        make_train(medium_config(), tcfg, arch="cnn",
-                   policy_groups=(0, 1, 0, 1), device=dev)
+    cnn = make_train(medium_config(), tcfg, arch="cnn",
+                     policy_groups=(0, 1, 0, 1), device=dev)
+    assert cnn.backends == {"rollout": "cuda", "grad": "plain"}
 
 
 # ---- bf16 operands in the learners (K3 / K4, K8 / K9, K11 / K12) ---------------

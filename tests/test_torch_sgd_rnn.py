@@ -231,9 +231,9 @@ def test_rnn_train_many_runs_and_plain_step_is_the_cpu_path():
     (dict(shaping_coef=0.1), NotImplementedError),
     (dict(global_obs=True), NotImplementedError),
     (dict(bootstrap_truncated=True), NotImplementedError),
-    (dict(epoch_shuffle="each"), NotImplementedError),
-    (dict(flat_optimizer=True), NotImplementedError),
-    (dict(micro_batches=2), NotImplementedError),
+    (dict(epoch_shuffle="each"), None),  # ported: the learner runs plain
+    (dict(flat_optimizer=True), None),  # ported: the learner runs plain
+    (dict(micro_batches=2), None),  # accepted and ignored, as in JAX
     (dict(model_dtype="bfloat16"), None),  # ported: the trainer is built
     (dict(rollout_backend="xla"), ValueError),
     (dict(grad_backend="xla"), ValueError),
@@ -247,7 +247,10 @@ def test_rnn_gates_raise(change, error):
     cfg = CFG.replace(global_obs=change.pop("global_obs", False))
     if error is None:
         tr = make_train_rnn(cfg, BASE.replace(**change), device="cpu", **kw)
-        assert tr.init(rng.prng_key(0)).carry.dtype == torch.bfloat16
+        assert tr.backends == {"rollout": "plain", "grad": "plain"}
+        want = (torch.bfloat16 if change.get("model_dtype") == "bfloat16"
+                else torch.float32)
+        assert tr.init(rng.prng_key(0)).carry.dtype == want
         return
     with pytest.raises(error) as e:
         make_train_rnn(cfg, BASE.replace(**change), device="cpu", **kw)

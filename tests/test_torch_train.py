@@ -182,10 +182,10 @@ def test_train_many_runs_and_learns_something():
     (dict(policy_groups=(0, 1)), None),  # ported: the trainer is built
     (dict(mesh=object()), NotImplementedError),
     (dict(model_dtype="bfloat16"), None),  # ported: the trainer is built
-    (dict(minibatch_mode="flat"), NotImplementedError),
-    (dict(epoch_shuffle="each"), NotImplementedError),
-    (dict(micro_batches=2), NotImplementedError),
-    (dict(flat_optimizer=True), NotImplementedError),
+    (dict(minibatch_mode="flat"), None),  # ported: the learner runs plain
+    (dict(epoch_shuffle="each"), None),  # ported: the learner runs plain
+    (dict(micro_batches=2), None),  # ported: the learner runs plain
+    (dict(flat_optimizer=True), None),  # ported: the learner runs plain
     (dict(global_obs=True), None),  # ported: the trainer is built
     (dict(rollout_backend="xla"), ValueError),
     (dict(grad_backend="xla"), ValueError),
@@ -200,6 +200,7 @@ def test_gates_raise(change, error):
     if error is None:
         tr = make_train(cfg, BASE.replace(**change), device="cpu", **kw)
         assert tr.policy_groups == kw.get("policy_groups")
+        assert tr.backends == {"rollout": "plain", "grad": "plain"}
         model = tr.model.policies[1] if tr.policy_groups else tr.model
         assert model.hidden[0].in_features == cfg.obs_dim == (
             131 if cfg.global_obs else 106)
@@ -224,17 +225,17 @@ def test_cli_runs_two_updates(tmp_path):
     assert any("eval_mean_episode_return" in r for r in recs)
 
 
-@pytest.mark.parametrize("flags", [["--algo", "impala", "--micro-batches",
-                                    "2"], ["--arch", "attn"],
+@pytest.mark.parametrize("flags", [["--algo", "impala", "--global-obs"],
+                                   ["--arch", "attn"],
                                    ["--algo", "impala", "--policy-groups",
                                     "0,1"],
                                    ["--tensorboard-dir", "tb"],
-                                   ["--algo", "impala", "--shaping-coef",
-                                    "0.1"],
+                                   ["--algo", "impala", "--model-dtype",
+                                    "bfloat16"],
                                    ["--arch", "gru", "--shaping-coef",
                                     "0.1"],
                                    ["--profile-dir", "p"],
-                                   ["--rllib-cadence"],
+                                   ["--arch", "gru", "--bootstrap-truncated"],
                                    ["--grad-backend", "xla"]])
 def test_cli_exits_on_unported_flags(flags, tmp_path):
     with pytest.raises(SystemExit) as e:

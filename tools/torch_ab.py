@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's acting kernel (K2) and SGD-phase kernel
-(K3) without policy groups from several source trees in turns, on one GPU.
+"""Time the PyTorch/CUDA port's acting kernels (K2, K10) and SGD-phase
+kernel (K3) without policy groups from several source trees in turns, on
+one GPU.
 
     python tools/torch_ab.py PARENT_TREE . . PARENT_TREE
 
@@ -10,9 +11,12 @@ packages share a name), which builds that tree's kernels and calls its
 ``chip_smoke.k2_check`` and ``k3_check`` at BASELINE config 4 (medium, B =
 4096, T = 16, hidden 128 x 2), then ``k2_check`` on K2's wide route (the
 shelves recipe with global observations: D = 611, B = 2048, masked and
-shaped): the checks against the plain twins, then the kernels' median
-times by CUDA events. Each process prints the checks' JSON lines, then one
-line ``{"tree": ..., "k2_ms": ..., "k3_ms": ..., "k2_wide_ms": ...}``;
+shaped), and ``k2_check`` of the CNN acting kernel (K10) at config 4 and
+masked on shelves: the checks against the plain twins, then the kernels'
+median times by CUDA events. Each process prints the checks' JSON lines,
+then one line ``{"tree": ..., "k2_ms": ..., "k3_ms": ..., "k2_wide_ms":
+..., "k10_ms": ..., "k10_shelves_ms": ..., "k10_sha256": ...}``, the last
+the hash of one config-4 K10 chunk's outputs (equal hashes: the same bits);
 this script prints the card's name and power limit first. Comparing two
 trees is only sound inside one run on one card (turns: A, B, B, A).
 """
@@ -25,13 +29,14 @@ import subprocess
 import sys
 
 CHILD = """
-import json, sys, torch
+import hashlib, json, sys, torch
 sys.path.insert(0, {tree!r})
 import chip_smoke as cs
 from warehouse_tpu_torch import medium_config, shelves_config
 from warehouse_tpu_torch.kernels import build
 from warehouse_tpu_torch.models import make_model
 torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 dev = torch.device("cuda", 0)
 build.library()
 cfg = medium_config()
@@ -47,8 +52,23 @@ wide_model = make_model(wide_cfg, hidden_dim=cs.HIDDEN[0],
                         device=dev)
 k2w = cs.k2_check(dev, "shelves_global", wide_cfg, wide_model, True,
                   shaped=True, B=2048, phase="global_check", wide=True)
+cnn = cs.cnn_model(cfg, dev)
+k10 = cs.k2_check(dev, "medium", cfg, cnn)
+shelves = shelves_config()
+k10s = cs.k2_check(dev, "shelves", shelves, cs.cnn_model(shelves, dev),
+                   mask_actions=True)
+state, _ = cs.reset_envs(cfg, cs.CHECK_B, cs.SEED + 1, dev)
+_, u, pick, drop, _ = cs.rng.batched_step_draws(state.key, cfg, cs.SLICE_T)
+_, g = cs.rng.batched_gumbel_stream(cs.rng.prng_key(cs.SEED + 2, dev),
+                                    cs.SLICE_T, (5, cs.CHECK_B * 4))
+out = cs.act.act_cnn_steps(cfg, cnn, state, u, pick, drop, g)
+digest = hashlib.sha256()
+for x in [getattr(out[0], f) for f in cs.STATE_FIELDS] + list(out[1:]):
+    digest.update(x.contiguous().cpu().numpy().tobytes())
 print(json.dumps({{"tree": {tree!r}, "k2_ms": k2[1], "k3_ms": k3[1],
-                  "k2_wide_ms": k2w[1]}}))
+                  "k2_wide_ms": k2w[1], "k10_ms": k10[1],
+                  "k10_shelves_ms": k10s[1],
+                  "k10_sha256": digest.hexdigest()}}))
 """
 
 

@@ -40,13 +40,15 @@ alone decide); the CNN's grid becomes the whole map and its block holds
 fewer envs. ``check_act_fits`` raises for a shape no route holds.
 
 With ``policy_groups`` (a tuple of one group id per agent) the model is a
-``MultiPolicyActorCritic`` of MLPs and each agent's rows run through its
-group's weights only (``pallas/act.py:1062-1072``, the trace-time selection
-of ``_act_kernel`` :325, :336-338, :409): the kernel packs the groups'
-weights one after another in group order and orders a block's rows agent
-by agent, so that every register tile of its dense layers is one agent's,
-and so one group's. The CNN with groups (ROADMAP T-3b) and the attention
-torso raise ``NotImplementedError``. The recurrent policies act through
+``MultiPolicyActorCritic`` of MLPs or of CNNs and each agent's rows run
+through its group's weights only (``pallas/act.py:1062-1076``, the
+trace-time selection of ``_act_kernel`` :325, :336-338, :409): the kernels
+pack the groups' weights one after another in group order. K2 orders a
+block's rows agent by agent, so that every register tile of its dense
+layers is one agent's, and so one group's; K10 orders them group by group,
+each group's rows padded with zero rows to a multiple of 8, and stages
+every group's conv kernels. The attention torso raises
+``NotImplementedError``. The recurrent policies act through
 ``kernels.act_rnn.ppo_rnn_rollout``.
 
 ``pack_cnn`` / ``unpack_cnn`` give the CNN kernels' flat parameter vector
@@ -175,22 +177,30 @@ def packed_weights(model, device) -> tuple[torch.Tensor, list[int]]:
     return flat.to(device).contiguous(), dims
 
 
+def is_cnn_model(model) -> bool:
+    """Whether ``model`` is an ``ActorCriticCNN`` or a
+    ``MultiPolicyActorCritic`` of them."""
+    if isinstance(model, MultiPolicyActorCritic):
+        model = model.policies[0]
+    return isinstance(model, ActorCriticCNN)
+
+
 def act_steps(cfg: EnvConfig, model, state: EnvState, u, pick, drop, g,
               logits=None, mask=None, shaping=None, groups=None):
     """T acting steps on precomputed draws and gumbel noise: the CUDA
     kernel for CUDA tensors (K2 for an MLP or, with ``groups``, a
     ``MultiPolicyActorCritic`` of MLPs; K10 through ``act_cnn_steps`` for
-    a CNN), the plain twin for CPU tensors. Same arguments and returns as
-    ``act_steps_reference``."""
+    a CNN or one of CNNs), the plain twin for CPU tensors. Same arguments
+    and returns as ``act_steps_reference``."""
     dev = state.agent_pos.device
     if dev.type == "cpu":
         return act_steps_reference(cfg, model, state, u, pick, drop, g,
                                    logits, mask, shaping, groups)
     if dev.type != "cuda":
         raise ValueError(f"act_steps: unsupported device {dev}")
-    if isinstance(model, ActorCriticCNN):
+    if is_cnn_model(model):
         return act_cnn_steps(cfg, model, state, u, pick, drop, g, logits,
-                             mask, shaping)
+                             mask, shaping, groups)
     weights, dims, wide = _mlp_fits(cfg, model, dev, groups)
     lib = build.library()
     io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask, shaping)
@@ -225,18 +235,25 @@ def _group_args(cfg: EnvConfig, groups):
     return max(groups) + 1, build.int_array([int(x) for x in groups])
 
 
+def _group_models(model, groups) -> list:
+    """The sub-models of ``model`` in group order (``[model]`` without
+    groups); ``ValueError`` unless the model is a ``MultiPolicyActorCritic``
+    of one policy per group exactly when ``groups`` is given."""
+    multi = isinstance(model, MultiPolicyActorCritic)
+    if multi != (groups is not None) or (
+            multi and len(model.policies) != max(groups) + 1):
+        raise ValueError(
+            f"a {type(model).__name__} does not fit policy_groups={groups}")
+    return list(model.policies) if multi else [model]
+
+
 def _mlp_fits(cfg: EnvConfig, model, dev, groups=None):
     """K2's ``(weights, dims, wide)`` for ``model`` (an MLP, or with
     ``groups`` a ``MultiPolicyActorCritic`` of MLPs) on ``cfg``, ``wide``
     whether the shape takes the kernel's wide route; raises ``ValueError``
     for a shape the kernel cannot take."""
     check_kernel_shape(cfg)
-    multi = isinstance(model, MultiPolicyActorCritic)
-    if multi != (groups is not None) or (
-            multi and len(model.policies) != max(groups) + 1):
-        raise ValueError(
-            f"a {type(model).__name__} does not fit policy_groups={groups}")
-    subs = model.policies if multi else [model]
+    subs = _group_models(model, groups)
     if not all(isinstance(m, ActorCriticMLP) for m in subs):
         raise ValueError("the act kernel takes MLP policies")
     weights, dims = packed_weights(model, dev)
@@ -257,37 +274,54 @@ def _mlp_fits(cfg: EnvConfig, model, dev, groups=None):
     return weights, dims, build.library().wh_act_wide(*shape) == 1
 
 
-def _cnn_fits(cfg: EnvConfig, model: ActorCriticCNN, dev):
-    """K10's ``(S, C0, C1, C2, H)`` for ``model`` on ``cfg``; raises
+def _cnn_fits(cfg: EnvConfig, model, dev, groups=None):
+    """K10's ``(S, C0, C1, C2, H)`` for ``model`` (a CNN or, with
+    ``groups``, a ``MultiPolicyActorCritic`` of CNNs) on ``cfg``; raises
     ``ValueError`` for a shape the kernel cannot take."""
     check_kernel_shape(cfg)
-    net = cnn_kernel_dims(dict(model.named_parameters()), cfg.obs_dim)
+    subs = _group_models(model, groups)
+    nets = {cnn_kernel_dims(dict(m.named_parameters()), cfg.obs_dim)
+            for m in subs}
+    if len(nets) != 1:
+        raise ValueError(f"the policy groups' CNN widths differ: {nets}")
+    net = nets.pop()
     side = cfg.height if cfg.global_obs else cfg.window_size
     if net[0] != side or net[1] != cfg.num_obs_channels:
         raise ValueError(
             f"the model's {net[0]}x{net[0]} grid of {net[1]} channels is not "
             f"the env's {side}x{side} observation grid of "
             f"{cfg.num_obs_channels}")
+    k, gmap = _cnn_group_args(cfg, groups)
     smem = build.library().wh_act_cnn_smem_bytes(
-        cfg.num_agents, cfg.queue_capacity, *net)
+        cfg.num_agents, cfg.queue_capacity, *net, k, gmap)
     limit = build.smem_limit(dev, smem)
     if not 0 < smem <= limit:
+        rows = ("each group's rows of whole envs padded to a multiple of 8, "
+                f"beside {k} groups' conv kernels" if groups is not None
+                else "whole envs making a multiple of 8 rows")
         raise ValueError(
             f"CNN act kernel needs {smem} bytes of shared memory per block "
             f"for (S, channels, hidden) = {net} with {cfg.num_agents} agents "
-            f"(whole envs making a multiple of 8 rows); the card allows "
-            f"{limit}")
+            f"and policy_groups={groups} ({rows}); the card allows {limit}")
     return net
 
 
+def _cnn_group_args(cfg: EnvConfig, groups):
+    """``(K, the agent -> group map)`` of K10's group option: ``(0,
+    None)`` without groups."""
+    if groups is None:
+        return 0, None
+    return _group_args(cfg, groups)
+
+
 def check_act_fits(cfg: EnvConfig, model, dev, groups=None) -> None:
-    """Raise ``ValueError`` unless the acting kernel (K2 for an MLP or,
-    with ``groups``, a ``MultiPolicyActorCritic`` of MLPs; K10 for a CNN)
+    """Raise ``ValueError`` unless the acting kernel (K2 for an MLP, K10
+    for a CNN or, with ``groups``, a ``MultiPolicyActorCritic`` of either)
     takes ``cfg`` and ``model`` on the CUDA device ``dev``: the env's
     (agents, queue) shape, the model's widths and the shared memory they
     need. A trainer calls it when it is built."""
-    if isinstance(model, ActorCriticCNN):
-        _cnn_fits(cfg, model, dev)
+    if is_cnn_model(model):
+        _cnn_fits(cfg, model, dev, groups)
     else:
         _mlp_fits(cfg, model, dev, groups)
 
@@ -424,39 +458,45 @@ def cnn_kernel_dims(params, D: int) -> tuple[int, int, int, int, int]:
     return (S, *chans, H)
 
 
-def act_cnn_steps(cfg: EnvConfig, model: ActorCriticCNN, state: EnvState, u,
-                  pick, drop, g, logits=None, mask=None, shaping=None):
-    """T acting steps of the CNN policy on precomputed draws and gumbel
+def act_cnn_steps(cfg: EnvConfig, model, state: EnvState, u, pick, drop, g,
+                  logits=None, mask=None, shaping=None, groups=None):
+    """T acting steps of the CNN policy (with ``groups``, a
+    ``MultiPolicyActorCritic`` of CNNs) on precomputed draws and gumbel
     noise: the CUDA kernel (K10) for CUDA tensors, the plain twin for CPU
     tensors. Same arguments and returns as ``act_steps_reference``."""
     dev = state.agent_pos.device
     if dev.type == "cpu":
         return act_steps_reference(cfg, model, state, u, pick, drop, g,
-                                   logits, mask, shaping)
+                                   logits, mask, shaping, groups)
     if dev.type != "cuda":
         raise ValueError(f"act_cnn_steps: unsupported device {dev}")
-    net = _cnn_fits(cfg, model, dev)
-    params = dict(model.named_parameters())
+    net = _cnn_fits(cfg, model, dev, groups)
+    subs = _group_models(model, groups)
     lib = build.library()
-    weights = pack_cnn(params).to(dev)
-    if weights.numel() != lib.wh_cnn_param_floats(*net):
+    weights = torch.cat([pack_cnn(dict(m.named_parameters()))
+                         for m in subs]).to(dev)
+    if weights.numel() != len(subs) * lib.wh_cnn_param_floats(*net):
         raise ValueError("packed params do not fit the kernel's layout")
-    trunk_t = torch.empty(params["trunk.weight"].numel(),
-                          dtype=torch.float32, device=dev)
+    trunk_t = torch.empty(
+        len(subs) * subs[0].trunk.weight.numel(), dtype=torch.float32,
+        device=dev)
     io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask, shaping)
     err = lib.wh_act_cnn_rollout(
-        *io.env_args(cfg), *net[1:], io.walls.data_ptr(), weights.data_ptr(),
-        trunk_t.data_ptr(), *io.tensor_ptrs(), build.stream_handle(dev))
+        *io.env_args(cfg), *net[1:], *_cnn_group_args(cfg, groups),
+        io.walls.data_ptr(), weights.data_ptr(), trunk_t.data_ptr(),
+        *io.tensor_ptrs(), build.stream_handle(dev))
     build.check(err, "ppo_rollout (cnn) kernel launch")
     act_cnn_steps.launches += 1
     act_cnn_steps.shaped_launches += shaping is not None
     act_cnn_steps.global_launches += cfg.global_obs
+    act_cnn_steps.group_launches += groups is not None
     return io.results(state)
 
 
 act_cnn_steps.launches = 0
 act_cnn_steps.shaped_launches = 0
 act_cnn_steps.global_launches = 0
+act_cnn_steps.group_launches = 0  # those that routed rows by policy group
 
 
 def _check_options(cfg, model, policy_groups, arch):
@@ -465,13 +505,9 @@ def _check_options(cfg, model, policy_groups, arch):
     if arch in ("gru", "lstm"):
         raise ValueError(f"ppo_rollout: arch={arch!r} acts through "
                          "kernels.act_rnn.ppo_rnn_rollout")
-    for name, unsupported, item in (
-            ("policy_groups with arch='cnn'",
-             policy_groups is not None and arch == "cnn", "T-3b"),
-            (f"arch={arch!r}", arch not in ("mlp", "cnn"), "M-7")):
-        if unsupported:
-            raise NotImplementedError(
-                f"ppo_rollout: {name} is not ported yet (ROADMAP {item})")
+    if arch not in ("mlp", "cnn"):
+        raise NotImplementedError(
+            f"ppo_rollout: arch={arch!r} is not ported yet (ROADMAP M-7)")
     multi = isinstance(model, MultiPolicyActorCritic)
     if multi != (policy_groups is not None):
         raise ValueError(f"ppo_rollout: a {type(model).__name__} does not "
@@ -545,9 +581,9 @@ def ppo_rollout(cfg: EnvConfig, model, state: EnvState, T: int,
     ActRollout, reset_key_last, next_key)``. ``options``
     (``mask_actions``, ``shaping_coef``, ``gamma``, ``policy_groups``,
     ``arch``) take the JAX wrapper's names; ``mask_actions``,
-    ``shaping_coef`` with its ``gamma``, ``arch`` "mlp" / "cnn" and, for
-    the MLP, ``policy_groups`` (the model a ``MultiPolicyActorCritic``) are
-    ported. ``cfg.global_obs`` picks the global view."""
+    ``shaping_coef`` with its ``gamma``, ``arch`` "mlp" / "cnn" and
+    ``policy_groups`` (the model a ``MultiPolicyActorCritic``) are ported.
+    ``cfg.global_obs`` picks the global view."""
     return _rollout(act_steps, cfg, model, state, T, key, **options)
 
 

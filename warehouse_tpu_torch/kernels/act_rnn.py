@@ -16,7 +16,7 @@ does.
 The carry is ``h float32[B, A, H]`` for the GRU, the tuple ``(c, h)`` of two
 such tensors for the LSTM. ``mask_actions`` works as in K2; like the JAX
 function, it has no reward shaping and raises on global observations
-(``NotImplementedError``: the trainer's option, ROADMAP M-4).
+(``NotImplementedError``: the trainer's option, ROADMAP M-4b).
 
 ``pack_rnn`` / ``unpack_rnn`` lay a recurrent policy's params dict out as
 the flat vector the recurrent kernels read (``csrc/rnn_cell.cuh``): the
@@ -242,7 +242,7 @@ def _rollout(steps, cfg: EnvConfig, params, state: EnvState, carry, T: int,
                          "caller")
     if cfg.global_obs:  # the TPU kernel has none: the trainer's option
         raise NotImplementedError(
-            "ppo_rnn_rollout: global_obs is not ported yet (ROADMAP M-4)")
+            "ppo_rnn_rollout: global_obs is not ported yet (ROADMAP M-4b)")
     params = _params_of(params)
 
     def run_steps(u, pick, drop, g, mask, shaping):

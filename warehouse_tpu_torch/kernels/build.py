@@ -59,9 +59,9 @@ SIGNATURES = {
     "wh_rnn_sgd_clip_adam": [I, IP, I, I, I, L, I, I, I] + [P] * 7 + [F] * 6
                             + [P] * 2,
     "wh_cnn_param_floats": [I] * 5,
-    "wh_act_cnn_smem_bytes": [I] * 7,
+    "wh_act_cnn_smem_bytes": [I] * 8 + [IP],
     "wh_act_cnn_rollout": [I, I, L, I, I, I, F, I, I, I, I, F, F, F, F, F, F,
-                           I, I, I, I] + [P] * 32 + [F, F, P],
+                           I, I, I, I, I, IP] + [P] * 32 + [F, F, P],
     "wh_cnn_sgd_smem_bytes": [I] * 5,
     "wh_cnn_sgd_small_tile": [I] * 5,
     "wh_cnn_sgd_workspace_floats": [I] * 6 + [L, I, I],

@@ -4,9 +4,10 @@
 // (:1028 with arch="cnn": extract_cnn_weights :942, the layer loop of
 // _act_kernel :365-389 with n_relu / cnn_split, _obs_rows :138,
 // _sample_logprob :491 and the env tick of rollout.py:57), with its
-// action-masking, its potential-shaping (act_common.cuh tick_env) and its
+// action-masking, its potential-shaping (act_common.cuh tick_env), its
 // global-observation option (act_common.cuh obs_value: the grid is then the
-// whole map, S = the grid's side, 5 channels), without policy groups. Each
+// whole map, S = the grid's side, 5 channels) and its policy groups
+// (:1062-1076, the trace-time selection of _act_kernel :336-338, :409). Each
 // step, for every env of the CTA: build the observation of each
 // agent, run the two 3x3 SAME convolutions (relu) over its grid, join the
 // self features, run the tanh trunk and the fused logits + value head, with
@@ -26,6 +27,22 @@
 // is computed over its valid taps, not as the TPU kernel's unrolled dense
 // product. The bound is the FMA loops on the CUDA cores (about 403 kFLOP
 // per row and step at S = 5, channels 4 -> 16 -> 32, hidden 128).
+//
+// Policy groups (the GROUPED instance): K CNNs of the same widths, their
+// packed vectors one after another in group order, and a static agent ->
+// group map; each row runs its agent's group's convolutions, trunk and head
+// only. A register tile of the conv and trunk loops applies one weight to
+// RRT = 8 rows, so every tile must be one group's. The rows are ordered
+// group-major: group 0's (env, agent) pairs env by env, padded with zero rows
+// to a multiple of 8, then group 1's, and so on (rowmap); a pad row computes
+// on zeros and is never written. Shelves' (0,0,0,1,1,1) at 2 envs a CTA is
+// 6 + 6 rows padded to 8 + 8, config 4's (0,1,0,1) at 4 envs 8 + 8 rows.
+// Every group's conv kernels are staged (~25 KB each at S = 5), so a CTA
+// holds fewer rows than without groups: cnn_act_envs_grouped counts the K
+// copies and the padding. The trunk of each group is transposed to its own
+// copy. The sample reads its pair's head row (pairrow), so the env tick sees
+// the actions env-major as without groups. Without groups the kernel keeps
+// its env-major rows and its code.
 //
 // Exactness: observations, rewards and the env dynamics are bit-exact
 // against the plain engine (act_common.cuh, env_tick.cuh, shared with K2 and
@@ -60,6 +77,43 @@ int cnn_act_envs(const CnnNet& net) {
   return 0;
 }
 
+constexpr int CNN_MAXK = 8;  // policy groups
+constexpr int CNN_MAXA = 8;  // agents of a grouped env
+
+// Rows of a grouped CTA of `ne` envs: each group's ne n_g (env, agent) pairs
+// padded to a multiple of RRT.
+inline int grouped_rows(int ne, int K, const int* n_g) {
+  int rows = 0;
+  for (int g = 0; g < K; ++g) rows += (ne * n_g[g] + RRT - 1) / RRT * RRT;
+  return rows;
+}
+
+// Ints of a grouped CTA's row maps: rowmap, pairrow, tile groups.
+constexpr int GROUP_MAP_INTS = 2 * CROWS + CROWS / RRT;
+
+// Shared memory of a grouped CTA of `ne` envs (`rows` rows, K staged groups).
+template <int A, int R>
+size_t act_cnn_grouped_smem(const CnnNet& net, int K, int ne, int rows) {
+  return sizeof(float) * ((size_t)K * conv_smem_floats(net) +
+                          (size_t)rows * cnn_row_floats(net)) +
+         ne * env_smem_bytes<A, R>() + sizeof(int) * GROUP_MAP_INTS;
+}
+
+// Envs per grouped CTA: the most whose padded rows are at most CROWS and
+// fit the device's shared memory with K groups' conv kernels; 0 when none
+// does.
+template <int A, int R>
+int cnn_act_envs_grouped(const CnnNet& net, int K, const int* n_g) {
+  const size_t limit = smem_optin_limit();
+  for (int ne = CROWS / A; ne > 0; --ne) {
+    const int rows = grouped_rows(ne, K, n_g);
+    if (rows <= CROWS &&
+        act_cnn_grouped_smem<A, R>(net, K, ne, rows) <= limit)
+      return ne;
+  }
+  return 0;
+}
+
 struct ActCnnArgs {
   long B;
   int T;
@@ -67,11 +121,14 @@ struct ActCnnArgs {
   int S, k, D;         // window side, radius, obs dim
   int gobs;            // the global observation instead of the ego window
   int ne;              // envs per CTA
+  int rows;            // rows per CTA of the grouped instance (padded)
+  int n_groups;        // K policy groups (the grouped instance)
+  int group[CNN_MAXA];  // agent -> group
   float inv_h, inv_w;  // float32 reciprocals of H and W
   float step_penalty, pickup_reward, delivery_reward, collision_penalty;
   CnnNet net;
-  const float* params;   // the packed vector (cnn_net.cuh)
-  const float* trunk_t;  // its trunk kernel transposed
+  const float* params;   // the packed vector (cnn_net.cuh), per group
+  const float* trunk_t;  // its trunk kernel transposed, per group
   const int *pos, *areq, *carry, *rpick, *rdrop, *rstat, *ragent;
   const float* u;
   const int *pick, *drop;
@@ -86,20 +143,29 @@ struct ActCnnArgs {
   Shaping shp;  // the potential-shaping option; off when its table is null
 };
 
-template <int A, int R>
+template <int A, int R, bool GROUPED>
 __global__ void __launch_bounds__(RNT) act_cnn_kernel(ActCnnArgs p) {
-  const int NE = p.ne, ROWS = NE * A;
+  const int NE = p.ne, ROWS = GROUPED ? p.rows : NE * A;
+  const int K = GROUPED ? p.n_groups : 1;
   using ES = EnvSmem<A, R>;
   extern __shared__ __align__(16) float smem[];
   const CnnNet& net = p.net;
   const ConvW cw = stage_conv(net, p.params, smem);
-  float* xa = smem + conv_smem_floats(net);
+  for (int g = 1; g < K; ++g)
+    stage_conv(net, p.params + g * net.n_params,
+               smem + g * conv_smem_floats(net));
+  float* xa = smem + K * conv_smem_floats(net);
   float* a0 = xa + ROWS * net.xs;
   float* a1 = a0 + ROWS * net.a0s;
   float* hs = a1 + ROWS * net.a1s;
   float* head = hs + ROWS * net.H;
   int* env_s = reinterpret_cast<int*>(head + ROWS * ROST);
   int* act_s = env_s + NE * ES::SIZE;
+  // The grouped instance's maps: row -> pair e A + a (-1 for a pad row),
+  // pair -> row, tile -> group.
+  int* rowmap = act_s + NE * A;
+  int* pairrow = rowmap + CROWS;
+  int* tilegrp = pairrow + CROWS;
 
   const int tid = threadIdx.x;
   const long b0 = (long)blockIdx.x * NE;
@@ -112,33 +178,56 @@ __global__ void __launch_bounds__(RNT) act_cnn_kernel(ActCnnArgs p) {
                    p.rstat, p.ragent);
     ES::put(e, env_s + tid * ES::SIZE);
   }
+  if (GROUPED && tid == 0) {  // group-major rows, each group padded
+    int r = 0;
+    for (int g = 0; g < K; ++g) {
+      const int first = r;
+      for (int e = 0; e < NE; ++e)
+#pragma unroll
+        for (int a = 0; a < A; ++a)
+          if (p.group[a] == g) {
+            rowmap[r] = e * A + a;
+            pairrow[e * A + a] = r++;
+          }
+      const int end = first + (r - first + RRT - 1) / RRT * RRT;
+      for (; r < end; ++r) rowmap[r] = -1;
+      for (int i = first / RRT; i < end / RRT; ++i) tilegrp[i] = g;
+    }
+  }
   for (int idx = tid; idx < ROWS * net.xs; idx += RNT) xa[idx] = 0.f;
   __syncthreads();
+  const GroupTiles gt{tilegrp, conv_smem_floats(net), net.n_params,
+                      (long)net.H * net.trunk_in};
 
   for (int t = 0; t < p.T; ++t) {
     const long tb = (long)t * p.B + b0;  // first (t, b) of the CTA
-    // 1. Observations of the CTA's rows, row n = (env n / A, agent n % A).
+    // 1. Observations of the CTA's rows: row n = (env n / A, agent n % A),
+    // or grouped the pair rowmap[n] (a pad row stays zero).
     for (int idx = tid; idx < ROWS * p.D; idx += RNT) {
       const int n = idx / p.D, f = idx % p.D;
-      const float v = obs_value<A, R>(env_s + (n / A) * ES::SIZE, n % A, f, p);
+      const int pr = GROUPED ? rowmap[n] : n;
+      if (GROUPED && pr < 0) continue;
+      const float v =
+          obs_value<A, R>(env_s + (pr / A) * ES::SIZE, pr % A, f, p);
       xa[n * net.xs + obs_slot(net, f)] = v;
-      if (n / A < ne) p.obs[tb * A * p.D + idx] = v;
+      if (pr / A < ne)
+        p.obs[tb * A * p.D + (GROUPED ? pr * p.D + f : idx)] = v;
     }
     __syncthreads();
 
-    // 2. Convolutions, trunk, fused head.
-    conv_forward(net, cw, xa, a0, a1, ROWS);
-    trunk_forward(net, p.trunk_t, p.params + net.bt, a1, hs, ROWS, nullptr, 0,
-                  0);
+    // 2. Convolutions, trunk, fused head (grouped: each tile its group's).
+    conv_forward<false, GROUPED>(net, cw, xa, a0, a1, ROWS, gt);
+    trunk_forward<false, GROUPED>(net, p.trunk_t, p.params + net.bt, a1, hs,
+                                  ROWS, nullptr, 0, 0, gt);
     __syncthreads();
-    cnn_head(net, p.params, hs, head, ROWS);
+    cnn_head<false, GROUPED>(net, p.params, hs, head, ROWS, gt);
     __syncthreads();
 
-    // 3. Mask, sample, log-softmax (as K2).
-    if (tid < ROWS)
-      act_s[tid] = sample_row<A>(p, head + tid * ROST,
-                                 env_s + (tid / A) * ES::SIZE, tid,
-                                 tid / A < ne, t, b0);
+    // 3. Mask, sample, log-softmax (as K2), one thread per (env, agent).
+    if (tid < NE * A)
+      act_s[tid] = sample_row<A>(
+          p, head + (GROUPED ? pairrow[tid] : tid) * ROST,
+          env_s + (tid / A) * ES::SIZE, tid, tid / A < ne, t, b0);
     __syncthreads();
 
     // 4. Env tick and rewards, one thread per env.
@@ -165,32 +254,79 @@ size_t act_cnn_smem(const CnnNet& net, int ne) {
          ne * env_smem_bytes<A, R>();
 }
 
+// Agents per group of the map, or false for a map with a group id out of
+// [0, K).
+inline bool group_sizes(int A, int K, const int* group, int* n_g) {
+  if (K < 1 || K > CNN_MAXK || A > CNN_MAXA) return false;
+  for (int g = 0; g < K; ++g) n_g[g] = 0;
+  for (int a = 0; a < A; ++a) {
+    if (group[a] < 0 || group[a] >= K) return false;
+    ++n_g[group[a]];
+  }
+  return true;
+}
+
+// Shared memory one CTA needs; K > 0 asks for the grouped instance.
 template <int A, int R>
 struct CnnSmemBytes {
-  static void run(const CnnNet& net, size_t* out) {
-    *out = act_cnn_smem<A, R>(net, cnn_act_envs<A, R>(net));
+  static void run(const CnnNet& net, int K, const int* group, size_t* out) {
+    if (K == 0) {
+      *out = act_cnn_smem<A, R>(net, cnn_act_envs<A, R>(net));
+      return;
+    }
+    int n_g[CNN_MAXK];
+    if (!group_sizes(A, K, group, n_g)) {
+      *out = 0;
+      return;
+    }
+    const int ne = cnn_act_envs_grouped<A, R>(net, K, n_g);
+    if (ne < 1) {  // one env's padded rows: more than the limit or CROWS
+      const size_t one =
+          act_cnn_grouped_smem<A, R>(net, K, 1, grouped_rows(1, K, n_g));
+      *out = one > smem_optin_limit() ? one : smem_optin_limit() + 1;
+      return;
+    }
+    *out = act_cnn_grouped_smem<A, R>(net, K, ne, grouped_rows(ne, K, n_g));
   }
 };
 
 template <int A, int R>
 struct LaunchActCnn {
-  static void run(ActCnnArgs& p, cudaStream_t stream, int* err) {
-    const int NE = p.ne = cnn_act_envs<A, R>(p.net);
-    if (NE < 1) {
-      *err = (int)cudaErrorInvalidValue;
-      return;
-    }
-    const size_t smem = act_cnn_smem<A, R>(p.net, NE);
+  template <bool GROUPED>
+  static void launch(ActCnnArgs& p, size_t smem, cudaStream_t stream,
+                     int* err) {
     cudaError_t e = cudaFuncSetAttribute(
-        act_cnn_kernel<A, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        act_cnn_kernel<A, R, GROUPED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) {
       *err = (int)e;
       return;
     }
-    const unsigned blocks = (unsigned)((p.B + NE - 1) / NE);
-    act_cnn_kernel<A, R><<<blocks, RNT, smem, stream>>>(p);
+    const unsigned blocks = (unsigned)((p.B + p.ne - 1) / p.ne);
+    act_cnn_kernel<A, R, GROUPED><<<blocks, RNT, smem, stream>>>(p);
     *err = (int)cudaGetLastError();
+  }
+
+  static void run(ActCnnArgs& p, cudaStream_t stream, int* err) {
+    if (p.n_groups == 0) {
+      const int NE = p.ne = cnn_act_envs<A, R>(p.net);
+      if (NE < 1) {
+        *err = (int)cudaErrorInvalidValue;
+        return;
+      }
+      launch<false>(p, act_cnn_smem<A, R>(p.net, NE), stream, err);
+      return;
+    }
+    int n_g[CNN_MAXK];
+    if (!group_sizes(A, p.n_groups, p.group, n_g) ||
+        (p.ne = cnn_act_envs_grouped<A, R>(p.net, p.n_groups, n_g)) < 1) {
+      *err = (int)cudaErrorInvalidValue;
+      return;
+    }
+    p.rows = grouped_rows(p.ne, p.n_groups, n_g);
+    launch<true>(p,
+                 act_cnn_grouped_smem<A, R>(p.net, p.n_groups, p.ne, p.rows),
+                 stream, err);
   }
 };
 
@@ -204,23 +340,28 @@ extern "C" long wh_cnn_param_floats(int S, int C0, int C1, int C2, int H) {
 
 // Shared memory one CTA needs, in bytes (more than the device allows when
 // not one env's rows fit, or no whole number of envs makes a multiple of 8
-// rows), or 0 for an unsupported shape.
+// rows; grouped, when not one env's padded rows fit beside the K groups'
+// conv kernels), or 0 for an unsupported shape. K = 0: without groups;
+// else `group` maps each of the A agents to a group in [0, K).
 extern "C" long wh_act_cnn_smem_bytes(int A, int R, int S, int C0, int C1,
-                                      int C2, int H) {
+                                      int C2, int H, int K,
+                                      const int* group) {
   CnnNet net;
   if (!make_cnn_net(S, C0, C1, C2, H, &net)) return 0;
   size_t out = 0;
-  if (!wh::dispatch_shape<CnnSmemBytes>(A, R, net, &out)) return 0;
+  if (!wh::dispatch_shape<CnnSmemBytes>(A, R, net, K, group, &out)) return 0;
   return (long)out;
 }
 
-// `trunk_t` is scratch of the trunk kernel's size, H * (S * S * C2 + 6).
+// `trunk_t` is scratch of the trunk kernel's size, H * (S * S * C2 + 6),
+// per group. K = 0: one policy; else `params` holds K packed vectors in
+// group order and `group` maps each agent to one of them.
 extern "C" int wh_act_cnn_rollout(
     int A, int R, long B, int T, int H, int W, float spawn_prob, int S,
     int k, int D, int global_obs, float inv_h, float inv_w,
     float step_penalty, float pickup_reward, float delivery_reward,
-    float collision_penalty, int C0, int C1, int C2, int hidden,
-    const unsigned char* walls,
+    float collision_penalty, int C0, int C1, int C2, int hidden, int K,
+    const int* group, const unsigned char* walls,
     const float* params, float* trunk_t, const int* pos, const int* areq,
     const int* carry, const int* rpick, const int* rdrop, const int* rstat,
     const int* ragent, const float* u, const int* pick, const int* drop,
@@ -233,8 +374,12 @@ extern "C" int wh_act_cnn_rollout(
   ActCnnArgs p = {};
   if (!make_cnn_net(S, C0, C1, C2, hidden, &p.net) || p.net.D != D)
     return (int)cudaErrorInvalidValue;
+  if (K < 0 || K > CNN_MAXK || (K > 0 && A > CNN_MAXA))
+    return (int)cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
   cudaStream_t stream = (cudaStream_t)stream_;
+  p.n_groups = K;
+  for (int a = 0; K > 0 && a < A; ++a) p.group[a] = group[a];
   p.B = B;
   p.T = T;
   p.geo.H = H;
@@ -285,8 +430,12 @@ extern "C" int wh_act_cnn_rollout(
   p.shp.coef = shaping_coef;
   p.shp.gamma = gamma;
   p.shp.C = H * W;
-  cudaError_t e = launch_trunk_transpose(p.net, params, trunk_t, stream);
-  if (e != cudaSuccess) return (int)e;
+  const long n_trunk = (long)p.net.H * p.net.trunk_in;
+  for (int g = 0; g < (K > 0 ? K : 1); ++g) {
+    cudaError_t e = launch_trunk_transpose(
+        p.net, params + g * p.net.n_params, trunk_t + g * n_trunk, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
   int err = (int)cudaSuccess;
   if (!wh::dispatch_shape<LaunchActCnn>(A, R, p, stream, &err))
     return (int)cudaErrorInvalidValue;

@@ -55,7 +55,7 @@ from ..config import ADAM_B1, ADAM_B2, ADAM_EPS
 from ..models.policy import (apply, group_params, is_multi, num_groups,
                              num_hidden)
 from ..ops.ppo_update import NEG_INF, minibatch_epochs, ppo_losses
-from ..optim import AdamState, clip_adam_step
+from ..optim import AdamState, adam_update_fn
 from . import build
 
 N_ACT = 5
@@ -127,19 +127,13 @@ def ppo_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
                             mask_actions: bool, policy_groups=None,
                             matmul_dtype: str = "float32"):
     """The plain twin of ``ppo_sgd_phase``, on any device."""
-    count0 = opt_state.count
-
-    def update_fn(grads, state):
-        s = state.count - count0
-        return clip_adam_step(grads, state, lr_row[s], bc1_row[s],
-                              bc2_row[s], max_grad_norm)
-
     return minibatch_epochs(
         params, opt_state,
         loss_fn=_loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
                          mask_actions, policy_groups, matmul_dtype),
         minibatches=env_minibatches(traj, adv_n, targets, num_minibatches),
-        num_epochs=num_epochs, update_fn=update_fn)
+        num_epochs=num_epochs, update_fn=adam_update_fn(
+            (lr_row, bc1_row, bc2_row), opt_state.count, max_grad_norm))
 
 
 def ppo_minibatch_grads_reference(params, traj, adv_n, targets, mb_idx: int,

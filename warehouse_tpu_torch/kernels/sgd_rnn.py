@@ -31,7 +31,7 @@ import torch
 from ..config import ADAM_B1, ADAM_B2, ADAM_EPS
 from ..models.policy import apply_rnn
 from ..ops.ppo_update import NEG_INF, minibatch_epochs, ppo_losses
-from ..optim import AdamState, clip_adam_step
+from ..optim import AdamState, adam_update_fn
 from . import build
 from .act_rnn import pack_rnn, rnn_dims, split_carry, unpack_rnn
 from .sgd import (TrajLaunch, _device_of, env_minibatches,
@@ -55,10 +55,13 @@ def seq_minibatches(traj, adv_n, targets, h0, num_minibatches: int):
                                                    num_minibatches))]
 
 
-def _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff, mask_actions,
-             matmul_dtype="float32"):
-    precision = operand_precision(matmul_dtype)
-
+def replay_loss_fn(clip_eps, value_coef, ent_coef, kl_coeff, mask_actions,
+                   precision="float32", normalize_adv=False):
+    """The loss of one sequence minibatch ``((obs, action, old_lp, old_v,
+    adv, target, mask), h_init)``: the T-step replay through ``apply_rnn``
+    at ``precision``, then the PPO loss; ``normalize_adv`` normalizes the
+    advantages over the minibatch (the JAX XLA learner's loss), else they
+    arrive normalized (the kernels')."""
     def loss_fn(params, mb):
         (obs, action, old_lp, old_v, adv, tgt, mask), carry = mb
         logits, values = [], []
@@ -73,7 +76,7 @@ def _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff, mask_actions,
         return ppo_losses(logits, value, action, old_lp, old_v, adv, tgt,
                           clip_eps=clip_eps, value_coef=value_coef,
                           ent_coef=ent_coef, kl_coeff=kl_coeff,
-                          normalize_adv=False)
+                          normalize_adv=normalize_adv)
     return loss_fn
 
 
@@ -85,20 +88,14 @@ def ppo_rnn_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
                                 mask_actions: bool,
                                 matmul_dtype: str = "float32"):
     """The plain twin of ``ppo_rnn_sgd_phase``, on any device."""
-    count0 = opt_state.count
-
-    def update_fn(grads, state):
-        s = state.count - count0
-        return clip_adam_step(grads, state, lr_row[s], bc1_row[s],
-                              bc2_row[s], max_grad_norm)
-
     return minibatch_epochs(
         params, opt_state,
-        loss_fn=_loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
-                         mask_actions, matmul_dtype),
+        loss_fn=replay_loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
+                               mask_actions, operand_precision(matmul_dtype)),
         minibatches=seq_minibatches(traj, adv_n, targets, h0,
                                     num_minibatches),
-        num_epochs=num_epochs, update_fn=update_fn)
+        num_epochs=num_epochs, update_fn=adam_update_fn(
+            (lr_row, bc1_row, bc2_row), opt_state.count, max_grad_norm))
 
 
 def ppo_rnn_minibatch_grads_reference(params, traj, adv_n, targets, h0,
@@ -110,8 +107,9 @@ def ppo_rnn_minibatch_grads_reference(params, traj, adv_n, targets, h0,
     T-step replay of one minibatch."""
     mb = seq_minibatches(traj, adv_n, targets, h0, num_minibatches)[mb_idx]
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    total, aux = _loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
-                          mask_actions, matmul_dtype)(leaves, mb)
+    total, aux = replay_loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
+                                mask_actions, operand_precision(matmul_dtype)
+                                )(leaves, mb)
     grads = torch.autograd.grad(total, list(leaves.values()))
     return ((total.detach(), tuple(a.detach() for a in aux)),
             dict(zip(leaves, grads)))

@@ -38,7 +38,7 @@ from ..ops.ppo_update import (NEG_INF, action_log_prob_entropy,
                               minibatch_epochs)
 from ..ops.vtrace import vtrace
 from ..optim import (RMS_DECAY, RMS_EPS, AdamState, RMSState,
-                     clip_adam_step, clip_rms_step)
+                     adam_update_fn, rms_update_fn)
 from . import build
 from .sgd import _device_of, _dims, _f32, check_tile_smem, pack, unpack
 
@@ -82,24 +82,34 @@ def _loss_fn(ent_coef, *, gamma, rho_clip, c_clip, value_coef,
     return loss_fn
 
 
+def split_envs(mb, k: int) -> list:
+    """A minibatch of ``env_minibatches`` as ``k`` micro-batches of
+    consecutive env columns (``train/impala.py:374-390``)."""
+    w = mb[-1].shape[0] // k
+    return [tuple(x[:, j * w:(j + 1) * w] for x in mb[:-1])
+            + (mb[-1][j * w:(j + 1) * w],) for j in range(k)]
+
+
 def impala_sgd_phase_reference(params, opt_state, traj, last_obs, rows,
                                ent_coef, *, num_passes: int,
                                num_minibatches: int, max_grad_norm: float,
+                               micro_batches: int = 1, update_fn=None,
                                **loss_kw):
-    """The plain twin of ``impala_sgd_phase``, on any device."""
-    count0 = opt_state.count
-
-    def update_fn(grads, state):
-        s = state.count - count0
-        if isinstance(state, RMSState):
-            return clip_rms_step(grads, state, rows[0][s], max_grad_norm)
-        return clip_adam_step(grads, state, rows[0][s], rows[1][s],
-                              rows[2][s], max_grad_norm)
-
+    """The plain twin of ``impala_sgd_phase``, on any device. As the plain
+    learner phase (ROADMAP M-4) it also takes what no kernel does:
+    ``micro_batches`` env-axis micro-batches per minibatch, exact for
+    V-trace (the mean of their gradients, one step), and ``update_fn``,
+    the optimizer's step (``optim.ClipAdam.update_fn``, flat or not); by
+    default the step of ``opt_state``'s type with ``rows``."""
+    if update_fn is None:
+        update_fn = (rms_update_fn if isinstance(opt_state, RMSState)
+                     else adam_update_fn)(rows, opt_state.count,
+                                          max_grad_norm)
     return minibatch_epochs(
         params, opt_state, loss_fn=_loss_fn(ent_coef, **loss_kw),
         minibatches=env_minibatches(traj, last_obs, num_minibatches),
-        num_epochs=num_passes, update_fn=update_fn)
+        num_epochs=num_passes, update_fn=update_fn,
+        micro_batches=micro_batches, split_micro=split_envs)
 
 
 def impala_minibatch_grads_reference(params, traj, last_obs, mb_idx: int,

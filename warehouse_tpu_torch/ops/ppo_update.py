@@ -1,12 +1,12 @@
 """PPO update machinery (counterpart of ``warehouse_tpu/ops/ppo_update.py``).
 
 The sampler of the acting phase, the clipped-surrogate loss, the entropy
-and KL schedules, and the epoch/minibatch scaffold of the SGD phase. The
-scaffold covers the trainer's default cadence only: one partition of
-contiguous env minibatches per update, revisited every epoch
-(``minibatch_mode="env"``, ``epoch_shuffle="once"``), one gradient per
-minibatch. It is the plain twin of the SGD-phase kernel
-(``kernels/sgd.py``).
+and KL schedules, and the epoch/minibatch scaffold of the SGD phase: the
+plain twin of the learner kernels (``kernels/sgd.py``) and, with a
+per-epoch partition (``epoch_shuffle="each"``) or micro-batches, the plain
+learner phase that runs where no kernel takes the options (ROADMAP M-4).
+``partition_keys`` ports the scaffold's key splits and
+``flat_minibatches`` / ``env_major_minibatches`` its two layouts.
 """
 
 from __future__ import annotations
@@ -116,33 +116,99 @@ def adaptive_kl_coeff(tcfg, kl_coeff: torch.Tensor,
     return kl_coeff
 
 
+def partition_keys(key: torch.Tensor, num_epochs: int,
+                   reshuffle_each_epoch: bool):
+    """The key splits of the JAX scaffold (``ops/ppo_update.py:199-216``):
+    ``key, pkey = split(key)`` once for ``epoch_shuffle="once"``, once per
+    epoch for ``"each"``. Returns ``(key, [pkey, ...])``."""
+    pkeys = []
+    for _ in range(num_epochs if reshuffle_each_epoch else 1):
+        key, pkey = _rng.split(key, 2)
+        pkeys.append(pkey)
+    return key, pkeys
+
+
+def flat_minibatches(key: torch.Tensor, batch: Sequence, num_minibatches: int):
+    """``flat_minibatches`` of the JAX package: the ``[N, ...]`` fields of
+    ``batch`` shuffled by ``permutation(key, N)`` and cut into
+    ``num_minibatches`` equal minibatches (tuples)."""
+    n = batch[0].shape[0]
+    perm = _rng.permutation(key, n)
+    w = n // num_minibatches
+    return [tuple(x[perm[m * w:(m + 1) * w]] for x in batch)
+            for m in range(num_minibatches)]
+
+
+def env_major_minibatches(key, batch: Sequence, num_minibatches: int):
+    """The env-mode layout of the JAX XLA learner (``train/ppo.py:527-552``):
+    fields ``[B, T*A, ...]`` (env-major), the env axis shuffled by
+    ``permutation(key, B)`` (``key`` None: contiguous env ranges, the
+    state-shuffled cadence), each minibatch ``B/M`` envs flattened to
+    ``[B/M * T*A, ...]``."""
+    B = batch[0].shape[0]
+    w = B // num_minibatches
+    perm = None if key is None else _rng.permutation(key, B)
+    out = []
+    for m in range(num_minibatches):
+        idx = slice(m * w, (m + 1) * w) if perm is None else perm[
+            m * w:(m + 1) * w]
+        out.append(tuple(x[idx].reshape(-1, *x.shape[2:]) for x in batch))
+    return out
+
+
+def split_leading(mb: Sequence, k: int) -> list:
+    """A minibatch of ``[n, ...]`` fields as ``k`` micro-batches of
+    ``n/k`` consecutive samples (the JAX scaffold's micro reshape)."""
+    return [tuple(x.reshape(k, x.shape[0] // k, *x.shape[1:])[j] for x in mb)
+            for j in range(k)]
+
+
+def _value_and_grad(loss_fn: Callable, params, mb):
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    total, aux = loss_fn(leaves, mb)
+    grads = dict(zip(leaves, torch.autograd.grad(total,
+                                                 list(leaves.values()))))
+    return [total.detach(), *(a.detach() for a in aux)], grads
+
+
 def minibatch_epochs(params, opt_state, *, loss_fn: Callable,
-                     minibatches: Sequence, num_epochs: int,
-                     update_fn: Callable):
-    """The PPO epoch/minibatch SGD loop over a fixed partition.
+                     minibatches: Sequence | Callable, num_epochs: int,
+                     update_fn: Callable, micro_batches: int = 1,
+                     split_micro: Callable = split_leading):
+    """The PPO epoch/minibatch SGD loop.
 
     ``loss_fn(params, minibatch) -> (total, aux)``; ``update_fn(grads,
-    opt_state) -> (updates, opt_state)`` (a step of
-    ``optim.clip_adam_step``). Every epoch visits ``minibatches`` in order with one optimizer step
-    each. Returns ``(params, opt_state, losses)``, ``losses`` the tuple
-    ``(total, *aux)`` of ``[num_epochs, M]`` tensors. IMPALA's passes
-    over its fixed env minibatches run through it too. The JAX
-    scaffold's key split for its partition is the caller's to mirror. The
-    per-epoch reshuffle and micro-batches are not ported (``make_train``
-    refuses them, ROADMAP M-4).
+    opt_state) -> (updates, opt_state)`` (``optim.ClipAdam.update_fn``).
+    ``minibatches`` is one partition that every epoch visits in order, or
+    a function ``epoch -> partition`` (the per-epoch reshuffle); one
+    optimizer step per minibatch. With ``micro_batches = k > 1`` a
+    minibatch's gradient is the mean of its k micro-batches' gradients
+    (``split_micro(mb, k)``), summed in order and divided by k, and its
+    losses the means of theirs (``ops/ppo_update.py:220-240``). Returns
+    ``(params, opt_state, losses)``, ``losses`` the tuple ``(total,
+    *aux)`` of ``[num_epochs, M]`` tensors. IMPALA's passes over its fixed
+    env minibatches run through it too. The JAX scaffold's key splits are
+    the caller's (``partition_keys``).
     """
     rows = []
-    for _ in range(num_epochs):
-        for mb in minibatches:
-            leaves = {k: v.detach().requires_grad_(True)
-                      for k, v in params.items()}
-            total, aux = loss_fn(leaves, mb)
-            grads = dict(zip(leaves, torch.autograd.grad(
-                total, list(leaves.values()))))
+    for epoch in range(num_epochs):
+        part = minibatches(epoch) if callable(minibatches) else minibatches
+        for mb in part:
+            if micro_batches == 1:
+                row, grads = _value_and_grad(loss_fn, params, mb)
+            else:
+                micro = [_value_and_grad(loss_fn, params, mi)
+                         for mi in split_micro(mb, micro_batches)]
+                grads = micro[0][1]
+                for _, g in micro[1:]:
+                    grads = {k: v + g[k] for k, v in grads.items()}
+                grads = {k: v / micro_batches for k, v in grads.items()}
+                row = [torch.stack(col).mean()
+                       for col in zip(*(r for r, _ in micro))]
             with torch.no_grad():
                 updates, opt_state = update_fn(grads, opt_state)
                 params = apply_updates(params, updates)
-            rows.append([total.detach(), *(a.detach() for a in aux)])
+            rows.append(row)
     losses = tuple(torch.stack([r[i] for r in rows]).reshape(num_epochs, -1)
                    for i in range(len(rows[0])))
     return params, opt_state, losses

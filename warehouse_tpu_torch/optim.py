@@ -24,6 +24,12 @@ Params, moments and grads are dicts of tensors keyed like the model's
 bias corrections); ``clip_adam_step``/``clip_rms_step`` apply one step
 with them, and the learner kernels (``kernels/sgd.py``,
 ``kernels/vtrace_sgd.py``) the same step on the card.
+
+``flat=True`` is ``optax.flatten`` of the chain (the trainers'
+``flat_optimizer``): the moments are one vector of every parameter, under
+the key ``FLAT``, the params in key order, and the global norm is one sum
+over it. ``update_fn`` gives the per-step function the plain learner
+phases take, flat or not; no learner kernel takes a flat state.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ Params = dict[str, torch.Tensor]
 
 RMS_DECAY = 0.99  # IMPALA's rmsprop(decay=0.99, eps=0.1), impala.py:216
 RMS_EPS = 0.1
+FLAT = "flat"  # the one key of a flat optimizer's moments
 
 
 class AdamState(NamedTuple):
@@ -112,6 +119,52 @@ def clip_rms_step(grads: Params, state: RMSState, lr, max_grad_norm: float,
     return updates, RMSState(state.count + 1, nu)
 
 
+def flatten(tree: Params) -> Params:
+    """``{FLAT: every leaf of tree raveled and joined in key order}``."""
+    return {FLAT: torch.cat([tree[k].reshape(-1) for k in sorted(tree)])}
+
+
+def unflatten(flat: torch.Tensor, like: Params) -> Params:
+    """Inverse of ``flatten``: views of ``flat`` with ``like``'s keys and
+    shapes."""
+    out, off = {}, 0
+    for k in sorted(like):
+        n = like[k].numel()
+        out[k] = flat[off:off + n].view(like[k].shape)
+        off += n
+    return {k: out[k] for k in like}
+
+
+def _flat_step(step: Callable) -> Callable:
+    """``optax.flatten``: ``step`` on the flattened grads, its updates
+    back in the grads' keys and shapes."""
+    def fn(grads: Params, state):
+        updates, state = step(flatten(grads), state)
+        return unflatten(updates[FLAT], grads), state
+    return fn
+
+
+def adam_update_fn(rows, count0: int, max_grad_norm: float) -> Callable:
+    """``(grads, state) -> (updates, state)``: one clip + Adam step with
+    the rows ``(lr, bc1, bc2)`` (``ClipAdam.step_rows(count0, n)``) of step
+    ``state.count - count0``."""
+    def step(grads, state):
+        s = state.count - count0
+        return clip_adam_step(grads, state, rows[0][s], rows[1][s],
+                              rows[2][s], max_grad_norm)
+    return step
+
+
+def rms_update_fn(rows, count0: int, max_grad_norm: float) -> Callable:
+    """``(grads, state) -> (updates, state)``: one clip + RMSProp step
+    with the lr row (``ClipRMSProp.step_rows(count0, n)``) of step
+    ``state.count - count0``."""
+    def step(grads, state):
+        return clip_rms_step(grads, state, rows[0][state.count - count0],
+                             max_grad_norm)
+    return step
+
+
 def _lr_row(learning_rate, count: torch.Tensor) -> torch.Tensor:
     if callable(learning_rate):
         return learning_rate(count)
@@ -126,10 +179,18 @@ class ClipAdam:
     take."""
     learning_rate: float | Callable
     max_grad_norm: float
+    flat: bool = False
 
     def init(self, params: Params) -> AdamState:
+        if self.flat:
+            params = flatten(params)
         zeros = {k: torch.zeros_like(p) for k, p in params.items()}
         return AdamState(0, zeros, {k: z.clone() for k, z in zeros.items()})
+
+    def update_fn(self, rows, count0: int) -> Callable:
+        """``adam_update_fn``, over the flat vector with ``flat``."""
+        step = adam_update_fn(rows, count0, self.max_grad_norm)
+        return _flat_step(step) if self.flat else step
 
     def step_rows(self, count0: int, n: int, device=None):
         """``(lr, 1 - b1^k, 1 - b2^k)`` float32 ``[n]`` for the n steps
@@ -149,9 +210,17 @@ class ClipRMSProp:
     IMPALA learner kernel take."""
     learning_rate: float | Callable
     max_grad_norm: float
+    flat: bool = False
 
     def init(self, params: Params) -> RMSState:
+        if self.flat:
+            params = flatten(params)
         return RMSState(0, {k: torch.zeros_like(p) for k, p in params.items()})
+
+    def update_fn(self, rows, count0: int) -> Callable:
+        """``rms_update_fn``, over the flat vector with ``flat``."""
+        step = rms_update_fn(rows, count0, self.max_grad_norm)
+        return _flat_step(step) if self.flat else step
 
     def step_rows(self, count0: int, n: int, device=None):
         """``(lr,)``: float32 ``[n]``, the schedule at each pre-increment
@@ -169,36 +238,62 @@ def _learning_rate(tcfg, steps_per_update: int):
 
 def make_optimizer(tcfg) -> ClipAdam:
     """The PPO trainer's optimizer for a ``TrainConfig``
-    (``ppo.py:323-335``)."""
+    (``ppo.py:323-335``), flat with ``flat_optimizer``."""
     return ClipAdam(_learning_rate(
-        tcfg, tcfg.ppo_epochs * tcfg.num_minibatches), tcfg.max_grad_norm)
+        tcfg, tcfg.ppo_epochs * tcfg.num_minibatches), tcfg.max_grad_norm,
+        tcfg.flat_optimizer)
 
 
 def make_impala_optimizer(tcfg) -> ClipRMSProp | ClipAdam:
     """The IMPALA trainer's optimizer (``impala.py:192-221``): RMSProp, or
     Adam with ``impala_rmsprop=False``; lr annealed over ``num_updates *
-    impala_passes * num_minibatches`` steps. RMSProp logs the JAX
-    trainer's build-time warning."""
+    impala_passes * num_minibatches`` steps; flat with ``flat_optimizer``.
+    RMSProp logs the JAX trainer's build-time warning."""
     lr = _learning_rate(tcfg, tcfg.impala_passes * tcfg.num_minibatches)
     if not tcfg.impala_rmsprop:
-        return ClipAdam(lr, tcfg.max_grad_norm)
+        return ClipAdam(lr, tcfg.max_grad_norm, tcfg.flat_optimizer)
     logging.getLogger("warehouse_tpu_torch").warning(
         "IMPALA is using its canonical RMSProp (eps=0.1): measured flat at "
         "few-hundred-update horizons on this env "
         "(runs/r4_curves/config4_impala_fused.jsonl) — pass --impala-adam / "
         "impala_rmsprop=False unless you are running the paper's "
         "long-horizon budget")
-    return ClipRMSProp(lr, tcfg.max_grad_norm)
+    return ClipRMSProp(lr, tcfg.max_grad_norm, tcfg.flat_optimizer)
+
+
+def _unravel_flax(vec: np.ndarray, like) -> dict:
+    """``jax.flatten_util.ravel_pytree``'s vector back in the nested dict
+    ``like``'s structure: its leaves in jax's order, dict keys sorted."""
+    off = 0
+
+    def walk(node):
+        nonlocal off
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        shape = np.shape(node)
+        n = int(np.prod(shape))
+        off += n
+        return vec[off - n:off].reshape(shape)
+
+    out = walk(like)
+    if off != vec.size:
+        raise ValueError(f"a flat optimizer state of {vec.size} floats does "
+                         f"not fit params of {off}")
+    return out
 
 
 def opt_state_from_optax(opt_state_np, device=None,
-                         default_count: int = 0) -> AdamState | RMSState:
+                         default_count: int = 0,
+                         params_like=None) -> AdamState | RMSState:
     """A JAX ``optax.chain(clip_by_global_norm, adam(...) | rmsprop(...))``
     state, its leaves as numpy, as an ``AdamState`` or ``RMSState``: the
     count from the ``ScaleByAdamState`` or the lr schedule's state
     (checked against each other where both exist; ``default_count`` for a
     constant-lr RMSProp, which keeps none), the moments through
-    ``params_from_flax``."""
+    ``params_from_flax``. A state of ``optax.flatten`` of the chain holds
+    each moment as one vector in the flax params' leaf order: it takes the
+    flax params ``params_like`` (numpy leaves) for that order and becomes a
+    flat state (``FLAT``) in the port's order."""
     adam, rms, counts = [], [], []
 
     def walk(node):
@@ -227,7 +322,14 @@ def opt_state_from_optax(opt_state_np, device=None,
                          f"optimizer count {count}")
 
     def moments(tree):
-        return {k: v.to(device) for k, v in params_from_flax(tree).items()}
+        if isinstance(tree, dict):
+            return {k: v.to(device) for k, v in params_from_flax(tree).items()}
+        if params_like is None:
+            raise ValueError("a flat optimizer state needs the params it "
+                             "flattened (params_like)")
+        tree = _unravel_flax(np.asarray(tree), params_like)
+        return {k: v.to(device)
+                for k, v in flatten(params_from_flax(tree)).items()}
 
     if rms:
         return RMSState(count, moments(rms[0].nu))

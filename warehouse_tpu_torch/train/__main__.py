@@ -5,7 +5,9 @@ The PPO (``--arch mlp|cnn|gru|lstm``) and IMPALA (``--algo impala``) subset of
 ``--device``: the run is on the card unless ``--cpu`` / ``--device cpu``
 asks for the CPU, and exits when it finds no card. A flag
 for a feature the port does not have yet exits with a message naming its
-ROADMAP id. Metrics go to a JSONL file, ``env_steps_per_sec`` included;
+ROADMAP id. Metrics go to a JSONL file whose first line records the
+trainer's ``backends`` (each phase's route, ``"cuda"`` or ``"plain"``, as
+the JAX CLI records its resolved backends), ``env_steps_per_sec`` included;
 ``--eval-every`` runs the argmax policy through
 ``evaluate.evaluate_policy``. ``--checkpoint-every N`` saves the whole
 runner state every N updates under ``--checkpoint-dir`` beside a
@@ -77,7 +79,8 @@ def main(argv=None) -> None:
     p.add_argument("--shaping-coef", type=float, default=0.0,
                    help="potential-based reward shaping on the BFS "
                         "distance to the agent's target (0 = off; PPO "
-                        "with --arch mlp or cnn)")
+                        "with --arch mlp or cnn; IMPALA ignores it, as the "
+                        "JAX trainer does)")
     p.add_argument("--mask-actions", action="store_true",
                    help="mask wall/out-of-grid moves at the policy logits")
     p.add_argument("--minibatch-mode", choices=["flat", "env"],
@@ -98,7 +101,7 @@ def main(argv=None) -> None:
                    help="bfloat16: PPO's learner kernels multiply bf16 "
                         "operands with float32 sums, the last values and "
                         "serving use the bf16 model, acting stays float32 "
-                        "(IMPALA exits: ROADMAP M-4)")
+                        "(IMPALA exits: ROADMAP M-4b)")
     p.add_argument("--arch", choices=["mlp", "cnn", "attn", "gru", "lstm"],
                    default="mlp",
                    help="mlp, the conv-torso cnn or the recurrent gru / "
@@ -115,7 +118,10 @@ def main(argv=None) -> None:
                         "refused")
     p.add_argument("--pallas-block", type=int, default=512,
                    help="TPU block size; ignored by the port")
-    p.add_argument("--micro-batches", type=int, default=1)
+    p.add_argument("--micro-batches", type=int, default=1,
+                   help="gradient micro-batches per minibatch (PPO and "
+                        "IMPALA: the learner runs plain; the recurrent "
+                        "trainer ignores it, as the JAX one does)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--checkpoint-every", type=int, default=0,
@@ -203,7 +209,7 @@ def main(argv=None) -> None:
             log.info("resumed from update %d", start_update)
     metrics = MetricsLogger(args.metrics_path)
     metrics.log_meta({"algo": args.algo, "arch": args.arch,
-                      "device": str(device),
+                      "backends": trainer.backends, "device": str(device),
                       "kernels": device.type == "cuda"})
     steps_per_update = tcfg.num_envs * tcfg.unroll_length
     t_last = time.time()

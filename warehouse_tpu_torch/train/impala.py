@@ -1,29 +1,38 @@
 """The IMPALA (V-trace) actor-learner on one device (counterpart of
-``warehouse_tpu/train/impala.py``, single-device fused path).
+``warehouse_tpu/train/impala.py``, single-device path).
 
-One update, draw for draw as the JAX trainer's fused path
-(``rollout_backend``/``grad_backend="pallas"``, :250-323), which its XLA
-path reproduces:
+One update, draw for draw as the JAX trainer with its acting kernel
+(``rollout_backend="pallas"``, :250-273) and, per phase, its learner
+kernel or its XLA learner (:310-424):
 
 1. act T steps through ``kernels.ppo_rollout`` (K2) from ``rs.key``, with
    no env permutation (IMPALA's minibatches are fixed env slices), then
    the boundary reset ``reset_truncated_batch`` and, with
    ``bootstrap_truncated``, V of the pre-reset states (:256-272);
-2. the learner phase through ``kernels.impala_sgd_phase`` (K5):
-   ``impala_passes x num_minibatches`` steps of the V-trace loss, clip
-   and RMSProp or Adam, with the per-step lr rows (:490-516);
+2. the learner phase: ``impala_passes x num_minibatches`` steps of the
+   V-trace loss, clip and RMSProp or Adam, with the per-step lr rows
+   (:490-516), through ``kernels.impala_sgd_phase`` (K5) where the kernel
+   takes the configuration; with ``micro_batches > 1`` (env-axis
+   micro-batches, exact for V-trace, :374-390) or ``flat_optimizer``
+   (ROADMAP M-4) through the plain phase, ``impala_sgd_phase_reference``
+   with those options;
 3. the metrics of ``_metrics_tail`` (:429-454). The key K2 returns is the
    next update's; there is no trailing split.
 
-On a CUDA device the kernels run and a build or launch failure raises;
-on the CPU their plain twins run. ``ImpalaTrainer.plain_step`` is the
-same update through the plain twins on any device.
+``ImpalaTrainer.backends`` names each phase's route as the PPO trainer's
+does. On a CUDA device the kernels run and a build or launch failure
+raises; on the CPU both phases are plain. ``ImpalaTrainer.plain_step`` is
+the same update through the plain twins on any device.
 
 Ported: the MLP policy, one shared policy, float32, RMSProp or Adam
 (``impala_rmsprop``), lr anneal, passes, truncation bootstrap, action
-masking. The TPU block knobs have no counterpart and are ignored;
-``rollout_backend``/``grad_backend="xla"`` raises. Everything else
-raises ``NotImplementedError`` naming its ROADMAP id.
+masking, ``micro_batches``, ``flat_optimizer``; ``shaping_coef`` is
+accepted and has no effect, as in the JAX trainer, which never reads it.
+The TPU block knobs have no counterpart and are ignored;
+``rollout_backend``/``grad_backend="xla"`` raises. ``global_obs`` and
+``model_dtype="bfloat16"`` raise ``NotImplementedError`` naming ROADMAP
+M-4b (the JAX trainer sends both to its XLA acting too, and the port has
+no plain acting route); everything else names its ROADMAP id.
 """
 
 from __future__ import annotations
@@ -43,7 +52,8 @@ from ..kernels.vtrace_sgd import impala_sgd_phase, impala_sgd_phase_reference
 from ..models.policy import ActorCriticMLP, apply, make_model, params_from_flax
 from ..optim import (AdamState, ClipAdam, ClipRMSProp, RMSState,
                      make_impala_optimizer, opt_state_from_optax)
-from .ppo import _not_ported, _tensor, init_parts, run_many
+from .ppo import (_not_ported, _tensor, check_backend_names, init_parts,
+                  make_backends, run_many)
 
 
 class ImpalaRunnerState(NamedTuple):
@@ -75,6 +85,19 @@ class ImpalaTrainer(NamedTuple):
     env_cfg: EnvConfig
     tcfg: TrainConfig
     device: torch.device
+    backends: dict | None = None  # {"rollout", "grad"}: "cuda" or "plain"
+
+
+def grad_problems_impala(tcfg: TrainConfig) -> list:
+    """The options that the IMPALA learner kernel does not compute (the
+    JAX trainer's ``_grad_problems``, :131-153, less ``bootstrap_truncated``,
+    which the port's kernel takes)."""
+    problems = []
+    if tcfg.micro_batches != 1:
+        problems.append("micro_batches != 1")
+    if tcfg.flat_optimizer:
+        problems.append("flat_optimizer")
+    return problems
 
 
 def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
@@ -82,24 +105,21 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
         _not_ported(f"IMPALA with arch={arch!r}", "M-7")
     for what, off, item in (
             ("a mesh", mesh is None, "M-8"),
-            # The JAX IMPALA trainer never reads shaping_coef.
-            ("shaping_coef > 0", tcfg.shaping_coef == 0.0, "M-4"),
-            ("global_obs", not env_cfg.global_obs, "M-4"),
+            ("global_obs", not env_cfg.global_obs, "M-4b"),
             # The JAX trainer sends bf16 to its XLA route (no kernel takes it).
-            ("model_dtype='bfloat16'", tcfg.model_dtype == "float32", "M-4"),
-            ("micro_batches > 1", tcfg.micro_batches == 1, "M-4"),
-            ("flat_optimizer", not tcfg.flat_optimizer, "M-4")):
+            ("model_dtype='bfloat16'", tcfg.model_dtype == "float32",
+             "M-4b")):
         if not off:
-            _not_ported(what, item)
-    for name in ("rollout_backend", "grad_backend"):
-        if getattr(tcfg, name) == "xla":
-            raise ValueError(f"{name}='xla': the port has no backend switch;"
-                             " the device picks kernel (CUDA) or plain twin"
-                             " (CPU)")
+            _not_ported(f"IMPALA with {what}", item)
+    check_backend_names(tcfg)
     if tcfg.num_envs % tcfg.num_minibatches:
         raise ValueError(f"num_envs={tcfg.num_envs} must divide into "
                          f"num_minibatches={tcfg.num_minibatches} (IMPALA "
                          "minibatches split the env axis, keeping T intact)")
+    mb_envs = tcfg.num_envs // tcfg.num_minibatches
+    if mb_envs % tcfg.micro_batches:
+        raise ValueError(f"micro_batches={tcfg.micro_batches} must divide "
+                         f"the per-minibatch env count {mb_envs}")
     if env_cfg.max_steps % tcfg.unroll_length:
         raise ValueError("max_steps % unroll_length != 0: the boundary "
                          "reset runs after the chunk")
@@ -121,7 +141,8 @@ def impala_runner_state_from_jax(rs_np, tcfg: TrainConfig,
     return ImpalaRunnerState(
         params=params,
         opt_state=opt_state_from_optax(rs_np.opt_state, device,
-                                       default_count=update_idx * steps),
+                                       default_count=update_idx * steps,
+                                       params_like=rs_np.params),
         env_state=env, obs=_tensor(rs_np.obs, device),
         key=_tensor(rs_np.key, device).reshape(2),
         update_idx=_tensor(rs_np.update_idx, device).to(torch.int32))
@@ -140,10 +161,22 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
     optimizer = make_impala_optimizer(tcfg)
     model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
                        device=device)
+    problems = grad_problems_impala(tcfg)
+    grad_kernel = not problems
+    backends = make_backends(device, problems)
     if device.type == "cuda":  # refuse by name what no kernel route holds
         check_act_fits(cfg, model, device)
-        check_learner_fits(model.state_dict(), cfg.obs_dim, device,
-                           "IMPALA learner kernel")
+        if grad_kernel:
+            check_learner_fits(model.state_dict(), cfg.obs_dim, device,
+                               "IMPALA learner kernel")
+
+    def plain_phase(params, opt_state, traj, last_obs, rows, *args, **kw):
+        """The plain learner phase (M-4): micro-batches, the flat
+        optimizer."""
+        return impala_sgd_phase_reference(
+            params, opt_state, traj, last_obs, rows, *args,
+            micro_batches=tcfg.micro_batches,
+            update_fn=optimizer.update_fn(rows, opt_state.count), **kw)
 
     def init(key: torch.Tensor) -> ImpalaRunnerState:
         params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key)
@@ -198,12 +231,14 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
         """One update through the kernels (plain twins on the CPU).
         ``mark(name)``, if given, is called after the acting and learner
         phases (for timing)."""
-        return step(rs, ppo_rollout, impala_sgd_phase, mark)
+        return step(rs, ppo_rollout,
+                    impala_sgd_phase if grad_kernel else plain_phase, mark)
 
     def plain_step(rs: ImpalaRunnerState, mark=None):
         """The same update through the plain PyTorch twins."""
-        return step(rs, ppo_rollout_reference, impala_sgd_phase_reference,
-                    mark)
+        return step(rs, ppo_rollout_reference,
+                    impala_sgd_phase_reference if grad_kernel
+                    else plain_phase, mark)
 
     def train_many(rs: ImpalaRunnerState, n: int):
         """n updates; metrics stacked ``[n]``."""
@@ -212,4 +247,4 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
     return ImpalaTrainer(init=init, train_step=train_step,
                          train_many=train_many, plain_step=plain_step,
                          model=model, optimizer=optimizer, env_cfg=cfg,
-                         tcfg=tcfg, device=device)
+                         tcfg=tcfg, device=device, backends=backends)

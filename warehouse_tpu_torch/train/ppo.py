@@ -1,52 +1,67 @@
 """The PPO actor-learner on one device (counterpart of
-``warehouse_tpu/train/ppo.py``, single-device fused path).
+``warehouse_tpu/train/ppo.py``, single-device path).
 
-One update, draw for draw as the JAX trainer's fused path
-(``rollout_backend``/``grad_backend="pallas"``):
+One update, draw for draw as the JAX trainer with its acting kernel
+(``rollout_backend="pallas"``) and, per phase, its learner kernel or its
+XLA learner:
 
-1. permute the env axis of the state with ``permutation(fold_in(key,
-   0x5EED), B)`` ("shuffle the envs, not the data": minibatches are then
-   contiguous env ranges, :383-386);
+1. with ``minibatch_mode="env"`` and ``epoch_shuffle="once"``, permute the
+   env axis of the state with ``permutation(fold_in(key, 0x5EED), B)``
+   ("shuffle the envs, not the data": minibatches are then contiguous env
+   ranges, :370-386); with any other cadence the state is not permuted;
 2. act T steps through ``kernels.ppo_rollout`` (K2; K10 with
    ``arch="cnn"``), which with ``shaping_coef > 0`` adds the potential
    shaping to the reward it returns, then the boundary reset
    ``reset_truncated_batch`` (:399-410), and with ``bootstrap_truncated``
    V of the pre-reset states (:412-422);
-3. GAE from ``last_value``, advantages normalized per env minibatch;
-4. the SGD phase through ``kernels.ppo_sgd_phase`` (K3) or, for the CNN,
-   ``kernels.ppo_cnn_sgd_phase`` (K11), with the per-step lr and
-   bias-correction rows (:678-686);
-5. the mirrored ``key, _ = split(key)`` (:503), the metrics and the
-   adaptive KL coefficient (:713-746).
+3. GAE from ``last_value``;
+4. the SGD phase: where a learner kernel takes the configuration,
+   advantages normalized per env minibatch and ``kernels.ppo_sgd_phase``
+   (K3) or, for the CNN, ``kernels.ppo_cnn_sgd_phase`` (K11), with the
+   per-step lr and bias-correction rows (:678-686); else the plain learner
+   phase of the JAX XLA route (``_learn`` :481-602, ROADMAP M-4): autograd
+   through ``models.policy.apply`` at the model's precision (the flax-bf16
+   forward at bfloat16), ``ops.ppo_update``'s scaffold and ``optim.py``;
+5. the scaffold's key splits (``partition_keys``: one for "once", one per
+   epoch for "each"), the metrics and the adaptive KL coefficient
+   (:713-746).
 
-On a CUDA device the kernels run and a build or launch failure raises;
-on the CPU their plain twins run. ``PPOTrainer.plain_step`` is the same
-update through the plain twins on any device, for measurement and tests.
+Each phase's route follows from the configuration alone, as the JAX
+trainer's ``_rollout_problems`` / ``_grad_problems`` (:162-303) decide
+between its kernel and XLA: ``PPOTrainer.backends`` is ``{"rollout":
+"cuda" | "plain", "grad": "cuda" | "plain"}``, the counterpart of JAX
+``PPOTrainer.backends`` (:825). The learner is plain where the JAX trainer
+resolves it to XLA: the CNN with ``policy_groups`` (its fused learner is
+single-policy, :243-247), ``minibatch_mode="flat"`` or
+``epoch_shuffle="each"`` (``--rllib-cadence``), ``micro_batches > 1``
+(the mean of the micro-gradients, one optimizer step, advantages
+normalized per minibatch, :564-587) and ``flat_optimizer``
+(``optax.flatten``: clip and Adam over one vector). On a CUDA device the
+kernels run and a build or launch failure raises; no failure picks a
+route. On the CPU both phases are plain (the kernels' twins or the plain
+learner). ``PPOTrainer.plain_step`` is the same update with the acting
+kernel's twin and, where the learner is a kernel, its twin.
 
-Ported: the MLP and the CNN policy (``arch="cnn"``; its
-``policy_groups`` gate raises ``ValueError`` as the JAX trainer's fused
-learner does, :244-247, ROADMAP T-3b), one shared policy or, for the MLP,
+Ported besides: the MLP and the CNN policy, one shared policy or
 ``policy_groups`` (:94-113: K independent policies, a
 ``MultiPolicyActorCritic``, each agent acting and learning through its
-group's; K2 and K3/K4 route each row by its agent's group, the bootstrap
-and last values take each agent's group's), ``model_dtype`` float32 or
-bfloat16 (the JAX trainer's, :91-110: the model is built at that compute
-dtype, so the bootstrap and last values take the flax-bf16 forward; the
-learner kernels K3/K4 and K11/K12 take ``matmul_dtype="bfloat16"``; acting
-in K2/K10 stays float32), ``minibatch_mode=
-"env"`` with ``epoch_shuffle="once"``, one gradient per minibatch,
-entropy anneal, adaptive KL, truncation bootstrap, lr anneal, action
-masking (K2 floors invalid moves, the loss re-applies the mask),
-potential shaping (GAE reads the shaped reward, the ``reward_per_step``
-metric the raw one), global observations (the acting kernels build the
-global view, the learners read the wider observation; on the card
-``make_train`` raises ``ValueError`` for an env shape or model widths the
-kernels cannot hold, before any launch). The TPU
-block knobs (``pallas_block``, ``pallas_interpret``, ``sgd_block_envs``,
-``sgd_rows_per_block``) have no counterpart and are ignored; the device
-picks kernel or twin, so ``rollout_backend``/``grad_backend="xla"``
-raises. Everything else raises ``NotImplementedError`` naming its
-ROADMAP id.
+group's; K2 / K10 and K3/K4 route each row by its agent's group, the
+bootstrap and last values take each agent's group's), ``model_dtype``
+float32 or bfloat16 (the JAX trainer's, :91-110: the model is built at
+that compute dtype, so the bootstrap and last values take the flax-bf16
+forward; the learner kernels K3/K4 and K11/K12 take
+``matmul_dtype="bfloat16"``; acting in K2/K10 stays float32), entropy
+anneal, adaptive KL, truncation bootstrap, lr anneal, action masking (K2
+floors invalid moves, the loss re-applies the mask), potential shaping
+(GAE reads the shaped reward, the ``reward_per_step`` metric the raw
+one), global observations (the acting kernels build the global view, the
+learners read the wider observation; on the card ``make_train`` raises
+``ValueError`` for an env shape or model widths the kernels cannot hold,
+before any launch). The TPU block knobs (``pallas_block``,
+``pallas_interpret``, ``sgd_block_envs``, ``sgd_rows_per_block``) have no
+counterpart and are ignored; ``rollout_backend``/``grad_backend="xla"``
+raises. Everything else raises ``NotImplementedError`` naming its ROADMAP
+id.
 """
 
 from __future__ import annotations
@@ -71,7 +86,9 @@ from ..kernels.sgd_cnn import (check_cnn_learner_fits, ppo_cnn_sgd_phase,
 from ..models.policy import (apply, make_model, make_multi_policy_model,
                              model_precision, params_from_flax)
 from ..ops.gae import gae
-from ..ops.ppo_update import adaptive_kl_coeff, entropy_coef_at
+from ..ops.ppo_update import (NEG_INF, adaptive_kl_coeff, entropy_coef_at,
+                              env_major_minibatches, flat_minibatches,
+                              minibatch_epochs, partition_keys, ppo_losses)
 from ..optim import AdamState, ClipAdam, make_optimizer, opt_state_from_optax
 
 PERM_SALT = 0x5EED  # fold_in salt of the env-state permutation key
@@ -109,38 +126,69 @@ class PPOTrainer(NamedTuple):
     tcfg: TrainConfig
     device: torch.device
     policy_groups: tuple | None = None  # agent -> policy group, or None
+    backends: dict | None = None  # {"rollout", "grad"}: "cuda" or "plain"
 
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
-def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh,
-                  policy_groups) -> None:
+def check_backend_names(tcfg: TrainConfig) -> None:
+    """Refuse ``rollout_backend`` / ``grad_backend="xla"``: the port
+    picks each phase's route from the configuration and the device."""
+    for name in ("rollout_backend", "grad_backend"):
+        if getattr(tcfg, name) == "xla":
+            raise ValueError(f"{name}='xla': the port has no backend switch;"
+                             " each phase runs its kernel where one takes the"
+                             " configuration (CUDA), else plain PyTorch")
+
+
+def make_backends(device, problems: list) -> dict:
+    """The trainers' ``backends``: on a CUDA device the acting kernel,
+    and the learner kernel unless ``problems`` names an option it does not
+    take; on the CPU both phases plain."""
+    cuda = device.type == "cuda"
+    return {"rollout": "cuda" if cuda else "plain",
+            "grad": "cuda" if cuda and not problems else "plain"}
+
+
+def grad_problems(tcfg: TrainConfig, arch: str, policy_groups) -> list:
+    """The options of ``tcfg`` that no PPO learner kernel computes (the
+    JAX trainer's ``_grad_problems``, :239-288): where this is not empty
+    the SGD phase is plain."""
+    problems = []
+    if arch == "cnn" and policy_groups is not None:
+        problems.append("policy_groups with arch='cnn' (the CNN learner "
+                        "kernel is single-policy)")
+    if tcfg.minibatch_mode != "env" or tcfg.epoch_shuffle != "once":
+        problems.append("epoch_shuffle != 'once' or minibatch_mode != 'env'")
+    if tcfg.micro_batches != 1:
+        problems.append("micro_batches != 1")
+    if tcfg.flat_optimizer:
+        problems.append("flat_optimizer")
+    return problems
+
+
+def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
     if arch in ("gru", "lstm"):
         raise ValueError(f"arch={arch!r}: the recurrent policies train "
                          "through train.ppo_rnn.make_train_rnn")
     if arch not in ("mlp", "cnn"):
         _not_ported(f"arch={arch!r}", "M-7")
-    if arch == "cnn" and policy_groups is not None:
-        raise ValueError("policy_groups with arch='cnn': the CNN learner is "
-                         "single-policy (ROADMAP T-3b)")
-    for what, off, item in (
-            ("a mesh", mesh is None, "M-8"),
-            ("minibatch_mode='flat'", tcfg.minibatch_mode == "env", "M-4"),
-            ("epoch_shuffle='each'", tcfg.epoch_shuffle == "once", "M-4"),
-            ("micro_batches > 1", tcfg.micro_batches == 1, "M-4"),
-            ("flat_optimizer", not tcfg.flat_optimizer, "M-4")):
-        if not off:
-            _not_ported(what, item)
-    for name in ("rollout_backend", "grad_backend"):
-        if getattr(tcfg, name) == "xla":
-            raise ValueError(f"{name}='xla': the port has no backend switch;"
-                             " the device picks kernel (CUDA) or plain twin"
-                             " (CPU)")
-    if tcfg.num_envs % tcfg.num_minibatches:
+    if mesh is not None:
+        _not_ported("a mesh", "M-8")
+    check_backend_names(tcfg)
+    batch = tcfg.unroll_length * tcfg.num_envs * env_cfg.num_agents
+    if batch % tcfg.num_minibatches:
+        raise ValueError("T*B*A must divide into num_minibatches")
+    if tcfg.minibatch_mode == "env" and (
+            tcfg.num_envs % tcfg.num_minibatches):
         raise ValueError(f"num_envs={tcfg.num_envs} not divisible by "
                          f"num_minibatches={tcfg.num_minibatches}")
+    mb_samples = batch // tcfg.num_minibatches
+    if mb_samples % tcfg.micro_batches:
+        raise ValueError(f"micro_batches={tcfg.micro_batches} must divide "
+                         f"the minibatch sample count {mb_samples}")
     if env_cfg.max_steps % tcfg.unroll_length:
         raise ValueError("max_steps % unroll_length != 0: the boundary "
                          "reset runs after the chunk")
@@ -159,15 +207,16 @@ def _tensor(x, device=None) -> torch.Tensor:
 def runner_state_from_jax(rs_np, device=None) -> RunnerState:
     """A JAX ``RunnerState`` of the single-device trainer, its leaves as
     numpy, as the port's: params through ``params_from_flax``, the
-    optimizer through ``opt_state_from_optax``, uint32 keys as int64 (the
-    shard key ``[1, 2]`` as ``[2]``)."""
+    optimizer through ``opt_state_from_optax`` (a flattened one too),
+    uint32 keys as int64 (the shard key ``[1, 2]`` as ``[2]``)."""
     params = {k: v.to(device)
               for k, v in params_from_flax(rs_np.params).items()}
     env = EnvState(**{f: _tensor(getattr(rs_np.env_state, f), device)
                       for f in STATE_FIELDS})
     return RunnerState(
         params=params,
-        opt_state=opt_state_from_optax(rs_np.opt_state, device),
+        opt_state=opt_state_from_optax(rs_np.opt_state, device,
+                                       params_like=rs_np.params),
         env_state=env,
         obs=_tensor(rs_np.obs, device),
         key=_tensor(rs_np.key, device).reshape(2),
@@ -236,13 +285,80 @@ def update_metrics(tcfg: TrainConfig, losses, kl_coeff, roll):
     }, kl_coeff
 
 
+def ppo_plain_phase(tcfg: TrainConfig, optimizer: ClipAdam, params,
+                    opt_state, key, traj, adv, targets, ent_coef, kl_coeff,
+                    state_shuffled: bool, policy_groups=None,
+                    precision: str = "float32"):
+    """The PPO SGD phase of the JAX XLA route (``train/ppo.py:481-602``)
+    in plain PyTorch, on any device: the minibatches of ``minibatch_mode``
+    (env-major env ranges, permuted per partition unless the state was
+    shuffled before acting, or flat samples), a partition per update or per
+    epoch (``epoch_shuffle``), ``micro_batches`` micro-gradients averaged
+    before each step (advantages then normalized per minibatch, else in the
+    loss), ``optimizer``'s step (flat or not), autograd through
+    ``models.policy.apply`` at ``precision``. ``adv`` are GAE's raw
+    advantages. Returns ``(params, opt_state, key, losses)``, ``key`` after
+    the scaffold's splits."""
+    T, B, A = traj.action.shape
+    M, E, k = tcfg.num_minibatches, tcfg.ppo_epochs, tcfg.micro_batches
+    fields = [traj.obs, traj.action, traj.log_prob, traj.value, adv, targets,
+              traj.mask]
+    if policy_groups is not None:  # each sample's group travels with it
+        fields.append(torch.tensor(policy_groups, device=adv.device)
+                      .expand(T, B, A))
+    if tcfg.minibatch_mode == "env":
+        batch = [x.movedim(1, 0).reshape(B, T * A, *x.shape[3:])
+                 for x in fields]
+
+        def make(pkey):
+            return env_major_minibatches(None if state_shuffled else pkey,
+                                         batch, M)
+    else:
+        batch = [x.reshape(T * B * A, *x.shape[3:]) for x in fields]
+
+        def make(pkey):
+            return flat_minibatches(pkey, batch, M)
+
+    def partition(pkey):
+        mbs = make(pkey)
+        if k == 1:
+            return mbs
+        # Micro-gradients average to the minibatch's only with advantages
+        # normalized over the whole minibatch first.
+        return [(*mb[:4], (mb[4] - mb[4].mean())
+                 / (mb[4].std(correction=0) + 1e-8), *mb[5:]) for mb in mbs]
+
+    def loss_fn(p, mb):
+        obs, action, old_lp, old_v, a, tgt, mask, *gids = mb
+        logits, value = apply(p, obs, gids[0] if gids else None,
+                              precision=precision)
+        if tcfg.mask_actions:
+            logits = torch.where(mask, logits, NEG_INF)
+        return ppo_losses(logits, value, action, old_lp, old_v, a, tgt,
+                          clip_eps=tcfg.clip_eps, value_coef=tcfg.value_coef,
+                          ent_coef=ent_coef, kl_coeff=kl_coeff,
+                          normalize_adv=k == 1)
+
+    each = tcfg.epoch_shuffle == "each"
+    key, pkeys = partition_keys(key, E, each)
+    minibatches = ((lambda e: partition(pkeys[e])) if each
+                   else partition(pkeys[0]))
+    rows = optimizer.step_rows(opt_state.count, E * M, adv.device)
+    params, opt_state, losses = minibatch_epochs(
+        params, opt_state, loss_fn=loss_fn, minibatches=minibatches,
+        num_epochs=E, update_fn=optimizer.update_fn(rows, opt_state.count),
+        micro_batches=k)
+    return params, opt_state, key, losses
+
+
 def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
                device=None, mesh=None,
                policy_groups: tuple | None = None) -> PPOTrainer:
     """Build the trainer for ``tcfg`` on ``device``: the card by default,
     the CPU (plain twins) with ``device="cpu"``. ``policy_groups``: a tuple
-    of one group id ``0..K-1`` per agent, K independent MLP policies."""
-    _check_config(env_cfg, tcfg, arch, mesh, policy_groups)
+    of one group id ``0..K-1`` per agent, K independent MLP or CNN
+    policies."""
+    _check_config(env_cfg, tcfg, arch, mesh)
     device = resolve_device(device)
     cfg = env_cfg.replace(auto_reset=False)
     B, T, M = tcfg.num_envs, tcfg.unroll_length, tcfg.num_minibatches
@@ -251,10 +367,18 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
     if policy_groups is not None:
         policy_groups = tuple(int(g) for g in policy_groups)
     model = build_model(cfg, tcfg, arch, device, policy_groups)
+    # The learner kernels take the default cadence only; the state shuffle
+    # before acting is that cadence's minibatching.
+    problems = grad_problems(tcfg, arch, policy_groups)
+    grad_kernel = not problems
+    backends = make_backends(device, problems)
+    state_shuffle = (tcfg.minibatch_mode == "env"
+                     and tcfg.epoch_shuffle == "once")
     if device.type == "cuda":  # refuse by name what no kernel route holds
         check_act_fits(cfg, model, device, policy_groups)
-        (check_cnn_learner_fits if arch == "cnn" else check_learner_fits)(
-            model.state_dict(), cfg.obs_dim, device)
+        if grad_kernel:
+            (check_cnn_learner_fits if arch == "cnn" else check_learner_fits)(
+                model.state_dict(), cfg.obs_dim, device)
     sgd_fn, sgd_reference = (
         (ppo_cnn_sgd_phase, ppo_cnn_sgd_phase_reference) if arch == "cnn"
         else (ppo_sgd_phase, ppo_sgd_phase_reference))
@@ -280,9 +404,11 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
     def step(rs: RunnerState, act_fn, sgd_fn, mark=None):
         mark = mark or (lambda name: None)
         key = rs.key
-        perm = rng.permutation(rng.fold_in(key, PERM_SALT), B)
-        env_in = EnvState(**{f: getattr(rs.env_state, f)[perm]
-                             for f in STATE_FIELDS})
+        env_in = rs.env_state
+        if state_shuffle:
+            perm = rng.permutation(rng.fold_in(key, PERM_SALT), B)
+            env_in = EnvState(**{f: getattr(rs.env_state, f)[perm]
+                                 for f in STATE_FIELDS})
         model.load_state_dict(rs.params)
         new_env, roll, reset_key, key = act_fn(
             cfg, model, env_in, T, key, mask_actions=tcfg.mask_actions,
@@ -305,21 +431,27 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
         adv, targets = gae(traj.reward, traj.value, traj.done, last_value,
                            tcfg.gamma, tcfg.gae_lambda,
                            boot if tcfg.bootstrap_truncated else None)
-        adv_n = normalize_adv_env_minibatch(adv, M)
         ent_coef = entropy_coef_at(tcfg, rs.update_idx)
-        rows = optimizer.step_rows(rs.opt_state.count, n_steps, device)
-        mark("gae")
-
-        params, opt_state, losses = sgd_fn(
-            rs.params, rs.opt_state, traj, adv_n, targets, *rows, ent_coef,
-            rs.kl_coeff, num_epochs=tcfg.ppo_epochs, num_minibatches=M,
-            clip_eps=tcfg.clip_eps, value_coef=tcfg.value_coef,
-            max_grad_norm=tcfg.max_grad_norm,
-            mask_actions=tcfg.mask_actions, **sgd_kw)
+        if sgd_fn is None:  # the plain learner phase (M-4)
+            mark("gae")
+            params, opt_state, key, losses = ppo_plain_phase(
+                tcfg, optimizer, rs.params, rs.opt_state, key, traj, adv,
+                targets, ent_coef, rs.kl_coeff, state_shuffle,
+                policy_groups, precision)
+        else:
+            adv_n = normalize_adv_env_minibatch(adv, M)
+            rows = optimizer.step_rows(rs.opt_state.count, n_steps, device)
+            mark("gae")
+            params, opt_state, losses = sgd_fn(
+                rs.params, rs.opt_state, traj, adv_n, targets, *rows,
+                ent_coef, rs.kl_coeff, num_epochs=tcfg.ppo_epochs,
+                num_minibatches=M, clip_eps=tcfg.clip_eps,
+                value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
+                mask_actions=tcfg.mask_actions, **sgd_kw)
+            # The key split the JAX scaffold spends on its partition.
+            key, _ = partition_keys(key, tcfg.ppo_epochs, False)
         mark("sgd")
 
-        # The key split the JAX XLA scaffold spends on its partition.
-        key = rng.split(key, 2)[0]
         metrics, kl_coeff = update_metrics(tcfg, losses, rs.kl_coeff, roll)
         new = RunnerState(params=params, opt_state=opt_state,
                           env_state=env_state, obs=last_obs, key=key,
@@ -327,14 +459,15 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
         return new, metrics
 
     def train_step(rs: RunnerState, mark=None):
-        """One update through the kernels (plain twins on the CPU).
-        ``mark(name)``, if given, is called after the acting, GAE and
-        SGD phases (for timing)."""
-        return step(rs, ppo_rollout, sgd_fn, mark)
+        """One update through each phase's route of ``backends`` (plain
+        twins on the CPU). ``mark(name)``, if given, is called after the
+        acting, GAE and SGD phases (for timing)."""
+        return step(rs, ppo_rollout, sgd_fn if grad_kernel else None, mark)
 
     def plain_step(rs: RunnerState, mark=None):
         """The same update through the plain PyTorch twins."""
-        return step(rs, ppo_rollout_reference, sgd_reference, mark)
+        return step(rs, ppo_rollout_reference,
+                    sgd_reference if grad_kernel else None, mark)
 
     def train_many(rs: RunnerState, n: int):
         """n updates; metrics stacked ``[n]``."""
@@ -343,4 +476,5 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
     return PPOTrainer(init=init, train_step=train_step,
                       train_many=train_many, plain_step=plain_step,
                       model=model, optimizer=optimizer, env_cfg=cfg,
-                      tcfg=tcfg, device=device, policy_groups=policy_groups)
+                      tcfg=tcfg, device=device, policy_groups=policy_groups,
+                      backends=backends)

@@ -1,40 +1,50 @@
 """The recurrent (GRU / LSTM) PPO actor-learner on one device (counterpart
-of ``warehouse_tpu/train/ppo_rnn.py``, single-device fused path).
+of ``warehouse_tpu/train/ppo_rnn.py``, single-device path).
 
-One update, draw for draw as the JAX trainer's fused path
-(``rollout_backend``/``grad_backend="pallas"``, :242-286, :337-362):
+One update, draw for draw as the JAX trainer with its acting kernel
+(``rollout_backend="pallas"``, :242-286) and, per phase, its learner
+kernel (:337-362) or its XLA learner (:364-440):
 
-1. permute the env axis of the state AND of the carry with
-   ``permutation(fold_in(key, 0x5EED), B)`` (:248-254); the permuted carry
-   ``h0`` is what the rollout and the replay both start from;
+1. with ``epoch_shuffle="once"``, permute the env axis of the state AND of
+   the carry with ``permutation(fold_in(key, 0x5EED), B)`` (:248-254); the
+   (permuted) carry ``h0`` is what the rollout and the replay both start
+   from;
 2. act T steps through ``kernels.ppo_rnn_rollout`` (K7), then the boundary
    reset of the env (``reset_truncated_batch``) and of the carry, zeroed
    where the chunk truncated (:270-275);
-3. the last value from ``(last_obs, last_h)``, GAE, advantages normalized
-   per env minibatch;
-4. the sequence-replay SGD phase through ``kernels.ppo_rnn_sgd_phase``
-   (K8) from ``h0``, with the per-step lr and bias-correction rows;
-5. the mirrored ``key, _ = split(key)`` (:359), the metrics and the
-   adaptive KL coefficient (:441-470).
+3. the last value from ``(last_obs, last_h)``, GAE;
+4. the sequence-replay SGD phase: where the learner kernel takes the
+   configuration, advantages normalized per env minibatch and
+   ``kernels.ppo_rnn_sgd_phase`` (K8) from ``h0``, with the per-step lr
+   and bias-correction rows; else (``epoch_shuffle="each"``,
+   ``flat_optimizer``; ROADMAP M-4) the plain phase of the JAX XLA route:
+   env-axis sequence minibatches, permuted per epoch with "each", replayed
+   from their slice of ``h0`` through ``models.policy.apply_rnn`` at the
+   model's precision, advantages normalized in the loss, ``optim.py``'s
+   step (flat or not);
+5. the scaffold's key splits, the metrics and the adaptive KL coefficient
+   (:441-470).
 
-The replay has no carry reset inside a chunk, so an episode may only end
-on a chunk's last step: ``max_steps % unroll_length != 0`` is a
+``PPORNNTrainer.backends`` names each phase's route as the PPO trainer's
+does. The replay has no carry reset inside a chunk, so an episode may only
+end on a chunk's last step: ``max_steps % unroll_length != 0`` is a
 ``ValueError`` (:117, :138). On a CUDA device the kernels run and a build
-or launch failure raises; on the CPU their plain twins run.
+or launch failure raises; on the CPU both phases are plain.
 ``plain_step`` is the same update through the plain twins on any device.
 
-The envelope of the JAX kernels path is the port's only path. Ported:
-one shared policy, ``epoch_shuffle="once"``, entropy anneal, adaptive KL,
-lr anneal, action masking, ``model_dtype`` float32 or bfloat16. With
-bfloat16 (:66-70, :106-110, :271-274, :504-508) the model is built at that
-compute dtype and the runner state's carry is bf16: the rollout's carry is
-rounded back to bf16 after the boundary reset of every chunk, K7 and the
-learner read it cast up to float32, the last value is the flax-bf16
-forward from it, and the learner kernels K8/K9 take
-``matmul_dtype="bfloat16"``; acting in K7 stays float32.
-``NotImplementedError``, naming the ROADMAP id: ``global_obs``,
-``shaping_coef``, ``bootstrap_truncated``, ``epoch_shuffle="each"``,
-``flat_optimizer``, ``micro_batches > 1``, a mesh.
+Ported: one shared policy, ``epoch_shuffle`` "once" and "each",
+``flat_optimizer``, entropy anneal, adaptive KL, lr anneal, action
+masking, ``model_dtype`` float32 or bfloat16; ``micro_batches`` is
+accepted and has no effect, as in the JAX trainer, which never reads it.
+With bfloat16 (:66-70, :106-110, :271-274, :504-508) the model is built at
+that compute dtype and the runner state's carry is bf16: the rollout's
+carry is rounded back to bf16 after the boundary reset of every chunk, K7
+and the learner kernels read it cast up to float32, the last value (and
+the plain phase's replay) is the flax-bf16 forward from it, and the
+learner kernels K8/K9 take ``matmul_dtype="bfloat16"``; acting in K7 stays
+float32. ``NotImplementedError``, naming the ROADMAP id: ``global_obs``,
+``shaping_coef``, ``bootstrap_truncated`` (M-4b: the plain acting phase
+they need has no twin yet), a mesh.
 """
 
 from __future__ import annotations
@@ -51,14 +61,16 @@ from ..env.state import STATE_FIELDS, EnvState
 from ..kernels.act_rnn import ppo_rnn_rollout, ppo_rnn_rollout_reference
 from ..kernels.rollout import check_kernel_shape
 from ..kernels.sgd import normalize_adv_env_minibatch
-from ..kernels.sgd_rnn import ppo_rnn_sgd_phase, ppo_rnn_sgd_phase_reference
+from ..kernels.sgd_rnn import (ppo_rnn_sgd_phase, ppo_rnn_sgd_phase_reference,
+                               replay_loss_fn)
 from ..models.policy import (apply_rnn, initial_carry, make_model,
                              model_precision, params_from_flax, torch_dtype)
 from ..ops.gae import gae
-from ..ops.ppo_update import entropy_coef_at
+from ..ops.ppo_update import entropy_coef_at, minibatch_epochs, partition_keys
 from ..optim import AdamState, ClipAdam, make_optimizer, opt_state_from_optax
-from .ppo import (PERM_SALT, Transition, _not_ported, _tensor, init_parts,
-                  run_many, update_metrics)
+from .ppo import (PERM_SALT, Transition, _not_ported, _tensor,
+                  check_backend_names, init_parts, make_backends, run_many,
+                  update_metrics)
 
 
 class RunnerStateRNN(NamedTuple):
@@ -83,6 +95,18 @@ class PPORNNTrainer(NamedTuple):
     tcfg: TrainConfig
     arch: str
     device: torch.device
+    backends: dict | None = None  # {"rollout", "grad"}: "cuda" or "plain"
+
+
+def grad_problems_rnn(tcfg: TrainConfig) -> list:
+    """The options that the recurrent learner kernel does not compute (the
+    JAX trainer's ``_grad_problems``, :162-192)."""
+    problems = []
+    if tcfg.epoch_shuffle != "once":
+        problems.append("epoch_shuffle != 'once'")
+    if tcfg.flat_optimizer:
+        problems.append("flat_optimizer")
+    return problems
 
 
 def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
@@ -91,19 +115,12 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
                          "trainer takes 'gru' or 'lstm'")
     for what, off, item in (
             ("a mesh", mesh is None, "M-8"),
-            ("shaping_coef > 0", tcfg.shaping_coef == 0.0, "M-4"),
-            ("global_obs", not env_cfg.global_obs, "M-4"),
-            ("bootstrap_truncated", not tcfg.bootstrap_truncated, "M-4"),
-            ("epoch_shuffle='each'", tcfg.epoch_shuffle == "once", "M-4"),
-            ("micro_batches > 1", tcfg.micro_batches == 1, "M-4"),
-            ("flat_optimizer", not tcfg.flat_optimizer, "M-4")):
+            ("shaping_coef > 0", tcfg.shaping_coef == 0.0, "M-4b"),
+            ("global_obs", not env_cfg.global_obs, "M-4b"),
+            ("bootstrap_truncated", not tcfg.bootstrap_truncated, "M-4b")):
         if not off:
             _not_ported(f"recurrent PPO with {what}", item)
-    for name in ("rollout_backend", "grad_backend"):
-        if getattr(tcfg, name) == "xla":
-            raise ValueError(f"{name}='xla': the port has no backend switch;"
-                             " the device picks kernel (CUDA) or plain twin"
-                             " (CPU)")
+    check_backend_names(tcfg)
     if tcfg.num_envs % tcfg.num_minibatches:
         raise ValueError(
             "recurrent PPO minibatches slice the env axis: num_envs="
@@ -137,13 +154,55 @@ def runner_state_rnn_from_jax(rs_np, device=None) -> RunnerStateRNN:
              if isinstance(carry, (tuple, list)) else _tensor(carry, device))
     return RunnerStateRNN(
         params=params,
-        opt_state=opt_state_from_optax(rs_np.opt_state, device),
+        opt_state=opt_state_from_optax(rs_np.opt_state, device,
+                                       params_like=rs_np.params),
         env_state=env,
         obs=_tensor(rs_np.obs, device),
         carry=carry,
         key=_tensor(rs_np.key, device).reshape(2),
         update_idx=_tensor(rs_np.update_idx, device).to(torch.int32),
         kl_coeff=_tensor(rs_np.kl_coeff, device).to(torch.float32))
+
+
+def rnn_plain_phase(tcfg: TrainConfig, optimizer: ClipAdam, params,
+                    opt_state, key, traj, adv, targets, h0, ent_coef,
+                    kl_coeff, state_shuffled: bool, precision: str):
+    """The recurrent SGD phase of the JAX XLA route
+    (``train/ppo_rnn.py:364-440``) in plain PyTorch: minibatches of B/M
+    envs' whole sequences with their slice of the rollout-start carry
+    ``h0``, contiguous when the state was shuffled before acting, else
+    permuted by ``permutation(pkey, B)`` per partition (one partition per
+    update or per epoch, ``epoch_shuffle``); the T-step replay through
+    ``apply_rnn`` at ``precision``, the PPO loss with advantages
+    normalized over the minibatch, ``optimizer``'s step. ``adv`` are GAE's
+    raw advantages. Returns ``(params, opt_state, key, losses)``."""
+    B, M, E = traj.obs.shape[1], tcfg.num_minibatches, tcfg.ppo_epochs
+    w = B // M
+    fields = (traj.obs, traj.action, traj.log_prob, traj.value, adv,
+              targets, traj.mask)
+
+    def partition(pkey):
+        perm = None if state_shuffled else rng.permutation(pkey, B)
+        out = []
+        for m in range(M):
+            idx = (slice(m * w, (m + 1) * w) if perm is None
+                   else perm[m * w:(m + 1) * w])
+            out.append((tuple(x[:, idx] for x in fields),
+                        _carry_map(lambda x: x[idx], h0)))
+        return out
+
+    each = tcfg.epoch_shuffle == "each"
+    key, pkeys = partition_keys(key, E, each)
+    rows = optimizer.step_rows(opt_state.count, E * M, adv.device)
+    params, opt_state, losses = minibatch_epochs(
+        params, opt_state,
+        loss_fn=replay_loss_fn(tcfg.clip_eps, tcfg.value_coef, ent_coef,
+                               kl_coeff, tcfg.mask_actions, precision,
+                               normalize_adv=True),
+        minibatches=((lambda e: partition(pkeys[e])) if each
+                     else partition(pkeys[0])),
+        num_epochs=E, update_fn=optimizer.update_fn(rows, opt_state.count))
+    return params, opt_state, key, losses
 
 
 def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
@@ -160,6 +219,11 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
     dtype = tcfg.model_dtype
     model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
                        device=device, dtype=dtype)
+    problems = grad_problems_rnn(tcfg)
+    grad_kernel = not problems
+    backends = make_backends(device, problems)
+    state_shuffle = tcfg.epoch_shuffle == "once"
+    precision = model_precision(dtype)
     if device.type == "cuda":  # the env kernels' (agents, queue) shapes
         check_kernel_shape(cfg)
 
@@ -176,10 +240,12 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
     def step(rs: RunnerStateRNN, act_fn, sgd_fn, mark=None):
         mark = mark or (lambda name: None)
         key = rs.key
-        perm = rng.permutation(rng.fold_in(key, PERM_SALT), B)
-        env_in = EnvState(**{f: getattr(rs.env_state, f)[perm]
-                             for f in STATE_FIELDS})
-        h0 = _carry_map(lambda x: x[perm], rs.carry)
+        env_in, h0 = rs.env_state, rs.carry
+        if state_shuffle:
+            perm = rng.permutation(rng.fold_in(key, PERM_SALT), B)
+            env_in = EnvState(**{f: getattr(rs.env_state, f)[perm]
+                                 for f in STATE_FIELDS})
+            h0 = _carry_map(lambda x: x[perm], rs.carry)
         # K7 and the learner read the carry in float32 (a bf16 one cast up).
         h0_f32 = _carry_map(lambda x: x.float(), h0)
         new_env, roll, reset_key, key, new_carry = act_fn(
@@ -203,24 +269,29 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
 
         with torch.no_grad():
             _, last_value, _ = apply_rnn(rs.params, last_obs, last_h,
-                                         precision=model_precision(dtype))
+                                         precision=precision)
         adv, targets = gae(traj.reward, traj.value, traj.done, last_value,
                            tcfg.gamma, tcfg.gae_lambda, None)
-        adv_n = normalize_adv_env_minibatch(adv, M)
         ent_coef = entropy_coef_at(tcfg, rs.update_idx)
-        rows = optimizer.step_rows(rs.opt_state.count, n_steps, device)
-        mark("gae")
-
-        params, opt_state, losses = sgd_fn(
-            rs.params, rs.opt_state, traj, adv_n, targets, h0_f32, *rows,
-            ent_coef, rs.kl_coeff, num_epochs=tcfg.ppo_epochs,
-            num_minibatches=M, clip_eps=tcfg.clip_eps,
-            value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
-            mask_actions=tcfg.mask_actions, matmul_dtype=dtype)
+        if sgd_fn is None:  # the plain learner phase (M-4)
+            mark("gae")
+            params, opt_state, key, losses = rnn_plain_phase(
+                tcfg, optimizer, rs.params, rs.opt_state, key, traj, adv,
+                targets, h0, ent_coef, rs.kl_coeff, state_shuffle, precision)
+        else:
+            adv_n = normalize_adv_env_minibatch(adv, M)
+            rows = optimizer.step_rows(rs.opt_state.count, n_steps, device)
+            mark("gae")
+            params, opt_state, losses = sgd_fn(
+                rs.params, rs.opt_state, traj, adv_n, targets, h0_f32, *rows,
+                ent_coef, rs.kl_coeff, num_epochs=tcfg.ppo_epochs,
+                num_minibatches=M, clip_eps=tcfg.clip_eps,
+                value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
+                mask_actions=tcfg.mask_actions, matmul_dtype=dtype)
+            # The key split the JAX scaffold spends on its partition.
+            key, _ = partition_keys(key, tcfg.ppo_epochs, False)
         mark("sgd")
 
-        # The key split the JAX XLA scaffold spends on its partition.
-        key = rng.split(key, 2)[0]
         metrics, kl_coeff = update_metrics(tcfg, losses, rs.kl_coeff, roll)
         new = RunnerStateRNN(params=params, opt_state=opt_state,
                              env_state=env_state, obs=last_obs, carry=last_h,
@@ -232,12 +303,14 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
         """One update through the kernels (plain twins on the CPU).
         ``mark(name)``, if given, is called after the acting, GAE and SGD
         phases (for timing)."""
-        return step(rs, ppo_rnn_rollout, ppo_rnn_sgd_phase, mark)
+        return step(rs, ppo_rnn_rollout,
+                    ppo_rnn_sgd_phase if grad_kernel else None, mark)
 
     def plain_step(rs: RunnerStateRNN, mark=None):
         """The same update through the plain PyTorch twins."""
         return step(rs, ppo_rnn_rollout_reference,
-                    ppo_rnn_sgd_phase_reference, mark)
+                    ppo_rnn_sgd_phase_reference if grad_kernel else None,
+                    mark)
 
     def train_many(rs: RunnerStateRNN, n: int):
         """n updates; metrics stacked ``[n]``."""
@@ -246,4 +319,5 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
     return PPORNNTrainer(init=init, train_step=train_step,
                          train_many=train_many, plain_step=plain_step,
                          model=model, optimizer=optimizer, env_cfg=cfg,
-                         tcfg=tcfg, arch=arch, device=device)
+                         tcfg=tcfg, arch=arch, device=device,
+                         backends=backends)
