@@ -174,13 +174,22 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    K11/K12 on bf16 operands) at ``--model-dtype bfloat16``, the first
    update held against the plain path's, the trained policy served;
 29. ``k10_groups_check``: K10 with policy groups (each row through its
-   agent's group's convolutions, trunk and head) with the checks of
-   ``k2_check`` against the plain multi-policy CNN: at config 4 with ``(0,
-   1, 0, 1)`` (B = 4096, T = 16) and on shelves with ``(0, 0, 0, 1, 1, 1)``,
-   masked and shaped, at B = 2048 (the recipe's shapes), each counted on
-   the group route; an ungrouped K10 launch after them bit-equal to one
-   before them;
-30. ``shelves_cnn_groups_train`` (main path): the walled recipe with
+   agent's group's convolutions, trunk and head, one pass per group) with
+   the checks of ``k2_check`` against the plain multi-policy CNN: at config
+   4 with ``(0, 1, 0, 1)`` (B = 4096, T = 16) and on shelves with ``(0, 0,
+   0, 1, 1, 1)``, masked and shaped, at B = 2048 (the recipe's shapes);
+   then one policy per agent at config 4 ``(0, 1, 2, 3)``, two groups on
+   the 9x9 global view and one policy per agent on the 8-agent preset
+   (masked and shaped), each launched twice on the same inputs, bit-equal;
+   each counted on the group route; an ungrouped K10 launch after them
+   bit-equal to one before them;
+30. ``repro_check``: the plain CNN learner's bits: 5 updates of the
+   grouped-CNN shelves recipe twice, params, moments, env state and key
+   bit-equal, then a run saved at update 3 and restored to 5 bit-equal to
+   the unbroken one (``models.policy.conv_flags``: IEEE float32,
+   deterministic cuDNN); the whole script runs under torch's default
+   flags;
+31. ``shelves_cnn_groups_train`` (main path): the walled recipe with
    ``--arch cnn --policy-groups 0,0,0,1,1,1`` at 2048 envs, its
    ``backends`` ``{"rollout": "cuda", "grad": "plain"}`` (the JAX trainer's
    fused CNN learner is single-policy, so its SGD phase is XLA there and
@@ -190,17 +199,28 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    over updates 91-100, a checkpoint at 100 served by
    ``Policy.from_checkpoint``; the curve goes to
    ``runs/torch_shelves_cnn_groups/metrics.jsonl``;
-31. ``rllib_cadence_train`` (main path): config 4 with ``--rllib-cadence``
+32. ``rllib_cadence_train`` (main path): config 4 with ``--rllib-cadence``
    (flat minibatches reshuffled every epoch), the first 50 of 80 updates
    (K2 + the plain flat SGD phase), a learning check over updates 41-50;
-32. ``m4_check``: 3 config-4 updates of PPO with ``--micro-batches 2``, PPO
+33. ``cnn_per_agent_train`` (main path): config 4 with ``--arch cnn
+   --policy-groups 0,1,2,3`` (one CNN per agent), as the grouped CNN path
+   above: the first update against the plain path's, 50 updates of a
+   300-update run, a learning check over updates 41-50, the checkpoint
+   served; the curve goes to ``runs/torch_cnn_per_agent/metrics.jsonl``;
+34. ``cnn_global_groups_train`` (main path): 3 config-4 updates of ``--arch
+   cnn --global-obs --policy-groups 0,1,0,1`` (K10 on the 9x9 map, the
+   plain learner), the first update against the plain path's;
+35. ``m4_check``: 3 config-4 updates of PPO with ``--micro-batches 2``, PPO
    with the flat optimizer, the GRU with ``--epoch-shuffle each``, IMPALA
    (Adam) with ``--micro-batches 2`` and with the flat optimizer, each
    update held against ``plain_step`` from the same state, the acting
    kernel and the plain learner's split timed, ``backends`` printed.
 
-Every main path but the last three reports ``backends`` ``{"rollout":
-"cuda", "grad": "cuda"}``.
+Every main path but ``shelves_cnn_groups_train``, ``rllib_cadence_train``,
+``cnn_per_agent_train`` and ``cnn_global_groups_train`` (acting kernel,
+plain learner) reports ``backends`` ``{"rollout": "cuda", "grad":
+"cuda"}``. The checks (1-6, 11, 12, 14, 15, 17, 20, 24, 26, 29, 30, 35)
+run before the main paths.
 
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit. The kernels' launch counts are zeroed just before each
@@ -230,8 +250,8 @@ import time
 
 import torch
 
-from warehouse_tpu_torch import (TrainConfig, medium_config, rng,
-                                 shelves_config)
+from warehouse_tpu_torch import (TrainConfig, large_config, medium_config,
+                                 rng, shelves_config)
 from warehouse_tpu_torch.env.batch import (observe_batch, reset_batch,
                                            reset_truncated_batch,
                                            step_batch)
@@ -299,6 +319,12 @@ CNN_GROUPS_UPDATES = 100  # updates of the shelves_cnn_groups_train phase
 CNN_GROUPS_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 91-100
 CNN_GROUPS_METRICS_OUT = "runs/torch_shelves_cnn_groups/metrics.jsonl"
 RLLIB_LEARN_MIN = 0.15  # rllib_cadence_train: over updates 41-50
+PER_AGENT = (0, 1, 2, 3)  # one CNN per config-4 agent (RLlib's per-agent map)
+CNN_PER_AGENT_UPDATES = 50  # of its 300-update schedule (cnn_train's depth)
+CNN_PER_AGENT_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 41-50
+CNN_PER_AGENT_METRICS_OUT = "runs/torch_cnn_per_agent/metrics.jsonl"
+CNN_GLOBAL_GROUPS_UPDATES = 3  # updates of the cnn_global_groups_train path
+REPRO_UPDATES, REPRO_SAVE = 5, 3  # repro_check: run length, checkpoint
 M4_UPDATES = 3          # m4_check: updates per case
 KERNELS = {"rollout": "cuda", "grad": "cuda"}  # a path's routes: kernels
 PLAIN_GRAD = {"rollout": "cuda", "grad": "plain"}  # acting kernel, plain SGD
@@ -556,7 +582,7 @@ def shaped_start(cfg, model, state, truncating, dev, groups=None):
 
 def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
              truncating=False, B=CHECK_B, phase=None, wide=False,
-             groups=None):
+             groups=None, rerun=False):
     """K2 (or, for a CNN model, K10) against the plain engine replaying
     its actions and the plain model on its observations, then timed beside
     its twin; with ``mask_actions`` also its mask against
@@ -571,7 +597,8 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
     hold) so must the count of launches on the wide route, else it must
     not. With ``groups`` the model is a ``MultiPolicyActorCritic`` held to
     the plain multi-policy model (of MLPs: K2; of CNNs: K10), and the count
-    of grouped launches must move."""
+    of grouped launches must move. With ``rerun`` a second launch on the
+    same inputs must give the same bits."""
     cnn = act.is_cnn_model(model)
     K, steps = ("K10", act.act_cnn_steps) if cnn else ("K2", act.act_steps)
     T, A = SLICE_T, cfg.num_agents
@@ -678,6 +705,16 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
                   | ~clear).all())
     require(max(err.values()) <= TOL, f"{K}: policy outputs off by {err}")
     require(agree, f"{K}: actions differ where the top-two gap is clear")
+    if rerun:
+        again = steps(cfg, model, state, u, pick, drop, g,
+                      mask=None if mask is None else torch.empty_like(mask),
+                      shaping=shaping and shaping._replace(
+                          raw_reward=torch.empty_like(shaping.raw_reward)),
+                      **gkw)
+        require(state_equal(again[0], ks) and all(
+            bits_equal(a, b) for a, b in zip(
+                again[1:], (obs, action, lp, value, reward, delivered))),
+            f"{K}: a second launch on the same inputs gave other bits")
 
     # The kernel alone and its twin on the same inputs, main-path shapes.
     k_ms = timed(lambda: steps(cfg, model, state, u, pick, drop, g,
@@ -690,6 +727,7 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
            "obs_dim": cfg.obs_dim, "mask_actions": mask_actions,
            "wide_route": wide, "policy_groups": groups,
            "B": B, "T": T, "max_abs_err": err, "tol": TOL,
+           "rerun_bit_equal": True if rerun else None,
            "actions_agree_where_gap_gt_tol": agree,
            "clear_share": float(clear.float().mean()),
            "kernel_ms": k_ms, "plain_ms": p_ms}
@@ -1460,13 +1498,16 @@ def run_updates(tr, n, what, dev, hook=None, backends=KERNELS):
 
 
 def serve_mlp(cfg, tr, rs):
-    """The trained feed-forward (MLP or CNN) policy served on the run's
-    last observations."""
+    """The trained feed-forward (MLP or CNN, with or without policy
+    groups) policy served on the run's last observations."""
     tr.model.load_state_dict(rs.params)
-    acts, _ = Policy(cfg, tr.model).compute_actions(rs.obs)
+    groups = getattr(tr, "policy_groups", None)  # IMPALA's has none
+    acts, _ = Policy(cfg, tr.model, policy_groups=groups).compute_actions(
+        rs.obs)
     with torch.no_grad():
-        logits, _ = apply(rs.params, rs.obs,
-                          precision=model_precision(tr.model.dtype))
+        logits, _ = apply(rs.params, rs.obs, None if groups is None else
+                          torch.tensor(groups, device=rs.obs.device),
+                          precision=model_precision(tr.tcfg.model_dtype))
     require(acts.shape == rs.obs.shape[:2] and torch.equal(
         acts, first_argmax(logits, -1).to(torch.int32)),
         "serve: actions differ from the argmax of the trained policy")
@@ -1758,6 +1799,22 @@ def cnn_global_train_phase(dev, cfg):
           "first_update_kernel_vs_plain": first, "tol": STEP_METRIC_TOL})
 
 
+def cnn_global_groups_train_phase(dev, cfg):
+    """3 config-4 updates of ``--arch cnn --global-obs --policy-groups
+    0,1,0,1``: K10 on the 9x9 map in one pass per group, the plain learner
+    through both CNNs at S = 9; the first update against the plain path's,
+    then the trained policy served."""
+    tr = make_train(cfg, TrainConfig(num_updates=CNN_SCHEDULE), arch="cnn",
+                    device=dev, policy_groups=CONFIG4_GROUPS)
+    first = first_update_vs_plain(tr, dev, "cnn_global_groups_train")
+    rs, out = run_updates(tr, CNN_GLOBAL_GROUPS_UPDATES,
+                          "cnn_global_groups_train", dev, backends=PLAIN_GRAD)
+    serve_mlp(cfg, tr, rs)
+    emit({"phase": "cnn_global_groups_train", "obs_dim": cfg.obs_dim,
+          "policy_groups": CONFIG4_GROUPS, **out,
+          "first_update_kernel_vs_plain": first, "tol": STEP_METRIC_TOL})
+
+
 def first_update_vs_plain(tr, dev, what):
     """One update through the kernels and one through the plain path from
     the same state: their metrics, which must agree."""
@@ -1966,9 +2023,14 @@ def cnn_groups_model(cfg, groups, dev):
 def k10_groups_check(dev, cfg, shelves):
     """K10 with policy groups against the plain multi-policy CNN at config
     4 ``(0, 1, 0, 1)`` and on the shelves recipe's shapes (``(0, 0, 0, 1,
-    1, 1)``, masked, shaped, 2048 envs); an ungrouped K10 launch after them
-    bit-equal to one before them. Returns the shelves results for the
-    kernels line."""
+    1, 1)``, masked, shaped, 2048 envs); then at the maps whose rows only
+    one group at a time fits: one policy per agent at config 4 ``(0, 1, 2,
+    3)`` (the ``cnn_per_agent_train`` path's shapes), two groups on the 9x9
+    global view (``cnn_global_groups_train``'s) and one policy per agent on
+    the 8-agent preset, masked and shaped, each launched twice on the same
+    inputs, bit-equal; an ungrouped K10 launch after them bit-equal to one
+    before them. Returns the results of the shelves recipe, of one policy
+    per agent and of the global view for the kernels line."""
     model = cnn_model(cfg, dev)
     state, _ = reset_envs(cfg, CHECK_B, SEED + 1, dev)
     _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, SLICE_T)
@@ -1981,6 +2043,20 @@ def k10_groups_check(dev, cfg, shelves):
     out = k2_check(dev, "shelves_cnn_groups", shelves,
                    cnn_groups_model(shelves, GROUPS, dev), True, shaped=True,
                    B=GROUPS_B, phase="k10_groups_check", groups=GROUPS)
+    per_agent = k2_check(dev, "medium_cnn_per_agent", cfg,
+                         cnn_groups_model(cfg, PER_AGENT, dev),
+                         phase="k10_groups_check", groups=PER_AGENT,
+                         rerun=True)
+    medium_g = cfg.replace(global_obs=True)
+    glob = k2_check(dev, "medium_global_cnn_groups", medium_g,
+                    cnn_groups_model(medium_g, CONFIG4_GROUPS, dev),
+                    phase="k10_groups_check", groups=CONFIG4_GROUPS,
+                    rerun=True)
+    large = large_config()
+    eight = tuple(range(large.num_agents))
+    k2_check(dev, "large_cnn_per_agent", large,
+             cnn_groups_model(large, eight, dev), True, shaped=True,
+             phase="k10_groups_check", groups=eight, rerun=True)
     after = act.act_cnn_steps(cfg, model, state, u, pick, drop, g)
     torch.cuda.synchronize()
     require(state_equal(before[0], after[0]) and all(
@@ -1988,45 +2064,44 @@ def k10_groups_check(dev, cfg, shelves):
         "K10: an ungrouped launch after the grouped ones gave other bits")
     emit({"phase": "k10_groups_check", "config": "medium",
           "ungrouped_bits_equal_after_grouped": True})
-    return out
+    return out, per_agent, glob
 
 
-def shelves_cnn_groups_train_phase(dev, cfg):
-    """The walled recipe with ``--arch cnn --policy-groups 0,0,0,1,1,1`` at
-    2048 envs: grouped K10 acting and the plain learner; the first update
-    against the plain path's, then its first 100 updates, a checkpoint at
-    the end served by ``Policy.from_checkpoint``, the curve to
-    ``runs/torch_shelves_cnn_groups/metrics.jsonl``."""
-    tcfg, n = groups_tcfg(), CNN_GROUPS_UPDATES
-    tr = make_train(cfg, tcfg, arch="cnn", device=dev, policy_groups=GROUPS)
-    first = first_update_vs_plain(tr, dev, "shelves_cnn_groups_train")
+def grouped_cnn_curve(dev, cfg, tcfg, groups, n, what, env, metrics_out,
+                      learn_min):
+    """The first update of the grouped-CNN trainer against the plain path's,
+    then its first ``n`` updates (K10 with groups + the plain learner), a
+    checkpoint at the end served by ``Policy.from_checkpoint``, the curve to
+    ``metrics_out``, a learning check on deliveries per env-step over the
+    last 10 updates."""
+    tr = make_train(cfg, tcfg, arch="cnn", device=dev, policy_groups=groups)
+    first = first_update_vs_plain(tr, dev, what)
     rows = []
     with tempfile.TemporaryDirectory() as ckpt_dir:
         write_policy_meta(ckpt_dir, cfg, tcfg, arch="cnn",
-                          policy_groups=GROUPS)
+                          policy_groups=groups)
 
         def hook(u, rs, m):
             rows.append({"step": u, **{k: float(v) for k, v in m.items()}})
             if u == n:
                 checkpoint.save(ckpt_dir, u, rs)
 
-        rs, out = run_updates(tr, n, "shelves_cnn_groups_train", dev, hook,
-                              backends=PLAIN_GRAD)
-        gids = torch.tensor(GROUPS, device=dev)
+        rs, out = run_updates(tr, n, what, dev, hook, backends=PLAIN_GRAD)
+        gids = torch.tensor(groups, device=dev)
         with torch.no_grad():
             logits, _ = apply(rs.params, rs.obs, gids)
         want = first_argmax(logits, -1).to(torch.int32)
         served = Policy.from_checkpoint(ckpt_dir, device=dev)
         acts, _ = served.compute_actions(rs.obs)
-        require(served.policy_groups == GROUPS and served.arch == "cnn"
-                 and served.mask_actions,
+        require(served.policy_groups == groups and served.arch == "cnn"
+                 and served.mask_actions == tcfg.mask_actions,
                  "serve: the checkpoint's meta lost the CNN, groups or mask")
         require(torch.equal(acts, want),
                 "serve: the checkpoint's policy differs from the trained one")
-    os.makedirs(os.path.dirname(CNN_GROUPS_METRICS_OUT), exist_ok=True)
-    with open(CNN_GROUPS_METRICS_OUT, "w") as f:
+    os.makedirs(os.path.dirname(metrics_out), exist_ok=True)
+    with open(metrics_out, "w") as f:
         f.write(json.dumps({"meta": True, "algo": "ppo", "arch": "cnn",
-                            "env": "shelves", "policy_groups": list(GROUPS),
+                            "env": env, "policy_groups": list(groups),
                             "backends": tr.backends,
                             "device": torch.cuda.get_device_name(0),
                             "train_config": json.loads(tcfg.to_json())})
@@ -2034,16 +2109,87 @@ def shelves_cnn_groups_train_phase(dev, cfg):
         f.writelines(json.dumps(r) + "\n" for r in rows)
     deliveries = out["deliveries_per_env_step"]
     late = sum(deliveries[-10:]) / 10
-    emit({"phase": "shelves_cnn_groups_train", "policy_groups": GROUPS,
-          **out, "deliveries_at": {u: deliveries[u - 1]
-                                   for u in range(20, n + 1, 20)},
-          "deliveries_91_100": late, "learn_min": CNN_GROUPS_LEARN_MIN,
+    emit({"phase": what, "policy_groups": groups, **out,
+          "deliveries_at": {u: deliveries[u - 1]
+                            for u in range(10, n + 1, 10)},
+          f"deliveries_{n - 9}_{n}": late, "learn_min": learn_min,
           "first_update_kernel_vs_plain": first, "tol": STEP_METRIC_TOL,
-          "served_actions_equal": True,
-          "metrics_file": CNN_GROUPS_METRICS_OUT})
-    require(late >= CNN_GROUPS_LEARN_MIN,
-            f"shelves_cnn_groups_train: deliveries/env-step {late} over "
-            f"updates 91-100 is below {CNN_GROUPS_LEARN_MIN}")
+          "served_actions_equal": True, "metrics_file": metrics_out})
+    require(late >= learn_min,
+            f"{what}: deliveries/env-step {late} over updates {n - 9}-{n} is "
+            f"below {learn_min}")
+
+
+def shelves_cnn_groups_train_phase(dev, cfg):
+    """The walled recipe with ``--arch cnn --policy-groups 0,0,0,1,1,1`` at
+    2048 envs: grouped K10 acting and the plain learner, 100 updates of its
+    300-update schedule, the curve to
+    ``runs/torch_shelves_cnn_groups/metrics.jsonl``."""
+    grouped_cnn_curve(dev, cfg, groups_tcfg(), GROUPS, CNN_GROUPS_UPDATES,
+                      "shelves_cnn_groups_train", "shelves",
+                      CNN_GROUPS_METRICS_OUT, CNN_GROUPS_LEARN_MIN)
+
+
+def cnn_per_agent_train_phase(dev, cfg):
+    """Config 4 with ``--arch cnn --policy-groups 0,1,2,3``: one CNN per
+    agent, K10 acting in one pass per group and the plain learner, 50
+    updates of its 300-update schedule (``cnn_train``'s), the curve to
+    ``runs/torch_cnn_per_agent/metrics.jsonl``."""
+    grouped_cnn_curve(dev, cfg, TrainConfig(num_updates=CNN_SCHEDULE),
+                      PER_AGENT, CNN_PER_AGENT_UPDATES, "cnn_per_agent_train",
+                      "medium", CNN_PER_AGENT_METRICS_OUT,
+                      CNN_PER_AGENT_LEARN_MIN)
+
+
+def repro_check(dev, cfg):
+    """The plain CNN learner on the card gives the same bits on every run:
+    5 updates of the grouped-CNN shelves recipe twice from ``PRNGKey(0)``,
+    params, Adam moments, env state and key bit-equal; then a run saved at
+    update 3, restored into a fresh state and run to 5, bit-equal to the
+    unbroken run. Both runs' updates timed by CUDA events."""
+    tcfg = groups_tcfg()
+    tr = make_train(cfg, tcfg, arch="cnn", device=dev, policy_groups=GROUPS)
+    require(tr.backends == PLAIN_GRAD, f"repro_check: backends {tr.backends}")
+
+    def run(rs, n, hook=None):
+        splits = []
+        for u in range(n):
+            marks = Marks()
+            rs, _ = tr.train_step(rs, mark=marks)
+            splits.append(marks.split())
+            if hook:
+                hook(u + 1, rs)
+        return rs, splits
+
+    def same(a, b):
+        return (all(bits_equal(a.params[k], b.params[k])
+                    and bits_equal(a.opt_state.mu[k], b.opt_state.mu[k])
+                    and bits_equal(a.opt_state.nu[k], b.opt_state.nu[k])
+                    for k in a.params)
+                and state_equal(a.env_state, b.env_state)
+                and torch.equal(a.key, b.key))
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        def save_at(u, rs):
+            if u == REPRO_SAVE:
+                checkpoint.save(ckpt_dir, u, rs)
+
+        first, splits = run(tr.init(rng.prng_key(0, dev)), REPRO_UPDATES,
+                            save_at)
+        second, splits2 = run(tr.init(rng.prng_key(0, dev)), REPRO_UPDATES)
+        resumed = checkpoint.restore(ckpt_dir, REPRO_SAVE,
+                                     tr.init(rng.prng_key(SEED + 12, dev)))
+        resumed, _ = run(resumed, REPRO_UPDATES - REPRO_SAVE)
+    rerun_equal, resume_equal = same(first, second), same(first, resumed)
+    emit({"phase": "repro_check", "policy_groups": GROUPS, "B": tcfg.num_envs,
+          "updates": REPRO_UPDATES, "resume_from": REPRO_SAVE,
+          "rerun_bit_equal": rerun_equal, "resume_bit_equal": resume_equal,
+          "sgd_ms": [s["sgd"] for s in splits + splits2],
+          "update_ms": [s["total"] for s in splits + splits2]})
+    require(rerun_equal, "repro_check: two runs of the plain CNN learner "
+            "gave other bits")
+    require(resume_equal, "repro_check: the resumed run differs from the "
+            "unbroken one")
 
 
 def rllib_cadence_train_phase(dev, cfg):
@@ -2210,8 +2356,6 @@ def main(argv=()) -> int:
         print("chip_smoke: no CUDA device; this script has no CPU path",
               file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
@@ -2251,7 +2395,8 @@ def main(argv=()) -> int:
     k9_check(dev, cfg, "lstm")
     checks["ppo_rnn_sgd_phase"] = k8_check(dev, cfg, "gru")
     checks["ppo_rnn_minibatch_grads"] = k9_check(dev, cfg, "gru")
-    # The CNN kernels, against true convolutions (cuDNN, TF32 off above).
+    # The CNN kernels, against true convolutions (IEEE float32 in cuDNN:
+    # models.policy.conv_flags).
     checks["ppo_rollout_cnn"] = k2_check(dev, "medium", cfg,
                                          cnn_model(cfg, dev))
     k2_check(dev, "shelves", shelves, cnn_model(shelves, dev),
@@ -2310,75 +2455,95 @@ def main(argv=()) -> int:
     # bf16 operands in the learners: config 4's numbers (the GRU's for K8 /
     # K9) go into the kernels line.
     checks.update(bf16_check(dev, cfg, shelves, shelves_g, medium_g))
-    # K10 with groups: the shelves recipe's shapes go into the kernels line.
-    checks["ppo_rollout_cnn_groups"] = k10_groups_check(dev, cfg, shelves)
+    # K10 with groups: the shelves recipe's shapes, one policy per agent and
+    # the global view go into the kernels line.
+    (checks["ppo_rollout_cnn_groups"], checks["ppo_rollout_cnn_per_agent"],
+     checks["ppo_rollout_cnn_groups_global"]) = k10_groups_check(dev, cfg,
+                                                                  shelves)
+    # The plain CNN learner gives the same bits on every run.
+    repro_check(dev, shelves)
     # The learner options no kernel computes, on the card.
     m4_check(dev, cfg)
 
     # ---- the main paths: each counted from just before it -------------
     rnn_kernels = ["ppo_rnn_rollout", "ppo_rnn_sgd_phase",
                    "ppo_rnn_minibatch_grads"]
-    paths = [
-        main_path("k1_episodes", lambda: k1_episodes(dev),
-                  ["greedy_rollout"]),
-        main_path("slice", lambda: slice_phase(dev, cfg, model),
-                  ["ppo_rollout"]),
-        main_path("train", lambda: train_phase(dev, cfg),
-                  ["ppo_rollout", "ppo_sgd_phase", "ppo_minibatch_grads"]),
-        main_path("impala_train", lambda: impala_train_phase(dev, cfg),
-                  ["ppo_rollout", "impala_sgd_phase",
-                   "impala_minibatch_grads"]),
-        main_path("rnn_train_gru", lambda: rnn_train_phase(dev, cfg, "gru"),
-                  rnn_kernels),
-        main_path("rnn_train_lstm", lambda: rnn_train_phase(dev, cfg, "lstm"),
-                  rnn_kernels),
-        main_path("cnn_train", lambda: cnn_train_phase(dev, cfg),
-                  ["ppo_rollout_cnn", "ppo_cnn_sgd_phase",
-                   "ppo_cnn_minibatch_grads"]),
-        main_path("shelves_train", lambda: shelves_train_phase(dev, shelves),
-                  ["ppo_rollout", "ppo_rollout_shaped", "ppo_sgd_phase",
-                   "ppo_minibatch_grads"]),
-        main_path("shelves_cnn_train",
-                  lambda: shelves_cnn_train_phase(dev, shelves),
-                  ["ppo_rollout_cnn", "ppo_rollout_cnn_shaped",
-                   "ppo_cnn_sgd_phase", "ppo_cnn_minibatch_grads"]),
-        main_path("shelves_global_train",
-                  lambda: shelves_global_train_phase(dev, shelves_g),
-                  ["ppo_rollout_global", "ppo_rollout_wide",
-                   "ppo_rollout_shaped", "ppo_sgd_phase_global",
-                   "ppo_minibatch_grads_global"]),
-        main_path("cnn_global_train",
-                  lambda: cnn_global_train_phase(dev, medium_g),
-                  ["ppo_rollout_cnn_global", "ppo_cnn_sgd_phase_global",
-                   "ppo_cnn_minibatch_grads_global"]),
-        main_path("hidden256_train",
-                  lambda: hidden256_train_phase(dev, cfg),
-                  ["ppo_rollout_wide", "ppo_sgd_phase",
-                   "ppo_minibatch_grads"]),
-        main_path("shelves_groups_train",
-                  lambda: shelves_groups_train_phase(dev, shelves),
-                  ["ppo_rollout_groups", "ppo_rollout_wide",
-                   "ppo_rollout_shaped", "ppo_sgd_phase_groups",
-                   "ppo_minibatch_grads_groups"]),
-        main_path("gru_bf16_train", lambda: gru_bf16_train_phase(dev, cfg),
-                  ["ppo_rnn_rollout", "ppo_rnn_sgd_phase_bf16",
-                   "ppo_rnn_minibatch_grads_bf16"]),
-        main_path("ppo_bf16_train",
-                  lambda: ff_bf16_train_phase(dev, cfg, "mlp"),
-                  ["ppo_rollout", "ppo_sgd_phase_bf16",
-                   "ppo_minibatch_grads_bf16"]),
-        main_path("cnn_bf16_train",
-                  lambda: ff_bf16_train_phase(dev, cfg, "cnn"),
-                  ["ppo_rollout_cnn", "ppo_cnn_sgd_phase_bf16",
-                   "ppo_cnn_minibatch_grads_bf16"]),
-        main_path("shelves_cnn_groups_train",
-                  lambda: shelves_cnn_groups_train_phase(dev, shelves),
-                  ["ppo_rollout_cnn", "ppo_rollout_cnn_groups",
-                   "ppo_rollout_cnn_shaped"]),
-        main_path("rllib_cadence_train",
-                  lambda: rllib_cadence_train_phase(dev, cfg),
-                  ["ppo_rollout"])]
-    launches = {k: sum(p[k] for p in paths) for k in paths[0]}
+    # Each main path's launch counts, in the order the paths run.
+    paths = {name: main_path(name, fn, kernels) for name, fn, kernels in [
+        ("k1_episodes", lambda: k1_episodes(dev),
+         ["greedy_rollout"]),
+        ("slice", lambda: slice_phase(dev, cfg, model),
+         ["ppo_rollout"]),
+        ("train", lambda: train_phase(dev, cfg),
+         ["ppo_rollout", "ppo_sgd_phase", "ppo_minibatch_grads"]),
+        ("impala_train", lambda: impala_train_phase(dev, cfg),
+         ["ppo_rollout", "impala_sgd_phase",
+          "impala_minibatch_grads"]),
+        ("rnn_train_gru", lambda: rnn_train_phase(dev, cfg, "gru"),
+         rnn_kernels),
+        ("rnn_train_lstm", lambda: rnn_train_phase(dev, cfg, "lstm"),
+         rnn_kernels),
+        ("cnn_train", lambda: cnn_train_phase(dev, cfg),
+         ["ppo_rollout_cnn", "ppo_cnn_sgd_phase",
+          "ppo_cnn_minibatch_grads"]),
+        ("shelves_train", lambda: shelves_train_phase(dev, shelves),
+         ["ppo_rollout", "ppo_rollout_shaped", "ppo_sgd_phase",
+          "ppo_minibatch_grads"]),
+        ("shelves_cnn_train",
+         lambda: shelves_cnn_train_phase(dev, shelves),
+         ["ppo_rollout_cnn", "ppo_rollout_cnn_shaped",
+          "ppo_cnn_sgd_phase", "ppo_cnn_minibatch_grads"]),
+        ("shelves_global_train",
+         lambda: shelves_global_train_phase(dev, shelves_g),
+         ["ppo_rollout_global", "ppo_rollout_wide",
+          "ppo_rollout_shaped", "ppo_sgd_phase_global",
+          "ppo_minibatch_grads_global"]),
+        ("cnn_global_train",
+         lambda: cnn_global_train_phase(dev, medium_g),
+         ["ppo_rollout_cnn_global", "ppo_cnn_sgd_phase_global",
+          "ppo_cnn_minibatch_grads_global"]),
+        ("hidden256_train",
+         lambda: hidden256_train_phase(dev, cfg),
+         ["ppo_rollout_wide", "ppo_sgd_phase",
+          "ppo_minibatch_grads"]),
+        ("shelves_groups_train",
+         lambda: shelves_groups_train_phase(dev, shelves),
+         ["ppo_rollout_groups", "ppo_rollout_wide",
+          "ppo_rollout_shaped", "ppo_sgd_phase_groups",
+          "ppo_minibatch_grads_groups"]),
+        ("gru_bf16_train", lambda: gru_bf16_train_phase(dev, cfg),
+         ["ppo_rnn_rollout", "ppo_rnn_sgd_phase_bf16",
+          "ppo_rnn_minibatch_grads_bf16"]),
+        ("ppo_bf16_train",
+         lambda: ff_bf16_train_phase(dev, cfg, "mlp"),
+         ["ppo_rollout", "ppo_sgd_phase_bf16",
+          "ppo_minibatch_grads_bf16"]),
+        ("cnn_bf16_train",
+         lambda: ff_bf16_train_phase(dev, cfg, "cnn"),
+         ["ppo_rollout_cnn", "ppo_cnn_sgd_phase_bf16",
+          "ppo_cnn_minibatch_grads_bf16"]),
+        ("shelves_cnn_groups_train",
+         lambda: shelves_cnn_groups_train_phase(dev, shelves),
+         ["ppo_rollout_cnn", "ppo_rollout_cnn_groups",
+          "ppo_rollout_cnn_shaped"]),
+        ("rllib_cadence_train",
+         lambda: rllib_cadence_train_phase(dev, cfg),
+         ["ppo_rollout"]),
+        ("cnn_per_agent_train",
+         lambda: cnn_per_agent_train_phase(dev, cfg),
+         ["ppo_rollout_cnn", "ppo_rollout_cnn_groups"]),
+        ("cnn_global_groups_train",
+         lambda: cnn_global_groups_train_phase(dev, medium_g),
+         ["ppo_rollout_cnn", "ppo_rollout_cnn_groups",
+          "ppo_rollout_cnn_global"])]}
+    launches = {k: sum(p[k] for p in paths.values())
+                for k in paths["k1_episodes"]}
+    # K10's group route at the shapes only one pass per group holds: the
+    # launches of the paths that run them.
+    launches["ppo_rollout_cnn_per_agent"] = paths["cnn_per_agent_train"][
+        "ppo_rollout_cnn_groups"]
+    launches["ppo_rollout_cnn_groups_global"] = paths[
+        "cnn_global_groups_train"]["ppo_rollout_cnn_groups"]
 
     csrc = "warehouse_tpu_torch/kernels/csrc/"
     sources = {
@@ -2432,10 +2597,14 @@ def main(argv=()) -> int:
         "ppo_cnn_minibatch_grads_bf16": ("sgd_cnn.cu",
                                          "pallas/sgd_cnn.py:595"),
         # The policy-groups option of the CNN arm: each row through its
-        # agent's group's convolutions, trunk and head (rows group-major,
-        # every group's conv kernels staged), at the shelves CNN groups
-        # recipe's shapes.
-        "ppo_rollout_cnn_groups": ("act_cnn.cu", "pallas/act.py:1062")}
+        # agent's group's convolutions, trunk and head (one pass per group,
+        # that group's conv kernels staged), at the shelves CNN groups
+        # recipe's shapes, with one policy per agent at config 4, and with
+        # two groups on config 4's 9x9 global view.
+        "ppo_rollout_cnn_groups": ("act_cnn.cu", "pallas/act.py:1062"),
+        "ppo_rollout_cnn_per_agent": ("act_cnn.cu", "pallas/act.py:1062"),
+        "ppo_rollout_cnn_groups_global": ("act_cnn.cu",
+                                          "pallas/act.py:1062")}
     # library_ms: no single PyTorch call computes a whole rollout or a
     # whole learner phase, so it is null for every kernel here.
     emit({"kernels": [

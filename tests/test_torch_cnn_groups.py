@@ -15,10 +15,14 @@ from the JAX side, go through both, at small sizes (hidden 16, T = 4):
   bit-equal (the shaped reward within 1e-6: XLA:CPU contracts its sums),
   values and log-probs within 1e-5; plain on the small layout ``(1, 0)``,
   masked and shaped mid-episode on a 3-agent walled shelves layout ``(0,
-  1, 0)`` (the 6-agent preset takes minutes to compile in interpret mode);
-- ``make_train(arch="cnn", policy_groups=(0, 1))`` against the JAX trainer
+  1, 0)`` (the 6-agent preset takes minutes to compile in interpret mode),
+  one policy per agent there ``(0, 1, 2)`` and on the 4-agent map ``(0, 1,
+  2, 3)``, and two groups ``(0, 1, 0, 1)`` on the 9x9 global view;
+- ``make_train(arch="cnn", policy_groups=...)`` against the JAX trainer
   with ``rollout_backend="pallas"`` (interpret mode) and
-  ``grad_backend="xla"`` for 3 updates across an episode boundary: env
+  ``grad_backend="xla"`` for 3 updates across an episode boundary, with
+  ``(0, 1)`` on the small layout and one policy per agent on the 4-agent
+  map: env
   state, obs and keys bit-equal after every update, metrics within 2e-4 +
   1e-3 relative, params and Adam moments at ``tests/test_torch_train.py``'s
   bounds; ``backends`` plain on the CPU;
@@ -110,6 +114,12 @@ def test_params_from_flax_cnn_groups():
 ACT_CASES = {  # name: (config, groups, masked and shaped, start step)
     "small_10": (small_config(max_steps=T), (1, 0), False, 0),
     "walled3_masked_shaped": (WALLED3, (0, 1, 0), True, T),
+    # One policy per agent, and two groups on the 9x9 global view: the maps
+    # that need the kernel's one-group-at-a-time passes on the card.
+    "walled3_per_agent_masked_shaped": (WALLED3, (0, 1, 2), True, T),
+    "medium_per_agent": (medium_config(max_steps=T), (0, 1, 2, 3), False, 0),
+    "medium_global_0101": (medium_config(max_steps=T, global_obs=True),
+                           (0, 1, 0, 1), False, 0),
 }
 
 
@@ -160,7 +170,7 @@ def test_grouped_cnn_twin_matches_pallas_kernel(act_setup):
     np.testing.assert_allclose(lp.numpy(), np.asarray(j_roll.log_prob),
                                rtol=0, atol=1e-5)
     # The wrapper with the JAX wrapper's names; each agent's group's
-    # values, which differ from group 0's on group 1's agents.
+    # values, which differ from group 0's on the other groups' agents.
     _, roll, _, _ = ppo_rollout(cfg, m, ts, T, rng.prng_key(9),
                                 mask_actions=on, policy_groups=groups,
                                 shaping_coef=COEF if on else 0.0,
@@ -168,9 +178,9 @@ def test_grouped_cnn_twin_matches_pallas_kernel(act_setup):
     assert_bits(j_roll.truncated, roll.truncated, "truncated")
     with torch.no_grad():
         one = m.policies[0](roll.obs)[1]
-    g1 = torch.tensor(groups) == 1
-    assert torch.allclose(one[..., ~g1], roll.value[..., ~g1], atol=1e-5)
-    assert not torch.allclose(one[..., g1], roll.value[..., g1], atol=1e-5)
+    g0 = torch.tensor(groups) == 0
+    assert torch.allclose(one[..., g0], roll.value[..., g0], atol=1e-5)
+    assert not torch.allclose(one[..., ~g0], roll.value[..., ~g0], atol=1e-5)
 
 
 # ---- the trainer against the JAX trainer ------------------------------------
@@ -180,12 +190,15 @@ TCFG = TrainConfig(num_envs=16, unroll_length=4, num_updates=3,
                    kl_coeff=0.1, entropy_coef_final=0.001, mask_actions=True)
 
 
-def test_grouped_cnn_train_steps_match_jax_trainer():
+@pytest.mark.parametrize("cfg,groups", [
+    (small_config(max_steps=8), (0, 1)),
+    (medium_config(max_steps=8), (0, 1, 2, 3))], ids=["small_10",
+                                                      "medium_per_agent"])
+def test_grouped_cnn_train_steps_match_jax_trainer(cfg, groups):
     """3 masked updates from a carried-over state; the episode ends with
     update 2 (max_steps 8, T = 4). The JAX trainer acts through its Pallas
-    kernel with groups (interpret mode) and learns on XLA."""
-    cfg = small_config(max_steps=8)
-    groups = (0, 1)
+    kernel with groups (interpret mode) and learns on XLA. Two groups on
+    the small layout, and one policy per agent on the 4-agent map."""
     jtr = j_make_train(cfg, TCFG.replace(
         rollout_backend="pallas", pallas_interpret=True, pallas_block=16,
         grad_backend="xla"), arch="cnn", policy_groups=groups)

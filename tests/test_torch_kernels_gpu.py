@@ -508,6 +508,67 @@ def test_cnn_act_kernel_matches_plain_path(name, hidden, mask_on, dev):
     assert float((lp_plain - lp).abs().max()) < 1e-4
 
 
+@pytest.fixture
+def torch_default_dev():
+    """The card under torch's default flags (cuDNN on, TF32 convolutions
+    allowed, no autotuning, nondeterministic algorithms allowed), whatever
+    ``dev`` set before; the flags are restored after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.enabled, cudnn.benchmark, cudnn.deterministic,
+             cudnn.allow_tf32)
+    cudnn.enabled, cudnn.benchmark, cudnn.deterministic = True, False, False
+    cudnn.allow_tf32 = True
+    yield torch.device("cuda")
+    cudnn.enabled, cudnn.benchmark, cudnn.deterministic = saved[:3]
+    cudnn.allow_tf32 = saved[3]
+
+
+@pytest.mark.parametrize("name", ["medium", "medium_global"])
+def test_plain_cnn_value_is_f32_under_torch_defaults(name, torch_default_dev,
+                                                     monkeypatch):
+    """The plain CNN (``apply`` in float32, the trainers' last value and
+    bootstrap, the plain learner, serving) on the card under torch's
+    default flags: every convolution runs through cuDNN in IEEE float32,
+    its value within 1e-5 of the CPU twin's and of K10's on the same
+    observations (TF32 convolutions put it about 2e-4 off), and the
+    global flags are torch's defaults again after it."""
+    from warehouse_tpu_torch.kernels.act import act_cnn_steps
+    from warehouse_tpu_torch.models.policy import apply
+
+    dev = torch_default_dev
+    cfg = {"medium": medium_config(), "medium_global": GLOBAL["medium"]}[name]
+    A = cfg.num_agents
+    m = make_model(cfg, "cnn", generator=torch.Generator().manual_seed(0),
+                   device=dev)
+    params = dict(m.named_parameters())
+    state, obs = reset(cfg, 3, dev)
+    seen, conv2d = [], torch.nn.functional.conv2d
+
+    def spy(x, *args, **kw):
+        seen.append((torch.backends.cudnn.is_acceptable(x),
+                     torch.backends.cudnn.conv.fp32_precision))
+        return conv2d(x, *args, **kw)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    with torch.no_grad():
+        value = apply(params, obs)[1]
+    monkeypatch.undo()
+    assert seen and all(x == (True, "ieee") for x in seen), seen
+    cudnn = torch.backends.cudnn
+    assert (cudnn.enabled, cudnn.deterministic, cudnn.allow_tf32) == (
+        True, False, True)
+    with torch.no_grad():
+        twin = apply({k: v.cpu() for k, v in params.items()}, obs.cpu())[1]
+    assert float((value.cpu() - twin).abs().max()) <= 1e-5
+    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, 1)
+    _, g = rng.batched_gumbel_stream(rng.prng_key(4, dev), 1, (5, N * A))
+    out = act_cnn_steps(cfg, m, state, u, pick, drop, g)
+    assert torch.equal(out[1][0], obs)
+    assert float((out[4][0] - value).abs().max()) <= 1e-5
+
+
 # ---- K11 / K12: the CNN SGD phase and per-minibatch gradients ----------------
 
 @pytest.mark.parametrize("mask_on", [False, True])
@@ -681,13 +742,15 @@ def test_shaped_rollout_wrapper_launches_the_kernel(dev):
 GLOBAL = {name: cfg.replace(global_obs=True) for name, cfg in PRESETS.items()}
 
 
-def replay_check(cfg, m, run, dev, mask_on, shaped, steps=8, groups=None):
+def replay_check(cfg, m, run, dev, mask_on, shaped, steps=8, groups=None,
+                 rerun=False):
     """One chunk of ``run`` (K2 or K10) with the logits, and optionally the
-    mask and the shaping option (and, for K2, policy groups): the plain
-    engine replaying its actions gives its obs, raw and shaped rewards,
-    deliveries and final state bit for bit; logits, values and log-probs
-    within 1e-4 of the plain model on the kernel's observations (f32 sums
-    in another order)."""
+    mask and the shaping option (and policy groups): the plain engine
+    replaying its actions gives its obs, raw and shaped rewards, deliveries
+    and final state bit for bit; logits, values and log-probs within 1e-4
+    of the plain model on the kernel's observations (f32 sums in another
+    order). With ``rerun`` a second launch on the same inputs gives the
+    same bits."""
     from warehouse_tpu_torch.kernels.act import Shaping
     from warehouse_tpu_torch.kernels.rollout import f32
     from warehouse_tpu_torch.ops.pathing import potential
@@ -709,6 +772,17 @@ def replay_check(cfg, m, run, dev, mask_on, shaped, steps=8, groups=None):
     torch.cuda.synchronize()
     assert run.launches == before + 1
     bits = lambda x: x.view(torch.int32)
+    if rerun:
+        again = run(cfg, m, state, u, pick, drop, g,
+                    shaping=shaping and shaping._replace(
+                        raw_reward=torch.zeros_like(shaping.raw_reward)),
+                    mask=None if mask is None else torch.zeros_like(mask),
+                    **({} if groups is None else {"groups": groups}))
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(new, f), getattr(again[0], f)), f
+        for x, y in zip((obs, action, lp, value, reward, delivered),
+                        again[1:]):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
     s = state
     for t in range(steps):
         if mask_on:
@@ -1028,7 +1102,11 @@ CNN_GROUP_ACT_CASES = [  # (preset, hidden, groups, mask, shaped)
     ("shelves", 128, (0, 0, 0, 1, 1, 1), True, True),
     ("shelves", 16, (1, 0, 0, 1, 1, 0), True, False),
     ("small", 16, (1, 0), False, True),
-    ("large", 16, (0, 0, 1, 1, 0, 0, 1, 1), True, False)]
+    ("large", 16, (0, 0, 1, 1, 0, 0, 1, 1), True, False),
+    # One policy per agent, and two groups on the 9x9 global view.
+    ("medium", 128, (0, 1, 2, 3), True, True),
+    ("medium_global", 128, (0, 1, 0, 1), True, True),
+    ("large", 128, (0, 1, 2, 3, 4, 5, 6, 7), True, True)]
 
 
 @pytest.mark.parametrize("name,hidden,groups,mask_on,shaped",
@@ -1036,36 +1114,51 @@ CNN_GROUP_ACT_CASES = [  # (preset, hidden, groups, mask, shaped)
 def test_grouped_cnn_act_kernel_matches_plain_path(name, hidden, groups,
                                                    mask_on, shaped, dev):
     """K10 with policy groups: each agent's rows through its group's
-    convolutions, trunk and head (rows group-major, each group padded to 8),
-    held to the plain multi-policy CNN on the kernel's observations and the
-    plain engine replaying its actions, masked and shaped, on a ragged last
-    block; the group count moves."""
+    convolutions, trunk and head (one pass per group, its rows padded to
+    8), held to the plain multi-policy CNN on the kernel's observations and
+    the plain engine replaying its actions, masked and shaped, on a ragged
+    last block; a second launch gives the same bits; the group count
+    moves."""
     from warehouse_tpu_torch.kernels.act import act_cnn_steps
     from warehouse_tpu_torch.models import make_multi_policy_model
 
-    cfg = PRESETS[name]
+    cfg = {**PRESETS, "medium_global": GLOBAL["medium"]}[name]
     m = make_multi_policy_model(cfg, groups, "cnn", hidden_dim=hidden,
                                 generator=torch.Generator().manual_seed(0),
                                 device=dev)
     grouped = act_cnn_steps.group_launches
-    replay_check(cfg, m, act_cnn_steps, dev, mask_on, shaped, groups=groups)
-    assert act_cnn_steps.group_launches == grouped + 1
+    replay_check(cfg, m, act_cnn_steps, dev, mask_on, shaped, groups=groups,
+                 rerun=True)
+    assert act_cnn_steps.group_launches == grouped + 2
 
 
-def test_grouped_cnn_refuses_what_it_cannot_hold(dev):
-    """Every group's rows are padded to a multiple of 8 beside its staged
-    conv kernels: one policy per agent on config 4 (4 x 8 rows) and the 9 x
-    9 global map with two groups (2 x 8 rows of 18.8 KB) do not fit a block,
-    and the trainer refuses them by name when it is built."""
+@pytest.mark.parametrize("name,groups", [
+    ("medium", (0, 1, 2, 3)), ("medium_global", (0, 1, 0, 1)),
+    ("large", (0, 1, 2, 3, 4, 5, 6, 7)), ("shelves_global", (0, 0, 0, 1, 1, 1))])
+def test_grouped_cnn_refuses_what_it_cannot_hold(name, groups, dev):
+    """One group's rows at a time beside one group's conv kernels: one
+    policy per agent on config 4 and on the 8-agent preset, and two groups
+    on the 9 x 9 global map, build with K10 acting (the learner plain) and
+    one update acts through K10's group route; the 11 x 11 global map,
+    whose 8 rows alone (27.7 KB each) outgrow a block, is refused by name
+    when the trainer is built."""
     from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.kernels.act import act_cnn_steps
     from warehouse_tpu_torch.train import make_train
 
+    cfg = {**PRESETS, **{f"{k}_global": v for k, v in GLOBAL.items()}}[name]
     tcfg = TrainConfig(num_envs=64, num_updates=2)
-    for cfg, groups in ((medium_config(), (0, 1, 2, 3)),
-                        (GLOBAL["medium"], (0, 1, 0, 1))):
+    if name == "shelves_global":
         with pytest.raises(ValueError, match="policy_groups"):
             make_train(cfg, tcfg, arch="cnn", policy_groups=groups,
                        device=dev)
+        return
+    tr = make_train(cfg, tcfg, arch="cnn", policy_groups=groups, device=dev)
+    assert tr.backends == {"rollout": "cuda", "grad": "plain"}
+    grouped = act_cnn_steps.group_launches
+    _, m = tr.train_step(tr.init(rng.prng_key(0, dev)))
+    assert act_cnn_steps.group_launches == grouped + 1
+    assert all(bool(torch.isfinite(v)) for v in m.values())
 
 
 def test_grouped_cnn_trainer_matches_plain_step(dev):

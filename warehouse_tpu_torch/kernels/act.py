@@ -45,9 +45,9 @@ through its group's weights only (``pallas/act.py:1062-1076``, the
 trace-time selection of ``_act_kernel`` :325, :336-338, :409): the kernels
 pack the groups' weights one after another in group order. K2 orders a
 block's rows agent by agent, so that every register tile of its dense
-layers is one agent's, and so one group's; K10 orders them group by group,
-each group's rows padded with zero rows to a multiple of 8, and stages
-every group's conv kernels. The attention torso raises
+layers is one agent's, and so one group's; K10 runs one pass per group
+each step over that group's rows, padded with zero rows to a multiple of
+8, beside that group's conv kernels alone. The attention torso raises
 ``NotImplementedError``. The recurrent policies act through
 ``kernels.act_rnn.ppo_rnn_rollout``.
 
@@ -296,8 +296,8 @@ def _cnn_fits(cfg: EnvConfig, model, dev, groups=None):
         cfg.num_agents, cfg.queue_capacity, *net, k, gmap)
     limit = build.smem_limit(dev, smem)
     if not 0 < smem <= limit:
-        rows = ("each group's rows of whole envs padded to a multiple of 8, "
-                f"beside {k} groups' conv kernels" if groups is not None
+        rows = ("one env's rows of a group, padded to a multiple of 8, "
+                "beside one group's conv kernels" if groups is not None
                 else "whole envs making a multiple of 8 rows")
         raise ValueError(
             f"CNN act kernel needs {smem} bytes of shared memory per block "

@@ -32,16 +32,18 @@
 // packed vectors one after another in group order, and a static agent ->
 // group map; each row runs its agent's group's convolutions, trunk and head
 // only. A register tile of the conv and trunk loops applies one weight to
-// RRT = 8 rows, so every tile must be one group's. The rows are ordered
-// group-major: group 0's (env, agent) pairs env by env, padded with zero rows
-// to a multiple of 8, then group 1's, and so on (rowmap); a pad row computes
-// on zeros and is never written. Shelves' (0,0,0,1,1,1) at 2 envs a CTA is
-// 6 + 6 rows padded to 8 + 8, config 4's (0,1,0,1) at 4 envs 8 + 8 rows.
-// Every group's conv kernels are staged (~25 KB each at S = 5), so a CTA
-// holds fewer rows than without groups: cnn_act_envs_grouped counts the K
-// copies and the padding. The trunk of each group is transposed to its own
-// copy. The sample reads its pair's head row (pairrow), so the env tick sees
-// the actions env-major as without groups. Without groups the kernel keeps
+// RRT = 8 rows, so every tile must be one group's. Each step runs one pass
+// per group: stage that group's conv kernels, build the observations of its
+// (env, agent) pairs alone, env by env, padded with zero rows to a multiple
+// of 8 (a pad row is never read), run the convolutions, the trunk (its own
+// transposed copy) and the head over them, and copy each pair's head row
+// into a buffer of all the CTA's pairs, which the sample reads env-major as
+// without groups. Shared memory then holds one group's conv kernels and one
+// pass's rows, whatever K is, so a CTA keeps as many envs as make a pass of
+// at most CROWS rows (cnn_act_envs_grouped): 32 envs with one policy per
+// agent, 16 on config 4 with two groups, 4 on the 9 x 9 global view with
+// two. The restaging costs one group's ~25 KB from L2 per pass. Each row's
+// arithmetic is the same as without groups. Without groups the kernel keeps
 // its env-major rows and its code.
 //
 // Exactness: observations, rewards and the env dynamics are bit-exact
@@ -80,35 +82,36 @@ int cnn_act_envs(const CnnNet& net) {
 constexpr int CNN_MAXK = 8;  // policy groups
 constexpr int CNN_MAXA = 8;  // agents of a grouped env
 
-// Rows of a grouped CTA of `ne` envs: each group's ne n_g (env, agent) pairs
-// padded to a multiple of RRT.
-inline int grouped_rows(int ne, int K, const int* n_g) {
+// Rows of a grouped CTA's largest pass at `ne` envs: a group's ne n_g
+// (env, agent) pairs padded to a multiple of RRT.
+inline int pass_rows(int ne, int K, const int* n_g) {
   int rows = 0;
-  for (int g = 0; g < K; ++g) rows += (ne * n_g[g] + RRT - 1) / RRT * RRT;
+  for (int g = 0; g < K; ++g) {
+    const int r = (ne * n_g[g] + RRT - 1) / RRT * RRT;
+    if (r > rows) rows = r;
+  }
   return rows;
 }
 
-// Ints of a grouped CTA's row maps: rowmap, pairrow, tile groups.
-constexpr int GROUP_MAP_INTS = 2 * CROWS + CROWS / RRT;
-
-// Shared memory of a grouped CTA of `ne` envs (`rows` rows, K staged groups).
+// Shared memory of a grouped CTA of `ne` envs whose largest pass has `rows`
+// rows: one group's conv kernels, the pass's row buffers, every pair's head
+// row, the env states and the pass map.
 template <int A, int R>
-size_t act_cnn_grouped_smem(const CnnNet& net, int K, int ne, int rows) {
-  return sizeof(float) * ((size_t)K * conv_smem_floats(net) +
-                          (size_t)rows * cnn_row_floats(net)) +
-         ne * env_smem_bytes<A, R>() + sizeof(int) * GROUP_MAP_INTS;
+size_t act_cnn_grouped_smem(const CnnNet& net, int ne, int rows) {
+  return sizeof(float) * ((size_t)conv_smem_floats(net) +
+                          (size_t)rows * cnn_row_floats(net) +
+                          (size_t)ne * A * ROST) +
+         ne * env_smem_bytes<A, R>() + sizeof(int) * (ne * A + CNN_MAXK + 1);
 }
 
-// Envs per grouped CTA: the most whose padded rows are at most CROWS and
-// fit the device's shared memory with K groups' conv kernels; 0 when none
-// does.
+// Envs per grouped CTA: the most whose largest pass is at most CROWS rows
+// and that fit the device's shared memory; 0 when none does.
 template <int A, int R>
 int cnn_act_envs_grouped(const CnnNet& net, int K, const int* n_g) {
   const size_t limit = smem_optin_limit();
-  for (int ne = CROWS / A; ne > 0; --ne) {
-    const int rows = grouped_rows(ne, K, n_g);
-    if (rows <= CROWS &&
-        act_cnn_grouped_smem<A, R>(net, K, ne, rows) <= limit)
+  for (int ne = CROWS; ne > 0; --ne) {
+    const int rows = pass_rows(ne, K, n_g);
+    if (rows <= CROWS && act_cnn_grouped_smem<A, R>(net, ne, rows) <= limit)
       return ne;
   }
   return 0;
@@ -121,7 +124,7 @@ struct ActCnnArgs {
   int S, k, D;         // window side, radius, obs dim
   int gobs;            // the global observation instead of the ego window
   int ne;              // envs per CTA
-  int rows;            // rows per CTA of the grouped instance (padded)
+  int rows;            // rows of the grouped instance's largest pass
   int n_groups;        // K policy groups (the grouped instance)
   int group[CNN_MAXA];  // agent -> group
   float inv_h, inv_w;  // float32 reciprocals of H and W
@@ -146,26 +149,24 @@ struct ActCnnArgs {
 template <int A, int R, bool GROUPED>
 __global__ void __launch_bounds__(RNT) act_cnn_kernel(ActCnnArgs p) {
   const int NE = p.ne, ROWS = GROUPED ? p.rows : NE * A;
-  const int K = GROUPED ? p.n_groups : 1;
   using ES = EnvSmem<A, R>;
   extern __shared__ __align__(16) float smem[];
   const CnnNet& net = p.net;
-  const ConvW cw = stage_conv(net, p.params, smem);
-  for (int g = 1; g < K; ++g)
-    stage_conv(net, p.params + g * net.n_params,
-               smem + g * conv_smem_floats(net));
-  float* xa = smem + K * conv_smem_floats(net);
+  ConvW cw;  // grouped: staged by each pass
+  if (!GROUPED) cw = stage_conv(net, p.params, smem);
+  float* xa = smem + conv_smem_floats(net);
   float* a0 = xa + ROWS * net.xs;
   float* a1 = a0 + ROWS * net.a0s;
   float* hs = a1 + ROWS * net.a1s;
   float* head = hs + ROWS * net.H;
-  int* env_s = reinterpret_cast<int*>(head + ROWS * ROST);
+  // The grouped instance: every pair's head row [NE A, ROST]; after the
+  // actions, the pass map: group 0's pairs e A + a env by env, then group
+  // 1's, ...; group g's are gpair[gfirst[g]] .. gpair[gfirst[g + 1] - 1].
+  float* phead = head + ROWS * ROST;
+  int* env_s = reinterpret_cast<int*>(phead + (GROUPED ? NE * A * ROST : 0));
   int* act_s = env_s + NE * ES::SIZE;
-  // The grouped instance's maps: row -> pair e A + a (-1 for a pad row),
-  // pair -> row, tile -> group.
-  int* rowmap = act_s + NE * A;
-  int* pairrow = rowmap + CROWS;
-  int* tilegrp = pairrow + CROWS;
+  int* gpair = act_s + NE * A;
+  int* gfirst = gpair + NE * A;
 
   const int tid = threadIdx.x;
   const long b0 = (long)blockIdx.x * NE;
@@ -178,56 +179,79 @@ __global__ void __launch_bounds__(RNT) act_cnn_kernel(ActCnnArgs p) {
                    p.rstat, p.ragent);
     ES::put(e, env_s + tid * ES::SIZE);
   }
-  if (GROUPED && tid == 0) {  // group-major rows, each group padded
-    int r = 0;
-    for (int g = 0; g < K; ++g) {
-      const int first = r;
+  if (GROUPED && tid == 0) {
+    int n = 0;
+    for (int g = 0; g < p.n_groups; ++g) {
+      gfirst[g] = n;
       for (int e = 0; e < NE; ++e)
 #pragma unroll
         for (int a = 0; a < A; ++a)
-          if (p.group[a] == g) {
-            rowmap[r] = e * A + a;
-            pairrow[e * A + a] = r++;
-          }
-      const int end = first + (r - first + RRT - 1) / RRT * RRT;
-      for (; r < end; ++r) rowmap[r] = -1;
-      for (int i = first / RRT; i < end / RRT; ++i) tilegrp[i] = g;
+          if (p.group[a] == g) gpair[n++] = e * A + a;
     }
+    gfirst[p.n_groups] = n;
   }
   for (int idx = tid; idx < ROWS * net.xs; idx += RNT) xa[idx] = 0.f;
   __syncthreads();
-  const GroupTiles gt{tilegrp, conv_smem_floats(net), net.n_params,
-                      (long)net.H * net.trunk_in};
 
   for (int t = 0; t < p.T; ++t) {
     const long tb = (long)t * p.B + b0;  // first (t, b) of the CTA
-    // 1. Observations of the CTA's rows: row n = (env n / A, agent n % A),
-    // or grouped the pair rowmap[n] (a pad row stays zero).
-    for (int idx = tid; idx < ROWS * p.D; idx += RNT) {
-      const int n = idx / p.D, f = idx % p.D;
-      const int pr = GROUPED ? rowmap[n] : n;
-      if (GROUPED && pr < 0) continue;
-      const float v =
-          obs_value<A, R>(env_s + (pr / A) * ES::SIZE, pr % A, f, p);
-      xa[n * net.xs + obs_slot(net, f)] = v;
-      if (pr / A < ne)
-        p.obs[tb * A * p.D + (GROUPED ? pr * p.D + f : idx)] = v;
-    }
-    __syncthreads();
+    if (GROUPED) {
+      // 1-2. One pass per group: its conv kernels, its pairs' observations
+      // (zero pad rows), convolutions, trunk, head, each pair's head row out.
+      for (int g = 0; g < p.n_groups; ++g) {
+        const int* pairs = gpair + gfirst[g];
+        const int n = gfirst[g + 1] - gfirst[g];
+        const int rows = (n + RRT - 1) / RRT * RRT;
+        const float* pg = p.params + g * net.n_params;
+        const ConvW cg = stage_conv(net, pg, smem);
+        for (int idx = tid; idx < rows * p.D; idx += RNT) {
+          const int r = idx / p.D, f = idx % p.D;
+          float v = 0.f;
+          if (r < n) {
+            const int pr = pairs[r];
+            v = obs_value<A, R>(env_s + (pr / A) * ES::SIZE, pr % A, f, p);
+            if (pr / A < ne) p.obs[(tb * A + pr) * p.D + f] = v;
+          }
+          xa[r * net.xs + obs_slot(net, f)] = v;
+        }
+        __syncthreads();
+        conv_forward(net, cg, xa, a0, a1, rows);
+        trunk_forward(net, p.trunk_t + g * (long)net.H * net.trunk_in,
+                      pg + net.bt, a1, hs, rows, nullptr, 0, 0);
+        __syncthreads();
+        cnn_head(net, pg, hs, head, rows);
+        __syncthreads();
+        // The next pass restages what this one's loops have finished with.
+        for (int i = tid; i < n * RHEAD; i += RNT)
+          phead[pairs[i / RHEAD] * ROST + i % RHEAD] =
+              head[i / RHEAD * ROST + i % RHEAD];
+      }
+      __syncthreads();
+    } else {
+      // 1. Observations of the CTA's rows: row n = (env n / A, agent n % A).
+      for (int idx = tid; idx < ROWS * p.D; idx += RNT) {
+        const int n = idx / p.D, f = idx % p.D;
+        const float v =
+            obs_value<A, R>(env_s + (n / A) * ES::SIZE, n % A, f, p);
+        xa[n * net.xs + obs_slot(net, f)] = v;
+        if (n / A < ne) p.obs[tb * A * p.D + idx] = v;
+      }
+      __syncthreads();
 
-    // 2. Convolutions, trunk, fused head (grouped: each tile its group's).
-    conv_forward<false, GROUPED>(net, cw, xa, a0, a1, ROWS, gt);
-    trunk_forward<false, GROUPED>(net, p.trunk_t, p.params + net.bt, a1, hs,
-                                  ROWS, nullptr, 0, 0, gt);
-    __syncthreads();
-    cnn_head<false, GROUPED>(net, p.params, hs, head, ROWS, gt);
-    __syncthreads();
+      // 2. Convolutions, trunk, fused head.
+      conv_forward(net, cw, xa, a0, a1, ROWS);
+      trunk_forward(net, p.trunk_t, p.params + net.bt, a1, hs, ROWS, nullptr,
+                    0, 0);
+      __syncthreads();
+      cnn_head(net, p.params, hs, head, ROWS);
+      __syncthreads();
+    }
 
     // 3. Mask, sample, log-softmax (as K2), one thread per (env, agent).
     if (tid < NE * A)
-      act_s[tid] = sample_row<A>(
-          p, head + (GROUPED ? pairrow[tid] : tid) * ROST,
-          env_s + (tid / A) * ES::SIZE, tid, tid / A < ne, t, b0);
+      act_s[tid] = sample_row<A>(p, (GROUPED ? phead : head) + tid * ROST,
+                                 env_s + (tid / A) * ES::SIZE, tid,
+                                 tid / A < ne, t, b0);
     __syncthreads();
 
     // 4. Env tick and rewards, one thread per env.
@@ -280,13 +304,10 @@ struct CnnSmemBytes {
       return;
     }
     const int ne = cnn_act_envs_grouped<A, R>(net, K, n_g);
-    if (ne < 1) {  // one env's padded rows: more than the limit or CROWS
-      const size_t one =
-          act_cnn_grouped_smem<A, R>(net, K, 1, grouped_rows(1, K, n_g));
-      *out = one > smem_optin_limit() ? one : smem_optin_limit() + 1;
-      return;
-    }
-    *out = act_cnn_grouped_smem<A, R>(net, K, ne, grouped_rows(ne, K, n_g));
+    // Of one env when not even one fits, so that the caller's comparison
+    // with the limit fails.
+    const int n = ne < 1 ? 1 : ne;
+    *out = act_cnn_grouped_smem<A, R>(net, n, pass_rows(n, K, n_g));
   }
 };
 
@@ -323,10 +344,9 @@ struct LaunchActCnn {
       *err = (int)cudaErrorInvalidValue;
       return;
     }
-    p.rows = grouped_rows(p.ne, p.n_groups, n_g);
-    launch<true>(p,
-                 act_cnn_grouped_smem<A, R>(p.net, p.n_groups, p.ne, p.rows),
-                 stream, err);
+    p.rows = pass_rows(p.ne, p.n_groups, n_g);
+    launch<true>(p, act_cnn_grouped_smem<A, R>(p.net, p.ne, p.rows), stream,
+                 err);
   }
 };
 
@@ -340,7 +360,7 @@ extern "C" long wh_cnn_param_floats(int S, int C0, int C1, int C2, int H) {
 
 // Shared memory one CTA needs, in bytes (more than the device allows when
 // not one env's rows fit, or no whole number of envs makes a multiple of 8
-// rows; grouped, when not one env's padded rows fit beside the K groups'
+// rows; grouped, when not one env's largest pass fits beside one group's
 // conv kernels), or 0 for an unsupported shape. K = 0: without groups;
 // else `group` maps each of the A agents to a group in [0, K).
 extern "C" long wh_act_cnn_smem_bytes(int A, int R, int S, int C0, int C1,

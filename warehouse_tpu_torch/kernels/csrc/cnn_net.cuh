@@ -39,11 +39,8 @@
 // device memory and the gradients keep the true 5 (obs_slot maps a feature
 // to its padded place; sgd_cnn.cu drops the pad channels' gradients).
 //
-// Policy groups (K10 only): K CNNs of the same widths, their packed vectors
-// one after another in group order. The pieces below take a flag G and a
-// GroupTiles: every tile of RRT rows is one group's, and a tile offsets the
-// staged conv kernels, the packed vector and the transposed trunk it reads by
-// its group's. Without G they read group 0's and compile as before.
+// Policy groups (K10 only) run these pieces once per group, on that group's
+// rows, staged conv kernels, packed vector and transposed trunk.
 //
 // The learner (K11/K12) instantiates the pieces with a flag BF for bf16
 // operands (matmul_dtype="bfloat16", sgd_cnn.py:213-216): the staged conv
@@ -136,15 +133,6 @@ struct ConvW {  // the staged conv kernels
   const float *w0, *b0, *w1, *b1;
 };
 
-// The group route's tiles: tile i (rows i RRT .. i RRT + RRT - 1) is group
-// tg[i]'s; group g's staged conv kernels lie g gs floats after group 0's,
-// its packed vector g gp floats and its transposed trunk g gt floats.
-struct GroupTiles {
-  const int* tg;
-  int gs;
-  long gp, gt;
-};
-
 // The packed conv kernels into shared memory at their padded row strides,
 // rounded to bf16 with BF (the biases are not).
 template <bool BF = false>
@@ -170,30 +158,22 @@ __device__ inline ConvW stage_conv(const CnnNet& net, const float* p,
 // of x[n][pi IC + ic] W[(k OC + oc) ws + ic]) for `rows` rows (a multiple of
 // RRT) of shared memory; pi is po moved by tap k. A thread owns one output
 // (po, oc) for RRT rows and reads 4 input channels per load. BX rounds x to
-// bf16 where it is read. With G a tile reads its group's kernel (gt.gs
-// floats per group).
-template <bool BX = false, bool G = false>
+// bf16 where it is read.
+template <bool BX = false>
 __device__ inline void conv_relu(const float* W, int ws, const float* b,
                                  const float* x, int xs, int IC, float* y,
-                                 int ys, int OC, int S, int rows,
-                                 GroupTiles gt = {}) {
+                                 int ys, int OC, int S, int rows) {
   const int cols = S * S * OC;
   for (int item = threadIdx.x; item < cols * (rows / RRT); item += RNT) {
     const int col = item % cols, r0 = item / cols * RRT;
     const int po = col / OC, oc = col % OC, ro = po / S, co = po % S;
-    const float *Wg = W, *bg = b;
-    if (G) {
-      const int g = gt.tg[r0 / RRT];
-      Wg += g * gt.gs;
-      bg += g * gt.gs;
-    }
     float acc[RRT];
 #pragma unroll
     for (int r = 0; r < RRT; ++r) acc[r] = 0.f;
     for (int k = 0; k < 9; ++k) {
       const int ri = ro + k / 3 - 1, ci = co + k % 3 - 1;
       if (ri < 0 || ri >= S || ci < 0 || ci >= S) continue;
-      const float* w = Wg + (k * OC + oc) * ws;
+      const float* w = W + (k * OC + oc) * ws;
       const float* xp = x + r0 * xs + (ri * S + ci) * IC;
       for (int ic = 0; ic < IC; ic += 4) {
         const float4 wv = *reinterpret_cast<const float4*>(w + ic);
@@ -208,7 +188,7 @@ __device__ inline void conv_relu(const float* W, int ws, const float* b,
         }
       }
     }
-    const float bo = bg[oc];
+    const float bo = b[oc];
 #pragma unroll
     for (int r = 0; r < RRT; ++r)
       y[(r0 + r) * ys + col] = fmaxf(acc[r] + bo, 0.f);
@@ -217,17 +197,16 @@ __device__ inline void conv_relu(const float* W, int ws, const float* b,
 
 // Both convolutions of the tile: obs rows x -> a0 -> the first P2 C2 columns
 // of a1, whose next 6 columns get the rows' self features. Ends synchronised.
-// With BF the obs rows x are rounded already and conv 1 rounds a0; with G
-// each tile runs its group's kernels (cw: group 0's).
-template <bool BF = false, bool G = false>
+// With BF the obs rows x are rounded already and conv 1 rounds a0.
+template <bool BF = false>
 __device__ inline void conv_forward(const CnnNet& net, const ConvW& cw,
                                     const float* x, float* a0, float* a1,
-                                    int rows, GroupTiles gt = {}) {
-  conv_relu<false, G>(cw.w0, net.ws0, cw.b0, x, net.xs, net.C0p, a0, net.a0s,
-                      net.C1, net.S, rows, gt);
+                                    int rows) {
+  conv_relu(cw.w0, net.ws0, cw.b0, x, net.xs, net.C0p, a0, net.a0s, net.C1,
+            net.S, rows);
   __syncthreads();
-  conv_relu<BF, G>(cw.w1, net.ws1, cw.b1, a0, net.a0s, net.C1, a1, net.a1s,
-                   net.C2, net.S, rows, gt);
+  conv_relu<BF>(cw.w1, net.ws1, cw.b1, a0, net.a0s, net.C1, a1, net.a1s,
+                net.C2, net.S, rows);
   for (int idx = threadIdx.x; idx < rows * NSELF; idx += RNT) {
     const int n = idx / NSELF, f = idx % NSELF;
     a1[n * net.a1s + net.P2 * net.C2 + f] = x[n * net.xs + net.P2 * net.C0p + f];
@@ -238,27 +217,20 @@ __device__ inline void conv_forward(const CnnNet& net, const ConvW& cw,
 // h[n][j] = tanh(a1[n] . Wt[j] + bt[j]) for the tile's rows; Wt_t is the
 // trunk's kernel transposed to [trunk_in, H]. Rows < nvalid also go to
 // g[(n0 + n) * H + j] when g is set. With BF the product reads a1 rounded
-// to bf16 (Wt_t is rounded already). With G each tile reads its group's
-// trunk (Wt_t, bt: group 0's).
-template <bool BF = false, bool G = false>
+// to bf16 (Wt_t is rounded already).
+template <bool BF = false>
 __device__ inline void trunk_forward(const CnnNet& net, const float* Wt_t,
                                      const float* bt, const float* a1,
                                      float* h, int rows, float* g, long n0,
-                                     int nvalid, GroupTiles gt = {}) {
+                                     int nvalid) {
   const int H = net.H;
   for (int item = threadIdx.x; item < H * (rows / RRT); item += RNT) {
     const int j = item % H, r0 = item / H * RRT;
-    const float *Wg = Wt_t, *bg = bt;
-    if (G) {
-      const int gi = gt.tg[r0 / RRT];
-      Wg += gi * gt.gt;
-      bg += gi * gt.gp;
-    }
     float acc[1][RRT];
     zero_acc(acc);
-    fma_cols<1, BF>(acc, a1 + r0 * net.a1s, net.a1s, Wg + j, H, 0,
+    fma_cols<1, BF>(acc, a1 + r0 * net.a1s, net.a1s, Wt_t + j, H, 0,
                     net.trunk_in);
-    const float bj = bg[j];
+    const float bj = bt[j];
 #pragma unroll
     for (int r = 0; r < RRT; ++r) {
       const float v = tanhf(acc[0][r] + bj);
@@ -269,20 +241,17 @@ __device__ inline void trunk_forward(const CnnNet& net, const float* Wt_t,
 }
 
 // out[n][o] = h[n] . Whead[o] + b[o], o < 6, one thread per (row, output);
-// with BF on bf16-rounded operands; with G from the row's group's vector
-// (p: group 0's).
-template <bool BF = false, bool G = false>
+// with BF on bf16-rounded operands.
+template <bool BF = false>
 __device__ inline void cnn_head(const CnnNet& net, const float* p,
-                                const float* h, float* out, int rows,
-                                GroupTiles gt = {}) {
+                                const float* h, float* out, int rows) {
   for (int item = threadIdx.x; item < rows * RHEAD; item += RNT) {
     const int n = item / RHEAD, o = item % RHEAD;
-    const float* pg = G ? p + gt.tg[n / RRT] * gt.gp : p;
-    const float* w = pg + net.head_w + (long)o * net.H;
+    const float* w = p + net.head_w + (long)o * net.H;
     float acc = 0.f;
     for (int k = 0; k < net.H; ++k)
       acc = fmaf(rbf<BF>(h[n * net.H + k]), rbf<BF>(__ldg(w + k)), acc);
-    out[n * ROST + o] = acc + pg[net.head_b + o];
+    out[n * ROST + o] = acc + p[net.head_b + o];
   }
 }
 

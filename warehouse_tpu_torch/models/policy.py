@@ -46,10 +46,16 @@ each on float32 params: ``"float32"``, and two bfloat16 modes:
   (``pallas/sgd.py:181-191``): each product rounds both of its operands to
   bf16 and accumulates in float32, its backward too (``Bf16Linear``,
   ``Bf16Conv``), and everything else stays float32. The SGD twins use it.
+
+Every convolution, forward and backward, runs under ``conv_flags``: on
+the card cuDNN's float32 convolutions are IEEE float32 (torch's default is
+TF32) and deterministic, so the plain CNN learner gives the same bits on
+every run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -104,27 +110,78 @@ class Bf16Linear(torch.autograd.Function):
         return gx, gw
 
 
+@contextlib.contextmanager
+def conv_flags():
+    """cuDNN's float32 convolutions in IEEE float32, with deterministic
+    algorithms and no autotuning, whatever the global flags say: torch's
+    default runs them in TF32 (about 3 decimal digits), and cuDNN's
+    fastest weight-gradient algorithms sum in an order that varies from run
+    to run. The precision is set through ``cudnn.conv.fp32_precision``
+    alone: ``cudnn.flags(allow_tf32=...)`` reads the legacy flag, which
+    raises where a caller set the new one, and ``flags()`` with its
+    defaults turns cuDNN off. The flags are global, so autograd's backward
+    thread sees them too; each ``Function`` below sets them in its backward
+    as well as its forward."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.enabled, cudnn.benchmark, cudnn.deterministic,
+             cudnn.conv.fp32_precision)
+    cudnn.enabled, cudnn.benchmark, cudnn.deterministic = True, False, True
+    cudnn.conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        cudnn.enabled, cudnn.benchmark, cudnn.deterministic = saved[:3]
+        cudnn.conv.fp32_precision = saved[3]
+
+
+def _conv_grads(ctx, g, x, w, bias: bool):
+    """The input, weight and bias gradients of the 3x3 ``SAME``
+    convolution that ``ctx`` needs (``aten.convolution_backward``, autograd's
+    own call for ``F.conv2d``), under ``conv_flags``."""
+    with conv_flags():
+        gx, gw, gb = torch.ops.aten.convolution_backward(
+            g, x, w, [w.shape[0]] if bias else None, [1, 1], [1, 1], [1, 1],
+            False, [0, 0], 1,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+             bias and ctx.needs_input_grad[2]])
+    return gx, gw, gb
+
+
+class F32Conv(torch.autograd.Function):
+    """``F.conv2d(x, w, b, padding=1)``, the 3x3 ``SAME`` convolution of
+    ``x [N, IC, S, S]`` with ``w [OC, IC, 3, 3]`` (and bias ``b [OC]`` or
+    None), forward and backward under ``conv_flags``: IEEE float32 and the
+    same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.bias = b is not None
+        with conv_flags():
+            return F.conv2d(x, w, b, padding=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _conv_grads(ctx, g, *ctx.saved_tensors, ctx.bias)
+
+
 class Bf16Conv(torch.autograd.Function):
     """The 3x3 ``SAME`` convolution of ``x [N, IC, S, S]`` with ``w [OC,
     IC, 3, 3]`` on bf16-rounded operands with float32 accumulation; its
     backward convolves the rounded gradient with the rounded other
-    operand."""
+    operand. Both under ``conv_flags``."""
 
     @staticmethod
     def forward(ctx, x, w):
         xr, wr = bf16_round(x), bf16_round(w)
         ctx.save_for_backward(xr, wr)
-        return F.conv2d(xr, wr, padding=1)
+        with conv_flags():
+            return F.conv2d(xr, wr, padding=1)
 
     @staticmethod
     def backward(ctx, g):
-        xr, wr = ctx.saved_tensors
-        gr = bf16_round(g)
-        gx = (torch.nn.grad.conv2d_input(xr.shape, wr, gr, padding=1)
-              if ctx.needs_input_grad[0] else None)
-        gw = (torch.nn.grad.conv2d_weight(xr, wr.shape, gr, padding=1)
-              if ctx.needs_input_grad[1] else None)
-        return gx, gw
+        return _conv_grads(ctx, bf16_round(g), *ctx.saved_tensors,
+                           False)[:2]
 
 
 PRECISIONS = ("float32", "bf16_operands", "flax_bf16")
@@ -174,10 +231,10 @@ class Precision:
         if self.operands:
             y = Bf16Conv.apply(x, w)
         elif self.flax:
-            y = F.conv2d(bf16_round(x.float()), bf16_round(w),
-                         padding=1).bfloat16()
+            y = F32Conv.apply(bf16_round(x.float()), bf16_round(w),
+                              None).bfloat16()
         else:
-            return F.conv2d(x, w, b, padding=1)
+            return F32Conv.apply(x, w, b)
         return y + b.to(y.dtype)[:, None, None]
 
 
