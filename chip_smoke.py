@@ -81,12 +81,18 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    its plain twin (autograd through the true convolutions + ``optim.py``)
    on per-step losses, params and Adam moments, a second K11 run bit-equal
    to the first; K12 against autograd on all 4 minibatches; both timed;
+   then ``cnn_stage_check``: K12's five stage kernels (conv forward, trunk
+   forward + loss, trunk dgrad, conv backward, trunk weight gradients),
+   each against its plain stage (``kernels.sgd_cnn``) on the plain chain's
+   rows of minibatch 0, on the config-4 trajectory and on a ragged slice of
+   it (N = 500), each stage timed by CUDA events beside its plain stage;
 16. ``cnn_train`` (main path): ``train.make_train(arch="cnn")`` at BASELINE
    config 4 from ``PRNGKey(0)`` on a 300-update schedule, the first 50
    updates through ``train_step`` (K10 + K11/K12) with the update split
    into acting, GAE and SGD by CUDA events, a learning check on deliveries
    per env-step over updates 41-50, 3 plain-path updates from the same
-   state, then the trained policy served;
+   state, then the trained policy served; the curve goes to
+   ``runs/torch_cnn/metrics.jsonl``;
 17. ``t1_check``: the potential-shaping option of K2 and K10
    (``shaping_coef=0.02``, with action masking) on medium and shelves at
    B = 4096, T = 16, on a chunk from a mid-episode state and on one that
@@ -116,7 +122,8 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    masked and shaped, B = 2048, the recipe's shapes) and on medium (D =
    411, B = 4096), each counted on K2's wide route; K10 on medium (the 9x9
    map as the CNN's grid, 5 channels); K3 / K4 at D = 611 on a trajectory
-   of the recipe; K11 / K12 at S = 9; and, at config 4 with hidden 256 (the
+   of the recipe; K11 / K12 at S = 9 and ``cnn_stage_check`` there (full
+   and ragged); and, at config 4 with hidden 256 (the
    ``hidden256_train`` path's shapes): K2 on its wide route
    (``wide_check``), K3 / K4 and K5;
 21. ``shelves_global_train`` (main path): the full shelves recipe with
@@ -160,7 +167,9 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    K12 on the 5x5 window and the 9x9 map: every tensor held in norm,
    ||kernel - twin|| <= 2e-4 ||twin|| for a gradient and 3e-3 ||twin|| +
    the f32 atol x sqrt(n) for a phase's params, moments and losses, the
-   f32 twin beyond each bound; K3, K8 and K11 reruns bit-equal;
+   f32 twin beyond each bound; K3, K8 and K11 reruns bit-equal; K12's
+   stage kernels against the bf16 plain stages (config 4 full and ragged,
+   the 9x9 map) at 2e-4 in norm;
 27. ``gru_bf16_train`` (main path): ``--arch gru --model-dtype bfloat16`` at
    config 4 (the JAX package's recurrent fast config,
    ``runs/r3_curves/config4_gru_fast.jsonl``), the first update held against
@@ -295,6 +304,7 @@ RNN_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 31-40
 CNN_SCHEDULE = 300  # the cnn_train phase's run length (the JAX curve's)
 CNN_UPDATES = 50    # updates of it that the cnn_train phase runs
 CNN_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 41-50
+CNN_METRICS_OUT = "runs/torch_cnn/metrics.jsonl"  # cnn_train's curve
 SHAPING = (0.02, 0.99)  # the walled recipe's shaping_coef, and gamma
 SHELVES_SCHEDULE = 300  # the shelves_train run length (the JAX run's)
 SHELVES_UPDATES = 100   # updates of it that the shelves_train phase runs
@@ -372,6 +382,17 @@ CNN_TOL = {"losses": (1e-5, 2e-6), "params": (1e-5, 1e-6),
 # kernel that skips the rounding of an operand from one that does not.
 BF16 = "bfloat16"
 BF16_GRAD_REL, BF16_PHASE_REL = 2e-4, 3e-3
+# K12's stage kernels against their plain stages (cnn_stage_check): every
+# float32 output at CNN_TOL's gradient bound (the JAX suite's, rtol 1e-4
+# / atol 1e-6): the stages sum in float32 in another order. A ragged
+# trajectory:
+# the first RAGGED_T steps of RAGGED_B envs (N = 500 per minibatch at 4
+# agents, which no conv or trunk tile divides).
+STAGE_TOL = CNN_TOL["grads"]
+RAGGED_T, RAGGED_B = 5, 100
+CNN_STAGE_INPUTS = {"conv_fwd": (), "trunk_fwd": ("a1",),
+                    "trunk_dgrad": ("dzt", "a1"), "conv_bwd": ("a0", "d1"),
+                    "trunk_wgrad": ("a1", "dzt", "h", "dout")}
 BF16_FF_UPDATES = 10  # updates of the ppo_bf16_train and cnn_bf16_train paths
 BF16_METRICS_OUT = "runs/torch_gru_bf16/metrics.jsonl"
 
@@ -465,8 +486,8 @@ def bound(n_bytes: float, flops: float, bf16: bool = False) -> dict:
     card's peak for their operands, whichever is larger: float32's or, with
     ``bf16`` (products of bf16 operands summed in float32), the tensor
     cores' bf16 rate. A bf16 bound also gives ``cuda_core_bound_ms``, the
-    same work at the float32 rate (the rate the kernels multiply at today).
-    Integer env work is not counted."""
+    same work at the float32 rate of the CUDA cores. Integer env work is
+    not counted."""
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     by_ops = flops / (PEAK_BF16_PER_S if bf16 else PEAK_F32_PER_S) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
@@ -993,6 +1014,74 @@ def k4_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None,
                        adv_n, targets) / M + 2 * nbytes(rs.params),
                 2.0 * (2 * fwd + dx) * traj.action.numel() / M, bf16)
     return worst["grads"][0], k_ms, p_ms, bnd
+
+
+def stage_ratios(got, want, bf16, rel=BF16_GRAD_REL) -> dict:
+    """{output: {"max_abs_err", "ratio"}} of a stage kernel's outputs
+    ``got`` (``sgd_cnn.cnn_stage``'s) against the plain stage's ``want``:
+    float32 at STAGE_TOL elementwise, with ``bf16`` in norm at ``rel``;
+    the loss terms at CNN_TOL's mb_losses. A ratio above 1 fails."""
+    res = {}
+    for k, w in want.items():
+        g, w = ((torch.stack(got[k]), torch.stack(w)) if k == "losses"
+                else (got[k], w))
+        e, r = tree_err((g,), (w,), *(
+            CNN_TOL["mb_losses"] if k == "losses" else STAGE_TOL))
+        if bf16 and k != "losses":
+            r = norm_ratio((g,), (w,), rel)
+        res[k] = {"max_abs_err": e, "ratio": r}
+    return res
+
+
+def cnn_stage_check(dev, cfg, name="config4", bf16=False, ragged=False):
+    """K12's five stage kernels (``sgd_cnn.STAGES``), each against its plain
+    stage on the plain chain's rows of minibatch 0 of a CNN trajectory of
+    ``cfg`` (config 4's shapes; with ``ragged`` its first 5 steps of 100
+    envs: N = 500, no tile full at the end), then timed on those rows.
+    float32 outputs within STAGE_TOL elementwise; with ``bf16`` (against
+    the bf16 plain stages) each tensor within BF16_GRAD_REL in norm; the
+    loss terms within CNN_TOL's mb_losses."""
+    tcfg, _, rs, traj, adv_n, targets, ent = sgd_inputs(dev, cfg, "cnn",
+                                                        CNN_SCHEDULE)
+    if ragged:
+        traj = Transition(*(x[:RAGGED_T, :RAGGED_B] for x in traj))
+        adv_n, targets = (x[:RAGGED_T, :RAGGED_B] for x in (adv_n, targets))
+    p, kl, M = rs.params, rs.kl_coeff, tcfg.num_minibatches
+    loss_kw = dict(clip_eps=tcfg.clip_eps, value_coef=tcfg.value_coef,
+                   mask_actions=tcfg.mask_actions)
+    md = BF16 if bf16 else "float32"
+    rows = sgd_cnn.minibatch_rows(traj, adv_n, targets, 0, M)
+    chain, want = sgd_cnn.plain_stage_chain(p, rows, ent, kl, bf16=bf16,
+                                            **loss_kw)
+    run = sgd_cnn.CnnLaunch(p, traj, adv_n, targets, ent, kl, M,
+                            tcfg.clip_eps, tcfg.value_coef,
+                            tcfg.mask_actions, matmul_dtype=md)
+    p_flat = act.pack_cnn(p)
+    grads = torch.zeros_like(p_flat)
+    sums = torch.zeros(4, dtype=torch.float32, device=dev)
+    out, bad = {}, []
+    for stage in sgd_cnn.STAGES:
+        before = sgd_cnn.cnn_stage.launches
+        got = sgd_cnn.cnn_stage(stage, p, traj, adv_n, targets, 0, ent, kl,
+                                chain, matmul_dtype=md, num_minibatches=M,
+                                **loss_kw)
+        torch.cuda.synchronize()
+        require(sgd_cnn.cnn_stage.launches == before + 1,
+                f"cnn stage {stage}: the launch count did not move")
+        res = stage_ratios(got, want[stage], bf16)
+        bad += [f"{stage}.{k}" for k, v in res.items() if v["ratio"] > 1.0]
+        run.fill({k: chain[k] for k in CNN_STAGE_INPUTS[stage]})
+        ms = timed(lambda: run.launch_stage(stage, p_flat, 0, grads, sums), 5)
+        out[stage] = {"outputs": res, "ms": ms, "plain_ms": timed(
+            lambda: sgd_cnn.plain_stage(stage, p, rows, chain, ent, kl,
+                                        bf16=bf16, **loss_kw), 3)}
+    emit({**check_line("K12", bf16, "cnn_stage_check"), "config": name,
+          "ragged": ragged, "samples": rows[0].shape[0],
+          "small_conv_tiles": run.small_tile,
+          "ratio": "norm_ratio at BF16_GRAD_REL" if bf16 else
+          "tol_ratio at STAGE_TOL", "stages": out})
+    require(not bad, f"K12 stages differ from their plain stages: {bad}")
+    return out
 
 
 def impala_inputs(dev, cfg, hidden=HIDDEN[0]):
@@ -1589,17 +1678,32 @@ def serve_rnn(cfg, tr, rs):
 def cnn_train_phase(dev, cfg):
     """The first 50 config-4 CNN PPO updates of a 300-update run through
     the kernels, then 3 of the plain path from the same initial state, then
-    the trained policy served."""
-    tr = make_train(cfg, TrainConfig(num_updates=CNN_SCHEDULE), arch="cnn",
-                    device=dev)
-    rs, out = run_updates(tr, CNN_UPDATES, "cnn_train", dev)
+    the trained policy served; the curve to ``runs/torch_cnn/metrics.jsonl``
+    (the same bits on every run)."""
+    tcfg = TrainConfig(num_updates=CNN_SCHEDULE)
+    tr = make_train(cfg, tcfg, arch="cnn", device=dev)
+    rows = []
+
+    def hook(u, rs, m):
+        rows.append({"step": u, **{k: float(v) for k, v in m.items()}})
+
+    rs, out = run_updates(tr, CNN_UPDATES, "cnn_train", dev, hook)
     serve_mlp(cfg, tr, rs)
+    os.makedirs(os.path.dirname(CNN_METRICS_OUT), exist_ok=True)
+    with open(CNN_METRICS_OUT, "w") as f:
+        f.write(json.dumps({"meta": True, "algo": "ppo", "arch": "cnn",
+                            "env": "medium", "backends": tr.backends,
+                            "device": torch.cuda.get_device_name(0),
+                            "train_config": json.loads(tcfg.to_json())})
+                + "\n")
+        f.writelines(json.dumps(r) + "\n" for r in rows)
     deliveries = out["deliveries_per_env_step"]
     late = sum(deliveries[-10:]) / 10
     emit({"phase": "cnn_train", **out,
           "deliveries_at": {u: deliveries[u - 1]
                             for u in range(10, CNN_UPDATES + 1, 10)},
-          "deliveries_41_50": late, "learn_min": CNN_LEARN_MIN})
+          "deliveries_41_50": late, "learn_min": CNN_LEARN_MIN,
+          "metrics_file": CNN_METRICS_OUT})
     require(late >= CNN_LEARN_MIN,
             f"cnn_train: deliveries/env-step {late} over updates 41-50 is "
             f"below {CNN_LEARN_MIN}")
@@ -1954,6 +2058,9 @@ def bf16_check(dev, cfg, shelves, shelves_g, medium_g):
                                                    bf16=True)
     k3_check(dev, medium_g, cnn=True, name="medium_global", bf16=True)
     k4_check(dev, medium_g, cnn=True, name="medium_global", bf16=True)
+    cnn_stage_check(dev, cfg, bf16=True)
+    cnn_stage_check(dev, cfg, bf16=True, ragged=True)
+    cnn_stage_check(dev, medium_g, name="medium_global", bf16=True)
     return out
 
 
@@ -2403,6 +2510,8 @@ def main(argv=()) -> int:
              mask_actions=True)
     checks["ppo_cnn_sgd_phase"] = k3_check(dev, cfg, cnn=True)
     checks["ppo_cnn_minibatch_grads"] = k4_check(dev, cfg, cnn=True)
+    cnn_stage_check(dev, cfg)
+    cnn_stage_check(dev, cfg, ragged=True)
     # The shaping option of K2 and K10: medium and shelves, a mid-episode
     # chunk and a truncating one; the shelves mid-episode numbers (the
     # trained path's shapes) go into the kernels line.
@@ -2448,6 +2557,8 @@ def main(argv=()) -> int:
         dev, medium_g, cnn=True, name="medium_global")
     checks["ppo_cnn_minibatch_grads_global"] = k4_check(
         dev, medium_g, cnn=True, name="medium_global")
+    cnn_stage_check(dev, medium_g, name="medium_global")
+    cnn_stage_check(dev, medium_g, name="medium_global", ragged=True)
     k5_check(dev, cfg, hidden=WIDE_HIDDEN)
     # Policy groups: the recipe's shapes go into the kernels line.
     (checks["ppo_rollout_groups"], checks["ppo_sgd_phase_groups"],

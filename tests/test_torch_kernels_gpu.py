@@ -633,6 +633,39 @@ def test_cnn_minibatch_grads_kernel_matches_autograd(hidden, mask_on, dev):
         assert_close_tree(g_k, g_r, 1e-4, 1e-6, f"grads mb={mb}")
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("name,glob,hidden", [
+    ("medium", False, 128), ("medium", True, 128), ("small", False, 32),
+    ("shelves", False, 16)])
+def test_cnn_stage_kernels_match_plain_stages(name, glob, hidden, bf16, dev):
+    """Each of K12's five stage kernels (``sgd_cnn.cnn_stage``) against
+    its plain stage on the plain chain's rows of minibatch 0 (N = 500 or
+    750: no tile of any stage full at the end), masked: float32 outputs at
+    chip_smoke.py's STAGE_TOL elementwise, bf16 operands at GRAD_REL in
+    norm (500 random samples, as the bf16 tests below), the loss terms
+    within 1e-6; one launch each."""
+    from warehouse_tpu_torch.kernels import sgd_cnn
+
+    cs = smoke()
+    cfg = (GLOBAL if glob else PRESETS)[name]
+    params, _, traj, adv_n, targets = sgd_batch(cfg, hidden, dev, seed=7,
+                                                arch="cnn")
+    loss_kw = dict(mask_actions=True, **SGD_KW)
+    rows = sgd_cnn.minibatch_rows(traj, adv_n, targets, 0, SGD_M)
+    chain, want = sgd_cnn.plain_stage_chain(params, rows, 0.01, 0.05,
+                                            bf16=bf16, **loss_kw)
+    for stage in sgd_cnn.STAGES:
+        before = sgd_cnn.cnn_stage.launches
+        got = sgd_cnn.cnn_stage(
+            stage, params, traj, adv_n, targets, 0, 0.01, 0.05, chain,
+            num_minibatches=SGD_M,
+            matmul_dtype="bfloat16" if bf16 else "float32", **loss_kw)
+        torch.cuda.synchronize()
+        assert sgd_cnn.cnn_stage.launches == before + 1
+        res = cs.stage_ratios(got, want[stage], bf16, GRAD_REL)
+        assert all(v["ratio"] <= 1.0 for v in res.values()), (stage, res)
+
+
 # ---- the potential-shaping option of K2 and K10 ------------------------------
 
 @pytest.mark.parametrize("truncating", [False, True])
@@ -981,7 +1014,7 @@ def test_global_obs_cnn_sgd_kernels_match_twin(name, hidden, dev):
               mask_actions=True, **SGD_KW)
     small = ppo_cnn_sgd_phase.small_tile_launches
     p_k, o_k, l_k = ppo_cnn_sgd_phase(*args, **kw)
-    # The 9 x 9 map's rows leave room for 8 samples a tile, not 32.
+    # The 9 x 9 map's rows leave room for fewer samples a conv tile.
     assert (ppo_cnn_sgd_phase.small_tile_launches
             == small + (name == "medium") * SGD_E * SGD_M)
     p_r, o_r, l_r = ppo_cnn_sgd_phase_reference(*args, **kw)

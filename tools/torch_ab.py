@@ -1,31 +1,32 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's acting kernels (K2, K10 without and with
-policy groups), SGD-phase kernel (K3) and the grouped CNN's plain learner
-from several source trees in turns, on one GPU.
+"""Time the PyTorch/CUDA port's CNN SGD phase (K11) from several source
+trees in turns on one GPU, with its device time split by kernel, and hash
+the outputs of the kernels the trees should share bit for bit.
 
     python tools/torch_ab.py PARENT_TREE . . PARENT_TREE
 
 Each argument is a directory that holds ``chip_smoke.py`` and
 ``warehouse_tpu_torch/``; each runs in a process of its own (the trees'
-packages share a name), which builds that tree's kernels, times the plain
-learner phase of the grouped-CNN shelves recipe (``--arch cnn
---policy-groups 0,0,0,1,1,1``, 2048 envs; the median of updates 2-4 by
-CUDA events) under torch's default flags, then calls its
-``chip_smoke.k2_check`` and ``k3_check`` at BASELINE config 4 (medium, B =
-4096, T = 16, hidden 128 x 2), ``k2_check`` on K2's wide route (the
-shelves recipe with global observations: D = 611, B = 2048, masked and
-shaped), and ``k2_check`` of the CNN acting kernel (K10) at config 4 and
-masked on shelves, and with policy groups at config 4 ``(0, 1, 0, 1)`` and
-on the shelves recipe (masked, shaped, B = 2048): the checks against the
-plain twins, then the kernels' median times by CUDA events. Each process
-prints the checks' JSON lines, then one line ``{"tree": ..., "k2_ms": ...,
-"k3_ms": ..., "k2_wide_ms": ..., "k10_ms": ..., "k10_shelves_ms": ...,
-"k10_groups_ms": ..., "k10_groups_shelves_ms": ..., "plain_learner_ms":
-..., "k10_sha256": ..., "k10_groups_sha256": ...}``, the hashes those of
-one K10 chunk's outputs at config 4 and of one grouped chunk at each of the
-two group maps (equal hashes: the same bits); this script prints the
-card's name and power limit first. Comparing two trees is only sound
-inside one run on one card (turns: A, B, B, A).
+packages share a name), which builds that tree's kernels and then, on
+trajectories made by that tree's ``chip_smoke.sgd_inputs`` (a K10 chunk
+from the trainer's reset at BASELINE config 4: medium, B = 4096, T = 16,
+4 agents, 4 epochs x 4 minibatches of 65536 samples):
+
+- times K11 (``ppo_cnn_sgd_phase``, the median of 5 phases by CUDA events)
+  at S = 5 (the 5x5 window) and S = 9 (the 9x9 global view), each in
+  float32 and with ``matmul_dtype="bfloat16"``, and splits one phase's
+  device time by kernel name with ``torch.profiler`` (milliseconds and
+  launches per phase);
+- hashes the outputs (params, Adam moments, losses) of one K3 phase (the
+  MLP learner, config 4) and one K8 phase (the GRU learner, config 4),
+  and of one K10 chunk at config 4, ungrouped and with the groups ``(0,
+  1, 0, 1)``.
+
+Each process prints one line ``{"tree": ..., "k11": {shape: {"ms": ...,
+"split": {kernel: [ms, launches]}}}, "k3_sha256": ..., "k8_sha256": ...,
+"k10_sha256": ..., "k10_groups_sha256": ...}``; equal hashes are the same
+bits. This script prints the card's name and power limit first. Comparing
+two trees is only sound inside one run on one card (turns: A, B, B, A).
 """
 
 from __future__ import annotations
@@ -36,50 +37,67 @@ import subprocess
 import sys
 
 CHILD = """
-import hashlib, json, statistics, sys, torch
+import hashlib, json, sys, torch
 sys.path.insert(0, {tree!r})
 import chip_smoke as cs
-from warehouse_tpu_torch import medium_config, shelves_config
-from warehouse_tpu_torch.kernels import build
-from warehouse_tpu_torch.models import make_model
-from warehouse_tpu_torch.train import make_train
+from torch.profiler import ProfilerActivity, profile
+from warehouse_tpu_torch import medium_config
+from warehouse_tpu_torch.kernels import build, sgd, sgd_cnn, sgd_rnn
 dev = torch.device("cuda", 0)
 build.library()
-shelves = shelves_config()
-tr = make_train(shelves, cs.groups_tcfg(), arch="cnn", device=dev,
-                policy_groups=cs.GROUPS)
-rs, sgd = tr.init(cs.rng.prng_key(0, dev)), []
-for _ in range(4):
-    marks = cs.Marks()
-    rs, _ = tr.train_step(rs, mark=marks)
-    sgd.append(marks.split()["sgd"])
-# The kernels' twins below compare with TF32 convolutions off.
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 cfg = medium_config()
-model = make_model(cfg, hidden_dim=cs.HIDDEN[0], num_layers=cs.HIDDEN[1],
-                   generator=torch.Generator().manual_seed(cs.SEED),
-                   device=dev)
-k2 = cs.k2_check(dev, "medium", cfg, model)
-k3 = cs.k3_check(dev, cfg)
-wide_cfg = shelves_config(global_obs=True)
-wide_model = make_model(wide_cfg, hidden_dim=cs.HIDDEN[0],
-                        num_layers=cs.HIDDEN[1],
-                        generator=torch.Generator().manual_seed(cs.SEED),
-                        device=dev)
-k2w = cs.k2_check(dev, "shelves_global", wide_cfg, wide_model, True,
-                  shaped=True, B=2048, phase="global_check", wide=True)
-cnn = cs.cnn_model(cfg, dev)
-k10 = cs.k2_check(dev, "medium", cfg, cnn)
-k10s = cs.k2_check(dev, "shelves", shelves, cs.cnn_model(shelves, dev),
-                   mask_actions=True)
-m4 = cs.cnn_groups_model(cfg, cs.CONFIG4_GROUPS, dev)
-m6 = cs.cnn_groups_model(shelves, cs.GROUPS, dev)
-k10g = cs.k2_check(dev, "medium_cnn_groups", cfg, m4,
-                   phase="k10_groups_check", groups=cs.CONFIG4_GROUPS)
-k10gs = cs.k2_check(dev, "shelves_cnn_groups", shelves, m6, True,
-                    shaped=True, B=cs.GROUPS_B, phase="k10_groups_check",
-                    groups=cs.GROUPS)
+
+
+def sha(*trees):
+    h = hashlib.sha256()
+    for t in trees:
+        xs = [t[k] for k in sorted(t)] if isinstance(t, dict) else t
+        for x in xs:
+            h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_args(tcfg, tr, rs, traj, adv_n, targets, ent, *lead):
+    E, M = tcfg.ppo_epochs, tcfg.num_minibatches
+    rows = tr.optimizer.step_rows(rs.opt_state.count, E * M, dev)
+    args = (rs.params, rs.opt_state, traj, adv_n, targets, *lead, *rows, ent,
+            rs.kl_coeff)
+    kw = dict(num_epochs=E, num_minibatches=M, clip_eps=tcfg.clip_eps,
+              value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
+              mask_actions=tcfg.mask_actions)
+    return args, kw
+
+
+def phase_sha(fn, args, kw):
+    p, o, l = fn(*args, **kw)
+    return sha(p, o.mu, o.nu, l)
+
+
+k11 = {{}}
+for name, c in (("S5", cfg), ("S9", cfg.replace(global_obs=True))):
+    args, kw = phase_args(*cs.sgd_inputs(dev, c, "cnn", cs.CNN_SCHEDULE))
+    for dtype in ("float32", "bfloat16"):
+        kw["matmul_dtype"] = dtype
+        run = lambda: sgd_cnn.ppo_cnn_sgd_phase(*args, **kw)
+        run()
+        ms = cs.timed(run, 5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        split = {{e.key[:70]: [getattr(e, "device_time_total", 0.0) / 1e3,
+                              e.count]
+                 for e in prof.key_averages()
+                 if getattr(e, "device_time_total", 0.0) > 0
+                 and e.device_type.name != "CPU"}}
+        k11[name + "_" + dtype] = {{"ms": ms, "split": split}}
+k3 = phase_sha(sgd.ppo_sgd_phase,
+               *phase_args(*cs.sgd_inputs(dev, cfg)))
+tcfg, tr, rs, traj, adv_n, targets, h0, ent = cs.rnn_inputs(dev, cfg, "gru")
+args, kw = phase_args(tcfg, tr, rs, traj, adv_n, targets, ent, h0)
+kw["mask_actions"] = False
+k8 = phase_sha(sgd_rnn.ppo_rnn_sgd_phase, args, kw)
 
 
 def digest(c, model, B, **kw):
@@ -88,24 +106,16 @@ def digest(c, model, B, **kw):
     _, g = cs.rng.batched_gumbel_stream(cs.rng.prng_key(cs.SEED + 2, dev),
                                         cs.SLICE_T, (5, B * c.num_agents))
     out = cs.act.act_cnn_steps(c, model, state, u, pick, drop, g, **kw)
-    h = hashlib.sha256()
-    for x in [getattr(out[0], f) for f in cs.STATE_FIELDS] + list(out[1:]):
-        h.update(x.contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()
+    return sha([getattr(out[0], f) for f in cs.STATE_FIELDS] + list(out[1:]))
 
 
-mask = torch.empty(cs.SLICE_T, cs.GROUPS_B, 6, 5, dtype=torch.bool,
-                   device=dev)
-print(json.dumps({{"tree": {tree!r}, "k2_ms": k2[1], "k3_ms": k3[1],
-                  "k2_wide_ms": k2w[1], "k10_ms": k10[1],
-                  "k10_shelves_ms": k10s[1], "k10_groups_ms": k10g[1],
-                  "k10_groups_shelves_ms": k10gs[1],
-                  "plain_learner_ms": statistics.median(sgd[1:]),
-                  "k10_sha256": digest(cfg, cnn, cs.CHECK_B),
-                  "k10_groups_sha256": [
-                      digest(cfg, m4, cs.CHECK_B, groups=cs.CONFIG4_GROUPS),
-                      digest(shelves, m6, cs.GROUPS_B, groups=cs.GROUPS,
-                             mask=mask)]}}))
+print(json.dumps({{"tree": {tree!r}, "k11": k11, "k3_sha256": k3,
+                  "k8_sha256": k8,
+                  "k10_sha256": digest(cfg, cs.cnn_model(cfg, dev),
+                                       cs.CHECK_B),
+                  "k10_groups_sha256": digest(
+                      cfg, cs.cnn_groups_model(cfg, cs.CONFIG4_GROUPS, dev),
+                      cs.CHECK_B, groups=cs.CONFIG4_GROUPS)}}))
 """
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the CNN learner's bf16 rounding costs time, and whether
+"""Where the CNN learner's bf16 route costs time, and whether
 chip_smoke.py's bf16 bounds catch a kernel that leaves one stage's
 rounding out, on one GPU.
 
@@ -9,11 +9,13 @@ Times the CNN SGD phase (K11, ``ppo_cnn_sgd_phase``: 4 epochs x 4
 minibatches) at config 4's shapes (medium: the 5x5 window, 4 channels,
 convs 16 and 32, trunk 128; T = 16, B = 4096, 4 agents) with
 ``matmul_dtype="float32"`` and ``"bfloat16"``, and with ``"bfloat16"`` on
-copies of ``warehouse_tpu_torch/`` in which one stage of the kernel
-rounds nothing: its template flag ``BF`` is set to ``false`` in
-``csrc/sgd_cnn.cu`` (``VARIANTS``). The copies compute wrong numbers on
-purpose. The bf16 time less a copy's time is what that stage's rounding
-costs. Each copy is then held to its bf16 twin by chip_smoke.py's
+copies of ``warehouse_tpu_torch/`` in which one stage's products round
+nothing: in ``csrc/sgd_cnn.cu`` (``VARIANTS``) its ``mma_k16<BF>`` runs
+the float32 route (FFMA on unrounded operands) inside the bf16
+instance, or a rounding on the
+CUDA cores (the obs staging, the head, the trunk's delta, the head's
+weight gradient) takes ``rbf<false>``. The copies compute wrong numbers on
+purpose. Each copy is held to its bf16 twin by chip_smoke.py's
 ``k4_check`` and ``k3_check`` (K12 and K11 on a config-4 trajectory, with
 ``bf16=True``): a copy that passes them is a rounding the bounds cannot
 see. The unedited tree must pass.
@@ -41,20 +43,24 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = "warehouse_tpu_torch/kernels/csrc/sgd_cnn.cu"
 # variant: (text of csrc/sgd_cnn.cu, its replacement, occurrences)
 VARIANTS = {
-    "obs_staging": ("rbf<BF>(n < nvalid", "rbf<false>(n < nvalid", 1),
-    "conv_forward": ("conv_forward<BF>(", "conv_forward<false>(", 1),
-    "trunk_forward": ("trunk_forward<BF>(", "trunk_forward<false>(", 1),
-    "head": ("cnn_head<BF>(", "cnn_head<false>(", 1),
-    "trunk_delta": ("rbf<BF>(outs[n * OST + o]), rbf<BF>(__ldg(",
-                    "rbf<false>(outs[n * OST + o]), rbf<false>(__ldg(", 1),
-    "conv1_delta": ("fma_cols<1, BF, BF>(acc, hs + r0 * H",
-                    "fma_cols<1, false, false>(acc, hs + r0 * H", 1),
-    "conv0_delta": ("rbf4<BF>(\n                *reinterpret_cast<const "
-                    "float4*>(dp +", "rbf4<false>(\n                "
-                    "*reinterpret_cast<const float4*>(dp +", 1),
-    "conv_wgrad": ("conv_wgrad_block<BF>(", "conv_wgrad_block<false>(", 2),
-    "trunk_head_wgrad": ("launch_cnn_tail(ca, grid, grads, sums, bf16 != 0,",
-                         "launch_cnn_tail(ca, grid, grads, sums, false,", 1),
+    "obs_staging": ("rbf<BF>(bt.obs[", "rbf<false>(bt.obs[", 2),
+    "conv1_forward": ("mma_k16<BF>(acc, la, ColLoader<A1S>",
+                      "mma_k16<false>(acc, la, ColLoader<A1S>", 1),
+    "trunk_products": ("mma_k16<BF>(acc, RowLoader<LD>",
+                       "mma_k16<false>(acc, RowLoader<LD>", 1),
+    "head": ("rbf<BF>(hb[n * HS + k]), rbf<BF>(__ldg(Wh + o * H + k))",
+             "rbf<false>(hb[n * HS + k]), rbf<false>(__ldg(Wh + o * H + k))",
+             1),
+    "trunk_delta": ("rbf<BF>(outs[n * OST + o]), rbf<BF>(__ldg(Wh + o * H + j"
+                    ")", "rbf<false>(outs[n * OST + o]), rbf<false>(__ldg(Wh +"
+                    " o * H + j)", 1),
+    "conv0_delta": ("mma_k16<BF>(accd[i]", "mma_k16<false>(accd[i]", 1),
+    "conv1_wgrad": ("mma_k16<BF>(acc1,", "mma_k16<false>(acc1,", 1),
+    "conv0_wgrad": ("mma_k16<BF>(acc0,", "mma_k16<false>(acc0,", 1),
+    "trunk_wgrad": ("mma_k16<BF>(acc, KRowLoader", "mma_k16<false>(acc, "
+                    "KRowLoader", 1),
+    "head_wgrad": ("rbf<BF>(p.sc.h[q * H + j])", "rbf<false>(p.sc.h[q * H + j])",
+                   1),
 }
 
 BUILD = """

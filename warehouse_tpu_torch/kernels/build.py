@@ -25,6 +25,7 @@ ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 IP = ctypes.POINTER(ctypes.c_int)
+LP = ctypes.POINTER(ctypes.c_long)
 
 # argtypes of the C entry points: device pointers and the stream are
 # c_void_p, so ctypes passes them as 64-bit values.
@@ -67,6 +68,9 @@ SIGNATURES = {
     "wh_cnn_sgd_workspace_floats": [I] * 6 + [L, I, I],
     "wh_cnn_sgd_grads": [I] * 6 + [L, I, I, I] + [P] * 9 + [F] * 5
                         + [P] * 3 + [I, P],
+    "wh_cnn_sgd_stage": [I] * 7 + [L, I, I, I] + [P] * 9 + [F] * 5
+                        + [P] * 3 + [I, P],
+    "wh_cnn_sgd_layout": [I] * 6 + [L, I, I, LP],
     "wh_cnn_sgd_clip_adam": [I] * 6 + [L, I, I, I] + [P] * 7 + [F] * 6
                             + [P] * 2,
 }

@@ -1,6 +1,7 @@
-// The CNN policy's forward pass, shared by the CNN acting kernel (K10,
-// act_cnn.cu) and the CNN PPO learner (K11/K12, sgd_cnn.cu): two 3x3 SAME
-// convolutions with relu over the [S, S, C] grid of the observation
+// The CNN policy's forward pass for the CNN acting kernel (K10,
+// act_cnn.cu), and the packed parameter layout it shares with the CNN PPO
+// learner (K11/K12, sgd_cnn.cu, whose stage kernels are its own): two 3x3
+// SAME convolutions with relu over the [S, S, C] grid of the observation
 // (channel-last, as the observation lies in memory), the 6 self features
 // joined after the channel-last flatten, a tanh trunk and the fused logits +
 // value head (warehouse_tpu/models/policy.py ActorCriticCNN).
@@ -28,28 +29,18 @@
 // with rnn_cell.cuh's fma_cols, neighbouring threads on neighbouring
 // columns. A tile's rows keep their activations (obs, both conv outputs,
 // trunk, head) in shared memory: CROWS = 32 rows on the 5 x 5 ego window
-// (~186 KB), fewer where a row is larger (act_cnn.cu cnn_act_envs,
-// sgd_cnn.cu sgd_tile_rows): 8 on the 9 x 9 global view, whose row is 18.8
-// KB.
+// (~186 KB), fewer where a row is larger (act_cnn.cu cnn_act_envs): 8 on
+// the 9 x 9 global view, whose row is 18.8 KB.
 //
 // The global observation has 5 channels per cell. The conv loops read 4
 // input channels per load, so in shared memory only, the observation's grid
 // and conv 0's kernel rows are padded to C0p = 8 channels, the pad zero in
 // both: it adds exact zeros to the sums. The packed vector, the obs rows in
 // device memory and the gradients keep the true 5 (obs_slot maps a feature
-// to its padded place; sgd_cnn.cu drops the pad channels' gradients).
+// to its padded place).
 //
-// Policy groups (K10 only) run these pieces once per group, on that group's
-// rows, staged conv kernels, packed vector and transposed trunk.
-//
-// The learner (K11/K12) instantiates the pieces with a flag BF for bf16
-// operands (matmul_dtype="bfloat16", sgd_cnn.py:213-216): the staged conv
-// kernels and the trunk's transposed copy are rounded to bf16 once, conv 1
-// and the trunk round their inputs where they read them (the float32 values
-// stay for the relu masks and the weight gradients' rows), and the head
-// rounds both operands. The TPU kernel's unrolled conv matrices hold copies
-// of the 3x3 weights and zeros, so rounding those is rounding the 3x3
-// kernels. The acting kernel (K10) takes the float32 instances.
+// Policy groups run these pieces once per group, on that group's rows,
+// staged conv kernels, packed vector and transposed trunk.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -77,9 +68,6 @@ inline bool make_cnn_net(int S, int C0, int C1, int C2, int H, CnnNet* net) {
       H % 4)
     return false;
   const int C0p = round4(C0);
-  // One thread per 4 x 4 block of each conv kernel's gradient and per bias.
-  if (9 * (C1 / 4) * (C0p / 4) + 9 * (C2 / 4) * (C1 / 4) + C1 + C2 > RNT)
-    return false;
   net->S = S;
   net->P2 = S * S;
   net->C0 = C0;
@@ -133,9 +121,7 @@ struct ConvW {  // the staged conv kernels
   const float *w0, *b0, *w1, *b1;
 };
 
-// The packed conv kernels into shared memory at their padded row strides,
-// rounded to bf16 with BF (the biases are not).
-template <bool BF = false>
+// The packed conv kernels into shared memory at their padded row strides.
 __device__ inline ConvW stage_conv(const CnnNet& net, const float* p,
                                    float* smem) {
   float* w0 = smem;
@@ -145,11 +131,11 @@ __device__ inline ConvW stage_conv(const CnnNet& net, const float* p,
   for (int i = threadIdx.x; i < 9 * net.C1 * net.C0p; i += RNT) {
     const int row = i / net.C0p, ic = i % net.C0p;  // the pad channels: 0
     w0[row * net.ws0 + ic] =
-        ic < net.C0 ? rbf<BF>(p[net.w0 + row * net.C0 + ic]) : 0.f;
+        ic < net.C0 ? p[net.w0 + row * net.C0 + ic] : 0.f;
   }
   for (int i = threadIdx.x; i < net.C1; i += RNT) b0[i] = p[net.b0 + i];
   for (int i = threadIdx.x; i < 9 * net.C2 * net.C1; i += RNT)
-    w1[i / net.C1 * net.ws1 + i % net.C1] = rbf<BF>(p[net.w1 + i]);
+    w1[i / net.C1 * net.ws1 + i % net.C1] = p[net.w1 + i];
   for (int i = threadIdx.x; i < net.C2; i += RNT) b1[i] = p[net.b1 + i];
   return ConvW{w0, b0, w1, b1};
 }
@@ -157,9 +143,7 @@ __device__ inline ConvW stage_conv(const CnnNet& net, const float* p,
 // y[n][po OC + oc] = relu(b[oc] + sum over the valid taps k of po and over ic
 // of x[n][pi IC + ic] W[(k OC + oc) ws + ic]) for `rows` rows (a multiple of
 // RRT) of shared memory; pi is po moved by tap k. A thread owns one output
-// (po, oc) for RRT rows and reads 4 input channels per load. BX rounds x to
-// bf16 where it is read.
-template <bool BX = false>
+// (po, oc) for RRT rows and reads 4 input channels per load.
 __device__ inline void conv_relu(const float* W, int ws, const float* b,
                                  const float* x, int xs, int IC, float* y,
                                  int ys, int OC, int S, int rows) {
@@ -180,7 +164,7 @@ __device__ inline void conv_relu(const float* W, int ws, const float* b,
 #pragma unroll
         for (int r = 0; r < RRT; ++r) {
           const float4 xv =
-              rbf4<BX>(*reinterpret_cast<const float4*>(xp + r * xs + ic));
+              *reinterpret_cast<const float4*>(xp + r * xs + ic);
           acc[r] = fmaf(xv.x, wv.x, acc[r]);
           acc[r] = fmaf(xv.y, wv.y, acc[r]);
           acc[r] = fmaf(xv.z, wv.z, acc[r]);
@@ -197,15 +181,13 @@ __device__ inline void conv_relu(const float* W, int ws, const float* b,
 
 // Both convolutions of the tile: obs rows x -> a0 -> the first P2 C2 columns
 // of a1, whose next 6 columns get the rows' self features. Ends synchronised.
-// With BF the obs rows x are rounded already and conv 1 rounds a0.
-template <bool BF = false>
 __device__ inline void conv_forward(const CnnNet& net, const ConvW& cw,
                                     const float* x, float* a0, float* a1,
                                     int rows) {
   conv_relu(cw.w0, net.ws0, cw.b0, x, net.xs, net.C0p, a0, net.a0s, net.C1,
             net.S, rows);
   __syncthreads();
-  conv_relu<BF>(cw.w1, net.ws1, cw.b1, a0, net.a0s, net.C1, a1, net.a1s,
+  conv_relu(cw.w1, net.ws1, cw.b1, a0, net.a0s, net.C1, a1, net.a1s,
                 net.C2, net.S, rows);
   for (int idx = threadIdx.x; idx < rows * NSELF; idx += RNT) {
     const int n = idx / NSELF, f = idx % NSELF;
@@ -216,9 +198,7 @@ __device__ inline void conv_forward(const CnnNet& net, const ConvW& cw,
 
 // h[n][j] = tanh(a1[n] . Wt[j] + bt[j]) for the tile's rows; Wt_t is the
 // trunk's kernel transposed to [trunk_in, H]. Rows < nvalid also go to
-// g[(n0 + n) * H + j] when g is set. With BF the product reads a1 rounded
-// to bf16 (Wt_t is rounded already).
-template <bool BF = false>
+// g[(n0 + n) * H + j] when g is set.
 __device__ inline void trunk_forward(const CnnNet& net, const float* Wt_t,
                                      const float* bt, const float* a1,
                                      float* h, int rows, float* g, long n0,
@@ -228,7 +208,7 @@ __device__ inline void trunk_forward(const CnnNet& net, const float* Wt_t,
     const int j = item % H, r0 = item / H * RRT;
     float acc[1][RRT];
     zero_acc(acc);
-    fma_cols<1, BF>(acc, a1 + r0 * net.a1s, net.a1s, Wt_t + j, H, 0,
+    fma_cols<1>(acc, a1 + r0 * net.a1s, net.a1s, Wt_t + j, H, 0,
                     net.trunk_in);
     const float bj = bt[j];
 #pragma unroll
@@ -240,9 +220,7 @@ __device__ inline void trunk_forward(const CnnNet& net, const float* Wt_t,
   }
 }
 
-// out[n][o] = h[n] . Whead[o] + b[o], o < 6, one thread per (row, output);
-// with BF on bf16-rounded operands.
-template <bool BF = false>
+// out[n][o] = h[n] . Whead[o] + b[o], o < 6, one thread per (row, output).
 __device__ inline void cnn_head(const CnnNet& net, const float* p,
                                 const float* h, float* out, int rows) {
   for (int item = threadIdx.x; item < rows * RHEAD; item += RNT) {
@@ -250,29 +228,24 @@ __device__ inline void cnn_head(const CnnNet& net, const float* p,
     const float* w = p + net.head_w + (long)o * net.H;
     float acc = 0.f;
     for (int k = 0; k < net.H; ++k)
-      acc = fmaf(rbf<BF>(h[n * net.H + k]), rbf<BF>(__ldg(w + k)), acc);
+      acc = fmaf(h[n * net.H + k], __ldg(w + k), acc);
     out[n * ROST + o] = acc + p[net.head_b + o];
   }
 }
 
 // wt_t = the trunk's kernel [H, trunk_in] of the packed vector as
-// [trunk_in, H]; rounded to bf16 with BF.
-template <bool BF>
+// [trunk_in, H].
 __global__ void trunk_transpose_kernel(CnnNet net, const float* p,
                                        float* wt_t) {
   const long n = (long)net.H * net.trunk_in;
   for (long k = (long)blockIdx.x * blockDim.x + threadIdx.x; k < n;
        k += (long)gridDim.x * blockDim.x)
-    wt_t[(k % net.trunk_in) * net.H + k / net.trunk_in] = rbf<BF>(p[net.wt + k]);
+    wt_t[(k % net.trunk_in) * net.H + k / net.trunk_in] = p[net.wt + k];
 }
 
 inline cudaError_t launch_trunk_transpose(const CnnNet& net, const float* p,
-                                          float* wt_t, cudaStream_t stream,
-                                          bool bf16 = false) {
-  if (bf16)
-    trunk_transpose_kernel<true><<<64, 256, 0, stream>>>(net, p, wt_t);
-  else
-    trunk_transpose_kernel<false><<<64, 256, 0, stream>>>(net, p, wt_t);
+                                          float* wt_t, cudaStream_t stream) {
+  trunk_transpose_kernel<<<64, 256, 0, stream>>>(net, p, wt_t);
   return cudaGetLastError();
 }
 
