@@ -64,7 +64,13 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    kernels then clip + Adam per step) against its plain twin (autograd
    through the T-step replay + ``optim.py``) on per-step losses, params
    and Adam moments, a second K8 run bit-equal to the first; K9 against
-   autograd on all 4 minibatches; both timed;
+   autograd on all 4 minibatches; both timed; then ``rnn_stage_check``:
+   K9's six stage kernels (encoder forward, recurrence forward, head and
+   loss, recurrence backward, encoder backward, weight gradients), each
+   against its plain stage (``kernels.sgd_rnn``) on the plain chain's rows
+   of minibatch 0, for the GRU and the LSTM, on the config-4 trajectory
+   (N = 4096 sequences) and on a ragged slice of it (N = 100 sequences of
+   5 steps), each stage timed by CUDA events beside its plain stage;
 13. ``rnn_train`` (main path): ``train.make_train_rnn`` at BASELINE config
    4 from ``PRNGKey(0)`` on a 300-update schedule, the first 40 updates,
    for ``gru`` then ``lstm``, through ``train_step`` (K7 + K8/K9) with the
@@ -167,9 +173,9 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    K12 on the 5x5 window and the 9x9 map: every tensor held in norm,
    ||kernel - twin|| <= 2e-4 ||twin|| for a gradient and 3e-3 ||twin|| +
    the f32 atol x sqrt(n) for a phase's params, moments and losses, the
-   f32 twin beyond each bound; K3, K8 and K11 reruns bit-equal; K12's
-   stage kernels against the bf16 plain stages (config 4 full and ragged,
-   the 9x9 map) at 2e-4 in norm;
+   f32 twin beyond each bound; K3, K8 and K11 reruns bit-equal; K9's and
+   K12's stage kernels against the bf16 plain stages (config 4 full and
+   ragged, for K12 the 9x9 map too) at 2e-4 in norm;
 27. ``gru_bf16_train`` (main path): ``--arch gru --model-dtype bfloat16`` at
    config 4 (the JAX package's recurrent fast config,
    ``runs/r3_curves/config4_gru_fast.jsonl``), the first update held against
@@ -382,12 +388,13 @@ CNN_TOL = {"losses": (1e-5, 2e-6), "params": (1e-5, 1e-6),
 # kernel that skips the rounding of an operand from one that does not.
 BF16 = "bfloat16"
 BF16_GRAD_REL, BF16_PHASE_REL = 2e-4, 3e-3
-# K12's stage kernels against their plain stages (cnn_stage_check): every
-# float32 output at CNN_TOL's gradient bound (the JAX suite's, rtol 1e-4
-# / atol 1e-6): the stages sum in float32 in another order. A ragged
-# trajectory:
-# the first RAGGED_T steps of RAGGED_B envs (N = 500 per minibatch at 4
-# agents, which no conv or trunk tile divides).
+# K12's and K9's stage kernels against their plain stages
+# (cnn_stage_check, rnn_stage_check): every float32 output at CNN_TOL's
+# gradient bound (the JAX suite's, rtol 1e-4 / atol 1e-6, RNN_GRAD_TOL's
+# too): the stages sum in float32 in another order. A ragged trajectory:
+# the first RAGGED_T steps of RAGGED_B envs (N = 500 samples per minibatch
+# at 4 agents, which no conv or trunk tile divides; 100 sequences, which no
+# recurrent tile of 32 divides).
 STAGE_TOL = CNN_TOL["grads"]
 RAGGED_T, RAGGED_B = 5, 100
 CNN_STAGE_INPUTS = {"conv_fwd": (), "trunk_fwd": ("a1",),
@@ -833,6 +840,16 @@ def f32_twin_ratio(ref, args, kw, want, tol=None) -> float:
     return norm_ratio(got[1], want[1], BF16_GRAD_REL)
 
 
+def emit_bound(kernel, config, res):
+    """Prints a check's kernel and plain times beside its bound (the
+    instances that the kernels line does not carry); returns ``res``, the
+    check's ``(max_abs_err, ms, plain_ms, bound)``."""
+    _, k_ms, p_ms, bnd = res
+    emit({"phase": "bound", "kernel": kernel, "config": config, "ms": k_ms,
+          "plain_ms": p_ms, **bnd})
+    return res
+
+
 def within(err, ratios) -> bool:
     """``err`` ({key: (max abs error, max ratio)}) in bounds: every ratio at
     most 1 or, with ``ratios`` (a bf16 check's ``norm_ratio``s), every one
@@ -1018,7 +1035,8 @@ def k4_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None,
 
 def stage_ratios(got, want, bf16, rel=BF16_GRAD_REL) -> dict:
     """{output: {"max_abs_err", "ratio"}} of a stage kernel's outputs
-    ``got`` (``sgd_cnn.cnn_stage``'s) against the plain stage's ``want``:
+    ``got`` (``sgd_cnn.cnn_stage``'s or ``sgd_rnn.rnn_stage``'s) against
+    the plain stage's ``want``:
     float32 at STAGE_TOL elementwise, with ``bf16`` in norm at ``rel``;
     the loss terms at CNN_TOL's mb_losses. A ratio above 1 fails."""
     res = {}
@@ -1430,6 +1448,61 @@ def k9_check(dev, cfg, arch, bf16=False):
                        adv_n, targets, h0) / M + 2 * nbytes(rs.params),
                 2.0 * (2 * fwd + dx) * traj.action.numel() / M, bf16)
     return worst["grads"][0], k_ms, p_ms, bnd
+
+
+def rnn_stage_check(dev, cfg, arch, bf16=False, ragged=False):
+    """K9's six stage kernels (``sgd_rnn.STAGES``), each against its plain
+    stage on the plain chain's rows of minibatch 0 of a config-4 recurrent
+    trajectory (``rnn_inputs``: N = 4096 sequences of 16 steps; with
+    ``ragged`` its first 5 steps of 100 envs: N = 100, no recurrent tile
+    full at the end), then timed on those rows. float32 outputs within
+    RNN_GRAD_TOL elementwise; with ``bf16`` (against the bf16 plain
+    stages) each tensor within BF16_GRAD_REL in norm; the loss terms within
+    RNN_MB_LOSS_TOL."""
+    tcfg, _, rs, traj, adv_n, targets, h0, ent = rnn_inputs(dev, cfg, arch,
+                                                            bf16)
+    if ragged:
+        traj = Transition(*(x[:RAGGED_T, :RAGGED_B] for x in traj))
+        adv_n, targets = (x[:RAGGED_T, :RAGGED_B] for x in (adv_n, targets))
+        h0 = tuple(x[:RAGGED_B] for x in h0) if arch == "lstm" else h0[
+            :RAGGED_B]
+    p, kl, M = rs.params, rs.kl_coeff, tcfg.num_minibatches
+    loss_kw = dict(clip_eps=tcfg.clip_eps, value_coef=tcfg.value_coef,
+                   mask_actions=False)
+    md = BF16 if bf16 else "float32"
+    rows, carry = sgd_rnn.minibatch_rows(traj, adv_n, targets, h0, 0, M)
+    chain, want = sgd_rnn.plain_stage_chain(p, rows, carry, ent, kl,
+                                            bf16=bf16, **loss_kw)
+    run = sgd_rnn.RnnLaunch(p, traj, adv_n, targets, h0, ent, kl, M,
+                            tcfg.clip_eps, tcfg.value_coef, False,
+                            matmul_dtype=md)
+    p_flat = act_rnn.pack_rnn(p)
+    grads = torch.zeros_like(p_flat)
+    sums = torch.zeros(4, dtype=torch.float32, device=dev)
+    out, bad = {}, []
+    for stage in sgd_rnn.STAGES:
+        inputs = sgd_rnn.stage_inputs(stage, p, chain)
+        before = sgd_rnn.rnn_stage.launches
+        got = sgd_rnn.rnn_stage(stage, p, traj, adv_n, targets, h0, 0, ent,
+                                kl, inputs, matmul_dtype=md,
+                                num_minibatches=M, **loss_kw)
+        torch.cuda.synchronize()
+        require(sgd_rnn.rnn_stage.launches == before + 1,
+                f"rnn stage {stage}: the launch count did not move")
+        res = stage_ratios(got, want[stage], bf16)
+        bad += [f"{stage}.{k}" for k, v in res.items() if v["ratio"] > 1.0]
+        run.fill(inputs)
+        ms = timed(lambda: run.launch_stage(stage, p_flat, 0, grads, sums), 5)
+        out[stage] = {"outputs": res, "ms": ms, "plain_ms": timed(
+            lambda: sgd_rnn.plain_stage(stage, p, rows, carry, inputs, ent,
+                                        kl, bf16=bf16, **loss_kw), 3)}
+    emit({**check_line("K9", bf16, "rnn_stage_check"), "arch": arch,
+          "ragged": ragged, "sequences": rows[0].shape[0] // traj.obs.shape[0],
+          "steps": traj.obs.shape[0],
+          "ratio": "norm_ratio at BF16_GRAD_REL" if bf16 else
+          "tol_ratio at RNN_GRAD_TOL", "stages": out})
+    require(not bad, f"K9 stages differ from their plain stages: {bad}")
+    return out
 
 
 def k1_episodes(dev):
@@ -2049,10 +2122,15 @@ def bf16_check(dev, cfg, shelves, shelves_g, medium_g):
                                  groups=GROUPS))):
         k3_check(dev, c, bf16=True, **kw)
         k4_check(dev, c, bf16=True, **kw)
-    k8_check(dev, cfg, "lstm", bf16=True)
-    k9_check(dev, cfg, "lstm", bf16=True)
+    emit_bound("K8 lstm bf16", "config4",
+               k8_check(dev, cfg, "lstm", bf16=True))
+    emit_bound("K9 lstm bf16", "config4",
+               k9_check(dev, cfg, "lstm", bf16=True))
     out["ppo_rnn_sgd_phase_bf16"] = k8_check(dev, cfg, "gru", bf16=True)
     out["ppo_rnn_minibatch_grads_bf16"] = k9_check(dev, cfg, "gru", bf16=True)
+    for arch in ("gru", "lstm"):
+        rnn_stage_check(dev, cfg, arch, bf16=True)
+        rnn_stage_check(dev, cfg, arch, bf16=True, ragged=True)
     out["ppo_cnn_sgd_phase_bf16"] = k3_check(dev, cfg, cnn=True, bf16=True)
     out["ppo_cnn_minibatch_grads_bf16"] = k4_check(dev, cfg, cnn=True,
                                                    bf16=True)
@@ -2161,9 +2239,10 @@ def k10_groups_check(dev, cfg, shelves):
                     rerun=True)
     large = large_config()
     eight = tuple(range(large.num_agents))
-    k2_check(dev, "large_cnn_per_agent", large,
-             cnn_groups_model(large, eight, dev), True, shaped=True,
-             phase="k10_groups_check", groups=eight, rerun=True)
+    emit_bound("K10 groups", "large_cnn_per_agent", k2_check(
+        dev, "large_cnn_per_agent", large, cnn_groups_model(large, eight,
+                                                            dev), True,
+        shaped=True, phase="k10_groups_check", groups=eight, rerun=True))
     after = act.act_cnn_steps(cfg, model, state, u, pick, drop, g)
     torch.cuda.synchronize()
     require(state_equal(before[0], after[0]) and all(
@@ -2495,13 +2574,16 @@ def main(argv=()) -> int:
     checks["impala_minibatch_grads"] = k6_check(dev, cfg)
     # The recurrent kernels: the LSTM's checks run too; the GRU's numbers
     # (the CLI's first recurrent cell) go into the kernels line.
-    k7_check(dev, "medium", cfg, "lstm")
+    emit_bound("K7 lstm", "config4", k7_check(dev, "medium", cfg, "lstm"))
     k7_check(dev, "shelves", shelves, "gru", mask_actions=True)
     checks["ppo_rnn_rollout"] = k7_check(dev, "medium", cfg, "gru")
-    k8_check(dev, cfg, "lstm")
-    k9_check(dev, cfg, "lstm")
+    emit_bound("K8 lstm", "config4", k8_check(dev, cfg, "lstm"))
+    emit_bound("K9 lstm", "config4", k9_check(dev, cfg, "lstm"))
     checks["ppo_rnn_sgd_phase"] = k8_check(dev, cfg, "gru")
     checks["ppo_rnn_minibatch_grads"] = k9_check(dev, cfg, "gru")
+    for arch in ("gru", "lstm"):
+        rnn_stage_check(dev, cfg, arch)
+        rnn_stage_check(dev, cfg, arch, ragged=True)
     # The CNN kernels, against true convolutions (IEEE float32 in cuDNN:
     # models.policy.conv_flags).
     checks["ppo_rollout_cnn"] = k2_check(dev, "medium", cfg,
@@ -2551,15 +2633,18 @@ def main(argv=()) -> int:
         dev, shelves_g, tcfg=global_tcfg(), name="shelves_global")
     checks["ppo_minibatch_grads_global"] = k4_check(
         dev, shelves_g, tcfg=global_tcfg(), name="shelves_global")
-    k3_check(dev, cfg, tcfg=hidden256_tcfg(), name="config4_hidden256")
-    k4_check(dev, cfg, tcfg=hidden256_tcfg(), name="config4_hidden256")
+    emit_bound("K3", "config4_hidden256", k3_check(
+        dev, cfg, tcfg=hidden256_tcfg(), name="config4_hidden256"))
+    emit_bound("K4", "config4_hidden256", k4_check(
+        dev, cfg, tcfg=hidden256_tcfg(), name="config4_hidden256"))
     checks["ppo_cnn_sgd_phase_global"] = k3_check(
         dev, medium_g, cnn=True, name="medium_global")
     checks["ppo_cnn_minibatch_grads_global"] = k4_check(
         dev, medium_g, cnn=True, name="medium_global")
     cnn_stage_check(dev, medium_g, name="medium_global")
     cnn_stage_check(dev, medium_g, name="medium_global", ragged=True)
-    k5_check(dev, cfg, hidden=WIDE_HIDDEN)
+    emit_bound("K5", "config4_hidden256", k5_check(dev, cfg,
+                                                   hidden=WIDE_HIDDEN))
     # Policy groups: the recipe's shapes go into the kernels line.
     (checks["ppo_rollout_groups"], checks["ppo_sgd_phase_groups"],
      checks["ppo_minibatch_grads_groups"]) = groups_check(dev, cfg, shelves)

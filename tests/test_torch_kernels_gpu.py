@@ -457,6 +457,54 @@ def test_rnn_minibatch_grads_kernel_matches_autograd(layers, arch, mask_on,
         assert_close_tree(g_k, g_r, 1e-4, 1e-6, f"grads mb={mb}")
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("arch,hidden,layers,full", [
+    ("gru", 32, 3, False), ("gru", 32, 3, True), ("lstm", 32, 3, False),
+    ("lstm", 32, 3, True), ("lstm", 192, 2, False)])
+def test_rnn_stage_kernels_match_plain_stages(arch, hidden, layers, full,
+                                              bf16, dev):
+    """Each of K9's six stage kernels (``sgd_rnn.rnn_stage``) against its
+    plain stage on the plain chain's rows of minibatch 0, masked: hidden 32
+    with 2 encoder layers (the recurrences' weights staged in shared
+    memory), on 100 sequences of 5 steps (no recurrent tile of 32
+    sequences and no 64-row tile full at the end) or, ``full``, the first
+    64 envs' 64 sequences (every tile full); the LSTM at hidden 192, whose
+    weights do not fit beside the recurrent tiles (read through L1);
+    float32 outputs at chip_smoke.py's STAGE_TOL elementwise, bf16
+    operands at GRAD_REL in norm, the loss terms within 1e-6; one launch
+    each."""
+    from warehouse_tpu_torch.kernels import sgd_rnn
+    from warehouse_tpu_torch.train.ppo import Transition
+
+    cs = smoke()
+    cfg = medium_config()
+    _, _, traj, adv_n, targets = sgd_batch(cfg, hidden, dev, seed=7,
+                                           arch=arch)
+    m = make_model(cfg, arch, hidden_dim=hidden, num_layers=layers,
+                   generator=torch.Generator().manual_seed(8), device=dev)
+    params = {k: v.detach() for k, v in m.state_dict().items()}
+    h0 = rnn_carry(arch, hidden, cfg.num_agents, dev, 13, SGD_B)
+    if full:
+        traj = Transition(*(x[:, :64] for x in traj))
+        adv_n, targets = adv_n[:, :64], targets[:, :64]
+        h0 = tuple(x[:64] for x in h0) if arch == "lstm" else h0[:64]
+    loss_kw = dict(mask_actions=True, **SGD_KW)
+    rows, carry = sgd_rnn.minibatch_rows(traj, adv_n, targets, h0, 0, SGD_M)
+    chain, want = sgd_rnn.plain_stage_chain(params, rows, carry, 0.01, 0.05,
+                                            bf16=bf16, **loss_kw)
+    for stage in sgd_rnn.STAGES:
+        before = sgd_rnn.rnn_stage.launches
+        got = sgd_rnn.rnn_stage(
+            stage, params, traj, adv_n, targets, h0, 0, 0.01, 0.05,
+            sgd_rnn.stage_inputs(stage, params, chain),
+            num_minibatches=SGD_M,
+            matmul_dtype="bfloat16" if bf16 else "float32", **loss_kw)
+        torch.cuda.synchronize()
+        assert sgd_rnn.rnn_stage.launches == before + 1
+        res = cs.stage_ratios(got, want[stage], bf16, GRAD_REL)
+        assert all(v["ratio"] <= 1.0 for v in res.values()), (stage, res)
+
+
 # ---- K10: the CNN acting kernel ----------------------------------------------
 
 @pytest.mark.parametrize("mask_on", [False, True])

@@ -57,6 +57,9 @@ SIGNATURES = {
     "wh_rnn_sgd_workspace_floats": [I, IP, I, I, I, L, I, I],
     "wh_rnn_sgd_grads": [I, IP, I, I, I, L, I, I, I] + [P] * 11 + [F] * 5
                         + [P] * 3 + [I, P],
+    "wh_rnn_sgd_stage": [I, I, IP, I, I, I, L, I, I, I] + [P] * 11
+                        + [F] * 5 + [P] * 3 + [I, P],
+    "wh_rnn_sgd_layout": [I, IP, I, I, I, L, I, I, LP],
     "wh_rnn_sgd_clip_adam": [I, IP, I, I, I, L, I, I, I] + [P] * 7 + [F] * 6
                             + [P] * 2,
     "wh_cnn_param_floats": [I] * 5,

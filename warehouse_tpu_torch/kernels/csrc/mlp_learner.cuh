@@ -28,7 +28,7 @@
 //   sample range, no atomics), reduce_kernel (the partials summed in split
 //   order, sums of squares per 256 gradients), metrics_kernel (per-tile
 //   metric rows summed in a fixed order), and adam_kernel (the optax clip
-//   + Adam step, one CTA).
+//   + Adam step, on one CTA or a grid).
 //
 // Policy groups (K3/K4, pallas/sgd.py:293-306): K MLPs of the same widths,
 // their params one after another in group order, and a static agent ->
@@ -613,7 +613,9 @@ struct AdamArgs {
 
 // optax.chain(clip_by_global_norm, adam) in its op order (_clip_adam_step,
 // sgd.py:226-248): scale = norm < max ? 1 : (g / norm) * max, the moment
-// updates, update = lr * (m / bc1) / (sqrt(v / bc2) + eps).
+// updates, update = lr * (m / bc1) / (sqrt(v / bc2) + eps). One CTA, or a
+// grid of them (each computes the same norm from the sums of squares, then
+// updates its share of the parameters).
 __global__ void __launch_bounds__(FNT) adam_kernel(AdamArgs p) {
   __shared__ float norm_s;
   global_norm(p.sq, p.n_sq, &norm_s);
@@ -621,7 +623,8 @@ __global__ void __launch_bounds__(FNT) adam_kernel(AdamArgs p) {
   const bool keep = norm < maxn;
   const float lr = p.lr_row[p.step], bc1 = p.bc1_row[p.step];
   const float bc2 = p.bc2_row[p.step];
-  for (long k = threadIdx.x; k < p.n; k += FNT) {
+  for (long k = (long)blockIdx.x * FNT + threadIdx.x; k < p.n;
+       k += (long)gridDim.x * FNT) {
     float g = p.grads[k];
     if (!keep) g = __fmul_rn(__fdiv_rn(g, norm), maxn);
     const float m = __fadd_rn(__fmul_rn(p.one_m_b1, g),

@@ -1,7 +1,8 @@
-// The recurrent policy's forward step, shared by the recurrent acting
-// kernel (K7, act_rnn.cu) and the recurrent PPO learner (K8/K9,
-// sgd_rnn.cu): tanh encoder layers -> GRU or LSTM cell -> fused logits +
-// value head, in flax's cell math (warehouse_tpu/pallas/act.py:522-526):
+// The recurrent policy's forward step for the recurrent acting kernel (K7,
+// act_rnn.cu), and its packed parameter layout, which the recurrent PPO
+// learner (K8/K9, sgd_rnn.cu) shares: tanh encoder layers -> GRU or LSTM
+// cell -> fused logits + value head, in flax's cell math
+// (warehouse_tpu/pallas/act.py:522-526):
 //
 //   GRU:  r = sig(Wir e + bir + Whr h); z = sig(Wiz e + biz + Whz h);
 //         q = Whn h + bhn; n = tanh(Win e + bin + r q); h' = (1-z) n + z h.
@@ -25,23 +26,15 @@
 // and a CTA keeps only its rows' activations in shared memory. A forward
 // product reads a transposed copy Wt [in, out] (transpose_kernel), so the
 // threads of a warp, which own neighbouring output columns, read
-// neighbouring addresses; the backward products of sgd_rnn.cu read W [out,
-// in] itself the same way, with a thread per input column. A thread owns
-// one column for RT rows and reads the rows from shared memory as float4
-// broadcasts: 4 k's times NG gates of FMAs per 16-byte shared load.
+// neighbouring addresses. A thread owns one column for RT rows and reads
+// the rows from shared memory as float4 broadcasts: 4 k's times NG gates of
+// FMAs per 16-byte shared load.
 //
-// The learner (K8/K9) instantiates the pieces with a flag BF for bf16
-// operands (matmul_dtype="bfloat16", sgd_rnn.py:116-119): the transposed
-// copy is rounded to bf16 when it is built, an encoder layer's output rows
-// in shared memory are rounded (only products read them; the float32 value
-// goes to device memory for tanh'), and the carry h and the head's operands
-// are rounded where a product reads them. The acting kernel (K7) takes the
-// float32 instances, the code it had before.
+// The recurrent learner (K8/K9, sgd_rnn.cu) takes RnnNet, make_rnn_net and
+// sigmoidf from here; its products run as tiles of its own (mma_tiles.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
-
-#include "bf16_round.cuh"
 
 namespace {
 
@@ -107,9 +100,7 @@ __host__ __device__ inline int enc_max(const RnnNet& net) {
 }
 
 // pt = every forward matrix of the packed vector transposed to [in, out], at
-// its offset in the packed vector (the biases and the head are read from p);
-// rounded to bf16 with BF.
-template <bool BF>
+// its offset in the packed vector (the biases and the head are read from p).
 __global__ void transpose_kernel(RnnNet net, const float* p, float* pt) {
   const long stride = (long)gridDim.x * blockDim.x;
   const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -124,15 +115,14 @@ __global__ void transpose_kernel(RnnNet net, const float* p, float* pt) {
       off = net.wh, out = net.G * net.H, in = net.H;
     }
     for (long k = tid; k < (long)out * in; k += stride)
-      pt[off + (k % in) * out + k / in] = rbf<BF>(p[off + k]);
+      pt[off + (k % in) * out + k / in] = p[off + k];
   }
 }
 
 // acc[g][r] += sum_k x[r * xs + k] * W[k * ldw + g * gs], k in [0, in):
 // NG columns (gate g's is W + g * gs) for RRT rows of shared memory. xs is a
-// multiple of 4 and x 16-byte aligned. BX / BW round x / W to bf16 where
-// they are read.
-template <int NG, bool BX = false, bool BW = false>
+// multiple of 4 and x 16-byte aligned.
+template <int NG>
 __device__ __forceinline__ void fma_cols(float (&acc)[NG][RRT], const float* x,
                                          int xs, const float* W, int ldw,
                                          int gs, int in) {
@@ -143,11 +133,10 @@ __device__ __forceinline__ void fma_cols(float (&acc)[NG][RRT], const float* x,
     for (int g = 0; g < NG; ++g)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        w[g][j] = rbf<BW>(__ldg(W + (long)(k + j) * ldw + g * gs));
+        w[g][j] = __ldg(W + (long)(k + j) * ldw + g * gs);
 #pragma unroll
     for (int r = 0; r < RRT; ++r) {
-      const float4 xv =
-          rbf4<BX>(*reinterpret_cast<const float4*>(x + r * xs + k));
+      const float4 xv = *reinterpret_cast<const float4*>(x + r * xs + k);
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
         acc[g][r] = fmaf(xv.x, w[g][0], acc[g][r]);
@@ -160,10 +149,10 @@ __device__ __forceinline__ void fma_cols(float (&acc)[NG][RRT], const float* x,
   for (; k < in; ++k) {
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-      const float w = rbf<BW>(__ldg(W + (long)k * ldw + g * gs));
+      const float w = __ldg(W + (long)k * ldw + g * gs);
 #pragma unroll
       for (int r = 0; r < RRT; ++r)
-        acc[g][r] = fmaf(rbf<BX>(x[r * xs + k]), w, acc[g][r]);
+        acc[g][r] = fmaf(x[r * xs + k], w, acc[g][r]);
     }
   }
 }
@@ -182,9 +171,7 @@ __device__ __forceinline__ float sigmoidf(float x) {
 
 // y[n][o] = tanh(x[n] . W[o] + b[o]) for the tile's `rows` rows (a multiple
 // of RRT); rows < nvalid also go to g[(n0 + n) * out + o] when g is set.
-// Wt is the layer's transposed kernel [in, out]. With BF, y gets the value
-// rounded to bf16 (the next product's operand) and g the float32 one.
-template <bool BF = false>
+// Wt is the layer's transposed kernel [in, out].
 __device__ void enc_layer(const float* Wt, const float* bias, const float* x,
                           int xs, int in, float* y, int ys, int out, int rows,
                           float* g, long n0, int nvalid) {
@@ -197,7 +184,7 @@ __device__ void enc_layer(const float* Wt, const float* bias, const float* x,
 #pragma unroll
     for (int r = 0; r < RRT; ++r) {
       const float v = tanhf(acc[0][r] + bo);
-      y[(r0 + r) * ys + o] = rbf<BF>(v);
+      y[(r0 + r) * ys + o] = v;
       if (g && r0 + r < nvalid) g[(n0 + r0 + r) * out + o] = v;
     }
   }
@@ -208,9 +195,7 @@ __device__ void enc_layer(const float* Wt, const float* bias, const float* x,
 // and, for the LSTM, c in place. With `gates` set, rows < nvalid store the
 // post-activation gates to gates[(n0 + n) * 4 H + {0, 1, 2, 3} H + j] (GRU
 // r, z, n, q; LSTM i, f, g, o) and the new carry to h_out / c_out
-// [(n0 + n) * H + j]. With BF the products read h rounded to bf16 (e and
-// pt are rounded already).
-template <bool BF = false>
+// [(n0 + n) * H + j].
 __device__ void cell_forward(const RnnNet& net, const float* p,
                              const float* pt, const float* e, int es,
                              const float* h, float* h_next, float* c, int hs,
@@ -225,7 +210,7 @@ __device__ void cell_forward(const RnnNet& net, const float* p,
       float acc[4][RRT];
       zero_acc(acc);
       fma_cols<4>(acc, e + r0 * es, es, Wti + j, GH, H, E);
-      fma_cols<4, BF>(acc, h + r0 * hs, hs, Wth + j, GH, H, H);
+      fma_cols<4>(acc, h + r0 * hs, hs, Wth + j, GH, H, H);
       const float* bh = p + net.bh;
       const float bi = bh[j], bf = bh[H + j], bg = bh[2 * H + j],
                   bo = bh[3 * H + j];
@@ -255,7 +240,7 @@ __device__ void cell_forward(const RnnNet& net, const float* p,
       zero_acc(ai);
       zero_acc(ah);
       fma_cols<3>(ai, e + r0 * es, es, Wti + j, GH, H, E);
-      fma_cols<3, BF>(ah, h + r0 * hs, hs, Wth + j, GH, H, H);
+      fma_cols<3>(ah, h + r0 * hs, hs, Wth + j, GH, H, H);
       const float* bi = p + net.bi;
       const float br = bi[j], bz = bi[H + j], bn = bi[2 * H + j];
       const float bq = p[net.bh + j];
@@ -281,9 +266,7 @@ __device__ void cell_forward(const RnnNet& net, const float* p,
   }
 }
 
-// out[n][o] = h[n] . Whead[o] + b[o], o < 6, one thread per (row, output);
-// with BF on bf16-rounded operands.
-template <bool BF = false>
+// out[n][o] = h[n] . Whead[o] + b[o], o < 6, one thread per (row, output).
 __device__ void head_forward(const RnnNet& net, const float* p, const float* h,
                              int hs, float* out, int rows) {
   for (int item = threadIdx.x; item < rows * RHEAD; item += RNT) {
@@ -291,18 +274,14 @@ __device__ void head_forward(const RnnNet& net, const float* p, const float* h,
     const float* w = p + net.head_w + (long)o * net.H;
     float acc = 0.f;
     for (int k = 0; k < net.H; ++k)
-      acc = fmaf(rbf<BF>(h[n * hs + k]), rbf<BF>(__ldg(w + k)), acc);
+      acc = fmaf(h[n * hs + k], __ldg(w + k), acc);
     out[n * ROST + o] = acc + p[net.head_b + o];
   }
 }
 
 inline cudaError_t launch_transpose(const RnnNet& net, const float* p,
-                                    float* pt, cudaStream_t stream,
-                                    bool bf16 = false) {
-  if (bf16)
-    transpose_kernel<true><<<64, 256, 0, stream>>>(net, p, pt);
-  else
-    transpose_kernel<false><<<64, 256, 0, stream>>>(net, p, pt);
+                                    float* pt, cudaStream_t stream) {
+  transpose_kernel<<<64, 256, 0, stream>>>(net, p, pt);
   return cudaGetLastError();
 }
 

@@ -48,11 +48,11 @@
 // K11 (wh_cnn_sgd_clip_adam) follows each gradient with adam_kernel, the
 // optax clip + Adam step of the MLP learner, on the packed vector.
 //
-// The products (cnn_mma.cuh): with bf16 operands (matmul_dtype=
+// The products (mma_tiles.cuh): with bf16 operands (matmul_dtype=
 // "bfloat16", _cnn_block_grads' dot at sgd_cnn.py:213-216) on the tensor
 // cores as m16n8k16 with float32 sums; in float32 as FFMA on the CUDA cores
 // over the same tiles, each thread a register block (the tensor cores'
-// TF32 routes miss the float32 twin's bounds: cnn_mma.cuh). With BF the
+// TF32 routes miss the float32 twin's bounds: mma_tiles.cuh). With BF the
 // operands are rounded where the mma packs them; a value that is only ever
 // an operand is stored rounded (a0, a1, the obs grid, the weight copies);
 // d1, d0, dzt and dout stay float32 for the bias sums, the masks and
@@ -74,21 +74,18 @@
 
 #include <cuda_runtime.h>
 
-#include "cnn_mma.cuh"
 #include "cnn_net.cuh"
 #include "mlp_learner.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
 constexpr int LC1 = 16, LC2 = 32;  // the learner's conv widths (CNN_CHANNELS)
 constexpr int XC = 8;       // obs channels in shared memory: C0 <= 8, zero pad
-constexpr int GNT = 256;    // threads of stages B, C and E
 constexpr int ANT = 512;    // threads of stage A
 constexpr int DNT = 576;    // threads of stage D: two warps per tap
 constexpr int RA_MAX = 64;  // samples per stage-A tile at most
 constexpr int RD_MAX = 24;  // samples per stage-D tile at most
-constexpr int BM = 64, BN = 128, BK = 32;  // stage B / C tiles, k-slice
-constexpr int EJ = 128, EK = 128, EN = 32;  // stage E tile; samples a slice
 constexpr int SE_TARGET = 512;  // stage E CTAs aimed at (split-K ranges)
 constexpr int MAXSE = 64;   // sample ranges of stage E at most
 constexpr int A1S = LC1 + 4;   // a0's stride per position in shared memory
@@ -97,17 +94,6 @@ constexpr int XSD = XC + 4;    // the obs grid's (stage D)
 constexpr int W1TS = LC2 + 4;  // conv 1's kernel transposed, per (tap, ic)
 constexpr int MDMAX = 3;    // stage D: m16 tiles of d0 per warp at most
 constexpr long MAXG = 1024;  // stage-D CTAs at most: rows of conv partials
-
-// Row stride of the cp.async ring's k-slices: a warp's TF32 reads (row g,
-// k t) and bf16 float2 reads (row g, k 2t) then hit distinct banks.
-template <bool BF>
-__host__ __device__ constexpr int ldt() {
-  return BK + (BF ? 8 : 4);
-}
-template <bool BF>
-__host__ __device__ constexpr int lde() {
-  return EJ + (BF ? 4 : 8);
-}
 
 inline int round_up(long x, int m) { return (int)((x + m - 1) / m * m); }
 
@@ -464,56 +450,6 @@ __global__ void __launch_bounds__(ANT) conv_fwd_kernel(CnnArgs p) {
   }
 }
 
-// ---- the 64 x 128 tile products of stages B and C ---------------------------
-
-// k-slice [k0, k0 + BK) of BM rows of A (rows >= a_rows as zeros) and of BN
-// rows of Bt into one ring stage.
-template <bool BF>
-__device__ __forceinline__ void load_slice(float* As, float* Bs, const float* A,
-                                           long lda, int a_rows,
-                                           const float* Bt, long ldb, int k0) {
-  constexpr int LD = ldt<BF>();
-  for (int i = threadIdx.x; i < BM * BK / 4; i += GNT) {
-    const int r = i / (BK / 4), c4 = i % (BK / 4) * 4;
-    const bool ok = r < a_rows;
-    cp_async16(As + r * LD + c4, ok ? A + r * lda + k0 + c4 : A, ok);
-  }
-  for (int i = threadIdx.x; i < BN * BK / 4; i += GNT) {
-    const int r = i / (BK / 4), c4 = i % (BK / 4) * 4;
-    cp_async16(Bs + r * LD + c4, Bt + r * ldb + k0 + c4, true);
-  }
-}
-
-// acc += A[BM rows, K] Bt[BN rows, K]^T, the k-slices through a
-// double-buffered ring; 8 warps as 2 x 4, each 32 x 32. K % BK == 0.
-template <bool BF>
-__device__ void gemm_64x128(float (&acc)[2][4][4], const float* A, long lda,
-                            int a_rows, const float* Bt, long ldb, int K,
-                            float* ring) {
-  constexpr int LD = ldt<BF>();
-  float* As[2] = {ring, ring + (BM + BN) * LD};
-  float* Bs[2] = {ring + BM * LD, ring + (BM + BN) * LD + BM * LD};
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int nk = K / BK;
-  load_slice<BF>(As[0], Bs[0], A, lda, a_rows, Bt, ldb, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk)
-      load_slice<BF>(As[(kt + 1) & 1], Bs[(kt + 1) & 1], A, lda, a_rows, Bt,
-                     ldb, (kt + 1) * BK);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* as = As[kt & 1] + (wm * 32 + g) * LD;
-    const float* bs = Bs[kt & 1] + (wn * 32 + g) * LD;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16)
-      mma_k16<BF>(acc, RowLoader<LD>{as + kk}, ColLoader<LD>{bs + kk});
-    __syncthreads();
-  }
-}
-
 // ---- B: the trunk forward, the head and the loss ----------------------------
 
 template <bool BF>
@@ -855,7 +791,6 @@ __global__ void __launch_bounds__(DNT) conv_bwd_kernel(CnnArgs p) {
 template <bool BF>
 __global__ void __launch_bounds__(GNT) trunk_wgrad_kernel(CnnArgs p) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int LE = lde<BF>();
   const CnnNet& net = p.net;
   const int H = net.H, HK = p.ld.HK, KT = p.ld.KT, TIN = net.trunk_in;
   const long q0 = (long)blockIdx.y * p.sc.chunk;
@@ -882,39 +817,10 @@ __global__ void __launch_bounds__(GNT) trunk_wgrad_kernel(CnnArgs p) {
   const int j0 = blockIdx.x / p.ld.TK * EJ, k0 = blockIdx.x % p.ld.TK * EK;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int wj = warp >> 2, wk = warp & 3;  // 2 x 4 warps, 64 x 32 each
-  float* Ad[2] = {smem, smem + 2 * EN * LE};
-  float* Bd[2] = {smem + EN * LE, smem + 3 * EN * LE};
-  auto load = [&](int s, long qc) {
-    for (int i = tid; i < EN * EJ / 4; i += GNT) {
-      const int r = i / (EJ / 4), c4 = i % (EJ / 4) * 4;
-      const long q = qc + r;
-      const bool oka = q < q1 && j0 + c4 < HK, okb = q < q1 && k0 + c4 < KT;
-      cp_async16(Ad[s] + r * LE + c4, oka ? p.sc.dzt + q * HK + j0 + c4
-                                          : p.sc.dzt, oka);
-      cp_async16(Bd[s] + r * LE + c4, okb ? p.sc.a1 + q * KT + k0 + c4
-                                          : p.sc.a1, okb);
-    }
-  };
   float acc[4][4][4], bsum = 0.f;
   zero_frags(acc);
-  const int nk = (int)((q1 - q0 + EN - 1) / EN);
-  load(0, q0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) & 1, q0 + (long)(kt + 1) * EN);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* as = Ad[kt & 1] + wj * 64 + g;
-    const float* bs = Bd[kt & 1] + wk * 32 + g;
-#pragma unroll
-    for (int kk = 0; kk < EN; kk += 16)
-      mma_k16<BF>(acc, KRowLoader<LE>{as + kk * LE},
-                  KColLoader<LE>{bs + kk * LE});
-    if (k0 == 0 && tid < EJ)
-      for (int r = 0; r < EN; ++r) bsum += Ad[kt & 1][r * LE + tid];
-    __syncthreads();
-  }
+  gemm_tn_128x128<BF>(acc, k0 == 0 ? &bsum : nullptr, p.sc.dzt + j0, HK,
+                      HK - j0, p.sc.a1 + k0, KT, KT - k0, q0, q1, smem);
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
