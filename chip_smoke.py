@@ -23,7 +23,14 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    params and Adam moments, a second K3 run bit-equal to the first, both
    timed;
 4. ``k4_check``: the per-minibatch gradient kernels (K4) against autograd
-   on the same trajectory, all 4 minibatches, timed;
+   on the same trajectory, all 4 minibatches, timed; then
+   ``mlp_stage_check``: K4's four stage kernels (forward, head and loss,
+   dgrads, weight gradients), each against its plain stage
+   (``kernels.sgd``) on the plain chain's rows of minibatch 0, on the
+   config-4 trajectory (N = 65536) and on a ragged slice of it (N = 500),
+   each stage timed by CUDA events beside its plain stage (also at D =
+   611, at hidden 256, with groups and with bf16 operands, in the checks
+   below);
 5. ``k5_check``: one config-4 IMPALA trajectory (a K2 chunk from the
    trainer's reset, then the boundary reset); the IMPALA learner phase
    (K5: passes x M = 4 minibatches, K6's gradient kernels then clip +
@@ -1102,6 +1109,61 @@ def cnn_stage_check(dev, cfg, name="config4", bf16=False, ragged=False):
     return out
 
 
+def mlp_stage_check(dev, cfg, name="config4", bf16=False, ragged=False,
+                    tcfg=None, groups=None):
+    """K4's four stage kernels (``sgd.STAGES``), each against its plain
+    stage on the plain chain's rows of minibatch 0 of an MLP trajectory of
+    ``cfg`` (``sgd_inputs``: config 4's N = 65536 samples, or ``tcfg``'s
+    shapes and ``groups``; with ``ragged`` its first 5 steps of 100 envs: N
+    = 500, no 64-row tile full at the end), then timed on those rows.
+    float32 outputs within STAGE_TOL elementwise; with ``bf16`` (against
+    the bf16 plain stages) each tensor within BF16_GRAD_REL in norm; the
+    loss terms within CNN_TOL's mb_losses."""
+    tcfg, _, rs, traj, adv_n, targets, ent = sgd_inputs(dev, cfg, tcfg=tcfg,
+                                                        groups=groups)
+    if ragged:
+        traj = Transition(*(x[:RAGGED_T, :RAGGED_B] for x in traj))
+        adv_n, targets = (x[:RAGGED_T, :RAGGED_B] for x in (adv_n, targets))
+    p, kl, M = rs.params, rs.kl_coeff, tcfg.num_minibatches
+    loss_kw = dict(clip_eps=tcfg.clip_eps, value_coef=tcfg.value_coef,
+                   mask_actions=tcfg.mask_actions)
+    md = BF16 if bf16 else "float32"
+    rows, counts = sgd.minibatch_rows(traj, adv_n, targets, 0, M, groups)
+    chain, want = sgd.plain_stage_chain(p, rows, counts, ent, kl, bf16=bf16,
+                                        **loss_kw)
+    run = sgd.MlpLaunch(p, traj, adv_n, targets, ent, kl, M,
+                        tcfg.clip_eps, tcfg.value_coef, tcfg.mask_actions,
+                        policy_groups=groups, matmul_dtype=md)
+    p_flat = sgd.pack(p)
+    grads = torch.zeros_like(p_flat)
+    sums = torch.zeros(4, dtype=torch.float32, device=dev)
+    out, bad = {}, []
+    for stage in sgd.STAGES:
+        inputs = sgd.stage_inputs(stage, p, chain)
+        before = sgd.mlp_stage.launches
+        got = sgd.mlp_stage(stage, p, traj, adv_n, targets, 0, ent, kl,
+                            inputs, num_minibatches=M, policy_groups=groups,
+                            matmul_dtype=md, **loss_kw)
+        torch.cuda.synchronize()
+        require(sgd.mlp_stage.launches == before + 1,
+                f"mlp stage {stage}: the launch count did not move")
+        res = stage_ratios(got, want[stage], bf16)
+        bad += [f"{stage}.{k}" for k, v in res.items() if v["ratio"] > 1.0]
+        run.fill(inputs)
+        ms = timed(lambda: run.launch_stage(stage, p_flat, 0, grads, sums), 5)
+        out[stage] = {"outputs": res, "ms": ms, "plain_ms": timed(
+            lambda: sgd.plain_stage(stage, p, rows, counts, inputs, ent, kl,
+                                    bf16=bf16, **loss_kw), 3)}
+    emit({**check_line("K4", bf16, "mlp_stage_check"), "config": name,
+          "ragged": ragged, "samples": rows[0].shape[0],
+          "obs_dim": cfg.obs_dim, "hidden": run.dims[1:],
+          "policy_groups": groups,
+          "ratio": "norm_ratio at BF16_GRAD_REL" if bf16 else
+          "tol_ratio at STAGE_TOL", "stages": out})
+    require(not bad, f"K4 stages differ from their plain stages: {bad}")
+    return out
+
+
 def impala_inputs(dev, cfg, hidden=HIDDEN[0]):
     """One config-4 IMPALA trajectory: a K2 chunk from the trainer's reset
     and the boundary reset after it (``last_obs``)."""
@@ -2052,6 +2114,8 @@ def groups_check(dev, cfg, shelves):
                   groups=GROUPS)
     k4 = k4_check(dev, shelves, tcfg=groups_tcfg(), name="shelves_groups",
                   groups=GROUPS)
+    mlp_stage_check(dev, shelves, name="shelves_groups", tcfg=groups_tcfg(),
+                    groups=GROUPS)
     return k2, k3, k4
 
 
@@ -2122,6 +2186,9 @@ def bf16_check(dev, cfg, shelves, shelves_g, medium_g):
                                  groups=GROUPS))):
         k3_check(dev, c, bf16=True, **kw)
         k4_check(dev, c, bf16=True, **kw)
+        mlp_stage_check(dev, c, bf16=True, **kw)
+    mlp_stage_check(dev, cfg, bf16=True)
+    mlp_stage_check(dev, cfg, bf16=True, ragged=True)
     emit_bound("K8 lstm bf16", "config4",
                k8_check(dev, cfg, "lstm", bf16=True))
     emit_bound("K9 lstm bf16", "config4",
@@ -2570,6 +2637,8 @@ def main(argv=()) -> int:
                         device=dev), mask_actions=True)
     checks["ppo_sgd_phase"] = k3_check(dev, cfg)
     checks["ppo_minibatch_grads"] = k4_check(dev, cfg)
+    mlp_stage_check(dev, cfg)
+    mlp_stage_check(dev, cfg, ragged=True)
     checks["impala_sgd_phase"] = k5_check(dev, cfg)
     checks["impala_minibatch_grads"] = k6_check(dev, cfg)
     # The recurrent kernels: the LSTM's checks run too; the GRU's numbers
@@ -2637,6 +2706,10 @@ def main(argv=()) -> int:
         dev, cfg, tcfg=hidden256_tcfg(), name="config4_hidden256"))
     emit_bound("K4", "config4_hidden256", k4_check(
         dev, cfg, tcfg=hidden256_tcfg(), name="config4_hidden256"))
+    mlp_stage_check(dev, shelves_g, name="shelves_global",
+                    tcfg=global_tcfg())
+    mlp_stage_check(dev, cfg, name="config4_hidden256",
+                    tcfg=hidden256_tcfg())
     checks["ppo_cnn_sgd_phase_global"] = k3_check(
         dev, medium_g, cnn=True, name="medium_global")
     checks["ppo_cnn_minibatch_grads_global"] = k4_check(

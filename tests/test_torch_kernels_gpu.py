@@ -505,6 +505,59 @@ def test_rnn_stage_kernels_match_plain_stages(arch, hidden, layers, full,
         assert all(v["ratio"] <= 1.0 for v in res.values()), (stage, res)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("name,glob,hidden,layers,groups", [
+    ("medium", False, 16, 2, None), ("medium", False, 128, 3, None),
+    ("shelves", True, 128, 2, None), ("shelves", False, 16, 1,
+                                      (0, 0, 0, 1, 1, 1)),
+    ("medium", False, 256, 2, (0, 1, 0, 1))])
+def test_mlp_stage_kernels_match_plain_stages(name, glob, hidden, layers,
+                                              groups, bf16, dev):
+    """Each of K4's four stage kernels (``sgd.mlp_stage``) against its
+    plain stage on the plain chain's rows of minibatch 0, masked, on 500
+    samples (no 64-row tile full at the end): hidden 16 and 128 with 2 and
+    3 layers, the global view's D = 611, one layer with two groups on
+    shelves, and hidden 256 with the groups ``(0, 1, 0, 1)``; float32
+    outputs at chip_smoke.py's STAGE_TOL elementwise, bf16 operands at
+    GRAD_REL in norm, the loss terms within 1e-6; one launch each. The
+    observations are the env's own, of 500 reset envs (as chip_smoke.py's
+    trajectories): on ``sgd_batch``'s normal features a 611-term float32
+    sum differs by up to 2.6e-6 between two summation orders, 1.6 times
+    STAGE_TOL on an activation near 0 (an H100 80GB HBM3, 700 W)."""
+    from warehouse_tpu_torch.kernels import sgd
+    from warehouse_tpu_torch.models import make_multi_policy_model
+    from warehouse_tpu_torch.train.ppo import Transition
+
+    cs = smoke()
+    cfg = (GLOBAL if glob else PRESETS)[name]
+    _, _, traj, adv_n, targets = sgd_batch(cfg, hidden, dev, seed=7)
+    _, obs = reset(cfg, 7, dev)
+    obs = obs[:SGD_T * SGD_B]
+    traj = Transition(obs.reshape(traj.obs.shape).float(), *traj[1:])
+    gen = torch.Generator().manual_seed(8)
+    m = (make_model(cfg, hidden_dim=hidden, num_layers=layers, generator=gen,
+                    device=dev) if groups is None else
+         make_multi_policy_model(cfg, groups, hidden_dim=hidden,
+                                 num_layers=layers, generator=gen,
+                                 device=dev))
+    params = {k: v.detach() for k, v in m.state_dict().items()}
+    loss_kw = dict(mask_actions=True, **SGD_KW)
+    rows, counts = sgd.minibatch_rows(traj, adv_n, targets, 0, SGD_M, groups)
+    chain, want = sgd.plain_stage_chain(params, rows, counts, 0.01, 0.05,
+                                        bf16=bf16, **loss_kw)
+    for stage in sgd.STAGES:
+        before = sgd.mlp_stage.launches
+        got = sgd.mlp_stage(
+            stage, params, traj, adv_n, targets, 0, 0.01, 0.05,
+            sgd.stage_inputs(stage, params, chain), num_minibatches=SGD_M,
+            policy_groups=groups,
+            matmul_dtype="bfloat16" if bf16 else "float32", **loss_kw)
+        torch.cuda.synchronize()
+        assert sgd.mlp_stage.launches == before + 1
+        res = cs.stage_ratios(got, want[stage], bf16, GRAD_REL)
+        assert all(v["ratio"] <= 1.0 for v in res.values()), (stage, res)
+
+
 # ---- K10: the CNN acting kernel ----------------------------------------------
 
 @pytest.mark.parametrize("mask_on", [False, True])

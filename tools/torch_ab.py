@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's recurrent SGD phase (K8) from several
+"""Time the PyTorch/CUDA port's MLP PPO learner phase (K3) from several
 source trees in turns on one GPU, with its device time split by kernel,
 and hash the outputs of the kernels the trees should share bit for bit.
 
@@ -8,27 +8,29 @@ and hash the outputs of the kernels the trees should share bit for bit.
 Each argument is a directory that holds ``chip_smoke.py`` and
 ``warehouse_tpu_torch/``; each runs in a process of its own (the trees'
 packages share a name), which builds that tree's kernels and then, on
-trajectories made by that tree's ``chip_smoke`` (BASELINE config 4:
-medium, B = 4096, T = 16, 4 agents, 4 epochs x 4 minibatches of 4096
-sequences of 16 steps, hidden 128):
+trajectories made by that tree's ``chip_smoke`` (``sgd_inputs``: a K2
+chunk from the trainer's reset, GAE, the per-minibatch normalization):
 
-- times K8 (``ppo_rnn_sgd_phase``, the median of 5 phases by CUDA events)
-  for the GRU and the LSTM, each in float32 and with
-  ``matmul_dtype="bfloat16"`` (from ``chip_smoke.rnn_inputs``: a K7 chunk
-  and a random carry, of bf16 values for bf16), and splits one phase's
-  device time by kernel name with ``torch.profiler`` (milliseconds and
-  launches per phase);
-- hashes the outputs (params, Adam moments, losses) of one K3 phase (the
-  MLP learner) and of one K11 phase (the CNN learner, float32 and bf16),
-  and of one K10 chunk, ungrouped and with the groups ``(0, 1, 0, 1)``,
-  and one K7 chunk (the GRU, float32), all at config 4.
+- times K3 (``ppo_sgd_phase``, the median of 5 phases by CUDA events;
+  4 epochs x 4 minibatches) in five instances: BASELINE config 4 (medium,
+  B = 4096, T = 16, 4 agents, D = 106, hidden 128 x 2) in float32 and with
+  ``matmul_dtype="bfloat16"``, config 4 at hidden 256, the shelves recipe
+  with global observations (D = 611, 2048 envs, masked) and the shelves
+  recipe with the policy groups ``(0, 0, 0, 1, 1, 1)`` (2048 envs), and
+  splits one phase's device time by kernel name with ``torch.profiler``
+  (milliseconds and launches per phase);
+- hashes the outputs of the kernels that no MLP PPO learner change may
+  move: one K5 phase (Adam, and RMSProp), one K6 gradient, two K2 chunks
+  (config 4, and the wide route at hidden 256), one K8 phase (the GRU,
+  float32 and bf16), one K11 phase (float32 and bf16), one K10 chunk
+  (ungrouped, and the groups ``(0, 1, 0, 1)``) and one K7 chunk (the GRU),
+  all at config 4.
 
-Each process prints one line ``{"tree": ..., "k8": {case: {"ms": ...,
-"split": {kernel: [ms, launches]}}}, "k3_sha256": ..., "k11_sha256": ...,
-"k11_bf16_sha256": ..., "k10_sha256": ..., "k10_groups_sha256": ...,
-"k7_sha256": ...}``; equal hashes are the same bits. This script prints
-the card's name and power limit first. Comparing two trees is only sound
-inside one run on one card (turns: A, B, B, A).
+Each process prints one line ``{"tree": ..., "k3": {case: {"ms": ...,
+"split": {kernel: [ms, launches]}}}, "sha256": {kernel: hex}}``; equal
+hashes are the same bits. This script prints the card's name and power
+limit first. Comparing two trees is only sound inside one run on one card
+(turns: A, B, B, A).
 """
 
 from __future__ import annotations
@@ -43,20 +45,31 @@ import hashlib, json, sys, torch
 sys.path.insert(0, {tree!r})
 import chip_smoke as cs
 from torch.profiler import ProfilerActivity, profile
-from warehouse_tpu_torch import medium_config
+from warehouse_tpu_torch import medium_config, shelves_config
 from warehouse_tpu_torch.models import make_model
-from warehouse_tpu_torch.kernels import act_rnn, build, sgd, sgd_cnn, sgd_rnn
+from warehouse_tpu_torch.optim import make_impala_optimizer
+from warehouse_tpu_torch.kernels import (act_rnn, build, sgd, sgd_cnn,
+                                         sgd_rnn, vtrace_sgd)
 dev = torch.device("cuda", 0)
 build.library()
 cfg = medium_config()
+shelves = shelves_config()
+
+
+def leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in leaves(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in leaves(v)]
+    return []
 
 
 def sha(*trees):
     h = hashlib.sha256()
-    for t in trees:
-        xs = [t[k] for k in sorted(t)] if isinstance(t, dict) else t
-        for x in xs:
-            h.update(x.contiguous().cpu().numpy().tobytes())
+    for x in leaves(trees):
+        h.update(x.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -71,73 +84,110 @@ def phase_args(tcfg, tr, rs, traj, adv_n, targets, ent, *lead):
     return args, kw
 
 
-def phase_sha(fn, args, kw):
-    p, o, l = fn(*args, **kw)
-    return sha(p, o.mu, o.nu, l)
-
-
-k8 = {{}}
-for arch in ("gru", "lstm"):
-    for dtype in ("float32", "bfloat16"):
-        bf16 = dtype == "bfloat16"
-        tcfg, tr, rs, traj, adv_n, targets, h0, ent = cs.rnn_inputs(
-            dev, cfg, arch, bf16)
-        args, kw = phase_args(tcfg, tr, rs, traj, adv_n, targets, ent, h0)
-        kw.update(mask_actions=False, matmul_dtype=dtype)
-        run = lambda: sgd_rnn.ppo_rnn_sgd_phase(*args, **kw)
+def split_of(run):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         run()
-        ms = cs.timed(run, 5)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        split = {{e.key[:70]: [getattr(e, "device_time_total", 0.0) / 1e3,
-                              e.count]
-                 for e in prof.key_averages()
-                 if getattr(e, "device_time_total", 0.0) > 0
-                 and e.device_type.name != "CPU"}}
-        k8[arch + "_" + dtype] = {{"ms": ms, "split": split}}
-        del args, kw, traj, adv_n, targets, h0, tr, rs
-k3 = phase_sha(sgd.ppo_sgd_phase, *phase_args(*cs.sgd_inputs(dev, cfg)))
+    return {{e.key[:70]: [getattr(e, "device_time_total", 0.0) / 1e3,
+                         e.count]
+            for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0.0) > 0
+            and e.device_type.name != "CPU"}}
+
+
+K3_CASES = {{
+    "config4": (cfg, None, None, "float32"),
+    "config4_bf16": (cfg, None, None, "bfloat16"),
+    "hidden256": (cfg, cs.hidden256_tcfg(), None, "float32"),
+    "shelves_global": (shelves.replace(global_obs=True), cs.global_tcfg(),
+                       None, "float32"),
+    "shelves_groups": (shelves, cs.groups_tcfg(), cs.GROUPS, "float32")}}
+k3, out = {{}}, {{}}
+for name, (c, tcfg, groups, dtype) in K3_CASES.items():
+    tcfg, tr, rs, traj, adv_n, targets, ent = cs.sgd_inputs(
+        dev, c, tcfg=tcfg, groups=groups)
+    args, kw = phase_args(tcfg, tr, rs, traj, adv_n, targets, ent)
+    kw["matmul_dtype"] = dtype
+    if groups is not None:
+        kw["policy_groups"] = groups
+    run = lambda: sgd.ppo_sgd_phase(*args, **kw)
+    if name == "config4":
+        out["k3"] = sha(run())
+    run()
+    k3[name] = {{"ms": cs.timed(run, 5), "split": split_of(run)}}
+    del args, kw, traj, adv_n, targets, tr, rs
+
+# K5 (Adam and RMSProp, 1 pass) and K6 on one config-4 IMPALA trajectory.
+tcfg, params, traj, last_obs, vkw = cs.impala_inputs(dev, cfg)
+M = tcfg.num_minibatches
+for use_rms in (False, True):
+    tc = tcfg.replace(impala_rmsprop=use_rms, impala_passes=1)
+    optimizer = make_impala_optimizer(tc)
+    opt = optimizer.init(params)
+    rows = optimizer.step_rows(opt.count, M, dev)
+    out["k5_" + ("rmsprop" if use_rms else "adam")] = sha(
+        vtrace_sgd.impala_sgd_phase(
+            params, opt, traj, last_obs, rows, tc.entropy_coef, num_passes=1,
+            num_minibatches=M, max_grad_norm=tc.max_grad_norm, **vkw))
+out["k6"] = sha(vtrace_sgd.impala_minibatch_grads(
+    params, traj, last_obs, 1, tcfg.entropy_coef, num_minibatches=M, **vkw))
+del params, traj, last_obs
+
+# K8: one GRU phase, float32 and bf16.
+for dtype in ("float32", "bfloat16"):
+    tcfg, tr, rs, traj, adv_n, targets, h0, ent = cs.rnn_inputs(
+        dev, cfg, "gru", dtype == "bfloat16")
+    args, kw = phase_args(tcfg, tr, rs, traj, adv_n, targets, ent, h0)
+    kw.update(mask_actions=False, matmul_dtype=dtype)
+    out["k8_" + dtype] = sha(sgd_rnn.ppo_rnn_sgd_phase(*args, **kw))
+    del args, kw, traj, adv_n, targets, h0, tr, rs
+
+# K11: one phase, float32 and bf16.
 args, kw = phase_args(*cs.sgd_inputs(dev, cfg, "cnn", cs.CNN_SCHEDULE))
-k11 = phase_sha(sgd_cnn.ppo_cnn_sgd_phase, args, kw)
-k11_bf16 = phase_sha(sgd_cnn.ppo_cnn_sgd_phase, args,
-                     dict(kw, matmul_dtype="bfloat16"))
+out["k11_float32"] = sha(sgd_cnn.ppo_cnn_sgd_phase(*args, **kw))
+out["k11_bfloat16"] = sha(sgd_cnn.ppo_cnn_sgd_phase(
+    *args, **dict(kw, matmul_dtype="bfloat16")))
+del args, kw
 
 
-def digest(c, model, B, **kw):
+def draws(c, B):
     state, _ = cs.reset_envs(c, B, cs.SEED + 1, dev)
     _, u, pick, drop, _ = cs.rng.batched_step_draws(state.key, c, cs.SLICE_T)
     _, g = cs.rng.batched_gumbel_stream(cs.rng.prng_key(cs.SEED + 2, dev),
                                         cs.SLICE_T, (5, B * c.num_agents))
-    out = cs.act.act_cnn_steps(c, model, state, u, pick, drop, g, **kw)
+    return state, u, pick, drop, g
+
+
+def chunk_sha(out):
     return sha([getattr(out[0], f) for f in cs.STATE_FIELDS] + list(out[1:]))
 
 
-def k7_digest(c, B):
-    model = make_model(c, "gru", cs.HIDDEN[0], cs.HIDDEN[1],
-                       torch.Generator().manual_seed(cs.SEED), dev)
-    params = {{k: v.detach() for k, v in model.state_dict().items()}}
-    state, _ = cs.reset_envs(c, B, cs.SEED + 1, dev)
-    gen = torch.Generator().manual_seed(cs.SEED + 9)
-    carry = (0.5 * torch.randn(B, c.num_agents, cs.HIDDEN[0],
-                               generator=gen)).to(dev)
-    _, u, pick, drop, _ = cs.rng.batched_step_draws(state.key, c, cs.SLICE_T)
-    _, g = cs.rng.batched_gumbel_stream(cs.rng.prng_key(cs.SEED + 2, dev),
-                                        cs.SLICE_T, (5, B * c.num_agents))
-    out = act_rnn.act_rnn_steps(c, params, state, carry, u, pick, drop, g)
-    return sha([getattr(out[0], f) for f in cs.STATE_FIELDS] + list(out[1:]))
+def mlp(hidden):
+    return make_model(cfg, hidden_dim=hidden, num_layers=cs.HIDDEN[1],
+                      generator=torch.Generator().manual_seed(cs.SEED),
+                      device=dev)
 
 
-print(json.dumps({{"tree": {tree!r}, "k8": k8, "k3_sha256": k3,
-                  "k11_sha256": k11, "k11_bf16_sha256": k11_bf16,
-                  "k10_sha256": digest(cfg, cs.cnn_model(cfg, dev),
-                                       cs.CHECK_B),
-                  "k10_groups_sha256": digest(
-                      cfg, cs.cnn_groups_model(cfg, cs.CONFIG4_GROUPS, dev),
-                      cs.CHECK_B, groups=cs.CONFIG4_GROUPS),
-                  "k7_sha256": k7_digest(cfg, cs.CHECK_B)}}))
+for name, hidden in (("k2", cs.HIDDEN[0]), ("k2_wide", cs.WIDE_HIDDEN)):
+    out[name] = chunk_sha(cs.act.act_steps(cfg, mlp(hidden),
+                                           *draws(cfg, cs.CHECK_B)))
+out["k10"] = chunk_sha(cs.act.act_cnn_steps(cfg, cs.cnn_model(cfg, dev),
+                                            *draws(cfg, cs.CHECK_B)))
+out["k10_groups"] = chunk_sha(cs.act.act_cnn_steps(
+    cfg, cs.cnn_groups_model(cfg, cs.CONFIG4_GROUPS, dev),
+    *draws(cfg, cs.CHECK_B), groups=cs.CONFIG4_GROUPS))
+model = make_model(cfg, "gru", cs.HIDDEN[0], cs.HIDDEN[1],
+                   torch.Generator().manual_seed(cs.SEED), dev)
+params = {{k: v.detach() for k, v in model.state_dict().items()}}
+state, u, pick, drop, g = draws(cfg, cs.CHECK_B)
+carry = (0.5 * torch.randn(cs.CHECK_B, cfg.num_agents, cs.HIDDEN[0],
+                           generator=torch.Generator().manual_seed(
+                               cs.SEED + 9))).to(dev)
+out["k7"] = chunk_sha(act_rnn.act_rnn_steps(cfg, params, state, carry, u,
+                                            pick, drop, g))
+print(json.dumps({{"tree": {tree!r}, "k3": k3, "sha256": out}}))
 """
 
 

@@ -37,9 +37,13 @@ SIGNATURES = {
     "wh_act_rollout": [I, I, L, I, I, I, F, I, I, I, I, F, F, F, F, F, F, I,
                        IP, P, P, I, I, IP] + [P] * 29 + [F, F, P],
     "wh_sgd_smem_bytes": [I, IP],
+    "wh_sgd_stage_smem_bytes": [I, IP],
     "wh_sgd_obs_chunks": [I, IP],
     "wh_sgd_workspace_floats": [I, IP, I, L, I, I, I, IP],
+    "wh_sgd_layout": [I, IP, I, L, I, I, I, IP, LP],
     "wh_sgd_grads": [I, IP, I, L, I, I, I, IP, I] + [P] * 9 + [F] * 5
+                    + [P] * 3 + [I, P],
+    "wh_sgd_stage": [I, I, IP, I, L, I, I, I, IP, I] + [P] * 9 + [F] * 5
                     + [P] * 3 + [I, P],
     "wh_sgd_clip_adam": [I, IP, I, L, I, I, I, IP, I] + [P] * 7 + [F] * 6
                         + [P] * 2,
@@ -78,7 +82,8 @@ SIGNATURES = {
                             + [P] * 2,
 }
 RESTYPES = {"wh_act_smem_bytes": L, "wh_error_string": ctypes.c_char_p,
-            "wh_sgd_smem_bytes": L, "wh_sgd_workspace_floats": L,
+            "wh_sgd_smem_bytes": L, "wh_sgd_stage_smem_bytes": L,
+            "wh_sgd_workspace_floats": L,
             "wh_vtrace_workspace_floats": L, "wh_rnn_param_floats": L,
             "wh_act_rnn_smem_bytes": L, "wh_rnn_sgd_smem_bytes": L,
             "wh_rnn_sgd_workspace_floats": L, "wh_cnn_param_floats": L,

@@ -1,23 +1,27 @@
-// The MLP learner's building blocks, shared by the PPO learner kernels
-// (K3/K4, sgd.cu), the IMPALA learner kernels (K5/K6, vtrace_sgd.cu) and,
-// for the loss and the gradient tail, the recurrent PPO learner (K8/K9,
-// sgd_rnn.cu).
+// The MLP learner's building blocks. The tile route (fwd_tile, bwd_tile,
+// mlp_transpose_kernel, wgrad_kernel, carve's Scratch) is the IMPALA
+// learner's alone (K5/K6, vtrace_sgd.cu) since the PPO learner (K3/K4,
+// sgd.cu) runs as row-parallel tile GEMMs (row_stages.cuh). The PPO
+// learner (sgd.cu) and the recurrent PPO learner (K8/K9, sgd_rnn.cu) share
+// the rest: the packed layout, the minibatch's rows and their split by
+// policy group, the loss chain, and the reduce, metrics and Adam kernels.
 //
 // - The packed parameter layout: per dense layer W [out, in] then b [out]
 //   (torch's layout), the head as the 6 x H stack of 5 logits and the
-//   value. No weight is staged in shared memory: the forward reads a
-//   transposed copy Wt [in, out] (mlp_transpose_kernel, rebuilt before each
-//   gradient since Adam rewrites the params) with dense_l2.cuh's layer, the
-//   backward the packed W [out, in] itself, both from device memory
-//   (L2-resident), neighbouring threads on neighbouring addresses. The
-//   first layer runs over chunks of XCH input columns, its sums kept in the
-//   first hidden buffer between chunks, so only [R, XCH] of the input rows
-//   is staged and no observation is too wide; it needs no input gradient and
-//   wgrad_kernel reads the observations from device memory. A tile's rows
-//   take ~100 KB at hidden 128 x 2, so two CTAs share an SM. Staging every
-//   weight in shared memory instead leaves room for one CTA per SM and is
-//   slower (config 4's PPO phase on an H100: 29.1 ms against 23.4), and no
-//   611-wide observation or 256-wide layer fits beside 64 full input rows.
+//   value. The tile route stages no weight in shared memory: the forward
+//   reads a transposed copy Wt [in, out] (mlp_transpose_kernel, rebuilt
+//   before each gradient since the optimizer rewrites the params) with
+//   dense_l2.cuh's layer, the backward the packed W [out, in] itself, both
+//   from device memory (L2-resident), neighbouring threads on neighbouring
+//   addresses. The first layer runs over chunks of XCH input columns, its
+//   sums kept in the first hidden buffer between chunks, so only [R, XCH]
+//   of the input rows is staged and no observation is too wide; it needs no
+//   input gradient and wgrad_kernel reads the observations from device
+//   memory. A tile's rows take ~100 KB at hidden 128 x 2, so two CTAs
+//   share an SM. Staging every weight in shared memory instead leaves room
+//   for one CTA per SM and is slower (config 4's PPO phase on an H100,
+//   when K3 ran this route: 29.1 ms against 23.4), and no 611-wide
+//   observation or 256-wide layer fits beside 64 full input rows.
 // - fwd_tile / bwd_tile: the dense layers over a tile of R sample rows in
 //   shared memory, a thread owning one column for RT rows.
 // - loss_row: the clipped-PPO loss chain of one sample and its derivative
@@ -32,21 +36,15 @@
 //
 // Policy groups (K3/K4, pallas/sgd.py:293-306): K MLPs of the same widths,
 // their params one after another in group order, and a static agent ->
-// group map. Each group's samples form their own Rows (only its agents); the
-// tile kernel runs every group's tiles, group by group, through that group's
-// params, and the weight gradients, their sums of squares and the metric
-// sums follow group by group, each in its order without groups. One global
-// norm spans every group's gradient (GroupSplit).
+// group map. Each group's samples form their own Rows (only its agents);
+// GroupSplit gives each group's first row and first tile of R rows, so
+// that a learner can run the groups' rows one group after another, each
+// through its params and in its order without groups. One global norm
+// spans every group's gradient.
 //
-// bf16 operands (matmul_dtype="bfloat16", pallas/sgd.py:181-191): the
-// tile kernels and wgrad_kernel take a template flag BF. With it every
-// product rounds its two operands to bf16 and sums in float32; the loss
-// chain, 1 - h^2, the bias gradients (sums of the float32 deltas), the
-// reductions and Adam stay float32. A value that is only ever an operand is
-// rounded once where it is staged: the transposed weight copy and the
-// observation chunk b.xs. Activations (which also feed 1 - h^2) and deltas
-// (which also feed the bias sums) are rounded where the product reads them,
-// and the float32 value is kept.
+// The tile route is float32 only: the IMPALA learner takes no bf16
+// operands (its trainer sends them to the plain phase). The PPO learner's
+// bf16 route (sgd.cu) rounds on the tensor cores.
 //
 // Every sum runs in an order fixed by the shapes alone, so two runs on the
 // same inputs give the same bits.
@@ -54,7 +52,6 @@
 
 #include <cuda_runtime.h>
 
-#include "bf16_round.cuh"
 #include "dense_l2.cuh"
 
 namespace {
@@ -218,7 +215,7 @@ struct Scratch {
   float* met;        // [n_tiles, 4] metric sums per tile
   float* wt;         // [n_params] every W as [in, out]
   int S;
-  long n_tiles, n_sq;  // with K groups: tiles room, K x the sums of squares
+  long n_tiles, n_sq;
 };
 
 long n_splits(long N) {
@@ -226,13 +223,9 @@ long n_splits(long N) {
   return s < 1 ? 1 : (s > MAXS ? MAXS : s);
 }
 
-// Lays the scratch out from `base` (or only sizes it when base is null);
-// `extra` head rows follow the N samples'. With K policy groups the params,
-// the transposed copy and the sums of squares are K groups' (net is one
-// group's), and the metric rows have room for each group's last tile.
-// Returns its floats.
-long carve(const Net& net, long N, long extra, float* base, Scratch* sc,
-           int K = 1) {
+// Lays the tile route's scratch out from `base` (or only sizes it when base
+// is null); `extra` head rows follow the N samples'. Returns its floats.
+long carve(const Net& net, long N, long extra, float* base, Scratch* sc) {
   long off = 0;
   auto take = [&](long n) {
     float* p = base ? base + off : nullptr;
@@ -246,11 +239,11 @@ long carve(const Net& net, long N, long extra, float* base, Scratch* sc,
   sc->dout = take((N + extra) * OST);
   sc->S = (int)n_splits(N);
   sc->part = take(sc->S * net.n_params);
-  sc->n_sq = K * ((net.n_params + RED - 1) / RED);
+  sc->n_sq = (net.n_params + RED - 1) / RED;
   sc->sq = take(sc->n_sq);
-  sc->n_tiles = (N + R - 1) / R + K - 1;
+  sc->n_tiles = (N + R - 1) / R;
   sc->met = take(sc->n_tiles * 4);
-  sc->wt = take(K * net.n_params);
+  sc->wt = take(net.n_params);
   return off;
 }
 
@@ -285,8 +278,7 @@ __device__ TileBufs tile_bufs(const Net& net, float* smem) {
 // The tile's forward from its row pointers b.rows: the first layer over
 // chunks of XCH input columns staged in b.xs, then the other hidden layers
 // (activations of rows < nvalid to sc.act) and the head into b.outs, every
-// matrix from the transposed copy `wt` (rounded to bf16 with BF).
-template <bool BF = false>
+// matrix from the transposed copy `wt`.
 __device__ void fwd_tile(const Net& net, const float* params, const float* wt,
                          const TileBufs& b, const Scratch& sc, long n0,
                          int nvalid) {
@@ -296,7 +288,7 @@ __device__ void fwd_tile(const Net& net, const float* params, const float* wt,
     for (int k = threadIdx.x; k < R * cw; k += NT) {
       const int n = k / cw, c = k % cw;
       const float* row = b.rows[n];
-      b.xs[n * XCH + c] = rbf<BF>(row ? row[c0 + c] : 0.f);
+      b.xs[n * XCH + c] = row ? row[c0 + c] : 0.f;
     }
     __syncthreads();
     dense_l2<NT, RT, G>(wt + y0.w_off + (long)c0 * y0.out, params + y0.b_off,
@@ -307,7 +299,7 @@ __device__ void fwd_tile(const Net& net, const float* params, const float* wt,
   for (int l = 1; l <= net.n_hidden; ++l) {
     const Layer& y = net.L[l];
     const bool head = l == net.n_hidden;
-    dense_l2<NT, RT, G, BF>(wt + y.w_off, params + y.b_off, b.hs[l - 1], y.in,
+    dense_l2<NT, RT, G>(wt + y.w_off, params + y.b_off, b.hs[l - 1], y.in,
                         y.in, head ? b.outs : b.hs[l], head ? OST : y.out,
                         y.out, !head, true, true,
                         head ? nullptr : sc.act[l], n0, nvalid);
@@ -315,41 +307,28 @@ __device__ void fwd_tile(const Net& net, const float* params, const float* wt,
   }
 }
 
-// wt = every W [out, in] of the packed vector as [in, out], at its offset,
-// for each of K groups' params; rounded to bf16 with BF.
-template <bool BF>
-__global__ void mlp_transpose_kernel(Net net, const float* p, float* wt,
-                                     int K) {
+// wt = every W [out, in] of the packed vector as [in, out], at its offset.
+__global__ void mlp_transpose_kernel(Net net, const float* p, float* wt) {
   const long stride = (long)gridDim.x * blockDim.x;
   const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (int g = 0; g < K; ++g) {
-    const long go = g * net.n_params;
-    for (int l = 0; l <= net.n_hidden; ++l) {
-      const Layer& y = net.L[l];
-      for (long k = tid; k < (long)y.out * y.in; k += stride)
-        wt[go + y.w_off + (k % y.in) * y.out + k / y.in] =
-            rbf<BF>(p[go + y.w_off + k]);
-    }
+  for (int l = 0; l <= net.n_hidden; ++l) {
+    const Layer& y = net.L[l];
+    for (long k = tid; k < (long)y.out * y.in; k += stride)
+      wt[y.w_off + (k % y.in) * y.out + k / y.in] = p[y.w_off + k];
   }
 }
 
-// Before the tile kernels: the transposed copy of the params (K groups'),
-// rounded to bf16 with `bf16`.
+// Before the tile kernels: the transposed copy of the params.
 inline cudaError_t launch_mlp_transpose(const Net& net, const float* params,
-                                        const Scratch& sc, cudaStream_t stream,
-                                        int K = 1, bool bf16 = false) {
-  if (bf16)
-    mlp_transpose_kernel<true><<<128, 256, 0, stream>>>(net, params, sc.wt, K);
-  else
-    mlp_transpose_kernel<false><<<128, 256, 0, stream>>>(net, params, sc.wt, K);
+                                        const Scratch& sc,
+                                        cudaStream_t stream) {
+  mlp_transpose_kernel<<<128, 256, 0, stream>>>(net, params, sc.wt);
   return cudaGetLastError();
 }
 
 // dz[n][i] = (sum_o d[n][o] W[o][i]) * (1 - h[n][i]^2), written over h and,
 // for rows < nvalid, to g[(n0 + n) * in + i]. W [out, in] is the packed
-// matrix in device memory, read through the read-only path. With BF the
-// product's d and W are rounded to bf16 where they are read.
-template <bool BF>
+// matrix in device memory, read through the read-only path.
 __device__ void bwd_layer(const float* W, const float* d, int ds, int out,
                           float* h, int in, float* g, long n0, int nvalid) {
   for (int item = threadIdx.x; item < in * G; item += NT) {
@@ -359,10 +338,10 @@ __device__ void bwd_layer(const float* W, const float* d, int ds, int out,
 #pragma unroll
     for (int r = 0; r < RT; ++r) acc[r] = 0.f;
     for (int o = 0; o < out; ++o) {
-      const float w = rbf<BF>(__ldg(W + (long)o * in + i));
+      const float w = __ldg(W + (long)o * in + i);
 #pragma unroll
       for (int r = 0; r < RT; ++r)
-        acc[r] = fmaf(rbf<BF>(dg[r * ds + o]), w, acc[r]);
+        acc[r] = fmaf(dg[r * ds + o], w, acc[r]);
     }
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
@@ -378,18 +357,17 @@ __device__ void bwd_layer(const float* W, const float* d, int ds, int out,
 // The head deltas in b.outs back through the head and the hidden layers
 // (over b.hs, which hold the activations); the deltas of rows < nvalid go
 // to sc.dz.
-template <bool BF = false>
 __device__ void bwd_tile(const Net& net, const float* params,
                          const TileBufs& b, const Scratch& sc, long n0,
                          int nvalid) {
   const int L = net.n_hidden;
   const Layer& hd = net.L[L];
-  bwd_layer<BF>(params + hd.w_off, b.outs, OST, NHEAD, b.hs[L - 1], hd.in,
+  bwd_layer(params + hd.w_off, b.outs, OST, NHEAD, b.hs[L - 1], hd.in,
             sc.dz[L - 1], n0, nvalid);
   __syncthreads();
   for (int l = L - 2; l >= 0; --l) {
     const Layer& y = net.L[l + 1];
-    bwd_layer<BF>(params + y.w_off, b.hs[l + 1], y.out, y.out, b.hs[l], y.in,
+    bwd_layer(params + y.w_off, b.hs[l + 1], y.out, y.out, b.hs[l], y.in,
               sc.dz[l], n0, nvalid);
     __syncthreads();
   }
@@ -491,9 +469,6 @@ WTask wtask(const float* prev, const float* delta, int ds, int in, int out,
   return t;
 }
 
-// With BF each product's operands are rounded to bf16: prev where it is
-// staged, delta where the product reads it (db sums the float32 delta).
-template <bool BF>
 __global__ void __launch_bounds__(WNT) wgrad_kernel(WArgs p) {
   __shared__ __align__(16) float Ds[NC][WT];
   __shared__ __align__(16) float Ps[NC][WT];
@@ -518,7 +493,7 @@ __global__ void __launch_bounds__(WNT) wgrad_kernel(WArgs p) {
       if (ok && i0 + col < w.in)
         pv = w.prev ? w.prev[q * w.in + i0 + col]
                     : p.bt.obs[p.bt.row(q) * p.bt.D + i0 + col];
-      Ps[nn][col] = rbf<BF>(pv);
+      Ps[nn][col] = pv;
     }
     __syncthreads();
 #pragma unroll 4
@@ -528,7 +503,7 @@ __global__ void __launch_bounds__(WNT) wgrad_kernel(WArgs p) {
       const float dv[4] = {d.x, d.y, d.z, d.w}, xv[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        const float da = rbf<BF>(dv[a]);
+        const float da = dv[a];
 #pragma unroll
         for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(da, xv[b], acc[a][b]);
       }
@@ -663,24 +638,13 @@ cudaError_t persistent_grid(Kernel kernel, size_t smem, long n_tiles,
   return cudaSuccess;
 }
 
-// wgrad_kernel over a grid of `tiles` output tiles x S sample ranges, with
-// bf16 operands when `bf16`.
-inline cudaError_t launch_wgrad_kernel(const WArgs& wa, int tiles, int S,
-                                       bool bf16, cudaStream_t stream) {
-  if (bf16)
-    wgrad_kernel<true><<<dim3(tiles, S), WNT, 0, stream>>>(wa);
-  else
-    wgrad_kernel<false><<<dim3(tiles, S), WNT, 0, stream>>>(wa);
-  return cudaGetLastError();
-}
-
 // The weight gradients of every layer from the activations and deltas of
 // `rows`' N samples (sc's act / dz / dout from its first row on; the head's
 // deltas are dout's), over `S` sample ranges, reduced into `grads` with
 // its sums of squares into `sq`.
 cudaError_t launch_wgrad(const Net& net, const Rows& rows, const Scratch& sc,
-                         int S, float* grads, float* sq, cudaStream_t stream,
-                         bool bf16 = false) {
+                         int S, float* grads, float* sq,
+                         cudaStream_t stream) {
   WArgs wa;
   wa.n_layers = net.n_hidden + 1;
   wa.bt = rows;
@@ -695,7 +659,8 @@ cudaError_t launch_wgrad(const Net& net, const Rows& rows, const Scratch& sc,
                     head ? sc.dout : sc.dz[l], head ? OST : y.out, y.in, y.out,
                     y.w_off, y.b_off, &tiles);
   }
-  cudaError_t e = launch_wgrad_kernel(wa, tiles, S, bf16, stream);
+  wgrad_kernel<<<dim3(tiles, S), WNT, 0, stream>>>(wa);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   reduce_kernel<<<(unsigned)((net.n_params + RED - 1) / RED), RED, 0,
                   stream>>>(sc.part, S, net.n_params, grads, sq);
@@ -712,33 +677,6 @@ cudaError_t launch_grads_tail(const Net& net, const Rows& rows,
   cudaError_t e = launch_wgrad(net, rows, sc, sc.S, grads, sc.sq, stream);
   if (e != cudaSuccess) return e;
   metrics_kernel<<<1, 128, 0, stream>>>(sc.met, n_met, sums);
-  return cudaGetLastError();
-}
-
-// launch_grads_tail for policy groups: each group's weight gradients into
-// its slice of `grads` (group g at g * n_params) from its own rows of the
-// scratch, its sums of squares after the previous group's, then the metric
-// rows of every group's tiles.
-cudaError_t launch_group_grads_tail(const Net& net, const GroupSplit& gs,
-                                    const Scratch& sc, float* grads,
-                                    float* sums, cudaStream_t stream,
-                                    bool bf16 = false) {
-  const long n_sq = (net.n_params + RED - 1) / RED;
-  for (int g = 0; g < gs.K; ++g) {
-    const long n0 = gs.noff[g];
-    Scratch sg = sc;
-    for (int l = 0; l < net.n_hidden; ++l) {
-      sg.act[l] += n0 * net.L[l].out;
-      sg.dz[l] += n0 * net.L[l].out;
-    }
-    sg.dout += n0 * OST;
-    cudaError_t e = launch_wgrad(net, gs.rows[g], sg,
-                                 (int)n_splits(gs.rows[g].N),
-                                 grads + g * net.n_params, sc.sq + g * n_sq,
-                                 stream, bf16);
-    if (e != cudaSuccess) return e;
-  }
-  metrics_kernel<<<1, 128, 0, stream>>>(sc.met, gs.toff[gs.K], sums);
   return cudaGetLastError();
 }
 

@@ -82,6 +82,7 @@
 #include "mlp_learner.cuh"
 #include "mma_tiles.cuh"
 #include "rnn_cell.cuh"
+#include "row_stages.cuh"
 
 namespace {
 
@@ -92,11 +93,8 @@ constexpr int UD = 128;    // units per pass of stage D: 8 warps x 16 (RT_ST: UB
 constexpr int CB = 64;     // rows per stage-C tile
 constexpr int SF_TARGET = 512;  // stage-F CTAs aimed at (split-K ranges)
 constexpr int MAXSF = 64;  // row ranges of stage F at most
-constexpr int MAXT = MAXE + 3;  // stage-F products: encoder, Wi, Wh, head
-
-__host__ __device__ inline int rup(long x, int m) {
-  return (int)((x + m - 1) / m * m);
-}
+// Stage F's products (encoder, Wi, Wh, head) fit one wgrad_tn_kernel launch.
+static_assert(MAXT >= MAXE + 3, "stage F's products");
 
 // A row of k values as packed bf16 pairs, 4 words of pad: a warp's
 // fragment loads (row g, word t) then hit distinct banks.
@@ -160,11 +158,6 @@ struct RnnScratch {
   long chunk;         // rows per stage-F range
   long n_tiles_c, n_sq;
 };
-
-// Stage F's output tiles of 128 x 128 for a product out x in.
-int f_tile_count(int out, int in) {
-  return ((out + EJ - 1) / EJ) * ((in + EK - 1) / EK);
-}
 
 int f_tiles_of(const RnnNet& net) {
   int n = 0;
@@ -236,8 +229,6 @@ struct SeqArgs {
   const float *h0, *c0;  // [B, A, H] rollout-start carry
 };
 
-size_t smem_gemm() { return sizeof(float) * 2 * (BM + BN) * ldt<true>(); }
-size_t smem_wgrad() { return sizeof(float) * 2 * 2 * EN * lde<false>(); }
 size_t smem_fwd(const RnnNet& net, const RDims& rd) {
   return sizeof(float) * (net.lstm ? 3 : 2) * RB * rd.HS;
 }
@@ -257,16 +248,6 @@ size_t rnn_smem(const RnnNet& net, const RDims& rd) {
 }
 
 // ---- prep: the observation rows and the padded weight copies -----------------
-
-// dst [rows, cols] = W [out, in] (or, with tr, W^T), zeros past it.
-__device__ void pad_copy(float* dst, int rows, int cols, const float* W,
-                         int out, int in, bool tr, long i0, long stride) {
-  for (long i = i0; i < (long)rows * cols; i += stride) {
-    const int r = (int)(i / cols), c = (int)(i % cols);
-    const int o = tr ? c : r, k = tr ? r : c;
-    dst[i] = o < out && k < in ? W[(long)o * in + k] : 0.f;
-  }
-}
 
 __global__ void rnn_prep_kernel(SeqArgs p) {
   const RnnNet& net = p.net;
@@ -319,75 +300,6 @@ __global__ void rnn_prep_kernel(SeqArgs p) {
     const float* src = bt.obs + bt.row(q) * D;
     float* dst = p.sc.x0 + q * Xs;
     for (int f = lane; f < Xs; f += 32) dst[f] = f < D ? src[f] : 0.f;
-  }
-}
-
-// ---- A and E: products over the T N rows as 64 x 128 tile GEMMs -------------
-
-enum Epi { EPI_TANH, EPI_BIAS, EPI_DTANH };
-
-struct GemmArgs {
-  const float* A;  // [rows, lda]: K columns read
-  long lda, rows;
-  const float* Bt;  // [grid.y BN rows, ldb]: W's rows of k, zero-padded
-  long ldb;
-  int K;               // a multiple of BK
-  const float* bias;   // EPI_TANH / EPI_BIAS (null: none)
-  const float* act;    // EPI_DTANH: the activation a of 1 - a^2
-  long ldact;
-  float* C;            // [rows, ldc]: columns < n, zeros in [n, ldc)
-  long ldc;
-  int n;
-};
-
-// C = f(A Bt^T): tanh(. + b) (an encoder layer), . + b (the gates' input
-// side), or . (1 - a^2) (a dgrad through tanh). bf16 on the tensor cores,
-// float32 as gemm_64x128_f32's register blocks.
-template <bool BF, int EPI>
-__global__ void __launch_bounds__(GNT) rows_gemm_kernel(GemmArgs p) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long q0 = (long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int nvalid = p.rows - q0 < BM ? (int)(p.rows - q0) : BM;
-  auto put = [&](int row, int j, float v) {
-    if (row >= nvalid || j >= p.ldc) return;
-    const long q = q0 + row;
-    if (j >= p.n) {
-      v = 0.f;
-    } else if (EPI == EPI_TANH) {
-      v = tanhf(v + p.bias[j]);
-    } else if (EPI == EPI_BIAS) {
-      if (p.bias) v += p.bias[j];
-    } else {
-      const float a = p.act[q * p.ldact + j];
-      v *= 1.f - a * a;
-    }
-    p.C[q * p.ldc + j] = v;
-  };
-  const float* A = p.A + q0 * p.lda;
-  const float* Bt = p.Bt + (long)n0 * p.ldb;
-  if constexpr (BF) {
-    const int g = lane >> 2, t = lane & 3, wm = warp >> 2, wn = warp & 3;
-    float acc[2][4][4];
-    zero_frags(acc);
-    gemm_64x128<BF>(acc, A, p.lda, nvalid, Bt, p.ldb, p.K, smem);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          put(wm * 32 + 16 * mi + g + 8 * (r >> 1),
-              n0 + wn * 32 + 8 * ni + 2 * t + (r & 1), acc[mi][ni][r]);
-  } else {
-    const int tr = tid / 16, tc = tid % 16;
-    float acc[4][8] = {};
-    gemm_64x128_f32(acc, A, p.lda, nvalid, Bt, p.ldb, p.K, smem);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) put(tr + 16 * i, n0 + tc + 16 * j, acc[i][j]);
   }
 }
 
@@ -866,86 +778,6 @@ __global__ void __launch_bounds__(RNTB) rec_bwd_kernel(SeqArgs p) {
   }
 }
 
-// ---- F: the weight gradients ------------------------------------------------
-
-struct FTask {
-  const float* delta;  // [rows, ldd]: the product's out columns
-  long ldd;
-  int out;
-  const float* prev;   // [rows, ldp]: its in columns
-  long ldp;
-  int in;
-  long w_off, b_off;   // b_off < 0: no bias from this product
-  int b_lo, b_hi;      // the bias sums delta's columns [b_lo, b_hi)
-  int i_tiles, tile0;
-};
-
-struct FArgs {
-  FTask t[MAXT];
-  int n;
-  long rows, chunk, n_params;
-  float* part;
-};
-
-FTask ftask(const float* delta, long ldd, int out, const float* prev, long ldp,
-            int in, long w_off, long b_off, int b_lo, int b_hi, int* tiles) {
-  FTask f = {delta, ldd, out, prev, ldp, in, w_off, b_off, b_lo, b_hi,
-             (in + EK - 1) / EK, *tiles};
-  *tiles += f_tile_count(out, in);
-  return f;
-}
-
-template <bool BF>
-__global__ void __launch_bounds__(GNT) rnn_wgrad_kernel(FArgs p) {
-  extern __shared__ __align__(16) float smem[];
-  int l = 0;
-  while (l + 1 < p.n && (int)blockIdx.x >= p.t[l + 1].tile0) ++l;
-  const FTask& w = p.t[l];
-  const int tile = blockIdx.x - w.tile0;
-  const int j0 = tile / w.i_tiles * EJ, k0 = tile % w.i_tiles * EK;
-  const long q0 = (long)blockIdx.y * p.chunk;
-  const long q1 = q0 + p.chunk < p.rows ? q0 + p.chunk : p.rows;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* out = p.part + (long)blockIdx.y * p.n_params;
-  auto put = [&](int j, int k, float v) {
-    if (j < w.out && k < w.in) out[w.w_off + (long)j * w.in + k] = v;
-  };
-  float bsum = 0.f;
-  const float* A = w.delta + j0;
-  const float* B = w.prev + k0;
-  const int a_cols = (w.out + 3) / 4 * 4 - j0;
-  const int b_cols = (w.in + 3) / 4 * 4 - k0;
-  if constexpr (BF) {
-    const int g = lane >> 2, t = lane & 3, wj = warp >> 2, wk = warp & 3;
-    float acc[4][4][4];
-    zero_frags(acc);
-    gemm_tn_128x128<BF>(acc, k0 == 0 ? &bsum : nullptr, A, w.ldd, a_cols, B,
-                        w.ldp, b_cols, q0, q1, smem);
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          put(j0 + wj * 64 + 16 * mi + g + 8 * (r >> 1),
-              k0 + wk * 32 + 8 * ni + 2 * t + (r & 1), acc[mi][ni][r]);
-  } else {
-    const int tj = tid / 16, tk = tid % 16;
-    float acc[8][8] = {};
-    gemm_tn_128x128_f32(acc, k0 == 0 ? &bsum : nullptr, A, w.ldd, a_cols, B,
-                        w.ldp, b_cols, q0, q1, smem);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        put(j0 + 4 * tj + i % 4 + 64 * (i / 4),
-            k0 + 4 * tk + j % 4 + 64 * (j / 4), acc[i][j]);
-  }
-  const int o = j0 + tid;
-  if (k0 == 0 && tid < EJ && w.b_off >= 0 && o >= w.b_lo && o < w.b_hi)
-    out[w.b_off + o - w.b_lo] = bsum;
-}
-
 // ---- host side ----------------------------------------------------------------
 
 bool make_seq(int n_enc, const int* dims, int H, int lstm, int T, long B,
@@ -956,30 +788,6 @@ bool make_seq(int n_enc, const int* dims, int H, int lstm, int T, long B,
   sa->rd = make_rdims(sa->net);
   sa->T = T;
   return true;
-}
-
-template <class Kernel>
-cudaError_t opt_in(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// One rows_gemm_kernel launch; its grid covers ldc columns.
-template <bool BF, int EPI>
-cudaError_t launch_gemm(const GemmArgs& ga, cudaStream_t stream) {
-  const size_t smem = smem_gemm();
-  cudaError_t e = opt_in(rows_gemm_kernel<BF, EPI>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)((ga.rows + BM - 1) / BM),
-                  (unsigned)((ga.ldc + BN - 1) / BN));
-  rows_gemm_kernel<BF, EPI><<<grid, GNT, smem, stream>>>(ga);
-  return cudaGetLastError();
-}
-
-GemmArgs gemm_args(const float* A, long lda, long rows, const float* Bt,
-                   int K, const float* bias, const float* act, long ldact,
-                   float* C, long ldc, int n) {
-  return GemmArgs{A, lda, rows, Bt, K, K, bias, act, ldact, C, ldc, n};
 }
 
 enum Stage { ENC_FWD, REC_FWD, HEAD_LOSS, REC_BWD, ENC_BWD, WGRAD };
@@ -1053,9 +861,9 @@ cudaError_t wgrad(const SeqArgs& sa, cudaStream_t stream) {
                     net.head_b, 0, NHEAD, &tiles);
   fa.n = k;
   const size_t smem = smem_wgrad();
-  cudaError_t e = opt_in(rnn_wgrad_kernel<BF>, smem);
+  cudaError_t e = opt_in(wgrad_tn_kernel<BF>, smem);
   if (e != cudaSuccess) return e;
-  rnn_wgrad_kernel<BF><<<dim3(tiles, sc.SF), GNT, smem, stream>>>(fa);
+  wgrad_tn_kernel<BF><<<dim3(tiles, sc.SF), GNT, smem, stream>>>(fa);
   return cudaGetLastError();
 }
 

@@ -13,11 +13,27 @@ tensor the kernels of ``csrc/sgd.cu`` run, reading the act phase's
 ``obs [T, B, A, D]`` in place; on a CPU tensor the plain twins run:
 autograd through ``ops.ppo_update.ppo_losses`` and ``optim.py``.
 
-The kernels keep a tile of 64 samples' activations in shared memory and
-read every matrix from device memory, the first layer over chunks of 128
-observation features (``csrc/mlp_learner.cuh``), so any observation width
-runs (a global view's 611); ``check_learner_fits`` raises for hidden layers
-too wide for a tile's rows to fit the card's shared memory.
+One minibatch's gradient runs on the card as stages, each a kernel shaped
+by its products (``csrc/sgd.cu``), with a plain version here that takes and
+gives the same rows (the minibatch's N samples, with policy groups group
+after group, each group's in (time step, env, agent) order:
+``minibatch_rows``):
+
+- ``fwd_plain``: each hidden layer's tanh output ``act0..`` over all rows;
+- ``head_loss_plain``: the head and the clipped-PPO loss on the last
+  layer, the head's adjoint ``dout [N, 6]`` and the last layer's delta
+  ``(dout W_head) (1 - act²)``;
+- ``dgrad_plain``: the earlier layers' deltas ``dz{l-1} = (dz{l} W_l)
+  (1 - act{l-1}²)``;
+- ``wgrad_plain``: every weight's and bias's gradient from those rows.
+
+``plain_stage`` runs one by name, ``plain_stage_chain`` all four in turn,
+``mlp_minibatch_grads_staged`` composes them into the contract of
+``ppo_minibatch_grads_reference``; ``mlp_stage`` runs one stage's kernel
+on given input rows (its plain version on a CPU tensor), for the stages'
+checks on the card. Any observation width runs (a global view's 611);
+``check_learner_fits`` raises for a last hidden layer too wide for the
+head stage's 64 rows to fit the card's shared memory.
 
 With ``policy_groups`` (one group id per agent, the JAX wrappers' name)
 ``params`` is a ``MultiPolicyActorCritic``'s dict: sample ``(t, b, a)``
@@ -52,13 +68,14 @@ import torch
 
 from ..config import ADAM_B1, ADAM_B2, ADAM_EPS
 
-from ..models.policy import (apply, group_params, is_multi, num_groups,
-                             num_hidden)
+from ..models.policy import (apply, bf16_round, group_params, is_multi,
+                             num_groups, num_hidden)
 from ..ops.ppo_update import NEG_INF, minibatch_epochs, ppo_losses
 from ..optim import AdamState, adam_update_fn
 from . import build
 
 N_ACT = 5
+STAGES = ("fwd", "head_loss", "dgrad", "wgrad")
 
 
 def normalize_adv_env_minibatch(advantages: torch.Tensor,
@@ -154,6 +171,198 @@ def ppo_minibatch_grads_reference(params, traj, adv_n, targets, mb_idx: int,
             dict(zip(leaves, grads)))
 
 
+# ---- the stages, plain ------------------------------------------------------
+
+def group_agents(policy_groups, A: int) -> list[list[int]]:
+    """Each policy group's agents in order (one group of all ``A``
+    without groups)."""
+    if policy_groups is None:
+        return [list(range(A))]
+    return [[a for a in range(A) if policy_groups[a] == g]
+            for g in range(max(policy_groups) + 1)]
+
+
+def minibatch_rows(traj, adv_n, targets, mb_idx: int, num_minibatches: int,
+                   policy_groups=None):
+    """Minibatch ``mb_idx``'s ``(obs, action, old_lp, old_v, adv, target,
+    mask)`` as rows ``[N, ...]`` in the kernels' order: group after group,
+    each group's in (time step, env, agent) order; and each group's count
+    of rows."""
+    mb = env_minibatches(traj, adv_n, targets, num_minibatches)[mb_idx]
+    agents = group_agents(policy_groups, traj.obs.shape[2])
+    rows = tuple(torch.cat([x[:, :, a].reshape(-1, *x.shape[3:])
+                            for a in agents]) for x in mb)
+    return rows, [mb[1][:, :, a].numel() for a in agents]
+
+
+def _rounder(bf16: bool):
+    return bf16_round if bf16 else (lambda x: x)
+
+
+def _groups(params, counts) -> list:
+    """``(params, row slice)`` per policy group: each group's sub-model
+    params (``params`` itself without groups) and its rows."""
+    multi, out, lo = is_multi(params), [], 0
+    for g, n in enumerate(counts):
+        out.append((group_params(params, g) if multi else params,
+                    slice(lo, lo + n)))
+        lo += n
+    return out
+
+
+def _head_w(p):
+    """The fused head ``[6, H]`` (5 logits, then the value) and its
+    bias."""
+    return (torch.cat([p["logits.weight"], p["value.weight"]]),
+            torch.cat([p["logits.bias"], p["value.bias"]]))
+
+
+def _n_hidden(params) -> int:
+    return num_hidden(group_params(params, 0) if is_multi(params)
+                      else params)
+
+
+def fwd_plain(params, obs, counts, bf16: bool = False) -> dict:
+    """Stage A: ``act{l}``, each hidden layer's tanh output, every group's
+    rows through its params."""
+    r = _rounder(bf16)
+    acts = [[] for _ in range(_n_hidden(params))]
+    for p, sl in _groups(params, counts):
+        x = obs[sl]
+        for i, a in enumerate(acts):
+            x = torch.tanh(r(x) @ r(p[f"hidden.{i}.weight"]).T
+                           + p[f"hidden.{i}.bias"])
+            a.append(x)
+    return {f"act{i}": torch.cat(a) for i, a in enumerate(acts)}
+
+
+def head_loss_plain(params, h, rows, counts, ent_coef, kl_coeff, *,
+                    clip_eps: float, value_coef: float, mask_actions: bool,
+                    bf16: bool = False) -> dict:
+    """Stage C: the head on the last layer's rows ``h``, the loss's
+    derivative with respect to its outputs ``dout [N, 6]`` (the PPO loss of
+    ``rows``, averaged over the N samples), the last layer's delta
+    ``dz{L-1} = (dout W_head) (1 - h²)`` and the loss terms ``losses``."""
+    r = _rounder(bf16)
+    _, action, old_lp, old_v, adv, tgt, mask = rows
+    groups = _groups(params, counts)
+    out = torch.cat([r(h[sl]) @ r(_head_w(p)[0]).T + _head_w(p)[1]
+                     for p, sl in groups]).detach().requires_grad_(True)
+    with torch.enable_grad():
+        logits, value = out[:, :5], out[:, 5]
+        if mask_actions:
+            logits = torch.where(mask, logits, NEG_INF)
+        total, aux = ppo_losses(logits, value, action, old_lp, old_v, adv,
+                                tgt, clip_eps=clip_eps, value_coef=value_coef,
+                                ent_coef=ent_coef, kl_coeff=kl_coeff,
+                                normalize_adv=False)
+        dout, = torch.autograd.grad(total, out)
+    dz = torch.cat([(r(dout[sl]) @ r(_head_w(p)[0])) * (1.0 - h[sl] ** 2)
+                    for p, sl in groups])
+    return {"dout": dout, f"dz{_n_hidden(params) - 1}": dz,
+            "losses": (total.detach(), *(a.detach() for a in aux))}
+
+
+def dgrad_plain(params, dz, acts, counts, bf16: bool = False) -> dict:
+    """Stage E: from the last layer's delta ``dz``, each earlier layer's
+    ``dz{l-1} = (dz{l} W_l) (1 - act{l-1}²)``; ``acts`` the activations
+    of every layer but the last."""
+    r = _rounder(bf16)
+    out = {}
+    for i in range(len(acts), 0, -1):
+        dz = torch.cat([(r(dz[sl]) @ r(p[f"hidden.{i}.weight"]))
+                        * (1.0 - acts[i - 1][sl] ** 2)
+                        for p, sl in _groups(params, counts)])
+        out[f"dz{i - 1}"] = dz
+    return out
+
+
+def wgrad_plain(params, obs, chain: dict, counts, bf16: bool = False) -> dict:
+    """Stage F: every parameter's gradient, keyed like ``params``, from the
+    rows the stages before made: ``delta^T prev`` over each group's rows
+    for each matrix, the deltas' sums for the biases."""
+    r = _rounder(bf16)
+    L, out = _n_hidden(params), {}
+    for g, (_, sl) in enumerate(_groups(params, counts)):
+        pre = f"policies.{g}." if is_multi(params) else ""
+        prev = obs[sl]
+        for i in range(L):
+            dz = chain[f"dz{i}"][sl]
+            out[f"{pre}hidden.{i}.weight"] = r(dz).T @ r(prev)
+            out[f"{pre}hidden.{i}.bias"] = dz.sum(0)
+            prev = chain[f"act{i}"][sl]
+        dout = chain["dout"][sl]
+        dwh, dbh = r(dout).T @ r(prev), dout.sum(0)
+        out.update({f"{pre}logits.weight": dwh[:5], f"{pre}logits.bias":
+                    dbh[:5], f"{pre}value.weight": dwh[5:],
+                    f"{pre}value.bias": dbh[5:]})
+    return {k: out[k] for k in params}
+
+
+def stage_inputs(stage: str, params, chain: dict) -> dict:
+    """The rows of ``chain`` (``plain_stage_chain``'s) that ``stage``
+    reads, by name."""
+    L = _n_hidden(params)
+    acts = [f"act{i}" for i in range(L)]
+    names = {"fwd": [], "head_loss": [acts[-1]],
+             "dgrad": [f"dz{L - 1}"] + acts[:-1],
+             "wgrad": acts + [f"dz{i}" for i in range(L)] + ["dout"]}[stage]
+    return {k: chain[k] for k in names}
+
+
+def plain_stage(stage: str, params, rows, counts, inputs: dict, ent_coef,
+                kl_coeff, *, clip_eps: float, value_coef: float,
+                mask_actions: bool, bf16: bool = False) -> dict:
+    """One of the ``STAGES``, plain, on minibatch ``rows`` and its groups'
+    row ``counts`` (``minibatch_rows``') and the input rows ``inputs`` it
+    takes (by the names ``stage_inputs`` gives): its outputs by name."""
+    L = _n_hidden(params)
+    if stage == "fwd":
+        return fwd_plain(params, rows[0], counts, bf16)
+    if stage == "head_loss":
+        return head_loss_plain(params, inputs[f"act{L - 1}"], rows, counts,
+                               ent_coef, kl_coeff, clip_eps=clip_eps,
+                               value_coef=value_coef,
+                               mask_actions=mask_actions, bf16=bf16)
+    if stage == "dgrad":
+        return dgrad_plain(params, inputs[f"dz{L - 1}"],
+                           [inputs[f"act{i}"] for i in range(L - 1)], counts,
+                           bf16)
+    return wgrad_plain(params, rows[0], inputs, counts, bf16)
+
+
+def plain_stage_chain(params, rows, counts, ent_coef, kl_coeff, **kw):
+    """The ``STAGES`` plain, each on the rows the ones before it made:
+    ``(chain, outputs)``, the rows by name and each stage's outputs by
+    stage. ``kw``: those of ``plain_stage``."""
+    chain, outputs = {}, {}
+    for stage in STAGES:
+        outputs[stage] = plain_stage(stage, params, rows, counts,
+                                     stage_inputs(stage, params, chain),
+                                     ent_coef, kl_coeff, **kw)
+        if stage != "wgrad":
+            chain.update((k, v) for k, v in outputs[stage].items()
+                         if k != "losses")
+    return chain, outputs
+
+
+def mlp_minibatch_grads_staged(params, traj, adv_n, targets, mb_idx: int,
+                               ent_coef, kl_coeff, *, num_minibatches: int,
+                               clip_eps: float, value_coef: float,
+                               mask_actions: bool, policy_groups=None,
+                               matmul_dtype: str = "float32"):
+    """The four plain stages composed: ``ppo_minibatch_grads_reference``'s
+    ``((total, (pg, v, ent, kl)), grads)``."""
+    rows, counts = minibatch_rows(traj, adv_n, targets, mb_idx,
+                                  num_minibatches, policy_groups)
+    _, out = plain_stage_chain(
+        params, rows, counts, ent_coef, kl_coeff, clip_eps=clip_eps,
+        value_coef=value_coef, mask_actions=mask_actions,
+        bf16=check_matmul_dtype(matmul_dtype))
+    losses = out["head_loss"]["losses"]
+    return (losses[0], losses[1:]), out["wgrad"]
+
+
 # ---- the kernels ------------------------------------------------------------
 
 def _layer_keys(params) -> list[tuple[list[str], list[str]]]:
@@ -218,7 +427,7 @@ def _f32(x, dev) -> torch.Tensor:
 
 def check_tile_smem(lib, n_hidden: int, dims_arr, dims, dev, what: str):
     """Raise unless the tile kernels' shared memory for these widths
-    (``wh_sgd_smem_bytes``; K3-K6 share the layout) fits the card."""
+    (``wh_sgd_smem_bytes``: the IMPALA learner's K5/K6) fits the card."""
     smem = lib.wh_sgd_smem_bytes(n_hidden, dims_arr)
     limit = build.smem_limit(dev, smem)
     if not 0 < smem <= limit:
@@ -229,15 +438,27 @@ def check_tile_smem(lib, n_hidden: int, dims_arr, dims, dev, what: str):
             f"allows {limit}")
 
 
+def check_stage_smem(lib, n_hidden: int, dims_arr, dims, dev, what: str):
+    """Raise unless the stage kernels' shared memory for these widths
+    (``wh_sgd_stage_smem_bytes``: K3/K4) fits the card."""
+    smem = lib.wh_sgd_stage_smem_bytes(n_hidden, dims_arr)
+    limit = build.smem_limit(dev, smem)
+    if not 0 < smem <= limit:
+        raise ValueError(
+            f"{what} needs {smem} bytes of shared memory per block for "
+            f"widths {dims} (64 rows of the last hidden layer in the head "
+            f"stage; 1 to 4 hidden layers); the card allows {limit}")
+
+
 def check_learner_fits(params, obs_dim: int, dev,
                        what: str = "SGD kernel") -> None:
-    """Raise ``ValueError`` unless the MLP learner kernels (K3-K6) take
-    these params (a multi-policy dict's groups: K3/K4) on observations
+    """Raise ``ValueError`` unless the PPO learner kernels (K3/K4) take
+    these params (a multi-policy dict's groups too) on observations
     ``obs_dim`` wide on the CUDA device ``dev``. A trainer calls it when it
     is built."""
     dims = _dims(params, obs_dim)
-    check_tile_smem(build.library(), len(dims) - 1, build.int_array(dims),
-                    dims, dev, what)
+    check_stage_smem(build.library(), len(dims) - 1, build.int_array(dims),
+                     dims, dev, what)
 
 
 class TrajLaunch:
@@ -281,7 +502,7 @@ class TrajLaunch:
                 None if self.mask is None else self.mask.data_ptr()]
 
 
-class _Launch(TrajLaunch):
+class MlpLaunch(TrajLaunch):
     """``TrajLaunch`` for the MLP's entry points (``csrc/sgd.cu``); with
     ``policy_groups`` the params are a multi-policy dict's."""
 
@@ -302,18 +523,21 @@ class _Launch(TrajLaunch):
         self.grouped = policy_groups is not None
         self.shape = (len(dims) - 1, build.int_array(dims), *self.tbam, k,
                       gmap)
-        check_tile_smem(self.lib, *self.shape[:2], dims, dev, "SGD kernel")
+        check_stage_smem(self.lib, *self.shape[:2], dims, dev, "SGD kernel")
+        self.dims = dims
         self.chunked = self.lib.wh_sgd_obs_chunks(*self.shape[:2]) > 1
         self.work = torch.empty(self.lib.wh_sgd_workspace_floats(*self.shape),
                                 dtype=torch.float32, device=dev)
 
+    def _args(self, p_flat, mb: int, grads, sums) -> list:
+        return [*self.shape, mb, *self.batch_ptrs(), p_flat.data_ptr(),
+                self.scal.data_ptr(), *self.coefs, self.work.data_ptr(),
+                grads.data_ptr(), sums.data_ptr(), int(self.bf16), self.stream]
+
     def grads(self, p_flat, mb: int, grads, sums) -> None:
         """K4's kernels: minibatch ``mb``'s gradient into ``grads``, its
         metric sums into ``sums [4]``."""
-        err = self.lib.wh_sgd_grads(
-            *self.shape, mb, *self.batch_ptrs(), p_flat.data_ptr(),
-            self.scal.data_ptr(), *self.coefs, self.work.data_ptr(),
-            grads.data_ptr(), sums.data_ptr(), int(self.bf16), self.stream)
+        err = self.lib.wh_sgd_grads(*self._args(p_flat, mb, grads, sums))
         build.check(err, "ppo_minibatch_grads kernel launch")
         ppo_minibatch_grads.launches += 1
         ppo_minibatch_grads.chunked_launches += self.chunked
@@ -334,6 +558,90 @@ class _Launch(TrajLaunch):
         ppo_sgd_phase.chunked_launches += self.chunked
         ppo_sgd_phase.group_launches += self.grouped
         ppo_sgd_phase.bf16_launches += self.bf16
+
+    def rows(self) -> dict:
+        """The stages' rows in the workspace, as views at their natural
+        widths (``plain_stage_chain``'s names and shapes); the buffers' pad
+        columns (to multiples of 32) lie beyond each view."""
+        out = (build.L * 15)()
+        build.check(self.lib.wh_sgd_layout(*self.shape, out), "wh_sgd_layout")
+        N = self.mb_n
+        shape = {"dout": (8, 6)}
+        for i, e in enumerate(self.dims[1:]):
+            shape[f"act{i}"] = shape[f"dz{i}"] = (out[11 + i], e)
+        names = ["act0", "act1", "act2", "act3", "dz0", "dz1", "dz2", "dz3",
+                 "dout"]
+        views = {}
+        for i, k in enumerate(names):
+            if out[1 + i] < 0:
+                continue
+            ld, w = shape[k]
+            views[k] = self.work[out[1 + i]:out[1 + i] + N * ld].view(
+                N, ld)[:, :w]
+        return views
+
+    def fill(self, inputs: dict) -> None:
+        """Writes a stage's input rows (``stage_inputs``' names) into the
+        workspace, the pad columns zero."""
+        views = self.rows()
+        for k, v in inputs.items():
+            full = views[k].as_strided(
+                (views[k].shape[0], views[k].stride(0)),
+                (views[k].stride(0), 1))
+            full.zero_()
+            views[k].copy_(v)
+
+    def launch_stage(self, stage: str, p_flat, mb: int, grads, sums) -> None:
+        """One stage's kernels (after the weight copies and the observation
+        rows) on the rows the workspace holds."""
+        err = self.lib.wh_sgd_stage(STAGES.index(stage),
+                                    *self._args(p_flat, mb, grads, sums))
+        build.check(err, f"MLP learner stage {stage} launch")
+        mlp_stage.launches += 1
+
+
+def mlp_stage(stage: str, params, traj, adv_n, targets, mb_idx: int,
+              ent_coef, kl_coeff, inputs: dict, *, num_minibatches: int,
+              clip_eps: float, value_coef: float, mask_actions: bool,
+              policy_groups=None, matmul_dtype: str = "float32") -> dict:
+    """One of the ``STAGES`` of minibatch ``mb_idx``'s gradient on the
+    input rows ``inputs`` (``stage_inputs``' names, the plain stages'
+    shapes), its outputs as ``plain_stage`` gives them. The stage's kernel
+    on CUDA tensors, its plain version on CPU ones. ``launches`` counts
+    the kernel launches."""
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
+    bf16 = check_matmul_dtype(matmul_dtype)
+    kw = dict(clip_eps=clip_eps, value_coef=value_coef,
+              mask_actions=mask_actions)
+    if _device_of(traj).type == "cpu":
+        rows, counts = minibatch_rows(traj, adv_n, targets, mb_idx,
+                                      num_minibatches, policy_groups)
+        return plain_stage(stage, params, rows, counts, inputs, ent_coef,
+                           kl_coeff, bf16=bf16, **kw)
+    run = MlpLaunch(params, traj, adv_n, targets, ent_coef, kl_coeff,
+                    num_minibatches, clip_eps, value_coef, mask_actions,
+                    policy_groups=policy_groups, matmul_dtype=matmul_dtype)
+    run.fill(inputs)
+    p_flat = pack(params)
+    grads = torch.zeros_like(p_flat)
+    sums = torch.zeros(4, dtype=torch.float32, device=p_flat.device)
+    run.launch_stage(stage, p_flat, mb_idx, grads, sums)
+    if stage == "wgrad":
+        return {k: v.clone() for k, v in unpack(grads, params).items()}
+    views = run.rows()
+    L = len(run.dims) - 1
+    names = {"fwd": [f"act{i}" for i in range(L)],
+             "head_loss": ["dout", f"dz{L - 1}"],
+             "dgrad": [f"dz{i}" for i in range(L - 1)]}[stage]
+    out = {k: views[k].clone() for k in names}
+    if stage == "head_loss":
+        out["losses"] = _losses(sums, run.mb_n, value_coef, ent_coef,
+                                kl_coeff)
+    return out
+
+
+mlp_stage.launches = 0
 
 
 def _losses(sums, mb_n, value_coef, ent_coef, kl_coeff):
@@ -409,9 +717,9 @@ def ppo_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
             value_coef=value_coef, max_grad_norm=max_grad_norm,
             mask_actions=mask_actions, policy_groups=policy_groups,
             matmul_dtype=matmul_dtype)
-    run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff,
-                  num_minibatches, clip_eps, value_coef, mask_actions,
-                  policy_groups=policy_groups, matmul_dtype=matmul_dtype)
+    run = MlpLaunch(params, traj, adv_n, targets, ent_coef, kl_coeff,
+                    num_minibatches, clip_eps, value_coef, mask_actions,
+                    policy_groups=policy_groups, matmul_dtype=matmul_dtype)
     return sgd_phase_on_card(
         run, pack, unpack, params, opt_state, (lr_row, bc1_row, bc2_row),
         ent_coef, kl_coeff, num_epochs=num_epochs,
@@ -420,8 +728,7 @@ def ppo_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
 
 
 ppo_sgd_phase.launches = 0
-# The launches whose first layer ran over more than one chunk of the
-# observation (a global view's width).
+# The launches on observations wider than 128 features (a global view).
 ppo_sgd_phase.chunked_launches = 0
 ppo_sgd_phase.group_launches = 0  # those that routed samples by group
 ppo_sgd_phase.bf16_launches = 0   # those on bf16 operands
@@ -441,9 +748,9 @@ def ppo_minibatch_grads(params, traj, adv_n, targets, mb_idx: int, ent_coef,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
             value_coef=value_coef, mask_actions=mask_actions,
             policy_groups=policy_groups, matmul_dtype=matmul_dtype)
-    run = _Launch(params, traj, adv_n, targets, ent_coef, kl_coeff,
-                  num_minibatches, clip_eps, value_coef, mask_actions,
-                  policy_groups=policy_groups, matmul_dtype=matmul_dtype)
+    run = MlpLaunch(params, traj, adv_n, targets, ent_coef, kl_coeff,
+                    num_minibatches, clip_eps, value_coef, mask_actions,
+                    policy_groups=policy_groups, matmul_dtype=matmul_dtype)
     return minibatch_grads_on_card(
         run, pack, unpack, params, mb_idx, ent_coef, kl_coeff,
         num_minibatches=num_minibatches, value_coef=value_coef)

@@ -59,9 +59,10 @@ from ..ops.ppo_update import NEG_INF, minibatch_epochs, ppo_losses
 from ..optim import AdamState, adam_update_fn
 from . import build
 from .act_rnn import GATE_ORDER, pack_rnn, rnn_dims, split_carry, unpack_rnn
-from .sgd import (TrajLaunch, _device_of, _losses, check_matmul_dtype,
-                  env_minibatches, minibatch_grads_on_card,
-                  operand_precision, sgd_phase_on_card)
+from .sgd import (TrajLaunch, _device_of, _head_w, _losses, _rounder,
+                  check_matmul_dtype, env_minibatches,
+                  minibatch_grads_on_card, operand_precision,
+                  sgd_phase_on_card)
 
 STAGES = ("enc_fwd", "rec_fwd", "head_loss", "rec_bwd", "enc_bwd", "wgrad")
 
@@ -158,10 +159,6 @@ def minibatch_rows(traj, adv_n, targets, h0, mb_idx: int,
     return rows, (flat if isinstance(carry, tuple) else flat[0])
 
 
-def _rounder(bf16: bool):
-    return bf16_round if bf16 else (lambda x: x)
-
-
 def _lstm(params) -> bool:
     return "cell.ii.weight" in params
 
@@ -171,12 +168,6 @@ def _gates(params, side: str, what: str = "weight"):
     cell = "lstm" if _lstm(params) else "gru"
     return torch.cat([params[f"cell.{side}{g}.{what}"]
                       for g in GATE_ORDER[cell]])
-
-
-def _head_w(params):
-    """The fused head ``[6, H]`` (5 logits, then the value) and its bias."""
-    return (torch.cat([params["logits.weight"], params["value.weight"]]),
-            torch.cat([params["logits.bias"], params["value.bias"]]))
 
 
 def enc_forward_plain(params, obs, bf16: bool = False) -> dict:

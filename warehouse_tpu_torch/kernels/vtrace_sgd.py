@@ -45,6 +45,15 @@ from .sgd import _device_of, _dims, _f32, check_tile_smem, pack, unpack
 N_ACT = 5
 
 
+def check_impala_fits(params, obs_dim: int, dev) -> None:
+    """Raise ``ValueError`` unless the IMPALA learner kernels (K5/K6, the
+    tile route) take these params on observations ``obs_dim`` wide on the
+    CUDA device ``dev``. The trainer calls it when it is built."""
+    dims = _dims(params, obs_dim)
+    check_tile_smem(build.library(), len(dims) - 1, build.int_array(dims),
+                    dims, dev, "IMPALA learner kernel")
+
+
 def env_minibatches(traj, last_obs, num_minibatches: int):
     """The M minibatches ``(obs, action, behavior_log_prob, reward, done,
     mask, boot_value, last_obs)`` as env-column slices."""

@@ -47,8 +47,8 @@ from ..device import resolve_device
 from ..env.batch import observe_batch, reset_truncated_batch
 from ..env.state import STATE_FIELDS, EnvState
 from ..kernels.act import check_act_fits, ppo_rollout, ppo_rollout_reference
-from ..kernels.sgd import check_learner_fits
-from ..kernels.vtrace_sgd import impala_sgd_phase, impala_sgd_phase_reference
+from ..kernels.vtrace_sgd import (check_impala_fits, impala_sgd_phase,
+                                  impala_sgd_phase_reference)
 from ..models.policy import ActorCriticMLP, apply, make_model, params_from_flax
 from ..optim import (AdamState, ClipAdam, ClipRMSProp, RMSState,
                      make_impala_optimizer, opt_state_from_optax)
@@ -167,8 +167,7 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
     if device.type == "cuda":  # refuse by name what no kernel route holds
         check_act_fits(cfg, model, device)
         if grad_kernel:
-            check_learner_fits(model.state_dict(), cfg.obs_dim, device,
-                               "IMPALA learner kernel")
+            check_impala_fits(model.state_dict(), cfg.obs_dim, device)
 
     def plain_phase(params, opt_state, traj, last_obs, rows, *args, **kw):
         """The plain learner phase (M-4): micro-batches, the flat
