@@ -84,10 +84,11 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    update split into acting, GAE and SGD by CUDA events, a learning check
    on deliveries per env-step over updates 31-40, 3 plain-path updates
    from the same state, then the trained policy served with its carry;
-14. ``k10_check``: the CNN acting kernel (K10) at B = 4096, T = 16, convs
-   4 -> 16 -> 32 on the 5x5 window, trunk 806 -> 128, on medium and, with
-   action masking, on shelves: the checks of ``k2_check`` against the plain
-   ``ActorCriticCNN`` (true convolutions), timed beside its twin;
+14. ``k10_check``: the CNN acting kernel (K10: three stage kernels a
+   step over all of its rows) at B = 4096, T = 16, convs 4 -> 16 -> 32 on
+   the 5x5 window, trunk 806 -> 128, on medium and, with action masking, on
+   shelves: the checks of ``k2_check`` against the plain ``ActorCriticCNN``
+   (true convolutions), timed beside its twin;
 15. ``k11_check`` / ``k12_check``: one config-4 CNN trajectory (a K10 chunk
    from the trainer's reset, then GAE); the CNN SGD phase (K11: 16 steps of
    65536 samples, K12's gradient kernels then clip + Adam per step) against
@@ -138,7 +139,15 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    of the recipe; K11 / K12 at S = 9 and ``cnn_stage_check`` there (full
    and ragged); and, at config 4 with hidden 256 (the
    ``hidden256_train`` path's shapes): K2 on its wide route
-   (``wide_check``), K3 / K4 and K5;
+   (``wide_check``), K3 / K4 and K5; and ``act_cnn_stage_check``: K10's
+   three stage kernels (``conv``: both convolutions; ``trunk``: the trunk
+   and the head; ``env``: sample, tick, next observation), each against
+   its plain stage (``kernels.act``) on one step's rows, at config 4 (B =
+   4096), on a ragged B = 1001, on the 9x9 global view (ungrouped and ``(0,
+   1, 0, 1)``) and on the shelves groups recipe (masked, shaped, B = 2048):
+   the rows within STAGE_TOL, the env stage's log-probs within TOL and its
+   other outputs bit-equal, each stage timed by CUDA events beside its
+   plain stage and its bound;
 21. ``shelves_global_train`` (main path): the full shelves recipe with
    ``--global-obs`` as the train CLI builds it (2048 envs, T = 16, MLP 611
    -> 128 -> 128 -> 6, the 300-update schedule of the JAX run
@@ -196,7 +205,8 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    K11/K12 on bf16 operands) at ``--model-dtype bfloat16``, the first
    update held against the plain path's, the trained policy served;
 29. ``k10_groups_check``: K10 with policy groups (each row through its
-   agent's group's convolutions, trunk and head, one pass per group) with
+   agent's group's convolutions, trunk and head; a step's rows group by
+   group, each stage tile one group's) with
    the checks of ``k2_check`` against the plain multi-policy CNN: at config
    4 with ``(0, 1, 0, 1)`` (B = 4096, T = 16) and on shelves with ``(0, 0,
    0, 1, 1, 1)``, masked and shaped, at B = 2048 (the recipe's shapes);
@@ -407,6 +417,9 @@ RAGGED_T, RAGGED_B = 5, 100
 CNN_STAGE_INPUTS = {"conv_fwd": (), "trunk_fwd": ("a1",),
                     "trunk_dgrad": ("dzt", "a1"), "conv_bwd": ("a0", "d1"),
                     "trunk_wgrad": ("a1", "dzt", "h", "dout")}
+# K10's stage kernels (act_cnn_stage_check) on a ragged B: 4004 rows at 4
+# agents, which no stage's tile divides.
+ACT_RAGGED_B = 1001
 BF16_FF_UPDATES = 10  # updates of the ppo_bf16_train and cnn_bf16_train paths
 BF16_METRICS_OUT = "runs/torch_gru_bf16/metrics.jsonl"
 
@@ -1107,6 +1120,120 @@ def cnn_stage_check(dev, cfg, name="config4", bf16=False, ragged=False):
           "tol_ratio at STAGE_TOL", "stages": out})
     require(not bad, f"K12 stages differ from their plain stages: {bad}")
     return out
+
+
+def act_cnn_stage_run(dev, cfg, model, groups=None, B=CHECK_B,
+                      shaped=False, time_it=True):
+    """K10's three stage kernels (``act.ACT_CNN_STAGES``) on one step's
+    rows of ``cfg`` (with ``shaped``, masked and shaped from a mid-episode
+    state), each against its plain stage on the plain chain's inputs:
+    ``conv``'s ``a1`` and ``trunk``'s head rows within STAGE_TOL
+    elementwise (float32 sums in another order), the env stage's
+    log-probs within TOL and every other output bit-equal (the same head
+    rows in: the same samples, ticks, rewards and observations). Returns
+    ``(results, failures, times)``: per stage its outputs' max_abs_err
+    and ratio, the failing outputs, and (``time_it``) the kernel's and the
+    plain stage's milliseconds by CUDA events beside the stage's bound."""
+    A = cfg.num_agents
+    state, obs = reset_envs(cfg, B, SEED + 1, dev)
+    if shaped:
+        state, obs = shaped_start(cfg, model, state, False, dev, groups)
+    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, 1)
+    _, g = rng.batched_gumbel_stream(rng.prng_key(SEED + 2, dev), 1,
+                                     (5, B * A))
+    shaping = sh = None
+    if shaped:
+        done = (state.t + 1 >= cfg.max_steps).to(torch.float32)
+        shaping = act.Shaping(*SHAPING, done[None],
+                              torch.empty(1, B, A, device=dev))
+        sh = (*SHAPING, done)
+    order = act.act_cnn_rows(cfg, B, groups)
+    row_group = act.act_cnn_row_groups(cfg, order, groups)
+    order = order.to(dev)
+    params = act.cnn_group_params(model, groups)
+
+    def plain(stage, x):
+        with torch.no_grad():
+            if stage == "conv":
+                return {"a1": act.act_conv_plain(
+                    params, x.reshape(B * A, -1)[order], row_group)}
+            if stage == "trunk":
+                return {"head": act.act_trunk_plain(params, x, row_group)}
+            return act.act_env_plain(cfg, state, x, order, u[0], pick[0],
+                                     drop[0], g[0], shaped, sh)
+
+    inputs = {"conv": obs}
+    want = {"conv": plain("conv", obs)}
+    inputs["trunk"] = want["conv"]["a1"]
+    want["trunk"] = plain("trunk", inputs["trunk"])
+    inputs["env"] = want["trunk"]["head"]
+    want["env"] = plain("env", inputs["env"])
+    kw = dict(mask_on=shaped, shaping=shaping, groups=groups)
+    run = act.ActCnnLaunch(cfg, model, state, u, pick, drop, g,
+                           torch.empty(1, B, A, 5, device=dev),
+                           torch.empty(1, B, A, 5, dtype=torch.bool,
+                                       device=dev) if shaped else None,
+                           shaping, groups)
+    S, C0, C1, C2, H = run.net
+    N, pairs = B * A, (3 * S - 2) ** 2
+    flops = {"conv": 2.0 * N * pairs * C1 * (C0 + C2),
+             "trunk": 2.0 * N * (S * S * C2 + 6 + 6) * H, "env": 0.0}
+    res, bad, times = {}, [], {}
+    for stage in act.ACT_CNN_STAGES:
+        key = {"conv": "obs", "trunk": "a1", "env": "head"}[stage]
+        before = act.act_cnn_stage.launches
+        got = act.act_cnn_stage(stage, cfg, model, state,
+                                {key: inputs[stage]}, u, pick, drop, g, **kw)
+        torch.cuda.synchronize()
+        require(act.act_cnn_stage.launches == before + 1,
+                f"K10 stage {stage}: the launch count did not move")
+        out = {}
+        for k, w in want[stage].items():
+            x = got[k]
+            if k == "state":
+                out[k] = {"bit_equal": all(torch.equal(
+                    getattr(x, f), getattr(w, f)) for f in STATE_FIELDS[:-2])}
+            elif w is None:
+                out[k] = {"bit_equal": x is None}
+            elif stage != "env" or k == "log_prob":
+                e, r = tree_err((x,), (w,), *(STAGE_TOL if stage != "env"
+                                             else (0.0, TOL)))
+                out[k] = {"max_abs_err": e, "ratio": r}
+            else:
+                out[k] = {"bit_equal": torch.equal(
+                    x.view(torch.int32) if x.dtype == torch.float32 else x,
+                    w.view(torch.int32) if w.dtype == torch.float32 else w)}
+        bad += [f"{stage}.{k}" for k, v in out.items()
+                if v.get("ratio", 0.0) > 1.0 or v.get("bit_equal") is False]
+        res[stage] = out
+        if time_it:
+            nxt = run.fill(stage, {key: inputs[stage]})
+            n_bytes = nbytes(inputs[stage], want[stage]) + (
+                nbytes(dict(model.named_parameters()))
+                if stage != "env" else 0)
+            times[stage] = {
+                "ms": timed(lambda: run.launch(stage, nxt), 5),
+                "plain_ms": timed(lambda: plain(stage, inputs[stage]), 3),
+                **bound(n_bytes, flops[stage])}
+    return res, bad, times
+
+
+def act_cnn_stage_check(dev, cfg, name, groups=None, B=CHECK_B,
+                        shaped=False):
+    """``act_cnn_stage_run`` on the seeded config-4 CNN (or multi-policy
+    CNN with ``groups``) of ``cfg``: the stage kernels against their plain
+    stages on one step's rows, then timed; fails on any output off its
+    bound."""
+    model = (cnn_model(cfg, dev) if groups is None
+             else cnn_groups_model(cfg, groups, dev))
+    res, bad, times = act_cnn_stage_run(dev, cfg, model, groups, B, shaped)
+    emit({"phase": "act_cnn_stage_check", "kernel": "K10", "config": name,
+          "global_obs": cfg.global_obs, "policy_groups": groups, "B": B,
+          "rows": B * cfg.num_agents, "masked_shaped": shaped,
+          "tol": {"rows": STAGE_TOL, "log_prob": TOL}, "stages": {
+              st: {"outputs": res[st], **times[st]} for st in res}})
+    require(not bad, f"K10 stages differ from their plain stages: {bad}")
+    return times
 
 
 def mlp_stage_check(dev, cfg, name="config4", bf16=False, ragged=False,
@@ -2040,7 +2167,7 @@ def cnn_global_train_phase(dev, cfg):
 
 def cnn_global_groups_train_phase(dev, cfg):
     """3 config-4 updates of ``--arch cnn --global-obs --policy-groups
-    0,1,0,1``: K10 on the 9x9 map in one pass per group, the plain learner
+    0,1,0,1``: K10 on the 9x9 map with two groups, the plain learner
     through both CNNs at S = 9; the first update against the plain path's,
     then the trained policy served."""
     tr = make_train(cfg, TrainConfig(num_updates=CNN_SCHEDULE), arch="cnn",
@@ -2385,7 +2512,7 @@ def shelves_cnn_groups_train_phase(dev, cfg):
 
 def cnn_per_agent_train_phase(dev, cfg):
     """Config 4 with ``--arch cnn --policy-groups 0,1,2,3``: one CNN per
-    agent, K10 acting in one pass per group and the plain learner, 50
+    agent, K10 acting with one group per agent and the plain learner, 50
     updates of its 300-update schedule (``cnn_train``'s), the curve to
     ``runs/torch_cnn_per_agent/metrics.jsonl``."""
     grouped_cnn_curve(dev, cfg, TrainConfig(num_updates=CNN_SCHEDULE),
@@ -2536,6 +2663,7 @@ OPTION_COUNTED = {
                                        "small_tile_launches"),
     "ppo_rollout_groups": (act.act_steps, "group_launches"),
     "ppo_rollout_cnn_groups": (act.act_cnn_steps, "group_launches"),
+    "ppo_rollout_cnn_stages": (act.act_cnn_steps, "stage_launches"),
     "ppo_sgd_phase_groups": (sgd.ppo_sgd_phase, "group_launches"),
     "ppo_minibatch_grads_groups": (sgd.ppo_minibatch_grads,
                                    "group_launches"),
@@ -2716,6 +2844,16 @@ def main(argv=()) -> int:
         dev, medium_g, cnn=True, name="medium_global")
     cnn_stage_check(dev, medium_g, name="medium_global")
     cnn_stage_check(dev, medium_g, name="medium_global", ragged=True)
+    # K10's stage kernels, one step's rows each: config 4, a ragged B, the
+    # 9x9 global view (with its two groups too) and the shelves groups
+    # recipe (masked, shaped, 2048 envs).
+    act_cnn_stage_check(dev, cfg, "config4")
+    act_cnn_stage_check(dev, cfg, "config4_ragged", B=ACT_RAGGED_B)
+    act_cnn_stage_check(dev, medium_g, "medium_global")
+    act_cnn_stage_check(dev, medium_g, "medium_global_groups",
+                        groups=CONFIG4_GROUPS)
+    act_cnn_stage_check(dev, shelves, "shelves_groups", groups=GROUPS,
+                        B=GROUPS_B, shaped=True)
     emit_bound("K5", "config4_hidden256", k5_check(dev, cfg,
                                                    hidden=WIDE_HIDDEN))
     # Policy groups: the recipe's shapes go into the kernels line.
@@ -2753,7 +2891,7 @@ def main(argv=()) -> int:
         ("rnn_train_lstm", lambda: rnn_train_phase(dev, cfg, "lstm"),
          rnn_kernels),
         ("cnn_train", lambda: cnn_train_phase(dev, cfg),
-         ["ppo_rollout_cnn", "ppo_cnn_sgd_phase",
+         ["ppo_rollout_cnn", "ppo_rollout_cnn_stages", "ppo_cnn_sgd_phase",
           "ppo_cnn_minibatch_grads"]),
         ("shelves_train", lambda: shelves_train_phase(dev, shelves),
          ["ppo_rollout", "ppo_rollout_shaped", "ppo_sgd_phase",
@@ -2761,7 +2899,8 @@ def main(argv=()) -> int:
         ("shelves_cnn_train",
          lambda: shelves_cnn_train_phase(dev, shelves),
          ["ppo_rollout_cnn", "ppo_rollout_cnn_shaped",
-          "ppo_cnn_sgd_phase", "ppo_cnn_minibatch_grads"]),
+          "ppo_rollout_cnn_stages", "ppo_cnn_sgd_phase",
+          "ppo_cnn_minibatch_grads"]),
         ("shelves_global_train",
          lambda: shelves_global_train_phase(dev, shelves_g),
          ["ppo_rollout_global", "ppo_rollout_wide",
@@ -2769,8 +2908,8 @@ def main(argv=()) -> int:
           "ppo_minibatch_grads_global"]),
         ("cnn_global_train",
          lambda: cnn_global_train_phase(dev, medium_g),
-         ["ppo_rollout_cnn_global", "ppo_cnn_sgd_phase_global",
-          "ppo_cnn_minibatch_grads_global"]),
+         ["ppo_rollout_cnn_global", "ppo_rollout_cnn_stages",
+          "ppo_cnn_sgd_phase_global", "ppo_cnn_minibatch_grads_global"]),
         ("hidden256_train",
          lambda: hidden256_train_phase(dev, cfg),
          ["ppo_rollout_wide", "ppo_sgd_phase",
@@ -2789,25 +2928,26 @@ def main(argv=()) -> int:
           "ppo_minibatch_grads_bf16"]),
         ("cnn_bf16_train",
          lambda: ff_bf16_train_phase(dev, cfg, "cnn"),
-         ["ppo_rollout_cnn", "ppo_cnn_sgd_phase_bf16",
-          "ppo_cnn_minibatch_grads_bf16"]),
+         ["ppo_rollout_cnn", "ppo_rollout_cnn_stages",
+          "ppo_cnn_sgd_phase_bf16", "ppo_cnn_minibatch_grads_bf16"]),
         ("shelves_cnn_groups_train",
          lambda: shelves_cnn_groups_train_phase(dev, shelves),
          ["ppo_rollout_cnn", "ppo_rollout_cnn_groups",
-          "ppo_rollout_cnn_shaped"]),
+          "ppo_rollout_cnn_shaped", "ppo_rollout_cnn_stages"]),
         ("rllib_cadence_train",
          lambda: rllib_cadence_train_phase(dev, cfg),
          ["ppo_rollout"]),
         ("cnn_per_agent_train",
          lambda: cnn_per_agent_train_phase(dev, cfg),
-         ["ppo_rollout_cnn", "ppo_rollout_cnn_groups"]),
+         ["ppo_rollout_cnn", "ppo_rollout_cnn_groups",
+          "ppo_rollout_cnn_stages"]),
         ("cnn_global_groups_train",
          lambda: cnn_global_groups_train_phase(dev, medium_g),
          ["ppo_rollout_cnn", "ppo_rollout_cnn_groups",
-          "ppo_rollout_cnn_global"])]}
+          "ppo_rollout_cnn_global", "ppo_rollout_cnn_stages"])]}
     launches = {k: sum(p[k] for p in paths.values())
                 for k in paths["k1_episodes"]}
-    # K10's group route at the shapes only one pass per group holds: the
+    # K10's group route with one policy per agent and on the 9x9 map: the
     # launches of the paths that run them.
     launches["ppo_rollout_cnn_per_agent"] = paths["cnn_per_agent_train"][
         "ppo_rollout_cnn_groups"]
@@ -2866,8 +3006,8 @@ def main(argv=()) -> int:
         "ppo_cnn_minibatch_grads_bf16": ("sgd_cnn.cu",
                                          "pallas/sgd_cnn.py:595"),
         # The policy-groups option of the CNN arm: each row through its
-        # agent's group's convolutions, trunk and head (one pass per group,
-        # that group's conv kernels staged), at the shelves CNN groups
+        # agent's group's convolutions, trunk and head (a step's rows group
+        # by group, each stage tile one group's), at the shelves CNN groups
         # recipe's shapes, with one policy per agent at config 4, and with
         # two groups on config 4's 9x9 global view.
         "ppo_rollout_cnn_groups": ("act_cnn.cu", "pallas/act.py:1062"),

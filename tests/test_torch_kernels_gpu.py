@@ -767,6 +767,37 @@ def test_cnn_stage_kernels_match_plain_stages(name, glob, hidden, bf16, dev):
         assert all(v["ratio"] <= 1.0 for v in res.values()), (stage, res)
 
 
+ACT_CNN_STAGE_CASES = [  # (preset, global view, hidden, groups, B, shaped)
+    ("medium", False, 128, None, N, False),
+    ("medium", True, 128, (0, 1, 0, 1), N, False),
+    ("shelves", False, 128, (0, 0, 0, 1, 1, 1), N + 1, True),
+    ("small", True, 16, (1, 0), N - 1, True),
+    ("large", False, 32, tuple(range(8)), N, True)]
+
+
+@pytest.mark.parametrize("name,glob,hidden,groups,B,shaped",
+                         ACT_CNN_STAGE_CASES)
+def test_act_cnn_stage_kernels_match_plain_stages(name, glob, hidden, groups,
+                                                  B, shaped, dev):
+    """Each of K10's three stage kernels (``act.act_cnn_stage``) against
+    its plain stage on one step's rows (B of 999-1001 envs: no tile of any
+    stage full at the end), with and without groups, masked and shaped from
+    a mid-episode state: ``conv``'s and ``trunk``'s rows at chip_smoke.py's
+    STAGE_TOL elementwise, the env stage's log-probs within TOL and every
+    other output bit-equal; one launch each."""
+    from warehouse_tpu_torch.models import make_multi_policy_model
+
+    cs = smoke()
+    cfg = (GLOBAL if glob else PRESETS)[name]
+    gen = torch.Generator().manual_seed(3)
+    m = (make_model(cfg, "cnn", hidden_dim=hidden, generator=gen, device=dev)
+         if groups is None else make_multi_policy_model(
+             cfg, groups, "cnn", hidden_dim=hidden, generator=gen, device=dev))
+    res, bad, _ = cs.act_cnn_stage_run(dev, cfg, m, groups, B, shaped,
+                                       time_it=False)
+    assert not bad, (bad, res)
+
+
 # ---- the potential-shaping option of K2 and K10 ------------------------------
 
 @pytest.mark.parametrize("truncating", [False, True])
@@ -993,9 +1024,10 @@ def test_global_obs_cnn_act_kernel_matches_plain_path(name, hidden, mask_on,
 
 
 def test_global_obs_cnn_refuses_what_it_cannot_hold(dev):
-    """The 11 x 11 map's rows do not fit a block (8 rows of 27.7 KB beside
-    the conv kernels): the trainer refuses it by name when it is built, and
-    an (agents, queue) shape outside the presets too."""
+    """The 11 x 11 map's conv tile of 16 samples (K11's smallest) does not
+    fit a block beside the conv kernels: the trainer refuses it by name
+    when it is built, and an (agents, queue) shape outside the presets
+    too."""
     from warehouse_tpu_torch import TrainConfig
     from warehouse_tpu_torch.train import make_train
 
@@ -1248,8 +1280,9 @@ CNN_GROUP_ACT_CASES = [  # (preset, hidden, groups, mask, shaped)
 def test_grouped_cnn_act_kernel_matches_plain_path(name, hidden, groups,
                                                    mask_on, shaped, dev):
     """K10 with policy groups: each agent's rows through its group's
-    convolutions, trunk and head (one pass per group, its rows padded to
-    8), held to the plain multi-policy CNN on the kernel's observations and
+    convolutions, trunk and head (a step's rows group by group, each stage
+    tile one group's), held to the plain multi-policy CNN on the kernel's
+    observations and
     the plain engine replaying its actions, masked and shaped, on a ragged
     last block; a second launch gives the same bits; the group count
     moves."""
@@ -1270,12 +1303,11 @@ def test_grouped_cnn_act_kernel_matches_plain_path(name, hidden, groups,
     ("medium", (0, 1, 2, 3)), ("medium_global", (0, 1, 0, 1)),
     ("large", (0, 1, 2, 3, 4, 5, 6, 7)), ("shelves_global", (0, 0, 0, 1, 1, 1))])
 def test_grouped_cnn_refuses_what_it_cannot_hold(name, groups, dev):
-    """One group's rows at a time beside one group's conv kernels: one
-    policy per agent on config 4 and on the 8-agent preset, and two groups
-    on the 9 x 9 global map, build with K10 acting (the learner plain) and
-    one update acts through K10's group route; the 11 x 11 global map,
-    whose 8 rows alone (27.7 KB each) outgrow a block, is refused by name
-    when the trainer is built."""
+    """One policy per agent on config 4 and on the 8-agent preset, and two
+    groups on the 9 x 9 global map, build with K10 acting (the learner
+    plain) and one update acts through K10's group route; the 11 x 11
+    global map, whose conv tile of 16 samples outgrows a block, is refused
+    by name when the trainer is built."""
     from warehouse_tpu_torch import TrainConfig
     from warehouse_tpu_torch.kernels.act import act_cnn_steps
     from warehouse_tpu_torch.train import make_train

@@ -1,36 +1,40 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's MLP PPO learner phase (K3) from several
-source trees in turns on one GPU, with its device time split by kernel,
-and hash the outputs of the kernels the trees should share bit for bit.
+"""Time the PyTorch/CUDA port's CNN acting kernel (K10) a chunk from
+several source trees in turns on one GPU, with its device time split by
+kernel, and hash the outputs of the kernels the trees should share bit for
+bit.
 
     python tools/torch_ab.py PARENT_TREE . . PARENT_TREE
 
 Each argument is a directory that holds ``chip_smoke.py`` and
 ``warehouse_tpu_torch/``; each runs in a process of its own (the trees'
-packages share a name), which builds that tree's kernels and then, on
-trajectories made by that tree's ``chip_smoke`` (``sgd_inputs``: a K2
-chunk from the trainer's reset, GAE, the per-minibatch normalization):
+packages share a name), which builds that tree's kernels and then, with
+that tree's ``chip_smoke`` helpers (seeded models, resets and draw
+streams):
 
-- times K3 (``ppo_sgd_phase``, the median of 5 phases by CUDA events;
-  4 epochs x 4 minibatches) in five instances: BASELINE config 4 (medium,
-  B = 4096, T = 16, 4 agents, D = 106, hidden 128 x 2) in float32 and with
-  ``matmul_dtype="bfloat16"``, config 4 at hidden 256, the shelves recipe
-  with global observations (D = 611, 2048 envs, masked) and the shelves
-  recipe with the policy groups ``(0, 0, 0, 1, 1, 1)`` (2048 envs), and
-  splits one phase's device time by kernel name with ``torch.profiler``
-  (milliseconds and launches per phase);
-- hashes the outputs of the kernels that no MLP PPO learner change may
-  move: one K5 phase (Adam, and RMSProp), one K6 gradient, two K2 chunks
-  (config 4, and the wide route at hidden 256), one K8 phase (the GRU,
-  float32 and bf16), one K11 phase (float32 and bf16), one K10 chunk
-  (ungrouped, and the groups ``(0, 1, 0, 1)``) and one K7 chunk (the GRU),
-  all at config 4.
+- times K10 (``act.act_cnn_steps``, one chunk of T = 16 steps, the median
+  of 5 chunks by CUDA events after one of warm-up) in seven instances:
+  the 9x9 global view (``medium`` with ``global_obs``, B = 4096, S = 9, D
+  = 411, hidden 128), the same with the policy groups ``(0, 1, 0, 1)``,
+  BASELINE config 4 (the 5x5 window, B = 4096), config 4 with one policy
+  per agent ``(0, 1, 2, 3)``, the shelves recipe (6 agents, masked and
+  shaped from a mid-episode state, B = 4096), the shelves groups recipe
+  ``(0, 0, 0, 1, 1, 1)`` (masked, shaped, B = 2048) and the 8-agent
+  preset with one policy per agent (masked, shaped, B = 4096), and splits
+  one chunk's device time by kernel name with ``torch.profiler``
+  (milliseconds and launches per chunk), and hashes each instance's
+  outputs;
+- hashes the outputs of the kernels that no K10 change may move: two K2
+  chunks (config 4, and the wide route at hidden 256), one K3 phase
+  (float32 and bf16), one K5 phase (Adam), one K6 gradient, one K7 chunk
+  (the GRU), one K8 phase (the GRU, float32) and one K11 phase (float32
+  and bf16), all at config 4.
 
-Each process prints one line ``{"tree": ..., "k3": {case: {"ms": ...,
-"split": {kernel: [ms, launches]}}}, "sha256": {kernel: hex}}``; equal
-hashes are the same bits. This script prints the card's name and power
-limit first. Comparing two trees is only sound inside one run on one card
-(turns: A, B, B, A).
+Each process prints one line ``{"tree": ..., "k10": {instance: {"ms":
+..., "split": {kernel: [ms, launches]}}}, "sha256": {kernel: hex}}``;
+equal hashes are the same bits. This script prints the card's name and
+power limit first. Comparing two trees is only sound inside one run on
+one card (turns: A, B, B, A).
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ import hashlib, json, sys, torch
 sys.path.insert(0, {tree!r})
 import chip_smoke as cs
 from torch.profiler import ProfilerActivity, profile
-from warehouse_tpu_torch import medium_config, shelves_config
+from warehouse_tpu_torch import large_config, medium_config, shelves_config
 from warehouse_tpu_torch.models import make_model
 from warehouse_tpu_torch.optim import make_impala_optimizer
 from warehouse_tpu_torch.kernels import (act_rnn, build, sgd, sgd_cnn,
@@ -54,6 +58,8 @@ dev = torch.device("cuda", 0)
 build.library()
 cfg = medium_config()
 shelves = shelves_config()
+large = large_config()
+medium_g = cfg.replace(global_obs=True)
 
 
 def leaves(x):
@@ -73,17 +79,6 @@ def sha(*trees):
     return h.hexdigest()
 
 
-def phase_args(tcfg, tr, rs, traj, adv_n, targets, ent, *lead):
-    E, M = tcfg.ppo_epochs, tcfg.num_minibatches
-    rows = tr.optimizer.step_rows(rs.opt_state.count, E * M, dev)
-    args = (rs.params, rs.opt_state, traj, adv_n, targets, *lead, *rows, ent,
-            rs.kl_coeff)
-    kw = dict(num_epochs=E, num_minibatches=M, clip_eps=tcfg.clip_eps,
-              value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
-              mask_actions=tcfg.mask_actions)
-    return args, kw
-
-
 def split_of(run):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -97,52 +92,91 @@ def split_of(run):
             and e.device_type.name != "CPU"}}
 
 
-K3_CASES = {{
-    "config4": (cfg, None, None, "float32"),
-    "config4_bf16": (cfg, None, None, "bfloat16"),
-    "hidden256": (cfg, cs.hidden256_tcfg(), None, "float32"),
-    "shelves_global": (shelves.replace(global_obs=True), cs.global_tcfg(),
-                       None, "float32"),
-    "shelves_groups": (shelves, cs.groups_tcfg(), cs.GROUPS, "float32")}}
-k3, out = {{}}, {{}}
-for name, (c, tcfg, groups, dtype) in K3_CASES.items():
-    tcfg, tr, rs, traj, adv_n, targets, ent = cs.sgd_inputs(
-        dev, c, tcfg=tcfg, groups=groups)
-    args, kw = phase_args(tcfg, tr, rs, traj, adv_n, targets, ent)
-    kw["matmul_dtype"] = dtype
-    if groups is not None:
-        kw["policy_groups"] = groups
-    run = lambda: sgd.ppo_sgd_phase(*args, **kw)
-    if name == "config4":
-        out["k3"] = sha(run())
-    run()
-    k3[name] = {{"ms": cs.timed(run, 5), "split": split_of(run)}}
-    del args, kw, traj, adv_n, targets, tr, rs
+def chunk_sha(out):
+    return sha([getattr(out[0], f) for f in cs.STATE_FIELDS] + list(out[1:]))
 
-# K5 (Adam and RMSProp, 1 pass) and K6 on one config-4 IMPALA trajectory.
+
+def k10_inputs(c, B, groups, shaped):
+    # chip_smoke.k2_check's inputs: a reset (with shaping, then one chunk
+    # to a mid-episode state), the chunk's draws and gumbel noise.
+    model = (cs.cnn_model(c, dev) if groups is None
+             else cs.cnn_groups_model(c, groups, dev))
+    state, _ = cs.reset_envs(c, B, cs.SEED + 1, dev)
+    if shaped:
+        state, _ = cs.shaped_start(c, model, state, False, dev, groups)
+    T, A = cs.SLICE_T, c.num_agents
+    _, u, pick, drop, _ = cs.rng.batched_step_draws(state.key, c, T)
+    _, g = cs.rng.batched_gumbel_stream(cs.rng.prng_key(cs.SEED + 2, dev), T,
+                                        (5, B * A))
+    kw = {{}} if groups is None else {{"groups": groups}}
+    if shaped:
+        done = ((state.t[None] + 1 + torch.arange(T, device=dev)[:, None])
+                >= c.max_steps).to(torch.float32)
+        kw["mask"] = torch.empty(T, B, A, 5, dtype=torch.bool, device=dev)
+        kw["shaping"] = cs.act.Shaping(*cs.SHAPING, done,
+                                       torch.empty(T, B, A, device=dev))
+    return (c, model, state, u, pick, drop, g), kw
+
+
+K10_CASES = {{  # instance: (config, B, groups, masked and shaped)
+    "global": (medium_g, cs.CHECK_B, None, False),
+    "global_groups": (medium_g, cs.CHECK_B, cs.CONFIG4_GROUPS, False),
+    "config4": (cfg, cs.CHECK_B, None, False),
+    "config4_per_agent": (cfg, cs.CHECK_B, cs.PER_AGENT, False),
+    "shelves": (shelves, cs.CHECK_B, None, True),
+    "shelves_groups": (shelves, cs.GROUPS_B, cs.GROUPS, True),
+    "large_per_agent": (large, cs.CHECK_B,
+                        tuple(range(large.num_agents)), True)}}
+k10, out = {{}}, {{}}
+for name, (c, B, groups, shaped) in K10_CASES.items():
+    args, kw = k10_inputs(c, B, groups, shaped)
+    run = lambda: cs.act.act_cnn_steps(*args, **kw)
+    res = run()
+    out["k10_" + name] = chunk_sha(res) if not shaped else sha(
+        [getattr(res[0], f) for f in cs.STATE_FIELDS] + list(res[1:])
+        + [kw["mask"], kw["shaping"].raw_reward])
+    k10[name] = {{"ms": cs.timed(run, 5), "split": split_of(run)}}
+    del args, kw, res
+
+
+def phase_args(tcfg, tr, rs, traj, adv_n, targets, ent, *lead):
+    E, M = tcfg.ppo_epochs, tcfg.num_minibatches
+    rows = tr.optimizer.step_rows(rs.opt_state.count, E * M, dev)
+    args = (rs.params, rs.opt_state, traj, adv_n, targets, *lead, *rows, ent,
+            rs.kl_coeff)
+    kw = dict(num_epochs=E, num_minibatches=M, clip_eps=tcfg.clip_eps,
+              value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
+              mask_actions=tcfg.mask_actions)
+    return args, kw
+
+
+# K3: one config-4 phase, float32 and bf16.
+args, kw = phase_args(*cs.sgd_inputs(dev, cfg))
+for dtype in ("float32", "bfloat16"):
+    out["k3_" + dtype] = sha(sgd.ppo_sgd_phase(
+        *args, **dict(kw, matmul_dtype=dtype)))
+del args, kw
+
+# K5 (Adam, 1 pass) and K6 on one config-4 IMPALA trajectory.
 tcfg, params, traj, last_obs, vkw = cs.impala_inputs(dev, cfg)
 M = tcfg.num_minibatches
-for use_rms in (False, True):
-    tc = tcfg.replace(impala_rmsprop=use_rms, impala_passes=1)
-    optimizer = make_impala_optimizer(tc)
-    opt = optimizer.init(params)
-    rows = optimizer.step_rows(opt.count, M, dev)
-    out["k5_" + ("rmsprop" if use_rms else "adam")] = sha(
-        vtrace_sgd.impala_sgd_phase(
-            params, opt, traj, last_obs, rows, tc.entropy_coef, num_passes=1,
-            num_minibatches=M, max_grad_norm=tc.max_grad_norm, **vkw))
+tc = tcfg.replace(impala_rmsprop=False, impala_passes=1)
+optimizer = make_impala_optimizer(tc)
+opt = optimizer.init(params)
+rows = optimizer.step_rows(opt.count, M, dev)
+out["k5_adam"] = sha(vtrace_sgd.impala_sgd_phase(
+    params, opt, traj, last_obs, rows, tc.entropy_coef, num_passes=1,
+    num_minibatches=M, max_grad_norm=tc.max_grad_norm, **vkw))
 out["k6"] = sha(vtrace_sgd.impala_minibatch_grads(
     params, traj, last_obs, 1, tcfg.entropy_coef, num_minibatches=M, **vkw))
 del params, traj, last_obs
 
-# K8: one GRU phase, float32 and bf16.
-for dtype in ("float32", "bfloat16"):
-    tcfg, tr, rs, traj, adv_n, targets, h0, ent = cs.rnn_inputs(
-        dev, cfg, "gru", dtype == "bfloat16")
-    args, kw = phase_args(tcfg, tr, rs, traj, adv_n, targets, ent, h0)
-    kw.update(mask_actions=False, matmul_dtype=dtype)
-    out["k8_" + dtype] = sha(sgd_rnn.ppo_rnn_sgd_phase(*args, **kw))
-    del args, kw, traj, adv_n, targets, h0, tr, rs
+# K8: one GRU phase, float32.
+tcfg, tr, rs, traj, adv_n, targets, h0, ent = cs.rnn_inputs(dev, cfg, "gru")
+args, kw = phase_args(tcfg, tr, rs, traj, adv_n, targets, ent, h0)
+kw.update(mask_actions=False, matmul_dtype="float32")
+out["k8_float32"] = sha(sgd_rnn.ppo_rnn_sgd_phase(*args, **kw))
+del args, kw, traj, adv_n, targets, h0, tr, rs
 
 # K11: one phase, float32 and bf16.
 args, kw = phase_args(*cs.sgd_inputs(dev, cfg, "cnn", cs.CNN_SCHEDULE))
@@ -160,10 +194,6 @@ def draws(c, B):
     return state, u, pick, drop, g
 
 
-def chunk_sha(out):
-    return sha([getattr(out[0], f) for f in cs.STATE_FIELDS] + list(out[1:]))
-
-
 def mlp(hidden):
     return make_model(cfg, hidden_dim=hidden, num_layers=cs.HIDDEN[1],
                       generator=torch.Generator().manual_seed(cs.SEED),
@@ -173,11 +203,6 @@ def mlp(hidden):
 for name, hidden in (("k2", cs.HIDDEN[0]), ("k2_wide", cs.WIDE_HIDDEN)):
     out[name] = chunk_sha(cs.act.act_steps(cfg, mlp(hidden),
                                            *draws(cfg, cs.CHECK_B)))
-out["k10"] = chunk_sha(cs.act.act_cnn_steps(cfg, cs.cnn_model(cfg, dev),
-                                            *draws(cfg, cs.CHECK_B)))
-out["k10_groups"] = chunk_sha(cs.act.act_cnn_steps(
-    cfg, cs.cnn_groups_model(cfg, cs.CONFIG4_GROUPS, dev),
-    *draws(cfg, cs.CHECK_B), groups=cs.CONFIG4_GROUPS))
 model = make_model(cfg, "gru", cs.HIDDEN[0], cs.HIDDEN[1],
                    torch.Generator().manual_seed(cs.SEED), dev)
 params = {{k: v.detach() for k, v in model.state_dict().items()}}
@@ -187,7 +212,7 @@ carry = (0.5 * torch.randn(cs.CHECK_B, cfg.num_agents, cs.HIDDEN[0],
                                cs.SEED + 9))).to(dev)
 out["k7"] = chunk_sha(act_rnn.act_rnn_steps(cfg, params, state, carry, u,
                                             pick, drop, g))
-print(json.dumps({{"tree": {tree!r}, "k3": k3, "sha256": out}}))
+print(json.dumps({{"tree": {tree!r}, "k10": k10, "sha256": out}}))
 """
 
 

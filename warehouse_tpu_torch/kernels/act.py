@@ -45,9 +45,9 @@ through its group's weights only (``pallas/act.py:1062-1076``, the
 trace-time selection of ``_act_kernel`` :325, :336-338, :409): the kernels
 pack the groups' weights one after another in group order. K2 orders a
 block's rows agent by agent, so that every register tile of its dense
-layers is one agent's, and so one group's; K10 runs one pass per group
-each step over that group's rows, padded with zero rows to a multiple of
-8, beside that group's conv kernels alone. The attention torso raises
+layers is one agent's, and so one group's; K10 orders each step's rows
+group by group (``act_cnn_rows``), so that every tile of its stage
+kernels is one group's. The attention torso raises
 ``NotImplementedError``. The recurrent policies act through
 ``kernels.act_rnn.ppo_rnn_rollout``.
 
@@ -57,6 +57,17 @@ OC, IC]`` (row ``k OC + oc``, the packed layout of
 ``pallas/sgd_cnn.py`` ``flat_cnn_tensors``), its bias, the trunk ``[H,
 in]`` and bias, the head as the 6 x H stack of the logits and value rows
 and its 6 biases.
+
+K10 runs each step as three stage kernels over all of the step's ``N = B
+A`` rows (``csrc/act_cnn.cu``): ``conv`` (both convolutions: the trunk's
+input rows ``a1``), ``trunk`` (the trunk and the fused head: 5 logits and
+the value a row) and ``env`` (mask, sample, tick, rewards, the next
+observation). ``ACT_CNN_STAGES`` names them, ``act_conv_plain``,
+``act_trunk_plain`` and ``act_env_plain`` are their plain versions,
+``act_cnn_steps_staged`` composes the three into
+``act_steps_reference``'s contract, and ``act_cnn_stage`` runs one stage's
+kernel on given rows (its plain version on a CPU tensor), for the stages'
+checks on the card.
 """
 
 from __future__ import annotations
@@ -132,24 +143,60 @@ def act_steps_reference(cfg: EnvConfig, model, state: EnvState, u, pick,
             lg, value = apply(params, obs, gids)
             if logits is not None:
                 logits[t] = lg
-            if mask is not None:
-                mask[t] = valid_action_mask(cfg, state.agent_pos)
-                lg = torch.where(mask[t], lg, NEG_INF)
-            action, lp = sample_action_with_gumbel(lg, g[t])
-            if shaping is not None:
-                phi_pre = potential(cfg, state)
-            state, picked, delivered, collided = engine.tick(
-                cfg, state, action, u[t], pick[t], drop[t])
-            reward = engine.rewards(cfg, picked, delivered, collided)
-            if shaping is not None:
-                shaping.raw_reward[t] = reward
-                term = f32(shaping.gamma) * potential(cfg, state)
-                term = term * (1.0 - shaping.done[t])[:, None]
-                term = term - phi_pre
-                reward = reward + f32(shaping.coef) * term
-            outs.append((obs, action, lp, value, reward,
-                         delivered.sum(-1, dtype=torch.int32)))
+            out = env_step_plain(cfg, state, lg, u[t], pick[t], drop[t], g[t],
+                                 mask is not None, _step_shaping(shaping, t))
+            _keep_step(out, t, mask, shaping)
+            state = out["state"]
+            outs.append((obs, out["action"], out["log_prob"], value,
+                         out["reward"], out["delivered"]))
     return (state, *(torch.stack(x) for x in zip(*outs)))
+
+
+def env_step_plain(cfg: EnvConfig, state: EnvState, logits, u, pick, drop,
+                   g, mask_on: bool = False, shaping=None) -> dict:
+    """One plain env step on the policy's ``logits [B, A, 5]``: with
+    ``mask_on`` the invalid moves' logits floored to -1e9; the
+    gumbel-argmax sample on ``g [5, B A]`` and its log-softmax; the tick
+    on the draws ``u``, ``pick``, ``drop`` ``[B]``; the rewards (with
+    ``shaping``, a ``(coef, gamma, done [B])``, the shaped ones: three
+    rounded float32 operations in the JAX kernel's order, then one product
+    and one sum). Returns ``state``, ``action``, ``log_prob``, ``reward``,
+    ``raw_reward`` (the unshaped), ``delivered`` (per env) and ``mask``
+    (None without ``mask_on``) by name."""
+    mask = valid_action_mask(cfg, state.agent_pos) if mask_on else None
+    if mask_on:
+        logits = torch.where(mask, logits, NEG_INF)
+    action, lp = sample_action_with_gumbel(logits, g)
+    if shaping is not None:
+        phi_pre = potential(cfg, state)
+    new, picked, delivered, collided = engine.tick(cfg, state, action, u,
+                                                   pick, drop)
+    raw = reward = engine.rewards(cfg, picked, delivered, collided)
+    if shaping is not None:
+        coef, gamma, done = shaping
+        term = f32(gamma) * potential(cfg, new)
+        term = term * (1.0 - done)[:, None]
+        term = term - phi_pre
+        reward = reward + f32(coef) * term
+    return {"state": new, "action": action, "log_prob": lp,
+            "reward": reward, "raw_reward": raw,
+            "delivered": delivered.sum(-1, dtype=torch.int32), "mask": mask}
+
+
+def _step_shaping(shaping, t: int):
+    """Step t's ``(coef, gamma, done)`` of a chunk's ``Shaping`` (or
+    None)."""
+    return None if shaping is None else (shaping.coef, shaping.gamma,
+                                         shaping.done[t])
+
+
+def _keep_step(out: dict, t: int, mask, shaping) -> None:
+    """Writes step t's mask and unshaped reward into the chunk's buffers,
+    where the caller gave them."""
+    if mask is not None:
+        mask[t] = out["mask"]
+    if shaping is not None:
+        shaping.raw_reward[t] = out["raw_reward"]
 
 
 def packed_weights(model, device) -> tuple[torch.Tensor, list[int]]:
@@ -296,13 +343,12 @@ def _cnn_fits(cfg: EnvConfig, model, dev, groups=None):
         cfg.num_agents, cfg.queue_capacity, *net, k, gmap)
     limit = build.smem_limit(dev, smem)
     if not 0 < smem <= limit:
-        rows = ("one env's rows of a group, padded to a multiple of 8, "
-                "beside one group's conv kernels" if groups is not None
-                else "whole envs making a multiple of 8 rows")
         raise ValueError(
             f"CNN act kernel needs {smem} bytes of shared memory per block "
             f"for (S, channels, hidden) = {net} with {cfg.num_agents} agents "
-            f"and policy_groups={groups} ({rows}); the card allows {limit}")
+            f"and policy_groups={groups} (a conv tile of 16 samples beside "
+            f"the conv kernels, as the CNN learner's); the card allows "
+            f"{limit}")
     return net
 
 
@@ -408,7 +454,7 @@ class _KernelIO:
                 self.reward, self.delivered)
 
 
-# ---- K10: the CNN arm ---------------------------------------------------------
+# ---- K10: the CNN arm -------------------------------------------------------
 
 def cnn_layout(params) -> list[str]:
     """The keys of a CNN params dict in the packed vector's order."""
@@ -462,41 +508,266 @@ def act_cnn_steps(cfg: EnvConfig, model, state: EnvState, u, pick, drop, g,
                   logits=None, mask=None, shaping=None, groups=None):
     """T acting steps of the CNN policy (with ``groups``, a
     ``MultiPolicyActorCritic`` of CNNs) on precomputed draws and gumbel
-    noise: the CUDA kernel (K10) for CUDA tensors, the plain twin for CPU
-    tensors. Same arguments and returns as ``act_steps_reference``."""
+    noise: the CUDA kernels (K10: three stage kernels a step) for CUDA
+    tensors, the plain twin for CPU tensors. Same arguments and returns as
+    ``act_steps_reference``."""
     dev = state.agent_pos.device
     if dev.type == "cpu":
         return act_steps_reference(cfg, model, state, u, pick, drop, g,
                                    logits, mask, shaping, groups)
     if dev.type != "cuda":
         raise ValueError(f"act_cnn_steps: unsupported device {dev}")
-    net = _cnn_fits(cfg, model, dev, groups)
-    subs = _group_models(model, groups)
-    lib = build.library()
-    weights = torch.cat([pack_cnn(dict(m.named_parameters()))
-                         for m in subs]).to(dev)
-    if weights.numel() != len(subs) * lib.wh_cnn_param_floats(*net):
-        raise ValueError("packed params do not fit the kernel's layout")
-    trunk_t = torch.empty(
-        len(subs) * subs[0].trunk.weight.numel(), dtype=torch.float32,
-        device=dev)
-    io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask, shaping)
-    err = lib.wh_act_cnn_rollout(
-        *io.env_args(cfg), *net[1:], *_cnn_group_args(cfg, groups),
-        io.walls.data_ptr(), weights.data_ptr(), trunk_t.data_ptr(),
-        *io.tensor_ptrs(), build.stream_handle(dev))
-    build.check(err, "ppo_rollout (cnn) kernel launch")
+    run = ActCnnLaunch(cfg, model, state, u, pick, drop, g, logits, mask,
+                       shaping, groups)
+    run.launch(None)
     act_cnn_steps.launches += 1
     act_cnn_steps.shaped_launches += shaping is not None
     act_cnn_steps.global_launches += cfg.global_obs
     act_cnn_steps.group_launches += groups is not None
-    return io.results(state)
+    act_cnn_steps.stage_launches += 3 * u.shape[0] + 2
+    return run.io.results(state)
 
 
 act_cnn_steps.launches = 0
 act_cnn_steps.shaped_launches = 0
 act_cnn_steps.global_launches = 0
 act_cnn_steps.group_launches = 0  # those that routed rows by policy group
+# The stage kernels those launches ran: 3 a step (conv, trunk, env), the
+# trunk's prep and the first observation.
+act_cnn_steps.stage_launches = 0
+
+
+class ActCnnLaunch:
+    """One K10 call on the card: the checked inputs and outputs
+    (``_KernelIO``), the packed weights and the workspace (the trunk's
+    padded kernels, the rows ``a1 [N, KT]`` and ``head [N, 8]``, the env
+    states), and its C arguments."""
+
+    def __init__(self, cfg, model, state, u, pick, drop, g, logits=None,
+                 mask=None, shaping=None, groups=None):
+        dev = state.agent_pos.device
+        self.net = _cnn_fits(cfg, model, dev, groups)
+        subs = _group_models(model, groups)
+        self.lib = build.library()
+        self.weights = torch.cat([pack_cnn(dict(m.named_parameters()))
+                                  for m in subs]).to(dev)
+        if self.weights.numel() != len(subs) * self.lib.wh_cnn_param_floats(
+                *self.net):
+            raise ValueError("packed params do not fit the kernel's layout")
+        self.io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask,
+                            shaping)
+        self.k, self.gmap = _cnn_group_args(cfg, groups)
+        self.shape = (cfg.num_agents, cfg.queue_capacity, self.io.B,
+                      *self.net, self.k)
+        self.work = torch.empty(
+            self.lib.wh_act_cnn_workspace_floats(*self.shape),
+            dtype=torch.float32, device=dev)
+        self.args = [*self.io.env_args(cfg), *self.net[1:], self.k,
+                     self.gmap, self.io.walls.data_ptr(),
+                     self.weights.data_ptr(), self.work.data_ptr(),
+                     *self.io.tensor_ptrs()]
+        self.stream = build.stream_handle(dev)
+
+    def rows(self) -> dict:
+        """The workspace's step rows, as views: ``a1 [N, KT]`` (the
+        trunk's input padded with zeros to KT) and ``head [N, 8]``."""
+        out = (build.L * 6)()
+        build.check(self.lib.wh_act_cnn_layout(*self.shape, out),
+                    "wh_act_cnn_layout")
+        n, kt = self.io.B * self.shape[0], out[4]
+        return {"a1": self.work[out[1]:out[1] + n * kt].view(n, kt),
+                "head": self.work[out[2]:out[2] + n * 8].view(n, 8)}
+
+    def fill(self, stage: str, inputs: dict):
+        """Writes a stage's input rows (``act_cnn_stage``'s names,
+        unpadded) where its kernel reads them, padding with zeros; returns
+        the env stage's buffer for the next observation rows (else None)."""
+        if stage == "conv":
+            self.io.obs[0].copy_(inputs["obs"])
+            return None
+        views = self.rows()
+        key = "a1" if stage == "trunk" else "head"
+        views[key].zero_()
+        views[key][:, :inputs[key].shape[1]] = inputs[key]
+        return torch.empty_like(self.io.obs[0]) if stage == "env" else None
+
+    def outputs(self, stage: str, state, obs_next) -> dict:
+        """A stage's outputs after its launch, as ``act_cnn_stage`` names
+        them."""
+        if stage != "env":
+            S, _, _, C2, _ = self.net
+            views = self.rows()
+            return ({"a1": views["a1"][:, :S * S * C2 + 6].clone()}
+                    if stage == "conv" else
+                    {"head": views["head"][:, :6].clone()})
+        new, _, action, lp, value, reward, delivered = self.io.results(state)
+        sh, mask = self.io.shaping, self.io.mask
+        return {"state": new, "action": action[0], "log_prob": lp[0],
+                "value": value[0], "reward": reward[0],
+                "raw_reward": reward[0] if sh is None else sh.raw_reward[0],
+                "delivered": delivered[0], "logits": self.io.logits[0],
+                "mask": None if mask is None else mask[0], "obs": obs_next}
+
+    def launch(self, stage, obs_next=None) -> None:
+        """The whole chunk (``stage`` None), or one of ``ACT_CNN_STAGES``
+        of its step 0 on the rows the workspace and ``io.obs[0]`` hold; the
+        env stage writes the next observation rows into ``obs_next``."""
+        if stage is None:
+            err = self.lib.wh_act_cnn_rollout(*self.args, self.stream)
+            build.check(err, "ppo_rollout (cnn) kernel launch")
+            return
+        err = self.lib.wh_act_cnn_stage(
+            ACT_CNN_STAGES.index(stage), *self.args,
+            None if obs_next is None else obs_next.data_ptr(), self.stream)
+        build.check(err, f"K10 stage {stage} launch")
+
+
+# ---- K10's stages, plain ----------------------------------------------------
+
+ACT_CNN_STAGES = ("conv", "trunk", "env")
+
+
+def act_cnn_rows(cfg: EnvConfig, B: int, groups=None) -> torch.Tensor:
+    """The stages' row order: row q's ``b A + a``. Group 0's (env, agent)
+    pairs env by env, each env's in agent order, then group 1's, and so
+    on; without groups ``b A + a`` itself."""
+    A = cfg.num_agents
+    gids = (0,) * A if groups is None else tuple(groups)
+    envs = torch.arange(B)[:, None] * A
+    return torch.cat([(envs + torch.tensor(
+        [a for a in range(A) if gids[a] == k])[None, :]).reshape(-1)
+        for k in range(max(gids) + 1)])
+
+
+def act_cnn_row_groups(cfg: EnvConfig, order, groups=None) -> torch.Tensor:
+    """Each row's group, for rows in ``order`` (``act_cnn_rows``)."""
+    gids = torch.tensor((0,) * cfg.num_agents if groups is None else groups)
+    return gids[order % cfg.num_agents]
+
+
+def cnn_group_params(model, groups=None) -> list:
+    """The params dict of each group's CNN, in group order (``[model]``'s
+    without groups)."""
+    return [dict(m.named_parameters()) for m in _group_models(model, groups)]
+
+
+def act_conv_plain(params: list, rows, row_group):
+    """Stage ``conv``: the trunk's input rows ``a1 [N, S² C2 + 6]`` of the
+    observation rows ``rows [N, D]``, each row through its group's
+    convolutions (``params``: one CNN params dict a group; ``row_group
+    [N]``); relu after each conv, the self features after the channel-last
+    grid."""
+    # The CNN learner's conv-forward stage computes the same rows.
+    from .sgd_cnn import conv_forward_plain
+
+    S, (_, _, C2), _ = cnn_dims(params[0])
+    out = rows.new_empty(rows.shape[0], S * S * C2 + 6)
+    for k, p in enumerate(params):
+        sel = row_group.to(rows.device) == k
+        out[sel] = conv_forward_plain(p, rows[sel])[1]
+    return out
+
+
+def act_trunk_plain(params: list, a1, row_group):
+    """Stage ``trunk``: ``head [N, 6]``, the 5 logits and the value of
+    ``tanh(a1 Wt^T + bt)``, each row through its group's trunk and head."""
+    out = a1.new_empty(a1.shape[0], 6)
+    for k, p in enumerate(params):
+        sel = row_group.to(a1.device) == k
+        h = torch.tanh(a1[sel] @ p["trunk.weight"].T + p["trunk.bias"])
+        wh = torch.cat([p["logits.weight"], p["value.weight"]])
+        out[sel] = h @ wh.T + torch.cat([p["logits.bias"], p["value.bias"]])
+    return out
+
+
+def act_env_plain(cfg: EnvConfig, state: EnvState, head, order, u, pick,
+                  drop, g, mask_on: bool = False, shaping=None) -> dict:
+    """Stage ``env`` of one step: the head rows ``head [N, 6]`` (in
+    ``order``) as each (env, agent)'s logits and value, then
+    ``env_step_plain`` on them (``mask_on``, ``shaping`` as there) and
+    the next observation rows. Returns ``env_step_plain``'s outputs and
+    ``value``, ``logits`` (before the mask) and ``obs`` by name."""
+    B, A = state.agent_pos.shape[:2]
+    by_pair = head.new_empty(B * A, 6)
+    by_pair[order.to(head.device)] = head
+    by_pair = by_pair.view(B, A, 6)
+    logits, value = by_pair[..., :5], by_pair[..., 5]
+    out = env_step_plain(cfg, state, logits, u, pick, drop, g, mask_on,
+                         shaping)
+    return {**out, "value": value, "logits": logits,
+            "obs": engine.observe_state(cfg, out["state"])}
+
+
+def act_cnn_steps_staged(cfg: EnvConfig, model, state: EnvState, u, pick,
+                         drop, g, logits=None, mask=None, shaping=None,
+                         groups=None):
+    """The three plain stages composed, step by step, on the rows in the
+    kernels' order: ``act_steps_reference``'s arguments and returns."""
+    params = cnn_group_params(model, groups)
+    B = state.agent_pos.shape[0]
+    order = act_cnn_rows(cfg, B, groups)
+    row_group = act_cnn_row_groups(cfg, order, groups)
+    obs, outs = engine.observe_state(cfg, state), []
+    with torch.no_grad():
+        for t in range(u.shape[0]):
+            rows = obs.reshape(B * cfg.num_agents, -1)[order.to(obs.device)]
+            head = act_trunk_plain(params,
+                                   act_conv_plain(params, rows, row_group),
+                                   row_group)
+            out = act_env_plain(cfg, state, head, order, u[t], pick[t],
+                                drop[t], g[t], mask is not None,
+                                _step_shaping(shaping, t))
+            if logits is not None:
+                logits[t] = out["logits"]
+            _keep_step(out, t, mask, shaping)
+            outs.append((obs, out["action"], out["log_prob"], out["value"],
+                         out["reward"], out["delivered"]))
+            state, obs = out["state"], out["obs"]
+    return (state, *(torch.stack(x) for x in zip(*outs)))
+
+
+def act_cnn_stage(stage: str, cfg: EnvConfig, model, state: EnvState,
+                  inputs: dict, u, pick, drop, g, mask_on: bool = False,
+                  shaping=None, groups=None) -> dict:
+    """One of ``ACT_CNN_STAGES`` of one step, on the rows ``inputs`` (in
+    ``act_cnn_rows``' order): ``conv`` takes ``obs [B, A, D]`` and gives
+    ``a1``; ``trunk`` takes ``a1`` and gives ``head [N, 6]``; ``env``
+    takes ``head`` and the step's state and draws (``u``, ``pick``,
+    ``drop`` ``[1, B]``, ``g [1, 5, B A]``; ``shaping`` a ``Shaping`` of
+    one step) and gives ``act_env_plain``'s outputs. The stage's kernel on
+    CUDA tensors, its plain version on CPU ones; ``launches`` counts the
+    kernel launches."""
+    if stage not in ACT_CNN_STAGES:
+        raise ValueError(f"stage must be one of {ACT_CNN_STAGES}, "
+                         f"got {stage!r}")
+    dev = state.agent_pos.device
+    B, A = state.agent_pos.shape[:2]
+    if dev.type == "cpu":
+        params = cnn_group_params(model, groups)
+        order = act_cnn_rows(cfg, B, groups)
+        row_group = act_cnn_row_groups(cfg, order, groups)
+        with torch.no_grad():
+            if stage == "conv":
+                rows = inputs["obs"].reshape(B * A, -1)[order]
+                return {"a1": act_conv_plain(params, rows, row_group)}
+            if stage == "trunk":
+                return {"head": act_trunk_plain(params, inputs["a1"],
+                                                row_group)}
+            return act_env_plain(cfg, state, inputs["head"], order, u[0],
+                                 pick[0], drop[0], g[0], mask_on,
+                                 _step_shaping(shaping, 0))
+    logits = torch.empty(1, B, A, 5, device=dev)
+    mask = (torch.empty(1, B, A, 5, dtype=torch.bool, device=dev)
+            if mask_on else None)
+    run = ActCnnLaunch(cfg, model, state, u, pick, drop, g, logits, mask,
+                       shaping, groups)
+    obs_next = run.fill(stage, inputs)
+    run.launch(stage, obs_next)
+    act_cnn_stage.launches += 1
+    return run.outputs(stage, state, obs_next)
+
+
+act_cnn_stage.launches = 0
 
 
 def _check_options(cfg, model, policy_groups, arch):

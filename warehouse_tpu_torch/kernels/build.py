@@ -68,8 +68,12 @@ SIGNATURES = {
                             + [P] * 2,
     "wh_cnn_param_floats": [I] * 5,
     "wh_act_cnn_smem_bytes": [I] * 8 + [IP],
+    "wh_act_cnn_workspace_floats": [I, I, L] + [I] * 6,
+    "wh_act_cnn_layout": [I, I, L] + [I] * 6 + [LP],
     "wh_act_cnn_rollout": [I, I, L, I, I, I, F, I, I, I, I, F, F, F, F, F, F,
                            I, I, I, I, I, IP] + [P] * 32 + [F, F, P],
+    "wh_act_cnn_stage": [I, I, I, L, I, I, I, F, I, I, I, I, F, F, F, F, F, F,
+                         I, I, I, I, I, IP] + [P] * 32 + [F, F, P, P],
     "wh_cnn_sgd_smem_bytes": [I] * 5,
     "wh_cnn_sgd_small_tile": [I] * 5,
     "wh_cnn_sgd_workspace_floats": [I] * 6 + [L, I, I],
@@ -87,7 +91,8 @@ RESTYPES = {"wh_act_smem_bytes": L, "wh_error_string": ctypes.c_char_p,
             "wh_vtrace_workspace_floats": L, "wh_rnn_param_floats": L,
             "wh_act_rnn_smem_bytes": L, "wh_rnn_sgd_smem_bytes": L,
             "wh_rnn_sgd_workspace_floats": L, "wh_cnn_param_floats": L,
-            "wh_act_cnn_smem_bytes": L, "wh_cnn_sgd_smem_bytes": L,
+            "wh_act_cnn_smem_bytes": L, "wh_act_cnn_workspace_floats": L,
+            "wh_cnn_sgd_smem_bytes": L,
             "wh_cnn_sgd_workspace_floats": L}
 
 
