@@ -8,7 +8,8 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    PyTorch twin, bit for bit, on the medium and shelves configs
    (B = 4096, T = 128), then at B = 131072 on one draw stream, and times
    both there;
-2. ``k2_check``: holds the act-phase kernel (K2) against the plain engine
+2. ``k2_check``: holds the act-phase kernel (K2: stage kernels a step
+   over all of its rows) against the plain engine
    replaying its actions (obs, rewards, deliveries, final state bit-equal)
    and against the plain MLP (logits, values, log-probs within 1e-4), at
    B = 4096, T = 16, hidden 128 x 2, and times it beside its twin; then
@@ -134,12 +135,12 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    widths it brings, with the checks of ``k2_check`` / ``k3_check`` /
    ``k4_check`` / ``k5_check``: K2 on shelves with the global view (D = 611,
    masked and shaped, B = 2048, the recipe's shapes) and on medium (D =
-   411, B = 4096), each counted on K2's wide route; K10 on medium (the 9x9
+   411, B = 4096), each counted on K2's stage kernels; K10 on medium (the 9x9
    map as the CNN's grid, 5 channels); K3 / K4 at D = 611 on a trajectory
    of the recipe; K11 / K12 at S = 9 and ``cnn_stage_check`` there (full
    and ragged); and, at config 4 with hidden 256 (the
-   ``hidden256_train`` path's shapes): K2 on its wide route
-   (``wide_check``), K3 / K4 and K5; and ``act_cnn_stage_check``: K10's
+   ``hidden256_train`` path's shapes): K2 (``hidden256_check``), K3 / K4
+   and K5; and ``act_cnn_stage_check``: K10's
    three stage kernels (``conv``: both convolutions; ``trunk``: the trunk
    and the head; ``env``: sample, tick, next observation), each against
    its plain stage (``kernels.act``) on one step's rows, at config 4 (B =
@@ -147,12 +148,16 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    1, 0, 1)``) and on the shelves groups recipe (masked, shaped, B = 2048):
    the rows within STAGE_TOL, the env stage's log-probs within TOL and its
    other outputs bit-equal, each stage timed by CUDA events beside its
-   plain stage and its bound;
+   plain stage and its bound; and ``act_mlp_stage_check``: K2's three
+   stage kernels (``hidden``: the first hidden layer; ``head``: the last
+   hidden layer and the head; ``env``, K10's), the same checks at config 4,
+   on a ragged B = 1001, at hidden 256, on the shelves global recipe (D =
+   611, masked, shaped, B = 2048) and on the shelves groups recipe;
 21. ``shelves_global_train`` (main path): the full shelves recipe with
    ``--global-obs`` as the train CLI builds it (2048 envs, T = 16, MLP 611
    -> 128 -> 128 -> 6, the 300-update schedule of the JAX run
    ``runs/r3_curves/shelves_global_fused.jsonl``), its first 100 updates
-   through ``train_step`` (global, masked, shaped K2 on its wide route +
+   through ``train_step`` (global, masked, shaped K2 +
    K3/K4 with the first layer in chunks), a learning check on deliveries per env-step over updates 91-100,
    a checkpoint at 100; ``evaluate``'s ``checkpoint`` policy on 256
    episodes (masked argmax, and sampled) against ``greedy_bfs``, and
@@ -162,20 +167,20 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    --global-obs`` (K10 on the 9x9 map + K11/K12), finite metrics, moved
    params, the first update's metrics beside the plain path's;
 23. ``hidden256_train`` (main path): 3 config-4 updates at ``--hidden-dim
-   256`` (K2 on its wide route, K3/K4), the first update's metrics beside
+   256`` (K2, K3/K4), the first update's metrics beside
    the plain path's;
 24. ``groups_check``: the policy-groups option of K2 and K3/K4, with the
    checks of ``k2_check`` / ``k3_check`` / ``k4_check`` against the plain
    multi-policy model: K2 at config 4 with the interleaved groups ``(0, 1,
    0, 1)`` and on shelves with ``(0, 0, 0, 1, 1, 1)``, masked and shaped,
-   at B = 2048 (the recipe's shapes), each counted on the group route; K3 /
+   at B = 2048 (the recipe's shapes), each counted as grouped; K3 /
    K4 on a trajectory of that recipe;
 25. ``shelves_groups_train`` (main path): the walled recipe with
    ``--policy-groups 0,0,0,1,1,1`` as the train CLI builds it (2048 envs,
    T = 16, two MLPs 106 -> 128 -> 128 -> 6, the 300-update schedule of the
    JAX run ``runs/r5_curves/shelves_groups_fused.jsonl``), the first update
    held against the plain path's, then its first 100 updates through
-   ``train_step`` (grouped, masked, shaped K2 on its wide route + grouped
+   ``train_step`` (grouped, masked, shaped K2 + grouped
    K3/K4), a learning check on deliveries per env-step over updates 91-100,
    a checkpoint at 100 whose ``serve.Policy.from_checkpoint`` gives the
    trained model's argmax actions; the curve goes to
@@ -340,7 +345,7 @@ GLOBAL_UPDATES = 100    # updates of its 300-update schedule that run here
 GLOBAL_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 91-100
 GLOBAL_METRICS_OUT = "runs/torch_shelves_global/metrics.jsonl"
 CNN_GLOBAL_UPDATES = 10  # updates of the cnn_global_train phase
-WIDE_HIDDEN = 256       # a hidden width whose weights are not staged
+WIDE_HIDDEN = 256       # the hidden256_train path's hidden width
 WIDE_UPDATES = 3        # updates of the hidden256_train phase
 CONFIG4_GROUPS = (0, 1, 0, 1)  # interleaved groups on config 4's 4 agents
 GROUPS = (0, 0, 0, 1, 1, 1)    # the shelves agents' two policy groups
@@ -628,9 +633,29 @@ def shaped_start(cfg, model, state, truncating, dev, groups=None):
     return new, observe_batch(cfg, new)
 
 
+def k2_stage_bytes(cfg, layers, model, groups, B, T) -> float:
+    """Bytes K2's stage kernels move through device memory in a chunk of T
+    steps: each step's observation rows (the obs output and the zero-padded
+    copy the first layer reads, its width rounded up to 32), each hidden
+    stage's input rows read and output rows written, the head stage's
+    input rows read and head rows [N, 8] written, the env stage's head rows
+    read, its outputs written (action, log-prob, value, reward, logits,
+    mask) and the env states read and written; float32 and int32 at 4
+    bytes, the mask at 1."""
+    A, N = cfg.num_agents, B * cfg.num_agents
+    first = act.group_models(model, groups)[0]
+    dims = [cfg.obs_dim] + [lin.out_features for lin in first.hidden]
+    ld = [-(-d // 32) * 32 for d in dims]
+    rows = N * (dims[0] + ld[0])
+    rows += sum(N * (ld[i] + ld[i + 1]) for i in range(max(layers - 1, 0)))
+    rows += N * (ld[max(layers - 1, 0)] + 8) + N * (8 + 4 + 5)
+    states = 2 * B * (4 * A + 6 * cfg.queue_capacity)
+    return float(T * (4 * (rows + states) + N * 5))
+
+
 def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
-             truncating=False, B=CHECK_B, phase=None, wide=False,
-             groups=None, rerun=False):
+             truncating=False, B=CHECK_B, phase=None, groups=None,
+             rerun=False):
     """K2 (or, for a CNN model, K10) against the plain engine replaying
     its actions and the plain model on its observations, then timed beside
     its twin; with ``mask_actions`` also its mask against
@@ -639,11 +664,10 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
     episode): the shaped reward against the formula on the replayed
     states' potentials, the raw reward against the engine's, everything
     against the twin where it samples the same actions, and the launch
-    counts. With ``cfg.global_obs`` the same checks hold the kernel's
+    counts: the count of stage kernels must move by the chunk's stage
+    launches. With ``cfg.global_obs`` the same checks hold the kernel's
     global view to the plain engine's, and the count of global launches
-    must move; with ``wide`` (an MLP whose shape K2's staged route cannot
-    hold) so must the count of launches on the wide route, else it must
-    not. With ``groups`` the model is a ``MultiPolicyActorCritic`` held to
+    must move. With ``groups`` the model is a ``MultiPolicyActorCritic`` held to
     the plain multi-policy model (of MLPs: K2; of CNNs: K10), and the count
     of grouped launches must move. With ``rerun`` a second launch on the
     same inputs must give the same bits."""
@@ -670,9 +694,16 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
 
     def launch_counts():
         return (steps.launches, steps.shaped_launches, steps.global_launches,
-                getattr(steps, "wide_launches", 0),
-                getattr(steps, "group_launches", 0))
+                steps.stage_launches, steps.group_launches)
 
+    # The stage kernels of a chunk: K10's conv, trunk and env a step, the
+    # prep and the first observation; K2's hidden stages (every hidden layer
+    # but the last), head, env (the tick) and observation a step (none after
+    # the last tick), the prep (with a hidden layer) and the first
+    # observation (env and observation).
+    layers = 0 if cnn else len(act.group_models(model, groups)[0].hidden)
+    stages = 3 * T + 2 if cnn else (
+        (layers > 0) + 1 + T * (max(layers - 1, 0) + 3))
     counts = launch_counts()
     ks, obs, action, lp, value, reward, delivered = steps(
         cfg, model, state, u, pick, drop, g, logits=logits_k, mask=mask,
@@ -680,7 +711,7 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
     torch.cuda.synchronize()
     require(launch_counts()
             == (counts[0] + 1, counts[1] + int(shaped),
-                counts[2] + int(cfg.global_obs), counts[3] + int(wide),
+                counts[2] + int(cfg.global_obs), counts[3] + stages,
                 counts[4] + int(groups is not None)),
             f"{K}: the launch counts did not show the kernel's launch and "
             f"its route: {counts} -> {launch_counts()}")
@@ -773,7 +804,7 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
     out = {"phase": phase or ("t1_check" if shaped else f"{K.lower()}_check"),
            "kernel": K, "config": name, "global_obs": cfg.global_obs,
            "obs_dim": cfg.obs_dim, "mask_actions": mask_actions,
-           "wide_route": wide, "policy_groups": groups,
+           "stage_launches": stages, "policy_groups": groups,
            "B": B, "T": T, "max_abs_err": err, "tol": TOL,
            "rerun_bit_equal": True if rerun else None,
            "actions_agree_where_gap_gt_tol": agree,
@@ -796,8 +827,14 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
                         lambda: steps(cfg, model, state, u, pick, drop, g,
                                       mask=mask, **gkw), 5)})
         n_table = 4 * cfg.num_cells ** 2  # the int32 table, read once
-    emit(out)
     fwd, _ = ff_macs(dict(model.named_parameters()))
+    if not cnn:
+        # K2's stage design: its own bytes through device memory beside the
+        # float operations (the larger of the two times).
+        out["stage_bound"] = bound(
+            k2_stage_bytes(cfg, layers, model, groups, B, T),
+            2.0 * fwd * T * B * A)
+    emit(out)
     # With shaping: the table, the flags and the raw reward beside K2's
     # tensors, and 6 float operations per agent and step. With groups every
     # group's weights are read, and each row runs one group's forward.
@@ -1234,6 +1271,123 @@ def act_cnn_stage_check(dev, cfg, name, groups=None, B=CHECK_B,
               st: {"outputs": res[st], **times[st]} for st in res}})
     require(not bad, f"K10 stages differ from their plain stages: {bad}")
     return times
+
+
+def act_mlp_stage_run(dev, cfg, model, groups=None, B=CHECK_B,
+                      shaped=False, time_it=True):
+    """K2's stage kernels (``act.ACT_MLP_STAGES``: the first hidden layer,
+    the last hidden layer with the head, the env stage) on one step's rows
+    of ``cfg`` (with ``shaped``, masked and shaped from a mid-episode
+    state), each against its plain stage on the plain chain's inputs: the
+    hidden and head rows within STAGE_TOL elementwise, the env stage's
+    log-probs within TOL and every other output bit-equal. Returns
+    ``(results, failures, times)`` as ``act_cnn_stage_run``; a stage's
+    time takes in the prep kernel (the layers' padded kernels), as the
+    trunk stage's does there."""
+    A = cfg.num_agents
+    state, obs = reset_envs(cfg, B, SEED + 1, dev)
+    if shaped:
+        state, obs = shaped_start(cfg, model, state, False, dev, groups)
+    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, 1)
+    _, g = rng.batched_gumbel_stream(rng.prng_key(SEED + 2, dev), 1,
+                                     (5, B * A))
+    shaping = sh = None
+    if shaped:
+        done = (state.t + 1 >= cfg.max_steps).to(torch.float32)
+        shaping = act.Shaping(*SHAPING, done[None],
+                              torch.empty(1, B, A, device=dev))
+        sh = (*SHAPING, done)
+    order = act.act_cnn_rows(cfg, B, groups)
+    row_group = act.act_cnn_row_groups(cfg, order, groups)
+    order = order.to(dev)
+    models = act.group_models(model, groups)
+    dims = [models[0].hidden[0].in_features] + [
+        lin.out_features for lin in models[0].hidden]
+    require(len(dims) == 3, "act_mlp_stage_run takes 2 hidden layers")
+
+    def plain(stage, x):
+        with torch.no_grad():
+            if stage == "hidden":
+                return {"h": act.act_hidden_plain(models, 0, x, row_group)}
+            if stage == "head":
+                return {"head": act.act_head_plain(models, x, row_group)}
+            return act.act_env_plain(cfg, state, x, order, u[0], pick[0],
+                                     drop[0], g[0], shaped, sh)
+
+    inputs = {"hidden": obs.reshape(B * A, -1)[order]}
+    want = {"hidden": plain("hidden", inputs["hidden"])}
+    inputs["head"] = want["hidden"]["h"]
+    want["head"] = plain("head", inputs["head"])
+    inputs["env"] = want["head"]["head"]
+    want["env"] = plain("env", inputs["env"])
+    kw = dict(mask_on=shaped, shaping=shaping, groups=groups)
+    run = act.ActMlpLaunch(cfg, model, state, u, pick, drop, g,
+                           torch.empty(1, B, A, 5, device=dev),
+                           torch.empty(1, B, A, 5, dtype=torch.bool,
+                                       device=dev) if shaped else None,
+                           shaping, groups)
+    N = B * A
+    flops = {"hidden": 2.0 * N * dims[0] * dims[1],
+             "head": 2.0 * N * (dims[1] + 6) * dims[2], "env": 0.0}
+    layer = {"hidden": 0, "head": 1, "env": 1}
+    res, bad, times = {}, [], {}
+    for stage in act.ACT_MLP_STAGES:
+        key = "head" if stage == "env" else "x"
+        before = act.act_mlp_stage.launches
+        got = act.act_mlp_stage(stage, cfg, model, state,
+                                {key: inputs[stage]}, u, pick, drop, g, **kw)
+        torch.cuda.synchronize()
+        require(act.act_mlp_stage.launches == before + 1,
+                f"K2 stage {stage}: the launch count did not move")
+        out = {}
+        for k, w in want[stage].items():
+            x = got[k]
+            if k == "state":
+                out[k] = {"bit_equal": all(torch.equal(
+                    getattr(x, f), getattr(w, f)) for f in STATE_FIELDS[:-2])}
+            elif w is None:
+                out[k] = {"bit_equal": x is None}
+            elif stage != "env" or k == "log_prob":
+                e, r = tree_err((x,), (w,), *(STAGE_TOL if stage != "env"
+                                             else (0.0, TOL)))
+                out[k] = {"max_abs_err": e, "ratio": r}
+            else:
+                out[k] = {"bit_equal": torch.equal(
+                    x.view(torch.int32) if x.dtype == torch.float32 else x,
+                    w.view(torch.int32) if w.dtype == torch.float32 else w)}
+        bad += [f"{stage}.{k}" for k, v in out.items()
+                if v.get("ratio", 0.0) > 1.0 or v.get("bit_equal") is False]
+        res[stage] = out
+        if time_it:
+            nxt = run.fill(stage, {key: inputs[stage]}, layer[stage])
+            n_bytes = nbytes(inputs[stage], want[stage]) + (
+                nbytes(dict(model.named_parameters()))
+                if stage != "env" else 0)
+            times[stage] = {
+                "ms": timed(lambda: run.launch(stage, nxt, layer[stage]), 5),
+                "plain_ms": timed(lambda: plain(stage, inputs[stage]), 3),
+                "max_abs_err": max([v.get("max_abs_err", 0.0)
+                                    for v in out.values()]),
+                **bound(n_bytes, flops[stage])}
+    return res, bad, times
+
+
+def act_mlp_stage_check(dev, cfg, name, model, groups=None, B=CHECK_B,
+                        shaped=False):
+    """``act_mlp_stage_run`` on ``model`` (an MLP, or with ``groups`` a
+    multi-policy MLP) of ``cfg``: K2's stage kernels against their plain
+    stages on one step's rows, then timed; fails on any output off its
+    bound. Returns each stage's ``(max_abs_err, ms, plain_ms, bound)``."""
+    res, bad, times = act_mlp_stage_run(dev, cfg, model, groups, B, shaped)
+    emit({"phase": "act_mlp_stage_check", "kernel": "K2", "config": name,
+          "global_obs": cfg.global_obs, "obs_dim": cfg.obs_dim,
+          "policy_groups": groups, "B": B, "rows": B * cfg.num_agents,
+          "masked_shaped": shaped,
+          "tol": {"rows": STAGE_TOL, "log_prob": TOL}, "stages": {
+              st: {"outputs": res[st], **times[st]} for st in res}})
+    require(not bad, f"K2 stages differ from their plain stages: {bad}")
+    return {st: (t["max_abs_err"], t["ms"], t["plain_ms"], t)
+            for st, t in times.items()}
 
 
 def mlp_stage_check(dev, cfg, name="config4", bf16=False, ragged=False,
@@ -2199,9 +2353,8 @@ def hidden256_tcfg():
 
 
 def hidden256_train_phase(dev, cfg):
-    """3 config-4 PPO updates at hidden 256: weights that one block's
-    shared memory does not hold, so K2 takes its wide route; K3/K4 at that
-    width. First one update through the kernels and one through the plain
+    """3 config-4 PPO updates at hidden 256: K2's stage kernels and K3/K4
+    at that width. First one update through the kernels and one through the plain
     path from the same state, whose metrics must agree."""
     tr = make_train(cfg, hidden256_tcfg(), device=dev)
     first = first_update_vs_plain(tr, dev, "hidden256_train")
@@ -2228,15 +2381,15 @@ def groups_model(cfg, groups, dev):
 
 def groups_check(dev, cfg, shelves):
     """K2 with policy groups at config 4 (interleaved) and on the shelves
-    recipe's shapes (masked, shaped, 2048 envs), each on its wide route:
-    two 128-wide groups' weights do not fit one block; K3 / K4 with groups
+    recipe's shapes (masked, shaped, 2048 envs): a step's rows group by
+    group, each tile of its stage kernels one group's; K3 / K4 with groups
     on a trajectory of the recipe. Returns the (K2, K3, K4) results at the
     recipe's shapes for the kernels line."""
     k2_check(dev, "medium_groups", cfg, groups_model(cfg, CONFIG4_GROUPS, dev),
-             phase="groups_check", wide=True, groups=CONFIG4_GROUPS)
+             phase="groups_check", groups=CONFIG4_GROUPS)
     k2 = k2_check(dev, "shelves_groups", shelves,
                   groups_model(shelves, GROUPS, dev), True, shaped=True,
-                  B=GROUPS_B, phase="groups_check", wide=True, groups=GROUPS)
+                  B=GROUPS_B, phase="groups_check", groups=GROUPS)
     k3 = k3_check(dev, shelves, tcfg=groups_tcfg(), name="shelves_groups",
                   groups=GROUPS)
     k4 = k4_check(dev, shelves, tcfg=groups_tcfg(), name="shelves_groups",
@@ -2652,7 +2805,10 @@ OPTION_COUNTED = {
     "ppo_rollout_shaped": (act.act_steps, "shaped_launches"),
     "ppo_rollout_cnn_shaped": (act.act_cnn_steps, "shaped_launches"),
     "ppo_rollout_global": (act.act_steps, "global_launches"),
-    "ppo_rollout_wide": (act.act_steps, "wide_launches"),
+    "ppo_rollout_stages": (act.act_steps, "stage_launches"),
+    "ppo_rollout_hidden": (act.act_steps, "hidden_launches"),
+    "ppo_rollout_head": (act.act_steps, "head_launches"),
+    "ppo_rollout_env": (act.act_steps, "env_launches"),
     "ppo_rollout_cnn_global": (act.act_cnn_steps, "global_launches"),
     "ppo_sgd_phase_global": (sgd.ppo_sgd_phase, "chunked_launches"),
     "ppo_minibatch_grads_global": (sgd.ppo_minibatch_grads,
@@ -2675,6 +2831,12 @@ OPTION_COUNTED = {
     "ppo_cnn_sgd_phase_bf16": (sgd_cnn.ppo_cnn_sgd_phase, "bf16_launches"),
     "ppo_cnn_minibatch_grads_bf16": (sgd_cnn.ppo_cnn_minibatch_grads,
                                      "bf16_launches")}
+
+
+# K2's stage kernels, counted on every path that acts through K2: all of
+# them, then each stage's.
+K2_STAGES = ["ppo_rollout_stages", "ppo_rollout_hidden", "ppo_rollout_head",
+             "ppo_rollout_env"]
 
 
 def main_path(name, fn, kernels):
@@ -2803,11 +2965,11 @@ def main(argv=()) -> int:
             k2_check(dev, name, c, m, True, shaped=True, truncating=True)
             res = k2_check(dev, name, c, m, True, shaped=True)
         checks[key] = res
-    # Global observations and K2's wide route: the recipe's shapes (shelves,
-    # D = 611, 2048 envs, masked and shaped) go into the kernels line for
-    # K2 / K3 / K4, medium's 9x9 map for the CNN kernels, config 4 at hidden
-    # 256 (the hidden256_train path's shapes) for K2's wide route without
-    # the global view; K3 / K4 are held at that width too.
+    # Global observations and hidden 256: the recipe's shapes (shelves, D =
+    # 611, 2048 envs, masked and shaped) go into the kernels line for K2 /
+    # K3 / K4, medium's 9x9 map for the CNN kernels, config 4 at hidden 256
+    # (the hidden256_train path's shapes) for K2 at that width; K3 / K4 are
+    # held at that width too.
     shelves_g, medium_g = (c.replace(global_obs=True) for c in (shelves, cfg))
 
     def mlp_for(c, hidden=HIDDEN[0]):
@@ -2816,13 +2978,13 @@ def main(argv=()) -> int:
                           device=dev)
 
     k2_check(dev, "medium_global", medium_g, mlp_for(medium_g),
-             phase="global_check", wide=True)
+             phase="global_check")
     checks["ppo_rollout_global"] = k2_check(
         dev, "shelves_global", shelves_g, mlp_for(shelves_g), True,
-        shaped=True, B=GLOBAL_B, phase="global_check", wide=True)
-    checks["ppo_rollout_wide"] = k2_check(
+        shaped=True, B=GLOBAL_B, phase="global_check")
+    checks["ppo_rollout_hidden256"] = k2_check(
         dev, "medium_hidden256", cfg, mlp_for(cfg, WIDE_HIDDEN),
-        phase="wide_check", wide=True)
+        phase="hidden256_check")
     checks["ppo_rollout_cnn_global"] = k2_check(
         dev, "medium_global", medium_g, cnn_model(medium_g, dev),
         phase="global_check")
@@ -2854,6 +3016,20 @@ def main(argv=()) -> int:
                         groups=CONFIG4_GROUPS)
     act_cnn_stage_check(dev, shelves, "shelves_groups", groups=GROUPS,
                         B=GROUPS_B, shaped=True)
+    # K2's stage kernels, one step's rows each: config 4 (into the kernels
+    # line), a ragged B, hidden 256, the shelves global recipe (D = 611,
+    # masked, shaped, 2048 envs) and the shelves groups recipe.
+    k2_stages = act_mlp_stage_check(dev, cfg, "config4", model)
+    act_mlp_stage_check(dev, cfg, "config4_ragged", model, B=ACT_RAGGED_B)
+    act_mlp_stage_check(dev, cfg, "config4_hidden256",
+                        mlp_for(cfg, WIDE_HIDDEN))
+    act_mlp_stage_check(dev, shelves_g, "shelves_global", mlp_for(shelves_g),
+                        B=GLOBAL_B, shaped=True)
+    act_mlp_stage_check(dev, shelves, "shelves_groups",
+                        groups_model(shelves, GROUPS, dev), groups=GROUPS,
+                        B=GROUPS_B, shaped=True)
+    for st in act.ACT_MLP_STAGES:
+        checks[f"ppo_rollout_{st}"] = k2_stages[st]
     emit_bound("K5", "config4_hidden256", k5_check(dev, cfg,
                                                    hidden=WIDE_HIDDEN))
     # Policy groups: the recipe's shapes go into the kernels line.
@@ -2880,11 +3056,12 @@ def main(argv=()) -> int:
         ("k1_episodes", lambda: k1_episodes(dev),
          ["greedy_rollout"]),
         ("slice", lambda: slice_phase(dev, cfg, model),
-         ["ppo_rollout"]),
+         ["ppo_rollout", *K2_STAGES]),
         ("train", lambda: train_phase(dev, cfg),
-         ["ppo_rollout", "ppo_sgd_phase", "ppo_minibatch_grads"]),
+         ["ppo_rollout", *K2_STAGES, "ppo_sgd_phase",
+          "ppo_minibatch_grads"]),
         ("impala_train", lambda: impala_train_phase(dev, cfg),
-         ["ppo_rollout", "impala_sgd_phase",
+         ["ppo_rollout", *K2_STAGES, "impala_sgd_phase",
           "impala_minibatch_grads"]),
         ("rnn_train_gru", lambda: rnn_train_phase(dev, cfg, "gru"),
          rnn_kernels),
@@ -2894,7 +3071,7 @@ def main(argv=()) -> int:
          ["ppo_rollout_cnn", "ppo_rollout_cnn_stages", "ppo_cnn_sgd_phase",
           "ppo_cnn_minibatch_grads"]),
         ("shelves_train", lambda: shelves_train_phase(dev, shelves),
-         ["ppo_rollout", "ppo_rollout_shaped", "ppo_sgd_phase",
+         ["ppo_rollout", *K2_STAGES, "ppo_rollout_shaped", "ppo_sgd_phase",
           "ppo_minibatch_grads"]),
         ("shelves_cnn_train",
          lambda: shelves_cnn_train_phase(dev, shelves),
@@ -2903,7 +3080,7 @@ def main(argv=()) -> int:
           "ppo_cnn_minibatch_grads"]),
         ("shelves_global_train",
          lambda: shelves_global_train_phase(dev, shelves_g),
-         ["ppo_rollout_global", "ppo_rollout_wide",
+         ["ppo_rollout_global", *K2_STAGES,
           "ppo_rollout_shaped", "ppo_sgd_phase_global",
           "ppo_minibatch_grads_global"]),
         ("cnn_global_train",
@@ -2912,11 +3089,11 @@ def main(argv=()) -> int:
           "ppo_cnn_sgd_phase_global", "ppo_cnn_minibatch_grads_global"]),
         ("hidden256_train",
          lambda: hidden256_train_phase(dev, cfg),
-         ["ppo_rollout_wide", "ppo_sgd_phase",
+         ["ppo_rollout", *K2_STAGES, "ppo_sgd_phase",
           "ppo_minibatch_grads"]),
         ("shelves_groups_train",
          lambda: shelves_groups_train_phase(dev, shelves),
-         ["ppo_rollout_groups", "ppo_rollout_wide",
+         ["ppo_rollout_groups", *K2_STAGES,
           "ppo_rollout_shaped", "ppo_sgd_phase_groups",
           "ppo_minibatch_grads_groups"]),
         ("gru_bf16_train", lambda: gru_bf16_train_phase(dev, cfg),
@@ -2924,7 +3101,7 @@ def main(argv=()) -> int:
           "ppo_rnn_minibatch_grads_bf16"]),
         ("ppo_bf16_train",
          lambda: ff_bf16_train_phase(dev, cfg, "mlp"),
-         ["ppo_rollout", "ppo_sgd_phase_bf16",
+         ["ppo_rollout", *K2_STAGES, "ppo_sgd_phase_bf16",
           "ppo_minibatch_grads_bf16"]),
         ("cnn_bf16_train",
          lambda: ff_bf16_train_phase(dev, cfg, "cnn"),
@@ -2936,7 +3113,7 @@ def main(argv=()) -> int:
           "ppo_rollout_cnn_shaped", "ppo_rollout_cnn_stages"]),
         ("rllib_cadence_train",
          lambda: rllib_cadence_train_phase(dev, cfg),
-         ["ppo_rollout"]),
+         ["ppo_rollout", *K2_STAGES]),
         ("cnn_per_agent_train",
          lambda: cnn_per_agent_train_phase(dev, cfg),
          ["ppo_rollout_cnn", "ppo_rollout_cnn_groups",
@@ -2953,11 +3130,20 @@ def main(argv=()) -> int:
         "ppo_rollout_cnn_groups"]
     launches["ppo_rollout_cnn_groups_global"] = paths[
         "cnn_global_groups_train"]["ppo_rollout_cnn_groups"]
+    # K2 at hidden 256: the launches of the path that runs it.
+    launches["ppo_rollout_hidden256"] = paths["hidden256_train"][
+        "ppo_rollout"]
 
     csrc = "warehouse_tpu_torch/kernels/csrc/"
     sources = {
         "greedy_rollout": ("rollout.cu", "pallas/rollout.py:516"),
         "ppo_rollout": ("act.cu", "pallas/act.py:1028"),
+        # K2's stage kernels at config 4, one step's rows: a hidden layer
+        # (the TPU kernel's layer loop), the last layer with the head, and
+        # the env stage (mask, sample, tick, next observation).
+        "ppo_rollout_hidden": ("act.cu", "pallas/act.py:375"),
+        "ppo_rollout_head": ("act_stages.cuh", "pallas/act.py:385"),
+        "ppo_rollout_env": ("act_stages.cuh", "pallas/act.py:411"),
         "ppo_sgd_phase": ("sgd.cu", "pallas/sgd.py:691"),
         "ppo_minibatch_grads": ("sgd.cu", "pallas/sgd.py:818"),
         "impala_sgd_phase": ("vtrace_sgd.cu", "pallas/vtrace_sgd.py:445"),
@@ -2976,10 +3162,10 @@ def main(argv=()) -> int:
         # The global-observation option of the two acting kernels
         # (_obs_rows_global), and the learners at the widths it brings: the
         # MLP learner's chunked first layer at D = 611, the CNN learner on
-        # the 9x9 map with 5 input channels; K2's wide route without the
-        # global view (hidden 256).
+        # the 9x9 map with 5 input channels; K2 at hidden 256 without the
+        # global view.
         "ppo_rollout_global": ("act.cu", "pallas/act.py:193"),
-        "ppo_rollout_wide": ("act.cu", "pallas/act.py:1028"),
+        "ppo_rollout_hidden256": ("act.cu", "pallas/act.py:1028"),
         "ppo_rollout_cnn_global": ("act_cnn.cu", "pallas/act.py:339"),
         "ppo_sgd_phase_global": ("mlp_learner.cuh", "pallas/sgd.py:691"),
         "ppo_minibatch_grads_global": ("mlp_learner.cuh",

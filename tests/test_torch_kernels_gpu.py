@@ -798,6 +798,41 @@ def test_act_cnn_stage_kernels_match_plain_stages(name, glob, hidden, groups,
     assert not bad, (bad, res)
 
 
+ACT_MLP_STAGE_CASES = [  # (preset, global view, hidden, groups, B, shaped)
+    ("medium", False, 128, None, N, False),
+    ("medium", False, 256, None, N, False),
+    ("medium", True, 128, (0, 1, 0, 1), N, False),
+    ("shelves", True, 128, None, N + 1, True),
+    ("shelves", False, 128, (0, 0, 0, 1, 1, 1), N + 1, True),
+    ("small", True, 16, (1, 0), N - 1, True),
+    ("large", False, 32, tuple(range(8)), N, True)]
+
+
+@pytest.mark.parametrize("stage", ["hidden", "head", "env"])
+@pytest.mark.parametrize("name,glob,hidden,groups,B,shaped",
+                         ACT_MLP_STAGE_CASES)
+def test_act_mlp_stage_kernels_match_plain_stages(name, glob, hidden, groups,
+                                                  B, shaped, stage, dev):
+    """Each of K2's three stage kernels (``act.act_mlp_stage``: the first
+    hidden layer, the last with the head, the env stage) against its plain
+    stage on one step's rows (B of 999-1001 envs: no tile full at the end),
+    with and without groups and the global view, masked and shaped from a
+    mid-episode state: ``hidden``'s and ``head``'s rows at chip_smoke.py's
+    STAGE_TOL elementwise, the env stage's log-probs within TOL and every
+    other output bit-equal; one launch each."""
+    from warehouse_tpu_torch.models import make_multi_policy_model
+
+    cs = smoke()
+    cfg = (GLOBAL if glob else PRESETS)[name]
+    gen = torch.Generator().manual_seed(3)
+    m = (make_model(cfg, hidden_dim=hidden, generator=gen, device=dev)
+         if groups is None else make_multi_policy_model(
+             cfg, groups, hidden_dim=hidden, generator=gen, device=dev))
+    res, bad, _ = cs.act_mlp_stage_run(dev, cfg, m, groups, B, shaped,
+                                       time_it=False)
+    assert not [b for b in bad if b.startswith(stage + ".")], (bad, res)
+
+
 # ---- the potential-shaping option of K2 and K10 ------------------------------
 
 @pytest.mark.parametrize("truncating", [False, True])
@@ -902,9 +937,18 @@ def test_shaped_rollout_wrapper_launches_the_kernel(dev):
                            roll.reward.view(torch.int32))
 
 
-# ---- global observations (K2, K10), K2's wide route, wide learners (K3-K6) ---
+# ---- global observations (K2, K10), K2 at wide shapes, wide learners (K3-K6)
 
 GLOBAL = {name: cfg.replace(global_obs=True) for name, cfg in PRESETS.items()}
+
+
+def k2_stage_launches(layers, steps=8):
+    """K2's stage kernels in a chunk of ``steps`` at ``layers`` hidden
+    layers: a hidden stage per layer but the last, the head, the tick and
+    the next observation a step (no observation after the last tick), the
+    prep (with a hidden layer) and the first observation's tick-less
+    pair."""
+    return (layers > 0) + 1 + steps * (max(layers - 1, 0) + 3)
 
 
 def replay_check(cfg, m, run, dev, mask_on, shaped, steps=8, groups=None,
@@ -985,28 +1029,29 @@ def replay_check(cfg, m, run, dev, mask_on, shaped, steps=8, groups=None,
                                          ("shelves", 128), ("large", 32)])
 def test_global_obs_act_kernel_matches_plain_path(name, hidden, mask_on,
                                                   shaped, dev):
-    """K2 with the global view (D = 131 / 411 / 611 / 1131: the small one
-    staged, the others on the wide route, which the route's launch count
-    shows), plain, masked, masked and shaped."""
+    """K2 with the global view (D = 131 / 411 / 611 / 1131), plain,
+    masked, masked and shaped: each chunk K2's stage kernels, which their
+    launch count shows."""
     cfg = GLOBAL[name]
     m = make_model(cfg, hidden_dim=hidden,
                    generator=torch.Generator().manual_seed(0), device=dev)
-    wide = act_steps.wide_launches
+    stages = act_steps.stage_launches
     replay_check(cfg, m, act_steps, dev, mask_on, shaped)
-    assert act_steps.wide_launches == wide + (name != "small")
+    assert act_steps.stage_launches == stages + k2_stage_launches(2)
 
 
 @pytest.mark.parametrize("name,hidden,layers", [("medium", 256, 2),
                                                 ("shelves", 128, 3)])
 def test_wide_route_act_kernel_matches_plain_path(name, hidden, layers, dev):
-    """K2 on the ego window at widths whose weights do not fit one block's
-    shared memory (hidden 256; a third 128-wide layer): the wide route."""
+    """K2 on the ego window at hidden 256 and with a third 128-wide layer
+    (two hidden stages a step): the stage kernels, which their launch count
+    shows."""
     cfg = PRESETS[name]
     m = make_model(cfg, hidden_dim=hidden, num_layers=layers,
                    generator=torch.Generator().manual_seed(0), device=dev)
-    wide = act_steps.wide_launches
+    stages = act_steps.stage_launches
     replay_check(cfg, m, act_steps, dev, True, False)
-    assert act_steps.wide_launches == wide + 1
+    assert act_steps.stage_launches == stages + k2_stage_launches(layers)
 
 
 @pytest.mark.parametrize("mask_on,shaped", [(False, False), (True, True)])
@@ -1195,18 +1240,17 @@ def test_grouped_act_kernel_matches_plain_path(name, hidden, groups, mask_on,
     held to the plain multi-policy model on the kernel's observations and
     the plain engine replaying its actions (interleaved groups, groups of
     neighbours, every agent its own policy), masked, shaped, with the
-    global view; every grouped launch takes the wide route (16-wide groups
-    too), and the group count moves."""
+    global view; the group count and the stage count move."""
     from warehouse_tpu_torch.models import make_multi_policy_model
 
     cfg = (GLOBAL if glob else PRESETS)[name]
     m = make_multi_policy_model(cfg, groups, hidden_dim=hidden,
                                 generator=torch.Generator().manual_seed(0),
                                 device=dev)
-    wide, grouped = act_steps.wide_launches, act_steps.group_launches
+    stages, grouped = act_steps.stage_launches, act_steps.group_launches
     replay_check(cfg, m, act_steps, dev, mask_on, shaped, groups=groups)
     assert act_steps.group_launches == grouped + 1
-    assert act_steps.wide_launches == wide + 1
+    assert act_steps.stage_launches == stages + k2_stage_launches(2)
 
 
 GROUP_SGD_CASES = [("medium", 128, (0, 1, 0, 1)),

@@ -1,40 +1,44 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's CNN acting kernel (K10) a chunk from
-several source trees in turns on one GPU, with its device time split by
-kernel, and hash the outputs of the kernels the trees should share bit for
-bit.
+"""Time one of the PyTorch/CUDA port's feed-forward acting kernels, K2
+(the MLP policy) or K10 (the CNN policy), a chunk from several source
+trees in turns on one GPU, with its device time split by kernel, and hash
+the outputs of the kernels the trees should share bit for bit.
 
-    python tools/torch_ab.py PARENT_TREE . . PARENT_TREE
+    python tools/torch_ab.py [--kernel k2|k10] PARENT_TREE . . PARENT_TREE
 
-Each argument is a directory that holds ``chip_smoke.py`` and
+Each tree argument is a directory that holds ``chip_smoke.py`` and
 ``warehouse_tpu_torch/``; each runs in a process of its own (the trees'
 packages share a name), which builds that tree's kernels and then, with
 that tree's ``chip_smoke`` helpers (seeded models, resets and draw
 streams):
 
-- times K10 (``act.act_cnn_steps``, one chunk of T = 16 steps, the median
-  of 5 chunks by CUDA events after one of warm-up) in seven instances:
-  the 9x9 global view (``medium`` with ``global_obs``, B = 4096, S = 9, D
-  = 411, hidden 128), the same with the policy groups ``(0, 1, 0, 1)``,
-  BASELINE config 4 (the 5x5 window, B = 4096), config 4 with one policy
-  per agent ``(0, 1, 2, 3)``, the shelves recipe (6 agents, masked and
+- runs one chunk of T = 16 steps of each of K2's and K10's seven
+  instances and hashes its outputs; for the selected kernel (``--kernel``,
+  K10 by default) it also times each instance (the median of 5 chunks by
+  CUDA events after one of warm-up, the wrapper inside) and splits one
+  chunk's device time by kernel name with ``torch.profiler``
+  (milliseconds and launches per chunk). K2's instances: BASELINE config
+  4 (B = 4096, 106 -> 128 -> 128 -> 6), the same with the groups ``(0, 1,
+  0, 1)`` and at hidden 256, the shelves recipe (6 agents, masked and
   shaped from a mid-episode state, B = 4096), the shelves groups recipe
-  ``(0, 0, 0, 1, 1, 1)`` (masked, shaped, B = 2048) and the 8-agent
-  preset with one policy per agent (masked, shaped, B = 4096), and splits
-  one chunk's device time by kernel name with ``torch.profiler``
-  (milliseconds and launches per chunk), and hashes each instance's
-  outputs;
-- hashes the outputs of the kernels that no K10 change may move: two K2
-  chunks (config 4, and the wide route at hidden 256), one K3 phase
-  (float32 and bf16), one K5 phase (Adam), one K6 gradient, one K7 chunk
-  (the GRU), one K8 phase (the GRU, float32) and one K11 phase (float32
-  and bf16), all at config 4.
+  ``(0, 0, 0, 1, 1, 1)`` and the shelves global recipe (D = 611), both
+  masked, shaped, B = 2048, and medium's global view (D = 411, B = 4096).
+  K10's: the 9x9 global view (S = 9, D = 411, hidden 128), the same with
+  the groups ``(0, 1, 0, 1)``, config 4 (the 5x5 window), config 4 with
+  one policy per agent ``(0, 1, 2, 3)``, the shelves recipe, the shelves
+  groups recipe (B = 2048) and the 8-agent preset with one policy per
+  agent (masked, shaped, B = 4096);
+- hashes the outputs of the kernels that neither acting kernel's change
+  may move: one K1 greedy episode (B = 4096), one K3 phase (float32 and
+  bf16, K4 inside it), one K5 phase (Adam), one K6 gradient, one K7 chunk
+  (the GRU), one K8 phase (the GRU, float32, K9 inside it) and one K11
+  phase (float32 and bf16, K12 inside it), all at config 4.
 
-Each process prints one line ``{"tree": ..., "k10": {instance: {"ms":
-..., "split": {kernel: [ms, launches]}}}, "sha256": {kernel: hex}}``;
-equal hashes are the same bits. This script prints the card's name and
-power limit first. Comparing two trees is only sound inside one run on
-one card (turns: A, B, B, A).
+Each process prints one line ``{"tree": ..., "kernel": "k2" | "k10",
+"times": {instance: {"ms": ..., "split": {kernel: [ms, launches]}}},
+"sha256": {kernel_instance: hex}}``; equal hashes are the same bits. This
+script prints the card's name and power limit first. Comparing two trees
+is only sound inside one run on one card (turns: A, B, B, A).
 """
 
 from __future__ import annotations
@@ -52,8 +56,8 @@ from torch.profiler import ProfilerActivity, profile
 from warehouse_tpu_torch import large_config, medium_config, shelves_config
 from warehouse_tpu_torch.models import make_model
 from warehouse_tpu_torch.optim import make_impala_optimizer
-from warehouse_tpu_torch.kernels import (act_rnn, build, sgd, sgd_cnn,
-                                         sgd_rnn, vtrace_sgd)
+from warehouse_tpu_torch.kernels import (act_rnn, build, rollout, sgd,
+                                         sgd_cnn, sgd_rnn, vtrace_sgd)
 dev = torch.device("cuda", 0)
 build.library()
 cfg = medium_config()
@@ -96,11 +100,9 @@ def chunk_sha(out):
     return sha([getattr(out[0], f) for f in cs.STATE_FIELDS] + list(out[1:]))
 
 
-def k10_inputs(c, B, groups, shaped):
+def chunk_inputs(model, c, B, groups, shaped):
     # chip_smoke.k2_check's inputs: a reset (with shaping, then one chunk
     # to a mid-episode state), the chunk's draws and gumbel noise.
-    model = (cs.cnn_model(c, dev) if groups is None
-             else cs.cnn_groups_model(c, groups, dev))
     state, _ = cs.reset_envs(c, B, cs.SEED + 1, dev)
     if shaped:
         state, _ = cs.shaped_start(c, model, state, False, dev, groups)
@@ -118,25 +120,53 @@ def k10_inputs(c, B, groups, shaped):
     return (c, model, state, u, pick, drop, g), kw
 
 
-K10_CASES = {{  # instance: (config, B, groups, masked and shaped)
-    "global": (medium_g, cs.CHECK_B, None, False),
-    "global_groups": (medium_g, cs.CHECK_B, cs.CONFIG4_GROUPS, False),
-    "config4": (cfg, cs.CHECK_B, None, False),
-    "config4_per_agent": (cfg, cs.CHECK_B, cs.PER_AGENT, False),
-    "shelves": (shelves, cs.CHECK_B, None, True),
-    "shelves_groups": (shelves, cs.GROUPS_B, cs.GROUPS, True),
-    "large_per_agent": (large, cs.CHECK_B,
-                        tuple(range(large.num_agents)), True)}}
-k10, out = {{}}, {{}}
-for name, (c, B, groups, shaped) in K10_CASES.items():
-    args, kw = k10_inputs(c, B, groups, shaped)
-    run = lambda: cs.act.act_cnn_steps(*args, **kw)
-    res = run()
-    out["k10_" + name] = chunk_sha(res) if not shaped else sha(
-        [getattr(res[0], f) for f in cs.STATE_FIELDS] + list(res[1:])
-        + [kw["mask"], kw["shaping"].raw_reward])
-    k10[name] = {{"ms": cs.timed(run, 5), "split": split_of(run)}}
-    del args, kw, res
+def k2_model(c, hidden, groups):
+    if groups is not None:
+        return cs.groups_model(c, groups, dev)
+    return make_model(c, hidden_dim=hidden, num_layers=cs.HIDDEN[1],
+                      generator=torch.Generator().manual_seed(cs.SEED),
+                      device=dev)
+
+
+def k10_model(c, hidden, groups):
+    return (cs.cnn_model(c, dev) if groups is None
+            else cs.cnn_groups_model(c, groups, dev))
+
+
+shelves_g = shelves.replace(global_obs=True)
+H = cs.HIDDEN[0]
+CASES = {{  # kernel: (wrapper, model, {{instance: (config, B, groups,
+    #                                       masked and shaped, hidden)}})
+    "k2": (cs.act.act_steps, k2_model, {{
+        "config4": (cfg, cs.CHECK_B, None, False, H),
+        "config4_groups": (cfg, cs.CHECK_B, cs.CONFIG4_GROUPS, False, H),
+        "config4_hidden256": (cfg, cs.CHECK_B, None, False, 256),
+        "shelves": (shelves, cs.CHECK_B, None, True, H),
+        "shelves_groups": (shelves, cs.GROUPS_B, cs.GROUPS, True, H),
+        "shelves_global": (shelves_g, cs.GLOBAL_B, None, True, H),
+        "medium_global": (medium_g, cs.CHECK_B, None, False, H)}}),
+    "k10": (cs.act.act_cnn_steps, k10_model, {{
+        "global": (medium_g, cs.CHECK_B, None, False, H),
+        "global_groups": (medium_g, cs.CHECK_B, cs.CONFIG4_GROUPS, False, H),
+        "config4": (cfg, cs.CHECK_B, None, False, H),
+        "config4_per_agent": (cfg, cs.CHECK_B, cs.PER_AGENT, False, H),
+        "shelves": (shelves, cs.CHECK_B, None, True, H),
+        "shelves_groups": (shelves, cs.GROUPS_B, cs.GROUPS, True, H),
+        "large_per_agent": (large, cs.CHECK_B,
+                            tuple(range(large.num_agents)), True, H)}})}}
+times, out = {{}}, {{}}
+for kernel, (steps, model_of, cases) in CASES.items():
+    for name, (c, B, groups, shaped, hidden) in cases.items():
+        args, kw = chunk_inputs(model_of(c, hidden, groups), c, B, groups,
+                                shaped)
+        run = lambda: steps(*args, **kw)
+        res = run()
+        out[kernel + "_" + name] = chunk_sha(res) if not shaped else sha(
+            [getattr(res[0], f) for f in cs.STATE_FIELDS] + list(res[1:])
+            + [kw["mask"], kw["shaping"].raw_reward])
+        if kernel == {kernel!r}:
+            times[name] = {{"ms": cs.timed(run, 5), "split": split_of(run)}}
+        del args, kw, res
 
 
 def phase_args(tcfg, tr, rs, traj, adv_n, targets, ent, *lead):
@@ -194,15 +224,6 @@ def draws(c, B):
     return state, u, pick, drop, g
 
 
-def mlp(hidden):
-    return make_model(cfg, hidden_dim=hidden, num_layers=cs.HIDDEN[1],
-                      generator=torch.Generator().manual_seed(cs.SEED),
-                      device=dev)
-
-
-for name, hidden in (("k2", cs.HIDDEN[0]), ("k2_wide", cs.WIDE_HIDDEN)):
-    out[name] = chunk_sha(cs.act.act_steps(cfg, mlp(hidden),
-                                           *draws(cfg, cs.CHECK_B)))
 model = make_model(cfg, "gru", cs.HIDDEN[0], cs.HIDDEN[1],
                    torch.Generator().manual_seed(cs.SEED), dev)
 params = {{k: v.detach() for k, v in model.state_dict().items()}}
@@ -212,12 +233,19 @@ carry = (0.5 * torch.randn(cs.CHECK_B, cfg.num_agents, cs.HIDDEN[0],
                                cs.SEED + 9))).to(dev)
 out["k7"] = chunk_sha(act_rnn.act_rnn_steps(cfg, params, state, carry, u,
                                             pick, drop, g))
-print(json.dumps({{"tree": {tree!r}, "k10": k10, "sha256": out}}))
+# K1: one greedy episode of 4096 config-4 envs.
+state, _ = cs.reset_envs(cfg, cs.CHECK_B, cs.SEED, dev)
+out["k1"] = chunk_sha(rollout.greedy_rollout(cfg, state, cfg.max_steps))
+print(json.dumps({{"tree": {tree!r}, "kernel": {kernel!r}, "times": times,
+                  "sha256": out}}))
 """
 
 
-def main(trees) -> int:
-    if not trees:
+def main(argv) -> int:
+    kernel = "k10"
+    if argv[:1] == ["--kernel"] and len(argv) > 1:
+        kernel, argv = argv[1], argv[2:]
+    if not argv or kernel not in ("k2", "k10"):
         print(__doc__, file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -225,10 +253,11 @@ def main(trees) -> int:
                          text=True)
     print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
     rc = 0
-    for tree in trees:
+    for tree in argv:
         tree = os.path.abspath(tree)
-        res = subprocess.run([sys.executable, "-c", CHILD.format(tree=tree)],
-                             cwd=tree, capture_output=True, text=True)
+        res = subprocess.run(
+            [sys.executable, "-c", CHILD.format(tree=tree, kernel=kernel)],
+            cwd=tree, capture_output=True, text=True)
         print(res.stdout, end="", flush=True)
         if res.returncode:
             print(json.dumps({"tree": tree, "rc": res.returncode,

@@ -32,22 +32,17 @@ in ``ActRollout.raw_reward``.
 With ``cfg.global_obs`` the kernels build the global view themselves
 (``pallas/act.py`` ``_obs_rows_global`` :193-242): the whole ``H x W`` grid
 with 5 channels per cell (self, other agents, pending pickups, own target,
-traversable), then the 6 self features, ``D = 5 H W + 6``. The MLP kernel
-then reads its weights from device memory and runs the first layer over
-chunks of the observation (the wide route of ``csrc/act.cu``, taken by any
-shape whose weights and rows outgrow one block's shared memory; the shapes
-alone decide); the CNN's grid becomes the whole map and its block holds
-fewer envs. ``check_act_fits`` raises for a shape no route holds.
+traversable), then the 6 self features, ``D = 5 H W + 6``; the CNN's grid
+becomes the whole map. ``check_act_fits`` raises for a shape the kernels
+do not take.
 
 With ``policy_groups`` (a tuple of one group id per agent) the model is a
 ``MultiPolicyActorCritic`` of MLPs or of CNNs and each agent's rows run
 through its group's weights only (``pallas/act.py:1062-1076``, the
 trace-time selection of ``_act_kernel`` :325, :336-338, :409): the kernels
-pack the groups' weights one after another in group order. K2 orders a
-block's rows agent by agent, so that every register tile of its dense
-layers is one agent's, and so one group's; K10 orders each step's rows
-group by group (``act_cnn_rows``), so that every tile of its stage
-kernels is one group's. The attention torso raises
+pack the groups' weights one after another in group order and order each
+step's rows group by group (``act_cnn_rows``), so that every tile of
+their stage kernels is one group's. The attention torso raises
 ``NotImplementedError``. The recurrent policies act through
 ``kernels.act_rnn.ppo_rnn_rollout``.
 
@@ -68,6 +63,17 @@ observation). ``ACT_CNN_STAGES`` names them, ``act_conv_plain``,
 ``act_steps_reference``'s contract, and ``act_cnn_stage`` runs one stage's
 kernel on given rows (its plain version on a CPU tensor), for the stages'
 checks on the card.
+
+K2 runs each step as stage kernels over the step's rows in the same
+order (``csrc/act.cu``): ``hidden`` (a tanh layer, once per hidden layer
+but the last), ``head`` (the last hidden layer and the fused head) and
+``env`` (K10's env kernel, then a kernel of its own for the next
+observation rows, which it also writes in row order for the first
+layer). ``ACT_MLP_STAGES`` names them,
+``act_hidden_plain`` and ``act_head_plain`` are the first two's plain
+versions, ``act_mlp_steps_staged`` composes the stages and
+``act_mlp_stage`` runs one stage's kernel (its plain version on a CPU
+tensor).
 """
 
 from __future__ import annotations
@@ -89,8 +95,8 @@ from ..ops.obs import inv_side
 from ..ops.pathing import device_table, potential
 from ..ops.ppo_update import NEG_INF, sample_action_with_gumbel
 from . import build
-from .rollout import (check_kernel_shape, f32, kernel_state,
-                      state_from_kernel, wall_mask)
+from .rollout import (check_kernel_shape, check_multiple_of_4, f32,
+                      kernel_state, state_from_kernel, wall_mask)
 
 
 class ActRollout(NamedTuple):
@@ -248,28 +254,33 @@ def act_steps(cfg: EnvConfig, model, state: EnvState, u, pick, drop, g,
     if is_cnn_model(model):
         return act_cnn_steps(cfg, model, state, u, pick, drop, g, logits,
                              mask, shaping, groups)
-    weights, dims, wide = _mlp_fits(cfg, model, dev, groups)
-    lib = build.library()
-    io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask, shaping)
-    k, gmap = _group_args(cfg, groups)
-    err = lib.wh_act_rollout(
-        *io.env_args(cfg), len(dims) - 1, build.int_array(dims),
-        io.walls.data_ptr(), weights.data_ptr(), weights.numel() // k, k,
-        gmap, *io.tensor_ptrs(), build.stream_handle(dev))
-    build.check(err, "ppo_rollout kernel launch")
+    run = ActMlpLaunch(cfg, model, state, u, pick, drop, g, logits, mask,
+                       shaping, groups)
+    run.launch(None)
     act_steps.launches += 1
     act_steps.shaped_launches += shaping is not None
     act_steps.global_launches += cfg.global_obs
-    act_steps.wide_launches += wide
     act_steps.group_launches += groups is not None
-    return io.results(state)
+    L, T = len(run.dims) - 1, u.shape[0]
+    act_steps.hidden_launches += T * max(L - 1, 0)
+    act_steps.head_launches += T
+    act_steps.env_launches += 2 * T + 1
+    act_steps.stage_launches += (L > 0) + 1 + T * (max(L - 1, 0) + 3)
+    return run.io.results(state)
 
 
 act_steps.launches = 0
 act_steps.shaped_launches = 0  # the launches that had the shaping option on
 act_steps.global_launches = 0  # those that built the global view
-act_steps.wide_launches = 0    # those on the wide route (``wh_act_wide``)
 act_steps.group_launches = 0   # those that routed rows by policy group
+# The stage kernels those launches ran: a hidden stage per hidden layer but
+# the last, the head stage and the env stage (the tick, then the next
+# observation rows but on the last step) a step, the prep (with a hidden
+# layer) and the first observation's pair.
+act_steps.stage_launches = 0
+act_steps.hidden_launches = 0  # of them, the hidden stages' kernels
+act_steps.head_launches = 0    # the head stages'
+act_steps.env_launches = 0     # the env stages' (tick and observation)
 
 
 def _group_args(cfg: EnvConfig, groups):
@@ -279,10 +290,13 @@ def _group_args(cfg: EnvConfig, groups):
         return 1, None
     if len(groups) != cfg.num_agents:
         raise ValueError("policy_groups must have one entry per agent")
+    if min(groups) < 0 or max(groups) >= MAX_GROUPS:
+        raise ValueError(f"policy_groups must be group ids in [0, "
+                         f"{MAX_GROUPS}), got {tuple(groups)}")
     return max(groups) + 1, build.int_array([int(x) for x in groups])
 
 
-def _group_models(model, groups) -> list:
+def group_models(model, groups=None) -> list:
     """The sub-models of ``model`` in group order (``[model]`` without
     groups); ``ValueError`` unless the model is a ``MultiPolicyActorCritic``
     of one policy per group exactly when ``groups`` is given."""
@@ -294,31 +308,32 @@ def _group_models(model, groups) -> list:
     return list(model.policies) if multi else [model]
 
 
+MAX_HIDDEN = 4  # K2's hidden layers at most, as K3-K6's (ROADMAP T-6)
+MAX_GROUPS = 8  # policy groups of the acting kernels at most
+
+
 def _mlp_fits(cfg: EnvConfig, model, dev, groups=None):
-    """K2's ``(weights, dims, wide)`` for ``model`` (an MLP, or with
-    ``groups`` a ``MultiPolicyActorCritic`` of MLPs) on ``cfg``, ``wide``
-    whether the shape takes the kernel's wide route; raises ``ValueError``
-    for a shape the kernel cannot take."""
+    """K2's ``(weights, dims)`` for ``model`` (an MLP, or with ``groups`` a
+    ``MultiPolicyActorCritic`` of MLPs) on ``cfg``, ``dims`` the input
+    width then the hidden widths; raises ``ValueError`` naming what K2
+    does not take: the (agents, queue) shape, widths that do not fit the
+    observation or the 5 actions, more than 4 hidden layers, or a group
+    map that does not fit the model."""
     check_kernel_shape(cfg)
-    subs = _group_models(model, groups)
+    subs = group_models(model, groups)
     if not all(isinstance(m, ActorCriticMLP) for m in subs):
         raise ValueError("the act kernel takes MLP policies")
     weights, dims = packed_weights(model, dev)
     if dims[0] != cfg.obs_dim or (
             subs[0].logits.out_features != cfg.num_actions):
         raise ValueError(f"model widths {dims} do not fit obs_dim "
-                         f"{cfg.obs_dim}")
-    k, _ = _group_args(cfg, groups)
-    shape = (cfg.num_agents, cfg.queue_capacity, cfg.obs_dim, len(dims) - 1,
-             build.int_array(dims), weights.numel() // k, k)
-    smem = build.library().wh_act_smem_bytes(*shape)
-    limit = build.smem_limit(dev, smem)
-    if not 0 < smem <= limit:
+                         f"{cfg.obs_dim} and {cfg.num_actions} actions")
+    if len(dims) - 1 > MAX_HIDDEN:
         raise ValueError(
-            f"act kernel needs {smem} bytes of shared memory per block for "
-            f"layer widths {dims} (a block's rows of the widest hidden "
-            f"layer, twice; up to 4 hidden layers); the card allows {limit}")
-    return weights, dims, build.library().wh_act_wide(*shape) == 1
+            f"K2 takes 0 to {MAX_HIDDEN} hidden layers, got {len(dims) - 1} "
+            f"(widths {dims}; ROADMAP T-6)")
+    _group_args(cfg, groups)
+    return weights, dims
 
 
 def _cnn_fits(cfg: EnvConfig, model, dev, groups=None):
@@ -326,12 +341,14 @@ def _cnn_fits(cfg: EnvConfig, model, dev, groups=None):
     ``groups``, a ``MultiPolicyActorCritic`` of CNNs) on ``cfg``; raises
     ``ValueError`` for a shape the kernel cannot take."""
     check_kernel_shape(cfg)
-    subs = _group_models(model, groups)
+    subs = group_models(model, groups)
     nets = {cnn_kernel_dims(dict(m.named_parameters()), cfg.obs_dim)
             for m in subs}
     if len(nets) != 1:
         raise ValueError(f"the policy groups' CNN widths differ: {nets}")
     net = nets.pop()
+    check_multiple_of_4("K10", {"conv 0": net[2], "conv 1": net[3],
+                                "hidden": net[4]})
     side = cfg.height if cfg.global_obs else cfg.window_size
     if net[0] != side or net[1] != cfg.num_obs_channels:
         raise ValueError(
@@ -454,6 +471,104 @@ class _KernelIO:
                 self.reward, self.delivered)
 
 
+class ActMlpLaunch:
+    """One K2 call on the card: the checked inputs and outputs
+    (``_KernelIO``), the packed weights and the workspace (the layers'
+    padded kernels, the observation rows ``xs`` in row order, the hidden
+    rows, ``head [N, 8]``, the env states), and its C arguments."""
+
+    def __init__(self, cfg, model, state, u, pick, drop, g, logits=None,
+                 mask=None, shaping=None, groups=None):
+        dev = state.agent_pos.device
+        self.weights, self.dims = _mlp_fits(cfg, model, dev, groups)
+        self.lib = build.library()
+        dims = build.int_array(self.dims)
+        k, gmap = _group_args(cfg, groups)
+        if self.weights.numel() != k * self.lib.wh_act_weight_floats(
+                len(self.dims) - 1, dims):
+            raise ValueError("packed weights do not fit the kernel's layout")
+        self.io = _KernelIO(cfg, state, u, pick, drop, g, logits, mask,
+                            shaping)
+        self.shape = (cfg.num_agents, cfg.queue_capacity, self.io.B,
+                      len(self.dims) - 1, dims, k)
+        self.work = torch.empty(
+            self.lib.wh_act_workspace_floats(*self.shape),
+            dtype=torch.float32, device=dev)
+        self.args = [*self.io.env_args(cfg), len(self.dims) - 1, dims,
+                     self.io.walls.data_ptr(), self.weights.data_ptr(), k,
+                     gmap, self.work.data_ptr(), *self.io.tensor_ptrs()]
+        self.stream = build.stream_handle(dev)
+
+    def rows(self, layer: int) -> dict:
+        """The workspace's step rows, as views: ``x``, layer ``layer``'s
+        input rows (the observation rows ``xs`` for layer 0), and ``y``,
+        its output rows where a hidden stage writes them (None for the
+        last layer, which the head stage runs), each padded with zeros to
+        its width rounded up to 32; ``head [N, 8]``."""
+        out = (build.L * 5)()
+        build.check(self.lib.wh_act_layout(*self.shape, out),
+                    "wh_act_layout")
+        n = self.io.B * self.shape[0]
+
+        def view(off, width):
+            ld = -(-width // 32) * 32
+            return self.work[off:off + n * ld].view(n, ld)
+
+        x = (view(out[0], self.dims[0]) if layer <= 0 else
+             view(out[1 + (layer - 1) % 2], self.dims[layer]))
+        y = (view(out[1 + layer % 2], self.dims[layer + 1])
+             if 0 <= layer < len(self.dims) - 2 else None)
+        return {"x": x, "y": y,
+                "head": self.work[out[3]:out[3] + n * 8].view(n, 8)}
+
+    def fill(self, stage: str, inputs: dict, layer: int):
+        """Writes a stage's input rows (``act_mlp_stage``'s names,
+        unpadded) where its kernel reads them, padding with zeros; returns
+        the env stage's buffer for the next observation rows (else
+        None)."""
+        key = "head" if stage == "env" else "x"
+        dst = self.rows(layer)[key]
+        dst.zero_()
+        dst[:, :inputs[key].shape[1]] = inputs[key]
+        return torch.empty_like(self.io.obs[0]) if stage == "env" else None
+
+    def outputs(self, stage: str, state, obs_next, layer: int) -> dict:
+        """A stage's outputs after its launch, as ``act_mlp_stage`` names
+        them."""
+        if stage == "hidden":
+            return {"h": self.rows(layer)["y"][
+                :, :self.dims[layer + 1]].clone()}
+        if stage == "head":
+            return {"head": self.rows(layer)["head"][:, :6].clone()}
+        return env_stage_outputs(self.io, state, obs_next)
+
+    def launch(self, stage, obs_next=None, layer: int = 0) -> None:
+        """The whole chunk (``stage`` None), or one of ``ACT_MLP_STAGES``
+        of its step 0 on the rows the workspace holds (``hidden``: layer
+        ``layer``); the env stage writes the next observation rows into
+        ``obs_next``."""
+        if stage is None:
+            err = self.lib.wh_act_rollout(*self.args, self.stream)
+            build.check(err, "ppo_rollout kernel launch")
+            return
+        err = self.lib.wh_act_stage(
+            ACT_MLP_STAGES.index(stage), layer, *self.args,
+            None if obs_next is None else obs_next.data_ptr(), self.stream)
+        build.check(err, f"K2 stage {stage} launch")
+
+
+def env_stage_outputs(io: _KernelIO, state, obs_next) -> dict:
+    """The env stage's outputs of step 0 after its launch (K2's and
+    K10's), by ``act_env_plain``'s names."""
+    new, _, action, lp, value, reward, delivered = io.results(state)
+    sh, mask = io.shaping, io.mask
+    return {"state": new, "action": action[0], "log_prob": lp[0],
+            "value": value[0], "reward": reward[0],
+            "raw_reward": reward[0] if sh is None else sh.raw_reward[0],
+            "delivered": delivered[0], "logits": io.logits[0],
+            "mask": None if mask is None else mask[0], "obs": obs_next}
+
+
 # ---- K10: the CNN arm -------------------------------------------------------
 
 def cnn_layout(params) -> list[str]:
@@ -547,7 +662,7 @@ class ActCnnLaunch:
                  mask=None, shaping=None, groups=None):
         dev = state.agent_pos.device
         self.net = _cnn_fits(cfg, model, dev, groups)
-        subs = _group_models(model, groups)
+        subs = group_models(model, groups)
         self.lib = build.library()
         self.weights = torch.cat([pack_cnn(dict(m.named_parameters()))
                                   for m in subs]).to(dev)
@@ -600,13 +715,7 @@ class ActCnnLaunch:
             return ({"a1": views["a1"][:, :S * S * C2 + 6].clone()}
                     if stage == "conv" else
                     {"head": views["head"][:, :6].clone()})
-        new, _, action, lp, value, reward, delivered = self.io.results(state)
-        sh, mask = self.io.shaping, self.io.mask
-        return {"state": new, "action": action[0], "log_prob": lp[0],
-                "value": value[0], "reward": reward[0],
-                "raw_reward": reward[0] if sh is None else sh.raw_reward[0],
-                "delivered": delivered[0], "logits": self.io.logits[0],
-                "mask": None if mask is None else mask[0], "obs": obs_next}
+        return env_stage_outputs(self.io, state, obs_next)
 
     def launch(self, stage, obs_next=None) -> None:
         """The whole chunk (``stage`` None), or one of ``ACT_CNN_STAGES``
@@ -648,7 +757,7 @@ def act_cnn_row_groups(cfg: EnvConfig, order, groups=None) -> torch.Tensor:
 def cnn_group_params(model, groups=None) -> list:
     """The params dict of each group's CNN, in group order (``[model]``'s
     without groups)."""
-    return [dict(m.named_parameters()) for m in _group_models(model, groups)]
+    return [dict(m.named_parameters()) for m in group_models(model, groups)]
 
 
 def act_conv_plain(params: list, rows, row_group):
@@ -768,6 +877,116 @@ def act_cnn_stage(stage: str, cfg: EnvConfig, model, state: EnvState,
 
 
 act_cnn_stage.launches = 0
+
+
+# ---- K2's stages, plain -----------------------------------------------------
+
+ACT_MLP_STAGES = ("hidden", "head", "env")
+
+
+def act_hidden_plain(models: list, layer: int, x, row_group):
+    """Stage ``hidden``: ``tanh(x W^T + b)`` of hidden layer ``layer`` on
+    the rows ``x [N, in]`` (``models``: one MLP a group; ``row_group
+    [N]``), each row through its group's layer."""
+    out = x.new_empty(x.shape[0], models[0].hidden[layer].out_features)
+    for k, m in enumerate(models):
+        sel = row_group.to(x.device) == k
+        lin = m.hidden[layer]
+        out[sel] = torch.tanh(x[sel] @ lin.weight.T + lin.bias)
+    return out
+
+
+def act_head_plain(models: list, x, row_group):
+    """Stage ``head``: ``head [N, 6]``, the 5 logits and the value, of the
+    last hidden layer's input rows ``x`` (the observation rows without
+    hidden layers), each row through its group's last layer and head."""
+    out = x.new_empty(x.shape[0], 6)
+    for k, m in enumerate(models):
+        sel = row_group.to(x.device) == k
+        h = x[sel]
+        if len(m.hidden):
+            h = torch.tanh(h @ m.hidden[-1].weight.T + m.hidden[-1].bias)
+        wh = torch.cat([m.logits.weight, m.value.weight])
+        out[sel] = h @ wh.T + torch.cat([m.logits.bias, m.value.bias])
+    return out
+
+
+def act_mlp_steps_staged(cfg: EnvConfig, model, state: EnvState, u, pick,
+                         drop, g, logits=None, mask=None, shaping=None,
+                         groups=None):
+    """K2's plain stages composed, step by step, on the rows in the
+    kernels' order: ``act_steps_reference``'s arguments and returns."""
+    models = group_models(model, groups)
+    B = state.agent_pos.shape[0]
+    order = act_cnn_rows(cfg, B, groups)
+    row_group = act_cnn_row_groups(cfg, order, groups)
+    obs, outs = engine.observe_state(cfg, state), []
+    with torch.no_grad():
+        for t in range(u.shape[0]):
+            x = obs.reshape(B * cfg.num_agents, -1)[order.to(obs.device)]
+            for layer in range(len(models[0].hidden) - 1):
+                x = act_hidden_plain(models, layer, x, row_group)
+            out = act_env_plain(cfg, state,
+                                act_head_plain(models, x, row_group), order,
+                                u[t], pick[t], drop[t], g[t],
+                                mask is not None, _step_shaping(shaping, t))
+            if logits is not None:
+                logits[t] = out["logits"]
+            _keep_step(out, t, mask, shaping)
+            outs.append((obs, out["action"], out["log_prob"], out["value"],
+                         out["reward"], out["delivered"]))
+            state, obs = out["state"], out["obs"]
+    return (state, *(torch.stack(x) for x in zip(*outs)))
+
+
+def act_mlp_stage(stage: str, cfg: EnvConfig, model, state: EnvState,
+                  inputs: dict, u, pick, drop, g, mask_on: bool = False,
+                  shaping=None, groups=None, layer: int = 0) -> dict:
+    """One of ``ACT_MLP_STAGES`` of one step, on rows in ``act_cnn_rows``'
+    order: ``hidden`` takes hidden layer ``layer``'s input rows ``x``
+    (the observation rows for layer 0) and gives its output ``h``; ``head``
+    takes the last hidden layer's input rows ``x`` and gives ``head [N,
+    6]``; ``env`` takes ``head`` and the step's state and draws (``u``,
+    ``pick``, ``drop`` ``[1, B]``, ``g [1, 5, B A]``; ``shaping`` a
+    ``Shaping`` of one step) and gives ``act_env_plain``'s outputs. The
+    stage's kernel on CUDA tensors, its plain version on CPU ones;
+    ``launches`` counts the kernel launches."""
+    if stage not in ACT_MLP_STAGES:
+        raise ValueError(f"stage must be one of {ACT_MLP_STAGES}, "
+                         f"got {stage!r}")
+    dev = state.agent_pos.device
+    B, A = state.agent_pos.shape[:2]
+    models = group_models(model, groups)
+    L = len(models[0].hidden)
+    if stage == "hidden" and not 0 <= layer < L - 1:
+        raise ValueError(f"the hidden stage runs layers 0 to {L - 2} of "
+                         f"{L} (the head stage the last), got {layer}")
+    if dev.type == "cpu":
+        order = act_cnn_rows(cfg, B, groups)
+        row_group = act_cnn_row_groups(cfg, order, groups)
+        with torch.no_grad():
+            if stage == "hidden":
+                return {"h": act_hidden_plain(models, layer, inputs["x"],
+                                              row_group)}
+            if stage == "head":
+                return {"head": act_head_plain(models, inputs["x"],
+                                               row_group)}
+            return act_env_plain(cfg, state, inputs["head"], order, u[0],
+                                 pick[0], drop[0], g[0], mask_on,
+                                 _step_shaping(shaping, 0))
+    logits = torch.empty(1, B, A, 5, device=dev)
+    mask = (torch.empty(1, B, A, 5, dtype=torch.bool, device=dev)
+            if mask_on else None)
+    run = ActMlpLaunch(cfg, model, state, u, pick, drop, g, logits, mask,
+                       shaping, groups)
+    layer = layer if stage == "hidden" else L - 1
+    obs_next = run.fill(stage, inputs, layer)
+    run.launch(stage, obs_next, layer)
+    act_mlp_stage.launches += 1
+    return run.outputs(stage, state, obs_next, layer)
+
+
+act_mlp_stage.launches = 0
 
 
 def _check_options(cfg, model, policy_groups, arch):

@@ -38,8 +38,8 @@ from ..ops.obs import inv_side
 from ..ops.ppo_update import NEG_INF, sample_action_with_gumbel
 from . import build
 from .act import chunk_rollout
-from .rollout import (check_kernel_shape, f32, kernel_state,
-                      state_from_kernel, wall_mask)
+from .rollout import (check_kernel_shape, check_multiple_of_4, f32,
+                      kernel_state, state_from_kernel, wall_mask)
 
 GATE_ORDER = {"gru": ("r", "z", "n"), "lstm": ("i", "f", "g", "o")}
 
@@ -102,11 +102,34 @@ def rnn_dims(params, D: int) -> tuple[list[int], int, bool]:
             params["value.weight"].shape != (1, H)):
         raise ValueError("the recurrent kernels take a 5-action head and a "
                          "value head on the cell's output")
-    if H % 4 or any(d % 4 for d in dims[1:]):
-        raise ValueError(f"the recurrent kernels need encoder and hidden "
-                         f"widths that are multiples of 4, got {dims[1:]}, "
-                         f"{H}")
     return dims, H, cell == "lstm"
+
+
+def rnn_kernel_dims(kernel: str, params, D: int):
+    """``rnn_dims`` for the recurrent CUDA kernel ``kernel`` (K7, or K8 /
+    K9): raises ``ValueError`` naming the kernel and the width where a
+    hidden or encoder width is not a multiple of 4 (ROADMAP T-6)."""
+    dims, H, lstm = rnn_dims(params, D)
+    check_multiple_of_4(kernel, {"hidden": H, **{
+        f"encoder {i}": d for i, d in enumerate(dims[1:])}})
+    return dims, H, lstm
+
+
+def check_act_rnn_fits(cfg: EnvConfig, params, dev):
+    """K7's ``(dims, H, lstm)`` for ``params`` on ``cfg``; raises
+    ``ValueError`` for an (agents, queue) shape, a width (before any
+    library call) or a shared-memory need the kernel does not take."""
+    check_kernel_shape(cfg)
+    dims, H, lstm = rnn_kernel_dims("K7", params, cfg.obs_dim)
+    smem = build.library().wh_act_rnn_smem_bytes(
+        cfg.num_agents, cfg.queue_capacity, len(dims) - 1,
+        build.int_array(dims), H, int(lstm))
+    limit = build.smem_limit(dev, smem)
+    if not 0 < smem <= limit:
+        raise ValueError(
+            f"recurrent act kernel needs {smem} bytes of shared memory per "
+            f"block for widths {dims}, {H}; the card allows {limit}")
+    return dims, H, lstm
 
 
 def split_carry(carry, lstm: bool):
@@ -157,19 +180,11 @@ def act_rnn_steps(cfg: EnvConfig, params: dict, state: EnvState, carry, u,
                                        drop, g, logits, mask)
     if dev.type != "cuda":
         raise ValueError(f"act_rnn_steps: unsupported device {dev}")
-    check_kernel_shape(cfg)
     A, D = cfg.num_agents, cfg.obs_dim
     B, T = state.agent_pos.shape[0], u.shape[0]
-    dims, H, lstm = rnn_dims(params, D)
+    dims, H, lstm = check_act_rnn_fits(cfg, params, dev)
     dims_arr = build.int_array(dims)
     lib = build.library()
-    smem = lib.wh_act_rnn_smem_bytes(A, cfg.queue_capacity, len(dims) - 1,
-                                     dims_arr, H, int(lstm))
-    limit = build.smem_limit(dev, smem)
-    if not 0 < smem <= limit:
-        raise ValueError(
-            f"recurrent act kernel needs {smem} bytes of shared memory per "
-            f"block for widths {dims}, {H}; the card allows {limit}")
     weights = pack_rnn(params).to(dev)
     if weights.numel() != lib.wh_rnn_param_floats(len(dims) - 1, dims_arr, H,
                                                   int(lstm)):

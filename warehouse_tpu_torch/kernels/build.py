@@ -32,10 +32,13 @@ LP = ctypes.POINTER(ctypes.c_long)
 SIGNATURES = {
     "wh_error_string": [I],
     "wh_greedy_rollout": [I, I, L, I, I, I, F, F, F, F, F] + [P] * 21,
-    "wh_act_smem_bytes": [I, I, I, I, IP, I, I],
-    "wh_act_wide": [I, I, I, I, IP, I, I],
+    "wh_act_weight_floats": [I, IP],
+    "wh_act_workspace_floats": [I, I, L, I, IP, I],
+    "wh_act_layout": [I, I, L, I, IP, I, LP],
     "wh_act_rollout": [I, I, L, I, I, I, F, I, I, I, I, F, F, F, F, F, F, I,
-                       IP, P, P, I, I, IP] + [P] * 29 + [F, F, P],
+                       IP, P, P, I, IP, P] + [P] * 29 + [F, F, P],
+    "wh_act_stage": [I, I, I, I, L, I, I, I, F, I, I, I, I, F, F, F, F, F, F,
+                     I, IP, P, P, I, IP, P] + [P] * 29 + [F, F, P, P],
     "wh_sgd_smem_bytes": [I, IP],
     "wh_sgd_stage_smem_bytes": [I, IP],
     "wh_sgd_obs_chunks": [I, IP],
@@ -85,7 +88,8 @@ SIGNATURES = {
     "wh_cnn_sgd_clip_adam": [I] * 6 + [L, I, I, I] + [P] * 7 + [F] * 6
                             + [P] * 2,
 }
-RESTYPES = {"wh_act_smem_bytes": L, "wh_error_string": ctypes.c_char_p,
+RESTYPES = {"wh_act_weight_floats": L, "wh_act_workspace_floats": L,
+            "wh_error_string": ctypes.c_char_p,
             "wh_sgd_smem_bytes": L, "wh_sgd_stage_smem_bytes": L,
             "wh_sgd_workspace_floats": L,
             "wh_vtrace_workspace_floats": L, "wh_rnn_param_floats": L,

@@ -1,426 +1,413 @@
-// K2: the PPO acting phase of the MLP policy, T steps in one launch.
+// K2: the PPO acting phase of the MLP policy, T steps a call.
 //
 // Replaces warehouse_tpu/pallas/act.py ppo_rollout_pallas (:1028; body
 // _act_kernel :299 with _obs_rows :138, _sample_logprob :491 and the env
-// tick of rollout.py:57), MLP arm with its action-masking, its
-// potential-shaping (act_common.cuh tick_env) and its global-observation
-// option (_obs_rows_global :193; act_common.cuh obs_value) and its policy-
-// groups option (:1062-1072). Each step, for every env of the
-// CTA: build the observation of each agent, run the MLP (tanh
-// hidden layers, fused logits + value head), with masking floor the
-// logits of moves off the grid or into a wall to -1e9 (pallas/act.py:
-// 415-428; the mask, ops/move.py valid_action_mask of the pre-tick
-// positions, is written out), sample argmax(logits + gumbel) with the
-// first-max tie rule, take the log-softmax of the chosen action, tick the
-// env.
+// tick of rollout.py:57), MLP arm with its action-masking (:415-428), its
+// potential-shaping (_phi_row :266; act_common.cuh tick_env), its global-
+// observation option (_obs_rows_global :193; act_common.cuh obs_value) and
+// its policy groups (:1062-1072).
 //
-// Layout: a CTA owns NE envs (NE * A <= 64 rows of (env, agent)). The
-// packed weights (~124 KB for 106 -> 128 -> 128 -> 6 in f32) are staged in
-// shared memory once per launch and reused for all T steps and rows; the
-// activations of the CTA's rows ping-pong between two shared buffers and
-// the env states sit in shared memory too, so device memory sees only the
-// draws, the gumbel noise and the outputs. The dense layers are FMA loops
-// on the CUDA cores: a thread owns one output column for a tile of RT
-// rows, reading its weight column with consecutive-address loads and the
-// rows as shared-memory broadcasts. The bound is those shared-memory
-// loads and FMAs (about 61 kFLOP per row and step at hidden 128 x 2).
+// Each step is stage kernels on the caller's stream over all of the step's
+// N = B A rows (env, agent), with no host synchronisation; the env state
+// lives in device memory (envst) from one step to the next:
 //
-// That staged route holds every weight and two [rows, widest layer] buffers
-// in one CTA's shared memory, which a wide first layer outgrows: the global
-// observation is 5 H W + 6 wide (611 on the 11 x 11 grid: 313 KB of first
-// layer alone), and so does a 256-wide hidden layer. When the staged route
-// does not fit the card's shared memory the wide route runs (same template,
-// WIDE): no weight is staged, every layer reads its W [in, out] from device
-// memory (dense_l2.cuh, shared with the MLP learners), and the first layer
-// runs over chunks of XCH observation features. obs_value is a
-// pure function of the env state and the feature index, so only [rows, XCH]
-// of the observation is ever staged and no observation is too wide; each
-// chunk is written to the obs output as it is made. The partial sums sit in
-// the first hidden buffer between chunks, so the sum runs over the features
-// in their order, as on the staged route. The route is picked from the
-// shapes and the device's limit alone (route_for).
+//   hidden_kernel, once per hidden layer but the last: y = tanh(x Wl + bl)
+//      as 64 x 128 tiles (mma_tiles.cuh gemm_64x128_f32: FFMA register
+//      blocks, the k-slices through a cp.async ring; row_stages.cuh
+//      rows_gemm_kernel<false, EPI_TANH>'s product and epilogue, each tile
+//      on its group's weights). The first layer reads `xs`, the
+//      observation rows in row order, zero-padded to D rounded up to 32
+//      and 16-byte aligned: the obs output [T, B, A, D] is neither at D =
+//      106 / 411 / 611 / 1131, so cp.async cannot read it in place. The
+//      others read and write two ping-pong buffers, each layer's rows its
+//      width rounded up to 32 apart, zeros past the width.
+//   head_kernel (act_stages.cuh, K10's trunk stage): the last hidden layer
+//      and the fused logits + value head, head [N, 8]. With no hidden layer
+//      head0_kernel takes the head's sums on the observation rows.
+//   env_kernel (act_stages.cuh, K10's): each row's mask, sample and
+//      outputs, each env's tick with rewards, shaping and deliveries; then
+//      obs_kernel (act_stages.cuh): the next step's observation rows into
+//      obs[t + 1] and into xs. A prologue pair writes obs[0] and xs; the
+//      last step stores the final state and observes nothing.
+//   prep (once a call): each layer's kernel as Bt [HP, in rounded up to
+//      32] per group (HP = its width rounded up to 128), zero-padded to
+//      whole tiles, and the head as [6, H] per group.
 //
-// Policy groups: K MLPs of the same widths, packed one after another in
-// group order, and a static agent -> group map; each row runs its agent's
-// group's forward only, as the TPU kernel's trace-time selection does. A
-// register tile loads one weight and applies it to its rows, so every tile
-// must be one group's: with groups a CTA orders its rows agent-major (row n
-// = agent n / NE, env n % NE) and a tile holds TR rows of one agent (TR = NE
-// = 8 where a CTA holds 8 envs, 6 and 8 agents). Each tile offsets its
-// weights by its group's. Groups always take the wide route: two groups at
-// hidden 128 (248 KB) could not be staged anyway. The sums per row run in
-// the same order as without groups.
+// So T steps are (L + 2) T + 2 launches at L >= 1 hidden layers, 3 T + 1 at
+// L = 0. The rows are group-major (act_stages.cuh RowGroups): a tile of a
+// GEMM stage holds one group's rows and runs on that group's Bt, which is
+// what the TPU kernel's trace-time selection of a group's weights becomes.
 //
-// Exactness: the observation features (int -> float times the f32
-// reciprocal) and the per-agent rewards use __fmul_rn/__fadd_rn in the
-// order of ops/obs.py:54-59 and engine.py:130-135, so they match the
-// plain path bit for bit. The MLP may use FMA and is held to a tolerance.
+// The bound is the products on the CUDA cores in float32 (2 x 61 kFLOP a
+// row and step at 106 -> 128 -> 128 -> 6), and, at 6 agents, the env
+// stage's serial tick per env. The TPU kernel's chunk-long residency of an
+// env block and its weights has no counterpart: the step's rows do not fit
+// one SM, so they go through device memory between stages (L2 at config 4:
+// 16384 rows x 128 floats are 8 MB).
+//
+// Exactness: observations, rewards and the env dynamics are bit-exact
+// against the plain engine. Every policy sum is a float32 FMA chain in k
+// order from 0 (the padded k's add exact zeros), then + b, then tanhf for a
+// hidden layer, whatever the tiles and with no atomics, so a rerun gives
+// the same bits; the plain MLP is held to a tolerance.
 
 #include <cuda_runtime.h>
 
-#include "act_common.cuh"
-#include "dense_l2.cuh"
-#include "device_limits.cuh"
-#include "env_tick.cuh"
+#include "act_stages.cuh"
 
 namespace {
 
-constexpr int NT = 256;    // threads per CTA
-constexpr int RT = 16;     // rows per register tile in the dense layers
-constexpr int MAXL = 4;    // hidden layers
-constexpr int MAXK = 8;    // policy groups
+constexpr int MAXL = 4;  // hidden layers
 
-// Envs per CTA: NE * A rows, a multiple of RT, at most 64.
-template <int A>
-__host__ __device__ constexpr int envs_per_cta() { return A == 6 ? 8 : 64 / A; }
-
-// The CTA's rows: env-major (row n = env n / A, agent n % A) or, with policy
-// groups, agent-major (agent n / NE, env n % NE), tiles of TR rows then one
-// agent's (NE is a multiple of 8 for every A).
-template <int A, bool GROUPED>
-struct RowMap {
-  static constexpr int NE = envs_per_cta<A>();
-  static constexpr int TR = GROUPED && NE < RT ? NE : RT;
-  static __device__ int env(int n) { return GROUPED ? n % NE : n / A; }
-  static __device__ int agent(int n) { return GROUPED ? n / NE : n % A; }
+// The MLP's packed layout and the stages' padded widths. The packed vector
+// of a group: per hidden layer W [in, out] then b [out], then the head W
+// [H, 6] and b [6] (H the last hidden width, or D without hidden layers).
+struct MlpNet {
+  int L;                 // hidden layers
+  int dims[MAXL + 1];    // D, then the hidden widths
+  int ld[MAXL + 1];      // each width rounded up to BK: a layer's K
+  int hp[MAXL + 1];      // each width rounded up to BN: a Bt's rows
+  long w_off[MAXL], b_off[MAXL], head_w, head_b;  // in the packed vector
+  long n_weights;        // floats of one group's packed vector
 };
 
-struct ActArgs {
-  long B;
-  int T;
-  wh::Geometry geo;
-  int S, k, D;         // window side, radius, obs dim
-  int gobs;            // the global observation instead of the ego window
-  float inv_h, inv_w;  // float32 reciprocals of H and W
-  float step_penalty, pickup_reward, delivery_reward, collision_penalty;
-  int n_hidden;
-  int dims[MAXL + 1];  // dims[0] = D, then the hidden widths
-  int dmax;            // row stride of the staged route's buffers
-  int hmax;            // the widest hidden layer: the wide route's stride
-  const float* weights;  // per hidden layer W [in, out] then b [out];
-  int n_weights;         // then heads W [H, 6] and b [6]; per group
-  int n_groups;          // K policy groups, their weights in group order
-  int group[MAXK];       // agent -> group
-  const int *pos, *areq, *carry, *rpick, *rdrop, *rstat, *ragent;
-  const float* u;
-  const int *pick, *drop;
-  const float* gumbel;  // [T, 5, B * A]
-  int *o_pos, *o_areq, *o_carry, *o_rpick, *o_rdrop, *o_rstat, *o_ragent;
-  float* obs;       // [T, B, A, D]
-  int* action;      // [T, B, A]
-  float *log_prob, *value, *reward;  // [T, B, A]
-  int* delivered;   // [T, B]
-  float* logits;    // [T, B, A, 5] pre-mask logits, or null: not written
-  unsigned char* mask;  // [T, B, A, 5] valid moves, or null: no masking
-  Shaping shp;  // the potential-shaping option; off when its table is null
-};
-
-// y[n][j] = act(sum_k x[n][k] * W[k][j] + b[j]) for the CTA's ROWS rows.
-template <int ROWS>
-__device__ void dense(const float* W, const float* bias, const float* x,
-                      int xs, float* y, int ys, int in, int out,
-                      bool use_tanh) {
-  constexpr int G = ROWS / RT;
-  for (int item = threadIdx.x; item < out * G; item += NT) {
-    const int j = item % out, g = item / out;
-    const float* xg = x + g * RT * xs;
-    float acc[RT];
-#pragma unroll
-    for (int rr = 0; rr < RT; ++rr) acc[rr] = 0.f;
-    for (int kk = 0; kk < in; ++kk) {
-      const float wk = W[kk * out + j];
-#pragma unroll
-      for (int rr = 0; rr < RT; ++rr) acc[rr] = fmaf(wk, xg[rr * xs + kk], acc[rr]);
-    }
-    const float bj = bias[j];
-#pragma unroll
-    for (int rr = 0; rr < RT; ++rr) {
-      const float z = acc[rr] + bj;
-      y[(g * RT + rr) * ys + j] = use_tanh ? tanhf(z) : z;
-    }
+bool make_mlp_net(int L, const int* dims, MlpNet* net) {
+  if (L < 0 || L > MAXL) return false;
+  net->L = L;
+  long off = 0;
+  for (int l = 0; l <= L; ++l) {
+    if (dims[l] < 1) return false;
+    net->dims[l] = dims[l];
+    net->ld[l] = round_up(dims[l], BK);
+    net->hp[l] = round_up(dims[l], BN);
   }
-}
-
-template <int A, int R, bool WIDE, bool GROUPED>
-__global__ void __launch_bounds__(NT) act_kernel(ActArgs p) {
-  static_assert(WIDE || !GROUPED, "policy groups take the wide route");
-  using RM = RowMap<A, GROUPED>;
-  constexpr int NE = envs_per_cta<A>();
-  constexpr int ROWS = NE * A;
-  constexpr int TR = RM::TR;
-  constexpr int G = ROWS / TR;
-  using ES = EnvSmem<A, R>;
-  extern __shared__ float smem[];
-  // Staged: the weights, then two [ROWS, dmax] buffers. Wide: one chunk of
-  // the observation [ROWS, XCH], then two [ROWS, hmax] buffers. With
-  // groups, each tile's weight offset after the rest.
-  const int stride = WIDE ? p.hmax : p.dmax;
-  float* w_s = smem;
-  float* xa = smem + (WIDE ? ROWS * XCH : p.n_weights);
-  float* xb = xa + ROWS * stride;
-  float* head = xb + ROWS * stride;
-  int* env_s = reinterpret_cast<int*>(head + ROWS * HSTRIDE);
-  int* act_s = env_s + NE * ES::SIZE;
-  int* tile_off = GROUPED ? act_s + ROWS : nullptr;
-
-  const int tid = threadIdx.x;
-  const long b0 = (long)blockIdx.x * NE;
-  const int ne = (int)min((long)NE, p.B - b0);
-  const long BA = p.B * A;
-
-  if (!WIDE)
-    for (int i = tid; i < p.n_weights; i += NT) w_s[i] = p.weights[i];
-  if (GROUPED && tid < G)
-    tile_off[tid] = p.group[RM::agent(tid * TR)] * p.n_weights;
-  if (tid < NE) {
-    wh::Env<A, R> e = {};  // rows past the batch end compute on zeros
-    if (tid < ne)
-      wh::load_env(e, b0 + tid, p.pos, p.areq, p.carry, p.rpick, p.rdrop,
-                   p.rstat, p.ragent);
-    ES::put(e, env_s + tid * ES::SIZE);
+  for (int l = 0; l < L; ++l) {
+    net->w_off[l] = off;
+    off += (long)dims[l] * dims[l + 1];
+    net->b_off[l] = off;
+    off += dims[l + 1];
   }
-  __syncthreads();
-
-  for (int t = 0; t < p.T; ++t) {
-    const long tb = (long)t * p.B + b0;  // first (t, b) of the CTA
-    float *x = xa, *y = xb;
-    const float* w = WIDE ? p.weights : w_s;
-    if (WIDE) {
-      // 1 + 2a. The observations of the CTA's rows (RowMap), a chunk of
-      // features at a time, each chunk through its rows of the first
-      // layer's matrix; the sums build up in xb.
-      float* xc = smem;
-      const int out = p.dims[1];
-      for (int c0 = 0; c0 < p.D; c0 += XCH) {
-        const int cw = min(XCH, p.D - c0);
-        for (int idx = tid; idx < ROWS * cw; idx += NT) {
-          const int n = idx / cw, c = idx % cw;
-          const int e = RM::env(n), a = RM::agent(n);
-          const float v =
-              obs_value<A, R>(env_s + e * ES::SIZE, a, c0 + c, p);
-          xc[n * XCH + c] = v;
-          if (e < ne) p.obs[((tb + e) * A + a) * p.D + c0 + c] = v;
-        }
-        __syncthreads();
-        dense_l2<NT, TR, G>(w + (long)c0 * out, w + (long)p.D * out, xc, XCH,
-                            cw, y, stride, out, true, c0 == 0,
-                            c0 + XCH >= p.D, nullptr, 0, 0, tile_off);
-        __syncthreads();
-      }
-      w += (long)p.D * out + out;
-      x = xb;
-      y = xa;
-      // 2b. The other hidden layers, then the fused logits + value head.
-      for (int l = 1; l < p.n_hidden; ++l) {
-        const int in = p.dims[l], out_l = p.dims[l + 1];
-        dense_l2<NT, TR, G>(w, w + in * out_l, x, stride, in, y, stride,
-                            out_l, true, true, true, nullptr, 0, 0, tile_off);
-        w += in * out_l + out_l;
-        __syncthreads();
-        float* tmp = x;
-        x = y;
-        y = tmp;
-      }
-      const int hid = p.dims[p.n_hidden];
-      dense_l2<NT, TR, G>(w, w + hid * NHEAD, x, stride, hid, head, HSTRIDE,
-                          NHEAD, false, true, true, nullptr, 0, 0, tile_off);
-    } else {
-      // 1. Observations of the CTA's rows, row n = (env n / A, agent n % A).
-      for (int idx = tid; idx < ROWS * p.D; idx += NT) {
-        const int n = idx / p.D, f = idx % p.D;
-        const float v =
-            obs_value<A, R>(env_s + (n / A) * ES::SIZE, n % A, f, p);
-        xa[n * p.dmax + f] = v;
-        if (n / A < ne) p.obs[tb * A * p.D + idx] = v;
-      }
-      __syncthreads();
-
-      // 2. MLP: tanh hidden layers, then the fused logits + value head.
-      for (int l = 0; l < p.n_hidden; ++l) {
-        const int in = p.dims[l], out = p.dims[l + 1];
-        dense<ROWS>(w, w + in * out, x, p.dmax, y, p.dmax, in, out, true);
-        w += in * out + out;
-        __syncthreads();
-        float* tmp = x;
-        x = y;
-        y = tmp;
-      }
-      const int hid = p.dims[p.n_hidden];
-      dense<ROWS>(w, w + hid * NHEAD, x, p.dmax, head, HSTRIDE, hid, NHEAD,
-                  false);
-    }
-    __syncthreads();
-
-    // 3. With masking, floor the invalid moves' logits; then sample
-    // argmax(logits + gumbel), first max; stable log-softmax. act_s is
-    // env-major, as tick_env reads it.
-    if (tid < ROWS) {
-      const int e = RM::env(tid), a = RM::agent(tid);
-      act_s[e * A + a] = sample_row<A>(p, head + tid * HSTRIDE,
-                                       env_s + e * ES::SIZE, e * A + a,
-                                       e < ne, t, b0);
-    }
-    __syncthreads();
-
-    // 4. Env tick and rewards, one thread per env.
-    if (tid < ne)
-      tick_env<A, R>(p, env_s + tid * ES::SIZE, act_s + tid * A, tb + tid);
-    __syncthreads();
-  }
-
-  if (tid < ne) {
-    wh::Env<A, R> e;
-    ES::get(env_s + tid * ES::SIZE, e);
-    wh::store_env(e, b0 + tid, p.o_pos, p.o_areq, p.o_carry, p.o_rpick,
-                  p.o_rdrop, p.o_rstat, p.o_ragent);
-  }
-}
-
-// Shared memory of one CTA on the staged route (wide false) or the wide one.
-template <int A, int R>
-size_t smem_bytes(const ActArgs& p, bool wide) {
-  constexpr int NE = envs_per_cta<A>();
-  constexpr int ROWS = NE * A;
-  const size_t floats =
-      wide ? (size_t)ROWS * XCH + 2 * (size_t)ROWS * p.hmax
-           : (size_t)p.n_weights + 2 * (size_t)ROWS * p.dmax;
-  return sizeof(float) * (floats + ROWS * HSTRIDE) +
-         sizeof(int) * (NE * EnvSmem<A, R>::SIZE + ROWS +
-                        (p.n_groups > 1 ? MAXK : 0));
-}
-
-// The route of a shape: staged where that fits the device's shared memory
-// and there is one policy group, else wide, which needs a hidden layer to
-// hold the first layer's sums. Returns whether the route's shared memory
-// fits.
-template <int A, int R>
-bool route_for(const ActArgs& p, bool* wide) {
-  const size_t limit = smem_optin_limit();
-  *wide = p.n_hidden >= 1 &&
-          (p.n_groups > 1 || smem_bytes<A, R>(p, false) > limit);
-  return (*wide || p.n_groups == 1) && smem_bytes<A, R>(p, *wide) <= limit;
-}
-
-template <int A, int R>
-struct SmemBytes {
-  static void run(const ActArgs& p, size_t* out) {
-    bool wide = false;
-    route_for<A, R>(p, &wide);
-    *out = smem_bytes<A, R>(p, wide);
-  }
-};
-
-template <int A, int R>
-struct IsWide {
-  static void run(const ActArgs& p, int* out) {
-    bool wide = false;
-    route_for<A, R>(p, &wide);
-    *out = wide;
-  }
-};
-
-template <int A, int R>
-struct LaunchAct {
-  template <bool WIDE, bool GROUPED>
-  static int launch(const ActArgs& p, size_t smem, cudaStream_t stream) {
-    constexpr int NE = envs_per_cta<A>();
-    cudaError_t e = cudaFuncSetAttribute(
-        act_kernel<A, R, WIDE, GROUPED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    const unsigned blocks = (unsigned)((p.B + NE - 1) / NE);
-    act_kernel<A, R, WIDE, GROUPED><<<blocks, NT, smem, stream>>>(p);
-    return (int)cudaGetLastError();
-  }
-  static void run(const ActArgs& p, cudaStream_t stream, int* err) {
-    bool wide = false;
-    if (!route_for<A, R>(p, &wide)) {
-      *err = (int)cudaErrorInvalidValue;
-      return;
-    }
-    const size_t smem = smem_bytes<A, R>(p, wide);
-    *err = !wide ? launch<false, false>(p, smem, stream)
-                 : p.n_groups > 1 ? launch<true, true>(p, smem, stream)
-                                  : launch<true, false>(p, smem, stream);
-  }
-};
-
-// Whether K groups and the agent -> group map (null: one group) are valid
-// for A agents.
-bool groups_ok(int A, int n_groups, const int* groups) {
-  if (n_groups < 1 || n_groups > MAXK || A > MAXK) return false;
-  if (n_groups > 1 && !groups) return false;
-  for (int a = 0; groups && a < A; ++a)
-    if (groups[a] < 0 || groups[a] >= n_groups) return false;
+  net->head_w = off;
+  off += (long)dims[L] * NHEAD;
+  net->head_b = off;
+  net->n_weights = off + NHEAD;
   return true;
 }
 
-ActArgs make_args(long B, int T, int H, int W, float spawn_prob, int S,
-                  int k, int D, int gobs, float inv_h, float inv_w,
-                  int n_hidden, const int* dims, int n_weights, int A = 0,
-                  int n_groups = 1, const int* groups = nullptr) {
-  ActArgs p = {};
-  p.B = B;
-  p.T = T;
-  p.geo.H = H;
-  p.geo.W = W;
-  p.geo.spawn_prob = spawn_prob;
-  p.S = S;
-  p.k = k;
-  p.D = D;
-  p.gobs = gobs;
-  p.inv_h = inv_h;
-  p.inv_w = inv_w;
-  p.n_hidden = n_hidden;
-  p.dmax = D;
-  for (int l = 0; l <= n_hidden && l <= MAXL; ++l) {
-    p.dims[l] = dims[l];
-    if (dims[l] > p.dmax) p.dmax = dims[l];
-    if (l > 0 && dims[l] > p.hmax) p.hmax = dims[l];
+// The workspace, offsets in floats, each a multiple of 32: bt[l] [K][hp[l +
+// 1]][ld[l]] for l < L, hw [K][6][H], xs [N][ld[0]], two buffers of N HL
+// floats (HL the widest of ld[1 .. L - 1]; hidden layer l's rows [N][ld[l +
+// 1]] in h[l % 2]), head [N][HSTRIDE], envst [B][4 A + 6 R] ints.
+struct WorkLayout {
+  long bt[MAXL], hw, xs, h[2], head, envst, total;
+  int HL;
+};
+
+WorkLayout work_layout(const MlpNet& net, int A, int R, long B, int K) {
+  WorkLayout w = {};
+  long off = 0;
+  auto take = [&](long n) {
+    const long o = off;
+    off += (n + 31) / 32 * 32;
+    return o;
+  };
+  const long N = B * A;
+  for (int l = 0; l < net.L; ++l)
+    w.bt[l] = take((long)K * net.hp[l + 1] * net.ld[l]);
+  w.hw = take((long)K * NHEAD * net.dims[net.L]);
+  w.xs = take(N * net.ld[0]);
+  for (int l = 1; l < net.L; ++l) w.HL = w.HL > net.ld[l] ? w.HL : net.ld[l];
+  w.h[0] = take(N * w.HL);
+  w.h[1] = take(net.L > 2 ? N * w.HL : 0);
+  w.head = take(N * HSTRIDE);
+  w.envst = take(B * (4L * A + 6L * R));
+  w.total = off;
+  return w;
+}
+
+// K2's arguments: the env stage's, then the MLP's layout and workspace.
+struct ActMlpArgs : ActEnvArgs {
+  MlpNet net;
+  const float* weights;  // K packed vectors in group order
+  float* bt[MAXL];       // each layer's Bt, K of them
+  float* hw;             // the head [6][H], K of them
+  float* xs;             // [N][ld[0]] the observation rows in row order
+  float* h[2];           // the hidden rows, ping-pong
+};
+
+// ---- prep: the layers' kernels as the tile GEMMs read them ------------------
+
+__global__ void mlp_prep_kernel(ActMlpArgs p) {
+  const MlpNet& net = p.net;
+  const long i0 = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long stride = (long)gridDim.x * blockDim.x;
+  for (int l = 0; l < net.L; ++l) {
+    const int in = net.dims[l], out = net.dims[l + 1];
+    const int rows = net.hp[l + 1], cols = net.ld[l];
+    const long per = (long)rows * cols;
+    for (long i = i0; i < per * p.rg.K; i += stride) {
+      const int g = (int)(i / per), j = (int)(i % per / cols),
+                k = (int)(i % cols);
+      p.bt[l][i] = j < out && k < in
+                       ? p.weights[g * net.n_weights + net.w_off[l] +
+                                   (long)k * out + j]
+                       : 0.f;
+    }
   }
-  p.n_weights = n_weights;
-  p.n_groups = n_groups;
-  for (int a = 0; groups && a < A && a < MAXK; ++a) p.group[a] = groups[a];
-  return p;
+  const int H = net.dims[net.L];
+  const long per = (long)NHEAD * H;
+  for (long i = i0; i < per * p.rg.K; i += stride) {
+    const int g = (int)(i / per), o = (int)(i % per / H), k = (int)(i % H);
+    p.hw[i] = p.weights[g * net.n_weights + net.head_w + (long)k * NHEAD + o];
+  }
+}
+
+// ---- the hidden layers but the last -----------------------------------------
+
+// y = tanh(x Bt^T + b) on group g's Bt and bias (their bases plus g times
+// their group strides): columns < n, zeros in [n, ldy).
+struct HiddenStage {
+  const float* x;
+  int K;  // x's row stride and the columns read: a multiple of BK
+  const float* bt;
+  long bt_g;
+  const float* bias;
+  long bias_g;
+  float* y;
+  int ldy, n;
+};
+
+// One BM-row tile (blockIdx.x) of one group's rows by BN columns
+// (blockIdx.y).
+__global__ void __launch_bounds__(GNT) hidden_kernel(HiddenStage s,
+                                                     RowGroups rg) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const int n0 = blockIdx.y * BN;
+  long q0;
+  int nvalid;
+  const int g = rg.bm_tile(blockIdx.x, &q0, &nvalid);
+  const float* bias = s.bias + g * s.bias_g;
+  float acc[4][8] = {};
+  gemm_64x128_f32(acc, s.x + q0 * s.K, s.K, nvalid,
+                  s.bt + g * s.bt_g + (long)n0 * s.K, s.K, s.K, smem);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int row = tr + 16 * i, col = n0 + tc + 16 * j;
+      if (row >= nvalid || col >= s.ldy) continue;
+      s.y[(q0 + row) * s.ldy + col] =
+          col < s.n ? tanhf(acc[i][j] + __ldg(bias + col)) : 0.f;
+    }
+}
+
+size_t smem_hidden() { return sizeof(float) * 2 * (BM + BN) * ldt<false>(); }
+
+// ---- no hidden layer: the head on the observation rows ----------------------
+
+// One thread a (row, head output): the sum over the D features of the
+// group's head W [D, 6], in k order, then + b.
+__global__ void head0_kernel(ActMlpArgs p) {
+  const int D = p.net.dims[0], K = p.net.ld[0];
+  const long n = p.rg.first[p.rg.K] * HSTRIDE;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x) {
+    const long q = i / HSTRIDE;
+    const int o = (int)(i % HSTRIDE);
+    float v = 0.f;
+    if (o < NHEAD) {
+      int g = 0;
+      while (g + 1 < p.rg.K && q >= p.rg.first[g + 1]) ++g;
+      const float* w = p.weights + g * p.net.n_weights + p.net.head_w;
+      const float* x = p.xs + q * K;
+      for (int k = 0; k < D; ++k) v = fmaf(__ldg(w + k * NHEAD + o), x[k], v);
+      v = v + __ldg(p.weights + g * p.net.n_weights + p.net.head_b + o);
+    }
+    p.head[i] = v;
+  }
+}
+
+// ---- host side ----------------------------------------------------------------
+
+// The shape checks of every entry point: a supported net, agents and queue
+// of a preset, K in [1, 8] with a valid map (null: one group).
+bool shape_ok(int A, int R, int L, const int* dims, int K, const int* group,
+              MlpNet* net) {
+  RowGroups rg;
+  return make_mlp_net(L, dims, net) && known_shape(A, R) &&
+         make_groups(A, 1, K, K > 1 ? group : nullptr, 0, &rg);
+}
+
+enum Stage { ST_HIDDEN = 0, ST_HEAD = 1, ST_ENV = 2, ST_ALL = 3 };
+
+// A hidden layer l < L - 1 reads in_buf(l), writes h[l % 2]; the head stage
+// reads in_buf(L - 1) (xs without hidden layers).
+const float* in_buf(const ActMlpArgs& p, int l) {
+  return l <= 0 ? p.xs : p.h[(l - 1) % 2];
+}
+
+// One K2 call: the whole chunk (ST_ALL), or one stage of its step 0 (the
+// stage checks): ST_HIDDEN (with prep) runs hidden layer `layer` on
+// in_buf(layer), ST_HEAD (with prep) the head stage on in_buf(L - 1),
+// ST_ENV reads head and the input state and writes step 0's outputs, the
+// final state and the next observation rows into obs_next and xs. p's
+// shapes, pointers and options are set; this carves the workspace and
+// launches.
+cudaError_t run_act_mlp(int stage, int layer, ActMlpArgs& p, int R, int K,
+                        const int* group, float* work, float* obs_next,
+                        cudaStream_t stream) {
+  const int A = p.A;
+  const MlpNet& net = p.net;
+  const int L = net.L;
+  if (!make_groups(A, p.B, K, K > 1 ? group : nullptr, 0, &p.rg))
+    return cudaErrorInvalidValue;
+  const WorkLayout wl = work_layout(net, A, R, p.B, K);
+  for (int l = 0; l < L; ++l) p.bt[l] = work + wl.bt[l];
+  p.hw = work + wl.hw;
+  p.xs = work + wl.xs;
+  p.h[0] = work + wl.h[0];
+  p.h[1] = work + wl.h[1];
+  p.head = work + wl.head;
+  p.envst = reinterpret_cast<int*>(work + wl.envst);
+  const unsigned tiles = (unsigned)p.rg.tile_b[p.rg.K];
+  cudaError_t e;
+  if ((e = opt_in(hidden_kernel, smem_hidden())) != cudaSuccess ||
+      (e = opt_in(head_kernel, smem_head())) != cudaSuccess)
+    return e;
+  // The env stage: the tick, then (unless the chunk ends) the next
+  // observation rows into `out` and xs.
+  auto env = [&](int t, int mode, float* out) {
+    cudaError_t err = launch_env(p, R, t, mode, nullptr, stream);
+    if (err != cudaSuccess || ((mode & TO_OUTPUT) && !(mode & KEEP_STATE)))
+      return err;
+    return launch_obs(p, R, out, p.xs, net.ld[0], stream);
+  };
+  auto hidden = [&](int l) {
+    const HiddenStage hs = {in_buf(p, l), net.ld[l], p.bt[l],
+                            (long)net.hp[l + 1] * net.ld[l],
+                            p.weights + net.b_off[l], net.n_weights,
+                            p.h[l % 2], net.ld[l + 1], net.dims[l + 1]};
+    const dim3 grid(tiles, (unsigned)(net.hp[l + 1] / BN));
+    hidden_kernel<<<grid, GNT, smem_hidden(), stream>>>(hs, p.rg);
+    return cudaGetLastError();
+  };
+  auto head = [&]() {
+    if (L == 0) {
+      head0_kernel<<<(unsigned)((p.rg.first[p.rg.K] * HSTRIDE + 255) / 256),
+                     256, 0, stream>>>(p);
+      return cudaGetLastError();
+    }
+    const int l = L - 1;
+    const HeadStage hs = {in_buf(p, l), net.ld[l], p.bt[l],
+                          (long)net.hp[l + 1] * net.ld[l], net.dims[L],
+                          net.hp[L], p.weights + net.b_off[l], net.n_weights,
+                          p.hw, (long)NHEAD * net.dims[L],
+                          p.weights + net.head_b, net.n_weights, p.head};
+    return launch_head(hs, p.rg, stream);
+  };
+  if (L > 0 && (stage == ST_HIDDEN || stage == ST_HEAD || stage == ST_ALL)) {
+    mlp_prep_kernel<<<256, 256, 0, stream>>>(p);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  if (stage == ST_HIDDEN)
+    return layer >= 0 && layer + 1 < L ? hidden(layer)
+                                       : cudaErrorInvalidValue;
+  if (stage == ST_HEAD) return head();
+  if (stage == ST_ENV)
+    return env(0, FROM_INPUT | TO_OUTPUT | KEEP_STATE, obs_next);
+  const long obs_step = p.B * A * (long)p.D;
+  if ((e = env(-1, FROM_INPUT, p.obs)) != cudaSuccess) return e;
+  for (int t = 0; t < p.T; ++t) {
+    for (int l = 0; l + 1 < L; ++l)
+      if ((e = hidden(l)) != cudaSuccess) return e;
+    if ((e = head()) != cudaSuccess) return e;
+    const bool last = t + 1 == p.T;
+    if ((e = env(t, last ? TO_OUTPUT : 0,
+                 last ? nullptr : p.obs + (t + 1) * obs_step)) != cudaSuccess)
+      return e;
+  }
+  return cudaSuccess;
+}
+
+// The arguments shared by the two entry points below.
+int act_mlp_call(
+    int stage, int layer, int A, int R, long B, int T, int H, int W,
+    float spawn_prob, int S, int k, int D, int global_obs, float inv_h,
+    float inv_w, float step_penalty, float pickup_reward,
+    float delivery_reward, float collision_penalty, int n_hidden,
+    const int* dims, const unsigned char* walls, const float* weights,
+    int n_groups, const int* groups, float* work, const int* pos,
+    const int* areq, const int* carry, const int* rpick, const int* rdrop,
+    const int* rstat, const int* ragent, const float* u, const int* pick,
+    const int* drop, const float* gumbel, int* o_pos, int* o_areq,
+    int* o_carry, int* o_rpick, int* o_rdrop, int* o_rstat, int* o_ragent,
+    float* obs, int* action, float* log_prob, float* value, float* reward,
+    int* delivered, float* logits, unsigned char* mask, const int* table,
+    const float* done, float* raw_reward, float shaping_coef, float gamma,
+    float* obs_next, void* stream_) {
+  ActMlpArgs p = {};
+  if (!shape_ok(A, R, n_hidden, dims, n_groups, groups, &p.net) ||
+      p.net.dims[0] != D)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return (int)cudaSuccess;
+  set_env_args(p, B, T, A, H, W, spawn_prob, S, k, D, global_obs, inv_h,
+               inv_w, step_penalty, pickup_reward, delivery_reward,
+               collision_penalty, walls, pos, areq, carry, rpick, rdrop, rstat,
+               ragent, u, pick, drop, gumbel, o_pos, o_areq, o_carry, o_rpick,
+               o_rdrop, o_rstat, o_ragent, obs, action, log_prob, value,
+               reward, delivered, logits, mask, table, done, raw_reward,
+               shaping_coef, gamma);
+  p.weights = weights;
+  return (int)run_act_mlp(stage, layer, p, R, n_groups, groups, work,
+                          obs_next, (cudaStream_t)stream_);
 }
 
 }  // namespace
 
-// Shared memory one CTA needs on the route the shape takes, in bytes (more
-// than the device allows when no route holds the shape), or 0 for an
-// unsupported shape. n_weights is one group's, of n_groups.
-extern "C" long wh_act_smem_bytes(int A, int R, int D, int n_hidden,
-                                  const int* dims, int n_weights,
-                                  int n_groups) {
-  if (n_hidden < 0 || n_hidden > MAXL || n_groups < 1 || n_groups > MAXK)
-    return 0;
-  ActArgs p = make_args(0, 0, 0, 0, 0.f, 0, 0, D, 0, 0.f, 0.f, n_hidden,
-                        dims, n_weights, A, n_groups);
-  size_t out = 0;
-  if (!wh::dispatch_shape<SmemBytes>(A, R, p, &out)) return 0;
-  return (long)out;
+// Floats of one group's packed weights, or 0 for unsupported widths.
+extern "C" long wh_act_weight_floats(int n_hidden, const int* dims) {
+  MlpNet net;
+  return make_mlp_net(n_hidden, dims, &net) ? net.n_weights : 0;
 }
 
-// Whether the shape takes the wide route (1) or the staged one (0) on the
-// current device; -1 for an unsupported shape.
-extern "C" int wh_act_wide(int A, int R, int D, int n_hidden,
-                           const int* dims, int n_weights, int n_groups) {
-  if (n_hidden < 0 || n_hidden > MAXL || n_groups < 1 || n_groups > MAXK)
-    return -1;
-  ActArgs p = make_args(0, 0, 0, 0, 0.f, 0, 0, D, 0, 0.f, 0.f, n_hidden,
-                        dims, n_weights, A, n_groups);
-  int out = 0;
-  return wh::dispatch_shape<IsWide>(A, R, p, &out) ? out : -1;
+// Floats of the workspace a call takes for B envs and K groups, or 0 for an
+// unsupported shape.
+extern "C" long wh_act_workspace_floats(int A, int R, long B, int n_hidden,
+                                        const int* dims, int K) {
+  MlpNet net;
+  if (!make_mlp_net(n_hidden, dims, &net) || K < 1) return 0;
+  return work_layout(net, A, R, B, K).total;
 }
 
+// The workspace's layout: out = the float offsets of xs, h[0], h[1], head
+// and envst. A row of xs, or of hidden layer l's output, is its width
+// rounded up to 32 (BK) floats apart.
+extern "C" int wh_act_layout(int A, int R, long B, int n_hidden,
+                             const int* dims, int K, long* out) {
+  MlpNet net;
+  if (!make_mlp_net(n_hidden, dims, &net) || K < 1)
+    return (int)cudaErrorInvalidValue;
+  const WorkLayout w = work_layout(net, A, R, B, K);
+  out[0] = w.xs;
+  out[1] = w.h[0];
+  out[2] = w.h[1];
+  out[3] = w.head;
+  out[4] = w.envst;
+  return 0;
+}
+
+// T steps of the MLP policy. `work` is the workspace
+// (wh_act_workspace_floats). `weights` holds n_groups packed vectors in
+// group order and `groups` maps each agent to one of them (null with one
+// group).
 extern "C" int wh_act_rollout(
     int A, int R, long B, int T, int H, int W, float spawn_prob, int S,
     int k, int D, int global_obs, float inv_h, float inv_w,
     float step_penalty, float pickup_reward, float delivery_reward,
     float collision_penalty, int n_hidden, const int* dims,
-    const unsigned char* walls,
-    const float* weights, int n_weights, int n_groups, const int* groups,
-    const int* pos, const int* areq,
+    const unsigned char* walls, const float* weights, int n_groups,
+    const int* groups, float* work, const int* pos, const int* areq,
     const int* carry, const int* rpick, const int* rdrop, const int* rstat,
     const int* ragent, const float* u, const int* pick, const int* drop,
     const float* gumbel, int* o_pos, int* o_areq, int* o_carry,
@@ -429,52 +416,41 @@ extern "C" int wh_act_rollout(
     int* delivered, float* logits, unsigned char* mask, const int* table,
     const float* done, float* raw_reward, float shaping_coef, float gamma,
     void* stream) {
-  if (n_hidden < 0 || n_hidden > MAXL || !groups_ok(A, n_groups, groups))
-    return (int)cudaErrorInvalidValue;
-  if (B <= 0 || T <= 0) return (int)cudaSuccess;
-  ActArgs p = make_args(B, T, H, W, spawn_prob, S, k, D, global_obs, inv_h,
-                        inv_w, n_hidden, dims, n_weights, A, n_groups,
-                        groups);
-  p.step_penalty = step_penalty;
-  p.pickup_reward = pickup_reward;
-  p.delivery_reward = delivery_reward;
-  p.collision_penalty = collision_penalty;
-  p.geo.walls = walls;
-  p.weights = weights;
-  p.pos = pos;
-  p.areq = areq;
-  p.carry = carry;
-  p.rpick = rpick;
-  p.rdrop = rdrop;
-  p.rstat = rstat;
-  p.ragent = ragent;
-  p.u = u;
-  p.pick = pick;
-  p.drop = drop;
-  p.gumbel = gumbel;
-  p.o_pos = o_pos;
-  p.o_areq = o_areq;
-  p.o_carry = o_carry;
-  p.o_rpick = o_rpick;
-  p.o_rdrop = o_rdrop;
-  p.o_rstat = o_rstat;
-  p.o_ragent = o_ragent;
-  p.obs = obs;
-  p.action = action;
-  p.log_prob = log_prob;
-  p.value = value;
-  p.reward = reward;
-  p.delivered = delivered;
-  p.logits = logits;
-  p.mask = mask;
-  p.shp.table = table;
-  p.shp.done = done;
-  p.shp.raw_reward = raw_reward;
-  p.shp.coef = shaping_coef;
-  p.shp.gamma = gamma;
-  p.shp.C = H * W;
-  int err = (int)cudaSuccess;
-  if (!wh::dispatch_shape<LaunchAct>(A, R, p, (cudaStream_t)stream, &err))
-    return (int)cudaErrorInvalidValue;
-  return err;
+  return act_mlp_call(
+      ST_ALL, 0, A, R, B, T, H, W, spawn_prob, S, k, D, global_obs, inv_h,
+      inv_w, step_penalty, pickup_reward, delivery_reward, collision_penalty,
+      n_hidden, dims, walls, weights, n_groups, groups, work, pos, areq,
+      carry, rpick, rdrop, rstat, ragent, u, pick, drop, gumbel, o_pos,
+      o_areq, o_carry, o_rpick, o_rdrop, o_rstat, o_ragent, obs, action,
+      log_prob, value, reward, delivered, logits, mask, table, done,
+      raw_reward, shaping_coef, gamma, nullptr, stream);
+}
+
+// One stage of step 0 (0: hidden layer `layer`, 1: head, 2: env;
+// wh_act_rollout's arguments, T = 1), on the rows the workspace holds; the
+// env stage writes the next observation rows [B, A, D] into obs_next.
+extern "C" int wh_act_stage(
+    int stage, int layer, int A, int R, long B, int T, int H, int W,
+    float spawn_prob, int S, int k, int D, int global_obs, float inv_h,
+    float inv_w, float step_penalty, float pickup_reward,
+    float delivery_reward, float collision_penalty, int n_hidden,
+    const int* dims, const unsigned char* walls, const float* weights,
+    int n_groups, const int* groups, float* work, const int* pos,
+    const int* areq, const int* carry, const int* rpick, const int* rdrop,
+    const int* rstat, const int* ragent, const float* u, const int* pick,
+    const int* drop, const float* gumbel, int* o_pos, int* o_areq,
+    int* o_carry, int* o_rpick, int* o_rdrop, int* o_rstat, int* o_ragent,
+    float* obs, int* action, float* log_prob, float* value, float* reward,
+    int* delivered, float* logits, unsigned char* mask, const int* table,
+    const float* done, float* raw_reward, float shaping_coef, float gamma,
+    float* obs_next, void* stream) {
+  if (stage < ST_HIDDEN || stage > ST_ENV) return (int)cudaErrorInvalidValue;
+  return act_mlp_call(
+      stage, layer, A, R, B, T, H, W, spawn_prob, S, k, D, global_obs, inv_h,
+      inv_w, step_penalty, pickup_reward, delivery_reward, collision_penalty,
+      n_hidden, dims, walls, weights, n_groups, groups, work, pos, areq,
+      carry, rpick, rdrop, rstat, ragent, u, pick, drop, gumbel, o_pos,
+      o_areq, o_carry, o_rpick, o_rdrop, o_rstat, o_ragent, obs, action,
+      log_prob, value, reward, delivered, logits, mask, table, done,
+      raw_reward, shaping_coef, gamma, obs_next, stream);
 }

@@ -24,16 +24,17 @@
 //      taps x C1 channels read as float4 (8 + 8 16-byte loads for 256 FMAs
 //      per 4 channels). a0 stays in shared memory; relu(conv 1), the self
 //      features and zeros to KT go to a1 [N, KT].
-//   B trunk_kernel: h = tanh(a1 Wt^T + bt) as 64 x 128 tiles
-//      (mma_tiles.cuh gemm_64x128_f32, a pass per 128 of H); the epilogue
-//      keeps a pass's h in shared memory and carries the 6 x H head's sums
-//      over the passes in column order: head [N, 8].
-//   C env_kernel: 128 threads over 32 / A envs (16 at 6 and 8 agents:
-//      env_cta): each row's mask, sample and outputs (act_common.cuh
-//      sample_row: gumbel, first max, stable log-softmax), each env's tick
-//      with rewards, shaping and deliveries (tick_env), then the next
-//      step's observation rows into obs[t + 1] (obs_value). A prologue
-//      launch writes obs[0]; the last step stores the final state.
+//   B head_kernel (act_stages.cuh, shared with K2): h = tanh(a1 Wt^T +
+//      bt) as 64 x 128 tiles (mma_tiles.cuh gemm_64x128_f32, a pass per 128
+//      of H); the epilogue keeps a pass's h in shared memory and carries
+//      the 6 x H head's sums over the passes in column order: head [N, 8].
+//   C env_kernel (act_stages.cuh, shared with K2): 128 threads over 32 / A
+//      envs (16 at 6 and 8 agents: env_cta): each row's mask, sample and
+//      outputs (act_common.cuh sample_row: gumbel, first max, stable
+//      log-softmax), each env's tick with rewards, shaping and deliveries
+//      (tick_env), then the next step's observation rows into obs[t + 1]
+//      (obs_value). A prologue launch writes obs[0]; the last step stores
+//      the final state.
 //   prep (once a call): the trunk's kernel as wk [HP, KT] per group,
 //      zero-padded to whole tiles.
 //
@@ -61,31 +62,16 @@
 
 #include <cuda_runtime.h>
 
-#include "act_common.cuh"
+#include "act_stages.cuh"
 #include "cnn_net.cuh"
-#include "env_tick.cuh"
-#include "mma_tiles.cuh"
 
 namespace {
 
-constexpr int CNN_MAXK = 8;  // policy groups
-constexpr int CNN_MAXA = 8;  // agents of an env (the presets' most)
 constexpr int ANT = 256;     // threads of stage A: 8 warps
 constexpr int ANW = ANT / 32;
 constexpr int RA_MIN = 16;   // samples of a stage-A tile at least (K12's
                              // smallest: the maps K11 refuses stay refused)
 constexpr int RA_MAX = 64;
-constexpr int CNT = 128;     // threads of stage C
-
-// Envs of a stage-C CTA. One thread ticks each env, serially, and the tick
-// of 6 or 8 agents holds 167-255 registers a thread, so few CTAs fit an SM:
-// 16 envs a CTA then tick in one wave at B = 4096 where 32 / A would take
-// three or four. At 2 and 4 agents 32 rows a CTA (the observation rows'
-// work spread over more CTAs).
-__host__ __device__ constexpr int env_cta(int A) {
-  return A <= 4 ? 32 / A : 16;
-}
-
 // Stage A's layout of one sample and of the conv kernels, and stage B's
 // padded widths.
 struct ConvDims {
@@ -101,8 +87,6 @@ struct ConvDims {
   int HP;    // H rounded up to 128: wk's rows, stage B's passes
   int WF;    // floats of the staged conv kernels (+ koff), a multiple of 4
 };
-
-inline int round_up(long x, int m) { return (int)((x + m - 1) / m * m); }
 
 inline ConvDims conv_dims(const CnnNet& net) {
   ConvDims d;
@@ -135,88 +119,14 @@ size_t smem_a(const ConvDims& d, int ra) {
                           (size_t)ra * (d.XR + d.A0R));
 }
 
-size_t smem_b() {
-  return sizeof(float) * (2 * (BM + BN) * ldt<false>() + BM * (BN + 4) +
-                          BM * ROST);
-}
-
-// The rows' order: group g's (env, agent) pairs are rows first[g] ..
-// first[g + 1] - 1, env by env, each env's in agent order. Without groups,
-// one group of all agents: row b A + a.
-struct RowGroups {
-  int K;                          // groups (1 without groups)
-  int group[CNN_MAXA];            // agent -> group
-  int n[CNN_MAXK];                // agents of each group
-  int rank[CNN_MAXA];             // an agent's place in its group
-  int agent[CNN_MAXK][CNN_MAXA];  // each group's agents in order
-  long first[CNN_MAXK + 1];       // each group's first row
-  long tile_a[CNN_MAXK + 1];      // each group's first stage-A tile
-  long tile_b[CNN_MAXK + 1];      // its first stage-B tile
-
-  __host__ __device__ long row_of(long b, int a) const {
-    const int g = group[a];
-    return first[g] + b * n[g] + rank[a];
-  }
-  // The group of stage tile `tile` whose table is `tiles`.
-  __device__ int group_of(long tile, const long* tiles) const {
-    int g = 0;
-    while (g + 1 < K && tile >= tiles[g + 1]) ++g;
-    return g;
-  }
-};
-
-// False for a map with a group id out of [0, K), or K out of [1, 8].
-inline bool make_groups(int A, long B, int K, const int* group, int ra,
-                        RowGroups* rg) {
-  if (K < 1 || K > CNN_MAXK || A > CNN_MAXA) return false;
-  rg->K = K;
-  for (int g = 0; g < K; ++g) rg->n[g] = 0;
-  for (int a = 0; a < A; ++a) {
-    const int g = group ? group[a] : 0;
-    if (g < 0 || g >= K) return false;
-    rg->group[a] = g;
-    rg->rank[a] = rg->n[g];
-    rg->agent[g][rg->n[g]++] = a;
-  }
-  rg->first[0] = rg->tile_a[0] = rg->tile_b[0] = 0;
-  for (int g = 0; g < K; ++g) {
-    const long rows = B * rg->n[g];
-    rg->first[g + 1] = rg->first[g] + rows;
-    rg->tile_a[g + 1] = rg->tile_a[g] + (ra > 0 ? (rows + ra - 1) / ra : 0);
-    rg->tile_b[g + 1] = rg->tile_b[g] + (rows + BM - 1) / BM;
-  }
-  return true;
-}
-
-struct ActCnnArgs {
-  long B;
-  int T, A;
-  wh::Geometry geo;
-  int S, k, D;         // window side, radius, obs dim
-  int gobs;            // the global observation instead of the ego window
-  float inv_h, inv_w;  // float32 reciprocals of H and W
-  float step_penalty, pickup_reward, delivery_reward, collision_penalty;
+// K10's arguments: the env stage's, then the CNN's layout and workspace.
+struct ActCnnArgs : ActEnvArgs {
   CnnNet net;
   ConvDims cd;
-  RowGroups rg;
   int RA;                // samples per stage-A tile
   const float* params;   // the packed vector (cnn_net.cuh), per group
   float* wk;             // [K][HP][KT] the trunk's kernels, zero-padded
   float* a1;             // [N][KT] the trunk's input rows
-  float* head;           // [N][ROST] the head's outputs
-  int* envst;            // [B][EnvSmem SIZE] the env states between steps
-  const int *pos, *areq, *carry, *rpick, *rdrop, *rstat, *ragent;
-  const float* u;
-  const int *pick, *drop;
-  const float* gumbel;   // [T, 5, B * A]
-  int *o_pos, *o_areq, *o_carry, *o_rpick, *o_rdrop, *o_rstat, *o_ragent;
-  float* obs;            // [T, B, A, D]
-  int* action;           // [T, B, A]
-  float *log_prob, *value, *reward;  // [T, B, A]
-  int* delivered;        // [T, B]
-  float* logits;         // [T, B, A, 5] pre-mask logits, or null
-  unsigned char* mask;   // [T, B, A, 5] valid moves, or null: no masking
-  Shaping shp;  // the potential-shaping option; off when its table is null
 };
 
 // ---- prep: the trunk's kernels as stage B reads them ------------------------
@@ -442,141 +352,6 @@ __global__ void __launch_bounds__(ANT) conv_kernel(ActCnnArgs p, int t) {
   }
 }
 
-// ---- B: the trunk and the head ----------------------------------------------
-
-__global__ void __launch_bounds__(GNT) trunk_kernel(ActCnnArgs p) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int HBS = BN + 4;
-  const CnnNet& net = p.net;
-  const RowGroups& rg = p.rg;
-  const int H = net.H, KT = p.cd.KT;
-  float* ring = smem;
-  float* hb = ring + 2 * (BM + BN) * ldt<false>();  // [BM][HBS] a pass's h
-  float* hsum = hb + BM * HBS;                      // [BM][ROST] head sums
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  const int g = rg.group_of(blockIdx.x, rg.tile_b);
-  const long q0 = rg.first[g] + ((long)blockIdx.x - rg.tile_b[g]) * BM;
-  const int nvalid =
-      (int)(rg.first[g + 1] - q0 < BM ? rg.first[g + 1] - q0 : BM);
-  const float* pg = p.params + g * net.n_params;
-  const float* wk = p.wk + (long)g * p.cd.HP * KT;
-  for (int i = tid; i < BM * ROST; i += GNT) hsum[i] = 0.f;
-  for (int n0 = 0; n0 < p.cd.HP; n0 += BN) {
-    float acc[4][8] = {};
-    gemm_64x128_f32(acc, p.a1 + q0 * KT, KT, nvalid, wk + (long)n0 * KT, KT,
-                    KT, ring);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + tc + 16 * j;
-        hb[(tr + 16 * i) * HBS + tc + 16 * j] =
-            col < H ? tanhf(acc[i][j] + __ldg(pg + net.bt + col)) : 0.f;
-      }
-    __syncthreads();
-    // The head's sums carried over the passes, each in column order. The
-    // next pass's GEMM synchronises before anything writes hb again.
-    const int w = H - n0 < BN ? H - n0 : BN;
-    for (int it = tid; it < BM * RHEAD; it += GNT) {
-      const int n = it / RHEAD, o = it % RHEAD;
-      const float* wo = pg + net.head_w + (long)o * H + n0;
-      float s = hsum[n * ROST + o];
-      for (int k = 0; k < w; ++k) s = fmaf(hb[n * HBS + k], __ldg(wo + k), s);
-      hsum[n * ROST + o] = s;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < nvalid * ROST; i += GNT) {
-    const int n = i / ROST, o = i % ROST;
-    p.head[(q0 + n) * ROST + o] =
-        o < RHEAD ? hsum[n * ROST + o] + __ldg(pg + net.head_b + o) : 0.f;
-  }
-}
-
-// ---- C: sample, tick, observe -----------------------------------------------
-
-enum { FROM_INPUT = 1, TO_OUTPUT = 2 };
-
-// env_cta(A) envs a CTA: their states from the inputs (FROM_INPUT) or
-// envst; at t >= 0 each row's sample from its head row and each env's tick
-// at step t; the observation rows of the ticked states into obs_out (when
-// set, [B, A, D]); the states to the outputs (TO_OUTPUT) or envst.
-template <int A, int R>
-__global__ void __launch_bounds__(CNT) env_kernel(ActCnnArgs p, int t,
-                                                  int mode, float* obs_out) {
-  using ES = EnvSmem<A, R>;
-  constexpr int NE = env_cta(A);
-  static_assert(NE * A <= CNT, "a thread samples each row");
-  __shared__ int env_s[NE * ES::SIZE];
-  __shared__ int act_s[NE * A];
-  const int tid = threadIdx.x;
-  const long b0 = (long)blockIdx.x * NE;
-  const int ne = (int)(p.B - b0 < NE ? p.B - b0 : NE);
-  if (mode & FROM_INPUT) {
-    if (tid < ne) {
-      wh::Env<A, R> e;
-      wh::load_env(e, b0 + tid, p.pos, p.areq, p.carry, p.rpick, p.rdrop,
-                   p.rstat, p.ragent);
-      ES::put(e, env_s + tid * ES::SIZE);
-    }
-  } else {
-    for (int i = tid; i < ne * ES::SIZE; i += CNT)
-      env_s[i] = p.envst[b0 * ES::SIZE + i];
-  }
-  __syncthreads();
-  if (t >= 0) {
-    // Mask, sample, log-softmax (as K2), one thread per (env, agent).
-    if (tid < ne * A) {
-      const long b = b0 + tid / A;
-      const int a = tid % A;
-      act_s[tid] = sample_row<A>(p, p.head + p.rg.row_of(b, a) * ROST,
-                                 env_s + (tid / A) * ES::SIZE, a, true, t,
-                                 b);
-    }
-    __syncthreads();
-    // Env tick and rewards, one thread per env.
-    if (tid < ne)
-      tick_env<A, R>(p, env_s + tid * ES::SIZE, act_s + tid * A,
-                     (long)t * p.B + b0 + tid);
-    __syncthreads();
-  }
-  if (obs_out) {
-    const int D = p.D, n = ne * A * D;
-    float* dst = obs_out + b0 * A * D;
-    for (int i = tid; i < n; i += CNT) {
-      const int r = i / D;
-      dst[i] = obs_value<A, R>(env_s + (r / A) * ES::SIZE, r % A, i % D, p);
-    }
-  }
-  if (mode & TO_OUTPUT) {
-    if (tid < ne) {
-      wh::Env<A, R> e;
-      ES::get(env_s + tid * ES::SIZE, e);
-      wh::store_env(e, b0 + tid, p.o_pos, p.o_areq, p.o_carry, p.o_rpick,
-                    p.o_rdrop, p.o_rstat, p.o_ragent);
-    }
-  } else {
-    for (int i = tid; i < ne * ES::SIZE; i += CNT)
-      p.envst[b0 * ES::SIZE + i] = env_s[i];
-  }
-}
-
-template <int A, int R>
-struct EnvLaunch {
-  static void run(const ActCnnArgs& p, int t, int mode, float* obs_out,
-                  cudaStream_t stream, int* err) {
-    constexpr int NE = env_cta(A);
-    const unsigned blocks = (unsigned)((p.B + NE - 1) / NE);
-    env_kernel<A, R><<<blocks, CNT, 0, stream>>>(p, t, mode, obs_out);
-    *err = (int)cudaGetLastError();
-  }
-};
-
-template <int A, int R>
-struct KnownShape {
-  static void run(int* ok) { *ok = 1; }
-};
-
 // ---- host side --------------------------------------------------------------
 
 // Stage A's tile and grid for this call's rows: of the even tiles from
@@ -624,7 +399,7 @@ ConvLaunch choose_ra(const CnnNet& net, const ConvDims& d, int A, long B,
   return best;
 }
 
-// The workspace: wk [K][HP][KT], a1 [N][KT], head [N][ROST], envst [B][4 A
+// The workspace: wk [K][HP][KT], a1 [N][KT], head [N][HSTRIDE], envst [B][4 A
 // + 6 R] ints; offsets in floats, each a multiple of 32.
 struct WorkLayout {
   long wk, a1, head, envst, total;
@@ -640,7 +415,7 @@ WorkLayout work_layout(const ConvDims& d, int A, int R, long B, int K) {
   };
   w.wk = take((long)K * d.HP * d.KT);
   w.a1 = take(B * A * d.KT);
-  w.head = take(B * A * ROST);
+  w.head = take(B * A * HSTRIDE);
   w.envst = take(B * (4L * A + 6L * R));
   w.total = off;
   return w;
@@ -650,21 +425,13 @@ WorkLayout work_layout(const ConvDims& d, int A, int R, long B, int K) {
 // of a preset, K in [0, 8] (0: no groups) with a valid map.
 bool shape_ok(int A, int R, int S, int C0, int C1, int C2, int H, int K,
               const int* group, CnnNet* net) {
-  int known = 0;
   RowGroups rg;
-  return make_cnn_net(S, C0, C1, C2, H, net) &&
-         wh::dispatch_shape<KnownShape>(A, R, &known) && known && K >= 0 &&
+  return make_cnn_net(S, C0, C1, C2, H, net) && known_shape(A, R) && K >= 0 &&
          make_groups(A, 1, K > 0 ? K : 1, K > 0 ? group : nullptr, RA_MIN,
                      &rg);
 }
 
 enum Stage { ST_CONV = 0, ST_TRUNK = 1, ST_ENV = 2, ST_ALL = 3 };
-
-template <class Kernel>
-cudaError_t opt_in(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
 
 // One K10 call: the whole chunk (ST_ALL), or one stage of its step 0 (the
 // stage checks): ST_CONV reads obs[0] and writes a1, ST_TRUNK (with prep)
@@ -689,21 +456,22 @@ cudaError_t run_act_cnn(int stage, ActCnnArgs& p, int R, int K,
   p.head = work + wl.head;
   p.envst = reinterpret_cast<int*>(work + wl.envst);
   cudaError_t e;
-  int err = 0;
   auto env = [&](int t, int mode, float* out) {
-    wh::dispatch_shape<EnvLaunch>(A, R, p, t, mode, out, stream, &err);
-    return (cudaError_t)err;
+    return launch_env(p, R, t, mode, out, stream);
   };
   auto conv = [&](int t) {
     conv_kernel<<<cl.grid, ANT, cl.smem, stream>>>(p, t);
     return cudaGetLastError();
   };
-  const unsigned tiles_b = (unsigned)p.rg.tile_b[p.rg.K];
-  auto trunk = [&]() {
-    trunk_kernel<<<tiles_b, GNT, smem_b(), stream>>>(p);
-    return cudaGetLastError();
-  };
-  if ((e = opt_in(trunk_kernel, smem_b())) != cudaSuccess) return e;
+  // The trunk and the head on the shared head stage: group g's kernel, bias
+  // and head in its packed vector.
+  const CnnNet& net = p.net;
+  const HeadStage hs = {p.a1, p.cd.KT, p.wk, (long)p.cd.HP * p.cd.KT, net.H,
+                        p.cd.HP, p.params + net.bt, net.n_params,
+                        p.params + net.head_w, net.n_params,
+                        p.params + net.head_b, net.n_params, p.head};
+  auto trunk = [&]() { return launch_head(hs, p.rg, stream); };
+  if ((e = opt_in(head_kernel, smem_head())) != cudaSuccess) return e;
   if (stage == ST_TRUNK || stage == ST_ALL) {
     trunk_prep_kernel<<<256, 256, 0, stream>>>(p);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -741,7 +509,7 @@ extern "C" long wh_act_cnn_smem_bytes(int A, int R, int S, int C0, int C1,
                                       const int* group) {
   CnnNet net;
   if (!shape_ok(A, R, S, C0, C1, C2, H, K, group, &net)) return 0;
-  const size_t a = smem_a(conv_dims(net), RA_MIN), b = smem_b();
+  const size_t a = smem_a(conv_dims(net), RA_MIN), b = smem_head();
   return (long)(a > b ? a : b);
 }
 
@@ -795,56 +563,14 @@ int act_cnn_call(
       p.net.D != D)
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
-  p.B = B;
-  p.T = T;
-  p.A = A;
-  p.geo.H = H;
-  p.geo.W = W;
-  p.geo.spawn_prob = spawn_prob;
-  p.geo.walls = walls;
-  p.S = S;
-  p.k = k;
-  p.D = D;
-  p.gobs = global_obs;
-  p.inv_h = inv_h;
-  p.inv_w = inv_w;
-  p.step_penalty = step_penalty;
-  p.pickup_reward = pickup_reward;
-  p.delivery_reward = delivery_reward;
-  p.collision_penalty = collision_penalty;
+  set_env_args(p, B, T, A, H, W, spawn_prob, S, k, D, global_obs, inv_h,
+               inv_w, step_penalty, pickup_reward, delivery_reward,
+               collision_penalty, walls, pos, areq, carry, rpick, rdrop, rstat,
+               ragent, u, pick, drop, gumbel, o_pos, o_areq, o_carry, o_rpick,
+               o_rdrop, o_rstat, o_ragent, obs, action, log_prob, value,
+               reward, delivered, logits, mask, table, done, raw_reward,
+               shaping_coef, gamma);
   p.params = params;
-  p.pos = pos;
-  p.areq = areq;
-  p.carry = carry;
-  p.rpick = rpick;
-  p.rdrop = rdrop;
-  p.rstat = rstat;
-  p.ragent = ragent;
-  p.u = u;
-  p.pick = pick;
-  p.drop = drop;
-  p.gumbel = gumbel;
-  p.o_pos = o_pos;
-  p.o_areq = o_areq;
-  p.o_carry = o_carry;
-  p.o_rpick = o_rpick;
-  p.o_rdrop = o_rdrop;
-  p.o_rstat = o_rstat;
-  p.o_ragent = o_ragent;
-  p.obs = obs;
-  p.action = action;
-  p.log_prob = log_prob;
-  p.value = value;
-  p.reward = reward;
-  p.delivered = delivered;
-  p.logits = logits;
-  p.mask = mask;
-  p.shp.table = table;
-  p.shp.done = done;
-  p.shp.raw_reward = raw_reward;
-  p.shp.coef = shaping_coef;
-  p.shp.gamma = gamma;
-  p.shp.C = H * W;
   return (int)run_act_cnn(stage, p, R, K, group, work, obs_next,
                           (cudaStream_t)stream_);
 }

@@ -171,6 +171,57 @@ __device__ float obs_value(const int* s, int a, int f, const P& p) {
   }
 }
 
+// The grid part of agent a's observation a cell at a time: the C channels
+// of grid cell `cell` into out[0 .. C) (C = 4 on the ego window, 5 on the
+// global view), the values obs_value gives for features cell C .. cell C
+// + C - 1. A warp whose lanes take a cell each runs no divergent channel
+// branches.
+template <int A, int R, class P>
+__device__ void obs_cell(const int* s, int a, int cell, const P& p,
+                         float* out) {
+  const int *pr = s, *pc = s + A, *aq = s + 2 * A, *cy = s + 3 * A;
+  const int *qpr = s + 4 * A, *qpc = qpr + R, *qdr = qpc + R,
+            *qdc = qdr + R, *qst = qdc + R;
+  const int my = aq[a];
+  const bool has = my >= 0;
+  int tr = pr[a], tc = pc[a];
+  if (has) {
+    tr = cy[a] ? qdr[my] : qpr[my];
+    tc = cy[a] ? qdc[my] : qpc[my];
+  }
+  int wr, wc;
+  if (p.gobs) {
+    wr = cell / p.geo.W;
+    wc = cell % p.geo.W;
+  } else {
+    wr = pr[a] + cell / p.S - p.k;
+    wc = pc[a] + cell % p.S - p.k;
+  }
+  bool agent = false, pending = false;
+#pragma unroll
+  for (int j = 0; j < A; ++j) agent |= pr[j] == wr && pc[j] == wc;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    pending |= qst[r] == wh::PENDING && qpr[r] == wr && qpc[r] == wc;
+  const bool target = has && tr == wr && tc == wc;
+  if (p.gobs) {
+    const bool self = pr[a] == wr && pc[a] == wc;
+    out[0] = self ? 1.f : 0.f;
+    out[1] = agent && !self ? 1.f : 0.f;
+    out[2] = pending ? 1.f : 0.f;
+    out[3] = target ? 1.f : 0.f;
+    out[4] = !p.geo.walls[cell] ? 1.f : 0.f;
+  } else {
+    out[0] = agent ? 1.f : 0.f;
+    out[1] = pending ? 1.f : 0.f;
+    out[2] = target ? 1.f : 0.f;
+    out[3] = wr >= 0 && wr < p.geo.H && wc >= 0 && wc < p.geo.W &&
+                     !p.geo.walls[wr * p.geo.W + wc]
+                 ? 1.f
+                 : 0.f;
+  }
+}
+
 // Row n = (env n / A, agent n % A) of the CTA whose first env is b0, at
 // step t: with masking floors the invalid moves' logits (and writes the
 // mask); samples argmax(logits + gumbel), first max; takes the stable

@@ -1,6 +1,6 @@
 // One dense layer over rows in shared memory whose matrix lies in device
-// memory, shared by the MLP acting kernel's wide route (K2, act.cu) and the
-// MLP learners (K3-K6, mlp_learner.cuh).
+// memory: the layer of mlp_learner.cuh's tile route, which the IMPALA
+// learner (K5 / K6, vtrace_sgd.cu) runs.
 //
 // W [in, out] and the bias are read through the read-only path: every CTA
 // reads the same matrix, so it stays in L2, and a warp's threads own
@@ -24,16 +24,14 @@ constexpr int XCH = 128;  // input columns per chunk of a chunked first layer
 // THREADS threads; or one chunk's part of that sum: unless `first` the sum
 // starts from y, and only `last` adds the bias and applies the activation.
 // On `last`, rows < nvalid also go to g[(n0 + n) * out + o] unless g is
-// null. Unless tile_off is null, tile grp's W and bias sit tile_off[grp]
-// floats further on (K2's policy groups).
+// null.
 template <int THREADS, int TILE, int GROUPS, bool BX = false>
 __device__ void dense_l2(
     const float* W, const float* bias, const float* x, int xs, int in,
     float* y, int ys, int out, bool use_tanh, bool first, bool last,
-    float* g, long n0, int nvalid, const int* tile_off = nullptr) {
+    float* g, long n0, int nvalid) {
   for (int item = threadIdx.x; item < out * GROUPS; item += THREADS) {
     const int o = item % out, grp = item / out;
-    const int off = tile_off ? tile_off[grp] : 0;
     const float* xg = x + grp * TILE * xs;
     float acc[TILE];
 #pragma unroll
@@ -41,12 +39,12 @@ __device__ void dense_l2(
       acc[r] = first ? 0.f : y[(grp * TILE + r) * ys + o];
 #pragma unroll 4
     for (int i = 0; i < in; ++i) {
-      const float wi = __ldg(W + off + (long)i * out + o);
+      const float wi = __ldg(W + (long)i * out + o);
 #pragma unroll
       for (int r = 0; r < TILE; ++r)
         acc[r] = fmaf(rbf<BX>(xg[r * xs + i]), wi, acc[r]);
     }
-    const float bo = last ? __ldg(bias + off + o) : 0.f;
+    const float bo = last ? __ldg(bias + o) : 0.f;
 #pragma unroll
     for (int r = 0; r < TILE; ++r) {
       const int n = grp * TILE + r;

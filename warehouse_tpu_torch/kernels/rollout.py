@@ -42,6 +42,18 @@ def check_kernel_shape(cfg: EnvConfig) -> None:
             f"queue_capacity) in {KERNEL_SHAPES}, got {shape}")
 
 
+def check_multiple_of_4(kernel: str, widths: dict) -> None:
+    """Raise ``ValueError`` naming ``kernel`` and the first of ``widths``
+    (name -> width) that is not a multiple of 4: the CUDA kernels lay such
+    widths out in float4 lanes and refuse the others on the card (ROADMAP
+    T-6), which the JAX package trains."""
+    for name, w in widths.items():
+        if w % 4:
+            raise ValueError(
+                f"{kernel} takes {name} widths that are multiples of 4 on "
+                f"the card, got {name} {w} (ROADMAP T-6)")
+
+
 def wall_mask(cfg: EnvConfig, device) -> torch.Tensor:
     """uint8[H * W], 1 on wall cells: the kernels' layout input."""
     m = torch.zeros(cfg.num_cells, dtype=torch.uint8)

@@ -58,7 +58,8 @@ from ..models.policy import apply_rnn, bf16_round, num_encoder
 from ..ops.ppo_update import NEG_INF, minibatch_epochs, ppo_losses
 from ..optim import AdamState, adam_update_fn
 from . import build
-from .act_rnn import GATE_ORDER, pack_rnn, rnn_dims, split_carry, unpack_rnn
+from .act_rnn import (GATE_ORDER, pack_rnn, rnn_kernel_dims,
+                      split_carry, unpack_rnn)
 from .sgd import (TrajLaunch, _device_of, _head_w, _losses, _rounder,
                   check_matmul_dtype, env_minibatches,
                   minibatch_grads_on_card, operand_precision,
@@ -414,6 +415,21 @@ def rnn_minibatch_grads_staged(params, traj, adv_n, targets, h0, mb_idx: int,
 
 # ---- the kernels ------------------------------------------------------------
 
+def check_rnn_learner_fits(params, obs_dim: int, dev):
+    """K8 / K9's ``(dims, H, lstm)`` for ``params`` on observations
+    ``obs_dim`` wide; raises ``ValueError`` for a width (before any library
+    call) or a shared-memory need the kernels do not take."""
+    dims, H, lstm = rnn_kernel_dims("K8/K9", params, obs_dim)
+    smem = build.library().wh_rnn_sgd_smem_bytes(
+        len(dims) - 1, build.int_array(dims), H, int(lstm))
+    limit = build.smem_limit(dev, smem)
+    if not 0 < smem <= limit:
+        raise ValueError(
+            f"recurrent SGD kernels need {smem} bytes of shared memory "
+            f"per block for widths {dims}, {H}; the card allows {limit}")
+    return dims, H, lstm
+
+
 class RnnLaunch(TrajLaunch):
     """``TrajLaunch`` for the recurrent entry points (``csrc/sgd_rnn.cu``),
     with the rollout-start carry."""
@@ -424,7 +440,7 @@ class RnnLaunch(TrajLaunch):
                          matmul_dtype=matmul_dtype)
         dev = traj.obs.device
         _, B, A, D = traj.obs.shape
-        dims, H, lstm = rnn_dims(params, D)
+        dims, H, lstm = check_rnn_learner_fits(params, D, dev)
         self.h0, self.c0 = split_carry(h0, lstm)
         if any(x is not None and (x.shape != (B, A, H) or x.device != dev)
                for x in (self.h0, self.c0)):
@@ -433,12 +449,6 @@ class RnnLaunch(TrajLaunch):
         dims_arr = build.int_array(dims)
         net = (len(dims) - 1, dims_arr, H, int(lstm))
         self.shape = (*net, *self.tbam)
-        smem = lib.wh_rnn_sgd_smem_bytes(*net)
-        limit = build.smem_limit(dev, smem)
-        if not 0 < smem <= limit:
-            raise ValueError(
-                f"recurrent SGD kernels need {smem} bytes of shared memory "
-                f"per block for widths {dims}, {H}; the card allows {limit}")
         self.n_params = lib.wh_rnn_param_floats(*net)
         self.widths = (dims, H, lstm)
         self.work = torch.empty(lib.wh_rnn_sgd_workspace_floats(*self.shape),

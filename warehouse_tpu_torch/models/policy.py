@@ -742,7 +742,7 @@ def params_from_flax(params_np) -> dict:
     if any(n.startswith("Conv_") for n in dense):
         return _cnn_params_from_flax(dense)
     names = sorted(dense, key=lambda s: int(s.split("_")[1]))
-    if len(names) < 3 or any(not n.startswith("Dense_") for n in names):
+    if len(names) < 2 or any(not n.startswith("Dense_") for n in names):
         raise ValueError(f"not an MLP actor-critic: layers {names}")
     keys = [f"hidden.{i}" for i in range(len(names) - 2)] + ["logits",
                                                              "value"]
