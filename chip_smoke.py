@@ -36,10 +36,17 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    trainer's reset, then the boundary reset); the IMPALA learner phase
    (K5: passes x M = 4 minibatches, K6's gradient kernels then clip +
    RMSProp or Adam per step) against its plain twin for passes 1 and 2
-   and both optimizers, a second K5 run bit-equal to the first, the
-   main path's case (Adam, 1 pass) timed;
+   and both optimizers, a second K5 run bit-equal to the first, one pass
+   of each optimizer timed (Adam the main path's);
 6. ``k6_check``: the per-minibatch V-trace gradient kernels (K6) against
-   autograd on the same trajectory, all 4 minibatches, timed;
+   autograd on the same trajectory, all 4 minibatches, timed; then
+   ``vtrace_stage_check``: K6's five stage kernels (forward, head,
+   V-trace, dgrads, weight gradients), each against its plain stage
+   (``kernels.vtrace_sgd``) on the plain chain's rows of minibatch 0, on
+   the config-4 trajectory (N = 65536 samples and 4096 last-obs rows), on
+   a ragged slice of it (N = 500, masked, with the truncation bootstrap)
+   and at hidden 256, each stage timed by CUDA events beside its plain
+   stage;
 7. ``k1_episodes`` (main path): 8 greedy episodes through
    ``greedy_rollout`` (draw stream + K1) at B = 131072, T = max_steps =
    128, each from a batched reset, with env-steps/s beside one episode of
@@ -372,6 +379,7 @@ STEP_METRIC_TOL = (1e-3, 5e-5)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (published)
 PEAK_F32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 PEAK_BF16_PER_S = 989e12    # H100 SXM bf16 x bf16 -> f32, tensor cores, dense
+SLEEP_CYCLES = 1_000_000    # timed_after's hold: ~0.5 ms at the H100's clock
 # K3/K4 against the plain twin at config 4: (rtol, atol) per quantity.
 # The JAX suite's bounds (tests/test_grad_kernel.py:151-166, 185-190,
 # set at 16 samples per minibatch); both sides sum 65536 samples per step
@@ -474,6 +482,21 @@ def timed(fn, n):
     """Median milliseconds of n runs of ``fn``."""
     times = []
     for _ in range(n):
+        with Timer() as tm:
+            fn()
+        times.append(tm.ms)
+    return median(times)
+
+
+def timed_after(setup, fn, n):
+    """Median milliseconds of n runs of ``fn``, each after an untimed
+    ``setup`` (the inputs that ``fn`` overwrites, refilled). A sleep on the
+    stream after ``setup`` holds the card while the host queues ``fn``, so
+    its host time stays out of the reading."""
+    times = []
+    for _ in range(n):
+        setup()
+        torch.cuda._sleep(SLEEP_CYCLES)
         with Timer() as tm:
             fn()
         times.append(tm.ms)
@@ -1469,12 +1492,14 @@ def impala_inputs(dev, cfg, hidden=HIDDEN[0]):
 
 def k5_check(dev, cfg, hidden=HIDDEN[0]):
     """K5 against its twin for passes 1 and 2, RMSProp and Adam; a rerun
-    bit-equal; the main path's case (Adam, 1 pass) timed. At another
-    ``hidden`` width only that case runs."""
+    bit-equal; one pass of each optimizer timed (Adam the main path's, with
+    a ``bound`` line for RMSProp). At another ``hidden`` width only the
+    main path's case runs."""
     tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg, hidden)
     M = tcfg.num_minibatches
     results, worst = [], {k: (0.0, 0.0) for k in ("losses", "params", "mu",
                                                   "nu")}
+    times = {}
     for use_rms in ((True, False) if hidden == HIDDEN[0] else (False,)):
         for passes in ((1, 2) if hidden == HIDDEN[0] else (1,)):
             tc = tcfg.replace(impala_rmsprop=use_rms, impala_passes=passes)
@@ -1509,26 +1534,36 @@ def k5_check(dev, cfg, hidden=HIDDEN[0]):
                     f"differs from its twin: {err}")
             require(bit_equal, "K5: a second run gave other bits")
             require(moved > 0.0, "K5 did not move the params")
-            if not use_rms and passes == 1:
-                k_ms = timed(lambda: vtrace_sgd.impala_sgd_phase(*args, **pkw),
-                             5)
-                p_ms = timed(lambda: vtrace_sgd.impala_sgd_phase_reference(
-                    *args, **pkw), 3)
+            if passes == 1:
+                times[results[-1]["optimizer"]] = (
+                    timed(lambda: vtrace_sgd.impala_sgd_phase(*args, **pkw),
+                          5),
+                    timed(lambda: vtrace_sgd.impala_sgd_phase_reference(
+                        *args, **pkw), 3))
     emit({"phase": "k5_check", "hidden": hidden, "B": traj.obs.shape[1],
           "T": SLICE_T, "minibatches": M, "samples_per_minibatch":
           traj.obs.shape[0] * traj.obs.shape[1] * cfg.num_agents // M,
           "cases": results,
           "max_abs_err": {k: e for k, (e, _) in worst.items()},
           "tol_ratio": {k: r for k, (_, r) in worst.items()}, "tol": VT_TOL,
-          "timed": "adam, 1 pass (the main path's)",
-          "kernel_ms": k_ms, "plain_ms": p_ms})
-    # The timed case: Adam, 1 pass; the last-obs rows are forward only.
+          "timed": "1 pass; adam the main path's",
+          "kernel_ms": times["adam"][0], "plain_ms": times["adam"][1],
+          **({"rmsprop_kernel_ms": times["rmsprop"][0],
+              "rmsprop_plain_ms": times["rmsprop"][1]}
+             if "rmsprop" in times else {})})
+    # The timed cases, 1 pass; the last-obs rows are forward only. RMSProp
+    # moves a moment fewer than Adam.
     fwd, dx = mlp_macs(params)
-    bnd = bound(nbytes(traj.obs, traj.action, traj.behavior_log_prob,
-                       traj.reward, last_obs) + 6 * nbytes(params),
-                2.0 * ((2 * fwd + dx) * traj.action.numel()
-                       + fwd * last_obs[..., 0].numel()))
-    return worst["params"][0], k_ms, p_ms, bnd
+    flops = 2.0 * ((2 * fwd + dx) * traj.action.numel()
+                   + fwd * last_obs[..., 0].numel())
+    data = nbytes(traj.obs, traj.action, traj.behavior_log_prob, traj.reward,
+                  last_obs)
+    if "rmsprop" in times:
+        emit_bound("K5 rmsprop", "config4",
+                   (worst["params"][0], *times["rmsprop"],
+                    bound(data + 4 * nbytes(params), flops)))
+    return (worst["params"][0], *times["adam"],
+            bound(data + 6 * nbytes(params), flops))
 
 
 def k6_check(dev, cfg):
@@ -1563,6 +1598,105 @@ def k6_check(dev, cfg):
                 2.0 * ((2 * fwd + dx) * traj.action.numel()
                        + fwd * last_obs[..., 0].numel()) / M)
     return worst["grads"][0], k_ms, p_ms, bnd
+
+
+def vtrace_stage_run(dev, params, traj, last_obs, ent, M, kw,
+                     time_it=True):
+    """K6's five stage kernels (``vtrace_sgd.VT_STAGES``: the forward over
+    the samples and the last-obs rows, the head, the V-trace, the dgrads,
+    the weight gradients), each against its plain stage on the plain
+    chain's rows of minibatch 0 of the IMPALA trajectory ``traj``: every
+    output within STAGE_TOL elementwise, the loss terms within CNN_TOL's
+    mb_losses; with ``time_it`` each stage's kernels timed alone by CUDA
+    events (the prep once before, the stage's input rows refilled before
+    each run: the trace writes its deltas over its input) beside its plain
+    stage and its bound: the bytes the stage itself reads and writes, at
+    their natural widths. Returns ``(results, failures, times)``."""
+    rows = vtrace_sgd.vtrace_minibatch_rows(traj, last_obs, 0, M)
+    chain, want = vtrace_sgd.vtrace_plain_stage_chain(params, rows, ent, **kw)
+    run = vtrace_sgd._Launch(params, traj, last_obs, ent, M, **kw)
+    p_flat = sgd.pack(params)
+    grads = torch.zeros_like(p_flat)
+    sums = torch.zeros(4, dtype=torch.float32, device=dev)
+    x, *fields = rows
+    N, n_all = fields[0].shape[0], x.shape[0]
+    L = sgd._n_hidden(params)
+    fwd, dx = mlp_macs(params)
+    head = params["logits.weight"].numel() + params["value.weight"].numel()
+    flops = {"fwd": 2.0 * n_all * (fwd - head), "head": 2.0 * n_all * head,
+             "trace": 0.0, "dgrad": 2.0 * N * dx, "wgrad": 2.0 * N * fwd}
+    # What each stage reads besides its input rows (the first N of them
+    # where it runs on the samples alone) and writes: the trace reads the
+    # four fields, the mask and boot values where their options are on.
+    hidden_p = {k: v for k, v in params.items() if k.startswith("hidden.")}
+    head_p = {k: v for k, v in params.items() if k not in hidden_p}
+    used = fields[:4] + [f for f, on in zip(
+        fields[4:], (kw["mask_actions"], kw["bootstrap_truncated"])) if on]
+    reads = {"fwd": (x, hidden_p), "head": (head_p,), "trace": used,
+             "dgrad": ({k: v for k, v in params.items()
+                        if k.endswith(".weight") and k != "hidden.0.weight"},),
+             "wgrad": (x[:N],)}
+    res, bad, times = {}, [], {}
+    for stage in vtrace_sgd.VT_STAGES:
+        inputs = vtrace_sgd.vtrace_stage_inputs(stage, params, chain)
+        before = vtrace_sgd.vtrace_stage.launches
+        got = vtrace_sgd.vtrace_stage(stage, params, traj, last_obs, 0, ent,
+                                      inputs, num_minibatches=M, **kw)
+        torch.cuda.synchronize()
+        require(vtrace_sgd.vtrace_stage.launches == before + 1,
+                f"vtrace stage {stage}: the launch count did not move")
+        res[stage] = stage_ratios(got, want[stage], False)
+        bad += [f"{stage}.{k}" for k, v in res[stage].items()
+                if v["ratio"] > 1.0]
+        if time_it:
+            run.prep(p_flat, 0)
+            rows_in = {k: v if stage in ("head", "trace") else v[:N]
+                       for k, v in inputs.items()}
+            times[stage] = {
+                "ms": timed_after(
+                    lambda: run.fill(inputs),
+                    lambda: run.launch_stage(stage, p_flat, 0, grads, sums),
+                    5),
+                "plain_ms": timed(lambda: vtrace_sgd.vtrace_plain_stage(
+                    stage, params, rows, inputs, ent, **kw), 3),
+                "max_abs_err": max(v["max_abs_err"]
+                                   for v in res[stage].values()),
+                **bound(nbytes(rows_in, want[stage], *reads[stage]),
+                        flops[stage])}
+    return res, bad, times
+
+
+def vtrace_stage_check(dev, cfg, name, hidden=HIDDEN[0], ragged=False):
+    """``vtrace_stage_run`` on the config-4 IMPALA trajectory of
+    ``impala_inputs`` (N = 65536 samples and 4096 last-obs rows a
+    minibatch), or with ``ragged`` its first 5 steps of 100 envs, masked
+    and with the truncation bootstrap (N = 500, no 64-row tile full at the
+    end; nb = 100, no trace CTA full): K6's stage kernels against their
+    plain stages, then timed; fails on any output off its bound. Returns
+    each stage's ``(max_abs_err, ms, plain_ms, bound)``."""
+    tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg, hidden)
+    M = tcfg.num_minibatches
+    if ragged:  # a random mask that keeps each taken action, random boots
+        traj = ImpalaTransition(*(x[:RAGGED_T, :RAGGED_B] for x in traj))
+        g = torch.Generator().manual_seed(SEED + 11)
+        mask = torch.rand(traj.mask.shape, generator=g) > 0.3
+        mask[..., 0] = True
+        mask.scatter_(-1, traj.action.long().cpu()[..., None], True)
+        traj = traj._replace(mask=mask.to(dev), boot_value=torch.randn(
+            traj.reward.shape, generator=g).to(dev))
+        last_obs = last_obs[:RAGGED_B]
+        kw = dict(kw, mask_actions=True, bootstrap_truncated=True)
+    res, bad, times = vtrace_stage_run(dev, params, traj, last_obs,
+                                       tcfg.entropy_coef, M, kw)
+    emit({"phase": "vtrace_stage_check", "kernel": "K6", "config": name,
+          "ragged": ragged, "hidden": hidden,
+          "samples": traj.action[:, :traj.action.shape[1] // M].numel(),
+          "last_obs_rows": last_obs[:last_obs.shape[0] // M, :, 0].numel(),
+          "masked_bootstrap": ragged, "tol": STAGE_TOL,
+          "stages": {st: {"outputs": res[st], **times[st]} for st in res}})
+    require(not bad, f"K6 stages differ from their plain stages: {bad}")
+    return {st: (t["max_abs_err"], t["ms"], t["plain_ms"], t)
+            for st, t in times.items()}
 
 
 def carry_leaves(carry):
@@ -2809,6 +2943,11 @@ OPTION_COUNTED = {
     "ppo_rollout_hidden": (act.act_steps, "hidden_launches"),
     "ppo_rollout_head": (act.act_steps, "head_launches"),
     "ppo_rollout_env": (act.act_steps, "env_launches"),
+    "impala_minibatch_grads_stages": (vtrace_sgd.impala_minibatch_grads,
+                                      "stage_launches"),
+    **{f"impala_minibatch_grads_{st}": (vtrace_sgd.impala_minibatch_grads,
+                                        f"{st}_launches")
+       for st in vtrace_sgd.VT_STAGES},
     "ppo_rollout_cnn_global": (act.act_cnn_steps, "global_launches"),
     "ppo_sgd_phase_global": (sgd.ppo_sgd_phase, "chunked_launches"),
     "ppo_minibatch_grads_global": (sgd.ppo_minibatch_grads,
@@ -2837,6 +2976,10 @@ OPTION_COUNTED = {
 # them, then each stage's.
 K2_STAGES = ["ppo_rollout_stages", "ppo_rollout_hidden", "ppo_rollout_head",
              "ppo_rollout_env"]
+# K6's stage kernels, counted on every path that learns through K5 / K6:
+# all of them, then each stage's.
+K6_STAGES = ["impala_minibatch_grads_stages"] + [
+    f"impala_minibatch_grads_{st}" for st in vtrace_sgd.VT_STAGES]
 
 
 def main_path(name, fn, kernels):
@@ -2931,6 +3074,12 @@ def main(argv=()) -> int:
     mlp_stage_check(dev, cfg, ragged=True)
     checks["impala_sgd_phase"] = k5_check(dev, cfg)
     checks["impala_minibatch_grads"] = k6_check(dev, cfg)
+    # K6's stage kernels: config 4 (into the kernels line), a ragged slice
+    # (masked, with the bootstrap) and hidden 256.
+    for st, res in vtrace_stage_check(dev, cfg, "config4").items():
+        checks[f"impala_minibatch_grads_{st}"] = res
+    vtrace_stage_check(dev, cfg, "config4_ragged", ragged=True)
+    vtrace_stage_check(dev, cfg, "config4_hidden256", hidden=WIDE_HIDDEN)
     # The recurrent kernels: the LSTM's checks run too; the GRU's numbers
     # (the CLI's first recurrent cell) go into the kernels line.
     emit_bound("K7 lstm", "config4", k7_check(dev, "medium", cfg, "lstm"))
@@ -3062,7 +3211,7 @@ def main(argv=()) -> int:
           "ppo_minibatch_grads"]),
         ("impala_train", lambda: impala_train_phase(dev, cfg),
          ["ppo_rollout", *K2_STAGES, "impala_sgd_phase",
-          "impala_minibatch_grads"]),
+          "impala_minibatch_grads", *K6_STAGES]),
         ("rnn_train_gru", lambda: rnn_train_phase(dev, cfg, "gru"),
          rnn_kernels),
         ("rnn_train_lstm", lambda: rnn_train_phase(dev, cfg, "lstm"),
@@ -3149,6 +3298,20 @@ def main(argv=()) -> int:
         "impala_sgd_phase": ("vtrace_sgd.cu", "pallas/vtrace_sgd.py:445"),
         "impala_minibatch_grads": ("vtrace_sgd.cu",
                                    "pallas/vtrace_sgd.py:553"),
+        # K6's stage kernels at config 4, one minibatch's rows: the hidden
+        # layers' forward (_learner_block's layer loop), the head, V-trace
+        # and the loss's derivative, the backward to the hidden layers, the
+        # weight gradients.
+        "impala_minibatch_grads_fwd": ("mlp_stages.cuh",
+                                       "pallas/vtrace_sgd.py:168"),
+        "impala_minibatch_grads_head": ("vtrace_sgd.cu",
+                                        "pallas/vtrace_sgd.py:170"),
+        "impala_minibatch_grads_trace": ("vtrace_sgd.cu",
+                                         "pallas/vtrace_sgd.py:221"),
+        "impala_minibatch_grads_dgrad": ("vtrace_sgd.cu",
+                                         "pallas/vtrace_sgd.py:269"),
+        "impala_minibatch_grads_wgrad": ("mlp_stages.cuh",
+                                         "pallas/vtrace_sgd.py:267"),
         "ppo_rnn_rollout": ("act_rnn.cu", "pallas/act.py:747"),
         "ppo_rnn_sgd_phase": ("sgd_rnn.cu", "pallas/sgd_rnn.py:551"),
         "ppo_rnn_minibatch_grads": ("sgd_rnn.cu", "pallas/sgd_rnn.py:665"),
@@ -3167,8 +3330,8 @@ def main(argv=()) -> int:
         "ppo_rollout_global": ("act.cu", "pallas/act.py:193"),
         "ppo_rollout_hidden256": ("act.cu", "pallas/act.py:1028"),
         "ppo_rollout_cnn_global": ("act_cnn.cu", "pallas/act.py:339"),
-        "ppo_sgd_phase_global": ("mlp_learner.cuh", "pallas/sgd.py:691"),
-        "ppo_minibatch_grads_global": ("mlp_learner.cuh",
+        "ppo_sgd_phase_global": ("mlp_stages.cuh", "pallas/sgd.py:691"),
+        "ppo_minibatch_grads_global": ("mlp_stages.cuh",
                                        "pallas/sgd.py:818"),
         "ppo_cnn_sgd_phase_global": ("sgd_cnn.cu", "pallas/sgd_cnn.py:482"),
         "ppo_cnn_minibatch_grads_global": ("sgd_cnn.cu",

@@ -326,6 +326,110 @@ def test_impala_grads_kernel_matches_autograd(mask_on, bootstrap, dev):
         assert_close_tree(g_k, g_r, 1e-4, 1e-6, f"grads mb={mb}")
 
 
+VT_STAGE_CASES = [  # (preset, global view, hidden, layers, mask, bootstrap)
+    ("medium", False, 128, 2, True, True), ("medium", False, 16, 3, False,
+                                            False),
+    ("shelves", True, 128, 2, True, True), ("medium", False, 256, 1, True,
+                                            False)]
+
+
+@pytest.mark.parametrize("name,glob,hidden,layers,mask_on,bootstrap",
+                         VT_STAGE_CASES)
+def test_vtrace_stage_kernels_match_plain_stages(name, glob, hidden, layers,
+                                                 mask_on, bootstrap, dev):
+    """Each of K6's five stage kernels (``vtrace_sgd.vtrace_stage``: the
+    forward over the samples and the last-obs rows, the head, the V-trace,
+    the dgrads, the weight gradients) against its plain stage on the plain
+    chain's rows of minibatch 0: 500 samples and 100 last-obs rows (no
+    64-row tile and no 256-trace CTA full at the end), hidden 128 x 2
+    masked with the truncation bootstrap, 16 x 3 without either, the
+    shelves global view's D = 611 and 256 x 1; every output at
+    chip_smoke.py's STAGE_TOL elementwise, the loss terms within 1e-6; one
+    launch each. The observations are the env's own, of 600 reset envs, as
+    in the K4 stage test (a 611-term float32 sum of normal features differs
+    between summation orders by more than STAGE_TOL near 0)."""
+    from warehouse_tpu_torch.train.impala import ImpalaTransition
+
+    cs = smoke()
+    cfg = (GLOBAL if glob else PRESETS)[name]
+    _, traj, _, _ = vtrace_batch(cfg, hidden, dev, seed=9)
+    _, obs = reset(cfg, 9, dev)
+    n = VT_T * VT_B
+    traj = ImpalaTransition(obs[:n].reshape(traj.obs.shape).float(),
+                            *traj[1:])
+    last_obs = obs[n:n + VT_B].float()
+    m = make_model(cfg, hidden_dim=hidden, num_layers=layers,
+                   generator=torch.Generator().manual_seed(8), device=dev)
+    params = {k: v.detach() for k, v in m.state_dict().items()}
+    kw = dict(mask_actions=mask_on, bootstrap_truncated=bootstrap, **VT_KW)
+    res, bad, _ = cs.vtrace_stage_run(dev, params, traj, last_obs, 0.01,
+                                      VT_M, kw, time_it=False)
+    assert not bad, res
+
+
+def test_vtrace_stage_kernels_match_plain_stages_config4(dev):
+    """K6's stage kernels at config 4: chip_smoke.py's IMPALA trajectory (a
+    K2 chunk from the trainer's reset, N = 65536 samples and 4096 last-obs
+    rows a minibatch, every tile and trace CTA full), as its
+    ``vtrace_stage_check`` holds them."""
+    cs = smoke()
+    tcfg, params, traj, last_obs, kw = cs.impala_inputs(dev, medium_config())
+    res, bad, _ = cs.vtrace_stage_run(dev, params, traj, last_obs,
+                                      tcfg.entropy_coef,
+                                      tcfg.num_minibatches, kw,
+                                      time_it=False)
+    assert not bad, res
+
+
+def test_impala_grads_counts_its_stage_kernels(dev):
+    """One K6 gradient at 3 hidden layers adds one launch and, to
+    ``stage_launches``, the kernels that a profiler trace of it shows; each
+    stage's counter moves by the kernels that a trace of that stage run
+    alone shows, as the C entry point counted them; the prep's kernel makes
+    up the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from warehouse_tpu_torch.kernels import vtrace_sgd as vs
+    from warehouse_tpu_torch.kernels.sgd import pack
+
+    cfg = medium_config()
+    _, traj, last_obs, _ = vtrace_batch(cfg, 16, dev)
+    m = make_model(cfg, hidden_dim=16, num_layers=3,
+                   generator=torch.Generator().manual_seed(8), device=dev)
+    params = {k: v.detach() for k, v in m.state_dict().items()}
+    kw = dict(mask_actions=True, bootstrap_truncated=True, **VT_KW)
+    run = vs._Launch(params, traj, last_obs, 0.01, VT_M, **kw)
+    p_flat = pack(params)
+    grads = torch.empty_like(p_flat)
+    sums = torch.empty(4, dtype=torch.float32, device=dev)
+
+    def kernels(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.device_type.name == "CUDA" for e in prof.events())
+
+    names = ["launches", "stage_launches"] + [f"{st}_launches"
+                                             for st in vs.VT_STAGES]
+    before = {k: getattr(vs.impala_minibatch_grads, k) for k in names}
+    whole = kernels(lambda: run.grads(p_flat, 1, grads, sums))
+    moved = {k: getattr(vs.impala_minibatch_grads, k) - before[k]
+             for k in names}
+    assert moved["launches"] == 1 and moved["stage_launches"] == whole
+    alone = []
+    for i, st in enumerate(vs.VT_STAGES + ("prep",)):
+        got = []
+        n = kernels(lambda: got.append(run._launch(i, p_flat, 1, grads, sums,
+                                                   st)))
+        assert got[0] == [n if j == i else 0 for j in range(len(got[0]))], st
+        if st != "prep":
+            assert moved[f"{st}_launches"] == n, st
+        alone.append(n)
+    assert sum(alone) == whole and alone[0] == 3 and alone[-1] == 1
+
+
 # ---- K7: the recurrent acting kernel ----------------------------------------
 
 def rnn_carry(arch, hidden, A, dev, seed, n=N):

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time one of the PyTorch/CUDA port's feed-forward acting kernels, K2
-(the MLP policy) or K10 (the CNN policy), a chunk from several source
-trees in turns on one GPU, with its device time split by kernel, and hash
-the outputs of the kernels the trees should share bit for bit.
+"""Time one of the PyTorch/CUDA port's kernels from several source trees in
+turns on one GPU, with its device time split by kernel, and hash the
+outputs of the kernels the trees should share bit for bit: a chunk of the
+feed-forward acting kernels K2 (the MLP policy) or K10 (the CNN policy),
+or the IMPALA learner K5 with K6 inside it.
 
-    python tools/torch_ab.py [--kernel k2|k10] PARENT_TREE . . PARENT_TREE
+    python tools/torch_ab.py [--kernel k2|k5|k10] PARENT_TREE . . PARENT_TREE
 
 Each tree argument is a directory that holds ``chip_smoke.py`` and
 ``warehouse_tpu_torch/``; each runs in a process of its own (the trees'
@@ -28,13 +29,19 @@ streams):
   one policy per agent ``(0, 1, 2, 3)``, the shelves recipe, the shelves
   groups recipe (B = 2048) and the 8-agent preset with one policy per
   agent (masked, shaped, B = 4096);
-- hashes the outputs of the kernels that neither acting kernel's change
-  may move: one K1 greedy episode (B = 4096), one K3 phase (float32 and
-  bf16, K4 inside it), one K5 phase (Adam), one K6 gradient, one K7 chunk
-  (the GRU), one K8 phase (the GRU, float32, K9 inside it) and one K11
-  phase (float32 and bf16, K12 inside it), all at config 4.
+- hashes the outputs of the other kernels: one K1 greedy episode (B =
+  4096), one K3 phase (float32 and bf16, K4 inside it), one K5 phase
+  (Adam), one K6 gradient, one K7 chunk (the GRU), one K8 phase (the GRU,
+  float32, K9 inside it) and one K11 phase (float32 and bf16, K12 inside
+  it), all at config 4;
+- with ``--kernel k5``, times and hashes one phase of K5 (one pass of M =
+  4 minibatches, Adam and RMSProp; K6's gradient kernels inside it) and
+  one K6 gradient (minibatch 1), each on ``chip_smoke.impala_inputs``'
+  trajectory at config 4 and at hidden 256 (the median of 5 by CUDA
+  events after one run of warm-up, the wrapper inside, and one run's
+  device time split by kernel with ``torch.profiler``).
 
-Each process prints one line ``{"tree": ..., "kernel": "k2" | "k10",
+Each process prints one line ``{"tree": ..., "kernel": "k2" | "k5" | "k10",
 "times": {instance: {"ms": ..., "split": {kernel: [ms, launches]}}},
 "sha256": {kernel_instance: hex}}``; equal hashes are the same bits. This
 script prints the card's name and power limit first. Comparing two trees
@@ -84,16 +91,22 @@ def sha(*trees):
 
 
 def split_of(run):
+    # A kernel's name up to its argument list: the template arguments tell
+    # the instances apart (rows_gemm_kernel<false, 0> and <false, 2>).
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    return {{e.key[:70]: [getattr(e, "device_time_total", 0.0) / 1e3,
-                         e.count]
-            for e in prof.key_averages()
-            if getattr(e, "device_time_total", 0.0) > 0
-            and e.device_type.name != "CPU"}}
+    out = {{}}
+    for e in prof.key_averages():
+        ms = getattr(e, "device_time_total", 0.0) / 1e3
+        if ms > 0 and e.device_type.name != "CPU":
+            key = e.key.replace("(anonymous namespace)::", "")[:70]
+            got = out.setdefault(key, [0.0, 0])
+            got[0] += ms
+            got[1] += e.count
+    return out
 
 
 def chunk_sha(out):
@@ -200,6 +213,32 @@ out["k5_adam"] = sha(vtrace_sgd.impala_sgd_phase(
 out["k6"] = sha(vtrace_sgd.impala_minibatch_grads(
     params, traj, last_obs, 1, tcfg.entropy_coef, num_minibatches=M, **vkw))
 del params, traj, last_obs
+if {kernel!r} == "k5":
+    # K5 (1 pass of Adam, of RMSProp) and one K6 gradient at config 4 and
+    # at hidden 256, each timed after one run of warm-up.
+    for hname, hidden in (("config4", cs.HIDDEN[0]), ("hidden256", 256)):
+        tcfg, params, traj, last_obs, vkw = cs.impala_inputs(dev, cfg, hidden)
+        M = tcfg.num_minibatches
+        runs = {{}}
+        for oname, rms in (("adam", False), ("rmsprop", True)):
+            tc = tcfg.replace(impala_rmsprop=rms, impala_passes=1)
+            optimizer = make_impala_optimizer(tc)
+            opt = optimizer.init(params)
+            rows = optimizer.step_rows(opt.count, M, dev)
+            runs[oname] = (lambda tc=tc, opt=opt, rows=rows:
+                           vtrace_sgd.impala_sgd_phase(
+                               params, opt, traj, last_obs, rows,
+                               tc.entropy_coef, num_passes=1,
+                               num_minibatches=M,
+                               max_grad_norm=tc.max_grad_norm, **vkw))
+        runs["k6"] = lambda: vtrace_sgd.impala_minibatch_grads(
+            params, traj, last_obs, 1, tcfg.entropy_coef, num_minibatches=M,
+            **vkw)
+        for rname, run in runs.items():
+            out[f"k5_{{hname}}_{{rname}}"] = sha(run())
+            times[f"{{hname}}_{{rname}}"] = {{"ms": cs.timed(run, 5),
+                                            "split": split_of(run)}}
+        del params, traj, last_obs, runs
 
 # K8: one GRU phase, float32.
 tcfg, tr, rs, traj, adv_n, targets, h0, ent = cs.rnn_inputs(dev, cfg, "gru")
@@ -245,7 +284,7 @@ def main(argv) -> int:
     kernel = "k10"
     if argv[:1] == ["--kernel"] and len(argv) > 1:
         kernel, argv = argv[1], argv[2:]
-    if not argv or kernel not in ("k2", "k10"):
+    if not argv or kernel not in ("k2", "k5", "k10"):
         print(__doc__, file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -256,16 +256,15 @@ def act_steps(cfg: EnvConfig, model, state: EnvState, u, pick, drop, g,
                              mask, shaping, groups)
     run = ActMlpLaunch(cfg, model, state, u, pick, drop, g, logits, mask,
                        shaping, groups)
-    run.launch(None)
+    hidden, head, env, prep = run.launch(None)
     act_steps.launches += 1
     act_steps.shaped_launches += shaping is not None
     act_steps.global_launches += cfg.global_obs
     act_steps.group_launches += groups is not None
-    L, T = len(run.dims) - 1, u.shape[0]
-    act_steps.hidden_launches += T * max(L - 1, 0)
-    act_steps.head_launches += T
-    act_steps.env_launches += 2 * T + 1
-    act_steps.stage_launches += (L > 0) + 1 + T * (max(L - 1, 0) + 3)
+    act_steps.hidden_launches += hidden
+    act_steps.head_launches += head
+    act_steps.env_launches += env
+    act_steps.stage_launches += hidden + head + env + prep
     return run.io.results(state)
 
 
@@ -273,10 +272,11 @@ act_steps.launches = 0
 act_steps.shaped_launches = 0  # the launches that had the shaping option on
 act_steps.global_launches = 0  # those that built the global view
 act_steps.group_launches = 0   # those that routed rows by policy group
-# The stage kernels those launches ran: a hidden stage per hidden layer but
-# the last, the head stage and the env stage (the tick, then the next
-# observation rows but on the last step) a step, the prep (with a hidden
-# layer) and the first observation's pair.
+# The stage kernels those launches ran, as the C entry point counts them
+# where it launches them: a hidden stage per hidden layer but the last, the
+# head stage and the env stage (the tick, then the next observation rows
+# but on the last step) a step, the prep (with a hidden layer) and the
+# first observation's pair.
 act_steps.stage_launches = 0
 act_steps.hidden_launches = 0  # of them, the hidden stages' kernels
 act_steps.head_launches = 0    # the head stages'
@@ -542,15 +542,18 @@ class ActMlpLaunch:
             return {"head": self.rows(layer)["head"][:, :6].clone()}
         return env_stage_outputs(self.io, state, obs_next)
 
-    def launch(self, stage, obs_next=None, layer: int = 0) -> None:
+    def launch(self, stage, obs_next=None, layer: int = 0):
         """The whole chunk (``stage`` None), or one of ``ACT_MLP_STAGES``
         of its step 0 on the rows the workspace holds (``hidden``: layer
         ``layer``); the env stage writes the next observation rows into
-        ``obs_next``."""
+        ``obs_next``. The chunk returns the kernels it launched, as the C
+        entry point counted them: the hidden stages', the head stages', the
+        env stages', the prep's."""
         if stage is None:
-            err = self.lib.wh_act_rollout(*self.args, self.stream)
+            launched = (build.L * 4)()
+            err = self.lib.wh_act_rollout(*self.args, launched, self.stream)
             build.check(err, "ppo_rollout kernel launch")
-            return
+            return list(launched)
         err = self.lib.wh_act_stage(
             ACT_MLP_STAGES.index(stage), layer, *self.args,
             None if obs_next is None else obs_next.data_ptr(), self.stream)

@@ -36,12 +36,10 @@ SIGNATURES = {
     "wh_act_workspace_floats": [I, I, L, I, IP, I],
     "wh_act_layout": [I, I, L, I, IP, I, LP],
     "wh_act_rollout": [I, I, L, I, I, I, F, I, I, I, I, F, F, F, F, F, F, I,
-                       IP, P, P, I, IP, P] + [P] * 29 + [F, F, P],
+                       IP, P, P, I, IP, P] + [P] * 29 + [F, F, LP, P],
     "wh_act_stage": [I, I, I, I, L, I, I, I, F, I, I, I, I, F, F, F, F, F, F,
                      I, IP, P, P, I, IP, P] + [P] * 29 + [F, F, P, P],
-    "wh_sgd_smem_bytes": [I, IP],
     "wh_sgd_stage_smem_bytes": [I, IP],
-    "wh_sgd_obs_chunks": [I, IP],
     "wh_sgd_workspace_floats": [I, IP, I, L, I, I, I, IP],
     "wh_sgd_layout": [I, IP, I, L, I, I, I, IP, LP],
     "wh_sgd_grads": [I, IP, I, L, I, I, I, IP, I] + [P] * 9 + [F] * 5
@@ -51,7 +49,9 @@ SIGNATURES = {
     "wh_sgd_clip_adam": [I, IP, I, L, I, I, I, IP, I] + [P] * 7 + [F] * 6
                         + [P] * 2,
     "wh_vtrace_workspace_floats": [I, IP, I, L, I, I],
-    "wh_vtrace_grads": [I, IP, I, L, I, I, I] + [P] * 10 + [F] * 5 + [P] * 4,
+    "wh_vtrace_layout": [I, IP, I, L, I, I, LP],
+    "wh_vtrace_grads": [I, I, IP, I, L, I, I, I] + [P] * 10 + [F] * 5
+                       + [P] * 3 + [LP, P],
     "wh_vtrace_clip_rms": [I, IP, I, L, I, I, I] + [P] * 4 + [F] * 4
                           + [P] * 2,
     "wh_vtrace_clip_adam": [I, IP, I, L, I, I, I] + [P] * 7 + [F] * 6
@@ -90,7 +90,7 @@ SIGNATURES = {
 }
 RESTYPES = {"wh_act_weight_floats": L, "wh_act_workspace_floats": L,
             "wh_error_string": ctypes.c_char_p,
-            "wh_sgd_smem_bytes": L, "wh_sgd_stage_smem_bytes": L,
+            "wh_sgd_stage_smem_bytes": L,
             "wh_sgd_workspace_floats": L,
             "wh_vtrace_workspace_floats": L, "wh_rnn_param_floats": L,
             "wh_act_rnn_smem_bytes": L, "wh_rnn_sgd_smem_bytes": L,

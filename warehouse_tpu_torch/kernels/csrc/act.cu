@@ -253,10 +253,12 @@ const float* in_buf(const ActMlpArgs& p, int l) {
 // ST_ENV reads head and the input state and writes step 0's outputs, the
 // final state and the next observation rows into obs_next and xs. p's
 // shapes, pointers and options are set; this carves the workspace and
-// launches.
+// launches, adding each kernel it launches to launched[4] where given: the
+// hidden stages', the head stages', the env stages' (tick and observation
+// rows), the prep's.
 cudaError_t run_act_mlp(int stage, int layer, ActMlpArgs& p, int R, int K,
                         const int* group, float* work, float* obs_next,
-                        cudaStream_t stream) {
+                        long* launched, cudaStream_t stream) {
   const int A = p.A;
   const MlpNet& net = p.net;
   const int L = net.L;
@@ -271,6 +273,13 @@ cudaError_t run_act_mlp(int stage, int layer, ActMlpArgs& p, int R, int K,
   p.head = work + wl.head;
   p.envst = reinterpret_cast<int*>(work + wl.envst);
   const unsigned tiles = (unsigned)p.rg.tile_b[p.rg.K];
+  long unused[4] = {};
+  if (!launched) launched = unused;
+  // e, counted in launched[slot] when it is a success.
+  auto count = [&](cudaError_t e, int slot) {
+    if (e == cudaSuccess) ++launched[slot];
+    return e;
+  };
   cudaError_t e;
   if ((e = opt_in(hidden_kernel, smem_hidden())) != cudaSuccess ||
       (e = opt_in(head_kernel, smem_head())) != cudaSuccess)
@@ -278,10 +287,10 @@ cudaError_t run_act_mlp(int stage, int layer, ActMlpArgs& p, int R, int K,
   // The env stage: the tick, then (unless the chunk ends) the next
   // observation rows into `out` and xs.
   auto env = [&](int t, int mode, float* out) {
-    cudaError_t err = launch_env(p, R, t, mode, nullptr, stream);
+    cudaError_t err = count(launch_env(p, R, t, mode, nullptr, stream), 2);
     if (err != cudaSuccess || ((mode & TO_OUTPUT) && !(mode & KEEP_STATE)))
       return err;
-    return launch_obs(p, R, out, p.xs, net.ld[0], stream);
+    return count(launch_obs(p, R, out, p.xs, net.ld[0], stream), 2);
   };
   auto hidden = [&](int l) {
     const HiddenStage hs = {in_buf(p, l), net.ld[l], p.bt[l],
@@ -290,13 +299,13 @@ cudaError_t run_act_mlp(int stage, int layer, ActMlpArgs& p, int R, int K,
                             p.h[l % 2], net.ld[l + 1], net.dims[l + 1]};
     const dim3 grid(tiles, (unsigned)(net.hp[l + 1] / BN));
     hidden_kernel<<<grid, GNT, smem_hidden(), stream>>>(hs, p.rg);
-    return cudaGetLastError();
+    return count(cudaGetLastError(), 0);
   };
   auto head = [&]() {
     if (L == 0) {
       head0_kernel<<<(unsigned)((p.rg.first[p.rg.K] * HSTRIDE + 255) / 256),
                      256, 0, stream>>>(p);
-      return cudaGetLastError();
+      return count(cudaGetLastError(), 1);
     }
     const int l = L - 1;
     const HeadStage hs = {in_buf(p, l), net.ld[l], p.bt[l],
@@ -304,11 +313,11 @@ cudaError_t run_act_mlp(int stage, int layer, ActMlpArgs& p, int R, int K,
                           net.hp[L], p.weights + net.b_off[l], net.n_weights,
                           p.hw, (long)NHEAD * net.dims[L],
                           p.weights + net.head_b, net.n_weights, p.head};
-    return launch_head(hs, p.rg, stream);
+    return count(launch_head(hs, p.rg, stream), 1);
   };
   if (L > 0 && (stage == ST_HIDDEN || stage == ST_HEAD || stage == ST_ALL)) {
     mlp_prep_kernel<<<256, 256, 0, stream>>>(p);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if ((e = count(cudaGetLastError(), 3)) != cudaSuccess) return e;
   }
   if (stage == ST_HIDDEN)
     return layer >= 0 && layer + 1 < L ? hidden(layer)
@@ -345,7 +354,7 @@ int act_mlp_call(
     float* obs, int* action, float* log_prob, float* value, float* reward,
     int* delivered, float* logits, unsigned char* mask, const int* table,
     const float* done, float* raw_reward, float shaping_coef, float gamma,
-    float* obs_next, void* stream_) {
+    float* obs_next, long* launched, void* stream_) {
   ActMlpArgs p = {};
   if (!shape_ok(A, R, n_hidden, dims, n_groups, groups, &p.net) ||
       p.net.dims[0] != D)
@@ -360,7 +369,7 @@ int act_mlp_call(
                shaping_coef, gamma);
   p.weights = weights;
   return (int)run_act_mlp(stage, layer, p, R, n_groups, groups, work,
-                          obs_next, (cudaStream_t)stream_);
+                          obs_next, launched, (cudaStream_t)stream_);
 }
 
 }  // namespace
@@ -400,7 +409,8 @@ extern "C" int wh_act_layout(int A, int R, long B, int n_hidden,
 // T steps of the MLP policy. `work` is the workspace
 // (wh_act_workspace_floats). `weights` holds n_groups packed vectors in
 // group order and `groups` maps each agent to one of them (null with one
-// group).
+// group). launched[0..3] gets the kernels launched added: the hidden
+// stages', the head stages', the env stages', the prep's.
 extern "C" int wh_act_rollout(
     int A, int R, long B, int T, int H, int W, float spawn_prob, int S,
     int k, int D, int global_obs, float inv_h, float inv_w,
@@ -415,7 +425,7 @@ extern "C" int wh_act_rollout(
     int* action, float* log_prob, float* value, float* reward,
     int* delivered, float* logits, unsigned char* mask, const int* table,
     const float* done, float* raw_reward, float shaping_coef, float gamma,
-    void* stream) {
+    long* launched, void* stream) {
   return act_mlp_call(
       ST_ALL, 0, A, R, B, T, H, W, spawn_prob, S, k, D, global_obs, inv_h,
       inv_w, step_penalty, pickup_reward, delivery_reward, collision_penalty,
@@ -423,7 +433,7 @@ extern "C" int wh_act_rollout(
       carry, rpick, rdrop, rstat, ragent, u, pick, drop, gumbel, o_pos,
       o_areq, o_carry, o_rpick, o_rdrop, o_rstat, o_ragent, obs, action,
       log_prob, value, reward, delivered, logits, mask, table, done,
-      raw_reward, shaping_coef, gamma, nullptr, stream);
+      raw_reward, shaping_coef, gamma, nullptr, launched, stream);
 }
 
 // One stage of step 0 (0: hidden layer `layer`, 1: head, 2: env;
@@ -452,5 +462,5 @@ extern "C" int wh_act_stage(
       carry, rpick, rdrop, rstat, ragent, u, pick, drop, gumbel, o_pos,
       o_areq, o_carry, o_rpick, o_rdrop, o_rstat, o_ragent, obs, action,
       log_prob, value, reward, delivered, logits, mask, table, done,
-      raw_reward, shaping_coef, gamma, obs_next, stream);
+      raw_reward, shaping_coef, gamma, obs_next, nullptr, stream);
 }

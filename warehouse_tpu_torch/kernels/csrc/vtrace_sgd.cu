@@ -4,56 +4,61 @@
 // Replaces warehouse_tpu/pallas/vtrace_sgd.py impala_sgd_phase_pallas
 // (:445; body _impala_kernel :280 with _learner_block :131 and
 // _clip_rms_step :72) and impala_minibatch_grads_pallas (:553; body
-// _grads_impala_kernel :360). One gradient step on minibatch m (env
-// columns [m B/M, (m+1) B/M) of the trajectory, N = T * B/M * A samples
-// in time-major order, as in sgd.cu) is six launches on the caller's
-// stream, with no host synchronisation between steps:
+// _grads_impala_kernel :360). Minibatch m is env columns [m B/M, (m+1)
+// B/M) of the trajectory: N = T * B/M * A samples in Rows::row order, then
+// the minibatch's nb = B/M * A last-obs rows (the bootstrap states V(s_T)).
 //
-//   (a) vt_fwd_kernel: tiles of R rows over the N samples, then the
-//       nb = B/M * A last-obs rows of the minibatch (the bootstrap states
-//       V(s_T)), after mlp_transpose_kernel. The weights are read from
-//       device memory (L2), the first layer over chunks of the observation
-//       (mlp_learner.cuh). MLP forward; it writes the samples' hidden
-//       activations and
-//       every row's head outputs (5 logits + value).
-//   (b) vt_trace_kernel: one thread per (env, agent) trace runs the
-//       reverse-T loop of ops/vtrace.py in its op order (rho, the clipped
-//       rho and c, the next value with the bootstrap_values blend, delta,
-//       acc, vs, pg_advantage), and writes d(mean loss)/d(head output) of
-//       each sample over its head outputs, as vtrace_sgd.py:243-251
-//       computes them: masked logits floored at -1e9 and their deltas
-//       zeroed; vs and pg_advantage enter as constants (stop-gradient).
-//       One row of metric sums (lp * pg_adv, (v - vs)^2, entropy) per CTA.
-//   (c) vt_bwd_kernel: tiles of R samples; the head deltas back through
-//       the head and the hidden layers, from the activations (a) wrote.
-//   (d) wgrad_kernel, reduce_kernel, metrics_kernel of mlp_learner.cuh,
-//       as in K4.
+// One minibatch's gradient (K6, wh_vtrace_grads) is stages shaped by their
+// products, each a kernel on the caller's stream, with no host
+// synchronisation. Every product runs over all of the minibatch's rows at
+// once as a tile GEMM, on the stages the PPO learner runs (mlp_stages.cuh:
+// row_stages.cuh on mma_tiles.cuh); what stays per row or per trace is a
+// thin stage between them:
 //
-// That is K6, wh_vtrace_grads. K5 follows each step with rms_kernel
-// (wh_vtrace_clip_rms: the global norm in a fixed order, optax's clip,
-// then the RMSProp step) or mlp_learner.cuh's adam_kernel
-// (wh_vtrace_clip_adam), on params and moments in place, the step's lr
-// read from a device row. Every sum runs in an order fixed by the shapes,
-// so two runs on the same inputs give the same bits.
+//   prep: the N sample rows and the nb last-obs rows gathered into x0
+//      [N + nb, Xs], and each hidden layer's W copied zero-padded.
+//   fwd: act_l = tanh(act_{l-1} W_l^T + b_l) for each hidden layer over
+//      all N + nb rows (the last-obs rows are more rows of the same GEMM).
+//   head: tiles of 64 rows of the last layer in shared memory, the 6-wide
+//      head (5 logits and the value) of every row into dout [N + nb, OST].
+//   trace: one thread per (env, agent) trace runs the reverse-T loop of
+//      ops/vtrace.py in its op order (rho, the clipped rho and c, the next
+//      value with the bootstrap_values blend, delta, acc, vs,
+//      pg_advantage), the bootstrap value from the last-obs rows, and
+//      writes d(mean loss)/d(head output) of each sample over its head
+//      outputs, as vtrace_sgd.py:240-254 computes them: masked logits
+//      floored at -1e9 and their deltas zeroed; vs and pg_advantage enter as
+//      constants (stop-gradient). One row of metric sums (lp * pg_adv,
+//      (v - vs)^2, entropy) per CTA, then metrics_kernel adds the rows.
+//   dgrad: dz_L = (dout W_head) (1 - act_L^2) in 64-row tiles (the back
+//      half of the PPO learner's head tile), then dz_{l-1} = (dz_l W_l)
+//      (1 - act_{l-1}^2) as tile GEMMs, over the N sample rows only: the
+//      last-obs rows feed V-trace as stop-gradient values.
+//   wgrad: every weight gradient over the N sample rows, split-K
+//      (wgrad_tn_kernel, head_wgrad_kernel), then reduce_kernel.
 //
-// Why the trace is a kernel of its own, where the TPU's _learner_block
-// runs forward, V-trace and backward in one grid step per env block: a
-// trace needs all T values of an (env, agent) before any of its deltas,
-// so a fused tile would hold all T x A slots of its envs: at A = 6
-// (shelves) and T = 16 that is 96 rows of activations, half again the
-// tile of (a) and (c). Cutting at the trace costs
-// the activations' round trip through device memory (~67 MB per step at
-// config 4, tens of microseconds against milliseconds of FMAs) and takes
-// any T and A.
+// K5 follows each gradient with rms_kernel (wh_vtrace_clip_rms: the global
+// norm in a fixed order, optax's clip, then the RMSProp step) or
+// mlp_learner.cuh's adam_kernel (wh_vtrace_clip_adam), each on a grid of
+// CTAs that compute the same norm, on params and moments in place, the
+// step's lr read from a device row. Every sum runs in an order fixed by the
+// shapes alone, so two runs on the same inputs give the same bits. The
+// learner is float32 only: the JAX trainer never runs it on bf16 operands.
 //
-// The bound is that of K4: (a) and (c) together are the FMAs of fwd_bwd in
-// sgd.cu (~6.3 GFLOP per step at config 4, on the CUDA cores in f32),
-// (d) ~4 GFLOP; (b) is T dependent steps of ~100 flops and a few
-// transcendentals per trace, ~nb threads.
+// Why the trace is a stage of its own, where the TPU's _learner_block runs
+// forward, V-trace and backward in one grid step per env block: a trace
+// needs all T values of an (env, agent) before any of its deltas, so one
+// kernel would hold all T x A rows of its envs; cut at the trace, each
+// product runs over all rows and any T and A fit.
+//
+// The bound is the products' rate: per step at config 4 ~4.3 GFLOP forward
+// on the samples and ~0.3 on the last-obs rows, ~2.2 in the dgrads and
+// ~4.3 in the weight gradients; the trace is T dependent steps of ~100
+// flops and a few transcendentals per trace, nb threads.
 
 #include <cuda_runtime.h>
 
-#include "mlp_learner.cuh"
+#include "mlp_stages.cuh"
 
 namespace {
 
@@ -72,49 +77,55 @@ struct VtCoefs {
   float gamma, rho_clip, c_clip, value_coef, inv_n;
 };
 
-struct VtArgs {
-  Net net;
+// MlpStage's rows: the N samples (one group), then extra = nb last-obs
+// rows; sc.dout holds every row's head outputs, then the samples' deltas.
+struct VtArgs : MlpStage {
   Traj tj;
-  Scratch sc;  // sc.dout: [N + nb, OST] head outputs, then deltas
   VtCoefs c;
-  const float* params;
   const float* scal;  // ent_coef
 };
 
-// ---- (a) forward of the samples and the last-obs rows -------------------
+long n_traces(const VtArgs& va) { return (va.tj.nb + VNT - 1) / VNT; }
 
-__global__ void __launch_bounds__(NT) vt_fwd_kernel(VtArgs p) {
-  extern __shared__ float smem[];
-  const Net& net = p.net;
+// ---- prep: the padded weight copies, the sample and last-obs rows --------
+
+__global__ void vt_prep_kernel(VtArgs p) {
+  const long i0 = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long stride = (long)gridDim.x * blockDim.x;
+  prep_weights(p, i0, stride);
   const Traj& tj = p.tj;
-  const int D = net.D, tid = threadIdx.x;
-  const TileBufs b = tile_bufs(net, smem);
+  const int D = p.net.D, Xs = p.sd.Xs, lane = threadIdx.x & 31;
+  const long warps = stride / 32;
+  for (long q = i0 / 32; q < tj.N + tj.nb; q += warps)
+    gather_row(q < tj.N ? tj.obs + tj.row(q) * D
+                        : tj.last_obs + (tj.mb_off + q - tj.N) * D,
+               p.sc.x0 + q * Xs, D, Xs, lane);
+}
 
-  const long n_rows = tj.N + tj.nb;
-  const long n_tiles = (n_rows + R - 1) / R;
-  for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long n0 = tile * R;
-    const int nrow = n_rows - n0 < R ? (int)(n_rows - n0) : R;
-    const long ns = tj.N - n0;  // sample rows of the tile (activations)
-    const int nact = ns <= 0 ? 0 : (ns < R ? (int)ns : R);
-    if (tid < R) {
-      const long q = n0 + tid;
-      const float* row = nullptr;
-      if (tid < nrow)
-        row = q < tj.N ? tj.obs + tj.row(q) * D
-                       : tj.last_obs + (tj.mb_off + q - tj.N) * D;
-      b.rows[tid] = row;
-    }
-    __syncthreads();
-    fwd_tile(net, p.params, p.sc.wt, b, p.sc, n0, nact);
-    for (int k = tid; k < nrow * NHEAD; k += NT) {
-      const int n = k / NHEAD, r = k % NHEAD;
-      p.sc.dout[(n0 + n) * OST + r] = b.outs[n * OST + r];
-    }
+// ---- head: the head outputs of every row ----------------------------------
+
+__global__ void __launch_bounds__(GNT) vt_head_kernel(VtArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  const Net& net = p.net;
+  const int L = net.n_hidden;
+  const Layer& hd = net.L[L];
+  const int H = hd.in;
+  float* hsm = smem;                     // [CB][H + HPAD]
+  float* outs = hsm + CB * (H + HPAD);   // [CB][OST]
+  const long n0 = (long)blockIdx.x * CB, rows = p.tj.N + p.tj.nb;
+  const int nvalid = rows - n0 < CB ? (int)(rows - n0) : CB;
+  load_head_rows(hsm, p.sc.act[L - 1], p.sd.Es[L - 1], H, n0, nvalid);
+  __syncthreads();
+  head_fwd_rows<false>(hsm, H, p.params + hd.w_off, p.params + hd.b_off,
+                       outs);
+  __syncthreads();
+  for (int i = threadIdx.x; i < nvalid * OST; i += GNT) {
+    const int r = i % OST;
+    p.sc.dout[n0 * OST + i] = r < NHEAD ? outs[i] : 0.f;
   }
 }
 
-// ---- (b) V-trace and the loss derivative, one thread per trace ----------
+// ---- trace: V-trace and the loss derivative, one thread per trace --------
 
 __global__ void __launch_bounds__(VNT) vt_trace_kernel(VtArgs p) {
   __shared__ float red[3][VNT];
@@ -197,50 +208,26 @@ __global__ void __launch_bounds__(VNT) vt_trace_kernel(VtArgs p) {
   if (tid < 4) p.sc.met[blockIdx.x * 4 + tid] = tid < 3 ? red[tid][0] : 0.f;
 }
 
-// ---- (c) backward from the head deltas -----------------------------------
+// ---- dgrad: the last layer's delta from the head's ------------------------
 
-__global__ void __launch_bounds__(NT) vt_bwd_kernel(VtArgs p) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(GNT) vt_head_dz_kernel(VtArgs p) {
+  extern __shared__ __align__(16) float smem[];
   const Net& net = p.net;
-  const int tid = threadIdx.x;
-  const TileBufs b = tile_bufs(net, smem);
-
-  for (long tile = blockIdx.x; tile < p.sc.n_tiles; tile += gridDim.x) {
-    const long n0 = tile * R;
-    const int nvalid = p.tj.N - n0 < R ? (int)(p.tj.N - n0) : R;
-    for (int k = tid; k < R * OST; k += NT) {
-      const int n = k / OST, r = k % OST;
-      b.outs[k] = n < nvalid && r < NHEAD ? p.sc.dout[(n0 + n) * OST + r]
-                                          : 0.f;
-    }
-    for (int l = 0; l < net.n_hidden; ++l) {
-      const int H = net.L[l].out;
-      for (int k = tid; k < R * H; k += NT) {
-        const int n = k / H;
-        b.hs[l][k] = n < nvalid ? p.sc.act[l][(n0 + n) * H + k % H] : 0.f;
-      }
-    }
-    __syncthreads();
-    bwd_tile(net, p.params, b, p.sc, n0, nvalid);
+  const int L = net.n_hidden;
+  const Layer& hd = net.L[L];
+  const int H = hd.in, Es = p.sd.Es[L - 1];
+  float* hsm = smem;                     // [CB][H + HPAD]
+  float* outs = hsm + CB * (H + HPAD);   // [CB][OST] the head's deltas
+  const long n0 = (long)blockIdx.x * CB;
+  const int nvalid = p.tj.N - n0 < CB ? (int)(p.tj.N - n0) : CB;
+  load_head_rows(hsm, p.sc.act[L - 1], Es, H, n0, nvalid);
+  for (int i = threadIdx.x; i < CB * OST; i += GNT) {
+    const int n = i / OST, r = i % OST;
+    outs[i] = n < nvalid && r < NHEAD ? p.sc.dout[n0 * OST + i] : 0.f;
   }
-}
-
-// (a), (b) and (c).
-cudaError_t launch_tiles(const VtArgs& va, cudaStream_t stream) {
-  const size_t smem = smem_bytes(va.net);
-  long grid_f = 0, grid_b = 0;
-  const long n_vblocks = (va.tj.nb + VNT - 1) / VNT;
-  cudaError_t e = persistent_grid(vt_fwd_kernel, smem,
-                                  (va.tj.N + va.tj.nb + R - 1) / R, &grid_f);
-  if (e == cudaSuccess)
-    e = persistent_grid(vt_bwd_kernel, smem, va.sc.n_tiles, &grid_b);
-  if (e != cudaSuccess) return e;
-  vt_fwd_kernel<<<(unsigned)grid_f, NT, smem, stream>>>(va);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  vt_trace_kernel<<<(unsigned)n_vblocks, VNT, 0, stream>>>(va);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  vt_bwd_kernel<<<(unsigned)grid_b, NT, smem, stream>>>(va);
-  return cudaGetLastError();
+  __syncthreads();
+  head_dz_rows<false>(outs, hsm, H, Es, p.params + hd.w_off,
+                      p.sc.dz[L - 1] + n0 * Es, nvalid);
 }
 
 // ---- the RMSProp step ----------------------------------------------------
@@ -258,14 +245,15 @@ struct RmsArgs {
 // order (optax scale_by_rms; _clip_rms_step, vtrace_sgd.py:72-89): the
 // clip as in adam_kernel, nu = (1 - decay) g^2 + decay nu, update =
 // -lr * (rsqrt(nu + eps) * g), the rsqrt a correctly rounded sqrt then
-// reciprocal.
+// reciprocal. On a grid of CTAs, as adam_kernel.
 __global__ void __launch_bounds__(FNT) rms_kernel(RmsArgs p) {
   __shared__ float norm_s;
   global_norm(p.sq, p.n_sq, &norm_s);
   const float norm = norm_s, maxn = p.max_grad_norm;
   const bool keep = norm < maxn;
   const float lr = p.lr_row[p.step];
-  for (long k = threadIdx.x; k < p.n; k += FNT) {
+  for (long k = (long)blockIdx.x * FNT + threadIdx.x; k < p.n;
+       k += (long)gridDim.x * FNT) {
     float g = p.grads[k];
     if (!keep) g = __fmul_rn(__fdiv_rn(g, norm), maxn);
     const float nu = __fadd_rn(__fmul_rn(p.one_m_decay, __fmul_rn(g, g)),
@@ -276,46 +264,122 @@ __global__ void __launch_bounds__(FNT) rms_kernel(RmsArgs p) {
   }
 }
 
-// The scratch of the entry points below, laid out from `work`.
-bool scratch_of(int n_hidden, const int* dims, int T, long B, int A, int M,
-                float* work, Net* net, Scratch* sc) {
-  Rows rows;
-  if (!make_rows(n_hidden, dims, T, B, A, M, 0, nullptr, net, &rows))
+// ---- host side -------------------------------------------------------------
+
+// The stages, in the order of the wrapper's VT_STAGES, then the prep.
+// run_vt_stage adds the kernels it launched to launched[st]: the trace's
+// with the metric sums, the weight gradients' with the reduce.
+enum VtStage { V_FWD, V_HEAD, V_TRACE, V_DGRAD, V_WGRAD, V_PREP };
+
+cudaError_t run_vt_stage(const VtArgs& va, int st, float* grads, float* sums,
+                         long* launched, cudaStream_t stream) {
+  const size_t smem = smem_head(va.net);
+  cudaError_t e = cudaSuccess;
+  switch (st) {
+    case V_FWD:
+      return fwd_stage<false>(va, stream, launched + V_FWD);
+    case V_HEAD:
+      if ((e = opt_in(vt_head_kernel, smem)) != cudaSuccess) return e;
+      vt_head_kernel<<<(unsigned)((va.tj.N + va.tj.nb + CB - 1) / CB), GNT,
+                       smem, stream>>>(va);
+      break;
+    case V_TRACE:
+      vt_trace_kernel<<<(unsigned)n_traces(va), VNT, 0, stream>>>(va);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+      ++launched[V_TRACE];
+      metrics_kernel<<<1, 128, 0, stream>>>(va.sc.met, n_traces(va), sums);
+      break;
+    case V_DGRAD:
+      if ((e = opt_in(vt_head_dz_kernel, smem)) != cudaSuccess) return e;
+      vt_head_dz_kernel<<<(unsigned)((va.tj.N + CB - 1) / CB), GNT, smem,
+                          stream>>>(va);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+      ++launched[V_DGRAD];
+      return dgrad_stage<false>(va, stream, launched + V_DGRAD);
+    case V_WGRAD:
+      if ((e = wgrad_stage<false>(va, stream, launched + V_WGRAD)) !=
+          cudaSuccess)
+        return e;
+      return reduce(va, grads, stream, launched + V_WGRAD);
+    case V_PREP:
+      vt_prep_kernel<<<1024, 256, 0, stream>>>(va);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if ((e = cudaGetLastError()) == cudaSuccess) ++launched[st];
+  return e;
+}
+
+// The net, minibatch mb's rows (one group) and its last-obs rows, the
+// stages' widths, and the scratch laid out from `work` (or only sized, when
+// it is null).
+bool make_vt_args(int n_hidden, const int* dims, int T, long B, int A, int M,
+                  int mb, const float* obs, float* work, VtArgs* va,
+                  long* floats = nullptr) {
+  if (!make_rows(n_hidden, dims, T, B, A, M, mb, obs, &va->net, &va->tj) ||
+      !split_groups(va->tj, B / M, 1, nullptr, &va->gs))
     return false;
-  carve(*net, rows.N, rows.nb, work, sc);
+  va->sd = make_sdims(va->net);
+  va->extra = va->tj.nb;
+  const long n = carve_stages(va->net, va->sd, va->gs, va->extra, work,
+                              &va->sc);
+  if (floats) *floats = n;
   return true;
 }
 
 }  // namespace
 
 // Floats of scratch the entry points below share, or 0 for an unsupported
-// shape. Their tile kernels take wh_sgd_smem_bytes of shared memory.
+// shape. Their largest stage takes wh_sgd_stage_smem_bytes of shared
+// memory.
 extern "C" long wh_vtrace_workspace_floats(int n_hidden, const int* dims,
                                            int T, long B, int A, int M) {
-  Net net;
-  Rows rows;
-  if (!make_rows(n_hidden, dims, T, B, A, M, 0, nullptr, &net, &rows))
-    return 0;
-  Scratch sc;
-  return carve(net, rows.N, rows.nb, nullptr, &sc);
+  VtArgs va;
+  long n = 0;
+  return make_vt_args(n_hidden, dims, T, B, A, M, 0, nullptr, nullptr, &va,
+                      &n)
+             ? n
+             : 0;
 }
 
-// K6: the V-trace loss and gradient of minibatch mb (kernels a-d).
-// `grads` gets the gradient in the packed layout, sums[0..2] the metric
-// sums (lp * pg_adv, (v - vs)^2, entropy; sums[3] = 0); the workspace
-// keeps the gradient's sums of squares for the optimizer step.
+// Where the stages' rows lie in the workspace, as wh_sgd_layout gives them:
+// x0, act and dout hold N + nb rows (the samples', then the last-obs
+// rows), dz N.
+extern "C" int wh_vtrace_layout(int n_hidden, const int* dims, int T, long B,
+                                int A, int M, long* out) {
+  VtArgs va;
+  float* base = reinterpret_cast<float*>(256);  // offsets from a fake base
+  if (!make_vt_args(n_hidden, dims, T, B, A, M, 0, nullptr, base, &va))
+    return (int)cudaErrorInvalidValue;
+  stage_layout(va, base, out);
+  return 0;
+}
+
+// K6: the V-trace loss and gradient of minibatch mb, with stage -1: the
+// prep, the five stages, the reduce and the metric sums. `grads` gets the
+// gradient in the packed layout, sums[0..2] the metric sums (lp * pg_adv,
+// (v - vs)^2, entropy; sums[3] = 0); the workspace keeps the gradient's
+// sums of squares for the optimizer step. Stage 0..4 runs that stage alone
+// on the rows the workspace holds (the stages' checks and times): 0 fwd
+// (act); 1 head (every row's head outputs in dout); 2 trace (the samples'
+// head deltas over their outputs, sums); 3 dgrad (dz); 4 wgrad (grads);
+// stage 5 the prep alone (the sample and last-obs rows, the weight
+// copies). launched[0..5], where given, gets each stage's kernels added.
 extern "C" int wh_vtrace_grads(
-    int n_hidden, const int* dims, int T, long B, int A, int M, int mb,
-    const float* obs, const float* last_obs, const int* action,
+    int stage, int n_hidden, const int* dims, int T, long B, int A, int M,
+    int mb, const float* obs, const float* last_obs, const int* action,
     const float* blp, const float* reward, const unsigned char* done,
     const unsigned char* mask, const float* boot, const float* params,
     const float* scal, float gamma, float rho_clip, float c_clip,
     float value_coef, float inv_n, float* work, float* grads, float* sums,
-    void* stream_) {
+    long* launched, void* stream_) {
   VtArgs va;
-  if (!make_rows(n_hidden, dims, T, B, A, M, mb, obs, &va.net, &va.tj))
+  long unused[V_PREP + 1] = {};
+  if (!launched) launched = unused;
+  if (stage < -1 || stage > V_PREP ||
+      !make_vt_args(n_hidden, dims, T, B, A, M, mb, obs, work, &va))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_;
   va.tj.last_obs = last_obs;
   va.tj.action = action;
   va.tj.blp = blp;
@@ -323,18 +387,18 @@ extern "C" int wh_vtrace_grads(
   va.tj.done = done;
   va.tj.mask = mask;
   va.tj.boot = boot;
-  carve(va.net, va.tj.N, va.tj.nb, work, &va.sc);
   va.c = VtCoefs{gamma, rho_clip, c_clip, value_coef, inv_n};
   va.params = params;
   va.scal = scal;
-
-  cudaError_t e = launch_mlp_transpose(va.net, params, va.sc, stream);
-  if (e != cudaSuccess) return (int)e;
-  e = launch_tiles(va, stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_grads_tail(va.net, va.tj, va.sc,
-                                (va.tj.nb + VNT - 1) / VNT, grads, sums,
-                                stream);
+  cudaStream_t stream = (cudaStream_t)stream_;
+  if (stage >= 0)
+    return (int)run_vt_stage(va, stage, grads, sums, launched, stream);
+  const int order[] = {V_PREP, V_FWD, V_HEAD, V_TRACE, V_DGRAD, V_WGRAD};
+  cudaError_t e = cudaSuccess;
+  for (int st : order)
+    if (e == cudaSuccess)
+      e = run_vt_stage(va, st, grads, sums, launched, stream);
+  return (int)e;
 }
 
 // K5's RMSProp step `step` after wh_vtrace_grads on the same workspace:
@@ -345,13 +409,15 @@ extern "C" int wh_vtrace_clip_rms(
     float* params, float* nu, const float* grads, const float* lr_row,
     float max_grad_norm, float decay, float one_m_decay, float eps,
     float* work, void* stream_) {
-  Net net;
-  Scratch sc;
-  if (!scratch_of(n_hidden, dims, T, B, A, M, work, &net, &sc) || step < 0)
+  VtArgs va;
+  if (!make_vt_args(n_hidden, dims, T, B, A, M, 0, nullptr, work, &va) ||
+      step < 0)
     return (int)cudaErrorInvalidValue;
-  const RmsArgs p = {net.n_params, sc.n_sq, grads, sc.sq, params, nu,
-                     lr_row, step, max_grad_norm, decay, one_m_decay, eps};
-  rms_kernel<<<1, FNT, 0, (cudaStream_t)stream_>>>(p);
+  const RmsArgs p = {va.net.n_params, va.sc.n_sq1, grads, va.sc.sq, params,
+                     nu, lr_row, step, max_grad_norm, decay, one_m_decay,
+                     eps};
+  rms_kernel<<<(unsigned)((p.n + FNT - 1) / FNT), FNT, 0,
+               (cudaStream_t)stream_>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -363,13 +429,14 @@ extern "C" int wh_vtrace_clip_adam(
     const float* lr_row, const float* bc1_row, const float* bc2_row,
     float max_grad_norm, float b1, float one_m_b1, float b2, float one_m_b2,
     float eps, float* work, void* stream_) {
-  Net net;
-  Scratch sc;
-  if (!scratch_of(n_hidden, dims, T, B, A, M, work, &net, &sc) || step < 0)
+  VtArgs va;
+  if (!make_vt_args(n_hidden, dims, T, B, A, M, 0, nullptr, work, &va) ||
+      step < 0)
     return (int)cudaErrorInvalidValue;
-  const AdamArgs p = {net.n_params, sc.n_sq, grads, sc.sq, params, m, v,
-                      lr_row, bc1_row, bc2_row, step, max_grad_norm, b1,
-                      one_m_b1, b2, one_m_b2, eps};
-  adam_kernel<<<1, FNT, 0, (cudaStream_t)stream_>>>(p);
+  const AdamArgs p = {va.net.n_params, va.sc.n_sq1, grads, va.sc.sq, params,
+                      m, v, lr_row, bc1_row, bc2_row, step, max_grad_norm,
+                      b1, one_m_b1, b2, one_m_b2, eps};
+  adam_kernel<<<(unsigned)((p.n + FNT - 1) / FNT), FNT, 0,
+                (cudaStream_t)stream_>>>(p);
   return (int)cudaGetLastError();
 }

@@ -425,22 +425,9 @@ def _f32(x, dev) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
 
 
-def check_tile_smem(lib, n_hidden: int, dims_arr, dims, dev, what: str):
-    """Raise unless the tile kernels' shared memory for these widths
-    (``wh_sgd_smem_bytes``: the IMPALA learner's K5/K6) fits the card."""
-    smem = lib.wh_sgd_smem_bytes(n_hidden, dims_arr)
-    limit = build.smem_limit(dev, smem)
-    if not 0 < smem <= limit:
-        raise ValueError(
-            f"{what} needs {smem} bytes of shared memory per block for "
-            f"widths {dims} (64 rows of every hidden layer and of a "
-            f"128-column input chunk; 1 to 4 hidden layers); the card "
-            f"allows {limit}")
-
-
 def check_stage_smem(lib, n_hidden: int, dims_arr, dims, dev, what: str):
     """Raise unless the stage kernels' shared memory for these widths
-    (``wh_sgd_stage_smem_bytes``: K3/K4) fits the card."""
+    (``wh_sgd_stage_smem_bytes``: K3/K4, K5/K6) fits the card."""
     smem = lib.wh_sgd_stage_smem_bytes(n_hidden, dims_arr)
     limit = build.smem_limit(dev, smem)
     if not 0 < smem <= limit:
@@ -459,6 +446,39 @@ def check_learner_fits(params, obs_dim: int, dev,
     dims = _dims(params, obs_dim)
     check_stage_smem(build.library(), len(dims) - 1, build.int_array(dims),
                      dims, dev, what)
+
+
+def stage_views(work, layout, dims, n: int, n_fwd: int | None = None) -> dict:
+    """The MLP learner stages' rows in the workspace ``work`` as views at
+    their natural widths, from a C ``*_layout`` entry point's 15 slots
+    ``layout`` (the offsets of x0, act0..act3, dz0..dz3 and dout, then the
+    row strides Xs, Es0..Es3): ``act{i}`` over ``n_fwd`` rows (default
+    ``n``), ``dz{i}`` and ``dout`` over ``n``, and where ``n_fwd > n`` also
+    ``out``, dout's buffer over ``n_fwd`` rows. The buffers' pad columns (to
+    multiples of 32; dout's to 8) lie beyond each view."""
+    n_fwd = n if n_fwd is None else n_fwd
+
+    def view(off, rows, ld, w):
+        return work[off:off + rows * ld].view(rows, ld)[:, :w]
+
+    views = {}
+    for i, e in enumerate(dims[1:]):
+        views[f"act{i}"] = view(layout[1 + i], n_fwd, layout[11 + i], e)
+        views[f"dz{i}"] = view(layout[5 + i], n, layout[11 + i], e)
+    views["dout"] = view(layout[9], n, 8, 6)
+    if n_fwd > n:
+        views["out"] = view(layout[9], n_fwd, 8, 6)
+    return views
+
+
+def fill_views(views: dict, inputs: dict) -> None:
+    """Writes ``inputs`` into the ``stage_views`` of the same names, the pad
+    columns zero."""
+    for k, v in inputs.items():
+        full = views[k].as_strided((views[k].shape[0], views[k].stride(0)),
+                                   (views[k].stride(0), 1))
+        full.zero_()
+        views[k].copy_(v)
 
 
 class TrajLaunch:
@@ -525,7 +545,7 @@ class MlpLaunch(TrajLaunch):
                       gmap)
         check_stage_smem(self.lib, *self.shape[:2], dims, dev, "SGD kernel")
         self.dims = dims
-        self.chunked = self.lib.wh_sgd_obs_chunks(*self.shape[:2]) > 1
+        self.chunked = dims[0] > 128
         self.work = torch.empty(self.lib.wh_sgd_workspace_floats(*self.shape),
                                 dtype=torch.float32, device=dev)
 
@@ -561,35 +581,15 @@ class MlpLaunch(TrajLaunch):
 
     def rows(self) -> dict:
         """The stages' rows in the workspace, as views at their natural
-        widths (``plain_stage_chain``'s names and shapes); the buffers' pad
-        columns (to multiples of 32) lie beyond each view."""
+        widths (``plain_stage_chain``'s names and shapes)."""
         out = (build.L * 15)()
         build.check(self.lib.wh_sgd_layout(*self.shape, out), "wh_sgd_layout")
-        N = self.mb_n
-        shape = {"dout": (8, 6)}
-        for i, e in enumerate(self.dims[1:]):
-            shape[f"act{i}"] = shape[f"dz{i}"] = (out[11 + i], e)
-        names = ["act0", "act1", "act2", "act3", "dz0", "dz1", "dz2", "dz3",
-                 "dout"]
-        views = {}
-        for i, k in enumerate(names):
-            if out[1 + i] < 0:
-                continue
-            ld, w = shape[k]
-            views[k] = self.work[out[1 + i]:out[1 + i] + N * ld].view(
-                N, ld)[:, :w]
-        return views
+        return stage_views(self.work, out, self.dims, self.mb_n)
 
     def fill(self, inputs: dict) -> None:
         """Writes a stage's input rows (``stage_inputs``' names) into the
         workspace, the pad columns zero."""
-        views = self.rows()
-        for k, v in inputs.items():
-            full = views[k].as_strided(
-                (views[k].shape[0], views[k].stride(0)),
-                (views[k].stride(0), 1))
-            full.zero_()
-            views[k].copy_(v)
+        fill_views(self.rows(), inputs)
 
     def launch_stage(self, stage: str, p_flat, mb: int, grads, sums) -> None:
         """One stage's kernels (after the weight copies and the observation
