@@ -67,14 +67,21 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    K5/K6) with the acting/learner split by CUDA events, a learning check
    on deliveries per env-step over updates 211-220, 3 plain-path updates
    from the same state, then the trained policy served;
-11. ``k7_check``: the recurrent acting kernel (K7) at B = 4096, T = 16,
-   hidden 128, for the GRU, the LSTM and the GRU with action masking on
-   shelves: obs, rewards, deliveries and final state bit-equal to the
-   plain engine replaying its actions, values, log-probs, logits and the
-   carry within 1e-4 of the plain recurrent policy stepped over its
-   observations, timed beside its twin;
+11. ``k7_check``: the recurrent acting kernel (K7: stage kernels a step
+   over all of its rows) at B = 4096, T = 16, hidden 128, for the GRU, the
+   LSTM and the GRU with action masking on shelves: obs, rewards,
+   deliveries and final state bit-equal to the plain engine replaying its
+   actions, values, log-probs, logits and the carry within 1e-4 of the
+   plain recurrent policy stepped over its observations, timed beside its
+   twin; then ``act_rnn_stage_check``: K7's four stage kernels (encoder,
+   cell, head, env), each against its plain stage (``kernels.act_rnn``) on
+   one step's rows, for the GRU and the LSTM at config 4, the masked GRU
+   on shelves and a ragged B = 1001, a chunk's rerun bit-equal, each stage
+   timed alone by CUDA events beside its plain stage, its bound and, for
+   the cell, ``torch.nn.GRUCell`` / ``LSTMCell`` on the same rows;
 12. ``k8_check`` / ``k9_check``: one config-4 recurrent trajectory per
-   cell (a K7 chunk from the trainer's reset, then GAE); the recurrent
+   cell (a chunk of K7's plain twin from the trainer's reset, then GAE;
+   ``rnn_inputs`` says why not K7's); the recurrent
    SGD phase (K8: 16 steps of 4096 sequences x 16 steps, K9's gradient
    kernels then clip + Adam per step) against its plain twin (autograd
    through the T-step replay + ``optim.py``) on per-step losses, params
@@ -273,9 +280,11 @@ main path and read just after it. The last lines are the kernels' JSON line
 time beside the twin's and beside its bound: the larger of its inputs and
 outputs' bytes over 3.35 TB/s and its float operations over 67 TFLOP/s,
 the card's published float32 rates, or for a bf16 entry over the tensor
-cores' 989 TFLOP/s, with ``cuda_core_bound_ms`` at 67 TFLOP/s beside it),
-the card's name and power limit from ``nvidia-smi``, and the device
-line.
+cores' 989 TFLOP/s, or for K7's cell stage three times its operations
+over their 495 TF32 TFLOP/s, with ``cuda_core_bound_ms`` at 67 TFLOP/s
+beside it; ``library_ms`` where one PyTorch call computes the same
+function, K7's cell stage's ``torch.nn.GRUCell``, else null), the card's
+name and power limit from ``nvidia-smi``, and the device line.
 There is no CPU path: without a CUDA device the script exits non-zero.
 
 ``python3 chip_smoke.py --profile-rnn`` (``--profile-cnn``) runs, instead
@@ -379,6 +388,7 @@ STEP_METRIC_TOL = (1e-3, 5e-5)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (published)
 PEAK_F32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 PEAK_BF16_PER_S = 989e12    # H100 SXM bf16 x bf16 -> f32, tensor cores, dense
+PEAK_TF32_PER_S = 495e12    # H100 SXM tf32 x tf32 -> f32, tensor cores, dense
 SLEEP_CYCLES = 1_000_000    # timed_after's hold: ~0.5 ms at the H100's clock
 # K3/K4 against the plain twin at config 4: (rtol, atol) per quantity.
 # The JAX suite's bounds (tests/test_grad_kernel.py:151-166, 185-190,
@@ -535,21 +545,26 @@ def nbytes(*xs) -> int:
     return total
 
 
-def bound(n_bytes: float, flops: float, bf16: bool = False) -> dict:
+def bound(n_bytes: float, flops: float, bf16: bool = False,
+          tf32: bool = False) -> dict:
     """The least time the card could take: each input read once and each
     output written once at the memory rate, or the float operations at the
     card's peak for their operands, whichever is larger: float32's or, with
     ``bf16`` (products of bf16 operands summed in float32), the tensor
-    cores' bf16 rate. A bf16 bound also gives ``cuda_core_bound_ms``, the
+    cores' bf16 rate, or, with ``tf32`` (float32 products as 3xTF32: three
+    TF32 products each), three times the operations at the tensor cores'
+    TF32 rate. A bf16 or tf32 bound also gives ``cuda_core_bound_ms``, the
     same work at the float32 rate of the CUDA cores. Integer env work is
     not counted."""
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / (PEAK_BF16_PER_S if bf16 else PEAK_F32_PER_S) * 1e3
+    by_ops = (3.0 * flops / PEAK_TF32_PER_S if tf32 else flops / (
+        PEAK_BF16_PER_S if bf16 else PEAK_F32_PER_S)) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": n_bytes, "flops": flops,
             **({"cuda_core_bound_ms": max(
-                by_bytes, flops / PEAK_F32_PER_S * 1e3)} if bf16 else {})}
+                by_bytes, flops / PEAK_F32_PER_S * 1e3)}
+               if bf16 or tf32 else {})}
 
 
 def mlp_macs(params) -> tuple[int, int]:
@@ -1784,11 +1799,226 @@ def k7_check(dev, name, cfg, arch, mask_actions=False):
     return max(err.values()), k_ms, p_ms, bnd
 
 
-def rnn_inputs(dev, cfg, arch, bf16=False):
-    """One config-4 recurrent trajectory for the K8/K9 checks: a K7 chunk
-    from the trainer's reset and a random carry (of bf16 values with
-    ``bf16``, as a bf16 run's carry cast up), then GAE and the
-    per-minibatch normalization."""
+def library_cell(params, eh, c=None):
+    """``torch.nn.GRUCell`` / ``LSTMCell`` holding the cell's weights
+    (flax's GRU is torch's with b_hr = b_hz = 0; the LSTM's input side has
+    no bias) and a call of it on the rows ``eh = [e | h]``: the PyTorch call
+    for the cell stage's function, timed beside it, used nowhere in the
+    port."""
+    H = params["logits.weight"].shape[1]
+    E = eh.shape[1] - H
+    lstm = c is not None
+    gates = act_rnn.GATE_ORDER["lstm" if lstm else "gru"]
+    cell = (torch.nn.LSTMCell if lstm else torch.nn.GRUCell)(
+        E, H, device=eh.device)
+    with torch.no_grad():
+        cell.weight_ih.copy_(torch.cat([params[f"cell.i{g}.weight"]
+                                        for g in gates]))
+        cell.weight_hh.copy_(torch.cat([params[f"cell.h{g}.weight"]
+                                        for g in gates]))
+        if lstm:
+            cell.bias_ih.zero_()
+            cell.bias_hh.copy_(torch.cat([params[f"cell.h{g}.bias"]
+                                          for g in gates]))
+        else:
+            cell.bias_ih.copy_(torch.cat([params[f"cell.i{g}.bias"]
+                                          for g in gates]))
+            cell.bias_hh.zero_()
+            cell.bias_hh[2 * H:] = params["cell.hn.bias"]
+    e, h = eh[:, :E].contiguous(), eh[:, E:].contiguous()
+
+    def call():
+        with torch.no_grad():
+            return cell(e, (h, c)) if lstm else cell(e, h)
+
+    return call
+
+
+def act_rnn_stage_run(dev, cfg, arch, hidden=HIDDEN[0], B=CHECK_B,
+                      masked=False, time_it=True, num_layers=HIDDEN[1]):
+    """K7's stage kernels (``act_rnn.ACT_RNN_STAGES``: each encoder layer,
+    the cell, the head, the env stage) on one step's rows of ``cfg`` from a
+    reset and a random carry (with ``masked``, action masking on), each
+    against its plain stage on the plain chain's inputs: the encoder,
+    cell and head rows within STAGE_TOL elementwise, the env stage's
+    log-probs within TOL and every other output bit-equal. With
+    ``time_it`` each stage's kernel is timed alone by CUDA events (the
+    prep once, the stage's inputs refilled before each run) beside its
+    plain stage and its bound (the bytes the stage reads and writes, or
+    its operations: the cell's at the tensor cores' TF32 rate, three
+    products a k, beside the CUDA cores' float32 rate), and the cell beside
+    ``library_cell``. Returns ``(results, failures, times)``."""
+    A, N = cfg.num_agents, B * cfg.num_agents
+    model = make_model(cfg, arch, hidden, num_layers,
+                       torch.Generator().manual_seed(SEED), dev)
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    state, obs = reset_envs(cfg, B, SEED + 1, dev)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    h = (0.5 * torch.randn(N, hidden, generator=gen)).to(dev)
+    c = ((0.5 * torch.randn(N, hidden, generator=gen)).to(dev)
+         if arch == "lstm" else None)
+    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, 1)
+    _, g = rng.batched_gumbel_stream(rng.prng_key(SEED + 2, dev), 1, (5, N))
+    n_enc = sum(k.startswith("encoder.") and k.endswith(".weight")
+                for k in params)
+    stages = [("encoder", l) for l in range(n_enc)] + [
+        (st, 0) for st in act_rnn.ACT_RNN_STAGES[1:]]
+    order = torch.arange(N, device=dev)
+
+    def plain(stage, layer, x):
+        with torch.no_grad():
+            if stage == "encoder":
+                return {"y": act_rnn.act_encoder_plain(params, layer,
+                                                       x["x"])}
+            if stage == "cell":
+                return act_rnn.act_cell_plain(params, x["eh"], x.get("c"))
+            if stage == "head":
+                return {"head": act_rnn.act_rnn_head_plain(params, x["h"])}
+            return act.act_env_plain(cfg, state, x["head"], order, u[0],
+                                     pick[0], drop[0], g[0], masked)
+
+    inputs, want, x = {}, {}, obs.reshape(N, -1)
+    for stage, layer in stages:
+        key = stage if stage != "encoder" else f"encoder{layer}"
+        if stage == "encoder":
+            inputs[key] = {"x": x}
+        elif stage == "cell":
+            inputs[key] = {"eh": torch.cat([x, h], 1), "c": c}
+        elif stage == "head":
+            inputs[key] = {"h": want["cell"]["h"]}
+        else:
+            inputs[key] = {"head": want["head"]["head"]}
+        want[key] = plain(stage, layer, inputs[key])
+        if stage == "encoder":
+            x = want[key]["y"]
+    E = x.shape[1]
+    run = act_rnn.stage_launch(cfg, params, state, u, pick, drop, g, masked)
+    gate_macs = (4 if arch == "lstm" else 3) * hidden * (E + hidden)
+    w_bytes = {k: nbytes({n: v for n, v in params.items()
+                          if n.startswith(p)})
+               for k, p in (("cell", "cell."), ("head", ("logits.",
+                                                         "value.")))}
+    res, bad, times = {}, [], {}
+    for stage, layer in stages:
+        key = stage if stage != "encoder" else f"encoder{layer}"
+        before = act_rnn.act_rnn_stage.launches
+        got = act_rnn.act_rnn_stage(stage, cfg, params, state, inputs[key],
+                                    u, pick, drop, g, masked, layer)
+        torch.cuda.synchronize()
+        require(act_rnn.act_rnn_stage.launches == before + 1,
+                f"K7 stage {key}: the launch count did not move")
+        out = {}
+        for k, w in want[key].items():
+            y = got[k]
+            if k == "state":
+                out[k] = {"bit_equal": all(torch.equal(
+                    getattr(y, f), getattr(w, f)) for f in STATE_FIELDS[:-2])}
+            elif w is None:
+                out[k] = {"bit_equal": y is None}
+            elif stage != "env" or k == "log_prob":
+                e, r = tree_err((y,), (w,), *(STAGE_TOL if stage != "env"
+                                             else (0.0, TOL)))
+                out[k] = {"max_abs_err": e, "ratio": r}
+            else:
+                out[k] = {"bit_equal": torch.equal(
+                    y.view(torch.int32) if y.dtype == torch.float32 else y,
+                    w.view(torch.int32) if w.dtype == torch.float32 else w)}
+        bad += [f"{key}.{k}" for k, v in out.items()
+                if v.get("ratio", 0.0) > 1.0 or v.get("bit_equal") is False]
+        res[key] = out
+        if not time_it:
+            continue
+        if stage == "encoder":
+            lin = params[f"encoder.{layer}.weight"]
+            n_bytes = nbytes(inputs[key], want[key], lin,
+                             params[f"encoder.{layer}.bias"])
+            bnd = bound(n_bytes, 2.0 * N * lin.numel())
+        elif stage == "cell":
+            # The cell's rows in and out, c in and out, its weights.
+            bnd = bound(nbytes(inputs[key], want[key]) + w_bytes["cell"],
+                        2.0 * N * gate_macs, tf32=True)
+        elif stage == "head":
+            bnd = bound(nbytes(inputs[key], want[key]) + w_bytes["head"],
+                        2.0 * N * 6 * hidden)
+        else:
+            bnd = bound(nbytes(inputs[key], want[key], state, u, pick, drop,
+                               g), 0.0)
+        run.launch("prep")
+        nxt = []
+        times[key] = {
+            "ms": timed_after(
+                lambda: nxt.append(run.fill(stage, inputs[key], layer)),
+                lambda: run.launch(stage, nxt[-1], layer), 5),
+            "plain_ms": timed(lambda: plain(stage, layer, inputs[key]), 3),
+            "max_abs_err": max([v.get("max_abs_err", 0.0)
+                                for v in out.values()]),
+            "library_ms": None, **bnd}
+        if stage == "cell":
+            call = library_cell(params, inputs[key]["eh"], c)
+            lib = call()
+            lib_h = lib[0] if arch == "lstm" else lib
+            prev = (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                times[key]["library_ms"] = timed(call, 5)
+            finally:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = prev
+            times[key]["library_max_abs_diff"] = float(
+                (lib_h - want[key]["h"]).abs().max())
+    return res, bad, times
+
+
+def act_rnn_stage_check(dev, cfg, name, arch, B=CHECK_B, masked=False):
+    """``act_rnn_stage_run`` for ``arch`` on ``cfg`` at hidden 128 x 2
+    (one encoder layer): K7's stage kernels against their plain stages on
+    one step's rows, then timed; then one K7 chunk of T = 16 from the same
+    reset launched twice, bit-equal. Fails on any output off its bound or
+    a rerun that differs. Returns each stage's ``(max_abs_err, ms,
+    plain_ms, bound, library_ms)``."""
+    res, bad, times = act_rnn_stage_run(dev, cfg, arch, B=B, masked=masked)
+    T, A = SLICE_T, cfg.num_agents
+    model = make_model(cfg, arch, HIDDEN[0], HIDDEN[1],
+                       torch.Generator().manual_seed(SEED), dev)
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    state, _ = reset_envs(cfg, B, SEED + 1, dev)
+    carry = model.initial_carry((B, A))
+    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, T)
+    _, g = rng.batched_gumbel_stream(rng.prng_key(SEED + 2, dev), T,
+                                     (5, B * A))
+    mask = (torch.empty(T, B, A, 5, dtype=torch.bool, device=dev)
+            if masked else None)
+    runs = [act_rnn.act_rnn_steps(cfg, params, state, carry, u, pick, drop,
+                                  g, mask=mask) for _ in range(2)]
+    torch.cuda.synchronize()
+    flat = [[getattr(r[0], f) for f in STATE_FIELDS]
+            + list(carry_leaves(r[1])) + list(r[2:]) for r in runs]
+    rerun = all(bits_equal(x, y) if x.dtype == torch.float32
+                else torch.equal(x, y) for x, y in zip(*flat))
+    emit({"phase": "act_rnn_stage_check", "kernel": "K7", "config": name,
+          "arch": arch, "B": B, "rows": B * A, "masked": masked,
+          "tol": {"rows": STAGE_TOL, "log_prob": TOL},
+          "rerun_bit_equal": rerun, "stages": {
+              st: {"outputs": res[st], **times[st]} for st in res}})
+    require(not bad, f"K7 stages differ from their plain stages: {bad}")
+    require(rerun, "K7: a rerun of the chunk gave other bits")
+    return {st: (t["max_abs_err"], t["ms"], t["plain_ms"], t,
+                 t["library_ms"]) for st, t in times.items()}
+
+
+def rnn_inputs(dev, cfg, arch, bf16=False,
+               rollout=act_rnn.ppo_rnn_rollout_reference):
+    """One config-4 recurrent trajectory for the K8/K9 checks: a chunk of
+    ``rollout`` (K7's plain twin) from the trainer's reset and a random
+    carry (of bf16 values with ``bf16``, as a bf16 run's carry cast up),
+    then GAE and the per-minibatch normalization. The learner's checks take
+    the twin's chunk so that their inputs do not move with K7's bits: on
+    the chunk K7 makes at its 3xTF32 bits, one sample's value sits 5e-9
+    past the PPO value clip after K8's first update in float64, 7.5e-8
+    inside it in float32 (K9 and the twin alike), and K8's phase and its
+    twin's part at that branch (``tools/torch_k8_boundary.py``)."""
     tcfg = TrainConfig(num_updates=RNN_SCHEDULE)
     tr = make_train_rnn(cfg, tcfg, arch, device=dev)
     rs = tr.init(rng.prng_key(SEED + 5, dev))
@@ -1797,7 +2027,7 @@ def rnn_inputs(dev, cfg, arch, bf16=False):
                for x in carry_leaves(rs.carry))
     h0 = tuple(map(bf16_round, h0)) if bf16 else h0
     h0 = h0 if arch == "lstm" else h0[0]
-    new, roll, _, _, last_h = act_rnn.ppo_rnn_rollout(
+    new, roll, _, _, last_h = rollout(
         cfg, rs.params, rs.env_state, h0, SLICE_T,
         rng.prng_key(SEED + 6, dev))
     done = roll.truncated[:, :, None].expand_as(roll.reward)
@@ -2945,6 +3175,9 @@ OPTION_COUNTED = {
     "ppo_rollout_env": (act.act_steps, "env_launches"),
     "impala_minibatch_grads_stages": (vtrace_sgd.impala_minibatch_grads,
                                       "stage_launches"),
+    "ppo_rnn_rollout_stages": (act_rnn.act_rnn_steps, "stage_launches"),
+    **{f"ppo_rnn_rollout_{st}": (act_rnn.act_rnn_steps, f"{st}_launches")
+       for st in act_rnn.ACT_RNN_STAGES},
     **{f"impala_minibatch_grads_{st}": (vtrace_sgd.impala_minibatch_grads,
                                         f"{st}_launches")
        for st in vtrace_sgd.VT_STAGES},
@@ -2976,6 +3209,10 @@ OPTION_COUNTED = {
 # them, then each stage's.
 K2_STAGES = ["ppo_rollout_stages", "ppo_rollout_hidden", "ppo_rollout_head",
              "ppo_rollout_env"]
+# K7's stage kernels, counted on every path that acts through K7: all of
+# them, then each stage's.
+K7_STAGES = ["ppo_rnn_rollout_stages"] + [
+    f"ppo_rnn_rollout_{st}" for st in act_rnn.ACT_RNN_STAGES]
 # K6's stage kernels, counted on every path that learns through K5 / K6:
 # all of them, then each stage's.
 K6_STAGES = ["impala_minibatch_grads_stages"] + [
@@ -3085,6 +3322,14 @@ def main(argv=()) -> int:
     emit_bound("K7 lstm", "config4", k7_check(dev, "medium", cfg, "lstm"))
     k7_check(dev, "shelves", shelves, "gru", mask_actions=True)
     checks["ppo_rnn_rollout"] = k7_check(dev, "medium", cfg, "gru")
+    # K7's stage kernels, one step's rows each: the GRU at config 4 (into
+    # the kernels line), the LSTM, the masked GRU on shelves, a ragged B.
+    for st, res in act_rnn_stage_check(dev, cfg, "config4", "gru").items():
+        checks[f"ppo_rnn_rollout_{st.rstrip('0123456789')}"] = res
+    for st, res in act_rnn_stage_check(dev, cfg, "config4", "lstm").items():
+        emit_bound(f"K7 lstm {st}", "config4", res[:4])
+    act_rnn_stage_check(dev, shelves, "shelves_masked", "gru", masked=True)
+    act_rnn_stage_check(dev, cfg, "config4_ragged", "gru", B=ACT_RAGGED_B)
     emit_bound("K8 lstm", "config4", k8_check(dev, cfg, "lstm"))
     emit_bound("K9 lstm", "config4", k9_check(dev, cfg, "lstm"))
     checks["ppo_rnn_sgd_phase"] = k8_check(dev, cfg, "gru")
@@ -3198,7 +3443,7 @@ def main(argv=()) -> int:
     m4_check(dev, cfg)
 
     # ---- the main paths: each counted from just before it -------------
-    rnn_kernels = ["ppo_rnn_rollout", "ppo_rnn_sgd_phase",
+    rnn_kernels = ["ppo_rnn_rollout", *K7_STAGES, "ppo_rnn_sgd_phase",
                    "ppo_rnn_minibatch_grads"]
     # Each main path's launch counts, in the order the paths run.
     paths = {name: main_path(name, fn, kernels) for name, fn, kernels in [
@@ -3246,7 +3491,7 @@ def main(argv=()) -> int:
           "ppo_rollout_shaped", "ppo_sgd_phase_groups",
           "ppo_minibatch_grads_groups"]),
         ("gru_bf16_train", lambda: gru_bf16_train_phase(dev, cfg),
-         ["ppo_rnn_rollout", "ppo_rnn_sgd_phase_bf16",
+         ["ppo_rnn_rollout", *K7_STAGES, "ppo_rnn_sgd_phase_bf16",
           "ppo_rnn_minibatch_grads_bf16"]),
         ("ppo_bf16_train",
          lambda: ff_bf16_train_phase(dev, cfg, "mlp"),
@@ -3313,6 +3558,14 @@ def main(argv=()) -> int:
         "impala_minibatch_grads_wgrad": ("mlp_stages.cuh",
                                          "pallas/vtrace_sgd.py:267"),
         "ppo_rnn_rollout": ("act_rnn.cu", "pallas/act.py:747"),
+        # K7's stage kernels at config 4 (GRU), one step's rows: the encoder
+        # layer, the cell as one product over [e | h] with the gates in its
+        # epilogue, the head, and the env stage (mask, sample, tick, next
+        # observation); the cell's library_ms is torch.nn.GRUCell's.
+        "ppo_rnn_rollout_encoder": ("act_stages.cuh", "pallas/act.py:590"),
+        "ppo_rnn_rollout_cell": ("act_rnn.cu", "pallas/act.py:593"),
+        "ppo_rnn_rollout_head": ("act_rnn.cu", "pallas/act.py:613"),
+        "ppo_rnn_rollout_env": ("act_stages.cuh", "pallas/act.py:626"),
         "ppo_rnn_sgd_phase": ("sgd_rnn.cu", "pallas/sgd_rnn.py:551"),
         "ppo_rnn_minibatch_grads": ("sgd_rnn.cu", "pallas/sgd_rnn.py:665"),
         "ppo_rollout_cnn": ("act_cnn.cu", "pallas/act.py:1073"),
@@ -3364,18 +3617,20 @@ def main(argv=()) -> int:
         "ppo_rollout_cnn_groups_global": ("act_cnn.cu",
                                           "pallas/act.py:1062")}
     # library_ms: no single PyTorch call computes a whole rollout or a
-    # whole learner phase, so it is null for every kernel here.
+    # whole learner phase, so it is null for every kernel here but K7's
+    # cell stage (torch.nn.GRUCell on the same rows).
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + src,
          "replaces": "warehouse_tpu/" + replaces,
          "launches": launches[name], "max_abs_err": err, "ms": ms,
          "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
-         "bound_by": bnd["bound_by"], "library_ms": None,
+         "bound_by": bnd["bound_by"],
+         "library_ms": lib[0] if lib else None,
          "bound_bytes": bnd["bytes"], "bound_flops": bnd["flops"],
          **({"cuda_core_bound_ms": bnd["cuda_core_bound_ms"]}
             if "cuda_core_bound_ms" in bnd else {})}
         for name, (src, replaces) in sources.items()
-        for err, ms, plain_ms, bnd in [checks[name]]]})
+        for err, ms, plain_ms, bnd, *lib in [checks[name]]]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -492,6 +492,106 @@ def test_rnn_act_kernel_matches_plain_path(name, hidden, arch, mask_on, dev):
         assert float((a - b).abs().max()) < 1e-4
 
 
+ACT_RNN_STAGE_CASES = [  # (preset, cell, hidden, num_layers, B, masked)
+    ("medium", "gru", 128, 2, N, False),
+    ("medium", "lstm", 128, 2, N, False),
+    ("shelves", "gru", 32, 2, N + 1, True),
+    ("small", "lstm", 16, 3, N - 1, False),
+    ("large", "gru", 16, 4, N, True)]
+
+
+@pytest.mark.parametrize("stage", ["encoder", "cell", "head", "env"])
+@pytest.mark.parametrize("name,arch,hidden,layers,B,masked",
+                         ACT_RNN_STAGE_CASES)
+def test_act_rnn_stage_kernels_match_plain_stages(name, arch, hidden, layers,
+                                                  B, masked, stage, dev):
+    """Each of K7's stage kernels (``act_rnn.act_rnn_stage``: every encoder
+    layer, the cell over ``[e | h]``, the head, the env stage) against its
+    plain stage on one step's rows from a reset and a random carry (B of
+    999-1001 envs: no tile full at the end; 1 to 3 encoder layers, hidden
+    16 to 128, so a cell tile of 32 units half padding at 16), masked on
+    shelves and the 8-agent preset: the encoder's, cell's and head's rows
+    at chip_smoke.py's STAGE_TOL elementwise, the env stage's log-probs
+    within TOL and every other output bit-equal; one launch each."""
+    cs = smoke()
+    res, bad, _ = cs.act_rnn_stage_run(dev, PRESETS[name], arch, hidden, B,
+                                       masked, time_it=False,
+                                       num_layers=layers)
+    assert not [b for b in bad if b.startswith(stage)], (bad, res)
+
+
+def device_kernels(fn) -> int:
+    """The kernels of the port's sources that a profiler trace of ``fn``
+    shows on the card. A torch kernel runs first in the trace and is not
+    counted: after earlier traces in the process, a trace of the whole
+    file's run showed one device event fewer than a C entry point
+    launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1.0)
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type.name == "CUDA" and not e.name.startswith(
+        ("void at::", "Memcpy", "Memset")) for e in prof.events())
+
+
+@pytest.mark.parametrize("arch", ["gru", "lstm"])
+def test_rnn_act_kernel_counts_its_stage_kernels(arch, dev):
+    """One K7 chunk of 4 steps at 2 encoder layers adds one launch and, to
+    ``stage_launches``, the kernels that a profiler trace of the C entry
+    point's call shows (the wrapper's own torch copies outside it): 2
+    encoder, a cell, a head and an env stage (the tick, then the next
+    observation rows but on the last step) a step, the prep and the first
+    observation's pair; each stage run alone counts the kernels its own
+    trace shows. A second launch on the same inputs gives the same
+    bits."""
+    from warehouse_tpu_torch.kernels import act_rnn as ar
+
+    cfg, steps, A = PRESETS["medium"], 4, PRESETS["medium"].num_agents
+    m = make_model(cfg, arch, hidden_dim=16, num_layers=3,
+                   generator=torch.Generator().manual_seed(0), device=dev)
+    params = {k: v.detach() for k, v in m.state_dict().items()}
+    state, _ = reset(cfg, 6, dev)
+    carry = rnn_carry(arch, 16, A, dev, 7)
+    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, steps)
+    _, g = rng.batched_gumbel_stream(rng.prng_key(3, dev), steps, (5, N * A))
+    names = ["launches", "stage_launches"] + [
+        f"{st}_launches" for st in ar.ACT_RNN_STAGES]
+    before = {k: getattr(ar.act_rnn_steps, k) for k in names}
+    first = ar.act_rnn_steps(cfg, params, state, carry, u, pick, drop, g)
+    moved = {k: getattr(ar.act_rnn_steps, k) - before[k] for k in names}
+    run = ar.ActRnnLaunch(cfg, params, state, carry, u, pick, drop, g)
+    got = []
+    whole = device_kernels(lambda: got.append(run.launch()))
+    assert got[0] == [2 * steps, steps, steps, 2 * steps + 1, 1], got
+    assert moved == {"launches": 1, "stage_launches": whole,
+                     "encoder_launches": 2 * steps, "cell_launches": steps,
+                     "head_launches": steps,
+                     "env_launches": 2 * steps + 1}, moved
+    assert whole == 6 * steps + 2
+    again = run.results(state)
+    torch.cuda.synchronize()
+    flat = [[getattr(r[0], f) for f in STATE_FIELDS]
+            + list(r[1] if arch == "lstm" else (r[1],)) + list(r[2:])
+            for r in (first, again)]
+    for x, y in zip(*flat):
+        assert torch.equal(x.view(torch.int32) if x.is_floating_point()
+                           else x, y.view(torch.int32)
+                           if y.is_floating_point() else y)
+    run = ar.stage_launch(cfg, params, state, u[:1], pick[:1], drop[:1],
+                          g[:1])
+    obs_next = torch.empty_like(run.io.obs[0])
+    for i, st in enumerate(ar.ACT_RNN_STAGES + ("prep",)):
+        got = []
+        n = device_kernels(lambda: got.append(run.launch(
+            st, obs_next if st == "env" else None)))
+        assert got[0] == [n if j == i else 0 for j in range(5)], st
+        assert n == (2 if st == "env" else 1), st
+
+
 # ---- K8 / K9: the recurrent SGD phase and per-minibatch gradients -----------
 
 @pytest.mark.parametrize("mask_on", [False, True])

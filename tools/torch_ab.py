@@ -3,9 +3,10 @@
 turns on one GPU, with its device time split by kernel, and hash the
 outputs of the kernels the trees should share bit for bit: a chunk of the
 feed-forward acting kernels K2 (the MLP policy) or K10 (the CNN policy),
-or the IMPALA learner K5 with K6 inside it.
+a chunk of the recurrent acting kernel K7, or the IMPALA learner K5 with
+K6 inside it.
 
-    python tools/torch_ab.py [--kernel k2|k5|k10] PARENT_TREE . . PARENT_TREE
+    python tools/torch_ab.py [--kernel k2|k5|k7|k10] PARENT_TREE . . PARENT_TREE
 
 Each tree argument is a directory that holds ``chip_smoke.py`` and
 ``warehouse_tpu_torch/``; each runs in a process of its own (the trees'
@@ -32,8 +33,13 @@ streams):
 - hashes the outputs of the other kernels: one K1 greedy episode (B =
   4096), one K3 phase (float32 and bf16, K4 inside it), one K5 phase
   (Adam), one K6 gradient, one K7 chunk (the GRU), one K8 phase (the GRU,
-  float32, K9 inside it) and one K11 phase (float32 and bf16, K12 inside
-  it), all at config 4;
+  float32, K9 inside it, on a trajectory from K7's plain twin) and one K11
+  phase (float32 and bf16, K12 inside it), all at config 4;
+- with ``--kernel k7``, times and hashes one K7 chunk (T = 16, B = 4096,
+  106 -> 128, cell 128, from a reset and a random carry) for the GRU and
+  the LSTM at config 4 and for the GRU on shelves with action masking
+  (the median of 5 by CUDA events after one run of warm-up, the wrapper
+  inside, and one chunk's device time split by kernel);
 - with ``--kernel k5``, times and hashes one phase of K5 (one pass of M =
   4 minibatches, Adam and RMSProp; K6's gradient kernels inside it) and
   one K6 gradient (minibatch 1), each on ``chip_smoke.impala_inputs``'
@@ -41,7 +47,8 @@ streams):
   events after one run of warm-up, the wrapper inside, and one run's
   device time split by kernel with ``torch.profiler``).
 
-Each process prints one line ``{"tree": ..., "kernel": "k2" | "k5" | "k10",
+Each process prints one line ``{"tree": ..., "kernel": "k2" | "k5" | "k7" |
+"k10",
 "times": {instance: {"ms": ..., "split": {kernel: [ms, launches]}}},
 "sha256": {kernel_instance: hex}}``; equal hashes are the same bits. This
 script prints the card's name and power limit first. Comparing two trees
@@ -240,8 +247,15 @@ if {kernel!r} == "k5":
                                             "split": split_of(run)}}
         del params, traj, last_obs, runs
 
-# K8: one GRU phase, float32.
-tcfg, tr, rs, traj, adv_n, targets, h0, ent = cs.rnn_inputs(dev, cfg, "gru")
+# K8: one GRU phase, float32, on a trajectory from K7's plain twin, so
+# that its inputs do not follow K7's bits.
+k7_rollout = cs.act_rnn.ppo_rnn_rollout
+cs.act_rnn.ppo_rnn_rollout = cs.act_rnn.ppo_rnn_rollout_reference
+try:
+    tcfg, tr, rs, traj, adv_n, targets, h0, ent = cs.rnn_inputs(dev, cfg,
+                                                                "gru")
+finally:
+    cs.act_rnn.ppo_rnn_rollout = k7_rollout
 args, kw = phase_args(tcfg, tr, rs, traj, adv_n, targets, ent, h0)
 kw.update(mask_actions=False, matmul_dtype="float32")
 out["k8_float32"] = sha(sgd_rnn.ppo_rnn_sgd_phase(*args, **kw))
@@ -272,6 +286,32 @@ carry = (0.5 * torch.randn(cs.CHECK_B, cfg.num_agents, cs.HIDDEN[0],
                                cs.SEED + 9))).to(dev)
 out["k7"] = chunk_sha(act_rnn.act_rnn_steps(cfg, params, state, carry, u,
                                             pick, drop, g))
+if {kernel!r} == "k7":
+    # K7 chunks: the GRU and the LSTM at config 4, the masked GRU on
+    # shelves, each from a reset and a random carry.
+    for name, (c, arch, masked) in (("gru", (cfg, "gru", False)),
+                                    ("lstm", (cfg, "lstm", False)),
+                                    ("shelves_gru_masked",
+                                     (shelves, "gru", True))):
+        model = make_model(c, arch, cs.HIDDEN[0], cs.HIDDEN[1],
+                           torch.Generator().manual_seed(cs.SEED), dev)
+        params = {{k: v.detach() for k, v in model.state_dict().items()}}
+        state, u, pick, drop, g = draws(c, cs.CHECK_B)
+        gen = torch.Generator().manual_seed(cs.SEED + 9)
+        carry = tuple((0.5 * torch.randn(cs.CHECK_B, c.num_agents,
+                                         cs.HIDDEN[0], generator=gen)).to(dev)
+                      for _ in range(2 if arch == "lstm" else 1))
+        carry = carry if arch == "lstm" else carry[0]
+        mask = (torch.empty(cs.SLICE_T, cs.CHECK_B, c.num_agents, 5,
+                            dtype=torch.bool, device=dev) if masked else None)
+        run = (lambda c=c, params=params, state=state, carry=carry, u=u,
+               pick=pick, drop=drop, g=g, mask=mask: act_rnn.act_rnn_steps(
+                   c, params, state, carry, u, pick, drop, g, mask=mask))
+        res = run()
+        out["k7_" + name] = sha([getattr(res[0], f) for f in cs.STATE_FIELDS]
+                                + list(res[1:]) + [mask])
+        times[name] = {{"ms": cs.timed(run, 5), "split": split_of(run)}}
+        del res, run
 # K1: one greedy episode of 4096 config-4 envs.
 state, _ = cs.reset_envs(cfg, cs.CHECK_B, cs.SEED, dev)
 out["k1"] = chunk_sha(rollout.greedy_rollout(cfg, state, cfg.max_steps))
@@ -284,7 +324,7 @@ def main(argv) -> int:
     kernel = "k10"
     if argv[:1] == ["--kernel"] and len(argv) > 1:
         kernel, argv = argv[1], argv[2:]
-    if not argv or kernel not in ("k2", "k5", "k10"):
+    if not argv or kernel not in ("k2", "k5", "k7", "k10"):
         print(__doc__, file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

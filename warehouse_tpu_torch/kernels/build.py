@@ -57,9 +57,12 @@ SIGNATURES = {
     "wh_vtrace_clip_adam": [I, IP, I, L, I, I, I] + [P] * 7 + [F] * 6
                            + [P] * 2,
     "wh_rnn_param_floats": [I, IP, I, I],
-    "wh_act_rnn_smem_bytes": [I, I, I, IP, I, I],
+    "wh_act_rnn_workspace_floats": [I, I, L, I, IP, I, I],
+    "wh_act_rnn_layout": [I, I, L, I, IP, I, I, LP],
     "wh_act_rnn_rollout": [I, I, L, I, I, I, F, I, I, I, F, F, F, F, F, F, I,
-                           IP, I, I] + [P] * 34,
+                           IP, I, I] + [P] * 33 + [LP, P],
+    "wh_act_rnn_stage": [I, I, I, I, L, I, I, I, F, I, I, I, F, F, F, F, F, F,
+                         I, IP, I, I] + [P] * 34 + [LP, P],
     "wh_rnn_sgd_smem_bytes": [I, IP, I, I],
     "wh_rnn_sgd_workspace_floats": [I, IP, I, I, I, L, I, I],
     "wh_rnn_sgd_grads": [I, IP, I, I, I, L, I, I, I] + [P] * 11 + [F] * 5
@@ -93,7 +96,7 @@ RESTYPES = {"wh_act_weight_floats": L, "wh_act_workspace_floats": L,
             "wh_sgd_stage_smem_bytes": L,
             "wh_sgd_workspace_floats": L,
             "wh_vtrace_workspace_floats": L, "wh_rnn_param_floats": L,
-            "wh_act_rnn_smem_bytes": L, "wh_rnn_sgd_smem_bytes": L,
+            "wh_act_rnn_workspace_floats": L, "wh_rnn_sgd_smem_bytes": L,
             "wh_rnn_sgd_workspace_floats": L, "wh_cnn_param_floats": L,
             "wh_act_cnn_smem_bytes": L, "wh_act_cnn_workspace_floats": L,
             "wh_cnn_sgd_smem_bytes": L,

@@ -11,9 +11,10 @@
 // N = B A rows (env, agent), with no host synchronisation; the env state
 // lives in device memory (envst) from one step to the next:
 //
-//   hidden_kernel, once per hidden layer but the last: y = tanh(x Wl + bl)
-//      as 64 x 128 tiles (mma_tiles.cuh gemm_64x128_f32: FFMA register
-//      blocks, the k-slices through a cp.async ring; row_stages.cuh
+//   hidden_kernel (act_stages.cuh, K7's encoder stage), once per hidden
+//      layer but the last: y = tanh(x Wl + bl) as 64 x 128 tiles
+//      (mma_tiles.cuh gemm_64x128_f32: FFMA register blocks, the k-slices
+//      through a cp.async ring; row_stages.cuh
 //      rows_gemm_kernel<false, EPI_TANH>'s product and epilogue, each tile
 //      on its group's weights). The first layer reads `xs`, the
 //      observation rows in row order, zero-padded to D rounded up to 32
@@ -24,9 +25,9 @@
 //   head_kernel (act_stages.cuh, K10's trunk stage): the last hidden layer
 //      and the fused logits + value head, head [N, 8]. With no hidden layer
 //      head0_kernel takes the head's sums on the observation rows.
-//   env_kernel (act_stages.cuh, K10's): each row's mask, sample and
-//      outputs, each env's tick with rewards, shaping and deliveries; then
-//      obs_kernel (act_stages.cuh): the next step's observation rows into
+//   env_kernel (act_stages.cuh, K10's and K7's): each row's mask, sample
+//      and outputs, each env's tick with rewards, shaping and deliveries;
+//      then obs_kernel (act_stages.cuh): the next step's observation rows into
 //      obs[t + 1] and into xs. A prologue pair writes obs[0] and xs; the
 //      last step stores the final state and observes nothing.
 //   prep (once a call): each layer's kernel as Bt [HP, in rounded up to
@@ -162,48 +163,6 @@ __global__ void mlp_prep_kernel(ActMlpArgs p) {
   }
 }
 
-// ---- the hidden layers but the last -----------------------------------------
-
-// y = tanh(x Bt^T + b) on group g's Bt and bias (their bases plus g times
-// their group strides): columns < n, zeros in [n, ldy).
-struct HiddenStage {
-  const float* x;
-  int K;  // x's row stride and the columns read: a multiple of BK
-  const float* bt;
-  long bt_g;
-  const float* bias;
-  long bias_g;
-  float* y;
-  int ldy, n;
-};
-
-// One BM-row tile (blockIdx.x) of one group's rows by BN columns
-// (blockIdx.y).
-__global__ void __launch_bounds__(GNT) hidden_kernel(HiddenStage s,
-                                                     RowGroups rg) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  const int n0 = blockIdx.y * BN;
-  long q0;
-  int nvalid;
-  const int g = rg.bm_tile(blockIdx.x, &q0, &nvalid);
-  const float* bias = s.bias + g * s.bias_g;
-  float acc[4][8] = {};
-  gemm_64x128_f32(acc, s.x + q0 * s.K, s.K, nvalid,
-                  s.bt + g * s.bt_g + (long)n0 * s.K, s.K, s.K, smem);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int row = tr + 16 * i, col = n0 + tc + 16 * j;
-      if (row >= nvalid || col >= s.ldy) continue;
-      s.y[(q0 + row) * s.ldy + col] =
-          col < s.n ? tanhf(acc[i][j] + __ldg(bias + col)) : 0.f;
-    }
-}
-
-size_t smem_hidden() { return sizeof(float) * 2 * (BM + BN) * ldt<false>(); }
-
 // ---- no hidden layer: the head on the observation rows ----------------------
 
 // One thread a (row, head output): the sum over the D features of the
@@ -296,7 +255,8 @@ cudaError_t run_act_mlp(int stage, int layer, ActMlpArgs& p, int R, int K,
     const HiddenStage hs = {in_buf(p, l), net.ld[l], p.bt[l],
                             (long)net.hp[l + 1] * net.ld[l],
                             p.weights + net.b_off[l], net.n_weights,
-                            p.h[l % 2], net.ld[l + 1], net.dims[l + 1]};
+                            p.h[l % 2], net.ld[l + 1], net.ld[l + 1],
+                            net.dims[l + 1]};
     const dim3 grid(tiles, (unsigned)(net.hp[l + 1] / BN));
     hidden_kernel<<<grid, GNT, smem_hidden(), stream>>>(hs, p.rg);
     return count(cudaGetLastError(), 0);

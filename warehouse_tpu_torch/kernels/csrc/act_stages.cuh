@@ -1,9 +1,16 @@
-// The stage kernels that the two feed-forward acting kernels share: K2 (the
-// MLP policy, act.cu) and K10 (the CNN policy, act_cnn.cu). Each runs a
-// step as stage kernels on the caller's stream over all of the step's N = B
-// A rows (env, agent); these are the stages after the policy's first
-// layers:
+// The stage kernels that the acting kernels share: K2 (the MLP policy,
+// act.cu), K10 (the CNN policy, act_cnn.cu) and K7 (the recurrent policy,
+// act_rnn.cu). Each runs a step as stage kernels on the caller's stream
+// over all of the step's N = B A rows (env, agent):
 //
+// - hidden_kernel (K2's hidden layers but the last, K7's encoder layers):
+//   y = tanh(x Bt^T + b) as 64 x 128 tiles (mma_tiles.cuh gemm_64x128_f32:
+//   FFMA register blocks, the k-slices through a cp.async ring), bound by
+//   the products on the CUDA cores. Replaces the layer loop of
+//   warehouse_tpu/pallas/act.py _act_kernel (:375) and the encoder of
+//   _act_rnn_kernel (:590). (K7's cell stage, the product after it, runs
+//   on the tensor cores as 3xTF32 in act_rnn.cu; this stage stays FFMA, so
+//   that K2 keeps its bits.)
 // - head_kernel: the policy's last tanh layer and its fused 6-wide head,
 //   h = tanh(x Wt^T + bt) as 64 x 128 tiles (mma_tiles.cuh
 //   gemm_64x128_f32, a pass per 128 of H); the epilogue keeps a pass's h in
@@ -16,8 +23,8 @@
 //   (obs_value). A prologue launch writes obs[0]; the last step stores the
 //   final state. The env states live in device memory (envst) from one
 //   step to the next.
-// - obs_kernel (K2): the next step's observation rows from envst, into the
-//   obs output and into a zero-padded copy in row order that the first
+// - obs_kernel (K2, K7): the next step's observation rows from envst, into
+//   the obs output and into a zero-padded copy in row order that the first
 //   layer's tile GEMM reads, over light CTAs of 4 envs (the env stage's
 //   few thin CTAs take 10.6 ms a chunk over the D = 611 rows of the
 //   shelves global recipe when they build them; PERF.md §6).
@@ -147,6 +154,50 @@ struct ActEnvArgs {
   unsigned char* mask;   // [T, B, A, 5] valid moves, or null: no masking
   Shaping shp;  // the potential-shaping option; off when its table is null
 };
+
+// ---- a tanh layer -----------------------------------------------------------
+
+// y = tanh(x Bt^T + b) on group g's Bt and bias (their bases plus g times
+// their group strides): columns < n, zeros in [n, cols); y's rows are ys
+// floats apart (K2: ys = cols; K7's last encoder layer writes the e part of
+// its [e | h] rows).
+struct HiddenStage {
+  const float* x;
+  int K;  // x's row stride and the columns read: a multiple of BK
+  const float* bt;
+  long bt_g;
+  const float* bias;
+  long bias_g;
+  float* y;
+  int ys, cols, n;
+};
+
+// One BM-row tile (blockIdx.x) of one group's rows by BN columns
+// (blockIdx.y).
+__global__ void __launch_bounds__(GNT) hidden_kernel(HiddenStage s,
+                                                     RowGroups rg) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const int n0 = blockIdx.y * BN;
+  long q0;
+  int nvalid;
+  const int g = rg.bm_tile(blockIdx.x, &q0, &nvalid);
+  const float* bias = s.bias + g * s.bias_g;
+  float acc[4][8] = {};
+  gemm_64x128_f32(acc, s.x + q0 * s.K, s.K, nvalid,
+                  s.bt + g * s.bt_g + (long)n0 * s.K, s.K, s.K, smem);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int row = tr + 16 * i, col = n0 + tc + 16 * j;
+      if (row >= nvalid || col >= s.cols) continue;
+      s.y[(q0 + row) * s.ys + col] =
+          col < s.n ? tanhf(acc[i][j] + __ldg(bias + col)) : 0.f;
+    }
+}
+
+size_t smem_hidden() { return sizeof(float) * 2 * (BM + BN) * ldt<false>(); }
 
 // ---- the last tanh layer and the head ---------------------------------------
 

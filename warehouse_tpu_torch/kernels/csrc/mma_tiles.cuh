@@ -1,6 +1,7 @@
 // Warp-level tensor-core products and the tile GEMMs built on them, shared
-// by the learners that run their products as tiles: the CNN learner
-// (K11/K12, sgd_cnn.cu) and the recurrent learner (K8/K9, sgd_rnn.cu).
+// by the kernels that run their products as tiles: the CNN learner
+// (K11/K12, sgd_cnn.cu), the recurrent learner (K8/K9, sgd_rnn.cu), the
+// MLP learners (K3-K6) and the acting kernels' stages (K2, K7, K10).
 // mma.sync on tiles that a stage keeps in shared memory (or, for small
 // weights, reads through L1).
 //
@@ -18,7 +19,7 @@
 //     two halves of 8 k's apart (two sample runs, two positions);
 //   lb.one(ni, h, e), lb.pair(ni, h, e): B at k = 8 h + e, column 8 ni + g.
 //
-// Two routes, chosen by the stage's flag BF:
+// Two routes, chosen by the stage's flag BF, and a third for one stage:
 //
 // - BF (matmul_dtype="bfloat16"): m16n8k16 on the tensor cores with bf16
 //   operands and float32 accumulators. The operands are rounded to bf16
@@ -38,6 +39,13 @@
 //   and the JAX suite's float32 bounds on a phase's Adam moments do not
 //   hold on the CNN learner's cases at that distance. Single-pass TF32 is
 //   never used.
+// - 3xTF32 (split_tf32, mma_tf32: m16n8k8, each float32 operand a TF32 high
+//   part and a TF32 remainder, three products, float32 sums): the recurrent
+//   acting kernel's cell stage only (K7, act_rnn.cu), which has no
+//   optimizer moments to carry the distance; there each slice's products
+//   go to a zeroed fragment and join the sum by a rounded add, which keeps
+//   its rows within the float32 stage bound. It beat the FFMA route's cell
+//   stage there (PERF.md §6).
 //
 // The tile GEMMs at the end: gemm_64x128 (C = A Bt^T, both operands with
 // k contiguous: a forward product on W [out, in], or a dgrad on a
@@ -62,6 +70,24 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x's TF32 high part (round to nearest, ties away) and the TF32 of the
+// remainder: the two operands of 3xTF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
