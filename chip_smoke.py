@@ -4,10 +4,14 @@
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
 
-1. ``k1_check``: holds the greedy-rollout kernel (K1) against its plain
-   PyTorch twin, bit for bit, on the medium and shelves configs
-   (B = 4096, T = 128), then at B = 131072 on one draw stream, and times
-   both there;
+1. ``k1_check``: holds the draw stream of ``threefry.cuh`` alone (one
+   launch writes T = 128 ticks of spawn draws and the final keys) bit-equal
+   to ``rng.batched_step_draws`` on all four presets at B = 4096; then the
+   greedy-rollout kernel (K1, which makes each env's draws in registers)
+   against its plain PyTorch twin (the host draw stream, then the plain
+   ticks), bit for bit on every state field, ``key`` and ``t`` included,
+   on the medium and shelves configs (B = 4096, T = 128), then at B =
+   131072, and times both there;
 2. ``k2_check``: holds the act-phase kernel (K2: stage kernels a step
    over all of its rows) against the plain engine
    replaying its actions (obs, rewards, deliveries, final state bit-equal)
@@ -48,9 +52,9 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    and at hidden 256, each stage timed by CUDA events beside its plain
    stage;
 7. ``k1_episodes`` (main path): 8 greedy episodes through
-   ``greedy_rollout`` (draw stream + K1) at B = 131072, T = max_steps =
-   128, each from a batched reset, with env-steps/s beside one episode of
-   the plain path;
+   ``greedy_rollout`` (K1 alone, its draws on the card) at B = 131072,
+   T = max_steps = 128, each from a batched reset, with env-steps/s beside
+   one episode of the plain path;
 8. ``slice`` (main path): one episode of the acting phase at BASELINE
    config 4 — 8 chunks of K2 with the boundary reset after each — timed
    against the plain path, then ``serve.Policy.compute_actions``;
@@ -279,7 +283,11 @@ main path and read just after it. The last lines are the kernels' JSON line
 (each kernel's launches on the main paths, its error against its twin, its
 time beside the twin's and beside its bound: the larger of its inputs and
 outputs' bytes over 3.35 TB/s and its float operations over 67 TFLOP/s,
-the card's published float32 rates, or for a bf16 entry over the tensor
+the card's published float32 rates, or for K1 its integer operations:
+the ALU-only ones over the INT32 rate (64 lanes an SM, Hopper white paper,
+x the SMs x the SM clock that ``nvidia-smi`` reads) or all of them over
+twice that (adds also issue on the FMA pipe), whichever is larger
+(``k1_int_ops``), or for a bf16 entry over the tensor
 cores' 989 TFLOP/s, or for K7's cell stage three times its operations
 over their 495 TF32 TFLOP/s, with ``cuda_core_bound_ms`` at 67 TFLOP/s
 beside it; ``library_ms`` where one PyTorch call computes the same
@@ -294,6 +302,7 @@ CNN updates) and prints the device time per update by kernel name.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -304,7 +313,7 @@ import time
 import torch
 
 from warehouse_tpu_torch import (TrainConfig, large_config, medium_config,
-                                 rng, shelves_config)
+                                 rng, shelves_config, small_config)
 from warehouse_tpu_torch.env.batch import (observe_batch, reset_batch,
                                            reset_truncated_batch,
                                            step_batch)
@@ -389,6 +398,7 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (published)
 PEAK_F32_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 PEAK_BF16_PER_S = 989e12    # H100 SXM bf16 x bf16 -> f32, tensor cores, dense
 PEAK_TF32_PER_S = 495e12    # H100 SXM tf32 x tf32 -> f32, tensor cores, dense
+INT32_LANES_PER_SM = 64     # Hopper SM: INT32 results a clock (white paper)
 SLEEP_CYCLES = 1_000_000    # timed_after's hold: ~0.5 ms at the H100's clock
 # K3/K4 against the plain twin at config 4: (rtol, atol) per quantity.
 # The JAX suite's bounds (tests/test_grad_kernel.py:151-166, 185-190,
@@ -545,26 +555,113 @@ def nbytes(*xs) -> int:
     return total
 
 
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The SM clock that ``nvidia-smi`` reads (``clocks.max.sm``, the
+    boost clock)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    return float(res.stdout.split()[0]) * 1e6
+
+
 def bound(n_bytes: float, flops: float, bf16: bool = False,
-          tf32: bool = False) -> dict:
+          tf32: bool = False, int_ops: dict | None = None) -> dict:
     """The least time the card could take: each input read once and each
-    output written once at the memory rate, or the float operations at the
+    output written once at the memory rate, or the operations at the
     card's peak for their operands, whichever is larger: float32's or, with
     ``bf16`` (products of bf16 operands summed in float32), the tensor
     cores' bf16 rate, or, with ``tf32`` (float32 products as 3xTF32: three
     TF32 products each), three times the operations at the tensor cores'
     TF32 rate. A bf16 or tf32 bound also gives ``cuda_core_bound_ms``, the
-    same work at the float32 rate of the CUDA cores. Integer env work is
-    not counted."""
+    same work at the float32 rate of the CUDA cores. ``int_ops`` (K1's env
+    work, ``k1_int_ops`` times the env-ticks: ``alu`` and ``total``) adds
+    the integer bound, the larger of the ALU-only operations at
+    INT32_LANES_PER_SM and all of them at twice that (the SM issues 4
+    warp-instructions a clock, and adds also go to the FMA pipe as IMAD),
+    times the SMs and ``sm_clock_hz``; the line then also gives
+    ``bytes_bound_ms`` and ``int_ops_bound_ms``. Elsewhere integer env work
+    is not counted."""
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     by_ops = (3.0 * flops / PEAK_TF32_PER_S if tf32 else flops / (
         PEAK_BF16_PER_S if bf16 else PEAK_F32_PER_S)) * 1e3
+    by_int = 0.0
+    if int_ops:
+        lanes = INT32_LANES_PER_SM * sm_clock_hz() * (
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        by_int = max(int_ops["alu"] / lanes,
+                     int_ops["total"] / (2 * lanes)) * 1e3
+    by_ops = max(by_ops, by_int)
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": n_bytes, "flops": flops,
+            **({"int_ops": int_ops["total"], "int_alu_ops": int_ops["alu"],
+                "bytes_bound_ms": by_bytes, "int_ops_bound_ms": by_int,
+                "sm_clock_hz": sm_clock_hz()} if int_ops else {}),
             **({"cuda_core_bound_ms": max(
                 by_bytes, flops / PEAK_F32_PER_S * 1e3)}
                if bf16 or tf32 else {})}
+
+
+def k1_int_ops(A: int, R: int) -> dict:
+    """Integer operations that one env-tick of K1's function needs, counted
+    by hand as Hopper instructions, each doing as much as one can: ISETP (a
+    compare, ANDed into one predicate it takes), PLOP3 (any logic of three
+    predicates), SEL (a select), LOP3 (any logic of three words), SHF (a
+    shift or rotate), IABS, IADD3 (a sum of three, one an immediate), IMAD
+    (a multiply-add, or its high word). Loads and their addresses, loop
+    control, the float work (``bound``'s flops) and the limit of seven
+    predicate registers are not counted, so the code needs more. Two
+    kinds: ``alu``, which only the INT32 pipe executes, and ``arith``
+    (IADD3, IMAD), which ptxas also issues as IMAD on the FMA pipe.
+
+    - draws (``threefry.cuh`` ``spawn_draws``: 14 hashes, 9 distinct keys):
+      a hash's 20 rounds of IADD3, SHF and LOP3 (the add also takes the
+      previous block's x0 injection), its 5 x1 injections and last x0
+      injection (26 arith, 40 alu), x1's start when its counter is not 0
+      (5 hashes); a key's parity word (1 alu); the 5 xors of
+      ``random_bits``, ``uniform``'s shift and or; each randint's 3 exact
+      modulos (IMAD.HI, 2 IADD3, IMAD; 2 SHF) and fold (IMAD): 13 arith,
+      6 alu;
+    - per agent: its request read once for the tick (target, pickup and
+      delivery read the same cells, which change only after delivery;
+      the status before pickup): per slot a compare and 5 selects; the
+      request and carry tests (2); the target (4 selects); the step
+      straight from the deltas (2 arith; 4 compares, 4 selects, the
+      moving flag; 2 arith for the cell); rule 1's two unsigned bounds,
+      the wall index (1 arith) and the wall test (3);
+    - movement: rule 2, 3 a pair and 1 an agent; every ordered pair's
+      "candidate of i on the cell of j" (2 compares), which rules 3 and 4
+      share; rule 3, 3 a pair and 1 an agent; rule 4, A passes of 1 an
+      ordered pair and 1 an agent; the cell, 2 selects, and the collision
+      flag, 1 an agent;
+    - pickup: 5 an agent, 1 an agent and slot, 1 a slot; delivery: 3 and
+      2 an agent, 1 an agent and slot, 6 selects a slot; spawn: the draw's
+      compare, 8 a slot (the first-empty flag and its update, 6 selects;
+      the cells' rows and columns could come from a table of them, as
+      the ids do); assignment: 2 a slot (pending, unclaimed), per agent and
+      slot the distance (3 arith, 2 IABS), the compare, 2 selects and the
+      claim's 3, per agent 3;
+    - the tick's counts: a predicated add an agent for each of 3, and the
+      deliveries' sum."""
+    pairs, ordered = A * (A - 1) // 2, A * (A - 1)
+    draws_alu = 14 * 40 + 9 + 5 + 2 + 2 * 6
+    draws_arith = 14 * 26 + 5 + 2 * 13
+    agents_alu = A * (6 * R + 2 + 4 + 9 + 3)
+    agents_arith = A * (4 + 1)
+    movement = (3 * pairs + (A - 1) + 2 * ordered + 3 * pairs + A
+                + A * (ordered + A) + 3 * A)
+    pickup = 5 * A + A * R + R
+    delivery = 3 * A + A * R + 6 * R + 2 * A
+    spawn = 1 + 8 * R
+    assign_alu, assign_arith = 2 * R + A * R * 8 + 3 * A, A * R * 3
+    tick_alu = (agents_alu + movement + pickup + delivery + spawn
+                + assign_alu)
+    tick_arith = agents_arith + assign_arith + 3 * A + 1
+    return {"draws": draws_alu + draws_arith, "tick": tick_alu + tick_arith,
+            "alu": draws_alu + tick_alu, "arith": draws_arith + tick_arith,
+            "total": draws_alu + tick_alu + draws_arith + tick_arith}
 
 
 def mlp_macs(params) -> tuple[int, int]:
@@ -612,8 +709,24 @@ def reset_envs(cfg, B, seed, dev):
 
 
 def k1_check(dev):
-    """K1 bit-equal to its twin on medium and shelves at B = 4096, then at
-    the main path's B = 131072 on one draw stream, both timed there."""
+    """The draw stream of ``threefry.cuh`` alone bit-equal to
+    ``rng.batched_step_draws`` on all four presets; K1 bit-equal to its twin
+    (the host draw stream, then the plain ticks) on every state field, with
+    deliveries and reward-sum bits, on medium and shelves at B = 4096, then
+    at the main path's B = 131072, both timed there; its bound from bytes
+    and from integer operations (``k1_int_ops``)."""
+    for name, cfg in (("small", small_config()), ("medium", medium_config()),
+                      ("large", large_config()),
+                      ("shelves", shelves_config())):
+        T = cfg.max_steps
+        state, _ = reset_envs(cfg, CHECK_B, SEED + 5, dev)
+        got = rollout.spawn_draws_check(cfg, state.key, T)
+        want = rng.batched_step_draws(state.key, cfg, T)[:4]
+        require(all(g.shape == w.shape and bits_equal(g, w)
+                    for g, w in zip(got, want)),
+                f"K1 draws {name}: threefry.cuh differs from rng.py")
+        emit({"phase": "k1_draws_check", "config": name, "B": CHECK_B,
+              "T": T, "bit_equal": True})
     B = CHECK_B
     for name, cfg in (("medium", medium_config()),
                       ("shelves", shelves_config())):
@@ -631,22 +744,24 @@ def k1_check(dev):
     cfg = medium_config()
     B, T = EPISODE_B, cfg.max_steps
     state, _ = reset_envs(cfg, B, SEED, dev)
-    _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, T)
-    ks, kd, kr = rollout.greedy_steps(cfg, state, u, pick, drop)
-    ps, pd, pr = rollout.greedy_steps_reference(cfg, state, u, pick, drop)
+    ks, kd, kr = rollout.greedy_rollout(cfg, state, T)
+    ps, pd, pr = rollout.greedy_rollout_reference(cfg, state, T)
     err = max(max_abs_diff(ks, ps), float((kd - pd).abs().max()),
               float((kr - pr).abs().max()))
     require(err == 0.0 and bits_equal(kr, pr),
             f"K1 at B={B}: kernel differs from twin")
-    k_ms = timed(lambda: rollout.greedy_steps(cfg, state, u, pick, drop), 5)
-    p_ms = timed(lambda: rollout.greedy_steps_reference(cfg, state, u, pick,
-                                                        drop), 3)
+    k_ms = timed(lambda: rollout.greedy_rollout(cfg, state, T), 5)
+    p_ms = timed(lambda: rollout.greedy_rollout_reference(cfg, state, T), 3)
+    ops = k1_int_ops(cfg.num_agents, cfg.queue_capacity)
+    # 8 float operations per env-step: the reward sum's products and adds.
+    bnd = bound(nbytes(state, ks, kd, kr, rollout.map_tables(cfg, dev)),
+                8.0 * B * T, int_ops={k: float(ops[k]) * B * T
+                                      for k in ("alu", "total")})
     emit({"phase": "k1_check", "config": "medium", "B": B, "T": T,
           "bit_equal": True, "kernel_ms": k_ms, "plain_ms": p_ms,
           "kernel_env_steps_per_s": B * T / (k_ms / 1e3),
-          "plain_env_steps_per_s": B * T / (p_ms / 1e3)})
-    # 8 float operations per env-step: the reward sum's products and adds.
-    bnd = bound(nbytes(state, ks, u, pick, drop, kd, kr), 8.0 * B * T)
+          "plain_env_steps_per_s": B * T / (p_ms / 1e3),
+          "int_ops_per_env_tick": ops, **bnd})
     return err, k_ms, p_ms, bnd
 
 
@@ -2213,8 +2328,9 @@ def rnn_stage_check(dev, cfg, arch, bf16=False, ragged=False):
 
 
 def k1_episodes(dev):
-    """Greedy episodes through ``greedy_rollout`` (draw stream + K1), each
-    from a batched reset; the first episode also through the plain path."""
+    """Greedy episodes through ``greedy_rollout`` (one K1 launch, its draws
+    on the card), each from a batched reset; the first episode also
+    through the plain path."""
     cfg = medium_config()
     B, T = EPISODE_B, cfg.max_steps
     episode_ms, total_d = [], 0
@@ -3151,7 +3267,7 @@ def m4_check(dev, cfg):
 
 
 # Each kernel's wrapper, where its launch count lives.
-COUNTED = {"greedy_rollout": rollout.greedy_steps,
+COUNTED = {"greedy_rollout": rollout.greedy_rollout,
            "ppo_rollout": act.act_steps,
            "ppo_sgd_phase": sgd.ppo_sgd_phase,
            "ppo_minibatch_grads": sgd.ppo_minibatch_grads,
@@ -3627,6 +3743,8 @@ def main(argv=()) -> int:
          "bound_by": bnd["bound_by"],
          "library_ms": lib[0] if lib else None,
          "bound_bytes": bnd["bytes"], "bound_flops": bnd["flops"],
+         **{k: bnd[k] for k in ("int_ops", "int_alu_ops", "bytes_bound_ms",
+                                "int_ops_bound_ms") if k in bnd},
          **({"cuda_core_bound_ms": bnd["cuda_core_bound_ms"]}
             if "cuda_core_bound_ms" in bnd else {})}
         for name, (src, replaces) in sources.items()

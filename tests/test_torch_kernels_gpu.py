@@ -20,8 +20,10 @@ from warehouse_tpu_torch import (large_config, medium_config, rng,
 from warehouse_tpu_torch.env import batch
 from warehouse_tpu_torch.env.state import STATE_FIELDS
 from warehouse_tpu_torch.kernels.act import act_steps
+from warehouse_tpu_torch.kernels import rollout
 from warehouse_tpu_torch.kernels.rollout import (greedy_rollout,
-                                                 greedy_rollout_reference)
+                                                 greedy_rollout_reference,
+                                                 spawn_draws_check)
 from warehouse_tpu_torch.models import make_model
 from warehouse_tpu_torch.ops.move import valid_action_mask
 
@@ -56,6 +58,55 @@ def test_greedy_kernel_bit_equal_to_twin(name, dev):
     assert torch.equal(k[1], p[1])
     assert torch.equal(k[2].view(torch.int32), p[2].view(torch.int32))
     assert int(k[1].sum()) > 0
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_spawn_draws_kernel_bit_equal_to_stream(name, dev):
+    """threefry.cuh alone: T ticks of (u, pick, drop) and the final keys,
+    bit-equal to ``rng.batched_step_draws``."""
+    cfg = PRESETS[name]
+    state, _ = reset(cfg, 3, dev)
+    got = spawn_draws_check(cfg, state.key, cfg.max_steps)
+    want = rng.batched_step_draws(state.key, cfg, cfg.max_steps)[:4]
+    for g, w, what in zip(got, want, ("key", "u", "pick", "drop")):
+        assert g.dtype == w.dtype and g.shape == w.shape, what
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), what
+
+
+def test_greedy_rollout_makes_no_host_draws(dev, monkeypatch):
+    """On a CUDA state ``greedy_rollout`` is one K1 launch and no call of
+    the host draw stream."""
+    cfg = PRESETS["medium"]
+    state, _ = reset(cfg, 4, dev)
+    want = greedy_rollout_reference(cfg, state, 16)
+
+    def no_host_draws(*args, **kw):
+        raise AssertionError("greedy_rollout drew on the host")
+
+    monkeypatch.setattr(rng, "batched_step_draws", no_host_draws)
+    n = rollout.greedy_rollout.launches
+    got = greedy_rollout(cfg, state, 16)
+    assert rollout.greedy_rollout.launches == n + 1
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32))
+
+
+@pytest.mark.parametrize("B", [5, 8000, 9000, 17000, 34000, 70000])
+def test_greedy_kernel_at_every_block_size(B, dev):
+    """K1 takes smaller CTAs for a smaller batch (``k1_threads``: on 132
+    SMs 32, 64, 128, 256 and 512 threads for these B): each bit-equal to
+    the twin over 16 ticks."""
+    cfg = PRESETS["medium"]
+    keys = rng.fold_in(rng.prng_key(6, dev), torch.arange(B, device=dev))
+    state, _ = batch.reset_batch(cfg, keys)
+    k = greedy_rollout(cfg, state, 16)
+    p = greedy_rollout_reference(cfg, state, 16)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(k[0], f), getattr(p[0], f)), f
+    assert torch.equal(k[1], p[1])
+    assert torch.equal(k[2].view(torch.int32), p[2].view(torch.int32))
 
 
 @pytest.mark.parametrize("name", sorted(PRESETS))

@@ -3,10 +3,10 @@
 turns on one GPU, with its device time split by kernel, and hash the
 outputs of the kernels the trees should share bit for bit: a chunk of the
 feed-forward acting kernels K2 (the MLP policy) or K10 (the CNN policy),
-a chunk of the recurrent acting kernel K7, or the IMPALA learner K5 with
-K6 inside it.
+a chunk of the recurrent acting kernel K7, the IMPALA learner K5 with K6
+inside it, or a greedy episode of K1.
 
-    python tools/torch_ab.py [--kernel k2|k5|k7|k10] PARENT_TREE . . PARENT_TREE
+    python tools/torch_ab.py [--kernel k1|k2|k5|k7|k10] PARENT_TREE . . PARENT_TREE
 
 Each tree argument is a directory that holds ``chip_smoke.py`` and
 ``warehouse_tpu_torch/``; each runs in a process of its own (the trees'
@@ -40,6 +40,12 @@ streams):
   the LSTM at config 4 and for the GRU on shelves with action masking
   (the median of 5 by CUDA events after one run of warm-up, the wrapper
   inside, and one chunk's device time split by kernel);
+- with ``--kernel k1``, times and hashes one greedy episode through
+  ``kernels.rollout.greedy_rollout`` (T = 128 from a batched reset, the
+  draws and the kernel: whatever the tree's wrapper runs) at B = 131072
+  on medium and at B = 4096 on shelves (the median of 5 by CUDA events
+  after one run that is hashed, the wrapper inside, and one episode's
+  device time split by kernel);
 - with ``--kernel k5``, times and hashes one phase of K5 (one pass of M =
   4 minibatches, Adam and RMSProp; K6's gradient kernels inside it) and
   one K6 gradient (minibatch 1), each on ``chip_smoke.impala_inputs``'
@@ -47,8 +53,8 @@ streams):
   events after one run of warm-up, the wrapper inside, and one run's
   device time split by kernel with ``torch.profiler``).
 
-Each process prints one line ``{"tree": ..., "kernel": "k2" | "k5" | "k7" |
-"k10",
+Each process prints one line ``{"tree": ..., "kernel": "k1" | "k2" | "k5" |
+"k7" | "k10",
 "times": {instance: {"ms": ..., "split": {kernel: [ms, launches]}}},
 "sha256": {kernel_instance: hex}}``; equal hashes are the same bits. This
 script prints the card's name and power limit first. Comparing two trees
@@ -315,6 +321,17 @@ if {kernel!r} == "k7":
 # K1: one greedy episode of 4096 config-4 envs.
 state, _ = cs.reset_envs(cfg, cs.CHECK_B, cs.SEED, dev)
 out["k1"] = chunk_sha(rollout.greedy_rollout(cfg, state, cfg.max_steps))
+if {kernel!r} == "k1":
+    # Greedy episodes: B = 131072 on medium (the main path's), B = 4096 on
+    # shelves.
+    for name, c, B in (("medium", cfg, cs.EPISODE_B),
+                       ("shelves", shelves, cs.CHECK_B)):
+        state, _ = cs.reset_envs(c, B, cs.SEED, dev)
+        run = lambda c=c, state=state: rollout.greedy_rollout(c, state,
+                                                              c.max_steps)
+        out["k1_" + name] = chunk_sha(run())
+        times[name] = {{"ms": cs.timed(run, 5), "split": split_of(run)}}
+        del state, run
 print(json.dumps({{"tree": {tree!r}, "kernel": {kernel!r}, "times": times,
                   "sha256": out}}))
 """
@@ -324,7 +341,7 @@ def main(argv) -> int:
     kernel = "k10"
     if argv[:1] == ["--kernel"] and len(argv) > 1:
         kernel, argv = argv[1], argv[2:]
-    if not argv or kernel not in ("k2", "k5", "k7", "k10"):
+    if not argv or kernel not in ("k1", "k2", "k5", "k7", "k10"):
         print(__doc__, file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -24,6 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+U = ctypes.c_uint
 IP = ctypes.POINTER(ctypes.c_int)
 LP = ctypes.POINTER(ctypes.c_long)
 
@@ -31,7 +32,9 @@ LP = ctypes.POINTER(ctypes.c_long)
 # c_void_p, so ctypes passes them as 64-bit values.
 SIGNATURES = {
     "wh_error_string": [I],
-    "wh_greedy_rollout": [I, I, L, I, I, I, F, F, F, F, F] + [P] * 21,
+    "wh_greedy_rollout": [I, I, L, I, I, I, I, U, I, I, U] + [F] * 5
+                         + [P] * 23,
+    "wh_spawn_draws": [L, I, I, U, I, I, U] + [P] * 7,
     "wh_act_weight_floats": [I, IP],
     "wh_act_workspace_floats": [I, I, L, I, IP, I],
     "wh_act_layout": [I, I, L, I, IP, I, LP],

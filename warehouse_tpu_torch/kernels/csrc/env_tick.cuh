@@ -89,16 +89,24 @@ __device__ inline void store_env(const Env<A, R>& e, long b, int* pos,
 template <int A, int R>
 __device__ inline void target(const Env<A, R>& e, int i, bool& has, int& tr,
                               int& tc) {
+  // The slot's cells are read with masks: m is all ones on the agent's
+  // slot and zero on the others, and the chain ors the masked cells. As a
+  // select chain (if (aq == r) tr = cy ? qdr[r] : qpr[r]) nvcc folded the
+  // reads into one at qpr + aq or qdr + aq, a dynamic index that put the
+  // whole Env on the local-memory stack at (A, R) = (2, 4), (4, 8) and
+  // (6, 12); with plain reads in the chain and the carry's choice after
+  // it, at all four (tools/torch_k1_blocks.py counts the local loads).
   has = e.aq[i] >= 0;
-  tr = e.pr[i];
-  tc = e.pc[i];
+  const int cm = -(int)(e.cy[i] != 0);
+  int vr = 0, vc = 0;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (e.aq[i] == r) {
-      tr = e.cy[i] ? e.qdr[r] : e.qpr[r];
-      tc = e.cy[i] ? e.qdc[r] : e.qpc[r];
-    }
+    const int m = -(int)(e.aq[i] == r);
+    vr |= m & ((cm & e.qdr[r]) | (~cm & e.qpr[r]));
+    vc |= m & ((cm & e.qdc[r]) | (~cm & e.qpc[r]));
   }
+  tr = has ? vr : e.pr[i];
+  tc = has ? vc : e.pc[i];
 }
 
 // One tick given the agents' actions and the tick's spawn draws. Leaves

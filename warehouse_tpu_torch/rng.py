@@ -186,6 +186,17 @@ def step_draws(keys: torch.Tensor, cfg: EnvConfig) -> StepDraws:
     return StepDraws(k[:, 0], k[:, 2], u, pick, drop)
 
 
+def spawn_draws(keys: torch.Tensor, cfg: EnvConfig):
+    """One tick's draws for a batch of keys ``[B, 2]`` in the order that
+    ``kernels/csrc/threefry.cuh`` ``spawn_draws`` makes them: ``(next_key,
+    u, pick, drop)``, ``step_draws`` without its reset key. The spawn key
+    is ``fold_in(key, 1)`` (``split(key, 3)[1]``), then its uniform and two
+    randints, then the next key ``fold_in(key, 0)``."""
+    sk = fold_in(keys, 1)
+    u, pick, drop = _spawn_cells(sk, cfg)
+    return fold_in(keys, 0), u, pick, drop
+
+
 def batched_step_draws(keys: torch.Tensor, cfg: EnvConfig, T: int):
     """T steps of per-env draws: ``(final_keys, u float32[T, B],
     pick int32[T, B], drop int32[T, B], reset_keys int64[T, B, 2])`` —
