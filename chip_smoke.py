@@ -269,13 +269,46 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    with the flat optimizer, the GRU with ``--epoch-shuffle each``, IMPALA
    (Adam) with ``--micro-batches 2`` and with the flat optimizer, each
    update held against ``plain_step`` from the same state, the acting
-   kernel and the plain learner's split timed, ``backends`` printed.
+   kernel and the plain learner's split timed, ``backends`` printed;
+36. ``per_step_check`` (ROADMAP F-c17), inside ``k3_check`` / ``k5_check``
+   / ``k8_check`` at config 4 (K3, K11, K5 Adam, K8 GRU and LSTM, and K8
+   at D = 411): each optimizer step of the phase as a one-step phase
+   through the kernel from the kernel's own params and moments before it,
+   against the twin's step from that same state, at the phase's
+   tolerances, beside the whole-phase comparison;
+37. the learners' inputs from the per-step acting phase: ``k5_check`` and
+   ``k6_check`` on a config-4 IMPALA chunk of 24 steps with a truncation
+   inside it in every env (``impala_inputs(ragged=True)``), ``k8_check``
+   and ``k9_check`` for the GRU on the 9x9 global view (D = 411, a chunk
+   of the per-step phase), each with a ``bound`` line; ``step_sync_check``:
+   24 config-4 ticks on the same draws through ``engine.step`` and through
+   ``step_autoreset_batch`` (its host read of ``truncated.any()``), timed
+   in turns;
+38. the per-step acting phase's main paths (``train.ppo.step_rollout``,
+   where no acting kernel takes the configuration, as the JAX trainers
+   then act through their XLA scan; no acting kernel may launch there):
+   ``ragged_train`` (config-4 PPO at ``--unroll-length 24``: an episode
+   ends inside a chunk; K3 / K4 learn; the first update against the plain
+   path's, 50 updates of an 80-update run, a learning check over updates
+   41-50), ``impala_ragged_train`` (IMPALA, T = 24, K5 / K6, 10 updates),
+   ``rnn_global_train`` (the GRU on the 9x9 global view, D = 411, K8 /
+   K9, 10 updates), ``rnn_shelves_train`` (the GRU on shelves, masked,
+   shaped, ``--bootstrap-truncated``, K8 / K9, 10 updates),
+   ``impala_global_train`` (shelves, D = 611, 2048 envs, masked, K5 / K6,
+   10 updates), each with its first update against the plain path's; and
+   with both phases plain, ``impala_bf16_train`` (5 updates),
+   ``shelves_cnn_global_train`` (the CNN on the 11x11 global map, 2048
+   envs, 3), ``attn_train`` (config-4 PPO with the attention torso, 5) and
+   ``impala_cnn_train`` (3); each prints its ``backends``, its update's
+   split by the trainer's marks, its trained env-steps/s, and serves the
+   trained policy.
 
 Every main path but ``shelves_cnn_groups_train``, ``rllib_cadence_train``,
 ``cnn_per_agent_train`` and ``cnn_global_groups_train`` (acting kernel,
-plain learner) reports ``backends`` ``{"rollout": "cuda", "grad":
-"cuda"}``. The checks (1-6, 11, 12, 14, 15, 17, 20, 24, 26, 29, 30, 35)
-run before the main paths.
+plain learner) and the per-step paths of item 38 (``{"rollout": "step",
+...}``) reports ``backends`` ``{"rollout": "cuda", "grad": "cuda"}``. The
+checks (1-6, 11, 12, 14, 15, 17, 20, 24, 26, 29, 30, 35-37) run before the
+main paths.
 
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit. The kernels' launch counts are zeroed just before each
@@ -316,7 +349,8 @@ from warehouse_tpu_torch import (TrainConfig, large_config, medium_config,
                                  rng, shelves_config, small_config)
 from warehouse_tpu_torch.env.batch import (observe_batch, reset_batch,
                                            reset_truncated_batch,
-                                           step_batch)
+                                           step_autoreset_batch, step_batch)
+from warehouse_tpu_torch.env import engine
 from warehouse_tpu_torch.env.state import STATE_FIELDS
 from warehouse_tpu_torch.evaluate import (checkpoint_policy_fn,
                                           evaluate_policy, policy_fn_for)
@@ -337,6 +371,7 @@ from warehouse_tpu_torch.train import (ImpalaTransition, Transition,
                                        make_train, make_train_impala,
                                        make_train_rnn)
 from warehouse_tpu_torch.train import checkpoint
+from warehouse_tpu_torch.train.ppo import step_rollout
 
 SEED = 0
 TOL = 1e-4  # MLP outputs: f32 sums in another order, tanh/exp/log ulps
@@ -391,6 +426,17 @@ REPRO_UPDATES, REPRO_SAVE = 5, 3  # repro_check: run length, checkpoint
 M4_UPDATES = 3          # m4_check: updates per case
 KERNELS = {"rollout": "cuda", "grad": "cuda"}  # a path's routes: kernels
 PLAIN_GRAD = {"rollout": "cuda", "grad": "plain"}  # acting kernel, plain SGD
+# Per-step acting (train.ppo.step_rollout) with a learner kernel, or plain.
+STEP_KERNEL = {"rollout": "step", "grad": "cuda"}
+STEP_PLAIN = {"rollout": "step", "grad": "plain"}
+RAGGED_UNROLL = 24      # config 4's 128 steps: 128 % 24 = 8, episodes end
+#                         inside a chunk (ragged_train, impala_ragged_train)
+RAGGED_UPDATES = 50     # ragged_train: updates of its 80-update schedule
+RAGGED_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 41-50
+STEP_UPDATES = {"impala_ragged_train": 10, "rnn_global_train": 10,
+                "rnn_shelves_train": 10, "impala_global_train": 10,
+                "impala_bf16_train": 5, "shelves_cnn_global_train": 3,
+                "attn_train": 5, "impala_cnn_train": 3}
 # A kernel update's metrics against the plain path's from the same state
 # (tests/test_torch_train.py's bound on the JAX trainer's metrics).
 STEP_METRIC_TOL = (1e-3, 5e-5)
@@ -1076,6 +1122,46 @@ def check_line(K, bf16, phase):
              "matmul_dtype": BF16} if bf16 else {"phase": phase})
 
 
+def env_cols(x, lo: int, w: int):
+    """Env columns ``[lo, lo + w)`` of a ``[T, B, ...]`` tensor, contiguous."""
+    return x[:, lo:lo + w].contiguous()
+
+
+def per_step_check(K, phase, phase_ref, params, opt, step_args, n, tol):
+    """Each of a learner phase's ``n`` optimizer steps as a phase of one
+    step through the kernel, from the kernel's own params and optimizer
+    state before it, against the twin's step from that same state, at
+    ``tol`` (ROADMAP F-c17). Both sides of a step start from the same bits,
+    so a branch of the loss (the PPO value or ratio clip, V-trace's clips)
+    can part them only where one step's own rounding puts a sample on the
+    other side; the whole-phase comparison beside it lets a rounding apart
+    after one step choose the branch of every later step.
+    ``step_args(params, opt, s) -> (args, kw)`` gives step s's one-step
+    phase: minibatch ``s % M``'s env columns, step s's optimizer rows."""
+    worst = {}
+    for s in range(n):
+        args, kw = step_args(params, opt, s)
+        pk, ok, lk = phase(*args, **kw)
+        pr, orf, lr_ = phase_ref(*args, **kw)
+        pairs = {"losses": (lk, lr_), "params": (pk, pr),
+                 "nu": (ok.nu, orf.nu)}
+        if hasattr(ok, "mu"):
+            pairs["mu"] = (ok.mu, orf.mu)
+        for k, v in pairs.items():
+            worst[k] = tuple(map(max, worst.get(k, (0.0, 0.0)),
+                                 tree_err(*v, *tol[k])))
+        params, opt = pk, ok
+    torch.cuda.synchronize()
+    emit({"phase": "per_step_check", "kernel": K, "steps": n,
+          "max_abs_err": {k: e for k, (e, _) in worst.items()},
+          "tol_ratio": {k: r for k, (_, r) in worst.items()},
+          "tol": {k: tol[k] for k in worst}})
+    require(all(r <= 1.0 for _, r in worst.values()),
+            f"{K}: a step from the kernel's own state differs from the "
+            f"twin's step: {worst}")
+    return worst
+
+
 def sgd_inputs(dev, cfg, arch="mlp", schedule=TRAIN_SCHEDULE, tcfg=None,
                groups=None):
     """One trajectory for the SGD checks, config 4's or ``tcfg``'s: a K2
@@ -1106,11 +1192,13 @@ def sgd_inputs(dev, cfg, arch="mlp", schedule=TRAIN_SCHEDULE, tcfg=None,
 
 
 def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None,
-             bf16=False):
+             bf16=False, per_step=False):
     """K3 or, with ``cnn``, K11 against its plain twin, a rerun, timed;
     on config 4's trajectory or one of ``tcfg`` on ``cfg``; with
     ``groups``, K3 on the multi-policy params, its group count moving by a
-    launch per step; with ``bf16``, both on bf16 operands."""
+    launch per step; with ``bf16``, both on bf16 operands; with
+    ``per_step``, each step also from the kernel's own state
+    (``per_step_check``)."""
     K, phase, phase_ref, tol = (
         ("K11", sgd_cnn.ppo_cnn_sgd_phase,
          sgd_cnn.ppo_cnn_sgd_phase_reference, CNN_TOL) if cnn else
@@ -1172,6 +1260,18 @@ def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None,
             f"{what}: the f32 twin lies within the bf16 bound")
     require(bit_equal, f"{what}: a second run gave other bits")
     require(moved > 0.0, f"{what} did not move the params")
+    if per_step:
+        w = traj.obs.shape[1] // M
+
+        def step_args(p, o, s):
+            lo = (s % M) * w
+            cut = functools.partial(env_cols, lo=lo, w=w)
+            return ((p, o, Transition(*map(cut, traj)), cut(adv_n),
+                     cut(targets), *(r[s:s + 1] for r in rows), ent,
+                     rs.kl_coeff),
+                    {**kw, "num_epochs": 1, "num_minibatches": 1})
+        per_step_check(K, phase, phase_ref, rs.params, rs.opt_state,
+                       step_args, E * M, tol)
     fwd, dx = ff_macs(rs.params)
     n = traj.obs.shape[0] * traj.obs.shape[1] * cfg.num_agents  # per epoch
     bnd = bound(nbytes(traj.obs, traj.action, traj.log_prob, traj.value,
@@ -1598,18 +1698,30 @@ def mlp_stage_check(dev, cfg, name="config4", bf16=False, ragged=False,
     return out
 
 
-def impala_inputs(dev, cfg, hidden=HIDDEN[0]):
+def impala_inputs(dev, cfg, hidden=HIDDEN[0], ragged=False):
     """One config-4 IMPALA trajectory: a K2 chunk from the trainer's reset
-    and the boundary reset after it (``last_obs``)."""
+    and the boundary reset after it (``last_obs``); with ``ragged``, a
+    chunk of ``RAGGED_UNROLL`` steps of the per-step phase from the reset
+    states moved 1 to 23 steps before their episode's end, so that every
+    env truncates inside the chunk (at its own step) and starts anew."""
     tcfg = TrainConfig(num_updates=IMPALA_SCHEDULE, impala_rmsprop=False,
                        hidden_dim=hidden)
     tr = make_train_impala(cfg, tcfg, device=dev)
     rs = tr.init(rng.prng_key(SEED + 7, dev))
     tr.model.load_state_dict(rs.params)
-    new, roll, reset_key, _ = act.ppo_rollout(cfg, tr.model, rs.env_state,
-                                              SLICE_T,
-                                              rng.prng_key(SEED + 8, dev))
-    _, last_obs, _ = reset_truncated_batch(cfg, new, reset_key)
+    if ragged:
+        T = RAGGED_UNROLL
+        left = torch.randint(1, T, rs.env_state.t.shape,
+                             generator=torch.Generator().manual_seed(SEED))
+        state = rs.env_state.replace(
+            t=(cfg.max_steps - left).to(rs.env_state.t).to(dev))
+        _, roll, last_obs, _, _, _ = step_rollout(
+            cfg, tcfg, lambda o, c: (*apply(rs.params, o), None), state,
+            observe_batch(cfg, state), T, rng.prng_key(SEED + 8, dev))
+    else:
+        new, roll, reset_key, _ = act.ppo_rollout(
+            cfg, tr.model, rs.env_state, SLICE_T, rng.prng_key(SEED + 8, dev))
+        _, last_obs, _ = reset_truncated_batch(cfg, new, reset_key)
     traj = ImpalaTransition(
         roll.obs, roll.action, roll.log_prob, roll.reward,
         roll.truncated[:, :, None].expand_as(roll.reward), roll.mask,
@@ -1620,18 +1732,22 @@ def impala_inputs(dev, cfg, hidden=HIDDEN[0]):
     return tcfg, rs.params, traj, last_obs, kw
 
 
-def k5_check(dev, cfg, hidden=HIDDEN[0]):
+def k5_check(dev, cfg, hidden=HIDDEN[0], ragged=False):
     """K5 against its twin for passes 1 and 2, RMSProp and Adam; a rerun
     bit-equal; one pass of each optimizer timed (Adam the main path's, with
-    a ``bound`` line for RMSProp). At another ``hidden`` width only the
-    main path's case runs."""
-    tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg, hidden)
+    a ``bound`` line for RMSProp), and the Adam pass step by step from the
+    kernel's own state (``per_step_check``). At another ``hidden`` width,
+    or on the ``ragged`` chunk of ``impala_inputs`` (truncations inside
+    it), only the main path's case runs."""
+    tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg, hidden,
+                                                     ragged)
     M = tcfg.num_minibatches
     results, worst = [], {k: (0.0, 0.0) for k in ("losses", "params", "mu",
                                                   "nu")}
     times = {}
-    for use_rms in ((True, False) if hidden == HIDDEN[0] else (False,)):
-        for passes in ((1, 2) if hidden == HIDDEN[0] else (1,)):
+    full = hidden == HIDDEN[0] and not ragged
+    for use_rms in ((True, False) if full else (False,)):
+        for passes in ((1, 2) if full else (1,)):
             tc = tcfg.replace(impala_rmsprop=use_rms, impala_passes=passes)
             optimizer = make_impala_optimizer(tc)
             opt = optimizer.init(params)
@@ -1670,8 +1786,26 @@ def k5_check(dev, cfg, hidden=HIDDEN[0]):
                           5),
                     timed(lambda: vtrace_sgd.impala_sgd_phase_reference(
                         *args, **pkw), 3))
+            if passes == 1 and not use_rms and hidden == HIDDEN[0]:
+                w = traj.obs.shape[1] // M
+
+                def step_args(p, o, s, rows=rows, pkw=pkw, tc=tc):
+                    lo = (s % M) * w
+                    cut = functools.partial(env_cols, lo=lo, w=w)
+                    return ((p, o, ImpalaTransition(*map(cut, traj)),
+                             last_obs[lo:lo + w].contiguous(),
+                             tuple(r[s:s + 1] for r in rows),
+                             tc.entropy_coef),
+                            {**pkw, "num_minibatches": 1})
+                per_step_check("K5 ragged" if ragged else "K5",
+                               vtrace_sgd.impala_sgd_phase,
+                               vtrace_sgd.impala_sgd_phase_reference,
+                               params, opt, step_args, M, VT_TOL)
+    done_inside = int(traj.done[:-1, :, 0].sum())
     emit({"phase": "k5_check", "hidden": hidden, "B": traj.obs.shape[1],
-          "T": SLICE_T, "minibatches": M, "samples_per_minibatch":
+          "T": traj.obs.shape[0], "ragged": ragged,
+          "truncations_inside_the_chunk": done_inside,
+          "minibatches": M, "samples_per_minibatch":
           traj.obs.shape[0] * traj.obs.shape[1] * cfg.num_agents // M,
           "cases": results,
           "max_abs_err": {k: e for k, (e, _) in worst.items()},
@@ -1681,6 +1815,8 @@ def k5_check(dev, cfg, hidden=HIDDEN[0]):
           **({"rmsprop_kernel_ms": times["rmsprop"][0],
               "rmsprop_plain_ms": times["rmsprop"][1]}
              if "rmsprop" in times else {})})
+    require(not ragged or done_inside == traj.obs.shape[1],
+            "K5: the ragged chunk does not end every episode inside it")
     # The timed cases, 1 pass; the last-obs rows are forward only. RMSProp
     # moves a moment fewer than Adam.
     fwd, dx = mlp_macs(params)
@@ -1696,8 +1832,11 @@ def k5_check(dev, cfg, hidden=HIDDEN[0]):
             bound(data + 6 * nbytes(params), flops))
 
 
-def k6_check(dev, cfg):
-    tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg)
+def k6_check(dev, cfg, ragged=False):
+    """K6 against autograd on every minibatch, timed; on config 4's chunk or
+    the ``ragged`` one of ``impala_inputs``."""
+    tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg,
+                                                     ragged=ragged)
     M, ent = tcfg.num_minibatches, tcfg.entropy_coef
     worst = {"mb_losses": (0.0, 0.0), "grads": (0.0, 0.0)}
     for mb in range(M):
@@ -1715,7 +1854,8 @@ def k6_check(dev, cfg):
         *args, num_minibatches=M, **kw), 5)
     p_ms = timed(lambda: vtrace_sgd.impala_minibatch_grads_reference(
         *args, num_minibatches=M, **kw), 3)
-    emit({"phase": "k6_check", "minibatches": M,
+    emit({"phase": "k6_check", "minibatches": M, "T": traj.obs.shape[0],
+          "ragged": ragged,
           "max_abs_err": {k: e for k, (e, _) in worst.items()},
           "tol_ratio": {k: r for k, (_, r) in worst.items()},
           "tol": {k: VT_TOL[k] for k in worst},
@@ -2126,8 +2266,10 @@ def act_rnn_stage_check(dev, cfg, name, arch, B=CHECK_B, masked=False):
 def rnn_inputs(dev, cfg, arch, bf16=False,
                rollout=act_rnn.ppo_rnn_rollout_reference):
     """One config-4 recurrent trajectory for the K8/K9 checks: a chunk of
-    ``rollout`` (K7's plain twin) from the trainer's reset and a random
-    carry (of bf16 values with ``bf16``, as a bf16 run's carry cast up),
+    ``rollout`` (K7's plain twin; with global observations the trainer's
+    per-step phase, D = 411 on the 9x9 map) from the trainer's reset and a
+    random carry (of bf16 values with ``bf16``, as a bf16 run's carry cast
+    up),
     then GAE and the per-minibatch normalization. The learner's checks take
     the twin's chunk so that their inputs do not move with K7's bits: on
     the chunk K7 makes at its 3xTF32 bits, one sample's value sits 5e-9
@@ -2142,16 +2284,21 @@ def rnn_inputs(dev, cfg, arch, bf16=False,
                for x in carry_leaves(rs.carry))
     h0 = tuple(map(bf16_round, h0)) if bf16 else h0
     h0 = h0 if arch == "lstm" else h0[0]
-    new, roll, _, _, last_h = rollout(
-        cfg, rs.params, rs.env_state, h0, SLICE_T,
-        rng.prng_key(SEED + 6, dev))
+    if cfg.global_obs:  # K7 has no global view: the trainer's per-step phase
+        _, roll, last_obs, _, _, last_h = step_rollout(
+            cfg, tcfg, lambda o, c: apply_rnn(rs.params, o, c), rs.env_state,
+            rs.obs, SLICE_T, rng.prng_key(SEED + 6, dev), h0)
+    else:
+        new, roll, _, _, last_h = rollout(
+            cfg, rs.params, rs.env_state, h0, SLICE_T,
+            rng.prng_key(SEED + 6, dev))
+        last_obs = observe_batch(cfg, new)
     done = roll.truncated[:, :, None].expand_as(roll.reward)
     traj = Transition(roll.obs, roll.action, roll.log_prob, roll.value,
                       roll.reward, done, roll.mask,
                       torch.zeros_like(roll.value))
     with torch.no_grad():
-        _, last_value, _ = apply_rnn(rs.params, observe_batch(cfg, new),
-                                     last_h)
+        _, last_value, _ = apply_rnn(rs.params, last_obs, last_h)
     adv, targets = gae(roll.reward, roll.value, done, last_value,
                        tcfg.gamma, tcfg.gae_lambda)
     adv_n = sgd.normalize_adv_env_minibatch(adv, tcfg.num_minibatches)
@@ -2211,6 +2358,22 @@ def k8_check(dev, cfg, arch, bf16=False):
             f"{K} ({arch}): the f32 twin lies within the bf16 bound")
     require(bit_equal, f"{K} ({arch}): a second run gave other bits")
     require(moved > 0.0, f"{K} ({arch}) did not move the params")
+    if not bf16:  # F-c17: each step from the kernel's own state
+        w = traj.obs.shape[1] // M
+
+        def step_args(p, o, s):
+            lo = (s % M) * w
+            cut = functools.partial(env_cols, lo=lo, w=w)
+            carry = tuple(x[lo:lo + w].contiguous() for x in carry_leaves(h0))
+            return ((p, o, Transition(*map(cut, traj)), cut(adv_n),
+                     cut(targets), carry if arch == "lstm" else carry[0],
+                     *(r[s:s + 1] for r in rows), ent, rs.kl_coeff),
+                    {**kw, "num_epochs": 1, "num_minibatches": 1})
+        per_step_check(f"{K} {arch}" + (" D=%d" % cfg.obs_dim
+                                        if cfg.global_obs else ""),
+                       sgd_rnn.ppo_rnn_sgd_phase,
+                       sgd_rnn.ppo_rnn_sgd_phase_reference, rs.params,
+                       rs.opt_state, step_args, E * M, SGD_TOL)
     fwd, dx = rnn_macs(rs.params)
     bnd = bound(nbytes(traj.obs, traj.action, traj.log_prob, traj.value,
                        adv_n, targets, h0, rows, lk)
@@ -2434,10 +2597,11 @@ def median_split(splits):
     return {k: median([s[k] for s in splits]) for k in splits[0]}
 
 
-def run_updates(tr, n, what, dev, hook=None, backends=KERNELS):
+def run_updates(tr, n, what, dev, hook=None, backends=KERNELS, plain_n=3):
     """n updates of ``tr.train_step`` from ``PRNGKey(0)`` with the phase
-    split of each by CUDA events, then 3 of ``tr.plain_step`` from the same
-    initial state: the final state and a dict of the timings, the
+    split of each by CUDA events, then ``plain_n`` of ``tr.plain_step``
+    from the same initial state (none where both phases are plain: the
+    same update): the final state and a dict of the timings, the
     per-update deliveries and the largest parameter change. ``hook(u, rs,
     metrics)``, if given, is called after update ``u`` (from 1). The
     trainer's routes must be ``backends``."""
@@ -2463,23 +2627,24 @@ def run_updates(tr, n, what, dev, hook=None, backends=KERNELS):
                 for k in rs.params)
     require(moved > 0.0, f"{what}: params did not move")
 
-    plain, rp = [], rs0
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(3):
-        marks = Marks()
-        rp, _ = tr.plain_step(rp, mark=marks)
-        plain.append(marks.split())
-    plain_wall = time.perf_counter() - t1
-    return rs, {
-        "B": B, "T": T, "updates": n, "backends": tr.backends,
-        "update_ms_median": median([s["total"] for s in splits]),
-        "split_ms_median": median_split(splits),
-        "env_steps_per_sec": B * T * n / wall,
-        "plain_update_ms_median": median([s["total"] for s in plain]),
-        "plain_split_ms_median": median_split(plain),
-        "plain_env_steps_per_sec": B * T * 3 / plain_wall,
-        "deliveries_per_env_step": deliveries, "max_param_change": moved}
+    out = {"B": B, "T": T, "updates": n, "backends": tr.backends,
+           "update_ms_median": median([s["total"] for s in splits]),
+           "split_ms_median": median_split(splits),
+           "env_steps_per_sec": B * T * n / wall,
+           "deliveries_per_env_step": deliveries, "max_param_change": moved}
+    if plain_n:
+        plain, rp = [], rs0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(plain_n):
+            marks = Marks()
+            rp, _ = tr.plain_step(rp, mark=marks)
+            plain.append(marks.split())
+        plain_wall = time.perf_counter() - t1
+        out.update(plain_update_ms_median=median([s["total"] for s in plain]),
+                   plain_split_ms_median=median_split(plain),
+                   plain_env_steps_per_sec=B * T * plain_n / plain_wall)
+    return rs, out
 
 
 def serve_mlp(cfg, tr, rs):
@@ -3266,6 +3431,122 @@ def m4_check(dev, cfg):
               "worst_metric_vs_plain_in_tol": worst, "tol": STEP_METRIC_TOL})
 
 
+def step_sync_check(dev, cfg, T=RAGGED_UNROLL, n=7):
+    """The host read of ``truncated.any()`` that ``step_autoreset_batch``
+    makes each tick of the per-step phase: T config-4 ticks on the same
+    actions and the same draws (made beforehand, as the phase makes them;
+    no env truncates) through ``engine.step`` and through
+    ``step_autoreset_batch``, n runs of each in turns by CUDA events (which
+    see the card idle while the host waits on the read); the difference
+    of the medians a tick, beside both sides' spread."""
+    cfg = cfg.replace(auto_reset=False)
+    state, _ = reset_envs(cfg, SLICE_B, SEED + 12, dev)
+    actions = torch.randint(0, 5, (T, SLICE_B, cfg.num_agents),
+                            generator=torch.Generator().manual_seed(SEED),
+                            dtype=torch.int32).to(dev)
+    draws = rng.chained_step_draws(state.key, cfg, T)
+
+    def run(step):
+        s = state
+        for t in range(T):
+            s, _ = step(cfg, s, actions[t],
+                        rng.StepDraws(*(x[t] for x in draws)))
+        return s
+
+    require(state_equal(run(engine.step), run(step_autoreset_batch)),
+            "step_sync_check: the auto-reset step moved a state it should "
+            "not reset")
+    times = {"step": [], "autoreset": []}
+    for _ in range(n):
+        for name, fn in (("step", engine.step),
+                         ("autoreset", step_autoreset_batch)):
+            with Timer() as tm:
+                run(fn)
+            times[name].append(tm.ms)
+    plain_ms, reset_ms = median(times["step"]), median(times["autoreset"])
+    emit({"phase": "step_sync_check", "B": SLICE_B, "ticks": T, "runs": n,
+          "step_ms": sorted(times["step"]),
+          "step_autoreset_batch_ms": sorted(times["autoreset"]),
+          "host_read_ms_per_tick": (reset_ms - plain_ms) / T})
+
+
+def step_route_phase(dev, name, cfg, make, tcfg, n, backends, arch="mlp",
+                     learn_min=None):
+    """A main path where no acting kernel takes the configuration
+    (``backends["rollout"] == "step"``: the per-step phase, as the JAX
+    trainer acts through its XLA scan): where the learner is a kernel,
+    the first update against the plain path's; then ``n`` updates from
+    ``PRNGKey(0)``, each split by the trainer's marks (acting, GAE, SGD /
+    learner), the trained env-steps/s, the trained policy served; with
+    ``learn_min``, a learning check over the last 10 updates."""
+    tr = make(cfg, tcfg, arch=arch, device=dev)
+    require(tr.backends == backends,
+            f"{name}: backends {tr.backends}, expected {backends}")
+    kernel = backends["grad"] == "cuda"
+    first = first_update_vs_plain(tr, dev, name) if kernel else None
+    rs, out = run_updates(tr, n, name, dev, backends=backends,
+                          plain_n=3 if kernel else 0)
+    (serve_rnn if arch in ("gru", "lstm") else serve_mlp)(cfg, tr, rs)
+    line = {"phase": name, "arch": arch, "obs_dim": cfg.obs_dim,
+            "model_dtype": tcfg.model_dtype, **out}
+    if kernel:
+        line.update(first_update_kernel_vs_plain=first, tol=STEP_METRIC_TOL)
+    if learn_min is not None:
+        late = sum(out["deliveries_per_env_step"][-10:]) / 10
+        line.update(deliveries_last_10=late, learn_min=learn_min)
+    emit(line)
+    if learn_min is not None:
+        require(late >= learn_min,
+                f"{name}: deliveries/env-step {late} over the last 10 "
+                f"updates is below {learn_min}")
+
+
+def step_route_paths(dev, cfg, shelves, shelves_g, medium_g):
+    """The main paths of the per-step acting phase: ``(name, fn, kernels
+    that must launch, kernels that must not)`` for ``main_path``."""
+    adam = dict(num_updates=IMPALA_SCHEDULE, impala_rmsprop=False)
+    shelves_rnn = TrainConfig(num_updates=RNN_SCHEDULE, mask_actions=True,
+                              shaping_coef=SHAPING[0], gamma=SHAPING[1],
+                              bootstrap_truncated=True)
+    cases = [
+        # name, env, trainer, TrainConfig, arch, backends, learner kernels
+        ("ragged_train", cfg, make_train, TrainConfig(
+            num_updates=TRAIN_SCHEDULE, unroll_length=RAGGED_UNROLL), "mlp",
+         STEP_KERNEL, ["ppo_sgd_phase", "ppo_minibatch_grads"]),
+        ("impala_ragged_train", cfg, make_train_impala, TrainConfig(
+            unroll_length=RAGGED_UNROLL, **adam), "mlp", STEP_KERNEL,
+         ["impala_sgd_phase", "impala_minibatch_grads", *K6_STAGES]),
+        ("rnn_global_train", medium_g, make_train_rnn,
+         TrainConfig(num_updates=RNN_SCHEDULE), "gru", STEP_KERNEL,
+         ["ppo_rnn_sgd_phase", "ppo_rnn_minibatch_grads"]),
+        ("rnn_shelves_train", shelves, make_train_rnn, shelves_rnn, "gru",
+         STEP_KERNEL, ["ppo_rnn_sgd_phase", "ppo_rnn_minibatch_grads"]),
+        ("impala_global_train", shelves_g, make_train_impala, TrainConfig(
+            num_envs=GLOBAL_B, mask_actions=True, **adam), "mlp",
+         STEP_KERNEL, ["impala_sgd_phase", "impala_minibatch_grads",
+                       *K6_STAGES]),
+        ("impala_bf16_train", cfg, make_train_impala,
+         TrainConfig(model_dtype=BF16, **adam), "mlp", STEP_PLAIN, []),
+        ("shelves_cnn_global_train", shelves_g, make_train, global_tcfg(),
+         "cnn", STEP_PLAIN, []),
+        ("attn_train", cfg, make_train, TrainConfig(
+            num_updates=TRAIN_SCHEDULE), "attn", STEP_PLAIN, []),
+        ("impala_cnn_train", cfg, make_train_impala, TrainConfig(**adam),
+         "cnn", STEP_PLAIN, [])]
+    acting = ["ppo_rollout", "ppo_rollout_cnn", "ppo_rnn_rollout"]
+    learners = ["ppo_sgd_phase", "impala_sgd_phase", "ppo_rnn_sgd_phase",
+                "ppo_cnn_sgd_phase"]
+    out = []
+    for name, env, make, tcfg, arch, backends, kernels in cases:
+        n = RAGGED_UPDATES if name == "ragged_train" else STEP_UPDATES[name]
+        gate = RAGGED_LEARN_MIN if name == "ragged_train" else None
+        fn = functools.partial(step_route_phase, dev, name, env, make, tcfg,
+                               n, backends, arch, gate)
+        out.append((name, fn, kernels,
+                    acting + [k for k in learners if k not in kernels]))
+    return out
+
+
 # Each kernel's wrapper, where its launch count lives.
 COUNTED = {"greedy_rollout": rollout.greedy_rollout,
            "ppo_rollout": act.act_steps,
@@ -3335,9 +3616,10 @@ K6_STAGES = ["impala_minibatch_grads_stages"] + [
     f"impala_minibatch_grads_{st}" for st in vtrace_sgd.VT_STAGES]
 
 
-def main_path(name, fn, kernels):
+def main_path(name, fn, kernels, absent=()):
     """Runs one main path with every launch count zeroed just before it;
-    reads the counts just after and requires each of ``kernels``."""
+    reads the counts just after and requires each of ``kernels`` and none
+    of ``absent`` (the kernels a route does not take)."""
     for wrapper in COUNTED.values():
         wrapper.launches = 0
     for wrapper, counter in OPTION_COUNTED.values():
@@ -3348,6 +3630,8 @@ def main_path(name, fn, kernels):
     emit({"phase": "launches", "path": name, "launches": counts})
     require(all(counts[k] > 0 for k in kernels),
             f"{name}: a kernel of the path never launched: {counts}")
+    require(all(counts[k] == 0 for k in absent),
+            f"{name}: a kernel off the path's route launched: {counts}")
     return counts
 
 
@@ -3421,7 +3705,7 @@ def main(argv=()) -> int:
              make_model(shelves, hidden_dim=HIDDEN[0], num_layers=HIDDEN[1],
                         generator=torch.Generator().manual_seed(SEED),
                         device=dev), mask_actions=True)
-    checks["ppo_sgd_phase"] = k3_check(dev, cfg)
+    checks["ppo_sgd_phase"] = k3_check(dev, cfg, per_step=True)
     checks["ppo_minibatch_grads"] = k4_check(dev, cfg)
     mlp_stage_check(dev, cfg)
     mlp_stage_check(dev, cfg, ragged=True)
@@ -3459,7 +3743,7 @@ def main(argv=()) -> int:
                                          cnn_model(cfg, dev))
     k2_check(dev, "shelves", shelves, cnn_model(shelves, dev),
              mask_actions=True)
-    checks["ppo_cnn_sgd_phase"] = k3_check(dev, cfg, cnn=True)
+    checks["ppo_cnn_sgd_phase"] = k3_check(dev, cfg, cnn=True, per_step=True)
     checks["ppo_cnn_minibatch_grads"] = k4_check(dev, cfg, cnn=True)
     cnn_stage_check(dev, cfg)
     cnn_stage_check(dev, cfg, ragged=True)
@@ -3557,6 +3841,16 @@ def main(argv=()) -> int:
     repro_check(dev, shelves)
     # The learner options no kernel computes, on the card.
     m4_check(dev, cfg)
+    # The learners' inputs from the per-step acting phase: K5 / K6 on a
+    # chunk of 24 steps with a truncation inside it in every env, K8 / K9 at
+    # D = 411 (the GRU on the 9x9 global view).
+    emit_bound("K5 ragged", "config4_T24", k5_check(dev, cfg, ragged=True))
+    emit_bound("K6 ragged", "config4_T24", k6_check(dev, cfg, ragged=True))
+    emit_bound("K8 global", "medium_global_D411",
+               k8_check(dev, medium_g, "gru"))
+    emit_bound("K9 global", "medium_global_D411",
+               k9_check(dev, medium_g, "gru"))
+    step_sync_check(dev, cfg)
 
     # ---- the main paths: each counted from just before it -------------
     rnn_kernels = ["ppo_rnn_rollout", *K7_STAGES, "ppo_rnn_sgd_phase",
@@ -3632,6 +3926,10 @@ def main(argv=()) -> int:
          lambda: cnn_global_groups_train_phase(dev, medium_g),
          ["ppo_rollout_cnn", "ppo_rollout_cnn_groups",
           "ppo_rollout_cnn_global", "ppo_rollout_cnn_stages"])]}
+    # The per-step acting phase's paths (no acting kernel launches).
+    paths.update({name: main_path(name, fn, kernels, absent)
+                  for name, fn, kernels, absent in step_route_paths(
+                      dev, cfg, shelves, shelves_g, medium_g)})
     launches = {k: sum(p[k] for p in paths.values())
                 for k in paths["k1_episodes"]}
     # K10's group route with one policy per agent and on the 9x9 map: the

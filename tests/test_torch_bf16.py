@@ -530,8 +530,12 @@ def test_bf16_cli_runs_two_updates(arch, tmp_path):
 
 
 def test_bf16_impala_is_refused_by_name():
+    """Refused until the per-step acting phase: the bf16 IMPALA trainer
+    now builds the bf16 model, acts per step and learns plain, as the JAX
+    trainer sends both phases to XLA (held against it in
+    ``tests/test_torch_step_acting.py``); the route is named."""
     tcfg = wt.TrainConfig(num_envs=16, unroll_length=4, hidden_dim=16,
                           model_dtype="bfloat16")
-    with pytest.raises(NotImplementedError,
-                       match="model_dtype='bfloat16'.*M-4"):
-        make_train_impala(wt.small_config(), tcfg, device="cpu")
+    tr = make_train_impala(wt.small_config(), tcfg, device="cpu")
+    assert tr.model.dtype == torch.bfloat16
+    assert tr.backends == {"rollout": "step", "grad": "plain"}

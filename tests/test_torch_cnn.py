@@ -106,15 +106,18 @@ def test_model_matches_flax(name):
 
 def test_make_model_cnn_gates():
     """The square-grid error of the JAX ``make_model`` for global obs;
-    ``num_layers`` ignored; the attention torso still refused."""
+    ``num_layers`` ignored; the attention torso, once refused here, is
+    built at half the hidden width (``tests/test_torch_attn.py`` holds it
+    against flax)."""
     with pytest.raises(ValueError, match="square"):
         make_model(wt.small_config(global_obs=True, height=6, width=8),
                    "cnn", device="cpu")
     a = make_model(wt.small_config(), "cnn", 16, num_layers=1, device="cpu")
     b = make_model(wt.small_config(), "cnn", 16, num_layers=3, device="cpu")
     assert a.state_dict().keys() == b.state_dict().keys()
-    with pytest.raises(NotImplementedError, match="attn"):
-        make_model(wt.small_config(), "attn", device="cpu")
+    attn = make_model(wt.small_config(), "attn", 16, device="cpu")
+    assert type(attn).__name__ == "ActorCriticAttn"
+    assert attn.pos_embed.shape == (25, 8)
 
 
 def test_params_from_flax_cnn_shapes_and_errors():
@@ -598,9 +601,23 @@ def test_cli_trains_cnn_on_the_cpu(tmp_path):
                                    ["--arch", "cnn", "--policy-groups",
                                     "0,1", "--eval-every", "1"]])
 def test_cli_cnn_exits_on_unported_combinations(flags, tmp_path):
+    """``--arch cnn --policy-groups`` with ``--eval-every`` still exits (the
+    evaluation takes a shared policy); ``--algo impala --arch cnn``, once
+    refused here, runs an update: both phases plain, acting per step, as
+    the JAX trainer sends both to XLA."""
+    path = tmp_path / "m.jsonl"
+    if "impala" in flags:
+        cli_main(["--num-envs", "16", "--cpu", "--env", "small",
+                  "--unroll-length", "4", "--num-updates", "1",
+                  "--num-minibatches", "2", "--hidden-dim", "16",
+                  "--metrics-path", str(path), *flags])
+        meta = json.loads(path.read_text().splitlines()[0])
+        assert meta["arch"] == "cnn" and meta["backends"] == {
+            "rollout": "step", "grad": "plain"}
+        return
     with pytest.raises(SystemExit) as e:
-        cli_main(["--num-envs", "16", "--cpu", "--metrics-path",
-                  str(tmp_path / "m.jsonl"), *flags])
+        cli_main(["--num-envs", "16", "--cpu", "--metrics-path", str(path),
+                  *flags])
     assert e.value.code not in (0, None)
 
 

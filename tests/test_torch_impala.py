@@ -48,6 +48,7 @@ from warehouse_tpu_torch.train import (ImpalaTransition,
                                        impala_runner_state_from_jax,
                                        make_train_impala)
 from warehouse_tpu_torch.train.__main__ import main as cli_main
+from warehouse_tpu_torch.train.impala import rollout_problems_impala
 
 from test_impala_kernel import (CC, ENT, GAMMA, MAXNORM, PASSES, RHO, VCOEF,
                                 M, _env_minibatches, _kernel_inputs,
@@ -338,25 +339,37 @@ def test_train_many_runs_and_plain_step_is_the_cpu_path():
     assert float(ma["loss"]) == float(mb["loss"])
 
 
+# Each case keeps the id it had while it was refused: the CNN, bf16,
+# global observations and an unroll length that does not divide max_steps
+# are built now, acting per step.
 @pytest.mark.parametrize("change, error", [
-    (dict(arch="cnn"), NotImplementedError),
+    pytest.param(dict(arch="cnn"), None, id="change0-NotImplementedError"),
     (dict(mesh=object()), NotImplementedError),
-    (dict(model_dtype="bfloat16"), NotImplementedError),
+    pytest.param(dict(model_dtype="bfloat16"), None,
+                 id="change2-NotImplementedError"),
     (dict(micro_batches=2), None),  # ported: the learner runs plain
     (dict(flat_optimizer=True), None),  # ported: the learner runs plain
-    (dict(global_obs=True), NotImplementedError),
+    pytest.param(dict(global_obs=True), None,
+                 id="change5-NotImplementedError"),
     (dict(rollout_backend="xla"), ValueError),
     (dict(grad_backend="xla"), ValueError),
     (dict(num_envs=15), ValueError),
-    (dict(unroll_length=3), ValueError),
+    pytest.param(dict(unroll_length=3), None, id="change9-ValueError"),
 ])
 def test_gates_raise(change, error):
     change = dict(change)
     kw = {k: change.pop(k) for k in ("arch", "mesh") if k in change}
     cfg = CFG.replace(global_obs=change.pop("global_obs", False))
     if error is None:
-        tr = make_train_impala(cfg, BASE.replace(**change), device="cpu",
-                               **kw)
+        tcfg = BASE.replace(**change)
+        tr = make_train_impala(cfg, tcfg, device="cpu", **kw)
+        if rollout_problems_impala(cfg, tcfg, kw.get("arch", "mlp")):
+            # Acting per step; K5's twin learns the MLP in float32.
+            assert tr.backends == {"rollout": "step", "grad": "plain"}
+            rs, m = tr.train_step(tr.init(rng.prng_key(0)))
+            assert int(rs.update_idx) == 1 and all(
+                bool(torch.isfinite(v)) for v in m.values())
+            return
         assert tr.backends == {"rollout": "plain", "grad": "plain"}
         return
     match = "ROADMAP" if error is NotImplementedError else None

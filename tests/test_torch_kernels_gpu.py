@@ -1325,15 +1325,34 @@ def test_global_obs_cnn_act_kernel_matches_plain_path(name, hidden, mask_on,
 
 def test_global_obs_cnn_refuses_what_it_cannot_hold(dev):
     """The 11 x 11 map's conv tile of 16 samples (K11's smallest) does not
-    fit a block beside the conv kernels: the trainer refuses it by name
-    when it is built, and an (agents, queue) shape outside the presets
-    too."""
+    fit a block beside the conv kernels: the trainer routes both phases
+    plain there (acting per step), as the JAX VMEM gates route them to XLA,
+    and one update runs, for PPO and for IMPALA (whose per-step CNN is not
+    refused by K10's shared memory); an (agents, queue) shape outside the
+    presets and a width the kernels cannot hold are refused by name when
+    the trainer is built."""
     from warehouse_tpu_torch import TrainConfig
-    from warehouse_tpu_torch.train import make_train
+    from warehouse_tpu_torch.kernels.act import act_cnn_steps
+    from warehouse_tpu_torch.train import make_train, make_train_impala
 
     tcfg = TrainConfig(num_envs=64, num_updates=2)
-    with pytest.raises(ValueError, match="shared memory"):
-        make_train(GLOBAL["shelves"], tcfg, arch="cnn", device=dev)
+    tr = make_train(GLOBAL["shelves"], tcfg, arch="cnn", device=dev)
+    assert tr.backends == {"rollout": "step", "grad": "plain"}
+    launches = act_cnn_steps.launches
+    rs, m = tr.train_step(tr.init(rng.prng_key(0, dev)))
+    assert act_cnn_steps.launches == launches
+    assert int(rs.update_idx) == 1 and all(bool(torch.isfinite(v))
+                                           for v in m.values())
+    itr = make_train_impala(GLOBAL["shelves"], tcfg, arch="cnn", device=dev)
+    assert itr.backends == {"rollout": "step", "grad": "plain"}
+    rs, m = itr.train_step(itr.init(rng.prng_key(0, dev)))
+    assert act_cnn_steps.launches == launches
+    assert int(rs.update_idx) == 1 and all(bool(torch.isfinite(v))
+                                           for v in m.values())
+    for make in (make_train, make_train_impala):
+        with pytest.raises(ValueError, match="T-6"):
+            make(GLOBAL["shelves"], tcfg.replace(hidden_dim=50), arch="cnn",
+                 device=dev)
     with pytest.raises(ValueError, match="queue_capacity"):
         make_train(medium_config(num_agents=3, queue_capacity=6,
                                  init_requests=3), tcfg, device=dev)
@@ -1604,25 +1623,23 @@ def test_grouped_cnn_act_kernel_matches_plain_path(name, hidden, groups,
 def test_grouped_cnn_refuses_what_it_cannot_hold(name, groups, dev):
     """One policy per agent on config 4 and on the 8-agent preset, and two
     groups on the 9 x 9 global map, build with K10 acting (the learner
-    plain) and one update acts through K10's group route; the 11 x 11
-    global map, whose conv tile of 16 samples outgrows a block, is refused
-    by name when the trainer is built."""
+    plain) and one update acts through K10's group route; on the 11 x 11
+    global map, whose conv tile of 16 samples outgrows a block, the trainer
+    acts per step and learns plain (as the JAX VMEM gates send it to XLA),
+    and its update launches no K10."""
     from warehouse_tpu_torch import TrainConfig
     from warehouse_tpu_torch.kernels.act import act_cnn_steps
     from warehouse_tpu_torch.train import make_train
 
     cfg = {**PRESETS, **{f"{k}_global": v for k, v in GLOBAL.items()}}[name]
     tcfg = TrainConfig(num_envs=64, num_updates=2)
-    if name == "shelves_global":
-        with pytest.raises(ValueError, match="policy_groups"):
-            make_train(cfg, tcfg, arch="cnn", policy_groups=groups,
-                       device=dev)
-        return
     tr = make_train(cfg, tcfg, arch="cnn", policy_groups=groups, device=dev)
-    assert tr.backends == {"rollout": "cuda", "grad": "plain"}
+    step_route = name == "shelves_global"
+    assert tr.backends == {"rollout": "step" if step_route else "cuda",
+                           "grad": "plain"}
     grouped = act_cnn_steps.group_launches
     _, m = tr.train_step(tr.init(rng.prng_key(0, dev)))
-    assert act_cnn_steps.group_launches == grouped + 1
+    assert act_cnn_steps.group_launches == grouped + (not step_route)
     assert all(bool(torch.isfinite(v)) for v in m.values())
 
 
@@ -1853,3 +1870,172 @@ def test_bf16_launch_leaves_the_f32_route_bit_equal(arch, dev):
     assert any(not torch.equal(p_a[k], p_b[k]) for k in p_a)
     with pytest.raises(ValueError, match="matmul_dtype"):
         phase(*lead, *rows, 0.01, 0.05, matmul_dtype="float16", **kw)
+
+
+# ---- the learners on the per-step acting phase's chunks ---------------------
+
+def ragged_impala_chunk(dev, T=24, hidden=128, seed=0):
+    """A medium IMPALA chunk of T steps from the per-step acting phase
+    (``train.ppo.step_rollout``), its N envs moved 1 to T - 1 steps before
+    their episode's end: every env truncates inside the chunk and starts
+    anew there."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.models.policy import apply
+    from warehouse_tpu_torch.train.impala import ImpalaTransition
+    from warehouse_tpu_torch.train.ppo import step_rollout
+
+    cfg = medium_config()
+    state, obs = reset(cfg, seed, dev)
+    left = torch.randint(1, T, (N,), generator=torch.Generator().manual_seed(
+        seed)).to(dev)
+    state = state.replace(t=(cfg.max_steps - left).to(state.t))
+    m = make_model(cfg, hidden_dim=hidden,
+                   generator=torch.Generator().manual_seed(seed), device=dev)
+    params = {k: v.detach() for k, v in m.state_dict().items()}
+    _, roll, last_obs, _, _, _ = step_rollout(
+        cfg, TrainConfig(), lambda o, c: (*apply(params, o), None), state,
+        obs, T, rng.prng_key(seed + 1, dev))
+    done = roll.truncated[:, :, None].expand_as(roll.reward)
+    assert int(done[:-1, :, 0].sum()) == N  # every env, before the last step
+    traj = ImpalaTransition(roll.obs, roll.action, roll.log_prob,
+                            roll.reward, done, roll.mask,
+                            torch.zeros_like(roll.reward))
+    return params, traj, last_obs
+
+
+@pytest.mark.parametrize("use_rms", [True, False])
+def test_impala_kernels_on_a_ragged_chunk(use_rms, dev):
+    """K5 against its twin and K6 against autograd on a 24-step chunk of
+    the per-step acting phase with a truncation inside it in every env
+    (IMPALA with ``max_steps % unroll_length != 0``: V-trace cut where
+    ``done`` is set), at the K5 / K6 tolerances; K5 bit-equal on a
+    rerun."""
+    from warehouse_tpu_torch.kernels.vtrace_sgd import (
+        impala_minibatch_grads, impala_minibatch_grads_reference,
+        impala_sgd_phase, impala_sgd_phase_reference)
+    from warehouse_tpu_torch.optim import (ClipAdam, ClipRMSProp,
+                                           linear_schedule)
+
+    params, traj, last_obs = ragged_impala_chunk(dev)
+    optimizer = (ClipRMSProp if use_rms else ClipAdam)(
+        linear_schedule(3e-4, 0.0, 100), 0.5)
+    opt = optimizer.init(params)
+    rows = optimizer.step_rows(opt.count, VT_M, dev)
+    args = (params, opt, traj, last_obs, rows, 0.01)
+    kw = dict(num_passes=1, num_minibatches=VT_M, max_grad_norm=0.5,
+              mask_actions=False, bootstrap_truncated=False, **VT_KW)
+    p_k, o_k, l_k = impala_sgd_phase(*args, **kw)
+    p_r, o_r, l_r = impala_sgd_phase_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(l_k, l_r):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-6)
+    assert_close_tree(p_k, p_r, 1e-5, 1e-6, "params")
+    assert_close_tree(o_k.nu, o_r.nu, 1e-5, 1e-10, "nu")
+    if not use_rms:
+        assert_close_tree(o_k.mu, o_r.mu, 1e-5, 1e-7, "mu")
+    p_2, _, _ = impala_sgd_phase(*args, **kw)
+    assert all(torch.equal(p_k[k], p_2[k]) for k in p_k)
+    gkw = dict(num_minibatches=VT_M, mask_actions=False,
+               bootstrap_truncated=False, **VT_KW)
+    for mb in range(VT_M):
+        (l_k, aux_k), g_k = impala_minibatch_grads(params, traj, last_obs,
+                                                   mb, 0.01, **gkw)
+        (l_r, aux_r), g_r = impala_minibatch_grads_reference(
+            params, traj, last_obs, mb, 0.01, **gkw)
+        torch.cuda.synchronize()
+        for a, b in zip((l_k, *aux_k), (l_r, *aux_r)):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+        assert_close_tree(g_k, g_r, 1e-4, 1e-6, f"grads mb={mb}")
+
+
+@pytest.mark.parametrize("arch", ["gru", "lstm"])
+@pytest.mark.parametrize("hidden", [16, 128])
+def test_rnn_sgd_kernels_at_the_global_width(hidden, arch, dev):
+    """K8 against its twin and K9 against autograd on observations D = 411
+    wide (the 9x9 global view, which only the per-step acting phase makes
+    for the recurrent trainer): K8's shared memory for that first layer,
+    at K3's tolerances; K8 bit-equal on a rerun."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.kernels.sgd_rnn import (
+        check_rnn_learner_fits, ppo_rnn_minibatch_grads,
+        ppo_rnn_minibatch_grads_reference, ppo_rnn_sgd_phase,
+        ppo_rnn_sgd_phase_reference)
+    from warehouse_tpu_torch.optim import make_optimizer
+
+    cfg = GLOBAL["medium"]
+    assert cfg.obs_dim == 411
+    params, opt, traj, adv_n, targets = sgd_batch(cfg, hidden, dev, arch=arch)
+    check_rnn_learner_fits(params, cfg.obs_dim, dev)
+    h0 = rnn_carry(arch, hidden, cfg.num_agents, dev, 13, SGD_B)
+    rows = make_optimizer(TrainConfig(num_updates=4)).step_rows(
+        opt.count, SGD_E * SGD_M, dev)
+    args = (params, opt, traj, adv_n, targets, h0, *rows, 0.01, 0.05)
+    kw = dict(num_epochs=SGD_E, num_minibatches=SGD_M, max_grad_norm=0.5,
+              mask_actions=True, **SGD_KW)
+    p_k, o_k, l_k = ppo_rnn_sgd_phase(*args, **kw)
+    p_r, o_r, l_r = ppo_rnn_sgd_phase_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(l_k, l_r):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-6)
+    assert_close_tree(p_k, p_r, 1e-5, 1e-6, "params")
+    assert_close_tree(o_k.mu, o_r.mu, 1e-5, 1e-7, "mu")
+    assert_close_tree(o_k.nu, o_r.nu, 1e-5, 1e-10, "nu")
+    p_2, _, _ = ppo_rnn_sgd_phase(*args, **kw)
+    assert all(torch.equal(p_k[k], p_2[k]) for k in p_k)
+    gkw = dict(num_minibatches=SGD_M, mask_actions=True, **SGD_KW)
+    for mb in range(SGD_M):
+        (l_k, aux_k), g_k = ppo_rnn_minibatch_grads(
+            params, traj, adv_n, targets, h0, mb, 0.01, 0.05, **gkw)
+        (l_r, aux_r), g_r = ppo_rnn_minibatch_grads_reference(
+            params, traj, adv_n, targets, h0, mb, 0.01, 0.05, **gkw)
+        torch.cuda.synchronize()
+        for a, b in zip((l_k, *aux_k), (l_r, *aux_r)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=2e-6)
+        assert_close_tree(g_k, g_r, 1e-4, 1e-6, f"grads mb={mb}")
+
+
+STEP_CASES = {  # name: (trainer, env, TrainConfig change, arch, backends)
+    "ppo_ragged": ("ppo", "medium", dict(unroll_length=24), "mlp",
+                   {"rollout": "step", "grad": "cuda"}),
+    "impala_ragged": ("impala", "medium", dict(unroll_length=24), "mlp",
+                      {"rollout": "step", "grad": "cuda"}),
+    "gru_global": ("rnn", "medium_global", {}, "gru",
+                   {"rollout": "step", "grad": "cuda"}),
+    "gru_shelves_shaped": ("rnn", "shelves", dict(
+        mask_actions=True, shaping_coef=0.02, bootstrap_truncated=True),
+        "gru", {"rollout": "step", "grad": "cuda"}),
+    "gru_ragged": ("rnn", "medium", dict(unroll_length=24), "gru",
+                   {"rollout": "step", "grad": "plain"}),
+    "attn": ("ppo", "medium", {}, "attn",
+             {"rollout": "step", "grad": "plain"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+def test_step_route_trainers_match_plain_step(case, dev):
+    """The trainers' per-step acting phase on the card, with the learner
+    kernel where the JAX gate keeps its own: one update and one through
+    the plain path from the same state agree (chip_smoke.py's
+    STEP_METRIC_TOL), and no acting kernel launches."""
+    from warehouse_tpu_torch import TrainConfig
+    from warehouse_tpu_torch.kernels.act import act_steps
+    from warehouse_tpu_torch.kernels.act_rnn import act_rnn_steps
+    from warehouse_tpu_torch.train import (make_train, make_train_impala,
+                                           make_train_rnn)
+
+    kind, env, change, arch, backends = STEP_CASES[case]
+    cfg = (GLOBAL["medium"] if env == "medium_global" else PRESETS[env])
+    make = {"ppo": make_train, "impala": make_train_impala,
+            "rnn": make_train_rnn}[kind]
+    tcfg = TrainConfig(num_envs=256, num_updates=4, impala_rmsprop=False,
+                       **change)
+    tr = make(cfg, tcfg, arch=arch, device=dev)
+    assert tr.backends == backends
+    rs0 = tr.init(rng.prng_key(0, dev))
+    acting = act_steps.launches, act_rnn_steps.launches
+    _, mk = tr.train_step(rs0)
+    assert (act_steps.launches, act_rnn_steps.launches) == acting
+    _, mp = tr.plain_step(rs0)
+    for k in mk:
+        a, b = float(mk[k]), float(mp[k])
+        assert abs(a - b) <= 5e-5 + 1e-3 * abs(b), (k, a, b)

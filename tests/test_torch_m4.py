@@ -141,7 +141,7 @@ def test_ppo_plain_learner_matches_jax_xla(case):
     jtr = j_make_train(CFG, tcfg, **gkw)
     assert jtr.backends["grad"] == "xla"
     tr = make_train(CFG, tcfg, device="cpu", **gkw)
-    assert grad_problems(tcfg, "mlp", groups) and tr.backends == {
+    assert grad_problems(CFG, tcfg, "mlp", groups) and tr.backends == {
         "rollout": "plain", "grad": "plain"}
     jrs = jtr.init(jax.random.PRNGKey(0))
     rs = runner_state_from_jax(jax.tree.map(np.asarray, jrs))
@@ -272,15 +272,16 @@ def test_ignored_options_change_nothing(which):
 def test_backends_follow_the_configuration():
     """The options that send the PPO learner to the plain phase, named as
     the JAX trainer's ``_grad_problems`` names them."""
-    assert grad_problems(BASE, "mlp", None) == []
-    assert grad_problems(BASE, "cnn", None) == []
-    assert grad_problems(BASE, "mlp", (0, 1)) == []
-    assert grad_problems(BASE, "cnn", (0, 1)) == [
+    assert grad_problems(CFG, BASE, "mlp", None) == []
+    assert grad_problems(CFG, BASE, "cnn", None) == []
+    assert grad_problems(CFG, BASE, "mlp", (0, 1)) == []
+    assert grad_problems(CFG, BASE, "cnn", (0, 1)) == [
         "policy_groups with arch='cnn' (the CNN learner kernel is "
         "single-policy)"]
     for change in (dict(minibatch_mode="flat"), dict(epoch_shuffle="each"),
                    dict(micro_batches=2), dict(flat_optimizer=True)):
-        assert len(grad_problems(BASE.replace(**change), "mlp", None)) == 1
+        assert len(grad_problems(CFG, BASE.replace(**change), "mlp",
+                                 None)) == 1
     with pytest.raises(ValueError, match="micro_batches"):
         make_train(CFG, BASE.replace(micro_batches=3), device="cpu")
 

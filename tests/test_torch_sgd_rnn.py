@@ -39,6 +39,7 @@ from warehouse_tpu_torch.optim import opt_state_from_optax
 from warehouse_tpu_torch.train import (Transition, make_train_rnn,
                                        runner_state_rnn_from_jax)
 from warehouse_tpu_torch.train.__main__ import main as cli_main
+from warehouse_tpu_torch.train.ppo_rnn import rollout_problems_rnn
 
 from test_torch_rng import assert_bits, to_torch
 
@@ -226,11 +227,17 @@ def test_rnn_train_many_runs_and_plain_step_is_the_cpu_path():
     assert float(ma["loss"]) == float(mb["loss"])
 
 
+# Each case keeps the id it had while it was refused: shaping, global
+# observations, the truncation bootstrap and an unroll length that does not
+# divide max_steps are built now, acting per step.
 @pytest.mark.parametrize("change, error", [
     (dict(mesh=object()), NotImplementedError),
-    (dict(shaping_coef=0.1), NotImplementedError),
-    (dict(global_obs=True), NotImplementedError),
-    (dict(bootstrap_truncated=True), NotImplementedError),
+    pytest.param(dict(shaping_coef=0.1), None,
+                 id="change1-NotImplementedError"),
+    pytest.param(dict(global_obs=True), None,
+                 id="change2-NotImplementedError"),
+    pytest.param(dict(bootstrap_truncated=True), None,
+                 id="change3-NotImplementedError"),
     (dict(epoch_shuffle="each"), None),  # ported: the learner runs plain
     (dict(flat_optimizer=True), None),  # ported: the learner runs plain
     (dict(micro_batches=2), None),  # accepted and ignored, as in JAX
@@ -238,7 +245,8 @@ def test_rnn_train_many_runs_and_plain_step_is_the_cpu_path():
     (dict(rollout_backend="xla"), ValueError),
     (dict(grad_backend="xla"), ValueError),
     (dict(num_envs=9), ValueError),
-    (dict(unroll_length=12), ValueError),   # 32 % 12 != 0
+    pytest.param(dict(unroll_length=12), None,   # 32 % 12 != 0
+                 id="change11-ValueError"),
     (dict(arch="mlp"), ValueError),
 ])
 def test_rnn_gates_raise(change, error):
@@ -246,11 +254,20 @@ def test_rnn_gates_raise(change, error):
     kw = {k: change.pop(k) for k in ("arch", "mesh") if k in change}
     cfg = CFG.replace(global_obs=change.pop("global_obs", False))
     if error is None:
-        tr = make_train_rnn(cfg, BASE.replace(**change), device="cpu", **kw)
-        assert tr.backends == {"rollout": "plain", "grad": "plain"}
+        tcfg = BASE.replace(**change)
+        tr = make_train_rnn(cfg, tcfg, device="cpu", **kw)
         want = (torch.bfloat16 if change.get("model_dtype") == "bfloat16"
                 else torch.float32)
-        assert tr.init(rng.prng_key(0)).carry.dtype == want
+        rs = tr.init(rng.prng_key(0))
+        assert rs.carry.dtype == want
+        if rollout_problems_rnn(cfg, tcfg):
+            # Acting per step; one update runs.
+            assert tr.backends == {"rollout": "step", "grad": "plain"}
+            rs, m = tr.train_step(rs)
+            assert int(rs.update_idx) == 1 and all(
+                bool(torch.isfinite(v)) for v in m.values())
+            return
+        assert tr.backends == {"rollout": "plain", "grad": "plain"}
         return
     with pytest.raises(error) as e:
         make_train_rnn(cfg, BASE.replace(**change), device="cpu", **kw)

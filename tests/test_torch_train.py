@@ -177,8 +177,14 @@ def test_train_many_runs_and_learns_something():
     assert float(ma["loss"]) == pytest.approx(float(mb["loss"]), rel=1e-6)
 
 
+STEP_ROUTE = {"rollout": "step", "grad": "plain"}
+
+
+# Each case keeps the id it had while it was refused: the attention torso
+# and an unroll length that does not divide max_steps are built now, acting
+# per step.
 @pytest.mark.parametrize("change, error", [
-    (dict(arch="attn"), NotImplementedError),
+    pytest.param(dict(arch="attn"), None, id="change0-NotImplementedError"),
     (dict(policy_groups=(0, 1)), None),  # ported: the trainer is built
     (dict(mesh=object()), NotImplementedError),
     (dict(model_dtype="bfloat16"), None),  # ported: the trainer is built
@@ -190,7 +196,7 @@ def test_train_many_runs_and_learns_something():
     (dict(rollout_backend="xla"), ValueError),
     (dict(grad_backend="xla"), ValueError),
     (dict(num_envs=15), ValueError),
-    (dict(unroll_length=3), ValueError),
+    pytest.param(dict(unroll_length=3), None, id="change12-ValueError"),
 ])
 def test_gates_raise(change, error):
     change = dict(change)
@@ -200,6 +206,13 @@ def test_gates_raise(change, error):
     if error is None:
         tr = make_train(cfg, BASE.replace(**change), device="cpu", **kw)
         assert tr.policy_groups == kw.get("policy_groups")
+        if kw.get("arch") == "attn" or "unroll_length" in change:
+            # Acting per step, the learner plain; one update runs.
+            assert tr.backends == STEP_ROUTE
+            rs, m = tr.train_step(tr.init(rng.prng_key(0)))
+            assert int(rs.update_idx) == 1 and all(
+                bool(torch.isfinite(v)) for v in m.values())
+            return
         assert tr.backends == {"rollout": "plain", "grad": "plain"}
         model = tr.model.policies[1] if tr.policy_groups else tr.model
         assert model.hidden[0].in_features == cfg.obs_dim == (
@@ -225,6 +238,12 @@ def test_cli_runs_two_updates(tmp_path):
     assert any("eval_mean_episode_return" in r for r in recs)
 
 
+# The flags the CLI now takes (the id of each case kept): each runs one
+# small update on the CPU instead of exiting.
+LIFTED_FLAGS = ({"--global-obs"}, {"--arch", "attn"}, {"--model-dtype"},
+                {"--shaping-coef"}, {"--bootstrap-truncated"})
+
+
 @pytest.mark.parametrize("flags", [["--algo", "impala", "--global-obs"],
                                    ["--arch", "attn"],
                                    ["--algo", "impala", "--policy-groups",
@@ -238,9 +257,25 @@ def test_cli_runs_two_updates(tmp_path):
                                    ["--arch", "gru", "--bootstrap-truncated"],
                                    ["--grad-backend", "xla"]])
 def test_cli_exits_on_unported_flags(flags, tmp_path):
+    """The flags still refused exit non-zero (M-6's, the JAX CLI's own
+    gate on IMPALA with policy groups, the 'xla' backend); the ones this
+    port has since taken (IMPALA with global observations or bf16, the
+    attention torso, the recurrent trainer's shaping and bootstrap, all
+    through the per-step acting phase) run, and the meta line names the
+    route."""
+    path = tmp_path / "m.jsonl"
+    if any(set(flags) >= lifted for lifted in LIFTED_FLAGS):
+        cli_main(["--env", "small", "--env-config", '{"max_steps": 8}',
+                  "--num-envs", "8", "--unroll-length", "4",
+                  "--num-updates", "1", "--num-minibatches", "2",
+                  "--ppo-epochs", "1", "--hidden-dim", "16", "--device",
+                  "cpu", "--metrics-path", str(path), *flags])
+        meta = json.loads(path.read_text().splitlines()[0])
+        assert meta["backends"] == STEP_ROUTE, meta
+        return
     with pytest.raises(SystemExit) as e:
         cli_main(["--num-envs", "16", "--device", "cpu", "--metrics-path",
-                  str(tmp_path / "m.jsonl"), *flags])
+                  str(path), *flags])
     assert e.value.code not in (0, None)
 
 

@@ -52,16 +52,31 @@ def reset_truncated_batch(cfg: EnvConfig, state: EnvState,
 
 
 def step_autoreset_batch(cfg: EnvConfig, state: EnvState,
-                         actions: torch.Tensor) -> tuple[EnvState, TimeStep]:
+                         actions: torch.Tensor,
+                         draws: _rng.StepDraws | None = None
+                         ) -> tuple[EnvState, TimeStep]:
     """``step_batch`` with ``auto_reset=True``, the reset run only on ticks
-    where some env truncates (bit-exact twin of the per-env reset)."""
+    where some env truncates (bit-exact twin of the per-env reset).
+    ``draws``: the tick's ``StepDraws`` of ``state.key``, made here when
+    not given."""
+    return step_autoreset_batch_any(cfg, state, actions, draws)[:2]
+
+
+def step_autoreset_batch_any(cfg: EnvConfig, state: EnvState,
+                             actions: torch.Tensor,
+                             draws: _rng.StepDraws | None = None
+                             ) -> tuple[EnvState, TimeStep, bool]:
+    """``step_autoreset_batch`` and whether some env reset on the tick:
+    the one host read of ``truncated.any()`` that decides the reset."""
     cfg_step = cfg.replace(auto_reset=False)
-    new, ts = engine.step(cfg_step, state, actions)
+    if draws is None:
+        draws = _rng.step_draws(state.key, cfg_step)
+    new, ts = engine.step(cfg_step, state, actions, draws)
     done = ts.truncated
-    if bool(done.any()):
-        reset_key = _rng.step_draws(state.key, cfg_step).reset_key
-        reset_state, reset_obs = engine.reset(cfg_step, reset_key)
+    reset = bool(done.any())
+    if reset:
+        reset_state, reset_obs = engine.reset(cfg_step, draws.reset_key)
         new = reset_state.where(done, new)
         ts = ts.replace(obs=torch.where(done[:, None, None], reset_obs,
                                         ts.obs))
-    return new, ts
+    return new, ts, reset

@@ -123,11 +123,13 @@ def tick(cfg: EnvConfig, state: EnvState, actions: torch.Tensor,
     return new, picked, delivered, collided
 
 
-def step(cfg: EnvConfig, state: EnvState,
-         actions: torch.Tensor) -> tuple[EnvState, TimeStep]:
+def step(cfg: EnvConfig, state: EnvState, actions: torch.Tensor,
+         draws: _rng.StepDraws | None = None) -> tuple[EnvState, TimeStep]:
     """One tick for every env, sub-steps in the order of §4, with the
-    per-env auto-reset of §4.9 when ``cfg.auto_reset``."""
-    draws = _rng.step_draws(state.key, cfg)
+    per-env auto-reset of §4.9 when ``cfg.auto_reset``. ``draws``: the
+    tick's ``StepDraws`` of ``state.key``, made here when not given."""
+    if draws is None:
+        draws = _rng.step_draws(state.key, cfg)
     new, picked, delivered, collided = tick(
         cfg, state, actions, draws.spawn_u, draws.spawn_pick,
         draws.spawn_drop)

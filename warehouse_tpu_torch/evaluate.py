@@ -85,7 +85,8 @@ def policy_fn_for(name: str, cfg):
 def params_policy_fn(cfg, params: dict, arch: str, mask_actions: bool = False,
                      sample: bool = False, dtype="float32"):
     """``(policy_fn, init_carry)`` for ``evaluate_policy`` from a params
-    dict of the MLP, CNN, GRU or LSTM policy at compute ``dtype``: the
+    dict of the MLP, CNN, attention, GRU or LSTM policy at compute
+    ``dtype``: the
     argmax action (first on a tie) or, with ``sample``, a categorical
     sample; with ``mask_actions`` the logits of moves off the grid or into
     a wall are floored to -1e9 first. ``init_carry`` is None for the
@@ -205,7 +206,7 @@ def main(argv=None) -> None:
                    choices=["greedy", "greedy_bfs", "random", "checkpoint"],
                    default="greedy")
     p.add_argument("--checkpoint-dir", default="checkpoints")
-    p.add_argument("--arch", choices=["mlp", "cnn", "gru", "lstm"],
+    p.add_argument("--arch", choices=["mlp", "cnn", "attn", "gru", "lstm"],
                    default=None,
                    help="default: the checkpoint's policy_meta.json "
                         "(falls back to mlp)")

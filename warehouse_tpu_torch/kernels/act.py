@@ -43,7 +43,9 @@ trace-time selection of ``_act_kernel`` :325, :336-338, :409): the kernels
 pack the groups' weights one after another in group order and order each
 step's rows group by group (``act_cnn_rows``), so that every tile of
 their stage kernels is one group's. The attention torso raises
-``NotImplementedError``. The recurrent policies act through
+``NotImplementedError``, as the TPU kernel has no attention arm: the
+trainers act with it through their per-step phase
+(``train.ppo.step_rollout``). The recurrent policies act through
 ``kernels.act_rnn.ppo_rnn_rollout``.
 
 ``pack_cnn`` / ``unpack_cnn`` give the CNN kernels' flat parameter vector
@@ -336,10 +338,12 @@ def _mlp_fits(cfg: EnvConfig, model, dev, groups=None):
     return weights, dims
 
 
-def _cnn_fits(cfg: EnvConfig, model, dev, groups=None):
+def check_cnn_widths(cfg: EnvConfig, model, groups=None):
     """K10's ``(S, C0, C1, C2, H)`` for ``model`` (a CNN or, with
     ``groups``, a ``MultiPolicyActorCritic`` of CNNs) on ``cfg``; raises
-    ``ValueError`` for a shape the kernel cannot take."""
+    ``ValueError`` for an (agents, queue) shape the env stage is not built
+    for (T-5), a width that is not a multiple of 4 (T-6) or a grid that
+    is not the env's, before any library call."""
     check_kernel_shape(cfg)
     subs = group_models(model, groups)
     nets = {cnn_kernel_dims(dict(m.named_parameters()), cfg.obs_dim)
@@ -355,6 +359,14 @@ def _cnn_fits(cfg: EnvConfig, model, dev, groups=None):
             f"the model's {net[0]}x{net[0]} grid of {net[1]} channels is not "
             f"the env's {side}x{side} observation grid of "
             f"{cfg.num_obs_channels}")
+    return net
+
+
+def _cnn_fits(cfg: EnvConfig, model, dev, groups=None):
+    """K10's ``(S, C0, C1, C2, H)`` for ``model`` on ``cfg``
+    (``check_cnn_widths``); raises ``ValueError`` for a shape the kernel
+    cannot take, its shared memory too."""
+    net = check_cnn_widths(cfg, model, groups)
     k, gmap = _cnn_group_args(cfg, groups)
     smem = build.library().wh_act_cnn_smem_bytes(
         cfg.num_agents, cfg.queue_capacity, *net, k, gmap)
@@ -1000,7 +1012,9 @@ def _check_options(cfg, model, policy_groups, arch):
                          "kernels.act_rnn.ppo_rnn_rollout")
     if arch not in ("mlp", "cnn"):
         raise NotImplementedError(
-            f"ppo_rollout: arch={arch!r} is not ported yet (ROADMAP M-7)")
+            f"ppo_rollout: arch={arch!r}: the acting kernels implement the "
+            "MLP and the CNN, as the TPU kernel does; the trainers act with "
+            "other policies through their per-step phase")
     multi = isinstance(model, MultiPolicyActorCritic)
     if multi != (policy_groups is not None):
         raise ValueError(f"ppo_rollout: a {type(model).__name__} does not "

@@ -7,7 +7,8 @@ heads, gumbel-argmax sample, env tick — with the recurrent carry threaded
 over the steps, and returns ``(EnvState, ActRollout, reset_key_last,
 next_key, new_carry)`` like the JAX wrapper. ``new_carry`` is NOT reset at
 episode boundaries: the caller zeroes it where the chunk truncated (the
-trainer only lets an episode end on a chunk's last step). The env draws
+trainer acts through K7 only where an episode ends on a chunk's last
+step). The env draws
 and the gumbel noise are K2's streams (``rng.batched_step_draws``,
 ``rng.batched_gumbel_stream(key, T, (5, B*A))``). On a CUDA tensor the
 CUDA kernel (``csrc/act_rnn.cu``) runs; on a CPU tensor the plain twin
@@ -26,7 +27,9 @@ kernel; nothing on the main path calls them.
 The carry is ``h float32[B, A, H]`` for the GRU, the tuple ``(c, h)`` of two
 such tensors for the LSTM. ``mask_actions`` works as in K2; like the JAX
 function, it has no reward shaping and raises on global observations
-(``NotImplementedError``: the trainer's option, ROADMAP M-4b).
+(``NotImplementedError``): the recurrent trainer acts with those options
+through its per-step phase (``train.ppo.step_rollout``), as the JAX
+trainer does through its XLA scan.
 
 ``pack_rnn`` / ``unpack_rnn`` lay a recurrent policy's params dict out as
 the flat vector the recurrent kernels read (``csrc/rnn_cell.cuh``): the
@@ -569,9 +572,11 @@ def _rollout(steps, cfg: EnvConfig, params, state: EnvState, carry, T: int,
     if cfg.auto_reset:
         raise ValueError("ppo_rnn_rollout: auto_reset is handled by the "
                          "caller")
-    if cfg.global_obs:  # the TPU kernel has none: the trainer's option
+    if cfg.global_obs:  # the TPU kernel has none (pallas/act.py:763-764)
         raise NotImplementedError(
-            "ppo_rnn_rollout: global_obs is not ported yet (ROADMAP M-4b)")
+            "ppo_rnn_rollout: the recurrent acting kernel has no global view, "
+            "as the TPU kernel has none; the recurrent trainer acts with "
+            "global_obs through its per-step phase")
     params = _params_of(params)
 
     def run_steps(u, pick, drop, g, mask, shaping):

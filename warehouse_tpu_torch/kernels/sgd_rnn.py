@@ -84,19 +84,35 @@ def seq_minibatches(traj, adv_n, targets, h0, num_minibatches: int):
                                                    num_minibatches))]
 
 
+def zero_where(done: torch.Tensor, carry):
+    """The carry (a tensor ``[..., H]`` or the LSTM's tuple) zeroed where
+    ``done [...]``, in its own dtype."""
+    def zero(x):
+        return torch.where(done[..., None], torch.zeros((), dtype=x.dtype,
+                                                        device=x.device), x)
+    return tuple(map(zero, carry)) if isinstance(carry, tuple) else zero(
+        carry)
+
+
 def replay_loss_fn(clip_eps, value_coef, ent_coef, kl_coeff, mask_actions,
                    precision="float32", normalize_adv=False):
     """The loss of one sequence minibatch ``((obs, action, old_lp, old_v,
-    adv, target, mask), h_init)``: the T-step replay through ``apply_rnn``
-    at ``precision``, then the PPO loss; ``normalize_adv`` normalizes the
-    advantages over the minibatch (the JAX XLA learner's loss), else they
-    arrive normalized (the kernels')."""
+    adv, target, mask[, done]), h_init)``: the T-step replay through
+    ``apply_rnn`` at ``precision``, then the PPO loss; ``normalize_adv``
+    normalizes the advantages over the minibatch (the JAX XLA learner's
+    loss), else they arrive normalized (the kernels'). Given ``done [T,
+    ...]``, the carry is zeroed after step t where ``done[t]``, as the JAX
+    XLA replay's ``cell_step`` does (``train/ppo_rnn.py:369-380``): an
+    episode that ended inside the chunk starts the next from zero. A
+    ``done`` set on the last step only changes nothing."""
     def loss_fn(params, mb):
-        (obs, action, old_lp, old_v, adv, tgt, mask), carry = mb
+        (obs, action, old_lp, old_v, adv, tgt, mask, *done), carry = mb
         logits, values = [], []
         for t in range(obs.shape[0]):
             lg, v, carry = apply_rnn(params, obs[t], carry,
                                      precision=precision)
+            if done:
+                carry = zero_where(done[0][t], carry)
             logits.append(lg)
             values.append(v)
         logits, value = torch.stack(logits), torch.stack(values)

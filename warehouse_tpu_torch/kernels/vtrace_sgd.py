@@ -114,13 +114,14 @@ def _vtrace_loss(logits, value, last_value, fields, ent_coef, *, gamma,
     return total, (pg_loss, v_loss, entropy)
 
 
-def _loss_fn(ent_coef, **loss_kw):
-    """The V-trace loss of one minibatch of ``env_minibatches``:
-    ``(total, (pg_loss, v_loss, entropy))``."""
+def _loss_fn(ent_coef, precision="float32", **loss_kw):
+    """The V-trace loss of one minibatch of ``env_minibatches``, the model
+    (any feed-forward policy) applied at ``precision``: ``(total,
+    (pg_loss, v_loss, entropy))``."""
     def loss_fn(params, mb):
         obs, *fields, last_obs = mb
-        logits, value = apply(params, obs)
-        _, last_value = apply(params, last_obs)
+        logits, value = apply(params, obs, precision=precision)
+        _, last_value = apply(params, last_obs, precision=precision)
         return _vtrace_loss(logits, value, last_value, fields, ent_coef,
                             **loss_kw)
     return loss_fn
@@ -138,19 +139,21 @@ def impala_sgd_phase_reference(params, opt_state, traj, last_obs, rows,
                                ent_coef, *, num_passes: int,
                                num_minibatches: int, max_grad_norm: float,
                                micro_batches: int = 1, update_fn=None,
-                               **loss_kw):
+                               precision: str = "float32", **loss_kw):
     """The plain twin of ``impala_sgd_phase``, on any device. As the plain
     learner phase (ROADMAP M-4) it also takes what no kernel does:
     ``micro_batches`` env-axis micro-batches per minibatch, exact for
-    V-trace (the mean of their gradients, one step), and ``update_fn``,
-    the optimizer's step (``optim.ClipAdam.update_fn``, flat or not); by
-    default the step of ``opt_state``'s type with ``rows``."""
+    V-trace (the mean of their gradients, one step), ``update_fn``, the
+    optimizer's step (``optim.ClipAdam.update_fn``, flat or not; by
+    default the step of ``opt_state``'s type with ``rows``), and any
+    feed-forward model at ``precision`` (the flax-bf16 forward for a bf16
+    model, as the JAX XLA learner differentiates it)."""
     if update_fn is None:
         update_fn = (rms_update_fn if isinstance(opt_state, RMSState)
                      else adam_update_fn)(rows, opt_state.count,
                                           max_grad_norm)
     return minibatch_epochs(
-        params, opt_state, loss_fn=_loss_fn(ent_coef, **loss_kw),
+        params, opt_state, loss_fn=_loss_fn(ent_coef, precision, **loss_kw),
         minibatches=env_minibatches(traj, last_obs, num_minibatches),
         num_epochs=num_passes, update_fn=update_fn,
         micro_batches=micro_batches, split_micro=split_envs)

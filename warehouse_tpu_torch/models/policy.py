@@ -1,14 +1,15 @@
 """Actor-critic policies (counterpart of ``warehouse_tpu/models/policy.py``).
 
-Ported: the feed-forward MLP, the conv-torso CNN and the recurrent (GRU /
-LSTM) policy, each a shared-parameter per-agent actor-critic applied to
-``[..., obs_dim]`` observations, and ``MultiPolicyActorCritic``: K
-independent MLP or CNN policies selected per sample by a group id
-(``make_multi_policy_model``); the attention torso (``arch="attn"``) is
-not. Initialisation follows the flax models — orthogonal kernels with gain
-√2 on the hidden (encoder) layers, 0.01 on the logits head and 1.0 on the
-value head, lecun-normal input kernels and orthogonal recurrent kernels in
-the cell, lecun-normal convs and trunk in the CNN (flax's defaults), zero
+Ported: the feed-forward MLP, the conv-torso CNN, the attention torso and
+the recurrent (GRU / LSTM) policy, each a shared-parameter per-agent
+actor-critic applied to ``[..., obs_dim]`` observations, and
+``MultiPolicyActorCritic``: K independent feed-forward policies selected
+per sample by a group id (``make_multi_policy_model``). Initialisation
+follows the flax models — orthogonal kernels with gain √2 on the hidden
+(encoder) layers, 0.01 on the logits head and 1.0 on the value head,
+lecun-normal input kernels and orthogonal recurrent kernels in the cell,
+lecun-normal convs, trunk and attention layers (flax's defaults), the
+attention's positional embedding normal(0.02), unit LayerNorm scales, zero
 biases — drawn from an explicit ``torch.Generator`` (the numbers differ
 from flax's; ``params_from_flax`` carries a flax model's weights over).
 
@@ -18,6 +19,19 @@ features; 3x3 ``SAME`` convs with relu; the result is flattened
 channel-last (``(r * S + c) * OC + oc``, flax's NHWC order, so the trunk's
 columns are flax's) and the features are joined after it; a tanh trunk;
 the two heads.
+
+The attention torso (``ActorCriticAttn``, flax ``ActorCriticAttn``) makes
+one token of each of the S x S grid cells (its C channels through a Dense
+to ``d_model``, plus a learned positional embedding) and one [task] token
+first (the 6 self features through a Dense), then ``num_blocks`` pre-LN
+encoder blocks (LayerNorm, 4-head self-attention, residual; LayerNorm,
+Dense to 4 d, the tanh-approximated gelu, Dense back, residual), a final
+LayerNorm of the [task] token and the two heads. flax's defaults are
+written out: LayerNorm's epsilon 1e-6 and its mean and variance as ``E[x]``
+and ``E[x²] - E[x]²``; the query divided by ``sqrt(d / heads)`` before its
+product with the keys; the query, key and value kernels ``[d, heads, d /
+heads]`` and the out kernel ``[heads, d / heads, d]`` held as ``Linear``
+weights ``[heads * d / heads, d]`` and ``[d, heads * d / heads]``.
 
 The recurrent cells are flax 0.12's, written out as explicit ``Linear``
 layers named like flax's sub-modules (``torch.nn.GRUCell``/``LSTMCell``
@@ -41,7 +55,11 @@ each on float32 params: ``"float32"``, and two bfloat16 modes:
   gate op runs on bf16 values, rounding its result (torch's bf16
   elementwise ops, as XLA lowers flax's: a sigmoid is ``1 / (1 +
   exp(-x))``, each op rounded); logits and value come out float32. The
-  recurrent carry is bf16.
+  recurrent carry is bf16. The attention's LayerNorms take their
+  statistics in float32 and round their output, as flax's do; its softmax
+  is bf16 ops (``exp(x - max) / sum``); its positional
+  embedding is a float32 param rounded where it is added (flax keeps it in
+  bf16).
 - ``"bf16_operands"`` is the learner kernels' ``matmul_dtype="bfloat16"``
   (``pallas/sgd.py:181-191``): each product rounds both of its operands to
   bf16 and accumulates in float32, its backward too (``Bf16Linear``,
@@ -273,12 +291,12 @@ def num_hidden(params: dict) -> int:
 def apply(params: dict, obs: torch.Tensor, group_ids=None, *,
           precision="float32"):
     """The feed-forward policy on a params dict keyed like
-    ``ActorCriticMLP.state_dict`` or ``ActorCriticCNN.state_dict`` (the
-    functional form the trainer and the SGD twins use); for a
-    ``MultiPolicyActorCritic``'s dict, each sample's group's outputs, its
-    group from ``group_ids`` (ints broadcastable to ``obs.shape[:-1]``,
-    e.g. the ``[A]`` agent -> group map). ``precision``: one of
-    ``PRECISIONS`` (the module docstring)."""
+    ``ActorCriticMLP.state_dict``, ``ActorCriticCNN.state_dict`` or
+    ``ActorCriticAttn.state_dict`` (the functional form the trainer and
+    the SGD twins use); for a ``MultiPolicyActorCritic``'s dict, each
+    sample's group's outputs, its group from ``group_ids`` (ints
+    broadcastable to ``obs.shape[:-1]``, e.g. the ``[A]`` agent -> group
+    map). ``precision``: one of ``PRECISIONS`` (the module docstring)."""
     if is_multi(params):
         if group_ids is None:
             raise ValueError("multi-policy params need the samples' "
@@ -286,6 +304,8 @@ def apply(params: dict, obs: torch.Tensor, group_ids=None, *,
         return apply_multi(params, obs, group_ids, precision=precision)
     if is_cnn(params):
         return apply_cnn(params, obs, precision=precision)
+    if is_attn(params):
+        return apply_attn(params, obs, precision=precision)
     pr = Precision(precision)
     x = pr.input(obs)
     for i in range(num_hidden(params)):
@@ -394,6 +414,143 @@ def apply_cnn(params: dict, obs: torch.Tensor, *, precision="float32"):
     return (pr.output(pr.linear(x, params["logits.weight"],
                                 params["logits.bias"])),
             pr.output(value.squeeze(-1)))
+
+
+ATTN_HEADS = 4       # ActorCriticAttn's heads (flax's num_heads default)
+LN_EPS = 1e-6        # flax nn.LayerNorm's epsilon
+
+
+class ActorCriticAttn(nn.Module):
+    """Self-attention over the S x S grid cells and a [task] token (the
+    module docstring): ``d_model`` wide, ``num_blocks`` pre-LN blocks of
+    ``ATTN_HEADS`` heads."""
+
+    def __init__(self, num_actions: int, window_size: int,
+                 in_channels: int = 4, d_model: int = 64,
+                 num_blocks: int = 2,
+                 generator: torch.Generator | None = None,
+                 dtype="float32"):
+        super().__init__()
+        if d_model % ATTN_HEADS:
+            raise ValueError(f"d_model={d_model} does not split into "
+                             f"{ATTN_HEADS} heads")
+        self.dtype = torch_dtype(dtype)
+        d = d_model
+        self.cell_embed = nn.Linear(in_channels, d)
+        self.pos_embed = nn.Parameter(torch.empty(window_size ** 2, d))
+        self.task_embed = nn.Linear(N_SELF, d)
+        self.blocks = nn.ModuleList(nn.ModuleDict({
+            "ln1": nn.LayerNorm(d, eps=LN_EPS),
+            "q": nn.Linear(d, d), "k": nn.Linear(d, d), "v": nn.Linear(d, d),
+            "out": nn.Linear(d, d),
+            "ln2": nn.LayerNorm(d, eps=LN_EPS),
+            "mlp_in": nn.Linear(d, 4 * d), "mlp_out": nn.Linear(4 * d, d)})
+            for _ in range(num_blocks))
+        self.ln_f = nn.LayerNorm(d, eps=LN_EPS)
+        self.logits = nn.Linear(d, num_actions)
+        self.value = nn.Linear(d, 1)
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if name.endswith(".bias"):
+                    p.zero_()
+            for ln in (self.ln_f, *(b[n] for b in self.blocks
+                                    for n in ("ln1", "ln2"))):
+                ln.weight.fill_(1.0)
+            layers = [self.cell_embed, self.task_embed, *(
+                blk[n] for blk in self.blocks
+                for n in ("q", "k", "v", "out", "mlp_in", "mlp_out"))]
+            for layer in layers:
+                lecun_normal_(layer.weight, generator)
+            nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=generator)
+            nn.init.orthogonal_(self.logits.weight, 0.01, generator=generator)
+            nn.init.orthogonal_(self.value.weight, 1.0, generator=generator)
+
+    def forward(self, obs: torch.Tensor):
+        """obs float32[..., obs_dim] -> (logits [..., 5], value [...])."""
+        return apply_attn(dict(self.named_parameters()), obs,
+                          precision=model_precision(self.dtype))
+
+
+def is_attn(params: dict) -> bool:
+    return "pos_embed" in params
+
+
+def num_blocks(params: dict) -> int:
+    return sum(1 for k in params
+               if k.startswith("blocks.") and k.endswith(".q.weight"))
+
+
+def _layer_norm(pr: Precision, x, w, b):
+    """flax ``nn.LayerNorm``: float32 statistics ``E[x]``, ``E[x²] -
+    E[x]²`` (floored at 0), ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``; rounded to bf16 at the flax-bf16 precision."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    y = (xf - mean) * (torch.rsqrt(var + LN_EPS) * w)
+    return (y + b).to(x.dtype)
+
+
+def _gelu(x):
+    """``jax.nn.gelu(x, approximate=True)`` in its operation order."""
+    c = math.sqrt(2.0 / math.pi)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+
+
+def _product(pr: Precision, a, b):
+    """``a @ b`` of two activations: float32, or at the flax-bf16 precision
+    the float32 product of the rounded operands, rounded."""
+    if pr.flax:
+        return (a.float() @ b.float()).bfloat16()
+    return a @ b
+
+
+def apply_attn(params: dict, obs: torch.Tensor, *, precision="float32"):
+    """The attention torso on a params dict keyed like
+    ``ActorCriticAttn.state_dict``, at ``precision`` "float32" or
+    "flax_bf16" (no learner kernel takes it, so it has no bf16-operands
+    form)."""
+    pr = Precision(precision)
+    if pr.operands:
+        raise ValueError("the attention torso has no bf16_operands form: no "
+                         "learner kernel computes it")
+    d, C = params["cell_embed.weight"].shape
+    SS = params["pos_embed"].shape[0]
+    grid_len = SS * C
+    if obs.shape[-1] != grid_len + N_SELF:
+        raise ValueError(f"obs width {obs.shape[-1]} is not {SS} cells of {C}"
+                         f" channels plus {N_SELF} features")
+    lead = obs.shape[:-1]
+    obs = pr.input(obs).reshape(-1, obs.shape[-1])
+    N, h = obs.shape[0], ATTN_HEADS
+
+    def lin(name, x):
+        return pr.linear(x, params[f"{name}.weight"], params[f"{name}.bias"])
+
+    cells = obs[:, :grid_len].reshape(N, SS, C)
+    x = lin("cell_embed", cells) + params["pos_embed"].to(obs.dtype)
+    task = lin("task_embed", obs[:, grid_len:])[:, None]
+    x = torch.cat([task, x], dim=1)                      # [N, 1 + S*S, d]
+    L = x.shape[1]
+    depth = torch.tensor(d // h, dtype=torch.float32).sqrt().to(obs.dtype)
+    for i in range(num_blocks(params)):
+        blk = f"blocks.{i}"
+        y = _layer_norm(pr, x, params[f"{blk}.ln1.weight"],
+                        params[f"{blk}.ln1.bias"])
+        q, k, v = (lin(f"{blk}.{n}", y).reshape(N, L, h, d // h)
+                   .transpose(1, 2) for n in "qkv")      # [N, h, L, d/h]
+        scores = _product(pr, q / depth, k.transpose(-1, -2))
+        e = torch.exp(scores - scores.amax(-1, keepdim=True))
+        w = e / e.sum(-1, keepdim=True)  # jax.nn.softmax, at bf16 too
+        y = _product(pr, w, v).transpose(1, 2).reshape(N, L, d)
+        x = x + lin(f"{blk}.out", y)
+        y = _layer_norm(pr, x, params[f"{blk}.ln2.weight"],
+                        params[f"{blk}.ln2.bias"])
+        x = x + lin(f"{blk}.mlp_out", _gelu(lin(f"{blk}.mlp_in", y)))
+    y = _layer_norm(pr, x[:, 0], params["ln_f.weight"], params["ln_f.bias"])
+    value = lin("value", y).squeeze(-1)
+    return (pr.output(lin("logits", y)).reshape(*lead, -1),
+            pr.output(value).reshape(lead))
 
 
 GRU_GATES = ("ir", "iz", "in", "hr", "hz", "hn")   # flax GRUCell sub-modules
@@ -520,14 +677,19 @@ def apply_rnn(params: dict, obs: torch.Tensor, carry, *,
             carry)
 
 
+FEED_FORWARD = ("mlp", "cnn", "attn")  # the archs without a carry
+
+
 def make_model(cfg: EnvConfig, arch: str = "mlp", hidden_dim: int = 128,
                num_layers: int = 2, generator: torch.Generator | None = None,
                device=None, dtype="float32") -> nn.Module:
-    """The policy for ``arch`` ("mlp", "cnn", "gru" or "lstm") on
+    """The policy for ``arch`` ("mlp", "cnn", "attn", "gru" or "lstm") on
     ``device``: the card by default, the CPU with ``device="cpu"``;
     ``dtype`` its compute dtype (float32 params either way). The CNN
-    ignores ``num_layers``; its grid is the ego window, or the whole
-    (square) grid with ``cfg.global_obs``."""
+    ignores ``num_layers``; the attention torso is ``hidden_dim // 2``
+    wide with ``num_layers`` blocks (flax ``make_model``). The grid of
+    both is the ego window, or the whole (square) grid with
+    ``cfg.global_obs``."""
     if arch == "mlp":
         model = ActorCriticMLP(cfg.obs_dim, cfg.num_actions,
                                (hidden_dim,) * num_layers, generator, dtype)
@@ -538,19 +700,25 @@ def make_model(cfg: EnvConfig, arch: str = "mlp", hidden_dim: int = 128,
             cfg.num_actions, cfg.height if cfg.global_obs else cfg.window_size,
             cfg.num_obs_channels, hidden=hidden_dim, generator=generator,
             dtype=dtype)
+    elif arch == "attn":
+        if cfg.global_obs and cfg.height != cfg.width:
+            raise ValueError("attn+global_obs requires a square grid")
+        model = ActorCriticAttn(
+            cfg.num_actions, cfg.height if cfg.global_obs else cfg.window_size,
+            cfg.num_obs_channels, hidden_dim // 2, num_layers, generator,
+            dtype)
     elif arch in ("gru", "lstm"):
         model = ActorCriticRNN(cfg.obs_dim, cfg.num_actions, arch,
                                (hidden_dim,) * max(num_layers - 1, 1),
                                hidden_dim, generator, dtype)
     else:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP M-7); 'mlp', "
-            "'cnn', 'gru' and 'lstm' are")
+        raise ValueError(f"unknown arch {arch!r}")
     return model.to(resolve_device(device))
 
 
 class MultiPolicyActorCritic(nn.Module):
-    """K independent feed-forward policies (``policies``, MLP or CNN) with
+    """K independent feed-forward policies (``policies``: MLP, CNN or
+    attention) with
     a static agent -> policy map (RLlib's ``policy_mapping_fn``):
     ``forward(obs, group_ids)`` returns each sample's group's ``(logits,
     value)``. All K sub-models run on every sample and each sample takes
@@ -605,17 +773,17 @@ def make_multi_policy_model(cfg: EnvConfig, policy_groups, arch: str = "mlp",
                             generator: torch.Generator | None = None,
                             device=None,
                             dtype="float32") -> MultiPolicyActorCritic:
-    """K sub-models of ``arch`` ("mlp" or "cnn", drawn from ``generator``
-    in group order, at compute ``dtype``) for ``policy_groups``, a tuple of
-    one group id ``0..K-1`` per agent, on ``device`` (the card by
-    default); raises the JAX package's two ``ValueError``s for another
+    """K sub-models of ``arch`` ("mlp", "cnn" or "attn", drawn from
+    ``generator`` in group order, at compute ``dtype``) for
+    ``policy_groups``, a tuple of one group id ``0..K-1`` per agent, on
+    ``device`` (the card by default); raises the JAX package's two ``ValueError``s for another
     map."""
     if len(policy_groups) != cfg.num_agents:
         raise ValueError("policy_groups must have one entry per agent")
     k = max(policy_groups) + 1
     if sorted(set(policy_groups)) != list(range(k)):
         raise ValueError("group ids must be 0..K-1 with no gaps")
-    if arch not in ("mlp", "cnn"):
+    if arch not in FEED_FORWARD:
         raise ValueError(f"policy_groups with arch={arch!r}: the groups "
                          "take feed-forward policies")
     return MultiPolicyActorCritic(
@@ -718,15 +886,83 @@ def _cnn_params_from_flax(dense: dict) -> dict:
     return out
 
 
+def _attn_params_from_flax(dense: dict) -> dict:
+    """The ``ActorCriticAttn`` tree: ``Dense_0`` the cell embedding,
+    ``Dense_1`` the task embedding, ``pos_embed``; block i's
+    ``LayerNorm_{2i}``, ``MultiHeadDotProductAttention_i`` (query / key /
+    value kernels ``[d, heads, d / heads]``, out ``[heads, d / heads,
+    d]``), ``LayerNorm_{2i+1}``, ``Dense_{2+2i}`` and ``Dense_{3+2i}``; the
+    last LayerNorm, then the logits and value heads."""
+    nb = sum(1 for n in dense if n.startswith("MultiHeadDotProductAttention_"))
+    want = ({"pos_embed", "Dense_0", "Dense_1"}
+            | {f"Dense_{i}" for i in range(2, 4 + 2 * nb)}
+            | {f"LayerNorm_{i}" for i in range(2 * nb + 1)}
+            | {f"MultiHeadDotProductAttention_{i}" for i in range(nb)})
+    if set(dense) != want:
+        raise ValueError(f"not an attention actor-critic: layers "
+                         f"{sorted(dense)}")
+    pos = np.asarray(dense["pos_embed"], np.float32)
+    d = pos.shape[1]
+    out = {"pos_embed": torch.from_numpy(pos.copy())}
+
+    def dense_at(key, name, fan_in):
+        layer = _dense_np(dense[name], name, fan_in)
+        out.update({f"{key}.{k}": v for k, v in layer.items()})
+
+    def norm_at(key, name):
+        sub = dense[name]
+        for k, flax_k in (("weight", "scale"), ("bias", "bias")):
+            v = np.asarray(sub[flax_k], np.float32)
+            if v.shape != (d,):
+                raise ValueError(f"{name}/{flax_k}: {v.shape}, expected "
+                                 f"({d},)")
+            out[f"{key}.{k}"] = torch.from_numpy(v.copy())
+
+    dense_at("cell_embed", "Dense_0", None)
+    dense_at("task_embed", "Dense_1", N_SELF)
+    for i in range(nb):
+        blk = f"blocks.{i}"
+        norm_at(f"{blk}.ln1", f"LayerNorm_{2 * i}")
+        mha = dense[f"MultiHeadDotProductAttention_{i}"]
+        for n, flax_n in (("q", "query"), ("k", "key"), ("v", "value")):
+            kernel = np.asarray(mha[flax_n]["kernel"], np.float32)
+            if kernel.shape != (d, ATTN_HEADS, d // ATTN_HEADS):
+                raise ValueError(f"{flax_n}: kernel {kernel.shape}, expected "
+                                 f"{(d, ATTN_HEADS, d // ATTN_HEADS)}")
+            out[f"{blk}.{n}.weight"] = torch.from_numpy(
+                kernel.reshape(d, d).T.copy())
+            out[f"{blk}.{n}.bias"] = torch.from_numpy(np.asarray(
+                mha[flax_n]["bias"], np.float32).reshape(d).copy())
+        kernel = np.asarray(mha["out"]["kernel"], np.float32)
+        if kernel.shape != (ATTN_HEADS, d // ATTN_HEADS, d):
+            raise ValueError(f"out: kernel {kernel.shape}, expected "
+                             f"{(ATTN_HEADS, d // ATTN_HEADS, d)}")
+        out[f"{blk}.out.weight"] = torch.from_numpy(
+            kernel.reshape(d, d).T.copy())
+        out[f"{blk}.out.bias"] = torch.from_numpy(
+            np.asarray(mha["out"]["bias"], np.float32).copy())
+        norm_at(f"{blk}.ln2", f"LayerNorm_{2 * i + 1}")
+        dense_at(f"{blk}.mlp_in", f"Dense_{2 + 2 * i}", d)
+        dense_at(f"{blk}.mlp_out", f"Dense_{3 + 2 * i}", 4 * d)
+    norm_at("ln_f", f"LayerNorm_{2 * nb}")
+    dense_at("logits", f"Dense_{2 + 2 * nb}", d)
+    dense_at("value", f"Dense_{3 + 2 * nb}", d)
+    if out["value.weight"].shape[0] != 1:
+        raise ValueError("the value head has "
+                         f"{out['value.weight'].shape[0]} outputs, expected 1")
+    return out
+
+
 def params_from_flax(params_np) -> dict:
-    """A flax ``ActorCriticMLP``'s, ``ActorCriticCNN``'s or
-    ``ActorCriticRNN``'s params (nested dict of numpy arrays, with or
-    without the top ``"params"`` level) as the ``state_dict`` of this
-    module's counterpart. ``Dense_i`` are taken in index order — hidden
+    """A flax ``ActorCriticMLP``'s, ``ActorCriticCNN``'s,
+    ``ActorCriticAttn``'s or ``ActorCriticRNN``'s params (nested dict of
+    numpy arrays, with or without the top ``"params"`` level) as the
+    ``state_dict`` of this module's counterpart. ``Dense_i`` are taken in index order — hidden
     (encoder) layers or the CNN's trunk, logits head, value head — and
     each kernel ``[in, out]`` becomes a ``Linear.weight [out, in]``; a
     recurrent tree's cell gates become ``cell.<gate>.*``, a CNN tree's
-    ``Conv_i`` become ``conv.i.*``. A ``MultiPolicyActorCritic`` tree
+    ``Conv_i`` become ``conv.i.*``, an attention tree's layers the names
+    of ``_attn_params_from_flax``. A ``MultiPolicyActorCritic`` tree
     (``policies_g`` sub-trees, g = 0..K-1) becomes ``policies.g.*`` keys,
     each sub-tree converted as above. Every shape is checked."""
     dense = params_np.get("params", params_np)
@@ -739,6 +975,8 @@ def params_from_flax(params_np) -> dict:
                 for k, v in params_from_flax(dense[f"policies_{g}"]).items()}
     if "GRUCell_0" in dense or "OptimizedLSTMCell_0" in dense:
         return _rnn_params_from_flax(dense)
+    if "pos_embed" in dense:
+        return _attn_params_from_flax(dense)
     if any(n.startswith("Conv_") for n in dense):
         return _cnn_params_from_flax(dense)
     names = sorted(dense, key=lambda s: int(s.split("_")[1]))

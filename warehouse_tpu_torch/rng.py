@@ -197,19 +197,28 @@ def spawn_draws(keys: torch.Tensor, cfg: EnvConfig):
     return fold_in(keys, 0), u, pick, drop
 
 
-def batched_step_draws(keys: torch.Tensor, cfg: EnvConfig, T: int):
-    """T steps of per-env draws: ``(final_keys, u float32[T, B],
-    pick int32[T, B], drop int32[T, B], reset_keys int64[T, B, 2])`` —
-    the same values as T chained ``step_draws``, with only the key chain
-    sequential."""
-    sks, rks = [], []
+def chained_step_draws(keys: torch.Tensor, cfg: EnvConfig,
+                       T: int) -> StepDraws:
+    """T chained ``step_draws`` from keys ``[B, 2]``, each field stacked
+    ``[T, B, ...]``: the same values, with only the key chain sequential
+    (the spawn draws of all T ticks made at once)."""
+    nks, sks, rks = [], [], []
     for _ in range(T):
         trip = split(keys, 3)
         keys = trip[:, 0]
+        nks.append(keys)
         sks.append(trip[:, 1])
         rks.append(trip[:, 2])
     u, pick, drop = _spawn_cells(torch.stack(sks), cfg)
-    return keys, u, pick, drop, torch.stack(rks)
+    return StepDraws(torch.stack(nks), torch.stack(rks), u, pick, drop)
+
+
+def batched_step_draws(keys: torch.Tensor, cfg: EnvConfig, T: int):
+    """T steps of per-env draws: ``(final_keys, u float32[T, B],
+    pick int32[T, B], drop int32[T, B], reset_keys int64[T, B, 2])``,
+    ``chained_step_draws``' values."""
+    d = chained_step_draws(keys, cfg, T)
+    return d.next_key[-1], d.spawn_u, d.spawn_pick, d.spawn_drop, d.reset_key
 
 
 def batched_gumbel_stream(key: torch.Tensor, T: int, shape: tuple):

@@ -6,14 +6,14 @@ The train CLI drops a ``policy_meta.json`` next to the checkpoint files
 env config and the model without any flag given again.
 
 ``compute_actions`` maps observations ``[B, A, obs_dim]`` to int32
-actions ``[B, A]`` through the MLP, the CNN or the recurrent (GRU / LSTM)
-policy:
+actions ``[B, A]`` through the MLP, the CNN, the attention torso or the
+recurrent (GRU / LSTM) policy:
 argmax by default, or a categorical sample (``explore=True``) on the same
 key chain as the JAX ``Policy``. A recurrent policy threads its carry:
 ``initial_state`` (alias ``get_initial_state``) gives the zero carry and
 ``compute_actions(obs, carry)`` returns ``(actions, new_carry)``. With
-``policy_groups`` the model is a ``MultiPolicyActorCritic`` of MLP or CNN
-policies and agent a acts through group ``policy_groups[a]``'s. The
+``policy_groups`` the model is a ``MultiPolicyActorCritic`` of
+feed-forward policies and agent a acts through group ``policy_groups[a]``'s. The
 policy runs on its model's device and at its compute dtype: a checkpoint of
 a ``--model-dtype bfloat16`` run serves the bf16 model, whose recurrent
 carry is bf16.
@@ -30,7 +30,8 @@ import torch
 from .config import EnvConfig, TrainConfig
 
 from . import rng as _rng
-from .models.policy import (ActorCriticCNN, ActorCriticMLP, ActorCriticRNN,
+from .models.policy import (FEED_FORWARD, ActorCriticAttn, ActorCriticCNN,
+                            ActorCriticMLP, ActorCriticRNN,
                             MultiPolicyActorCritic)
 from .ops.move import valid_action_mask
 from .ops.ppo_update import first_argmax
@@ -65,8 +66,8 @@ class Policy:
     """A policy ready for inference on its model's device."""
 
     def __init__(self, env_cfg: EnvConfig,
-                 model: ActorCriticMLP | ActorCriticCNN | ActorCriticRNN
-                 | MultiPolicyActorCritic,
+                 model: ActorCriticMLP | ActorCriticCNN | ActorCriticAttn
+                 | ActorCriticRNN | MultiPolicyActorCritic,
                  arch: str | None = None, mask_actions: bool = False,
                  policy_groups: tuple | None = None):
         multi = isinstance(model, MultiPolicyActorCritic)
@@ -80,13 +81,14 @@ class Policy:
         sub = model.policies[0] if multi else model
         recurrent = isinstance(sub, ActorCriticRNN)
         own = (sub.cell_type if recurrent
-               else "cnn" if isinstance(sub, ActorCriticCNN) else "mlp")
+               else "cnn" if isinstance(sub, ActorCriticCNN)
+               else "attn" if isinstance(sub, ActorCriticAttn) else "mlp")
         arch = arch or own
-        if arch not in ("mlp", "cnn", "gru", "lstm") or (
-                multi and arch not in ("mlp", "cnn")):
-            raise NotImplementedError(
-                "only an MLP, CNN, GRU or LSTM policy, or policy groups of "
-                "MLPs or CNNs, is ported for serving")
+        if arch not in (*FEED_FORWARD, "gru", "lstm") or (
+                multi and arch not in FEED_FORWARD):
+            raise ValueError(
+                f"arch={arch!r}: serving takes an MLP, CNN, attention, GRU "
+                "or LSTM policy, or policy groups of feed-forward ones")
         if arch != own or multi and any(
                 type(m) is not type(sub) for m in model.policies):
             raise ValueError(f"arch={arch!r} does not fit the model")
@@ -149,7 +151,7 @@ class Policy:
     def compute_actions(self, obs, state=None, explore: bool = False,
                         seed: int | None = None, agent_pos=None):
         """obs float32[B, A, obs_dim] (or [A, obs_dim]) -> (int32[B, A]
-        actions, next carry); the carry is None for the MLP and the CNN,
+        actions, next carry); the carry is None for the feed-forward policies,
         and a recurrent policy starts from ``initial_state`` when given
         none."""
         obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)

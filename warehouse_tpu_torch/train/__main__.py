@@ -1,13 +1,15 @@
 """Train CLI: ``python -m warehouse_tpu_torch.train``.
 
-The PPO (``--arch mlp|cnn|gru|lstm``) and IMPALA (``--algo impala``) subset of
-``python -m warehouse_tpu.train`` with the same flag names, plus
+The PPO (``--arch mlp|cnn|attn|gru|lstm``) and IMPALA (``--algo impala``,
+a feed-forward arch) subset of ``python -m warehouse_tpu.train`` with the
+same flag names, plus
 ``--device``: the run is on the card unless ``--cpu`` / ``--device cpu``
 asks for the CPU, and exits when it finds no card. A flag
 for a feature the port does not have yet exits with a message naming its
 ROADMAP id. Metrics go to a JSONL file whose first line records the
-trainer's ``backends`` (each phase's route, ``"cuda"`` or ``"plain"``, as
-the JAX CLI records its resolved backends), ``env_steps_per_sec`` included;
+trainer's ``backends`` (each phase's route: ``"cuda"``, ``"plain"``, or
+``"step"`` for the per-step acting phase, as the JAX CLI records its
+resolved backends), ``env_steps_per_sec`` included;
 ``--eval-every`` runs the argmax policy through
 ``evaluate.evaluate_policy``. ``--checkpoint-every N`` saves the whole
 runner state every N updates under ``--checkpoint-dir`` beside a
@@ -37,11 +39,6 @@ from .ppo_rnn import make_train_rnn
 
 def _unported(args) -> list[str]:
     out = []
-    if args.arch == "attn":
-        out.append("--arch attn (ROADMAP M-7)")
-    if args.arch != "mlp" and args.algo == "impala":
-        out.append(f"--algo impala --arch {args.arch} (the IMPALA learner "
-                   "takes the MLP policy; ROADMAP M-7)")
     for flag, on, item in (
             ("--profile-dir", args.profile_dir is not None, "M-6"),
             ("--tensorboard-dir", args.tensorboard_dir is not None, "M-6")):
@@ -79,8 +76,8 @@ def main(argv=None) -> None:
     p.add_argument("--shaping-coef", type=float, default=0.0,
                    help="potential-based reward shaping on the BFS "
                         "distance to the agent's target (0 = off; PPO "
-                        "with --arch mlp or cnn; IMPALA ignores it, as the "
-                        "JAX trainer does)")
+                        "with any arch; IMPALA ignores it, as the JAX "
+                        "trainer does)")
     p.add_argument("--mask-actions", action="store_true",
                    help="mask wall/out-of-grid moves at the policy logits")
     p.add_argument("--minibatch-mode", choices=["flat", "env"],
@@ -98,15 +95,17 @@ def main(argv=None) -> None:
     p.add_argument("--hidden-dim", type=int, default=128)
     p.add_argument("--model-dtype", choices=["float32", "bfloat16"],
                    default="float32",
-                   help="bfloat16: PPO's learner kernels multiply bf16 "
+                   help="bfloat16: the learner kernels multiply bf16 "
                         "operands with float32 sums, the last values and "
-                        "serving use the bf16 model, acting stays float32 "
-                        "(IMPALA exits: ROADMAP M-4b)")
+                        "serving use the bf16 model, acting in a kernel "
+                        "stays float32; where a phase has no kernel (IMPALA "
+                        "acts per step) it runs the bf16 model")
     p.add_argument("--arch", choices=["mlp", "cnn", "attn", "gru", "lstm"],
                    default="mlp",
-                   help="mlp, the conv-torso cnn or the recurrent gru / "
-                        "lstm policy (cnn, gru, lstm: PPO only); attn is "
-                        "not ported yet")
+                   help="mlp, the conv-torso cnn, the attention torso attn "
+                        "or the recurrent gru / lstm policy (gru, lstm: PPO "
+                        "only); attn, and IMPALA with cnn, act per step and "
+                        "learn in plain PyTorch")
     p.add_argument("--policy-groups", default=None)
     p.add_argument("--rollout-backend", choices=["auto", "xla", "pallas"],
                    default="auto",
@@ -150,15 +149,17 @@ def main(argv=None) -> None:
     if args.policy_groups:
         policy_groups = tuple(int(x) for x in args.policy_groups.split(","))
         # The JAX CLI's gates (warehouse_tpu/train/__main__.py:199-210).
-        if args.algo == "impala":
-            raise SystemExit("--algo impala supports feed-forward archs "
-                             "with a shared policy")
         if args.arch in ("gru", "lstm"):
             raise SystemExit("--policy-groups is not supported with "
                              "recurrent archs")
         if args.eval_every:
             raise SystemExit("--eval-every with --policy-groups: the "
                              "evaluation takes a shared policy")
+
+    if args.algo == "impala" and (args.arch in ("gru", "lstm")
+                                  or policy_groups is not None):
+        raise SystemExit("--algo impala supports feed-forward archs with a "
+                         "shared policy")
 
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")

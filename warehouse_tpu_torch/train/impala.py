@@ -1,38 +1,47 @@
 """The IMPALA (V-trace) actor-learner on one device (counterpart of
 ``warehouse_tpu/train/impala.py``, single-device path).
 
-One update, draw for draw as the JAX trainer with its acting kernel
-(``rollout_backend="pallas"``, :250-273) and, per phase, its learner
-kernel or its XLA learner (:310-424):
+One update, draw for draw as the JAX trainer with, per phase, its kernel
+(acting ``rollout_backend="pallas"``, :250-273) or its XLA route (acting
+:274-312, learning :310-424):
 
-1. act T steps through ``kernels.ppo_rollout`` (K2) from ``rs.key``, with
-   no env permutation (IMPALA's minibatches are fixed env slices), then
-   the boundary reset ``reset_truncated_batch`` and, with
-   ``bootstrap_truncated``, V of the pre-reset states (:256-272);
+1. act T steps from ``rs.key``, with no env permutation (IMPALA's
+   minibatches are fixed env slices): through ``kernels.ppo_rollout``
+   (K2), then the boundary reset ``reset_truncated_batch`` and, with
+   ``bootstrap_truncated``, V of the pre-reset states (:256-272); or,
+   where K2 does not take the configuration (``rollout_problems_impala``:
+   an arch but the MLP, ``model_dtype="bfloat16"``, ``global_obs``,
+   ``max_steps % unroll_length != 0``), through the per-step phase
+   ``train.ppo.step_rollout`` (the JAX XLA scan, the model at its own
+   dtype, no shaping);
 2. the learner phase: ``impala_passes x num_minibatches`` steps of the
    V-trace loss, clip and RMSProp or Adam, with the per-step lr rows
    (:490-516), through ``kernels.impala_sgd_phase`` (K5) where the kernel
-   takes the configuration; with ``micro_batches > 1`` (env-axis
-   micro-batches, exact for V-trace, :374-390) or ``flat_optimizer``
-   (ROADMAP M-4) through the plain phase, ``impala_sgd_phase_reference``
-   with those options;
-3. the metrics of ``_metrics_tail`` (:429-454). The key K2 returns is the
-   next update's; there is no trailing split.
+   takes the configuration (the MLP in float32; an episode may end inside
+   the chunk); else (``micro_batches > 1``, env-axis micro-batches, exact
+   for V-trace, :374-390; ``flat_optimizer``, ROADMAP M-4; the CNN, the
+   attention torso, bfloat16) through the plain phase,
+   ``impala_sgd_phase_reference`` with those options and the model at its
+   precision;
+3. the metrics of ``_metrics_tail`` (:429-454). The key the acting phase
+   returns is the next update's; there is no trailing split.
 
 ``ImpalaTrainer.backends`` names each phase's route as the PPO trainer's
-does. On a CUDA device the kernels run and a build or launch failure
-raises; on the CPU both phases are plain. ``ImpalaTrainer.plain_step`` is
-the same update through the plain twins on any device.
+does (``train.ppo.make_backends``). Routes follow from the configuration
+alone. On a CUDA device the kernels run and a build or launch failure
+raises, and a shape or width the kernels of the arch refuse (ROADMAP T-5,
+T-6) is refused by name whatever the route; on the CPU the kernels'
+phases are plain. ``ImpalaTrainer.plain_step`` is the same update through
+the plain twins on any device.
 
-Ported: the MLP policy, one shared policy, float32, RMSProp or Adam
-(``impala_rmsprop``), lr anneal, passes, truncation bootstrap, action
-masking, ``micro_batches``, ``flat_optimizer``; ``shaping_coef`` is
-accepted and has no effect, as in the JAX trainer, which never reads it.
-The TPU block knobs have no counterpart and are ignored;
-``rollout_backend``/``grad_backend="xla"`` raises. ``global_obs`` and
-``model_dtype="bfloat16"`` raise ``NotImplementedError`` naming ROADMAP
-M-4b (the JAX trainer sends both to its XLA acting too, and the port has
-no plain acting route); everything else names its ROADMAP id.
+Ported: the MLP, CNN and attention policies (one shared policy), float32
+or bfloat16, RMSProp or Adam (``impala_rmsprop``), lr anneal, passes,
+truncation bootstrap, action masking, global observations, any
+``unroll_length``, ``micro_batches``, ``flat_optimizer``; ``shaping_coef``
+is accepted and has no effect, as in the JAX trainer, which never reads
+it. The TPU block knobs have no counterpart and are ignored;
+``rollout_backend``/``grad_backend="xla"`` raises; a mesh raises
+``NotImplementedError`` naming ROADMAP M-8.
 """
 
 from __future__ import annotations
@@ -46,18 +55,20 @@ from ..device import resolve_device
 
 from ..env.batch import observe_batch, reset_truncated_batch
 from ..env.state import STATE_FIELDS, EnvState
-from ..kernels.act import check_act_fits, ppo_rollout, ppo_rollout_reference
+from ..kernels.act import ppo_rollout, ppo_rollout_reference
 from ..kernels.vtrace_sgd import (check_impala_fits, impala_sgd_phase,
                                   impala_sgd_phase_reference)
-from ..models.policy import ActorCriticMLP, apply, make_model, params_from_flax
+from ..models.policy import (FEED_FORWARD, apply, make_model, model_precision,
+                             params_from_flax)
 from ..optim import (AdamState, ClipAdam, ClipRMSProp, RMSState,
                      make_impala_optimizer, opt_state_from_optax)
-from .ppo import (_not_ported, _tensor, check_backend_names, init_parts,
-                  make_backends, run_many)
+from .ppo import (STEP, _not_ported, _tensor, check_backend_names,
+                  check_kernel_fits, init_parts,
+                  make_backends, run_many, step_rollout)
 
 
 class ImpalaRunnerState(NamedTuple):
-    params: dict               # ActorCriticMLP.state_dict-keyed tensors
+    params: dict               # the model's state_dict-keyed tensors
     opt_state: RMSState | AdamState
     env_state: EnvState        # [B] envs
     obs: torch.Tensor          # float32[B, A, obs_dim]
@@ -80,19 +91,42 @@ class ImpalaTrainer(NamedTuple):
     train_step: Callable  # (rs, mark=None) -> (rs, metrics)
     train_many: Callable  # (rs, n) -> (rs, metrics stacked [n])
     plain_step: Callable  # train_step through the plain twins
-    model: ActorCriticMLP  # holds the params the act phase reads
+    model: torch.nn.Module  # holds the params the act phase reads
     optimizer: ClipRMSProp | ClipAdam
     env_cfg: EnvConfig
     tcfg: TrainConfig
     device: torch.device
-    backends: dict | None = None  # {"rollout", "grad"}: "cuda" or "plain"
+    backends: dict | None = None  # {"rollout", "grad"}: make_backends'
 
 
-def grad_problems_impala(tcfg: TrainConfig) -> list:
+def rollout_problems_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
+                            arch: str) -> list:
+    """What the acting kernel K2 does not take for IMPALA (the JAX
+    trainer's ``_rollout_problems``, :110-126, less the TPU's block
+    lanes): where this is not empty the acting phase is the per-step
+    one."""
+    problems = []
+    if arch != "mlp":
+        problems.append(f"arch={arch!r} (the IMPALA acting route implements "
+                        "MLP)")
+    if tcfg.model_dtype != "float32":
+        problems.append("model_dtype")
+    if env_cfg.global_obs:
+        problems.append("global_obs")
+    if env_cfg.max_steps % tcfg.unroll_length:
+        problems.append("max_steps % unroll_length != 0")
+    return problems
+
+
+def grad_problems_impala(tcfg: TrainConfig, arch: str) -> list:
     """The options that the IMPALA learner kernel does not compute (the
-    JAX trainer's ``_grad_problems``, :131-153, less ``bootstrap_truncated``,
+    JAX trainer's ``_grad_problems``, :128-153, less ``bootstrap_truncated``,
     which the port's kernel takes)."""
     problems = []
+    if arch != "mlp":
+        problems.append(f"arch={arch!r} (the learner kernel implements MLP)")
+    if tcfg.model_dtype != "float32":
+        problems.append("model_dtype")
     if tcfg.micro_batches != 1:
         problems.append("micro_batches != 1")
     if tcfg.flat_optimizer:
@@ -101,16 +135,11 @@ def grad_problems_impala(tcfg: TrainConfig) -> list:
 
 
 def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
-    if arch != "mlp":
-        _not_ported(f"IMPALA with arch={arch!r}", "M-7")
-    for what, off, item in (
-            ("a mesh", mesh is None, "M-8"),
-            ("global_obs", not env_cfg.global_obs, "M-4b"),
-            # The JAX trainer sends bf16 to its XLA route (no kernel takes it).
-            ("model_dtype='bfloat16'", tcfg.model_dtype == "float32",
-             "M-4b")):
-        if not off:
-            _not_ported(f"IMPALA with {what}", item)
+    if arch not in FEED_FORWARD:
+        raise ValueError(f"IMPALA with arch={arch!r}: it takes the "
+                         f"feed-forward policies {FEED_FORWARD}")
+    if mesh is not None:
+        _not_ported("IMPALA with a mesh", "M-8")
     check_backend_names(tcfg)
     if tcfg.num_envs % tcfg.num_minibatches:
         raise ValueError(f"num_envs={tcfg.num_envs} must divide into "
@@ -120,9 +149,6 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
     if mb_envs % tcfg.micro_batches:
         raise ValueError(f"micro_batches={tcfg.micro_batches} must divide "
                          f"the per-minibatch env count {mb_envs}")
-    if env_cfg.max_steps % tcfg.unroll_length:
-        raise ValueError("max_steps % unroll_length != 0: the boundary "
-                         "reset runs after the chunk")
 
 
 def impala_runner_state_from_jax(rs_np, tcfg: TrainConfig,
@@ -160,22 +186,28 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
     n_steps = tcfg.impala_passes * M
     optimizer = make_impala_optimizer(tcfg)
     model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
-                       device=device)
-    problems = grad_problems_impala(tcfg)
+                       device=device, dtype=tcfg.model_dtype)
+    problems = grad_problems_impala(tcfg, arch)
     grad_kernel = not problems
-    backends = make_backends(device, problems)
+    backends = make_backends(device, rollout_problems_impala(cfg, tcfg, arch),
+                             problems)
+    stepwise = backends["rollout"] == STEP
+    precision = model_precision(tcfg.model_dtype)
     if device.type == "cuda":  # refuse by name what no kernel route holds
-        check_act_fits(cfg, model, device)
+        check_kernel_fits(cfg, model, device, arch, None, not stepwise,
+                          False)
         if grad_kernel:
             check_impala_fits(model.state_dict(), cfg.obs_dim, device)
 
     def plain_phase(params, opt_state, traj, last_obs, rows, *args, **kw):
-        """The plain learner phase (M-4): micro-batches, the flat
-        optimizer."""
+        """The plain learner phase (M-4, and the models and dtypes no
+        kernel takes): micro-batches, the flat optimizer, the model's
+        precision."""
         return impala_sgd_phase_reference(
             params, opt_state, traj, last_obs, rows, *args,
             micro_batches=tcfg.micro_batches,
-            update_fn=optimizer.update_fn(rows, opt_state.count), **kw)
+            update_fn=optimizer.update_fn(rows, opt_state.count),
+            precision=precision, **kw)
 
     def init(key: torch.Tensor) -> ImpalaRunnerState:
         params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key)
@@ -184,18 +216,34 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
             env_state=env_state, obs=obs, key=key,
             update_idx=torch.zeros((), dtype=torch.int32, device=device))
 
+    def chunk_acting(rollout_fn):
+        """T steps of K2 (or its twin) from ``rs.key``, the boundary reset,
+        the bootstrap on the chunk's last step."""
+        def act(rs):
+            model.load_state_dict(rs.params)
+            new_env, roll, reset_key, key = rollout_fn(
+                cfg, model, rs.env_state, T, rs.key,
+                mask_actions=tcfg.mask_actions)
+            env_state, last_obs, _ = reset_truncated_batch(cfg, new_env,
+                                                           reset_key)
+            boot = torch.zeros_like(roll.reward)
+            if tcfg.bootstrap_truncated:
+                # done is only ever set on the chunk's last step.
+                boot[-1] = apply(rs.params, observe_batch(cfg, new_env))[1]
+            return env_state, roll, last_obs, key, boot
+        return act
+
+    def step_acting(rs):
+        """The per-step phase (``backends["rollout"] == "step"``), with no
+        env permutation and no shaping (the JAX trainer reads neither)."""
+        def policy(obs, carry):
+            return (*apply(rs.params, obs, precision=precision), None)
+        return step_rollout(cfg, tcfg.replace(shaping_coef=0.0), policy,
+                            rs.env_state, rs.obs, T, rs.key)[:5]
+
     def step(rs: ImpalaRunnerState, act_fn, learn_fn, mark=None):
         mark = mark or (lambda name: None)
-        model.load_state_dict(rs.params)
-        new_env, roll, reset_key, key = act_fn(
-            cfg, model, rs.env_state, T, rs.key,
-            mask_actions=tcfg.mask_actions)
-        env_state, last_obs, _ = reset_truncated_batch(cfg, new_env,
-                                                       reset_key)
-        boot = torch.zeros_like(roll.reward)
-        if tcfg.bootstrap_truncated:
-            # done is only ever set on the chunk's last step.
-            boot[-1] = apply(rs.params, observe_batch(cfg, new_env))[1]
+        env_state, roll, last_obs, key, boot = act_fn(rs)
         traj = ImpalaTransition(
             roll.obs, roll.action, roll.log_prob, roll.reward,
             roll.truncated[:, :, None].expand_as(roll.reward), roll.mask,
@@ -227,15 +275,16 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
         return new, metrics
 
     def train_step(rs: ImpalaRunnerState, mark=None):
-        """One update through the kernels (plain twins on the CPU).
-        ``mark(name)``, if given, is called after the acting and learner
-        phases (for timing)."""
-        return step(rs, ppo_rollout,
+        """One update through each phase's route of ``backends`` (plain
+        twins on the CPU). ``mark(name)``, if given, is called after the
+        acting and learner phases (for timing)."""
+        return step(rs, step_acting if stepwise else chunk_acting(ppo_rollout),
                     impala_sgd_phase if grad_kernel else plain_phase, mark)
 
     def plain_step(rs: ImpalaRunnerState, mark=None):
         """The same update through the plain PyTorch twins."""
-        return step(rs, ppo_rollout_reference,
+        return step(rs, step_acting if stepwise
+                    else chunk_acting(ppo_rollout_reference),
                     impala_sgd_phase_reference if grad_kernel
                     else plain_phase, mark)
 

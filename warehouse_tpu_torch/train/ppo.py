@@ -1,67 +1,77 @@
 """The PPO actor-learner on one device (counterpart of
 ``warehouse_tpu/train/ppo.py``, single-device path).
 
-One update, draw for draw as the JAX trainer with its acting kernel
-(``rollout_backend="pallas"``) and, per phase, its learner kernel or its
-XLA learner:
+One update, draw for draw as the JAX trainer with, per phase, its kernel
+(``rollout_backend="pallas"``) or its XLA route:
 
 1. with ``minibatch_mode="env"`` and ``epoch_shuffle="once"``, permute the
-   env axis of the state with ``permutation(fold_in(key, 0x5EED), B)``
-   ("shuffle the envs, not the data": minibatches are then contiguous env
-   ranges, :370-386); with any other cadence the state is not permuted;
-2. act T steps through ``kernels.ppo_rollout`` (K2; K10 with
+   env axis of the state and its observations with
+   ``permutation(fold_in(key, 0x5EED), B)`` ("shuffle the envs, not the
+   data": minibatches are then contiguous env ranges, :370-386); with any
+   other cadence the state is not permuted;
+2. act T steps: through ``kernels.ppo_rollout`` (K2; K10 with
    ``arch="cnn"``), which with ``shaping_coef > 0`` adds the potential
    shaping to the reward it returns, then the boundary reset
    ``reset_truncated_batch`` (:399-410), and with ``bootstrap_truncated``
-   V of the pre-reset states (:412-422);
+   V of the pre-reset states (:412-422); or, where no acting kernel takes
+   the configuration (``rollout_problems``), through ``step_rollout``, the
+   per-step phase of the JAX XLA scan (:431-476): the model at its own
+   dtype, the mask, the sample, the potential before and after the tick,
+   ``step_autoreset_batch`` (the reset inside the chunk), the bootstrap
+   from ``final_obs`` on every step;
 3. GAE from ``last_value``;
 4. the SGD phase: where a learner kernel takes the configuration,
    advantages normalized per env minibatch and ``kernels.ppo_sgd_phase``
    (K3) or, for the CNN, ``kernels.ppo_cnn_sgd_phase`` (K11), with the
    per-step lr and bias-correction rows (:678-686); else the plain learner
-   phase of the JAX XLA route (``_learn`` :481-602, ROADMAP M-4): autograd
-   through ``models.policy.apply`` at the model's precision (the flax-bf16
-   forward at bfloat16), ``ops.ppo_update``'s scaffold and ``optim.py``;
+   phase of the JAX XLA route (``_learn`` :481-602): autograd through
+   ``models.policy.apply`` at the model's precision (the flax-bf16 forward
+   at bfloat16), ``ops.ppo_update``'s scaffold and ``optim.py``;
 5. the scaffold's key splits (``partition_keys``: one for "once", one per
    epoch for "each"), the metrics and the adaptive KL coefficient
    (:713-746).
 
 Each phase's route follows from the configuration alone, as the JAX
 trainer's ``_rollout_problems`` / ``_grad_problems`` (:162-303) decide
-between its kernel and XLA: ``PPOTrainer.backends`` is ``{"rollout":
-"cuda" | "plain", "grad": "cuda" | "plain"}``, the counterpart of JAX
-``PPOTrainer.backends`` (:825). The learner is plain where the JAX trainer
-resolves it to XLA: the CNN with ``policy_groups`` (its fused learner is
-single-policy, :243-247), ``minibatch_mode="flat"`` or
-``epoch_shuffle="each"`` (``--rllib-cadence``), ``micro_batches > 1``
-(the mean of the micro-gradients, one optimizer step, advantages
-normalized per minibatch, :564-587) and ``flat_optimizer``
-(``optax.flatten``: clip and Adam over one vector). On a CUDA device the
-kernels run and a build or launch failure raises; no failure picks a
-route. On the CPU both phases are plain (the kernels' twins or the plain
-learner). ``PPOTrainer.plain_step`` is the same update with the acting
-kernel's twin and, where the learner is a kernel, its twin.
+between its kernel and XLA, never from a failed build or launch:
+``PPOTrainer.backends`` is ``{"rollout": "cuda" | "plain" | "step",
+"grad": "cuda" | "plain"}`` (``make_backends``), the counterpart of JAX
+``PPOTrainer.backends`` (:825). Acting is per step (``"step"``, on every
+device) for the attention torso, ``max_steps % unroll_length != 0`` (an
+episode may end inside a chunk) and the CNN on a global grid wider than
+9x9 (the 11x11 shelves map, whose conv tiles K10 / K11 cannot hold, as
+the JAX VMEM gates route it to XLA). The learner is plain where the JAX
+trainer resolves it to XLA: the attention torso, that CNN, the CNN with
+``policy_groups`` (its fused learner is single-policy, :243-247),
+``minibatch_mode="flat"`` or ``epoch_shuffle="each"``
+(``--rllib-cadence``), ``micro_batches > 1`` (the mean of the
+micro-gradients, one optimizer step, advantages normalized per minibatch,
+:564-587) and ``flat_optimizer`` (``optax.flatten``: clip and Adam over
+one vector). On a CUDA device the kernels run and a build or launch
+failure raises; on the CPU the kernels' phases run their plain twins.
+``PPOTrainer.plain_step`` is the same update with the acting kernel's
+twin and, where the learner is a kernel, its twin.
 
-Ported besides: the MLP and the CNN policy, one shared policy or
+Ported besides: the MLP, CNN and attention policies, one shared policy or
 ``policy_groups`` (:94-113: K independent policies, a
 ``MultiPolicyActorCritic``, each agent acting and learning through its
 group's; K2 / K10 and K3/K4 route each row by its agent's group, the
 bootstrap and last values take each agent's group's), ``model_dtype``
 float32 or bfloat16 (the JAX trainer's, :91-110: the model is built at
-that compute dtype, so the bootstrap and last values take the flax-bf16
-forward; the learner kernels K3/K4 and K11/K12 take
-``matmul_dtype="bfloat16"``; acting in K2/K10 stays float32), entropy
-anneal, adaptive KL, truncation bootstrap, lr anneal, action masking (K2
-floors invalid moves, the loss re-applies the mask), potential shaping
+that compute dtype, so the bootstrap, the last values and the per-step
+phase take the flax-bf16 forward; the learner kernels K3/K4 and K11/K12
+take ``matmul_dtype="bfloat16"``; acting in K2/K10 stays float32), entropy
+anneal, adaptive KL, truncation bootstrap, lr anneal, action masking (the
+invalid moves floored, the loss re-applies the mask), potential shaping
 (GAE reads the shaped reward, the ``reward_per_step`` metric the raw
 one), global observations (the acting kernels build the global view, the
-learners read the wider observation; on the card ``make_train`` raises
-``ValueError`` for an env shape or model widths the kernels cannot hold,
-before any launch). The TPU block knobs (``pallas_block``,
-``pallas_interpret``, ``sgd_block_envs``, ``sgd_rows_per_block``) have no
-counterpart and are ignored; ``rollout_backend``/``grad_backend="xla"``
-raises. Everything else raises ``NotImplementedError`` naming its ROADMAP
-id.
+learners read the wider observation). On the card ``make_train`` raises
+``ValueError`` for an env shape or model widths the kernels of an MLP or
+CNN policy cannot hold (ROADMAP T-5, T-6), whichever route, before any
+launch. The TPU block knobs (``pallas_block``, ``pallas_interpret``,
+``sgd_block_envs``, ``sgd_rows_per_block``) have no counterpart and are
+ignored; ``rollout_backend``/``grad_backend="xla"`` raises; a mesh raises
+``NotImplementedError`` naming ROADMAP M-8.
 """
 
 from __future__ import annotations
@@ -76,22 +86,34 @@ from ..device import resolve_device
 
 from .. import rng
 from ..env import engine
-from ..env.batch import observe_batch, reset_truncated_batch
+from ..env.batch import (observe_batch, reset_truncated_batch,
+                         step_autoreset_batch_any)
 from ..env.state import STATE_FIELDS, EnvState
-from ..kernels.act import check_act_fits, ppo_rollout, ppo_rollout_reference
+from ..kernels.act import (ActRollout, check_act_fits, check_cnn_widths,
+                           ppo_rollout, ppo_rollout_reference)
+from ..kernels.rollout import f32
 from ..kernels.sgd import (check_learner_fits, normalize_adv_env_minibatch,
                            ppo_sgd_phase, ppo_sgd_phase_reference)
 from ..kernels.sgd_cnn import (check_cnn_learner_fits, ppo_cnn_sgd_phase,
                                ppo_cnn_sgd_phase_reference)
-from ..models.policy import (apply, make_model, make_multi_policy_model,
-                             model_precision, params_from_flax)
+from ..kernels.sgd_rnn import zero_where
+from ..models.policy import (FEED_FORWARD, apply, make_model,
+                             make_multi_policy_model, model_precision,
+                             params_from_flax)
 from ..ops.gae import gae
+from ..ops.move import valid_action_mask
+from ..ops.pathing import potential
 from ..ops.ppo_update import (NEG_INF, adaptive_kl_coeff, entropy_coef_at,
                               env_major_minibatches, flat_minibatches,
-                              minibatch_epochs, partition_keys, ppo_losses)
+                              minibatch_epochs, partition_keys, ppo_losses,
+                              sample_action_with_gumbel)
 from ..optim import AdamState, ClipAdam, make_optimizer, opt_state_from_optax
 
 PERM_SALT = 0x5EED  # fold_in salt of the env-state permutation key
+CNN_KERNEL_GRID = 9  # the largest global grid side K10 / K11 hold
+# The route of each phase, in ``backends``: the kernel on the card, its
+# plain twin on the CPU, or (acting only) the per-step phase on any device.
+KERNEL, PLAIN, STEP = "cuda", "plain", "step"
 
 
 class RunnerState(NamedTuple):
@@ -126,7 +148,7 @@ class PPOTrainer(NamedTuple):
     tcfg: TrainConfig
     device: torch.device
     policy_groups: tuple | None = None  # agent -> policy group, or None
-    backends: dict | None = None  # {"rollout", "grad"}: "cuda" or "plain"
+    backends: dict | None = None  # {"rollout", "grad"}: make_backends'
 
 
 def _not_ported(what: str, item: str):
@@ -143,20 +165,61 @@ def check_backend_names(tcfg: TrainConfig) -> None:
                              " configuration (CUDA), else plain PyTorch")
 
 
-def make_backends(device, problems: list) -> dict:
-    """The trainers' ``backends``: on a CUDA device the acting kernel,
-    and the learner kernel unless ``problems`` names an option it does not
-    take; on the CPU both phases plain."""
+def make_backends(device, rollout_problems: list,
+                  grad_problems: list) -> dict:
+    """The trainers' ``backends``, each phase's route. Acting: ``"step"``,
+    the per-step phase (``step_rollout``) on any device, where
+    ``rollout_problems`` names an option or shape the acting kernel does
+    not take (the JAX trainer's XLA scan); else the acting kernel on a
+    CUDA device (``"cuda"``), its plain twin on the CPU (``"plain"``). The
+    learner: its kernel on a CUDA device unless ``grad_problems`` names
+    something, else ``"plain"``."""
     cuda = device.type == "cuda"
-    return {"rollout": "cuda" if cuda else "plain",
-            "grad": "cuda" if cuda and not problems else "plain"}
+    return {"rollout": (STEP if rollout_problems
+                        else KERNEL if cuda else PLAIN),
+            "grad": KERNEL if cuda and not grad_problems else PLAIN}
 
 
-def grad_problems(tcfg: TrainConfig, arch: str, policy_groups) -> list:
-    """The options of ``tcfg`` that no PPO learner kernel computes (the
-    JAX trainer's ``_grad_problems``, :239-288): where this is not empty
-    the SGD phase is plain."""
+def global_cnn_too_wide(env_cfg: EnvConfig, arch: str) -> bool:
+    """The CNN on a global grid wider than ``CNN_KERNEL_GRID`` (the 11x11
+    shelves map): K10's and K11's conv tiles do not fit a block beside the
+    conv kernels there, and the JAX trainer's VMEM gates send both phases
+    to XLA (``train/ppo.py:191-219``, :239-268)."""
+    return (arch == "cnn" and env_cfg.global_obs
+            and env_cfg.height > CNN_KERNEL_GRID)
+
+
+def rollout_problems(env_cfg: EnvConfig, tcfg: TrainConfig,
+                     arch: str) -> list:
+    """What the PPO acting kernels (K2, K10) do not take (the JAX
+    trainer's ``_rollout_problems``, :162-227, less the TPU's VMEM
+    estimates, the only place policy groups enter it, and block lanes):
+    where this is not empty the acting phase is the per-step one."""
     problems = []
+    if arch not in ("mlp", "cnn"):
+        problems.append(f"arch={arch!r} (the acting kernels implement "
+                        "MLP/CNN)")
+    if global_cnn_too_wide(env_cfg, arch):
+        problems.append(f"arch='cnn' with global_obs on a {env_cfg.height}x"
+                        f"{env_cfg.width} map (the CNN kernels hold grids up "
+                        f"to {CNN_KERNEL_GRID}x{CNN_KERNEL_GRID})")
+    if env_cfg.max_steps % tcfg.unroll_length:
+        problems.append("max_steps % unroll_length != 0")
+    return problems
+
+
+def grad_problems(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str,
+                  policy_groups) -> list:
+    """The options of ``tcfg`` and the shape of ``env_cfg`` that no PPO
+    learner kernel computes (the JAX trainer's ``_grad_problems``,
+    :239-288): where this is not empty the SGD phase is plain."""
+    problems = []
+    if arch not in ("mlp", "cnn"):
+        problems.append(f"arch={arch!r} (the learner kernels implement "
+                        "MLP/CNN)")
+    if global_cnn_too_wide(env_cfg, arch):
+        problems.append(f"arch='cnn' with global_obs on a {env_cfg.height}x"
+                        f"{env_cfg.width} map")
     if arch == "cnn" and policy_groups is not None:
         problems.append("policy_groups with arch='cnn' (the CNN learner "
                         "kernel is single-policy)")
@@ -173,8 +236,8 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
     if arch in ("gru", "lstm"):
         raise ValueError(f"arch={arch!r}: the recurrent policies train "
                          "through train.ppo_rnn.make_train_rnn")
-    if arch not in ("mlp", "cnn"):
-        _not_ported(f"arch={arch!r}", "M-7")
+    if arch not in FEED_FORWARD:
+        raise ValueError(f"unknown arch {arch!r}")
     if mesh is not None:
         _not_ported("a mesh", "M-8")
     check_backend_names(tcfg)
@@ -189,9 +252,6 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
     if mb_samples % tcfg.micro_batches:
         raise ValueError(f"micro_batches={tcfg.micro_batches} must divide "
                          f"the minibatch sample count {mb_samples}")
-    if env_cfg.max_steps % tcfg.unroll_length:
-        raise ValueError("max_steps % unroll_length != 0: the boundary "
-                         "reset runs after the chunk")
 
 
 def _tensor(x, device=None) -> torch.Tensor:
@@ -285,6 +345,80 @@ def update_metrics(tcfg: TrainConfig, losses, kl_coeff, roll):
     }, kl_coeff
 
 
+def step_rollout(cfg: EnvConfig, tcfg: TrainConfig, policy: Callable,
+                 state: EnvState, obs: torch.Tensor, T: int,
+                 key: torch.Tensor, carry=None):
+    """The per-step acting phase of the JAX trainers' XLA route
+    (``train/ppo.py:431-476``, ``train/impala.py:279-312``,
+    ``train/ppo_rnn.py:288-332``), step for step: ``key, akey =
+    split(key)``; ``policy(obs, carry) -> (logits, value, new_carry)``;
+    with ``mask_actions`` the invalid moves' logits floored to -1e9;
+    ``sample_action(akey, logits)`` (the gumbel noise of the chunk's
+    ``akey`` chain and the env's draws made in bulk beforehand, as the
+    acting kernels' wrappers make them: the same values); with
+    ``shaping_coef > 0`` the potential before and after the tick;
+    ``step_autoreset_batch`` (the in-step reset: an episode may end on any
+    step); ``done`` the
+    truncation flags over the agents; the shaped reward ``r + c (γ φ'
+    (1 - done) - φ)`` (in the acting kernels' float32 order); with
+    ``bootstrap_truncated`` V of ``ts.final_obs`` (with the pre-reset
+    carry); the carry zeroed where ``done``. ``obs`` are ``state``'s
+    observations. Returns ``(state, roll, last_obs, key, boot, carry)``:
+    ``roll`` an ``ActRollout`` (``raw_reward`` the unshaped reward), ``boot
+    [T, B, A]`` (zeros without the bootstrap), ``carry`` None for a
+    feed-forward ``policy``. Each tick reads ``truncated.any()`` on the
+    host once: the in-step reset's read, which also decides whether the
+    draws are remade."""
+    shaping = tcfg.shaping_coef > 0.0
+    B, A = state.agent_pos.shape[:2]
+    # The chunk's draws in bulk, the values of the per-step splits: the
+    # gumbel noise of ``split(key)``'s chain, and the env draws of each
+    # env's key chain, made anew from the state's keys after a tick where
+    # some env reset (its key then starts a new chain).
+    key, gumbel = rng.batched_gumbel_stream(key, T, (5, B * A))
+    draws, first = rng.chained_step_draws(state.key, cfg, T), 0
+    steps = []
+    with torch.no_grad():
+        for t in range(T):
+            logits, value, new_carry = policy(obs, carry)
+            if tcfg.mask_actions:
+                mask = valid_action_mask(cfg, state.agent_pos)
+                logits = torch.where(mask, logits, NEG_INF)
+            else:
+                mask = torch.ones(logits.shape, dtype=torch.bool,
+                                  device=logits.device)
+            action, log_prob = sample_action_with_gumbel(logits, gumbel[t])
+            if shaping:
+                phi = potential(cfg, state)
+            state, ts, reset = step_autoreset_batch_any(
+                cfg, state, action,
+                rng.StepDraws(*(x[t - first] for x in draws)))
+            if t + 1 < T and reset:
+                draws, first = rng.chained_step_draws(
+                    state.key, cfg, T - t - 1), t + 1
+            done = ts.truncated[:, None].expand_as(ts.reward)
+            reward = ts.reward
+            if shaping:
+                term = f32(tcfg.gamma) * potential(cfg, state)
+                term = term * (1.0 - done.to(torch.float32))
+                term = term - phi
+                reward = reward + f32(tcfg.shaping_coef) * term
+            boot = (policy(ts.final_obs, new_carry)[1]
+                    if tcfg.bootstrap_truncated else torch.zeros_like(value))
+            steps.append((obs, action, log_prob, value, reward,
+                          ts.delivered.sum(-1, dtype=torch.int32),
+                          ts.truncated, mask, ts.reward, boot))
+            carry = (None if new_carry is None
+                     else zero_where(done, new_carry))
+            obs = ts.obs
+    (obs_t, action, log_prob, value, reward, delivered, truncated, mask,
+     raw, boot) = (torch.stack(x) for x in zip(*steps))
+    roll = ActRollout(obs=obs_t, action=action, log_prob=log_prob,
+                      value=value, reward=reward, delivered=delivered,
+                      truncated=truncated, mask=mask, raw_reward=raw)
+    return state, roll, obs, key, boot, carry
+
+
 def ppo_plain_phase(tcfg: TrainConfig, optimizer: ClipAdam, params,
                     opt_state, key, traj, adv, targets, ent_coef, kl_coeff,
                     state_shuffled: bool, policy_groups=None,
@@ -351,12 +485,32 @@ def ppo_plain_phase(tcfg: TrainConfig, optimizer: ClipAdam, params,
     return params, opt_state, key, losses
 
 
+def check_kernel_fits(cfg: EnvConfig, model, device, arch: str,
+                      policy_groups, act_kernel: bool,
+                      grad_kernel: bool) -> None:
+    """On the card, refuse by name what the kernels of an MLP or CNN
+    policy cannot hold, whichever route a phase takes: an (agents, queue)
+    shape outside ``KERNEL_SHAPES`` (T-5) and widths the kernels refuse
+    (T-6), so that no such shape runs plain unseen; then what each phase's
+    kernel, where it runs, cannot hold (K10's and the learners' shared
+    memory; K2 has no such limit). A CNN acting per step has its shape and
+    widths checked alone. The attention torso has no kernel: nothing to
+    refuse."""
+    if arch == "cnn" and not act_kernel:
+        check_cnn_widths(cfg, model, policy_groups)
+    elif arch in ("mlp", "cnn"):
+        check_act_fits(cfg, model, device, policy_groups)
+    if grad_kernel:
+        (check_cnn_learner_fits if arch == "cnn" else check_learner_fits)(
+            model.state_dict(), cfg.obs_dim, device)
+
+
 def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
                device=None, mesh=None,
                policy_groups: tuple | None = None) -> PPOTrainer:
     """Build the trainer for ``tcfg`` on ``device``: the card by default,
     the CPU (plain twins) with ``device="cpu"``. ``policy_groups``: a tuple
-    of one group id ``0..K-1`` per agent, K independent MLP or CNN
+    of one group id ``0..K-1`` per agent, K independent feed-forward
     policies."""
     _check_config(env_cfg, tcfg, arch, mesh)
     device = resolve_device(device)
@@ -367,18 +521,17 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
     if policy_groups is not None:
         policy_groups = tuple(int(g) for g in policy_groups)
     model = build_model(cfg, tcfg, arch, device, policy_groups)
-    # The learner kernels take the default cadence only; the state shuffle
-    # before acting is that cadence's minibatching.
-    problems = grad_problems(tcfg, arch, policy_groups)
+    # Each phase's route, from the configuration alone (JAX's "auto").
+    act_problems = rollout_problems(cfg, tcfg, arch)
+    problems = grad_problems(cfg, tcfg, arch, policy_groups)
     grad_kernel = not problems
-    backends = make_backends(device, problems)
+    backends = make_backends(device, act_problems, problems)
+    stepwise = backends["rollout"] == STEP
     state_shuffle = (tcfg.minibatch_mode == "env"
                      and tcfg.epoch_shuffle == "once")
-    if device.type == "cuda":  # refuse by name what no kernel route holds
-        check_act_fits(cfg, model, device, policy_groups)
-        if grad_kernel:
-            (check_cnn_learner_fits if arch == "cnn" else check_learner_fits)(
-                model.state_dict(), cfg.obs_dim, device)
+    if device.type == "cuda":
+        check_kernel_fits(cfg, model, device, arch, policy_groups,
+                          not stepwise, grad_kernel)
     sgd_fn, sgd_reference = (
         (ppo_cnn_sgd_phase, ppo_cnn_sgd_phase_reference) if arch == "cnn"
         else (ppo_sgd_phase, ppo_sgd_phase_reference))
@@ -388,7 +541,8 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
     sgd_kw = {"matmul_dtype": tcfg.model_dtype}
     if policy_groups is not None:
         sgd_kw["policy_groups"] = policy_groups
-    # The bootstrap and last values' forward: the model's.
+    # The bootstrap and last values' forward, and the per-step phase's:
+    # the model's.
     precision = model_precision(tcfg.model_dtype)
 
     def init(key: torch.Tensor) -> RunnerState:
@@ -401,26 +555,43 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
             kl_coeff=torch.tensor(tcfg.kl_coeff, dtype=torch.float32,
                                   device=device))
 
+    def chunk_acting(rollout_fn):
+        """T steps through ``rollout_fn`` (the acting kernel or its twin),
+        the boundary reset, the bootstrap on the chunk's last step."""
+        def act(params, env_in, obs_in, key):
+            model.load_state_dict(params)
+            new_env, roll, reset_key, key = rollout_fn(
+                cfg, model, env_in, T, key, mask_actions=tcfg.mask_actions,
+                shaping_coef=tcfg.shaping_coef, gamma=tcfg.gamma, arch=arch,
+                policy_groups=policy_groups)
+            env_state, last_obs, _ = reset_truncated_batch(cfg, new_env,
+                                                           reset_key)
+            boot = torch.zeros_like(roll.value)
+            if tcfg.bootstrap_truncated:
+                # done is only ever set on the chunk's last step.
+                boot[-1] = apply(params, observe_batch(cfg, new_env), gids,
+                                 precision=precision)[1]
+            return env_state, roll, last_obs, key, boot
+        return act
+
+    def step_acting(params, env_in, obs_in, key):
+        """The per-step phase (``backends["rollout"] == "step"``)."""
+        def policy(obs, carry):
+            return (*apply(params, obs, gids, precision=precision), None)
+        return step_rollout(cfg, tcfg, policy, env_in, obs_in, T, key)[:5]
+
     def step(rs: RunnerState, act_fn, sgd_fn, mark=None):
         mark = mark or (lambda name: None)
         key = rs.key
-        env_in = rs.env_state
+        env_in, obs_in = rs.env_state, rs.obs
         if state_shuffle:
             perm = rng.permutation(rng.fold_in(key, PERM_SALT), B)
             env_in = EnvState(**{f: getattr(rs.env_state, f)[perm]
                                  for f in STATE_FIELDS})
-        model.load_state_dict(rs.params)
-        new_env, roll, reset_key, key = act_fn(
-            cfg, model, env_in, T, key, mask_actions=tcfg.mask_actions,
-            shaping_coef=tcfg.shaping_coef, gamma=tcfg.gamma, arch=arch,
-            policy_groups=policy_groups)
-        env_state, last_obs, _ = reset_truncated_batch(cfg, new_env,
-                                                       reset_key)
-        boot = torch.zeros_like(roll.value)
-        if tcfg.bootstrap_truncated:
-            # done is only ever set on the chunk's last step.
-            boot[-1] = apply(rs.params, observe_batch(cfg, new_env), gids,
-                             precision=precision)[1]
+            # The chunk rollout (kernel or twin) observes the state itself.
+            obs_in = rs.obs[perm] if stepwise else None
+        env_state, roll, last_obs, key, boot = act_fn(rs.params, env_in,
+                                                      obs_in, key)
         traj = Transition(roll.obs, roll.action, roll.log_prob, roll.value,
                           roll.reward,
                           roll.truncated[:, :, None].expand_as(roll.reward),
@@ -462,11 +633,13 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
         """One update through each phase's route of ``backends`` (plain
         twins on the CPU). ``mark(name)``, if given, is called after the
         acting, GAE and SGD phases (for timing)."""
-        return step(rs, ppo_rollout, sgd_fn if grad_kernel else None, mark)
+        return step(rs, step_acting if stepwise else chunk_acting(ppo_rollout),
+                    sgd_fn if grad_kernel else None, mark)
 
     def plain_step(rs: RunnerState, mark=None):
         """The same update through the plain PyTorch twins."""
-        return step(rs, ppo_rollout_reference,
+        return step(rs, step_acting if stepwise
+                    else chunk_acting(ppo_rollout_reference),
                     sgd_reference if grad_kernel else None, mark)
 
     def train_many(rs: RunnerState, n: int):

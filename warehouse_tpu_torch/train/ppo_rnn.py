@@ -1,50 +1,60 @@
 """The recurrent (GRU / LSTM) PPO actor-learner on one device (counterpart
 of ``warehouse_tpu/train/ppo_rnn.py``, single-device path).
 
-One update, draw for draw as the JAX trainer with its acting kernel
-(``rollout_backend="pallas"``, :242-286) and, per phase, its learner
-kernel (:337-362) or its XLA learner (:364-440):
+One update, draw for draw as the JAX trainer with, per phase, its kernel
+(acting ``rollout_backend="pallas"``, :242-286; learning :337-362) or its
+XLA route (acting :288-332; learning :364-440):
 
-1. with ``epoch_shuffle="once"``, permute the env axis of the state AND of
-   the carry with ``permutation(fold_in(key, 0x5EED), B)`` (:248-254); the
-   (permuted) carry ``h0`` is what the rollout and the replay both start
-   from;
-2. act T steps through ``kernels.ppo_rnn_rollout`` (K7), then the boundary
-   reset of the env (``reset_truncated_batch``) and of the carry, zeroed
-   where the chunk truncated (:270-275);
-3. the last value from ``(last_obs, last_h)``, GAE;
+1. with ``epoch_shuffle="once"``, permute the env axis of the state, its
+   observations AND the carry with ``permutation(fold_in(key, 0x5EED),
+   B)`` (:248-254); the (permuted) carry ``h0`` is what the rollout and
+   the replay both start from;
+2. act T steps: through ``kernels.ppo_rnn_rollout`` (K7), then the
+   boundary reset of the env (``reset_truncated_batch``) and of the carry,
+   zeroed where the chunk truncated (:270-275); or, where K7 does not take
+   the configuration (``rollout_problems_rnn``: ``global_obs``,
+   ``shaping_coef``, ``bootstrap_truncated``, ``max_steps %
+   unroll_length != 0``), through the per-step phase
+   ``train.ppo.step_rollout`` (the JAX XLA scan): the model at its own
+   dtype on the runner state's carry, the potential shaping, the in-step
+   reset, V of ``final_obs`` with the pre-reset carry, the carry zeroed
+   where ``done``;
+3. the last value from ``(last_obs, last_h)``, GAE (with the bootstrap
+   values where ``bootstrap_truncated``);
 4. the sequence-replay SGD phase: where the learner kernel takes the
    configuration, advantages normalized per env minibatch and
    ``kernels.ppo_rnn_sgd_phase`` (K8) from ``h0``, with the per-step lr
    and bias-correction rows; else (``epoch_shuffle="each"``,
-   ``flat_optimizer``; ROADMAP M-4) the plain phase of the JAX XLA route:
-   env-axis sequence minibatches, permuted per epoch with "each", replayed
-   from their slice of ``h0`` through ``models.policy.apply_rnn`` at the
-   model's precision, advantages normalized in the loss, ``optim.py``'s
-   step (flat or not);
+   ``flat_optimizer``, and an episode that can end inside a chunk, which
+   K8's replay has no carry reset for) the plain phase of the JAX XLA
+   route: env-axis sequence minibatches, permuted per epoch with "each",
+   replayed from their slice of ``h0`` through ``models.policy.apply_rnn``
+   at the model's precision with the carry zeroed after each ``done``,
+   advantages normalized in the loss, ``optim.py``'s step (flat or not);
 5. the scaffold's key splits, the metrics and the adaptive KL coefficient
    (:441-470).
 
 ``PPORNNTrainer.backends`` names each phase's route as the PPO trainer's
-does. The replay has no carry reset inside a chunk, so an episode may only
-end on a chunk's last step: ``max_steps % unroll_length != 0`` is a
-``ValueError`` (:117, :138). On a CUDA device the kernels run and a build
-or launch failure raises; on the CPU both phases are plain.
-``plain_step`` is the same update through the plain twins on any device.
+does (``train.ppo.make_backends``: ``"step"`` for the per-step acting).
+Routes follow from the configuration alone. On a CUDA device the kernels
+run and a build or launch failure raises, and an (agents, queue) shape or
+a width K7 / K8 refuse (ROADMAP T-5, T-6) is refused by name whatever the
+route; on the CPU the kernels' phases are plain. ``plain_step`` is the
+same update through the plain twins on any device.
 
 Ported: one shared policy, ``epoch_shuffle`` "once" and "each",
 ``flat_optimizer``, entropy anneal, adaptive KL, lr anneal, action
-masking, ``model_dtype`` float32 or bfloat16; ``micro_batches`` is
-accepted and has no effect, as in the JAX trainer, which never reads it.
-With bfloat16 (:66-70, :106-110, :271-274, :504-508) the model is built at
-that compute dtype and the runner state's carry is bf16: the rollout's
-carry is rounded back to bf16 after the boundary reset of every chunk, K7
-and the learner kernels read it cast up to float32, the last value (and
-the plain phase's replay) is the flax-bf16 forward from it, and the
-learner kernels K8/K9 take ``matmul_dtype="bfloat16"``; acting in K7 stays
-float32. ``NotImplementedError``, naming the ROADMAP id: ``global_obs``,
-``shaping_coef``, ``bootstrap_truncated`` (M-4b: the plain acting phase
-they need has no twin yet), a mesh.
+masking, global observations, potential shaping, the truncation
+bootstrap, any ``unroll_length``, ``model_dtype`` float32 or bfloat16;
+``micro_batches`` is accepted and has no effect, as in the JAX trainer,
+which never reads it. With bfloat16 (:66-70, :106-110, :271-274,
+:504-508) the model is built at that compute dtype and the runner state's
+carry is bf16: K7's carry is rounded back to bf16 after the boundary reset
+of every chunk, K7 and the learner kernels read it cast up to float32,
+the per-step phase and the last value (and the plain phase's replay) run
+the flax-bf16 forward on it, and the learner kernels K8/K9 take
+``matmul_dtype="bfloat16"``; acting in K7 stays float32. A mesh raises
+``NotImplementedError`` naming ROADMAP M-8.
 """
 
 from __future__ import annotations
@@ -58,19 +68,20 @@ from ..config import EnvConfig, TrainConfig
 from ..device import resolve_device
 from ..env.batch import reset_truncated_batch
 from ..env.state import STATE_FIELDS, EnvState
-from ..kernels.act_rnn import ppo_rnn_rollout, ppo_rnn_rollout_reference
-from ..kernels.rollout import check_kernel_shape
+from ..kernels.act_rnn import (check_act_rnn_fits, ppo_rnn_rollout,
+                               ppo_rnn_rollout_reference)
 from ..kernels.sgd import normalize_adv_env_minibatch
-from ..kernels.sgd_rnn import (ppo_rnn_sgd_phase, ppo_rnn_sgd_phase_reference,
-                               replay_loss_fn)
+from ..kernels.sgd_rnn import (check_rnn_learner_fits, ppo_rnn_sgd_phase,
+                               ppo_rnn_sgd_phase_reference, replay_loss_fn,
+                               zero_where)
 from ..models.policy import (apply_rnn, initial_carry, make_model,
                              model_precision, params_from_flax, torch_dtype)
 from ..ops.gae import gae
 from ..ops.ppo_update import entropy_coef_at, minibatch_epochs, partition_keys
 from ..optim import AdamState, ClipAdam, make_optimizer, opt_state_from_optax
-from .ppo import (PERM_SALT, Transition, _not_ported, _tensor,
+from .ppo import (PERM_SALT, STEP, Transition, _not_ported, _tensor,
                   check_backend_names, init_parts, make_backends, run_many,
-                  update_metrics)
+                  step_rollout, update_metrics)
 
 
 class RunnerStateRNN(NamedTuple):
@@ -95,17 +106,38 @@ class PPORNNTrainer(NamedTuple):
     tcfg: TrainConfig
     arch: str
     device: torch.device
-    backends: dict | None = None  # {"rollout", "grad"}: "cuda" or "plain"
+    backends: dict | None = None  # {"rollout", "grad"}: make_backends'
 
 
-def grad_problems_rnn(tcfg: TrainConfig) -> list:
+def rollout_problems_rnn(env_cfg: EnvConfig, tcfg: TrainConfig) -> list:
+    """What the recurrent acting kernel K7 does not take (the JAX
+    trainer's ``_rollout_problems``, :101-125, less the TPU's block
+    lanes): where this is not empty the acting phase is the per-step
+    one."""
+    problems = []
+    if env_cfg.global_obs:
+        problems.append("global_obs")
+    if tcfg.shaping_coef != 0.0:
+        problems.append("shaping_coef")
+    if tcfg.bootstrap_truncated:
+        problems.append("bootstrap_truncated")
+    if env_cfg.max_steps % tcfg.unroll_length:
+        problems.append("max_steps % unroll_length != 0")
+    return problems
+
+
+def grad_problems_rnn(env_cfg: EnvConfig, tcfg: TrainConfig) -> list:
     """The options that the recurrent learner kernel does not compute (the
-    JAX trainer's ``_grad_problems``, :162-192)."""
+    JAX trainer's ``_grad_problems``, :127-150): K8 replays a chunk with no
+    carry reset inside it, so an episode that ends before the chunk's last
+    step sends the learner to the plain replay, which resets it."""
     problems = []
     if tcfg.epoch_shuffle != "once":
         problems.append("epoch_shuffle != 'once'")
     if tcfg.flat_optimizer:
         problems.append("flat_optimizer")
+    if env_cfg.max_steps % tcfg.unroll_length:
+        problems.append("max_steps % unroll_length != 0")
     return problems
 
 
@@ -113,24 +145,14 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
     if arch not in ("gru", "lstm"):
         raise ValueError(f"make_train_rnn: arch={arch!r}; the recurrent "
                          "trainer takes 'gru' or 'lstm'")
-    for what, off, item in (
-            ("a mesh", mesh is None, "M-8"),
-            ("shaping_coef > 0", tcfg.shaping_coef == 0.0, "M-4b"),
-            ("global_obs", not env_cfg.global_obs, "M-4b"),
-            ("bootstrap_truncated", not tcfg.bootstrap_truncated, "M-4b")):
-        if not off:
-            _not_ported(f"recurrent PPO with {what}", item)
+    if mesh is not None:
+        _not_ported("recurrent PPO with a mesh", "M-8")
     check_backend_names(tcfg)
     if tcfg.num_envs % tcfg.num_minibatches:
         raise ValueError(
             "recurrent PPO minibatches slice the env axis: num_envs="
             f"{tcfg.num_envs} must divide into {tcfg.num_minibatches} "
             "minibatches")
-    if env_cfg.max_steps % tcfg.unroll_length:
-        raise ValueError(
-            "max_steps % unroll_length != 0: the sequence replay has no "
-            "carry reset inside a chunk, so an episode may only end on a "
-            "chunk's last step")
 
 
 def _carry_map(fn, carry):
@@ -173,13 +195,15 @@ def rnn_plain_phase(tcfg: TrainConfig, optimizer: ClipAdam, params,
     ``h0``, contiguous when the state was shuffled before acting, else
     permuted by ``permutation(pkey, B)`` per partition (one partition per
     update or per epoch, ``epoch_shuffle``); the T-step replay through
-    ``apply_rnn`` at ``precision``, the PPO loss with advantages
-    normalized over the minibatch, ``optimizer``'s step. ``adv`` are GAE's
-    raw advantages. Returns ``(params, opt_state, key, losses)``."""
+    ``apply_rnn`` at ``precision``, the carry zeroed after each step where
+    ``traj.done`` (an episode that ended inside the chunk), the PPO loss
+    with advantages normalized over the minibatch, ``optimizer``'s step.
+    ``adv`` are GAE's raw advantages. Returns ``(params, opt_state, key,
+    losses)``."""
     B, M, E = traj.obs.shape[1], tcfg.num_minibatches, tcfg.ppo_epochs
     w = B // M
     fields = (traj.obs, traj.action, traj.log_prob, traj.value, adv,
-              targets, traj.mask)
+              targets, traj.mask, traj.done)
 
     def partition(pkey):
         perm = None if state_shuffled else rng.permutation(pkey, B)
@@ -219,13 +243,17 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
     dtype = tcfg.model_dtype
     model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
                        device=device, dtype=dtype)
-    problems = grad_problems_rnn(tcfg)
+    problems = grad_problems_rnn(cfg, tcfg)
     grad_kernel = not problems
-    backends = make_backends(device, problems)
+    backends = make_backends(device, rollout_problems_rnn(cfg, tcfg),
+                             problems)
+    stepwise = backends["rollout"] == STEP
     state_shuffle = tcfg.epoch_shuffle == "once"
     precision = model_precision(dtype)
-    if device.type == "cuda":  # the env kernels' (agents, queue) shapes
-        check_kernel_shape(cfg)
+    if device.type == "cuda":  # the kernels' (agents, queue) shapes, widths
+        check_act_rnn_fits(cfg, model.state_dict())
+        if grad_kernel:
+            check_rnn_learner_fits(model.state_dict(), cfg.obs_dim, device)
 
     def init(key: torch.Tensor) -> RunnerStateRNN:
         params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key)
@@ -237,43 +265,56 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
             kl_coeff=torch.tensor(tcfg.kl_coeff, dtype=torch.float32,
                                   device=device))
 
+    def chunk_acting(rollout_fn):
+        """T steps of K7 (or its twin) from the carry cast to float32, the
+        boundary reset of the env and of the carry (zeroed where the chunk
+        truncated, back in the runner state's dtype)."""
+        def act(params, env_in, obs_in, h0, key):
+            new_env, roll, reset_key, key, new_carry = rollout_fn(
+                cfg, params, env_in, _carry_map(lambda x: x.float(), h0), T,
+                key, mask_actions=tcfg.mask_actions)
+            env_state, last_obs, done_b = reset_truncated_batch(
+                cfg, new_env, reset_key)
+            last_h = _carry_map(lambda x: x.to(torch_dtype(dtype)),
+                                zero_where(done_b[:, None], new_carry))
+            return (env_state, roll, last_obs, key,
+                    torch.zeros_like(roll.value), last_h)
+        return act
+
+    def step_acting(params, env_in, obs_in, h0, key):
+        """The per-step phase (``backends["rollout"] == "step"``): the
+        model at its own dtype, the carry in the runner state's."""
+        def policy(obs, carry):
+            return apply_rnn(params, obs, carry, precision=precision)
+        return step_rollout(cfg, tcfg, policy, env_in, obs_in, T, key, h0)
+
     def step(rs: RunnerStateRNN, act_fn, sgd_fn, mark=None):
         mark = mark or (lambda name: None)
         key = rs.key
-        env_in, h0 = rs.env_state, rs.carry
+        env_in, obs_in, h0 = rs.env_state, rs.obs, rs.carry
         if state_shuffle:
             perm = rng.permutation(rng.fold_in(key, PERM_SALT), B)
             env_in = EnvState(**{f: getattr(rs.env_state, f)[perm]
                                  for f in STATE_FIELDS})
+            # The chunk rollout (kernel or twin) observes the state itself.
+            obs_in = rs.obs[perm] if stepwise else None
             h0 = _carry_map(lambda x: x[perm], rs.carry)
-        # K7 and the learner read the carry in float32 (a bf16 one cast up).
-        h0_f32 = _carry_map(lambda x: x.float(), h0)
-        new_env, roll, reset_key, key, new_carry = act_fn(
-            cfg, rs.params, env_in, h0_f32, T, key,
-            mask_actions=tcfg.mask_actions)
-        env_state, last_obs, done_b = reset_truncated_batch(cfg, new_env,
-                                                            reset_key)
-        # The carry restarts with the episode, and goes back to the runner
-        # state's dtype (rounded to bf16 at bfloat16).
-        last_h = _carry_map(
-            lambda x: torch.where(done_b[:, None, None],
-                                  torch.zeros((), dtype=x.dtype,
-                                              device=x.device), x).to(
-                                      torch_dtype(dtype)),
-            new_carry)
+        env_state, roll, last_obs, key, boot, last_h = act_fn(
+            rs.params, env_in, obs_in, h0, key)
         traj = Transition(roll.obs, roll.action, roll.log_prob, roll.value,
                           roll.reward,
                           roll.truncated[:, :, None].expand_as(roll.reward),
-                          roll.mask, torch.zeros_like(roll.value))
+                          roll.mask, boot)
         mark("acting")
 
         with torch.no_grad():
             _, last_value, _ = apply_rnn(rs.params, last_obs, last_h,
                                          precision=precision)
         adv, targets = gae(traj.reward, traj.value, traj.done, last_value,
-                           tcfg.gamma, tcfg.gae_lambda, None)
+                           tcfg.gamma, tcfg.gae_lambda,
+                           boot if tcfg.bootstrap_truncated else None)
         ent_coef = entropy_coef_at(tcfg, rs.update_idx)
-        if sgd_fn is None:  # the plain learner phase (M-4)
+        if sgd_fn is None:  # the plain learner phase
             mark("gae")
             params, opt_state, key, losses = rnn_plain_phase(
                 tcfg, optimizer, rs.params, rs.opt_state, key, traj, adv,
@@ -282,8 +323,10 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
             adv_n = normalize_adv_env_minibatch(adv, M)
             rows = optimizer.step_rows(rs.opt_state.count, n_steps, device)
             mark("gae")
+            # K8 and its twin read the carry in float32 (a bf16 one cast up).
             params, opt_state, losses = sgd_fn(
-                rs.params, rs.opt_state, traj, adv_n, targets, h0_f32, *rows,
+                rs.params, rs.opt_state, traj, adv_n, targets,
+                _carry_map(lambda x: x.float(), h0), *rows,
                 ent_coef, rs.kl_coeff, num_epochs=tcfg.ppo_epochs,
                 num_minibatches=M, clip_eps=tcfg.clip_eps,
                 value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
@@ -300,15 +343,17 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
         return new, metrics
 
     def train_step(rs: RunnerStateRNN, mark=None):
-        """One update through the kernels (plain twins on the CPU).
-        ``mark(name)``, if given, is called after the acting, GAE and SGD
-        phases (for timing)."""
-        return step(rs, ppo_rnn_rollout,
+        """One update through each phase's route of ``backends`` (plain
+        twins on the CPU). ``mark(name)``, if given, is called after the
+        acting, GAE and SGD phases (for timing)."""
+        return step(rs, step_acting if stepwise
+                    else chunk_acting(ppo_rnn_rollout),
                     ppo_rnn_sgd_phase if grad_kernel else None, mark)
 
     def plain_step(rs: RunnerStateRNN, mark=None):
         """The same update through the plain PyTorch twins."""
-        return step(rs, ppo_rnn_rollout_reference,
+        return step(rs, step_acting if stepwise
+                    else chunk_acting(ppo_rnn_rollout_reference),
                     ppo_rnn_sgd_phase_reference if grad_kernel else None,
                     mark)
 
