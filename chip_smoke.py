@@ -301,14 +301,44 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    envs, 3), ``attn_train`` (config-4 PPO with the attention torso, 5) and
    ``impala_cnn_train`` (3); each prints its ``backends``, its update's
    split by the trainer's marks, its trained env-steps/s, and serves the
-   trained policy.
+   trained policy;
+39. ``acting_split``: one update each of config-4 ``train``,
+   ``impala_train`` and ``ragged_train`` after 2 of warm-up, under
+   ``utils.profiling.trace``: each piece the trainers annotate (the draw
+   streams, the acting kernel's launch, the boundary reset and its host
+   read, ``load_state_dict``, the permutation, the per-step phase's policy
+   and tick with its host read, the bootstrap and last-value forwards, GAE,
+   the learner, the metrics) with its host ms, device ms, ``aten::`` calls
+   and kernel launches read from the trace file, the update's host time and
+   the share the pieces cover (at least 0.9), and the device work still
+   queued when ``train_step`` returns;
+40. ``invariants``: ``utils.debug.check_state_invariants`` true on every env
+   after a K1 episode at B = 131072 and after a K2 chunk at config 4, false
+   on the one env of a copy where two agents stand on one cell;
+41. ``dict_api``: the dict-API wrapper of ``registry.make_env(
+   "warehouse-medium")`` on the card for one 128-step episode under
+   ``greedy_bfs`` (its env-steps/s and ANSI render), then one served by
+   ``Policy.compute_actions_dict`` from a checkpoint that 3 config-4 updates
+   write; each episode's returns and deliveries equal to
+   ``evaluate_policy``'s on the same env key and policy;
+42. ``sweep`` (main path): ``train.sweep.run_sweep`` over 2 learning rates x
+   2 seeds at 256 envs, T = 16, 10 updates (K2 + K3 / K4), each seed's
+   metrics bit-equal to a standalone ``make_train(...).train_many`` from
+   its key and to its row; then ``run_asha`` on the same grid with rungs 2,
+   4; every row's ``backends`` the kernels';
+43. ``pbt`` (main path; no kernel may launch): ``train.pbt.run_pbt`` with 4
+   members, perturb interval 3, 2 intervals, 256 envs (plain on the card,
+   as the JAX PBT reaches no Pallas kernel); after the exploit every
+   replaced member's params and Adam moments bit-equal to its source's, its
+   learning rate the source's x 1.2 or / 1.2, or a resample from the space.
+   Then the wall seconds of items 39-43 and their share of the script's.
 
 Every main path but ``shelves_cnn_groups_train``, ``rllib_cadence_train``,
 ``cnn_per_agent_train`` and ``cnn_global_groups_train`` (acting kernel,
-plain learner) and the per-step paths of item 38 (``{"rollout": "step",
-...}``) reports ``backends`` ``{"rollout": "cuda", "grad": "cuda"}``. The
-checks (1-6, 11, 12, 14, 15, 17, 20, 24, 26, 29, 30, 35-37) run before the
-main paths.
+plain learner), the per-step paths of item 38 (``{"rollout": "step",
+...}``) and PBT reports ``backends`` ``{"rollout": "cuda", "grad":
+"cuda"}``. The checks (1-6, 11, 12, 14, 15, 17, 20, 24, 26, 29, 30, 35-37,
+39-41) run before the main paths.
 
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit. The kernels' launch counts are zeroed just before each
@@ -343,10 +373,12 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from warehouse_tpu_torch import (TrainConfig, large_config, medium_config,
-                                 rng, shelves_config, small_config)
+                                 registry, rng, shelves_config, small_config)
+from warehouse_tpu_torch.baselines.greedy import greedy_bfs_actions
 from warehouse_tpu_torch.env.batch import (observe_batch, reset_batch,
                                            reset_truncated_batch,
                                            step_autoreset_batch, step_batch)
@@ -370,8 +402,9 @@ from warehouse_tpu_torch.serve import Policy, write_policy_meta
 from warehouse_tpu_torch.train import (ImpalaTransition, Transition,
                                        make_train, make_train_impala,
                                        make_train_rnn)
-from warehouse_tpu_torch.train import checkpoint
+from warehouse_tpu_torch.train import checkpoint, pbt, sweep
 from warehouse_tpu_torch.train.ppo import step_rollout
+from warehouse_tpu_torch.utils import check_state_invariants, profiling
 
 SEED = 0
 TOL = 1e-4  # MLP outputs: f32 sums in another order, tanh/exp/log ulps
@@ -3547,6 +3580,377 @@ def step_route_paths(dev, cfg, shelves, shelves_g, medium_g):
     return out
 
 
+# ---- the utilities, the dict API and the sweeps (ROADMAP M-6, M-5, M-9) --
+
+# The pieces of an update that the trainers annotate (utils.profiling), as
+# acting_split reads them from one update's trace.
+SPLIT_PIECES = ("permutation", "load_state_dict", "draws", "act_kernel",
+                "boundary_reset", "boundary_reset_host_read", "bootstrap",
+                "last_value", "gae", "learner", "metrics", "policy", "tick",
+                "tick_host_read")
+SPLIT_MIN_SHARE = 0.9   # of an update's host time the pieces must cover
+SWEEP_B, SWEEP_UPDATES = 256, 10  # each sweep trial: envs, updates a seed
+SWEEP_GRID = {"learning_rate": [3e-4, 1e-3]}
+SWEEP_SEEDS, ASHA_RUNGS = 2, (2, 4)
+PBT_SPACE = {"learning_rate": {"loguniform": [1e-4, 1e-2]},
+             "entropy_coef": {"uniform": [0.005, 0.02]}}
+PBT_POPULATION, PBT_INTERVAL, PBT_INTERVALS = 4, 3, 2
+DICT_SEED = 11          # the dict-API episodes' env key: fold_in(PRNGKey, 0)
+MODULE_SECONDS = {}     # each of these phases' wall seconds
+
+
+@functools.lru_cache(maxsize=None)
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    return nvidia_smi()
+
+
+def timed_phase(name):
+    """Records the decorated phase's wall seconds in MODULE_SECONDS."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                MODULE_SECONDS[name] = time.perf_counter() - t0
+        return run
+    return wrap
+
+
+@timed_phase("acting_split")
+def acting_split(dev, cfg):
+    """One update of config-4 ``train``, ``impala_train`` and
+    ``ragged_train`` (the per-step route) after 2 of warm-up, under
+    ``utils.profiling.trace``: each annotated piece's host ms, device ms,
+    ``aten::`` calls and kernel launches from the trace file, the update's
+    host time, the share the pieces cover (at least SPLIT_MIN_SHARE) and
+    the device work still queued when ``train_step`` returns."""
+    paths = {
+        "train": (make_train, TrainConfig(num_updates=TRAIN_SCHEDULE)),
+        "impala_train": (make_train_impala, TrainConfig(
+            num_updates=IMPALA_SCHEDULE, impala_rmsprop=False)),
+        "ragged_train": (make_train, TrainConfig(
+            num_updates=TRAIN_SCHEDULE, unroll_length=RAGGED_UNROLL))}
+    for name, (make, tcfg) in paths.items():
+        tr = make(cfg, tcfg, device=dev)
+        rs = tr.init(rng.prng_key(0, dev))
+        for _ in range(2):
+            rs, _ = tr.train_step(rs)
+        with tempfile.TemporaryDirectory() as d:
+            torch.cuda.synchronize()
+            with profiling.trace(d, dev):
+                t0 = time.perf_counter()
+                with torch.profiler.record_function("update"):
+                    rs, m = tr.train_step(rs)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            path = profiling.trace_file(d)
+            size = os.path.getsize(path)
+            require(size > 0, f"acting_split {name}: an empty trace")
+            split = profiling.range_split(path, SPLIT_PIECES, "update")
+        require(all(bool(torch.isfinite(v)) for v in m.values()),
+                f"acting_split {name}: non-finite metrics")
+        emit({"phase": "acting_split", "path": name, "card": card(),
+              "backends": tr.backends, "B": tcfg.num_envs,
+              "T": tcfg.unroll_length, "update_host_ms": (t1 - t0) * 1e3,
+              "drain_ms": (t2 - t1) * 1e3, "trace_file_bytes": size,
+              "min_share": SPLIT_MIN_SHARE, **split})
+        require(split["covered_share"] >= SPLIT_MIN_SHARE,
+                f"acting_split {name}: the pieces cover "
+                f"{split['covered_share']:.3f} of the update")
+
+
+@timed_phase("invariants")
+def invariants_check(dev, cfg, model):
+    """``utils.debug.check_state_invariants`` on every env after a K1
+    episode at B = 131072 and after a K2 chunk at config 4; false on the one
+    env of a copy where two agents stand on one cell."""
+    state, _ = reset_envs(cfg, EPISODE_B, SEED + 20, dev)
+    final, _, _ = rollout.greedy_rollout(cfg, state, cfg.max_steps)
+    k1 = check_state_invariants(cfg, final)
+    require(k1.shape == (EPISODE_B,) and bool(k1.all()),
+            f"invariants: {int((~k1).sum())} envs broken after a K1 episode")
+    state, _ = reset_envs(cfg, SLICE_B, SEED + 21, dev)
+    new, _, _, _ = act.ppo_rollout(cfg, model, state, SLICE_T,
+                                   rng.prng_key(SEED + 22, dev))
+    k2 = check_state_invariants(cfg, new)
+    require(bool(k2.all()),
+            f"invariants: {int((~k2).sum())} envs broken after a K2 chunk")
+    broken = new.replace(agent_pos=new.agent_pos.clone())
+    broken.agent_pos[7, 1] = broken.agent_pos[7, 0]
+    bad = check_state_invariants(cfg, broken)
+    require(not bool(bad[7]) and int(bad.sum()) == SLICE_B - 1,
+            "invariants: two agents on one cell went unseen")
+    emit({"phase": "invariants", "k1_envs": EPISODE_B, "k1_ok": int(k1.sum()),
+          "k2_envs": SLICE_B, "k2_ok": int(k2.sum()),
+          "broken_copy_ok": int(bad.sum())})
+
+
+def wrapper_episode(env, act_fn, key):
+    """One episode of the dict-API wrapper from the env key ``key``:
+    per-agent float32 returns summed as ``evaluate_policy`` sums them, the
+    deliveries and the steps."""
+    obs, _ = env.reset(options={"key": key})
+    ret = np.zeros((1, env.cfg.num_agents), np.float32)
+    deliveries, steps = 0, 0
+    while True:
+        obs, rew, term, trunc, info = env.step(act_fn(obs))
+        ret += np.array([[rew[a] for a in env.possible_agents]], np.float32)
+        deliveries += sum(info[a]["delivered"] for a in env.possible_agents)
+        steps += 1
+        if trunc["__all__"] or term["__all__"]:
+            return ret, deliveries, steps
+
+
+def same_episode(what, ret, deliveries, ev):
+    """The wrapper's episode against ``evaluate_policy``'s one episode."""
+    got = {"mean_agent_return": float(ret.mean()),
+           "mean_episode_return": float(ret.sum(-1).mean()),
+           "mean_deliveries_per_episode": float(deliveries)}
+    require(all(got[k] == ev[k] for k in got),
+            f"dict_api {what}: {got} against evaluate_policy's {ev}")
+    return got
+
+
+@timed_phase("dict_api")
+def dict_api_check(dev, cfg):
+    """The dict API on the card (nothing of gymnasium, pettingzoo or PIL):
+    a 128-step episode of ``registry.make_env("warehouse-medium")`` under
+    ``greedy_bfs``, its ANSI render and env-steps/s; a checkpoint that 3
+    config-4 updates write, served by ``Policy.compute_actions_dict`` for
+    an episode; each episode's returns equal to ``evaluate_policy``'s on the
+    same env key and policy."""
+    env = registry.make_env("warehouse-medium", device=dev)
+    key = rng.fold_in(rng.prng_key(DICT_SEED, dev), 0)
+
+    def bfs(obs):
+        acts = greedy_bfs_actions(cfg, env.state)[0].cpu().numpy()
+        return {a: int(acts[i]) for i, a in enumerate(env.possible_agents)}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ret, deliveries, steps = wrapper_episode(env, bfs, key)
+    wall = time.perf_counter() - t0
+    require(steps == cfg.max_steps, f"dict_api: {steps} steps")
+    bfs_ev = same_episode("greedy_bfs", ret, deliveries, evaluate_policy(
+        cfg, policy_fn_for("greedy_bfs", cfg), 1, seed=DICT_SEED,
+        device=dev))
+    text = env.render()
+    require(len(text.splitlines()) == cfg.height + 3
+            and text.startswith(f"t={cfg.max_steps}"), "dict_api: render")
+
+    tcfg = TrainConfig(num_updates=TRAIN_SCHEDULE)
+    tr = make_train(cfg, tcfg, device=dev)
+    rs, _ = tr.train_many(tr.init(rng.prng_key(0, dev)), 3)
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d, 3, rs)
+        write_policy_meta(d, cfg, tcfg, arch="mlp")
+        policy = Policy.from_checkpoint(d, device=dev)
+        ev = evaluate_policy(cfg, checkpoint_policy_fn(cfg, d, device=dev)[0],
+                             1, seed=DICT_SEED, device=dev)
+    ret, deliveries, _ = wrapper_episode(
+        env, lambda obs: policy.compute_actions_dict(env, obs)[0], key)
+    ckpt_ev = same_episode("checkpoint", ret, deliveries, ev)
+    emit({"phase": "dict_api", "env": "warehouse-medium", "steps": steps,
+          "env_steps_per_sec": steps / wall, "episode_s": wall,
+          "greedy_bfs": bfs_ev, "checkpoint": ckpt_ev,
+          "render_lines": len(text.splitlines())})
+
+
+@timed_phase("sweep")
+def sweep_phase(dev, cfg, out):
+    """``run_sweep`` over 2 learning rates x 2 seeds at 256 envs, T = 16,
+    10 updates (K2 + K3 on the card), then ``run_asha`` on the same grid
+    with rungs 2, 4; each run's stacked metrics, as its trials train, go
+    into ``out`` for ``sweep_check``."""
+    tcfg = TrainConfig(num_envs=SWEEP_B, unroll_length=SLICE_T,
+                       num_updates=SWEEP_UPDATES)
+    train_seeds = sweep._train_seeds
+    calls = []
+
+    def recorded(trainer, states, n):
+        states, metrics = train_seeds(trainer, states, n)
+        calls.append((trainer.tcfg, n, metrics))
+        return states, metrics
+
+    sweep._train_seeds = recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["rows"], out["best"] = sweep.run_sweep(
+            cfg, tcfg, SWEEP_GRID, num_seeds=SWEEP_SEEDS,
+            last_k=SWEEP_UPDATES, device=dev)
+        out["sweep_s"] = time.perf_counter() - t0
+        out["sweep_calls"], calls = calls, []
+        t1 = time.perf_counter()
+        out["asha_rows"], out["asha_best"] = sweep.run_asha(
+            cfg, tcfg, SWEEP_GRID, rung_updates=ASHA_RUNGS,
+            num_seeds=SWEEP_SEEDS, device=dev)
+        out["asha_s"] = time.perf_counter() - t1
+        out["asha_calls"] = calls
+    finally:
+        sweep._train_seeds = train_seeds
+
+
+def replay_seeds(dev, cfg, calls, run):
+    """Each recorded ``(tcfg, n, metrics)`` call of a sweep's run against
+    standalone ``make_train(...).train_many`` runs from each seed's key
+    ``fold_in(PRNGKey(tcfg.seed), s)``: one trainer and one state per seed for each tcfg, continued call after
+    call as ASHA's rungs continue them; every metric bit-equal."""
+    standalone = {}
+    for tcfg, n, metrics in calls:
+        if tcfg.to_json() not in standalone:
+            tr = make_train(cfg, tcfg, device=dev)
+            base = rng.prng_key(tcfg.seed, dev)
+            standalone[tcfg.to_json()] = (tr, [
+                tr.init(rng.fold_in(base, s)) for s in range(SWEEP_SEEDS)])
+        tr, states = standalone[tcfg.to_json()]
+        for s in range(SWEEP_SEEDS):
+            states[s], m = tr.train_many(states[s], n)
+            require(m.keys() == metrics.keys() and all(
+                np.array_equal(metrics[k][s], m[k].cpu().numpy())
+                for k in m),
+                f"sweep: {run}'s seed {s} at lr {tcfg.learning_rate} differs "
+                "from a standalone run from its key")
+    return len(calls)
+
+
+@timed_phase("sweep_check")
+def sweep_check(dev, cfg, out):
+    """After the counted run: every seed's metrics of ``run_sweep`` and of
+    each ``run_asha`` rung bit-equal to standalone ``make_train(...)
+    .train_many`` runs from its key, and each ``run_sweep`` row's score
+    and final values those of the standalone run."""
+    require(replay_seeds(dev, cfg, out["sweep_calls"], "run_sweep")
+            == len(sweep._grid_points(SWEEP_GRID)),
+            "sweep: run_sweep did not train every point once")
+    require(replay_seeds(dev, cfg, out["asha_calls"], "run_asha")
+            == len(sweep._grid_points(SWEEP_GRID)) + 1,
+            "sweep: run_asha did not train every point, then one survivor")
+    for tcfg, _, metrics in out["sweep_calls"]:
+        for s in range(SWEEP_SEEDS):
+            row = next(r for r in out["rows"] if r.get("overrides")
+                       == {"learning_rate": tcfg.learning_rate}
+                       and r.get("seed") == s)
+            curve = metrics["deliveries_per_env_step"]
+            require(row["score"] == float(curve.mean(axis=1)[s])
+                    and row["final"] == {k: float(v[s, -1])
+                                         for k, v in metrics.items()},
+                    f"sweep: the row of lr {tcfg.learning_rate} seed {s} is "
+                    "not its run's")
+    require(all(r["backends"] == KERNELS
+                for r in out["rows"] + out["asha_rows"]),
+            "sweep: a trial left the kernel routes")
+    emit({"phase": "sweep", "card": card(), "B": SWEEP_B, "T": SLICE_T,
+          "updates": SWEEP_UPDATES, "seeds": SWEEP_SEEDS, "grid": SWEEP_GRID,
+          "sweep_s": out["sweep_s"], "asha_s": out["asha_s"],
+          "summary": out["best"], "asha_rows": out["asha_rows"]})
+
+
+def _tree_equal(a, b) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def expected_explore(scores, lrs, ents, space, gen, quantile, resample_prob,
+                     sign):
+    """Tune's PBT exploit and explore as the JAX loop draws them from
+    ``gen``: the sources of the bottom quantile, drawn from the top one,
+    and each one's new learning rate and entropy coefficient, with how
+    each came (resampled, x 1.2 or / 1.2)."""
+    P = len(scores)
+    ranked = np.argsort(sign * scores)[::-1]
+    n_q = max(1, int(np.ceil(P * quantile)))
+    top, bottom = ranked[:n_q], ranked[P - n_q:]
+    src = np.arange(P)
+    src[bottom] = gen.choice(top, size=len(bottom))
+    hp = {"learning_rate": lrs[src].copy(), "entropy_coef": ents[src].copy()}
+    how = {int(i): {} for i in bottom}
+    for i in bottom:
+        for name in ("learning_rate", "entropy_coef"):
+            if name not in space:
+                continue
+            if gen.random() < resample_prob:
+                spec = space[name]
+                if "loguniform" in spec:
+                    lo, hi = spec["loguniform"]
+                    hp[name][i] = np.exp(gen.uniform(np.log(lo), np.log(hi)))
+                else:
+                    hp[name][i] = gen.uniform(*spec["uniform"])
+                how[int(i)][name] = "resample"
+            elif gen.random() < 0.5:
+                hp[name][i] *= 1.2
+                how[int(i)][name] = "x1.2"
+            else:
+                hp[name][i] *= 1 / 1.2
+                how[int(i)][name] = "/1.2"
+    return src, bottom, hp["learning_rate"], hp["entropy_coef"], how
+
+
+@timed_phase("pbt")
+def pbt_phase(dev, cfg):
+    """``run_pbt`` with a population of 4, perturb interval 3, 2 intervals
+    at 256 envs (plain on the card, as the JAX PBT reaches no kernel): after
+    each exploit every replaced member's params and Adam moments equal its
+    source's, and the sources, learning rates and entropy coefficients are
+    exactly those that replaying the run's generator from just before the
+    exploit gives (x 1.2, / 1.2 or a resample from the space)."""
+    seen = []
+    exploit = pbt.exploit_explore
+
+    def checked(members, scores, lrs, ents, space, rng_np, quantile,
+                resample_prob, sign):
+        replay = np.random.default_rng()
+        replay.bit_generator.state = rng_np.bit_generator.state
+        out, src, bottom, new_lrs, new_ents = exploit(
+            members, scores, lrs, ents, space, rng_np, quantile,
+            resample_prob, sign)
+        w_src, w_bottom, w_lrs, w_ents, how = expected_explore(
+            scores, lrs, ents, space, replay, quantile, resample_prob, sign)
+        require(np.array_equal(src, w_src)
+                and np.array_equal(np.sort(bottom), np.sort(w_bottom)),
+                f"pbt: sources {src.tolist()}, replayed {w_src.tolist()}")
+        require(np.array_equal(new_lrs, w_lrs)
+                and np.array_equal(new_ents, w_ents),
+                f"pbt: explored lrs {new_lrs.tolist()} entropy "
+                f"{new_ents.tolist()}, replayed {w_lrs.tolist()} "
+                f"{w_ents.tolist()}")
+        for i in bottom:
+            s = members[src[i]]
+            require(_tree_equal(out[i].params, s.params)
+                    and _tree_equal(out[i].opt_state.mu, s.opt_state.mu)
+                    and _tree_equal(out[i].opt_state.nu, s.opt_state.nu)
+                    and out[i].opt_state.count == s.opt_state.count,
+                    f"pbt: member {i} is not a copy of member {src[i]}")
+            seen.append({"member": int(i), "source": int(src[i]),
+                         "lr_from": float(lrs[src[i]]),
+                         "lr_to": float(new_lrs[i]),
+                         "ent_from": float(ents[src[i]]),
+                         "ent_to": float(new_ents[i]), "how": how[int(i)]})
+        return out, src, bottom, new_lrs, new_ents
+
+    tcfg = TrainConfig(num_envs=SWEEP_B, unroll_length=SLICE_T)
+    pbt.exploit_explore = checked
+    try:
+        t0 = time.perf_counter()
+        res = pbt.run_pbt(cfg, tcfg, PBT_SPACE,
+                          population_size=PBT_POPULATION,
+                          perturb_interval=PBT_INTERVAL,
+                          num_intervals=PBT_INTERVALS, device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        pbt.exploit_explore = exploit
+    require(len(seen) >= 1, "pbt: no member was replaced")
+    require(all(np.isfinite(r["score"]) for r in res.rows[:-1])
+            and np.isfinite(res.best["best_score"]), "pbt: non-finite score")
+    emit({"phase": "pbt", "card": card(), "B": SWEEP_B, "T": SLICE_T,
+          "population": PBT_POPULATION, "interval": PBT_INTERVAL,
+          "intervals": PBT_INTERVALS, "seconds": wall, "exploits": seen,
+          "rows": res.rows})
+
+
 # Each kernel's wrapper, where its launch count lives.
 COUNTED = {"greedy_rollout": rollout.greedy_rollout,
            "ppo_rollout": act.act_steps,
@@ -3674,6 +4078,7 @@ def update_profile(dev, cfg, arch):
 
 
 def main(argv=()) -> int:
+    t_start = time.perf_counter()
     print(nvidia_smi(), flush=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path",
@@ -3851,6 +4256,12 @@ def main(argv=()) -> int:
     emit_bound("K9 global", "medium_global_D411",
                k9_check(dev, medium_g, "gru"))
     step_sync_check(dev, cfg)
+    # The utilities and the dict API (M-6, M-5): the acting split of three
+    # trainers' updates, the state invariants after K1 and K2, the wrapper,
+    # the registry and serving by dict on the card.
+    acting_split(dev, cfg)
+    invariants_check(dev, cfg, model)
+    dict_api_check(dev, cfg)
 
     # ---- the main paths: each counted from just before it -------------
     rnn_kernels = ["ppo_rnn_rollout", *K7_STAGES, "ppo_rnn_sgd_phase",
@@ -3930,6 +4341,21 @@ def main(argv=()) -> int:
     paths.update({name: main_path(name, fn, kernels, absent)
                   for name, fn, kernels, absent in step_route_paths(
                       dev, cfg, shelves, shelves_g, medium_g)})
+    # The sweeps (M-9): every trial through K2 and K3; PBT plain, as the JAX
+    # PBT reaches no kernel.
+    swept = {}
+    paths["sweep"] = main_path(
+        "sweep", lambda: sweep_phase(dev, cfg, swept),
+        ["ppo_rollout", *K2_STAGES, "ppo_sgd_phase", "ppo_minibatch_grads"])
+    sweep_check(dev, cfg, swept)
+    paths["pbt"] = main_path(
+        "pbt", lambda: pbt_phase(dev, cfg), [],
+        ["ppo_rollout", "ppo_rollout_cnn", "ppo_rnn_rollout", "ppo_sgd_phase",
+         "impala_sgd_phase", "ppo_rnn_sgd_phase", "ppo_cnn_sgd_phase"])
+    wall = time.perf_counter() - t_start
+    emit({"phase": "module_phases", "seconds": MODULE_SECONDS,
+          "total_s": sum(MODULE_SECONDS.values()), "script_s": wall,
+          "share": sum(MODULE_SECONDS.values()) / wall})
     launches = {k: sum(p[k] for p in paths.values())
                 for k in paths["k1_episodes"]}
     # K10's group route with one policy per agent and on the 9x9 map: the

@@ -137,9 +137,10 @@ def test_evaluate_policy_matches_jax(policy):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port (the package walked, not listed by hand),
-    chip_smoke.py and the card-only test file import with nothing of jax
-    and nothing of the JAX package ``warehouse_tpu`` in ``sys.modules``."""
+    """Every module of the port (the package walked, not listed by hand;
+    the utilities, the dict API and the sweeps named too), chip_smoke.py
+    and the card-only test file import with nothing of jax and nothing of
+    the JAX package ``warehouse_tpu`` in ``sys.modules``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import warehouse_tpu_torch as pkg\n"
@@ -147,6 +148,11 @@ def test_port_imports_without_jax():
         "    if not m.name.endswith('.__main__'):\n"
         "        importlib.import_module(m.name)\n"
         "import warehouse_tpu_torch.train.__main__\n"
+        "new = ('utils.profiling', 'utils.debug', 'env.wrapper',\n"
+        "       'env.render', 'env.pettingzoo_adapter', 'registry',\n"
+        "       'demo', 'train.sweep', 'train.pbt')\n"
+        "assert all('warehouse_tpu_torch.' + m in sys.modules\n"
+        "           for m in new)\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'tests')\n"
         "import test_torch_kernels_gpu\n"
@@ -160,7 +166,7 @@ def test_port_imports_without_jax():
                          text=True, timeout=300,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 36
+    assert int(out.stdout.strip()) >= 46
 
 
 def test_import_check_sees_the_jax_package():

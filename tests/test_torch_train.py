@@ -239,9 +239,12 @@ def test_cli_runs_two_updates(tmp_path):
 
 
 # The flags the CLI now takes (the id of each case kept): each runs one
-# small update on the CPU instead of exiting.
+# small update on the CPU instead of exiting, the first five through the
+# per-step acting phase, M-6's two through the plain twins.
 LIFTED_FLAGS = ({"--global-obs"}, {"--arch", "attn"}, {"--model-dtype"},
-                {"--shaping-coef"}, {"--bootstrap-truncated"})
+                {"--shaping-coef"}, {"--bootstrap-truncated"},
+                {"--tensorboard-dir"}, {"--profile-dir"})
+M6_FLAGS = ({"--tensorboard-dir"}, {"--profile-dir"})
 
 
 @pytest.mark.parametrize("flags", [["--algo", "impala", "--global-obs"],
@@ -256,14 +259,16 @@ LIFTED_FLAGS = ({"--global-obs"}, {"--arch", "attn"}, {"--model-dtype"},
                                    ["--profile-dir", "p"],
                                    ["--arch", "gru", "--bootstrap-truncated"],
                                    ["--grad-backend", "xla"]])
-def test_cli_exits_on_unported_flags(flags, tmp_path):
-    """The flags still refused exit non-zero (M-6's, the JAX CLI's own
-    gate on IMPALA with policy groups, the 'xla' backend); the ones this
-    port has since taken (IMPALA with global observations or bf16, the
-    attention torso, the recurrent trainer's shaping and bootstrap, all
-    through the per-step acting phase) run, and the meta line names the
-    route."""
+def test_cli_exits_on_unported_flags(flags, tmp_path, monkeypatch):
+    """The flags still refused exit non-zero (the JAX CLI's own gate on
+    IMPALA with policy groups, the 'xla' backend); the ones this port has
+    since taken (IMPALA with global observations or bf16, the attention
+    torso, the recurrent trainer's shaping and bootstrap, all through the
+    per-step acting phase; M-6's ``--tensorboard-dir`` and
+    ``--profile-dir``, whose relative directories land in the working
+    directory) run, and the meta line names the route."""
     path = tmp_path / "m.jsonl"
+    monkeypatch.chdir(tmp_path)
     if any(set(flags) >= lifted for lifted in LIFTED_FLAGS):
         cli_main(["--env", "small", "--env-config", '{"max_steps": 8}',
                   "--num-envs", "8", "--unroll-length", "4",
@@ -271,7 +276,9 @@ def test_cli_exits_on_unported_flags(flags, tmp_path):
                   "--ppo-epochs", "1", "--hidden-dim", "16", "--device",
                   "cpu", "--metrics-path", str(path), *flags])
         meta = json.loads(path.read_text().splitlines()[0])
-        assert meta["backends"] == STEP_ROUTE, meta
+        m6 = any(set(flags) >= lifted for lifted in M6_FLAGS)
+        assert meta["backends"] == (
+            {"rollout": "plain", "grad": "plain"} if m6 else STEP_ROUTE), meta
         return
     with pytest.raises(SystemExit) as e:
         cli_main(["--num-envs", "16", "--device", "cpu", "--metrics-path",

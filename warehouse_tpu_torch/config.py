@@ -186,21 +186,22 @@ class TrainConfig:
     learning_rate: float = 3e-4
     max_grad_norm: float = 0.5
     anneal_lr: bool = True
-    # Run the optimizer on the raveled parameter vector. Not ported.
+    # Run the optimizer on the raveled parameter vector (optax.flatten);
+    # the learner phase then runs plain.
     flat_optimizer: bool = False
     # Linear entropy-coefficient anneal: entropy_coef -> entropy_coef_final
     # over num_updates. Negative = disabled (constant entropy_coef).
     entropy_coef_final: float = -1.0
     # Minibatch construction for feed-forward PPO ("env" | "flat").
     # "env": each minibatch is a random set of env trajectories. "flat":
-    # a fresh permutation of all T*B*A samples (not ported).
+    # a fresh permutation of all T*B*A samples (the learner runs plain).
     minibatch_mode: str = "env"
     # Epoch shuffle cadence ("once" | "each"). "once": one permutation per
     # update; the epochs revisit the same minibatch partition. "each": a
-    # fresh permutation every epoch (not ported).
+    # fresh permutation every epoch (the learner runs plain).
     epoch_shuffle: str = "once"
     # Split each minibatch gradient into K micro-batch grads averaged
-    # before one optimizer step. 1 = off; > 1 is not ported.
+    # before one optimizer step. 1 = off; > 1 runs the learner plain.
     micro_batches: int = 1
     # Bootstrap value targets through time-limit truncations: at a
     # truncation boundary GAE/V-trace use V of the true final state as the

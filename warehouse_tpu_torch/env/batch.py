@@ -14,6 +14,7 @@ import torch
 from ..config import EnvConfig
 
 from .. import rng as _rng
+from ..utils.profiling import annotate
 from . import engine
 from .state import EnvState, TimeStep
 
@@ -42,12 +43,16 @@ def reset_truncated_batch(cfg: EnvConfig, state: EnvState,
     truncating tick (``ppo_rollout``'s ``reset_key_last``). Returns
     ``(state, obs, truncated)`` with the post-reset obs where reset.
     """
-    done = state.t >= cfg.max_steps
-    obs = observe_batch(cfg, state)
-    if bool(done.any()):
-        reset_state, reset_obs = engine.reset(cfg, reset_keys)
-        state = reset_state.where(done, state)
-        obs = torch.where(done[:, None, None], reset_obs, obs)
+    dev = state.t.device
+    with annotate("boundary_reset", dev):
+        done = state.t >= cfg.max_steps
+        obs = observe_batch(cfg, state)
+        with annotate("boundary_reset_host_read", dev):
+            reset = bool(done.any())
+        if reset:
+            reset_state, reset_obs = engine.reset(cfg, reset_keys)
+            state = reset_state.where(done, state)
+            obs = torch.where(done[:, None, None], reset_obs, obs)
     return state, obs, done
 
 
@@ -73,7 +78,8 @@ def step_autoreset_batch_any(cfg: EnvConfig, state: EnvState,
         draws = _rng.step_draws(state.key, cfg_step)
     new, ts = engine.step(cfg_step, state, actions, draws)
     done = ts.truncated
-    reset = bool(done.any())
+    with annotate("tick_host_read", state.t.device):
+        reset = bool(done.any())
     if reset:
         reset_state, reset_obs = engine.reset(cfg_step, draws.reset_key)
         new = reset_state.where(done, new)

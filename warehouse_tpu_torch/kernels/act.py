@@ -96,6 +96,7 @@ from ..ops.move import valid_action_mask
 from ..ops.obs import inv_side
 from ..ops.pathing import device_table, potential
 from ..ops.ppo_update import NEG_INF, sample_action_with_gumbel
+from ..utils.profiling import annotate
 from . import build
 from .rollout import (check_kernel_shape, check_multiple_of_4, f32,
                       kernel_state, state_from_kernel, wall_mask)
@@ -1044,9 +1045,10 @@ def chunk_rollout(run_steps, cfg: EnvConfig, state: EnvState, T: int,
     not only the last), else None."""
     B, A = state.agent_pos.shape[:2]
     dev = state.agent_pos.device
-    final_keys, u, pick, drop, reset_keys = _rng.batched_step_draws(
-        state.key, cfg, T)
-    next_key, g = _rng.batched_gumbel_stream(key, T, (5, B * A))
+    with annotate("draws", dev):
+        final_keys, u, pick, drop, reset_keys = _rng.batched_step_draws(
+            state.key, cfg, T)
+        next_key, g = _rng.batched_gumbel_stream(key, T, (5, B * A))
     mask = torch.ones(T, B, A, 5, dtype=torch.bool, device=dev)
     steps_ahead = (state.t[None, :] + 1
                    + torch.arange(T, dtype=state.t.dtype,
@@ -1057,8 +1059,9 @@ def chunk_rollout(run_steps, cfg: EnvConfig, state: EnvState, T: int,
         shaping = Shaping(shaping_coef, gamma, truncated.to(torch.float32),
                           torch.empty(T, B, A, dtype=torch.float32,
                                       device=dev))
-    new, obs, action, lp, value, reward, delivered, *rest = run_steps(
-        u, pick, drop, g, mask if mask_actions else None, shaping)
+    with annotate("act_kernel", dev):
+        new, obs, action, lp, value, reward, delivered, *rest = run_steps(
+            u, pick, drop, g, mask if mask_actions else None, shaping)
     roll = ActRollout(
         obs=obs, action=action, log_prob=lp, value=value, reward=reward,
         delivered=delivered, truncated=truncated, mask=mask,

@@ -289,7 +289,9 @@ def opt_state_from_optax(opt_state_np, device=None,
     state, its leaves as numpy, as an ``AdamState`` or ``RMSState``: the
     count from the ``ScaleByAdamState`` or the lr schedule's state
     (checked against each other where both exist; ``default_count`` for a
-    constant-lr RMSProp, which keeps none), the moments through
+    constant-lr RMSProp, which keeps none; an ``inject_hyperparams`` state's
+    count is checked too, its hyperparameters left to the caller), the
+    moments through
     ``params_from_flax``. A state of ``optax.flatten`` of the chain holds
     each moment as one vector in the flax params' leaf order: it takes the
     flax params ``params_like`` (numpy leaves) for that order and becomes a
@@ -304,6 +306,12 @@ def opt_state_from_optax(opt_state_np, device=None,
             rms.append(node)
         elif fields == ("count",):
             counts.append(int(np.asarray(node.count)))
+        elif fields is not None and {"count", "hyperparams",
+                                     "inner_state"} <= set(fields):
+            # optax.inject_hyperparams (PBT's runtime learning rate): its
+            # count beside the inner Adam's.
+            counts.append(int(np.asarray(node.count)))
+            walk(node.inner_state)
         elif isinstance(node, tuple):
             for child in node:
                 walk(child)

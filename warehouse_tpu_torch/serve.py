@@ -11,7 +11,9 @@ recurrent (GRU / LSTM) policy:
 argmax by default, or a categorical sample (``explore=True``) on the same
 key chain as the JAX ``Policy``. A recurrent policy threads its carry:
 ``initial_state`` (alias ``get_initial_state``) gives the zero carry and
-``compute_actions(obs, carry)`` returns ``(actions, new_carry)``. With
+``compute_actions(obs, carry)`` returns ``(actions, new_carry)``;
+``compute_actions_dict`` serves the dict-API wrapper
+(``env/wrapper.py``), one agent's action per key. With
 ``policy_groups`` the model is a ``MultiPolicyActorCritic`` of
 feed-forward policies and agent a acts through group ``policy_groups[a]``'s. The
 policy runs on its model's device and at its compute dtype: a checkpoint of
@@ -189,3 +191,17 @@ class Policy:
         actions, carry = self.compute_actions(obs, state, explore, seed,
                                               agent_pos)
         return np.asarray(actions.cpu()), carry
+
+    def compute_actions_dict(self, env, obs_dict: dict, state=None,
+                             explore: bool = False, seed: int | None = None):
+        """Dict-API serving against a ``WarehouseMultiAgentEnv``:
+        ``{agent_i: obs}`` -> ``({agent_i: int action}, next carry)``. A
+        mask-trained policy reads the agents' positions from the wrapper's
+        state, so its invalid moves are masked."""
+        A = self.env_cfg.num_agents
+        obs = np.stack([np.asarray(obs_dict[f"agent_{i}"], np.float32)
+                        for i in range(A)])
+        agent_pos = env.state.agent_pos[0] if self.mask_actions else None
+        actions, carry = self.compute_single_action(obs, state, explore,
+                                                    seed, agent_pos)
+        return {f"agent_{i}": int(actions[i]) for i in range(A)}, carry

@@ -4,9 +4,9 @@ The PPO (``--arch mlp|cnn|attn|gru|lstm``) and IMPALA (``--algo impala``,
 a feed-forward arch) subset of ``python -m warehouse_tpu.train`` with the
 same flag names, plus
 ``--device``: the run is on the card unless ``--cpu`` / ``--device cpu``
-asks for the CPU, and exits when it finds no card. A flag
-for a feature the port does not have yet exits with a message naming its
-ROADMAP id. Metrics go to a JSONL file whose first line records the
+asks for the CPU, and exits when it finds no card. Metrics go to a JSONL
+file (and, with ``--tensorboard-dir``, to TensorBoard event files) whose
+first line records the
 trainer's ``backends`` (each phase's route: ``"cuda"``, ``"plain"``, or
 ``"step"`` for the per-step acting phase, as the JAX CLI records its
 resolved backends), ``env_steps_per_sec`` included;
@@ -15,13 +15,19 @@ resolved backends), ``env_steps_per_sec`` included;
 runner state every N updates under ``--checkpoint-dir`` beside a
 ``policy_meta.json`` that makes the directory self-describing, and
 ``--resume`` continues from the latest checkpoint there, bit for bit.
+``--profile-dir D`` writes a ``torch.profiler`` trace of the second
+logged chunk of updates (``--log-every`` of them) into D, as the JAX CLI
+traces its second chunk.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import time
+
+import torch
 
 from ..config import TrainConfig
 from ..configs_cli import (add_device_args, add_env_args, device_from_args,
@@ -30,21 +36,13 @@ from ..configs_cli import (add_device_args, add_env_args, device_from_args,
 from .. import rng
 from ..evaluate import evaluate_policy, params_policy_fn
 from ..serve import write_policy_meta
+from ..utils.profiling import trace
 from .checkpoint import restore_latest, save
 from .impala import make_train_impala
 from .metrics import MetricsLogger
 from .ppo import make_train
 from .ppo_rnn import make_train_rnn
 
-
-def _unported(args) -> list[str]:
-    out = []
-    for flag, on, item in (
-            ("--profile-dir", args.profile_dir is not None, "M-6"),
-            ("--tensorboard-dir", args.tensorboard_dir is not None, "M-6")):
-        if on:
-            out.append(f"{flag} (ROADMAP {item})")
-    return out
 
 
 def main(argv=None) -> None:
@@ -130,10 +128,14 @@ def main(argv=None) -> None:
                    help="continue from the latest checkpoint under "
                         "--checkpoint-dir")
     p.add_argument("--metrics-path", default="metrics.jsonl")
-    p.add_argument("--tensorboard-dir", default=None)
+    p.add_argument("--tensorboard-dir", default=None,
+                   help="also write the logged scalars as TensorBoard "
+                        "event files here")
     p.add_argument("--single-device", action="store_true",
                    help="the port always runs on one device")
-    p.add_argument("--profile-dir", default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the second "
+                        "--log-every chunk of updates here")
     p.add_argument("--eval-every", type=int, default=0,
                    help="run a greedy-argmax evaluation every N updates "
                         "(0 = off)")
@@ -142,9 +144,6 @@ def main(argv=None) -> None:
     if args.rllib_cadence:
         args.minibatch_mode = "flat"
         args.epoch_shuffle = "each"
-    unported = _unported(args)
-    if unported:
-        raise SystemExit("not ported yet: " + ", ".join(unported))
     policy_groups = None
     if args.policy_groups:
         policy_groups = tuple(int(x) for x in args.policy_groups.split(","))
@@ -208,7 +207,7 @@ def main(argv=None) -> None:
         if restored is not None:
             start_update, rs = restored
             log.info("resumed from update %d", start_update)
-    metrics = MetricsLogger(args.metrics_path)
+    metrics = MetricsLogger(args.metrics_path, args.tensorboard_dir)
     metrics.log_meta({"algo": args.algo, "arch": args.arch,
                       "backends": trainer.backends, "device": str(device),
                       "kernels": device.type == "cuda"})
@@ -217,7 +216,14 @@ def main(argv=None) -> None:
     try:
         for u in range(start_update, tcfg.num_updates, args.log_every):
             n = min(args.log_every, tcfg.num_updates - u)
-            rs, ms = trainer.train_many(rs, n)
+            profiled = bool(args.profile_dir) and u == args.log_every
+            with (trace(args.profile_dir, device) if profiled
+                  else contextlib.nullcontext()):
+                rs, ms = trainer.train_many(rs, n)
+                if profiled and device.type == "cuda":
+                    torch.cuda.synchronize(device)
+            if profiled:
+                log.info("profiler trace written to %s", args.profile_dir)
             scalars = {k: float(v[-1]) for k, v in ms.items()}
             dt = time.time() - t_last
             t_last = time.time()

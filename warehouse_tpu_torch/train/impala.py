@@ -62,6 +62,7 @@ from ..models.policy import (FEED_FORWARD, apply, make_model, model_precision,
                              params_from_flax)
 from ..optim import (AdamState, ClipAdam, ClipRMSProp, RMSState,
                      make_impala_optimizer, opt_state_from_optax)
+from ..utils.profiling import annotate
 from .ppo import (STEP, _not_ported, _tensor, check_backend_names,
                   check_kernel_fits, init_parts,
                   make_backends, run_many, step_rollout)
@@ -220,7 +221,8 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
         """T steps of K2 (or its twin) from ``rs.key``, the boundary reset,
         the bootstrap on the chunk's last step."""
         def act(rs):
-            model.load_state_dict(rs.params)
+            with annotate("load_state_dict", device):
+                model.load_state_dict(rs.params)
             new_env, roll, reset_key, key = rollout_fn(
                 cfg, model, rs.env_state, T, rs.key,
                 mask_actions=tcfg.mask_actions)
@@ -229,7 +231,9 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
             boot = torch.zeros_like(roll.reward)
             if tcfg.bootstrap_truncated:
                 # done is only ever set on the chunk's last step.
-                boot[-1] = apply(rs.params, observe_batch(cfg, new_env))[1]
+                with annotate("bootstrap", device):
+                    boot[-1] = apply(rs.params,
+                                     observe_batch(cfg, new_env))[1]
             return env_state, roll, last_obs, key, boot
         return act
 
@@ -248,27 +252,29 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
             roll.obs, roll.action, roll.log_prob, roll.reward,
             roll.truncated[:, :, None].expand_as(roll.reward), roll.mask,
             boot)
-        rows = optimizer.step_rows(rs.opt_state.count, n_steps, device)
         mark("acting")
 
-        params, opt_state, losses = learn_fn(
-            rs.params, rs.opt_state, traj, last_obs, rows,
-            tcfg.entropy_coef, num_passes=tcfg.impala_passes,
-            num_minibatches=M, max_grad_norm=tcfg.max_grad_norm,
-            gamma=tcfg.gamma, rho_clip=tcfg.rho_clip, c_clip=tcfg.c_clip,
-            value_coef=tcfg.value_coef, mask_actions=tcfg.mask_actions,
-            bootstrap_truncated=tcfg.bootstrap_truncated)
+        with annotate("learner", device):
+            rows = optimizer.step_rows(rs.opt_state.count, n_steps, device)
+            params, opt_state, losses = learn_fn(
+                rs.params, rs.opt_state, traj, last_obs, rows,
+                tcfg.entropy_coef, num_passes=tcfg.impala_passes,
+                num_minibatches=M, max_grad_norm=tcfg.max_grad_norm,
+                gamma=tcfg.gamma, rho_clip=tcfg.rho_clip, c_clip=tcfg.c_clip,
+                value_coef=tcfg.value_coef, mask_actions=tcfg.mask_actions,
+                bootstrap_truncated=tcfg.bootstrap_truncated)
         mark("learner")
 
-        metrics = {
-            "loss": losses[0].mean(),
-            "pg_loss": losses[1].mean(),
-            "v_loss": losses[2].mean(),
-            "entropy": losses[3].mean(),
-            "reward_per_step": roll.raw_reward.mean(dim=(1, 2)).mean(),
-            "deliveries_per_env_step":
-                roll.delivered.sum(dtype=torch.float32) / (T * B),
-        }
+        with annotate("metrics", device):
+            metrics = {
+                "loss": losses[0].mean(),
+                "pg_loss": losses[1].mean(),
+                "v_loss": losses[2].mean(),
+                "entropy": losses[3].mean(),
+                "reward_per_step": roll.raw_reward.mean(dim=(1, 2)).mean(),
+                "deliveries_per_env_step":
+                    roll.delivered.sum(dtype=torch.float32) / (T * B),
+            }
         new = ImpalaRunnerState(params=params, opt_state=opt_state,
                                 env_state=env_state, obs=last_obs, key=key,
                                 update_idx=rs.update_idx + 1)

@@ -108,6 +108,7 @@ from ..ops.ppo_update import (NEG_INF, adaptive_kl_coeff, entropy_coef_at,
                               minibatch_epochs, partition_keys, ppo_losses,
                               sample_action_with_gumbel)
 from ..optim import AdamState, ClipAdam, make_optimizer, opt_state_from_optax
+from ..utils.profiling import annotate
 
 PERM_SALT = 0x5EED  # fold_in salt of the env-state permutation key
 CNN_KERNEL_GRID = 9  # the largest global grid side K10 / K11 hold
@@ -371,40 +372,49 @@ def step_rollout(cfg: EnvConfig, tcfg: TrainConfig, policy: Callable,
     draws are remade."""
     shaping = tcfg.shaping_coef > 0.0
     B, A = state.agent_pos.shape[:2]
+    dev = state.agent_pos.device
     # The chunk's draws in bulk, the values of the per-step splits: the
     # gumbel noise of ``split(key)``'s chain, and the env draws of each
     # env's key chain, made anew from the state's keys after a tick where
     # some env reset (its key then starts a new chain).
-    key, gumbel = rng.batched_gumbel_stream(key, T, (5, B * A))
-    draws, first = rng.chained_step_draws(state.key, cfg, T), 0
+    with annotate("draws", dev):
+        key, gumbel = rng.batched_gumbel_stream(key, T, (5, B * A))
+        draws, first = rng.chained_step_draws(state.key, cfg, T), 0
     steps = []
     with torch.no_grad():
         for t in range(T):
-            logits, value, new_carry = policy(obs, carry)
-            if tcfg.mask_actions:
-                mask = valid_action_mask(cfg, state.agent_pos)
-                logits = torch.where(mask, logits, NEG_INF)
-            else:
-                mask = torch.ones(logits.shape, dtype=torch.bool,
-                                  device=logits.device)
-            action, log_prob = sample_action_with_gumbel(logits, gumbel[t])
-            if shaping:
-                phi = potential(cfg, state)
-            state, ts, reset = step_autoreset_batch_any(
-                cfg, state, action,
-                rng.StepDraws(*(x[t - first] for x in draws)))
+            with annotate("policy", dev):
+                logits, value, new_carry = policy(obs, carry)
+                if tcfg.mask_actions:
+                    mask = valid_action_mask(cfg, state.agent_pos)
+                    logits = torch.where(mask, logits, NEG_INF)
+                else:
+                    mask = torch.ones(logits.shape, dtype=torch.bool,
+                                      device=logits.device)
+                action, log_prob = sample_action_with_gumbel(logits,
+                                                             gumbel[t])
+            with annotate("tick", dev):
+                if shaping:
+                    phi = potential(cfg, state)
+                state, ts, reset = step_autoreset_batch_any(
+                    cfg, state, action,
+                    rng.StepDraws(*(x[t - first] for x in draws)))
+                done = ts.truncated[:, None].expand_as(ts.reward)
+                reward = ts.reward
+                if shaping:
+                    term = f32(tcfg.gamma) * potential(cfg, state)
+                    term = term * (1.0 - done.to(torch.float32))
+                    term = term - phi
+                    reward = reward + f32(tcfg.shaping_coef) * term
             if t + 1 < T and reset:
-                draws, first = rng.chained_step_draws(
-                    state.key, cfg, T - t - 1), t + 1
-            done = ts.truncated[:, None].expand_as(ts.reward)
-            reward = ts.reward
-            if shaping:
-                term = f32(tcfg.gamma) * potential(cfg, state)
-                term = term * (1.0 - done.to(torch.float32))
-                term = term - phi
-                reward = reward + f32(tcfg.shaping_coef) * term
-            boot = (policy(ts.final_obs, new_carry)[1]
-                    if tcfg.bootstrap_truncated else torch.zeros_like(value))
+                with annotate("draws", dev):
+                    draws, first = rng.chained_step_draws(
+                        state.key, cfg, T - t - 1), t + 1
+            if tcfg.bootstrap_truncated:
+                with annotate("bootstrap", dev):
+                    boot = policy(ts.final_obs, new_carry)[1]
+            else:
+                boot = torch.zeros_like(value)
             steps.append((obs, action, log_prob, value, reward,
                           ts.delivered.sum(-1, dtype=torch.int32),
                           ts.truncated, mask, ts.reward, boot))
@@ -559,7 +569,8 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
         """T steps through ``rollout_fn`` (the acting kernel or its twin),
         the boundary reset, the bootstrap on the chunk's last step."""
         def act(params, env_in, obs_in, key):
-            model.load_state_dict(params)
+            with annotate("load_state_dict", device):
+                model.load_state_dict(params)
             new_env, roll, reset_key, key = rollout_fn(
                 cfg, model, env_in, T, key, mask_actions=tcfg.mask_actions,
                 shaping_coef=tcfg.shaping_coef, gamma=tcfg.gamma, arch=arch,
@@ -569,8 +580,9 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
             boot = torch.zeros_like(roll.value)
             if tcfg.bootstrap_truncated:
                 # done is only ever set on the chunk's last step.
-                boot[-1] = apply(params, observe_batch(cfg, new_env), gids,
-                                 precision=precision)[1]
+                with annotate("bootstrap", device):
+                    boot[-1] = apply(params, observe_batch(cfg, new_env),
+                                     gids, precision=precision)[1]
             return env_state, roll, last_obs, key, boot
         return act
 
@@ -585,11 +597,13 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
         key = rs.key
         env_in, obs_in = rs.env_state, rs.obs
         if state_shuffle:
-            perm = rng.permutation(rng.fold_in(key, PERM_SALT), B)
-            env_in = EnvState(**{f: getattr(rs.env_state, f)[perm]
-                                 for f in STATE_FIELDS})
-            # The chunk rollout (kernel or twin) observes the state itself.
-            obs_in = rs.obs[perm] if stepwise else None
+            with annotate("permutation", device):
+                perm = rng.permutation(rng.fold_in(key, PERM_SALT), B)
+                env_in = EnvState(**{f: getattr(rs.env_state, f)[perm]
+                                     for f in STATE_FIELDS})
+                # The chunk rollout (kernel or twin) observes the state
+                # itself.
+                obs_in = rs.obs[perm] if stepwise else None
         env_state, roll, last_obs, key, boot = act_fn(rs.params, env_in,
                                                       obs_in, key)
         traj = Transition(roll.obs, roll.action, roll.log_prob, roll.value,
@@ -598,32 +612,40 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
                           roll.mask, boot)
         mark("acting")
 
-        _, last_value = apply(rs.params, last_obs, gids, precision=precision)
-        adv, targets = gae(traj.reward, traj.value, traj.done, last_value,
-                           tcfg.gamma, tcfg.gae_lambda,
-                           boot if tcfg.bootstrap_truncated else None)
-        ent_coef = entropy_coef_at(tcfg, rs.update_idx)
-        if sgd_fn is None:  # the plain learner phase (M-4)
-            mark("gae")
-            params, opt_state, key, losses = ppo_plain_phase(
-                tcfg, optimizer, rs.params, rs.opt_state, key, traj, adv,
-                targets, ent_coef, rs.kl_coeff, state_shuffle,
-                policy_groups, precision)
-        else:
-            adv_n = normalize_adv_env_minibatch(adv, M)
-            rows = optimizer.step_rows(rs.opt_state.count, n_steps, device)
-            mark("gae")
-            params, opt_state, losses = sgd_fn(
-                rs.params, rs.opt_state, traj, adv_n, targets, *rows,
-                ent_coef, rs.kl_coeff, num_epochs=tcfg.ppo_epochs,
-                num_minibatches=M, clip_eps=tcfg.clip_eps,
-                value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
-                mask_actions=tcfg.mask_actions, **sgd_kw)
-            # The key split the JAX scaffold spends on its partition.
-            key, _ = partition_keys(key, tcfg.ppo_epochs, False)
+        with annotate("last_value", device):
+            _, last_value = apply(rs.params, last_obs, gids,
+                                  precision=precision)
+        with annotate("gae", device):
+            adv, targets = gae(traj.reward, traj.value, traj.done,
+                               last_value, tcfg.gamma, tcfg.gae_lambda,
+                               boot if tcfg.bootstrap_truncated else None)
+            ent_coef = entropy_coef_at(tcfg, rs.update_idx)
+            if sgd_fn is not None:
+                adv_n = normalize_adv_env_minibatch(adv, M)
+                rows = optimizer.step_rows(rs.opt_state.count, n_steps,
+                                           device)
+        mark("gae")
+        with annotate("learner", device):
+            if sgd_fn is None:  # the plain learner phase (M-4)
+                params, opt_state, key, losses = ppo_plain_phase(
+                    tcfg, optimizer, rs.params, rs.opt_state, key, traj, adv,
+                    targets, ent_coef, rs.kl_coeff, state_shuffle,
+                    policy_groups, precision)
+            else:
+                params, opt_state, losses = sgd_fn(
+                    rs.params, rs.opt_state, traj, adv_n, targets, *rows,
+                    ent_coef, rs.kl_coeff, num_epochs=tcfg.ppo_epochs,
+                    num_minibatches=M, clip_eps=tcfg.clip_eps,
+                    value_coef=tcfg.value_coef,
+                    max_grad_norm=tcfg.max_grad_norm,
+                    mask_actions=tcfg.mask_actions, **sgd_kw)
+                # The key split the JAX scaffold spends on its partition.
+                key, _ = partition_keys(key, tcfg.ppo_epochs, False)
         mark("sgd")
 
-        metrics, kl_coeff = update_metrics(tcfg, losses, rs.kl_coeff, roll)
+        with annotate("metrics", device):
+            metrics, kl_coeff = update_metrics(tcfg, losses, rs.kl_coeff,
+                                               roll)
         new = RunnerState(params=params, opt_state=opt_state,
                           env_state=env_state, obs=last_obs, key=key,
                           update_idx=rs.update_idx + 1, kl_coeff=kl_coeff)
