@@ -330,8 +330,23 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    members, perturb interval 3, 2 intervals, 256 envs (plain on the card,
    as the JAX PBT reaches no Pallas kernel); after the exploit every
    replaced member's params and Adam moments bit-equal to its source's, its
-   learning rate the source's x 1.2 or / 1.2, or a resample from the space.
-   Then the wall seconds of items 39-43 and their share of the script's.
+   learning rate the source's x 1.2 or / 1.2, or a resample from the space;
+44. ``mesh_world1_train`` (main path): a world-1 NCCL group on a file store
+   and on it, at config 4 from ``PRNGKey(0)``, 3 meshed updates each of PPO
+   (K2 + K4), the CNN (K10 + K12), the GRU (K7 + K9) and IMPALA with Adam
+   (K2 + K6): each update's grads-kernel launches and all-reduces equal to
+   epochs x minibatches (IMPALA: passes x minibatches), its split into
+   acting, the grads kernel, the all-reduce and the clip + optimizer step
+   by CUDA events, and the same update through ``plain_step`` from the
+   same state: env state bit-equal, metrics within STEP_METRIC_TOL, params
+   within the learner's tolerance;
+45. ``mesh_two_ranks`` (main path): two spawned processes sharing the card
+   in a gloo group (NCCL refuses two ranks on one device), PPO at config 4
+   with 2048 envs a rank, 3 updates, ``assert_replicated_in_sync`` on the
+   params and Adam state after each; rank 0's metrics, deliveries per
+   env-step finite and positive; the ranks' launch counts added to the
+   main path's.
+   Then the wall seconds of items 39-45 and their share of the script's.
 
 Every main path but ``shelves_cnn_groups_train``, ``rllib_cadence_train``,
 ``cnn_per_agent_train`` and ``cnn_global_groups_train`` (acting kernel,
@@ -360,7 +375,13 @@ There is no CPU path: without a CUDA device the script exits non-zero.
 
 ``python3 chip_smoke.py --profile-rnn`` (``--profile-cnn``) runs, instead
 of all this, a ``torch.profiler`` trace of 3 recurrent updates per cell (3
-CNN updates) and prints the device time per update by kernel name.
+CNN updates) and prints the device time per update by kernel name;
+``--mesh`` runs items 44-45 alone; ``--mesh-cards``, on a machine with
+several cards, runs PPO at config 4 with 4096 envs a rank on a world-1
+NCCL group, on one NCCL rank per card, and on one rank per card with one
+intra-op thread each, the ranks in sync after every update, and prints
+each rank's update split and all-reduce ms and the mesh's env-steps/s
+beside world 1's.
 """
 
 from __future__ import annotations
@@ -3951,6 +3972,329 @@ def pbt_phase(dev, cfg):
           "rows": res.rows})
 
 
+# ---- the data mesh (M-8) ----------------------------------------------------
+
+MESH_UPDATES = 3        # updates of each meshed trainer
+MESH_RANK_ENVS = 2048   # envs of each of the two ranks on the one card
+MESH_TIMEOUT_S = 300    # a rank's wait for the other before it raises
+# The meshed learners at config 4: (name, trainer, its options, arch, the
+# grads kernel's wrapper, the launch class whose gradient and step are
+# timed, its step method's name, the twin comparison's tolerances).
+MESH_PATHS = [
+    ("ppo", make_train, dict(num_updates=TRAIN_SCHEDULE), "mlp",
+     sgd.ppo_minibatch_grads, sgd.MlpLaunch, "clip_adam", SGD_TOL),
+    ("cnn", make_train, dict(num_updates=CNN_SCHEDULE), "cnn",
+     sgd_cnn.ppo_cnn_minibatch_grads, sgd_cnn.CnnLaunch, "clip_adam",
+     CNN_TOL),
+    ("gru", make_train_rnn, dict(num_updates=RNN_SCHEDULE), "gru",
+     sgd_rnn.ppo_rnn_minibatch_grads, sgd_rnn.RnnLaunch, "clip_adam",
+     SGD_TOL),
+    ("impala", make_train_impala,
+     dict(num_updates=IMPALA_SCHEDULE, impala_rmsprop=False), "mlp",
+     vtrace_sgd.impala_minibatch_grads, vtrace_sgd._Launch, "step", VT_TOL)]
+
+
+class Spans:
+    """CUDA events around every call of some methods, by label: the device
+    time each took, summed (``ms``) and reset by ``take``. The wrapped
+    methods run unchanged (their launch counts too)."""
+
+    def __init__(self, methods):
+        self.methods, self.spans = methods, {k: [] for k in methods.values()}
+
+    def __enter__(self):
+        self.saved = []
+        for (owner, name), label in self.methods.items():
+            orig = getattr(owner, name)
+            self.saved.append((owner, name, orig))
+
+            def wrapped(*a, _orig=orig, _label=label, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = _orig(*a, **k)
+                e1.record()
+                self.spans[_label].append((e0, e1))
+                return out
+            setattr(owner, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in self.saved:
+            setattr(owner, name, orig)
+
+    def take(self) -> dict:
+        torch.cuda.synchronize()
+        out = {k: sum(a.elapsed_time(b) for a, b in v)
+               for k, v in self.spans.items()}
+        out.update({f"{k}_calls": len(v) for k, v in self.spans.items()})
+        for v in self.spans.values():
+            v.clear()
+        return out
+
+
+class TimedMesh:
+    """A ``DataMesh`` whose ``mean_`` (the learner's one all-reduce a
+    step) is timed by ``Spans``; everything else is the mesh's."""
+
+    def __init__(self, mesh):
+        self._mesh = mesh
+
+    def __getattr__(self, name):
+        return getattr(self._mesh, name)
+
+    def mean_(self, x):
+        return self._mesh.mean_(x)
+
+
+@timed_phase("mesh_world1_train")
+def mesh_world1_train(dev):
+    """A world-1 NCCL group (a file store in a temporary directory) and on
+    it, for PPO (K2 + K4), the CNN (K10 + K12), the GRU (K7 + K9) and
+    IMPALA with Adam (K2 + K6) at config 4, 3 meshed updates from
+    ``PRNGKey(0)``: each update's grads-kernel launches (``epochs x
+    minibatches``), its time split into acting, the grads kernel, the
+    all-reduce and the step (CUDA events around each), and the same update
+    through the plain twins from the same state (``plain_step``: the same
+    meshed route, its all-reduce included): env state bit-equal, metrics
+    within STEP_METRIC_TOL, params within the learner's tolerance."""
+    from warehouse_tpu_torch.parallel.distributed import process_group
+
+    with tempfile.TemporaryDirectory() as tmp, process_group(
+            os.path.join(tmp, "store"), backend="nccl",
+            timeout_s=MESH_TIMEOUT_S) as mesh:
+        for name, make, kw, arch, grads, launch, step_name, tol in MESH_PATHS:
+            tcfg = TrainConfig(**kw)
+            timed_mesh = TimedMesh(mesh)
+            tr = make(medium_config(), tcfg, arch=arch, device=dev,
+                      mesh=timed_mesh)
+            require(tr.backends == KERNELS and tr.mesh is timed_mesh,
+                    f"mesh_world1_train {name}: {tr.backends}")
+            per_update = (tcfg.impala_passes if name == "impala"
+                          else tcfg.ppo_epochs) * tcfg.num_minibatches
+            rs = tr.init_global(rng.prng_key(0, dev))
+            rows = []
+            with Spans({(launch, "grads"): "grads",
+                        (launch, step_name): "step",
+                        (TimedMesh, "mean_"): "all_reduce"}) as spans:
+                for u in range(MESH_UPDATES):
+                    n0 = grads.launches
+                    marks = Marks()
+                    nxt, m = tr.train_step(rs, mark=marks)
+                    split = marks.split()
+                    launched = grads.launches - n0
+                    pieces = spans.take()
+                    twin, mt = tr.plain_step(rs)
+                    spans.take()
+                    rtol, atol = STEP_METRIC_TOL
+                    metric_ok = all(
+                        abs(float(m[k]) - float(mt[k]))
+                        <= atol + rtol * abs(float(mt[k])) for k in m)
+                    p_err = tree_err(nxt.params, twin.params, *tol["params"])
+                    row = {"update": u + 1, "grads_launches": launched,
+                           "update_ms": split["total"],
+                           "acting_ms": split["acting"],
+                           "grads_ms": pieces["grads"],
+                           "grads_ms_per_minibatch": pieces["grads"]
+                           / max(pieces["grads_calls"], 1),
+                           "all_reduce_ms": pieces["all_reduce"],
+                           "all_reduces": pieces["all_reduce_calls"],
+                           "step_ms": pieces["step"],
+                           "twin_env_state_equal": state_equal(
+                               nxt.env_state, twin.env_state),
+                           "twin_metrics_within": metric_ok,
+                           "twin_params_max_abs_err": p_err[0],
+                           "twin_params_tol_ratio": p_err[1],
+                           "deliveries_per_env_step":
+                               float(m["deliveries_per_env_step"])}
+                    rows.append(row)
+                    require(launched == per_update
+                            and pieces["all_reduce_calls"] == per_update,
+                            f"mesh_world1_train {name}: {launched} grads "
+                            f"launches and {pieces['all_reduce_calls']} "
+                            f"all-reduces in update {u + 1}, not "
+                            f"{per_update}")
+                    require(all(bool(torch.isfinite(v)) for v in m.values()),
+                            f"mesh_world1_train {name}: metrics {m}")
+                    require(row["twin_env_state_equal"] and metric_ok
+                            and p_err[1] <= 1.0,
+                            f"mesh_world1_train {name}: update {u + 1} "
+                            f"differs from the twins' {row}")
+                    rs = nxt
+            emit({"phase": "mesh_world1_train", "path": name,
+                  "backend": mesh.backend, "world": mesh.world,
+                  "B": tcfg.num_envs, "T": tcfg.unroll_length,
+                  "grads_launches_per_update": per_update,
+                  "param_tol": tol["params"], "card": card(),
+                  "updates": rows,
+                  "median_ms": {k: median([r[k] for r in rows]) for k in (
+                      "update_ms", "acting_ms", "grads_ms",
+                      "grads_ms_per_minibatch", "all_reduce_ms",
+                      "step_ms")}})
+
+
+def mesh_rank(rank: int, world: int, backend: str, envs: int, threads,
+              store: str, out: str) -> None:
+    """One rank of ``mesh_ranks``: on ``cuda:rank`` with NCCL (a card a
+    rank), on ``cuda:0`` with gloo; 3 meshed PPO updates of its ``envs``
+    envs at config 4, the ranks' params and Adam state checked
+    bit-identical after each, each update split into acting, GAE and the
+    learner and the learner's all-reduces timed by CUDA events, and each
+    update held against the same update through the plain twins from the
+    same state (``plain_step``: the gradient averaged over the ranks by
+    ``DataMesh.mean_grads``): env state bit-equal, metrics within
+    STEP_METRIC_TOL, params within SGD_TOL. With ``threads``, torch's
+    intra-op threads set to it; its results to ``out``."""
+    from warehouse_tpu_torch.parallel.distributed import process_group
+    from warehouse_tpu_torch.utils import assert_replicated_in_sync
+
+    if threads:
+        torch.set_num_threads(threads)
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    with process_group(store, backend=backend, rank=rank, world=world,
+                       timeout_s=MESH_TIMEOUT_S,
+                       local_rank=dev.index) as mesh:
+        tcfg = TrainConfig(num_envs=world * envs, num_updates=TRAIN_SCHEDULE)
+        tr = make_train(medium_config(), tcfg, device=dev,
+                        mesh=TimedMesh(mesh))
+        rs = tr.init_global(rng.prng_key(0, dev))
+        rows = []
+        with Spans({(TimedMesh, "mean_"): "all_reduce"}) as spans:
+            torch.cuda.synchronize()
+            for u in range(MESH_UPDATES):
+                t0 = time.perf_counter()
+                marks = Marks()
+                nxt, m = tr.train_step(rs, mark=marks)
+                split = marks.split()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                pieces = spans.take()
+                assert_replicated_in_sync((nxt.params, nxt.opt_state), mesh)
+                twin, mt = tr.plain_step(rs)
+                rtol, atol = STEP_METRIC_TOL
+                metric_ok = all(abs(float(m[k]) - float(mt[k]))
+                                <= atol + rtol * abs(float(mt[k])) for k in m)
+                p_err = tree_err(nxt.params, twin.params, *SGD_TOL["params"])
+                row = {"update_ms": ms, "split_ms": split,
+                       "all_reduce_ms": pieces["all_reduce"],
+                       "all_reduces": pieces["all_reduce_calls"],
+                       "twin_env_state_equal": state_equal(nxt.env_state,
+                                                           twin.env_state),
+                       "twin_metrics_within": metric_ok,
+                       "twin_params_max_abs_err": p_err[0],
+                       "twin_params_tol_ratio": p_err[1],
+                       **{k: float(v) for k, v in m.items()}}
+                rows.append(row)
+                require(row["twin_env_state_equal"] and metric_ok
+                        and p_err[1] <= 1.0,
+                        f"mesh_rank {rank} of {world} ({backend}): update "
+                        f"{u + 1} differs from the twins' {row}")
+                rs = nxt
+        torch.save({"rank": rank, "rows": rows, "envs": int(rs.obs.shape[0]),
+                    "launches": {k: w.launches for k, w in COUNTED.items()},
+                    "option_launches": {k: getattr(w, c) for k, (w, c)
+                                        in OPTION_COUNTED.items()}}, out)
+
+
+def mesh_rank_entry(rank, world, backend, envs, threads, store, outs):
+    mesh_rank(rank, world, backend, envs, threads, store, outs[rank])
+
+
+def mesh_ranks(world: int, backend: str, envs: int, threads=None) -> tuple:
+    """``world`` spawned ``mesh_rank`` processes: their results and the
+    wall seconds. The ranks' launch counts are added to this process's,
+    where the main path reads them."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            mesh_rank_entry,
+            args=(world, backend, envs, threads, os.path.join(tmp, "store"),
+                  outs),
+            nprocs=world, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                require(time.perf_counter() - t0 < 2 * MESH_TIMEOUT_S,
+                        f"mesh_ranks: {world} {backend} ranks did not "
+                        "finish")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        wall = time.perf_counter() - t0
+        res = [torch.load(o, weights_only=False) for o in outs]
+    for k, w in COUNTED.items():
+        w.launches += sum(r["launches"][k] for r in res)
+    for k, (w, c) in OPTION_COUNTED.items():
+        setattr(w, c, getattr(w, c) + sum(r["option_launches"][k]
+                                          for r in res))
+    require(all(r["envs"] == envs for r in res),
+            f"mesh_ranks: a rank does not hold its {envs} envs")
+    require(all(r["rows"][-1]["loss"] == res[0]["rows"][-1]["loss"]
+                for r in res), "mesh_ranks: the ranks' averaged losses differ")
+    return res, wall
+
+
+@timed_phase("mesh_two_ranks")
+def mesh_two_ranks(dev):
+    """Two processes on the one card, a gloo group (NCCL refuses two ranks
+    on one device), PPO at config 4 with 2048 envs a rank: 3 meshed
+    updates, the ranks in sync after each and each held against the plain
+    twins' world-2 update from the same state; rank 0's metrics,
+    deliveries per env-step finite and positive."""
+    res, wall = mesh_ranks(2, "gloo", MESH_RANK_ENVS)
+    rows = res[0]["rows"]
+    dels = [r["deliveries_per_env_step"] for r in rows]
+    emit({"phase": "mesh_two_ranks", "world": 2, "backend": "gloo",
+          "envs_per_rank": res[0]["envs"], "card": card(),
+          "wall_s": wall, "rank0": rows,
+          "grads_launches": [r["launches"]["ppo_minibatch_grads"]
+                             for r in res]})
+    require(all(np.isfinite(d) and d > 0 for d in dels),
+            f"mesh_two_ranks: deliveries per env-step {dels}")
+
+
+MESH_CARD_ENVS = 4096   # envs a rank in ``--mesh-cards``: config 4's
+
+
+def mesh_cards():
+    """``--mesh-cards`` on a machine with several cards: PPO at config 4,
+    4096 envs a rank, on a world-1 NCCL group and then on one NCCL rank
+    per card (NVLink), 3 updates each, the ranks in sync after each, then
+    the same mesh with one intra-op thread a rank: each rank's update ms,
+    its split and its all-reduce ms, and the env-steps/s of the whole mesh
+    beside world 1's."""
+    n = torch.cuda.device_count()
+    require(n > 1, f"--mesh-cards needs more than one card, found {n}")
+    base = None
+    for world, threads in ((1, None), (n, None), (n, 1)):
+        res, wall = mesh_ranks(world, "nccl", MESH_CARD_ENVS, threads)
+        # Updates 2-3 (the first builds and warms up), slowest rank.
+        upd = [max(r["rows"][u]["update_ms"] for r in res)
+               for u in range(1, MESH_UPDATES)]
+        rate = (world * MESH_CARD_ENVS * TrainConfig().unroll_length
+                / (median(upd) / 1e3))
+        base = base or rate
+        emit({"phase": "mesh_cards", "world": world, "backend": "nccl",
+              "threads": threads or torch.get_num_threads(),
+              "envs_per_rank": MESH_CARD_ENVS, "card": card(),
+              "wall_s": wall, "update_ms": upd,
+              "rank_update_ms": [[round(row["update_ms"], 2)
+                                  for row in r["rows"]] for r in res],
+              "rank_split_ms": [{k: round(v, 2) for k, v in
+                                 r["rows"][-1]["split_ms"].items()}
+                                for r in res],
+              "all_reduce_ms": [[r["rows"][u]["all_reduce_ms"]
+                                 for u in range(MESH_UPDATES)] for r in res],
+              "all_reduces": res[0]["rows"][-1]["all_reduces"],
+              "env_steps_per_sec": rate, "speedup_vs_world1": rate / base,
+              "deliveries_per_env_step": [
+                  r["deliveries_per_env_step"] for r in res[0]["rows"]]})
+
+
 # Each kernel's wrapper, where its launch count lives.
 COUNTED = {"greedy_rollout": rollout.greedy_rollout,
            "ppo_rollout": act.act_steps,
@@ -4039,6 +4383,18 @@ def main_path(name, fn, kernels, absent=()):
     return counts
 
 
+def mesh_main_paths(dev):
+    """The data mesh's main paths: (name, phase, kernels it must launch)."""
+    return [
+        ("mesh_world1_train", lambda: mesh_world1_train(dev),
+         ["ppo_rollout", *K2_STAGES, "ppo_minibatch_grads",
+          "ppo_rollout_cnn", "ppo_rollout_cnn_stages",
+          "ppo_cnn_minibatch_grads", "ppo_rnn_rollout", *K7_STAGES,
+          "ppo_rnn_minibatch_grads", "impala_minibatch_grads", *K6_STAGES]),
+        ("mesh_two_ranks", lambda: mesh_two_ranks(dev),
+         ["ppo_rollout", *K2_STAGES, "ppo_minibatch_grads"])]
+
+
 def update_profile(dev, cfg, arch):
     """``torch.profiler`` over 3 config-4 updates of the recurrent
     (``arch`` "gru" / "lstm") or the CNN trainer (after 2 of warm-up):
@@ -4096,6 +4452,18 @@ def main(argv=()) -> int:
     if profiled:  # a profile instead of the smoke run
         for arch in profiled:
             update_profile(dev, medium_config(), arch)
+        print(nvidia_smi(), flush=True)
+        return 0
+    if "--mesh-cards" in argv:  # one NCCL rank a card, against world 1
+        mesh_cards()
+        print(nvidia_smi(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if "--mesh" in argv:  # the data mesh's two paths alone
+        for name, fn, kernels in mesh_main_paths(dev):
+            main_path(name, fn, kernels)
         print(nvidia_smi(), flush=True)
         return 0
 
@@ -4352,6 +4720,9 @@ def main(argv=()) -> int:
         "pbt", lambda: pbt_phase(dev, cfg), [],
         ["ppo_rollout", "ppo_rollout_cnn", "ppo_rnn_rollout", "ppo_sgd_phase",
          "impala_sgd_phase", "ppo_rnn_sgd_phase", "ppo_cnn_sgd_phase"])
+    # The data mesh (M-8): the meshed learners through the grads kernels.
+    paths.update({name: main_path(name, fn, kernels)
+                  for name, fn, kernels in mesh_main_paths(dev)})
     wall = time.perf_counter() - t_start
     emit({"phase": "module_phases", "seconds": MODULE_SECONDS,
           "total_s": sum(MODULE_SECONDS.values()), "script_s": wall,

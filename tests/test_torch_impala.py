@@ -36,6 +36,7 @@ from warehouse_tpu.pallas.vtrace_sgd import (find_rms_state,
                                              impala_sgd_phase_pallas)
 from warehouse_tpu.train.impala import make_train_impala as j_make_train
 from warehouse_tpu_torch import rng
+from warehouse_tpu_torch.parallel.distributed import process_group
 from warehouse_tpu_torch.env.state import STATE_FIELDS
 from warehouse_tpu_torch.kernels import vtrace_sgd
 from warehouse_tpu_torch.ops.vtrace import vtrace
@@ -341,10 +342,11 @@ def test_train_many_runs_and_plain_step_is_the_cpu_path():
 
 # Each case keeps the id it had while it was refused: the CNN, bf16,
 # global observations and an unroll length that does not divide max_steps
-# are built now, acting per step.
+# are built now, acting per step; a mesh (a world-1 gloo group) takes the
+# meshed route.
 @pytest.mark.parametrize("change, error", [
     pytest.param(dict(arch="cnn"), None, id="change0-NotImplementedError"),
-    (dict(mesh=object()), NotImplementedError),
+    pytest.param(dict(mesh=True), None, id="change1-NotImplementedError"),
     pytest.param(dict(model_dtype="bfloat16"), None,
                  id="change2-NotImplementedError"),
     (dict(micro_batches=2), None),  # ported: the learner runs plain
@@ -356,10 +358,22 @@ def test_train_many_runs_and_plain_step_is_the_cpu_path():
     (dict(num_envs=15), ValueError),
     pytest.param(dict(unroll_length=3), None, id="change9-ValueError"),
 ])
-def test_gates_raise(change, error):
+def test_gates_raise(change, error, tmp_path):
     change = dict(change)
     kw = {k: change.pop(k) for k in ("arch", "mesh") if k in change}
     cfg = CFG.replace(global_obs=change.pop("global_obs", False))
+    if kw.pop("mesh", False):
+        # A world-1 data mesh: the meshed route runs (K6's gradient
+        # averaged over one rank, then the step).
+        with process_group(tmp_path / "store") as mesh:
+            tr = make_train_impala(cfg, BASE.replace(**change), device="cpu",
+                                   mesh=mesh, **kw)
+            assert tr.mesh is mesh
+            assert tr.backends == {"rollout": "plain", "grad": "plain"}
+            rs, m = tr.train_step(tr.init_global(rng.prng_key(0)))
+            assert int(rs.update_idx) == 1 and all(
+                bool(torch.isfinite(v)) for v in m.values())
+        return
     if error is None:
         tcfg = BASE.replace(**change)
         tr = make_train_impala(cfg, tcfg, device="cpu", **kw)

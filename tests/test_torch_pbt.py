@@ -224,7 +224,7 @@ def test_run_pbt_end_to_end(tmp_path):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="M-8"):
+    with pytest.raises(NotImplementedError, match="M-8b"):
         pbt.make_pbt_trainer(small_config(), TrainConfig(**BASE),
                              mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="PBT mutates"):

@@ -30,6 +30,7 @@ from warehouse_tpu.pallas.sgd_rnn import (ppo_rnn_minibatch_grads_pallas,
                                           ppo_rnn_sgd_phase_pallas)
 from warehouse_tpu.train.ppo_rnn import make_train_rnn as j_make_train_rnn
 from warehouse_tpu_torch import rng
+from warehouse_tpu_torch.parallel.distributed import process_group
 from warehouse_tpu_torch.env.state import STATE_FIELDS
 from warehouse_tpu_torch.kernels.sgd_rnn import (
     ppo_rnn_minibatch_grads, ppo_rnn_minibatch_grads_reference,
@@ -229,9 +230,10 @@ def test_rnn_train_many_runs_and_plain_step_is_the_cpu_path():
 
 # Each case keeps the id it had while it was refused: shaping, global
 # observations, the truncation bootstrap and an unroll length that does not
-# divide max_steps are built now, acting per step.
+# divide max_steps are built now, acting per step; a mesh (a world-1 gloo
+# group) takes the meshed route.
 @pytest.mark.parametrize("change, error", [
-    (dict(mesh=object()), NotImplementedError),
+    pytest.param(dict(mesh=True), None, id="change0-NotImplementedError"),
     pytest.param(dict(shaping_coef=0.1), None,
                  id="change1-NotImplementedError"),
     pytest.param(dict(global_obs=True), None,
@@ -249,10 +251,22 @@ def test_rnn_train_many_runs_and_plain_step_is_the_cpu_path():
                  id="change11-ValueError"),
     (dict(arch="mlp"), ValueError),
 ])
-def test_rnn_gates_raise(change, error):
+def test_rnn_gates_raise(change, error, tmp_path):
     change = dict(change)
     kw = {k: change.pop(k) for k in ("arch", "mesh") if k in change}
     cfg = CFG.replace(global_obs=change.pop("global_obs", False))
+    if kw.pop("mesh", False):
+        # A world-1 data mesh: the meshed route runs (K9's gradient
+        # averaged over one rank, then the step).
+        with process_group(tmp_path / "store") as mesh:
+            tr = make_train_rnn(cfg, BASE.replace(**change), device="cpu",
+                                mesh=mesh, **kw)
+            assert tr.mesh is mesh
+            assert tr.backends == {"rollout": "plain", "grad": "plain"}
+            rs, m = tr.train_step(tr.init_global(rng.prng_key(0)))
+            assert int(rs.update_idx) == 1 and all(
+                bool(torch.isfinite(v)) for v in m.values())
+        return
     if error is None:
         tcfg = BASE.replace(**change)
         tr = make_train_rnn(cfg, tcfg, device="cpu", **kw)

@@ -138,9 +138,10 @@ def test_evaluate_policy_matches_jax(policy):
 
 def test_port_imports_without_jax():
     """Every module of the port (the package walked, not listed by hand;
-    the utilities, the dict API and the sweeps named too), chip_smoke.py
-    and the card-only test file import with nothing of jax and nothing of
-    the JAX package ``warehouse_tpu`` in ``sys.modules``."""
+    the utilities, the dict API, the sweeps and the mesh named too),
+    chip_smoke.py, the card-only test file and the file whose function the
+    spawned mesh ranks run import with nothing of jax and nothing of the
+    JAX package ``warehouse_tpu`` in ``sys.modules``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import warehouse_tpu_torch as pkg\n"
@@ -150,12 +151,14 @@ def test_port_imports_without_jax():
         "import warehouse_tpu_torch.train.__main__\n"
         "new = ('utils.profiling', 'utils.debug', 'env.wrapper',\n"
         "       'env.render', 'env.pettingzoo_adapter', 'registry',\n"
-        "       'demo', 'train.sweep', 'train.pbt')\n"
+        "       'demo', 'train.sweep', 'train.pbt', 'parallel.mesh',\n"
+        "       'parallel.distributed')\n"
         "assert all('warehouse_tpu_torch.' + m in sys.modules\n"
         "           for m in new)\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'tests')\n"
         "import test_torch_kernels_gpu\n"
+        "import test_torch_mesh_ranks\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                              'orbax', 'warehouse_tpu')]\n"

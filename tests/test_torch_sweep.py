@@ -185,10 +185,10 @@ def test_run_trial_seed_equals_a_standalone_run():
 
 
 def test_seed_mesh_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="M-8"):
+    with pytest.raises(NotImplementedError, match="M-8b"):
         sweep.run_trial(small_config(), tiny(), 2, seed_mesh=object(),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="M-8"):
+    with pytest.raises(NotImplementedError, match="M-8b"):
         sweep.run_asha(small_config(), tiny(), GRID, seed_mesh=object(),
                        device="cpu")
 

@@ -26,6 +26,7 @@ from warehouse_tpu.config import TrainConfig, small_config
 from warehouse_tpu.pallas.sgd import find_adam_state
 from warehouse_tpu.train.ppo import make_train as j_make_train
 from warehouse_tpu_torch import rng
+from warehouse_tpu_torch.parallel.distributed import process_group
 from warehouse_tpu_torch.env.state import STATE_FIELDS
 from warehouse_tpu_torch.train import make_train, runner_state_from_jax
 from warehouse_tpu_torch.train.__main__ import main as cli_main
@@ -182,11 +183,11 @@ STEP_ROUTE = {"rollout": "step", "grad": "plain"}
 
 # Each case keeps the id it had while it was refused: the attention torso
 # and an unroll length that does not divide max_steps are built now, acting
-# per step.
+# per step; a mesh (a world-1 gloo group) takes the meshed route.
 @pytest.mark.parametrize("change, error", [
     pytest.param(dict(arch="attn"), None, id="change0-NotImplementedError"),
     (dict(policy_groups=(0, 1)), None),  # ported: the trainer is built
-    (dict(mesh=object()), NotImplementedError),
+    pytest.param(dict(mesh=True), None, id="change2-NotImplementedError"),
     (dict(model_dtype="bfloat16"), None),  # ported: the trainer is built
     (dict(minibatch_mode="flat"), None),  # ported: the learner runs plain
     (dict(epoch_shuffle="each"), None),  # ported: the learner runs plain
@@ -198,11 +199,23 @@ STEP_ROUTE = {"rollout": "step", "grad": "plain"}
     (dict(num_envs=15), ValueError),
     pytest.param(dict(unroll_length=3), None, id="change12-ValueError"),
 ])
-def test_gates_raise(change, error):
+def test_gates_raise(change, error, tmp_path):
     change = dict(change)
     kw = {k: change.pop(k) for k in ("arch", "policy_groups", "mesh")
           if k in change}
     cfg = CFG.replace(global_obs=change.pop("global_obs", False))
+    if kw.pop("mesh", False):
+        # A world-1 data mesh: the meshed route runs (K4's gradient
+        # averaged over one rank, then the step).
+        with process_group(tmp_path / "store") as mesh:
+            tr = make_train(cfg, BASE.replace(**change), device="cpu",
+                            mesh=mesh, **kw)
+            assert tr.mesh is mesh
+            assert tr.backends == {"rollout": "plain", "grad": "plain"}
+            rs, m = tr.train_step(tr.init_global(rng.prng_key(0)))
+            assert int(rs.update_idx) == 1 and all(
+                bool(torch.isfinite(v)) for v in m.values())
+        return
     if error is None:
         tr = make_train(cfg, BASE.replace(**change), device="cpu", **kw)
         assert tr.policy_groups == kw.get("policy_groups")

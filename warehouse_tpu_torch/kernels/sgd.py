@@ -142,15 +142,18 @@ def ppo_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
                             num_minibatches: int, clip_eps: float,
                             value_coef: float, max_grad_norm: float,
                             mask_actions: bool, policy_groups=None,
-                            matmul_dtype: str = "float32"):
-    """The plain twin of ``ppo_sgd_phase``, on any device."""
+                            matmul_dtype: str = "float32", mesh=None):
+    """The plain twin of ``ppo_sgd_phase``, on any device; with ``mesh``,
+    that of its meshed route (``ppo_minibatch_grads_reference``'s gradient
+    each step, averaged over the ranks before the step)."""
     return minibatch_epochs(
         params, opt_state,
         loss_fn=_loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
                          mask_actions, policy_groups, matmul_dtype),
         minibatches=env_minibatches(traj, adv_n, targets, num_minibatches),
         num_epochs=num_epochs, update_fn=adam_update_fn(
-            (lr_row, bc1_row, bc2_row), opt_state.count, max_grad_norm))
+            (lr_row, bc1_row, bc2_row), opt_state.count, max_grad_norm),
+        mesh=mesh)
 
 
 def ppo_minibatch_grads_reference(params, traj, adv_n, targets, mb_idx: int,
@@ -663,19 +666,29 @@ def _device_of(traj) -> torch.device:
 def sgd_phase_on_card(run: TrajLaunch, pack_fn, unpack_fn, params,
                       opt_state: AdamState, rows, ent_coef, kl_coeff, *,
                       num_epochs: int, num_minibatches: int,
-                      value_coef: float, max_grad_norm: float):
+                      value_coef: float, max_grad_norm: float, mesh=None):
     """``num_epochs x num_minibatches`` steps of ``run.grads`` then
     ``run.clip_adam`` on the packed params and moments, with no host
-    synchronisation between them: ``(params, opt_state, losses)``."""
+    synchronisation between them: ``(params, opt_state, losses)``. With
+    ``mesh`` (the meshed route, JAX ``train/ppo.py:694-708``) each step's
+    gradient and its four metric sums lie in one buffer, averaged over the
+    mesh's ranks by one ``all_reduce`` between the two launches."""
     M, n_steps = num_minibatches, num_epochs * num_minibatches
     p_flat, m_flat, v_flat = (pack_fn(t) for t in (params, opt_state.mu,
                                                    opt_state.nu))
     rows = [r.to(device=p_flat.device, dtype=torch.float32).contiguous()
             for r in rows]
-    grads = torch.empty_like(p_flat)
     sums = torch.empty(n_steps, 4, dtype=torch.float32, device=p_flat.device)
+    # The gradient, then a step's four metric sums: on a mesh, one buffer
+    # and one collective.
+    n = p_flat.numel()
+    buf = torch.empty(n + 4, dtype=torch.float32, device=p_flat.device)
+    grads = buf[:n]
     for s in range(n_steps):
-        run.grads(p_flat, s % M, grads, sums[s])
+        run.grads(p_flat, s % M, grads, sums[s] if mesh is None else buf[n:])
+        if mesh is not None:
+            mesh.mean_(buf)
+            sums[s] = buf[n:]
         run.clip_adam(p_flat, m_flat, v_flat, grads, rows, s, max_grad_norm)
     losses = _losses(sums.reshape(num_epochs, M, 4), run.mb_n, value_coef,
                      ent_coef, kl_coeff)
@@ -703,12 +716,16 @@ def ppo_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
                   num_epochs: int, num_minibatches: int, clip_eps: float,
                   value_coef: float, max_grad_norm: float,
                   mask_actions: bool, policy_groups=None,
-                  matmul_dtype: str = "float32"):
+                  matmul_dtype: str = "float32", mesh=None):
     """The whole SGD phase: ``(params, opt_state, losses)`` with
     ``losses`` the ``(total, pg, v, ent, kl)`` tuple of ``[E, M]``
     tensors. On CUDA tensors each step is K4's gradient kernels, then K3's
     clip + Adam kernel on the packed params and moments; on CPU tensors
-    the plain twin runs. ``launches`` counts the optimizer kernel."""
+    the plain twin runs. With ``mesh`` it is the meshed learner: the
+    trajectory laid out once (one ``MlpLaunch`` an update), each step's K4
+    gradient and loss sums averaged over the ranks by one ``all_reduce``,
+    then the step (``sgd_phase_on_card``). ``launches`` counts the
+    optimizer kernel."""
     if _device_of(traj).type == "cpu":
         return ppo_sgd_phase_reference(
             params, opt_state, traj, adv_n, targets, lr_row, bc1_row,
@@ -716,7 +733,7 @@ def ppo_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
             value_coef=value_coef, max_grad_norm=max_grad_norm,
             mask_actions=mask_actions, policy_groups=policy_groups,
-            matmul_dtype=matmul_dtype)
+            matmul_dtype=matmul_dtype, mesh=mesh)
     run = MlpLaunch(params, traj, adv_n, targets, ent_coef, kl_coeff,
                     num_minibatches, clip_eps, value_coef, mask_actions,
                     policy_groups=policy_groups, matmul_dtype=matmul_dtype)
@@ -724,7 +741,7 @@ def ppo_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
         run, pack, unpack, params, opt_state, (lr_row, bc1_row, bc2_row),
         ent_coef, kl_coeff, num_epochs=num_epochs,
         num_minibatches=num_minibatches, value_coef=value_coef,
-        max_grad_norm=max_grad_norm)
+        max_grad_norm=max_grad_norm, mesh=mesh)
 
 
 ppo_sgd_phase.launches = 0

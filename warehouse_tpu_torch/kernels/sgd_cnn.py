@@ -427,12 +427,15 @@ def ppo_cnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
                       lr_row, bc1_row, bc2_row, ent_coef, kl_coeff, *,
                       num_epochs: int, num_minibatches: int, clip_eps: float,
                       value_coef: float, max_grad_norm: float,
-                      mask_actions: bool, matmul_dtype: str = "float32"):
+                      mask_actions: bool, matmul_dtype: str = "float32",
+                      mesh=None):
     """The whole CNN SGD phase: ``(params, opt_state, losses)`` with
     ``losses`` the ``(total, pg, v, ent, kl)`` tuple of ``[E, M]``
     tensors. On CUDA tensors each step is K12's gradient kernels, then
     K11's clip + Adam kernel on the packed params and moments; on CPU
-    tensors the plain twin runs. ``launches`` counts the optimizer
+    tensors the plain twin runs. With ``mesh``, the meshed learner: each
+    step's K12 gradient averaged over the ranks before the step
+    (``sgd.sgd_phase_on_card``). ``launches`` counts the optimizer
     kernel."""
     if _device_of(traj).type == "cpu":
         return ppo_cnn_sgd_phase_reference(
@@ -440,7 +443,7 @@ def ppo_cnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
             bc2_row, ent_coef, kl_coeff, num_epochs=num_epochs,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
             value_coef=value_coef, max_grad_norm=max_grad_norm,
-            mask_actions=mask_actions, matmul_dtype=matmul_dtype)
+            mask_actions=mask_actions, matmul_dtype=matmul_dtype, mesh=mesh)
     run = CnnLaunch(params, traj, adv_n, targets, ent_coef, kl_coeff,
                     num_minibatches, clip_eps, value_coef, mask_actions,
                     matmul_dtype=matmul_dtype)
@@ -448,7 +451,7 @@ def ppo_cnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets,
         run, pack_cnn, unpack_cnn, params, opt_state,
         (lr_row, bc1_row, bc2_row), ent_coef, kl_coeff,
         num_epochs=num_epochs, num_minibatches=num_minibatches,
-        value_coef=value_coef, max_grad_norm=max_grad_norm)
+        value_coef=value_coef, max_grad_norm=max_grad_norm, mesh=mesh)
 
 
 ppo_cnn_sgd_phase.launches = 0

@@ -131,8 +131,9 @@ def ppo_rnn_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
                                 num_minibatches: int, clip_eps: float,
                                 value_coef: float, max_grad_norm: float,
                                 mask_actions: bool,
-                                matmul_dtype: str = "float32"):
-    """The plain twin of ``ppo_rnn_sgd_phase``, on any device."""
+                                matmul_dtype: str = "float32", mesh=None):
+    """The plain twin of ``ppo_rnn_sgd_phase``, on any device (with
+    ``mesh``, of its meshed route)."""
     return minibatch_epochs(
         params, opt_state,
         loss_fn=replay_loss_fn(clip_eps, value_coef, ent_coef, kl_coeff,
@@ -140,7 +141,8 @@ def ppo_rnn_sgd_phase_reference(params, opt_state: AdamState, traj, adv_n,
         minibatches=seq_minibatches(traj, adv_n, targets, h0,
                                     num_minibatches),
         num_epochs=num_epochs, update_fn=adam_update_fn(
-            (lr_row, bc1_row, bc2_row), opt_state.count, max_grad_norm))
+            (lr_row, bc1_row, bc2_row), opt_state.count, max_grad_norm),
+        mesh=mesh)
 
 
 def ppo_rnn_minibatch_grads_reference(params, traj, adv_n, targets, h0,
@@ -597,19 +599,22 @@ def ppo_rnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets, h0,
                       lr_row, bc1_row, bc2_row, ent_coef, kl_coeff, *,
                       num_epochs: int, num_minibatches: int, clip_eps: float,
                       value_coef: float, max_grad_norm: float,
-                      mask_actions: bool, matmul_dtype: str = "float32"):
+                      mask_actions: bool, matmul_dtype: str = "float32",
+                      mesh=None):
     """The whole recurrent SGD phase: ``(params, opt_state, losses)`` with
     ``losses`` the ``(total, pg, v, ent, kl)`` tuple of ``[E, M]`` tensors.
     On CUDA tensors each step is K9's gradient kernels, then K8's clip +
     Adam kernel on the packed params and moments; on CPU tensors the plain
-    twin runs. ``launches`` counts the optimizer kernel."""
+    twin runs. With ``mesh``, the meshed learner: each step's K9 gradient
+    averaged over the ranks before the step (``sgd.sgd_phase_on_card``).
+    ``launches`` counts the optimizer kernel."""
     if _device_of(traj).type == "cpu":
         return ppo_rnn_sgd_phase_reference(
             params, opt_state, traj, adv_n, targets, h0, lr_row, bc1_row,
             bc2_row, ent_coef, kl_coeff, num_epochs=num_epochs,
             num_minibatches=num_minibatches, clip_eps=clip_eps,
             value_coef=value_coef, max_grad_norm=max_grad_norm,
-            mask_actions=mask_actions, matmul_dtype=matmul_dtype)
+            mask_actions=mask_actions, matmul_dtype=matmul_dtype, mesh=mesh)
     run = RnnLaunch(params, traj, adv_n, targets, h0, ent_coef, kl_coeff,
                   num_minibatches, clip_eps, value_coef, mask_actions,
                   matmul_dtype=matmul_dtype)
@@ -617,7 +622,7 @@ def ppo_rnn_sgd_phase(params, opt_state: AdamState, traj, adv_n, targets, h0,
         run, pack_rnn, unpack_rnn, params, opt_state,
         (lr_row, bc1_row, bc2_row), ent_coef, kl_coeff,
         num_epochs=num_epochs, num_minibatches=num_minibatches,
-        value_coef=value_coef, max_grad_norm=max_grad_norm)
+        value_coef=value_coef, max_grad_norm=max_grad_norm, mesh=mesh)
 
 
 ppo_rnn_sgd_phase.launches = 0

@@ -139,7 +139,8 @@ def impala_sgd_phase_reference(params, opt_state, traj, last_obs, rows,
                                ent_coef, *, num_passes: int,
                                num_minibatches: int, max_grad_norm: float,
                                micro_batches: int = 1, update_fn=None,
-                               precision: str = "float32", **loss_kw):
+                               precision: str = "float32", mesh=None,
+                               **loss_kw):
     """The plain twin of ``impala_sgd_phase``, on any device. As the plain
     learner phase (ROADMAP M-4) it also takes what no kernel does:
     ``micro_batches`` env-axis micro-batches per minibatch, exact for
@@ -147,7 +148,9 @@ def impala_sgd_phase_reference(params, opt_state, traj, last_obs, rows,
     optimizer's step (``optim.ClipAdam.update_fn``, flat or not; by
     default the step of ``opt_state``'s type with ``rows``), and any
     feed-forward model at ``precision`` (the flax-bf16 forward for a bf16
-    model, as the JAX XLA learner differentiates it)."""
+    model, as the JAX XLA learner differentiates it). With ``mesh`` each
+    step's gradient and losses are averaged over its ranks before the step
+    (the JAX learner's ``pmean``, ``train/impala.py:408-411``)."""
     if update_fn is None:
         update_fn = (rms_update_fn if isinstance(opt_state, RMSState)
                      else adam_update_fn)(rows, opt_state.count,
@@ -156,7 +159,7 @@ def impala_sgd_phase_reference(params, opt_state, traj, last_obs, rows,
         params, opt_state, loss_fn=_loss_fn(ent_coef, precision, **loss_kw),
         minibatches=env_minibatches(traj, last_obs, num_minibatches),
         num_epochs=num_passes, update_fn=update_fn,
-        micro_batches=micro_batches, split_micro=split_envs)
+        micro_batches=micro_batches, split_micro=split_envs, mesh=mesh)
 
 
 def impala_minibatch_grads_reference(params, traj, last_obs, mb_idx: int,
@@ -416,12 +419,16 @@ def impala_sgd_phase(params, opt_state: RMSState | AdamState, traj,
                      last_obs, rows, ent_coef, *, num_passes: int,
                      num_minibatches: int, max_grad_norm: float, gamma: float,
                      rho_clip: float, c_clip: float, value_coef: float,
-                     mask_actions: bool, bootstrap_truncated: bool):
+                     mask_actions: bool, bootstrap_truncated: bool,
+                     mesh=None):
     """The whole learner phase: ``(params, opt_state, losses)`` with
     ``losses`` the ``(total, pg, v, ent)`` tuple of ``[passes, M]``
     tensors. On CUDA tensors each step is K6's gradient kernels, then K5's
     clip + RMSProp or Adam kernel on the packed params and moments; on CPU
-    tensors the plain twin runs. ``launches`` counts the optimizer
+    tensors the plain twin runs. With ``mesh``, the meshed learner (JAX
+    ``train/impala.py:518-527``): the trajectory laid out once, each step's
+    K6 gradient and loss sums in one buffer averaged over the ranks by one
+    ``all_reduce``, then the step. ``launches`` counts the optimizer
     kernel."""
     loss_kw = dict(gamma=gamma, rho_clip=rho_clip, c_clip=c_clip,
                    value_coef=value_coef, mask_actions=mask_actions,
@@ -431,7 +438,7 @@ def impala_sgd_phase(params, opt_state: RMSState | AdamState, traj,
         return impala_sgd_phase_reference(
             params, opt_state, traj, last_obs, rows, ent_coef,
             num_passes=num_passes, num_minibatches=M,
-            max_grad_norm=max_grad_norm, **loss_kw)
+            max_grad_norm=max_grad_norm, mesh=mesh, **loss_kw)
     run = _Launch(params, traj, last_obs, ent_coef, M, **loss_kw)
     p_flat = pack(params)
     rms = isinstance(opt_state, RMSState)
@@ -439,10 +446,17 @@ def impala_sgd_phase(params, opt_state: RMSState | AdamState, traj,
                                                  pack(opt_state.nu)]
     rows = [r.to(device=p_flat.device, dtype=torch.float32).contiguous()
             for r in rows]
-    grads = torch.empty_like(p_flat)
     sums = torch.empty(n_steps, 4, dtype=torch.float32, device=p_flat.device)
+    # The gradient, then a step's four metric sums: on a mesh, one buffer
+    # and one collective.
+    n = p_flat.numel()
+    buf = torch.empty(n + 4, dtype=torch.float32, device=p_flat.device)
+    grads = buf[:n]
     for s in range(n_steps):
-        run.grads(p_flat, s % M, grads, sums[s])
+        run.grads(p_flat, s % M, grads, sums[s] if mesh is None else buf[n:])
+        if mesh is not None:
+            mesh.mean_(buf)
+            sums[s] = buf[n:]
         run.step(p_flat, moments, grads, rows, s, max_grad_norm)
     losses = _losses(sums.reshape(num_passes, M, 4), run.mb_n, value_coef,
                      ent_coef)

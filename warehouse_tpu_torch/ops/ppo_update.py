@@ -174,7 +174,7 @@ def _value_and_grad(loss_fn: Callable, params, mb):
 def minibatch_epochs(params, opt_state, *, loss_fn: Callable,
                      minibatches: Sequence | Callable, num_epochs: int,
                      update_fn: Callable, micro_batches: int = 1,
-                     split_micro: Callable = split_leading):
+                     split_micro: Callable = split_leading, mesh=None):
     """The PPO epoch/minibatch SGD loop.
 
     ``loss_fn(params, minibatch) -> (total, aux)``; ``update_fn(grads,
@@ -188,7 +188,10 @@ def minibatch_epochs(params, opt_state, *, loss_fn: Callable,
     ``(params, opt_state, losses)``, ``losses`` the tuple ``(total,
     *aux)`` of ``[num_epochs, M]`` tensors. IMPALA's passes over its fixed
     env minibatches run through it too. The JAX scaffold's key splits are
-    the caller's (``partition_keys``).
+    the caller's (``partition_keys``). With ``mesh`` (a
+    ``parallel.mesh.DataMesh``) each step's gradient and loss row are
+    averaged over its ranks before the step, where the JAX scaffold
+    ``pmean``s them over ``pmean_axis`` (:241-244).
     """
     rows = []
     for epoch in range(num_epochs):
@@ -205,6 +208,8 @@ def minibatch_epochs(params, opt_state, *, loss_fn: Callable,
                 grads = {k: v / micro_batches for k, v in grads.items()}
                 row = [torch.stack(col).mean()
                        for col in zip(*(r for r, _ in micro))]
+            if mesh is not None:
+                grads, row = mesh.mean_grads(grads, row)
             with torch.no_grad():
                 updates, opt_state = update_fn(grads, opt_state)
                 params = apply_updates(params, updates)

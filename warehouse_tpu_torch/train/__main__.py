@@ -18,6 +18,16 @@ runner state every N updates under ``--checkpoint-dir`` beside a
 ``--profile-dir D`` writes a ``torch.profiler`` trace of the second
 logged chunk of updates (``--log-every`` of them) into D, as the JAX CLI
 traces its second chunk.
+
+Several ranks, one per card (``torchrun --nproc_per_node=N -m
+warehouse_tpu_torch.train ...``, or the JAX coordination variables), train
+on a data mesh as the JAX CLI does over its devices (``warehouse_tpu/train/
+__main__.py:143-191``): the process group forms before anything touches the
+card, each rank steps ``--num-envs / N`` envs, and the gradient is averaged
+over the ranks once per minibatch (``--single-device``: each rank alone);
+``--cpu`` takes a gloo group on a host with cards. Rank 0 alone writes the metrics, the policy meta, the checkpoints (the
+whole state, every rank's envs gathered) and the profile, and evaluates;
+``--resume`` reads on every rank, each taking its part.
 """
 
 from __future__ import annotations
@@ -35,12 +45,13 @@ from ..configs_cli import (add_device_args, add_env_args, device_from_args,
 
 from .. import rng
 from ..evaluate import evaluate_policy, params_policy_fn
+from ..parallel import make_mesh, maybe_initialize_distributed
 from ..serve import write_policy_meta
 from ..utils.profiling import trace
 from .checkpoint import restore_latest, save
 from .impala import make_train_impala
 from .metrics import MetricsLogger
-from .ppo import make_train
+from .ppo import make_train, unshard_runner_state
 from .ppo_rnn import make_train_rnn
 
 
@@ -132,7 +143,9 @@ def main(argv=None) -> None:
                    help="also write the logged scalars as TensorBoard "
                         "event files here")
     p.add_argument("--single-device", action="store_true",
-                   help="the port always runs on one device")
+                   help="with several ranks (torchrun), no data mesh: "
+                        "each rank trains the whole batch alone and rank 0 "
+                        "alone writes files")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the second "
                         "--log-every chunk of updates here")
@@ -163,7 +176,19 @@ def main(argv=None) -> None:
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     log = logging.getLogger("warehouse_tpu_torch")
-    device = device_from_args(args)
+    device = device_from_args(args)  # what was asked for; no card touched
+    # The group forms before anything touches the card (NCCL makes this
+    # rank's card the current one; --cpu takes gloo).
+    maybe_initialize_distributed(device=device)
+    grouped = torch.distributed.is_initialized()
+    mesh = None
+    if (grouped and not args.single_device
+            and torch.distributed.get_world_size() > 1):
+        mesh = make_mesh()
+        log.info("mesh: rank %d of %d (%s)", mesh.rank, mesh.world,
+                 mesh.backend)
+    # The rank that writes files, with a mesh or without one.
+    lead = not grouped or torch.distributed.get_rank() == 0
     env_cfg = env_config_from_args(args)
     tcfg = TrainConfig(
         num_envs=args.num_envs, unroll_length=args.unroll_length,
@@ -191,32 +216,39 @@ def main(argv=None) -> None:
         "policy_groups": policy_groups}
     try:
         trainer = build(env_cfg, tcfg, arch=args.arch, device=device,
-                        **groups_kw)
+                        mesh=mesh, **groups_kw)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from e
     log.info("device: %s  env: %s", device, env_cfg.to_json())
-    if args.checkpoint_every:
+    if args.checkpoint_every and lead:
         # Serving and evaluation rebuild the model from this file alone.
         write_policy_meta(args.checkpoint_dir, env_cfg, tcfg, arch=args.arch,
                           policy_groups=policy_groups)
 
-    rs = trainer.init(rng.prng_key(args.seed, device))
+    key = rng.prng_key(args.seed, device)
+    rs = trainer.init_global(key)
     start_update = 0
     if args.resume:
-        restored = restore_latest(args.checkpoint_dir, rs)
+        # A checkpoint holds the whole state; each rank takes its part.
+        restored = restore_latest(args.checkpoint_dir,
+                                  rs if mesh is None else trainer.init(key))
         if restored is not None:
             start_update, rs = restored
+            rs = trainer.shard_runner_state(rs)
             log.info("resumed from update %d", start_update)
-    metrics = MetricsLogger(args.metrics_path, args.tensorboard_dir)
+    metrics = MetricsLogger(args.metrics_path if lead else None,
+                            args.tensorboard_dir if lead else None)
     metrics.log_meta({"algo": args.algo, "arch": args.arch,
                       "backends": trainer.backends, "device": str(device),
-                      "kernels": device.type == "cuda"})
+                      "kernels": device.type == "cuda",
+                      "world": 1 if mesh is None else mesh.world})
     steps_per_update = tcfg.num_envs * tcfg.unroll_length
     t_last = time.time()
     try:
         for u in range(start_update, tcfg.num_updates, args.log_every):
             n = min(args.log_every, tcfg.num_updates - u)
-            profiled = bool(args.profile_dir) and u == args.log_every
+            profiled = (bool(args.profile_dir) and u == args.log_every
+                        and lead)
             with (trace(args.profile_dir, device) if profiled
                   else contextlib.nullcontext()):
                 rs, ms = trainer.train_many(rs, n)
@@ -231,9 +263,11 @@ def main(argv=None) -> None:
             metrics.log(u + n, scalars)
             if args.checkpoint_every and (
                     (u + n) % args.checkpoint_every == 0):
-                log.info("checkpoint: %s",
-                         save(args.checkpoint_dir, u + n, rs))
-            if args.eval_every and (u + n) % args.eval_every == 0:
+                whole = unshard_runner_state(rs, mesh)  # every rank calls
+                if lead:
+                    log.info("checkpoint: %s",
+                             save(args.checkpoint_dir, u + n, whole))
+            if lead and args.eval_every and (u + n) % args.eval_every == 0:
                 # The trainer's model, at its compute dtype (the JAX CLI's
                 # trainer.model.apply).
                 policy_fn, init_carry = params_policy_fn(

@@ -1,5 +1,5 @@
-"""The IMPALA (V-trace) actor-learner on one device (counterpart of
-``warehouse_tpu/train/impala.py``, single-device path).
+"""The IMPALA (V-trace) actor-learner (counterpart of
+``warehouse_tpu/train/impala.py``).
 
 One update, draw for draw as the JAX trainer with, per phase, its kernel
 (acting ``rollout_backend="pallas"``, :250-273) or its XLA route (acting
@@ -40,13 +40,21 @@ truncation bootstrap, action masking, global observations, any
 ``unroll_length``, ``micro_batches``, ``flat_optimizer``; ``shaping_coef``
 is accepted and has no effect, as in the JAX trainer, which never reads
 it. The TPU block knobs have no counterpart and are ignored;
-``rollout_backend``/``grad_backend="xla"`` raises; a mesh raises
-``NotImplementedError`` naming ROADMAP M-8.
+``rollout_backend``/``grad_backend="xla"`` raises.
+
+With ``mesh`` (a ``parallel.mesh.DataMesh``) each rank owns ``num_envs /
+world`` envs, as ``train.ppo.make_train`` shards them (``init_global``,
+``shard_runner_state``); where the learner kernel takes the configuration,
+each step is K6's gradient on this rank's minibatch, one ``all_reduce`` of
+the gradient and its loss sums, then the clip + RMSProp or Adam kernel
+(JAX's meshed route, :518-527); else the plain phase averages where the
+JAX XLA learner ``pmean``s (:408-411). The reward and the deliveries are
+averaged before the metrics (:435-437).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -63,17 +71,17 @@ from ..models.policy import (FEED_FORWARD, apply, make_model, model_precision,
 from ..optim import (AdamState, ClipAdam, ClipRMSProp, RMSState,
                      make_impala_optimizer, opt_state_from_optax)
 from ..utils.profiling import annotate
-from .ppo import (STEP, _not_ported, _tensor, check_backend_names,
-                  check_kernel_fits, init_parts,
-                  make_backends, run_many, step_rollout)
+from .ppo import (STEP, _tensor, check_backend_names, check_kernel_fits,
+                  init_parts, init_range, local_envs, make_backends,
+                  run_many, shard_keys, shard_runner_state, step_rollout)
 
 
 class ImpalaRunnerState(NamedTuple):
     params: dict               # the model's state_dict-keyed tensors
     opt_state: RMSState | AdamState
-    env_state: EnvState        # [B] envs
+    env_state: EnvState        # [B] envs (a rank's: its B / world)
     obs: torch.Tensor          # float32[B, A, obs_dim]
-    key: torch.Tensor          # int64[2] threefry key words
+    key: torch.Tensor          # int64[2] key words ([world, 2]: whole)
     update_idx: torch.Tensor   # int32[]
 
 
@@ -98,6 +106,9 @@ class ImpalaTrainer(NamedTuple):
     tcfg: TrainConfig
     device: torch.device
     backends: dict | None = None  # {"rollout", "grad"}: make_backends'
+    mesh: Any = None  # the DataMesh, or None on one device
+    init_global: Callable | None = None  # key -> this rank's state
+    shard_runner_state: Callable | None = None  # whole state -> this rank's
 
 
 def rollout_problems_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
@@ -139,14 +150,13 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
     if arch not in FEED_FORWARD:
         raise ValueError(f"IMPALA with arch={arch!r}: it takes the "
                          f"feed-forward policies {FEED_FORWARD}")
-    if mesh is not None:
-        _not_ported("IMPALA with a mesh", "M-8")
     check_backend_names(tcfg)
-    if tcfg.num_envs % tcfg.num_minibatches:
-        raise ValueError(f"num_envs={tcfg.num_envs} must divide into "
+    b = local_envs(tcfg, mesh)
+    if b % tcfg.num_minibatches:
+        raise ValueError(f"B_local={b} must divide into "
                          f"num_minibatches={tcfg.num_minibatches} (IMPALA "
                          "minibatches split the env axis, keeping T intact)")
-    mb_envs = tcfg.num_envs // tcfg.num_minibatches
+    mb_envs = b // tcfg.num_minibatches
     if mb_envs % tcfg.micro_batches:
         raise ValueError(f"micro_batches={tcfg.micro_batches} must divide "
                          f"the per-minibatch env count {mb_envs}")
@@ -171,7 +181,7 @@ def impala_runner_state_from_jax(rs_np, tcfg: TrainConfig,
                                        default_count=update_idx * steps,
                                        params_like=rs_np.params),
         env_state=env, obs=_tensor(rs_np.obs, device),
-        key=_tensor(rs_np.key, device).reshape(2),
+        key=shard_keys(_tensor(rs_np.key, device)),
         update_idx=_tensor(rs_np.update_idx, device).to(torch.int32))
 
 
@@ -179,11 +189,12 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
                       arch: str = "mlp", device=None,
                       mesh=None) -> ImpalaTrainer:
     """Build the IMPALA trainer for ``tcfg`` on ``device``: the card by
-    default, the CPU (plain twins) with ``device="cpu"``."""
+    default, the CPU (plain twins) with ``device="cpu"``; ``mesh`` as
+    ``train.ppo.make_train`` takes it."""
     _check_config(env_cfg, tcfg, arch, mesh)
     device = resolve_device(device)
     cfg = env_cfg.replace(auto_reset=False)
-    B, T, M = tcfg.num_envs, tcfg.unroll_length, tcfg.num_minibatches
+    B, T, M = local_envs(tcfg, mesh), tcfg.unroll_length, tcfg.num_minibatches
     n_steps = tcfg.impala_passes * M
     optimizer = make_impala_optimizer(tcfg)
     model = make_model(cfg, arch, tcfg.hidden_dim, tcfg.num_layers,
@@ -210,8 +221,10 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
             update_fn=optimizer.update_fn(rows, opt_state.count),
             precision=precision, **kw)
 
-    def init(key: torch.Tensor) -> ImpalaRunnerState:
-        params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key)
+    def init(key: torch.Tensor, whole: bool = True) -> ImpalaRunnerState:
+        params, env_state, obs, key = init_parts(
+            cfg, tcfg, arch, device, key, None,
+            *init_range(tcfg, mesh, whole))
         return ImpalaRunnerState(
             params=params, opt_state=optimizer.init(params),
             env_state=env_state, obs=obs, key=key,
@@ -262,18 +275,21 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
                 num_minibatches=M, max_grad_norm=tcfg.max_grad_norm,
                 gamma=tcfg.gamma, rho_clip=tcfg.rho_clip, c_clip=tcfg.c_clip,
                 value_coef=tcfg.value_coef, mask_actions=tcfg.mask_actions,
-                bootstrap_truncated=tcfg.bootstrap_truncated)
+                bootstrap_truncated=tcfg.bootstrap_truncated, mesh=mesh)
         mark("learner")
 
         with annotate("metrics", device):
+            reward = roll.raw_reward.mean(dim=(1, 2)).mean()
+            deliveries = roll.delivered.sum(dtype=torch.float32) / (T * B)
+            if mesh is not None:
+                reward, deliveries = mesh.mean([reward, deliveries])
             metrics = {
                 "loss": losses[0].mean(),
                 "pg_loss": losses[1].mean(),
                 "v_loss": losses[2].mean(),
                 "entropy": losses[3].mean(),
-                "reward_per_step": roll.raw_reward.mean(dim=(1, 2)).mean(),
-                "deliveries_per_env_step":
-                    roll.delivered.sum(dtype=torch.float32) / (T * B),
+                "reward_per_step": reward,
+                "deliveries_per_env_step": deliveries,
             }
         new = ImpalaRunnerState(params=params, opt_state=opt_state,
                                 env_state=env_state, obs=last_obs, key=key,
@@ -301,4 +317,8 @@ def make_train_impala(env_cfg: EnvConfig, tcfg: TrainConfig,
     return ImpalaTrainer(init=init, train_step=train_step,
                          train_many=train_many, plain_step=plain_step,
                          model=model, optimizer=optimizer, env_cfg=cfg,
-                         tcfg=tcfg, device=device, backends=backends)
+                         tcfg=tcfg, device=device, backends=backends,
+                         mesh=mesh,
+                         init_global=lambda key: init(key, whole=mesh is None),
+                         shard_runner_state=lambda rs: shard_runner_state(
+                             rs, mesh))

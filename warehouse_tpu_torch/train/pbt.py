@@ -20,7 +20,7 @@ learning rate with no schedule (optax ``inject_hyperparams``), flat with
 ``flat_optimizer``. The
 JAX PBT reaches no Pallas kernel, so both phases are plain PyTorch on the
 card (``backends`` ``{"rollout": "step", "grad": "plain"}``, in every row).
-A ``(pop, data)`` mesh waits for ROADMAP M-8.
+A ``(pop, data)`` mesh waits for ROADMAP M-8b.
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ def make_pbt_trainer(env_cfg: EnvConfig, tcfg: TrainConfig,
     """
     if mesh is not None:
         raise NotImplementedError("a (pop, data) mesh is not ported yet "
-                                  "(ROADMAP M-8)")
+                                  "(ROADMAP M-8b)")
     device = resolve_device(device)
     env_cfg = env_cfg.replace(auto_reset=True)
     # The JAX PBT builds its model at float32, whatever model_dtype says.

@@ -1,5 +1,4 @@
-"""The PPO actor-learner on one device (counterpart of
-``warehouse_tpu/train/ppo.py``, single-device path).
+"""The PPO actor-learner (counterpart of ``warehouse_tpu/train/ppo.py``).
 
 One update, draw for draw as the JAX trainer with, per phase, its kernel
 (``rollout_backend="pallas"``) or its XLA route:
@@ -70,8 +69,24 @@ learners read the wider observation). On the card ``make_train`` raises
 CNN policy cannot hold (ROADMAP T-5, T-6), whichever route, before any
 launch. The TPU block knobs (``pallas_block``, ``pallas_interpret``,
 ``sgd_block_envs``, ``sgd_rows_per_block``) have no counterpart and are
-ignored; ``rollout_backend``/``grad_backend="xla"`` raises; a mesh raises
-``NotImplementedError`` naming ROADMAP M-8.
+ignored; ``rollout_backend``/``grad_backend="xla"`` raises.
+
+With ``mesh`` (a ``parallel.mesh.DataMesh``: one rank per card, the JAX
+trainer's ``shard_map`` over the ``data`` axis, :748-786) each rank owns
+``num_envs / world`` envs and steps them as above; ``init_global(key)``
+makes this rank's part of ``init(key)`` (its envs' resets from
+``fold_in(ekey, i)`` for its global indices ``i``, the shard key
+``fold_in(skey, rank)``, the params and moments alike on every rank), and
+``shard_runner_state`` cuts a whole state down to it. The learner averages
+each minibatch's gradient and loss terms over the ranks before the step:
+where a learner kernel takes the configuration, the meshed route (JAX
+:694-708) — per step K4's gradient (K12's for the CNN) on this rank's
+minibatch, one ``all_reduce`` of the gradient and its loss sums, then the
+clip + Adam kernel (their twins and ``optim.py`` on the CPU); else the plain
+phase with the average where the JAX scaffold ``pmean``s. The KL mean, the
+reward and the deliveries are averaged too before the metrics (:713-726).
+A world of 1 takes the meshed route all the same, as JAX's 1-device mesh
+does.
 """
 
 from __future__ import annotations
@@ -108,6 +123,7 @@ from ..ops.ppo_update import (NEG_INF, adaptive_kl_coeff, entropy_coef_at,
                               minibatch_epochs, partition_keys, ppo_losses,
                               sample_action_with_gumbel)
 from ..optim import AdamState, ClipAdam, make_optimizer, opt_state_from_optax
+from ..parallel.mesh import DATA_AXIS, gather_batch, shard_batch
 from ..utils.profiling import annotate
 
 PERM_SALT = 0x5EED  # fold_in salt of the env-state permutation key
@@ -120,9 +136,9 @@ KERNEL, PLAIN, STEP = "cuda", "plain", "step"
 class RunnerState(NamedTuple):
     params: dict             # the model's state_dict-keyed tensors
     opt_state: AdamState
-    env_state: EnvState      # [B] envs
+    env_state: EnvState      # [B] envs (a rank's: its B / world)
     obs: torch.Tensor        # float32[B, A, obs_dim]
-    key: torch.Tensor        # int64[2] threefry key words
+    key: torch.Tensor        # int64[2] threefry key words ([world, 2]: whole)
     update_idx: torch.Tensor  # int32[]
     kl_coeff: torch.Tensor   # float32[] adaptive KL penalty
 
@@ -150,10 +166,9 @@ class PPOTrainer(NamedTuple):
     device: torch.device
     policy_groups: tuple | None = None  # agent -> policy group, or None
     backends: dict | None = None  # {"rollout", "grad"}: make_backends'
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+    mesh: Any = None  # the DataMesh, or None on one device
+    init_global: Callable | None = None  # key -> this rank's RunnerState
+    shard_runner_state: Callable | None = None  # whole state -> this rank's
 
 
 def check_backend_names(tcfg: TrainConfig) -> None:
@@ -233,21 +248,29 @@ def grad_problems(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str,
     return problems
 
 
+def local_envs(tcfg: TrainConfig, mesh) -> int:
+    """The envs each rank steps: ``num_envs`` over the mesh's data axis
+    (all of them without a mesh), as the JAX trainers' ``b_local``."""
+    n_shards = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    if tcfg.num_envs % n_shards:
+        raise ValueError(f"num_envs={tcfg.num_envs} not divisible by "
+                         f"{n_shards} shards")
+    return tcfg.num_envs // n_shards
+
+
 def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
     if arch in ("gru", "lstm"):
         raise ValueError(f"arch={arch!r}: the recurrent policies train "
                          "through train.ppo_rnn.make_train_rnn")
     if arch not in FEED_FORWARD:
         raise ValueError(f"unknown arch {arch!r}")
-    if mesh is not None:
-        _not_ported("a mesh", "M-8")
     check_backend_names(tcfg)
-    batch = tcfg.unroll_length * tcfg.num_envs * env_cfg.num_agents
+    b = local_envs(tcfg, mesh)
+    batch = tcfg.unroll_length * b * env_cfg.num_agents
     if batch % tcfg.num_minibatches:
-        raise ValueError("T*B*A must divide into num_minibatches")
-    if tcfg.minibatch_mode == "env" and (
-            tcfg.num_envs % tcfg.num_minibatches):
-        raise ValueError(f"num_envs={tcfg.num_envs} not divisible by "
+        raise ValueError("T*B_local*A must divide into num_minibatches")
+    if tcfg.minibatch_mode == "env" and b % tcfg.num_minibatches:
+        raise ValueError(f"B_local={b} not divisible by "
                          f"num_minibatches={tcfg.num_minibatches}")
     mb_samples = batch // tcfg.num_minibatches
     if mb_samples % tcfg.micro_batches:
@@ -269,7 +292,8 @@ def runner_state_from_jax(rs_np, device=None) -> RunnerState:
     """A JAX ``RunnerState`` of the single-device trainer, its leaves as
     numpy, as the port's: params through ``params_from_flax``, the
     optimizer through ``opt_state_from_optax`` (a flattened one too),
-    uint32 keys as int64 (the shard key ``[1, 2]`` as ``[2]``)."""
+    uint32 keys as int64 (the shard key ``[1, 2]`` as ``[2]``; a meshed
+    state's ``[world, 2]`` kept)."""
     params = {k: v.to(device)
               for k, v in params_from_flax(rs_np.params).items()}
     env = EnvState(**{f: _tensor(getattr(rs_np.env_state, f), device)
@@ -280,9 +304,42 @@ def runner_state_from_jax(rs_np, device=None) -> RunnerState:
                                        params_like=rs_np.params),
         env_state=env,
         obs=_tensor(rs_np.obs, device),
-        key=_tensor(rs_np.key, device).reshape(2),
+        key=shard_keys(_tensor(rs_np.key, device)),
         update_idx=_tensor(rs_np.update_idx, device).to(torch.int32),
         kl_coeff=_tensor(rs_np.kl_coeff, device).to(torch.float32))
+
+
+def shard_keys(key: torch.Tensor) -> torch.Tensor:
+    """A JAX state's shard keys ``[n, 2]``: ``[2]`` for one shard."""
+    return key.reshape(2) if key.numel() == 2 else key
+
+
+# The runner states' fields cut over the data axis (the JAX trainers'
+# ``P(DATA_AXIS)`` specs); ``key`` is one row per rank.
+SHARDED = ("env_state", "obs", "carry")
+
+
+def shard_runner_state(rs, mesh):
+    """A whole runner state (PPO, recurrent or IMPALA) cut to this rank's
+    part: its rows of the env batch, the observations and the carry, and
+    its shard key; ``rs`` itself without a mesh (JAX ``shard_runner_state``,
+    :788-807)."""
+    if mesh is None:
+        return rs
+    cut = {f: shard_batch(mesh, getattr(rs, f)) for f in SHARDED
+           if f in rs._fields}
+    return rs._replace(key=rs.key.reshape(-1, 2)[mesh.rank], **cut)
+
+
+def unshard_runner_state(rs, mesh):
+    """The inverse of ``shard_runner_state``: every rank's part joined in
+    rank order, the keys ``[world, 2]`` (a collective: every rank calls
+    it). For a checkpoint of a meshed run."""
+    if mesh is None:
+        return rs
+    whole = {f: gather_batch(mesh, getattr(rs, f)) for f in SHARDED
+             if f in rs._fields}
+    return rs._replace(key=gather_batch(mesh, rs.key[None]), **whole)
 
 
 def build_model(cfg: EnvConfig, tcfg: TrainConfig, arch: str, device,
@@ -299,22 +356,37 @@ def build_model(cfg: EnvConfig, tcfg: TrainConfig, arch: str, device,
 
 
 def init_parts(cfg: EnvConfig, tcfg: TrainConfig, arch: str, device,
-               key: torch.Tensor, policy_groups=None):
+               key: torch.Tensor, policy_groups=None, envs=None, shard=0):
     """The start of a run from ``key``, as the JAX trainers' ``init``:
     ``split(key, 3)``; the params from a ``torch.Generator`` seeded by the
     first key (flax's bits are not reproduced; with ``policy_groups`` the
     groups' sub-models in group order); env b reset from ``fold_in(ekey,
-    b)``; the shard key ``fold_in(skey, 0)``. Returns ``(params,
-    env_state, obs, key)``."""
+    b)`` for b in ``envs`` (a ``range``, all ``num_envs`` by default); the
+    shard key ``fold_in(skey, shard)`` (``shard`` an int, or a tensor of
+    them for one key each). Returns ``(params, env_state, obs, key)``."""
     pkey, ekey, skey = rng.split(key.to(device), 3)
     seed = int(pkey[0]) << 32 | int(pkey[1])
     init_model = build_model(cfg, tcfg, arch, device, policy_groups,
                              torch.Generator().manual_seed(seed))
     params = {k: v.detach().clone()
               for k, v in init_model.state_dict().items()}
+    envs = range(tcfg.num_envs) if envs is None else envs
     env_state, obs = engine.reset(
-        cfg, rng.fold_in(ekey, torch.arange(tcfg.num_envs, device=device)))
-    return params, env_state, obs, rng.fold_in(skey, 0)
+        cfg, rng.fold_in(ekey, torch.arange(envs.start, envs.stop,
+                                            device=device)))
+    return params, env_state, obs, rng.fold_in(skey, shard)
+
+
+def init_range(tcfg: TrainConfig, mesh, whole: bool):
+    """``init_parts``' ``(envs, shard)``: the whole run's (every env; the
+    keys of all ``world`` shards with a mesh, one key without), or, with
+    ``whole`` False, this rank's (its envs and its shard key)."""
+    if mesh is None:
+        return None, 0
+    if whole:
+        return None, torch.arange(mesh.world)
+    rows = mesh.rows(tcfg.num_envs)
+    return range(rows.start, rows.stop), mesh.rank
 
 
 def run_many(train_step: Callable, rs, n: int):
@@ -326,12 +398,19 @@ def run_many(train_step: Callable, rs, n: int):
     return rs, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 
-def update_metrics(tcfg: TrainConfig, losses, kl_coeff, roll):
+def update_metrics(tcfg: TrainConfig, losses, kl_coeff, roll, mesh=None):
     """The metrics of one PPO update and the adapted KL coefficient, from
     the SGD phase's ``losses`` and the chunk's rollout
-    (``warehouse_tpu/train/ppo.py:713-746``)."""
+    (``warehouse_tpu/train/ppo.py:713-746``); with ``mesh`` the KL mean, the
+    reward and the deliveries averaged over its ranks (one
+    ``all_reduce``) before the KL coefficient adapts."""
     T, B = roll.delivered.shape
     mean_kl = losses[4].mean()
+    reward = roll.raw_reward.mean(dim=(1, 2)).mean()
+    deliveries = roll.delivered.sum(dtype=torch.float32) / (T * B)
+    if mesh is not None:
+        mean_kl, reward, deliveries = mesh.mean([mean_kl, reward,
+                                                 deliveries])
     kl_coeff = adaptive_kl_coeff(tcfg, kl_coeff, mean_kl)
     return {
         "loss": losses[0].mean(),
@@ -340,9 +419,8 @@ def update_metrics(tcfg: TrainConfig, losses, kl_coeff, roll):
         "entropy": losses[3].mean(),
         "kl": mean_kl,
         "kl_coeff": kl_coeff,
-        "reward_per_step": roll.raw_reward.mean(dim=(1, 2)).mean(),
-        "deliveries_per_env_step":
-            roll.delivered.sum(dtype=torch.float32) / (T * B),
+        "reward_per_step": reward,
+        "deliveries_per_env_step": deliveries,
     }, kl_coeff
 
 
@@ -432,7 +510,7 @@ def step_rollout(cfg: EnvConfig, tcfg: TrainConfig, policy: Callable,
 def ppo_plain_phase(tcfg: TrainConfig, optimizer: ClipAdam, params,
                     opt_state, key, traj, adv, targets, ent_coef, kl_coeff,
                     state_shuffled: bool, policy_groups=None,
-                    precision: str = "float32"):
+                    precision: str = "float32", mesh=None):
     """The PPO SGD phase of the JAX XLA route (``train/ppo.py:481-602``)
     in plain PyTorch, on any device: the minibatches of ``minibatch_mode``
     (env-major env ranges, permuted per partition unless the state was
@@ -440,7 +518,8 @@ def ppo_plain_phase(tcfg: TrainConfig, optimizer: ClipAdam, params,
     epoch (``epoch_shuffle``), ``micro_batches`` micro-gradients averaged
     before each step (advantages then normalized per minibatch, else in the
     loss), ``optimizer``'s step (flat or not), autograd through
-    ``models.policy.apply`` at ``precision``. ``adv`` are GAE's raw
+    ``models.policy.apply`` at ``precision``, with ``mesh`` each step's
+    gradient and losses averaged over its ranks. ``adv`` are GAE's raw
     advantages. Returns ``(params, opt_state, key, losses)``, ``key`` after
     the scaffold's splits."""
     T, B, A = traj.action.shape
@@ -491,7 +570,7 @@ def ppo_plain_phase(tcfg: TrainConfig, optimizer: ClipAdam, params,
     params, opt_state, losses = minibatch_epochs(
         params, opt_state, loss_fn=loss_fn, minibatches=minibatches,
         num_epochs=E, update_fn=optimizer.update_fn(rows, opt_state.count),
-        micro_batches=k)
+        micro_batches=k, mesh=mesh)
     return params, opt_state, key, losses
 
 
@@ -521,11 +600,12 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
     """Build the trainer for ``tcfg`` on ``device``: the card by default,
     the CPU (plain twins) with ``device="cpu"``. ``policy_groups``: a tuple
     of one group id ``0..K-1`` per agent, K independent feed-forward
-    policies."""
+    policies. ``mesh``: a ``parallel.mesh.DataMesh``; ``num_envs`` is then
+    the whole batch over its ranks."""
     _check_config(env_cfg, tcfg, arch, mesh)
     device = resolve_device(device)
     cfg = env_cfg.replace(auto_reset=False)
-    B, T, M = tcfg.num_envs, tcfg.unroll_length, tcfg.num_minibatches
+    B, T, M = local_envs(tcfg, mesh), tcfg.unroll_length, tcfg.num_minibatches
     n_steps = tcfg.ppo_epochs * M
     optimizer = make_optimizer(tcfg)
     if policy_groups is not None:
@@ -548,16 +628,17 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
     # Each sample's group by its agent (broadcast over [..., B, A]).
     gids = None if policy_groups is None else torch.tensor(policy_groups,
                                                            device=device)
-    sgd_kw = {"matmul_dtype": tcfg.model_dtype}
+    sgd_kw = {"matmul_dtype": tcfg.model_dtype, "mesh": mesh}
     if policy_groups is not None:
         sgd_kw["policy_groups"] = policy_groups
     # The bootstrap and last values' forward, and the per-step phase's:
     # the model's.
     precision = model_precision(tcfg.model_dtype)
 
-    def init(key: torch.Tensor) -> RunnerState:
-        params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key,
-                                                 policy_groups)
+    def init(key: torch.Tensor, whole: bool = True) -> RunnerState:
+        params, env_state, obs, key = init_parts(
+            cfg, tcfg, arch, device, key, policy_groups,
+            *init_range(tcfg, mesh, whole))
         return RunnerState(
             params=params, opt_state=optimizer.init(params),
             env_state=env_state, obs=obs, key=key,
@@ -630,7 +711,7 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
                 params, opt_state, key, losses = ppo_plain_phase(
                     tcfg, optimizer, rs.params, rs.opt_state, key, traj, adv,
                     targets, ent_coef, rs.kl_coeff, state_shuffle,
-                    policy_groups, precision)
+                    policy_groups, precision, mesh)
             else:
                 params, opt_state, losses = sgd_fn(
                     rs.params, rs.opt_state, traj, adv_n, targets, *rows,
@@ -645,7 +726,7 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
 
         with annotate("metrics", device):
             metrics, kl_coeff = update_metrics(tcfg, losses, rs.kl_coeff,
-                                               roll)
+                                               roll, mesh)
         new = RunnerState(params=params, opt_state=opt_state,
                           env_state=env_state, obs=last_obs, key=key,
                           update_idx=rs.update_idx + 1, kl_coeff=kl_coeff)
@@ -672,4 +753,7 @@ def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
                       train_many=train_many, plain_step=plain_step,
                       model=model, optimizer=optimizer, env_cfg=cfg,
                       tcfg=tcfg, device=device, policy_groups=policy_groups,
-                      backends=backends)
+                      backends=backends, mesh=mesh,
+                      init_global=lambda key: init(key, whole=mesh is None),
+                      shard_runner_state=lambda rs: shard_runner_state(
+                          rs, mesh))

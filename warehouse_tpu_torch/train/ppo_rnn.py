@@ -1,5 +1,5 @@
-"""The recurrent (GRU / LSTM) PPO actor-learner on one device (counterpart
-of ``warehouse_tpu/train/ppo_rnn.py``, single-device path).
+"""The recurrent (GRU / LSTM) PPO actor-learner (counterpart of
+``warehouse_tpu/train/ppo_rnn.py``).
 
 One update, draw for draw as the JAX trainer with, per phase, its kernel
 (acting ``rollout_backend="pallas"``, :242-286; learning :337-362) or its
@@ -53,8 +53,16 @@ carry is bf16: K7's carry is rounded back to bf16 after the boundary reset
 of every chunk, K7 and the learner kernels read it cast up to float32,
 the per-step phase and the last value (and the plain phase's replay) run
 the flax-bf16 forward on it, and the learner kernels K8/K9 take
-``matmul_dtype="bfloat16"``; acting in K7 stays float32. A mesh raises
-``NotImplementedError`` naming ROADMAP M-8.
+``matmul_dtype="bfloat16"``; acting in K7 stays float32.
+
+With ``mesh`` (a ``parallel.mesh.DataMesh``) each rank owns ``num_envs /
+world`` envs and their carry, as ``train.ppo.make_train`` shards them
+(``init_global``, ``shard_runner_state``; JAX :563-608); where the learner
+kernel takes the configuration, each step is K9's gradient on this rank's
+minibatch, one ``all_reduce`` of the gradient and its loss sums, then the
+clip + Adam kernel (JAX's meshed route, :543-552); else the plain replay
+phase averages where the JAX scaffold ``pmean``s (:433). The KL mean, the
+reward and the deliveries are averaged before the metrics (:444-454).
 """
 
 from __future__ import annotations
@@ -79,18 +87,19 @@ from ..models.policy import (apply_rnn, initial_carry, make_model,
 from ..ops.gae import gae
 from ..ops.ppo_update import entropy_coef_at, minibatch_epochs, partition_keys
 from ..optim import AdamState, ClipAdam, make_optimizer, opt_state_from_optax
-from .ppo import (PERM_SALT, STEP, Transition, _not_ported, _tensor,
-                  check_backend_names, init_parts, make_backends, run_many,
-                  step_rollout, update_metrics)
+from .ppo import (PERM_SALT, STEP, Transition, _tensor, check_backend_names,
+                  init_parts, init_range, local_envs, make_backends, run_many,
+                  shard_keys, shard_runner_state, step_rollout,
+                  update_metrics)
 
 
 class RunnerStateRNN(NamedTuple):
     params: dict             # ActorCriticRNN.state_dict-keyed tensors
     opt_state: AdamState
-    env_state: EnvState      # [B] envs
+    env_state: EnvState      # [B] envs (a rank's: its B / world)
     obs: torch.Tensor        # float32[B, A, obs_dim]
     carry: Any               # [B, A, H] at the model's dtype, or (c, h)
-    key: torch.Tensor        # int64[2] threefry key words
+    key: torch.Tensor        # int64[2] threefry key words ([world, 2]: whole)
     update_idx: torch.Tensor  # int32[]
     kl_coeff: torch.Tensor   # float32[] adaptive KL penalty
 
@@ -107,6 +116,9 @@ class PPORNNTrainer(NamedTuple):
     arch: str
     device: torch.device
     backends: dict | None = None  # {"rollout", "grad"}: make_backends'
+    mesh: Any = None  # the DataMesh, or None on one device
+    init_global: Callable | None = None  # key -> this rank's RunnerStateRNN
+    shard_runner_state: Callable | None = None  # whole state -> this rank's
 
 
 def rollout_problems_rnn(env_cfg: EnvConfig, tcfg: TrainConfig) -> list:
@@ -145,14 +157,12 @@ def _check_config(env_cfg: EnvConfig, tcfg: TrainConfig, arch, mesh) -> None:
     if arch not in ("gru", "lstm"):
         raise ValueError(f"make_train_rnn: arch={arch!r}; the recurrent "
                          "trainer takes 'gru' or 'lstm'")
-    if mesh is not None:
-        _not_ported("recurrent PPO with a mesh", "M-8")
     check_backend_names(tcfg)
-    if tcfg.num_envs % tcfg.num_minibatches:
+    b = local_envs(tcfg, mesh)
+    if b % tcfg.num_minibatches:
         raise ValueError(
-            "recurrent PPO minibatches slice the env axis: num_envs="
-            f"{tcfg.num_envs} must divide into {tcfg.num_minibatches} "
-            "minibatches")
+            f"recurrent PPO minibatches slice the env axis: B_local={b} "
+            f"must divide into {tcfg.num_minibatches} minibatches")
 
 
 def _carry_map(fn, carry):
@@ -165,7 +175,8 @@ def runner_state_rnn_from_jax(rs_np, device=None) -> RunnerStateRNN:
     numpy, as the port's: params through ``params_from_flax``, the
     optimizer through ``opt_state_from_optax``, the carry leaf for leaf
     (the LSTM's ``(c, h)`` tuple kept), uint32 keys as int64 (the shard key
-    ``[1, 2]`` as ``[2]``), on ``device`` (like ``runner_state_from_jax``,
+    ``[1, 2]`` as ``[2]``, a meshed state's ``[world, 2]`` kept), on
+    ``device`` (like ``runner_state_from_jax``,
     where the numpy leaves are when ``None``)."""
     params = {k: v.to(device)
               for k, v in params_from_flax(rs_np.params).items()}
@@ -181,14 +192,15 @@ def runner_state_rnn_from_jax(rs_np, device=None) -> RunnerStateRNN:
         env_state=env,
         obs=_tensor(rs_np.obs, device),
         carry=carry,
-        key=_tensor(rs_np.key, device).reshape(2),
+        key=shard_keys(_tensor(rs_np.key, device)),
         update_idx=_tensor(rs_np.update_idx, device).to(torch.int32),
         kl_coeff=_tensor(rs_np.kl_coeff, device).to(torch.float32))
 
 
 def rnn_plain_phase(tcfg: TrainConfig, optimizer: ClipAdam, params,
                     opt_state, key, traj, adv, targets, h0, ent_coef,
-                    kl_coeff, state_shuffled: bool, precision: str):
+                    kl_coeff, state_shuffled: bool, precision: str,
+                    mesh=None):
     """The recurrent SGD phase of the JAX XLA route
     (``train/ppo_rnn.py:364-440``) in plain PyTorch: minibatches of B/M
     envs' whole sequences with their slice of the rollout-start carry
@@ -197,9 +209,10 @@ def rnn_plain_phase(tcfg: TrainConfig, optimizer: ClipAdam, params,
     update or per epoch, ``epoch_shuffle``); the T-step replay through
     ``apply_rnn`` at ``precision``, the carry zeroed after each step where
     ``traj.done`` (an episode that ended inside the chunk), the PPO loss
-    with advantages normalized over the minibatch, ``optimizer``'s step.
-    ``adv`` are GAE's raw advantages. Returns ``(params, opt_state, key,
-    losses)``."""
+    with advantages normalized over the minibatch, ``optimizer``'s step
+    (with ``mesh``, after the gradient and losses are averaged over its
+    ranks). ``adv`` are GAE's raw advantages. Returns ``(params, opt_state,
+    key, losses)``."""
     B, M, E = traj.obs.shape[1], tcfg.num_minibatches, tcfg.ppo_epochs
     w = B // M
     fields = (traj.obs, traj.action, traj.log_prob, traj.value, adv,
@@ -225,18 +238,20 @@ def rnn_plain_phase(tcfg: TrainConfig, optimizer: ClipAdam, params,
                                normalize_adv=True),
         minibatches=((lambda e: partition(pkeys[e])) if each
                      else partition(pkeys[0])),
-        num_epochs=E, update_fn=optimizer.update_fn(rows, opt_state.count))
+        num_epochs=E, update_fn=optimizer.update_fn(rows, opt_state.count),
+        mesh=mesh)
     return params, opt_state, key, losses
 
 
 def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
                    device=None, mesh=None) -> PPORNNTrainer:
     """Build the recurrent trainer for ``tcfg`` on ``device``: the card by
-    default, the CPU (plain twins) with ``device="cpu"``."""
+    default, the CPU (plain twins) with ``device="cpu"``; ``mesh`` as
+    ``train.ppo.make_train`` takes it."""
     _check_config(env_cfg, tcfg, arch, mesh)
     device = resolve_device(device)
     cfg = env_cfg.replace(auto_reset=False)
-    B, T, M = tcfg.num_envs, tcfg.unroll_length, tcfg.num_minibatches
+    B, T, M = local_envs(tcfg, mesh), tcfg.unroll_length, tcfg.num_minibatches
     A, H = cfg.num_agents, tcfg.hidden_dim
     n_steps = tcfg.ppo_epochs * M
     optimizer = make_optimizer(tcfg)
@@ -255,12 +270,15 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
         if grad_kernel:
             check_rnn_learner_fits(model.state_dict(), cfg.obs_dim, device)
 
-    def init(key: torch.Tensor) -> RunnerStateRNN:
-        params, env_state, obs, key = init_parts(cfg, tcfg, arch, device, key)
+    def init(key: torch.Tensor, whole: bool = True) -> RunnerStateRNN:
+        params, env_state, obs, key = init_parts(
+            cfg, tcfg, arch, device, key, None,
+            *init_range(tcfg, mesh, whole))
         return RunnerStateRNN(
             params=params, opt_state=optimizer.init(params),
             env_state=env_state, obs=obs,
-            carry=initial_carry(arch, (B, A), H, device, dtype), key=key,
+            carry=initial_carry(arch, (obs.shape[0], A), H, device, dtype),
+            key=key,
             update_idx=torch.zeros((), dtype=torch.int32, device=device),
             kl_coeff=torch.tensor(tcfg.kl_coeff, dtype=torch.float32,
                                   device=device))
@@ -318,7 +336,8 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
             mark("gae")
             params, opt_state, key, losses = rnn_plain_phase(
                 tcfg, optimizer, rs.params, rs.opt_state, key, traj, adv,
-                targets, h0, ent_coef, rs.kl_coeff, state_shuffle, precision)
+                targets, h0, ent_coef, rs.kl_coeff, state_shuffle, precision,
+                mesh)
         else:
             adv_n = normalize_adv_env_minibatch(adv, M)
             rows = optimizer.step_rows(rs.opt_state.count, n_steps, device)
@@ -330,12 +349,13 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
                 ent_coef, rs.kl_coeff, num_epochs=tcfg.ppo_epochs,
                 num_minibatches=M, clip_eps=tcfg.clip_eps,
                 value_coef=tcfg.value_coef, max_grad_norm=tcfg.max_grad_norm,
-                mask_actions=tcfg.mask_actions, matmul_dtype=dtype)
+                mask_actions=tcfg.mask_actions, matmul_dtype=dtype, mesh=mesh)
             # The key split the JAX scaffold spends on its partition.
             key, _ = partition_keys(key, tcfg.ppo_epochs, False)
         mark("sgd")
 
-        metrics, kl_coeff = update_metrics(tcfg, losses, rs.kl_coeff, roll)
+        metrics, kl_coeff = update_metrics(tcfg, losses, rs.kl_coeff, roll,
+                                           mesh)
         new = RunnerStateRNN(params=params, opt_state=opt_state,
                              env_state=env_state, obs=last_obs, carry=last_h,
                              key=key, update_idx=rs.update_idx + 1,
@@ -365,4 +385,7 @@ def make_train_rnn(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "gru",
                          train_many=train_many, plain_step=plain_step,
                          model=model, optimizer=optimizer, env_cfg=cfg,
                          tcfg=tcfg, arch=arch, device=device,
-                         backends=backends)
+                         backends=backends, mesh=mesh,
+                         init_global=lambda key: init(key, whole=mesh is None),
+                         shard_runner_state=lambda rs: shard_runner_state(
+                             rs, mesh))

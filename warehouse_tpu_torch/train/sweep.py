@@ -11,7 +11,7 @@ metrics ``[num_seeds, num_updates]``. Seed s starts from
 selection by ``select_metric`` over the last ``last_k`` updates and
 ``mode``, random search and ASHA's rungs and promotions are the JAX
 module's; each row also records the trial's ``backends``. A
-``seed_mesh`` (the seeds sharded over devices) waits for ROADMAP M-8.
+``seed_mesh`` (the seeds sharded over devices) waits for ROADMAP M-8b.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def _no_seed_mesh(seed_mesh) -> None:
     if seed_mesh is not None:
         raise NotImplementedError(
             "seed_mesh: a sweep over several devices is not ported yet "
-            "(ROADMAP M-8)")
+            "(ROADMAP M-8b)")
 
 
 def _grid_points(grid: dict[str, Sequence[Any]]) -> list[dict[str, Any]]:

@@ -4,8 +4,9 @@
 ``check_state_invariants`` checks the docs/SEMANTICS.md §2 invariants of a
 batched state, one verdict per env; ``enable_debug_mode`` turns on
 autograd's anomaly detection (NaN trapping in the backward passes).
-``assert_replicated_in_sync`` and ``visualize_sharding`` come with the
-multi-device port (ROADMAP M-8).
+``assert_replicated_in_sync`` catches ranks of a data mesh whose
+replicated state diverged; ``visualize_sharding`` prints which rank holds
+which rows of a sharded batch.
 """
 
 from __future__ import annotations
@@ -60,3 +61,63 @@ def check_state_invariants(cfg: EnvConfig, state: EnvState) -> torch.Tensor:
                              True).all(-1)
     return (pos_ok & no_overlap & pair_ok & carry_ok & rpair_ok & empty_ok
             & transit_ok)
+
+
+def _leaves(tree, path=""):
+    """``(path, tensor)`` for every leaf of a tree of dicts, tuples and
+    tensors; a number becomes a 0-d tensor."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    elif isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, (bool, int, float)):
+        yield path, torch.tensor(tree)
+
+
+def assert_replicated_in_sync(tree, mesh) -> None:
+    """Check that every leaf of ``tree`` is bit-identical on every rank of
+    ``mesh`` (a collective: every rank calls it), the divergence detector
+    of JAX ``utils/debug.py:67``. The leaves' bytes travel in one
+    all-gather; a leaf that differs between two ranks raises
+    ``AssertionError`` on every rank, naming it."""
+    leaves = [(p, x.detach().cpu().contiguous().reshape(-1).view(torch.uint8))
+              for p, x in _leaves(tree)]
+    flat = torch.cat([b for _, b in leaves]) if leaves else torch.zeros(
+        0, dtype=torch.uint8)
+    sizes = mesh.all_gather(torch.tensor([flat.numel()]))
+    if any(int(s) != flat.numel() for s in sizes):
+        raise AssertionError("replicated leaf diverged across shards: the "
+                             f"trees differ in size ({[int(s) for s in sizes]}"
+                             " bytes)")
+    gathered = mesh.all_gather(flat)
+    off = 0
+    for path, b in leaves:
+        n = b.numel()
+        if any(not torch.equal(g[off:off + n], gathered[0][off:off + n])
+               for g in gathered[1:]):
+            raise AssertionError(
+                f"replicated leaf diverged across shards: {path or '/'}")
+        off += n
+
+
+def visualize_sharding(x: torch.Tensor, mesh) -> str:
+    """Print, and return, which rank holds which rows of the batch that
+    ``x`` (this rank's rows) is a shard of (a collective), as JAX
+    ``utils/debug.py:80`` draws a sharded array."""
+    counts = [int(c) for c in mesh.all_gather(torch.tensor([x.shape[0]]))]
+    starts = [sum(counts[:r]) for r in range(len(counts))]
+    lines = [f"{sum(counts)} rows x {tuple(x.shape[1:])} over "
+             f"'data' ({mesh.world} ranks)"]
+    lines += [f"  rank {r}: rows [{lo}, {lo + n})"
+              + (" <- this rank" if r == mesh.rank else "")
+              for r, (lo, n) in enumerate(zip(starts, counts))]
+    text = "\n".join(lines)
+    print(text)
+    return text
