@@ -2,7 +2,11 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
-It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
+It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` (the
+library, and at once the env kernels K1, K2, K7 and K10 for each
+(agents, queue) pair of PAIRS outside the presets, each pair's library
+with its build seconds and K1's registers and stack on a line of its own)
+and
 
 1. ``k1_check``: holds the draw stream of ``threefry.cuh`` alone (one
    launch writes T = 128 ticks of spawn draws and the final keys) bit-equal
@@ -320,7 +324,10 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    ``greedy_bfs`` (its env-steps/s and ANSI render), then one served by
    ``Policy.compute_actions_dict`` from a checkpoint that 3 config-4 updates
    write; each episode's returns and deliveries equal to
-   ``evaluate_policy``'s on the same env key and policy;
+   ``evaluate_policy``'s on the same env key and policy; then the NumPy
+   oracle's backend (``backend="oracle"``, M-10) against ``"torch"`` on the
+   card over one episode under the oracle's ``greedy_bfs``: observations,
+   rewards, dones, infos and renders equal at every step;
 42. ``sweep`` (main path): ``train.sweep.run_sweep`` over 2 learning rates x
    2 seeds at 256 envs, T = 16, 10 updates (K2 + K3 / K4), each seed's
    metrics bit-equal to a standalone ``make_train(...).train_many`` from
@@ -347,6 +354,28 @@ It builds the CUDA kernels from ``warehouse_tpu_torch/kernels/csrc/`` and
    env-step finite and positive; the ranks' launch counts added to the
    main path's.
    Then the wall seconds of items 39-45 and their share of the script's.
+46. ``pair_checks``: the env kernels at the pairs outside the presets
+   (ROADMAP T-5), each from its pair's library: K1 at (6, 8) on medium (B =
+   4096) and at (12, 24) on the 15x15 map (B = 8192, BASELINE config 3's),
+   one greedy episode bit-equal to its twin on every state field, then one
+   tick a launch for the whole episode with the first 8 envs bit-equal at
+   every tick to the port's NumPy oracle (``OracleEnv`` +
+   ``oracle.greedy_actions`` on ``TorchDrawSource`` from each env's key:
+   state, key, deliveries and reward-sum bits) and the chained ticks equal
+   to the one launch, timed beside its twin with its ``k1_int_ops`` bound;
+   K2, K7 (GRU) and K10 at (6, 8) and K2 at (12, 24) without groups and with
+   one policy per agent, with ``k2_check`` / ``k7_check``'s checks; K3 /
+   K4 with that 12-policy map (1024 envs) with ``k3_check`` / ``k4_check``'s;
+47. the pairs' main paths: ``pair_ppo_train`` (``python -m
+   warehouse_tpu_torch.train --env medium --env-config '{"num_agents":
+   6}'``, 3 updates in this process: K2 + K3 / K4, the metrics file's
+   backends the kernels'), ``pair_gru_train`` (K7 + K8 / K9) and
+   ``pair_cnn_train`` (K10 + K11 / K12) at (6, 8), ``pair_groups_train``
+   (one policy per agent at (12, 24), 1024 envs: grouped K2 + K3 / K4),
+   each 3 updates with the first against the plain path's, and
+   ``pair_evaluate`` (``python -m warehouse_tpu_torch.evaluate --policy
+   greedy`` at both pairs, K1's batch there: one K1 launch an episode
+   batch, its metrics equal to ``evaluate_greedy``'s).
 
 Every main path but ``shelves_cnn_groups_train``, ``rllib_cadence_train``,
 ``cnn_per_agent_train`` and ``cnn_global_groups_train`` (acting kernel,
@@ -376,7 +405,8 @@ There is no CPU path: without a CUDA device the script exits non-zero.
 ``python3 chip_smoke.py --profile-rnn`` (``--profile-cnn``) runs, instead
 of all this, a ``torch.profiler`` trace of 3 recurrent updates per cell (3
 CNN updates) and prints the device time per update by kernel name;
-``--mesh`` runs items 44-45 alone; ``--mesh-cards``, on a machine with
+``--mesh`` runs items 44-45 alone, ``--pairs`` items 46-47 (after the
+build); ``--mesh-cards``, on a machine with
 several cards, runs PPO at config 4 with 4096 envs a rank on a world-1
 NCCL group, on one NCCL rank per card, and on one rank per card with one
 intra-op thread each, the ranks in sync after every update, and prints
@@ -386,9 +416,11 @@ beside world 1's.
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -399,6 +431,7 @@ import torch
 
 from warehouse_tpu_torch import (TrainConfig, large_config, medium_config,
                                  registry, rng, shelves_config, small_config)
+from warehouse_tpu_torch import oracle as oracle_mod
 from warehouse_tpu_torch.baselines.greedy import greedy_bfs_actions
 from warehouse_tpu_torch.env.batch import (observe_batch, reset_batch,
                                            reset_truncated_batch,
@@ -3775,10 +3808,49 @@ def dict_api_check(dev, cfg):
     ret, deliveries, _ = wrapper_episode(
         env, lambda obs: policy.compute_actions_dict(env, obs)[0], key)
     ckpt_ev = same_episode("checkpoint", ret, deliveries, ev)
+    oracle = oracle_backend_check(dev, key)
     emit({"phase": "dict_api", "env": "warehouse-medium", "steps": steps,
           "env_steps_per_sec": steps / wall, "episode_s": wall,
           "greedy_bfs": bfs_ev, "checkpoint": ckpt_ev,
-          "render_lines": len(text.splitlines())})
+          "render_lines": len(text.splitlines()), "oracle_backend": oracle})
+
+
+def oracle_backend_check(dev, key):
+    """``registry.make_env("warehouse-medium", backend="oracle")`` (the
+    NumPy oracle, M-10) against ``backend="torch"`` on the card over one
+    episode from the env key ``key``, the oracle's ``greedy_bfs`` acting
+    for both: observations, rewards, terminated / truncated and infos
+    equal at every step, and the renders."""
+    envs = {b: registry.make_env("warehouse-medium", backend=b, device=dev)
+            for b in ("oracle", "torch")}
+    cfg = envs["torch"].cfg
+    outs = {b: e.reset(options={"key": key}) for b, e in envs.items()}
+    steps, deliveries, walls = 0, 0, {b: 0.0 for b in envs}
+    while True:
+        obs = {b: o[0] for b, o in outs.items()}
+        require(all(np.array_equal(obs["oracle"][a], obs["torch"][a])
+                    for a in envs["torch"].possible_agents),
+                f"dict_api oracle: observations differ at step {steps}")
+        require(envs["oracle"].render() == envs["torch"].render(),
+                f"dict_api oracle: renders differ at step {steps}")
+        acts = oracle_mod.greedy_bfs_actions(cfg, envs["oracle"].state)
+        act = {a: int(acts[i])
+               for i, a in enumerate(envs["torch"].possible_agents)}
+        for b, e in envs.items():
+            t0 = time.perf_counter()
+            outs[b] = e.step(act)
+            walls[b] += time.perf_counter() - t0
+        require(outs["oracle"][1:] == outs["torch"][1:],
+                f"dict_api oracle: rewards, dones or infos differ at step "
+                f"{steps}")
+        steps += 1
+        deliveries += sum(i["delivered"] for i in outs["torch"][4].values())
+        if outs["torch"][3]["__all__"]:
+            break
+    require(steps == cfg.max_steps, f"dict_api oracle: {steps} steps")
+    return {"steps": steps, "deliveries": deliveries, "equal": True,
+            "oracle_steps_per_sec": steps / walls["oracle"],
+            "torch_steps_per_sec": steps / walls["torch"]}
 
 
 @timed_phase("sweep")
@@ -4395,6 +4467,297 @@ def mesh_main_paths(dev):
          ["ppo_rollout", *K2_STAGES, "ppo_minibatch_grads"])]
 
 
+# ---- the env kernels at (agents, queue) pairs outside the presets --------
+
+# The pairs the smoke builds and drives (ROADMAP T-5), each built at first
+# use into a library of its own (kernels/build.py pair_library): medium
+# with 6 agents (the train CLI's --env medium --env-config
+# '{"num_agents": 6}', queue 8), and the 15x15 map with 12 agents, queue
+# 24 and 12 initial requests. K1's batch at each: 4096, and BASELINE
+# config 3's 8192.
+PAIRS = {"a6q8": medium_config(num_agents=6),
+         "a12q24": large_config(num_agents=12, queue_capacity=24,
+                                init_requests=12)}
+PAIR_K1_B = {"a6q8": CHECK_B, "a12q24": 8192}
+PAIR_CLI_ENV = {"a6q8": ["--env", "medium", "--env-config",
+                         '{"num_agents": 6}'],
+                "a12q24": ["--env", "large", "--env-config",
+                           '{"num_agents": 12, "queue_capacity": 24, '
+                           '"init_requests": 12}']}
+ORACLE_ENVS = 8     # envs of K1's step-for-step check against the oracle
+PAIR_UPDATES = 3    # updates of each pair main path
+PAIR_GROUPS_B = 1024  # envs of the 12-policy path at (12, 24)
+PER_AGENT_12 = tuple(range(12))  # one policy per agent at (12, 24)
+PAIR_K1_LAUNCHES = {}  # K1's launches by pair in the pair_evaluate path
+STACK = re.compile(r"(\d+) bytes stack frame")
+REGS = re.compile(r"Used (\d+) registers")
+
+
+def build_phase(dev):
+    """The library and every pair's library at once (one thread each, each
+    starting its nvcc processes together): each build's wall seconds
+    beside the others on a line of its own, the build logs to stderr."""
+    jobs = {"library": build.library,
+            **{name: functools.partial(build.pair_library, c.num_agents,
+                                       c.queue_capacity)
+               for name, c in PAIRS.items()}}
+
+    def run(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {name: ex.submit(run, fn) for name, fn in jobs.items()}
+        secs = {name: f.result() for name, f in futs.items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "builds_s": secs, "note": "all builds at once, on the host's "
+          "cores together"})
+    for name, c in PAIRS.items():
+        emit({"phase": "build_pair", "pair": name,
+              "agents_queue": [c.num_agents, c.queue_capacity],
+              "seconds": secs[name], "sources": list(build.ENV_SOURCES),
+              "k1": k1_ptxas(c.num_agents, c.queue_capacity)})
+    print(build.build_log(), file=sys.stderr)
+    for c in PAIRS.values():
+        print(build.build_log(c.num_agents, c.queue_capacity),
+              file=sys.stderr)
+
+
+def k1_ptxas(A, R) -> dict:
+    """K1's instance at (A, R) as ``-Xptxas -v`` reports it: registers a
+    thread, stack frame and spill bytes."""
+    name = f"greedy_rollout_kernelILi{A}ELi{R}E"
+    lines = build.build_log(A, R).splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and name in line:
+            for nxt in lines[i + 1:i + 4]:
+                if m := STACK.search(nxt):
+                    nums = [int(x) for x in re.findall(r"(\d+) bytes", nxt)]
+                    out.update(stack_frame=nums[0], spill_stores=nums[1],
+                               spill_loads=nums[2])
+                if m := REGS.search(nxt):
+                    out["registers"] = int(m.group(1))
+    return out
+
+
+def oracle_state_equal(st, key, ks, b) -> bool:
+    """The oracle's state (and its draw key) against env ``b`` of the
+    batched state ``ks`` (on the CPU)."""
+    fields = ("agent_pos", "agent_req", "carrying", "req_pickup",
+              "req_drop", "req_status", "req_agent")
+    return (all(np.array_equal(np.asarray(getattr(st, f)),
+                               getattr(ks, f)[b].numpy()) for f in fields)
+            and st.t == int(ks.t[b]) and torch.equal(key, ks.key[b]))
+
+
+def k1_oracle_check(dev, name, cfg, state):
+    """K1 one tick a launch over the whole batch (``state``, env b reset
+    from ``fold_in(PRNGKey(SEED), b)``), T = max_steps launches, against
+    the port's NumPy oracle (``OracleEnv`` + ``greedy_actions`` on
+    ``TorchDrawSource`` from env b's reset key) on the first ORACLE_ENVS
+    envs: the reset, then every state field and the key after every tick,
+    the tick's deliveries and the bits of its reward sum
+    (``rollout.reward_sum_step`` of the oracle's event counts); then the
+    chained ticks' final state equal to one launch of the whole episode."""
+    T, n, f = cfg.max_steps, ORACLE_ENVS, torch.float32
+    keys = rng.fold_in(rng.prng_key(SEED), torch.arange(n))
+    envs = [oracle_mod.OracleEnv(cfg, oracle_mod.TorchDrawSource(k))
+            for k in keys]
+
+    def head(st):  # the first n envs of a batched state, on the CPU
+        return st.replace(**{k: getattr(st, k)[:n].cpu()
+                             for k in STATE_FIELDS})
+
+    s, sc = state, head(state)
+    for b, env in enumerate(envs):
+        env.reset()
+        require(oracle_state_equal(env.state, env.draws.key, sc, b),
+                f"K1 {name}: env {b}'s reset differs from the oracle's")
+    t0 = time.perf_counter()
+    for t in range(T):
+        s, kd, kr = rollout.greedy_rollout(cfg, s, 1)
+        sc, kd, kr = head(s), kd[:n].cpu(), kr[:n].cpu()
+        for b, env in enumerate(envs):
+            _, _, _, _, info = env.step(
+                oracle_mod.greedy_actions(cfg, env.state))
+            counts = [torch.tensor(float(info[k].sum()), dtype=f)
+                      for k in ("picked", "delivered", "collided")]
+            require(oracle_state_equal(env.state, env.draws.key, sc, b),
+                    f"K1 {name}: env {b} differs from the oracle at tick {t}")
+            require(int(kd[b]) == int(info["delivered"].sum()) and bits_equal(
+                kr[b:b + 1], rollout.reward_sum_step(cfg, *counts)[None]),
+                f"K1 {name}: env {b}'s deliveries or reward sum differ from "
+                f"the oracle's at tick {t}")
+    wall = time.perf_counter() - t0
+    whole = rollout.greedy_rollout(cfg, state, T)[0]
+    require(state_equal(s, whole),
+            f"K1 {name}: {T} one-tick launches differ from one launch")
+    return {"oracle_envs": n, "ticks": T, "oracle_bit_equal": True,
+            "chained_equal_one_launch": True, "oracle_check_s": wall}
+
+
+def pair_checks(dev) -> dict:
+    """The env kernels at each pair of PAIRS: K1 (``k1_pair_check``), K2,
+    K7 (GRU) and K10 at (6, 8), K2 at (12, 24) with and without one policy
+    per agent, K3 / K4 with that group map: each with the checks it has at
+    the presets (the env fields bit-equal, the policy outputs within TOL,
+    the learner within SGD_TOL). Returns the kernels line's results by
+    row name."""
+    c6, c12 = PAIRS["a6q8"], PAIRS["a12q24"]
+    rows = {f"greedy_rollout_{n}": k1_pair_check(dev, n, c, PAIR_K1_B[n])
+            for n, c in PAIRS.items()}
+    rows["ppo_rollout_a6q8"] = k2_check(dev, "medium_a6q8", c6,
+                                        mlp_model(c6, dev),
+                                        phase="pair_check")
+    rows["ppo_rnn_rollout_a6q8"] = k7_check(dev, "medium_a6q8", c6, "gru")
+    rows["ppo_rollout_cnn_a6q8"] = k2_check(dev, "medium_a6q8", c6,
+                                            cnn_model(c6, dev),
+                                            phase="pair_check")
+    emit_bound("K2", "large_a12q24", k2_check(
+        dev, "large_a12q24", c12, mlp_model(c12, dev), phase="pair_check"))
+    rows["ppo_rollout_groups_a12q24"] = k2_check(
+        dev, "large_a12q24_per_agent", c12,
+        groups_model(c12, PER_AGENT_12, dev), phase="pair_check",
+        groups=PER_AGENT_12)
+    tcfg = TrainConfig(num_envs=PAIR_GROUPS_B)
+    emit_bound("K3 groups", "large_a12q24_per_agent", k3_check(
+        dev, c12, tcfg=tcfg, name="large_a12q24_per_agent",
+        groups=PER_AGENT_12))
+    emit_bound("K4 groups", "large_a12q24_per_agent", k4_check(
+        dev, c12, tcfg=tcfg, name="large_a12q24_per_agent",
+        groups=PER_AGENT_12))
+    return rows
+
+
+def mlp_model(cfg, dev, hidden=HIDDEN[0]):
+    """A seeded ``ActorCriticMLP`` of config 4's depth (its width unless
+    ``hidden``)."""
+    return make_model(cfg, hidden_dim=hidden, num_layers=HIDDEN[1],
+                      generator=torch.Generator().manual_seed(SEED),
+                      device=dev)
+
+
+def k1_pair_check(dev, name, cfg, B):
+    """K1 at a pair: one greedy episode at B envs bit-equal to its twin on
+    every state field, deliveries and reward-sum bits; the first
+    ORACLE_ENVS envs step for step against the NumPy oracle
+    (``k1_oracle_check``); both timed; the bound from bytes and from
+    ``k1_int_ops``; the instance's registers and stack."""
+    T = cfg.max_steps
+    state, _ = reset_envs(cfg, B, SEED, dev)
+    ks, kd, kr = rollout.greedy_rollout(cfg, state, T)
+    ps, pd, pr = rollout.greedy_rollout_reference(cfg, state, T)
+    err = max(max_abs_diff(ks, ps), float((kd - pd).abs().max()),
+              float((kr - pr).abs().max()))
+    require(err == 0.0 and state_equal(ks, ps) and bits_equal(kr, pr),
+            f"K1 {name}: kernel differs from twin")
+    oracle = k1_oracle_check(dev, name, cfg, state)
+    k_ms = timed(lambda: rollout.greedy_rollout(cfg, state, T), 5)
+    p_ms = timed(lambda: rollout.greedy_rollout_reference(cfg, state, T), 3)
+    ops = k1_int_ops(cfg.num_agents, cfg.queue_capacity)
+    bnd = bound(nbytes(state, ks, kd, kr, rollout.map_tables(cfg, dev)),
+                8.0 * B * T, int_ops={k: float(ops[k]) * B * T
+                                      for k in ("alu", "total")})
+    emit({"phase": "pair_check", "kernel": "K1", "config": name,
+          "agents_queue": [cfg.num_agents, cfg.queue_capacity], "B": B,
+          "T": T, "bit_equal": True, "deliveries": int(kd.sum()), **oracle,
+          "kernel_ms": k_ms, "plain_ms": p_ms,
+          "kernel_env_steps_per_s": B * T / (k_ms / 1e3),
+          "k1_ptxas": k1_ptxas(cfg.num_agents, cfg.queue_capacity),
+          "int_ops_per_env_tick": ops, **bnd})
+    return err, k_ms, p_ms, bnd
+
+
+def pair_train_cli(dev, out_dir):
+    """``python -m warehouse_tpu_torch.train --env medium --env-config
+    '{"num_agents": 6}'`` (PPO, the MLP, config 4's other settings) for
+    PAIR_UPDATES updates, in this process: its metrics file's backends the
+    kernels', its metrics finite."""
+    from warehouse_tpu_torch.train.__main__ import main as train_main
+
+    path = os.path.join(out_dir, "pair_ppo.jsonl")
+    train_main([*PAIR_CLI_ENV["a6q8"], "--num-updates", str(PAIR_UPDATES),
+                "--log-every", "1", "--metrics-path", path])
+    with open(path) as fh:
+        lines = [json.loads(x) for x in fh]
+    meta, rows = lines[0], lines[1:]
+    require(meta.get("backends") == KERNELS,
+            f"pair_ppo_train: backends {meta.get('backends')}")
+    require(len(rows) == PAIR_UPDATES and all(
+        np.isfinite(v) for r in rows for v in r.values()
+        if isinstance(v, float)), f"pair_ppo_train: metrics {rows}")
+    emit({"phase": "pair_ppo_train", "cli": PAIR_CLI_ENV["a6q8"],
+          "updates": PAIR_UPDATES, "backends": meta["backends"],
+          "last": rows[-1]})
+
+
+def pair_train(dev, name, make, cfg, tcfg, **kw):
+    """PAIR_UPDATES updates of a trainer at a pair, through the kernels,
+    the first against the plain path's from the same state."""
+    tr = make(cfg, tcfg, device=dev, **kw)
+    first = first_update_vs_plain(tr, dev, name)
+    _, out = run_updates(tr, PAIR_UPDATES, name, dev, plain_n=0)
+    emit({"phase": name, "agents_queue": [cfg.num_agents,
+                                          cfg.queue_capacity],
+          "first_update_vs_plain": first, **out})
+
+
+def pair_evaluate(dev):
+    """``python -m warehouse_tpu_torch.evaluate --policy greedy`` at each
+    pair, in this process (K1: one launch of the whole episode), at K1's
+    batch of the pair: deliveries and returns printed, equal to
+    ``evaluate_greedy``'s."""
+    from warehouse_tpu_torch.evaluate import evaluate_greedy
+    from warehouse_tpu_torch.evaluate import main as eval_main
+
+    import contextlib
+    import io
+
+    for name, cfg in PAIRS.items():
+        buf, n0 = io.StringIO(), rollout.greedy_rollout.launches
+        with contextlib.redirect_stdout(buf):
+            eval_main([*PAIR_CLI_ENV[name], "--policy", "greedy",
+                       "--episodes", str(PAIR_K1_B[name])])
+        PAIR_K1_LAUNCHES[name] = rollout.greedy_rollout.launches - n0
+        got = dict(line.split(": ") for line in buf.getvalue().splitlines())
+        want = evaluate_greedy(cfg, PAIR_K1_B[name], 0, dev)
+        require({k: float(v) for k, v in got.items()} == {
+            k: float(v) for k, v in want.items()},
+            f"pair_evaluate {name}: {got} against {want}")
+        require(want["mean_deliveries_per_episode"] > 0,
+                f"pair_evaluate {name}: no deliveries")
+        emit({"phase": "pair_evaluate", "pair": name, **want})
+
+
+def pair_main_paths(dev, out_dir):
+    """The pairs' main paths: (name, phase, kernels it must launch)."""
+    c6, c12 = PAIRS["a6q8"], PAIRS["a12q24"]
+    return [
+        ("pair_ppo_train", lambda: pair_train_cli(dev, out_dir),
+         ["ppo_rollout", *K2_STAGES, "ppo_sgd_phase",
+          "ppo_minibatch_grads"]),
+        ("pair_gru_train", lambda: pair_train(
+            dev, "pair_gru_train", make_train_rnn, c6,
+            TrainConfig(num_updates=RNN_SCHEDULE), arch="gru"),
+         ["ppo_rnn_rollout", *K7_STAGES, "ppo_rnn_sgd_phase",
+          "ppo_rnn_minibatch_grads"]),
+        ("pair_cnn_train", lambda: pair_train(
+            dev, "pair_cnn_train", make_train, c6,
+            TrainConfig(num_updates=CNN_SCHEDULE), arch="cnn"),
+         ["ppo_rollout_cnn", "ppo_rollout_cnn_stages", "ppo_cnn_sgd_phase",
+          "ppo_cnn_minibatch_grads"]),
+        ("pair_groups_train", lambda: pair_train(
+            dev, "pair_groups_train", make_train, c12,
+            TrainConfig(num_envs=PAIR_GROUPS_B, num_updates=TRAIN_SCHEDULE),
+            policy_groups=PER_AGENT_12),
+         ["ppo_rollout", "ppo_rollout_groups", *K2_STAGES,
+          "ppo_sgd_phase_groups", "ppo_minibatch_grads_groups"]),
+        ("pair_evaluate", lambda: pair_evaluate(dev), ["greedy_rollout"])]
+
+
 def update_profile(dev, cfg, arch):
     """``torch.profiler`` over 3 config-4 updates of the recurrent
     (``arch`` "gru" / "lstm") or the CNN trainer (after 2 of warm-up):
@@ -4442,10 +4805,7 @@ def main(argv=()) -> int:
         return 1
     dev = torch.device("cuda", 0)
 
-    t0 = time.perf_counter()
-    build.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0})
-    print(build.build_log(), file=sys.stderr)
+    build_phase(dev)
     profiled = [a for flag, archs in (("--profile-rnn", ("gru", "lstm")),
                                       ("--profile-cnn", ("cnn",)))
                 if flag in argv for a in archs]
@@ -4464,6 +4824,13 @@ def main(argv=()) -> int:
     if "--mesh" in argv:  # the data mesh's two paths alone
         for name, fn, kernels in mesh_main_paths(dev):
             main_path(name, fn, kernels)
+        print(nvidia_smi(), flush=True)
+        return 0
+    if "--pairs" in argv:  # the pairs' checks and main paths alone
+        pair_checks(dev)
+        with tempfile.TemporaryDirectory() as d:
+            for name, fn, kernels in pair_main_paths(dev, d):
+                main_path(name, fn, kernels)
         print(nvidia_smi(), flush=True)
         return 0
 
@@ -4539,18 +4906,13 @@ def main(argv=()) -> int:
     # held at that width too.
     shelves_g, medium_g = (c.replace(global_obs=True) for c in (shelves, cfg))
 
-    def mlp_for(c, hidden=HIDDEN[0]):
-        return make_model(c, hidden_dim=hidden, num_layers=HIDDEN[1],
-                          generator=torch.Generator().manual_seed(SEED),
-                          device=dev)
-
-    k2_check(dev, "medium_global", medium_g, mlp_for(medium_g),
+    k2_check(dev, "medium_global", medium_g, mlp_model(medium_g, dev),
              phase="global_check")
     checks["ppo_rollout_global"] = k2_check(
-        dev, "shelves_global", shelves_g, mlp_for(shelves_g), True,
+        dev, "shelves_global", shelves_g, mlp_model(shelves_g, dev), True,
         shaped=True, B=GLOBAL_B, phase="global_check")
     checks["ppo_rollout_hidden256"] = k2_check(
-        dev, "medium_hidden256", cfg, mlp_for(cfg, WIDE_HIDDEN),
+        dev, "medium_hidden256", cfg, mlp_model(cfg, dev, WIDE_HIDDEN),
         phase="hidden256_check")
     checks["ppo_rollout_cnn_global"] = k2_check(
         dev, "medium_global", medium_g, cnn_model(medium_g, dev),
@@ -4589,8 +4951,9 @@ def main(argv=()) -> int:
     k2_stages = act_mlp_stage_check(dev, cfg, "config4", model)
     act_mlp_stage_check(dev, cfg, "config4_ragged", model, B=ACT_RAGGED_B)
     act_mlp_stage_check(dev, cfg, "config4_hidden256",
-                        mlp_for(cfg, WIDE_HIDDEN))
-    act_mlp_stage_check(dev, shelves_g, "shelves_global", mlp_for(shelves_g),
+                        mlp_model(cfg, dev, WIDE_HIDDEN))
+    act_mlp_stage_check(dev, shelves_g, "shelves_global",
+                        mlp_model(shelves_g, dev),
                         B=GLOBAL_B, shaped=True)
     act_mlp_stage_check(dev, shelves, "shelves_groups",
                         groups_model(shelves, GROUPS, dev), groups=GROUPS,
@@ -4723,6 +5086,12 @@ def main(argv=()) -> int:
     # The data mesh (M-8): the meshed learners through the grads kernels.
     paths.update({name: main_path(name, fn, kernels)
                   for name, fn, kernels in mesh_main_paths(dev)})
+    # The env kernels at the pairs outside the presets (T-5): their checks,
+    # then their main paths.
+    checks.update(pair_checks(dev))
+    with tempfile.TemporaryDirectory() as d:
+        paths.update({name: main_path(name, fn, kernels)
+                      for name, fn, kernels in pair_main_paths(dev, d)})
     wall = time.perf_counter() - t_start
     emit({"phase": "module_phases", "seconds": MODULE_SECONDS,
           "total_s": sum(MODULE_SECONDS.values()), "script_s": wall,
@@ -4738,6 +5107,14 @@ def main(argv=()) -> int:
     # K2 at hidden 256: the launches of the path that runs it.
     launches["ppo_rollout_hidden256"] = paths["hidden256_train"][
         "ppo_rollout"]
+    # The env kernels at the pairs: the launches of the pair paths.
+    launches.update({
+        **{f"greedy_rollout_{n}": k for n, k in PAIR_K1_LAUNCHES.items()},
+        "ppo_rollout_a6q8": paths["pair_ppo_train"]["ppo_rollout"],
+        "ppo_rnn_rollout_a6q8": paths["pair_gru_train"]["ppo_rnn_rollout"],
+        "ppo_rollout_cnn_a6q8": paths["pair_cnn_train"]["ppo_rollout_cnn"],
+        "ppo_rollout_groups_a12q24": paths["pair_groups_train"][
+            "ppo_rollout_groups"]})
 
     csrc = "warehouse_tpu_torch/kernels/csrc/"
     sources = {
@@ -4826,7 +5203,17 @@ def main(argv=()) -> int:
         "ppo_rollout_cnn_groups": ("act_cnn.cu", "pallas/act.py:1062"),
         "ppo_rollout_cnn_per_agent": ("act_cnn.cu", "pallas/act.py:1062"),
         "ppo_rollout_cnn_groups_global": ("act_cnn.cu",
-                                          "pallas/act.py:1062")}
+                                          "pallas/act.py:1062"),
+        # The env kernels at (agents, queue) pairs outside the presets,
+        # each from its pair's own library (build.pair_library): K1 at
+        # (6, 8) and (12, 24), K2, K7 (GRU) and K10 at (6, 8), K2 with one
+        # policy per agent at (12, 24).
+        "greedy_rollout_a6q8": ("rollout.cu", "pallas/rollout.py:516"),
+        "greedy_rollout_a12q24": ("rollout.cu", "pallas/rollout.py:516"),
+        "ppo_rollout_a6q8": ("act.cu", "pallas/act.py:1028"),
+        "ppo_rnn_rollout_a6q8": ("act_rnn.cu", "pallas/act.py:747"),
+        "ppo_rollout_cnn_a6q8": ("act_cnn.cu", "pallas/act.py:1073"),
+        "ppo_rollout_groups_a12q24": ("act.cu", "pallas/act.py:1062")}
     # library_ms: no single PyTorch call computes a whole rollout or a
     # whole learner phase, so it is null for every kernel here but K7's
     # cell stage (torch.nn.GRUCell on the same rows).

@@ -20,8 +20,8 @@ from warehouse_tpu.config import EnvConfig, medium_config, shelves_config
 from warehouse_tpu.env import batch as jbatch
 from warehouse_tpu.pallas.rollout import greedy_rollout_pallas
 from warehouse_tpu_torch.env import batch
-from warehouse_tpu_torch.kernels.rollout import (check_kernel_shape, f32,
-                                                 greedy_rollout,
+from warehouse_tpu_torch.kernels import build
+from warehouse_tpu_torch.kernels.rollout import (f32, greedy_rollout,
                                                  greedy_rollout_reference)
 
 from test_torch_env import assert_state, env_keys
@@ -113,8 +113,17 @@ def test_rejects_auto_reset():
 
 
 def test_kernel_shapes_are_the_presets():
-    check_kernel_shape(medium_config())
-    with pytest.raises(ValueError, match="queue_capacity"):
-        check_kernel_shape(medium_config(queue_capacity=5))
+    """The library holds the presets' env instances; any other pair is
+    named for its own library by the sources' hash and the pair."""
+    import warehouse_tpu_torch.config as pcfg
+
+    presets = {(c.num_agents, c.queue_capacity) for c in (
+        pcfg.small_config(), pcfg.medium_config(), pcfg.large_config(),
+        pcfg.shelves_config())}
+    assert set(build.PRESET_SHAPES) == presets
+    stem = build.pair_stem(4, 5)
+    assert stem.startswith("env-a4-q5-") and stem == build.pair_stem(4, 5)
+    assert len({stem, build.pair_stem(5, 4), build.pair_stem(4, 6)}) == 3
+    assert build.pair_defines(4, 5) == ("WH_PAIR_A=4", "WH_PAIR_R=5")
     assert f32(0.1) == float(np.float32(0.1))
 

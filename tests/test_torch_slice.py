@@ -138,7 +138,8 @@ def test_evaluate_policy_matches_jax(policy):
 
 def test_port_imports_without_jax():
     """Every module of the port (the package walked, not listed by hand;
-    the utilities, the dict API, the sweeps and the mesh named too),
+    the utilities, the dict API, the sweeps, the mesh and the oracle
+    named too),
     chip_smoke.py, the card-only test file and the file whose function the
     spawned mesh ranks run import with nothing of jax and nothing of the
     JAX package ``warehouse_tpu`` in ``sys.modules``."""
@@ -152,7 +153,8 @@ def test_port_imports_without_jax():
         "new = ('utils.profiling', 'utils.debug', 'env.wrapper',\n"
         "       'env.render', 'env.pettingzoo_adapter', 'registry',\n"
         "       'demo', 'train.sweep', 'train.pbt', 'parallel.mesh',\n"
-        "       'parallel.distributed')\n"
+        "       'parallel.distributed', 'oracle', 'oracle.draws',\n"
+        "       'oracle.env', 'oracle.greedy')\n"
         "assert all('warehouse_tpu_torch.' + m in sys.modules\n"
         "           for m in new)\n"
         "import chip_smoke\n"

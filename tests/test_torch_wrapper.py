@@ -69,9 +69,11 @@ def test_spaces_match_jax_and_are_cached():
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="M-10"):
-        WarehouseMultiAgentEnv(small_config(), backend="oracle",
-                               device="cpu")
+    # The NumPy oracle's backend is ported (tests/test_torch_oracle.py).
+    oracle = WarehouseMultiAgentEnv(small_config(), backend="oracle",
+                                    device="cpu")
+    assert oracle.backend == "oracle" and oracle.reset(seed=0)[1] == {
+        a: {} for a in oracle.possible_agents}
     with pytest.raises(ValueError, match="unknown backend"):
         WarehouseMultiAgentEnv(small_config(), backend="jax", device="cpu")
     env = WarehouseMultiAgentEnv(small_config(), device="cpu")
@@ -191,8 +193,11 @@ def test_demo_runs_headless_and_writes_a_gif(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "episode finished after 6 steps" in out and "t=6" in out
     assert Image.open(gif).n_frames == 7
-    with pytest.raises(SystemExit):
-        demo.main(["--env", "small", "--cpu", "--backend", "oracle"])
+    # The oracle's backend plays the same episode.
+    demo.main(["--env", "small", "--cpu", "--steps", "6", "--policy",
+               "greedy_bfs", "--render", "--backend", "oracle"])
+    assert capsys.readouterr().out == out.replace(
+        f"gif written: {gif} (7 frames)\n", "")
 
 
 def test_demo_serves_a_checkpoint(tmp_path, capsys):

@@ -34,7 +34,11 @@ streams):
   4096), one K3 phase (float32 and bf16, K4 inside it), one K5 phase
   (Adam), one K6 gradient, one K7 chunk (the GRU), one K8 phase (the GRU,
   float32, K9 inside it, on a trajectory from K7's plain twin) and one K11
-  phase (float32 and bf16, K12 inside it), all at config 4;
+  phase (float32 and bf16, K12 inside it), all at config 4; and the env
+  kernels at each of the four presets (small, medium, large, shelves: the
+  instances of the library): one K1 greedy episode and one chunk each of
+  K2, K10 and K7 (the GRU, from a random carry) at B = 1024
+  (``preset_*``);
 - with ``--kernel k7``, times and hashes one K7 chunk (T = 16, B = 4096,
   106 -> 128, cell 128, from a reset and a random carry) for the GRU and
   the LSTM at config 4 and for the GRU on shelves with action masking
@@ -73,7 +77,8 @@ import hashlib, json, sys, torch
 sys.path.insert(0, {tree!r})
 import chip_smoke as cs
 from torch.profiler import ProfilerActivity, profile
-from warehouse_tpu_torch import large_config, medium_config, shelves_config
+from warehouse_tpu_torch import (large_config, medium_config,
+                                 shelves_config, small_config)
 from warehouse_tpu_torch.models import make_model
 from warehouse_tpu_torch.optim import make_impala_optimizer
 from warehouse_tpu_torch.kernels import (act_rnn, build, rollout, sgd,
@@ -332,6 +337,28 @@ if {kernel!r} == "k1":
         out["k1_" + name] = chunk_sha(run())
         times[name] = {{"ms": cs.timed(run, 5), "split": split_of(run)}}
         del state, run
+# K1, K2, K10 and K7 (GRU) at each of the four presets, the instances the
+# library holds: one greedy episode and one chunk each at B = 1024.
+for pname, c in (("small", small_config()), ("medium", cfg),
+                 ("large", large), ("shelves", shelves)):
+    state, _ = cs.reset_envs(c, 1024, cs.SEED, dev)
+    out["preset_k1_" + pname] = chunk_sha(rollout.greedy_rollout(
+        c, state, c.max_steps))
+    state, u, pick, drop, g = draws(c, 1024)
+    for kname, arch, steps in (("k2", "mlp", cs.act.act_steps),
+                               ("k10", "cnn", cs.act.act_cnn_steps)):
+        model = make_model(c, arch, cs.HIDDEN[0], cs.HIDDEN[1],
+                           torch.Generator().manual_seed(cs.SEED), dev)
+        out[f"preset_{{kname}}_{{pname}}"] = chunk_sha(steps(
+            c, model, state, u, pick, drop, g))
+    model = make_model(c, "gru", cs.HIDDEN[0], cs.HIDDEN[1],
+                       torch.Generator().manual_seed(cs.SEED), dev)
+    params = {{k: v.detach() for k, v in model.state_dict().items()}}
+    carry = (0.5 * torch.randn(1024, c.num_agents, cs.HIDDEN[0],
+                               generator=torch.Generator().manual_seed(
+                                   cs.SEED + 9))).to(dev)
+    out["preset_k7_" + pname] = chunk_sha(act_rnn.act_rnn_steps(
+        c, params, state, carry, u, pick, drop, g))
 print(json.dumps({{"tree": {tree!r}, "kernel": {kernel!r}, "times": times,
                   "sha256": out}}))
 """

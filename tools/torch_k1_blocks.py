@@ -3,11 +3,13 @@
 sizes and launch bounds, print what the compiler made of each instance, and
 time the builds in turns on one GPU.
 
-    python3 tools/torch_k1_blocks.py [--csrc DIR ...] [--no-time]
-        [--cell CONFIG:B ...] [lib | THREADS[:MIN_BLOCKS] ...]
+    python3 tools/torch_k1_blocks.py [--csrc DIR ...] [--pair A,R ...]
+        [--no-time] [--cell CONFIG[,KEY=VALUE...]:B ...]
+        [lib | THREADS[:MIN_BLOCKS] ...]
 
-``lib`` is ``rollout.cu`` as the library builds it: launch bounds of
-``K1_MAX_THREADS``, and ``k1_threads``' block size from B. A
+``lib`` is ``rollout.cu`` as the library builds it: each instance's
+launch bounds of ``K1_MAX_THREADS<A, R>``, and ``k1_threads``' block size
+from B. A
 variant ``THREADS[:MIN_BLOCKS]`` is a copy of the ``csrc/`` whose
 ``rollout.cu`` launches every instance at THREADS threads a CTA, whatever
 B, with ``__launch_bounds__(THREADS, MIN_BLOCKS)``. Every variant's
@@ -19,16 +21,22 @@ k1_blocks/``, and the script prints one line per variant: ``{"variant",
 ``-Xptxas -v``, the rest from the instance's SASS (``cuobjdump -sass``):
 its local loads and stores and its instructions. ``--csrc DIR``
 (repeatable) builds another ``csrc/`` instead of the port's (a parent's,
-whose C entry may differ: ``lib`` and ``--no-time`` only).
+whose C entry may differ: ``lib`` and ``--no-time`` only). ``--pair A,R``
+(repeatable) builds each variant for that (agents, queue) pair alone, as
+``build.pair_library`` does (``-DWH_PAIR_A=A -DWH_PAIR_R=R``), instead of
+the four presets; its label gains ``@aAqR``.
 
-Unless ``--no-time``, each cell ``CONFIG:B`` (a preset of ``config.py`` and
-a batch; default medium:131072 shelves:131072 large:131072 medium:4096
+Unless ``--no-time``, each cell ``CONFIG[,KEY=VALUE...]:B`` (a preset of
+``config.py`` with integer overrides, e.g.
+``large,num_agents=12,queue_capacity=24,init_requests=12:8192``, and a
+batch; default medium:131072 shelves:131072 large:131072 medium:4096
 shelves:4096) runs one greedy episode (T = max_steps from a batched reset)
-through ``kernels.rollout.greedy_rollout_launch`` on each build's library,
-its outputs held bit-equal to the first build's, and times it (the median
-of 5 by CUDA events, the wrapper inside) in turns: the builds in order,
-then in reverse. One line per cell: ``{"cell", "T", "ms_in_turns":
-{variant: [ms, ms]}}``. The card's name and power limit come first.
+through ``kernels.rollout.greedy_rollout_launch`` on each build's library
+that holds the cell's pair, its outputs held bit-equal to the first such
+build's, and times it (the median of 5 by CUDA events, the wrapper inside)
+in turns: the builds in order, then in reverse. One line per cell:
+``{"cell", "T", "ms_in_turns": {variant: [ms, ms]}}``. The card's name and
+power limit come first.
 """
 
 from __future__ import annotations
@@ -56,10 +64,10 @@ OPCODE = re.compile(r"\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?[A-Z]")
 # rollout.cu's block size and launch bounds, as a fixed variant rewrites
 # them: (pattern, replacement with {threads} and {bounds}).
 PATCHES = (
-    (r"(constexpr int K1_MAX_THREADS = )\d+;", r"\g<1>{threads};"),
+    (r"(constexpr int K1_MAX_THREADS =)[^;]+;", r"\g<1> {threads};"),
     (r"(int k1_threads\(int max_threads, long B, int sms\) \{).*?\n\}",
      r"\g<1>\n  return max_threads;\n}}"),
-    (r"__launch_bounds__\(K1_MAX_THREADS\)",
+    (r"__launch_bounds__\(K1_MAX_THREADS<A, R>\)",
      r"__launch_bounds__({bounds})"),
 )
 
@@ -84,14 +92,12 @@ def variant_source(csrc: Path, variant: str, out: Path) -> Path:
 
 
 def compile_all(jobs: dict) -> dict:
-    """``{label: (source, dir)}`` -> ``{label: (object, library, log)}``:
-    every ``nvcc -c`` started together, then each link."""
+    """``{label: (source, dir, defines)}`` -> ``{label: (object, library,
+    log)}``: every ``nvcc -c`` started together, then each link."""
     nvcc = build.nvcc_path()
     procs = {}
-    for label, (src, out) in jobs.items():
-        cmd = [nvcc, *build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
-               "-fPIC", "-Xptxas=-v", "-c", "-o", str(out / "rollout.o"),
-               str(src)]
+    for label, (src, out, defines) in jobs.items():
+        cmd = build.compile_command(nvcc, src, out / "rollout.o", defines)
         procs[label] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True)
     done = {}
@@ -155,16 +161,29 @@ def load(lib_path: Path) -> ctypes.CDLL:
     return lib
 
 
-def time_cell(libs: dict, cell: str) -> dict:
+def cell_config(cell: str):
+    """``CONFIG[,KEY=VALUE...]:B`` -> (the config, B)."""
+    from warehouse_tpu_torch import config
+
+    spec, B = cell.split(":")
+    name, *kvs = spec.split(",")
+    kw = {k: int(v) for k, v in (kv.split("=") for kv in kvs)}
+    return getattr(config, f"{name}_config")(**kw), int(B)
+
+
+def time_cell(libs: dict, pairs: dict, cell: str) -> dict | None:
     import torch
 
     import chip_smoke as cs
-    from warehouse_tpu_torch import config
     from warehouse_tpu_torch.kernels import rollout
 
-    name, B = cell.split(":")
-    cfg = getattr(config, f"{name}_config")()
-    state, _ = cs.reset_envs(cfg, int(B), cs.SEED, torch.device("cuda", 0))
+    cfg, B = cell_config(cell)
+    shape = (cfg.num_agents, cfg.queue_capacity)
+    libs = {v: lib for v, lib in libs.items()
+            if (pairs[v] or build.PRESET_SHAPES).count(shape)}
+    if not libs:
+        return None
+    state, _ = cs.reset_envs(cfg, B, cs.SEED, torch.device("cuda", 0))
     T = cfg.max_steps
     want, times = None, {v: [] for v in libs}
     for v in [*libs, *reversed(list(libs))]:
@@ -183,11 +202,13 @@ def time_cell(libs: dict, cell: str) -> dict:
 
 
 def main(argv) -> int:
-    csrcs, timing, cells, variants = [], True, [], []
+    csrcs, timing, cells, variants, shapes = [], True, [], [], []
     while argv:
         a = argv.pop(0)
         if a == "--csrc":
             csrcs.append(Path(argv.pop(0)).resolve())
+        elif a == "--pair":
+            shapes.append(tuple(int(x) for x in argv.pop(0).split(",")))
         elif a == "--no-time":
             timing = False
         elif a == "--cell":
@@ -200,13 +221,20 @@ def main(argv) -> int:
                          text=True)
     print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
     root = build.BUILD_DIR / "k1_blocks" / str(os.getpid())
-    jobs, origin = {}, {}
+    jobs, origin, pairs = {}, {}, {}
     for n, csrc in enumerate(csrcs):
         for v in variants:
-            label = v if len(csrcs) == 1 else f"{csrc}@{v}"
-            out = root / f"{n}_{v.replace(':', '_')}"
-            jobs[label] = (variant_source(csrc, v, out), out)
-            origin[label] = csrc
+            for shape in shapes or [None]:
+                label = v if len(csrcs) == 1 else f"{csrc}@{v}"
+                out = root / f"{n}_{v.replace(':', '_')}"
+                defines = ()
+                if shape:
+                    label += "@a{}q{}".format(*shape)
+                    out = out.with_name(out.name + "_a{}q{}".format(*shape))
+                    defines = build.pair_defines(*shape)
+                jobs[label] = (variant_source(csrc, v, out), out, defines)
+                origin[label] = csrc
+                pairs[label] = (shape,) if shape else ()
     libs = {}
     for label, (obj, lib, log) in compile_all(jobs).items():
         report = ptxas_report(log)
@@ -218,7 +246,9 @@ def main(argv) -> int:
     if timing:
         loaded = {v: load(p) for v, p in libs.items()}
         for cell in cells or CELLS:
-            print(json.dumps(time_cell(loaded, cell)), flush=True)
+            line = time_cell(loaded, pairs, cell)
+            if line:
+                print(json.dumps(line), flush=True)
     return 0
 
 

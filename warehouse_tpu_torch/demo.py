@@ -58,21 +58,18 @@ def main(argv=None) -> None:
                    help="write the episode as an animated GIF "
                         "(rgb_array rendering)")
     p.add_argument("--backend", choices=["torch", "oracle"], default="torch",
-                   help="oracle: the NumPy oracle, not ported yet (ROADMAP "
-                        "M-10)")
+                   help="oracle: the NumPy oracle (it steps on the host), "
+                        "the same episode as torch's")
     args = p.parse_args(argv)
 
     cfg = env_config_from_args(args)
+    oracle = args.backend == "oracle"
     device = device_from_args(args)
     steps = args.steps or cfg.max_steps
 
     from .env.wrapper import WarehouseMultiAgentEnv
 
-    try:
-        env = WarehouseMultiAgentEnv(cfg, backend=args.backend,
-                                     device=device)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from e
+    env = WarehouseMultiAgentEnv(cfg, backend=args.backend, device=device)
     obs, _ = env.reset(seed=args.seed)
     rng = np.random.default_rng(args.seed)
 
@@ -100,11 +97,16 @@ def main(argv=None) -> None:
         frames.append(env.render(mode="rgb_array"))
     for t in range(steps):
         if args.policy in ("greedy", "greedy_bfs"):
-            from .baselines.greedy import greedy_actions, greedy_bfs_actions
+            if oracle:
+                from .oracle import greedy_actions, greedy_bfs_actions
+            else:
+                from .baselines.greedy import (greedy_actions,
+                                               greedy_bfs_actions)
 
             fn = (greedy_bfs_actions if args.policy == "greedy_bfs"
                   else greedy_actions)
-            acts = fn(cfg, env.state)[0].cpu().numpy()
+            acts = fn(cfg, env.state)
+            acts = np.asarray(acts) if oracle else acts[0].cpu().numpy()
             action_dict = {
                 a: int(acts[i]) for i, a in enumerate(env.possible_agents)
             }

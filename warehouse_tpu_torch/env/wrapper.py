@@ -3,10 +3,12 @@
 
 Dict-in/dict-out ``reset``/``step`` keyed by ``"agent_i"`` strings with
 ``"__all__"`` in terminated/truncated, over the port's batched engine at
-B = 1 on the card (or the CPU with ``device="cpu"``). ``reset(seed=s)``
-starts from ``rng.prng_key(s)``, the JAX wrapper's ``PRNGKey(s)``, so
-both wrappers give the same episode bit for bit. gymnasium is imported
-only by the spaces.
+B = 1 on the card (or the CPU with ``device="cpu"``), or with
+``backend="oracle"`` over the NumPy oracle (``warehouse_tpu_torch.oracle``,
+on the host, its draws from ``TorchDrawSource``). ``reset(seed=s)`` starts
+from ``rng.prng_key(s)``, the JAX wrapper's ``PRNGKey(s)``, so the
+wrappers and both backends give the same episode bit for bit. gymnasium
+is imported only by the spaces.
 """
 
 from __future__ import annotations
@@ -29,19 +31,16 @@ from .state import STATE_FIELDS
 
 class WarehouseMultiAgentEnv:
     """Dict-API adapter. ``backend``: "torch" (the port's engine at B = 1
-    on ``device``: the card unless ``device="cpu"``). The NumPy oracle's
-    backend waits for ROADMAP M-10."""
+    on ``device``: the card unless ``device="cpu"``) or "oracle" (the NumPy
+    oracle, which steps on the host whatever ``device``; its draws come
+    from the port's ``rng`` there)."""
 
     metadata = {"render_modes": ["ansi", "rgb_array"]}
 
     def __init__(self, cfg: EnvConfig | None = None, backend: str = "torch",
                  seed: int = 0, device=None) -> None:
         self.cfg = cfg or EnvConfig()
-        if backend == "oracle":
-            raise NotImplementedError(
-                "backend='oracle': the NumPy oracle is not ported yet "
-                "(ROADMAP M-10)")
-        if backend != "torch":
+        if backend not in ("torch", "oracle"):
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
         self.device = resolve_device(device)
@@ -79,9 +78,16 @@ class WarehouseMultiAgentEnv:
         if key is None:
             key = _rng.prng_key(self._seed, self.device)
         key = torch.as_tensor(key, dtype=torch.int64, device=self.device)
-        self._state, obs = engine.reset(self.cfg, key.reshape(1, 2))
+        if self.backend == "oracle":
+            from ..oracle import OracleEnv, TorchDrawSource
+
+            self._env = OracleEnv(self.cfg, TorchDrawSource(key))
+            obs = self._env.reset()
+        else:
+            self._state, obs = engine.reset(self.cfg, key.reshape(1, 2))
+            obs = obs[0].cpu().numpy()
         self.agents = list(self.possible_agents)
-        return (self._obs_dict(obs[0].cpu().numpy()),
+        return (self._obs_dict(obs),
                 {a: {} for a in self.possible_agents})
 
     def step(self, action_dict: dict[str, int]):
@@ -93,17 +99,20 @@ class WarehouseMultiAgentEnv:
                     f"invalid action {act} for {a}; expected 0..4"
                 )
             actions[i] = act
-        self._state, ts = engine.step(
-            self.cfg, self._state,
-            torch.from_numpy(actions).to(self.device)[None])
-        obs = ts.obs[0].cpu().numpy()
-        rew = ts.reward[0].cpu().numpy()
-        term, trunc = bool(ts.terminated[0]), bool(ts.truncated[0])
-        info = {
-            "picked": ts.picked[0].cpu().numpy(),
-            "delivered": ts.delivered[0].cpu().numpy(),
-            "collided": ts.collided[0].cpu().numpy(),
-        }
+        if self.backend == "oracle":
+            obs, rew, term, trunc, info = self._env.step(actions)
+        else:
+            self._state, ts = engine.step(
+                self.cfg, self._state,
+                torch.from_numpy(actions).to(self.device)[None])
+            obs = ts.obs[0].cpu().numpy()
+            rew = ts.reward[0].cpu().numpy()
+            term, trunc = bool(ts.terminated[0]), bool(ts.truncated[0])
+            info = {
+                "picked": ts.picked[0].cpu().numpy(),
+                "delivered": ts.delivered[0].cpu().numpy(),
+                "collided": ts.collided[0].cpu().numpy(),
+            }
         obs_d = self._obs_dict(obs)
         rew_d = {a: float(rew[i]) for i, a in enumerate(self.possible_agents)}
         term_d = {a: bool(term) for a in self.possible_agents}
@@ -131,11 +140,25 @@ class WarehouseMultiAgentEnv:
     @property
     def state(self):
         """The engine's state, a batch of one env (``EnvState`` fields
-        ``[1, ...]`` on the wrapper's device)."""
-        return self._state
+        ``[1, ...]`` on the wrapper's device); the oracle's ``OracleState``
+        with the "oracle" backend, as the JAX wrapper gives it."""
+        return self._env.state if self.backend == "oracle" else self._state
+
+    def agent_pos(self):
+        """The agents' cells ``[A, 2]`` (a tensor on the wrapper's device,
+        or the oracle's array)."""
+        return self.state.agent_pos if self.backend == "oracle" else (
+            self._state.agent_pos[0])
 
     def numpy_state(self) -> SimpleNamespace:
-        """The one env's state fields as NumPy arrays (no env axis)."""
+        """The one env's state fields as NumPy arrays (no env axis); the
+        oracle's key is its draw source's."""
+        if self.backend == "oracle":
+            st = self._env.state
+            fields = {f: np.asarray(getattr(st, f)) for f in STATE_FIELDS
+                      if f != "key"}
+            fields["key"] = self._env.draws.key.numpy()
+            return SimpleNamespace(**fields)
         return SimpleNamespace(**{f: getattr(self._state, f)[0].cpu().numpy()
                                   for f in STATE_FIELDS})
 

@@ -3,7 +3,9 @@
 Counterpart of ``warehouse_tpu/evaluate.py``: B envs run one full episode
 each (auto-reset off) under the greedy baseline, the obstacle-aware
 ``greedy_bfs`` baseline, a random policy or a trained checkpoint, and the
-same metrics dict is reported.
+same metrics dict is reported. The CLI's greedy baseline runs as one
+launch of the greedy rollout kernel K1 (``evaluate_greedy``, which the
+kernel's wrapper runs plain on the CPU), at any (agents, queue) pair.
 """
 
 from __future__ import annotations
@@ -64,6 +66,32 @@ def evaluate_policy(cfg, policy_fn, num_episodes: int, seed: int = 0,
         "mean_episode_return": float(ep_return.sum(-1).mean()),
         "mean_deliveries_per_episode": float(ep_deliv.sum(-1).mean()),
         "std_episode_return": float(ep_return.sum(-1).std()),
+    }
+
+
+def evaluate_greedy(cfg, num_episodes: int, seed: int = 0,
+                    device=None) -> dict:
+    """``evaluate_policy``'s metrics for the greedy baseline from the same
+    resets, the whole episode as one ``kernels.rollout.greedy_rollout``
+    (K1 on the card, its plain twin on the CPU). Deliveries are equal to
+    ``evaluate_policy``'s; K1 sums each env's team reward step by step, so
+    the returns are its sums (``mean_agent_return`` the episode's over the
+    agents), within float32 rounding of the per-agent sums."""
+    from .kernels.rollout import greedy_rollout
+
+    device = resolve_device(device)
+    cfg = cfg.replace(auto_reset=False)
+    base = _rng.prng_key(seed, device)
+    keys = _rng.fold_in(base, torch.arange(num_episodes, device=device))
+    state, _ = engine.reset(cfg, keys)
+    _, deliv, ret = greedy_rollout(cfg, state, cfg.max_steps)
+    ep_return = ret.cpu().numpy()
+    return {
+        "episodes": num_episodes,
+        "mean_agent_return": float(ep_return.mean() / cfg.num_agents),
+        "mean_episode_return": float(ep_return.mean()),
+        "mean_deliveries_per_episode": float(deliv.cpu().numpy().mean()),
+        "std_episode_return": float(ep_return.std()),
     }
 
 
@@ -234,10 +262,13 @@ def main(argv=None) -> None:
         policy_fn, init_carry, _ = checkpoint_policy_fn(
             cfg, args.checkpoint_dir, args.arch, args.hidden_dim,
             args.mask_actions, args.sample, device)
-    else:
+    elif args.policy != "greedy":
         policy_fn = policy_fn_for(args.policy, cfg)
-    metrics = evaluate_policy(cfg, policy_fn, args.episodes, args.seed,
-                              init_carry=init_carry, device=device)
+    if args.policy == "greedy":
+        metrics = evaluate_greedy(cfg, args.episodes, args.seed, device)
+    else:
+        metrics = evaluate_policy(cfg, policy_fn, args.episodes, args.seed,
+                                  init_carry=init_carry, device=device)
     for k, v in metrics.items():
         print(f"{k}: {v}")
 

@@ -3,7 +3,9 @@
 Each wrapper launches its kernel on a CUDA tensor and runs its plain
 PyTorch twin on a CPU tensor; ``<wrapper>.launches`` counts the kernel
 launches. The sources in ``csrc/`` are compiled at first use
-(``build.library``).
+(``build.library``; the env kernels K1, K2, K7 and K10 for an (agents,
+queue) pair outside the presets into that pair's own library,
+``build.pair_library``).
 """
 
 from .act import ActRollout, ppo_rollout, ppo_rollout_reference

@@ -98,8 +98,8 @@ from ..ops.pathing import device_table, potential
 from ..ops.ppo_update import NEG_INF, sample_action_with_gumbel
 from ..utils.profiling import annotate
 from . import build
-from .rollout import (check_kernel_shape, check_multiple_of_4, f32,
-                      kernel_state, state_from_kernel, wall_mask)
+from .rollout import (check_multiple_of_4, f32, kernel_state,
+                      state_from_kernel, wall_mask)
 
 
 class ActRollout(NamedTuple):
@@ -293,9 +293,10 @@ def _group_args(cfg: EnvConfig, groups):
         return 1, None
     if len(groups) != cfg.num_agents:
         raise ValueError("policy_groups must have one entry per agent")
-    if min(groups) < 0 or max(groups) >= MAX_GROUPS:
+    most = max_groups(cfg)
+    if min(groups) < 0 or max(groups) >= most:
         raise ValueError(f"policy_groups must be group ids in [0, "
-                         f"{MAX_GROUPS}), got {tuple(groups)}")
+                         f"{most}), got {tuple(groups)}")
     return max(groups) + 1, build.int_array([int(x) for x in groups])
 
 
@@ -312,7 +313,12 @@ def group_models(model, groups=None) -> list:
 
 
 MAX_HIDDEN = 4  # K2's hidden layers at most, as K3-K6's (ROADMAP T-6)
-MAX_GROUPS = 8  # policy groups of the acting kernels at most
+
+
+def max_groups(cfg: EnvConfig) -> int:
+    """Policy groups the acting kernels take at ``cfg``'s agents: 8, or
+    one per agent where there are more (``act_stages.cuh`` ``ACT_MAXK``)."""
+    return max(8, cfg.num_agents)
 
 
 def _mlp_fits(cfg: EnvConfig, model, dev, groups=None):
@@ -322,7 +328,7 @@ def _mlp_fits(cfg: EnvConfig, model, dev, groups=None):
     does not take: the (agents, queue) shape, widths that do not fit the
     observation or the 5 actions, more than 4 hidden layers, or a group
     map that does not fit the model."""
-    check_kernel_shape(cfg)
+    build.check_pair(cfg.num_agents, cfg.queue_capacity)
     subs = group_models(model, groups)
     if not all(isinstance(m, ActorCriticMLP) for m in subs):
         raise ValueError("the act kernel takes MLP policies")
@@ -342,10 +348,10 @@ def _mlp_fits(cfg: EnvConfig, model, dev, groups=None):
 def check_cnn_widths(cfg: EnvConfig, model, groups=None):
     """K10's ``(S, C0, C1, C2, H)`` for ``model`` (a CNN or, with
     ``groups``, a ``MultiPolicyActorCritic`` of CNNs) on ``cfg``; raises
-    ``ValueError`` for an (agents, queue) shape the env stage is not built
-    for (T-5), a width that is not a multiple of 4 (T-6) or a grid that
-    is not the env's, before any library call."""
-    check_kernel_shape(cfg)
+    ``ValueError`` for an (agents, queue) pair no env stage can be built
+    for (``build.check_pair``), a width that is not a multiple of 4 (T-6)
+    or a grid that is not the env's, before any library call."""
+    build.check_pair(cfg.num_agents, cfg.queue_capacity)
     subs = group_models(model, groups)
     nets = {cnn_kernel_dims(dict(m.named_parameters()), cfg.obs_dim)
             for m in subs}
@@ -369,8 +375,8 @@ def _cnn_fits(cfg: EnvConfig, model, dev, groups=None):
     cannot take, its shared memory too."""
     net = check_cnn_widths(cfg, model, groups)
     k, gmap = _cnn_group_args(cfg, groups)
-    smem = build.library().wh_act_cnn_smem_bytes(
-        cfg.num_agents, cfg.queue_capacity, *net, k, gmap)
+    A, R = cfg.num_agents, cfg.queue_capacity
+    smem = build.env_library(A, R).wh_act_cnn_smem_bytes(A, R, *net, k, gmap)
     limit = build.smem_limit(dev, smem)
     if not 0 < smem <= limit:
         raise ValueError(
@@ -494,7 +500,7 @@ class ActMlpLaunch:
                  mask=None, shaping=None, groups=None):
         dev = state.agent_pos.device
         self.weights, self.dims = _mlp_fits(cfg, model, dev, groups)
-        self.lib = build.library()
+        self.lib = build.env_library(cfg.num_agents, cfg.queue_capacity)
         dims = build.int_array(self.dims)
         k, gmap = _group_args(cfg, groups)
         if self.weights.numel() != k * self.lib.wh_act_weight_floats(
@@ -520,7 +526,7 @@ class ActMlpLaunch:
         its width rounded up to 32; ``head [N, 8]``."""
         out = (build.L * 5)()
         build.check(self.lib.wh_act_layout(*self.shape, out),
-                    "wh_act_layout")
+                    "wh_act_layout", self.lib)
         n = self.io.B * self.shape[0]
 
         def view(off, width):
@@ -565,12 +571,12 @@ class ActMlpLaunch:
         if stage is None:
             launched = (build.L * 4)()
             err = self.lib.wh_act_rollout(*self.args, launched, self.stream)
-            build.check(err, "ppo_rollout kernel launch")
+            build.check(err, "ppo_rollout kernel launch", self.lib)
             return list(launched)
         err = self.lib.wh_act_stage(
             ACT_MLP_STAGES.index(stage), layer, *self.args,
             None if obs_next is None else obs_next.data_ptr(), self.stream)
-        build.check(err, f"K2 stage {stage} launch")
+        build.check(err, f"K2 stage {stage} launch", self.lib)
 
 
 def env_stage_outputs(io: _KernelIO, state, obs_next) -> dict:
@@ -679,7 +685,7 @@ class ActCnnLaunch:
         dev = state.agent_pos.device
         self.net = _cnn_fits(cfg, model, dev, groups)
         subs = group_models(model, groups)
-        self.lib = build.library()
+        self.lib = build.env_library(cfg.num_agents, cfg.queue_capacity)
         self.weights = torch.cat([pack_cnn(dict(m.named_parameters()))
                                   for m in subs]).to(dev)
         if self.weights.numel() != len(subs) * self.lib.wh_cnn_param_floats(
@@ -704,7 +710,7 @@ class ActCnnLaunch:
         trunk's input padded with zeros to KT) and ``head [N, 8]``."""
         out = (build.L * 6)()
         build.check(self.lib.wh_act_cnn_layout(*self.shape, out),
-                    "wh_act_cnn_layout")
+                    "wh_act_cnn_layout", self.lib)
         n, kt = self.io.B * self.shape[0], out[4]
         return {"a1": self.work[out[1]:out[1] + n * kt].view(n, kt),
                 "head": self.work[out[2]:out[2] + n * 8].view(n, 8)}
@@ -739,12 +745,12 @@ class ActCnnLaunch:
         env stage writes the next observation rows into ``obs_next``."""
         if stage is None:
             err = self.lib.wh_act_cnn_rollout(*self.args, self.stream)
-            build.check(err, "ppo_rollout (cnn) kernel launch")
+            build.check(err, "ppo_rollout (cnn) kernel launch", self.lib)
             return
         err = self.lib.wh_act_cnn_stage(
             ACT_CNN_STAGES.index(stage), *self.args,
             None if obs_next is None else obs_next.data_ptr(), self.stream)
-        build.check(err, f"K10 stage {stage} launch")
+        build.check(err, f"K10 stage {stage} launch", self.lib)
 
 
 # ---- K10's stages, plain ----------------------------------------------------

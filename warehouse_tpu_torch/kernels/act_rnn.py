@@ -51,7 +51,7 @@ from ..ops.obs import inv_side
 from ..ops.ppo_update import NEG_INF, sample_action_with_gumbel
 from . import act, build
 from .act import _KernelIO, chunk_rollout, env_stage_outputs
-from .rollout import check_kernel_shape, check_multiple_of_4, f32
+from .rollout import check_multiple_of_4, f32
 
 GATE_ORDER = {"gru": ("r", "z", "n"), "lstm": ("i", "f", "g", "o")}
 
@@ -132,11 +132,12 @@ MAX_ENCODER = 3  # K7's encoder layers at most, as K8 / K9's
 
 def check_act_rnn_fits(cfg: EnvConfig, params, dev=None):
     """K7's ``(dims, H, lstm)`` for ``params`` on ``cfg``; raises
-    ``ValueError``, before any library call, for an (agents, queue) shape
-    the env stage is not built for, a width that is not a multiple of 4
-    (the stages' float4 rows; ROADMAP T-6) or more than 3 encoder layers.
-    The stage kernels take any such width: their tiles pad it."""
-    check_kernel_shape(cfg)
+    ``ValueError``, before any library call, for an (agents, queue) pair
+    no env stage can be built for (``build.check_pair``), a width that is
+    not a multiple of 4 (the stages' float4 rows; ROADMAP T-6) or more than
+    3 encoder layers. The stage kernels take any such width: their tiles
+    pad it."""
+    build.check_pair(cfg.num_agents, cfg.queue_capacity)
     dims, H, lstm = rnn_kernel_dims("K7", params, cfg.obs_dim)
     if len(dims) - 1 > MAX_ENCODER:
         raise ValueError(f"K7 takes 1 to {MAX_ENCODER} encoder layers, got "
@@ -198,7 +199,7 @@ class ActRnnLaunch:
         A = cfg.num_agents
         self.dims, self.H, self.lstm = check_act_rnn_fits(cfg, params, dev)
         dims = build.int_array(self.dims)
-        self.lib = lib = build.library()
+        self.lib = lib = build.env_library(A, cfg.queue_capacity)
         self.weights = pack_rnn(params).to(dev)
         n_enc = len(self.dims) - 1
         if self.weights.numel() != lib.wh_rnn_param_floats(
@@ -250,7 +251,7 @@ class ActRnnLaunch:
         8]``."""
         out = (build.L * 8)()
         build.check(self.lib.wh_act_rnn_layout(*self.shape, out),
-                    "wh_act_rnn_layout")
+                    "wh_act_rnn_layout", self.lib)
         n = self.io.B * self.shape[0]
         dims, H = self.dims, self.H
 
@@ -334,13 +335,13 @@ class ActRnnLaunch:
         if stage is None:
             err = self.lib.wh_act_rnn_rollout(*self.args, launched,
                                               self.stream)
-            build.check(err, "ppo_rnn_rollout kernel launch")
+            build.check(err, "ppo_rnn_rollout kernel launch", self.lib)
         else:
             err = self.lib.wh_act_rnn_stage(
                 (ACT_RNN_STAGES + ("prep",)).index(stage), layer, *self.args,
                 None if obs_next is None else obs_next.data_ptr(), launched,
                 self.stream)
-            build.check(err, f"K7 stage {stage} launch")
+            build.check(err, f"K7 stage {stage} launch", self.lib)
         return list(launched)
 
     def results(self, state):

@@ -7,6 +7,16 @@ minutes per build. One ``nvcc -c`` per ``.cu`` source runs in parallel
 goes to ``_build/`` under a name that hashes every file of ``csrc/``, so
 an edited source or header is rebuilt and a process builds at most once.
 Nothing here runs at import time.
+
+The env kernels (K1, K2, K7, K10: ``ENV_SOURCES``) are templates on the
+(agents, queue) pair ``(A, R)``. The library holds the four presets'
+instances (``PRESET_SHAPES``). Any other pair gets a library of its own at
+first use, ``pair_library(A, R)``: the four env sources compiled with
+``-DWH_PAIR_A=A -DWH_PAIR_R=R`` (``env_tick.cuh`` ``dispatch_shape`` then
+instantiates that pair alone), under a name that hashes ``csrc/`` and the
+pair. It has the same C entry points; ``env_library`` picks the library of
+a pair. A failed ``nvcc`` raises with its log; nothing falls back to the
+plain twins.
 """
 
 from __future__ import annotations
@@ -22,6 +32,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
+# (num_agents, queue_capacity) of the library's env instances: the four
+# presets of config.py.
+PRESET_SHAPES = ((2, 4), (4, 8), (6, 12), (8, 16))
+# The sources whose kernels are templates on the pair: K1, K2, K7, K10.
+ENV_SOURCES = ("rollout.cu", "act.cu", "act_rnn.cu", "act_cnn.cu")
+# The env stage's threads a CTA (act_stages.cuh CNT): an env of more agents
+# than this has no instance.
+MAX_AGENTS = 128
 
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 U = ctypes.c_uint
@@ -127,14 +145,23 @@ def _sources_digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(digest: str, tmp: Path) -> None:
-    """One ``nvcc -c`` per source, all started together, then one link."""
+def compile_command(nvcc: str, src: Path, obj: Path,
+                    defines=()) -> list[str]:
+    """``nvcc -c`` of one source, with ``-D`` ``defines``."""
+    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+            "-Xptxas=-v", *(f"-D{d}" for d in defines), "-c", "-o",
+            str(obj), str(src)]
+
+
+def _compile(stem: str, sources, tmp: Path, defines=()) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link
+    into ``tmp``; the log goes to ``build-{stem}.log``. Raises
+    ``RuntimeError`` with the failed commands' errors and the log's path."""
     nvcc, log = nvcc_path(), []
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{src.stem}-{digest}.{os.getpid()}.o"
-        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-               "-Xptxas=-v", "-c", "-o", str(obj), str(src)]
+    for src in sources:
+        obj = BUILD_DIR / f"{src.stem}-{stem}.{os.getpid()}.o"
+        cmd = compile_command(nvcc, src, obj, defines)
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
@@ -152,39 +179,96 @@ def _compile(digest: str, tmp: Path) -> None:
             failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
     for obj in objs:
         Path(obj).unlink(missing_ok=True)
-    (BUILD_DIR / f"build-{digest}.log").write_text("\n".join(log))
+    log_path = BUILD_DIR / f"build-{stem}.log"
+    log_path.write_text("\n".join(log))
     if failed:
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        raise RuntimeError(f"nvcc failed (the whole log: {log_path}): "
+                           + "\n".join(failed))
+
+
+def _load(lib_path: Path, stem: str, sources, defines=()) -> ctypes.CDLL:
+    """Build ``lib_path`` unless it exists, load it and set the
+    signatures of the C entry points it has."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not lib_path.exists():
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        _compile(stem, sources, tmp, defines)
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = RESTYPES.get(name, I)
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Compile ``csrc/*.cu`` (once per source digest) and load it."""
     digest = _sources_digest()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"libwarehouse_kernels-{digest}.so"
-    if not lib_path.exists():
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        _compile(digest, tmp)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = RESTYPES.get(name, I)
-    return lib
+    return _load(BUILD_DIR / f"libwarehouse_kernels-{digest}.so", digest,
+                 sorted(CSRC.glob("*.cu")))
 
 
-def build_log() -> str:
-    """The compiler's output for the current sources (``-Xptxas=-v``)."""
-    path = BUILD_DIR / f"build-{_sources_digest()}.log"
+def pair_digest(A: int, R: int) -> str:
+    """The hash of ``csrc/`` and the pair that names a pair's library."""
+    return hashlib.sha256(
+        f"{_sources_digest()}:{int(A)}:{int(R)}".encode()).hexdigest()[:16]
+
+
+def pair_stem(A: int, R: int) -> str:
+    """A pair's library and log name: ``env-a{A}-q{R}-{pair_digest}``."""
+    return f"env-a{int(A)}-q{int(R)}-{pair_digest(A, R)}"
+
+
+def pair_defines(A: int, R: int) -> tuple[str, str]:
+    return (f"WH_PAIR_A={int(A)}", f"WH_PAIR_R={int(R)}")
+
+
+def check_pair(A: int, R: int) -> None:
+    """Raise ``ValueError`` for a pair no env kernel can instantiate."""
+    if not (1 <= A <= MAX_AGENTS and R >= 1):
+        raise ValueError(
+            f"the CUDA env kernels take 1 to {MAX_AGENTS} agents (a thread "
+            f"of the env stage's {MAX_AGENTS} samples each agent's row) and a "
+            f"queue of at least 1, got (num_agents, queue_capacity) = "
+            f"({A}, {R})")
+
+
+@functools.lru_cache(maxsize=None)
+def pair_library(A: int, R: int) -> ctypes.CDLL:
+    """The env kernels K1, K2, K7 and K10 instantiated for (A, R) alone:
+    ``ENV_SOURCES`` compiled with ``pair_defines`` (once per source digest
+    and pair; a process builds a pair at most once) and loaded. The
+    learners are the library's."""
+    check_pair(A, R)
+    stem = pair_stem(A, R)
+    return _load(BUILD_DIR / f"libwarehouse_{stem}.so", stem,
+                 [CSRC / s for s in ENV_SOURCES], pair_defines(A, R))
+
+
+def env_library(A: int, R: int) -> ctypes.CDLL:
+    """The library whose env kernels take (A, R): ``library()`` for a
+    preset, else ``pair_library(A, R)``."""
+    if (int(A), int(R)) in PRESET_SHAPES:
+        return library()
+    return pair_library(int(A), int(R))
+
+
+def build_log(A: int | None = None, R: int | None = None) -> str:
+    """The compiler's output (``-Xptxas=-v``) for the current sources: the
+    library's, or with a pair that pair's library's."""
+    stem = _sources_digest() if A is None else pair_stem(A, R)
+    path = BUILD_DIR / f"build-{stem}.log"
     return path.read_text() if path.exists() else ""
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error code."""
+def check(err: int, what: str, lib: ctypes.CDLL | None = None) -> None:
+    """Raise if a C entry point (of ``lib``, the library by default)
+    returned a CUDA error code."""
     if err:
-        name = library().wh_error_string(err).decode()
+        name = (lib or library()).wh_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({name})")
 
 

@@ -190,7 +190,8 @@ __global__ void head0_kernel(ActMlpArgs p) {
 // ---- host side ----------------------------------------------------------------
 
 // The shape checks of every entry point: a supported net, agents and queue
-// of a preset, K in [1, 8] with a valid map (null: one group).
+// of this build (dispatch_shape), K in [1, ACT_MAXK] with a valid map
+// (null: one group).
 bool shape_ok(int A, int R, int L, const int* dims, int K, const int* group,
               MlpNet* net) {
   RowGroups rg;

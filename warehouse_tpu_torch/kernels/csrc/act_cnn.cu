@@ -422,7 +422,8 @@ WorkLayout work_layout(const ConvDims& d, int A, int R, long B, int K) {
 }
 
 // The shape checks of every entry point: a supported net, agents and queue
-// of a preset, K in [0, 8] (0: no groups) with a valid map.
+// of this build (dispatch_shape), K in [0, ACT_MAXK] (0: no groups) with a
+// valid map.
 bool shape_ok(int A, int R, int S, int C0, int C1, int C2, int H, int K,
               const int* group, CnnNet* net) {
   RowGroups rg;

@@ -544,7 +544,7 @@ cudaError_t run_act_rnn(int stage, int layer, ActRnnArgs& p, int R,
 }
 
 // The shape checks of every entry point: a supported net, agents and queue
-// of a preset.
+// of this build (dispatch_shape).
 bool rnn_shape_ok(int A, int R, int n_enc, const int* dims, int H, int lstm,
                   RnnNet* net) {
   return make_rnn_net(n_enc, dims, H, lstm, net) && known_shape(A, R);

@@ -48,17 +48,26 @@
 
 namespace {
 
-constexpr int ACT_MAXK = 8;  // policy groups
-constexpr int ACT_MAXA = 8;  // agents of an env (the presets' most)
+// Agents of an env the row tables hold: the presets' most, 8, in the
+// library's build; a pair's build (env_tick.cuh dispatch_shape) holds its
+// own A when that is more. Policy groups: as many as agents.
+#ifdef WH_PAIR_A
+constexpr int ACT_MAXA = WH_PAIR_A > 8 ? WH_PAIR_A : 8;
+#else
+constexpr int ACT_MAXA = 8;
+#endif
+constexpr int ACT_MAXK = ACT_MAXA;
 constexpr int CNT = 128;     // threads of the env stage
 
 // Envs of an env-stage CTA. One thread ticks each env, serially, and the
 // tick of 6 or 8 agents holds 167-255 registers a thread, so few CTAs fit an
 // SM: 16 envs a CTA then tick in one wave at B = 4096 where 32 / A would
 // take three or four. At 2 and 4 agents 32 rows a CTA (the observation
-// rows' work spread over more CTAs).
+// rows' work spread over more CTAs). Past 8 agents, as many envs as leave a
+// thread for each of their rows (the sample runs a thread a row): 10 at 12
+// agents. More than CNT agents are refused (0 envs).
 __host__ __device__ constexpr int env_cta(int A) {
-  return A <= 4 ? 32 / A : 16;
+  return A <= 4 ? 32 / A : (A <= 8 ? 16 : CNT / A);
 }
 
 __host__ __device__ inline int round_up(long x, int m) {
@@ -103,7 +112,8 @@ struct RowGroups {
   }
 };
 
-// False for a map with a group id out of [0, K), or K out of [1, 8]. `ra`:
+// False for a map with a group id out of [0, K), K out of [1, ACT_MAXK] or
+// more than ACT_MAXA agents. `ra`:
 // the samples of a K10 stage-A tile (0: no such tiles).
 inline bool make_groups(int A, long B, int K, const int* group, int ra,
                         RowGroups* rg) {
@@ -293,7 +303,7 @@ __global__ void __launch_bounds__(CNT) env_kernel(ActEnvArgs p, int t,
                                                   int mode, float* obs_out) {
   using ES = EnvSmem<A, R>;
   constexpr int NE = env_cta(A);
-  static_assert(NE * A <= CNT, "a thread samples each row");
+  static_assert(NE >= 1 && NE * A <= CNT, "a thread samples each row");
   __shared__ int env_s[NE * ES::SIZE];
   __shared__ int act_s[NE * A];
   const int tid = threadIdx.x;

@@ -289,14 +289,21 @@ __device__ inline void env_tick(Env<A, R>& e, const int (&act)[A], float u,
   }
 }
 
-// Dispatches a functor templated on (A, R) for the four preset shapes.
-// Returns false for any other shape.
+// Dispatches a functor templated on (A, R). The library's build has the
+// four preset shapes; a pair's build (kernels/build.py pair_library, which
+// compiles the env sources with -DWH_PAIR_A=A -DWH_PAIR_R=R) has that one
+// pair alone. Returns false for any other shape.
 template <template <int, int> class F, typename... Args>
 inline bool dispatch_shape(int A, int R, Args&&... args) {
+#ifdef WH_PAIR_A
+  if (A == WH_PAIR_A && R == WH_PAIR_R)
+    return F<WH_PAIR_A, WH_PAIR_R>::run(args...), true;
+#else
   if (A == 2 && R == 4) return F<2, 4>::run(args...), true;
   if (A == 4 && R == 8) return F<4, 8>::run(args...), true;
   if (A == 6 && R == 12) return F<6, 12>::run(args...), true;
   if (A == 8 && R == 16) return F<8, 16>::run(args...), true;
+#endif
   return false;
 }
 

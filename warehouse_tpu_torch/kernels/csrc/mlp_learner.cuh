@@ -39,7 +39,9 @@ constexpr int OST = 8;        // row stride of head outputs and deltas
 constexpr int R = 64;         // samples per tile of GroupSplit
 constexpr int RED = 256;      // threads of reduce_kernel
 constexpr int FNT = 1024;     // threads of the optimizer kernels
-constexpr int MAXK = 8;       // policy groups, and agents of a grouped batch
+// Policy groups, and agents of a grouped batch: Rows::code holds an
+// enumerated agent in 4 bits, 16 of them in its 64.
+constexpr int MAXK = 16;
 constexpr float NEG_INF = -1e9f;
 
 struct Layer {
@@ -82,7 +84,7 @@ struct Rows {
   long mb_off;  // m * B/M * A
   int D;
   int A, na;    // agents, and the agents enumerated
-  int code;     // the enumerated agents, 3 bits each, when na < A
+  unsigned long long code;  // the enumerated agents, 4 bits each, na < A
   const float* obs;  // [T, B, A, D]
   // Row of sample q in the [T, B, A] arrays: time step q / nb, then the
   // minibatch's env columns (with na < A, each env's enumerated agents).
@@ -90,7 +92,7 @@ struct Rows {
     if (na == A) return (q / nb) * BA + mb_off + q % nb;
     const long r = q % nb;
     return (q / nb) * BA + mb_off + (r / na) * A +
-           ((code >> (3 * (int)(r % na))) & 7);
+           (int)((code >> (4 * (int)(r % na))) & 15);
   }
 };
 
@@ -135,7 +137,7 @@ bool split_groups(const Rows& all, long bm, int K, const int* groups,
     for (int a = 0; a < all.A; ++a) {
       const int ga = groups ? groups[a] : 0;
       if (ga < 0 || ga >= K) return false;
-      if (ga == g) r.code |= a << (3 * r.na++);
+      if (ga == g) r.code |= (unsigned long long)a << (4 * r.na++);
     }
     if (r.na == 0) return false;
     r.nb = bm * r.na;

@@ -34,8 +34,12 @@
 //   no stack frame or spills; (6, 12) and (8, 16) spill at 128 (96- and
 //   392-byte stack frames) and still ran 8% and 28% faster at B = 131072
 //   than at 256 threads unspilled (154 and 195 registers), with twice the
-//   warps an SM; 512 also led at config 4. A small batch takes smaller
-//   CTAs (k1_threads), down to a warp, so that its CTAs cover the SMs.
+//   warps an SM; 512 also led at config 4. A larger env than the presets'
+//   (4 A + 6 R > 128 ints, a pair's own library) takes bounds of 256
+//   threads, 255 registers (K1_MAX_THREADS): at (12, 24) a 176-byte
+//   stack frame against 1136 under 512, and less time an episode (PERF.md,
+//   tools/torch_k1_blocks.py). A small batch takes smaller CTAs
+//   (k1_threads), down to a warp, so that its CTAs cover the SMs.
 //
 // Exactness: the draws are rng.py's bits (threefry.cuh); the reward sum
 // uses __fmul_rn/__fadd_rn in the order of rollout.py:488-493, so nvcc
@@ -50,8 +54,11 @@
 
 namespace {
 
-// The most threads a CTA takes: the launch bounds, 128 registers a thread.
-constexpr int K1_MAX_THREADS = 512;
+// The most threads a CTA of the (A, R) instance takes, its launch bounds:
+// 512 (128 registers a thread) for an env of at most 128 ints, as the
+// presets' are; 256 (255 registers) for a larger one.
+template <int A, int R>
+constexpr int K1_MAX_THREADS = 4 * A + 6 * R <= 128 ? 512 : 256;
 
 // Threads a CTA for B envs: the instance's most, halved down to a warp
 // while the CTAs would not cover the SMs.
@@ -87,7 +94,7 @@ long map_smem_bytes(int span, int H, int W) {
 }
 
 template <int A, int R>
-__global__ void __launch_bounds__(K1_MAX_THREADS)
+__global__ void __launch_bounds__(K1_MAX_THREADS<A, R>)
     greedy_rollout_kernel(GreedyArgs p) {
   extern __shared__ int smem[];
   int* s_free = smem;
@@ -152,7 +159,7 @@ __global__ void __launch_bounds__(K1_MAX_THREADS)
 template <int A, int R>
 struct LaunchGreedy {
   static void run(const GreedyArgs& p, int sms, cudaStream_t stream) {
-    const int threads = k1_threads(K1_MAX_THREADS, p.B, sms);
+    const int threads = k1_threads(K1_MAX_THREADS<A, R>, p.B, sms);
     const unsigned blocks = (unsigned)((p.B + threads - 1) / threads);
     greedy_rollout_kernel<A, R>
         <<<blocks, threads, map_smem_bytes(p.span.span, p.H, p.W),

@@ -6,8 +6,10 @@ greedy ticks for a batch of envs and returns ``(EnvState, delivered
 int32[B], reward_sum float32[B])``; the trajectory equals a loop of
 ``greedy_actions`` + ``engine.step``. On a CUDA state one launch of
 ``csrc/rollout.cu`` makes each env's draws in registers from its key chain
-(``csrc/threefry.cuh``) and runs its ticks: no draw is made on the host. On
-a CPU state the plain twin runs: ``rng.batched_step_draws`` then
+(``csrc/threefry.cuh``) and runs its ticks: no draw is made on the host;
+the instance is the pair's (``build.env_library``: the library's for a
+preset, any other pair's own library built at its first use). On a CPU
+state the plain twin runs: ``rng.batched_step_draws`` then
 ``greedy_steps_reference``.
 """
 
@@ -26,9 +28,6 @@ from ..env import engine
 from ..env.state import EnvState
 from . import build
 
-# (num_agents, queue_capacity) the CUDA kernels are instantiated for: the
-# four presets of config.py.
-KERNEL_SHAPES = ((2, 4), (4, 8), (6, 12), (8, 16))
 STATE_INT_FIELDS = ("agent_pos", "agent_req", "carrying", "req_pickup",
                     "req_drop", "req_status", "req_agent")
 
@@ -36,14 +35,6 @@ STATE_INT_FIELDS = ("agent_pos", "agent_req", "carrying", "req_pickup",
 def f32(x: float) -> float:
     """``x`` rounded to float32, as JAX rounds a Python scalar constant."""
     return float(np.float32(x))
-
-
-def check_kernel_shape(cfg: EnvConfig) -> None:
-    shape = (cfg.num_agents, cfg.queue_capacity)
-    if shape not in KERNEL_SHAPES:
-        raise ValueError(
-            f"the CUDA env kernels are built for (num_agents, "
-            f"queue_capacity) in {KERNEL_SHAPES}, got {shape}")
 
 
 def check_multiple_of_4(kernel: str, widths: dict) -> None:
@@ -153,16 +144,17 @@ def greedy_rollout(cfg: EnvConfig, state: EnvState, T: int):
     dev = _check_rollout(cfg, state)
     if dev.type == "cpu":
         return greedy_rollout_reference(cfg, state, T)
-    out = greedy_rollout_launch(build.library(), cfg, state, T)
+    lib = build.env_library(cfg.num_agents, cfg.queue_capacity)
+    out = greedy_rollout_launch(lib, cfg, state, T)
     greedy_rollout.launches += 1
     return out
 
 
 def greedy_rollout_launch(lib, cfg: EnvConfig, state: EnvState, T: int):
-    """One launch of ``lib``'s ``wh_greedy_rollout`` (the library's K1, or
-    another build of ``csrc/rollout.cu``) on a CUDA state; what
-    ``greedy_rollout`` returns."""
-    check_kernel_shape(cfg)
+    """One launch of ``lib``'s ``wh_greedy_rollout`` (the K1 of
+    ``build.env_library`` for the pair, or another build of
+    ``csrc/rollout.cu``) on a CUDA state; what ``greedy_rollout``
+    returns."""
     dev = state.agent_pos.device
     B = state.agent_pos.shape[0]
     ins = kernel_state(state)
@@ -182,9 +174,11 @@ def greedy_rollout_launch(lib, cfg: EnvConfig, state: EnvState, T: int):
         *(x.data_ptr() for x in ins), *(x.data_ptr() for x in outs),
         o_key.data_ptr(), o_t.data_ptr(), deliv.data_ptr(), rew.data_ptr(),
         build.stream_handle(dev))
-    build.check(err, f"greedy_rollout kernel launch (the map's free-cell "
+    build.check(err, f"greedy_rollout kernel launch at (num_agents, "
+                     f"queue_capacity) = ({cfg.num_agents}, "
+                     f"{cfg.queue_capacity}) (the map's free-cell "
                      f"table and walls, {4 * free.numel() + walls.numel()} "
-                     f"bytes, are staged in shared memory)")
+                     f"bytes, are staged in shared memory)", lib)
     return state_from_kernel(outs, o_t, o_key), deliv, rew
 
 

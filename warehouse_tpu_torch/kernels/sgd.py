@@ -440,6 +440,23 @@ def check_stage_smem(lib, n_hidden: int, dims_arr, dims, dev, what: str):
             f"stage; 1 to 4 hidden layers); the card allows {limit}")
 
 
+MAX_GROUP_AGENTS = 16  # agents of a grouped batch (mlp_learner.cuh MAXK)
+
+
+def check_group_map(policy_groups) -> None:
+    """Raise ``ValueError`` for a group map K3 / K4 cannot hold: more than
+    16 agents or 16 groups (``mlp_learner.cuh`` enumerates a group's agents
+    in 4 bits each of 64; ROADMAP T-7). None (one policy) fits."""
+    if policy_groups is None:
+        return
+    n, k = len(policy_groups), max(int(g) for g in policy_groups) + 1
+    if n > MAX_GROUP_AGENTS or k > MAX_GROUP_AGENTS:
+        raise ValueError(
+            f"K3 / K4 take a policy-group map over at most "
+            f"{MAX_GROUP_AGENTS} agents and {MAX_GROUP_AGENTS} groups, got "
+            f"{n} agents in {k} groups (ROADMAP T-7)")
+
+
 def check_learner_fits(params, obs_dim: int, dev,
                        what: str = "SGD kernel") -> None:
     """Raise ``ValueError`` unless the PPO learner kernels (K3/K4) take
@@ -541,6 +558,7 @@ class MlpLaunch(TrajLaunch):
                 or max(policy_groups) + 1 != k):
             raise ValueError(f"params of {k} policies do not fit "
                              f"policy_groups={policy_groups}")
+        check_group_map(policy_groups)
         gmap = None if policy_groups is None else build.int_array(
             [int(g) for g in policy_groups])
         self.grouped = policy_groups is not None

@@ -201,7 +201,7 @@ class Policy:
         A = self.env_cfg.num_agents
         obs = np.stack([np.asarray(obs_dict[f"agent_{i}"], np.float32)
                         for i in range(A)])
-        agent_pos = env.state.agent_pos[0] if self.mask_actions else None
+        agent_pos = env.agent_pos() if self.mask_actions else None
         actions, carry = self.compute_single_action(obs, state, explore,
                                                     seed, agent_pos)
         return {f"agent_{i}": int(actions[i]) for i in range(A)}, carry

@@ -65,9 +65,12 @@ invalid moves floored, the loss re-applies the mask), potential shaping
 (GAE reads the shaped reward, the ``reward_per_step`` metric the raw
 one), global observations (the acting kernels build the global view, the
 learners read the wider observation). On the card ``make_train`` raises
-``ValueError`` for an env shape or model widths the kernels of an MLP or
-CNN policy cannot hold (ROADMAP T-5, T-6), whichever route, before any
-launch. The TPU block knobs (``pallas_block``, ``pallas_interpret``,
+``ValueError`` for model widths the kernels of an MLP or CNN policy
+cannot hold (ROADMAP T-6) and for the caps that stay (ROADMAP T-7: more
+than 128 agents, a grouped learner over more than 16 agents), whichever
+route, before any launch; an env's (agents, queue) pair outside the
+presets builds its env kernels at first use (``kernels.build``). The
+TPU block knobs (``pallas_block``, ``pallas_interpret``,
 ``sgd_block_envs``, ``sgd_rows_per_block``) have no counterpart and are
 ignored; ``rollout_backend``/``grad_backend="xla"`` raises.
 
@@ -107,7 +110,8 @@ from ..env.state import STATE_FIELDS, EnvState
 from ..kernels.act import (ActRollout, check_act_fits, check_cnn_widths,
                            ppo_rollout, ppo_rollout_reference)
 from ..kernels.rollout import f32
-from ..kernels.sgd import (check_learner_fits, normalize_adv_env_minibatch,
+from ..kernels.sgd import (check_group_map, check_learner_fits,
+                           normalize_adv_env_minibatch,
                            ppo_sgd_phase, ppo_sgd_phase_reference)
 from ..kernels.sgd_cnn import (check_cnn_learner_fits, ppo_cnn_sgd_phase,
                                ppo_cnn_sgd_phase_reference)
@@ -578,13 +582,13 @@ def check_kernel_fits(cfg: EnvConfig, model, device, arch: str,
                       policy_groups, act_kernel: bool,
                       grad_kernel: bool) -> None:
     """On the card, refuse by name what the kernels of an MLP or CNN
-    policy cannot hold, whichever route a phase takes: an (agents, queue)
-    shape outside ``KERNEL_SHAPES`` (T-5) and widths the kernels refuse
-    (T-6), so that no such shape runs plain unseen; then what each phase's
-    kernel, where it runs, cannot hold (K10's and the learners' shared
-    memory; K2 has no such limit). A CNN acting per step has its shape and
-    widths checked alone. The attention torso has no kernel: nothing to
-    refuse."""
+    policy cannot hold, whichever route a phase takes: more agents than an
+    env stage takes (``build.check_pair``, T-7) and widths the kernels
+    refuse (T-6), so that no such shape runs plain unseen; then what each
+    phase's kernel, where it runs, cannot hold (K10's and the learners'
+    shared memory, K3 / K4's group map; K2 has no such limit). A CNN acting
+    per step has its pair and widths checked alone. The attention torso
+    has no kernel: nothing to refuse."""
     if arch == "cnn" and not act_kernel:
         check_cnn_widths(cfg, model, policy_groups)
     elif arch in ("mlp", "cnn"):
@@ -592,6 +596,8 @@ def check_kernel_fits(cfg: EnvConfig, model, device, arch: str,
     if grad_kernel:
         (check_cnn_learner_fits if arch == "cnn" else check_learner_fits)(
             model.state_dict(), cfg.obs_dim, device)
+        if arch == "mlp":
+            check_group_map(policy_groups)
 
 
 def make_train(env_cfg: EnvConfig, tcfg: TrainConfig, arch: str = "mlp",
