@@ -185,7 +185,7 @@ and
    episodes (masked argmax, and sampled) against ``greedy_bfs``, and
    ``serve.Policy.from_checkpoint``; the curve goes to
    ``runs/torch_shelves_global/metrics.jsonl``;
-22. ``cnn_global_train`` (main path): 10 config-4 updates of ``--arch cnn
+22. ``cnn_global_train`` (main path): 5 config-4 updates of ``--arch cnn
    --global-obs`` (K10 on the 9x9 map + K11/K12), finite metrics, moved
    params, the first update's metrics beside the plain path's;
 23. ``hidden256_train`` (main path): 3 config-4 updates at ``--hidden-dim
@@ -294,15 +294,15 @@ and
    ``ragged_train`` (config-4 PPO at ``--unroll-length 24``: an episode
    ends inside a chunk; K3 / K4 learn; the first update against the plain
    path's, 50 updates of an 80-update run, a learning check over updates
-   41-50), ``impala_ragged_train`` (IMPALA, T = 24, K5 / K6, 10 updates),
+   41-50), ``impala_ragged_train`` (IMPALA, T = 24, K5 / K6, 5 updates),
    ``rnn_global_train`` (the GRU on the 9x9 global view, D = 411, K8 /
-   K9, 10 updates), ``rnn_shelves_train`` (the GRU on shelves, masked,
-   shaped, ``--bootstrap-truncated``, K8 / K9, 10 updates),
+   K9, 5 updates), ``rnn_shelves_train`` (the GRU on shelves, masked,
+   shaped, ``--bootstrap-truncated``, K8 / K9, 5 updates),
    ``impala_global_train`` (shelves, D = 611, 2048 envs, masked, K5 / K6,
-   10 updates), each with its first update against the plain path's; and
+   5 updates), each with its first update against the plain path's; and
    with both phases plain, ``impala_bf16_train`` (5 updates),
    ``shelves_cnn_global_train`` (the CNN on the 11x11 global map, 2048
-   envs, 3), ``attn_train`` (config-4 PPO with the attention torso, 5) and
+   envs, 3), ``attn_train`` (config-4 PPO with the attention torso, 2) and
    ``impala_cnn_train`` (3); each prints its ``backends``, its update's
    split by the trainer's marks, its trained env-steps/s, and serves the
    trained policy;
@@ -375,7 +375,35 @@ and
    each 3 updates with the first against the plain path's, and
    ``pair_evaluate`` (``python -m warehouse_tpu_torch.evaluate --policy
    greedy`` at both pairs, K1's batch there: one K1 launch an episode
-   batch, its metrics equal to ``evaluate_greedy``'s).
+   batch, its metrics equal to ``evaluate_greedy``'s);
+48. ``shape_checks`` (run with the checks, before the main paths): the
+   kernels at the widths and depths they took last (ROADMAP T-6), each
+   check as at config 4 with its tolerance there: K7 (GRU, LSTM), K8 / K9
+   (GRU and LSTM, float32 and bf16) at hidden and encoder width 50, K7-K9
+   at 4 encoder layers (num_layers 5); K10 at trunk width 50 (the ego
+   window, the 9x9 global view, groups ``(0, 1, 0, 1)``), K11 / K12 there
+   (float32 and bf16; the 9x9 view); K2-K6 at 5 and at 8 hidden layers of
+   128, K5 with RMSProp and Adam, K2 and K3 / K4 with the shelves groups,
+   K3 at D = 611 and K3 / K4 in bf16 at 5 layers; and the stage kernels of
+   K2, K4, K6, K7, K9, K10 and K12 at those shapes. The float32 K3 / K11
+   phases at these shapes are held as a whole and step by step from the
+   kernel's own state (``per_step_check``); K3 at 8 layers and K11 at
+   trunk 50 on the ego window as a whole only where float32 arithmetic
+   holds it (the float32 twin within the tolerance of its float64 run),
+   and their whole phase equal in bits to its steps chained (F-c17).
+   Then each check's wall seconds;
+49. T-6's main paths at config 4, 3 updates each, the first against the
+   plain path's from the same state: ``gru_h50_train`` and
+   ``cnn_h50_train`` (``python -m warehouse_tpu_torch.train --arch gru``
+   / ``--arch cnn --hidden-dim 50`` in this process, the metrics file's
+   backends the kernels'; then the CLI's trainer, one update against the
+   plain path's), ``lstm_h50_train`` (bf16 products: K7, K8 / K9 in
+   bf16), ``mlp_deep_train`` and ``mlp_deep8_train`` (PPO at 5 and 8
+   hidden layers: K2, K3 / K4), ``impala_deep_train`` and
+   ``impala_deep8_train`` (Adam: K2, K5 / K6), ``gru_deep_train`` (4
+   encoder layers: K7, K8 / K9) and ``mesh_shapes_train`` (one world-1
+   meshed update each of the GRU at hidden 50, K9, and of PPO at 5 layers,
+   K4, against the plain twins').
 
 Every main path but ``shelves_cnn_groups_train``, ``rllib_cadence_train``,
 ``cnn_per_agent_train`` and ``cnn_global_groups_train`` (acting kernel,
@@ -491,7 +519,7 @@ GLOBAL_B = 2048         # envs of the global-obs shelves recipe (the JAX run's)
 GLOBAL_UPDATES = 100    # updates of its 300-update schedule that run here
 GLOBAL_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 91-100
 GLOBAL_METRICS_OUT = "runs/torch_shelves_global/metrics.jsonl"
-CNN_GLOBAL_UPDATES = 10  # updates of the cnn_global_train phase
+CNN_GLOBAL_UPDATES = 5  # updates of the cnn_global_train phase
 WIDE_HIDDEN = 256       # the hidden256_train path's hidden width
 WIDE_UPDATES = 3        # updates of the hidden256_train phase
 CONFIG4_GROUPS = (0, 1, 0, 1)  # interleaved groups on config 4's 4 agents
@@ -520,10 +548,10 @@ RAGGED_UNROLL = 24      # config 4's 128 steps: 128 % 24 = 8, episodes end
 #                         inside a chunk (ragged_train, impala_ragged_train)
 RAGGED_UPDATES = 50     # ragged_train: updates of its 80-update schedule
 RAGGED_LEARN_MIN = 0.15  # mean deliveries/env-step over updates 41-50
-STEP_UPDATES = {"impala_ragged_train": 10, "rnn_global_train": 10,
-                "rnn_shelves_train": 10, "impala_global_train": 10,
+STEP_UPDATES = {"impala_ragged_train": 5, "rnn_global_train": 5,
+                "rnn_shelves_train": 5, "impala_global_train": 5,
                 "impala_bf16_train": 5, "shelves_cnn_global_train": 3,
-                "attn_train": 5, "impala_cnn_train": 3}
+                "attn_train": 2, "impala_cnn_train": 3}
 # A kernel update's metrics against the plain path's from the same state
 # (tests/test_torch_train.py's bound on the JAX trainer's metrics).
 STEP_METRIC_TOL = (1e-3, 5e-5)
@@ -898,9 +926,10 @@ def k1_check(dev):
     return err, k_ms, p_ms, bnd
 
 
-def cnn_model(cfg, dev):
-    """A seeded ``ActorCriticCNN`` at config 4's hidden width."""
-    return make_model(cfg, "cnn", hidden_dim=HIDDEN[0],
+def cnn_model(cfg, dev, hidden=HIDDEN[0]):
+    """A seeded ``ActorCriticCNN`` at config 4's hidden width (or
+    ``hidden``)."""
+    return make_model(cfg, "cnn", hidden_dim=hidden,
                       generator=torch.Generator().manual_seed(SEED),
                       device=dev)
 
@@ -985,11 +1014,13 @@ def k2_check(dev, name, cfg, model, mask_actions=False, shaped=False,
     # The stage kernels of a chunk: K10's conv, trunk and env a step, the
     # prep and the first observation; K2's hidden stages (every hidden layer
     # but the last), head, env (the tick) and observation a step (none after
-    # the last tick), the prep (with a hidden layer) and the first
+    # the last tick), the prep (with a hidden layer: a launch for each 8 of
+    # its copies, the layers' and the head's, pad_jobs.cuh) and the first
     # observation (env and observation).
     layers = 0 if cnn else len(act.group_models(model, groups)[0].hidden)
     stages = 3 * T + 2 if cnn else (
-        (layers > 0) + 1 + T * (max(layers - 1, 0) + 3))
+        (layers > 0) * -(-(layers + 1) // 8) + 1
+        + T * (max(layers - 1, 0) + 3))
     counts = launch_counts()
     ks, obs, action, lp, value, reward, delivered = steps(
         cfg, model, state, u, pick, drop, g, logits=logits_k, mask=mask,
@@ -1214,18 +1245,50 @@ def env_cols(x, lo: int, w: int):
     return x[:, lo:lo + w].contiguous()
 
 
-def per_step_check(K, phase, phase_ref, params, opt, step_args, n, tol):
+def as_f64(x):
+    """``x`` (a tensor, or dicts, tuples and named tuples of them) with its
+    floating tensors in float64."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, dict):
+        return {k: as_f64(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*map(as_f64, x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(map(as_f64, x))
+    return x
+
+
+def state_ratio(a, b, tol) -> float:
+    """The largest tolerance ratio of a phase's ``(params, optimizer
+    state)`` ``a`` against ``b``: params, nu and (Adam) mu."""
+    (pa, oa), (pb, ob) = a, b
+    pairs = [(pa, pb, "params"), (oa.nu, ob.nu, "nu")]
+    if hasattr(oa, "mu"):
+        pairs.append((oa.mu, ob.mu, "mu"))
+    return max(tree_err(x, y, *tol[k])[1] for x, y, k in pairs)
+
+
+def per_step_check(K, phase, phase_ref, params, opt, step_args, n, tol,
+                   whole=None):
     """Each of a learner phase's ``n`` optimizer steps as a phase of one
     step through the kernel, from the kernel's own params and optimizer
     state before it, against the twin's step from that same state, at
     ``tol`` (ROADMAP F-c17). Both sides of a step start from the same bits,
-    so a branch of the loss (the PPO value or ratio clip, V-trace's clips)
-    can part them only where one step's own rounding puts a sample on the
-    other side; the whole-phase comparison beside it lets a rounding apart
-    after one step choose the branch of every later step.
+    so a branch of the loss (the PPO value or ratio clip, V-trace's clips,
+    a relu) can part them only where one step's own rounding puts a sample
+    on the other side; the whole-phase comparison beside it lets a rounding
+    apart after one step choose the branch of every later step.
     ``step_args(params, opt, s) -> (args, kw)`` gives step s's one-step
-    phase: minibatch ``s % M``'s env columns, step s's optimizer rows."""
-    worst = {}
+    phase: minibatch ``s % M``'s env columns, step s's optimizer rows.
+
+    With ``whole``, the kernel's whole phase ``(params, optimizer state)``:
+    the chain of one-step launches must give its bits (so each step of the
+    phase's own call is one held here), and each step also runs the twin in
+    float64 from the kernel's state. Returns the worst ratios and, with
+    ``whole``, each step's float32 twin against that float64 twin (how far
+    float32 arithmetic itself lies from the step there)."""
+    worst, step_f64 = {}, []
     for s in range(n):
         args, kw = step_args(params, opt, s)
         pk, ok, lk = phase(*args, **kw)
@@ -1237,16 +1300,32 @@ def per_step_check(K, phase, phase_ref, params, opt, step_args, n, tol):
         for k, v in pairs.items():
             worst[k] = tuple(map(max, worst.get(k, (0.0, 0.0)),
                                  tree_err(*v, *tol[k])))
+        if whole is not None:
+            step_f64.append(state_ratio(
+                (pr, orf), phase_ref(*as_f64(args), **kw)[:2], tol))
         params, opt = pk, ok
     torch.cuda.synchronize()
+    chained = None
+    if whole is not None:
+        wp, wo = whole
+        chained = (all(bits_equal(params[k], wp[k]) for k in wp)
+                   and all(bits_equal(a[k], b[k])
+                           for f in ("mu", "nu") if hasattr(wo, f)
+                           for a, b in [(getattr(opt, f), getattr(wo, f))]
+                           for k in b))
     emit({"phase": "per_step_check", "kernel": K, "steps": n,
           "max_abs_err": {k: e for k, (e, _) in worst.items()},
           "tol_ratio": {k: r for k, (_, r) in worst.items()},
-          "tol": {k: tol[k] for k in worst}})
+          "tol": {k: tol[k] for k in worst},
+          **({"chain_bit_equal_whole_phase": chained,
+              "step_twin32_vs_twin64": step_f64} if whole is not None
+             else {})})
     require(all(r <= 1.0 for _, r in worst.values()),
             f"{K}: a step from the kernel's own state differs from the "
             f"twin's step: {worst}")
-    return worst
+    require(chained is not False, f"{K}: the whole phase's bits differ "
+            "from its steps' chained one by one")
+    return worst, step_f64
 
 
 def sgd_inputs(dev, cfg, arch="mlp", schedule=TRAIN_SCHEDULE, tcfg=None,
@@ -1279,13 +1358,23 @@ def sgd_inputs(dev, cfg, arch="mlp", schedule=TRAIN_SCHEDULE, tcfg=None,
 
 
 def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None,
-             bf16=False, per_step=False):
+             bf16=False, per_step=False, phase_gate=True):
     """K3 or, with ``cnn``, K11 against its plain twin, a rerun, timed;
     on config 4's trajectory or one of ``tcfg`` on ``cfg``; with
     ``groups``, K3 on the multi-policy params, its group count moving by a
     launch per step; with ``bf16``, both on bf16 operands; with
     ``per_step``, each step also from the kernel's own state
-    (``per_step_check``)."""
+    (``per_step_check``). Without ``phase_gate`` (K3 at 8 hidden layers,
+    K11 at trunk 50 on the ego window) the whole phase is held step by
+    step: each step from the kernel's own state at the tolerance, the
+    phase's own call equal in bits to those steps chained, and the whole
+    phase's distance from the twin may pass the tolerance only where
+    float32 arithmetic itself misses it: where the float32 twin lies
+    beyond the tolerance from its float64 run, over the phase or in one
+    step from the kernel's state (F-c17: one rounding apart can put a
+    sample on the other side of a relu or a clip, and Adam carries that
+    into every later step)."""
+    per_step = per_step or not phase_gate
     K, phase, phase_ref, tol = (
         ("K11", sgd_cnn.ppo_cnn_sgd_phase,
          sgd_cnn.ppo_cnn_sgd_phase_reference, CNN_TOL) if cnn else
@@ -1327,6 +1416,25 @@ def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None,
                      and bits_equal(ok.nu[k], o2.nu[k]) for k in pk)
                  and all(bits_equal(a, b) for a, b in zip(lk, l2)))
     moved = max(float((pk[k] - rs.params[k]).abs().max()) for k in pk)
+    if per_step:
+        w = traj.obs.shape[1] // M
+
+        def step_args(p, o, s):
+            lo = (s % M) * w
+            cut = functools.partial(env_cols, lo=lo, w=w)
+            return ((p, o, Transition(*map(cut, traj)), cut(adv_n),
+                     cut(targets), *(r[s:s + 1] for r in rows), ent,
+                     rs.kl_coeff),
+                    {**kw, "num_epochs": 1, "num_minibatches": 1})
+        _, step_f64 = per_step_check(
+            K, phase, phase_ref, rs.params, rs.opt_state, step_args, E * M,
+            tol, whole=None if phase_gate else (pk, ok))
+    f64 = {}
+    if not phase_gate:
+        pd, od, _ = phase_ref(*as_f64(args), **kw)
+        f64 = {"twin32_vs_twin64": state_ratio((pr, orf), (pd, od), tol),
+               "kernel_vs_twin64": state_ratio((pk, ok), (pd, od), tol),
+               "step_twin32_vs_twin64_max": max(step_f64)}
     k_ms = timed(lambda: phase(*args, **kw), 5)
     p_ms = timed(lambda: phase_ref(*args, **kw), 3)
     emit({**check_line(K, bf16, f"{K.lower()}_check"), "config": name,
@@ -1340,25 +1448,17 @@ def k3_check(dev, cfg, cnn=False, tcfg=None, name="config4", groups=None,
           **({"norm_ratio": ratios, "rel_bound": BF16_PHASE_REL,
               "f32_twin_norm_ratio": f32_ratio} if bf16 else {}),
           "bit_equal_rerun": bit_equal, "max_param_step": moved,
-          "kernel_ms": k_ms, "plain_ms": p_ms})
-    require(within(err, ratios),
-            f"{what} differs from its twin: {err} {ratios}")
+          "whole_phase_gate": phase_gate,
+          **({"whole_phase_f64": f64} if f64 else {}), "kernel_ms": k_ms,
+          "plain_ms": p_ms})
+    f32_misses = bool(f64) and max(f64["twin32_vs_twin64"],
+                                   f64["step_twin32_vs_twin64_max"]) > 1.0
+    require(within(err, ratios) or f32_misses,
+            f"{what} differs from its twin: {err} {ratios} {f64}")
     require(not bf16 or f32_ratio > 1.0,
             f"{what}: the f32 twin lies within the bf16 bound")
     require(bit_equal, f"{what}: a second run gave other bits")
     require(moved > 0.0, f"{what} did not move the params")
-    if per_step:
-        w = traj.obs.shape[1] // M
-
-        def step_args(p, o, s):
-            lo = (s % M) * w
-            cut = functools.partial(env_cols, lo=lo, w=w)
-            return ((p, o, Transition(*map(cut, traj)), cut(adv_n),
-                     cut(targets), *(r[s:s + 1] for r in rows), ent,
-                     rs.kl_coeff),
-                    {**kw, "num_epochs": 1, "num_minibatches": 1})
-        per_step_check(K, phase, phase_ref, rs.params, rs.opt_state,
-                       step_args, E * M, tol)
     fwd, dx = ff_macs(rs.params)
     n = traj.obs.shape[0] * traj.obs.shape[1] * cfg.num_agents  # per epoch
     bnd = bound(nbytes(traj.obs, traj.action, traj.log_prob, traj.value,
@@ -1448,16 +1548,18 @@ def stage_ratios(got, want, bf16, rel=BF16_GRAD_REL) -> dict:
     return res
 
 
-def cnn_stage_check(dev, cfg, name="config4", bf16=False, ragged=False):
+def cnn_stage_check(dev, cfg, name="config4", bf16=False, ragged=False,
+                    hidden=HIDDEN[0]):
     """K12's five stage kernels (``sgd_cnn.STAGES``), each against its plain
     stage on the plain chain's rows of minibatch 0 of a CNN trajectory of
     ``cfg`` (config 4's shapes; with ``ragged`` its first 5 steps of 100
     envs: N = 500, no tile full at the end), then timed on those rows.
     float32 outputs within STAGE_TOL elementwise; with ``bf16`` (against
     the bf16 plain stages) each tensor within BF16_GRAD_REL in norm; the
-    loss terms within CNN_TOL's mb_losses."""
-    tcfg, _, rs, traj, adv_n, targets, ent = sgd_inputs(dev, cfg, "cnn",
-                                                        CNN_SCHEDULE)
+    loss terms within CNN_TOL's mb_losses. The trunk ``hidden`` wide."""
+    tcfg, _, rs, traj, adv_n, targets, ent = sgd_inputs(
+        dev, cfg, "cnn", CNN_SCHEDULE,
+        TrainConfig(num_updates=CNN_SCHEDULE, hidden_dim=hidden))
     if ragged:
         traj = Transition(*(x[:RAGGED_T, :RAGGED_B] for x in traj))
         adv_n, targets = (x[:RAGGED_T, :RAGGED_B] for x in (adv_n, targets))
@@ -1491,6 +1593,7 @@ def cnn_stage_check(dev, cfg, name="config4", bf16=False, ragged=False):
             lambda: sgd_cnn.plain_stage(stage, p, rows, chain, ent, kl,
                                         bf16=bf16, **loss_kw), 3)}
     emit({**check_line("K12", bf16, "cnn_stage_check"), "config": name,
+          "hidden_dim": hidden,
           "ragged": ragged, "samples": rows[0].shape[0],
           "small_conv_tiles": run.small_tile,
           "ratio": "norm_ratio at BF16_GRAD_REL" if bf16 else
@@ -1596,15 +1699,16 @@ def act_cnn_stage_run(dev, cfg, model, groups=None, B=CHECK_B,
 
 
 def act_cnn_stage_check(dev, cfg, name, groups=None, B=CHECK_B,
-                        shaped=False):
+                        shaped=False, hidden=HIDDEN[0]):
     """``act_cnn_stage_run`` on the seeded config-4 CNN (or multi-policy
     CNN with ``groups``) of ``cfg``: the stage kernels against their plain
     stages on one step's rows, then timed; fails on any output off its
     bound."""
-    model = (cnn_model(cfg, dev) if groups is None
-             else cnn_groups_model(cfg, groups, dev))
+    model = (cnn_model(cfg, dev, hidden) if groups is None
+             else cnn_groups_model(cfg, groups, dev, hidden))
     res, bad, times = act_cnn_stage_run(dev, cfg, model, groups, B, shaped)
     emit({"phase": "act_cnn_stage_check", "kernel": "K10", "config": name,
+          "hidden_dim": hidden,
           "global_obs": cfg.global_obs, "policy_groups": groups, "B": B,
           "rows": B * cfg.num_agents, "masked_shaped": shaped,
           "tol": {"rows": STAGE_TOL, "log_prob": TOL}, "stages": {
@@ -1643,20 +1747,29 @@ def act_mlp_stage_run(dev, cfg, model, groups=None, B=CHECK_B,
     models = act.group_models(model, groups)
     dims = [models[0].hidden[0].in_features] + [
         lin.out_features for lin in models[0].hidden]
-    require(len(dims) == 3, "act_mlp_stage_run takes 2 hidden layers")
+    L = len(dims) - 1
+    require(L >= 2, "act_mlp_stage_run takes 2 hidden layers or more")
 
-    def plain(stage, x):
+    def plain(stage, x, layer=0):
         with torch.no_grad():
             if stage == "hidden":
-                return {"h": act.act_hidden_plain(models, 0, x, row_group)}
+                return {"h": act.act_hidden_plain(models, layer, x,
+                                                  row_group)}
             if stage == "head":
                 return {"head": act.act_head_plain(models, x, row_group)}
             return act.act_env_plain(cfg, state, x, order, u[0], pick[0],
                                      drop[0], g[0], shaped, sh)
 
-    inputs = {"hidden": obs.reshape(B * A, -1)[order]}
+    # Each hidden layer but the last on the plain chain's rows: the first
+    # is the "hidden" stage's entry; the deeper ones are checked too.
+    x = obs.reshape(B * A, -1)[order]
+    layer_in = []
+    for layer in range(L - 1):
+        layer_in.append(x)
+        x = plain("hidden", x, layer)["h"]
+    inputs = {"hidden": layer_in[0]}
     want = {"hidden": plain("hidden", inputs["hidden"])}
-    inputs["head"] = want["hidden"]["h"]
+    inputs["head"] = x
     want["head"] = plain("head", inputs["head"])
     inputs["env"] = want["head"]["head"]
     want["env"] = plain("env", inputs["env"])
@@ -1668,9 +1781,19 @@ def act_mlp_stage_run(dev, cfg, model, groups=None, B=CHECK_B,
                            shaping, groups)
     N = B * A
     flops = {"hidden": 2.0 * N * dims[0] * dims[1],
-             "head": 2.0 * N * (dims[1] + 6) * dims[2], "env": 0.0}
-    layer = {"hidden": 0, "head": 1, "env": 1}
+             "head": 2.0 * N * (dims[L - 1] + 6) * dims[L], "env": 0.0}
+    layer = {"hidden": 0, "head": L - 1, "env": L - 1}
     res, bad, times = {}, [], {}
+    for deeper in range(1, L - 1):
+        got = act.act_mlp_stage("hidden", cfg, model, state,
+                                {"x": layer_in[deeper]}, u, pick, drop, g,
+                                layer=deeper, **kw)
+        torch.cuda.synchronize()
+        e, r = tree_err((got["h"],), (layer_in[deeper + 1]
+                                      if deeper + 2 < L else x,), *STAGE_TOL)
+        res[f"hidden{deeper}"] = {"h": {"max_abs_err": e, "ratio": r}}
+        if r > 1.0:
+            bad.append(f"hidden{deeper}.h")
     for stage in act.ACT_MLP_STAGES:
         key = "head" if stage == "env" else "x"
         before = act.act_mlp_stage.launches
@@ -1724,7 +1847,7 @@ def act_mlp_stage_check(dev, cfg, name, model, groups=None, B=CHECK_B,
           "policy_groups": groups, "B": B, "rows": B * cfg.num_agents,
           "masked_shaped": shaped,
           "tol": {"rows": STAGE_TOL, "log_prob": TOL}, "stages": {
-              st: {"outputs": res[st], **times[st]} for st in res}})
+              st: {"outputs": res[st], **times.get(st, {})} for st in res}})
     require(not bad, f"K2 stages differ from their plain stages: {bad}")
     return {st: (t["max_abs_err"], t["ms"], t["plain_ms"], t)
             for st, t in times.items()}
@@ -1785,14 +1908,15 @@ def mlp_stage_check(dev, cfg, name="config4", bf16=False, ragged=False,
     return out
 
 
-def impala_inputs(dev, cfg, hidden=HIDDEN[0], ragged=False):
+def impala_inputs(dev, cfg, hidden=HIDDEN[0], ragged=False,
+                  layers=HIDDEN[1]):
     """One config-4 IMPALA trajectory: a K2 chunk from the trainer's reset
     and the boundary reset after it (``last_obs``); with ``ragged``, a
     chunk of ``RAGGED_UNROLL`` steps of the per-step phase from the reset
     states moved 1 to 23 steps before their episode's end, so that every
     env truncates inside the chunk (at its own step) and starts anew."""
     tcfg = TrainConfig(num_updates=IMPALA_SCHEDULE, impala_rmsprop=False,
-                       hidden_dim=hidden)
+                       hidden_dim=hidden, num_layers=layers)
     tr = make_train_impala(cfg, tcfg, device=dev)
     rs = tr.init(rng.prng_key(SEED + 7, dev))
     tr.model.load_state_dict(rs.params)
@@ -1819,21 +1943,23 @@ def impala_inputs(dev, cfg, hidden=HIDDEN[0], ragged=False):
     return tcfg, rs.params, traj, last_obs, kw
 
 
-def k5_check(dev, cfg, hidden=HIDDEN[0], ragged=False):
+def k5_check(dev, cfg, hidden=HIDDEN[0], ragged=False, layers=HIDDEN[1]):
     """K5 against its twin for passes 1 and 2, RMSProp and Adam; a rerun
     bit-equal; one pass of each optimizer timed (Adam the main path's, with
     a ``bound`` line for RMSProp), and the Adam pass step by step from the
     kernel's own state (``per_step_check``). At another ``hidden`` width,
     or on the ``ragged`` chunk of ``impala_inputs`` (truncations inside
-    it), only the main path's case runs."""
+    it), only the main path's case runs; at another number of hidden
+    ``layers``, one pass of each optimizer."""
     tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg, hidden,
-                                                     ragged)
+                                                     ragged, layers)
     M = tcfg.num_minibatches
     results, worst = [], {k: (0.0, 0.0) for k in ("losses", "params", "mu",
                                                   "nu")}
     times = {}
-    full = hidden == HIDDEN[0] and not ragged
-    for use_rms in ((True, False) if full else (False,)):
+    full = (hidden, layers) == HIDDEN and not ragged
+    both = full or layers != HIDDEN[1]
+    for use_rms in ((True, False) if both else (False,)):
         for passes in ((1, 2) if full else (1,)):
             tc = tcfg.replace(impala_rmsprop=use_rms, impala_passes=passes)
             optimizer = make_impala_optimizer(tc)
@@ -1873,7 +1999,7 @@ def k5_check(dev, cfg, hidden=HIDDEN[0], ragged=False):
                           5),
                     timed(lambda: vtrace_sgd.impala_sgd_phase_reference(
                         *args, **pkw), 3))
-            if passes == 1 and not use_rms and hidden == HIDDEN[0]:
+            if passes == 1 and not use_rms and (hidden, layers) == HIDDEN:
                 w = traj.obs.shape[1] // M
 
                 def step_args(p, o, s, rows=rows, pkw=pkw, tc=tc):
@@ -1889,7 +2015,8 @@ def k5_check(dev, cfg, hidden=HIDDEN[0], ragged=False):
                                vtrace_sgd.impala_sgd_phase_reference,
                                params, opt, step_args, M, VT_TOL)
     done_inside = int(traj.done[:-1, :, 0].sum())
-    emit({"phase": "k5_check", "hidden": hidden, "B": traj.obs.shape[1],
+    emit({"phase": "k5_check", "hidden": hidden, "num_layers": layers,
+          "B": traj.obs.shape[1],
           "T": traj.obs.shape[0], "ragged": ragged,
           "truncations_inside_the_chunk": done_inside,
           "minibatches": M, "samples_per_minibatch":
@@ -1919,11 +2046,12 @@ def k5_check(dev, cfg, hidden=HIDDEN[0], ragged=False):
             bound(data + 6 * nbytes(params), flops))
 
 
-def k6_check(dev, cfg, ragged=False):
+def k6_check(dev, cfg, ragged=False, shape=HIDDEN):
     """K6 against autograd on every minibatch, timed; on config 4's chunk or
-    the ``ragged`` one of ``impala_inputs``."""
-    tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg,
-                                                     ragged=ragged)
+    the ``ragged`` one of ``impala_inputs``, of a model ``shape``
+    (hidden_dim, num_layers) wide and deep."""
+    tcfg, params, traj, last_obs, kw = impala_inputs(
+        dev, cfg, shape[0], ragged, shape[1])
     M, ent = tcfg.num_minibatches, tcfg.entropy_coef
     worst = {"mb_losses": (0.0, 0.0), "grads": (0.0, 0.0)}
     for mb in range(M):
@@ -1941,7 +2069,8 @@ def k6_check(dev, cfg, ragged=False):
         *args, num_minibatches=M, **kw), 5)
     p_ms = timed(lambda: vtrace_sgd.impala_minibatch_grads_reference(
         *args, num_minibatches=M, **kw), 3)
-    emit({"phase": "k6_check", "minibatches": M, "T": traj.obs.shape[0],
+    emit({"phase": "k6_check", "hidden_dim": shape[0],
+          "num_layers": shape[1], "minibatches": M, "T": traj.obs.shape[0],
           "ragged": ragged,
           "max_abs_err": {k: e for k, (e, _) in worst.items()},
           "tol_ratio": {k: r for k, (_, r) in worst.items()},
@@ -2023,7 +2152,8 @@ def vtrace_stage_run(dev, params, traj, last_obs, ent, M, kw,
     return res, bad, times
 
 
-def vtrace_stage_check(dev, cfg, name, hidden=HIDDEN[0], ragged=False):
+def vtrace_stage_check(dev, cfg, name, hidden=HIDDEN[0], ragged=False,
+                       layers=HIDDEN[1]):
     """``vtrace_stage_run`` on the config-4 IMPALA trajectory of
     ``impala_inputs`` (N = 65536 samples and 4096 last-obs rows a
     minibatch), or with ``ragged`` its first 5 steps of 100 envs, masked
@@ -2031,7 +2161,8 @@ def vtrace_stage_check(dev, cfg, name, hidden=HIDDEN[0], ragged=False):
     end; nb = 100, no trace CTA full): K6's stage kernels against their
     plain stages, then timed; fails on any output off its bound. Returns
     each stage's ``(max_abs_err, ms, plain_ms, bound)``."""
-    tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg, hidden)
+    tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg, hidden,
+                                                     layers=layers)
     M = tcfg.num_minibatches
     if ragged:  # a random mask that keeps each taken action, random boots
         traj = ImpalaTransition(*(x[:RAGGED_T, :RAGGED_B] for x in traj))
@@ -2046,7 +2177,7 @@ def vtrace_stage_check(dev, cfg, name, hidden=HIDDEN[0], ragged=False):
     res, bad, times = vtrace_stage_run(dev, params, traj, last_obs,
                                        tcfg.entropy_coef, M, kw)
     emit({"phase": "vtrace_stage_check", "kernel": "K6", "config": name,
-          "ragged": ragged, "hidden": hidden,
+          "ragged": ragged, "hidden": hidden, "num_layers": layers,
           "samples": traj.action[:, :traj.action.shape[1] // M].numel(),
           "last_obs_rows": last_obs[:last_obs.shape[0] // M, :, 0].numel(),
           "masked_bootstrap": ragged, "tol": STAGE_TOL,
@@ -2060,17 +2191,18 @@ def carry_leaves(carry):
     return carry if isinstance(carry, tuple) else (carry,)
 
 
-def k7_check(dev, name, cfg, arch, mask_actions=False):
+def k7_check(dev, name, cfg, arch, mask_actions=False, shape=HIDDEN):
     """K7 against the plain engine replaying its actions and the plain
     recurrent policy stepped over its observations from the same carry,
-    then timed beside its twin."""
+    then timed beside its twin; the model ``shape`` (hidden_dim,
+    num_layers) wide and deep."""
     B, T, A = CHECK_B, SLICE_T, cfg.num_agents
-    model = make_model(cfg, arch, HIDDEN[0], HIDDEN[1],
+    model = make_model(cfg, arch, shape[0], shape[1],
                        torch.Generator().manual_seed(SEED), dev)
     params = {k: v.detach() for k, v in model.state_dict().items()}
     state, obs0 = reset_envs(cfg, B, SEED + 1, dev)
     gen = torch.Generator().manual_seed(SEED + 9)
-    carry = tuple((0.5 * torch.randn(B, A, HIDDEN[0], generator=gen)).to(dev)
+    carry = tuple((0.5 * torch.randn(B, A, shape[0], generator=gen)).to(dev)
                   for _ in range(2 if arch == "lstm" else 1))
     carry = carry if arch == "lstm" else carry[0]
     _, u, pick, drop, _ = rng.batched_step_draws(state.key, cfg, T)
@@ -2128,6 +2260,7 @@ def k7_check(dev, name, cfg, arch, mask_actions=False):
     p_ms = timed(lambda: act_rnn.act_rnn_steps_reference(
         cfg, params, state, carry, u, pick, drop, g, mask=mask), 3)
     out = {"phase": "k7_check", "config": name, "arch": arch,
+           "hidden_dim": shape[0], "num_layers": shape[1],
            "mask_actions": mask_actions, "B": B, "T": T, "max_abs_err": err,
            "tol": TOL, "actions_agree_where_gap_gt_tol": agree,
            "clear_share": clear_n, "kernel_ms": k_ms, "plain_ms": p_ms}
@@ -2313,16 +2446,18 @@ def act_rnn_stage_run(dev, cfg, arch, hidden=HIDDEN[0], B=CHECK_B,
     return res, bad, times
 
 
-def act_rnn_stage_check(dev, cfg, name, arch, B=CHECK_B, masked=False):
+def act_rnn_stage_check(dev, cfg, name, arch, B=CHECK_B, masked=False,
+                        shape=HIDDEN):
     """``act_rnn_stage_run`` for ``arch`` on ``cfg`` at hidden 128 x 2
     (one encoder layer): K7's stage kernels against their plain stages on
     one step's rows, then timed; then one K7 chunk of T = 16 from the same
     reset launched twice, bit-equal. Fails on any output off its bound or
     a rerun that differs. Returns each stage's ``(max_abs_err, ms,
     plain_ms, bound, library_ms)``."""
-    res, bad, times = act_rnn_stage_run(dev, cfg, arch, B=B, masked=masked)
+    res, bad, times = act_rnn_stage_run(dev, cfg, arch, shape[0], B=B,
+                                        masked=masked, num_layers=shape[1])
     T, A = SLICE_T, cfg.num_agents
-    model = make_model(cfg, arch, HIDDEN[0], HIDDEN[1],
+    model = make_model(cfg, arch, shape[0], shape[1],
                        torch.Generator().manual_seed(SEED), dev)
     params = {k: v.detach() for k, v in model.state_dict().items()}
     state, _ = reset_envs(cfg, B, SEED + 1, dev)
@@ -2340,7 +2475,8 @@ def act_rnn_stage_check(dev, cfg, name, arch, B=CHECK_B, masked=False):
     rerun = all(bits_equal(x, y) if x.dtype == torch.float32
                 else torch.equal(x, y) for x, y in zip(*flat))
     emit({"phase": "act_rnn_stage_check", "kernel": "K7", "config": name,
-          "arch": arch, "B": B, "rows": B * A, "masked": masked,
+          "arch": arch, "hidden_dim": shape[0], "num_layers": shape[1],
+          "B": B, "rows": B * A, "masked": masked,
           "tol": {"rows": STAGE_TOL, "log_prob": TOL},
           "rerun_bit_equal": rerun, "stages": {
               st: {"outputs": res[st], **times[st]} for st in res}})
@@ -2351,7 +2487,7 @@ def act_rnn_stage_check(dev, cfg, name, arch, B=CHECK_B, masked=False):
 
 
 def rnn_inputs(dev, cfg, arch, bf16=False,
-               rollout=act_rnn.ppo_rnn_rollout_reference):
+               rollout=act_rnn.ppo_rnn_rollout_reference, shape=HIDDEN):
     """One config-4 recurrent trajectory for the K8/K9 checks: a chunk of
     ``rollout`` (K7's plain twin; with global observations the trainer's
     per-step phase, D = 411 on the 9x9 map) from the trainer's reset and a
@@ -2362,8 +2498,10 @@ def rnn_inputs(dev, cfg, arch, bf16=False,
     the chunk K7 makes at its 3xTF32 bits, one sample's value sits 5e-9
     past the PPO value clip after K8's first update in float64, 7.5e-8
     inside it in float32 (K9 and the twin alike), and K8's phase and its
-    twin's part at that branch (``tools/torch_k8_boundary.py``)."""
-    tcfg = TrainConfig(num_updates=RNN_SCHEDULE)
+    twin's part at that branch (``tools/torch_k8_boundary.py``). The model
+    ``shape`` (hidden_dim, num_layers) wide and deep."""
+    tcfg = TrainConfig(num_updates=RNN_SCHEDULE, hidden_dim=shape[0],
+                       num_layers=shape[1])
     tr = make_train_rnn(cfg, tcfg, arch, device=dev)
     rs = tr.init(rng.prng_key(SEED + 5, dev))
     gen = torch.Generator().manual_seed(SEED + 10)
@@ -2393,9 +2531,9 @@ def rnn_inputs(dev, cfg, arch, bf16=False,
     return tcfg, tr, rs, traj, adv_n, targets, h0, ent
 
 
-def k8_check(dev, cfg, arch, bf16=False):
-    tcfg, tr, rs, traj, adv_n, targets, h0, ent = rnn_inputs(dev, cfg, arch,
-                                                             bf16)
+def k8_check(dev, cfg, arch, bf16=False, shape=HIDDEN, plain_reps=3):
+    tcfg, tr, rs, traj, adv_n, targets, h0, ent = rnn_inputs(
+        dev, cfg, arch, bf16, shape=shape)
     E, M = tcfg.ppo_epochs, tcfg.num_minibatches
     rows = tr.optimizer.step_rows(rs.opt_state.count, E * M, dev)
     args = (rs.params, rs.opt_state, traj, adv_n, targets, h0, *rows, ent,
@@ -2427,8 +2565,10 @@ def k8_check(dev, cfg, arch, bf16=False):
                  and all(bits_equal(a, b) for a, b in zip(lk, l2)))
     moved = max(float((pk[k] - rs.params[k]).abs().max()) for k in pk)
     k_ms = timed(lambda: sgd_rnn.ppo_rnn_sgd_phase(*args, **kw), 3)
-    p_ms = timed(lambda: sgd_rnn.ppo_rnn_sgd_phase_reference(*args, **kw), 3)
+    p_ms = timed(lambda: sgd_rnn.ppo_rnn_sgd_phase_reference(*args, **kw),
+                 plain_reps)
     emit({**check_line("K8", bf16, "k8_check"), "arch": arch,
+          "hidden_dim": shape[0], "num_layers": shape[1],
           "B": traj.obs.shape[1],
           "T": SLICE_T, "epochs": E, "minibatches": M,
           "sequences_per_minibatch":
@@ -2469,9 +2609,9 @@ def k8_check(dev, cfg, arch, bf16=False):
     return err["params"][0], k_ms, p_ms, bnd
 
 
-def k9_check(dev, cfg, arch, bf16=False):
-    tcfg, tr, rs, traj, adv_n, targets, h0, ent = rnn_inputs(dev, cfg, arch,
-                                                             bf16)
+def k9_check(dev, cfg, arch, bf16=False, shape=HIDDEN):
+    tcfg, tr, rs, traj, adv_n, targets, h0, ent = rnn_inputs(
+        dev, cfg, arch, bf16, shape=shape)
     M = tcfg.num_minibatches
     kw = dict(num_minibatches=M, clip_eps=tcfg.clip_eps,
               value_coef=tcfg.value_coef, mask_actions=False,
@@ -2502,6 +2642,7 @@ def k9_check(dev, cfg, arch, bf16=False):
     p_ms = timed(lambda: sgd_rnn.ppo_rnn_minibatch_grads_reference(
         *args, **kw), 3)
     emit({**check_line("K9", bf16, "k9_check"), "arch": arch,
+          "hidden_dim": shape[0], "num_layers": shape[1],
           "minibatches": M,
           "max_abs_err": {k: e for k, (e, _) in worst.items()},
           "tol_ratio": {k: r for k, (_, r) in worst.items()},
@@ -2522,7 +2663,7 @@ def k9_check(dev, cfg, arch, bf16=False):
     return worst["grads"][0], k_ms, p_ms, bnd
 
 
-def rnn_stage_check(dev, cfg, arch, bf16=False, ragged=False):
+def rnn_stage_check(dev, cfg, arch, bf16=False, ragged=False, shape=HIDDEN):
     """K9's six stage kernels (``sgd_rnn.STAGES``), each against its plain
     stage on the plain chain's rows of minibatch 0 of a config-4 recurrent
     trajectory (``rnn_inputs``: N = 4096 sequences of 16 steps; with
@@ -2530,9 +2671,10 @@ def rnn_stage_check(dev, cfg, arch, bf16=False, ragged=False):
     full at the end), then timed on those rows. float32 outputs within
     RNN_GRAD_TOL elementwise; with ``bf16`` (against the bf16 plain
     stages) each tensor within BF16_GRAD_REL in norm; the loss terms within
-    RNN_MB_LOSS_TOL."""
-    tcfg, _, rs, traj, adv_n, targets, h0, ent = rnn_inputs(dev, cfg, arch,
-                                                            bf16)
+    RNN_MB_LOSS_TOL. The model ``shape`` (hidden_dim, num_layers) wide and
+    deep."""
+    tcfg, _, rs, traj, adv_n, targets, h0, ent = rnn_inputs(
+        dev, cfg, arch, bf16, shape=shape)
     if ragged:
         traj = Transition(*(x[:RAGGED_T, :RAGGED_B] for x in traj))
         adv_n, targets = (x[:RAGGED_T, :RAGGED_B] for x in (adv_n, targets))
@@ -2569,6 +2711,7 @@ def rnn_stage_check(dev, cfg, arch, bf16=False, ragged=False):
             lambda: sgd_rnn.plain_stage(stage, p, rows, carry, inputs, ent,
                                         kl, bf16=bf16, **loss_kw), 3)}
     emit({**check_line("K9", bf16, "rnn_stage_check"), "arch": arch,
+          "hidden_dim": shape[0], "num_layers": shape[1],
           "ragged": ragged, "sequences": rows[0].shape[0] // traj.obs.shape[0],
           "steps": traj.obs.shape[0],
           "ratio": "norm_ratio at BF16_GRAD_REL" if bf16 else
@@ -3038,7 +3181,7 @@ def shelves_global_train_phase(dev, cfg):
 
 
 def cnn_global_train_phase(dev, cfg):
-    """10 config-4 updates of the CNN policy on global observations (K10 on
+    """5 config-4 updates of the CNN policy on global observations (K10 on
     the whole map + K11/K12), after one update through the kernels and one
     through the plain path from the same state, whose metrics must
     agree."""
@@ -3104,10 +3247,10 @@ def groups_tcfg():
     return shelves_tcfg().replace(num_envs=GROUPS_B)
 
 
-def groups_model(cfg, groups, dev):
+def groups_model(cfg, groups, dev, shape=HIDDEN):
     """A seeded ``MultiPolicyActorCritic`` of config 4's MLPs."""
     return make_multi_policy_model(
-        cfg, groups, hidden_dim=HIDDEN[0], num_layers=HIDDEN[1],
+        cfg, groups, hidden_dim=shape[0], num_layers=shape[1],
         generator=torch.Generator().manual_seed(SEED), device=dev)
 
 
@@ -3277,10 +3420,10 @@ def ff_bf16_train_phase(dev, cfg, arch):
           "tol": STEP_METRIC_TOL})
 
 
-def cnn_groups_model(cfg, groups, dev):
+def cnn_groups_model(cfg, groups, dev, hidden=HIDDEN[0]):
     """A seeded ``MultiPolicyActorCritic`` of config 4's CNNs."""
     return make_multi_policy_model(
-        cfg, groups, "cnn", hidden_dim=HIDDEN[0],
+        cfg, groups, "cnn", hidden_dim=hidden,
         generator=torch.Generator().manual_seed(SEED), device=dev)
 
 
@@ -4120,22 +4263,26 @@ class TimedMesh:
 
 
 @timed_phase("mesh_world1_train")
-def mesh_world1_train(dev):
+def mesh_world1_train(dev, paths=None, updates=None,
+                      phase="mesh_world1_train"):
     """A world-1 NCCL group (a file store in a temporary directory) and on
     it, for PPO (K2 + K4), the CNN (K10 + K12), the GRU (K7 + K9) and
-    IMPALA with Adam (K2 + K6) at config 4, 3 meshed updates from
+    IMPALA with Adam (K2 + K6) at config 4 (or ``paths``, MESH_PATHS'
+    kind), 3 meshed updates (or ``updates``) from
     ``PRNGKey(0)``: each update's grads-kernel launches (``epochs x
     minibatches``), its time split into acting, the grads kernel, the
     all-reduce and the step (CUDA events around each), and the same update
     through the plain twins from the same state (``plain_step``: the same
     meshed route, its all-reduce included): env state bit-equal, metrics
     within STEP_METRIC_TOL, params within the learner's tolerance."""
+    paths = MESH_PATHS if paths is None else paths
+    updates = MESH_UPDATES if updates is None else updates
     from warehouse_tpu_torch.parallel.distributed import process_group
 
     with tempfile.TemporaryDirectory() as tmp, process_group(
             os.path.join(tmp, "store"), backend="nccl",
             timeout_s=MESH_TIMEOUT_S) as mesh:
-        for name, make, kw, arch, grads, launch, step_name, tol in MESH_PATHS:
+        for name, make, kw, arch, grads, launch, step_name, tol in paths:
             tcfg = TrainConfig(**kw)
             timed_mesh = TimedMesh(mesh)
             tr = make(medium_config(), tcfg, arch=arch, device=dev,
@@ -4149,7 +4296,7 @@ def mesh_world1_train(dev):
             with Spans({(launch, "grads"): "grads",
                         (launch, step_name): "step",
                         (TimedMesh, "mean_"): "all_reduce"}) as spans:
-                for u in range(MESH_UPDATES):
+                for u in range(updates):
                     n0 = grads.launches
                     marks = Marks()
                     nxt, m = tr.train_step(rs, mark=marks)
@@ -4193,7 +4340,7 @@ def mesh_world1_train(dev):
                             f"mesh_world1_train {name}: update {u + 1} "
                             f"differs from the twins' {row}")
                     rs = nxt
-            emit({"phase": "mesh_world1_train", "path": name,
+            emit({"phase": phase, "path": name,
                   "backend": mesh.backend, "world": mesh.world,
                   "B": tcfg.num_envs, "T": tcfg.unroll_length,
                   "grads_launches_per_update": per_update,
@@ -4632,10 +4779,10 @@ def pair_checks(dev) -> dict:
     return rows
 
 
-def mlp_model(cfg, dev, hidden=HIDDEN[0]):
-    """A seeded ``ActorCriticMLP`` of config 4's depth (its width unless
-    ``hidden``)."""
-    return make_model(cfg, hidden_dim=hidden, num_layers=HIDDEN[1],
+def mlp_model(cfg, dev, hidden=HIDDEN[0], layers=HIDDEN[1]):
+    """A seeded ``ActorCriticMLP`` of config 4's depth and width (or
+    ``layers`` hidden layers ``hidden`` wide)."""
+    return make_model(cfg, hidden_dim=hidden, num_layers=layers,
                       generator=torch.Generator().manual_seed(SEED),
                       device=dev)
 
@@ -4671,38 +4818,49 @@ def k1_pair_check(dev, name, cfg, B):
     return err, k_ms, p_ms, bnd
 
 
-def pair_train_cli(dev, out_dir):
-    """``python -m warehouse_tpu_torch.train --env medium --env-config
-    '{"num_agents": 6}'`` (PPO, the MLP, config 4's other settings) for
-    PAIR_UPDATES updates, in this process: its metrics file's backends the
-    kernels', its metrics finite."""
+def cli_train(dev, out_dir, name, argv, n, make=None, arch="mlp"):
+    """``python -m warehouse_tpu_torch.train`` with ``argv`` (config 4's
+    other settings) for ``n`` updates, in this process: its metrics
+    file's backends the kernels', its metrics finite; with ``make``, then
+    the CLI's trainer at the same settings (medium, ``--hidden-dim``) for
+    one update through the kernels and one through the plain path from the
+    same state, whose metrics must agree."""
     from warehouse_tpu_torch.train.__main__ import main as train_main
 
-    path = os.path.join(out_dir, "pair_ppo.jsonl")
-    train_main([*PAIR_CLI_ENV["a6q8"], "--num-updates", str(PAIR_UPDATES),
-                "--log-every", "1", "--metrics-path", path])
+    path = os.path.join(out_dir, f"{name}.jsonl")
+    train_main([*argv, "--num-updates", str(n), "--log-every", "1",
+                "--metrics-path", path])
     with open(path) as fh:
         lines = [json.loads(x) for x in fh]
     meta, rows = lines[0], lines[1:]
     require(meta.get("backends") == KERNELS,
-            f"pair_ppo_train: backends {meta.get('backends')}")
-    require(len(rows) == PAIR_UPDATES and all(
+            f"{name}: backends {meta.get('backends')}")
+    require(len(rows) == n and all(
         np.isfinite(v) for r in rows for v in r.values()
-        if isinstance(v, float)), f"pair_ppo_train: metrics {rows}")
-    emit({"phase": "pair_ppo_train", "cli": PAIR_CLI_ENV["a6q8"],
-          "updates": PAIR_UPDATES, "backends": meta["backends"],
-          "last": rows[-1]})
+        if isinstance(v, float)), f"{name}: metrics {rows}")
+    line = {"phase": name, "cli": argv, "updates": n,
+            "backends": meta["backends"], "last": rows[-1]}
+    if make is not None:
+        hidden = int(argv[argv.index("--hidden-dim") + 1])
+        tr = make(medium_config(), TrainConfig(hidden_dim=hidden), arch,
+                  device=dev)
+        line.update(first_update_vs_plain=first_update_vs_plain(tr, dev,
+                                                                 name),
+                    tol=STEP_METRIC_TOL)
+    emit(line)
 
 
-def pair_train(dev, name, make, cfg, tcfg, **kw):
-    """PAIR_UPDATES updates of a trainer at a pair, through the kernels,
-    the first against the plain path's from the same state."""
+def short_train(dev, name, make, cfg, tcfg, n, **kw):
+    """``n`` updates of a trainer through the kernels, the first against
+    the plain path's from the same state."""
     tr = make(cfg, tcfg, device=dev, **kw)
     first = first_update_vs_plain(tr, dev, name)
-    _, out = run_updates(tr, PAIR_UPDATES, name, dev, plain_n=0)
+    _, out = run_updates(tr, n, name, dev, plain_n=0)
     emit({"phase": name, "agents_queue": [cfg.num_agents,
                                           cfg.queue_capacity],
-          "first_update_vs_plain": first, **out})
+          "hidden_dim": tcfg.hidden_dim, "num_layers": tcfg.num_layers,
+          "model_dtype": tcfg.model_dtype, "first_update_vs_plain": first,
+          "tol": STEP_METRIC_TOL, **out})
 
 
 def pair_evaluate(dev):
@@ -4736,26 +4894,327 @@ def pair_main_paths(dev, out_dir):
     """The pairs' main paths: (name, phase, kernels it must launch)."""
     c6, c12 = PAIRS["a6q8"], PAIRS["a12q24"]
     return [
-        ("pair_ppo_train", lambda: pair_train_cli(dev, out_dir),
+        ("pair_ppo_train", lambda: cli_train(
+            dev, out_dir, "pair_ppo_train", PAIR_CLI_ENV["a6q8"],
+            PAIR_UPDATES),
          ["ppo_rollout", *K2_STAGES, "ppo_sgd_phase",
           "ppo_minibatch_grads"]),
-        ("pair_gru_train", lambda: pair_train(
+        ("pair_gru_train", lambda: short_train(
             dev, "pair_gru_train", make_train_rnn, c6,
-            TrainConfig(num_updates=RNN_SCHEDULE), arch="gru"),
+            TrainConfig(num_updates=RNN_SCHEDULE), PAIR_UPDATES, arch="gru"),
          ["ppo_rnn_rollout", *K7_STAGES, "ppo_rnn_sgd_phase",
           "ppo_rnn_minibatch_grads"]),
-        ("pair_cnn_train", lambda: pair_train(
+        ("pair_cnn_train", lambda: short_train(
             dev, "pair_cnn_train", make_train, c6,
-            TrainConfig(num_updates=CNN_SCHEDULE), arch="cnn"),
+            TrainConfig(num_updates=CNN_SCHEDULE), PAIR_UPDATES, arch="cnn"),
          ["ppo_rollout_cnn", "ppo_rollout_cnn_stages", "ppo_cnn_sgd_phase",
           "ppo_cnn_minibatch_grads"]),
-        ("pair_groups_train", lambda: pair_train(
+        ("pair_groups_train", lambda: short_train(
             dev, "pair_groups_train", make_train, c12,
             TrainConfig(num_envs=PAIR_GROUPS_B, num_updates=TRAIN_SCHEDULE),
-            policy_groups=PER_AGENT_12),
+            PAIR_UPDATES, policy_groups=PER_AGENT_12),
          ["ppo_rollout", "ppo_rollout_groups", *K2_STAGES,
           "ppo_sgd_phase_groups", "ppo_minibatch_grads_groups"]),
         ("pair_evaluate", lambda: pair_evaluate(dev), ["greedy_rollout"])]
+
+
+# ---- the TPU kernels' widths and depths (ROADMAP T-6) --------------------
+
+# The shapes the kernels took only once any width and depth ran: a hidden
+# width of 50 (no multiple of 4: K7's cell and encoder, K8 / K9's cell,
+# K10-K12's trunk), 5 MLP hidden layers (K2-K6; 4 recurrent encoder
+# layers at num_layers 5, as make_model builds them: K7-K9) and 8 MLP
+# hidden layers (more than a launch of the prep's or stage F's table
+# holds before they were split: the depth cap is gone, not moved).
+SHAPE_H50 = (50, HIDDEN[1])
+SHAPE_DEEP = (HIDDEN[0], 5)
+SHAPE_DEEP8 = (HIDDEN[0], 8)
+SHAPE_UPDATES = 3  # updates of each shape main path
+SHAPE_SECONDS = {}  # each shape check's wall seconds
+
+
+def shape_tcfg(schedule, shape, **kw):
+    return TrainConfig(num_updates=schedule, hidden_dim=shape[0],
+                       num_layers=shape[1], **kw)
+
+
+def shape_checks(dev) -> dict:
+    """Every kernel at the widths and depths of ROADMAP T-6, against its
+    plain twin at the tolerance of its preset's check (each check as at
+    config 4): K7-K9 at hidden 50 (GRU and LSTM, K8 / K9 in float32 and
+    bf16) and at 4 encoder layers; K10-K12 at trunk width 50 (the ego
+    window, the 9x9 global view, K10 with groups, K11 / K12 in bf16);
+    K2-K6 at 5 and 8 hidden layers, K3 / K4 with groups, at D = 611 and
+    in bf16 at 5, K5 with RMSProp and Adam; and the stage kernels at those
+    shapes. Returns the kernels line's entries (the others print a bound
+    line)."""
+    cfg, shelves = medium_config(), shelves_config()
+    medium_g, shelves_g = (c.replace(global_obs=True) for c in (cfg, shelves))
+    out = {}
+
+    def run(key, fn, *a, **kw):
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        SHAPE_SECONDS[key] = time.perf_counter() - t0
+        return res
+
+    # K7-K9: hidden 50, then 4 encoder layers.
+    h50, deep = SHAPE_H50, SHAPE_DEEP
+    out["ppo_rnn_rollout_h50"] = run("k7_gru_h50", k7_check, dev,
+                                     "medium_h50", cfg, "gru", shape=h50)
+    emit_bound("K7 lstm", "config4_h50", run(
+        "k7_lstm_h50", k7_check, dev, "medium_h50", cfg, "lstm", shape=h50))
+    out["ppo_rnn_rollout_deep"] = run("k7_gru_deep", k7_check, dev,
+                                      "medium_enc4", cfg, "gru", shape=deep)
+    out["ppo_rnn_sgd_phase_h50"] = run("k8_gru_h50", k8_check, dev, cfg,
+                                       "gru", shape=h50, plain_reps=1)
+    out["ppo_rnn_minibatch_grads_h50"] = run("k9_gru_h50", k9_check, dev,
+                                             cfg, "gru", shape=h50)
+    emit_bound("K8 lstm", "config4_h50", run(
+        "k8_lstm_h50", k8_check, dev, cfg, "lstm", shape=h50, plain_reps=1))
+    emit_bound("K9 lstm", "config4_h50", run(
+        "k9_lstm_h50", k9_check, dev, cfg, "lstm", shape=h50))
+    emit_bound("K8 bf16", "config4_h50", run(
+        "k8_gru_h50_bf16", k8_check, dev, cfg, "gru", True, shape=h50, plain_reps=1))
+    emit_bound("K9 bf16", "config4_h50", run(
+        "k9_gru_h50_bf16", k9_check, dev, cfg, "gru", True, shape=h50))
+    out["ppo_rnn_sgd_phase_h50_bf16"] = run(
+        "k8_lstm_h50_bf16", k8_check, dev, cfg, "lstm", True, shape=h50, plain_reps=1)
+    out["ppo_rnn_minibatch_grads_h50_bf16"] = run(
+        "k9_lstm_h50_bf16", k9_check, dev, cfg, "lstm", True, shape=h50)
+    out["ppo_rnn_sgd_phase_deep"] = run("k8_gru_deep", k8_check, dev, cfg,
+                                        "gru", shape=deep, plain_reps=1)
+    out["ppo_rnn_minibatch_grads_deep"] = run("k9_gru_deep", k9_check, dev,
+                                              cfg, "gru", shape=deep)
+    for arch in ("gru", "lstm"):
+        run(f"act_rnn_stages_{arch}_h50", act_rnn_stage_check, dev, cfg,
+            "config4_h50", arch, shape=h50)
+    run("act_rnn_stages_gru_deep", act_rnn_stage_check, dev, cfg,
+        "config4_enc4", "gru", shape=deep)
+    run("rnn_stages_gru_h50", rnn_stage_check, dev, cfg, "gru", shape=h50)
+    run("rnn_stages_lstm_h50_bf16", rnn_stage_check, dev, cfg, "lstm", True,
+        shape=h50)
+    run("rnn_stages_gru_h50_ragged", rnn_stage_check, dev, cfg, "gru",
+        ragged=True, shape=h50)
+    run("rnn_stages_gru_deep", rnn_stage_check, dev, cfg, "gru", shape=deep)
+    # K10-K12: trunk width 50.
+    W = h50[0]
+    out["ppo_rollout_cnn_h50"] = run("k10_h50", k2_check, dev, "medium_h50",
+                                     cfg, cnn_model(cfg, dev, W))
+    emit_bound("K10", "medium_global_h50", run(
+        "k10_global_h50", k2_check, dev, "medium_global_h50", medium_g,
+        cnn_model(medium_g, dev, W), phase="global_check"))
+    emit_bound("K10 groups", "config4_h50", run(
+        "k10_groups_h50", k2_check, dev, "medium_h50_groups", cfg,
+        cnn_groups_model(cfg, CONFIG4_GROUPS, dev, W),
+        groups=CONFIG4_GROUPS))
+    ctc = shape_tcfg(CNN_SCHEDULE, h50)
+    out["ppo_cnn_sgd_phase_h50"] = run("k11_h50", k3_check, dev, cfg,
+                                       cnn=True, tcfg=ctc, name="config4_h50",
+                                       phase_gate=False)
+    out["ppo_cnn_minibatch_grads_h50"] = run(
+        "k12_h50", k4_check, dev, cfg, cnn=True, tcfg=ctc, name="config4_h50")
+    emit_bound("K11 bf16", "config4_h50", run(
+        "k11_h50_bf16", k3_check, dev, cfg, cnn=True, tcfg=ctc,
+        name="config4_h50", bf16=True))
+    emit_bound("K12 bf16", "config4_h50", run(
+        "k12_h50_bf16", k4_check, dev, cfg, cnn=True, tcfg=ctc,
+        name="config4_h50", bf16=True))
+    emit_bound("K11", "medium_global_h50", run(
+        "k11_global_h50", k3_check, dev, medium_g, cnn=True, tcfg=ctc,
+        name="medium_global_h50", per_step=True))
+    run("cnn_stages_h50", cnn_stage_check, dev, cfg, "config4_h50", hidden=W)
+    run("cnn_stages_global_h50", cnn_stage_check, dev, medium_g,
+        "medium_global_h50", hidden=W)
+    run("act_cnn_stages_h50", act_cnn_stage_check, dev, cfg, "config4_h50",
+        hidden=W)
+    run("act_cnn_stages_groups_h50", act_cnn_stage_check, dev, cfg,
+        "config4_h50_groups", groups=CONFIG4_GROUPS, hidden=W)
+    # K2-K6: 5 and 8 hidden layers.
+    for tag, shape in (("deep", SHAPE_DEEP), ("deep8", SHAPE_DEEP8)):
+        L = shape[1]
+        ptc = shape_tcfg(TRAIN_SCHEDULE, shape)
+        out[f"ppo_rollout_{tag}"] = run(
+            f"k2_{tag}", k2_check, dev, f"medium_{tag}", cfg,
+            mlp_model(cfg, dev, *shape))
+        out[f"ppo_sgd_phase_{tag}"] = run(f"k3_{tag}", k3_check, dev, cfg,
+                                          tcfg=ptc, name=f"config4_{tag}",
+                                          per_step=True,
+                                          phase_gate=tag == "deep")
+        out[f"ppo_minibatch_grads_{tag}"] = run(
+            f"k4_{tag}", k4_check, dev, cfg, tcfg=ptc, name=f"config4_{tag}")
+        out[f"impala_sgd_phase_{tag}"] = run(f"k5_{tag}", k5_check, dev,
+                                             cfg, layers=L)
+        out[f"impala_minibatch_grads_{tag}"] = run(f"k6_{tag}", k6_check,
+                                                   dev, cfg, shape=shape)
+    dtc = shape_tcfg(TRAIN_SCHEDULE, deep)
+    emit_bound("K2 groups", "shelves_groups_deep", run(
+        "k2_groups_deep", k2_check, dev, "shelves_groups_deep", shelves,
+        groups_model(shelves, GROUPS, dev, deep), True, groups=GROUPS))
+    gtc = groups_tcfg().replace(num_layers=deep[1])
+    emit_bound("K3 groups", "shelves_groups_deep", run(
+        "k3_groups_deep", k3_check, dev, shelves, tcfg=gtc,
+        name="shelves_groups_deep", groups=GROUPS, per_step=True))
+    emit_bound("K4 groups", "shelves_groups_deep", run(
+        "k4_groups_deep", k4_check, dev, shelves, tcfg=gtc,
+        name="shelves_groups_deep", groups=GROUPS))
+    emit_bound("K3", "shelves_global_deep", run(
+        "k3_global_deep", k3_check, dev, shelves_g,
+        tcfg=global_tcfg().replace(num_layers=deep[1]),
+        name="shelves_global_deep", per_step=True))
+    emit_bound("K3 bf16", "config4_deep", run(
+        "k3_deep_bf16", k3_check, dev, cfg, tcfg=dtc, name="config4_deep",
+        bf16=True))
+    emit_bound("K4 bf16", "config4_deep", run(
+        "k4_deep_bf16", k4_check, dev, cfg, tcfg=dtc, name="config4_deep",
+        bf16=True))
+    run("act_mlp_stages_deep", act_mlp_stage_check, dev, cfg, "config4_deep",
+        mlp_model(cfg, dev, *deep))
+    run("mlp_stages_deep", mlp_stage_check, dev, cfg, "config4_deep",
+        tcfg=dtc)
+    run("vtrace_stages_deep", vtrace_stage_check, dev, cfg, "config4_deep",
+        layers=deep[1])
+    emit({"phase": "shape_seconds", "seconds": SHAPE_SECONDS,
+          "total_s": sum(SHAPE_SECONDS.values())})
+    return out
+
+
+# The meshed learners at T-6's shapes: the GRU at hidden 50 (K9), PPO at 5
+# hidden layers (K4), one world-1 update each.
+SHAPE_MESH_PATHS = [
+    ("gru_h50", make_train_rnn, dict(num_updates=RNN_SCHEDULE,
+                                     hidden_dim=SHAPE_H50[0]), "gru",
+     sgd_rnn.ppo_rnn_minibatch_grads, sgd_rnn.RnnLaunch, "clip_adam",
+     SGD_TOL),
+    ("ppo_deep", make_train, dict(num_updates=TRAIN_SCHEDULE,
+                                  num_layers=SHAPE_DEEP[1]), "mlp",
+     sgd.ppo_minibatch_grads, sgd.MlpLaunch, "clip_adam", SGD_TOL)]
+
+
+def shape_main_paths(dev, out_dir):
+    """T-6's main paths at config 4: (name, phase, kernels it must
+    launch)."""
+    rnn = ["ppo_rnn_rollout", *K7_STAGES, "ppo_rnn_sgd_phase",
+           "ppo_rnn_minibatch_grads"]
+    mlp = ["ppo_rollout", *K2_STAGES, "ppo_sgd_phase", "ppo_minibatch_grads"]
+    impala = ["ppo_rollout", *K2_STAGES, "impala_sgd_phase",
+              "impala_minibatch_grads", *K6_STAGES]
+    cfg, W = medium_config(), str(SHAPE_H50[0])
+    return [
+        ("gru_h50_train", lambda: cli_train(
+            dev, out_dir, "gru_h50_train", ["--arch", "gru", "--hidden-dim",
+                                            W], SHAPE_UPDATES, make_train_rnn,
+            "gru"), rnn),
+        ("lstm_h50_train", lambda: short_train(
+            dev, "lstm_h50_train", make_train_rnn, cfg,
+            shape_tcfg(RNN_SCHEDULE, SHAPE_H50, model_dtype=BF16),
+            SHAPE_UPDATES, arch="lstm"),
+         ["ppo_rnn_rollout", *K7_STAGES, "ppo_rnn_sgd_phase_bf16",
+          "ppo_rnn_minibatch_grads_bf16"]),
+        ("cnn_h50_train", lambda: cli_train(
+            dev, out_dir, "cnn_h50_train", ["--arch", "cnn", "--hidden-dim",
+                                            W], SHAPE_UPDATES, make_train,
+            "cnn"),
+         ["ppo_rollout_cnn", "ppo_rollout_cnn_stages", "ppo_cnn_sgd_phase",
+          "ppo_cnn_minibatch_grads"]),
+        ("mlp_deep_train", lambda: short_train(
+            dev, "mlp_deep_train", make_train, cfg,
+            shape_tcfg(TRAIN_SCHEDULE, SHAPE_DEEP), SHAPE_UPDATES), mlp),
+        ("mlp_deep8_train", lambda: short_train(
+            dev, "mlp_deep8_train", make_train, cfg,
+            shape_tcfg(TRAIN_SCHEDULE, SHAPE_DEEP8), SHAPE_UPDATES), mlp),
+        ("impala_deep_train", lambda: short_train(
+            dev, "impala_deep_train", make_train_impala, cfg,
+            shape_tcfg(IMPALA_SCHEDULE, SHAPE_DEEP, impala_rmsprop=False),
+            SHAPE_UPDATES), impala),
+        ("impala_deep8_train", lambda: short_train(
+            dev, "impala_deep8_train", make_train_impala, cfg,
+            shape_tcfg(IMPALA_SCHEDULE, SHAPE_DEEP8, impala_rmsprop=False),
+            SHAPE_UPDATES), impala),
+        ("gru_deep_train", lambda: short_train(
+            dev, "gru_deep_train", make_train_rnn, cfg,
+            shape_tcfg(RNN_SCHEDULE, SHAPE_DEEP), SHAPE_UPDATES, arch="gru"),
+         rnn),
+        ("mesh_shapes_train", lambda: mesh_world1_train(
+            dev, SHAPE_MESH_PATHS, 1, "mesh_shapes_train"),
+         ["ppo_rnn_rollout", *K7_STAGES, "ppo_rnn_minibatch_grads",
+          "ppo_rollout", *K2_STAGES, "ppo_minibatch_grads"])]
+
+
+# The kernels line's T-6 entries: (source, TPU kernel, main path whose
+# launches of the named wrapper count).
+SHAPE_SOURCES = {
+    "ppo_rnn_rollout_h50": ("act_rnn.cu", "pallas/act.py:747",
+                            "gru_h50_train", "ppo_rnn_rollout"),
+    "ppo_rnn_rollout_deep": ("act_rnn.cu", "pallas/act.py:747",
+                             "gru_deep_train", "ppo_rnn_rollout"),
+    "ppo_rnn_sgd_phase_h50": ("sgd_rnn.cu", "pallas/sgd_rnn.py:551",
+                              "gru_h50_train", "ppo_rnn_sgd_phase"),
+    "ppo_rnn_minibatch_grads_h50": ("sgd_rnn.cu", "pallas/sgd_rnn.py:665",
+                                    "gru_h50_train",
+                                    "ppo_rnn_minibatch_grads"),
+    "ppo_rnn_sgd_phase_h50_bf16": ("sgd_rnn.cu", "pallas/sgd_rnn.py:551",
+                                   "lstm_h50_train",
+                                   "ppo_rnn_sgd_phase_bf16"),
+    "ppo_rnn_minibatch_grads_h50_bf16": ("sgd_rnn.cu",
+                                         "pallas/sgd_rnn.py:665",
+                                         "lstm_h50_train",
+                                         "ppo_rnn_minibatch_grads_bf16"),
+    "ppo_rnn_sgd_phase_deep": ("sgd_rnn.cu", "pallas/sgd_rnn.py:551",
+                               "gru_deep_train", "ppo_rnn_sgd_phase"),
+    "ppo_rnn_minibatch_grads_deep": ("sgd_rnn.cu", "pallas/sgd_rnn.py:665",
+                                     "gru_deep_train",
+                                     "ppo_rnn_minibatch_grads"),
+    "ppo_rollout_cnn_h50": ("act_cnn.cu", "pallas/act.py:1073",
+                            "cnn_h50_train", "ppo_rollout_cnn"),
+    "ppo_cnn_sgd_phase_h50": ("sgd_cnn.cu", "pallas/sgd_cnn.py:482",
+                              "cnn_h50_train", "ppo_cnn_sgd_phase"),
+    "ppo_cnn_minibatch_grads_h50": ("sgd_cnn.cu", "pallas/sgd_cnn.py:595",
+                                    "cnn_h50_train",
+                                    "ppo_cnn_minibatch_grads"),
+    **{f"{k}_{tag}": (src, tpu, path.format(tag), w)
+       for tag in ("deep", "deep8")
+       for k, src, tpu, path, w in (
+           ("ppo_rollout", "act.cu", "pallas/act.py:1028",
+            "mlp_{}_train", "ppo_rollout"),
+           ("ppo_sgd_phase", "sgd.cu", "pallas/sgd.py:691",
+            "mlp_{}_train", "ppo_sgd_phase"),
+           ("ppo_minibatch_grads", "sgd.cu", "pallas/sgd.py:818",
+            "mlp_{}_train", "ppo_minibatch_grads"),
+           ("impala_sgd_phase", "vtrace_sgd.cu", "pallas/vtrace_sgd.py:445",
+            "impala_{}_train", "impala_sgd_phase"),
+           ("impala_minibatch_grads", "vtrace_sgd.cu",
+            "pallas/vtrace_sgd.py:553", "impala_{}_train",
+            "impala_minibatch_grads"))}}
+
+
+def shape_launches(paths: dict) -> dict:
+    """The T-6 entries' launches, from their main paths."""
+    return {name: paths[path][wrapper]
+            for name, (_, _, path, wrapper) in SHAPE_SOURCES.items()}
+
+
+def shape_kernel_rows(checks: dict, launches: dict) -> list:
+    """The kernels line's rows of the T-6 entries."""
+    csrc = "warehouse_tpu_torch/kernels/csrc/"
+    return [kernel_row(name, csrc + src, "warehouse_tpu/" + tpu,
+                       launches[name], checks[name])
+            for name, (src, tpu, _, _) in SHAPE_SOURCES.items()]
+
+
+def kernel_row(name, source, replaces, launches, res) -> dict:
+    """One entry of the kernels line from a check's ``(max_abs_err, ms,
+    plain_ms, bound[, library_ms])``."""
+    err, ms, plain_ms, bnd, *lib = res
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+            "library_ms": lib[0] if lib else None,
+            "bound_bytes": bnd["bytes"], "bound_flops": bnd["flops"],
+            **{k: bnd[k] for k in ("int_ops", "int_alu_ops",
+                                   "bytes_bound_ms", "int_ops_bound_ms",
+                                   "cuda_core_bound_ms") if k in bnd}}
 
 
 def update_profile(dev, cfg, arch):
@@ -4993,6 +5452,9 @@ def main(argv=()) -> int:
     acting_split(dev, cfg)
     invariants_check(dev, cfg, model)
     dict_api_check(dev, cfg)
+    # The TPU kernels' widths and depths (T-6): their checks, into the
+    # kernels line with their main paths' launches.
+    shape_res = shape_checks(dev)
 
     # ---- the main paths: each counted from just before it -------------
     rnn_kernels = ["ppo_rnn_rollout", *K7_STAGES, "ppo_rnn_sgd_phase",
@@ -5092,6 +5554,8 @@ def main(argv=()) -> int:
     with tempfile.TemporaryDirectory() as d:
         paths.update({name: main_path(name, fn, kernels)
                       for name, fn, kernels in pair_main_paths(dev, d)})
+        paths.update({name: main_path(name, fn, kernels)
+                      for name, fn, kernels in shape_main_paths(dev, d)})
     wall = time.perf_counter() - t_start
     emit({"phase": "module_phases", "seconds": MODULE_SECONDS,
           "total_s": sum(MODULE_SECONDS.values()), "script_s": wall,
@@ -5218,19 +5682,10 @@ def main(argv=()) -> int:
     # whole learner phase, so it is null for every kernel here but K7's
     # cell stage (torch.nn.GRUCell on the same rows).
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": csrc + src,
-         "replaces": "warehouse_tpu/" + replaces,
-         "launches": launches[name], "max_abs_err": err, "ms": ms,
-         "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
-         "bound_by": bnd["bound_by"],
-         "library_ms": lib[0] if lib else None,
-         "bound_bytes": bnd["bytes"], "bound_flops": bnd["flops"],
-         **{k: bnd[k] for k in ("int_ops", "int_alu_ops", "bytes_bound_ms",
-                                "int_ops_bound_ms") if k in bnd},
-         **({"cuda_core_bound_ms": bnd["cuda_core_bound_ms"]}
-            if "cuda_core_bound_ms" in bnd else {})}
-        for name, (src, replaces) in sources.items()
-        for err, ms, plain_ms, bnd, *lib in [checks[name]]]})
+        kernel_row(name, csrc + src, "warehouse_tpu/" + replaces,
+                   launches[name], checks[name])
+        for name, (src, replaces) in sources.items()]
+        + shape_kernel_rows(shape_res, shape_launches(paths))})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

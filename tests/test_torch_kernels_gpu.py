@@ -1328,9 +1328,9 @@ def test_global_obs_cnn_refuses_what_it_cannot_hold(dev):
     fit a block beside the conv kernels: the trainer routes both phases
     plain there (acting per step), as the JAX VMEM gates route them to XLA,
     and one update runs, for PPO and for IMPALA (whose per-step CNN is not
-    refused by K10's shared memory); a width the kernels cannot hold is
-    refused by name when the trainer is built, and an (agents, queue) pair
-    outside the presets trains through K2."""
+    refused by K10's shared memory); a trunk 50 wide (no multiple of 4)
+    trains one update through K10 and K11 / K12 on the medium preset, and an
+    (agents, queue) pair outside the presets trains through K2."""
     from warehouse_tpu_torch import TrainConfig
     from warehouse_tpu_torch.kernels.act import act_cnn_steps
     from warehouse_tpu_torch.train import make_train, make_train_impala
@@ -1349,10 +1349,16 @@ def test_global_obs_cnn_refuses_what_it_cannot_hold(dev):
     assert act_cnn_steps.launches == launches
     assert int(rs.update_idx) == 1 and all(bool(torch.isfinite(v))
                                            for v in m.values())
-    for make in (make_train, make_train_impala):
-        with pytest.raises(ValueError, match="T-6"):
-            make(GLOBAL["shelves"], tcfg.replace(hidden_dim=50), arch="cnn",
-                 device=dev)
+    from warehouse_tpu_torch.kernels.sgd_cnn import ppo_cnn_sgd_phase
+    tr = make_train(medium_config(), tcfg.replace(hidden_dim=50), arch="cnn",
+                    device=dev)
+    assert tr.backends == {"rollout": "cuda", "grad": "cuda"}
+    launches, sgd_launches = act_cnn_steps.launches, ppo_cnn_sgd_phase.launches
+    rs, m = tr.train_step(tr.init(rng.prng_key(0, dev)))
+    assert act_cnn_steps.launches == launches + 1
+    assert ppo_cnn_sgd_phase.launches > sgd_launches
+    assert int(rs.update_idx) == 1 and all(bool(torch.isfinite(v))
+                                           for v in m.values())
     # An (agents, queue) pair outside the presets builds its env kernels at
     # first use (kernels/build.py pair_library) and trains through K2.
     tr = make_train(medium_config(num_agents=3, queue_capacity=6,

@@ -45,7 +45,7 @@ from warehouse_tpu_torch.train.ppo_rnn import rollout_problems_rnn
 from test_torch_rng import assert_bits, to_torch
 
 CASES = [("gru", True, 1), ("gru", False, 2), ("lstm", False, 1),
-         ("lstm", True, 2), ("gru", False, 1)]
+         ("lstm", True, 2), ("gru", False, 1), ("gru", False, 4)]
 KW = dict(num_minibatches=jt.M, clip_eps=jt.CLIP, value_coef=jt.VCOEF)
 
 

@@ -38,7 +38,14 @@ streams):
   kernels at each of the four presets (small, medium, large, shelves: the
   instances of the library): one K1 greedy episode and one chunk each of
   K2, K10 and K7 (the GRU, from a random carry) at B = 1024
-  (``preset_*``);
+  (``preset_*``); and, at config 4, the widths and depths the kernels
+  took once any ran (``t6_*``): K2 at 5 hidden layers, K3 (float32 and
+  bf16) and K5 (Adam, K6 inside them) at 5 hidden layers, one K6 gradient
+  there, K7 (the GRU) at hidden 50 and at 4 encoder layers, K8 (float32
+  and bf16; the GRU, K9 inside it) at hidden 50 and K8 at 4 encoder
+  layers, K10 and K11 (float32 and bf16) at trunk width 50. A tree whose
+  kernels or helpers do not take one records it as ``"refused: <the
+  exception's type>"``;
 - with ``--kernel k7``, times and hashes one K7 chunk (T = 16, B = 4096,
   106 -> 128, cell 128, from a reset and a random carry) for the GRU and
   the LSTM at config 4 and for the GRU on shelves with action masking
@@ -280,6 +287,71 @@ out["k11_bfloat16"] = sha(sgd_cnn.ppo_cnn_sgd_phase(
 del args, kw
 
 
+def t6(name, fn):
+    try:
+        out["t6_" + name] = fn()
+    except Exception as e:  # a tree that does not take the shape
+        out["t6_" + name] = "refused: " + type(e).__name__
+
+
+def t6_rnn(shape, dtype, arch="gru"):
+    k7_rollout = cs.act_rnn.ppo_rnn_rollout
+    cs.act_rnn.ppo_rnn_rollout = cs.act_rnn.ppo_rnn_rollout_reference
+    try:
+        tcfg, tr, rs, traj, adv_n, targets, h0, ent = cs.rnn_inputs(
+            dev, cfg, arch, dtype == "bfloat16", shape=shape)
+    finally:
+        cs.act_rnn.ppo_rnn_rollout = k7_rollout
+    args, kw = phase_args(tcfg, tr, rs, traj, adv_n, targets, ent, h0)
+    kw.update(mask_actions=False, matmul_dtype=dtype)
+    return sha(sgd_rnn.ppo_rnn_sgd_phase(*args, **kw))
+
+
+def t6_k7(shape):
+    model = make_model(cfg, "gru", *shape,
+                       torch.Generator().manual_seed(cs.SEED), dev)
+    params = {{k: v.detach() for k, v in model.state_dict().items()}}
+    state, u, pick, drop, g = draws(cfg, cs.CHECK_B)
+    carry = (0.5 * torch.randn(cs.CHECK_B, cfg.num_agents, shape[0],
+                               generator=torch.Generator().manual_seed(
+                                   cs.SEED + 9))).to(dev)
+    return chunk_sha(act_rnn.act_rnn_steps(cfg, params, state, carry, u,
+                                           pick, drop, g))
+
+
+def t6_chunk(arch, shape):
+    model = make_model(cfg, arch, *shape,
+                       torch.Generator().manual_seed(cs.SEED), dev)
+    steps = cs.act.act_cnn_steps if arch == "cnn" else cs.act.act_steps
+    args, kw = chunk_inputs(model, cfg, cs.CHECK_B, None, False)
+    return chunk_sha(steps(*args, **kw))
+
+
+def t6_impala(layers):
+    tcfg, params, traj, last_obs, vkw = cs.impala_inputs(dev, cfg,
+                                                         layers=layers)
+    M = tcfg.num_minibatches
+    tc = tcfg.replace(impala_rmsprop=False, impala_passes=1)
+    optimizer = make_impala_optimizer(tc)
+    opt = optimizer.init(params)
+    rows = optimizer.step_rows(opt.count, M, dev)
+    return (sha(vtrace_sgd.impala_sgd_phase(
+        params, opt, traj, last_obs, rows, tc.entropy_coef, num_passes=1,
+        num_minibatches=M, max_grad_norm=tc.max_grad_norm, **vkw)),
+        sha(vtrace_sgd.impala_minibatch_grads(
+            params, traj, last_obs, 1, tcfg.entropy_coef, num_minibatches=M,
+            **vkw)))
+
+
+def t6_phase(arch, shape, dtype):
+    sched = cs.CNN_SCHEDULE if arch == "cnn" else cs.TRAIN_SCHEDULE
+    tcfg = cs.TrainConfig(num_updates=sched, hidden_dim=shape[0],
+                          num_layers=shape[1])
+    args, kw = phase_args(*cs.sgd_inputs(dev, cfg, arch, sched, tcfg))
+    phase = sgd_cnn.ppo_cnn_sgd_phase if arch == "cnn" else sgd.ppo_sgd_phase
+    return sha(phase(*args, **dict(kw, matmul_dtype=dtype)))
+
+
 def draws(c, B):
     state, _ = cs.reset_envs(c, B, cs.SEED + 1, dev)
     _, u, pick, drop, _ = cs.rng.batched_step_draws(state.key, c, cs.SLICE_T)
@@ -287,6 +359,19 @@ def draws(c, B):
                                         cs.SLICE_T, (5, B * c.num_agents))
     return state, u, pick, drop, g
 
+
+# T-6's instances (5 hidden layers; num_layers 5: 4 encoder layers).
+H50, DEEP = (50, cs.HIDDEN[1]), (cs.HIDDEN[0], 5)
+t6("k2_deep5", lambda: t6_chunk("mlp", DEEP))
+for dtype in ("float32", "bfloat16"):
+    t6("k3_deep5_" + dtype, lambda: t6_phase("mlp", DEEP, dtype))
+    t6("k11_h50_" + dtype, lambda: t6_phase("cnn", H50, dtype))
+    t6("k8_h50_" + dtype, lambda: t6_rnn(H50, dtype))
+t6("k5_k6_deep5", lambda: t6_impala(5))
+t6("k7_h50", lambda: t6_k7(H50))
+t6("k7_enc4", lambda: t6_k7(DEEP))
+t6("k8_enc4_float32", lambda: t6_rnn(DEEP, "float32"))
+t6("k10_h50", lambda: t6_chunk("cnn", H50))
 
 model = make_model(cfg, "gru", cs.HIDDEN[0], cs.HIDDEN[1],
                    torch.Generator().manual_seed(cs.SEED), dev)

@@ -98,8 +98,7 @@ from ..ops.pathing import device_table, potential
 from ..ops.ppo_update import NEG_INF, sample_action_with_gumbel
 from ..utils.profiling import annotate
 from . import build
-from .rollout import (check_multiple_of_4, f32, kernel_state,
-                      state_from_kernel, wall_mask)
+from .rollout import f32, kernel_state, state_from_kernel, wall_mask
 
 
 class ActRollout(NamedTuple):
@@ -312,9 +311,6 @@ def group_models(model, groups=None) -> list:
     return list(model.policies) if multi else [model]
 
 
-MAX_HIDDEN = 4  # K2's hidden layers at most, as K3-K6's (ROADMAP T-6)
-
-
 def max_groups(cfg: EnvConfig) -> int:
     """Policy groups the acting kernels take at ``cfg``'s agents: 8, or
     one per agent where there are more (``act_stages.cuh`` ``ACT_MAXK``)."""
@@ -326,8 +322,8 @@ def _mlp_fits(cfg: EnvConfig, model, dev, groups=None):
     ``MultiPolicyActorCritic`` of MLPs) on ``cfg``, ``dims`` the input
     width then the hidden widths; raises ``ValueError`` naming what K2
     does not take: the (agents, queue) shape, widths that do not fit the
-    observation or the 5 actions, more than 4 hidden layers, or a group
-    map that does not fit the model."""
+    observation or the 5 actions, or a group map that does not fit the
+    model. Any width and any number of hidden layers."""
     build.check_pair(cfg.num_agents, cfg.queue_capacity)
     subs = group_models(model, groups)
     if not all(isinstance(m, ActorCriticMLP) for m in subs):
@@ -337,10 +333,6 @@ def _mlp_fits(cfg: EnvConfig, model, dev, groups=None):
             subs[0].logits.out_features != cfg.num_actions):
         raise ValueError(f"model widths {dims} do not fit obs_dim "
                          f"{cfg.obs_dim} and {cfg.num_actions} actions")
-    if len(dims) - 1 > MAX_HIDDEN:
-        raise ValueError(
-            f"K2 takes 0 to {MAX_HIDDEN} hidden layers, got {len(dims) - 1} "
-            f"(widths {dims}; ROADMAP T-6)")
     _group_args(cfg, groups)
     return weights, dims
 
@@ -349,8 +341,8 @@ def check_cnn_widths(cfg: EnvConfig, model, groups=None):
     """K10's ``(S, C0, C1, C2, H)`` for ``model`` (a CNN or, with
     ``groups``, a ``MultiPolicyActorCritic`` of CNNs) on ``cfg``; raises
     ``ValueError`` for an (agents, queue) pair no env stage can be built
-    for (``build.check_pair``), a width that is not a multiple of 4 (T-6)
-    or a grid that is not the env's, before any library call."""
+    for (``build.check_pair``) or a grid that is not the env's, before any
+    library call. Any trunk width."""
     build.check_pair(cfg.num_agents, cfg.queue_capacity)
     subs = group_models(model, groups)
     nets = {cnn_kernel_dims(dict(m.named_parameters()), cfg.obs_dim)
@@ -358,8 +350,6 @@ def check_cnn_widths(cfg: EnvConfig, model, groups=None):
     if len(nets) != 1:
         raise ValueError(f"the policy groups' CNN widths differ: {nets}")
     net = nets.pop()
-    check_multiple_of_4("K10", {"conv 0": net[2], "conv 1": net[3],
-                                "hidden": net[4]})
     side = cfg.height if cfg.global_obs else cfg.window_size
     if net[0] != side or net[1] != cfg.num_obs_channels:
         raise ValueError(

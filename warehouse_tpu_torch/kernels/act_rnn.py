@@ -51,7 +51,7 @@ from ..ops.obs import inv_side
 from ..ops.ppo_update import NEG_INF, sample_action_with_gumbel
 from . import act, build
 from .act import _KernelIO, chunk_rollout, env_stage_outputs
-from .rollout import check_multiple_of_4, f32
+from .rollout import f32
 
 GATE_ORDER = {"gru": ("r", "z", "n"), "lstm": ("i", "f", "g", "o")}
 
@@ -117,32 +117,14 @@ def rnn_dims(params, D: int) -> tuple[list[int], int, bool]:
     return dims, H, cell == "lstm"
 
 
-def rnn_kernel_dims(kernel: str, params, D: int):
-    """``rnn_dims`` for the recurrent CUDA kernel ``kernel`` (K7, or K8 /
-    K9): raises ``ValueError`` naming the kernel and the width where a
-    hidden or encoder width is not a multiple of 4 (ROADMAP T-6)."""
-    dims, H, lstm = rnn_dims(params, D)
-    check_multiple_of_4(kernel, {"hidden": H, **{
-        f"encoder {i}": d for i, d in enumerate(dims[1:])}})
-    return dims, H, lstm
-
-
-MAX_ENCODER = 3  # K7's encoder layers at most, as K8 / K9's
-
-
 def check_act_rnn_fits(cfg: EnvConfig, params, dev=None):
     """K7's ``(dims, H, lstm)`` for ``params`` on ``cfg``; raises
     ``ValueError``, before any library call, for an (agents, queue) pair
-    no env stage can be built for (``build.check_pair``), a width that is
-    not a multiple of 4 (the stages' float4 rows; ROADMAP T-6) or more than
-    3 encoder layers. The stage kernels take any such width: their tiles
-    pad it."""
+    no env stage can be built for (``build.check_pair``) or params that do
+    not fit the observation. Any hidden and encoder width and any number of
+    encoder layers: the stages' tiles pad each width."""
     build.check_pair(cfg.num_agents, cfg.queue_capacity)
-    dims, H, lstm = rnn_kernel_dims("K7", params, cfg.obs_dim)
-    if len(dims) - 1 > MAX_ENCODER:
-        raise ValueError(f"K7 takes 1 to {MAX_ENCODER} encoder layers, got "
-                         f"{len(dims) - 1} (widths {dims})")
-    return dims, H, lstm
+    return rnn_dims(params, cfg.obs_dim)
 
 
 def split_carry(carry, lstm: bool):

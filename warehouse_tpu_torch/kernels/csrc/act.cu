@@ -32,7 +32,11 @@
 //      last step stores the final state and observes nothing.
 //   prep (once a call): each layer's kernel as Bt [HP, in rounded up to
 //      32] per group (HP = its width rounded up to 128), zero-padded to
-//      whole tiles, and the head as [6, H] per group.
+//      whole tiles, and the head as [6, H] per group (pad_jobs.cuh: one
+//      launch up to 7 hidden layers, one more for each 8 past them).
+//
+// Any number of hidden layers: the per-layer tables live in the caller's
+// MlpTables on the host, and no kernel reads them.
 //
 // So T steps are (L + 2) T + 2 launches at L >= 1 hidden layers, 3 T + 1 at
 // L = 0. The rows are group-major (act_stages.cuh RowGroups): a tile of a
@@ -58,36 +62,54 @@
 
 namespace {
 
-constexpr int MAXL = 4;  // hidden layers
+// Host storage of MlpNet's, WorkLayout's and ActMlpArgs' per-layer tables.
+struct MlpTables {
+  std::vector<int> dims, ld, hp;
+  std::vector<long> w_off, b_off, bt;
+  std::vector<float*> btp;
+};
 
 // The MLP's packed layout and the stages' padded widths. The packed vector
 // of a group: per hidden layer W [in, out] then b [out], then the head W
 // [H, 6] and b [6] (H the last hidden width, or D without hidden layers).
 struct MlpNet {
-  int L;                 // hidden layers
-  int dims[MAXL + 1];    // D, then the hidden widths
-  int ld[MAXL + 1];      // each width rounded up to BK: a layer's K
-  int hp[MAXL + 1];      // each width rounded up to BN: a Bt's rows
-  long w_off[MAXL], b_off[MAXL], head_w, head_b;  // in the packed vector
-  long n_weights;        // floats of one group's packed vector
+  int L;                       // hidden layers
+  HostPtr<const int> dims;     // D, then the hidden widths
+  HostPtr<const int> ld;       // each width rounded up to BK
+  HostPtr<const int> hp;       // each width rounded up to BN
+  HostPtr<const long> w_off, b_off;  // each layer's, in the packed vector
+  int ld0;                     // ld[0]: the observation rows' stride
+  long head_w, head_b;         // in the packed vector
+  long n_weights;              // floats of one group's packed vector
 };
 
-bool make_mlp_net(int L, const int* dims, MlpNet* net) {
-  if (L < 0 || L > MAXL) return false;
+bool make_mlp_net(int L, const int* dims, MlpNet* net, MlpTables* tb) {
+  if (L < 0) return false;
   net->L = L;
+  tb->dims.assign(L + 1, 0);
+  tb->ld.assign(L + 1, 0);
+  tb->hp.assign(L + 1, 0);
+  tb->w_off.assign(L, 0);
+  tb->b_off.assign(L, 0);
   long off = 0;
   for (int l = 0; l <= L; ++l) {
     if (dims[l] < 1) return false;
-    net->dims[l] = dims[l];
-    net->ld[l] = round_up(dims[l], BK);
-    net->hp[l] = round_up(dims[l], BN);
+    tb->dims[l] = dims[l];
+    tb->ld[l] = round_up(dims[l], BK);
+    tb->hp[l] = round_up(dims[l], BN);
   }
   for (int l = 0; l < L; ++l) {
-    net->w_off[l] = off;
+    tb->w_off[l] = off;
     off += (long)dims[l] * dims[l + 1];
-    net->b_off[l] = off;
+    tb->b_off[l] = off;
     off += dims[l + 1];
   }
+  net->dims = tb->dims.data();
+  net->ld = tb->ld.data();
+  net->hp = tb->hp.data();
+  net->w_off = tb->w_off.data();
+  net->b_off = tb->b_off.data();
+  net->ld0 = tb->ld[0];
   net->head_w = off;
   off += (long)dims[L] * NHEAD;
   net->head_b = off;
@@ -100,12 +122,16 @@ bool make_mlp_net(int L, const int* dims, MlpNet* net) {
 // floats (HL the widest of ld[1 .. L - 1]; hidden layer l's rows [N][ld[l +
 // 1]] in h[l % 2]), head [N][HSTRIDE], envst [B][4 A + 6 R] ints.
 struct WorkLayout {
-  long bt[MAXL], hw, xs, h[2], head, envst, total;
+  HostPtr<const long> bt;  // one per hidden layer
+  long hw, xs, h[2], head, envst, total;
   int HL;
 };
 
-WorkLayout work_layout(const MlpNet& net, int A, int R, long B, int K) {
+WorkLayout work_layout(const MlpNet& net, int A, int R, long B, int K,
+                       MlpTables* tb) {
   WorkLayout w = {};
+  tb->bt.assign(net.L, 0);
+  w.bt = tb->bt.data();
   long off = 0;
   auto take = [&](long n) {
     const long o = off;
@@ -114,7 +140,7 @@ WorkLayout work_layout(const MlpNet& net, int A, int R, long B, int K) {
   };
   const long N = B * A;
   for (int l = 0; l < net.L; ++l)
-    w.bt[l] = take((long)K * net.hp[l + 1] * net.ld[l]);
+    tb->bt[l] = take((long)K * net.hp[l + 1] * net.ld[l]);
   w.hw = take((long)K * NHEAD * net.dims[net.L]);
   w.xs = take(N * net.ld[0]);
   for (int l = 1; l < net.L; ++l) w.HL = w.HL > net.ld[l] ? w.HL : net.ld[l];
@@ -130,7 +156,7 @@ WorkLayout work_layout(const MlpNet& net, int A, int R, long B, int K) {
 struct ActMlpArgs : ActEnvArgs {
   MlpNet net;
   const float* weights;  // K packed vectors in group order
-  float* bt[MAXL];       // each layer's Bt, K of them
+  HostPtr<float*> bt;    // each layer's Bt, K of them
   float* hw;             // the head [6][H], K of them
   float* xs;             // [N][ld[0]] the observation rows in row order
   float* h[2];           // the hidden rows, ping-pong
@@ -138,29 +164,20 @@ struct ActMlpArgs : ActEnvArgs {
 
 // ---- prep: the layers' kernels as the tile GEMMs read them ------------------
 
-__global__ void mlp_prep_kernel(ActMlpArgs p) {
+// Each group's Bt [hp[l + 1]][ld[l]] of each layer (W is [in, out]: the
+// copy transposes it, zeros past it), then its head [6][H] (from [H, 6]).
+PadPlan prep_plan(const ActMlpArgs& p) {
   const MlpNet& net = p.net;
-  const long i0 = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long stride = (long)gridDim.x * blockDim.x;
-  for (int l = 0; l < net.L; ++l) {
-    const int in = net.dims[l], out = net.dims[l + 1];
-    const int rows = net.hp[l + 1], cols = net.ld[l];
-    const long per = (long)rows * cols;
-    for (long i = i0; i < per * p.rg.K; i += stride) {
-      const int g = (int)(i / per), j = (int)(i % per / cols),
-                k = (int)(i % cols);
-      p.bt[l][i] = j < out && k < in
-                       ? p.weights[g * net.n_weights + net.w_off[l] +
-                                   (long)k * out + j]
-                       : 0.f;
-    }
-  }
+  PadPlan plan;
+  plan.K = p.rg.K;
+  for (int l = 0; l < net.L; ++l)
+    plan.add(p.bt[l], (long)net.hp[l + 1] * net.ld[l],
+             p.weights + net.w_off[l], net.n_weights, net.hp[l + 1],
+             net.ld[l], net.dims[l], net.dims[l + 1], true);
   const int H = net.dims[net.L];
-  const long per = (long)NHEAD * H;
-  for (long i = i0; i < per * p.rg.K; i += stride) {
-    const int g = (int)(i / per), o = (int)(i % per / H), k = (int)(i % H);
-    p.hw[i] = p.weights[g * net.n_weights + net.head_w + (long)k * NHEAD + o];
-  }
+  plan.add(p.hw, (long)NHEAD * H, p.weights + net.head_w, net.n_weights,
+           NHEAD, H, H, NHEAD, true);
+  return plan;
 }
 
 // ---- no hidden layer: the head on the observation rows ----------------------
@@ -168,7 +185,7 @@ __global__ void mlp_prep_kernel(ActMlpArgs p) {
 // One thread a (row, head output): the sum over the D features of the
 // group's head W [D, 6], in k order, then + b.
 __global__ void head0_kernel(ActMlpArgs p) {
-  const int D = p.net.dims[0], K = p.net.ld[0];
+  const int D = p.D, K = p.net.ld0;
   const long n = p.rg.first[p.rg.K] * HSTRIDE;
   for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long)gridDim.x * blockDim.x) {
@@ -193,9 +210,9 @@ __global__ void head0_kernel(ActMlpArgs p) {
 // of this build (dispatch_shape), K in [1, ACT_MAXK] with a valid map
 // (null: one group).
 bool shape_ok(int A, int R, int L, const int* dims, int K, const int* group,
-              MlpNet* net) {
+              MlpNet* net, MlpTables* tb) {
   RowGroups rg;
-  return make_mlp_net(L, dims, net) && known_shape(A, R) &&
+  return make_mlp_net(L, dims, net, tb) && known_shape(A, R) &&
          make_groups(A, 1, K, K > 1 ? group : nullptr, 0, &rg);
 }
 
@@ -218,13 +235,15 @@ const float* in_buf(const ActMlpArgs& p, int l) {
 // rows), the prep's.
 cudaError_t run_act_mlp(int stage, int layer, ActMlpArgs& p, int R, int K,
                         const int* group, float* work, float* obs_next,
-                        long* launched, cudaStream_t stream) {
+                        long* launched, MlpTables* tb, cudaStream_t stream) {
   const int A = p.A;
   const MlpNet& net = p.net;
   const int L = net.L;
   if (!make_groups(A, p.B, K, K > 1 ? group : nullptr, 0, &p.rg))
     return cudaErrorInvalidValue;
-  const WorkLayout wl = work_layout(net, A, R, p.B, K);
+  const WorkLayout wl = work_layout(net, A, R, p.B, K, tb);
+  tb->btp.assign(L, nullptr);
+  p.bt = tb->btp.data();
   for (int l = 0; l < L; ++l) p.bt[l] = work + wl.bt[l];
   p.hw = work + wl.hw;
   p.xs = work + wl.xs;
@@ -277,8 +296,11 @@ cudaError_t run_act_mlp(int stage, int layer, ActMlpArgs& p, int R, int K,
     return count(launch_head(hs, p.rg, stream), 1);
   };
   if (L > 0 && (stage == ST_HIDDEN || stage == ST_HEAD || stage == ST_ALL)) {
-    mlp_prep_kernel<<<256, 256, 0, stream>>>(p);
-    if ((e = count(cudaGetLastError(), 3)) != cudaSuccess) return e;
+    const PadPlan plan = prep_plan(p);
+    pad_jobs_kernel<<<256, 256, 0, stream>>>(plan.batch(0));
+    if ((e = count(cudaGetLastError(), 3)) != cudaSuccess ||
+        (e = plan.launch_rest(256, 256, stream, launched + 3)) != cudaSuccess)
+      return e;
   }
   if (stage == ST_HIDDEN)
     return layer >= 0 && layer + 1 < L ? hidden(layer)
@@ -317,7 +339,8 @@ int act_mlp_call(
     const float* done, float* raw_reward, float shaping_coef, float gamma,
     float* obs_next, long* launched, void* stream_) {
   ActMlpArgs p = {};
-  if (!shape_ok(A, R, n_hidden, dims, n_groups, groups, &p.net) ||
+  MlpTables tb;
+  if (!shape_ok(A, R, n_hidden, dims, n_groups, groups, &p.net, &tb) ||
       p.net.dims[0] != D)
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
@@ -330,7 +353,7 @@ int act_mlp_call(
                shaping_coef, gamma);
   p.weights = weights;
   return (int)run_act_mlp(stage, layer, p, R, n_groups, groups, work,
-                          obs_next, launched, (cudaStream_t)stream_);
+                          obs_next, launched, &tb, (cudaStream_t)stream_);
 }
 
 }  // namespace
@@ -338,7 +361,8 @@ int act_mlp_call(
 // Floats of one group's packed weights, or 0 for unsupported widths.
 extern "C" long wh_act_weight_floats(int n_hidden, const int* dims) {
   MlpNet net;
-  return make_mlp_net(n_hidden, dims, &net) ? net.n_weights : 0;
+  MlpTables tb;
+  return make_mlp_net(n_hidden, dims, &net, &tb) ? net.n_weights : 0;
 }
 
 // Floats of the workspace a call takes for B envs and K groups, or 0 for an
@@ -346,8 +370,9 @@ extern "C" long wh_act_weight_floats(int n_hidden, const int* dims) {
 extern "C" long wh_act_workspace_floats(int A, int R, long B, int n_hidden,
                                         const int* dims, int K) {
   MlpNet net;
-  if (!make_mlp_net(n_hidden, dims, &net) || K < 1) return 0;
-  return work_layout(net, A, R, B, K).total;
+  MlpTables tb;
+  if (!make_mlp_net(n_hidden, dims, &net, &tb) || K < 1) return 0;
+  return work_layout(net, A, R, B, K, &tb).total;
 }
 
 // The workspace's layout: out = the float offsets of xs, h[0], h[1], head
@@ -356,9 +381,10 @@ extern "C" long wh_act_workspace_floats(int A, int R, long B, int n_hidden,
 extern "C" int wh_act_layout(int A, int R, long B, int n_hidden,
                              const int* dims, int K, long* out) {
   MlpNet net;
-  if (!make_mlp_net(n_hidden, dims, &net) || K < 1)
+  MlpTables tb;
+  if (!make_mlp_net(n_hidden, dims, &net, &tb) || K < 1)
     return (int)cudaErrorInvalidValue;
-  const WorkLayout w = work_layout(net, A, R, B, K);
+  const WorkLayout w = work_layout(net, A, R, B, K, &tb);
   out[0] = w.xs;
   out[1] = w.h[0];
   out[2] = w.h[1];

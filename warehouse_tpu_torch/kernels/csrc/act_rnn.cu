@@ -37,10 +37,19 @@
 //      log-softmax, tick, rewards, then the next observation rows into
 //      obs[t + 1] and into xs. A prologue pair writes obs[0]; the last step
 //      stores the final state and observes nothing.
-//   prep (once a call): the encoder layers' Bt, the cell's Bt split into
-//      its TF32 high parts and remainders, the head as [6, H], and the
-//      initial carry into the row buffers (c into its own buffer [N, H]);
-//      the last step's cell epilogue writes the final carry to o_h / o_c.
+//   prep (once a call): the encoder layers' Bt (pad_jobs.cuh: one launch
+//      up to 8 layers, one more for each 8 past them), the cell's Bt split
+//      into its TF32 high parts and remainders, the head as [6, H4] (H4: H
+//      rounded up to 4, zeros past H, so that the head stage's float4 rows
+//      hold any width), and the initial carry into the row buffers (c into
+//      its own buffer [N, H]); the last step's cell epilogue writes the
+//      final carry to o_h / o_c.
+//
+// Any hidden and encoder width: the tiles pad each to 32 or 128, the head
+// stage reads h's row buffer to H4 (its columns past H are zeros: the prep
+// zeroes them, no cell tile writes them); the carry, the params and the
+// outputs keep their own widths. Any number of encoder layers: the
+// per-layer tables live in the caller's RnnTables on the host.
 //
 // So T steps are (n_enc + 4) T + 2 launches. The cell's products are 87%
 // of the step's operations at config 4 (GRU: 3.22 of 3.69 GFLOP a step),
@@ -76,21 +85,24 @@ constexpr int CU = 32;    // hidden units of a cell tile: BN / 4 gate sets
 
 // K7's padded widths and its workspace, offsets in floats, each a multiple
 // of 32: bt[l] [hp[l]][ld[l]] each encoder layer's kernel, bc [tiles BN][K]
-// twice, the cell's TF32 high parts, then their remainders, hw [6][H] the
+// twice, the cell's TF32 high parts, then their remainders, hw [6][H4] the
 // head's, xs [N][ld[0]], enc two buffers of
 // [N][EL] for the encoder layers but the last, rb two row buffers
 // [N][K], cs [N][H] the LSTM's c, head [N][HSTRIDE], envst [B][4 A + 6 R]
 // ints.
 struct RnnLayout {
-  int ld[MAXE];  // each encoder layer's input width rounded up to BK
-  int hp[MAXE];  // its output width rounded up to BN: its Bt's rows
-  int EL;        // the widest intermediate encoder row
-  int Ep, Hp, K; // E and H rounded up to 32; K = Ep + Hp
-  int tiles;     // the cell's column tiles: Hp / CU
-  long bt[MAXE], bc, hw, xs, enc[2], rb[2], cs, head, envst, total;
+  HostPtr<const int> ld;  // each encoder layer's input width rounded to BK
+  HostPtr<const int> hp;  // its output width rounded up to BN: its Bt's rows
+  HostPtr<const long> bt;  // its Bt's offset
+  int EL;         // the widest intermediate encoder row
+  int Ep, Hp, K;  // E and H rounded up to 32; K = Ep + Hp
+  int H4;         // H rounded up to 4: the head stage's row
+  int tiles;      // the cell's column tiles: Hp / CU
+  long bc, hw, xs, enc[2], rb[2], cs, head, envst, total;
 };
 
-RnnLayout rnn_layout(const RnnNet& net, int A, int R, long B) {
+RnnLayout rnn_layout(const RnnNet& net, int A, int R, long B,
+                     RnnTables* tb) {
   RnnLayout w = {};
   long off = 0;
   auto take = [&](long n) {
@@ -99,18 +111,26 @@ RnnLayout rnn_layout(const RnnNet& net, int A, int R, long B) {
     return o;
   };
   const long N = B * A;
+  tb->ld.assign(net.n_enc, 0);
+  tb->hp.assign(net.n_enc, 0);
+  tb->bt.assign(net.n_enc, 0);
   for (int l = 0; l < net.n_enc; ++l) {
-    w.ld[l] = round_up(net.enc_in[l], BK);
-    w.hp[l] = round_up(net.enc_out[l], BN);
-    if (l > 0) w.EL = w.EL > w.ld[l] ? w.EL : w.ld[l];
+    tb->ld[l] = round_up(net.enc_in[l], BK);
+    tb->hp[l] = round_up(net.enc_out[l], BN);
+    if (l > 0) w.EL = w.EL > tb->ld[l] ? w.EL : tb->ld[l];
   }
+  w.ld = tb->ld.data();
+  w.hp = tb->hp.data();
+  w.bt = tb->bt.data();
   w.Ep = round_up(net.E, BK);
   w.Hp = round_up(net.H, CU);
   w.K = w.Ep + w.Hp;
+  w.H4 = round_up(net.H, 4);
   w.tiles = w.Hp / CU;
-  for (int l = 0; l < net.n_enc; ++l) w.bt[l] = take((long)w.hp[l] * w.ld[l]);
+  for (int l = 0; l < net.n_enc; ++l)
+    tb->bt[l] = take((long)w.hp[l] * w.ld[l]);
   w.bc = take(2L * w.tiles * BN * w.K);
-  w.hw = take((long)RHEAD * net.H);
+  w.hw = take((long)RHEAD * w.H4);
   w.xs = take(N * w.ld[0]);
   w.enc[0] = take(net.n_enc > 1 ? N * w.EL : 0);
   w.enc[1] = take(net.n_enc > 2 ? N * w.EL : 0);
@@ -144,21 +164,27 @@ __host__ __device__ inline void cell_col(int cc, int* unit, int* set) {
 
 // ---- prep: the kernels as the tile GEMMs read them, the initial carry -------
 
-__global__ void rnn_prep_kernel(ActRnnArgs p) {
+// Each encoder layer's Bt [hp[l]][ld[l]], zeros past its widths.
+PadPlan enc_plan(const ActRnnArgs& p) {
+  const RnnNet& net = p.net;
+  const RnnLayout& w = p.w;
+  PadPlan plan;
+  for (int l = 0; l < net.n_enc; ++l)
+    plan.add(p.work + w.bt[l], 0, p.params + net.enc_w[l], 0, w.hp[l],
+             w.ld[l], net.enc_out[l], net.enc_in[l], false);
+  return plan;
+}
+
+// The first MAXJ encoder copies (enc_plan), the cell's and the head's
+// kernels, the carry.
+__global__ void rnn_prep_kernel(ActRnnArgs p, PadJobs pj) {
   const RnnNet& net = p.net;
   const RnnLayout& w = p.w;
   const float* pr = p.params;
   const long i0 = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const long stride = (long)gridDim.x * blockDim.x;
   const int H = net.H, E = net.E;
-  for (int l = 0; l < net.n_enc; ++l) {
-    const int in = net.enc_in[l], out = net.enc_out[l], cols = w.ld[l];
-    float* bt = p.work + w.bt[l];
-    for (long i = i0; i < (long)w.hp[l] * cols; i += stride) {
-      const int j = (int)(i / cols), k = (int)(i % cols);
-      bt[i] = j < out && k < in ? pr[net.enc_w[l] + (long)j * in + k] : 0.f;
-    }
-  }
+  run_pad_jobs(pj, i0, stride);
   // The cell: Bt row (tile, cc) holds unit tile CU + cc's weights of its
   // set over [e | h], zeros past E, past H and on a GRU set's zero half.
   float* bc = p.work + w.bc;
@@ -181,8 +207,10 @@ __global__ void rnn_prep_kernel(ActRnnArgs p) {
     bc[i] = __uint_as_float(hi);
     bc[(long)w.tiles * BN * w.K + i] = __uint_as_float(lo);
   }
-  for (long i = i0; i < (long)RHEAD * H; i += stride)
-    p.work[w.hw + i] = pr[net.head_w + i];
+  for (long i = i0; i < (long)RHEAD * w.H4; i += stride) {
+    const int o = (int)(i / w.H4), k = (int)(i % w.H4);
+    p.work[w.hw + i] = k < H ? pr[net.head_w + (long)o * H + k] : 0.f;
+  }
   // The carry: h0 into the first row buffer's h part, zeros past H; the
   // second's h part zero (its pad columns stay so); c0 into cs.
   const long N = p.B * p.A;
@@ -472,7 +500,7 @@ cudaError_t run_act_rnn(int stage, int layer, ActRnnArgs& p, int R,
   if ((e = opt_in(hidden_kernel, smem_hidden())) != cudaSuccess ||
       (e = opt_in(cell_kernel<false>, smem_cell())) != cudaSuccess ||
       (e = opt_in(cell_kernel<true>, smem_cell())) != cudaSuccess ||
-      (e = opt_in(rnn_head_kernel, smem_rnn_head(net.H))) != cudaSuccess)
+      (e = opt_in(rnn_head_kernel, smem_rnn_head(w.H4))) != cudaSuccess)
     return e;
   auto env = [&](int t, int mode, float* out) {
     cudaError_t err = count(launch_env(p, R, t, mode, nullptr, stream), 3);
@@ -510,15 +538,18 @@ cudaError_t run_act_rnn(int stage, int layer, ActRnnArgs& p, int R,
     return count(cudaGetLastError(), 1);
   };
   auto head = [&](int t) {
-    const RnnHeadStage hs = {work + w.rb[(t + 1) % 2] + w.Ep, w.K, net.H,
+    const RnnHeadStage hs = {work + w.rb[(t + 1) % 2] + w.Ep, w.K, w.H4,
                              work + w.hw, p.params + net.head_b, p.head, N};
     rnn_head_kernel<<<(unsigned)((N + HROWS - 1) / HROWS), 2 * HROWS,
-                      smem_rnn_head(net.H), stream>>>(hs);
+                      smem_rnn_head(w.H4), stream>>>(hs);
     return count(cudaGetLastError(), 2);
   };
   if (stage == RS_PREP || stage == RS_ALL) {
-    rnn_prep_kernel<<<256, 256, 0, stream>>>(p);
-    if ((e = count(cudaGetLastError(), 4)) != cudaSuccess) return e;
+    const PadPlan plan = enc_plan(p);
+    rnn_prep_kernel<<<256, 256, 0, stream>>>(p, plan.batch(0));
+    if ((e = count(cudaGetLastError(), 4)) != cudaSuccess ||
+        (e = plan.launch_rest(256, 256, stream, launched + 4)) != cudaSuccess)
+      return e;
     if (stage == RS_PREP) return cudaSuccess;
   }
   if (stage == RS_ENC)
@@ -546,8 +577,8 @@ cudaError_t run_act_rnn(int stage, int layer, ActRnnArgs& p, int R,
 // The shape checks of every entry point: a supported net, agents and queue
 // of this build (dispatch_shape).
 bool rnn_shape_ok(int A, int R, int n_enc, const int* dims, int H, int lstm,
-                  RnnNet* net) {
-  return make_rnn_net(n_enc, dims, H, lstm, net) && known_shape(A, R);
+                  RnnNet* net, RnnTables* tb) {
+  return make_rnn_net(n_enc, dims, H, lstm, net, tb) && known_shape(A, R);
 }
 
 // The arguments shared by the two entry points below.
@@ -566,7 +597,8 @@ int act_rnn_call(
     float* reward, int* delivered, float* logits, unsigned char* mask,
     float* obs_next, long* launched, void* stream_) {
   ActRnnArgs p = {};
-  if (!rnn_shape_ok(A, R, n_enc, dims, hidden, lstm, &p.net) ||
+  RnnTables tb;
+  if (!rnn_shape_ok(A, R, n_enc, dims, hidden, lstm, &p.net, &tb) ||
       dims[0] != D || (lstm && (!c0 || !o_c)))
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
@@ -577,7 +609,7 @@ int act_rnn_call(
                o_rpick, o_rdrop, o_rstat, o_ragent, obs, action, log_prob,
                value, reward, delivered, logits, mask, nullptr, nullptr,
                nullptr, 0.f, 0.f);
-  p.w = rnn_layout(p.net, A, R, B);
+  p.w = rnn_layout(p.net, A, R, B, &tb);
   p.params = params;
   p.h0 = h0;
   p.c0 = lstm ? c0 : nullptr;
@@ -594,7 +626,8 @@ int act_rnn_call(
 extern "C" long wh_rnn_param_floats(int n_enc, const int* dims, int H,
                                     int lstm) {
   RnnNet net;
-  return make_rnn_net(n_enc, dims, H, lstm, &net) ? net.n_params : 0;
+  RnnTables tb;
+  return make_rnn_net(n_enc, dims, H, lstm, &net, &tb) ? net.n_params : 0;
 }
 
 // Floats of the workspace a call takes for B envs, or 0 for an unsupported
@@ -603,8 +636,9 @@ extern "C" long wh_act_rnn_workspace_floats(int A, int R, long B, int n_enc,
                                             const int* dims, int H,
                                             int lstm) {
   RnnNet net;
-  if (!rnn_shape_ok(A, R, n_enc, dims, H, lstm, &net)) return 0;
-  return rnn_layout(net, A, R, B).total;
+  RnnTables tb;
+  if (!rnn_shape_ok(A, R, n_enc, dims, H, lstm, &net, &tb)) return 0;
+  return rnn_layout(net, A, R, B, &tb).total;
 }
 
 // The workspace's layout: out = the float offsets of xs, enc[0], enc[1],
@@ -615,9 +649,10 @@ extern "C" int wh_act_rnn_layout(int A, int R, long B, int n_enc,
                                  const int* dims, int H, int lstm,
                                  long* out) {
   RnnNet net;
-  if (!rnn_shape_ok(A, R, n_enc, dims, H, lstm, &net))
+  RnnTables tb;
+  if (!rnn_shape_ok(A, R, n_enc, dims, H, lstm, &net, &tb))
     return (int)cudaErrorInvalidValue;
-  const RnnLayout w = rnn_layout(net, A, R, B);
+  const RnnLayout w = rnn_layout(net, A, R, B, &tb);
   const long offs[8] = {w.xs, w.enc[0], w.enc[1], w.rb[0],
                         w.rb[1], w.cs, w.head, w.envst};
   for (int i = 0; i < 8; ++i) out[i] = offs[i];

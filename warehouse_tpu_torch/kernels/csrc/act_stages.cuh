@@ -45,6 +45,7 @@
 #include "act_common.cuh"
 #include "env_tick.cuh"
 #include "mma_tiles.cuh"
+#include "pad_jobs.cuh"
 
 namespace {
 

@@ -40,9 +40,10 @@ struct CnnNet {
   long n_conv, n_params;
 };
 
+// Any trunk width H: the stages read H-wide rows element by element, and
+// their tiles pad H to 32 or 128.
 inline bool make_cnn_net(int S, int C0, int C1, int C2, int H, CnnNet* net) {
-  if (S < 1 || C0 < 1 || C1 < 4 || C2 < 4 || H < 4 || C1 % 4 || C2 % 4 ||
-      H % 4)
+  if (S < 1 || C0 < 1 || C1 < 4 || C2 < 4 || H < 1 || C1 % 4 || C2 % 4)
     return false;
   net->S = S;
   net->P2 = S * S;

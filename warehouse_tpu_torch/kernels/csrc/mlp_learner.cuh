@@ -28,11 +28,13 @@
 
 #include <cuda_runtime.h>
 
+#include <vector>
+
 #include "bf16_round.cuh"
+#include "host_ptr.cuh"
 
 namespace {
 
-constexpr int MAXL = 4;       // hidden layers
 constexpr int NACT = 5;
 constexpr int NHEAD = 6;      // 5 logits + value
 constexpr int OST = 8;        // row stride of head outputs and deltas
@@ -49,20 +51,26 @@ struct Layer {
   long w_off, b_off;  // packed vector: W [out, in] then b [out]
 };
 
+// Any number of hidden layers: the layer table lives on the host (`layers`,
+// the caller's), and the kernels read only the head's entry.
 struct Net {
   int n_hidden, D;
-  Layer L[MAXL + 1];  // the hidden layers, then the head
+  HostPtr<const Layer> L;  // the hidden layers, then the head
+  Layer head;      // L[n_hidden]
   long n_params;
 };
 
-// The packed layout of an MLP of these widths.
-bool make_net(int n_hidden, const int* dims, Net* net) {
-  if (n_hidden < 1 || n_hidden > MAXL) return false;
+// The packed layout of an MLP of these widths, its table in *layers.
+bool make_net(int n_hidden, const int* dims, Net* net,
+              std::vector<Layer>* layers) {
+  if (n_hidden < 1) return false;
+  layers->assign(n_hidden + 1, Layer{});
   net->n_hidden = n_hidden;
   net->D = dims[0];
+  net->L = layers->data();
   long off = 0;
   for (int l = 0; l <= n_hidden; ++l) {
-    Layer& y = net->L[l];
+    Layer& y = (*layers)[l];
     y.in = dims[l];
     y.out = l < n_hidden ? dims[l + 1] : NHEAD;
     if (y.in <= 0 || y.out <= 0) return false;
@@ -70,6 +78,7 @@ bool make_net(int n_hidden, const int* dims, Net* net) {
     y.b_off = off + (long)y.out * y.in;
     off = y.b_off + y.out;
   }
+  net->head = (*layers)[n_hidden];
   net->n_params = off;
   return true;
 }
@@ -151,8 +160,9 @@ bool split_groups(const Rows& all, long bm, int K, const int* groups,
 }
 
 bool make_rows(int n_hidden, const int* dims, int T, long B, int A, int M,
-               int mb, const float* obs, Net* net, Rows* rows) {
-  return make_net(n_hidden, dims, net) &&
+               int mb, const float* obs, Net* net, Rows* rows,
+               std::vector<Layer>* layers) {
+  return make_net(n_hidden, dims, net, layers) &&
          batch_rows(T, B, A, M, mb, net->D, obs, rows);
 }
 

@@ -8,9 +8,9 @@
 //   deltas, the head's rows dout [N, OST], the weight gradients' split-K
 //   partials and the sums of squares; `extra` forward-only rows follow the
 //   N samples in x0, act and dout (the IMPALA learner's last-obs rows).
-// - prep_weights / gather_row: each hidden layer's W copied zero-padded as
+// - prep_plan / gather_row: each hidden layer's W copied zero-padded as
 //   the GEMMs read it ([out, in] for the forward, transposed for the
-//   dgrads), and a row of x0.
+//   dgrads; pad_jobs.cuh), and a row of x0.
 // - load_head_rows, head_fwd_rows, head_dz_rows: a 64-row tile of the last
 //   hidden layer in shared memory, the 6-wide head over it (5 logits and
 //   the value), and the last layer's delta dz_L = (dout W_head) (1 -
@@ -25,6 +25,12 @@
 // rbf for the head's 6-wide products); a value both a product and tanh' or
 // a bias sum read stays float32 in memory. Every sum runs in an order
 // fixed by the shapes alone.
+//
+// Any number of hidden layers: the per-layer tables (the layers, their
+// padded widths and rows) live in the caller's MlpTables on the host; the
+// kernels read the last layer's entries only (SDims::Es_last,
+// StageScratch::act_last / dz_last), and the prep's copies and stage F's
+// products go MAXJ / MAXT to a launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,31 +47,45 @@ constexpr int HPAD = 8;         // the head tile's row pad: a warp's 4 x 8
 constexpr int HW = 32;          // columns per head_wgrad_kernel CTA
 constexpr int SF_TARGET = 512;  // weight-gradient CTAs aimed at, per group
 constexpr int MAXSF = 128;      // row ranges of the weight gradients at most
-static_assert(MAXT >= MAXL, "a group's hidden layers fit one F launch");
-
-struct SDims {      // the stages' padded widths
-  int Xs;           // D rounded to 32: x0's row stride
-  int Es[MAXL];     // hidden widths rounded to 32: act / dz row strides
-  int Ks[MAXL];     // each layer's K: Xs, then Es[l - 1]
+// Host storage of the per-layer tables below, sized from the net.
+struct MlpTables {
+  std::vector<Layer> L;
+  std::vector<int> Es, Ks;
+  std::vector<float*> wp, wt, act, dz;
+  std::vector<long> wp_n, wt_n;
 };
 
-SDims make_sdims(const Net& net) {
+struct SDims {       // the stages' padded widths
+  int Xs;            // D rounded to 32: x0's row stride
+  HostPtr<const int> Es;  // hidden widths rounded to 32: act / dz strides
+  HostPtr<const int> Ks;  // each layer's K: Xs, then Es[l - 1]
+  int Es_last;       // Es[L - 1]
+};
+
+SDims make_sdims(const Net& net, MlpTables* tb) {
   SDims sd;
+  const int L = net.n_hidden;
+  tb->Es.assign(L, 0);
+  tb->Ks.assign(L, 0);
   sd.Xs = rup(net.D, 32);
-  for (int l = 0; l < net.n_hidden; ++l) {
-    sd.Es[l] = rup(net.L[l].out, 32);
-    sd.Ks[l] = l == 0 ? sd.Xs : sd.Es[l - 1];
+  for (int l = 0; l < L; ++l) {
+    tb->Es[l] = rup(net.L[l].out, 32);
+    tb->Ks[l] = l == 0 ? sd.Xs : tb->Es[l - 1];
   }
+  sd.Es = tb->Es.data();
+  sd.Ks = tb->Ks.data();
+  sd.Es_last = tb->Es[L - 1];
   return sd;
 }
 
-struct StageScratch {
-  float* wp[MAXL];    // [K][rup(out_l, 128), Ks_l] W_l as GEMM rows of k
-  float* wt[MAXL];    // [K][rup(in_l, 128), Es_l] W_l^T (l >= 1)
-  long wp_n[MAXL], wt_n[MAXL];  // one group's floats of each
+struct StageScratch {  // the per-layer pointer tables are the host's
+  HostPtr<float*> wp;  // [K][rup(out_l, 128), Ks_l] W_l as GEMM rows of k
+  HostPtr<float*> wt;  // [K][rup(in_l, 128), Es_l] W_l^T (l >= 1)
+  HostPtr<long> wp_n, wt_n;  // one group's floats of each
   float* x0;          // [N + extra, Xs] the observation rows
-  float* act[MAXL];   // [N + extra, Es_l] hidden activations
-  float* dz[MAXL];    // [N, Es_l] their deltas
+  HostPtr<float*> act;  // [N + extra, Es_l] hidden activations
+  HostPtr<float*> dz;   // [N, Es_l] their deltas
+  float *act_last, *dz_last;  // act[L - 1], dz[L - 1]
   float* dout;        // [N + extra, OST] head outputs or deltas
   float* part;        // group g's SF[g] partials of n_params at part_off[g]
   long part_off[MAXK];
@@ -79,7 +99,7 @@ struct StageScratch {
 // Lays the scratch out from `base` (or only sizes it when base is null):
 // returns its floats.
 long carve_stages(const Net& net, const SDims& sd, const GroupSplit& gs,
-                  long extra, float* base, StageScratch* sc) {
+                  long extra, float* base, StageScratch* sc, MlpTables* tb) {
   long off = 0;
   auto take = [&](long n) {
     float* p = base ? base + off : nullptr;
@@ -87,6 +107,15 @@ long carve_stages(const Net& net, const SDims& sd, const GroupSplit& gs,
     return p;
   };
   const int L = net.n_hidden, K = gs.K;
+  for (auto* v : {&tb->wp, &tb->wt, &tb->act, &tb->dz}) v->assign(L, nullptr);
+  tb->wp_n.assign(L, 0);
+  tb->wt_n.assign(L, 0);
+  sc->wp = tb->wp.data();
+  sc->wt = tb->wt.data();
+  sc->act = tb->act.data();
+  sc->dz = tb->dz.data();
+  sc->wp_n = tb->wp_n.data();
+  sc->wt_n = tb->wt_n.data();
   const long N = gs.noff[K];
   int f_tiles = 0;
   for (int l = 0; l < L; ++l) {
@@ -102,6 +131,8 @@ long carve_stages(const Net& net, const SDims& sd, const GroupSplit& gs,
     sc->act[l] = take((N + extra) * sd.Es[l]);
     sc->dz[l] = take(N * sd.Es[l]);
   }
+  sc->act_last = sc->act[L - 1];
+  sc->dz_last = sc->dz[L - 1];
   sc->dout = take((N + extra) * OST);
   long sf = (SF_TARGET + f_tiles - 1) / f_tiles, n_part = 0;
   sf = sf < 1 ? 1 : (sf > MAXSF ? MAXSF : sf);
@@ -138,7 +169,7 @@ struct MlpStage {
 // The head tile: the last layer's rows, the head's outputs or deltas, and
 // (sgd.cu) a row of metric terms each.
 size_t smem_head(const Net& net) {
-  return sizeof(float) * CB * (net.L[net.n_hidden].in + HPAD + OST + 4);
+  return sizeof(float) * CB * (net.head.in + HPAD + OST + 4);
 }
 
 size_t stage_smem(const Net& net) {
@@ -150,19 +181,23 @@ size_t stage_smem(const Net& net) {
 
 // ---- prep: the padded weight copies and the observation rows ---------------
 
-__device__ void prep_weights(const MlpStage& p, long i0, long stride) {
+// Each hidden layer's copies for every group: W_l as GEMM rows, and (l >=
+// 1) W_l^T.
+PadPlan prep_plan(const MlpStage& p) {
   const Net& net = p.net;
   const SDims& sd = p.sd;
-  for (int g = 0; g < p.gs.K; ++g)
-    for (int l = 0; l < net.n_hidden; ++l) {
-      const Layer& y = net.L[l];
-      const float* W = p.params + g * net.n_params + y.w_off;
-      pad_copy(p.sc.wp[l] + g * p.sc.wp_n[l], rup(y.out, 128), sd.Ks[l], W,
-               y.out, y.in, false, i0, stride);
-      if (l)
-        pad_copy(p.sc.wt[l] + g * p.sc.wt_n[l], rup(y.in, 128), sd.Es[l], W,
-                 y.out, y.in, true, i0, stride);
-    }
+  PadPlan plan;
+  plan.K = p.gs.K;
+  for (int l = 0; l < net.n_hidden; ++l) {
+    const Layer& y = net.L[l];
+    const float* W = p.params + y.w_off;
+    plan.add(p.sc.wp[l], p.sc.wp_n[l], W, net.n_params, rup(y.out, 128),
+             sd.Ks[l], y.out, y.in, false);
+    if (l)
+      plan.add(p.sc.wt[l], p.sc.wt_n[l], W, net.n_params, rup(y.in, 128),
+               sd.Es[l], y.out, y.in, true);
+  }
+  return plan;
 }
 
 // One row of x0 by one warp: src's D features, zeros to Xs, 4 loads a lane
@@ -379,34 +414,32 @@ cudaError_t wgrad_stage(const MlpStage& sa, cudaStream_t stream,
   const SDims& sd = sa.sd;
   const StageScratch& sc = sa.sc;
   const int L = net.n_hidden;
-  const Layer& hd = net.L[L];
+  const Layer& hd = net.head;
   cudaError_t e = opt_in(wgrad_tn_kernel<BF>, smem_wgrad());
   for (int g = 0; g < sa.gs.K && e == cudaSuccess; ++g) {
     const long n0 = sa.gs.noff[g], Ng = sa.gs.rows[g].N;
-    FArgs fa;
-    fa.rows = Ng;
-    fa.chunk = sc.chunk[g];
-    fa.n_params = net.n_params;
-    fa.part = sc.part + sc.part_off[g];
+    float* part = sc.part + sc.part_off[g];
+    std::vector<FTask> tasks;
     int tiles = 0;
     for (int l = 0; l < L; ++l) {
       const Layer& y = net.L[l];
-      fa.t[l] = ftask(sc.dz[l] + n0 * sd.Es[l], sd.Es[l], y.out,
-                      l ? sc.act[l - 1] + n0 * sd.Es[l - 1]
-                        : sc.x0 + n0 * sd.Xs,
-                      sd.Ks[l], y.in, y.w_off, y.b_off, 0, y.out, &tiles);
+      tasks.push_back(ftask(sc.dz[l] + n0 * sd.Es[l], sd.Es[l], y.out,
+                            l ? sc.act[l - 1] + n0 * sd.Es[l - 1]
+                              : sc.x0 + n0 * sd.Xs,
+                            sd.Ks[l], y.in, y.w_off, y.b_off, 0, y.out,
+                            &tiles));
     }
-    fa.n = L;
-    wgrad_tn_kernel<BF>
-        <<<dim3(tiles, sc.SF[g]), GNT, smem_wgrad(), stream>>>(fa);
+    e = launch_wgrad<BF>(tasks, Ng, sc.chunk[g], net.n_params, part,
+                         sc.SF[g], smem_wgrad(), stream, launched);
+    if (e != cudaSuccess) return e;
     const HeadGradArgs ha = {sc.dout + n0 * OST,
                              sc.act[L - 1] + n0 * sd.Es[L - 1],
                              sd.Es[L - 1], Ng, sc.chunk[g], net.n_params,
-                             hd.in, hd.w_off, hd.b_off, fa.part};
+                             hd.in, hd.w_off, hd.b_off, part};
     head_wgrad_kernel<BF>
         <<<dim3((hd.in + HW - 1) / HW, sc.SF[g]), GNT, 0, stream>>>(ha);
     e = cudaGetLastError();
-    if (e == cudaSuccess && launched) *launched += 2;
+    if (e == cudaSuccess && launched) ++*launched;
   }
   return e;
 }
@@ -426,19 +459,19 @@ cudaError_t reduce(const MlpStage& sa, float* grads, cudaStream_t stream,
   return e;
 }
 
-// The workspace offsets of the stages' rows (from a fake base): out[0, 10)
-// = float offsets of x0, act0..act3, dz0..dz3, dout (-1 where the net has
-// none), out[10, 15) = the row strides Xs, Es0..Es3 (0 where none).
+// The workspace offsets of the stages' rows (from a fake base): out[0, 3)
+// = the float offsets of x0 and dout, x0's row stride Xs; then per hidden
+// layer l, out[3 + 3 l, 6 + 3 l) = the offsets of act_l and dz_l and their
+// row stride Es_l.
 void stage_layout(const MlpStage& sa, const float* base, long* out) {
   const StageScratch& sc = sa.sc;
   out[0] = sc.x0 - base;
-  out[9] = sc.dout - base;
-  out[10] = sa.sd.Xs;
-  for (int l = 0; l < MAXL; ++l) {
-    const bool has = l < sa.net.n_hidden;
-    out[1 + l] = has ? sc.act[l] - base : -1;
-    out[5 + l] = has ? sc.dz[l] - base : -1;
-    out[11 + l] = has ? sa.sd.Es[l] : 0;
+  out[1] = sc.dout - base;
+  out[2] = sa.sd.Xs;
+  for (int l = 0; l < sa.net.n_hidden; ++l) {
+    out[3 + 3 * l] = sc.act[l] - base;
+    out[4 + 3 * l] = sc.dz[l] - base;
+    out[5 + 3 * l] = sa.sd.Es[l];
   }
 }
 

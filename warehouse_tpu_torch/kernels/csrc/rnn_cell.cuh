@@ -27,43 +27,68 @@
 // (3xTF32, kept over FFMA register blocks: faster, within every K7 bound;
 // bound by its products); K8/K9's (sgd_rnn.cu) write theirs for the
 // learner's stages. The CNN layout (cnn_net.cuh) takes RHEAD from here.
+//
+// Any width and any number of encoder layers: the per-layer tables live in
+// the caller's RnnTables on the host, and no kernel reads them.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <vector>
+
+#include "host_ptr.cuh"
+
 namespace {
 
-constexpr int MAXE = 3;    // encoder layers
 constexpr int RHEAD = 6;   // 5 logits + value
+
+// Host storage of the per-layer tables of RnnNet and of K7's and K8/K9's
+// layouts.
+struct RnnTables {
+  std::vector<int> enc_in, enc_out;
+  std::vector<long> enc_w, enc_b;
+  std::vector<int> ld, hp;    // K7 (act_rnn.cu RnnLayout)
+  std::vector<long> bt;
+  std::vector<int> Es, Ks;    // K8/K9 (sgd_rnn.cu RDims, RnnScratch)
+  std::vector<float*> encp, enct, act, dz;
+};
 
 struct RnnNet {
   int n_enc, D, E, H, lstm, G;
-  int enc_in[MAXE], enc_out[MAXE];
-  long enc_w[MAXE], enc_b[MAXE];
+  HostPtr<const int> enc_in, enc_out;  // one per encoder layer
+  HostPtr<const long> enc_w, enc_b;
   long wi, bi;  // bi < 0 for the LSTM (no input-side bias)
   long wh, bh;  // bh: GRU [H] (hn's), LSTM [4 H]
   long head_w, head_b;
   long n_params;
 };
 
-// dims = obs width, then the encoder widths.
+// dims = obs width, then the encoder widths; the tables in *tb.
 inline bool make_rnn_net(int n_enc, const int* dims, int H, int lstm,
-                         RnnNet* net) {
-  if (n_enc < 1 || n_enc > MAXE || H <= 0 || H % 4) return false;
+                         RnnNet* net, RnnTables* tb) {
+  if (n_enc < 1 || H <= 0) return false;
   net->n_enc = n_enc;
   net->D = dims[0];
   net->H = H;
   net->lstm = lstm ? 1 : 0;
   net->G = lstm ? 4 : 3;
+  tb->enc_in.assign(n_enc, 0);
+  tb->enc_out.assign(n_enc, 0);
+  tb->enc_w.assign(n_enc, 0);
+  tb->enc_b.assign(n_enc, 0);
+  net->enc_in = tb->enc_in.data();
+  net->enc_out = tb->enc_out.data();
+  net->enc_w = tb->enc_w.data();
+  net->enc_b = tb->enc_b.data();
   long off = 0;
   for (int l = 0; l < n_enc; ++l) {
     const int in = dims[l], out = dims[l + 1];
-    if (in <= 0 || out <= 0 || out % 4) return false;
-    net->enc_in[l] = in;
-    net->enc_out[l] = out;
-    net->enc_w[l] = off;
-    net->enc_b[l] = off + (long)in * out;
-    off = net->enc_b[l] + out;
+    if (in <= 0 || out <= 0) return false;
+    tb->enc_in[l] = in;
+    tb->enc_out[l] = out;
+    tb->enc_w[l] = off;
+    tb->enc_b[l] = off + (long)in * out;
+    off = tb->enc_b[l] + out;
   }
   const int E = net->E = dims[n_enc], G = net->G;
   net->wi = off;

@@ -6,11 +6,12 @@
 // - rows_gemm_kernel: C = f(A Bt^T) over the rows of A as 64 x 128 tiles,
 //   its k-slices through a cp.async ring; f in the epilogue: tanh(. + b),
 //   . + b, or . (1 - a^2) (a dgrad through tanh). Bt is a weight copy
-//   zero-padded to whole tiles (pad_copy).
+//   zero-padded to whole tiles (pad_jobs.cuh pad_copy).
 // - wgrad_tn_kernel: weight gradients dW = delta^T prev over a range of
 //   rows as 128 x 128 output tiles, one launch for several products
-//   (FTask), split-K over row ranges with one partial per range (no
-//   atomics), and the biases' sums in row order.
+//   (FTask; a net with more products launches MAXT of them at a time),
+//   split-K over row ranges with one partial per range (no atomics), and
+//   the biases' sums in row order.
 //
 // bf16 operands (BF) run on the tensor cores as m16n8k16 with float32 sums
 // (a zeroed fragment per 16-product chunk, then a rounded add); float32 as
@@ -21,6 +22,7 @@
 #include <cuda_runtime.h>
 
 #include "mma_tiles.cuh"
+#include "pad_jobs.cuh"
 
 namespace {
 
@@ -32,16 +34,6 @@ __host__ __device__ inline int rup(long x, int m) {
 
 size_t smem_gemm() { return sizeof(float) * 2 * (BM + BN) * ldt<true>(); }
 size_t smem_wgrad() { return sizeof(float) * 2 * 2 * EN * lde<false>(); }
-
-// dst [rows, cols] = W [out, in] (or, with tr, W^T), zeros past it.
-__device__ void pad_copy(float* dst, int rows, int cols, const float* W,
-                         int out, int in, bool tr, long i0, long stride) {
-  for (long i = i0; i < (long)rows * cols; i += stride) {
-    const int r = (int)(i / cols), c = (int)(i % cols);
-    const int o = tr ? c : r, k = tr ? r : c;
-    dst[i] = o < out && k < in ? W[(long)o * in + k] : 0.f;
-  }
-}
 
 // ---- products over the rows as 64 x 128 tile GEMMs --------------------------
 
@@ -199,6 +191,36 @@ __global__ void __launch_bounds__(GNT) wgrad_tn_kernel(FArgs p) {
 }
 
 // ---- host side ----------------------------------------------------------------
+
+// wgrad_tn_kernel over `tasks` (ftask's, in order) on SF row ranges of
+// `chunk` rows, MAXT products a launch, each launch's tiles numbered from
+// 0: one launch for a net of up to MAXT products, as before any depth was
+// taken. *launched gets the launches added.
+template <bool BF>
+cudaError_t launch_wgrad(std::vector<FTask> tasks, long rows, long chunk,
+                         long n_params, float* part, int SF, size_t smem,
+                         cudaStream_t stream, long* launched = nullptr) {
+  for (size_t t0 = 0; t0 < tasks.size(); t0 += MAXT) {
+    FArgs fa;
+    fa.rows = rows;
+    fa.chunk = chunk;
+    fa.n_params = n_params;
+    fa.part = part;
+    fa.n = 0;
+    int tiles = 0;
+    for (size_t t = t0; t < tasks.size() && fa.n < MAXT; ++t) {
+      FTask f = tasks[t];
+      f.tile0 = tiles;
+      tiles += f_tile_count(f.out, f.in);
+      fa.t[fa.n++] = f;
+    }
+    wgrad_tn_kernel<BF><<<dim3(tiles, SF), GNT, smem, stream>>>(fa);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    if (launched) ++*launched;
+  }
+  return cudaSuccess;
+}
 
 template <class Kernel>
 cudaError_t opt_in(Kernel kernel, size_t smem) {

@@ -92,10 +92,11 @@ struct StageArgs : MlpStage {
 
 // ---- prep: the padded weight copies and the observation rows -------------
 
-__global__ void mlp_prep_kernel(StageArgs p) {
+// The first MAXJ weight copies (prep_plan) and the observation rows.
+__global__ void mlp_prep_kernel(StageArgs p, PadJobs pj) {
   const long i0 = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const long stride = (long)gridDim.x * blockDim.x;
-  prep_weights(p, i0, stride);
+  run_pad_jobs(pj, i0, stride);
   // The observation rows, group after group: a warp a row at a time, the
   // row's offset found once.
   const GroupSplit& gs = p.gs;
@@ -116,9 +117,8 @@ __global__ void __launch_bounds__(GNT) mlp_head_kernel(StageArgs p) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = p.net;
   const GroupSplit& gs = p.gs;
-  const int L = net.n_hidden;
-  const Layer& hd = net.L[L];
-  const int H = hd.in, HC = H + HPAD, Es = p.sd.Es[L - 1];
+  const Layer& hd = net.head;
+  const int H = hd.in, HC = H + HPAD, Es = p.sd.Es_last;
   float* hsm = smem;             // [CB][HC] the tile's last-layer rows
   float* outs = hsm + CB * HC;   // [CB][OST] head outputs, then deltas
   float* met = outs + CB * OST;  // [CB][4]
@@ -131,7 +131,7 @@ __global__ void __launch_bounds__(GNT) mlp_head_kernel(StageArgs p) {
   const int nvalid = rows.N - q0 < CB ? (int)(rows.N - q0) : CB;
   const float* params = p.params + g * net.n_params;
   const float* Wh = params + hd.w_off;
-  load_head_rows(hsm, p.sc.act[L - 1], Es, H, n0, nvalid);
+  load_head_rows(hsm, p.sc.act_last, Es, H, n0, nvalid);
   __syncthreads();
   head_fwd_rows<BF>(hsm, H, Wh, params + hd.b_off, outs);
   __syncthreads();
@@ -154,7 +154,7 @@ __global__ void __launch_bounds__(GNT) mlp_head_kernel(StageArgs p) {
     for (int n = 0; n < CB; ++n) s += met[n * 4 + tid];
     p.sc.met[tile * 4 + tid] = s;
   }
-  head_dz_rows<BF>(outs, hsm, H, Es, Wh, p.sc.dz[L - 1] + n0 * Es, nvalid);
+  head_dz_rows<BF>(outs, hsm, H, Es, Wh, p.sc.dz_last + n0 * Es, nvalid);
 }
 
 // ---- host side -------------------------------------------------------------
@@ -189,8 +189,10 @@ cudaError_t run_stage(const StageArgs& sa, Stage st, bool bf16,
 }
 
 cudaError_t prep(const StageArgs& sa, cudaStream_t stream) {
-  mlp_prep_kernel<<<1024, 256, 0, stream>>>(sa);
-  return cudaGetLastError();
+  const PadPlan plan = prep_plan(sa);
+  mlp_prep_kernel<<<1024, 256, 0, stream>>>(sa, plan.batch(0));
+  const cudaError_t e = cudaGetLastError();
+  return e != cudaSuccess ? e : plan.launch_rest(1024, 256, stream);
 }
 
 cudaError_t metrics(const StageArgs& sa, float* sums, cudaStream_t stream) {
@@ -200,16 +202,19 @@ cudaError_t metrics(const StageArgs& sa, float* sums, cudaStream_t stream) {
 
 // The net, the minibatch mb's rows and their split by the K groups of
 // `groups` (null: one group), the stages' widths, and the scratch laid out
-// from `work` (or only sized, when it is null).
+// from `work` (or only sized, when it is null); the per-layer tables in
+// *tb.
 bool make_stage_args(int n_hidden, const int* dims, int T, long B, int A,
                      int M, int K, const int* groups, int mb, const float* obs,
-                     float* work, StageArgs* sa, long* floats = nullptr) {
-  if (!make_rows(n_hidden, dims, T, B, A, M, mb, obs, &sa->net, &sa->bt) ||
+                     float* work, StageArgs* sa, MlpTables* tb,
+                     long* floats = nullptr) {
+  if (!make_rows(n_hidden, dims, T, B, A, M, mb, obs, &sa->net, &sa->bt,
+                 &tb->L) ||
       !split_groups(sa->bt, B / M, K, groups, &sa->gs))
     return false;
-  sa->sd = make_sdims(sa->net);
+  sa->sd = make_sdims(sa->net, tb);
   sa->extra = 0;
-  const long n = carve_stages(sa->net, sa->sd, sa->gs, 0, work, &sa->sc);
+  const long n = carve_stages(sa->net, sa->sd, sa->gs, 0, work, &sa->sc, tb);
   if (floats) *floats = n;
   return true;
 }
@@ -221,9 +226,9 @@ int make_grads_args(int n_hidden, const int* dims, int T, long B, int A,
                     const unsigned char* mask, const float* params,
                     const float* scal, float clip_eps, float clip_lo,
                     float clip_hi, float value_coef, float inv_n, float* work,
-                    StageArgs* sa) {
+                    StageArgs* sa, MlpTables* tb) {
   if (!make_stage_args(n_hidden, dims, T, B, A, M, K, groups, mb, obs, work,
-                       sa))
+                       sa, tb))
     return (int)cudaErrorInvalidValue;
   sa->bt.action = action;
   sa->bt.old_lp = old_lp;
@@ -244,7 +249,8 @@ int make_grads_args(int n_hidden, const int* dims, int T, long B, int A,
 // with its width). K5/K6's stages (vtrace_sgd.cu) take the same.
 extern "C" long wh_sgd_stage_smem_bytes(int n_hidden, const int* dims) {
   Net net;
-  return make_net(n_hidden, dims, &net) ? (long)stage_smem(net) : 0;
+  std::vector<Layer> layers;
+  return make_net(n_hidden, dims, &net, &layers) ? (long)stage_smem(net) : 0;
 }
 
 // Floats of scratch the entry points below share, or 0 for an unsupported
@@ -254,24 +260,25 @@ extern "C" long wh_sgd_workspace_floats(int n_hidden, const int* dims, int T,
                                         long B, int A, int M, int K,
                                         const int* groups) {
   StageArgs sa;
+  MlpTables tb;
   long n = 0;
   return make_stage_args(n_hidden, dims, T, B, A, M, K, groups, 0, nullptr,
-                         nullptr, &sa, &n)
+                         nullptr, &sa, &tb, &n)
              ? n
              : 0;
 }
 
-// Where the stages' rows lie in the workspace: out[0, 10) = float offsets
-// of x0, act0..act3, dz0..dz3, dout (-1 where the net has none), out[10,
-// 15) = the row strides Xs, Es0..Es3 (0 where none). The rows come group
-// after group.
+// Where the stages' rows lie in the workspace, 3 + 3 n_hidden longs
+// (mlp_stages.cuh stage_layout: x0, dout, Xs, then act_l, dz_l, Es_l per
+// layer). The rows come group after group.
 extern "C" int wh_sgd_layout(int n_hidden, const int* dims, int T, long B,
                              int A, int M, int K, const int* groups,
                              long* out) {
   StageArgs sa;
+  MlpTables tb;
   float* base = reinterpret_cast<float*>(256);  // offsets from a fake base
   if (!make_stage_args(n_hidden, dims, T, B, A, M, K, groups, 0, nullptr,
-                       base, &sa))
+                       base, &sa, &tb))
     return (int)cudaErrorInvalidValue;
   stage_layout(sa, base, out);
   return 0;
@@ -291,10 +298,11 @@ extern "C" int wh_sgd_grads(
     float value_coef, float inv_n, float* work, float* grads, float* sums,
     int bf16, void* stream_) {
   StageArgs sa;
+  MlpTables tb;
   int err = make_grads_args(n_hidden, dims, T, B, A, M, K, groups, mb, obs,
                             action, old_lp, old_v, adv, target, mask, params,
                             scal, clip_eps, clip_lo, clip_hi, value_coef,
-                            inv_n, work, &sa);
+                            inv_n, work, &sa, &tb);
   if (err) return err;
   cudaStream_t stream = (cudaStream_t)stream_;
   cudaError_t e = prep(sa, stream);
@@ -320,10 +328,11 @@ extern "C" int wh_sgd_stage(
     int bf16, void* stream_) {
   if (stage < FWD || stage > WGRAD) return (int)cudaErrorInvalidValue;
   StageArgs sa;
+  MlpTables tb;
   int err = make_grads_args(n_hidden, dims, T, B, A, M, K, groups, mb, obs,
                             action, old_lp, old_v, adv, target, mask, params,
                             scal, clip_eps, clip_lo, clip_hi, value_coef,
-                            inv_n, work, &sa);
+                            inv_n, work, &sa, &tb);
   if (err) return err;
   cudaStream_t stream = (cudaStream_t)stream_;
   cudaError_t e = prep(sa, stream);
@@ -343,8 +352,9 @@ extern "C" int wh_sgd_clip_adam(
     const float* bc2_row, float max_grad_norm, float b1, float one_m_b1,
     float b2, float one_m_b2, float eps, float* work, void* stream_) {
   StageArgs sa;
+  MlpTables tb;
   if (!make_stage_args(n_hidden, dims, T, B, A, M, K, groups, 0, nullptr,
-                       work, &sa) ||
+                       work, &sa, &tb) ||
       step < 0)
     return (int)cudaErrorInvalidValue;
   const AdamArgs p = {K * sa.net.n_params, K * sa.sc.n_sq1, grads, sa.sc.sq,

@@ -75,6 +75,22 @@
 // steps as packed bf16 pairs (98 KB for the GRU, 131 KB for the LSTM at
 // hidden 128); in float32 (196 / 256 KB) a pass's slice of it is staged
 // by cp.async; wider nets read it through L1.
+//
+// Any hidden width: the stages pair a thread's units (float2 rows of gi,
+// the gates, h and c) and stage F reads h's rows as 16-byte copies, so they
+// run the net padded to Hq = H rounded up to 4. Where H is not a multiple
+// of 4, prep first writes the padded copies of the params and of the carry
+// (pad_params_kernel: zero weights, biases and carry past H in each gate
+// block, the head's columns too) and the reduce writes the gradient back
+// at the natural width (unpad_kernel). A pad unit then stays 0 forward
+// (tanh(0) = 0; the GRU's h' = 0.5 n + 0.5 h = 0 with n = tanh(0); the
+// LSTM's c' = 0.5 c + 0.5 tanh(0) = 0, h' = o tanh(0) = 0) and every
+// weight out of it is 0, so the gradient into it and every pad weight's
+// gradient are exactly 0: the natural entries are the unpadded net's up to
+// the order of the float32 sums, and the global norm is theirs. Widths that
+// are multiples of 4 run unpadded, as before. Any number of encoder layers:
+// the per-layer tables live in the caller's RnnTables on the host, the
+// prep's copies go MAXJ and stage F's products MAXT to a launch.
 
 #include <cuda_runtime.h>
 
@@ -93,8 +109,7 @@ constexpr int UD = 128;    // units per pass of stage D: 8 warps x 16 (RT_ST: UB
 constexpr int CB = 64;     // rows per stage-C tile
 constexpr int SF_TARGET = 512;  // stage-F CTAs aimed at (split-K ranges)
 constexpr int MAXSF = 64;  // row ranges of stage F at most
-// Stage F's products (encoder, Wi, Wh, head) fit one wgrad_tn_kernel launch.
-static_assert(MAXT >= MAXE + 3, "stage F's products");
+constexpr int MAXB = 8;    // blocks of a PadMap
 
 // A row of k values as packed bf16 pairs, 4 words of pad: a warp's
 // fragment loads (row g, word t) then hit distinct banks.
@@ -102,8 +117,9 @@ __host__ __device__ inline int packed_words(int k) { return k / 2 + 4; }
 
 struct RDims {  // the stages' padded widths
   int Xs;         // D rounded to 32: x0's row stride
-  int Es[MAXE];   // encoder widths rounded to 32: act / dz row strides
-  int Ks[MAXE];   // each encoder layer's K: Xs, then Es[l - 1]
+  HostPtr<const int> Es;  // encoder widths rounded to 32: act / dz strides
+  HostPtr<const int> Ks;  // each encoder layer's K: Xs, then Es[l - 1]
+  int Es_last;    // Es[n_enc - 1]
   int GH, GHs;    // G H, and rounded to 32: dp / dx row stride
   int HU;         // H rounded to UB: the rows of one gate in whp
   int Hk;         // H rounded to 16: K of stage B's product
@@ -113,13 +129,18 @@ struct RDims {  // the stages' padded widths
   int HV;         // H rounded to UD: the rows of wht
 };
 
-RDims make_rdims(const RnnNet& net) {
+RDims make_rdims(const RnnNet& net, RnnTables* tb) {
   RDims rd;
   rd.Xs = rup(net.D, 32);
+  tb->Es.assign(net.n_enc, 0);
+  tb->Ks.assign(net.n_enc, 0);
   for (int l = 0; l < net.n_enc; ++l) {
-    rd.Es[l] = rup(net.enc_out[l], 32);
-    rd.Ks[l] = l == 0 ? rd.Xs : rd.Es[l - 1];
+    tb->Es[l] = rup(net.enc_out[l], 32);
+    tb->Ks[l] = l == 0 ? rd.Xs : tb->Es[l - 1];
   }
+  rd.Es = tb->Es.data();
+  rd.Ks = tb->Ks.data();
+  rd.Es_last = tb->Es[net.n_enc - 1];
   rd.GH = net.G * net.H;
   rd.GHs = rup(rd.GH, 32);
   rd.HU = rup(net.H, UB);
@@ -132,8 +153,8 @@ RDims make_rdims(const RnnNet& net) {
 }
 
 struct RnnScratch {
-  float* encp[MAXE];  // [rup(E_l, 128), Ks_l] W_l as GEMM rows
-  float* enct[MAXE];  // [rup(in_l, 128), Es_l] W_l^T (l >= 1)
+  HostPtr<float*> encp;  // [rup(E_l, 128), Ks_l] W_l as GEMM rows
+  HostPtr<float*> enct;  // [rup(in_l, 128), Es_l] W_l^T (l >= 1)
   float* wip;         // [rup(GH, 128), Es_last] Wi
   float* wit;         // [rup(E, 128), GHs] Wi^T
   float* whp;         // [G HU, Hk] Wh, gate g's rows at g HU
@@ -141,8 +162,8 @@ struct RnnScratch {
   uint32_t* whw;      // [G HU, Hk / 2 + 4] whp as packed bf16 pairs
   uint32_t* wtw;      // [HV, GHk / 2 + 4] wht as packed bf16 pairs
   float* x0;          // [T N, Xs] the observation rows
-  float* act[MAXE];   // [T N, Es_l] encoder activations
-  float* dz[MAXE];    // [T N, Es_l] their deltas
+  HostPtr<float*> act;   // [T N, Es_l] encoder activations
+  HostPtr<float*> dz;    // [T N, Es_l] their deltas
   float* gi;          // [T N, G H] the gates' input side
   float* hs;          // [(T + 1) N, H] h_0 .. h_T
   float* cs;          // [(T + 1) N, H] c_0 .. c_T (LSTM)
@@ -154,6 +175,8 @@ struct RnnScratch {
   float* part;        // [SF, n_params] gradient partials
   float* sq;          // [n_sq] sums of squares
   float* met;         // [n_tiles_c, 4] metric sums per stage-C tile
+  float *pp, *pg;     // padded widths: [n_params] the params, the gradient
+  float *ph0, *pc0;   // padded widths: [B A, Hq] the carry
   int SF;
   long chunk;         // rows per stage-F range
   long n_tiles_c, n_sq;
@@ -168,8 +191,87 @@ int f_tiles_of(const RnnNet& net) {
          f_tile_count(NHEAD, net.H);
 }
 
+// ---- a hidden width that is not a multiple of 4 ----------------------------
+
+// The natural packed vector against the padded net's: block k's gr groups
+// of [rows, cols] at nat are [prows, pcols] at pad, zeros past the natural
+// ones; the blocks cover both vectors in order.
+struct PadBlock {
+  long nat, pad;
+  int gr, rows, cols, prows, pcols;
+};
+
+struct PadMap {
+  int on;  // the net runs padded
+  int n;
+  PadBlock b[MAXB];
+  long n_nat, n_pad;
+  int H, Hq;
+};
+
+PadMap rnn_pad_map(const RnnNet& a, const RnnNet& p) {
+  PadMap m = {};
+  m.on = a.H != p.H;
+  m.H = a.H;
+  m.Hq = p.H;
+  m.n_nat = a.n_params;
+  m.n_pad = p.n_params;
+  auto add = [&](long nat, long pad, int gr, int rows, int cols, int prows,
+                 int pcols) {
+    m.b[m.n++] = PadBlock{nat, pad, gr, rows, cols, prows, pcols};
+  };
+  add(0, 0, 1, 1, (int)a.wi, 1, (int)p.wi);  // the encoder: the same
+  add(a.wi, p.wi, a.G, a.H, a.E, p.H, p.E);
+  if (!a.lstm) add(a.bi, p.bi, 3, a.H, 1, p.H, 1);
+  add(a.wh, p.wh, a.G, a.H, a.H, p.H, p.H);
+  add(a.bh, p.bh, a.lstm ? 4 : 1, a.H, 1, p.H, 1);
+  add(a.head_w, p.head_w, 1, RHEAD, a.H, RHEAD, p.H);
+  add(a.head_b, p.head_b, 1, RHEAD, 1, RHEAD, 1);
+  return m;
+}
+
+// The padded params from the natural ones, and the carry [B A, H] padded to
+// [B A, Hq] (c: the LSTM's, or null).
+__global__ void pad_params_kernel(PadMap m, const float* nat, float* pad,
+                                  const float* h0, const float* c0,
+                                  float* ph0, float* pc0, long BA) {
+  const long i0 = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long stride = (long)gridDim.x * blockDim.x;
+  for (long i = i0; i < m.n_pad; i += stride) {
+    int k = 0;
+    while (k + 1 < m.n && i >= m.b[k + 1].pad) ++k;
+    const PadBlock& b = m.b[k];
+    const long off = i - b.pad, per = (long)b.prows * b.pcols;
+    const int r = (int)(off % per / b.pcols), c = (int)(off % b.pcols);
+    pad[i] = r < b.rows && c < b.cols
+                 ? nat[b.nat + (off / per * b.rows + r) * b.cols + c]
+                 : 0.f;
+  }
+  for (long i = i0; i < BA * m.Hq; i += stride) {
+    const long n = i / m.Hq;
+    const int j = (int)(i % m.Hq);
+    ph0[i] = j < m.H ? h0[n * m.H + j] : 0.f;
+    if (c0) pc0[i] = j < m.H ? c0[n * m.H + j] : 0.f;
+  }
+}
+
+// The natural gradient from the padded one.
+__global__ void unpad_kernel(PadMap m, const float* pad, float* nat) {
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < m.n_nat;
+       i += (long)gridDim.x * blockDim.x) {
+    int k = 0;
+    while (k + 1 < m.n && i >= m.b[k + 1].nat) ++k;
+    const PadBlock& b = m.b[k];
+    const long off = i - b.nat, per = (long)b.rows * b.cols;
+    const int r = (int)(off % per / b.cols), c = (int)(off % b.cols);
+    nat[i] = pad[b.pad + (off / per * b.prows + r) * b.pcols + c];
+  }
+}
+
+// ---- the scratch -------------------------------------------------------------
+
 long carve_rnn(const RnnNet& net, const RDims& rd, int T, long N, float* base,
-               RnnScratch* sc) {
+               RnnScratch* sc, RnnTables* tb, const PadMap& map, long BA) {
   long off = 0;
   auto take = [&](long n) {
     float* p = base ? base + off : nullptr;
@@ -178,6 +280,12 @@ long carve_rnn(const RnnNet& net, const RDims& rd, int T, long N, float* base,
   };
   const long TN = (long)T * N;
   const int L = net.n_enc, H = net.H, E = net.E;
+  for (auto* v : {&tb->encp, &tb->enct, &tb->act, &tb->dz})
+    v->assign(L, nullptr);
+  sc->encp = tb->encp.data();
+  sc->enct = tb->enct.data();
+  sc->act = tb->act.data();
+  sc->dz = tb->dz.data();
   for (int l = 0; l < L; ++l) {
     sc->encp[l] = take((long)rup(net.enc_out[l], 128) * rd.Ks[l]);
     sc->enct[l] = l ? take((long)rup(net.enc_in[l], 128) * rd.Es[l]) : nullptr;
@@ -214,19 +322,28 @@ long carve_rnn(const RnnNet& net, const RDims& rd, int T, long N, float* base,
   sc->sq = take(sc->n_sq);
   sc->n_tiles_c = (TN + CB - 1) / CB;
   sc->met = take(sc->n_tiles_c * 4);
+  sc->pp = sc->pg = sc->ph0 = sc->pc0 = nullptr;
+  if (map.on) {
+    sc->pp = take(net.n_params);
+    sc->pg = take(net.n_params);
+    sc->ph0 = take(BA * H);
+    if (net.lstm) sc->pc0 = take(BA * H);
+  }
   return off;
 }
 
 struct SeqArgs {
-  RnnNet net;
+  RnnNet net;     // at the padded width Hq
   RDims rd;
   Batch bt;       // bt.nb = N sequences, bt.N = T N rows
   RnnScratch sc;
   Coefs c;
   int T;
-  const float* params;
+  const float* params;   // at the padded width (map.on: sc.pp)
   const float* scal;     // ent_coef, kl_coeff
-  const float *h0, *c0;  // [B, A, H] rollout-start carry
+  const float *h0, *c0;  // [B, A, Hq] rollout-start carry (map.on: sc.ph0)
+  PadMap map;
+  const float *nat_params, *nat_h0, *nat_c0;  // the caller's, at H
 };
 
 size_t smem_fwd(const RnnNet& net, const RDims& rd) {
@@ -249,23 +366,32 @@ size_t rnn_smem(const RnnNet& net, const RDims& rd) {
 
 // ---- prep: the observation rows and the padded weight copies -----------------
 
-__global__ void rnn_prep_kernel(SeqArgs p) {
+// Each encoder layer's copies: W_l as GEMM rows and (l >= 1) W_l^T.
+PadPlan enc_plan(const SeqArgs& p) {
+  const RnnNet& net = p.net;
+  const RDims& rd = p.rd;
+  PadPlan plan;
+  for (int l = 0; l < net.n_enc; ++l) {
+    const float* W = p.params + net.enc_w[l];
+    const int out = net.enc_out[l], in = net.enc_in[l];
+    plan.add(p.sc.encp[l], 0, W, 0, rup(out, 128), rd.Ks[l], out, in, false);
+    if (l)
+      plan.add(p.sc.enct[l], 0, W, 0, rup(in, 128), rd.Es[l], out, in, true);
+  }
+  return plan;
+}
+
+// The first MAXJ encoder copies (enc_plan), the cell's and the observation
+// rows.
+__global__ void rnn_prep_kernel(SeqArgs p, PadJobs pj) {
   const RnnNet& net = p.net;
   const RDims& rd = p.rd;
   const long i0 = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const long stride = (long)gridDim.x * blockDim.x;
-  const int H = net.H, E = net.E, GH = rd.GH, L = net.n_enc;
-  for (int l = 0; l < L; ++l) {
-    const float* W = p.params + net.enc_w[l];
-    const int out = net.enc_out[l], in = net.enc_in[l];
-    pad_copy(p.sc.encp[l], rup(out, 128), rd.Ks[l], W, out, in, false, i0,
-             stride);
-    if (l)
-      pad_copy(p.sc.enct[l], rup(in, 128), rd.Es[l], W, out, in, true, i0,
-               stride);
-  }
+  const int H = net.H, E = net.E, GH = rd.GH;
+  run_pad_jobs(pj, i0, stride);
   const float* Wi = p.params + net.wi;
-  pad_copy(p.sc.wip, rup(GH, 128), rd.Es[L - 1], Wi, GH, E, false, i0, stride);
+  pad_copy(p.sc.wip, rup(GH, 128), rd.Es_last, Wi, GH, E, false, i0, stride);
   pad_copy(p.sc.wit, rup(E, 128), rd.GHs, Wi, GH, E, true, i0, stride);
   const float* Wh = p.params + net.wh;
   for (int g = 0; g < net.G; ++g)
@@ -780,14 +906,26 @@ __global__ void __launch_bounds__(RNTB) rec_bwd_kernel(SeqArgs p) {
 
 // ---- host side ----------------------------------------------------------------
 
+// The net at the padded width Hq (its tables in *tb), its map from the
+// natural one, the minibatch's rows and the stages' widths.
 bool make_seq(int n_enc, const int* dims, int H, int lstm, int T, long B,
-              int A, int M, int mb, const float* obs, SeqArgs* sa) {
-  if (!make_rnn_net(n_enc, dims, H, lstm, &sa->net) ||
+              int A, int M, int mb, const float* obs, SeqArgs* sa,
+              RnnTables* tb) {
+  RnnNet nat;
+  RnnTables nt;
+  if (!make_rnn_net(n_enc, dims, H, lstm, &nat, &nt) ||
+      !make_rnn_net(n_enc, dims, rup(H, 4), lstm, &sa->net, tb) ||
       !batch_rows(T, B, A, M, mb, sa->net.D, obs, &sa->bt))
     return false;
-  sa->rd = make_rdims(sa->net);
+  sa->map = rnn_pad_map(nat, sa->net);
+  sa->rd = make_rdims(sa->net, tb);
   sa->T = T;
   return true;
+}
+
+long carve(SeqArgs* sa, float* base, RnnTables* tb) {
+  return carve_rnn(sa->net, sa->rd, sa->T, sa->bt.nb, base, &sa->sc, tb,
+                   sa->map, sa->bt.BA);
 }
 
 enum Stage { ENC_FWD, REC_FWD, HEAD_LOSS, REC_BWD, ENC_BWD, WGRAD };
@@ -841,30 +979,25 @@ cudaError_t wgrad(const SeqArgs& sa, cudaStream_t stream) {
   const RnnScratch& sc = sa.sc;
   const int H = net.H, GH = rd.GH, L = net.n_enc;
   const long N = sa.bt.nb;
-  FArgs fa;
-  fa.rows = sa.bt.N;
-  fa.chunk = sc.chunk;
-  fa.n_params = net.n_params;
-  fa.part = sc.part;
-  int tiles = 0, k = 0;
+  std::vector<FTask> t;
+  int tiles = 0;
   for (int l = 0; l < L; ++l)
-    fa.t[k++] = ftask(sc.dz[l], rd.Es[l], net.enc_out[l],
+    t.push_back(ftask(sc.dz[l], rd.Es[l], net.enc_out[l],
                       l ? sc.act[l - 1] : sc.x0, rd.Ks[l], net.enc_in[l],
-                      net.enc_w[l], net.enc_b[l], 0, net.enc_out[l], &tiles);
+                      net.enc_w[l], net.enc_b[l], 0, net.enc_out[l], &tiles));
   // Wi from dp and e; the GRU's bi sums dp.
-  fa.t[k++] = ftask(sc.dp, rd.GHs, GH, sc.act[L - 1], rd.Es[L - 1], net.E,
-                    net.wi, net.lstm ? -1 : net.bi, 0, GH, &tiles);
+  t.push_back(ftask(sc.dp, rd.GHs, GH, sc.act[L - 1], rd.Es[L - 1], net.E,
+                    net.wi, net.lstm ? -1 : net.bi, 0, GH, &tiles));
   // Wh from dx and h_0..h_{T-1}; bh sums dx (the GRU's only its q part).
-  fa.t[k++] = ftask(sc.dx, rd.GHs, GH, sc.hs, H, H, net.wh, net.bh,
-                    net.lstm ? 0 : 2 * H, GH, &tiles);
-  fa.t[k++] = ftask(sc.dout, OST, NHEAD, sc.hs + N * H, H, H, net.head_w,
-                    net.head_b, 0, NHEAD, &tiles);
-  fa.n = k;
+  t.push_back(ftask(sc.dx, rd.GHs, GH, sc.hs, H, H, net.wh, net.bh,
+                    net.lstm ? 0 : 2 * H, GH, &tiles));
+  t.push_back(ftask(sc.dout, OST, NHEAD, sc.hs + N * H, H, H, net.head_w,
+                    net.head_b, 0, NHEAD, &tiles));
   const size_t smem = smem_wgrad();
   cudaError_t e = opt_in(wgrad_tn_kernel<BF>, smem);
   if (e != cudaSuccess) return e;
-  wgrad_tn_kernel<BF><<<dim3(tiles, sc.SF), GNT, smem, stream>>>(fa);
-  return cudaGetLastError();
+  return launch_wgrad<BF>(t, sa.bt.N, sc.chunk, net.n_params, sc.part, sc.SF,
+                          smem, stream);
 }
 
 // Stage B (fwd) or D on the route its weights take (Route): with bf16
@@ -927,16 +1060,32 @@ cudaError_t run_stage(const SeqArgs& sa, Stage st, bool bf16,
               : launch_stage<false>(sa, st, stream);
 }
 
+// The padded params and carry (at a width that is not a multiple of 4),
+// then the weight copies and the observation rows.
 cudaError_t prep(const SeqArgs& sa, cudaStream_t stream) {
-  rnn_prep_kernel<<<1024, 256, 0, stream>>>(sa);
-  return cudaGetLastError();
+  cudaError_t e;
+  if (sa.map.on) {
+    pad_params_kernel<<<256, 256, 0, stream>>>(
+        sa.map, sa.nat_params, sa.sc.pp, sa.nat_h0, sa.nat_c0, sa.sc.ph0,
+        sa.sc.pc0, sa.bt.BA);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  const PadPlan plan = enc_plan(sa);
+  rnn_prep_kernel<<<1024, 256, 0, stream>>>(sa, plan.batch(0));
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return plan.launch_rest(1024, 256, stream);
 }
 
-// Stage F's partials summed in range order into grads, their sums of
-// squares into sc.sq.
+// Stage F's partials summed in range order into grads (at the natural
+// width: through sc.pg and unpad_kernel where the net runs padded), their
+// sums of squares into sc.sq.
 cudaError_t reduce(const SeqArgs& sa, float* grads, cudaStream_t stream) {
   reduce_kernel<<<(unsigned)sa.sc.n_sq, RED, 0, stream>>>(
-      sa.sc.part, sa.sc.SF, sa.net.n_params, grads, sa.sc.sq);
+      sa.sc.part, sa.sc.SF, sa.net.n_params, sa.map.on ? sa.sc.pg : grads,
+      sa.sc.sq);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !sa.map.on) return e;
+  unpad_kernel<<<256, 256, 0, stream>>>(sa.map, sa.sc.pg, grads);
   return cudaGetLastError();
 }
 
@@ -953,8 +1102,9 @@ int make_grads_args(int n_enc, const int* dims, int H, int lstm, int T,
                     const unsigned char* mask, const float* h0,
                     const float* c0, const float* params, const float* scal,
                     float clip_eps, float clip_lo, float clip_hi,
-                    float value_coef, float inv_n, float* work, SeqArgs* sa) {
-  if (!make_seq(n_enc, dims, H, lstm, T, B, A, M, mb, obs, sa) ||
+                    float value_coef, float inv_n, float* work, SeqArgs* sa,
+                    RnnTables* tb) {
+  if (!make_seq(n_enc, dims, H, lstm, T, B, A, M, mb, obs, sa, tb) ||
       (lstm && !c0))
     return (int)cudaErrorInvalidValue;
   sa->bt.action = action;
@@ -963,12 +1113,16 @@ int make_grads_args(int n_enc, const int* dims, int H, int lstm, int T,
   sa->bt.adv = adv;
   sa->bt.target = target;
   sa->bt.mask = mask;
-  carve_rnn(sa->net, sa->rd, T, sa->bt.nb, work, &sa->sc);
+  carve(sa, work, tb);
   sa->c = Coefs{clip_eps, clip_lo, clip_hi, value_coef, inv_n};
-  sa->params = params;
+  sa->nat_params = params;
+  sa->nat_h0 = h0;
+  sa->nat_c0 = lstm ? c0 : nullptr;
+  const bool pad = sa->map.on;
+  sa->params = pad ? sa->sc.pp : params;
+  sa->h0 = pad ? sa->sc.ph0 : h0;
+  sa->c0 = pad ? sa->sc.pc0 : c0;
   sa->scal = scal;
-  sa->h0 = h0;
-  sa->c0 = c0;
   return 0;
 }
 
@@ -979,8 +1133,10 @@ int make_grads_args(int n_enc, const int* dims, int H, int lstm, int T,
 extern "C" long wh_rnn_sgd_smem_bytes(int n_enc, const int* dims, int H,
                                       int lstm) {
   RnnNet net;
-  if (!make_rnn_net(n_enc, dims, H, lstm, &net)) return 0;
-  return (long)rnn_smem(net, make_rdims(net));
+  RnnTables tb;
+  if (H <= 0 || !make_rnn_net(n_enc, dims, rup(H, 4), lstm, &net, &tb))
+    return 0;
+  return (long)rnn_smem(net, make_rdims(net, &tb));
 }
 
 // Floats of scratch the entry points below share, or 0 for an unsupported
@@ -989,32 +1145,39 @@ extern "C" long wh_rnn_sgd_workspace_floats(int n_enc, const int* dims, int H,
                                             int lstm, int T, long B, int A,
                                             int M) {
   SeqArgs sa;
-  if (!make_seq(n_enc, dims, H, lstm, T, B, A, M, 0, nullptr, &sa)) return 0;
-  return carve_rnn(sa.net, sa.rd, T, sa.bt.nb, nullptr, &sa.sc);
+  RnnTables tb;
+  if (!make_seq(n_enc, dims, H, lstm, T, B, A, M, 0, nullptr, &sa, &tb))
+    return 0;
+  return carve(&sa, nullptr, &tb);
 }
 
-// Where the stages' rows lie in the workspace: out[0, 15) = float offsets
-// of x0, act0..act2, gi, hs, cs, gates, dout, dhead, dp, dx, dz0..dz2 (-1
-// where the net has none), out[15, 20) = the row strides Xs, Es0..Es2, GHs.
+// Where the stages' rows lie in the workspace, 12 + 3 n_enc longs: out[0,
+// 9) = the float offsets of x0, gi, hs, cs, gates, dout, dhead, dp, dx (-1
+// where the net has none), out[9, 12) = the row stride Xs of x0, GHs of dp
+// and dx, and the padded width Hq (H rounded up to 4: the row stride of
+// hs, cs and dhead, the stride of a gate's block in gi, gates, dp and dx);
+// then per encoder layer l, out[12 + 3 l, 15 + 3 l) = the offsets of act_l
+// and dz_l and their row stride Es_l.
 extern "C" int wh_rnn_sgd_layout(int n_enc, const int* dims, int H, int lstm,
                                  int T, long B, int A, int M, long* out) {
   SeqArgs sa;
-  if (!make_seq(n_enc, dims, H, lstm, T, B, A, M, 0, nullptr, &sa))
+  RnnTables tb;
+  if (!make_seq(n_enc, dims, H, lstm, T, B, A, M, 0, nullptr, &sa, &tb))
     return (int)cudaErrorInvalidValue;
   float* base = reinterpret_cast<float*>(256);  // offsets from a fake base
-  carve_rnn(sa.net, sa.rd, T, sa.bt.nb, base, &sa.sc);
+  carve(&sa, base, &tb);
   const RnnScratch& sc = sa.sc;
-  const float* ptrs[15] = {sc.x0,    nullptr,  nullptr, nullptr, sc.gi,
-                           sc.hs,    sc.cs,    sc.gates, sc.dout, sc.dhead,
-                           sc.dp,    sc.dx,    nullptr, nullptr, nullptr};
+  const float* ptrs[9] = {sc.x0,   sc.gi,    sc.hs, sc.cs, sc.gates,
+                          sc.dout, sc.dhead, sc.dp, sc.dx};
+  for (int i = 0; i < 9; ++i) out[i] = ptrs[i] ? (long)(ptrs[i] - base) : -1;
+  out[9] = sa.rd.Xs;
+  out[10] = sa.rd.GHs;
+  out[11] = sa.net.H;
   for (int l = 0; l < n_enc; ++l) {
-    ptrs[1 + l] = sc.act[l];
-    ptrs[12 + l] = sc.dz[l];
+    out[12 + 3 * l] = sc.act[l] - base;
+    out[13 + 3 * l] = sc.dz[l] - base;
+    out[14 + 3 * l] = sa.rd.Es[l];
   }
-  for (int i = 0; i < 15; ++i) out[i] = ptrs[i] ? (long)(ptrs[i] - base) : -1;
-  out[15] = sa.rd.Xs;
-  for (int l = 0; l < MAXE; ++l) out[16 + l] = l < n_enc ? sa.rd.Es[l] : 0;
-  out[19] = sa.rd.GHs;
   return 0;
 }
 
@@ -1033,10 +1196,11 @@ extern "C" int wh_rnn_sgd_grads(
     float clip_hi, float value_coef, float inv_n, float* work, float* grads,
     float* sums, int bf16, void* stream_) {
   SeqArgs sa;
+  RnnTables tb;
   int err = make_grads_args(n_enc, dims, H, lstm, T, B, A, M, mb, obs, action,
                             old_lp, old_v, adv, target, mask, h0, c0, params,
                             scal, clip_eps, clip_lo, clip_hi, value_coef,
-                            inv_n, work, &sa);
+                            inv_n, work, &sa, &tb);
   if (err) return err;
   cudaStream_t stream = (cudaStream_t)stream_;
   cudaError_t e = prep(sa, stream);
@@ -1063,10 +1227,11 @@ extern "C" int wh_rnn_sgd_stage(
     float* grads, float* sums, int bf16, void* stream_) {
   if (stage < ENC_FWD || stage > WGRAD) return (int)cudaErrorInvalidValue;
   SeqArgs sa;
+  RnnTables tb;
   int err = make_grads_args(n_enc, dims, H, lstm, T, B, A, M, mb, obs, action,
                             old_lp, old_v, adv, target, mask, h0, c0, params,
                             scal, clip_eps, clip_lo, clip_hi, value_coef,
-                            inv_n, work, &sa);
+                            inv_n, work, &sa, &tb);
   if (err) return err;
   cudaStream_t stream = (cudaStream_t)stream_;
   cudaError_t e = prep(sa, stream);
@@ -1086,10 +1251,14 @@ extern "C" int wh_rnn_sgd_clip_adam(
     float max_grad_norm, float b1, float one_m_b1, float b2, float one_m_b2,
     float eps, float* work, void* stream_) {
   SeqArgs sa;
-  if (!make_seq(n_enc, dims, H, lstm, T, B, A, M, 0, nullptr, &sa) || step < 0)
+  RnnTables tb;
+  if (!make_seq(n_enc, dims, H, lstm, T, B, A, M, 0, nullptr, &sa, &tb) ||
+      step < 0)
     return (int)cudaErrorInvalidValue;
-  carve_rnn(sa.net, sa.rd, T, sa.bt.nb, work, &sa.sc);
-  const AdamArgs p = {sa.net.n_params, sa.sc.n_sq, grads, sa.sc.sq, params, m,
+  carve(&sa, work, &tb);
+  // The natural vector; the sums of squares are the padded gradient's,
+  // whose pad entries are zeros.
+  const AdamArgs p = {sa.map.n_nat, sa.sc.n_sq, grads, sa.sc.sq, params, m,
                       v, lr_row, bc1_row, bc2_row, step, max_grad_norm, b1,
                       one_m_b1, b2, one_m_b2, eps};
   adam_kernel<<<(unsigned)((p.n + FNT - 1) / FNT), FNT, 0,

@@ -89,10 +89,11 @@ long n_traces(const VtArgs& va) { return (va.tj.nb + VNT - 1) / VNT; }
 
 // ---- prep: the padded weight copies, the sample and last-obs rows --------
 
-__global__ void vt_prep_kernel(VtArgs p) {
+// The first MAXJ weight copies (prep_plan), the sample and last-obs rows.
+__global__ void vt_prep_kernel(VtArgs p, PadJobs pj) {
   const long i0 = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const long stride = (long)gridDim.x * blockDim.x;
-  prep_weights(p, i0, stride);
+  run_pad_jobs(pj, i0, stride);
   const Traj& tj = p.tj;
   const int D = p.net.D, Xs = p.sd.Xs, lane = threadIdx.x & 31;
   const long warps = stride / 32;
@@ -106,15 +107,13 @@ __global__ void vt_prep_kernel(VtArgs p) {
 
 __global__ void __launch_bounds__(GNT) vt_head_kernel(VtArgs p) {
   extern __shared__ __align__(16) float smem[];
-  const Net& net = p.net;
-  const int L = net.n_hidden;
-  const Layer& hd = net.L[L];
+  const Layer& hd = p.net.head;
   const int H = hd.in;
   float* hsm = smem;                     // [CB][H + HPAD]
   float* outs = hsm + CB * (H + HPAD);   // [CB][OST]
   const long n0 = (long)blockIdx.x * CB, rows = p.tj.N + p.tj.nb;
   const int nvalid = rows - n0 < CB ? (int)(rows - n0) : CB;
-  load_head_rows(hsm, p.sc.act[L - 1], p.sd.Es[L - 1], H, n0, nvalid);
+  load_head_rows(hsm, p.sc.act_last, p.sd.Es_last, H, n0, nvalid);
   __syncthreads();
   head_fwd_rows<false>(hsm, H, p.params + hd.w_off, p.params + hd.b_off,
                        outs);
@@ -212,22 +211,20 @@ __global__ void __launch_bounds__(VNT) vt_trace_kernel(VtArgs p) {
 
 __global__ void __launch_bounds__(GNT) vt_head_dz_kernel(VtArgs p) {
   extern __shared__ __align__(16) float smem[];
-  const Net& net = p.net;
-  const int L = net.n_hidden;
-  const Layer& hd = net.L[L];
-  const int H = hd.in, Es = p.sd.Es[L - 1];
+  const Layer& hd = p.net.head;
+  const int H = hd.in, Es = p.sd.Es_last;
   float* hsm = smem;                     // [CB][H + HPAD]
   float* outs = hsm + CB * (H + HPAD);   // [CB][OST] the head's deltas
   const long n0 = (long)blockIdx.x * CB;
   const int nvalid = p.tj.N - n0 < CB ? (int)(p.tj.N - n0) : CB;
-  load_head_rows(hsm, p.sc.act[L - 1], Es, H, n0, nvalid);
+  load_head_rows(hsm, p.sc.act_last, Es, H, n0, nvalid);
   for (int i = threadIdx.x; i < CB * OST; i += GNT) {
     const int n = i / OST, r = i % OST;
     outs[i] = n < nvalid && r < NHEAD ? p.sc.dout[n0 * OST + i] : 0.f;
   }
   __syncthreads();
   head_dz_rows<false>(outs, hsm, H, Es, p.params + hd.w_off,
-                      p.sc.dz[L - 1] + n0 * Es, nvalid);
+                      p.sc.dz_last + n0 * Es, nvalid);
 }
 
 // ---- the RMSProp step ----------------------------------------------------
@@ -301,9 +298,13 @@ cudaError_t run_vt_stage(const VtArgs& va, int st, float* grads, float* sums,
           cudaSuccess)
         return e;
       return reduce(va, grads, stream, launched + V_WGRAD);
-    case V_PREP:
-      vt_prep_kernel<<<1024, 256, 0, stream>>>(va);
-      break;
+    case V_PREP: {
+      const PadPlan plan = prep_plan(va);
+      vt_prep_kernel<<<1024, 256, 0, stream>>>(va, plan.batch(0));
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+      ++launched[st];
+      return plan.launch_rest(1024, 256, stream, launched + st);
+    }
     default:
       return cudaErrorInvalidValue;
   }
@@ -313,17 +314,18 @@ cudaError_t run_vt_stage(const VtArgs& va, int st, float* grads, float* sums,
 
 // The net, minibatch mb's rows (one group) and its last-obs rows, the
 // stages' widths, and the scratch laid out from `work` (or only sized, when
-// it is null).
+// it is null); the per-layer tables in *tb.
 bool make_vt_args(int n_hidden, const int* dims, int T, long B, int A, int M,
                   int mb, const float* obs, float* work, VtArgs* va,
-                  long* floats = nullptr) {
-  if (!make_rows(n_hidden, dims, T, B, A, M, mb, obs, &va->net, &va->tj) ||
+                  MlpTables* tb, long* floats = nullptr) {
+  if (!make_rows(n_hidden, dims, T, B, A, M, mb, obs, &va->net, &va->tj,
+                 &tb->L) ||
       !split_groups(va->tj, B / M, 1, nullptr, &va->gs))
     return false;
-  va->sd = make_sdims(va->net);
+  va->sd = make_sdims(va->net, tb);
   va->extra = va->tj.nb;
   const long n = carve_stages(va->net, va->sd, va->gs, va->extra, work,
-                              &va->sc);
+                              &va->sc, tb);
   if (floats) *floats = n;
   return true;
 }
@@ -336,9 +338,10 @@ bool make_vt_args(int n_hidden, const int* dims, int T, long B, int A, int M,
 extern "C" long wh_vtrace_workspace_floats(int n_hidden, const int* dims,
                                            int T, long B, int A, int M) {
   VtArgs va;
+  MlpTables tb;
   long n = 0;
   return make_vt_args(n_hidden, dims, T, B, A, M, 0, nullptr, nullptr, &va,
-                      &n)
+                      &tb, &n)
              ? n
              : 0;
 }
@@ -349,8 +352,9 @@ extern "C" long wh_vtrace_workspace_floats(int n_hidden, const int* dims,
 extern "C" int wh_vtrace_layout(int n_hidden, const int* dims, int T, long B,
                                 int A, int M, long* out) {
   VtArgs va;
+  MlpTables tb;
   float* base = reinterpret_cast<float*>(256);  // offsets from a fake base
-  if (!make_vt_args(n_hidden, dims, T, B, A, M, 0, nullptr, base, &va))
+  if (!make_vt_args(n_hidden, dims, T, B, A, M, 0, nullptr, base, &va, &tb))
     return (int)cudaErrorInvalidValue;
   stage_layout(va, base, out);
   return 0;
@@ -375,10 +379,11 @@ extern "C" int wh_vtrace_grads(
     float value_coef, float inv_n, float* work, float* grads, float* sums,
     long* launched, void* stream_) {
   VtArgs va;
+  MlpTables tb;
   long unused[V_PREP + 1] = {};
   if (!launched) launched = unused;
   if (stage < -1 || stage > V_PREP ||
-      !make_vt_args(n_hidden, dims, T, B, A, M, mb, obs, work, &va))
+      !make_vt_args(n_hidden, dims, T, B, A, M, mb, obs, work, &va, &tb))
     return (int)cudaErrorInvalidValue;
   va.tj.last_obs = last_obs;
   va.tj.action = action;
@@ -410,7 +415,8 @@ extern "C" int wh_vtrace_clip_rms(
     float max_grad_norm, float decay, float one_m_decay, float eps,
     float* work, void* stream_) {
   VtArgs va;
-  if (!make_vt_args(n_hidden, dims, T, B, A, M, 0, nullptr, work, &va) ||
+  MlpTables tb;
+  if (!make_vt_args(n_hidden, dims, T, B, A, M, 0, nullptr, work, &va, &tb) ||
       step < 0)
     return (int)cudaErrorInvalidValue;
   const RmsArgs p = {va.net.n_params, va.sc.n_sq1, grads, va.sc.sq, params,
@@ -430,7 +436,8 @@ extern "C" int wh_vtrace_clip_adam(
     float max_grad_norm, float b1, float one_m_b1, float b2, float one_m_b2,
     float eps, float* work, void* stream_) {
   VtArgs va;
-  if (!make_vt_args(n_hidden, dims, T, B, A, M, 0, nullptr, work, &va) ||
+  MlpTables tb;
+  if (!make_vt_args(n_hidden, dims, T, B, A, M, 0, nullptr, work, &va, &tb) ||
       step < 0)
     return (int)cudaErrorInvalidValue;
   const AdamArgs p = {va.net.n_params, va.sc.n_sq1, grads, va.sc.sq, params,

@@ -37,18 +37,6 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def check_multiple_of_4(kernel: str, widths: dict) -> None:
-    """Raise ``ValueError`` naming ``kernel`` and the first of ``widths``
-    (name -> width) that is not a multiple of 4: the CUDA kernels lay such
-    widths out in float4 lanes and refuse the others on the card (ROADMAP
-    T-6), which the JAX package trains."""
-    for name, w in widths.items():
-        if w % 4:
-            raise ValueError(
-                f"{kernel} takes {name} widths that are multiples of 4 on "
-                f"the card, got {name} {w} (ROADMAP T-6)")
-
-
 @functools.lru_cache(maxsize=None)
 def _map_tables(cfg: EnvConfig, device: torch.device):
     mask = torch.zeros(cfg.num_cells, dtype=torch.uint8)

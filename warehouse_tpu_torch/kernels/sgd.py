@@ -31,9 +31,11 @@ after group, each group's in (time step, env, agent) order:
 ``mlp_minibatch_grads_staged`` composes them into the contract of
 ``ppo_minibatch_grads_reference``; ``mlp_stage`` runs one stage's kernel
 on given input rows (its plain version on a CPU tensor), for the stages'
-checks on the card. Any observation width runs (a global view's 611);
-``check_learner_fits`` raises for a last hidden layer too wide for the
-head stage's 64 rows to fit the card's shared memory.
+checks on the card. Any observation width, hidden width and number of
+hidden layers from 1 runs (a global view's 611); ``check_learner_fits``
+raises for an MLP without hidden layers (the JAX kernel raises too) and
+for a last hidden layer too wide for the head stage's 64 rows to fit the
+card's shared memory.
 
 With ``policy_groups`` (one group id per agent, the JAX wrappers' name)
 ``params`` is a ``MultiPolicyActorCritic``'s dict: sample ``(t, b, a)``
@@ -428,6 +430,18 @@ def _f32(x, dev) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
 
 
+def learner_dims(params, obs_dim: int, what: str) -> list[int]:
+    """``_dims`` for the MLP learner kernels (K3-K6), which take any width
+    and any number of hidden layers from 1: ``ValueError`` naming ``what``
+    for an MLP without hidden layers, before any library call (the JAX
+    kernels raise there too)."""
+    dims = _dims(params, obs_dim)
+    if len(dims) < 2:
+        raise ValueError(f"{what} takes an MLP with at least 1 hidden layer, "
+                         f"got widths {dims}")
+    return dims
+
+
 def check_stage_smem(lib, n_hidden: int, dims_arr, dims, dev, what: str):
     """Raise unless the stage kernels' shared memory for these widths
     (``wh_sgd_stage_smem_bytes``: K3/K4, K5/K6) fits the card."""
@@ -437,7 +451,7 @@ def check_stage_smem(lib, n_hidden: int, dims_arr, dims, dev, what: str):
         raise ValueError(
             f"{what} needs {smem} bytes of shared memory per block for "
             f"widths {dims} (64 rows of the last hidden layer in the head "
-            f"stage; 1 to 4 hidden layers); the card allows {limit}")
+            f"stage; at least 1 hidden layer); the card allows {limit}")
 
 
 MAX_GROUP_AGENTS = 16  # agents of a grouped batch (mlp_learner.cuh MAXK)
@@ -463,19 +477,26 @@ def check_learner_fits(params, obs_dim: int, dev,
     these params (a multi-policy dict's groups too) on observations
     ``obs_dim`` wide on the CUDA device ``dev``. A trainer calls it when it
     is built."""
-    dims = _dims(params, obs_dim)
+    dims = learner_dims(params, obs_dim, what)
     check_stage_smem(build.library(), len(dims) - 1, build.int_array(dims),
                      dims, dev, what)
 
 
+def layout_slots(dims) -> int:
+    """Slots of the MLP learners' ``*_layout`` entry points: x0's and
+    dout's offsets and x0's row stride, then each hidden layer's act and dz
+    offsets and row stride."""
+    return 3 + 3 * (len(dims) - 1)
+
+
 def stage_views(work, layout, dims, n: int, n_fwd: int | None = None) -> dict:
     """The MLP learner stages' rows in the workspace ``work`` as views at
-    their natural widths, from a C ``*_layout`` entry point's 15 slots
-    ``layout`` (the offsets of x0, act0..act3, dz0..dz3 and dout, then the
-    row strides Xs, Es0..Es3): ``act{i}`` over ``n_fwd`` rows (default
-    ``n``), ``dz{i}`` and ``dout`` over ``n``, and where ``n_fwd > n`` also
-    ``out``, dout's buffer over ``n_fwd`` rows. The buffers' pad columns (to
-    multiples of 32; dout's to 8) lie beyond each view."""
+    their natural widths, from a C ``*_layout`` entry point's
+    ``layout_slots`` slots ``layout`` (``mlp_stages.cuh`` ``stage_layout``):
+    ``act{i}`` over ``n_fwd`` rows (default ``n``), ``dz{i}`` and ``dout``
+    over ``n``, and where ``n_fwd > n`` also ``out``, dout's buffer over
+    ``n_fwd`` rows. The buffers' pad columns (to multiples of 32; dout's to
+    8) lie beyond each view."""
     n_fwd = n if n_fwd is None else n_fwd
 
     def view(off, rows, ld, w):
@@ -483,11 +504,12 @@ def stage_views(work, layout, dims, n: int, n_fwd: int | None = None) -> dict:
 
     views = {}
     for i, e in enumerate(dims[1:]):
-        views[f"act{i}"] = view(layout[1 + i], n_fwd, layout[11 + i], e)
-        views[f"dz{i}"] = view(layout[5 + i], n, layout[11 + i], e)
-    views["dout"] = view(layout[9], n, 8, 6)
+        act, dz, ld = layout[3 + 3 * i:6 + 3 * i]
+        views[f"act{i}"] = view(act, n_fwd, ld, e)
+        views[f"dz{i}"] = view(dz, n, ld, e)
+    views["dout"] = view(layout[1], n, 8, 6)
     if n_fwd > n:
-        views["out"] = view(layout[9], n_fwd, 8, 6)
+        views["out"] = view(layout[1], n_fwd, 8, 6)
     return views
 
 
@@ -603,7 +625,7 @@ class MlpLaunch(TrajLaunch):
     def rows(self) -> dict:
         """The stages' rows in the workspace, as views at their natural
         widths (``plain_stage_chain``'s names and shapes)."""
-        out = (build.L * 15)()
+        out = (build.L * layout_slots(self.dims))()
         build.check(self.lib.wh_sgd_layout(*self.shape, out), "wh_sgd_layout")
         return stage_views(self.work, out, self.dims, self.mb_n)
 

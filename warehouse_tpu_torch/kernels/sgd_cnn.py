@@ -57,7 +57,6 @@ from ..ops.ppo_update import NEG_INF, ppo_losses
 from ..optim import AdamState
 from . import build
 from .act import cnn_kernel_dims, pack_cnn, unpack_cnn
-from .rollout import check_multiple_of_4
 from .sgd import (TrajLaunch, _device_of, _losses, check_matmul_dtype,
                   env_minibatches, minibatch_grads_on_card,
                   ppo_minibatch_grads_reference, ppo_sgd_phase_reference,
@@ -279,8 +278,6 @@ def check_cnn_learner_fits(params, obs_dim: int, dev) -> tuple:
     trainer calls it when it is built."""
     _check_cnn(params)
     net = cnn_kernel_dims(params, obs_dim)
-    check_multiple_of_4("K11/K12", {"conv 0": net[2], "conv 1": net[3],
-                                    "hidden": net[4]})
     smem = build.library().wh_cnn_sgd_smem_bytes(*net)
     if smem == 0:
         raise ValueError(

@@ -58,8 +58,8 @@ from ..models.policy import apply_rnn, bf16_round, num_encoder
 from ..ops.ppo_update import NEG_INF, minibatch_epochs, ppo_losses
 from ..optim import AdamState, adam_update_fn
 from . import build
-from .act_rnn import (GATE_ORDER, pack_rnn, rnn_kernel_dims,
-                      split_carry, unpack_rnn)
+from .act_rnn import (GATE_ORDER, pack_rnn, rnn_dims, split_carry,
+                      unpack_rnn)
 from .sgd import (TrajLaunch, _device_of, _head_w, _losses, _rounder,
                   check_matmul_dtype, env_minibatches,
                   minibatch_grads_on_card, operand_precision,
@@ -435,9 +435,11 @@ def rnn_minibatch_grads_staged(params, traj, adv_n, targets, h0, mb_idx: int,
 
 def check_rnn_learner_fits(params, obs_dim: int, dev):
     """K8 / K9's ``(dims, H, lstm)`` for ``params`` on observations
-    ``obs_dim`` wide; raises ``ValueError`` for a width (before any library
-    call) or a shared-memory need the kernels do not take."""
-    dims, H, lstm = rnn_kernel_dims("K8/K9", params, obs_dim)
+    ``obs_dim`` wide; raises ``ValueError`` for params that do not fit the
+    observation (before any library call) or a shared-memory need the
+    kernels do not take. Any hidden and encoder width and any number of
+    encoder layers."""
+    dims, H, lstm = rnn_dims(params, obs_dim)
     smem = build.library().wh_rnn_sgd_smem_bytes(
         len(dims) - 1, build.int_array(dims), H, int(lstm))
     limit = build.smem_limit(dev, smem)
@@ -503,32 +505,39 @@ class RnnLaunch(TrajLaunch):
         ppo_rnn_sgd_phase.bf16_launches += self.bf16
 
     def rows(self) -> dict:
-        """The stages' rows in the workspace, as views at their natural
-        widths (``plain_stage_chain``'s names and shapes); the buffers'
-        pad columns (to multiples of 32) lie beyond each view."""
-        out = (build.L * 20)()
+        """The stages' rows in the workspace, as views ``[rows, blocks,
+        width]`` at their natural widths: one block for most, a block per
+        gate for ``gi``, ``gates``, ``dp`` and ``dx`` (``plain_stage_chain``'s
+        ``[rows, blocks * width]`` once flattened). The stages run at H
+        rounded up to 4 (``csrc/sgd_rnn.cu``): each gate's block is that
+        many columns apart, and the buffers' pad columns lie beyond each
+        view."""
+        dims, H, lstm = self.widths
+        out = (build.L * (12 + 3 * (len(dims) - 1)))()
         build.check(self.lib.wh_rnn_sgd_layout(*self.shape, out),
                     "wh_rnn_sgd_layout")
-        dims, H, lstm = self.widths
         G = 4 if lstm else 3
         TN = self.mb_n
         N = TN // self.tbam[0]
-        names = ["act0", "act1", "act2", "gi", "hs", "cs", "gates", "dout",
-                 "dhead", "dp", "dx", "dz0", "dz1", "dz2"]
-        # (rows, row stride, width) per name
-        shape = {"gi": (TN, G * H, G * H), "hs": (TN + N, H, H),
-                 "cs": (TN + N, H, H), "gates": (TN, 4 * H, 4 * H),
-                 "dout": (TN, 8, 6), "dhead": (TN, H, H),
-                 "dp": (TN, out[19], G * H), "dx": (TN, out[19], G * H)}
+        Hq = out[11]
+        # name -> (offset, rows, row stride, blocks, block stride, width)
+        shape = {"gi": (out[1], TN, G * Hq, G, Hq, H),
+                 "hs": (out[2], TN + N, Hq, 1, Hq, H),
+                 "cs": (out[3], TN + N, Hq, 1, Hq, H),
+                 "gates": (out[4], TN, 4 * Hq, 4, Hq, H),
+                 "dout": (out[5], TN, 8, 1, 8, 6),
+                 "dhead": (out[6], TN, Hq, 1, Hq, H),
+                 "dp": (out[7], TN, out[10], G, Hq, H),
+                 "dx": (out[8], TN, out[10], G, Hq, H)}
         for i, e in enumerate(dims[1:]):
-            shape[f"act{i}"] = shape[f"dz{i}"] = (TN, out[16 + i], e)
+            act, dz, ld = out[12 + 3 * i:15 + 3 * i]
+            shape[f"act{i}"] = (act, TN, ld, 1, ld, e)
+            shape[f"dz{i}"] = (dz, TN, ld, 1, ld, e)
         views = {}
-        for i, k in enumerate(names):
-            if out[1 + i] < 0:
-                continue
-            n, ld, w = shape[k]
-            views[k] = self.work[out[1 + i]:out[1 + i] + n * ld].view(
-                n, ld)[:, :w]
+        for k, (off, n, ld, blocks, bs, w) in shape.items():
+            if off >= 0:
+                views[k] = self.work[off:off + n * ld].view(n, ld)[
+                    :, :blocks * bs].view(n, blocks, bs)[:, :, :w]
         return views
 
     def fill(self, inputs: dict) -> None:
@@ -540,7 +549,7 @@ class RnnLaunch(TrajLaunch):
                 (views[k].shape[0], views[k].stride(0)),
                 (views[k].stride(0), 1))
             full.zero_()
-            views[k].copy_(v)
+            views[k].copy_(v.reshape(views[k].shape))
 
     def launch_stage(self, stage: str, p_flat, mb: int, grads, sums) -> None:
         """One stage's kernels (after the weight copies and the observation
@@ -585,7 +594,8 @@ def rnn_stage(stage: str, params, traj, adv_n, targets, h0, mb_idx: int,
              "rec_fwd": ["hs", "gates"] + (["cs"] if "cs" in views else []),
              "head_loss": ["dout", "dhead"], "rec_bwd": ["dp", "dx"],
              "enc_bwd": [k for k in views if k.startswith("dz")]}[stage]
-    out = {k: views[k].clone() for k in names}
+    out = {k: views[k].clone().reshape(views[k].shape[0], -1)
+           for k in names}
     if stage == "head_loss":
         out["losses"] = _losses(sums, run.mb_n, value_coef, ent_coef,
                                 kl_coeff)

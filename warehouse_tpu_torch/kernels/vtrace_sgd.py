@@ -63,7 +63,8 @@ from ..ops.vtrace import vtrace
 from ..optim import (RMS_DECAY, RMS_EPS, AdamState, RMSState,
                      adam_update_fn, rms_update_fn)
 from . import build, sgd
-from .sgd import _device_of, _dims, _f32, check_stage_smem, pack, unpack
+from .sgd import (_device_of, _dims, _f32, check_stage_smem, learner_dims,
+                  pack, unpack)
 
 N_ACT = 5
 VT_STAGES = ("fwd", "head", "trace", "dgrad", "wgrad")
@@ -74,7 +75,7 @@ def check_impala_fits(params, obs_dim: int, dev) -> None:
     these params on observations ``obs_dim`` wide on the CUDA device
     ``dev``: the head stage's 64 rows of the last hidden layer in shared
     memory. The trainer calls it when it is built."""
-    dims = _dims(params, obs_dim)
+    dims = learner_dims(params, obs_dim, "IMPALA learner kernel")
     check_stage_smem(build.library(), len(dims) - 1, build.int_array(dims),
                      dims, dev, "IMPALA learner kernel")
 
@@ -361,7 +362,7 @@ class _Launch:
         and ``out`` over the N samples and the nb last-obs rows, ``dz`` and
         ``dout`` over the samples (``dout`` the first N rows of ``out``'s
         buffer)."""
-        out = (build.L * 15)()
+        out = (build.L * sgd.layout_slots(self.dims))()
         build.check(self.lib.wh_vtrace_layout(*self.shape, out),
                     "wh_vtrace_layout")
         return sgd.stage_views(self.work, out, self.dims, self.mb_n,

@@ -29,9 +29,9 @@ One update, draw for draw as the JAX trainer with, per phase, its kernel
 ``ImpalaTrainer.backends`` names each phase's route as the PPO trainer's
 does (``train.ppo.make_backends``). Routes follow from the configuration
 alone. On a CUDA device the kernels run and a build or launch failure
-raises, and a width the kernels of the arch refuse (ROADMAP T-6) or a cap
-that stays (T-7) is refused by name whatever the route; on the CPU the kernels'
-phases are plain. ``ImpalaTrainer.plain_step`` is the same update through
+raises, and a cap that stays (the shared memory a width needs, T-7) is
+refused by name whatever the route; on the CPU the kernels' phases are
+plain. ``ImpalaTrainer.plain_step`` is the same update through
 the plain twins on any device.
 
 Ported: the MLP, CNN and attention policies (one shared policy), float32

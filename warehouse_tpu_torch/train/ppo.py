@@ -64,12 +64,13 @@ anneal, adaptive KL, truncation bootstrap, lr anneal, action masking (the
 invalid moves floored, the loss re-applies the mask), potential shaping
 (GAE reads the shaped reward, the ``reward_per_step`` metric the raw
 one), global observations (the acting kernels build the global view, the
-learners read the wider observation). On the card ``make_train`` raises
-``ValueError`` for model widths the kernels of an MLP or CNN policy
-cannot hold (ROADMAP T-6) and for the caps that stay (ROADMAP T-7: more
-than 128 agents, a grouped learner over more than 16 agents), whichever
-route, before any launch; an env's (agents, queue) pair outside the
-presets builds its env kernels at first use (``kernels.build``). The
+learners read the wider observation). The kernels take any model width
+and any number of hidden layers; on the card ``make_train`` raises
+``ValueError`` for what they cannot hold (the shared memory a width needs,
+and ROADMAP T-7: more than 128 agents, a grouped learner over more than 16
+agents), whichever route, before any launch; an env's (agents, queue) pair
+outside the presets builds its env kernels at first use
+(``kernels.build``). The
 TPU block knobs (``pallas_block``, ``pallas_interpret``,
 ``sgd_block_envs``, ``sgd_rows_per_block``) have no counterpart and are
 ignored; ``rollout_backend``/``grad_backend="xla"`` raises.
@@ -583,12 +584,12 @@ def check_kernel_fits(cfg: EnvConfig, model, device, arch: str,
                       grad_kernel: bool) -> None:
     """On the card, refuse by name what the kernels of an MLP or CNN
     policy cannot hold, whichever route a phase takes: more agents than an
-    env stage takes (``build.check_pair``, T-7) and widths the kernels
-    refuse (T-6), so that no such shape runs plain unseen; then what each
-    phase's kernel, where it runs, cannot hold (K10's and the learners'
-    shared memory, K3 / K4's group map; K2 has no such limit). A CNN acting
-    per step has its pair and widths checked alone. The attention torso
-    has no kernel: nothing to refuse."""
+    env stage takes (``build.check_pair``, T-7), so that no such shape runs
+    plain unseen; then what each phase's kernel, where it runs, cannot hold
+    (K10's and the learners' shared memory, K3 / K4's group map; K2 has no
+    such limit). Any width and depth passes the shape checks. A CNN acting
+    per step has its pair and grid checked alone. The attention torso has
+    no kernel: nothing to refuse."""
     if arch == "cnn" and not act_kernel:
         check_cnn_widths(cfg, model, policy_groups)
     elif arch in ("mlp", "cnn"):

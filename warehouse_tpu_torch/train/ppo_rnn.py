@@ -37,9 +37,10 @@ XLA route (acting :288-332; learning :364-440):
 ``PPORNNTrainer.backends`` names each phase's route as the PPO trainer's
 does (``train.ppo.make_backends``: ``"step"`` for the per-step acting).
 Routes follow from the configuration alone. On a CUDA device the kernels
-run and a build or launch failure raises, and a width K7 / K8 refuse
-(ROADMAP T-6) or more agents than an env stage takes (T-7) is refused by
-name whatever the route; on the CPU the kernels' phases are plain. ``plain_step`` is the
+run and a build or launch failure raises, and K8's shared memory or more
+agents than an env stage takes (T-7) is refused by name whatever the
+route (any hidden and encoder width and depth passes); on the CPU the
+kernels' phases are plain. ``plain_step`` is the
 same update through the plain twins on any device.
 
 Ported: one shared policy, ``epoch_shuffle`` "once" and "each",
