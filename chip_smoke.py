@@ -342,17 +342,26 @@ and
    and on it, at config 4 from ``PRNGKey(0)``, 3 meshed updates each of PPO
    (K2 + K4), the CNN (K10 + K12), the GRU (K7 + K9) and IMPALA with Adam
    (K2 + K6): each update's grads-kernel launches and all-reduces equal to
-   epochs x minibatches (IMPALA: passes x minibatches), its split into
-   acting, the grads kernel, the all-reduce and the clip + optimizer step
-   by CUDA events, and the same update through ``plain_step`` from the
-   same state: env state bit-equal, metrics within STEP_METRIC_TOL, params
-   within the learner's tolerance;
+   epochs x minibatches (IMPALA: passes x minibatches), each followed by
+   the sums-of-squares kernel on the averaged gradient (``grad_sumsq``),
+   its split into acting, the grads kernel, the all-reduce and the clip +
+   optimizer step by CUDA events, and the same update through
+   ``plain_step`` from the same state: env state bit-equal, metrics within
+   STEP_METRIC_TOL, params within the learner's tolerance;
 45. ``mesh_two_ranks`` (main path): two spawned processes sharing the card
    in a gloo group (NCCL refuses two ranks on one device), PPO at config 4
    with 2048 envs a rank, 3 updates, ``assert_replicated_in_sync`` on the
    params and Adam state after each; rank 0's metrics, deliveries per
    env-step finite and positive; the ranks' launch counts added to the
-   main path's.
+   main path's;
+   ``mesh_clip_ranks`` (main path; ROADMAP F-10): two such ranks at config
+   4 with 1024 envs a rank and ``max_grad_norm = 1e-3``, where every step
+   clips: one meshed update each of PPO (K4, K3), the GRU (K9, K8), the
+   CNN (K12, K11) and IMPALA with Adam and RMSProp (K6, K5), the ranks
+   bit-identical and each within its learner's bound of the plain twins'
+   world-2 update (which clip by the averaged gradient's norm), each
+   step's averaged norm printed beside each rank's own
+   (``tools/torch_mesh_clip.py``, which runs it on a parent commit too).
    Then the wall seconds of items 39-45 and their share of the script's.
 46. ``pair_checks``: the env kernels at the pairs outside the presets
    (ROADMAP T-5), each from its pair's library: K1 at (6, 8) on medium (B =
@@ -403,14 +412,35 @@ and
    ``impala_deep8_train`` (Adam: K2, K5 / K6), ``gru_deep_train`` (4
    encoder layers: K7, K8 / K9) and ``mesh_shapes_train`` (one world-1
    meshed update each of the GRU at hidden 50, K9, and of PPO at 5 layers,
-   K4, against the plain twins').
+   K4, against the plain twins');
+50. ``sumsq_check`` (run with the checks): the sums-of-squares kernel
+   (``sgd.grad_sumsq``, ``csrc/mlp_learner.cuh`` ``sumsq_kernel``) after
+   each learner's grads kernel on one config-4 minibatch: K3 with and
+   without the groups ``(0, 1, 0, 1)``, K5, K11 (conv blocks, then dense),
+   K8 (GRU) at hidden 128 and 50 (the net padded to 52), into a buffer and
+   into the workspace, bit-equal to ``reduce_kernel``'s sums and to the
+   plain version; K3's case timed beside the plain version and
+   ``torch.linalg.vector_norm``;
+51. the population axis (ROADMAP M-8b), after ``pop_references`` (the
+   sweep below and PBT in turn in this process; PBT's rows are item 43's):
+   ``pop_sweep_ranks`` (main path): two spawned gloo ranks,
+   ``make_pop_mesh(2)`` as ``seed_mesh``: ``run_trial`` and ``run_asha``
+   (rungs 2, 4) with 4 seeds at 256 envs, T = 16, a slice's 2 seeds on
+   each rank through K2 and K3 / K4, every seed's metrics on every rank
+   and the ASHA rows bit-equal to the in-turn sweep's; ``pop_pbt_ranks``
+   (main path; no kernel may launch): ``run_pbt`` (4 members, interval 3,
+   2 intervals, 256 envs) on two ranks at pop 2, data 1, its rows
+   bit-equal to item 43's, then on four ranks at pop 2, data 2: each
+   member's params and Adam state in sync on its slice after every
+   update, each replaced member equal shard by shard to its source, the
+   rows equal on the ranks and every score finite.
 
 Every main path but ``shelves_cnn_groups_train``, ``rllib_cadence_train``,
 ``cnn_per_agent_train`` and ``cnn_global_groups_train`` (acting kernel,
 plain learner), the per-step paths of item 38 (``{"rollout": "step",
 ...}``) and PBT reports ``backends`` ``{"rollout": "cuda", "grad":
 "cuda"}``. The checks (1-6, 11, 12, 14, 15, 17, 20, 24, 26, 29, 30, 35-37,
-39-41) run before the main paths.
+39-41, 48, 50) run before the main paths.
 
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit. The kernels' launch counts are zeroed just before each
@@ -426,15 +456,17 @@ twice that (adds also issue on the FMA pipe), whichever is larger
 cores' 989 TFLOP/s, or for K7's cell stage three times its operations
 over their 495 TF32 TFLOP/s, with ``cuda_core_bound_ms`` at 67 TFLOP/s
 beside it; ``library_ms`` where one PyTorch call computes the same
-function, K7's cell stage's ``torch.nn.GRUCell``, else null), the card's
+function, K7's cell stage's ``torch.nn.GRUCell``, ``grad_sumsq``'s
+``torch.linalg.vector_norm``, else null), the card's
 name and power limit from ``nvidia-smi``, and the device line.
 There is no CPU path: without a CUDA device the script exits non-zero.
 
 ``python3 chip_smoke.py --profile-rnn`` (``--profile-cnn``) runs, instead
 of all this, a ``torch.profiler`` trace of 3 recurrent updates per cell (3
 CNN updates) and prints the device time per update by kernel name;
-``--mesh`` runs items 44-45 alone, ``--pairs`` items 46-47 (after the
-build); ``--mesh-cards``, on a machine with
+``--mesh`` runs items 44-45 alone, ``--pairs`` items 46-47, ``--pop``
+items 50, 51 and ``mesh_clip_ranks`` (after the build); ``--mesh-cards``,
+on a machine with
 several cards, runs PPO at config 4 with 4096 envs a rank on a world-1
 NCCL group, on one NCCL rank per card, and on one rank per card with one
 intra-op thread each, the ranks in sync after every update, and prints
@@ -4126,7 +4158,7 @@ def expected_explore(scores, lrs, ents, space, gen, quantile, resample_prob,
 
 
 @timed_phase("pbt")
-def pbt_phase(dev, cfg):
+def pbt_phase(dev, cfg, out=None):
     """``run_pbt`` with a population of 4, perturb interval 3, 2 intervals
     at 256 envs (plain on the card, as the JAX PBT reaches no kernel): after
     each exploit every replaced member's params and Adam moments equal its
@@ -4137,12 +4169,12 @@ def pbt_phase(dev, cfg):
     exploit = pbt.exploit_explore
 
     def checked(members, scores, lrs, ents, space, rng_np, quantile,
-                resample_prob, sign):
+                resample_prob, sign, mesh=None):
         replay = np.random.default_rng()
         replay.bit_generator.state = rng_np.bit_generator.state
         out, src, bottom, new_lrs, new_ents = exploit(
             members, scores, lrs, ents, space, rng_np, quantile,
-            resample_prob, sign)
+            resample_prob, sign, mesh)
         w_src, w_bottom, w_lrs, w_ents, how = expected_explore(
             scores, lrs, ents, space, replay, quantile, resample_prob, sign)
         require(np.array_equal(src, w_src)
@@ -4167,14 +4199,10 @@ def pbt_phase(dev, cfg):
                          "ent_to": float(new_ents[i]), "how": how[int(i)]})
         return out, src, bottom, new_lrs, new_ents
 
-    tcfg = TrainConfig(num_envs=SWEEP_B, unroll_length=SLICE_T)
     pbt.exploit_explore = checked
     try:
         t0 = time.perf_counter()
-        res = pbt.run_pbt(cfg, tcfg, PBT_SPACE,
-                          population_size=PBT_POPULATION,
-                          perturb_interval=PBT_INTERVAL,
-                          num_intervals=PBT_INTERVALS, device=dev)
+        res = pbt_run(dev, cfg)
         wall = time.perf_counter() - t0
     finally:
         pbt.exploit_explore = exploit
@@ -4185,6 +4213,8 @@ def pbt_phase(dev, cfg):
           "population": PBT_POPULATION, "interval": PBT_INTERVAL,
           "intervals": PBT_INTERVALS, "seconds": wall, "exploits": seen,
           "rows": res.rows})
+    if out is not None:  # pop_pbt_ranks' in-turn reference
+        out["rows"] = res.rows
 
 
 # ---- the data mesh (M-8) ----------------------------------------------------
@@ -4270,11 +4300,13 @@ def mesh_world1_train(dev, paths=None, updates=None,
     IMPALA with Adam (K2 + K6) at config 4 (or ``paths``, MESH_PATHS'
     kind), 3 meshed updates (or ``updates``) from
     ``PRNGKey(0)``: each update's grads-kernel launches (``epochs x
-    minibatches``), its time split into acting, the grads kernel, the
-    all-reduce and the step (CUDA events around each), and the same update
-    through the plain twins from the same state (``plain_step``: the same
-    meshed route, its all-reduce included): env state bit-equal, metrics
-    within STEP_METRIC_TOL, params within the learner's tolerance."""
+    minibatches``, each followed by one all-reduce and one sums-of-squares
+    launch), its time split into acting, the grads kernel, the all-reduce,
+    the sums of squares and the step (CUDA events around each), and the
+    same update through the plain twins from the same state
+    (``plain_step``: the same meshed route, its all-reduce included): env
+    state bit-equal, metrics within STEP_METRIC_TOL, params within the
+    learner's tolerance."""
     paths = MESH_PATHS if paths is None else paths
     updates = MESH_UPDATES if updates is None else updates
     from warehouse_tpu_torch.parallel.distributed import process_group
@@ -4295,7 +4327,8 @@ def mesh_world1_train(dev, paths=None, updates=None,
             rows = []
             with Spans({(launch, "grads"): "grads",
                         (launch, step_name): "step",
-                        (TimedMesh, "mean_"): "all_reduce"}) as spans:
+                        (TimedMesh, "mean_"): "all_reduce",
+                        (sgd.SumsqEntry, "sumsq"): "sumsq"}) as spans:
                 for u in range(updates):
                     n0 = grads.launches
                     marks = Marks()
@@ -4318,6 +4351,8 @@ def mesh_world1_train(dev, paths=None, updates=None,
                            / max(pieces["grads_calls"], 1),
                            "all_reduce_ms": pieces["all_reduce"],
                            "all_reduces": pieces["all_reduce_calls"],
+                           "sumsq_ms": pieces["sumsq"],
+                           "sumsq_calls": pieces["sumsq_calls"],
                            "step_ms": pieces["step"],
                            "twin_env_state_equal": state_equal(
                                nxt.env_state, twin.env_state),
@@ -4328,7 +4363,8 @@ def mesh_world1_train(dev, paths=None, updates=None,
                                float(m["deliveries_per_env_step"])}
                     rows.append(row)
                     require(launched == per_update
-                            and pieces["all_reduce_calls"] == per_update,
+                            and pieces["all_reduce_calls"] == per_update
+                            and pieces["sumsq_calls"] == per_update,
                             f"mesh_world1_train {name}: {launched} grads "
                             f"launches and {pieces['all_reduce_calls']} "
                             f"all-reduces in update {u + 1}, not "
@@ -4348,7 +4384,7 @@ def mesh_world1_train(dev, paths=None, updates=None,
                   "updates": rows,
                   "median_ms": {k: median([r[k] for r in rows]) for k in (
                       "update_ms", "acting_ms", "grads_ms",
-                      "grads_ms_per_minibatch", "all_reduce_ms",
+                      "grads_ms_per_minibatch", "all_reduce_ms", "sumsq_ms",
                       "step_ms")}})
 
 
@@ -4411,9 +4447,7 @@ def mesh_rank(rank: int, world: int, backend: str, envs: int, threads,
                         f"{u + 1} differs from the twins' {row}")
                 rs = nxt
         torch.save({"rank": rank, "rows": rows, "envs": int(rs.obs.shape[0]),
-                    "launches": {k: w.launches for k, w in COUNTED.items()},
-                    "option_launches": {k: getattr(w, c) for k, (w, c)
-                                        in OPTION_COUNTED.items()}}, out)
+                    **launch_counts()}, out)
 
 
 def mesh_rank_entry(rank, world, backend, envs, threads, store, outs):
@@ -4445,11 +4479,7 @@ def mesh_ranks(world: int, backend: str, envs: int, threads=None) -> tuple:
                     proc.kill()
         wall = time.perf_counter() - t0
         res = [torch.load(o, weights_only=False) for o in outs]
-    for k, w in COUNTED.items():
-        w.launches += sum(r["launches"][k] for r in res)
-    for k, (w, c) in OPTION_COUNTED.items():
-        setattr(w, c, getattr(w, c) + sum(r["option_launches"][k]
-                                          for r in res))
+    add_launches(res)
     require(all(r["envs"] == envs for r in res),
             f"mesh_ranks: a rank does not hold its {envs} envs")
     require(all(r["rows"][-1]["loss"] == res[0]["rows"][-1]["loss"]
@@ -4514,6 +4544,389 @@ def mesh_cards():
                   r["deliveries_per_env_step"] for r in res[0]["rows"]]})
 
 
+# ---- F-10: the meshed clip by the averaged gradient ------------------------
+
+# The sums-of-squares kernel's layouts: K3 at config 4 and with groups (a
+# segment a group), K5, K11 (conv blocks, then dense), K8 at config 4 and
+# at hidden 50 (the net padded to 52).
+SUMSQ_CASES = ("k3_config4", "k3_groups", "k5_config4", "k11_config4",
+               "k8_config4", "k8_h50")
+
+
+def sumsq_case(dev, name):
+    """``(launch, packed params)`` of one of SUMSQ_CASES on its config-4
+    trajectory (``sgd_inputs``, ``impala_inputs``, ``rnn_inputs``)."""
+    cfg = medium_config()
+    if name.startswith("k3"):
+        groups = CONFIG4_GROUPS if name == "k3_groups" else None
+        tcfg, _, rs, traj, adv_n, targets, ent = sgd_inputs(dev, cfg,
+                                                            groups=groups)
+        return sgd.MlpLaunch(
+            rs.params, traj, adv_n, targets, ent, rs.kl_coeff,
+            tcfg.num_minibatches, tcfg.clip_eps, tcfg.value_coef,
+            tcfg.mask_actions, policy_groups=groups), sgd.pack(rs.params)
+    if name == "k5_config4":
+        tcfg, params, traj, last_obs, kw = impala_inputs(dev, cfg)
+        return vtrace_sgd._Launch(params, traj, last_obs, tcfg.entropy_coef,
+                                  tcfg.num_minibatches, **kw), sgd.pack(params)
+    if name == "k11_config4":
+        tcfg, _, rs, traj, adv_n, targets, ent = sgd_inputs(
+            dev, cfg, "cnn", CNN_SCHEDULE)
+        return sgd_cnn.CnnLaunch(
+            rs.params, traj, adv_n, targets, ent, rs.kl_coeff,
+            tcfg.num_minibatches, tcfg.clip_eps, tcfg.value_coef,
+            tcfg.mask_actions), act.pack_cnn(rs.params)
+    tcfg, _, rs, traj, adv_n, targets, h0, ent = rnn_inputs(
+        dev, cfg, "gru", shape=SHAPE_H50 if name == "k8_h50" else HIDDEN)
+    return sgd_rnn.RnnLaunch(
+        rs.params, traj, adv_n, targets, h0, ent, rs.kl_coeff,
+        tcfg.num_minibatches, tcfg.clip_eps, tcfg.value_coef,
+        tcfg.mask_actions), act_rnn.pack_rnn(rs.params)
+
+
+def sumsq_run(run, p_flat) -> dict:
+    """Minibatch 1's gradient through ``run``'s grads kernel, then the
+    sums-of-squares kernel on it into a buffer of its own and into the
+    workspace (zeroed first), and the plain version: whether each is
+    bit-equal to the sums the grads kernel left (``reduce_kernel``'s)."""
+    grads = torch.empty_like(p_flat)
+    sums = torch.empty(4, dtype=torch.float32, device=p_flat.device)
+    run.grads(p_flat, 1, grads, sums)
+    left = run.sq_view().clone()
+    own = torch.empty_like(left)
+    sgd.grad_sumsq(grads, run.sq_layout, own)
+    plain = sgd.grad_sumsq_plain(grads, run.sq_layout)
+    run.sq_view().zero_()
+    sgd.grad_sumsq(grads, run.sq_layout)
+    return {"n_params": p_flat.numel(), "sums": left.numel(),
+            "segments": run.sq_layout.segments,
+            "padded": run.sq_layout.pad is not None,
+            "kernel_equal_reduce": bits_equal(own, left),
+            "plain_equal_reduce": plain.shape == left.shape
+            and bits_equal(plain, left),
+            "workspace_equal_reduce": bits_equal(run.sq_view(), left),
+            "grads": grads, "own": own, "plain": plain}
+
+
+@timed_phase("sumsq_check")
+def sumsq_check(dev):
+    """The sums-of-squares kernel (``sgd.grad_sumsq``, F-10) after each
+    learner's grads kernel, in its four layouts (SUMSQ_CASES): on one
+    minibatch's gradient, into a buffer of its own and into the workspace,
+    bit-equal to the sums of squares the grads kernel left there
+    (``reduce_kernel``'s) and to the plain version (``sumsq_run``). K3's
+    config-4 case timed (``timed_after``) beside the plain version and
+    ``torch.linalg.vector_norm`` of the same gradient; its bound n_params x
+    4 bytes read and the sums written at 3.35 TB/s."""
+    rows, res = {}, None
+    for name in SUMSQ_CASES:
+        run, p_flat = sumsq_case(dev, name)
+        out = sumsq_run(run, p_flat)
+        grads, own = out.pop("grads"), out.pop("own")
+        plain = out.pop("plain")
+        rows[name] = out
+        require(all(v for k, v in out.items() if k.endswith("_reduce")),
+                f"sumsq_check {name}: {out}")
+        if name == "k3_config4":
+            n, layout = p_flat.numel(), run.sq_layout
+            ms = timed_after(lambda: None,
+                             lambda: sgd.grad_sumsq(grads, layout, own), 20)
+            plain_ms = timed_after(
+                lambda: None, lambda: sgd.grad_sumsq_plain(grads, layout), 20)
+            lib_ms = timed_after(
+                lambda: None, lambda: torch.linalg.vector_norm(grads), 20)
+            res = (float((own - plain).abs().max()), ms, plain_ms,
+                   bound(4.0 * (n + own.numel()), 2.0 * n), lib_ms)
+            out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=res[3]["bound_ms"])
+        del run, p_flat, grads, own, plain
+    emit({"phase": "sumsq_check", "card": card(), "cases": rows})
+    return res
+
+
+def launch_counts() -> dict:
+    """This process's launch counts: each wrapper's, then each option's."""
+    return {"launches": {k: w.launches for k, w in COUNTED.items()},
+            "option_launches": {k: getattr(w, c) for k, (w, c)
+                                in OPTION_COUNTED.items()}}
+
+
+def add_launches(res: list) -> None:
+    """Spawned ranks' ``launch_counts`` added to this process's, where the
+    main path reads them."""
+    for k, w in COUNTED.items():
+        w.launches += sum(r["launches"][k] for r in res)
+    for k, (w, c) in OPTION_COUNTED.items():
+        setattr(w, c, getattr(w, c) + sum(r["option_launches"][k]
+                                          for r in res))
+
+
+@timed_phase("mesh_clip_ranks")
+def mesh_clip_ranks(dev):
+    """Two spawned ranks on the one card (a gloo group), config 4 at 1024
+    envs a rank and ``max_grad_norm = 1e-3``, where every step clips: one
+    meshed update each of PPO (K4, K3's clip + Adam), the GRU (K9, K8), the
+    CNN (K12, K11) and IMPALA with Adam and with RMSProp (K6, K5), each
+    after the all-reduce through the sums-of-squares kernel on the averaged
+    gradient: the ranks bit-identical, each within the learners' bound of
+    the plain twins' world-2 update (which clips by the averaged norm, as
+    JAX does), each step's averaged norm beside each rank's own
+    (``tools/torch_mesh_clip.py``, which runs the same check on another
+    tree's package: a parent commit's)."""
+    sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tools"))
+    import torch_mesh_clip as clip
+
+    res, wall = clip.clip_ranks(2, clip.RANK_ENVS, counts=launch_counts)
+    add_launches(res)
+    out = clip.verdict(res)
+    emit({"phase": "mesh_clip_ranks", "card": card(), "world": 2,
+          "backend": "gloo", "envs_per_rank": clip.RANK_ENVS,
+          "max_grad_norm": clip.CLIP_NORM, "wall_s": wall, **out})
+    require(out["ok"], "mesh_clip_ranks: a meshed update did not clip by "
+            "the averaged gradient's norm: "
+            + str([p["path"] for p in out["paths"] if not p["ok"]]))
+
+
+# ---- M-8b: the population axis ----------------------------------------------
+
+POP_SEEDS = 4          # pop_sweep_ranks' seeds: 2 a slice
+POP_RANKS = 4          # pop_pbt_ranks' second mesh: pop 2 x data 2
+
+
+def rank_entry(rank, world, fn, args, store, outs):
+    """One spawned rank of ``gloo_ranks`` on ``cuda:0``: ``fn(dev, *args)``
+    in a gloo group of ``world``; its result and launch counts to
+    ``outs[rank]``."""
+    from warehouse_tpu_torch.parallel.distributed import process_group
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with process_group(store, backend="gloo", rank=rank, world=world,
+                       timeout_s=MESH_TIMEOUT_S, local_rank=0):
+        res = fn(dev, *args)
+    torch.save({"res": res, **launch_counts()}, outs[rank])
+
+
+def gloo_ranks(world: int, fn, *args) -> tuple:
+    """``world`` spawned ``rank_entry`` processes sharing the one card (NCCL
+    refuses two ranks on one device): their results in rank order and the
+    wall seconds; their launch counts added to this process's."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            rank_entry, args=(world, fn, args, os.path.join(tmp, "store"),
+                              outs),
+            nprocs=world, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                require(time.perf_counter() - t0 < 2 * MESH_TIMEOUT_S,
+                        f"gloo_ranks: {world} ranks of {fn.__name__} did "
+                        "not finish")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        wall = time.perf_counter() - t0
+        res = [torch.load(o, weights_only=False) for o in outs]
+    add_launches(res)
+    return res, wall
+
+
+def sweep_tcfg():
+    return TrainConfig(num_envs=SWEEP_B, unroll_length=SLICE_T,
+                       num_updates=SWEEP_UPDATES)
+
+
+def pop_sweep(dev, cfg, seed_mesh=None) -> dict:
+    """``run_trial`` with POP_SEEDS seeds and ``run_asha`` over SWEEP_GRID
+    with rungs ASHA_RUNGS and POP_SEEDS seeds, at PR 21's sweep sizes."""
+    _, trial = sweep.run_trial(cfg, sweep_tcfg(), POP_SEEDS,
+                               seed_mesh=seed_mesh, device=dev)
+    asha, _ = sweep.run_asha(cfg, sweep_tcfg(), SWEEP_GRID,
+                             rung_updates=ASHA_RUNGS, num_seeds=POP_SEEDS,
+                             seed_mesh=seed_mesh, device=dev)
+    return {"trial": trial, "asha": asha}
+
+
+def pop_sweep_rank(dev):
+    """A rank of ``pop_sweep_ranks``: the sweep with ``seed_mesh`` pop 2."""
+    from warehouse_tpu_torch.parallel.mesh import make_pop_mesh
+
+    return pop_sweep(dev, medium_config(), make_pop_mesh(2))
+
+
+@timed_phase("pop_sweep_ranks")
+def pop_sweep_ranks(dev, ref):
+    """Two spawned ranks, ``seed_mesh`` pop 2 (a slice a rank, 2 seeds
+    each): ``run_trial`` and ``run_asha`` with 4 seeds at 256 envs, T = 16,
+    through K2 and K3 / K4 on each rank; the metrics (every seed's, on
+    every rank) and the ASHA rows bit-equal to ``ref``, the same sweep in
+    turn in this process on the same card."""
+    res, wall = gloo_ranks(2, pop_sweep_rank)
+    for r, out in enumerate(res):
+        got = out["res"]
+        require(got["trial"].keys() == ref["trial"].keys() and all(
+            np.array_equal(got["trial"][k], ref["trial"][k])
+            for k in ref["trial"]),
+            f"pop_sweep_ranks: rank {r}'s run_trial metrics differ from the "
+            "in-turn sweep's")
+        require(got["asha"] == ref["asha"],
+                f"pop_sweep_ranks: rank {r}'s ASHA rows differ")
+        require(all(out["launches"][k] > 0 for k in (
+            "ppo_rollout", "ppo_sgd_phase", "ppo_minibatch_grads")),
+            f"pop_sweep_ranks: rank {r} did not train through K2 and K3: "
+            f"{out['launches']}")
+    emit({"phase": "pop_sweep_ranks", "card": card(), "world": 2,
+          "pop": 2, "seeds": POP_SEEDS, "B": SWEEP_B, "T": SLICE_T,
+          "wall_s": wall, "in_turn_s": ref["seconds"],
+          "rank_launches": [{k: out["launches"][k] for k in (
+              "ppo_rollout", "ppo_sgd_phase", "ppo_minibatch_grads")}
+              for out in res],
+          "asha_best": ref["asha"][-1]})
+
+
+def pbt_run(dev, cfg, mesh=None):
+    """``run_pbt`` at pbt_phase's sizes: 4 members, interval 3, 2
+    intervals, 256 envs."""
+    return pbt.run_pbt(cfg, TrainConfig(num_envs=SWEEP_B,
+                                        unroll_length=SLICE_T), PBT_SPACE,
+                       population_size=PBT_POPULATION,
+                       perturb_interval=PBT_INTERVAL,
+                       num_intervals=PBT_INTERVALS, mesh=mesh, device=dev)
+
+
+def member_digest(member) -> str:
+    """sha256 of a member's whole state, its leaves' bytes in order."""
+    import hashlib
+
+    from warehouse_tpu_torch.parallel.mesh import _tree_map
+
+    h = hashlib.sha256()
+    _tree_map(lambda x: h.update(x.detach().contiguous().reshape(-1).view(
+        torch.uint8).cpu().numpy().tobytes()) or x, member)
+    return h.hexdigest()
+
+
+def pop_pbt_rank(dev, pop: int):
+    """A rank of ``pop_pbt_ranks``: ``run_pbt`` on a ``(pop, world / pop)``
+    mesh; with data ranks, each member's params and Adam state checked in
+    sync on its slice after every update (``train_chunk`` one update at a
+    time), and each exploit's every member's digest, before and after,
+    gathered from every rank."""
+    from warehouse_tpu_torch.parallel.mesh import make_pop_mesh
+    from warehouse_tpu_torch.utils import assert_replicated_in_sync
+
+    mesh = make_pop_mesh(pop)
+    make, exploit, seen = pbt.make_pbt_trainer, pbt.exploit, []
+
+    def checked_trainer(*a, **kw):
+        init, chunk, get_lr, with_hp = make(*a, **kw)
+
+        def chunk_synced(members, n):
+            steps = []
+            for _ in range(n):
+                members, m = chunk(members, 1)
+                for member in members:
+                    assert_replicated_in_sync(
+                        (member.params, member.opt_state), mesh)
+                steps.append(m)
+            return members, {k: torch.cat([s[k] for s in steps], 1)
+                             for k in steps[0]}
+        return init, chunk_synced, get_lr, with_hp
+
+    def digests(members):
+        mine = torch.tensor([[int(c, 16) for c in member_digest(m)[:15]]
+                             for m in members], dtype=torch.int64)
+        return [x.tolist() for x in mesh.whole.all_gather(mine)]
+
+    def recorded(members, src, m=None):
+        before = digests(members)
+        out = exploit(members, src, m)
+        seen.append({"src": [int(s) for s in src], "before": before,
+                     "after": digests(out)})
+        return out
+
+    pbt.make_pbt_trainer, pbt.exploit = checked_trainer, recorded
+    try:
+        res = pbt_run(dev, medium_config(), mesh)
+    finally:
+        pbt.make_pbt_trainer, pbt.exploit = make, exploit
+    return {"rows": res.rows, "exploits": seen, "slice": mesh.slice,
+            "data_index": mesh.data.rank, "data": mesh.data.world}
+
+
+@timed_phase("pop_pbt_ranks")
+def pop_pbt_ranks(dev, ref_rows):
+    """``run_pbt`` (4 members, interval 3, 2 intervals, 256 envs; plain, as
+    the JAX PBT reaches no kernel) on two spawned ranks at pop 2, data 1:
+    its rows bit-equal to ``ref_rows``, the same run in turn in this
+    process on the same card; then on four ranks at pop 2, data 2: each
+    member's params and Adam state in sync on its slice's two data ranks
+    after every update, each member an exploit replaced equal, shard by
+    shard (rank ``(s, d)`` against rank ``(s', d)``), to its source before
+    the exploit, the rows equal on every rank and every score finite."""
+    res2, wall2 = gloo_ranks(2, pop_pbt_rank, 2)
+    for r, out in enumerate(res2):
+        require(out["res"]["rows"] == ref_rows,
+                f"pop_pbt_ranks: rank {r}'s rows at pop 2 x data 1 differ "
+                "from the in-turn run's")
+    res4, wall4 = gloo_ranks(POP_RANKS, pop_pbt_rank, 2)
+    rows = res4[0]["res"]["rows"]
+    require(all(out["res"]["rows"] == rows for out in res4),
+            "pop_pbt_ranks: the ranks' rows at pop 2 x data 2 differ")
+    require(all(np.isfinite(r["score"]) for r in rows[:-1])
+            and np.isfinite(rows[-1]["best_score"]),
+            "pop_pbt_ranks: a non-finite score")
+    per = PBT_POPULATION // 2
+    copies = 0
+    for ex in res4[0]["res"]["exploits"]:
+        for i, s in enumerate(ex["src"]):
+            for d in range(POP_RANKS // 2):
+                want = ex["before"][(s // per) * 2 + d][s % per]
+                got = ex["after"][(i // per) * 2 + d][i % per]
+                require(got == want, f"pop_pbt_ranks: member {i}'s data "
+                        f"shard {d} is not member {s}'s after the exploit")
+            copies += int(s != i)
+    require(copies >= 1, "pop_pbt_ranks: no member was replaced")
+    emit({"phase": "pop_pbt_ranks", "card": card(), "B": SWEEP_B,
+          "T": SLICE_T, "population": PBT_POPULATION,
+          "interval": PBT_INTERVAL, "intervals": PBT_INTERVALS,
+          "pop2_data1_wall_s": wall2, "pop2_data2_wall_s": wall4,
+          "exploit_sources": [ex["src"] for ex in res4[0]["res"]["exploits"]],
+          "replaced": copies, "pop2_data2_rows": rows})
+
+
+def pop_main_paths(dev, refs):
+    """The population axis' main paths after their in-turn references
+    (``refs``: the sweep's and PBT's in this process): (name, phase, kernels
+    it must launch, kernels it must not)."""
+    return [
+        ("pop_sweep_ranks", lambda: pop_sweep_ranks(dev, refs["sweep"]),
+         ["ppo_rollout", *K2_STAGES, "ppo_sgd_phase", "ppo_minibatch_grads"],
+         []),
+        ("pop_pbt_ranks", lambda: pop_pbt_ranks(dev, refs["pbt"]), [],
+         ["ppo_rollout", "ppo_rollout_cnn", "ppo_rnn_rollout",
+          "ppo_sgd_phase", "impala_sgd_phase", "ppo_rnn_sgd_phase",
+          "ppo_cnn_sgd_phase", "grad_sumsq"])]
+
+
+@timed_phase("pop_references")
+def pop_references(dev, pbt_rows=None) -> dict:
+    """The population paths' in-turn references on this card: the sweep of
+    ``pop_sweep`` without a mesh and, unless ``pbt_rows`` (pbt_phase's
+    rows, the same run) are given, ``pbt_run``'s rows."""
+    t0 = time.perf_counter()
+    ref = pop_sweep(dev, medium_config())
+    ref["seconds"] = time.perf_counter() - t0
+    if pbt_rows is None:
+        pbt_rows = pbt_run(dev, medium_config()).rows
+    return {"sweep": ref, "pbt": pbt_rows}
+
+
 # Each kernel's wrapper, where its launch count lives.
 COUNTED = {"greedy_rollout": rollout.greedy_rollout,
            "ppo_rollout": act.act_steps,
@@ -4526,7 +4939,8 @@ COUNTED = {"greedy_rollout": rollout.greedy_rollout,
            "ppo_rnn_minibatch_grads": sgd_rnn.ppo_rnn_minibatch_grads,
            "ppo_rollout_cnn": act.act_cnn_steps,
            "ppo_cnn_sgd_phase": sgd_cnn.ppo_cnn_sgd_phase,
-           "ppo_cnn_minibatch_grads": sgd_cnn.ppo_cnn_minibatch_grads}
+           "ppo_cnn_minibatch_grads": sgd_cnn.ppo_cnn_minibatch_grads,
+           "grad_sumsq": sgd.grad_sumsq}
 # An option's or a route's launches are counted beside each wrapper's own:
 # (wrapper, the counter's name).
 OPTION_COUNTED = {
@@ -4602,6 +5016,15 @@ def main_path(name, fn, kernels, absent=()):
     return counts
 
 
+# mesh_clip_ranks' kernels: the five learners' grads and step kernels, the
+# sums of squares between them, the acting kernels.
+CLIP_KERNELS = ["ppo_rollout", *K2_STAGES, "ppo_minibatch_grads",
+                "ppo_sgd_phase", "ppo_rnn_rollout", "ppo_rnn_minibatch_grads",
+                "ppo_rnn_sgd_phase", "ppo_rollout_cnn",
+                "ppo_cnn_minibatch_grads", "ppo_cnn_sgd_phase",
+                "impala_minibatch_grads", "impala_sgd_phase", "grad_sumsq"]
+
+
 def mesh_main_paths(dev):
     """The data mesh's main paths: (name, phase, kernels it must launch)."""
     return [
@@ -4609,9 +5032,11 @@ def mesh_main_paths(dev):
          ["ppo_rollout", *K2_STAGES, "ppo_minibatch_grads",
           "ppo_rollout_cnn", "ppo_rollout_cnn_stages",
           "ppo_cnn_minibatch_grads", "ppo_rnn_rollout", *K7_STAGES,
-          "ppo_rnn_minibatch_grads", "impala_minibatch_grads", *K6_STAGES]),
+          "ppo_rnn_minibatch_grads", "impala_minibatch_grads", *K6_STAGES,
+          "grad_sumsq"]),
         ("mesh_two_ranks", lambda: mesh_two_ranks(dev),
-         ["ppo_rollout", *K2_STAGES, "ppo_minibatch_grads"])]
+         ["ppo_rollout", *K2_STAGES, "ppo_minibatch_grads", "grad_sumsq"]),
+        ("mesh_clip_ranks", lambda: mesh_clip_ranks(dev), CLIP_KERNELS)]
 
 
 # ---- the env kernels at (agents, queue) pairs outside the presets --------
@@ -5138,7 +5563,7 @@ def shape_main_paths(dev, out_dir):
         ("mesh_shapes_train", lambda: mesh_world1_train(
             dev, SHAPE_MESH_PATHS, 1, "mesh_shapes_train"),
          ["ppo_rnn_rollout", *K7_STAGES, "ppo_rnn_minibatch_grads",
-          "ppo_rollout", *K2_STAGES, "ppo_minibatch_grads"])]
+          "ppo_rollout", *K2_STAGES, "ppo_minibatch_grads", "grad_sumsq"])]
 
 
 # The kernels line's T-6 entries: (source, TPU kernel, main path whose
@@ -5280,9 +5705,18 @@ def main(argv=()) -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
-    if "--mesh" in argv:  # the data mesh's two paths alone
+    if "--mesh" in argv:  # the data mesh's paths alone
         for name, fn, kernels in mesh_main_paths(dev):
             main_path(name, fn, kernels)
+        print(nvidia_smi(), flush=True)
+        return 0
+    if "--pop" in argv:  # F-10's checks and the population axis alone
+        sumsq_check(dev)
+        main_path("mesh_clip_ranks", lambda: mesh_clip_ranks(dev),
+                  CLIP_KERNELS)
+        refs = pop_references(dev)
+        for name, fn, kernels, absent in pop_main_paths(dev, refs):
+            main_path(name, fn, kernels, absent)
         print(nvidia_smi(), flush=True)
         return 0
     if "--pairs" in argv:  # the pairs' checks and main paths alone
@@ -5455,6 +5889,8 @@ def main(argv=()) -> int:
     # The TPU kernels' widths and depths (T-6): their checks, into the
     # kernels line with their main paths' launches.
     shape_res = shape_checks(dev)
+    # The meshed learners' sums of squares of the averaged gradient (F-10).
+    checks["grad_sumsq"] = sumsq_check(dev)
 
     # ---- the main paths: each counted from just before it -------------
     rnn_kernels = ["ppo_rnn_rollout", *K7_STAGES, "ppo_rnn_sgd_phase",
@@ -5541,13 +5977,21 @@ def main(argv=()) -> int:
         "sweep", lambda: sweep_phase(dev, cfg, swept),
         ["ppo_rollout", *K2_STAGES, "ppo_sgd_phase", "ppo_minibatch_grads"])
     sweep_check(dev, cfg, swept)
+    pbt_out = {}
     paths["pbt"] = main_path(
-        "pbt", lambda: pbt_phase(dev, cfg), [],
+        "pbt", lambda: pbt_phase(dev, cfg, pbt_out), [],
         ["ppo_rollout", "ppo_rollout_cnn", "ppo_rnn_rollout", "ppo_sgd_phase",
          "impala_sgd_phase", "ppo_rnn_sgd_phase", "ppo_cnn_sgd_phase"])
-    # The data mesh (M-8): the meshed learners through the grads kernels.
+    # The data mesh (M-8): the meshed learners through the grads kernels,
+    # each step clipped by the averaged gradient (F-10).
     paths.update({name: main_path(name, fn, kernels)
                   for name, fn, kernels in mesh_main_paths(dev)})
+    # The population axis (M-8b): the sweep's seed_mesh and PBT's (pop,
+    # data) mesh on spawned ranks, against their in-turn runs.
+    refs = pop_references(dev, pbt_out["rows"])
+    paths.update({name: main_path(name, fn, kernels, absent)
+                  for name, fn, kernels, absent in pop_main_paths(dev,
+                                                                  refs)})
     # The env kernels at the pairs outside the presets (T-5): their checks,
     # then their main paths.
     checks.update(pair_checks(dev))
@@ -5677,10 +6121,16 @@ def main(argv=()) -> int:
         "ppo_rollout_a6q8": ("act.cu", "pallas/act.py:1028"),
         "ppo_rnn_rollout_a6q8": ("act_rnn.cu", "pallas/act.py:747"),
         "ppo_rollout_cnn_a6q8": ("act_cnn.cu", "pallas/act.py:1073"),
-        "ppo_rollout_groups_a12q24": ("act.cu", "pallas/act.py:1062")}
+        "ppo_rollout_groups_a12q24": ("act.cu", "pallas/act.py:1062"),
+        # The meshed learners' sums of squares of the averaged gradient
+        # (F-10): the global norm of _clip_adam_step, which the Pallas
+        # learners take in the kernel on one device; its launches those of
+        # the meshed paths, one a step.
+        "grad_sumsq": ("mlp_learner.cuh", "pallas/sgd.py:226")}
     # library_ms: no single PyTorch call computes a whole rollout or a
     # whole learner phase, so it is null for every kernel here but K7's
-    # cell stage (torch.nn.GRUCell on the same rows).
+    # cell stage (torch.nn.GRUCell on the same rows) and grad_sumsq
+    # (torch.linalg.vector_norm of the same gradient).
     emit({"kernels": [
         kernel_row(name, csrc + src, "warehouse_tpu/" + replaces,
                    launches[name], checks[name])

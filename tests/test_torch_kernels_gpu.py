@@ -2052,3 +2052,22 @@ def test_step_route_trainers_match_plain_step(case, dev):
     for k in mk:
         a, b = float(mk[k]), float(mp[k])
         assert abs(a - b) <= 5e-5 + 1e-3 * abs(b), (k, a, b)
+
+
+@pytest.mark.parametrize("name", ["k3_config4", "k3_groups", "k5_config4",
+                                  "k11_config4", "k8_config4", "k8_h50"])
+def test_grad_sumsq_kernel_matches_plain_in_four_layouts(name, dev):
+    """The sums-of-squares kernel (``sgd.grad_sumsq``, the meshed learners'
+    norm of the averaged gradient) on one minibatch's gradient of each
+    learner's grads kernel: into a buffer of its own and into the
+    workspace, bit-equal to the sums the grads kernel left there and to
+    the plain version (K3 with and without groups, K5, K11's conv then
+    dense blocks, K8 at config 4 and at hidden 50 through the pad), as
+    chip_smoke.py's ``sumsq_check``."""
+    cs = smoke()
+    assert name in cs.SUMSQ_CASES
+    out = cs.sumsq_run(*cs.sumsq_case(dev, name))
+    assert out["kernel_equal_reduce"], name
+    assert out["plain_equal_reduce"], name
+    assert out["workspace_equal_reduce"], name
+    assert out["padded"] == (name == "k8_h50")

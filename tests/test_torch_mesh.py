@@ -102,8 +102,14 @@ def test_make_mesh_world1(world1, capsys):
     assert "rank 0" in capsys.readouterr().out
     with pytest.raises(ValueError, match="model"):
         parallel.make_mesh(model_parallel=2)
-    with pytest.raises(NotImplementedError, match="M-8b"):
+    # The (pop, data) mesh over the world of 1: one slice of one data rank.
+    with pytest.raises(ValueError, match="1 ranks not divisible by pop=2"):
         pmesh.make_pop_mesh(2)
+    pop = pmesh.make_pop_mesh(1)
+    assert pop.shape == {"pop": 1, "data": 1} and pop.slice == 0
+    assert pop.data.world == 1 and pop.ranks == (0,)
+    assert [torch.equal(g, y) for g in pop.gather_slices(y)] == [True]
+    assert "rank 0: rows [0, 8)" in visualize_sharding(x, pop)
 
 
 def _free_port() -> int:

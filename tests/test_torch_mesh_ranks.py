@@ -11,7 +11,11 @@ where the Pallas one does, and which compile faster on a CPU than the
 kernels in interpret mode, which ``tests/test_torch_mesh.py`` runs) while
 the ranks run the same 2 updates from the same start (each rank's shard of
 the JAX state, carried across) through the port's meshed route on the
-kernels' twins (K2, K4 and K6's; with "each", the plain learner phase),
+kernels' twins (K2, K4 and K6's; with "each", the plain learner phase;
+"ppo_clip" at ``max_grad_norm=1e-3``, where every step clips: the twin
+the card's meshed clip is held against clips by the norm of the gradient
+averaged over the ranks, as JAX's ``pmean`` before optax's clip; each
+step's averaged norm is recorded beside the rank's own),
 checking after every update that
 their params and optimizer state are bit-identical
 (``assert_replicated_in_sync``), and that a perturbed leaf on one rank is
@@ -22,6 +26,7 @@ the bounds of ``tests/test_torch_train.py`` (2e-4 + 1e-3 relative; rtol
 2e-4, atol 5e-5).
 """
 
+import dataclasses
 import time
 from pathlib import Path
 
@@ -31,7 +36,9 @@ import torch.multiprocessing as mp
 
 from warehouse_tpu_torch.config import TrainConfig, small_config
 from warehouse_tpu_torch.env.state import STATE_FIELDS
+from warehouse_tpu_torch.optim import global_norm
 from warehouse_tpu_torch.parallel import distributed
+from warehouse_tpu_torch.parallel.mesh import DataMesh
 from warehouse_tpu_torch.train import make_train, make_train_impala
 from warehouse_tpu_torch.train.ppo import unshard_runner_state
 from warehouse_tpu_torch.utils import assert_replicated_in_sync
@@ -42,11 +49,27 @@ TCFG = dict(num_envs=8, unroll_length=4, num_updates=2, num_minibatches=2,
             ppo_epochs=1, impala_passes=1, hidden_dim=16)
 # PPO through K4's twin; with a partition an epoch, through the plain phase
 # (its scaffold averages where JAX's ``pmean``s); IMPALA through K6's twin.
+CLIP = 1e-3  # max_grad_norm of "ppo_clip": far below every step's norm
 JOBS = {"ppo": dict(TCFG), "ppo_each": dict(TCFG, epoch_shuffle="each"),
-        "impala": dict(TCFG, impala_rmsprop=False)}
+        "impala": dict(TCFG, impala_rmsprop=False),
+        "ppo_clip": dict(TCFG, max_grad_norm=CLIP)}
 JAX_ROUTE = dict(rollout_backend="xla", grad_backend="xla")
 UPDATES = 2
 DEADLINE_S = 120  # the ranks' whole run, rendezvous included
+
+
+NORMS = []  # a rank's (own, averaged) gradient norm of each meshed step
+
+
+@dataclasses.dataclass(frozen=True)
+class NormMesh(DataMesh):
+    """A ``DataMesh`` that records each step's gradient norm before and
+    after its average over the ranks (``NORMS``)."""
+
+    def mean_grads(self, grads: dict, row: list):
+        out = super().mean_grads(grads, row)
+        NORMS.append((float(global_norm(grads)), float(global_norm(out[0]))))
+        return out
 
 
 def _rank_worker(rank: int, tmp: str, jobs: dict) -> None:
@@ -61,7 +84,9 @@ def _rank_worker(rank: int, tmp: str, jobs: dict) -> None:
         for name, kw in jobs.items():
             rs = torch.load(tmp / f"{name}{rank}.pt", weights_only=False)
             make = make_train_impala if name == "impala" else make_train
-            tr = make(cfg, TrainConfig(**kw), device="cpu", mesh=mesh)
+            tr = make(cfg, TrainConfig(**kw), device="cpu",
+                      mesh=NormMesh(**vars(mesh)) if name == "ppo_clip"
+                      else mesh)
             metrics = []
             for _ in range(UPDATES):
                 rs, m = tr.train_step(rs)
@@ -75,6 +100,7 @@ def _rank_worker(rank: int, tmp: str, jobs: dict) -> None:
             assert torch.equal(again.obs, rs.obs)
             assert torch.equal(again.key, rs.key)
             out[name] = (rs, metrics)
+        out["norms"] = NORMS
         bad = dict(rs.params)
         if rank == 1:
             k = next(iter(bad))
@@ -154,6 +180,13 @@ def test_two_gloo_ranks_match_jax_two_device_mesh(tmp_path):
             for r in range(WORLD)]
     for out in outs:
         assert "replicated leaf diverged across shards" in out["caught"]
+    # Every "ppo_clip" step clipped by the averaged gradient's norm, which
+    # is the same on both ranks and not either rank's own.
+    steps = UPDATES * TCFG["ppo_epochs"] * TCFG["num_minibatches"]
+    assert all(len(out["norms"]) == steps for out in outs)
+    for (own0, avg0), (own1, avg1) in zip(*(out["norms"] for out in outs)):
+        assert avg0 == avg1 > CLIP and own0 != own1
+        assert avg0 != own0 and avg0 != own1
     for name in JOBS:
         (rs0, _), (rs1, _) = outs[0][name], outs[1][name]
         assert all(torch.equal(rs0.params[k], rs1.params[k])

@@ -6,7 +6,8 @@ moments within the bounds of ``tests/test_torch_step_acting.py`` (Adam's
 second moment within those of the float32 trainer tests); exploit
 and explore pick the same members and the same new hyperparameters as JAX
 from the same scores and seed (both modules' trainers replaced by one
-fake); the end-to-end run and the refusals.
+fake); the end-to-end run and the refusals (a mesh's axes that do not
+divide the envs or the population).
 """
 
 import dataclasses
@@ -27,6 +28,7 @@ from warehouse_tpu_torch import EnvConfig, TrainConfig, small_config
 from warehouse_tpu_torch.env.state import STATE_FIELDS
 from warehouse_tpu_torch.models import params_from_flax
 from warehouse_tpu_torch.optim import opt_state_from_optax
+from warehouse_tpu_torch.parallel import mesh as pmesh
 from warehouse_tpu_torch.train import pbt
 
 from test_torch_m4 import assert_tree
@@ -224,9 +226,28 @@ def test_run_pbt_end_to_end(tmp_path):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="M-8b"):
+    """A ``(pop, data)`` mesh whose data axis does not divide the envs, or
+    whose pop axis does not divide the population, is refused with JAX's
+    ``ValueError`` (``tests/test_torch_pop_mesh.py`` runs the meshed PBT);
+    a fixed field in the hyperparameter space too."""
+    cpu = torch.device("cpu")
+
+    def pop_mesh(pop, data):
+        return pmesh.PopMesh(whole=pmesh.DataMesh(None, 0, pop * data, cpu),
+                             data=pmesh.DataMesh(None, 0, data, cpu),
+                             pop=pop, ranks=tuple(range(pop * data)))
+
+    with pytest.raises(ValueError, match="num_envs=8 not divisible by 3 "
+                                         "data shards"):
         pbt.make_pbt_trainer(small_config(), TrainConfig(**BASE),
-                             mesh=object(), device="cpu")
+                             mesh=pop_mesh(1, 3), device="cpu")
+    init, _, _, _ = pbt.make_pbt_trainer(
+        small_config(), TrainConfig(**BASE), mesh=pop_mesh(2, 2),
+        device="cpu")
+    with pytest.raises(ValueError, match="population 3 not divisible by 2 "
+                                         "pop shards"):
+        init(torch.tensor([0, 1]), np.full(3, 1e-3), np.full(3, 0.01))
+    assert pbt.member_range(6, pop_mesh(3, 1)) == range(0, 2)
     with pytest.raises(ValueError, match="PBT mutates"):
         pbt.run_pbt(small_config(), TrainConfig(**BASE),
                     {"num_envs": [8]}, device="cpu")

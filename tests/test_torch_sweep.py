@@ -4,7 +4,8 @@ rows, summary, best point and ASHA's promotions with both modules'
 trainers replaced by one fake that returns the same metric arrays from
 each seed's key; each seed's env state and keys after init bit-equal to
 replica s of the JAX vmapped init; a seed's metrics equal to a standalone
-run's from the same key; the CLI.
+run's from the same key; a ``seed_mesh``'s slice and its refusal of a
+seed count its ``pop`` does not divide; the CLI.
 """
 
 import json
@@ -20,6 +21,7 @@ from warehouse_tpu.config import small_config as j_small
 from warehouse_tpu.train import sweep as jsweep
 from warehouse_tpu_torch import TrainConfig, rng, small_config
 from warehouse_tpu_torch.env.state import STATE_FIELDS
+from warehouse_tpu_torch.parallel import mesh as pmesh
 from warehouse_tpu_torch.train import make_train
 from warehouse_tpu_torch.train import sweep
 
@@ -185,12 +187,27 @@ def test_run_trial_seed_equals_a_standalone_run():
 
 
 def test_seed_mesh_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="M-8b"):
-        sweep.run_trial(small_config(), tiny(), 2, seed_mesh=object(),
+    """A ``seed_mesh`` whose ``pop`` does not divide ``num_seeds`` is
+    refused with JAX's ``ValueError``, before any trainer is built; the
+    seeds a slice trains (``tests/test_torch_pop_mesh.py`` runs the meshed
+    sweep)."""
+    cpu = torch.device("cpu")
+    pop3 = pmesh.PopMesh(whole=pmesh.DataMesh(None, 4, 6, cpu),
+                         data=pmesh.DataMesh(None, 0, 2, cpu), pop=3,
+                         ranks=tuple(range(6)))
+    assert pop3.shape == {"pop": 3, "data": 2} and pop3.slice == 2
+    assert sweep.seed_range(6, pop3) == range(4, 6)
+    assert sweep.seed_range(5, None) == range(5)
+    with pytest.raises(ValueError, match="num_seeds=2 not divisible by 3 "
+                                         "pop shards"):
+        sweep.run_trial(small_config(), tiny(), 2, seed_mesh=pop3,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="M-8b"):
-        sweep.run_asha(small_config(), tiny(), GRID, seed_mesh=object(),
-                       device="cpu")
+    with pytest.raises(ValueError, match="num_seeds=4 not divisible by 3"):
+        sweep.run_asha(small_config(), tiny(), GRID, num_seeds=4,
+                       seed_mesh=pop3, device="cpu")
+    with pytest.raises(ValueError, match="num_seeds=1 not divisible by 3"):
+        sweep.run_sweep(small_config(), tiny(), GRID, num_seeds=1,
+                        seed_mesh=pop3, device="cpu")
 
 
 @pytest.mark.parametrize("scheduler", ["fifo", "asha"])

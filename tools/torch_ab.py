@@ -43,7 +43,11 @@ streams):
   bf16) and K5 (Adam, K6 inside them) at 5 hidden layers, one K6 gradient
   there, K7 (the GRU) at hidden 50 and at 4 encoder layers, K8 (float32
   and bf16; the GRU, K9 inside it) at hidden 50 and K8 at 4 encoder
-  layers, K10 and K11 (float32 and bf16) at trunk width 50. A tree whose
+  layers, K10 and K11 (float32 and bf16) at trunk width 50; and the
+  meshed learners at world 1 (``t6_mesh1_*``: an NCCL group of the child
+  alone, each step's gradient averaged over it before the clip step), one
+  phase each of K3, K11, K8 (the GRU), K5 (Adam and RMSProp) at config 4,
+  K3 at 5 hidden layers and K8 at hidden 50. A tree whose
   kernels or helpers do not take one records it as ``"refused: <the
   exception's type>"``;
 - with ``--kernel k7``, times and hashes one K7 chunk (T = 16, B = 4096,
@@ -80,9 +84,10 @@ import subprocess
 import sys
 
 CHILD = """
-import hashlib, json, sys, torch
+import hashlib, json, os, sys, tempfile, torch
 sys.path.insert(0, {tree!r})
 import chip_smoke as cs
+from warehouse_tpu_torch.parallel.distributed import process_group
 from torch.profiler import ProfilerActivity, profile
 from warehouse_tpu_torch import (large_config, medium_config,
                                  shelves_config, small_config)
@@ -294,7 +299,7 @@ def t6(name, fn):
         out["t6_" + name] = "refused: " + type(e).__name__
 
 
-def t6_rnn(shape, dtype, arch="gru"):
+def t6_rnn(shape, dtype, arch="gru", mesh=None):
     k7_rollout = cs.act_rnn.ppo_rnn_rollout
     cs.act_rnn.ppo_rnn_rollout = cs.act_rnn.ppo_rnn_rollout_reference
     try:
@@ -304,6 +309,8 @@ def t6_rnn(shape, dtype, arch="gru"):
         cs.act_rnn.ppo_rnn_rollout = k7_rollout
     args, kw = phase_args(tcfg, tr, rs, traj, adv_n, targets, ent, h0)
     kw.update(mask_actions=False, matmul_dtype=dtype)
+    if mesh is not None:
+        kw["mesh"] = mesh
     return sha(sgd_rnn.ppo_rnn_sgd_phase(*args, **kw))
 
 
@@ -327,27 +334,30 @@ def t6_chunk(arch, shape):
     return chunk_sha(steps(*args, **kw))
 
 
-def t6_impala(layers):
+def t6_impala(layers, mesh=None, rms=False):
     tcfg, params, traj, last_obs, vkw = cs.impala_inputs(dev, cfg,
                                                          layers=layers)
     M = tcfg.num_minibatches
-    tc = tcfg.replace(impala_rmsprop=False, impala_passes=1)
+    tc = tcfg.replace(impala_rmsprop=rms, impala_passes=1)
     optimizer = make_impala_optimizer(tc)
     opt = optimizer.init(params)
     rows = optimizer.step_rows(opt.count, M, dev)
     return (sha(vtrace_sgd.impala_sgd_phase(
         params, opt, traj, last_obs, rows, tc.entropy_coef, num_passes=1,
-        num_minibatches=M, max_grad_norm=tc.max_grad_norm, **vkw)),
+        num_minibatches=M, max_grad_norm=tc.max_grad_norm, mesh=mesh,
+        **vkw)),
         sha(vtrace_sgd.impala_minibatch_grads(
             params, traj, last_obs, 1, tcfg.entropy_coef, num_minibatches=M,
             **vkw)))
 
 
-def t6_phase(arch, shape, dtype):
+def t6_phase(arch, shape, dtype, mesh=None):
     sched = cs.CNN_SCHEDULE if arch == "cnn" else cs.TRAIN_SCHEDULE
     tcfg = cs.TrainConfig(num_updates=sched, hidden_dim=shape[0],
                           num_layers=shape[1])
     args, kw = phase_args(*cs.sgd_inputs(dev, cfg, arch, sched, tcfg))
+    if mesh is not None:
+        kw["mesh"] = mesh
     phase = sgd_cnn.ppo_cnn_sgd_phase if arch == "cnn" else sgd.ppo_sgd_phase
     return sha(phase(*args, **dict(kw, matmul_dtype=dtype)))
 
@@ -372,6 +382,21 @@ t6("k7_h50", lambda: t6_k7(H50))
 t6("k7_enc4", lambda: t6_k7(DEEP))
 t6("k8_enc4_float32", lambda: t6_rnn(DEEP, "float32"))
 t6("k10_h50", lambda: t6_chunk("cnn", H50))
+
+# The meshed learners at world 1 (an NCCL group of this process alone on a
+# file store): each step's gradient averaged over the one rank before the
+# clip step, at the shapes of mesh_world1_train (K3, K11, K8 GRU, K5 Adam;
+# K5 RMSProp too) and of T-6's meshed paths (K3 at 5 layers, K8 GRU at
+# hidden 50).
+with tempfile.TemporaryDirectory() as tmp, process_group(
+        os.path.join(tmp, "store"), backend="nccl") as mesh1:
+    t6("mesh1_k3", lambda: t6_phase("mlp", cs.HIDDEN, "float32", mesh1))
+    t6("mesh1_k11", lambda: t6_phase("cnn", cs.HIDDEN, "float32", mesh1))
+    t6("mesh1_k8", lambda: t6_rnn(cs.HIDDEN, "float32", mesh=mesh1))
+    t6("mesh1_k5_adam", lambda: t6_impala(cs.HIDDEN[1], mesh1))
+    t6("mesh1_k5_rmsprop", lambda: t6_impala(cs.HIDDEN[1], mesh1, True))
+    t6("mesh1_k3_deep5", lambda: t6_phase("mlp", DEEP, "float32", mesh1))
+    t6("mesh1_k8_h50", lambda: t6_rnn(H50, "float32", mesh=mesh1))
 
 model = make_model(cfg, "gru", cs.HIDDEN[0], cs.HIDDEN[1],
                    torch.Generator().manual_seed(cs.SEED), dev)

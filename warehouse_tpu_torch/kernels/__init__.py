@@ -11,8 +11,9 @@ queue) pair outside the presets into that pair's own library,
 from .act import ActRollout, ppo_rollout, ppo_rollout_reference
 from .act_rnn import ppo_rnn_rollout, ppo_rnn_rollout_reference
 from .rollout import greedy_rollout, greedy_rollout_reference
-from .sgd import (ppo_minibatch_grads, ppo_minibatch_grads_reference,
-                  ppo_sgd_phase, ppo_sgd_phase_reference)
+from .sgd import (grad_sumsq, grad_sumsq_plain, ppo_minibatch_grads,
+                  ppo_minibatch_grads_reference, ppo_sgd_phase,
+                  ppo_sgd_phase_reference)
 from .sgd_cnn import (ppo_cnn_minibatch_grads,
                       ppo_cnn_minibatch_grads_reference, ppo_cnn_sgd_phase,
                       ppo_cnn_sgd_phase_reference)
@@ -33,4 +34,5 @@ __all__ = ["ActRollout", "greedy_rollout", "greedy_rollout_reference",
            "ppo_rnn_sgd_phase_reference", "ppo_rnn_minibatch_grads",
            "ppo_rnn_minibatch_grads_reference", "ppo_cnn_sgd_phase",
            "ppo_cnn_sgd_phase_reference", "ppo_cnn_minibatch_grads",
-           "ppo_cnn_minibatch_grads_reference"]
+           "ppo_cnn_minibatch_grads_reference", "grad_sumsq",
+           "grad_sumsq_plain"]

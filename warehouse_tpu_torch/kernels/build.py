@@ -69,6 +69,8 @@ SIGNATURES = {
                     + [P] * 3 + [I, P],
     "wh_sgd_clip_adam": [I, IP, I, L, I, I, I, IP, I] + [P] * 7 + [F] * 6
                         + [P] * 2,
+    "wh_sgd_sumsq": [I, IP, I, L, I, I, I, IP] + [P] * 4,
+    "wh_sgd_sq_layout": [I, IP, I, L, I, I, I, IP, LP],
     "wh_vtrace_workspace_floats": [I, IP, I, L, I, I],
     "wh_vtrace_layout": [I, IP, I, L, I, I, LP],
     "wh_vtrace_grads": [I, I, IP, I, L, I, I, I] + [P] * 10 + [F] * 5
@@ -77,6 +79,8 @@ SIGNATURES = {
                           + [P] * 2,
     "wh_vtrace_clip_adam": [I, IP, I, L, I, I, I] + [P] * 7 + [F] * 6
                            + [P] * 2,
+    "wh_vtrace_sumsq": [I, IP, I, L, I, I] + [P] * 4,
+    "wh_vtrace_sq_layout": [I, IP, I, L, I, I, LP],
     "wh_rnn_param_floats": [I, IP, I, I],
     "wh_act_rnn_workspace_floats": [I, I, L, I, IP, I, I],
     "wh_act_rnn_layout": [I, I, L, I, IP, I, I, LP],
@@ -93,6 +97,8 @@ SIGNATURES = {
     "wh_rnn_sgd_layout": [I, IP, I, I, I, L, I, I, LP],
     "wh_rnn_sgd_clip_adam": [I, IP, I, I, I, L, I, I, I] + [P] * 7 + [F] * 6
                             + [P] * 2,
+    "wh_rnn_sgd_sumsq": [I, IP, I, I, I, L, I, I] + [P] * 4,
+    "wh_rnn_sgd_sq_layout": [I, IP, I, I, I, L, I, I, LP],
     "wh_cnn_param_floats": [I] * 5,
     "wh_act_cnn_smem_bytes": [I] * 8 + [IP],
     "wh_act_cnn_workspace_floats": [I, I, L] + [I] * 6,
@@ -111,6 +117,8 @@ SIGNATURES = {
     "wh_cnn_sgd_layout": [I] * 6 + [L, I, I, LP],
     "wh_cnn_sgd_clip_adam": [I] * 6 + [L, I, I, I] + [P] * 7 + [F] * 6
                             + [P] * 2,
+    "wh_cnn_sgd_sumsq": [I] * 6 + [L, I, I] + [P] * 4,
+    "wh_cnn_sgd_sq_layout": [I] * 6 + [L, I, I, LP],
 }
 RESTYPES = {"wh_act_weight_floats": L, "wh_act_workspace_floats": L,
             "wh_error_string": ctypes.c_char_p,

@@ -10,9 +10,11 @@
 // - loss_row: the clipped-PPO loss chain of one sample and its derivative
 //   with respect to the head outputs (sgd.cu, sgd_rnn.cu).
 // - reduce_kernel (split-K partials summed in split order, sums of squares
-//   per 256 gradients), metrics_kernel (per-tile metric rows summed in a
-//   fixed order), global_norm and adam_kernel (the optax clip + Adam step,
-//   on a grid of CTAs that each compute the same norm).
+//   per 256 gradients), sumsq_kernel (those sums taken again from a given
+//   gradient: the averaged one on a data mesh), metrics_kernel (per-tile
+//   metric rows summed in a fixed order), global_norm and adam_kernel (the
+//   optax clip + Adam step, on a grid of CTAs that each compute the same
+//   norm).
 //
 // Policy groups (K3/K4, pallas/sgd.py:293-306): K MLPs of the same widths,
 // their params one after another in group order, and a static agent ->
@@ -255,6 +257,48 @@ __global__ void __launch_bounds__(RED) reduce_kernel(const float* part, int S,
     __syncthreads();
   }
   if (threadIdx.x == 0) sq[blockIdx.x] = sh[0];
+}
+
+// ---- the sums of squares of a given gradient ---------------------------------
+
+// reduce_kernel's sums of squares, taken again from a gradient the caller
+// gives, in reduce_kernel's partition and order: block b of segment y sums
+// the squares of grads[y n + b RED, y n + (b + 1) RED) by the same
+// shared-memory tree into sq[y ceil(n / RED) + b]. On the gradient that
+// reduce_kernel wrote the sums are its sums, bit for bit.
+//
+// It replaces no TPU kernel: the Pallas learners run on one device. The
+// learners' meshed route (kernels/sgd.py sgd_phase_on_card) launches it on
+// the gradient averaged over the ranks, between the all-reduce and the
+// clip + Adam step, so that the step clips by that gradient's global norm,
+// as the JAX meshed learner pmeans the gradient before optax's clip
+// (warehouse_tpu/ops/ppo_update.py:241-245); the sums reduce_kernel left
+// are the rank's own gradient's. Bound by bytes: n floats read once, the
+// sums written; one pass, a block per RED gradients, as many blocks as
+// reduce_kernel's.
+__global__ void __launch_bounds__(RED) sumsq_kernel(const float* grads,
+                                                    long n, float* sq) {
+  __shared__ float sh[RED];
+  const long k = (long)blockIdx.x * RED + threadIdx.x;
+  const float g = k < n ? grads[(long)blockIdx.y * n + k] : 0.f;
+  sh[threadIdx.x] = g * g;
+  __syncthreads();
+  for (int w = RED / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0)
+    sq[(long)blockIdx.y * gridDim.x + blockIdx.x] = sh[0];
+}
+
+// sumsq_kernel over K segments of n gradients each, one after another (K
+// policy groups' gradients), their sums one segment's after another's.
+cudaError_t launch_sumsq(const float* grads, long n, int K, float* sq,
+                         cudaStream_t stream) {
+  if (n <= 0 || K < 1) return cudaErrorInvalidValue;
+  sumsq_kernel<<<dim3((unsigned)((n + RED - 1) / RED), (unsigned)K), RED, 0,
+                 stream>>>(grads, n, sq);
+  return cudaGetLastError();
 }
 
 // ---- metric sums; global norm, clip + Adam ----------------------------------

@@ -364,3 +364,36 @@ extern "C" int wh_sgd_clip_adam(
                 (cudaStream_t)stream_>>>(p);
   return (int)cudaGetLastError();
 }
+
+// The sums of squares of `grads` (the K groups' gradients in wh_sgd_grads'
+// layout) as reduce_kernel takes them (launch_sumsq): into `sq` where it is
+// not null, else into the workspace, where wh_sgd_clip_adam reads them. The
+// meshed route launches it on the gradient averaged over the ranks.
+extern "C" int wh_sgd_sumsq(int n_hidden, const int* dims, int T, long B,
+                            int A, int M, int K, const int* groups,
+                            const float* grads, float* sq, float* work,
+                            void* stream_) {
+  StageArgs sa;
+  MlpTables tb;
+  if (!make_stage_args(n_hidden, dims, T, B, A, M, K, groups, 0, nullptr,
+                       work, &sa, &tb))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_sumsq(grads, sa.net.n_params, K, sq ? sq : sa.sc.sq,
+                           (cudaStream_t)stream_);
+}
+
+// Where the gradient's sums of squares lie in the workspace: out[0] their
+// float offset, out[1] their count (K groups' ceil(n_params / 256)).
+extern "C" int wh_sgd_sq_layout(int n_hidden, const int* dims, int T, long B,
+                                int A, int M, int K, const int* groups,
+                                long* out) {
+  StageArgs sa;
+  MlpTables tb;
+  float* base = reinterpret_cast<float*>(256);  // offsets from a fake base
+  if (!make_stage_args(n_hidden, dims, T, B, A, M, K, groups, 0, nullptr,
+                       base, &sa, &tb))
+    return (int)cudaErrorInvalidValue;
+  out[0] = sa.sc.sq - base;
+  out[1] = K * sa.sc.n_sq1;
+  return 0;
+}

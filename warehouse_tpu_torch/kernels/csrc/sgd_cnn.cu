@@ -1113,3 +1113,41 @@ extern "C" int wh_cnn_sgd_clip_adam(
   adam_kernel<<<1, FNT, 0, (cudaStream_t)stream_>>>(p);
   return (int)cudaGetLastError();
 }
+
+// The sums of squares of `grads` (wh_cnn_sgd_grads' layout) as the two
+// reduce_kernel launches take them (launch_sumsq): the conv gradient's
+// blocks, then the dense layers'; into `sq` where it is not null, else into
+// the workspace, where wh_cnn_sgd_clip_adam reads them. The meshed route
+// launches it on the gradient averaged over the ranks.
+extern "C" int wh_cnn_sgd_sumsq(int S, int C0, int C1, int C2, int H, int T,
+                                long B, int A, int M, const float* grads,
+                                float* sq, float* work, void* stream_) {
+  CnnArgs ca;
+  if (!make_cnn(S, C0, C1, C2, H, T, B, A, M, 0, nullptr, &ca) ||
+      carve_cnn(ca.net, ca.ld, ca.bt.N, work, &ca.sc) == 0)
+    return (int)cudaErrorInvalidValue;
+  float* out = sq ? sq : ca.sc.sq;
+  const long n_conv = ca.net.n_conv;
+  cudaStream_t stream = (cudaStream_t)stream_;
+  cudaError_t e = launch_sumsq(grads, n_conv, 1, out, stream);
+  if (e == cudaSuccess)
+    e = launch_sumsq(grads + n_conv, ca.net.n_params - n_conv, 1,
+                     out + ca.sc.n_sq_conv, stream);
+  return (int)e;
+}
+
+// Where the gradient's sums of squares lie in the workspace: out[0] their
+// float offset, out[1] their count (the conv blocks', then the dense
+// blocks'), out[2] the conv blocks' count.
+extern "C" int wh_cnn_sgd_sq_layout(int S, int C0, int C1, int C2, int H,
+                                    int T, long B, int A, int M, long* out) {
+  CnnArgs ca;
+  float* base = reinterpret_cast<float*>(256);  // offsets from a fake base
+  if (!make_cnn(S, C0, C1, C2, H, T, B, A, M, 0, nullptr, &ca) ||
+      carve_cnn(ca.net, ca.ld, ca.bt.N, base, &ca.sc) == 0)
+    return (int)cudaErrorInvalidValue;
+  out[0] = ca.sc.sq - base;
+  out[1] = ca.sc.n_sq;
+  out[2] = ca.sc.n_sq_conv;
+  return 0;
+}

@@ -1265,3 +1265,52 @@ extern "C" int wh_rnn_sgd_clip_adam(
                 (cudaStream_t)stream_>>>(p);
   return (int)cudaGetLastError();
 }
+
+// The sums of squares of `grads` (the natural layout, at H: the all-reduced
+// buffer's) as reduce_kernel takes them over the net the kernels run
+// (launch_sumsq): where H is not a multiple of 4 the gradient is first
+// scattered into the padded layout at sc.pg (pad_params_kernel's PadMap,
+// zeros at the pad entries, as reduce leaves them), so that the sums run
+// over the same blocks. Into `sq` where it is not null, else into the
+// workspace, where wh_rnn_sgd_clip_adam reads them. The meshed route
+// launches it on the gradient averaged over the ranks.
+extern "C" int wh_rnn_sgd_sumsq(int n_enc, const int* dims, int H, int lstm,
+                                int T, long B, int A, int M,
+                                const float* grads, float* sq, float* work,
+                                void* stream_) {
+  SeqArgs sa;
+  RnnTables tb;
+  if (!make_seq(n_enc, dims, H, lstm, T, B, A, M, 0, nullptr, &sa, &tb))
+    return (int)cudaErrorInvalidValue;
+  carve(&sa, work, &tb);
+  cudaStream_t stream = (cudaStream_t)stream_;
+  const float* padded = grads;
+  if (sa.map.on) {
+    pad_params_kernel<<<256, 256, 0, stream>>>(sa.map, grads, sa.sc.pg,
+                                               nullptr, nullptr, nullptr,
+                                               nullptr, 0);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    padded = sa.sc.pg;
+  }
+  return (int)launch_sumsq(padded, sa.net.n_params, 1, sq ? sq : sa.sc.sq,
+                           stream);
+}
+
+// Where the gradient's sums of squares lie in the workspace: out[0] their
+// float offset, out[1] their count (over the padded net), out[2] the
+// padded net's parameter count.
+extern "C" int wh_rnn_sgd_sq_layout(int n_enc, const int* dims, int H,
+                                    int lstm, int T, long B, int A, int M,
+                                    long* out) {
+  SeqArgs sa;
+  RnnTables tb;
+  if (!make_seq(n_enc, dims, H, lstm, T, B, A, M, 0, nullptr, &sa, &tb))
+    return (int)cudaErrorInvalidValue;
+  float* base = reinterpret_cast<float*>(256);  // offsets from a fake base
+  carve(&sa, base, &tb);
+  out[0] = sa.sc.sq - base;
+  out[1] = sa.sc.n_sq;
+  out[2] = sa.net.n_params;
+  return 0;
+}

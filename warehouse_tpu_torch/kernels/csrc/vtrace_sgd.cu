@@ -447,3 +447,32 @@ extern "C" int wh_vtrace_clip_adam(
                 (cudaStream_t)stream_>>>(p);
   return (int)cudaGetLastError();
 }
+
+// The sums of squares of `grads` (wh_vtrace_grads' layout) as reduce_kernel
+// takes them (launch_sumsq): into `sq` where it is not null, else into the
+// workspace, where wh_vtrace_clip_rms / wh_vtrace_clip_adam read them. The
+// meshed route launches it on the gradient averaged over the ranks.
+extern "C" int wh_vtrace_sumsq(int n_hidden, const int* dims, int T, long B,
+                               int A, int M, const float* grads, float* sq,
+                               float* work, void* stream_) {
+  VtArgs va;
+  MlpTables tb;
+  if (!make_vt_args(n_hidden, dims, T, B, A, M, 0, nullptr, work, &va, &tb))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_sumsq(grads, va.net.n_params, 1, sq ? sq : va.sc.sq,
+                           (cudaStream_t)stream_);
+}
+
+// Where the gradient's sums of squares lie in the workspace: out[0] their
+// float offset, out[1] their count.
+extern "C" int wh_vtrace_sq_layout(int n_hidden, const int* dims, int T,
+                                   long B, int A, int M, long* out) {
+  VtArgs va;
+  MlpTables tb;
+  float* base = reinterpret_cast<float*>(256);  // offsets from a fake base
+  if (!make_vt_args(n_hidden, dims, T, B, A, M, 0, nullptr, base, &va, &tb))
+    return (int)cudaErrorInvalidValue;
+  out[0] = va.sc.sq - base;
+  out[1] = va.sc.n_sq1;
+  return 0;
+}

@@ -66,6 +66,8 @@ padding and block knobs have no counterpart here.
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 
 from ..config import ADAM_B1, ADAM_B2, ADAM_EPS
@@ -523,11 +525,127 @@ def fill_views(views: dict, inputs: dict) -> None:
         views[k].copy_(v)
 
 
-class TrajLaunch:
+# ---- the sums of squares of a given gradient (F-10) ------------------------
+
+RED = 256  # gradients a block of the sums of squares (mlp_learner.cuh RED)
+
+
+class SqLayout(NamedTuple):
+    """How a learner's kernels cut its packed gradient of ``n`` floats for
+    the global norm (``reduce_kernel``'s partition,
+    ``csrc/mlp_learner.cuh``): ``segments``, ``(start, length)`` runs of the
+    vector the sums read, each cut into blocks of ``RED``, the blocks' sums
+    one segment's after another's; ``pad`` a function from the packed
+    gradient to that vector (K8's net padded to H rounded up to 4), or None
+    for the packed gradient itself; ``run`` the launch whose library and
+    workspace the kernel uses (None on the CPU)."""
+    segments: tuple
+    n: int
+    pad: Callable | None = None
+    run: object = None
+
+    @property
+    def sums(self) -> int:
+        """The number of sums: a block's each."""
+        return sum(-(-length // RED) for _, length in self.segments)
+
+
+def mlp_sq_layout(params, run=None) -> SqLayout:
+    """K3's and K5's layout: each policy group's gradient (one without
+    groups) a segment, group after group."""
+    k = num_groups(params) if is_multi(params) else 1
+    n = sum(v.numel() for v in params.values()) // k
+    return SqLayout(tuple((g * n, n) for g in range(k)), k * n, None, run)
+
+
+def block_sumsq_plain(x: torch.Tensor) -> torch.Tensor:
+    """The sums of squares of ``x``'s blocks of ``RED`` (the last one
+    zero-filled) in ``reduce_kernel``'s order: each block's squares summed
+    by the shared-memory tree, ``sh[t] += sh[t + w]`` for w = 128, 64, ...,
+    1; IEEE float32 products and sums on either device, so the kernel's
+    bits."""
+    n = x.numel()
+    sh = torch.zeros(-(-n // RED) * RED, dtype=torch.float32, device=x.device)
+    sh[:n] = x.reshape(-1)
+    sh = (sh * sh).view(-1, RED)
+    w = RED // 2
+    while w:
+        sh = sh[:, :w] + sh[:, w:2 * w]
+        w //= 2
+    return sh[:, 0].contiguous()
+
+
+def grad_sumsq_plain(grads: torch.Tensor, layout: SqLayout) -> torch.Tensor:
+    """The plain version of ``grad_sumsq``: the packed gradient's sums of
+    squares in ``layout``."""
+    v = grads if layout.pad is None else layout.pad(grads)
+    return torch.cat([block_sumsq_plain(v[s:s + n]) for s, n in
+                      layout.segments])
+
+
+def grad_sumsq(grads: torch.Tensor, layout: SqLayout, sq=None):
+    """The sums of squares of the packed gradient ``grads`` in the blocks a
+    learner's global norm reads (``layout``), as its grads kernel leaves
+    them for its own gradient. On a CUDA tensor the kernel
+    (``sumsq_kernel`` through ``layout.run``'s library entry point): into
+    ``sq`` or, None, into the run's workspace, where its clip step reads
+    them (the meshed route after the all-reduce); on a CPU tensor the plain
+    version, returned. ``launches`` counts the calls that launch the kernel
+    (K11's call launches it twice: the conv blocks, then the dense
+    blocks)."""
+    if grads.dtype != torch.float32 or grads.numel() != layout.n:
+        raise ValueError(f"grad_sumsq takes the packed float32 gradient of "
+                         f"{layout.n} floats, got {grads.dtype} "
+                         f"{tuple(grads.shape)}")
+    if sq is not None and (sq.dtype != torch.float32 or not sq.is_contiguous()
+                           or sq.numel() != layout.sums
+                           or sq.device != grads.device):
+        raise ValueError(f"grad_sumsq writes {layout.sums} contiguous float32 "
+                         f"sums on {grads.device}")
+    if grads.device.type == "cpu":
+        out = grad_sumsq_plain(grads, layout)
+        return out if sq is None else sq.copy_(out)
+    if layout.run is None:
+        raise ValueError("grad_sumsq on the card takes a learner launch's "
+                         "layout (its shapes and workspace)")
+    layout.run.sumsq(grads.contiguous(), sq)
+    grad_sumsq.launches += 1
+    return sq
+
+
+grad_sumsq.launches = 0
+
+
+class SumsqEntry:
+    """A learner launch's sums-of-squares entry points: ``SUMSQ`` and
+    ``SQ_LAYOUT`` name its library's, which take the launch's ``shape``
+    and ``work``space."""
+
+    SUMSQ = SQ_LAYOUT = ""
+
+    def sumsq(self, grads, sq=None) -> None:
+        """The sums-of-squares kernel on ``grads``: into ``sq``, or the
+        workspace."""
+        err = getattr(self.lib, self.SUMSQ)(
+            *self.shape, grads.data_ptr(), None if sq is None
+            else sq.data_ptr(), self.work.data_ptr(), self.stream)
+        build.check(err, "grad_sumsq kernel launch")
+
+    def sq_view(self) -> torch.Tensor:
+        """The sums of squares in the workspace, where the grads kernel
+        writes them and the clip step reads them."""
+        out = (build.L * 3)()
+        build.check(getattr(self.lib, self.SQ_LAYOUT)(*self.shape, out),
+                    self.SQ_LAYOUT)
+        return self.work[out[0]:out[0] + out[1]]
+
+
+class TrajLaunch(SumsqEntry):
     """One trajectory's inputs checked and laid out for a PPO learner's C
-    entry points. A subclass adds its net's shape, the scratch its two
-    entry points share, and the launches ``grads`` and ``clip_adam``;
-    ``bf16`` is the gradient entry point's flag for bf16 operands."""
+    entry points. A subclass adds its net's shape, the scratch its entry
+    points share, the launches ``grads`` and ``clip_adam``, the names of its
+    sums-of-squares entry points and its ``sq_layout``; ``bf16`` is the
+    gradient entry point's flag for bf16 operands."""
 
     def __init__(self, traj, adv_n, targets, ent_coef, kl_coeff,
                  num_minibatches, clip_eps, value_coef, mask_actions,
@@ -568,6 +686,8 @@ class MlpLaunch(TrajLaunch):
     """``TrajLaunch`` for the MLP's entry points (``csrc/sgd.cu``); with
     ``policy_groups`` the params are a multi-policy dict's."""
 
+    SUMSQ, SQ_LAYOUT = "wh_sgd_sumsq", "wh_sgd_sq_layout"
+
     def __init__(self, params, traj, *args, policy_groups=None,
                  matmul_dtype="float32"):
         super().__init__(traj, *args, matmul_dtype=matmul_dtype)
@@ -591,6 +711,7 @@ class MlpLaunch(TrajLaunch):
         self.chunked = dims[0] > 128
         self.work = torch.empty(self.lib.wh_sgd_workspace_floats(*self.shape),
                                 dtype=torch.float32, device=dev)
+        self.sq_layout = mlp_sq_layout(params, self)
 
     def _args(self, p_flat, mb: int, grads, sums) -> list:
         return [*self.shape, mb, *self.batch_ptrs(), p_flat.data_ptr(),
@@ -712,7 +833,11 @@ def sgd_phase_on_card(run: TrajLaunch, pack_fn, unpack_fn, params,
     synchronisation between them: ``(params, opt_state, losses)``. With
     ``mesh`` (the meshed route, JAX ``train/ppo.py:694-708``) each step's
     gradient and its four metric sums lie in one buffer, averaged over the
-    mesh's ranks by one ``all_reduce`` between the two launches."""
+    mesh's ranks by one ``all_reduce`` between the two launches; then
+    ``grad_sumsq`` takes the averaged gradient's sums of squares, so that
+    the step clips by its global norm (JAX ``pmean``s before optax's clip,
+    ``warehouse_tpu/ops/ppo_update.py:241-245``), in place of the rank's own
+    gradient's that the grads kernel left."""
     M, n_steps = num_minibatches, num_epochs * num_minibatches
     p_flat, m_flat, v_flat = (pack_fn(t) for t in (params, opt_state.mu,
                                                    opt_state.nu))
@@ -729,6 +854,7 @@ def sgd_phase_on_card(run: TrajLaunch, pack_fn, unpack_fn, params,
         if mesh is not None:
             mesh.mean_(buf)
             sums[s] = buf[n:]
+            grad_sumsq(grads, run.sq_layout)
         run.clip_adam(p_flat, m_flat, v_flat, grads, rows, s, max_grad_norm)
     losses = _losses(sums.reshape(num_epochs, M, 4), run.mb_n, value_coef,
                      ent_coef, kl_coeff)

@@ -57,8 +57,8 @@ from ..ops.ppo_update import NEG_INF, ppo_losses
 from ..optim import AdamState
 from . import build
 from .act import cnn_kernel_dims, pack_cnn, unpack_cnn
-from .sgd import (TrajLaunch, _device_of, _losses, check_matmul_dtype,
-                  env_minibatches, minibatch_grads_on_card,
+from .sgd import (SqLayout, TrajLaunch, _device_of, _losses,
+                  check_matmul_dtype, env_minibatches, minibatch_grads_on_card,
                   ppo_minibatch_grads_reference, ppo_sgd_phase_reference,
                   sgd_phase_on_card)
 
@@ -292,8 +292,18 @@ def check_cnn_learner_fits(params, obs_dim: int, dev) -> tuple:
     return net
 
 
+def cnn_sq_layout(params, run=None) -> SqLayout:
+    """K11's layout: the conv layers' gradient (first in the packed
+    vector), then the dense layers'."""
+    n_conv = sum(params[k].numel() for k in CONV_KEYS)
+    n = sum(v.numel() for v in params.values())
+    return SqLayout(((0, n_conv), (n_conv, n - n_conv)), n, None, run)
+
+
 class CnnLaunch(TrajLaunch):
     """``TrajLaunch`` for the CNN's entry points (``csrc/sgd_cnn.cu``)."""
+
+    SUMSQ, SQ_LAYOUT = "wh_cnn_sgd_sumsq", "wh_cnn_sgd_sq_layout"
 
     def __init__(self, params, traj, *args, matmul_dtype="float32"):
         _check_cnn(params)
@@ -309,6 +319,7 @@ class CnnLaunch(TrajLaunch):
         self.work = torch.empty(
             self.lib.wh_cnn_sgd_workspace_floats(*self.shape),
             dtype=torch.float32, device=dev)
+        self.sq_layout = cnn_sq_layout(params, self)
 
     def _args(self, p_flat, mb: int, grads, sums) -> list:
         if p_flat.numel() != self.n_params:

@@ -60,8 +60,8 @@ from ..optim import AdamState, adam_update_fn
 from . import build
 from .act_rnn import (GATE_ORDER, pack_rnn, rnn_dims, split_carry,
                       unpack_rnn)
-from .sgd import (TrajLaunch, _device_of, _head_w, _losses, _rounder,
-                  check_matmul_dtype, env_minibatches,
+from .sgd import (SqLayout, TrajLaunch, _device_of, _head_w, _losses,
+                  _rounder, check_matmul_dtype, env_minibatches,
                   minibatch_grads_on_card, operand_precision,
                   sgd_phase_on_card)
 
@@ -450,9 +450,45 @@ def check_rnn_learner_fits(params, obs_dim: int, dev):
     return dims, H, lstm
 
 
+def pad_rnn_params(params, Hq: int) -> dict:
+    """``params`` at hidden width ``Hq`` >= H, zeros past the natural
+    entries: each gate's rows and (the recurrent weights) columns, each
+    bias, the head's columns; the encoder as it is. Packed by ``pack_rnn``
+    it is the padded net's vector of ``csrc/sgd_rnn.cu`` (``PadMap``)."""
+    _, H, _ = rnn_dims(params, params["encoder.0.weight"].shape[1])
+    p = Hq - H
+    out = {}
+    for k, v in params.items():
+        if k.startswith("cell.") and v.dim() == 2:  # rows; h-side columns
+            v = torch.nn.functional.pad(
+                v, (0, p if k.startswith("cell.h") else 0, 0, p))
+        elif k.startswith("cell.") or k in ("logits.weight", "value.weight"):
+            v = torch.nn.functional.pad(v, (0, p))  # a bias; head columns
+        out[k] = v
+    return out
+
+
+def rnn_sq_layout(params, run=None) -> SqLayout:
+    """K8's layout: the gradient scattered into the net the kernels run, at
+    H rounded up to 4 (``pad_rnn_params``), one segment."""
+    _, H, _ = rnn_dims(params, params["encoder.0.weight"].shape[1])
+    Hq = -(-H // 4) * 4
+    n = sum(v.numel() for v in params.values())
+    if Hq == H:
+        return SqLayout(((0, n),), n, None, run)
+    padded = pad_rnn_params(params, Hq)
+
+    def pad(grads):
+        return pack_rnn(pad_rnn_params(unpack_rnn(grads, params), Hq))
+    return SqLayout(((0, sum(v.numel() for v in padded.values())),), n, pad,
+                    run)
+
+
 class RnnLaunch(TrajLaunch):
     """``TrajLaunch`` for the recurrent entry points (``csrc/sgd_rnn.cu``),
     with the rollout-start carry."""
+
+    SUMSQ, SQ_LAYOUT = "wh_rnn_sgd_sumsq", "wh_rnn_sgd_sq_layout"
 
     def __init__(self, params, traj, adv_n, targets, h0, *args,
                  matmul_dtype="float32"):
@@ -473,6 +509,7 @@ class RnnLaunch(TrajLaunch):
         self.widths = (dims, H, lstm)
         self.work = torch.empty(lib.wh_rnn_sgd_workspace_floats(*self.shape),
                                 dtype=torch.float32, device=dev)
+        self.sq_layout = rnn_sq_layout(params, self)
 
     def _args(self, p_flat, mb: int, grads, sums) -> list:
         if p_flat.numel() != self.n_params:

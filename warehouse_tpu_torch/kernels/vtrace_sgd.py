@@ -63,8 +63,8 @@ from ..ops.vtrace import vtrace
 from ..optim import (RMS_DECAY, RMS_EPS, AdamState, RMSState,
                      adam_update_fn, rms_update_fn)
 from . import build, sgd
-from .sgd import (_device_of, _dims, _f32, check_stage_smem, learner_dims,
-                  pack, unpack)
+from .sgd import (SumsqEntry, _device_of, _dims, _f32, check_stage_smem,
+                  grad_sumsq, learner_dims, mlp_sq_layout, pack, unpack)
 
 N_ACT = 5
 VT_STAGES = ("fwd", "head", "trace", "dgrad", "wgrad")
@@ -283,9 +283,11 @@ def vtrace_minibatch_grads_staged(params, traj, last_obs, mb_idx: int,
 
 # ---- the kernels ------------------------------------------------------------
 
-class _Launch:
+class _Launch(SumsqEntry):
     """One trajectory's inputs checked and laid out for the C entry points
     (``csrc/vtrace_sgd.cu``), with the scratch they share."""
+
+    SUMSQ, SQ_LAYOUT = "wh_vtrace_sumsq", "wh_vtrace_sq_layout"
 
     def __init__(self, params, traj, last_obs, ent_coef, num_minibatches, *,
                  gamma, rho_clip, c_clip, value_coef, mask_actions,
@@ -323,6 +325,7 @@ class _Launch:
         self.nb = (B // M) * A
         self.work = torch.empty(lib.wh_vtrace_workspace_floats(*self.shape),
                                 dtype=torch.float32, device=dev)
+        self.sq_layout = mlp_sq_layout(params, self)
         self.scal = _f32(ent_coef, dev).reshape(1)
         self.mb_n = T * (B // M) * A
         self.coefs = (gamma, rho_clip, c_clip, value_coef, 1.0 / self.mb_n)
@@ -429,8 +432,9 @@ def impala_sgd_phase(params, opt_state: RMSState | AdamState, traj,
     tensors the plain twin runs. With ``mesh``, the meshed learner (JAX
     ``train/impala.py:518-527``): the trajectory laid out once, each step's
     K6 gradient and loss sums in one buffer averaged over the ranks by one
-    ``all_reduce``, then the step. ``launches`` counts the optimizer
-    kernel."""
+    ``all_reduce``, the averaged gradient's sums of squares
+    (``sgd.grad_sumsq``, the norm the clip reads), then the step.
+    ``launches`` counts the optimizer kernel."""
     loss_kw = dict(gamma=gamma, rho_clip=rho_clip, c_clip=c_clip,
                    value_coef=value_coef, mask_actions=mask_actions,
                    bootstrap_truncated=bootstrap_truncated)
@@ -458,6 +462,7 @@ def impala_sgd_phase(params, opt_state: RMSState | AdamState, traj,
         if mesh is not None:
             mesh.mean_(buf)
             sums[s] = buf[n:]
+            grad_sumsq(grads, run.sq_layout)
         run.step(p_flat, moments, grads, rows, s, max_grad_norm)
     losses = _losses(sums.reshape(num_passes, M, 4), run.mb_n, value_coef,
                      ent_coef)

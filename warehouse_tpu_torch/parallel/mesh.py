@@ -14,8 +14,17 @@ The average is ``pmean``'s: the sum over the ranks (``all_reduce``), then
 a division by the world. With two ranks the sum is the same in either
 order; with more, the backend's order holds and each element's sum reaches
 every rank alike, so the ranks stay bit-identical. The model axis is 1
-(``make_mesh(model_parallel > 1)`` raises); the population axis of the
-sweeps and PBT waits for ROADMAP M-8b.
+(``make_mesh(model_parallel > 1)`` raises).
+
+The ``(pop, data)`` mesh of the sweeps and PBT (``make_pop_mesh``,
+``PopMesh``) lays the ranks out as JAX's ``reshape(pop, n // pop)``: rank
+``r`` is slice ``r // data`` at data index ``r % data``. Each slice is a
+``DataMesh`` of its own group (every rank forms every slice's group, in
+slice order), which the meshed trainers take unchanged; a population
+member or a sweep seed lives on one slice, its envs sharded over the
+slice's data ranks. Between slices there is no collective but the ones the
+callers ask for: the metrics gathered over the slices, and a member's state
+copied from one slice to another, rank ``(s, d)`` to rank ``(s', d)``.
 """
 
 from __future__ import annotations
@@ -115,10 +124,102 @@ def make_mesh(group=None, model_parallel: int = 1, device=None) -> DataMesh:
                     device=torch.device(device))
 
 
-def make_pop_mesh(pop_shards: int, devices=None):
-    """The ``(pop, data)`` mesh of the sweeps and PBT: not ported yet."""
-    raise NotImplementedError("a (pop, data) mesh is not ported yet "
-                              "(ROADMAP M-8b)")
+def pop_layout(world: int, pop_shards: int) -> list:
+    """The ranks of each slice of a ``(pop, data)`` mesh over ``world``
+    ranks, as JAX's ``reshape(pop, world // pop)`` lays out its devices:
+    slice ``s`` holds ranks ``[s d, (s + 1) d)``, ``d = world // pop``.
+    ``ValueError`` where ``pop_shards`` does not divide ``world``."""
+    if pop_shards < 1 or world % pop_shards:
+        raise ValueError(f"{world} ranks not divisible by pop={pop_shards}")
+    d = world // pop_shards
+    return [list(range(s * d, (s + 1) * d)) for s in range(pop_shards)]
+
+
+@dataclasses.dataclass(frozen=True)
+class PopMesh:
+    """One rank's view of a ``(pop, data)`` mesh: ``whole``, the mesh's
+    ranks as one ``DataMesh`` (its rank this rank's index in ``ranks``, the
+    global ranks in mesh order); ``data``, this rank's slice, the
+    ``DataMesh`` of its data ranks' group; ``pop``, the number of slices."""
+    whole: DataMesh
+    data: DataMesh
+    pop: int
+    ranks: tuple
+
+    @property
+    def shape(self) -> dict:
+        return {POP_AXIS: self.pop, DATA_AXIS: self.data.world}
+
+    @property
+    def rank(self) -> int:
+        return self.whole.rank
+
+    @property
+    def slice(self) -> int:
+        """This rank's slice: the population members or sweep seeds it
+        holds."""
+        return self.whole.rank // self.data.world
+
+    @property
+    def device(self) -> torch.device:
+        return self.whole.device
+
+    def gather_slices(self, x: torch.Tensor) -> list:
+        """Every slice's ``x``, in slice order (a collective over the mesh):
+        the value of each slice's first data rank, which its data ranks hold
+        alike where they agree."""
+        out = self.whole.all_gather(x)
+        return out[::self.data.world]
+
+    def copy_tree(self, tree, src: int, dst: int):
+        """Slice ``src``'s ``tree`` copied bit for bit to slice ``dst``, rank
+        ``(src, d)`` to rank ``(dst, d)`` for each data index ``d`` (the
+        slices hold the same shard ``d`` of what they carry): returns the
+        received copy on a rank of ``dst``, whose ``tree`` gives its
+        structure and shapes, else ``tree``. Every rank of the mesh makes
+        the same calls in the same order; the ranks of the two slices send
+        and receive one buffer each (its leaves' bytes), the others do
+        nothing."""
+        s, d = self.slice, self.data.rank
+        if src == dst or s not in (src, dst):
+            return tree
+        leaves = []
+        _tree_map(lambda x: leaves.append(x) or x, tree)
+        sizes = [x.numel() * x.element_size() for x in leaves]
+        # gloo moves host tensors, NCCL the card's.
+        dev = (torch.device("cpu") if self.whole.backend == "gloo"
+               else self.device)
+        peer = self.ranks[(dst if s == src else src) * self.data.world + d]
+        if s == src:
+            buf = torch.cat([x.detach().contiguous().reshape(-1)
+                             .view(torch.uint8).to(dev) for x in leaves])
+            dist.send(buf, peer)
+            return tree
+        buf = torch.empty(sum(sizes), dtype=torch.uint8, device=dev)
+        dist.recv(buf, peer)
+        parts = iter(torch.split(buf, sizes))
+        return _tree_map(lambda x: next(parts).clone().view(x.dtype)
+                         .view(x.shape).to(x.device), tree)
+
+
+def make_pop_mesh(pop_shards: int, group=None, device=None) -> PopMesh:
+    """The ``(pop, data)`` mesh over the ranks of ``group`` (the default
+    group when None, which must be formed), ``pop_shards`` slices of
+    ``world // pop_shards`` data ranks each (``pop_layout``): one
+    ``torch.distributed`` group per slice, which every rank forms, slice
+    after slice. ``device``: this rank's, as ``make_mesh`` picks it. Either
+    axis may be 1: a slice of one rank is a world-1 data mesh."""
+    whole = make_mesh(group, device=device)
+    ranks = tuple(dist.get_process_group_ranks(group)
+                  if group is not None else range(whole.world))
+    layout = pop_layout(whole.world, pop_shards)
+    mine = None
+    for members in layout:
+        g = dist.new_group([ranks[r] for r in members])
+        if whole.rank in members:
+            mine = DataMesh(group=g, rank=members.index(whole.rank),
+                            world=len(members), device=whole.device)
+    return PopMesh(whole=whole, data=mine, pop=pop_shards, ranks=ranks)
 
 
 class Sharding(NamedTuple):

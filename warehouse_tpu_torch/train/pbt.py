@@ -20,7 +20,24 @@ learning rate with no schedule (optax ``inject_hyperparams``), flat with
 ``flat_optimizer``. The
 JAX PBT reaches no Pallas kernel, so both phases are plain PyTorch on the
 card (``backends`` ``{"rollout": "step", "grad": "plain"}``, in every row).
-A ``(pop, data)`` mesh waits for ROADMAP M-8b.
+
+With a ``(pop, data)`` mesh (``parallel.mesh.make_pop_mesh``; JAX
+``train/pbt.py:268-329``) slice ``s`` holds members ``[s P / pop, (s + 1)
+P / pop)`` (member ``p`` from ``fold_in(key, p)`` all the same), each
+member's envs sharded over the slice's data ranks: env ``i`` reset from
+``fold_in(ekey, i)`` for the rank's global env indices, the rank's shard
+key ``fold_in(skey, d)``, flat minibatches of its ``T * b_local * A``
+samples permuted by that key, each step's gradient and loss averaged over
+the slice's data group (``minibatch_epochs(mesh=)``), the deliveries (over
+``T * b_local``) and the reward averaged over it too (:246-257).
+``train_chunk``'s metrics and ``get_lr`` are gathered over the slices to
+``[P, ...]`` on every rank, ``with_hp`` takes the whole population's;
+every rank runs the same generator, so the exploit's sources and the
+explored hyperparameters agree everywhere; a member replaced by one on
+another slice receives its whole state bit for bit, rank ``(s, d)`` to
+rank ``(s', d)`` (``PopMesh.copy_tree``: point to point, one buffer for
+each replaced member and data index; JAX's gather along the population
+axis, ``run_pbt`` :419-421). The mesh's rank 0 alone writes the JSONL.
 """
 
 from __future__ import annotations
@@ -41,6 +58,7 @@ from ..models.policy import apply, params_from_flax
 from ..ops.gae import gae
 from ..ops.ppo_update import adaptive_kl_coeff
 from ..optim import AdamState, ClipAdam, opt_state_from_optax
+from ..parallel.mesh import DATA_AXIS, POP_AXIS
 from .ppo import (PLAIN, STEP, Transition, _tensor, init_parts,
                   ppo_plain_phase, step_rollout)
 from .sweep import sample_spec
@@ -94,6 +112,29 @@ def _f32(x, device) -> torch.Tensor:
     return torch.tensor(float(x), dtype=torch.float32, device=device)
 
 
+def member_range(P: int, mesh) -> range:
+    """The members this rank holds: all ``P`` without a mesh, else its
+    slice's ``P / pop``; ``ValueError`` (JAX's) where ``pop`` does not
+    divide ``P``."""
+    if mesh is None:
+        return range(P)
+    pop = mesh.shape[POP_AXIS]
+    if P % pop:
+        raise ValueError(f"population {P} not divisible by {pop} pop shards")
+    per = P // pop
+    return range(mesh.slice * per, (mesh.slice + 1) * per)
+
+
+def population_values(members: list, name: str, mesh=None) -> np.ndarray:
+    """Every member's float ``name`` (a hyperparameter), ``[P]`` in member
+    order: this rank's members', gathered over the mesh's slices."""
+    local = torch.tensor([float(getattr(m, name)) for m in members],
+                         dtype=torch.float64)
+    if mesh is not None:
+        local = torch.cat(mesh.gather_slices(local))
+    return local.numpy()
+
+
 def make_pbt_trainer(env_cfg: EnvConfig, tcfg: TrainConfig,
                      arch: str = "mlp", mesh=None, device=None):
     """Build ``(init_members, train_chunk, get_lr, with_hp)`` with runtime
@@ -103,15 +144,23 @@ def make_pbt_trainer(env_cfg: EnvConfig, tcfg: TrainConfig,
     ``fold_in(key, p)``); ``train_chunk(members, n) -> (members,
     metrics)``: n updates of every member in turn, ``metrics`` a dict of
     tensors ``[P, n]``.
+
+    ``mesh``: a ``parallel.mesh.PopMesh`` (``make_pop_mesh``): the members
+    sharded over its ``pop`` slices (this rank's members are its slice's),
+    each member's env batch over the slice's data ranks (``num_envs``
+    divisible by them).
     """
-    if mesh is not None:
-        raise NotImplementedError("a (pop, data) mesh is not ported yet "
-                                  "(ROADMAP M-8b)")
     device = resolve_device(device)
     env_cfg = env_cfg.replace(auto_reset=True)
     # The JAX PBT builds its model at float32, whatever model_dtype says.
     tcfg = tcfg.replace(model_dtype="float32")
-    T, B, A = tcfg.unroll_length, tcfg.num_envs, env_cfg.num_agents
+    n_data = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    if tcfg.num_envs % n_data:
+        raise ValueError(f"num_envs={tcfg.num_envs} not divisible by "
+                         f"{n_data} data shards")
+    # The slice's data group averages each step's gradient and the metrics.
+    data = None if mesh is None else mesh.data
+    T, B, A = tcfg.unroll_length, tcfg.num_envs // n_data, env_cfg.num_agents
     if T * B * A % tcfg.num_minibatches:
         raise ValueError("T*B_local*A must divide into num_minibatches")
     # JAX's PBT learns on flat minibatches of whole gradients.
@@ -123,9 +172,13 @@ def make_pbt_trainer(env_cfg: EnvConfig, tcfg: TrainConfig,
         return ClipAdam(lambda count: lr.expand(count.shape),
                         tcfg.max_grad_norm, tcfg.flat_optimizer)
 
+    # This rank's envs of each member (by global index) and its shard key.
+    envs, shard = (None, 0) if mesh is None else (
+        range(data.rank * B, (data.rank + 1) * B), data.rank)
+
     def init_one(key: torch.Tensor, lr: float, ent: float) -> MemberState:
-        params, env_state, obs, skey = init_parts(env_cfg, tcfg, arch, device,
-                                                  key)
+        params, env_state, obs, skey = init_parts(
+            env_cfg, tcfg, arch, device, key, envs=envs, shard=shard)
         opt = ClipAdam(lr, tcfg.max_grad_norm, tcfg.flat_optimizer)
         return MemberState(params, opt.init(params), env_state, obs, skey,
                            _f32(lr, device), _f32(ent, device),
@@ -134,7 +187,7 @@ def make_pbt_trainer(env_cfg: EnvConfig, tcfg: TrainConfig,
     def init_members(key: torch.Tensor, lrs, ents) -> list[MemberState]:
         key = key.to(device)
         return [init_one(rng.fold_in(key, p), lrs[p], ents[p])
-                for p in range(len(lrs))]
+                for p in member_range(len(lrs), mesh)]
 
     def update_one(member: MemberState):
         params = member.params
@@ -158,16 +211,19 @@ def make_pbt_trainer(env_cfg: EnvConfig, tcfg: TrainConfig,
         params, opt_state, key, losses = ppo_plain_phase(
             learner_tcfg, optimizer(member), params, member.opt_state, key,
             traj, advantages, targets, member.entropy_coef, member.kl_coeff,
-            False)
+            False, mesh=data)
         mean_kl = losses[4].mean()
         kl_coeff = adaptive_kl_coeff(tcfg, member.kl_coeff, mean_kl)
+        deliveries = roll.delivered.sum(dtype=torch.float32) / (T * B)
+        reward = roll.raw_reward.mean(dim=(1, 2)).mean()
+        if data is not None:
+            deliveries, reward = data.mean([deliveries, reward])
         metrics = {
             "loss": losses[0].mean(),
             "entropy": losses[3].mean(),
             "kl": mean_kl,
-            "deliveries_per_env_step":
-                roll.delivered.sum(dtype=torch.float32) / (T * B),
-            "reward_per_step": roll.raw_reward.mean(dim=(1, 2)).mean(),
+            "deliveries_per_env_step": deliveries,
+            "reward_per_step": reward,
         }
         return dataclasses.replace(
             member, params=params, opt_state=opt_state, env_state=env_state,
@@ -183,36 +239,70 @@ def make_pbt_trainer(env_cfg: EnvConfig, tcfg: TrainConfig,
             out.append(member)
             rows.append({k: torch.stack([s[k] for s in steps])
                          for k in steps[0]})
-        return out, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        metrics = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        if mesh is not None:  # [P, n]: every slice's members, in order
+            metrics = {k: torch.cat(mesh.gather_slices(v))
+                       for k, v in metrics.items()}
+        return out, metrics
 
     def get_lr(members: list[MemberState]) -> np.ndarray:
-        return np.array([float(m.learning_rate) for m in members])
+        return population_values(members, "learning_rate", mesh)
 
     def with_hp(members: list[MemberState], lrs, ents) -> list[MemberState]:
-        return [dataclasses.replace(m, learning_rate=_f32(lr, device),
-                                    entropy_coef=_f32(ent, device))
-                for m, lr, ent in zip(members, lrs, ents)]
+        """The whole population's ``lrs`` and ``ents`` ``[P]`` set on this
+        rank's members."""
+        mine = member_range(len(lrs), mesh)
+        return [dataclasses.replace(m, learning_rate=_f32(lrs[p], device),
+                                    entropy_coef=_f32(ents[p], device))
+                for m, p in zip(members, mine)]
 
     return init_members, train_chunk, get_lr, with_hp
 
 
+def exploit(members: list, src: np.ndarray, mesh=None) -> list:
+    """Member ``i`` replaced by a copy of member ``src[i]``'s whole state,
+    for every ``i`` (``[P]``, the same on every rank). With ``mesh`` the
+    rank's members are its slice's: a source on the same slice is cloned
+    in place, one on another slice arrives from the rank of that slice at
+    this rank's data index (``PopMesh.copy_tree``), the copies made in
+    member order on every rank."""
+    if mesh is None:
+        return [_clone(members[int(s)]) for s in src]
+    mine = member_range(len(src), mesh)
+    per = len(mine)
+    out = list(members)
+    for i, s in enumerate(int(s) for s in src):
+        here, there = i // per, s // per
+        if here == there:
+            if i in mine:
+                out[i - mine.start] = _clone(members[s - mine.start])
+            continue
+        tree = (members[s - mine.start] if there == mesh.slice
+                else members[i - mine.start] if here == mesh.slice else None)
+        got = mesh.copy_tree(tree, there, here)
+        if i in mine:
+            out[i - mine.start] = got
+    return out
+
+
 def exploit_explore(members: list, scores: np.ndarray, lrs: np.ndarray,
                     ents: np.ndarray, hyper_space: dict, rng_np, quantile,
-                    resample_prob: float, sign: float):
+                    resample_prob: float, sign: float, mesh=None):
     """Tune's default PBT rule, as the JAX loop applies it: the bottom
     ``quantile`` of members (by ``sign * scores``) each copy the whole
-    state of a member drawn from the top quantile, then each mutable
+    state of a member drawn from the top quantile (``exploit``, over
+    ``mesh`` where the members are sharded), then each mutable
     hyperparameter in ``hyper_space`` is resampled with probability
     ``resample_prob`` or multiplied by 1.2 or 1/1.2. Returns ``(members,
     src, bottom, new_lrs, new_ents)``: member i's state is now member
     ``src[i]``'s; the caller sets the new hyperparameters."""
-    P = len(members)
+    P = len(scores)
     ranked = np.argsort(sign * scores)[::-1]         # best first
     n_q = max(1, int(np.ceil(P * quantile)))
     top, bottom = ranked[:n_q], ranked[P - n_q:]
     src = np.arange(P)
     src[bottom] = rng_np.choice(top, size=len(bottom))
-    members = [_clone(members[int(s)]) for s in src]
+    members = exploit(members, src, mesh)
     new_lrs, new_ents = lrs[src].copy(), ents[src].copy()
     for i in bottom:
         for name, arr in (("learning_rate", new_lrs),
@@ -248,7 +338,9 @@ def run_pbt(
     ``hyper_space`` maps a subset of {"learning_rate", "entropy_coef"}
     to a sample spec (list = choice, {"uniform"|"loguniform": [lo,hi]}).
     Score per interval = mean of ``select_metric`` over the interval's
-    updates. Runs on the card unless ``device="cpu"``.
+    updates. Runs on the card unless ``device="cpu"``. ``mesh``: a
+    ``(pop, data)`` mesh (``make_pbt_trainer``); the final population is
+    then this rank's members.
     """
     for k in hyper_space:
         if k not in _MUTABLE:
@@ -283,7 +375,7 @@ def run_pbt(
         curve = metrics[select_metric].detach().cpu().numpy()  # [P, n]
         scores = curve.mean(axis=1)
         lrs = get_lr(member)
-        ents = np.array([float(m.entropy_coef) for m in member])
+        ents = population_values(member, "entropy_coef", mesh)
         for p in range(P):
             rows.append({
                 "member": p, "interval": interval,
@@ -297,7 +389,7 @@ def run_pbt(
             break
         member, _, _, new_lrs, new_ents = exploit_explore(
             member, scores, lrs, ents, hyper_space, rng_np, quantile,
-            resample_prob, sign)
+            resample_prob, sign, mesh=mesh)
         member = with_hp(member, new_lrs, new_ents)
 
     best_i = int(np.argmax(sign * scores))
@@ -308,12 +400,12 @@ def run_pbt(
         "num_intervals": num_intervals,
         "best_member": best_i, "best_score": float(scores[best_i]),
         "best_hyperparams": {"learning_rate": float(get_lr(member)[best_i]),
-                             "entropy_coef": float(
-                                 member[best_i].entropy_coef)},
+                             "entropy_coef": float(population_values(
+                                 member, "entropy_coef", mesh)[best_i])},
         "backends": BACKENDS,
     }
     rows.append(best)
-    if out_path:
+    if out_path and (mesh is None or mesh.rank == 0):
         with open(out_path, "w") as f:
             for r in rows:
                 f.write(json.dumps(r) + "\n")

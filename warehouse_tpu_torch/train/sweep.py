@@ -10,8 +10,16 @@ metrics ``[num_seeds, num_updates]``. Seed s starts from
 (one per trial and seed, or per trial and rung, then a summary), the
 selection by ``select_metric`` over the last ``last_k`` updates and
 ``mode``, random search and ASHA's rungs and promotions are the JAX
-module's; each row also records the trial's ``backends``. A
-``seed_mesh`` (the seeds sharded over devices) waits for ROADMAP M-8b.
+module's; each row also records the trial's ``backends``.
+
+With a ``seed_mesh`` (``parallel.mesh.make_pop_mesh``: the JAX sweep's
+seed axis sharded over ``pop``, with no collective) slice ``s`` of ``pop``
+trains seeds ``[s S / pop, (s + 1) S / pop)`` in turn, each from the same
+key and through the same routes as without the mesh; the data ranks of a
+slice are replicas, as JAX's ``P(POP_AXIS)`` sharding makes them. The
+metrics are gathered over the slices in seed order, so every rank holds
+the same ``[num_seeds, n]`` arrays (and ASHA's promotions agree
+everywhere); the mesh's rank 0 alone writes the JSONL.
 """
 
 from __future__ import annotations
@@ -22,19 +30,28 @@ import json
 from typing import Any, Sequence
 
 import numpy as np
+import torch
 
 from ..config import EnvConfig, TrainConfig
 from ..device import resolve_device
 
 from .. import rng
+from ..parallel.mesh import POP_AXIS
 from .ppo import make_train
 
 
-def _no_seed_mesh(seed_mesh) -> None:
-    if seed_mesh is not None:
-        raise NotImplementedError(
-            "seed_mesh: a sweep over several devices is not ported yet "
-            "(ROADMAP M-8b)")
+def seed_range(num_seeds: int, seed_mesh) -> range:
+    """The seeds this rank trains: all of them without a mesh, else its
+    slice's ``num_seeds / pop``; ``ValueError`` (JAX's) where ``pop`` does
+    not divide ``num_seeds``."""
+    if seed_mesh is None:
+        return range(num_seeds)
+    pop = seed_mesh.shape[POP_AXIS]
+    if num_seeds % pop:
+        raise ValueError(f"num_seeds={num_seeds} not divisible by {pop} pop "
+                         "shards")
+    per = num_seeds // pop
+    return range(seed_mesh.slice * per, (seed_mesh.slice + 1) * per)
 
 
 def _grid_points(grid: dict[str, Sequence[Any]]) -> list[dict[str, Any]]:
@@ -90,10 +107,13 @@ def seed_keys(tcfg: TrainConfig, num_seeds: int, device) -> list:
     return [rng.fold_in(base, s) for s in range(num_seeds)]
 
 
-def init_seeds(trainer, tcfg: TrainConfig, num_seeds: int) -> list:
-    """Each seed's runner state from its ``seed_keys`` key."""
-    return [trainer.init(k)
-            for k in seed_keys(tcfg, num_seeds, trainer.device)]
+def init_seeds(trainer, tcfg: TrainConfig, num_seeds: int,
+               seeds=None) -> list:
+    """Each seed's runner state from its ``seed_keys`` key, for the seeds
+    ``seeds`` (all of them by default)."""
+    keys = seed_keys(tcfg, num_seeds, trainer.device)
+    return [trainer.init(keys[s])
+            for s in (range(num_seeds) if seeds is None else seeds)]
 
 
 def _stack(per_seed: list[dict]) -> dict[str, np.ndarray]:
@@ -112,25 +132,44 @@ def _train_seeds(trainer, states: list, n: int):
     return out, _stack(metrics)
 
 
-def _trial(env_cfg, tcfg, num_seeds, arch, device):
+def _gather_seeds(metrics: dict, seed_mesh) -> dict:
+    """This slice's seeds' metrics joined with the other slices', in seed
+    order (a collective over the mesh); ``metrics`` without a mesh."""
+    if seed_mesh is None:
+        return metrics
+    return {k: np.concatenate([
+        x.numpy() for x in seed_mesh.gather_slices(torch.from_numpy(v))])
+        for k, v in metrics.items()}
+
+
+def _trial(env_cfg, tcfg, num_seeds, arch, device, seed_mesh=None):
     trainer = make_train(env_cfg, tcfg, arch=arch, device=device)
+    seeds = seed_range(num_seeds, seed_mesh)
     states, metrics = _train_seeds(
-        trainer, init_seeds(trainer, tcfg, num_seeds), tcfg.num_updates)
-    return trainer, states, metrics
+        trainer, init_seeds(trainer, tcfg, num_seeds, seeds),
+        tcfg.num_updates)
+    return trainer, states, _gather_seeds(metrics, seed_mesh)
 
 
 def run_trial(env_cfg: EnvConfig, tcfg: TrainConfig, num_seeds: int,
               arch: str = "mlp", seed_mesh=None, device=None):
     """Train ``num_seeds`` seeds of one config, one after another on the
     card unless ``device="cpu"``: ``(states, metrics)``, the runner state
-    of each seed and a dict of arrays ``[num_seeds, num_updates]``."""
-    _no_seed_mesh(seed_mesh)
+    of each seed and a dict of arrays ``[num_seeds, num_updates]``. With
+    ``seed_mesh`` this rank trains its slice's seeds alone: ``states`` holds
+    theirs and None for the others', ``metrics`` every seed's."""
+    seeds = seed_range(num_seeds, seed_mesh)
     _, states, metrics = _trial(env_cfg, tcfg, num_seeds, arch,
-                                resolve_device(device))
-    return states, metrics
+                                resolve_device(device), seed_mesh)
+    out = [None] * num_seeds
+    out[seeds.start:seeds.stop] = states
+    return out, metrics
 
 
-def _write(rows: list, out_path: str | None) -> None:
+def _write(rows: list, out_path: str | None, seed_mesh=None) -> None:
+    """The rows as JSONL, by the mesh's rank 0 alone."""
+    if seed_mesh is not None and seed_mesh.rank != 0:
+        return
     if out_path:
         with open(out_path, "w") as f:
             for r in rows:
@@ -161,7 +200,7 @@ def run_sweep(
     Runs on the card unless ``device="cpu"``."""
     if mode not in ("max", "min"):
         raise ValueError("mode must be 'max' or 'min'")
-    _no_seed_mesh(seed_mesh)
+    seed_range(num_seeds, seed_mesh)
     device = resolve_device(device)
     points = _points(grid, search, num_samples, search_seed)
     if not points:
@@ -171,7 +210,8 @@ def run_sweep(
     backends = []
     for i, point in enumerate(points):
         tcfg = base_tcfg.replace(**point)
-        trainer, _, metrics = _trial(env_cfg, tcfg, num_seeds, arch, device)
+        trainer, _, metrics = _trial(env_cfg, tcfg, num_seeds, arch, device,
+                                     seed_mesh)
         backends.append(trainer.backends)
         curve = metrics[select_metric]                 # [S, n]
         k = min(last_k, curve.shape[1])
@@ -203,7 +243,7 @@ def run_sweep(
         "backends": backends[best_i],
     }
     rows.append(best)
-    _write(rows, out_path)
+    _write(rows, out_path, seed_mesh)
     return rows, best
 
 
@@ -238,7 +278,7 @@ def run_asha(
     """
     if mode not in ("max", "min"):
         raise ValueError("mode must be 'max' or 'min'")
-    _no_seed_mesh(seed_mesh)
+    seeds = seed_range(num_seeds, seed_mesh)
     device = resolve_device(device)
     points = _points(grid, search, num_samples, search_seed)
     if not points:
@@ -251,7 +291,7 @@ def run_asha(
         tcfg = base_tcfg.replace(**overrides)
         trainer = make_train(env_cfg, tcfg, arch=arch, device=device)
         trials.append({"trainer": trainer, "point": point,
-                       "rs": init_seeds(trainer, tcfg, num_seeds)})
+                       "rs": init_seeds(trainer, tcfg, num_seeds, seeds)})
 
     rows: list[dict[str, Any]] = []
     alive = list(range(len(trials)))
@@ -260,7 +300,7 @@ def run_asha(
         for i in alive:
             t = trials[i]
             t["rs"], metrics = _train_seeds(t["trainer"], t["rs"], n)
-            curve = metrics[select_metric]               # [S, n]
+            curve = _gather_seeds(metrics, seed_mesh)[select_metric]  # [S, n]
             k = min(last_k, curve.shape[1])
             scores[i] = float(curve[:, -k:].mean(axis=1).mean())
         ranked = sorted(alive, key=lambda i: sign * scores[i], reverse=True)
@@ -285,7 +325,7 @@ def run_asha(
         "backends": trials[best_i]["trainer"].backends,
     }
     rows.append(best)
-    _write(rows, out_path)
+    _write(rows, out_path, seed_mesh)
     return rows, best
 
 

@@ -6,7 +6,8 @@ batched state, one verdict per env; ``enable_debug_mode`` turns on
 autograd's anomaly detection (NaN trapping in the backward passes).
 ``assert_replicated_in_sync`` catches ranks of a data mesh whose
 replicated state diverged; ``visualize_sharding`` prints which rank holds
-which rows of a sharded batch.
+which rows of a sharded batch. Both take a ``(pop, data)`` mesh too, and
+then act on this rank's slice: its data ranks' group.
 """
 
 from __future__ import annotations
@@ -81,12 +82,19 @@ def _leaves(tree, path=""):
         yield path, torch.tensor(tree)
 
 
+def _data_mesh(mesh):
+    """A ``DataMesh``, or a ``PopMesh``'s slice of it."""
+    return getattr(mesh, "data", mesh)
+
+
 def assert_replicated_in_sync(tree, mesh) -> None:
     """Check that every leaf of ``tree`` is bit-identical on every rank of
     ``mesh`` (a collective: every rank calls it), the divergence detector
-    of JAX ``utils/debug.py:67``. The leaves' bytes travel in one
-    all-gather; a leaf that differs between two ranks raises
+    of JAX ``utils/debug.py:67``; of a ``PopMesh``, on every data rank of
+    this rank's slice (a population member's replicas). The leaves' bytes
+    travel in one all-gather; a leaf that differs between two ranks raises
     ``AssertionError`` on every rank, naming it."""
+    mesh = _data_mesh(mesh)
     leaves = [(p, x.detach().cpu().contiguous().reshape(-1).view(torch.uint8))
               for p, x in _leaves(tree)]
     flat = torch.cat([b for _, b in leaves]) if leaves else torch.zeros(
@@ -110,7 +118,9 @@ def assert_replicated_in_sync(tree, mesh) -> None:
 def visualize_sharding(x: torch.Tensor, mesh) -> str:
     """Print, and return, which rank holds which rows of the batch that
     ``x`` (this rank's rows) is a shard of (a collective), as JAX
-    ``utils/debug.py:80`` draws a sharded array."""
+    ``utils/debug.py:80`` draws a sharded array; of a ``PopMesh``, over
+    this rank's slice."""
+    mesh = _data_mesh(mesh)
     counts = [int(c) for c in mesh.all_gather(torch.tensor([x.shape[0]]))]
     starts = [sum(counts[:r]) for r in range(len(counts))]
     lines = [f"{sum(counts)} rows x {tuple(x.shape[1:])} over "
